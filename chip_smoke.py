@@ -1,0 +1,426 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of xcube_resampling_tpu once on one GPU.
+
+Run from the repository root on a machine with an NVIDIA Hopper GPU and
+the CUDA toolkit: ``python3 chip_smoke.py``.  It
+
+1. prints the card (``nvidia-smi`` name and power limit) and builds the
+   CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``;
+2. drives the port's main path through ``resample_in_space``: the 20480^2
+   UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls), the
+   EPSG:4326 0.05 deg -> UTM32N 4096^2 reproject with nearest, triangular
+   and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
+   geometry, and a small UTM32N -> EPSG:3035 case; the kernel launch
+   counts are reset before and read after each call;
+3. holds every result against the plain PyTorch composition on the same
+   device tensors, and the small case against the JAX package's numpy
+   host path (through the port's engine, which sends numpy variables
+   there);
+4. holds each kernel against its plain version on CUDA tensors at the
+   4326 -> UTM shapes, on inputs with NaN rows, for every method, and
+   times each kernel and its plain version at the main path's shapes with
+   CUDA events;
+5. prints a JSON line of the kernels and, last,
+   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+
+It exits nonzero and prints no result when no CUDA device is visible or
+any phase fails.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from collections import Counter
+
+import numpy as np
+
+# Tolerances of a kernel against its plain version on the same inputs.
+# Both round alike (built with -fmad=false, fused multiply-adds placed
+# explicitly in both), so they are expected to agree bit for bit; the
+# float64 emulation of a fused multiply-add in the plain versions can
+# round twice in rare cases, one float32 ulp, hence 1e-5 for data in [0, 1).
+TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5}
+METHODS = ("bilinear", "nearest", "triangular")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+
+    from xcube_resampling_tpu_torch import (
+        DataArray,
+        Dataset,
+        GridMapping,
+        resample_in_space,
+    )
+    from xcube_resampling_tpu_torch import _build
+    from xcube_resampling_tpu_torch._device import LAUNCHES
+    from xcube_resampling_tpu_torch.ops.reproject_ops import (
+        FusedReprojectFn,
+        fused_reproject,
+        fused_reproject_plain,
+        make_fused_reproject_fn,
+    )
+    from xcube_resampling_tpu_torch.ops.srw import SRWFn
+    from xcube_resampling_tpu_torch.ops.srw_kernels import (
+        srw_horizontal,
+        srw_horizontal_plain,
+        srw_vertical,
+        srw_vertical_plain,
+    )
+    from xcube_resampling_tpu_torch.reproject import device_reproject_fn
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    tag = f"[{card}]"
+    print(card)
+    print(
+        f"{tag} python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}"
+    )
+
+    # -- build ---------------------------------------------------------------
+    build = _build.build()
+    print(f"{tag} nvcc build {build.seconds:.2f} s -> {build.path.name}")
+    for line in build.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {line.strip()}")
+    _build.load()
+
+    nan = float("nan")
+    err = {"srw_vertical": 0.0, "srw_horizontal": 0.0, "fused_reproject": 0.0}
+    main_launches: Counter = Counter()
+
+    def compare(got, ref, interp, what):
+        """Max abs difference; raises on unequal NaN masks or above TOL."""
+        if got.shape != ref.shape:
+            raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+        nan_got, nan_ref = torch.isnan(got), torch.isnan(ref)
+        if not torch.equal(nan_got, nan_ref):
+            raise AssertionError(f"{what}: NaN masks differ")
+        d = torch.where(nan_got, 0.0, got - ref).abs().max().item()
+        if d > TOL[interp]:
+            raise AssertionError(f"{what}: max abs diff {d} > {TOL[interp]}")
+        return d
+
+    def run_main(ds, target_gm, interp, expect):
+        """One main-path call; the launch counts are reset just before it
+        and read just after.  *expect* names the kernels it must launch."""
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = resample_in_space(ds, target_gm=target_gm, interp_methods=interp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = Counter(LAUNCHES)
+        main_launches.update(got)
+        for name in expect:
+            if got[name] < 1:
+                raise AssertionError(f"{name} was not launched: {dict(got)}")
+        for name in set(err) - set(expect):
+            if got[name]:
+                raise AssertionError(f"{name} launched off its tier: {dict(got)}")
+        return out, dt
+
+    def dataset(gm, **variables):
+        coords = dict(gm.to_coords(exclude_bounds=True))
+        coords["spatial_ref"] = DataArray(np.array(0), dims=(), attrs=gm.crs.to_cf())
+        x_dim, y_dim = gm.xy_dim_names
+        return Dataset(
+            {
+                name: DataArray(
+                    data,
+                    dims=(y_dim, x_dim) if data.ndim == 2 else ("band", y_dim, x_dim),
+                    attrs=dict(grid_mapping="spatial_ref"),
+                )
+                for name, data in variables.items()
+            },
+            coords=coords,
+        )
+
+    def check_output(arr, shape):
+        if not (isinstance(arr, torch.Tensor) and arr.device == dev):
+            raise AssertionError(f"output is not a tensor on {dev}: {type(arr)}")
+        if tuple(arr.shape) != shape or arr.dtype != torch.float32:
+            raise AssertionError(f"output {tuple(arr.shape)} {arr.dtype}, expected {shape}")
+        share = torch.isfinite(arr).float().mean().item()
+        if share < 0.5:
+            raise AssertionError(f"only {share:.3f} of the output is finite")
+        return share
+
+    def median_ms(fn, iters=10):
+        fn()
+        fn()
+        times = []
+        for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def time_pair(kernel, plain):
+        """Median ms of 10 warm calls each, in the order plain, kernel,
+        kernel, plain."""
+        p1, k1, k2, p2 = (median_ms(f) for f in (plain, kernel, kernel, plain))
+        return statistics.median([k1, k2]), statistics.median([p1, p2])
+
+    timings = {}
+
+    # -- 1. the headline: 20480^2 UTM32N -> EPSG:3035 bilinear ----------------
+    n = 20480
+    utm_gm = GridMapping.regular(
+        size=(n, n), xy_min=(300000.0, 5200000.0), xy_res=30.0, crs="epsg:32632"
+    )
+    laea_gm = GridMapping.regular(
+        size=(n, n), xy_min=(4050000.0, 2650000.0), xy_res=30.0, crs="epsg:3035"
+    )
+    t0 = time.perf_counter()
+    src = torch.from_numpy(
+        np.random.default_rng(0).random((n, n), dtype=np.float32)
+    ).to(dev)
+    ds = dataset(utm_gm, v=src)
+    print(f"{tag} 20480^2 source made and uploaded in {time.perf_counter() - t0:.2f} s")
+    out, first = run_main(ds, laea_gm, "bilinear", ("srw_vertical", "srw_horizontal"))
+    img = out["v"].data
+    share = check_output(img, (n, n))
+    warm = []
+    for _ in range(5):
+        out, dt = run_main(ds, laea_gm, "bilinear", ("srw_vertical", "srw_horizontal"))
+        warm.append(dt)
+    w = statistics.median(warm)
+    mpix = n * n / 1e6
+    print(
+        f"{tag} resample_in_space 20480^2 UTM32N->EPSG:3035 bilinear: first call "
+        f"{first:.3f} s = {mpix / first:.1f} Mpix/s (planning and precompute "
+        f"included); warm median of 5 {w * 1e3:.2f} ms = {mpix / w:.1f} Mpix/s; "
+        f"finite share {share:.4f}"
+    )
+    fn = device_reproject_fn(GridMapping.from_dataset(ds), laea_gm, "bilinear", nan, dev)
+    if not isinstance(fn, SRWFn):
+        raise AssertionError(f"headline ran {type(fn).__name__}, not the tiled SRW tier")
+    st = fn.state
+    print(
+        f"{tag} headline plan: d_v={st.d_v} d_h={st.d_h} col_tile={st.col_tile} "
+        f"row_tile={st.row_tile} window={fn.window} source {st.src_h}x{st.src_w}"
+    )
+    d = compare(out["v"].data, fn.plain(src), "bilinear", "20480^2 slice vs plain K1->K2")
+    print(f"{tag} 20480^2 slice vs plain vertical->horizontal: max abs diff {d}")
+    del out, img
+
+    # K1 and K2 timed at the headline's shapes
+    x = fn.crop(src)
+    v, _ = srw_vertical(x, fn.pos_v, st.base_v, st.col_tile, st.d_v, "bilinear")
+    timings["srw_vertical"] = time_pair(
+        lambda: srw_vertical(x, fn.pos_v, st.base_v, st.col_tile, st.d_v, "bilinear"),
+        lambda: srw_vertical_plain(x, fn.pos_v, st.base_v, st.col_tile, st.d_v, "bilinear"),
+    )
+    h_args = (v, fn.pos_h, st.base_h, st.row_tile, st.d_h, "bilinear", fn.valid, nan)
+    timings["srw_horizontal"] = time_pair(
+        lambda: srw_horizontal(*h_args), lambda: srw_horizontal_plain(*h_args)
+    )
+    for name in ("srw_vertical", "srw_horizontal"):
+        k, p = timings[name]
+        print(
+            f"{tag} {name} at 20480^2 (source {st.src_h}x{st.src_w}): kernel "
+            f"{k:.3f} ms, plain {p:.3f} ms"
+        )
+    del fn, x, v, h_args, src, ds
+    torch.cuda.empty_cache()
+
+    # -- 2. EPSG:4326 0.05 deg -> UTM32N 4096^2 --------------------------------
+    geo_gm = GridMapping.regular(
+        size=(7200, 3600), xy_min=(-180.0, -90.0), xy_res=0.05, crs="epsg:4326"
+    )
+    utm4k_gm = GridMapping.regular(
+        size=(4096, 4096), xy_min=(250000.0, 5200000.0), xy_res=150.0,
+        crs="epsg:32632",
+    )
+    geo = torch.from_numpy(
+        np.random.default_rng(0).random((3600, 7200), dtype=np.float32)
+    ).to(dev)
+    ds1 = dataset(geo_gm, v=geo)
+    geo_gm_ds = GridMapping.from_dataset(ds1)
+    for interp in ("nearest", "triangular"):
+        out, dt = run_main(ds1, utm4k_gm, interp, ("srw_vertical", "srw_horizontal"))
+        share = check_output(out["v"].data, (4096, 4096))
+        fn = device_reproject_fn(geo_gm_ds, utm4k_gm, interp, nan, dev)
+        d = compare(out["v"].data, fn.plain(geo), interp, f"4326->UTM {interp}")
+        print(
+            f"{tag} resample_in_space 4326->UTM32N 4096^2 {interp}: first call "
+            f"{dt:.3f} s; vs plain max abs diff {d}; finite share {share:.4f}"
+        )
+    stack = torch.stack([geo, 2 * geo])
+    ds2 = dataset(geo_gm, v=stack)
+    out, dt = run_main(ds2, utm4k_gm, "bilinear", ("srw_vertical", "srw_horizontal"))
+    check_output(out["v"].data, (2, 4096, 4096))
+    fn = device_reproject_fn(geo_gm_ds, utm4k_gm, "bilinear", nan, dev)
+    d = compare(out["v"].data, fn.plain(stack), "bilinear", "4326->UTM 2-band")
+    print(
+        f"{tag} resample_in_space 4326->UTM32N 4096^2 bilinear 2-band: first call "
+        f"{dt:.3f} s; vs plain max abs diff {d}; plan d_v={fn.state.d_v} "
+        f"d_h={fn.state.d_h} window={fn.window}"
+    )
+
+    # -- 3. the exact tier: XRTPU_EXACT=1 runs K3 ------------------------------
+    os.environ["XRTPU_EXACT"] = "1"
+    try:
+        out, dt = run_main(ds1, utm4k_gm, "bilinear", ("fused_reproject",))
+        check_output(out["v"].data, (4096, 4096))
+        fn = device_reproject_fn(geo_gm_ds, utm4k_gm, "bilinear", nan, dev)
+    finally:
+        del os.environ["XRTPU_EXACT"]
+    if not isinstance(fn, FusedReprojectFn):
+        raise AssertionError(f"exact tier ran {type(fn).__name__}, not K3")
+    d = compare(out["v"].data, fn.plain(geo), "bilinear", "exact tier vs plain K3")
+    err["fused_reproject"] = max(err["fused_reproject"], d)
+    print(f"{tag} XRTPU_EXACT=1 4326->UTM32N 4096^2 bilinear: first call {dt:.3f} s; vs plain max abs diff {d}")
+    x3 = geo[None]
+    timings["fused_reproject"] = time_pair(
+        lambda: fused_reproject(x3, fn.ix_c, fn.iy_c, fn.step, 4096, 4096, "bilinear", nan),
+        lambda: fused_reproject_plain(x3, fn.ix_c, fn.iy_c, fn.step, 4096, 4096, "bilinear", nan),
+    )
+    k, p = timings["fused_reproject"]
+    print(f"{tag} fused_reproject at 4096^2 from 3600x7200: kernel {k:.3f} ms, plain {p:.3f} ms")
+
+    # -- 4. a small case against the JAX package's numpy host path -------------
+    small_src = GridMapping.regular(
+        size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"
+    )
+    small_tgt = GridMapping.regular(
+        size=(80, 80), xy_min=(4320500, 3379500), xy_res=100, crs="epsg:3035"
+    )
+    ramp = np.arange(96 * 96, dtype=np.float32).reshape(96, 96) / 96
+    for interp in METHODS:
+        out, _ = run_main(
+            dataset(small_src, host=ramp, dev=torch.from_numpy(ramp).to(dev)),
+            small_tgt, interp, ("srw_vertical", "srw_horizontal"),
+        )
+        a = np.asarray(out["host"].data)
+        b = out["dev"].data.cpu().numpy()
+        both = np.isfinite(a) & np.isfinite(b)
+        mask_diff = float((np.isnan(a) != np.isnan(b)).mean())
+        diff = np.abs(a[both] - b[both])
+        # the device path interpolates a coarse coordinate field (documented
+        # ~1e-2 px) and resamples in two passes; the ramp rises 1 per row:
+        # bilinear and triangular within 1e-2, nearest may flip to the
+        # equally near cell on under 1% of pixels (tests/test_srw.py)
+        flips = float((diff > 1e-6).mean())
+        ok = both.mean() > 0.5 and mask_diff < 0.02 and (
+            flips < 0.01 if interp == "nearest" else diff.max() < 1e-2
+        )
+        print(
+            f"{tag} 96^2 UTM32N->EPSG:3035 {interp} vs numpy host path: max abs "
+            f"diff {diff.max():.3g}, differing share {flips:.4f}, NaN-mask "
+            f"mismatch {mask_diff:.4f}"
+        )
+        if not ok:
+            raise AssertionError(f"small case {interp} disagrees with the host path")
+
+    # -- 5. each kernel against its plain version, NaN rows, every method ------
+    fn = device_reproject_fn(geo_gm_ds, utm4k_gm, "bilinear", nan, dev)
+    # NaN rows in the middle of the source window the target taps
+    j_mid = (fn.window[0] + fn.window[1]) // 2 if fn.window else geo.shape[0] // 2
+    nan_stack = stack.clone()
+    nan_stack[0, j_mid] = nan
+    nan_stack[1, j_mid + 1 : j_mid + 4] = nan
+    for interp in METHODS:
+        fn = device_reproject_fn(geo_gm_ds, utm4k_gm, interp, nan, dev)
+        st = fn.state
+        x = fn.crop(nan_stack)
+        v_args = (x, fn.pos_v, st.base_v, st.col_tile, st.d_v, interp)
+        v, vd = srw_vertical(*v_args)
+        v_p, vd_p = srw_vertical_plain(*v_args)
+        d1 = compare(v, v_p, interp, f"K1 {interp}")
+        if vd is not None:
+            d1 = max(d1, compare(vd, vd_p, interp, f"K1 {interp} vd"))
+        if not torch.isnan(v_p).any():
+            raise AssertionError("the NaN rows reached no vertical output")
+        h_args = (v_p, fn.pos_h, st.base_h, st.row_tile, st.d_h, interp, fn.valid, nan, vd_p, fn.s)
+        d2 = compare(srw_horizontal(*h_args), srw_horizontal_plain(*h_args), interp, f"K2 {interp}")
+        k3 = make_fused_reproject_fn(geo_gm, utm4k_gm, interp, nan, dev)
+        d3 = compare(k3(nan_stack), k3.plain(nan_stack), interp, f"K3 {interp}")
+        for name, dd in zip(err, (d1, d2, d3)):
+            err[name] = max(err[name], dd)
+        print(
+            f"{tag} kernels vs plain, 4326->UTM 2-band with NaN rows, {interp}: "
+            f"K1 {d1}, K2 {d2}, K3 {d3}"
+        )
+        if interp == "bilinear":
+            k1, p1 = time_pair(lambda: srw_vertical(*v_args), lambda: srw_vertical_plain(*v_args))
+            k2, p2 = time_pair(
+                lambda: srw_horizontal(*h_args), lambda: srw_horizontal_plain(*h_args)
+            )
+            print(
+                f"{tag} at the 4326->UTM 2-band bilinear shapes (window "
+                f"{st.src_h}x{st.src_w} -> 4096^2): srw_vertical kernel {k1:.3f} ms, "
+                f"plain {p1:.3f} ms; srw_horizontal kernel {k2:.3f} ms, plain {p2:.3f} ms"
+            )
+    torch.cuda.synchronize()
+
+    missing = [name for name in err if main_launches[name] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    sources = {
+        "srw_vertical": (
+            "xcube_resampling_tpu_torch/csrc/srw_vertical.cu",
+            "xcube_resampling_tpu/ops/pallas_kernels.py:40",
+        ),
+        "srw_horizontal": (
+            "xcube_resampling_tpu_torch/csrc/srw_horizontal.cu",
+            "xcube_resampling_tpu/ops/srw.py:670",
+        ),
+        "fused_reproject": (
+            "xcube_resampling_tpu_torch/csrc/fused_reproject.cu",
+            "xcube_resampling_tpu/ops/reproject_ops.py:170",
+        ),
+    }
+    kernels = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": main_launches[name],
+            "max_abs_err": err[name],
+            "ms": timings[name][0],
+            "plain_ms": timings[name][1],
+        }
+        for name in err
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,271 @@
+"""The port's ``resample_in_space`` end to end against the JAX package.
+
+JAX is fed ``jnp`` arrays, so it takes its device path (not the numpy
+golden path); the port is fed CPU tensors, so its kernel wrappers run
+their plain versions.  Inputs come from a numpy seed; each comparison
+states its tolerance.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import xcube_resampling_tpu as xrt  # noqa: E402
+import xcube_resampling_tpu_torch as port  # noqa: E402
+from xcube_resampling_tpu.gridmapping import GridMapping  # noqa: E402
+from xcube_resampling_tpu.ops import esw as jax_esw  # noqa: E402
+from xcube_resampling_tpu.ops import srw as jax_srw  # noqa: E402
+from xcube_resampling_tpu.xrlite import DataArray, Dataset  # noqa: E402
+from xcube_resampling_tpu_torch import reproject as port_reproject  # noqa: E402
+from xcube_resampling_tpu_torch import utils as port_utils  # noqa: E402
+from xcube_resampling_tpu_torch.ops import srw as port_srw  # noqa: E402
+
+from .test_srw import _case  # noqa: E402
+
+METHODS = ["bilinear", "nearest", "triangular"]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_plan_cache():
+    yield
+    port_reproject._DEVICE_FN_CACHE.clear()
+
+
+def _geo_case():
+    """The 4326 -> UTM32N benchmark geometry cut down: a 0.05 deg regional
+    source (the target taps a cropped window of it) onto a 256^2 UTM grid
+    at 2400 m, coarse enough to stay above SCALE_LIMIT."""
+    source_gm = GridMapping.regular(
+        size=(800, 600), xy_min=(-10.0, 35.0), xy_res=0.05, crs="epsg:4326"
+    )
+    target_gm = GridMapping.regular(
+        size=(256, 256), xy_min=(250000.0, 5200000.0), xy_res=2400.0,
+        crs="epsg:32632",
+    )
+    return source_gm, target_gm
+
+
+def _geometry(name):
+    if name == "utm_laea":
+        source_gm, target_gm, _ = _case()
+        return source_gm, target_gm
+    return _geo_case()
+
+
+def _dataset(gm, **variables):
+    """A dataset on *gm* holding (y, x) or (band, y, x) variables."""
+    coords = dict(gm.to_coords(exclude_bounds=True))
+    coords["spatial_ref"] = DataArray(np.array(0), dims=(), attrs=gm.crs.to_cf())
+    x_dim, y_dim = gm.xy_dim_names
+    data_vars = {
+        name: DataArray(
+            data,
+            dims=(y_dim, x_dim) if data.ndim == 2 else ("band", y_dim, x_dim),
+            attrs=dict(grid_mapping="spatial_ref"),
+        )
+        for name, data in variables.items()
+    }
+    return Dataset(data_vars, coords=coords)
+
+
+def _inputs(gm, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.random((gm.height, gm.width), dtype=np.float32)
+    b = rng.random((2, gm.height, gm.width), dtype=np.float32)
+    b[1, gm.height // 3] = np.nan
+    return a, b
+
+
+def _spy(monkeypatch, module, name):
+    calls = []
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append(name)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def _assert_match(got, ref, atol=0.0):
+    """Equal NaN masks; equal values where *atol* is 0, else within it."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    if atol == 0.0:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, atol=atol, equal_nan=True)
+
+
+def _run_both(geometry, interp, j_axis_up=False):
+    source_gm, target_gm = _geometry(geometry)
+    a, b = _inputs(source_gm)
+    if j_axis_up:
+        source_gm = GridMapping.regular(
+            size=source_gm.size, xy_min=(source_gm.x_min, source_gm.y_min),
+            xy_res=source_gm.xy_res, crs=source_gm.crs, is_j_axis_up=True,
+        )
+        a, b = a[::-1].copy(), b[:, ::-1].copy()
+    jax_ds = _dataset(source_gm, a=jnp.asarray(a), b=jnp.asarray(b))
+    port_ds = _dataset(source_gm, a=torch.from_numpy(a), b=torch.from_numpy(b))
+    ref = xrt.resample_in_space(jax_ds, target_gm=target_gm, interp_methods=interp)
+    got = port.resample_in_space(port_ds, target_gm=target_gm, interp_methods=interp)
+    for name in ("a", "b"):
+        data = got[name].data
+        assert isinstance(data, torch.Tensor) and data.device.type == "cpu"
+        assert got[name].dims == ref[name].dims
+    return ref, got
+
+
+@pytest.mark.parametrize("geometry", ["utm_laea", "geo_utm"])
+@pytest.mark.parametrize("interp", METHODS)
+def test_resample_in_space_matches_jax_tiled(monkeypatch, geometry, interp):
+    """Both packages run the tiled SRW tier on the same plan with the same
+    rounding: equal for every method, NaN masks included."""
+    jax_calls = _spy(monkeypatch, jax_srw, "make_srw_fn")
+    port_calls = _spy(monkeypatch, port_srw, "make_srw_fn")
+    ref, got = _run_both(geometry, interp)
+    assert jax_calls and port_calls
+    (fn,) = port_reproject._DEVICE_FN_CACHE.values()
+    # the regional source is cropped to the window the target taps
+    assert (fn.window is not None) == (geometry == "geo_utm")
+    for name in ("a", "b"):
+        _assert_match(got[name].data.numpy(), ref[name].data)
+    assert np.isfinite(np.asarray(ref["a"].data)).mean() > 0.5
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "nearest"])
+def test_resample_in_space_exact_matches_jax_esw(monkeypatch, interp):
+    """XRTPU_EXACT=1: JAX runs its exact separable warp (ESW), the port
+    K3; ESW reproduces the direct gather bit-exactly for nearest and
+    within 2 float32 ulp at unit scale for bilinear (ops/esw.py:1-3; the
+    data lies in [0, 1))."""
+    monkeypatch.setenv("XRTPU_EXACT", "1")
+    esw_calls = _spy(monkeypatch, jax_esw, "make_esw_reproject_fn")
+    k3_calls = _spy(monkeypatch, port_reproject, "make_fused_reproject_fn")
+    srw_calls = _spy(monkeypatch, port_srw, "make_srw_fn")
+    ref, got = _run_both("utm_laea", interp)
+    assert esw_calls and k3_calls and not srw_calls
+    atol = 0.0 if interp == "nearest" else 2 * 2.0**-24
+    for name in ("a", "b"):
+        _assert_match(got[name].data.numpy(), ref[name].data, atol)
+
+
+def test_resample_in_space_j_axis_up_source():
+    """A j-axis-up torch source is flipped with torch.flip (torch has no
+    negative slice steps) and equals JAX on the same jnp source."""
+    ref, got = _run_both("utm_laea", "bilinear", j_axis_up=True)
+    for name in ("a", "b"):
+        _assert_match(got[name].data.numpy(), ref[name].data)
+
+
+def test_numpy_variables_take_the_host_path():
+    """A numpy-backed variable goes through the JAX package's numpy host
+    path, so it equals the JAX engine's output exactly; a torch variable in
+    the same dataset stays a tensor."""
+    source_gm, target_gm, _ = _case()
+    a, b = _inputs(source_gm)
+    ds = _dataset(source_gm, a=a, b=torch.from_numpy(b))
+    got = port.resample_in_space(ds, target_gm=target_gm)
+    ref = xrt.resample_in_space(_dataset(source_gm, a=a), target_gm=target_gm)
+    assert isinstance(got["a"].data, np.ndarray)
+    np.testing.assert_array_equal(got["a"].data, ref["a"].data)
+    assert isinstance(got["b"].data, torch.Tensor)
+
+
+@pytest.mark.parametrize(
+    "dtype, fill, interp",
+    [
+        (torch.float32, np.nan, "bilinear"),
+        (torch.float64, np.nan, "bilinear"),
+        (torch.uint8, 255, "nearest"),
+        (torch.uint16, 65535, "nearest"),
+        (torch.int32, -1, "nearest"),
+    ],
+)
+def test_option_defaults_for_torch_dtypes(dtype, fill, interp):
+    """The JAX resolvers key defaults on numpy dtypes; the port resolves
+    torch-backed variables on the mapped numpy dtype."""
+    var = DataArray(torch.zeros((1, 3, 3), dtype=dtype), dims=("b", "y", "x"))
+    got_fill = port_utils._get_fill_value(None, "v", var)
+    if np.isnan(fill):
+        assert np.isnan(got_fill)
+    else:
+        assert got_fill == fill
+    assert port_utils._get_interp_method_str(None, "v", var) == interp
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    assert port_utils._get_fill_value({np_dtype: 7}, "v", var) == 7
+    assert port_utils._get_interp_method_str({"v": 0}, "v", var) == "nearest"
+
+
+def _not_ported(monkeypatch, case):
+    source_gm, target_gm, _ = _case()
+    data = torch.from_numpy(_inputs(source_gm)[0])
+    kwargs = {}
+    if case == "affine":
+        target_gm = GridMapping.regular(
+            size=(40, 40), xy_min=(565000.0, 5930000.0), xy_res=200.0,
+            crs="epsg:32632",
+        )
+    elif case == "rectify":
+        from .sampledata import create_olci_like_swath
+
+        swath = create_olci_like_swath(width=16, height=16, tile_size=16)
+        return port.resample_in_space(swath, target_gm=target_gm)
+    elif case == "downscale":
+        target_gm = GridMapping.regular(
+            size=(20, 20), xy_min=(4320500, 3379500), xy_res=400,
+            crs="epsg:3035",
+        )
+    elif case == "extreme_warp":
+        monkeypatch.setenv("XRTPU_FAST_EXTREME_WARP", "1")
+    elif case == "float64":
+        data = data.double()
+    elif case == "cubic":
+        kwargs["interp_methods"] = "cubic"
+    ds = _dataset(source_gm, a=data)
+    return port.resample_in_space(ds, target_gm=target_gm, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "case, match",
+    [
+        ("affine", "affine route"),
+        ("rectify", "rectify route"),
+        ("downscale", "pre-downscale"),
+        ("extreme_warp", "XRTPU_FAST_EXTREME_WARP"),
+        ("float64", "float32 tensors only"),
+        ("cubic", "interp_methods must be one of"),
+    ],
+)
+def test_routes_outside_the_slice_raise(monkeypatch, case, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _not_ported(monkeypatch, case)
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import xcube_resampling_tpu_torch\n"
+        "import xcube_resampling_tpu_torch.reproject, xcube_resampling_tpu_torch.spatial\n"
+        "import xcube_resampling_tpu_torch.ops.srw, xcube_resampling_tpu_torch._build\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+        capture_output=True, text=True, timeout=120, env=env,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""Profile the port's headline reprojection on one GPU.
+
+Run from the repository root on a machine with an NVIDIA Hopper GPU and
+the CUDA toolkit: ``python3 tools/profile_headline.py``.  On the 20480^2
+UTM32N -> EPSG:3035 bilinear reproject that ``chip_smoke.py`` drives, it
+prints
+
+1. the first call's host planning, phase by phase (coarse geometry,
+   source window, the two gates, ``plan_srw``, ``plan_to_device`` and the
+   device precompute), each timed alone with ``time.perf_counter``;
+2. the wall time of 10 warm ``resample_in_space`` calls (median, min,
+   max) and their host time (the call returning before the kernels end);
+3. the device time per kernel over 5 warm calls from ``torch.profiler``
+   (``key_averages``), and the device idle share of a warm call:
+   1 - device time / median wall time;
+4. the top host functions of 5 warm calls by ``cProfile`` cumulative time;
+5. last, one JSON object with the numbers above.
+
+Every line carries the card's name and power limit.  It imports nothing
+of JAX and exits nonzero when no CUDA device is visible.
+"""
+
+from __future__ import annotations
+
+import cProfile
+import io
+import json
+import pstats
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+N = 20480
+WARM = 10
+PROFILED = 5
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def _device_us(evt) -> float:
+    """An event's own device time in us, under either profiler API name."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(evt, attr, None)
+        if value is not None:
+            return float(value)
+    return 0.0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_headline: no CUDA device is visible", file=sys.stderr)
+        return 2
+
+    from xcube_resampling_tpu.ops.srw import (
+        _coarse_geometry,
+        _fields_interp_err,
+        _source_window_gm,
+        _twopass_slope,
+        plan_srw,
+    )
+    from xcube_resampling_tpu_torch import (
+        DataArray,
+        Dataset,
+        GridMapping,
+        _build,
+        resample_in_space,
+    )
+    from xcube_resampling_tpu_torch.ops.reproject_ops import STEP
+    from xcube_resampling_tpu_torch.ops.srw import plan_to_device, precompute
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    tag = f"[{card}]"
+    print(card)
+    _build.load()
+
+    utm_gm = GridMapping.regular(
+        size=(N, N), xy_min=(300000.0, 5200000.0), xy_res=30.0, crs="epsg:32632"
+    )
+    laea_gm = GridMapping.regular(
+        size=(N, N), xy_min=(4050000.0, 2650000.0), xy_res=30.0, crs="epsg:3035"
+    )
+    src = torch.from_numpy(
+        np.random.default_rng(0).random((N, N), dtype=np.float32)
+    ).to(dev)
+    coords = dict(utm_gm.to_coords(exclude_bounds=True))
+    coords["spatial_ref"] = DataArray(np.array(0), dims=(), attrs=utm_gm.crs.to_cf())
+    x_dim, y_dim = utm_gm.xy_dim_names
+    ds = Dataset(
+        {"v": DataArray(src, dims=(y_dim, x_dim), attrs=dict(grid_mapping="spatial_ref"))},
+        coords=coords,
+    )
+    src_gm = GridMapping.from_dataset(ds)
+
+    # -- 1. the first call's planning, phase by phase ------------------------
+    phases = {}
+    t = time.perf_counter()
+    fields = _coarse_geometry(src_gm, laea_gm, STEP)
+    phases["coarse_geometry"] = time.perf_counter() - t
+    t = time.perf_counter()
+    window = _source_window_gm(src_gm, fields, margin=8 + 48)
+    phases["source_window"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gates = (_fields_interp_err(fields), _twopass_slope(fields))
+    phases["gates"] = time.perf_counter() - t
+    t = time.perf_counter()
+    plan = plan_srw(src_gm, laea_gm, step=STEP, fields=fields)
+    phases["plan_srw"] = time.perf_counter() - t
+    t = time.perf_counter()
+    state = plan_to_device(plan, dev)
+    precompute(state, triangular=False)
+    torch.cuda.synchronize()
+    phases["plan_to_device_and_precompute"] = time.perf_counter() - t
+    del state
+    print(
+        f"{tag} planning phases (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+        + f"; window {None if window is None else window[1]}; "
+        f"gates {gates[0]:.4f} px, slope {gates[1]:.4f}"
+    )
+
+    def call():
+        return resample_in_space(ds, target_gm=laea_gm, interp_methods="bilinear")
+
+    t = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t
+    print(f"{tag} first call {first:.3f} s (planning and precompute included)")
+
+    # -- 2. warm wall and host time ------------------------------------------
+    wall, host = [], []
+    for _ in range(WARM):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = call()
+        host.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t)
+        del out
+    wall_ms = [x * 1e3 for x in wall]
+    host_ms = [x * 1e3 for x in host]
+    med = statistics.median(wall_ms)
+    print(
+        f"{tag} warm wall ms over {WARM} calls: median {med:.3f}, min "
+        f"{min(wall_ms):.3f}, max {max(wall_ms):.3f}; host ms (call returns): "
+        f"median {statistics.median(host_ms):.3f}; {N * N / 1e3 / med:.1f} Mpix/s"
+    )
+
+    # -- 3. device time per kernel -------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            call()
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0:
+            kernels[evt.key] = us / 1e3 / PROFILED
+    device_ms = sum(kernels.values())
+    idle = 1.0 - device_ms / med if device_ms else None
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1]):
+        print(f"{tag} device ms per call: {ms:.3f}  {name}")
+    print(
+        f"{tag} device ms per call, all kernels: {device_ms:.3f}; idle share "
+        f"of the median warm call: "
+        + ("not measured (no device time)" if idle is None else f"{idle:.3f}")
+    )
+
+    # -- 4. host functions ---------------------------------------------------
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(PROFILED):
+        call()
+    pr.disable()
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(15)
+    print(f"{tag} cProfile of {PROFILED} warm calls, top 15 by cumulative time:")
+    print(buf.getvalue().strip())
+
+    print(
+        json.dumps(
+            {
+                "card": card,
+                "first_call_s": first,
+                "planning_s": phases,
+                "warm_wall_ms": {"median": med, "min": min(wall_ms), "max": max(wall_ms)},
+                "warm_host_ms_median": statistics.median(host_ms),
+                "device_ms_per_call": kernels,
+                "device_idle_share": idle,
+            }
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,143 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into one shared
+library with a plain C interface, at first use, into
+``build/xcube_resampling_tpu_torch/`` beside the package.  The library's
+name carries a hash of the sources and flags, so an edited source builds a
+new library.  Nothing here includes PyTorch's headers: a build takes
+seconds, not minutes.
+
+``-fmad=false`` keeps ``a + b * c`` as two rounded operations, as the plain
+PyTorch versions (one operation per launch) and the JAX package compute it,
+so that the kernels agree with them bit for bit where the arithmetic is
+the same (the JAX package's C++ build uses ``-ffp-contract=off`` for the
+same reason).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "xcube_resampling_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every kernel entry point (all return cudaGetLastError())
+_SIGNATURES = {
+    # src, pos_v, base_v, v, vd, batch, src_h, src_w, out_h, n_col_tiles,
+    # col_tile, d_v, method, stream
+    "xrt_srw_vertical_f32": [
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _P,
+    ],
+    # v, vd, pos_h, base_h, valid, s, out, batch, out_h, out_w, src_w,
+    # row_tile, d_h, method, fill, stream
+    "xrt_srw_horizontal_f32": [
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _P,
+    ],
+    # src, ix_c, iy_c, out, batch, src_h, src_w, ncj, nci, out_h, out_w,
+    # step, method, fill, stream
+    "xrt_fused_reproject_f32": [
+        _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _P,
+    ],
+}
+
+
+@dataclass
+class Build:
+    path: Path
+    seconds: float  # nvcc wall time; 0.0 when the library was already built
+    log: str  # nvcc's output (ptxas register and spill report)
+
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``, ``PATH``, or the toolkit's default
+    install location; raises ``RuntimeError`` when there is none."""
+    cuda_home = os.environ.get("CUDA_HOME")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found: set CUDA_HOME to the CUDA toolkit or put nvcc on "
+        "PATH to build the xcube_resampling_tpu_torch kernels"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libxrt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Build:
+    """Compile the kernels unless the library for these sources exists."""
+    path = _library_path()
+    if path.is_file():
+        return Build(path, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    os.replace(tmp, path)
+    return Build(path, seconds, log)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build().path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.xrt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.xrt_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.xrt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({rc})")

@@ -1,0 +1,178 @@
+"""K3: the fused direct reprojection gather, and its field interpolation.
+
+``fused_reproject`` (``csrc/fused_reproject.cu``) replaces the XLA kernel
+of ``xcube_resampling_tpu/ops/reproject_ops.py:make_fused_reproject_fn``:
+bilinear interpolation of the coarse fractional source-index fields, the
+validity mask, clamp, the nearest/bilinear/triangular 4-tap gather and the
+fill select, fused per target pixel.  The wrapper runs the plain PyTorch
+version (``fused_reproject_plain``, built from :func:`interp_field` and
+:func:`gather_interp`) for CPU tensors and launches the kernel for CUDA
+tensors, or raises.
+
+The coarse fields come from the JAX package's numpy planner
+(``coarse_coord_field``), evaluated once per geometry on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xcube_resampling_tpu.gridmapping import GridMapping
+from xcube_resampling_tpu.ops.reproject_ops import coarse_coord_field
+
+from .. import _build
+from .._device import count_launch, on_cpu, require_cuda
+from .srw_kernels import fma, lerp, method_code
+
+_F32 = torch.float32
+
+# Target pixels between samples of the coarse coordinate fields: the
+# default of the JAX package's make_fused_reproject_fn (reproject_ops.py:155)
+# and make_srw_reproject_fn (srw.py:1555).
+STEP = 16
+
+
+def interp_field(field, rows, cols, step):
+    """Bilinear interpolation of a coarse (ncj, nci) field at target rows
+    (H, 1) and columns (1, W), as ``reproject_ops._interp_field`` (its
+    lerps rounded as XLA's fused multiply-adds)."""
+    inv = 1.0 / step
+    cj = rows * inv
+    ci = cols * inv
+    j0 = torch.floor(cj).to(torch.int64)
+    i0 = torch.floor(ci).to(torch.int64)
+    fj = cj - j0
+    fi = ci - i0
+    j0 = j0.clamp(0, field.shape[0] - 2)
+    i0 = i0.clamp(0, field.shape[1] - 2)
+    f00 = field[j0, i0]
+    f01 = field[j0, i0 + 1]
+    f10 = field[j0 + 1, i0]
+    f11 = field[j0 + 1, i0 + 1]
+    return lerp(lerp(f00, f01, fi), lerp(f10, f11, fi), fj)
+
+
+def gather_interp(src, ix, iy, interp_method, fill_value):
+    """Bounds-masked, clamp-to-edge gather of ``src`` (..., H, W) at
+    fractional source indices, as ``reproject_ops.gather_interp``."""
+    src_h, src_w = src.shape[-2], src.shape[-1]
+    valid = (ix > -0.5) & (ix < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
+    ix = ix.clamp(0, src_w - 1)
+    iy = iy.clamp(0, src_h - 1)
+    if interp_method == "nearest":
+        vals = src[..., torch.round(iy).long(), torch.round(ix).long()]
+    else:
+        x0f = torch.floor(ix)
+        y0f = torch.floor(iy)
+        fx = ix - x0f
+        fy = iy - y0f
+        x0 = x0f.long()
+        y0 = y0f.long()
+        x1 = (x0 + 1).clamp(0, src_w - 1)
+        y1 = (y0 + 1).clamp(0, src_h - 1)
+        v00 = src[..., y0, x0]
+        v01 = src[..., y0, x1]
+        v10 = src[..., y1, x0]
+        v11 = src[..., y1, x1]
+        if interp_method == "triangular":
+            near = fma(fy, v10 - v00, lerp(v00, v01, fx))
+            far = fma(1.0 - fy, v01 - v11, lerp(v11, v10, 1.0 - fx))
+            vals = torch.where(fx + fy < 1.0, near, far)
+        else:
+            vals = lerp(lerp(v00, v01, fx), lerp(v10, v11, fx), fy)
+    fill = torch.tensor(fill_value, dtype=vals.dtype, device=vals.device)
+    return torch.where(valid, vals, fill)
+
+
+def fused_reproject_plain(
+    src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value
+):
+    """Plain PyTorch version of K3: (B, out_h, out_w) from (B, H, W)."""
+    method_code(interp_method)
+    rows = torch.arange(out_h, dtype=_F32, device=src.device)[:, None]
+    cols = torch.arange(out_w, dtype=_F32, device=src.device)[None, :]
+    ix = interp_field(ix_c, rows, cols, step)
+    iy = interp_field(iy_c, rows, cols, step)
+    return gather_interp(src, ix, iy, interp_method, fill_value)
+
+
+def fused_reproject(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value):
+    """K3: the fused direct gather, (B, out_h, out_w) from (B, H, W)."""
+    if on_cpu(src, ix_c, iy_c):
+        return fused_reproject_plain(
+            src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value
+        )
+    method = method_code(interp_method)
+    batch, src_h, src_w = src.shape
+    ncj, nci = ix_c.shape
+    if ncj < 2 or nci < 2 or step < 1:
+        raise ValueError(f"coarse fields need 2x2 samples and step >= 1: {ix_c.shape}, {step}")
+    require_cuda(src, "src", _F32, (batch, src_h, src_w))
+    require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
+    require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
+    out = torch.empty((batch, out_h, out_w), dtype=_F32, device=src.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(src.device):
+        rc = lib.xrt_fused_reproject_f32(
+            src.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(),
+            batch, src_h, src_w, ncj, nci, out_h, out_w, step, method,
+            float(fill_value), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "fused_reproject")
+    count_launch("fused_reproject")
+    return out
+
+
+class FusedReprojectFn:
+    """``fn(src) -> target`` through K3; ``fn.plain(src)`` through its
+    plain version.  ``src`` is (..., src_h, src_w) float32."""
+
+    def __init__(self, ix_c, iy_c, step, src_h, src_w, out_h, out_w,
+                 interp_method, fill_value):
+        method_code(interp_method)
+        self.ix_c, self.iy_c, self.step = ix_c, iy_c, step
+        self.src_h, self.src_w = src_h, src_w
+        self.out_h, self.out_w = out_h, out_w
+        self.interp_method, self.fill_value = interp_method, fill_value
+
+    def _run(self, kernel, src):
+        if tuple(src.shape[-2:]) != (self.src_h, self.src_w):
+            raise ValueError(
+                f"source shape {tuple(src.shape)} does not end in "
+                f"{(self.src_h, self.src_w)}"
+            )
+        lead = src.shape[:-2]
+        x = src.reshape(-1, self.src_h, self.src_w).contiguous()
+        out = kernel(
+            x, self.ix_c, self.iy_c, self.step, self.out_h, self.out_w,
+            self.interp_method, self.fill_value,
+        )
+        return out.reshape(lead + out.shape[-2:])
+
+    def __call__(self, src):
+        return self._run(fused_reproject, src)
+
+    def plain(self, src):
+        return self._run(fused_reproject_plain, src)
+
+
+def make_fused_reproject_fn(
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    interp_method: str = "bilinear",
+    fill_value: float = np.nan,
+    device="cpu",
+) -> FusedReprojectFn:
+    """The fused direct reprojection of ``source_gm`` onto ``target_gm``,
+    with its coarse coordinate fields on *device*."""
+    method_code(interp_method)
+    ix_c, iy_c, step = coarse_coord_field(source_gm, target_gm, STEP)
+    return FusedReprojectFn(
+        torch.from_numpy(ix_c).to(device),
+        torch.from_numpy(iy_c).to(device),
+        step, source_gm.height, source_gm.width,
+        target_gm.height, target_gm.width, interp_method, fill_value,
+    )
