@@ -10,21 +10,24 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls), the
    EPSG:4326 0.05 deg -> UTM32N 4096^2 reproject with nearest, triangular
    and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
-   geometry, and a small UTM32N -> EPSG:3035 case; the kernel launch
+   geometry, and a small UTM32N -> EPSG:3035 case with a numpy variable
+   (placed on the card by ``device``) beside a tensor; the kernel launch
    counts are reset before and read after each call;
 3. holds every result against the plain PyTorch composition on the same
-   device tensors, and the small case against the JAX package's numpy
-   host path (through the port's engine, which sends numpy variables
-   there);
+   device tensors, and the small case against the port's own K3 (the
+   direct gather) within the two-pass bounds;
 4. holds each kernel against its plain version on CUDA tensors at the
-   4326 -> UTM shapes, on inputs with NaN rows, for every method, and
-   times each kernel and its plain version at the main path's shapes with
-   CUDA events;
+   headline's shapes, at the 4326 -> UTM shapes on inputs with NaN rows,
+   and on a geometry whose tap windows clip at the source's top and bottom
+   edges, for every method; times each kernel and its plain version at
+   the main path's shapes with CUDA events, and computes each kernel's
+   bound (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, the
+   H100 SXM data sheet's peaks);
 5. prints a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero and prints no result when no CUDA device is visible or
-any phase fails.  It imports nothing of JAX.
+any phase fails.  It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -46,6 +49,41 @@ import numpy as np
 # round twice in rare cases, one float32 ulp, hence 1e-5 for data in [0, 1).
 TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5}
 METHODS = ("bilinear", "nearest", "triangular")
+# H100 SXM data-sheet peaks: HBM3 bytes/s and float32 (non-tensor) FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of bytes over
+    the memory rate and operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def vertical_bound(src, st, tri):
+    """K1 reads the source, the coarse field and the bases once and writes
+    v (and vd); per output and tap a weight (4 operations) and a fused
+    multiply-add (2), twice for triangular; 12 operations of field
+    interpolation per position."""
+    batch, _, src_w = src.shape
+    outs = batch * st.out_h * src_w
+    n_bytes = 4 * (src.numel() + st.iystar_c.numel() + st.base_v.numel()
+                   + outs * (2 if tri else 1))
+    n_ops = outs * st.d_v * (12 if tri else 6) + 12 * st.out_h * src_w
+    return bound(n_bytes, n_ops)
+
+
+def horizontal_bound(v, st, tri):
+    """K2 reads v (and vd), two coarse fields and the bases once and writes
+    the output; per output and tap 6 operations (12 for triangular); 40
+    operations of geometry per pixel."""
+    batch = v.shape[0]
+    outs = batch * st.out_h * st.out_w
+    n_bytes = 4 * (v.numel() * (2 if tri else 1) + 2 * st.ix_c.numel()
+                   + st.base_h.numel() + outs)
+    n_ops = outs * st.d_h * (12 if tri else 6) + 40 * st.out_h * st.out_w
+    return bound(n_bytes, n_ops)
 
 
 def card_line() -> str:
@@ -77,7 +115,7 @@ def main() -> int:
         fused_reproject_plain,
         make_fused_reproject_fn,
     )
-    from xcube_resampling_tpu_torch.ops.srw import SRWFn
+    from xcube_resampling_tpu_torch.ops.srw import SRWFn, make_srw_reproject_fn
     from xcube_resampling_tpu_torch.ops.srw_kernels import (
         srw_horizontal,
         srw_horizontal_plain,
@@ -184,6 +222,7 @@ def main() -> int:
         return statistics.median([k1, k2]), statistics.median([p1, p2])
 
     timings = {}
+    bounds = {}
 
     # -- 1. the headline: 20480^2 UTM32N -> EPSG:3035 bilinear ----------------
     n = 20480
@@ -210,7 +249,7 @@ def main() -> int:
     mpix = n * n / 1e6
     print(
         f"{tag} resample_in_space 20480^2 UTM32N->EPSG:3035 bilinear: first call "
-        f"{first:.3f} s = {mpix / first:.1f} Mpix/s (planning and precompute "
+        f"{first:.3f} s = {mpix / first:.1f} Mpix/s (planning "
         f"included); warm median of 5 {w * 1e3:.2f} ms = {mpix / w:.1f} Mpix/s; "
         f"finite share {share:.4f}"
     )
@@ -226,24 +265,40 @@ def main() -> int:
     print(f"{tag} 20480^2 slice vs plain vertical->horizontal: max abs diff {d}")
     del out, img
 
-    # K1 and K2 timed at the headline's shapes
-    x = fn.crop(src)
-    v, _ = srw_vertical(x, fn.pos_v, st.base_v, st.col_tile, st.d_v, "bilinear")
-    timings["srw_vertical"] = time_pair(
-        lambda: srw_vertical(x, fn.pos_v, st.base_v, st.col_tile, st.d_v, "bilinear"),
-        lambda: srw_vertical_plain(x, fn.pos_v, st.base_v, st.col_tile, st.d_v, "bilinear"),
+    print(
+        f"{tag} headline windows: K1 blocks {st.win_v.rows}x{st.win_v.cols}, "
+        f"{st.win_v.extent} source rows staged; K2 blocks "
+        f"{st.win_h.rows}x{st.win_h.cols}, {st.win_h.extent} v columns staged"
     )
-    h_args = (v, fn.pos_h, st.base_h, st.row_tile, st.d_h, "bilinear", fn.valid, nan)
+
+    # K1 and K2 held against their plain versions and timed at the
+    # headline's shapes
+    x = fn.crop(src)
+    v_args = fn.vertical_args(x)
+    v, _ = srw_vertical(*v_args)
+    d1 = compare(v, srw_vertical_plain(*v_args)[0], "bilinear", "20480^2 K1 vs plain")
+    h_args = fn.horizontal_args(v)
+    d2 = compare(srw_horizontal(*h_args), srw_horizontal_plain(*h_args), "bilinear",
+                 "20480^2 K2 vs plain")
+    err["srw_vertical"] = max(err["srw_vertical"], d1)
+    err["srw_horizontal"] = max(err["srw_horizontal"], d2)
+    timings["srw_vertical"] = time_pair(
+        lambda: srw_vertical(*v_args), lambda: srw_vertical_plain(*v_args)
+    )
     timings["srw_horizontal"] = time_pair(
         lambda: srw_horizontal(*h_args), lambda: srw_horizontal_plain(*h_args)
     )
+    bounds["srw_vertical"] = vertical_bound(x, st, False)
+    bounds["srw_horizontal"] = horizontal_bound(v, st, False)
     for name in ("srw_vertical", "srw_horizontal"):
         k, p = timings[name]
+        b, by = bounds[name]
         print(
             f"{tag} {name} at 20480^2 (source {st.src_h}x{st.src_w}): kernel "
-            f"{k:.3f} ms, plain {p:.3f} ms"
+            f"{k:.3f} ms, plain {p:.3f} ms, bound {b:.3f} ms ({by}); vs plain "
+            f"max abs diff {err[name]}"
         )
-    del fn, x, v, h_args, src, ds
+    del fn, x, v, v_args, h_args, src, ds
     torch.cuda.empty_cache()
 
     # -- 2. EPSG:4326 0.05 deg -> UTM32N 4096^2 --------------------------------
@@ -298,10 +353,22 @@ def main() -> int:
         lambda: fused_reproject(x3, fn.ix_c, fn.iy_c, fn.step, 4096, 4096, "bilinear", nan),
         lambda: fused_reproject_plain(x3, fn.ix_c, fn.iy_c, fn.step, 4096, 4096, "bilinear", nan),
     )
+    # K3 must write the output; of the source it needs only the window its
+    # taps reach (from the coarse fields), 4 taps and ~30 operations per pixel
+    ix_c, iy_c = fn.ix_c, fn.iy_c
+    tapped = (
+        (ix_c.max() - ix_c.min() + 2).clamp(1, geo.shape[1])
+        * (iy_c.max() - iy_c.min() + 2).clamp(1, geo.shape[0])
+    ).item()
+    bounds["fused_reproject"] = bound(4 * (4096 * 4096 + tapped), 4096 * 4096 * 30)
     k, p = timings["fused_reproject"]
-    print(f"{tag} fused_reproject at 4096^2 from 3600x7200: kernel {k:.3f} ms, plain {p:.3f} ms")
+    b, by = bounds["fused_reproject"]
+    print(
+        f"{tag} fused_reproject at 4096^2 from 3600x7200: kernel {k:.3f} ms, plain "
+        f"{p:.3f} ms, bound {b:.4f} ms ({by})"
+    )
 
-    # -- 4. a small case against the JAX package's numpy host path -------------
+    # -- 4. a small case: numpy and tensor variables, against K3 -------------
     small_src = GridMapping.regular(
         size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"
     )
@@ -309,18 +376,32 @@ def main() -> int:
         size=(80, 80), xy_min=(4320500, 3379500), xy_res=100, crs="epsg:3035"
     )
     ramp = np.arange(96 * 96, dtype=np.float32).reshape(96, 96) / 96
+    ramp_dev = torch.from_numpy(ramp).to(dev)
     for interp in METHODS:
-        out, _ = run_main(
-            dataset(small_src, host=ramp, dev=torch.from_numpy(ramp).to(dev)),
-            small_tgt, interp, ("srw_vertical", "srw_horizontal"),
+        LAUNCHES.clear()
+        out = resample_in_space(
+            dataset(small_src, host=ramp, dev=ramp_dev), target_gm=small_tgt,
+            interp_methods=interp, device=dev,
         )
-        a = np.asarray(out["host"].data)
-        b = out["dev"].data.cpu().numpy()
+        torch.cuda.synchronize()
+        main_launches.update(LAUNCHES)
+        if LAUNCHES["srw_vertical"] < 2 or LAUNCHES["srw_horizontal"] < 2:
+            raise AssertionError(f"small case {interp} skipped the SRW tier: {dict(LAUNCHES)}")
+        a = out["host"].data
+        if not (isinstance(a, torch.Tensor) and a.device == dev):
+            raise AssertionError(f"numpy variable did not come back on {dev}")
+        if not torch.equal(torch.isnan(a), torch.isnan(out["dev"].data)) or not torch.equal(
+            torch.nan_to_num(a), torch.nan_to_num(out["dev"].data)
+        ):
+            raise AssertionError(f"small case {interp}: numpy and tensor variables differ")
+        k3 = make_fused_reproject_fn(small_src, small_tgt, interp, nan, dev)
+        a = a.cpu().numpy()
+        b = k3.plain(ramp_dev[None])[0].cpu().numpy()
         both = np.isfinite(a) & np.isfinite(b)
         mask_diff = float((np.isnan(a) != np.isnan(b)).mean())
         diff = np.abs(a[both] - b[both])
-        # the device path interpolates a coarse coordinate field (documented
-        # ~1e-2 px) and resamples in two passes; the ramp rises 1 per row:
+        # the two-pass path deviates from the direct gather by a fraction
+        # of a pixel (documented ~1e-2 px); the ramp rises 1 per row:
         # bilinear and triangular within 1e-2, nearest may flip to the
         # equally near cell on under 1% of pixels (tests/test_srw.py)
         flips = float((diff > 1e-6).mean())
@@ -328,52 +409,82 @@ def main() -> int:
             flips < 0.01 if interp == "nearest" else diff.max() < 1e-2
         )
         print(
-            f"{tag} 96^2 UTM32N->EPSG:3035 {interp} vs numpy host path: max abs "
-            f"diff {diff.max():.3g}, differing share {flips:.4f}, NaN-mask "
-            f"mismatch {mask_diff:.4f}"
+            f"{tag} 96^2 UTM32N->EPSG:3035 {interp}, numpy variable on the card "
+            f"(equals the tensor variable) vs the port's K3: max abs diff "
+            f"{diff.max():.3g}, differing share {flips:.4f}, NaN-mask mismatch "
+            f"{mask_diff:.4f}"
         )
         if not ok:
-            raise AssertionError(f"small case {interp} disagrees with the host path")
+            raise AssertionError(f"small case {interp} disagrees with K3")
 
-    # -- 5. each kernel against its plain version, NaN rows, every method ------
+    # -- 5. each kernel against its plain version, every method ---------------
+    # NaN rows in the middle of the source window the target taps, and a
+    # geometry whose target reaches past the source's top and bottom, so
+    # the K1 windows clip at both edges (base_v < 0, base_v + d_v > src_h)
     fn = device_reproject_fn(geo_gm_ds, utm4k_gm, "bilinear", nan, dev)
-    # NaN rows in the middle of the source window the target taps
     j_mid = (fn.window[0] + fn.window[1]) // 2 if fn.window else geo.shape[0] // 2
     nan_stack = stack.clone()
     nan_stack[0, j_mid] = nan
     nan_stack[1, j_mid + 1 : j_mid + 4] = nan
+    # a UTM32N source and a larger EPSG:3035 target around it, at 30 m
+    edge_src = GridMapping.regular(
+        size=(2048, 2048), xy_min=(500000.0, 5400000.0), xy_res=30.0, crs="epsg:32632"
+    )
+    edge_tgt = GridMapping.regular(
+        size=(2304, 2688), xy_min=(4245000.0, 2838000.0), xy_res=30.0, crs="epsg:3035"
+    )
+    edge_data = torch.from_numpy(
+        np.random.default_rng(1).random((2, edge_src.height, edge_src.width), dtype=np.float32)
+    ).to(dev)
+    edge_data[1, edge_src.height // 2] = nan
     for interp in METHODS:
-        fn = device_reproject_fn(geo_gm_ds, utm4k_gm, interp, nan, dev)
-        st = fn.state
-        x = fn.crop(nan_stack)
-        v_args = (x, fn.pos_v, st.base_v, st.col_tile, st.d_v, interp)
-        v, vd = srw_vertical(*v_args)
-        v_p, vd_p = srw_vertical_plain(*v_args)
-        d1 = compare(v, v_p, interp, f"K1 {interp}")
-        if vd is not None:
-            d1 = max(d1, compare(vd, vd_p, interp, f"K1 {interp} vd"))
-        if not torch.isnan(v_p).any():
-            raise AssertionError("the NaN rows reached no vertical output")
-        h_args = (v_p, fn.pos_h, st.base_h, st.row_tile, st.d_h, interp, fn.valid, nan, vd_p, fn.s)
-        d2 = compare(srw_horizontal(*h_args), srw_horizontal_plain(*h_args), interp, f"K2 {interp}")
+        cases = (
+            ("4326->UTM 2-band with NaN rows",
+             device_reproject_fn(geo_gm_ds, utm4k_gm, interp, nan, dev), nan_stack),
+            ("edge-clipping UTM32N->EPSG:3035 2-band",
+             make_srw_reproject_fn(edge_src, edge_tgt, interp, nan, dev), edge_data),
+        )
+        for what, fn, data in cases:
+            if not isinstance(fn, SRWFn):
+                raise AssertionError(f"{what}: no tiled SRW plan")
+            st = fn.state
+            if what.startswith("edge") and not (
+                st.base_v.min().item() < 0
+                and st.base_v.max().item() + st.d_v > st.src_h
+            ):
+                raise AssertionError(f"{what}: the K1 windows do not clip at both edges")
+            v_args = fn.vertical_args(fn.crop(data))
+            v, vd = srw_vertical(*v_args)
+            v_p, vd_p = srw_vertical_plain(*v_args)
+            d1 = compare(v, v_p, interp, f"K1 {interp} {what}")
+            if vd is not None:
+                d1 = max(d1, compare(vd, vd_p, interp, f"K1 {interp} vd {what}"))
+            if not torch.isnan(v_p).any():
+                raise AssertionError(f"{what}: the NaN rows reached no vertical output")
+            h_args = fn.horizontal_args(v_p)
+            d2 = compare(
+                srw_horizontal(*h_args, vd_p), srw_horizontal_plain(*h_args, vd_p),
+                interp, f"K2 {interp} {what}",
+            )
+            err["srw_vertical"] = max(err["srw_vertical"], d1)
+            err["srw_horizontal"] = max(err["srw_horizontal"], d2)
+            print(f"{tag} kernels vs plain, {what}, {interp}: K1 {d1}, K2 {d2}")
+            if interp == "bilinear" and what.startswith("4326"):
+                k1, p1 = time_pair(
+                    lambda: srw_vertical(*v_args), lambda: srw_vertical_plain(*v_args)
+                )
+                k2, p2 = time_pair(
+                    lambda: srw_horizontal(*h_args), lambda: srw_horizontal_plain(*h_args)
+                )
+                print(
+                    f"{tag} at the 4326->UTM 2-band bilinear shapes (window "
+                    f"{st.src_h}x{st.src_w} -> 4096^2): srw_vertical kernel {k1:.3f} ms, "
+                    f"plain {p1:.3f} ms; srw_horizontal kernel {k2:.3f} ms, plain {p2:.3f} ms"
+                )
         k3 = make_fused_reproject_fn(geo_gm, utm4k_gm, interp, nan, dev)
         d3 = compare(k3(nan_stack), k3.plain(nan_stack), interp, f"K3 {interp}")
-        for name, dd in zip(err, (d1, d2, d3)):
-            err[name] = max(err[name], dd)
-        print(
-            f"{tag} kernels vs plain, 4326->UTM 2-band with NaN rows, {interp}: "
-            f"K1 {d1}, K2 {d2}, K3 {d3}"
-        )
-        if interp == "bilinear":
-            k1, p1 = time_pair(lambda: srw_vertical(*v_args), lambda: srw_vertical_plain(*v_args))
-            k2, p2 = time_pair(
-                lambda: srw_horizontal(*h_args), lambda: srw_horizontal_plain(*h_args)
-            )
-            print(
-                f"{tag} at the 4326->UTM 2-band bilinear shapes (window "
-                f"{st.src_h}x{st.src_w} -> 4096^2): srw_vertical kernel {k1:.3f} ms, "
-                f"plain {p1:.3f} ms; srw_horizontal kernel {k2:.3f} ms, plain {p2:.3f} ms"
-            )
+        err["fused_reproject"] = max(err["fused_reproject"], d3)
+        print(f"{tag} K3 vs plain, 4326->UTM 2-band with NaN rows, {interp}: {d3}")
     torch.cuda.synchronize()
 
     missing = [name for name in err if main_launches[name] < 1]
@@ -403,6 +514,9 @@ def main() -> int:
             "max_abs_err": err[name],
             "ms": timings[name][0],
             "plain_ms": timings[name][1],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": None,  # no single PyTorch call computes it
         }
         for name in err
     ]

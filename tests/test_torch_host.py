@@ -1,0 +1,277 @@
+"""The port's copies of the host layers against the JAX package's originals.
+
+``xcube_resampling_tpu_torch`` keeps its own copies of the CRS engine, the
+grid mappings, ``xrlite``, the option resolvers and the numpy planners.
+Each side is built from its own package's classes on the same inputs, and
+the copies must agree exactly (``assert_array_equal``, ``==``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import xcube_resampling_tpu as jx  # noqa: E402
+import xcube_resampling_tpu_torch as pt  # noqa: E402
+from xcube_resampling_tpu import utils as jx_utils  # noqa: E402
+from xcube_resampling_tpu.crs import Transformer as JxTransformer  # noqa: E402
+from xcube_resampling_tpu.gridmapping.bboxes import (  # noqa: E402
+    compute_ij_bboxes as jx_compute_ij_bboxes,
+)
+from xcube_resampling_tpu.ops import reproject_ops as jx_rops  # noqa: E402
+from xcube_resampling_tpu.ops import srw as jx_srw  # noqa: E402
+from xcube_resampling_tpu.spatial import choose_route as jx_choose_route  # noqa: E402
+from xcube_resampling_tpu_torch import utils as pt_utils  # noqa: E402
+from xcube_resampling_tpu_torch.crs import Transformer as PtTransformer  # noqa: E402
+from xcube_resampling_tpu_torch.gridmapping.bboxes import (  # noqa: E402
+    compute_ij_bboxes as pt_compute_ij_bboxes,
+)
+from xcube_resampling_tpu_torch.ops import reproject_ops as pt_rops  # noqa: E402
+from xcube_resampling_tpu_torch.ops import srw as pt_srw  # noqa: E402
+from xcube_resampling_tpu_torch.spatial import choose_route as pt_choose_route  # noqa: E402
+
+# The CRSs of the tests and of chip_smoke.py, with seeded points inside
+# each one's domain (x, y ranges)
+CRS_POINTS = {
+    "epsg:4326": ((-20.0, 40.0), (30.0, 70.0)),
+    "epsg:32632": ((300000.0, 900000.0), (5000000.0, 6500000.0)),
+    "epsg:3035": ((3500000.0, 5000000.0), (2500000.0, 4000000.0)),
+}
+
+# (source, target) grid-mapping arguments of GridMapping.regular
+GEOMETRIES = {
+    "utm_laea": (
+        dict(size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"),
+        dict(size=(80, 80), xy_min=(4320500, 3379500), xy_res=100, crs="epsg:3035"),
+    ),
+    "geo_utm": (
+        dict(size=(800, 600), xy_min=(-10.0, 35.0), xy_res=0.05, crs="epsg:4326"),
+        dict(size=(256, 256), xy_min=(250000.0, 5200000.0), xy_res=2400.0, crs="epsg:32632"),
+    ),
+    "edge": (
+        dict(size=(96, 96), xy_min=(500000.0, 5400000.0), xy_res=100.0, crs="epsg:32632"),
+        dict(size=(100, 160), xy_min=(4247500.0, 2846000.0), xy_res=100.0, crs="epsg:3035"),
+    ),
+}
+
+
+def _both(name):
+    src, tgt = GEOMETRIES[name]
+    return (
+        (jx.GridMapping.regular(**src), jx.GridMapping.regular(**tgt)),
+        (pt.GridMapping.regular(**src), pt.GridMapping.regular(**tgt)),
+    )
+
+
+def _dataset(pkg, gm, data):
+    coords = dict(gm.to_coords(exclude_bounds=True))
+    coords["spatial_ref"] = pkg.DataArray(np.array(0), dims=(), attrs=gm.crs.to_cf())
+    x_dim, y_dim = gm.xy_dim_names
+    return pkg.Dataset(
+        {"v": pkg.DataArray(data, dims=(y_dim, x_dim), attrs=dict(grid_mapping="spatial_ref"))},
+        coords=coords,
+    )
+
+
+@pytest.mark.parametrize("src_crs", sorted(CRS_POINTS))
+@pytest.mark.parametrize("dst_crs", sorted(CRS_POINTS))
+def test_crs_transform_matches(src_crs, dst_crs):
+    """Forward and inverse transforms of seeded points, bit for bit."""
+    (x0, x1), (y0, y1) = CRS_POINTS[src_crs]
+    rng = np.random.default_rng(5)
+    x = rng.uniform(x0, x1, 64)
+    y = rng.uniform(y0, y1, 64)
+    for a, b in ((src_crs, dst_crs), (dst_crs, src_crs)):
+        ref = JxTransformer.from_crs(a, b).transform(x, y)
+        got = PtTransformer.from_crs(a, b).transform(x, y)
+        np.testing.assert_array_equal(got[0], ref[0])
+        np.testing.assert_array_equal(got[1], ref[1])
+    ref = JxTransformer.from_crs(src_crs, dst_crs).transform_bounds(x0, y0, x1, y1)
+    got = PtTransformer.from_crs(src_crs, dst_crs).transform_bounds(x0, y0, x1, y1)
+    assert got == ref
+
+
+@pytest.mark.parametrize("crs", sorted(CRS_POINTS))
+def test_crs_model_matches(crs):
+    ref, got = jx.CRS.from_user_input(crs), pt.CRS.from_user_input(crs)
+    assert str(got) == str(ref)
+    assert got.to_cf() == ref.to_cf()
+    assert got.is_geographic == ref.is_geographic
+    assert got.to_wkt() == ref.to_wkt()
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("j_axis_up", [False, True])
+def test_grid_mapping_from_dataset_matches(geometry, j_axis_up):
+    src, _ = GEOMETRIES[geometry]
+    data = np.random.default_rng(0).random(src["size"][::-1], dtype=np.float32)
+    gms = []
+    for pkg in (jx, pt):
+        gm = pkg.GridMapping.regular(**src, is_j_axis_up=j_axis_up)
+        gms.append(pkg.GridMapping.from_dataset(_dataset(pkg, gm, data)))
+    ref, got = gms
+    for attr in (
+        "size", "tile_size", "xy_res", "xy_bbox", "is_j_axis_up", "is_regular",
+        "xy_var_names", "xy_dim_names", "is_lon_360", "x_min", "y_max",
+    ):
+        assert getattr(got, attr) == getattr(ref, attr), attr
+    assert str(got.crs) == str(ref.crs)
+    np.testing.assert_array_equal(got.x_coords.data, ref.x_coords.data)
+    np.testing.assert_array_equal(got.y_coords.data, ref.y_coords.data)
+    np.testing.assert_array_equal(got.xy_bboxes, ref.xy_bboxes)
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_coarse_geometry_and_gates_match(geometry):
+    (js, jt), (ps, pt_) = _both(geometry)
+    ref = jx_srw._coarse_geometry(js, jt, 16)
+    got = pt_srw._coarse_geometry(ps, pt_, 16)
+    for name in ("ix64", "iy64", "iystar64"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    for name in ("step", "src_h", "src_w", "out_h", "out_w"):
+        assert getattr(got, name) == getattr(ref, name)
+    assert pt_srw._fields_interp_err(got) == jx_srw._fields_interp_err(ref)
+    assert pt_srw._twopass_slope(got) == jx_srw._twopass_slope(ref)
+    w_ref = jx_srw._source_window_gm(js, ref, margin=56)
+    w_got = pt_srw._source_window_gm(ps, got, margin=56)
+    assert (w_got is None) == (w_ref is None)
+    if w_ref is not None:
+        assert w_got[1] == w_ref[1]
+        assert w_got[0].xy_bbox == w_ref[0].xy_bbox and w_got[0].size == w_ref[0].size
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("tiles", [(None, None), (32, 32)])
+def test_plan_srw_matches(geometry, tiles):
+    (js, jt), (ps, pt_) = _both(geometry)
+    col_tile, row_tile = tiles
+    ref = jx_srw.plan_srw(js, jt, col_tile=col_tile, row_tile=row_tile)
+    got = pt_srw.plan_srw(ps, pt_, col_tile=col_tile, row_tile=row_tile)
+    assert (got is None) == (ref is None)
+    if ref is None:
+        return
+    for name in ("base_v", "base_h", "iystar_c", "ix_c", "iy_c"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    for name in ("d_v", "d_h", "col_tile", "row_tile", "step", "src_h", "src_w",
+                 "out_h", "out_w"):
+        assert getattr(got, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_coarse_coord_field_matches(geometry):
+    (js, jt), (ps, pt_) = _both(geometry)
+    ref = jx_rops.coarse_coord_field(js, jt, 16)
+    got = pt_rops.coarse_coord_field(ps, pt_, 16)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert got[2] == ref[2]
+
+
+@pytest.mark.parametrize(
+    "case", ["reproject", "identity", "affine", "geographic", "warn-identity"]
+)
+def test_choose_route_matches(case):
+    src, tgt = GEOMETRIES["utm_laea"]
+    if case == "identity":
+        tgt = src
+    elif case == "affine":
+        tgt = dict(src, xy_res=200.0, size=(48, 48))
+    elif case == "geographic":
+        src = GEOMETRIES["geo_utm"][0]
+        tgt = dict(src, xy_res=0.1, size=(400, 300))
+    routes = []
+    for pkg, choose in ((jx, jx_choose_route), (pt, pt_choose_route)):
+        target = None if case == "warn-identity" else pkg.GridMapping.regular(**tgt)
+        routes.append(choose(pkg.GridMapping.regular(**src), target))
+    assert routes[1] == routes[0]
+    assert routes[0] == {"geographic": "affine"}.get(case, case)
+
+
+def test_choose_route_irregular_source_is_rectify():
+    from .sampledata import create_olci_like_swath
+
+    swath = create_olci_like_swath(width=16, height=16, tile_size=16)
+    jx_gm = jx.GridMapping.from_dataset(swath)
+    # the same swath through the port's own data model and grid mapping
+    coords = {
+        name: pt.DataArray(np.asarray(c.data), dims=c.dims, attrs=dict(c.attrs))
+        for name, c in swath.coords.items()
+    }
+    data_vars = {
+        name: pt.DataArray(np.asarray(v.data), dims=v.dims, attrs=dict(v.attrs))
+        for name, v in swath.data_vars.items()
+    }
+    pt_gm = pt.GridMapping.from_dataset(pt.Dataset(data_vars, coords=coords))
+    assert jx_choose_route(jx_gm, None) == pt_choose_route(pt_gm, None) == "rectify"
+    assert pt_gm.size == jx_gm.size and pt_gm.is_regular == jx_gm.is_regular
+
+
+# torch dtype -> the numpy dtype the JAX resolvers key on
+DTYPES = [
+    (torch.float32, np.float32),
+    (torch.float64, np.float64),
+    (torch.float16, np.float16),
+    (torch.uint8, np.uint8),
+    (torch.uint16, np.uint16),
+    (torch.int8, np.int8),
+    (torch.int16, np.int16),
+    (torch.int32, np.int32),
+    (torch.int64, np.int64),
+    (torch.bool, np.bool_),
+]
+
+
+@pytest.mark.parametrize("torch_dtype, np_dtype", DTYPES)
+def test_option_defaults_match_per_dtype(torch_dtype, np_dtype):
+    """The port's resolvers give a torch-backed variable the defaults the
+    JAX package gives a numpy variable of the same dtype."""
+    pt_var = pt.DataArray(torch.zeros((2, 2), dtype=torch_dtype), dims=("y", "x"))
+    jx_var = jx.DataArray(np.zeros((2, 2), dtype=np_dtype), dims=("y", "x"))
+    assert pt_var.dtype == torch_dtype
+    ref_fill = jx_utils._get_fill_value(None, "v", jx_var)
+    got_fill = pt_utils._get_fill_value(None, "v", pt_var)
+    assert (np.isnan(got_fill) and np.isnan(ref_fill)) or got_fill == ref_fill
+    assert pt_utils._get_interp_method_str(None, "v", pt_var) == (
+        jx_utils._get_interp_method_str(None, "v", jx_var)
+    )
+
+
+def test_option_mappings_key_on_name_then_torch_dtype():
+    var = pt.DataArray(torch.zeros((2, 2), dtype=torch.uint8), dims=("y", "x"))
+    assert pt_utils._get_fill_value({torch.uint8: 7}, "v", var) == 7
+    assert pt_utils._get_fill_value({"v": 3, torch.uint8: 7}, "v", var) == 3
+    assert pt_utils._get_interp_method_str({torch.uint8: 1}, "v", var) == "bilinear"
+    # an unresolvable mapping falls back to the dtype default
+    assert pt_utils._get_fill_value({"w": 3}, "v", var) == 255
+
+
+def test_dataset_helpers_match():
+    (js, jt), (ps, pt_) = _both("utm_laea")
+    data = np.random.default_rng(1).random((96, 96), dtype=np.float32)
+    shells = []
+    for pkg, utils, s, t in ((jx, jx_utils, js, jt), (pt, pt_utils, ps, pt_)):
+        ds = utils.normalize_grid_mapping(_dataset(pkg, s, data), s)
+        ds = utils._select_variables(ds, "v")
+        shells.append(utils.assemble_target_shell(
+            ds, s, t, dict(zip(t.xy_var_names, (t.x_coords, t.y_coords)))
+        ))
+    ref, got = shells
+    assert sorted(got.coords) == sorted(ref.coords)
+    for name in ref.coords:
+        np.testing.assert_array_equal(
+            np.asarray(got.coords[name].data), np.asarray(ref.coords[name].data)
+        )
+        assert got.coords[name].attrs == ref.coords[name].attrs
+
+
+def test_ij_bboxes_numpy_scan_matches():
+    """The copy keeps only the numpy scan of compute_ij_bboxes; it equals
+    the JAX package's (native or numpy) scan."""
+    rng = np.random.default_rng(2)
+    x = np.cumsum(rng.random((40, 50)), axis=1)
+    y = np.cumsum(rng.random((40, 50)), axis=0)
+    boxes = np.array([[2.0, 2.0, 10.0, 9.0], [20.0, 5.0, 30.0, 25.0], [-9.0, -9.0, -5.0, -5.0]])
+    for border, ij_border in ((0.0, 0), (0.5, 2)):
+        ref = jx_compute_ij_bboxes(x, y, boxes, border, ij_border, np.full((3, 4), -1))
+        got = pt_compute_ij_bboxes(x, y, boxes, border, ij_border, np.full((3, 4), -1))
+        np.testing.assert_array_equal(got, ref)

@@ -3,7 +3,8 @@
 On the CPU every kernel wrapper runs its plain PyTorch version; the CUDA
 kernels are held against those plain versions on the GPU by
 ``chip_smoke.py``.  Inputs are made from a numpy seed and fed to both
-packages; each comparison states its tolerance.
+packages, each side built from its own package's grid mappings; each
+comparison states its tolerance.
 """
 
 import numpy as np
@@ -13,38 +14,69 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import xcube_resampling_tpu as jx  # noqa: E402
+import xcube_resampling_tpu_torch as pt  # noqa: E402
 from xcube_resampling_tpu.ops.pallas_kernels import (  # noqa: E402
     srw_vertical_pallas,
     srw_vertical_reference,
 )
 from xcube_resampling_tpu.ops.reproject_ops import (  # noqa: E402
+    _interp_field as jax_interp_field,
     make_fused_reproject_fn as jax_make_fused_reproject_fn,
 )
 from xcube_resampling_tpu.ops.srw import (  # noqa: E402
     make_srw_fn as jax_make_srw_fn,
-    plan_srw,
+    plan_srw as jax_plan_srw,
 )
-from xcube_resampling_tpu_torch._device import (  # noqa: E402
-    LAUNCHES,
-    numpy_dtype,
-    on_cpu,
-)
+from xcube_resampling_tpu_torch._device import LAUNCHES, on_cpu  # noqa: E402
 from xcube_resampling_tpu_torch.ops.reproject_ops import (  # noqa: E402
     fused_reproject,
     make_fused_reproject_fn,
 )
 from xcube_resampling_tpu_torch.ops.srw import (  # noqa: E402
     make_srw_fn,
+    plan_srw,
     plan_to_device,
 )
 from xcube_resampling_tpu_torch.ops.srw_kernels import (  # noqa: E402
+    SMEM_BUDGET,
+    plan_horizontal_windows,
+    plan_vertical_windows,
     srw_horizontal,
+    srw_horizontal_plain,
     srw_vertical,
+    srw_vertical_plain,
 )
 
-from .test_srw import _case  # noqa: E402
-
 METHODS = ["bilinear", "nearest", "triangular"]
+STEP = 16
+
+# (source, target) arguments of GridMapping.regular: the 96^2 UTM32N ->
+# 80^2 EPSG:3035 case of tests/test_srw.py, and a target that reaches past
+# the source's top and bottom (its K1 windows clip at both edges)
+GEOMETRIES = {
+    "utm_laea": (
+        dict(size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"),
+        dict(size=(80, 80), xy_min=(4320500, 3379500), xy_res=100, crs="epsg:3035"),
+    ),
+    "edge": (
+        dict(size=(96, 96), xy_min=(500000.0, 5400000.0), xy_res=100.0, crs="epsg:32632"),
+        dict(size=(100, 160), xy_min=(4247500.0, 2846000.0), xy_res=100.0, crs="epsg:3035"),
+    ),
+}
+
+
+def _gms(pkg, geometry="utm_laea"):
+    src, tgt = GEOMETRIES[geometry]
+    return pkg.GridMapping.regular(**src), pkg.GridMapping.regular(**tgt)
+
+
+def _plans(geometry="utm_laea", tile=32):
+    """The same tiled plan from each package's own planner."""
+    ref = jax_plan_srw(*_gms(jx, geometry), col_tile=tile, row_tile=tile)
+    got = plan_srw(*_gms(pt, geometry), col_tile=tile, row_tile=tile)
+    assert ref is not None and got is not None
+    return ref, got
 
 
 def _assert_match(got, ref, atol=0.0):
@@ -59,23 +91,34 @@ def _assert_match(got, ref, atol=0.0):
 
 
 def _vertical_case(d_taps, seed=7):
-    """The inputs of tests/test_pallas_kernels.py: bases running from -2
-    past the last source row (out-of-range taps clamp to the edge)."""
+    """Inputs like tests/test_pallas_kernels.py's, with the positions given
+    as a coarse field: rows running from -2 past the last source row
+    (out-of-range taps clamp to the edge), one base per output row."""
     rng = np.random.default_rng(seed)
     src = rng.random((120, 256)).astype(np.float32)
     out_h = 100
-    base = np.linspace(-2, 118, out_h).astype(np.int32)
-    pos = base[:, None].astype(np.float32) + rng.random(
-        (out_h, 256), np.float32
-    ) * (d_taps - 2 if d_taps > 2 else 1)
-    return src, pos, base
+    ncj, ncc = (out_h - 1) // STEP + 2, (256 - 1) // STEP + 2
+    rows = np.arange(ncj, dtype=np.float32)[:, None] * STEP
+    # positions vary within a row by under d_taps - 2, so every tap with
+    # weight lies inside the d_taps taps (the Pallas kernel sums further)
+    field = (-2.0 + rows * 1.2 + rng.random((ncj, ncc), np.float32)
+             * 0.9 * (d_taps - 2)).astype(np.float32)
+    # the positions as the JAX package computes them (jitted, so XLA
+    # contracts the lerps as the port's fused multiply-adds do)
+    pos = np.asarray(jax.jit(lambda f: jax_interp_field(
+        f, jnp.arange(out_h, dtype=jnp.float32)[:, None],
+        jnp.arange(256, dtype=jnp.float32)[None, :], STEP, jnp,
+    ))(jnp.asarray(field)))
+    base = np.floor(pos.min(axis=1)).astype(np.int32)
+    return src, field, pos, base
 
 
-def _port_vertical(src, pos, base, d_taps):
+def _port_vertical(src, field, base, d_taps):
     # one column tile spanning the whole width = one base per output row
+    windows = plan_vertical_windows(base[:, None], src.shape[1], d_taps)
     v, vd = srw_vertical(
-        torch.from_numpy(src)[None], torch.from_numpy(pos),
-        torch.from_numpy(base)[:, None], src.shape[1], d_taps, "bilinear",
+        torch.from_numpy(src)[None], torch.from_numpy(field), STEP,
+        torch.from_numpy(base)[:, None], src.shape[1], d_taps, windows, "bilinear",
     )
     assert vd is None
     return v[0].numpy()
@@ -83,19 +126,20 @@ def _port_vertical(src, pos, base, d_taps):
 
 @pytest.mark.parametrize("d_taps", [2, 5, 9])
 def test_srw_vertical_plain_matches_reference_and_pallas(d_taps):
-    """K1's plain version against the numpy twin within atol 1e-5, as
-    tests/test_pallas_kernels.py uses (the port rounds its tap sums as
-    fused multiply-adds, the twin does not), and against the Pallas kernel
-    in interpret mode bit for bit (XLA contracts the same sums)."""
-    src, pos, base = _vertical_case(d_taps)
-    got = _port_vertical(src, pos, base, d_taps)
-    np.testing.assert_allclose(
-        got, srw_vertical_reference(src, pos, base, d_taps), atol=1e-5
-    )
+    """K1's plain version, fed the coarse field, against the Pallas kernel
+    in interpret mode fed the JAX package's positions of that field: bit
+    for bit (XLA contracts the same sums); against the numpy twin within
+    atol 1e-5, as tests/test_pallas_kernels.py uses (the twin does not
+    fuse its multiply-adds)."""
+    src, field, pos, base = _vertical_case(d_taps)
+    got = _port_vertical(src, field, base, d_taps)
     pallas = np.asarray(
         srw_vertical_pallas(src, pos, base, d_taps, row_block=32, interpret=True)
     )
     np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_allclose(
+        got, srw_vertical_reference(src, pos, base, d_taps), atol=1e-5
+    )
 
 
 @pytest.mark.parametrize("d_taps", [2, 5, 9])
@@ -104,9 +148,9 @@ def test_srw_vertical_plain_nan_row_reach(d_taps):
     it, zero-weight taps included: the XLA path's and the numpy twin's
     semantics (the Pallas kernel sums a wider window, so its NaN reach is
     wider and it is not the reference here)."""
-    src, pos, base = _vertical_case(d_taps, seed=11)
+    src, field, pos, base = _vertical_case(d_taps, seed=11)
     src[60] = np.nan
-    got = _port_vertical(src, pos, base, d_taps)
+    got = _port_vertical(src, field, base, d_taps)
     ref = srw_vertical_reference(src, pos, base, d_taps)
     assert np.isnan(ref).any()
     _assert_match(got, ref, atol=1e-5)
@@ -119,27 +163,92 @@ def _stack(shape, seed=0):
     return data
 
 
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("interp", METHODS)
-def test_make_srw_fn_matches_jax(interp):
-    """The port's tiled SRW (K1 + K2 plain) against JAX make_srw_fn on one
-    shared plan, for a 2-band stack: equal for every method, NaN masks
-    included (the port places its fused multiply-adds where XLA's CPU
-    backend contracts)."""
-    source_gm, target_gm, _ = _case()
-    plan = plan_srw(source_gm, target_gm, col_tile=32, row_tile=32)
-    assert plan is not None
+def test_make_srw_fn_matches_jax(interp, geometry):
+    """The port's tiled SRW (K1 + K2 plain) against JAX make_srw_fn, each
+    on its own package's plan, for a 2-band stack: equal for every method,
+    NaN masks included (the port places its fused multiply-adds where XLA's
+    CPU backend contracts)."""
+    ref_plan, plan = _plans(geometry)
     assert plan.base_v.shape[1] > 1 and plan.base_h.shape[0] > 1
-    data = _stack((source_gm.height, source_gm.width))
-    ref = np.asarray(jax_make_srw_fn(plan, interp, np.nan)(jnp.asarray(data)))
-    got = make_srw_fn(plan, interp, np.nan)(torch.from_numpy(data))
-    assert got.dtype == torch.float32 and got.shape == (2, 80, 80)
+    data = _stack((plan.src_h, plan.src_w))
+    ref = np.asarray(jax_make_srw_fn(ref_plan, interp, np.nan)(jnp.asarray(data)))
+    got = make_srw_fn(plan, interp, np.nan, device="cpu")(torch.from_numpy(data))
+    assert got.dtype == torch.float32 and got.shape == (2, plan.out_h, plan.out_w)
     _assert_match(got.numpy(), ref)
-    assert np.isfinite(ref).mean() > 0.5
+    assert np.isfinite(ref).mean() > 0.3
+
+
+@pytest.mark.parametrize("interp", METHODS)
+def test_srw_plain_windows_clip_at_both_edges(interp):
+    """A geometry whose taps reach past the source's top and bottom
+    (base_v < 0, base_v + d_v > src_h): plain K1 and K2 against JAX
+    make_srw_fn bit for bit, and the K1 windows reach past both edges (the
+    kernel clamps them as it copies)."""
+    ref_plan, plan = _plans("edge")
+    assert plan.base_v.min() < 0 and plan.base_v.max() + plan.d_v > plan.src_h
+    fn = make_srw_fn(plan, interp, np.nan, device="cpu")
+    lohi = fn.state.win_v.lohi.numpy()
+    assert lohi[..., 0].min() < 0 and lohi[..., 1].max() > plan.src_h
+    data = _stack((plan.src_h, plan.src_w), seed=4)
+    x = fn.crop(torch.from_numpy(data))
+    v, vd = srw_vertical_plain(*fn.vertical_args(x))
+    out = srw_horizontal_plain(*fn.horizontal_args(v), vd)
+    ref = np.asarray(jax_make_srw_fn(ref_plan, interp, np.nan)(jnp.asarray(data)))
+    _assert_match(out.numpy(), ref)
+
+
+def _windows_cover(lohi, rows, base, d, axis_rows, n_blocks):
+    """Every tap index base + k (k < d) of every output lies in its
+    block's window."""
+    for rb in range(-(-axis_rows // rows)):
+        for cb in range(n_blocks):
+            lo, hi = lohi[rb, cb]
+            b = base(rb, cb)
+            assert lo <= b.min() and b.max() + d <= hi
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("tile", [32, 64, None])
+def test_windows_cover_every_tap(geometry, tile):
+    """The host-planned windows hold every tap of their block, fit the
+    shared-memory budget, and K2's are 4-aligned."""
+    src, tgt = GEOMETRIES[geometry]
+    kwargs = {} if tile is None else dict(col_tile=tile, row_tile=tile)
+    plan = plan_srw(pt.GridMapping.regular(**src), pt.GridMapping.regular(**tgt), **kwargs)
+    wv = plan_vertical_windows(plan.base_v, plan.col_tile, plan.d_v)
+    assert plan.col_tile % wv.cols == 0
+    lohi = wv.lohi.numpy()
+    assert (lohi[..., 1] - lohi[..., 0]).max() == wv.extent
+    _windows_cover(
+        lohi, wv.rows,
+        lambda rb, t: plan.base_v[rb * wv.rows:(rb + 1) * wv.rows, t],
+        plan.d_v, plan.out_h, plan.base_v.shape[1],
+    )
+    assert 4 * (2 * wv.extent * wv.cols + wv.rows * wv.cols + wv.rows) <= SMEM_BUDGET
+    wh = plan_horizontal_windows(plan.base_h, plan.row_tile, plan.d_h)
+    assert plan.row_tile % wh.rows == 0 and wh.extent % 4 == 0
+    lohi = wh.lohi.numpy()
+    assert (lohi % 4 == 0).all()
+    for t in range(plan.base_h.shape[0]):
+        for cb in range(lohi.shape[1]):
+            b = plan.base_h[t, cb * wh.cols:(cb + 1) * wh.cols]
+            assert lohi[t, cb, 0] <= b.min() and b.max() + plan.d_h <= lohi[t, cb, 1]
+            assert lohi[t, cb, 1] - lohi[t, cb, 0] <= wh.extent
+
+
+def test_vertical_windows_shrink_to_the_budget():
+    """Bases that jump far within a few rows make tall windows: the block
+    rows shrink until two windows fit the shared-memory budget."""
+    base = (np.arange(512, dtype=np.int32) * 40)[:, None]  # 40 source rows a row
+    w = plan_vertical_windows(base, 64, 8)
+    assert 4 * (2 * w.extent * w.cols + w.rows * w.cols + w.rows) <= SMEM_BUDGET
+    assert w.rows < 64 and w.extent == 40 * (w.rows - 1) + 8
 
 
 def test_plan_to_device_carries_the_plan():
-    source_gm, target_gm, _ = _case()
-    plan = plan_srw(source_gm, target_gm, col_tile=32, row_tile=32)
+    _, plan = _plans()
     state = plan_to_device(plan, "cpu")
     for name in ("iystar_c", "ix_c", "iy_c"):
         t = getattr(state, name)
@@ -149,6 +258,8 @@ def test_plan_to_device_carries_the_plan():
         t = getattr(state, name)
         assert t.dtype == torch.int32
         np.testing.assert_array_equal(t.numpy(), getattr(plan, name))
+    for win in (state.win_v, state.win_h):
+        assert win.lohi.dtype == torch.int32 and win.lohi.device.type == "cpu"
     assert (state.d_v, state.d_h, state.col_tile, state.row_tile) == (
         plan.d_v, plan.d_h, 32, 32,
     )
@@ -156,17 +267,30 @@ def test_plan_to_device_carries_the_plan():
 
 
 @pytest.mark.parametrize("interp", METHODS)
+def test_srw_fn_holds_no_per_pixel_tensor(interp):
+    """The tier's statics are the coarse fields, the tap bases and the
+    windows: no tensor of the output's or the vertical pass's size."""
+    _, plan = _plans(tile=None)
+    fn = make_srw_fn(plan, interp, np.nan, device="cpu")
+    st = fn.state
+    tensors = [v for v in vars(fn).values() if isinstance(v, torch.Tensor)]
+    tensors += [v for v in vars(st).values() if isinstance(v, torch.Tensor)]
+    tensors += [st.win_v.lohi, st.win_h.lohi]
+    assert len(tensors) == 7
+    limit = min(st.out_h * st.out_w, st.out_h * st.src_w)
+    for t in tensors:
+        assert t.numel() < limit, tuple(t.shape)
+
+
+@pytest.mark.parametrize("interp", METHODS)
 def test_fused_reproject_plain_matches_jax(interp):
     """K3's plain version against JAX make_fused_reproject_fn: equal for
     every method, NaN masks included (same fused multiply-add placement)."""
-    source_gm, target_gm, _ = _case()
-    data = _stack((source_gm.height, source_gm.width), seed=3)
+    data = _stack((96, 96), seed=3)
     ref = np.asarray(
-        jax_make_fused_reproject_fn(source_gm, target_gm, interp, np.nan)(
-            jnp.asarray(data)
-        )
+        jax_make_fused_reproject_fn(*_gms(jx), interp, np.nan)(jnp.asarray(data))
     )
-    got = make_fused_reproject_fn(source_gm, target_gm, interp, np.nan)(
+    got = make_fused_reproject_fn(*_gms(pt), interp, np.nan, device="cpu")(
         torch.from_numpy(data)
     )
     _assert_match(got.numpy(), ref)
@@ -174,23 +298,29 @@ def test_fused_reproject_plain_matches_jax(interp):
 
 
 def test_cpu_tensors_take_the_plain_versions_without_launches():
-    source_gm, target_gm, _ = _case()
     data = torch.from_numpy(_stack((96, 96)))
     before = dict(LAUNCHES)
-    plan = plan_srw(source_gm, target_gm, col_tile=32, row_tile=32)
-    make_srw_fn(plan, "triangular", np.nan)(data)
-    make_fused_reproject_fn(source_gm, target_gm, "bilinear", np.nan)(data)
+    _, plan = _plans()
+    make_srw_fn(plan, "triangular", np.nan, device="cpu")(data)
+    make_fused_reproject_fn(*_gms(pt), "bilinear", np.nan, device="cpu")(data)
     assert dict(LAUNCHES) == before
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
     """Tensors on neither the CPU nor a CUDA device, or on several
     devices, raise: a wrapper never moves data to find a kernel."""
-    meta = torch.empty((1, 8, 8), device="meta")
-    pos = torch.empty((4, 8), device="meta")
-    base = torch.empty((4, 1), dtype=torch.int32, device="meta")
+    _, plan = _plans()
+    fn = make_srw_fn(plan, "bilinear", np.nan, device="cpu")
+    meta = torch.empty((1, 96, 96), device="meta")
+    meta_args = [
+        a.to("meta") if isinstance(a, torch.Tensor) else a
+        for a in fn.vertical_args(meta)
+    ]
+    meta_args[6] = fn.state.win_v.to("meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        srw_vertical(meta, pos, base, 8, 2, "bilinear")
+        srw_vertical(*meta_args)
+    with pytest.raises(ValueError, match="several devices"):
+        srw_vertical(meta, *fn.vertical_args(meta)[1:])
     with pytest.raises(ValueError, match="several devices"):
         on_cpu(torch.zeros(1), meta)
     with pytest.raises(ValueError, match="several devices"):
@@ -198,20 +328,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
             torch.zeros((1, 8, 8)), torch.zeros((2, 2), device="meta"),
             torch.zeros((2, 2)), 16, 4, 4, "bilinear", np.nan,
         )
-    with pytest.raises(ValueError, match="triangular needs"):
-        srw_horizontal(
-            torch.zeros((1, 4, 8)), torch.zeros((4, 4)),
-            torch.zeros((1, 4), dtype=torch.int32), 4, 2, "triangular",
-            torch.ones((4, 4), dtype=torch.bool), np.nan,
-        )
-    with pytest.raises(ValueError, match="SRW supports"):
-        srw_vertical(torch.zeros((1, 8, 8)), torch.zeros((4, 8)),
-                     torch.zeros((4, 1), dtype=torch.int32), 8, 2, "cubic")
+    v = torch.zeros((1, 80, 96))
+    with pytest.raises(ValueError, match="triangular needs vd"):
+        srw_horizontal(*fn.horizontal_args(v)[:9], "triangular", np.nan)
+    with pytest.raises(ValueError, match="the kernels support"):
+        srw_vertical(*fn.vertical_args(torch.zeros((1, 96, 96)))[:7], "cubic")
 
-
-def test_numpy_dtype_mapping():
-    assert numpy_dtype(torch.float32) == np.float32
-    assert numpy_dtype(torch.uint8) == np.uint8
-    assert numpy_dtype(torch.int64) == np.int64
-    with pytest.raises(TypeError):
-        numpy_dtype(torch.bfloat16)

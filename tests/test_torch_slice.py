@@ -2,10 +2,12 @@
 
 JAX is fed ``jnp`` arrays, so it takes its device path (not the numpy
 golden path); the port is fed CPU tensors, so its kernel wrappers run
-their plain versions.  Inputs come from a numpy seed; each comparison
-states its tolerance.
+their plain versions.  Each side's datasets and grid mappings are built
+from its own package's classes.  Inputs come from a numpy seed; each
+comparison states its tolerance.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -20,15 +22,12 @@ import jax.numpy as jnp  # noqa: E402
 
 import xcube_resampling_tpu as xrt  # noqa: E402
 import xcube_resampling_tpu_torch as port  # noqa: E402
-from xcube_resampling_tpu.gridmapping import GridMapping  # noqa: E402
 from xcube_resampling_tpu.ops import esw as jax_esw  # noqa: E402
 from xcube_resampling_tpu.ops import srw as jax_srw  # noqa: E402
-from xcube_resampling_tpu.xrlite import DataArray, Dataset  # noqa: E402
 from xcube_resampling_tpu_torch import reproject as port_reproject  # noqa: E402
 from xcube_resampling_tpu_torch import utils as port_utils  # noqa: E402
+from xcube_resampling_tpu_torch.ops import reproject_ops as port_reproject_ops  # noqa: E402
 from xcube_resampling_tpu_torch.ops import srw as port_srw  # noqa: E402
-
-from .test_srw import _case  # noqa: E402
 
 METHODS = ["bilinear", "nearest", "triangular"]
 
@@ -39,41 +38,45 @@ def _fresh_port_plan_cache():
     port_reproject._DEVICE_FN_CACHE.clear()
 
 
-def _geo_case():
-    """The 4326 -> UTM32N benchmark geometry cut down: a 0.05 deg regional
-    source (the target taps a cropped window of it) onto a 256^2 UTM grid
-    at 2400 m, coarse enough to stay above SCALE_LIMIT."""
-    source_gm = GridMapping.regular(
-        size=(800, 600), xy_min=(-10.0, 35.0), xy_res=0.05, crs="epsg:4326"
+# (source, target) arguments of GridMapping.regular: the 96^2 UTM32N ->
+# 80^2 EPSG:3035 case of tests/test_srw.py, and the 4326 -> UTM32N
+# benchmark geometry cut down (a 0.05 deg regional source whose tapped
+# window is cropped, onto a 256^2 UTM grid at 2400 m, above SCALE_LIMIT)
+GEOMETRIES = {
+    "utm_laea": (
+        dict(size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"),
+        dict(size=(80, 80), xy_min=(4320500, 3379500), xy_res=100, crs="epsg:3035"),
+    ),
+    "geo_utm": (
+        dict(size=(800, 600), xy_min=(-10.0, 35.0), xy_res=0.05, crs="epsg:4326"),
+        dict(size=(256, 256), xy_min=(250000.0, 5200000.0), xy_res=2400.0, crs="epsg:32632"),
+    ),
+}
+
+
+def _geometry(name, pkg=port, **source_kwargs):
+    src, tgt = GEOMETRIES[name]
+    return (
+        pkg.GridMapping.regular(**src, **source_kwargs),
+        pkg.GridMapping.regular(**tgt),
     )
-    target_gm = GridMapping.regular(
-        size=(256, 256), xy_min=(250000.0, 5200000.0), xy_res=2400.0,
-        crs="epsg:32632",
-    )
-    return source_gm, target_gm
 
 
-def _geometry(name):
-    if name == "utm_laea":
-        source_gm, target_gm, _ = _case()
-        return source_gm, target_gm
-    return _geo_case()
-
-
-def _dataset(gm, **variables):
-    """A dataset on *gm* holding (y, x) or (band, y, x) variables."""
+def _dataset(gm, pkg=port, **variables):
+    """A dataset of *pkg*'s classes on *gm* holding (y, x) or (band, y, x)
+    variables."""
     coords = dict(gm.to_coords(exclude_bounds=True))
-    coords["spatial_ref"] = DataArray(np.array(0), dims=(), attrs=gm.crs.to_cf())
+    coords["spatial_ref"] = pkg.DataArray(np.array(0), dims=(), attrs=gm.crs.to_cf())
     x_dim, y_dim = gm.xy_dim_names
     data_vars = {
-        name: DataArray(
+        name: pkg.DataArray(
             data,
             dims=(y_dim, x_dim) if data.ndim == 2 else ("band", y_dim, x_dim),
             attrs=dict(grid_mapping="spatial_ref"),
         )
         for name, data in variables.items()
     }
-    return Dataset(data_vars, coords=coords)
+    return pkg.Dataset(data_vars, coords=coords)
 
 
 def _inputs(gm, seed=0):
@@ -108,17 +111,15 @@ def _assert_match(got, ref, atol=0.0):
 
 
 def _run_both(geometry, interp, j_axis_up=False):
-    source_gm, target_gm = _geometry(geometry)
+    kwargs = dict(is_j_axis_up=True) if j_axis_up else {}
+    jax_source, jax_target = _geometry(geometry, xrt, **kwargs)
+    source_gm, target_gm = _geometry(geometry, port, **kwargs)
     a, b = _inputs(source_gm)
     if j_axis_up:
-        source_gm = GridMapping.regular(
-            size=source_gm.size, xy_min=(source_gm.x_min, source_gm.y_min),
-            xy_res=source_gm.xy_res, crs=source_gm.crs, is_j_axis_up=True,
-        )
         a, b = a[::-1].copy(), b[:, ::-1].copy()
-    jax_ds = _dataset(source_gm, a=jnp.asarray(a), b=jnp.asarray(b))
+    jax_ds = _dataset(jax_source, xrt, a=jnp.asarray(a), b=jnp.asarray(b))
     port_ds = _dataset(source_gm, a=torch.from_numpy(a), b=torch.from_numpy(b))
-    ref = xrt.resample_in_space(jax_ds, target_gm=target_gm, interp_methods=interp)
+    ref = xrt.resample_in_space(jax_ds, target_gm=jax_target, interp_methods=interp)
     got = port.resample_in_space(port_ds, target_gm=target_gm, interp_methods=interp)
     for name in ("a", "b"):
         data = got[name].data
@@ -169,18 +170,53 @@ def test_resample_in_space_j_axis_up_source():
         _assert_match(got[name].data.numpy(), ref[name].data)
 
 
-def test_numpy_variables_take_the_host_path():
-    """A numpy-backed variable goes through the JAX package's numpy host
-    path, so it equals the JAX engine's output exactly; a torch variable in
-    the same dataset stays a tensor."""
-    source_gm, target_gm, _ = _case()
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_numpy_variables_come_back_as_tensors_on_the_device(dtype):
+    """A numpy-backed float variable becomes a float32 tensor on the
+    *device* argument's device and equals the same data passed as a
+    tensor, bit for bit; the tensor variable beside it stays a tensor."""
+    source_gm, target_gm = _geometry("utm_laea")
+    a, b = _inputs(source_gm)
+    ds = _dataset(source_gm, a=a.astype(dtype), b=b, t=torch.from_numpy(a))
+    got = port.resample_in_space(ds, target_gm=target_gm, device="cpu")
+    for name in ("a", "b", "t"):
+        assert isinstance(got[name].data, torch.Tensor)
+        assert got[name].data.device.type == "cpu"
+        assert got[name].data.dtype == torch.float32
+    _assert_match(got["a"].data.numpy(), got["t"].data.numpy())
+    ref = port.resample_in_space(
+        _dataset(source_gm, b=torch.from_numpy(b)), target_gm=target_gm
+    )
+    _assert_match(got["b"].data.numpy(), ref["b"].data.numpy())
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point that places data defaults to the card; there is
+    no CPU fallback: without a card a numpy variable raises."""
+    for fn in (
+        port.resample_in_space, port_reproject.reproject_dataset,
+        port_srw.make_srw_fn, port_srw.make_srw_reproject_fn,
+        port_reproject_ops.make_fused_reproject_fn,
+    ):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    source_gm, target_gm = _geometry("utm_laea")
+    ds = _dataset(source_gm, a=_inputs(source_gm)[0])
+    if torch.cuda.is_available():
+        got = port.resample_in_space(ds, target_gm=target_gm)
+        assert got["a"].data.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            port.resample_in_space(ds, target_gm=target_gm)
+
+
+def test_grid_variables_on_several_devices_raise():
+    """A numpy variable placed on *device* beside a tensor on another
+    device: mixing devices raises instead of moving data."""
+    source_gm, target_gm = _geometry("utm_laea")
     a, b = _inputs(source_gm)
     ds = _dataset(source_gm, a=a, b=torch.from_numpy(b))
-    got = port.resample_in_space(ds, target_gm=target_gm)
-    ref = xrt.resample_in_space(_dataset(source_gm, a=a), target_gm=target_gm)
-    assert isinstance(got["a"].data, np.ndarray)
-    np.testing.assert_array_equal(got["a"].data, ref["a"].data)
-    assert isinstance(got["b"].data, torch.Tensor)
+    with pytest.raises(ValueError, match="several devices"):
+        port.resample_in_space(ds, target_gm=target_gm, device="meta")
 
 
 @pytest.mark.parametrize(
@@ -194,26 +230,38 @@ def test_numpy_variables_take_the_host_path():
     ],
 )
 def test_option_defaults_for_torch_dtypes(dtype, fill, interp):
-    """The JAX resolvers key defaults on numpy dtypes; the port resolves
-    torch-backed variables on the mapped numpy dtype."""
-    var = DataArray(torch.zeros((1, 3, 3), dtype=dtype), dims=("b", "y", "x"))
+    """The port's resolvers key on torch dtypes: the same defaults per
+    dtype as the JAX package's on numpy dtypes, and mappings keyed by
+    variable name or torch dtype."""
+    var = port.DataArray(torch.zeros((1, 3, 3), dtype=dtype), dims=("b", "y", "x"))
     got_fill = port_utils._get_fill_value(None, "v", var)
     if np.isnan(fill):
         assert np.isnan(got_fill)
     else:
         assert got_fill == fill
     assert port_utils._get_interp_method_str(None, "v", var) == interp
-    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
-    assert port_utils._get_fill_value({np_dtype: 7}, "v", var) == 7
+    assert port_utils._get_fill_value({dtype: 7}, "v", var) == 7
     assert port_utils._get_interp_method_str({"v": 0}, "v", var) == "nearest"
 
 
+def _to_port(ds):
+    """A JAX-package xrlite dataset rebuilt with the port's classes."""
+    def copy(da):
+        return port.DataArray(np.asarray(da.data), dims=da.dims, attrs=dict(da.attrs))
+
+    return port.Dataset(
+        {name: copy(v) for name, v in ds.data_vars.items()},
+        coords={name: copy(c) for name, c in ds.coords.items()},
+        attrs=dict(ds.attrs),
+    )
+
+
 def _not_ported(monkeypatch, case):
-    source_gm, target_gm, _ = _case()
+    source_gm, target_gm = _geometry("utm_laea")
     data = torch.from_numpy(_inputs(source_gm)[0])
     kwargs = {}
     if case == "affine":
-        target_gm = GridMapping.regular(
+        target_gm = port.GridMapping.regular(
             size=(40, 40), xy_min=(565000.0, 5930000.0), xy_res=200.0,
             crs="epsg:32632",
         )
@@ -221,9 +269,9 @@ def _not_ported(monkeypatch, case):
         from .sampledata import create_olci_like_swath
 
         swath = create_olci_like_swath(width=16, height=16, tile_size=16)
-        return port.resample_in_space(swath, target_gm=target_gm)
+        return port.resample_in_space(_to_port(swath), target_gm=target_gm)
     elif case == "downscale":
-        target_gm = GridMapping.regular(
+        target_gm = port.GridMapping.regular(
             size=(20, 20), xy_min=(4320500, 3379500), xy_res=400,
             crs="epsg:3035",
         )
@@ -233,6 +281,8 @@ def _not_ported(monkeypatch, case):
         data = data.double()
     elif case == "cubic":
         kwargs["interp_methods"] = "cubic"
+    elif case == "int_numpy":
+        data = np.zeros((96, 96), dtype=np.uint8)
     ds = _dataset(source_gm, a=data)
     return port.resample_in_space(ds, target_gm=target_gm, **kwargs)
 
@@ -246,6 +296,7 @@ def _not_ported(monkeypatch, case):
         ("extreme_warp", "XRTPU_FAST_EXTREME_WARP"),
         ("float64", "float32 tensors only"),
         ("cubic", "interp_methods must be one of"),
+        ("int_numpy", "float variables only"),
     ],
 )
 def test_routes_outside_the_slice_raise(monkeypatch, case, match):
@@ -254,12 +305,30 @@ def test_routes_outside_the_slice_raise(monkeypatch, case, match):
 
 
 def test_port_never_imports_jax():
+    """In a fresh process, importing the port and driving resample_in_space
+    on CPU tensors (tiled SRW and K3) loads no module of JAX or of the JAX
+    package."""
     code = (
-        "import sys\n"
-        "import xcube_resampling_tpu_torch\n"
-        "import xcube_resampling_tpu_torch.reproject, xcube_resampling_tpu_torch.spatial\n"
-        "import xcube_resampling_tpu_torch.ops.srw, xcube_resampling_tpu_torch._build\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "import os, sys\n"
+        "import numpy as np, torch\n"
+        "import xcube_resampling_tpu_torch as port\n"
+        "import xcube_resampling_tpu_torch._build, xcube_resampling_tpu_torch.ops.srw\n"
+        "s = port.GridMapping.regular(size=(96, 96), xy_min=(565000.0, 5930000.0),"
+        " xy_res=100.0, crs='epsg:32632')\n"
+        "t = port.GridMapping.regular(size=(80, 80), xy_min=(4320500, 3379500),"
+        " xy_res=100, crs='epsg:3035')\n"
+        "coords = dict(s.to_coords(exclude_bounds=True))\n"
+        "coords['spatial_ref'] = port.DataArray(np.array(0), dims=(), attrs=s.crs.to_cf())\n"
+        "v = port.DataArray(torch.rand(96, 96), dims=('y', 'x'),"
+        " attrs=dict(grid_mapping='spatial_ref'))\n"
+        "ds = port.Dataset({'v': v}, coords=coords)\n"
+        "for exact in ('', '1'):\n"
+        "    os.environ['XRTPU_EXACT'] = exact\n"
+        "    out = port.resample_in_space(ds, target_gm=t, device='cpu')\n"
+        "    assert out['v'].data.shape == (80, 80)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
+        " 'xcube_resampling_tpu')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -7,8 +7,9 @@ UTM32N -> EPSG:3035 bilinear reproject that ``chip_smoke.py`` drives, it
 prints
 
 1. the first call's host planning, phase by phase (coarse geometry,
-   source window, the two gates, ``plan_srw``, ``plan_to_device`` and the
-   device precompute), each timed alone with ``time.perf_counter``;
+   source window, the two gates, ``plan_srw``, and ``plan_to_device``
+   with the kernels' window tables), each timed alone with
+   ``time.perf_counter``;
 2. the wall time of 10 warm ``resample_in_space`` calls (median, min,
    max) and their host time (the call returning before the kernels end);
 3. the device time per kernel over 5 warm calls from ``torch.profiler``
@@ -18,7 +19,8 @@ prints
 5. last, one JSON object with the numbers above.
 
 Every line carries the card's name and power limit.  It imports nothing
-of JAX and exits nonzero when no CUDA device is visible.
+of JAX or of the JAX package and exits nonzero when no CUDA device is
+visible.
 """
 
 from __future__ import annotations
@@ -66,13 +68,6 @@ def main() -> int:
         print("profile_headline: no CUDA device is visible", file=sys.stderr)
         return 2
 
-    from xcube_resampling_tpu.ops.srw import (
-        _coarse_geometry,
-        _fields_interp_err,
-        _source_window_gm,
-        _twopass_slope,
-        plan_srw,
-    )
     from xcube_resampling_tpu_torch import (
         DataArray,
         Dataset,
@@ -81,7 +76,14 @@ def main() -> int:
         resample_in_space,
     )
     from xcube_resampling_tpu_torch.ops.reproject_ops import STEP
-    from xcube_resampling_tpu_torch.ops.srw import plan_to_device, precompute
+    from xcube_resampling_tpu_torch.ops.srw import (
+        _coarse_geometry,
+        _fields_interp_err,
+        _source_window_gm,
+        _twopass_slope,
+        plan_srw,
+        plan_to_device,
+    )
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -123,9 +125,8 @@ def main() -> int:
     phases["plan_srw"] = time.perf_counter() - t
     t = time.perf_counter()
     state = plan_to_device(plan, dev)
-    precompute(state, triangular=False)
     torch.cuda.synchronize()
-    phases["plan_to_device_and_precompute"] = time.perf_counter() - t
+    phases["plan_to_device"] = time.perf_counter() - t
     del state
     print(
         f"{tag} planning phases (s): "
@@ -141,7 +142,7 @@ def main() -> int:
     call()
     torch.cuda.synchronize()
     first = time.perf_counter() - t
-    print(f"{tag} first call {first:.3f} s (planning and precompute included)")
+    print(f"{tag} first call {first:.3f} s (planning included)")
 
     # -- 2. warm wall and host time ------------------------------------------
     wall, host = [], []

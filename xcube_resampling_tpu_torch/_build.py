@@ -42,15 +42,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every kernel entry point (all return cudaGetLastError())
 _SIGNATURES = {
-    # src, pos_v, base_v, v, vd, batch, src_h, src_w, out_h, n_col_tiles,
-    # col_tile, d_v, method, stream
+    # src, iystar_c, base_v, win, v, vd, batch, src_h, src_w, out_h, ncj,
+    # ncc, step, n_col_tiles, col_tile, d_v, method, rows, cols, extent,
+    # n_col_blocks, walkers, vec4, stream
     "xrt_srw_vertical_f32": [
-        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64,
+        _I64, _I, _I, _I, _I, _I, _I64, _I64, _I, _P,
     ],
-    # v, vd, pos_h, base_h, valid, s, out, batch, out_h, out_w, src_w,
-    # row_tile, d_h, method, fill, stream
+    # v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,
+    # src_w, ncj, nci, step, row_tile, d_h, method, fill, rows, cols,
+    # extent, n_col_blocks, walkers, vec4, stream
     "xrt_srw_horizontal_f32": [
-        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I, _I64, _I, _I, _F, _I, _I, _I, _I64, _I64, _I, _P,
     ],
     # src, ix_c, iy_c, out, batch, src_h, src_w, ncj, nci, out_h, out_w,
     # step, method, fill, stream

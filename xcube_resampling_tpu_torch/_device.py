@@ -1,7 +1,5 @@
 """Device helpers shared by the kernel wrappers.
 
-* :func:`numpy_dtype` maps a torch dtype to the numpy dtype the JAX
-  package's option resolvers understand.
 * :func:`on_cpu` decides, from the tensors a wrapper was given, whether the
   plain PyTorch version runs (every tensor on the CPU) or the CUDA kernel
   (every tensor on one CUDA device); anything else raises.
@@ -16,7 +14,6 @@ from __future__ import annotations
 
 from collections import Counter
 
-import numpy as np
 import torch
 
 LAUNCHES: Counter = Counter()
@@ -24,12 +21,6 @@ LAUNCHES: Counter = Counter()
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
-
-
-def numpy_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy dtype of a torch dtype (raises ``TypeError`` for dtypes
-    numpy lacks, such as bfloat16)."""
-    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

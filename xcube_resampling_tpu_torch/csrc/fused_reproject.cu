@@ -19,28 +19,11 @@
 // and writes one value per band; the coarse fields are small and stay in
 // L2.  Design: one thread per (j, i) with i fastest; the field
 // interpolation, mask and tap offsets are computed once and reused for
-// every band.  64-bit offsets.
+// every band; the field interpolation is srw_common.h's, shared with K1
+// and K2.  64-bit offsets.
 #include "srw_common.h"
 
 namespace {
-
-__device__ __forceinline__ float interp_field(const float* __restrict__ f,
-                                              int64_t ncj, int64_t nci,
-                                              float row, float col, float inv) {
-  const float cj = row * inv;
-  const float ci = col * inv;
-  const float j0f = floorf(cj);
-  const float i0f = floorf(ci);
-  const float fj = cj - j0f;
-  const float fi = ci - i0f;
-  const int64_t j0 = xrt::clamp_index(static_cast<int64_t>(j0f), ncj - 1);
-  const int64_t i0 = xrt::clamp_index(static_cast<int64_t>(i0f), nci - 1);
-  const float f00 = f[j0 * nci + i0];
-  const float f01 = f[j0 * nci + i0 + 1];
-  const float f10 = f[(j0 + 1) * nci + i0];
-  const float f11 = f[(j0 + 1) * nci + i0 + 1];
-  return xrt::lerp(xrt::lerp(f00, f01, fi), xrt::lerp(f10, f11, fi), fj);
-}
 
 __global__ void fused_reproject_kernel(
     const float* __restrict__ src, const float* __restrict__ ix_c,
@@ -57,8 +40,8 @@ __global__ void fused_reproject_kernel(
   const float y_max = static_cast<float>(src_h - 1);
   for (int64_t j = blockIdx.y; j < out_h; j += gridDim.y) {
     const float row = static_cast<float>(j);
-    float ix = interp_field(ix_c, ncj, nci, row, col, inv);
-    float iy = interp_field(iy_c, ncj, nci, row, col, inv);
+    float ix = xrt::interp_field(ix_c, ncj, nci, row, col, inv);
+    float iy = xrt::interp_field(iy_c, ncj, nci, row, col, inv);
     const bool ok = ix > -0.5f && ix < x_hi && iy > -0.5f && iy < y_hi;
     ix = fminf(fmaxf(ix, 0.0f), x_max);
     iy = fminf(fmaxf(iy, 0.0f), y_max);

@@ -1,4 +1,5 @@
-// Tap weights and helpers shared by the SRW and fused-reproject kernels.
+// Tap weights, field interpolation and staging helpers shared by the SRW
+// and fused-reproject kernels.
 //
 // Rounding follows the JAX package's jitted XLA code as its compiler emits
 // it: every ``a + b * c`` that XLA contracts into a fused multiply-add (the
@@ -16,21 +17,6 @@ namespace xrt {
 
 enum Method : int { kBilinear = 0, kNearest = 1, kTriangular = 2 };
 
-// Weight of tap row/column k for a sample at position p: the hat for
-// bilinear and triangular; for nearest 1 where rint(p) == k.  rintf
-// rounds half to even like jnp.round and torch.round (never roundf).
-__device__ __forceinline__ float tap_weight(float p, float k, int method) {
-  if (method == kNearest) return rintf(p) == k ? 1.0f : 0.0f;
-  return fmaxf(0.0f, 1.0f - fabsf(p - k));
-}
-
-// The (1, -1) mixed-difference taps of the triangular correction:
-// +1 at floor(p), -1 at floor(p) + 1.
-__device__ __forceinline__ float tap_dweight(float p, float k) {
-  const float f = floorf(p);
-  return (f == k ? 1.0f : 0.0f) - (f + 1.0f == k ? 1.0f : 0.0f);
-}
-
 // a + t * (b - a) with one rounding of the product-sum, as XLA emits it
 __device__ __forceinline__ float lerp(float a, float b, float t) {
   return fmaf(t, b - a, a);
@@ -38,6 +24,166 @@ __device__ __forceinline__ float lerp(float a, float b, float t) {
 
 __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
   return i < 0 ? 0 : (i > n - 1 ? n - 1 : i);
+}
+
+// Bilinear interpolation of a coarse (ncj, nci) field f, sampled every
+// 1 / inv pixels, at pixel (row, col): reproject_ops._interp_field of the
+// JAX package with its lerps contracted as XLA does.
+__device__ __forceinline__ float interp_field(const float* __restrict__ f,
+                                              int64_t ncj, int64_t nci,
+                                              float row, float col, float inv) {
+  const float cj = row * inv;
+  const float ci = col * inv;
+  const float j0f = floorf(cj);
+  const float i0f = floorf(ci);
+  const float fj = cj - j0f;
+  const float fi = ci - i0f;
+  // 32-bit indices: a coarse field holds far fewer than 2^31 samples
+  const int n = static_cast<int>(nci);
+  const int j0 = static_cast<int>(clamp_index(static_cast<int>(j0f), ncj - 1));
+  const int i0 = static_cast<int>(clamp_index(static_cast<int>(i0f), nci - 1));
+  const float f00 = f[j0 * n + i0];
+  const float f01 = f[j0 * n + i0 + 1];
+  const float f10 = f[(j0 + 1) * n + i0];
+  const float f11 = f[(j0 + 1) * n + i0 + 1];
+  return lerp(lerp(f00, f01, fi), lerp(f10, f11, fi), fj);
+}
+
+// -- asynchronous global -> shared copies (sm_80+: cp.async) ---------------
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The tap sums of one output at position p: d_n taps of the staged
+// window, the first at sp (tap index b0), the next `stride` floats on.
+// The weight of tap k is the hat max(0, 1 - |p - k|) for bilinear and
+// triangular, and for nearest 1 where rint(p) == k (rintf rounds half to
+// even like jnp.round and torch.round, never roundf).  Triangular adds the
+// (1, -1) mixed-difference taps of its correction in acc_d: +1 at
+// floor(p), -1 at floor(p) + 1.  The sums run from acc = acc_d = +0 in tap
+// order, one fused multiply-add a tap, as XLA contracts them.
+//
+// Only taps floor(p) and floor(p) + 1 (rint(p) for nearest) can carry a
+// nonzero weight, and a zero-weight tap with a finite value leaves the sum
+// as it is (x + 0 * s == x, and +0 stays +0).  So where every value of the
+// staged window is finite (*finite*, checked once per window), those one
+// or two fused multiply-adds give the full sum bit for bit.  Otherwise
+// every tap is summed, so that 0 * NaN reaches the output as in the XLA
+// path.
+template <int M>
+__device__ __forceinline__ void tap_sums(const float* sp, int stride, float p,
+                                         int b0, int d_n, bool finite,
+                                         float& acc, float& acc_d) {
+  const float fp = floorf(p);
+  if (finite) {
+    if (M == kNearest) {
+      const int t = static_cast<int>(rintf(p)) - b0;
+      acc = t >= 0 && t < d_n ? fmaf(1.0f, sp[t * stride], 0.0f) : 0.0f;
+      return;
+    }
+    const int t = static_cast<int>(fp) - b0;
+    float a = 0.0f;
+    float ad = 0.0f;
+    if (t >= 0 && t < d_n) {
+      const float s = sp[t * stride];
+      a = fmaf(fmaxf(0.0f, 1.0f - fabsf(p - fp)), s, a);
+      if (M == kTriangular) ad = fmaf(1.0f, s, ad);
+    }
+    if (t + 1 >= 0 && t + 1 < d_n) {
+      const float s = sp[(t + 1) * stride];
+      a = fmaf(fmaxf(0.0f, 1.0f - fabsf(p - (fp + 1.0f))), s, a);
+      if (M == kTriangular) ad = fmaf(-1.0f, s, ad);
+    }
+    acc = a;
+    acc_d = ad;
+    return;
+  }
+  const float rp = rintf(p);
+  float k = static_cast<float>(b0);  // k += 1.0f is exact below 2^24
+  for (int d = 0; d < d_n; ++d) {
+    const float s = sp[d * stride];
+    const float w = M == kNearest ? (rp == k ? 1.0f : 0.0f)
+                                  : fmaxf(0.0f, 1.0f - fabsf(p - k));
+    acc = fmaf(w, s, acc);
+    if (M == kTriangular) {
+      const float dw = (fp == k ? 1.0f : 0.0f) - (fp + 1.0f == k ? 1.0f : 0.0f);
+      acc_d = fmaf(dw, s, acc_d);
+    }
+    k += 1.0f;
+  }
+}
+
+// interp_field of one column of a coarse field at rows that a thread
+// visits in increasing order: the column's cell and fraction are taken
+// once, and the two row lerps are kept while the rows stay in one coarse
+// cell.  The same operations on the same values as interp_field.
+class FieldColumn {
+ public:
+  __device__ FieldColumn(const float* __restrict__ f, int64_t ncj,
+                         int64_t nci, float col, float inv)
+      : f_(f), n_(static_cast<int>(nci)), jmax_(static_cast<int>(ncj) - 2),
+        inv_(inv) {
+    const float ci = col * inv;
+    const float i0f = floorf(ci);
+    fi_ = ci - i0f;
+    i0_ = static_cast<int>(clamp_index(static_cast<int>(i0f), nci - 1));
+  }
+
+  __device__ float at(float row) {
+    const float cj = row * inv_;
+    const float j0f = floorf(cj);
+    const float fj = cj - j0f;
+    const int j0 = static_cast<int>(clamp_index(static_cast<int>(j0f), jmax_ + 1));
+    if (j0 != j_) {
+      j_ = j0;
+      const float* r0 = f_ + j0 * n_ + i0_;
+      a0_ = lerp(r0[0], r0[1], fi_);
+      a1_ = lerp(r0[n_], r0[n_ + 1], fi_);
+    }
+    return lerp(a0_, a1_, fj);
+  }
+
+ private:
+  const float* f_;
+  int n_, jmax_, i0_, j_ = -1;
+  float inv_, fi_, a0_ = 0.0f, a1_ = 0.0f;
+};
+
+// True on every thread of the block when any of the rows x width values of
+// the staged window s (row stride sw) is not finite.  A block barrier.
+__device__ __forceinline__ bool window_has_nonfinite(const float* s, int sw,
+                                                    int rows, int width) {
+  int bad = 0;
+  for (int e = threadIdx.x; e < rows * width; e += blockDim.x) {
+    const int r = e / width;
+    bad |= !isfinite(s[r * sw + (e - r * width)]);
+  }
+  return __syncthreads_or(bad) != 0;
+}
+
+// Launch helper: allow *bytes* of dynamic shared memory for *kernel*
+// (needed above 48 KB).
+template <typename K>
+__host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace xrt

@@ -1,72 +1,191 @@
 // K1: the SRW vertical tap pass.
 //
-//   v[b, j, c]  = sum_{d < d_v} w(pos_v[j, c], base + d)  * src[b, clamp(base + d), c]
-//   vd[b, j, c] = sum_{d < d_v} dw(pos_v[j, c], base + d) * src[b, clamp(base + d), c]
+//   p           = interp_field(iystar_c, j, c)
+//   v[b, j, c]  = sum_{d < d_v} w(p, base + d)  * src[b, clamp(base + d), c]
+//   vd[b, j, c] = sum_{d < d_v} dw(p, base + d) * src[b, clamp(base + d), c]
 //   with base = base_v[j, c / col_tile]; vd only for triangular.
 //
 // Replaces the Pallas kernel xcube_resampling_tpu/ops/pallas_kernels.py:
 // srw_vertical_pallas and the XLA taps of ops/srw.py:make_srw_fn
-// (:647-668).  It follows the XLA taps' semantics: exactly d_v taps from
-// base, zero-weight taps included, so a NaN source row reaches exactly the
-// outputs whose taps read it.
+// (:647-668) with its position precompute (:609-614).  It follows the XLA
+// taps' semantics: exactly d_v taps from base, zero-weight taps included,
+// so a NaN source row reaches exactly the outputs whose taps read it.
 //
-// Bound on the H100: device memory.  Per output element it reads pos_v
-// once and d_v source values, and writes v once; the source reads of
-// neighbouring output rows overlap and mostly hit L1/L2.  Design: one
-// thread per (j, c) with c fastest, so reads of src and pos_v and writes of
-// v are coalesced; the thread loops over the band axis so pos_v and the
-// base are read once for all bands; one launch covers every column tile
-// (the JAX path runs one kernel per tile).  The TPU kernel's 8-aligned
-// VMEM windows and edge padding are not carried over: the clamp does the
-// padding.  Offsets are 64-bit: a 20480^2 raster with 6 bands passes 2^31
-// elements.  Staging the source window in shared memory is later work.
+// Bound on the H100: device memory.  The work must read the source once
+// and write v once (vd too for triangular); the positions come from a
+// coarse field of a few MB that stays in L2.  Read naively, each output
+// reads d_v source values through L1/L2, d_v times the source per call.
+//
+// Design, as the Pallas kernel stages a source window in VMEM: a block
+// covers `cols` source columns inside one column tile (one base per output
+// row) by `rows` output rows, and stages the source rows its taps read in
+// shared memory with cp.async (16-byte copies where aligned), so the
+// source is read about (rows + d_v) / rows times.  The window is the
+// host-planned [lo, lo + extent) of tap rows, unclipped: window row r holds
+// source row clamp(lo + r), so the copy does the edge clamp once and the
+// tap loop has none.  A block walks several row blocks and every band of
+// each; the next (row block, band) window loads while the current one is
+// summed (two buffers).  Positions and bases go to shared memory once per
+// row block and serve every band.  Where the staged window is all finite,
+// the tap sums take the exact two-tap shortcut of srw_common.h.
+// Neighbouring threads read neighbouring columns: no bank conflicts.  The
+// method is a template parameter, the tap loop 32-bit; output offsets are
+// 64-bit.  What still holds it above its bound: not bytes and, after the
+// shortcut, not instructions; the block-shape sweep (tools/tune_srw.py)
+// finds the fewest, largest blocks fastest, so the per-block work between
+// barriers (geometry, window check, the wait on the copy) sets the time.
 #include "srw_common.h"
 
 namespace {
 
-__global__ void srw_vertical_kernel(
-    const float* __restrict__ src, const float* __restrict__ pos,
-    const int32_t* __restrict__ base, float* __restrict__ v,
-    float* __restrict__ vd, int64_t batch, int64_t src_h, int64_t src_w,
-    int64_t out_h, int64_t n_col_tiles, int64_t col_tile, int d_v,
-    int method) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (c >= src_w) return;
-  const int64_t tile = c / col_tile;
-  for (int64_t j = blockIdx.y; j < out_h; j += gridDim.y) {
-    const float p = pos[j * src_w + c];
-    const int64_t b0 = base[j * n_col_tiles + tile];
-    for (int64_t b = 0; b < batch; ++b) {
-      const float* plane = src + b * src_h * src_w;
-      float acc = 0.0f;
-      float acc_d = 0.0f;
-      for (int d = 0; d < d_v; ++d) {
-        const float k = static_cast<float>(b0 + d);
-        const float s = plane[xrt::clamp_index(b0 + d, src_h) * src_w + c];
-        acc = fmaf(xrt::tap_weight(p, k, method), s, acc);
-        if (vd != nullptr) acc_d = fmaf(xrt::tap_dweight(p, k), s, acc_d);
-      }
-      const int64_t o = (b * out_h + j) * src_w + c;
-      v[o] = acc;
-      if (vd != nullptr) vd[o] = acc_d;
+constexpr int kThreads = 256;
+
+// Copy window rows [0, h) of one band's column block into s (row stride
+// cols): window row r is source row clamp(lo + r); `width` columns.
+__device__ __forceinline__ void load_rows_async(float* s, int cols,
+                                                const float* g, int64_t ld,
+                                                int lo, int h, int64_t src_h,
+                                                int width, bool vec4) {
+  const int per_row = vec4 ? width >> 2 : width;
+  for (int e = threadIdx.x; e < h * per_row; e += kThreads) {
+    const int r = e / per_row;
+    const int q = e - r * per_row;
+    const float* row = g + xrt::clamp_index(lo + r, src_h) * ld;
+    if (vec4) {
+      xrt::cp_async16(s + r * cols + 4 * q, row + 4 * q);
+    } else {
+      xrt::cp_async4(s + r * cols + q, row + q);
     }
   }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads) srw_vertical_kernel(
+    const float* __restrict__ src, const float* __restrict__ iystar_c,
+    const int32_t* __restrict__ base, const int32_t* __restrict__ win,
+    float* __restrict__ v, float* __restrict__ vd, int64_t batch,
+    int64_t src_h, int64_t src_w, int64_t out_h, int64_t ncj, int64_t ncc,
+    float inv, int64_t n_col_tiles, int64_t col_tile, int d_v, int rows,
+    int cols, int extent, bool vec4) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int stage = extent * cols;  // floats per window buffer
+  float* spos = smem + 2 * stage;   // (rows, cols) positions
+  int* sbase = reinterpret_cast<int*>(spos + rows * cols);  // (rows,)
+
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * cols;
+  const int width = static_cast<int>(src_w - c0 < cols ? src_w - c0 : cols);
+  const int64_t tile = c0 / col_tile;
+  const int cx = threadIdx.x % cols;
+  const int ry = threadIdx.x / cols;
+  const int row_groups = kThreads / cols;
+  const int64_t n_rb = (out_h + rows - 1) / rows;
+  // this block's items: row blocks blockIdx.y, + gridDim.y, ..., each band
+  const int64_t n_mine = blockIdx.y < n_rb
+      ? (n_rb - blockIdx.y + gridDim.y - 1) / gridDim.y : 0;
+  const int64_t n_items = n_mine * batch;
+
+  auto row_block = [&](int64_t it) { return blockIdx.y + (it / batch) * gridDim.y; };
+  auto issue = [&](int64_t it) {
+    const int64_t b = it % batch;
+    const int32_t* w = win + (row_block(it) * n_col_tiles + tile) * 2;
+    load_rows_async(smem + (it & 1) * stage, cols, src + b * src_h * src_w + c0,
+                    src_w, w[0], w[1] - w[0], src_h, width, vec4);
+    xrt::cp_async_commit();
+  };
+
+  if (n_items > 0) issue(0);
+  for (int64_t it = 0; it < n_items; ++it) {
+    const int64_t rb = row_block(it);
+    const int64_t b = it % batch;
+    const int64_t j0 = rb * rows;
+    const int nrows = static_cast<int>(out_h - j0 < rows ? out_h - j0 : rows);
+    const bool more = it + 1 < n_items;
+    if (more) issue(it + 1);
+    if (b == 0) {
+      // positions and bases of this row block, once for every band; each
+      // thread computes the positions it sums
+      xrt::FieldColumn field(iystar_c, ncj, ncc, static_cast<float>(c0 + cx), inv);
+      for (int r = ry; r < nrows; r += row_groups) {
+        spos[r * cols + cx] = field.at(static_cast<float>(j0 + r));
+      }
+      for (int r = threadIdx.x; r < nrows; r += kThreads) {
+        sbase[r] = base[(j0 + r) * n_col_tiles + tile];
+      }
+    }
+    if (more) {
+      xrt::cp_async_wait<1>();
+    } else {
+      xrt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* st = smem + (it & 1) * stage;
+    const int32_t* w = win + (rb * n_col_tiles + tile) * 2;
+    const int lo = w[0];
+    const bool finite = !xrt::window_has_nonfinite(st, cols, w[1] - lo, width);
+    if (cx < width) {
+      float* vb = v + (b * out_h + j0) * src_w + c0 + cx;
+      float* vdb = M == xrt::kTriangular ? vd + (b * out_h + j0) * src_w + c0 + cx : nullptr;
+      for (int r = ry; r < nrows; r += row_groups) {
+        const int b0 = sbase[r];
+        float acc = 0.0f;
+        float acc_d = 0.0f;
+        xrt::tap_sums<M>(st + (b0 - lo) * cols + cx, cols, spos[r * cols + cx],
+                         b0, d_v, finite, acc, acc_d);
+        vb[r * src_w] = acc;
+        if (M == xrt::kTriangular) vdb[r * src_w] = acc_d;
+      }
+    }
+    __syncthreads();  // the buffer and the geometry are rewritten next
+  }
+}
+
+template <int M>
+cudaError_t launch(const float* src, const float* iystar_c,
+                   const int32_t* base_v, const int32_t* win, float* v,
+                   float* vd, int64_t batch, int64_t src_h, int64_t src_w,
+                   int64_t out_h, int64_t ncj, int64_t ncc, float inv,
+                   int64_t n_col_tiles, int64_t col_tile, int d_v, int rows,
+                   int cols, int extent, dim3 grid, size_t smem, bool vec4,
+                   cudaStream_t stream) {
+  const cudaError_t err = xrt::allow_smem(srw_vertical_kernel<M>, smem);
+  if (err != cudaSuccess) return err;
+  srw_vertical_kernel<M><<<grid, kThreads, smem, stream>>>(
+      src, iystar_c, base_v, win, v, vd, batch, src_h, src_w, out_h, ncj, ncc,
+      inv, n_col_tiles, col_tile, d_v, rows, cols, extent, vec4);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int xrt_srw_vertical_f32(
-    const float* src, const float* pos_v, const int32_t* base_v, float* v,
-    float* vd, int64_t batch, int64_t src_h, int64_t src_w, int64_t out_h,
-    int64_t n_col_tiles, int64_t col_tile, int d_v, int method,
+    const float* src, const float* iystar_c, const int32_t* base_v,
+    const int32_t* win, float* v, float* vd, int64_t batch, int64_t src_h,
+    int64_t src_w, int64_t out_h, int64_t ncj, int64_t ncc, int step,
+    int64_t n_col_tiles, int64_t col_tile, int d_v, int method, int rows,
+    int cols, int extent, int64_t n_col_blocks, int64_t walkers, int vec4,
     void* stream) {
-  const dim3 block(256);
-  const dim3 grid(static_cast<unsigned>((src_w + 255) / 256),
-                  static_cast<unsigned>(out_h < 65535 ? out_h : 65535));
-  srw_vertical_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, pos_v, base_v, v, vd, batch, src_h, src_w, out_h, n_col_tiles,
-      col_tile, d_v, method);
-  return static_cast<int>(cudaGetLastError());
+  if (cols < 1 || cols > kThreads || kThreads % cols != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(extent) * cols +
+                                       static_cast<size_t>(rows) * cols + rows);
+  const float inv = static_cast<float>(1.0 / step);
+  const dim3 grid(static_cast<unsigned>(n_col_blocks), static_cast<unsigned>(walkers));
+  const auto s = static_cast<cudaStream_t>(stream);
+#define XRT_LAUNCH(M)                                                          \
+  launch<M>(src, iystar_c, base_v, win, v, vd, batch, src_h, src_w, out_h,     \
+            ncj, ncc, inv, n_col_tiles, col_tile, d_v, rows, cols, extent,     \
+            grid, smem, vec4 != 0, s)
+  cudaError_t err;
+  switch (method) {
+    case xrt::kBilinear: err = XRT_LAUNCH(xrt::kBilinear); break;
+    case xrt::kNearest: err = XRT_LAUNCH(xrt::kNearest); break;
+    case xrt::kTriangular: err = XRT_LAUNCH(xrt::kTriangular); break;
+    default: err = cudaErrorInvalidValue;
+  }
+#undef XRT_LAUNCH
+  return static_cast<int>(err);
 }
 
 extern "C" const char* xrt_cuda_error_string(int code) {

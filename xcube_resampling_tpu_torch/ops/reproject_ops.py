@@ -9,8 +9,8 @@ version (``fused_reproject_plain``, built from :func:`interp_field` and
 :func:`gather_interp`) for CPU tensors and launches the kernel for CUDA
 tensors, or raises.
 
-The coarse fields come from the JAX package's numpy planner
-(``coarse_coord_field``), evaluated once per geometry on the host.
+The coarse fields come from :func:`coarse_coord_field`, a copy of the
+JAX package's numpy planner, evaluated once per geometry on the host.
 """
 
 from __future__ import annotations
@@ -18,19 +18,77 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xcube_resampling_tpu.gridmapping import GridMapping
-from xcube_resampling_tpu.ops.reproject_ops import coarse_coord_field
-
 from .. import _build
 from .._device import count_launch, on_cpu, require_cuda
-from .srw_kernels import fma, lerp, method_code
+from ..crs import Transformer
+from ..gridmapping import GridMapping
 
 _F32 = torch.float32
+
+# The kernels' codes of the interpolation methods (csrc/srw_common.h)
+METHODS = {"bilinear": 0, "nearest": 1, "triangular": 2}
 
 # Target pixels between samples of the coarse coordinate fields: the
 # default of the JAX package's make_fused_reproject_fn (reproject_ops.py:155)
 # and make_srw_reproject_fn (srw.py:1555).
 STEP = 16
+
+
+def coarse_coord_field(
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    step: int = 16,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Host-side float64 evaluation of the inverse coordinate transform on
+    every ``step``-th target pixel, returned as float32 fractional source
+    index fields (ix, iy) of shape (ceil((h-1)/step)+1, ceil((w-1)/step)+1).
+    Copy of ``xcube_resampling_tpu/ops/reproject_ops.py:coarse_coord_field``.
+    """
+    transformer = Transformer.from_crs(target_gm.crs, source_gm.crs)
+
+    out_h, out_w = target_gm.height, target_gm.width
+    ncj = (out_h - 1) // step + 2
+    nci = (out_w - 1) // step + 2
+
+    tgt_x = np.asarray(target_gm.x_coords.data, dtype=np.float64)
+    tgt_y = np.asarray(target_gm.y_coords.data, dtype=np.float64)
+    tgt_x0, tgt_dx = float(tgt_x[0]), float(tgt_x[1] - tgt_x[0])
+    tgt_y0, tgt_dy = float(tgt_y[0]), float(tgt_y[1] - tgt_y[0])
+
+    xs = tgt_x0 + tgt_dx * (np.arange(nci, dtype=np.float64) * step)
+    ys = tgt_y0 + tgt_dy * (np.arange(ncj, dtype=np.float64) * step)
+    xx, yy = np.meshgrid(xs, ys)
+    sx, sy = transformer.transform(xx, yy)
+
+    src_x0 = float(np.asarray(source_gm.x_coords.data)[0])
+    y_vals = np.asarray(source_gm.y_coords.data)
+    src_y0 = float(y_vals[0])
+    src_yres_signed = float(y_vals[1] - y_vals[0])
+
+    ix = (np.asarray(sx) - src_x0) / float(source_gm.x_res)
+    iy = (np.asarray(sy) - src_y0) / src_yres_signed
+    return ix.astype(np.float32), iy.astype(np.float32), step
+
+
+def method_code(interp_method: str) -> int:
+    """The kernels' code for an interpolation method; raises for others."""
+    try:
+        return METHODS[interp_method]
+    except KeyError:
+        raise ValueError(
+            f"the kernels support {sorted(METHODS)}, got {interp_method!r}"
+        ) from None
+
+
+def fma(a, b, c):
+    """``a * b + c`` in float32 with one rounding, as a fused multiply-add
+    (the product of two float32 values is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def lerp(a, b, t):
+    """``a + t * (b - a)`` rounded as XLA's contracted lerp."""
+    return fma(t, b - a, a)
 
 
 def interp_field(field, rows, cols, step):
@@ -164,7 +222,7 @@ def make_fused_reproject_fn(
     target_gm: GridMapping,
     interp_method: str = "bilinear",
     fill_value: float = np.nan,
-    device="cpu",
+    device="cuda",
 ) -> FusedReprojectFn:
     """The fused direct reprojection of ``source_gm`` onto ``target_gm``,
     with its coarse coordinate fields on *device*."""

@@ -2,11 +2,14 @@
 
 Port of ``xcube_resampling_tpu/ops/srw.py``: ``make_srw_fn`` (:570-753) and
 the tiled branch of ``make_srw_reproject_fn`` (:1550-1685).  The numpy
-planners (``_coarse_geometry``, ``_source_window_gm``, the curvature and
-two-pass gates, ``plan_srw``) are the JAX package's own, imported and not
-copied; :func:`plan_to_device` carries their :class:`SRWPlan` onto the
-device.  Each call runs one launch of K1 (vertical pass, all column tiles)
-and one of K2 (horizontal pass, triangular correction, fill select).
+planners are copies of the JAX package's (``_Fields`` to
+``_fields_interp_err``, :48-204; ``SRWPlan`` to ``plan_srw``, :450-567;
+``_source_window_gm``, :1693).  :func:`plan_to_device` carries an
+:class:`SRWPlan` onto the device with the staged windows of K1 and K2.
+Each call runs one launch of K1 (vertical pass, all column tiles) and one
+of K2 (horizontal pass, per-pixel geometry, triangular correction, fill
+select); both interpolate the coarse fields themselves, so no per-pixel
+tensor is kept per geometry.
 
 Where the JAX package's cost model would pick its aligned or hybrid
 strategy, this port takes the tiled plan whenever one exists: it passes
@@ -22,20 +25,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from xcube_resampling_tpu.gridmapping import GridMapping
-from xcube_resampling_tpu.ops.srw import (
-    SRWPlan,
-    _coarse_geometry,
-    _fields_interp_err,
-    _source_window_gm,
-    _twopass_slope,
-    plan_srw,
-)
-
-from .reproject_ops import STEP, interp_field
+from ..crs import Transformer
+from ..gridmapping import GridMapping
+from .reproject_ops import METHODS, STEP, method_code
 from .srw_kernels import (
-    METHODS,
-    method_code,
+    Windows,
+    plan_horizontal_windows,
+    plan_vertical_windows,
     srw_horizontal,
     srw_horizontal_plain,
     srw_vertical,
@@ -43,16 +39,351 @@ from .srw_kernels import (
 )
 
 
+# ---------------------------------------------------------------------------
+# host-side geometry (copies of the JAX package's numpy planners)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _Fields:
+    """Float64 coarse coordinate fields shared by both planners."""
+
+    ix64: np.ndarray  # (ncj, nci): source col per (out row, out col)
+    iy64: np.ndarray  # (ncj, nci): source row per (out row, out col)
+    iystar64: np.ndarray  # (ncj, ncc): source row per (out row, src col)
+    step: int
+    src_h: int
+    src_w: int
+    out_h: int
+    out_w: int
+
+
+def _raw_coarse_fields(
+    source_gm: GridMapping, target_gm: GridMapping, step: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Float64 coarse ix/iy fields of the inverse transform, unvalidated
+    (may contain non-finite values near projection singularities).  Bit-for-
+    bit the same evaluation as reproject_ops.coarse_coord_field — float32
+    casts of these ARE the gather kernel's coordinate fields, which is what
+    makes the exact-warp kernels (ops/esw.py) reproduce it exactly."""
+    transformer = Transformer.from_crs(target_gm.crs, source_gm.crs)
+
+    out_h, out_w = target_gm.height, target_gm.width
+
+    ncj = (out_h - 1) // step + 2
+    nci = (out_w - 1) // step + 2
+
+    tgt_x = np.asarray(target_gm.x_coords.data, dtype=np.float64)
+    tgt_y = np.asarray(target_gm.y_coords.data, dtype=np.float64)
+    tgt_x0, tgt_dx = float(tgt_x[0]), float(tgt_x[1] - tgt_x[0])
+    tgt_y0, tgt_dy = float(tgt_y[0]), float(tgt_y[1] - tgt_y[0])
+    xs = tgt_x0 + tgt_dx * (np.arange(nci, dtype=np.float64) * step)
+    ys = tgt_y0 + tgt_dy * (np.arange(ncj, dtype=np.float64) * step)
+    xx, yy = np.meshgrid(xs, ys)
+    sx, sy = transformer.transform(xx, yy)
+
+    src_x0 = float(np.asarray(source_gm.x_coords.data)[0])
+    y_vals = np.asarray(source_gm.y_coords.data)
+    src_y0 = float(y_vals[0])
+    src_yres_signed = float(y_vals[1] - y_vals[0])
+    ix64 = (np.asarray(sx) - src_x0) / float(source_gm.x_res)
+    iy64 = (np.asarray(sy) - src_y0) / src_yres_signed
+    return ix64, iy64
+
+
+def _coarse_geometry(
+    source_gm: GridMapping, target_gm: GridMapping, step: int
+) -> _Fields | None:
+    out_h, out_w = target_gm.height, target_gm.width
+    src_h, src_w = source_gm.height, source_gm.width
+
+    ix64, iy64 = _raw_coarse_fields(source_gm, target_gm, step)
+
+    if not np.isfinite(ix64).all() or not np.isfinite(iy64).all():
+        return None
+
+    iystar = _iystar_from_fields(ix64, iy64, src_w, step)
+    if iystar is None:
+        return None
+
+    return _Fields(ix64, iy64, iystar, step, src_h, src_w, out_h, out_w)
+
+
+def _iystar_from_fields(
+    ix64: np.ndarray, iy64: np.ndarray, src_w: int, step: int
+) -> np.ndarray | None:
+    """Reparametrized row field iy*(out row, source col) from the coarse
+    coordinate fields, or None when rows are not monotone in ix (no valid
+    reparametrization exists there)."""
+    # monotone ix along output rows is required for the reparametrization
+    dx_row = np.diff(ix64, axis=1)
+    if np.all(dx_row > 0):
+        ascending = True
+    elif np.all(dx_row < 0):
+        ascending = False
+    else:
+        return None
+
+    ncj = ix64.shape[0]
+    ncc = (src_w - 1) // step + 2
+    cs = np.arange(ncc, dtype=np.float64) * step
+    iystar = np.empty((ncj, ncc), dtype=np.float64)
+    for r in range(ncj):
+        xp_row = ix64[r] if ascending else ix64[r, ::-1]
+        fp_row = iy64[r] if ascending else iy64[r, ::-1]
+        vals = np.interp(cs, xp_row, fp_row)
+        # np.interp clamps flat outside the row's ix range; extrapolate
+        # linearly so edge taps see consistent positions
+        left = cs < xp_row[0]
+        if left.any():
+            slope = (fp_row[1] - fp_row[0]) / (xp_row[1] - xp_row[0])
+            vals[left] = fp_row[0] + (cs[left] - xp_row[0]) * slope
+        right = cs > xp_row[-1]
+        if right.any():
+            slope = (fp_row[-1] - fp_row[-2]) / (xp_row[-1] - xp_row[-2])
+            vals[right] = fp_row[-1] + (cs[right] - xp_row[-1]) * slope
+        iystar[r] = vals
+
+    return iystar
+
+
+def _interp_rows(field: np.ndarray, n_rows: int, step: int) -> np.ndarray:
+    """Linearly interpolate a coarse field to every output row (matching
+    the device's row interpolation)."""
+    rows_full = np.arange(n_rows, dtype=np.float64) / step
+    jr0 = np.clip(rows_full.astype(np.int64), 0, field.shape[0] - 2)
+    frr = rows_full - jr0
+    return field[jr0, :] * (1 - frr[:, None]) + field[jr0 + 1, :] * frr[:, None]
+
+
+def _interp_cols(field: np.ndarray, n_cols: int, step: int) -> np.ndarray:
+    cols_full = np.arange(n_cols, dtype=np.float64) / step
+    ic0 = np.clip(cols_full.astype(np.int64), 0, field.shape[1] - 2)
+    fcc = cols_full - ic0
+    return field[:, ic0] * (1 - fcc[None, :]) + field[:, ic0 + 1] * fcc[None, :]
+
+
+def _twopass_slope(fields: _Fields) -> float:
+    """Worst per-pixel variation of the separable warp's fields: the
+    two-pass filter deviates from direct bilinear by about a quarter of
+    this value on worst-case data.  iy* is measured only on the columns
+    the horizontal taps can reach."""
+    ix64, iystar, step = fields.ix64, fields.iystar64, fields.step
+    k0 = max(0, int(np.floor(np.nanmin(ix64) / step)) - 1)
+    k1 = min(iystar.shape[1], int(np.ceil(np.nanmax(ix64) / step)) + 2)
+    used = iystar[:, k0:k1] if k1 - k0 >= 2 else iystar
+    s_v = float(np.nanmax(np.abs(np.diff(used, axis=1)))) / step
+    s_h = float(np.nanmax(np.abs(np.diff(ix64, axis=0)))) / step
+    return max(s_v, s_h)
+
+
+def _fields_interp_err(fields: _Fields) -> float:
+    """Estimated worst-case position error (pixels) of linearly
+    interpolating the coarse fields: |second difference| / 8.  iy* is
+    evaluated only on the columns reachable by the horizontal taps; its
+    extrapolated tail (outside every row's ix range) never reaches an
+    output pixel."""
+
+    def second_diff_err(f):
+        e = 0.0
+        if f.shape[1] >= 3:
+            e = max(e, float(np.nanmax(np.abs(np.diff(f, 2, axis=1)))) / 8)
+        if f.shape[0] >= 3:
+            e = max(e, float(np.nanmax(np.abs(np.diff(f, 2, axis=0)))) / 8)
+        return e
+
+    ix64, iystar, step = fields.ix64, fields.iystar64, fields.step
+    k0 = max(0, int(np.floor(np.nanmin(ix64) / step)) - 1)
+    k1 = min(iystar.shape[1], int(np.ceil(np.nanmax(ix64) / step)) + 2)
+    used = iystar[:, k0:k1] if k1 - k0 >= 3 else iystar
+    return max(
+        second_diff_err(used),
+        second_diff_err(ix64),
+        second_diff_err(fields.iy64),
+    )
+
+
+
+# ---------------------------------------------------------------------------
+# tiled plan (mild warp)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SRWPlan:
+    """Tiled-strategy plan: coarse fields, per-tile bases, tap counts."""
+
+    iystar_c: np.ndarray
+    step_vr: int
+    step_vc: int
+    base_v: np.ndarray  # (out_h, n_col_tiles) int32
+    d_v: int
+    col_tile: int
+    ix_c: np.ndarray
+    iy_c: np.ndarray
+    step: int
+    base_h: np.ndarray  # (n_row_tiles, out_w) int32
+    d_h: int
+    row_tile: int
+    src_h: int
+    src_w: int
+    out_h: int
+    out_w: int
+
+
+def _pick_tile(slope: float, tap_budget: int) -> int:
+    """Largest power-of-two tile in [64, 1024] whose in-tile span stays
+    around *tap_budget* positions."""
+    if not np.isfinite(slope) or slope <= 0:
+        return 1024
+    tile = tap_budget / slope
+    for cand in (1024, 512, 256, 128, 64):
+        if tile >= cand:
+            return cand
+    return 64
+
+
+def plan_srw(
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    step: int = 16,
+    col_tile: int | None = None,
+    row_tile: int | None = None,
+    max_taps: int = 48,
+    tap_budget: int = 12,
+    fields: _Fields | None = None,
+) -> SRWPlan | None:
+    """Build the tiled plan, or None when the mapping is unsuitable."""
+    if fields is None:
+        fields = _coarse_geometry(source_gm, target_gm, step)
+    if fields is None:
+        return None
+    ix64, iy64, iystar = fields.ix64, fields.iy64, fields.iystar64
+    src_h, src_w = fields.src_h, fields.src_w
+    out_h, out_w = fields.out_h, fields.out_w
+    step = fields.step
+    ncj = ix64.shape[0]
+
+    if col_tile is None:
+        slope_v = float(np.nanmax(np.abs(np.diff(iystar, axis=1))) / step)
+        col_tile = _pick_tile(slope_v, tap_budget)
+    if row_tile is None:
+        slope_h = float(np.nanmax(np.abs(np.diff(ix64, axis=0))) / step)
+        row_tile = _pick_tile(slope_h, tap_budget)
+
+    # vertical: per-(out row, col tile) base
+    ncc = iystar.shape[1]
+    n_col_tiles = -(-src_w // col_tile)
+    iystar_rows = _interp_rows(iystar, out_h, step)
+    base_v = np.zeros((out_h, n_col_tiles), dtype=np.int32)
+    span_max = 0.0
+    for t in range(n_col_tiles):
+        c0 = t * col_tile
+        c1 = min((t + 1) * col_tile, src_w)
+        k0 = max(0, c0 // step - 1)
+        k1 = min(ncc, -(-c1 // step) + 1)
+        seg = iystar_rows[:, k0:k1]
+        m = seg.min(axis=1)
+        base_v[:, t] = np.floor(m).astype(np.int32) - 1
+        span_max = max(span_max, float((seg.max(axis=1) - m).max()))
+    d_v = int(np.ceil(span_max)) + 4
+    if d_v > max_taps:
+        return None
+
+    # horizontal: per-(row tile, out col) base
+    n_row_tiles = -(-out_h // row_tile)
+    ix_cols = _interp_cols(ix64, out_w, step)
+    base_h = np.zeros((n_row_tiles, out_w), dtype=np.int32)
+    span_max_h = 0.0
+    sample_rows = np.arange(ncj) * step
+    for t in range(n_row_tiles):
+        r0 = t * row_tile
+        r1 = min((t + 1) * row_tile, out_h)
+        k0 = max(0, int(np.searchsorted(sample_rows, r0)) - 1)
+        k1 = min(ncj, int(np.searchsorted(sample_rows, r1)) + 2)
+        seg = ix_cols[k0:k1, :]
+        m = seg.min(axis=0)
+        base_h[t, :] = np.floor(m).astype(np.int32) - 1
+        span_max_h = max(span_max_h, float((seg.max(axis=0) - m).max()))
+    d_h = int(np.ceil(span_max_h)) + 4
+    if d_h > max_taps:
+        return None
+
+    return SRWPlan(
+        iystar_c=iystar.astype(np.float32),
+        step_vr=step,
+        step_vc=step,
+        base_v=base_v,
+        d_v=d_v,
+        col_tile=col_tile,
+        ix_c=ix64.astype(np.float32),
+        iy_c=iy64.astype(np.float32),
+        step=step,
+        base_h=base_h,
+        d_h=d_h,
+        row_tile=row_tile,
+        src_h=src_h,
+        src_w=src_w,
+        out_h=out_h,
+        out_w=out_w,
+    )
+
+
+def _source_window_gm(source_gm: GridMapping, fields: _Fields, margin: int):
+    """Crop the source to the rows/columns a region actually taps,
+    returning (window_gm, (j0, j1, i0, i1)) or None for full coverage.
+
+    Offsets are aligned down to the coarse-field step so the window's
+    iy*-reparametrization samples the same source-column phase as the
+    uncropped grid — the cropped kernels then see identical (shifted)
+    coordinate fields, not a different piecewise-linear approximation."""
+    ix, iy = fields.ix64, fields.iy64
+    finite = np.isfinite(ix) & np.isfinite(iy)
+    if not finite.any():
+        return None
+    step = fields.step
+    i0 = max(0, int(np.floor(ix[finite].min())) - margin) // step * step
+    i1 = min(fields.src_w, int(np.ceil(ix[finite].max())) + margin + 1)
+    j0 = max(0, int(np.floor(iy[finite].min())) - margin) // step * step
+    j1 = min(fields.src_h, int(np.ceil(iy[finite].max())) + margin + 1)
+    if i1 - i0 < 8 or j1 - j0 < 8:
+        return None
+    if (i1 - i0) * (j1 - j0) > 0.8 * fields.src_w * fields.src_h:
+        return None  # not worth cropping
+    x_res = float(source_gm.x_res)
+    y_res = float(source_gm.y_res)
+    if bool(source_gm.is_j_axis_up):
+        y_min = float(source_gm.y_min) + j0 * y_res
+    else:
+        y_min = float(source_gm.y_max) - j1 * y_res
+    win_gm = GridMapping.regular(
+        size=(i1 - i0, j1 - j0),
+        xy_min=(float(source_gm.x_min) + i0 * x_res, y_min),
+        xy_res=(x_res, y_res),
+        crs=source_gm.crs,
+        is_j_axis_up=bool(source_gm.is_j_axis_up),
+    )
+    return win_gm, (j0, j1, i0, i1)
+
+
+# ---------------------------------------------------------------------------
+# the tier on the device
+# ---------------------------------------------------------------------------
+
+
 @dataclass
 class SRWState:
-    """A tiled :class:`SRWPlan` on the device: coarse fields (float32) and
-    per-tile tap bases (int32) as tensors, plus the plan's scalars."""
+    """A tiled :class:`SRWPlan` on the device: coarse fields (float32),
+    per-tile tap bases (int32) and the kernels' staged windows as
+    tensors, plus the plan's scalars."""
 
     iystar_c: torch.Tensor  # (ncj, ncc)
     ix_c: torch.Tensor  # (ncj, nci)
     iy_c: torch.Tensor  # (ncj, nci)
     base_v: torch.Tensor  # (out_h, n_col_tiles)
     base_h: torch.Tensor  # (n_row_tiles, out_w)
+    win_v: Windows
+    win_h: Windows
     d_v: int
     col_tile: int
     d_h: int
@@ -71,12 +402,16 @@ def plan_to_device(plan: SRWPlan, device) -> SRWState:
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
+    win_v = plan_vertical_windows(plan.base_v, plan.col_tile, plan.d_v)
+    win_h = plan_horizontal_windows(plan.base_h, plan.row_tile, plan.d_h)
     return SRWState(
         iystar_c=f32(plan.iystar_c),
         ix_c=f32(plan.ix_c),
         iy_c=f32(plan.iy_c),
         base_v=i32(plan.base_v),
         base_h=i32(plan.base_h),
+        win_v=win_v.to(device),
+        win_h=win_h.to(device),
         d_v=int(plan.d_v),
         col_tile=int(plan.col_tile),
         d_h=int(plan.d_h),
@@ -87,34 +422,6 @@ def plan_to_device(plan: SRWPlan, device) -> SRWState:
         out_h=int(plan.out_h),
         out_w=int(plan.out_w),
     )
-
-
-def precompute(state: SRWState, triangular: bool):
-    """Per-pixel tap positions ``pos_v`` (out_h, src_w) and ``pos_h``
-    (out_h, out_w), the validity mask and, for triangular, the correction
-    weight ``s`` (else None): functions of the geometry alone, built once
-    per plan on the state's device (``srw.py:609-632``)."""
-    p = state
-    dev = p.ix_c.device
-    rows = torch.arange(p.out_h, dtype=torch.float32, device=dev)[:, None]
-    cols_src = torch.arange(p.src_w, dtype=torch.float32, device=dev)[None, :]
-    pos_v = interp_field(p.iystar_c, rows, cols_src, p.step)
-    cols = torch.arange(p.out_w, dtype=torch.float32, device=dev)[None, :]
-    pos_h = interp_field(p.ix_c, rows, cols, p.step)
-    iy_full = interp_field(p.iy_c, rows, cols, p.step)
-    valid = (
-        (pos_h > -0.5)
-        & (pos_h < p.src_w - 0.5)
-        & (iy_full > -0.5)
-        & (iy_full < p.src_h - 0.5)
-    )
-    if not triangular:
-        return pos_v, pos_h, valid, None
-    # triangular = bilinear - s * Delta with s = min(uv, (1-u)(1-v))
-    u = pos_h - torch.floor(pos_h)
-    vf = iy_full - torch.floor(iy_full)
-    s = torch.minimum(u * vf, (1.0 - u) * (1.0 - vf))
-    return pos_v, pos_h, valid, s
 
 
 class SRWFn:
@@ -128,9 +435,6 @@ class SRWFn:
         self.interp_method = interp_method
         self.fill_value = float(fill_value)
         self.window = None
-        self.pos_v, self.pos_h, self.valid, self.s = precompute(
-            state, interp_method == "triangular"
-        )
 
     def crop(self, src):
         """The (B, src_h, src_w) contiguous source the kernels read."""
@@ -145,16 +449,25 @@ class SRWFn:
             )
         return src.reshape(-1, st.src_h, st.src_w).contiguous()
 
-    def _run(self, src, vertical, horizontal):
+    def vertical_args(self, src):
+        """K1's arguments for the cropped (B, src_h, src_w) *src*."""
         st = self.state
-        v, vd = vertical(
-            self.crop(src), self.pos_v, st.base_v, st.col_tile, st.d_v,
-            self.interp_method,
+        return (
+            src, st.iystar_c, st.step, st.base_v, st.col_tile, st.d_v,
+            st.win_v, self.interp_method,
         )
-        out = horizontal(
-            v, self.pos_h, st.base_h, st.row_tile, st.d_h, self.interp_method,
-            self.valid, self.fill_value, vd, self.s,
+
+    def horizontal_args(self, v):
+        """K2's arguments for K1's output *v* (``vd`` is passed apart)."""
+        st = self.state
+        return (
+            v, st.ix_c, st.iy_c, st.step, st.base_h, st.row_tile, st.d_h,
+            st.src_h, st.win_h, self.interp_method, self.fill_value,
         )
+
+    def _run(self, src, vertical, horizontal):
+        v, vd = vertical(*self.vertical_args(self.crop(src)))
+        out = horizontal(*self.horizontal_args(v), vd)
         return out.reshape(src.shape[:-2] + out.shape[-2:])
 
     def __call__(self, src):
@@ -166,7 +479,7 @@ class SRWFn:
 
 def make_srw_fn(
     plan: SRWPlan, interp_method: str = "bilinear", fill_value=np.nan,
-    device="cpu",
+    device="cuda",
 ) -> SRWFn:
     """The tiled SRW reprojection of *plan* with its statics on *device*."""
     return SRWFn(plan_to_device(plan, device), interp_method, fill_value)
@@ -183,7 +496,7 @@ def make_srw_reproject_fn(
     target_gm: GridMapping,
     interp_method: str = "bilinear",
     fill_value=np.nan,
-    device="cpu",
+    device="cuda",
 ) -> SRWFn | None:
     """Crop, gate and plan the tiled SRW tier, or None where the JAX
     package's gates refuse it (callers then use K3)."""

@@ -3,51 +3,124 @@
 ``srw_vertical`` (K1, ``csrc/srw_vertical.cu``) replaces the Pallas kernel
 ``xcube_resampling_tpu/ops/pallas_kernels.py:srw_vertical_pallas`` and the
 XLA vertical taps of ``ops/srw.py:make_srw_fn``; ``srw_horizontal`` (K2,
-``csrc/srw_horizontal.cu``) replaces that function's XLA horizontal pass.
-Each wrapper runs the plain PyTorch version beside it for CPU tensors and
-launches its CUDA kernel for CUDA tensors, or raises; it never falls back.
-The plain versions state the semantics: exactly ``d`` taps from the tile's
-base, clamp-to-edge reads at true-position weights, zero-weight taps
-included (so NaN reach matches the JAX package's XLA path), and the tap
-sums rounded as fused multiply-adds, as XLA compiles them.
+``csrc/srw_horizontal.cu``) replaces that function's XLA horizontal pass
+and its per-pixel precompute.  Each wrapper runs the plain PyTorch version
+beside it for CPU tensors and launches its CUDA kernel for CUDA tensors,
+or raises; it never falls back.  The plain versions state the semantics:
+tap positions interpolated from the coarse fields as
+:func:`.reproject_ops.interp_field` does, exactly ``d`` taps from the
+tile's base, clamp-to-edge reads at true-position weights, zero-weight
+taps included (so NaN reach matches the JAX package's XLA path), and the
+tap sums rounded as fused multiply-adds, as XLA compiles them.
 
-Layouts: ``src`` (B, src_h, src_w); ``pos_v`` (out_h, src_w) and ``base_v``
-(out_h, n_col_tiles) with tile ``c // col_tile``; ``v`` (B, out_h, src_w);
-``pos_h``, ``valid``, ``s`` (out_h, out_w) and ``base_h`` (n_row_tiles,
-out_w) with tile ``j // row_tile``.
+Layouts: ``src`` (B, src_h, src_w); ``iystar_c`` (ncj, ncc) and ``ix_c``,
+``iy_c`` (ncj, nci) coarse fields sampled every ``step`` pixels;
+``base_v`` (out_h, n_col_tiles) with tile ``c // col_tile``; ``v`` and
+``vd`` (B, out_h, src_w); ``base_h`` (n_row_tiles, out_w) with tile
+``j // row_tile``.
+
+:class:`Windows` are planned once per geometry on the host
+(:func:`plan_vertical_windows`, :func:`plan_horizontal_windows`): the
+block shape of a kernel and, per block, the range of tap indices (source
+rows for K1, ``v`` columns for K2) from its least base to its greatest
+base plus the tap count.  The kernel stages that window in shared memory,
+clamping each index to the source as it copies, so its tap loop needs no
+clamp.  Windows steer the kernels only; the plain versions take them and
+do not need them.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from .. import _build
 from .._device import count_launch, on_cpu, require_cuda
-
-METHODS = {"bilinear": 0, "nearest": 1, "triangular": 2}
+from .reproject_ops import fma, interp_field, method_code
 
 _F32 = torch.float32
 
+# Shared memory a kernel block may stage (bytes): two window buffers and
+# the block's geometry.  Under half the H100's 227 KB per block, so that
+# two or more blocks share an SM.
+SMEM_BUDGET = 96 * 1024
+# Output columns of a block, at most: 64 columns x 4 row groups = 256
+# threads, and a warp reads 32 neighbouring columns of shared memory.
+MAX_BLOCK_COLS = 64
+# Output rows of a K1 and a K2 block, at most: the fastest at the 20480^2
+# headline among the shapes tools/tune_srw.py times
+K1_MAX_ROWS = 64
+K2_MAX_ROWS = 32
 
-def fma(a, b, c):
-    """``a * b + c`` in float32 with one rounding, as a fused multiply-add
-    (the product of two float32 values is exact in float64)."""
-    return (a.double() * b.double() + c.double()).float()
+
+@dataclass(frozen=True)
+class Windows:
+    """The staged windows of one pass.  A kernel block covers ``rows`` x
+    ``cols`` outputs; ``lohi[rb, cb]`` (int32) is the half-open range of
+    tap indices ``base + d`` of row block ``rb`` and column block ``cb``,
+    not clipped to the source (the kernel clamps as it copies);
+    ``extent`` is the widest range (the shared memory a window buffer
+    holds per row or column)."""
+
+    lohi: torch.Tensor  # (n_row_blocks, n_col_blocks, 2)
+    rows: int
+    cols: int
+    extent: int
+
+    def to(self, device) -> "Windows":
+        return Windows(self.lohi.to(device), self.rows, self.cols, self.extent)
 
 
-def lerp(a, b, t):
-    """``a + t * (b - a)`` rounded as XLA's contracted lerp."""
-    return fma(t, b - a, a)
+def _pow2_divisor(n: int, cap: int) -> int:
+    """The largest power of two up to *cap* (a power of two) dividing *n*."""
+    d = cap
+    while n % d:
+        d //= 2
+    return d
 
 
-def method_code(interp_method: str) -> int:
-    """The kernels' code for an interpolation method; raises for others."""
-    try:
-        return METHODS[interp_method]
-    except KeyError:
-        raise ValueError(
-            f"SRW supports {sorted(METHODS)}, got {interp_method!r}"
-        ) from None
+def plan_vertical_windows(base_v: np.ndarray, col_tile: int, d_v: int) -> Windows:
+    """K1's blocks: ``cols`` source columns inside one column tile (so one
+    base per output row) by ``rows`` output rows, the most rows (a power
+    of two up to :data:`K1_MAX_ROWS`) whose two source-row windows and
+    positions fit :data:`SMEM_BUDGET`."""
+    out_h, n_tiles = base_v.shape
+    cols = _pow2_divisor(col_tile, MAX_BLOCK_COLS)
+    for rows in (r for r in (128, 64, 32, 16, 8, 4, 2, 1) if r <= K1_MAX_ROWS):
+        n_rb = -(-out_h // rows)
+        padded = np.pad(base_v, ((0, n_rb * rows - out_h), (0, 0)), mode="edge")
+        blocks = padded.reshape(n_rb, rows, n_tiles).astype(np.int64)
+        lo, hi = blocks.min(axis=1), blocks.max(axis=1) + d_v
+        extent = int((hi - lo).max())
+        smem = 4 * (2 * extent * cols + rows * cols + rows)
+        if smem <= SMEM_BUDGET:
+            break
+    lohi = torch.from_numpy(np.stack([lo, hi], axis=-1).astype(np.int32))
+    return Windows(lohi, rows, cols, extent)
+
+
+def plan_horizontal_windows(base_h: np.ndarray, row_tile: int, d_h: int) -> Windows:
+    """K2's blocks: ``rows`` output rows inside one row tile by ``cols``
+    output columns, the most rows (a power of two up to
+    :data:`K2_MAX_ROWS`) whose two ``v`` (and ``vd``) windows and geometry
+    fit :data:`SMEM_BUDGET`.  Window ends are rounded
+    out to multiples of 4 columns, for 16-byte copies."""
+    n_rt, out_w = base_h.shape
+    cols = MAX_BLOCK_COLS
+    n_cb = -(-out_w // cols)
+    padded = np.pad(base_h, ((0, 0), (0, n_cb * cols - out_w)), mode="edge")
+    blocks = padded.reshape(n_rt, n_cb, cols).astype(np.int64)
+    lo = blocks.min(axis=2) // 4 * 4
+    hi = -(-(blocks.max(axis=2) + d_h) // 4) * 4
+    extent = int((hi - lo).max())
+    rows = _pow2_divisor(row_tile, K2_MAX_ROWS)
+    # two buffers of v and vd, positions, weights s, the mask and the bases
+    while rows > 1 and 4 * (4 * rows * extent + 2 * rows * cols + cols) + rows * cols > SMEM_BUDGET:
+        rows //= 2
+    lohi = torch.from_numpy(np.stack([lo, hi], axis=-1).astype(np.int32))
+    return Windows(lohi, rows, cols, extent)
 
 
 def _weight(pos, k, interp_method):
@@ -64,13 +137,22 @@ def _dweight(pos, k):
     return (f == k).to(_F32) - (f + 1.0 == k).to(_F32)
 
 
-def srw_vertical_plain(src, pos_v, base_v, col_tile, d_v, interp_method):
+def _grid(n_rows, n_cols, device):
+    rows = torch.arange(n_rows, dtype=_F32, device=device)[:, None]
+    cols = torch.arange(n_cols, dtype=_F32, device=device)[None, :]
+    return rows, cols
+
+
+def srw_vertical_plain(
+    src, iystar_c, step, base_v, col_tile, d_v, windows, interp_method
+):
     """Plain PyTorch version of K1: ``(v, vd)``, ``vd`` None unless
     triangular."""
     method_code(interp_method)
     batch, src_h, src_w = src.shape
-    out_h = pos_v.shape[0]
+    out_h = base_v.shape[0]
     tri = interp_method == "triangular"
+    pos_v = interp_field(iystar_c, *_grid(out_h, src_w, src.device), step)
     base = base_v.repeat_interleave(col_tile, dim=1)[:, :src_w].to(torch.int64)
     acc = torch.zeros((batch, out_h, src_w), dtype=_F32, device=src.device)
     acc_d = torch.zeros_like(acc) if tri else None
@@ -85,15 +167,33 @@ def srw_vertical_plain(src, pos_v, base_v, col_tile, d_v, interp_method):
     return acc, acc_d
 
 
+def _horizontal_geometry(ix_c, iy_c, step, out_h, out_w, src_h, src_w, triangular):
+    """K2's per-pixel geometry, as ``srw.py:609-632`` computes it: the
+    horizontal tap positions, the validity mask and, for triangular, the
+    correction weight ``s = min(u v, (1 - u)(1 - v))`` (else None)."""
+    rows, cols = _grid(out_h, out_w, ix_c.device)
+    pos_h = interp_field(ix_c, rows, cols, step)
+    iy = interp_field(iy_c, rows, cols, step)
+    valid = (pos_h > -0.5) & (pos_h < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
+    if not triangular:
+        return pos_h, valid, None
+    u = pos_h - torch.floor(pos_h)
+    vf = iy - torch.floor(iy)
+    return pos_h, valid, torch.minimum(u * vf, (1.0 - u) * (1.0 - vf))
+
+
 def srw_horizontal_plain(
-    v, pos_h, base_h, row_tile, d_h, interp_method, valid, fill_value,
-    vd=None, s=None,
+    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+    interp_method, fill_value, vd=None,
 ):
     """Plain PyTorch version of K2: (B, out_h, out_w)."""
     method_code(interp_method)
     batch, out_h, src_w = v.shape
-    out_w = pos_h.shape[1]
+    out_w = base_h.shape[1]
     tri = interp_method == "triangular"
+    pos_h, valid, s = _horizontal_geometry(
+        ix_c, iy_c, step, out_h, out_w, src_h, src_w, tri
+    )
     base = base_h.repeat_interleave(row_tile, dim=0)[:out_h].to(torch.int64)
     acc = torch.zeros((batch, out_h, out_w), dtype=_F32, device=v.device)
     acc_d = torch.zeros_like(acc) if tri else None
@@ -114,29 +214,55 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def srw_vertical(src, pos_v, base_v, col_tile, d_v, interp_method):
+# Row blocks a kernel block walks, at most (its next window loads while it
+# sums the current one)
+WALK = 8
+
+
+def _walkers(n_col_blocks: int, n_row_blocks: int) -> int:
+    """Blocks along the row-block axis: each walks up to :data:`WALK` row
+    blocks while the grid keeps about eight blocks per SM of a 132-SM
+    card."""
+    per_block = max(1, min(WALK, n_col_blocks * n_row_blocks // 1056))
+    return min(65535, -(-n_row_blocks // per_block))
+
+
+def srw_vertical(src, iystar_c, step, base_v, col_tile, d_v, windows, interp_method):
     """K1: the vertical tap pass, ``(v, vd)``; see the module docstring."""
-    if on_cpu(src, pos_v, base_v):
-        return srw_vertical_plain(src, pos_v, base_v, col_tile, d_v, interp_method)
+    if on_cpu(src, iystar_c, base_v, windows.lohi):
+        return srw_vertical_plain(
+            src, iystar_c, step, base_v, col_tile, d_v, windows, interp_method
+        )
     method = method_code(interp_method)
-    if col_tile < 1 or d_v < 1:
-        raise ValueError(f"col_tile and d_v must be positive: {col_tile}, {d_v}")
+    if col_tile < 1 or d_v < 1 or step < 1:
+        raise ValueError(f"col_tile, d_v and step must be positive: {col_tile}, {d_v}, {step}")
     batch, src_h, src_w = src.shape
-    out_h = pos_v.shape[0]
-    n_col_tiles = -(-src_w // col_tile)
+    out_h, n_col_tiles = base_v.shape
+    ncj, ncc = iystar_c.shape
+    w = windows
+    n_rb = -(-out_h // w.rows)
+    if n_col_tiles != -(-src_w // col_tile) or col_tile % w.cols or ncj < 2 or ncc < 2:
+        raise ValueError(
+            f"inconsistent K1 plan: base_v {tuple(base_v.shape)}, src_w {src_w}, "
+            f"col_tile {col_tile}, block cols {w.cols}, iystar_c {tuple(iystar_c.shape)}"
+        )
     require_cuda(src, "src", _F32, (batch, src_h, src_w))
-    require_cuda(pos_v, "pos_v", _F32, (out_h, src_w))
+    require_cuda(iystar_c, "iystar_c", _F32, (ncj, ncc))
     require_cuda(base_v, "base_v", torch.int32, (out_h, n_col_tiles))
+    require_cuda(w.lohi, "windows", torch.int32, (n_rb, n_col_tiles, 2))
     v = torch.empty((batch, out_h, src_w), dtype=_F32, device=src.device)
     vd = torch.empty_like(v) if interp_method == "triangular" else None
     if v.numel() == 0:
         return v, vd
+    vec4 = src_w % 4 == 0 and w.cols % 4 == 0 and src.data_ptr() % 16 == 0
+    n_cb = -(-src_w // w.cols)
     lib = _build.load()
     with torch.cuda.device(src.device):
         rc = lib.xrt_srw_vertical_f32(
-            src.data_ptr(), pos_v.data_ptr(), base_v.data_ptr(),
-            v.data_ptr(), _ptr(vd), batch, src_h, src_w, out_h,
-            n_col_tiles, col_tile, d_v, method,
+            src.data_ptr(), iystar_c.data_ptr(), base_v.data_ptr(),
+            w.lohi.data_ptr(), v.data_ptr(), _ptr(vd), batch, src_h, src_w,
+            out_h, ncj, ncc, step, n_col_tiles, col_tile, d_v, method,
+            w.rows, w.cols, w.extent, n_cb, _walkers(n_cb, n_rb), int(vec4),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "srw_vertical")
@@ -145,43 +271,61 @@ def srw_vertical(src, pos_v, base_v, col_tile, d_v, interp_method):
 
 
 def srw_horizontal(
-    v, pos_h, base_h, row_tile, d_h, interp_method, valid, fill_value,
-    vd=None, s=None,
+    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+    interp_method, fill_value, vd=None,
 ):
-    """K2: the horizontal tap pass, triangular correction and fill select
-    (B, out_h, out_w); ``vd`` and ``s`` are required for triangular."""
+    """K2: the horizontal tap pass, the per-pixel geometry, the triangular
+    correction and the fill select, (B, out_h, out_w); ``vd`` is required
+    for triangular."""
     tri = interp_method == "triangular"
-    if tri and (vd is None or s is None):
-        raise ValueError("triangular needs vd and s")
-    extra = (vd, s) if tri else ()
-    if on_cpu(v, pos_h, base_h, valid, *extra):
+    if tri and vd is None:
+        raise ValueError("triangular needs vd")
+    extra = (vd,) if tri else ()
+    if on_cpu(v, ix_c, iy_c, base_h, windows.lohi, *extra):
         return srw_horizontal_plain(
-            v, pos_h, base_h, row_tile, d_h, interp_method, valid, fill_value,
-            vd, s,
+            v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+            interp_method, fill_value, vd,
         )
     method = method_code(interp_method)
-    if row_tile < 1 or d_h < 1:
-        raise ValueError(f"row_tile and d_h must be positive: {row_tile}, {d_h}")
+    if row_tile < 1 or d_h < 1 or step < 1:
+        raise ValueError(f"row_tile, d_h and step must be positive: {row_tile}, {d_h}, {step}")
     batch, out_h, src_w = v.shape
-    out_w = pos_h.shape[1]
-    n_row_tiles = -(-out_h // row_tile)
+    n_row_tiles, out_w = base_h.shape
+    ncj, nci = ix_c.shape
+    w = windows
+    n_cb = -(-out_w // w.cols)
+    if (
+        n_row_tiles != -(-out_h // row_tile) or row_tile % w.rows
+        or w.extent % 4 or ncj < 2 or nci < 2
+    ):
+        raise ValueError(
+            f"inconsistent K2 plan: base_h {tuple(base_h.shape)}, out_h {out_h}, "
+            f"row_tile {row_tile}, block rows {w.rows}, extent {w.extent}, "
+            f"ix_c {tuple(ix_c.shape)}"
+        )
     require_cuda(v, "v", _F32, (batch, out_h, src_w))
-    require_cuda(pos_h, "pos_h", _F32, (out_h, out_w))
+    require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
+    require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
     require_cuda(base_h, "base_h", torch.int32, (n_row_tiles, out_w))
-    require_cuda(valid, "valid", torch.bool, (out_h, out_w))
+    require_cuda(w.lohi, "windows", torch.int32, (n_row_tiles, n_cb, 2))
     if tri:
         require_cuda(vd, "vd", _F32, (batch, out_h, src_w))
-        require_cuda(s, "s", _F32, (out_h, out_w))
     out = torch.empty((batch, out_h, out_w), dtype=_F32, device=v.device)
     if out.numel() == 0:
         return out
+    vec4 = (
+        src_w % 4 == 0 and v.data_ptr() % 16 == 0
+        and (not tri or vd.data_ptr() % 16 == 0)
+    )
+    n_rb = -(-out_h // w.rows)
     lib = _build.load()
     with torch.cuda.device(v.device):
         rc = lib.xrt_srw_horizontal_f32(
-            v.data_ptr(), _ptr(vd if tri else None), pos_h.data_ptr(),
-            base_h.data_ptr(), valid.data_ptr(), _ptr(s if tri else None),
-            out.data_ptr(), batch, out_h, out_w, src_w, row_tile, d_h,
-            method, float(fill_value),
+            v.data_ptr(), _ptr(vd if tri else None), ix_c.data_ptr(),
+            iy_c.data_ptr(), base_h.data_ptr(), w.lohi.data_ptr(),
+            out.data_ptr(), batch, out_h, out_w, src_h, src_w, ncj, nci, step,
+            row_tile, d_h, method, float(fill_value), w.rows, w.cols,
+            w.extent, n_cb, _walkers(n_cb, n_rb), int(vec4),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "srw_horizontal")

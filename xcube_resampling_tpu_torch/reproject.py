@@ -1,7 +1,9 @@
 """Reprojection engine for datasets whose variables are torch tensors.
 
 Port of ``xcube_resampling_tpu/reproject.py:52-298``.  Variables backed by
-torch tensors stay on their device and go through the device tiers:
+torch tensors stay on their device; numpy-backed float variables become
+float32 tensors on the *device* argument (default ``"cuda"``).  Both go
+through the device tiers:
 
 1. the tiled SRW plan (:func:`.ops.srw.make_srw_reproject_fn`: crop,
    gates, K1 + K2), unless ``XRTPU_EXACT=1``;
@@ -9,47 +11,37 @@ torch tensors stay on their device and go through the device tiers:
    tiers (ESW, exact region mosaic) reproduce: bit-exact for nearest,
    within 2 ulp for bilinear.
 
-Variables backed by numpy arrays take the JAX package's numpy host path
-(``_gather_through_windows``), as there.  A reproject that would need the
-pre-downscale (scale below ``SCALE_LIMIT``) raises ``NotImplementedError``,
-as do ``XRTPU_FAST_EXTREME_WARP=1`` and torch dtypes other than float32.
+Grid variables on more than one device raise ``ValueError``.  A
+reproject that would need the pre-downscale (scale below ``SCALE_LIMIT``)
+raises ``NotImplementedError``, as do ``XRTPU_FAST_EXTREME_WARP=1``, torch
+dtypes other than float32 and numpy dtypes other than floats.
+``_gm_fingerprint``, ``_as_target_array`` and
+``_assert_target_overlaps_source`` are copies of the JAX package's.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from collections import OrderedDict
 from collections.abc import Iterable
 
+import numpy as np
 import torch
 
-from xcube_resampling_tpu.constants import (
-    SCALE_LIMIT,
-    FillValues,
-    InterpMethods,
-    RecoverNans,
-)
-from xcube_resampling_tpu.crs import Transformer
-from xcube_resampling_tpu.gridmapping import GridMapping
-from xcube_resampling_tpu.reproject import (
-    _as_target_array,
-    _assert_target_overlaps_source,
-    _gm_fingerprint,
-    _plan_source_windows,
-    _reproject_variable as _reproject_host_variable,
-    _target_centers_in_source,
-)
-from xcube_resampling_tpu.utils import (
+from .constants import SCALE_LIMIT, FillValues, InterpMethods, RecoverNans
+from .crs import Transformer
+from .gridmapping import GridMapping
+from .ops.reproject_ops import METHODS, make_fused_reproject_fn
+from .ops.srw import make_srw_reproject_fn
+from .utils import (
+    _get_fill_value,
+    _get_interp_method_str,
     _select_variables,
     assemble_target_shell,
     normalize_grid_mapping,
 )
-from xcube_resampling_tpu.xrlite import DataArray, Dataset
-
-from .ops.reproject_ops import make_fused_reproject_fn
-from .ops.srw import make_srw_reproject_fn
-from .ops.srw_kernels import METHODS
-from .utils import _get_fill_value, _get_interp_method_str
+from .xrlite import DataArray, Dataset
 
 
 def reproject_dataset(
@@ -61,9 +53,11 @@ def reproject_dataset(
     agg_methods=None,
     recover_nans: RecoverNans = False,
     fill_values: FillValues | None = None,
+    device="cuda",
 ) -> Dataset:
     """Reproject a dataset's 2D spatial variables into the CRS and grid of
     *target_gm* (``xcube_resampling_tpu.reproject.reproject_dataset``).
+    Numpy-backed variables are placed on *device* as float32 tensors.
     *agg_methods* and *recover_nans* only act in the pre-downscale, which
     is not ported yet."""
     if source_gm is None:
@@ -83,29 +77,40 @@ def reproject_dataset(
         target_gm,
         dict(zip(target_gm.xy_var_names, (target_gm.x_coords, target_gm.y_coords))),
     )
-    host_plan = None  # the numpy path's window plan, made when first needed
     grid_dims = (source_gm.xy_dim_names[1], source_gm.xy_dim_names[0])
+    grid_vars = {}
     for name, var in source_ds.items():
         if var.dims[-2:] == grid_dims:
             if len(var.dims) not in (2, 3):
                 raise ValueError(f"Data variable {name} has {len(var.dims)} dimensions.")
-            if isinstance(var.data, torch.Tensor):
-                target_ds[name] = _reproject_variable(
-                    var, name, source_gm, target_gm, interp_methods, fill_values
-                )
-                continue
-            if host_plan is None:
-                host_plan = (
-                    *_target_centers_in_source(inv, target_gm),
-                    _plan_source_windows(inv, source_gm, target_gm),
-                )
-            target_ds[name] = _reproject_host_variable(
-                var, name, source_gm, target_gm, *host_plan,
-                interp_methods, fill_values,
-            )
+            grid_vars[name] = _as_tensor_variable(var, name, device)
         elif not set(grid_dims) & set(var.dims):
             target_ds[name] = var
+    devices = {var.data.device for var in grid_vars.values()}
+    if len(devices) > 1:
+        raise ValueError(
+            f"grid variables lie on several devices: {sorted(map(str, devices))}"
+        )
+    for name, var in grid_vars.items():
+        target_ds[name] = _reproject_variable(
+            var, name, source_gm, target_gm, interp_methods, fill_values
+        )
     return target_ds
+
+
+def _as_tensor_variable(var: DataArray, name, device) -> DataArray:
+    """*var* itself when it holds a tensor, else its float data as a
+    float32 tensor on *device*."""
+    if isinstance(var.data, torch.Tensor):
+        return var
+    data = np.asarray(var.data)
+    if data.dtype.kind != "f":
+        raise NotImplementedError(
+            f"variable {name!r} is {data.dtype}: the port reprojects float "
+            "variables only so far (ROADMAP queue 1 item 5)"
+        )
+    tensor = torch.as_tensor(data, dtype=torch.float32, device=device)
+    return DataArray(tensor, dims=var.dims, attrs=dict(var.attrs), chunks=var.chunks)
 
 
 def _flip_rows(ds: Dataset, row_dim: str) -> Dataset:
@@ -165,13 +170,18 @@ def _reproject_variable(
     return _as_target_array(var, image, target_gm, had_band_axis)
 
 
-# Plan memo: the tier function and its device statics per geometry pair,
-# method, fill, tier flag and device.  Two entries at most: the statics
-# of one 20480^2 geometry take about 3.8 GB of device memory (float32 pos_v
-# and pos_h, the bool mask; about 5.5 GB with the triangular weight s), so
-# the bound keeps the memo under 11 GB.
+# Plan memo: the tier function and its device statics (coarse fields,
+# tap bases and windows: about 30 MB for a 20480^2 geometry) per geometry
+# pair, method, fill, tier flag and device; the JAX package's bound.
 _DEVICE_FN_CACHE: OrderedDict = OrderedDict()
-_DEVICE_FN_CACHE_MAX = 2
+_DEVICE_FN_CACHE_MAX = 4
+
+
+def _gm_fingerprint(gm) -> tuple:
+    return (
+        str(gm.crs), tuple(gm.size), tuple(gm.xy_res), tuple(gm.xy_bbox),
+        bool(gm.is_j_axis_up),
+    )
 
 
 def device_reproject_fn(source_gm, target_gm, interp_method, fill_value, device):
@@ -219,3 +229,45 @@ def _build_device_reproject_fn(
             source_gm, target_gm, interp_method, fill_value, device
         )
     return fn
+
+
+def _as_target_array(var, image, target_gm, had_band_axis) -> DataArray:
+    tile_hw = (target_gm.tile_height, target_gm.tile_width)
+    chunks = None
+    if var.chunks is not None:
+        chunks = tuple(c[0] for c in var.chunks[:-2]) + tile_hw
+
+    grid_dims = (target_gm.xy_dim_names[1], target_gm.xy_dim_names[0])
+    if had_band_axis:
+        dims = (var.dims[0],) + grid_dims
+    else:
+        image = image[0, :, :]
+        dims = grid_dims
+        if chunks is not None:
+            chunks = chunks[1:]
+    return DataArray(data=image, dims=dims, attrs=dict(var.attrs), chunks=chunks)
+
+
+def _assert_target_overlaps_source(
+    span: tuple[float, float, float, float],
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+) -> None:
+    """Raise early when the target grid, transformed into the source CRS,
+    is disjoint from the source extent.  Conservative on purpose: only
+    raises when the transformed bounds are finite and non-wrapping and
+    still clearly disjoint."""
+    if not all(math.isfinite(v) for v in span):
+        return
+    if span[0] > span[2] or span[1] > span[3]:
+        # wrapped/degenerate transform (e.g. antimeridian) — let the
+        # regular pipeline handle it
+        return
+    sx0, sy0, sx1, sy1 = source_gm.xy_bbox
+    if span[2] < sx0 or span[0] > sx1 or span[3] < sy0 or span[1] > sy1:
+        raise ValueError(
+            "target grid does not overlap the source extent: target bbox"
+            f" {tuple(target_gm.xy_bbox)} ({target_gm.crs}) maps to"
+            f" {tuple(span)} in the source CRS, but the source bbox is"
+            f" {(sx0, sy0, sx1, sy1)} ({source_gm.crs})"
+        )

@@ -1,32 +1,50 @@
-"""Gateway: route a dataset of torch tensors to the port's engines.
+"""Gateway: route a dataset to the port's engines.
 
-Port of ``xcube_resampling_tpu/spatial.py:resample_in_space``; the route
-decision is the JAX package's own :func:`choose_route`.  Only the
-reproject route is ported so far: the affine and rectify routes raise
-``NotImplementedError`` naming their ROADMAP item.
+Port of ``xcube_resampling_tpu/spatial.py``; :func:`choose_route` is a
+copy of its route decision.  Only the reproject route is ported so far:
+the affine and rectify routes raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
 from collections.abc import Iterable
 
-from xcube_resampling_tpu.constants import (
+from .constants import (
     LOG,
     AggMethods,
     FillValues,
     InterpMethods,
     RecoverNans,
 )
-from xcube_resampling_tpu.gridmapping import GridMapping
-from xcube_resampling_tpu.spatial import choose_route
-from xcube_resampling_tpu.xrlite import Dataset
-
+from .gridmapping import GridMapping
 from .reproject import reproject_dataset
+from .utils import _can_apply_affine_transform
+from .xrlite import Dataset
 
 _NOT_PORTED = {
     "affine": "ROADMAP queue 1 item 5",
     "rectify": "ROADMAP queue 1 items 7-8",
 }
+
+
+def choose_route(source_gm: GridMapping, target_gm: GridMapping | None) -> str:
+    """Pick the resampling route for a (source, target) grid-mapping pair.
+
+    Returns one of ``"rectify"``, ``"warn-identity"``, ``"identity"``,
+    ``"affine"``, ``"reproject"``.  Raises if *target_gm* is irregular
+    (only regular targets can be resampled to).
+    """
+    if not source_gm.is_regular:
+        return "rectify"
+    if target_gm is None:
+        return "warn-identity"
+    GridMapping.assert_regular(target_gm, name="target_gm")
+    if source_gm.is_close(target_gm):
+        return "identity"
+    if _can_apply_affine_transform(source_gm, target_gm):
+        return "affine"
+    return "reproject"
 
 
 def resample_in_space(
@@ -39,10 +57,12 @@ def resample_in_space(
     recover_nans: RecoverNans = False,
     fill_values: FillValues | None = None,
     tile_size: int | tuple[int, int] | None = None,
+    device="cuda",
 ) -> Dataset:
     """Resample the spatial dimensions of a dataset to a target grid
-    mapping; arguments as ``xcube_resampling_tpu.resample_in_space``.
-    Variables that are torch tensors stay on their device."""
+    mapping; arguments as ``xcube_resampling_tpu.resample_in_space``, plus
+    *device*: where numpy-backed variables are placed (as float32
+    tensors).  Tensor variables stay on their own device."""
     if source_gm is None:
         source_gm = GridMapping.from_dataset(source_ds)
     route = choose_route(source_gm, target_gm)
@@ -67,4 +87,5 @@ def resample_in_space(
         agg_methods=agg_methods,
         recover_nans=recover_nans,
         fill_values=fill_values,
+        device=device,
     )
