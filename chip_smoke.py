@@ -10,19 +10,23 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls), the
    EPSG:4326 0.05 deg -> UTM32N 4096^2 reproject with nearest, triangular
    and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
-   geometry, and a small UTM32N -> EPSG:3035 case with a numpy variable
-   (placed on the card by ``device``) beside a tensor; the kernel launch
-   counts are reset before and read after each call;
+   geometry, the global EPSG:4326 0.05 deg -> EPSG:3035 4096^2 reproject
+   (BASELINE #3, a singular warp whose default tier is K3) with nearest
+   and bilinear, first call and warm calls, and a small UTM32N ->
+   EPSG:3035 case with a numpy variable (placed on the card by
+   ``device``) beside a tensor; the kernel launch counts are reset before
+   and read after each call;
 3. holds every result against the plain PyTorch composition on the same
    device tensors, and the small case against the port's own K3 (the
    direct gather) within the two-pass bounds;
 4. holds each kernel against its plain version on CUDA tensors at the
    headline's shapes, at the 4326 -> UTM shapes on inputs with NaN rows,
-   and on a geometry whose tap windows clip at the source's top and bottom
-   edges, for every method; times each kernel and its plain version at
-   the main path's shapes with CUDA events, and computes each kernel's
-   bound (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, the
-   H100 SXM data sheet's peaks);
+   on a geometry whose tap windows clip at the source's top and bottom
+   edges, and (K3) on a ragged EPSG:3035 target, for every method; times
+   each kernel and its plain version at the main path's shapes with CUDA
+   events, K3 also beside one ``F.grid_sample`` call at the same
+   positions, and computes each kernel's bound (bytes at 3.35 TB/s or
+   float32 operations at 67 TFLOP/s, the H100 SXM data sheet's peaks);
 5. prints a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -109,10 +113,13 @@ def main() -> int:
     )
     from xcube_resampling_tpu_torch import _build
     from xcube_resampling_tpu_torch._device import LAUNCHES
+    import torch.nn.functional as F
+
     from xcube_resampling_tpu_torch.ops.reproject_ops import (
         FusedReprojectFn,
         fused_reproject,
         fused_reproject_plain,
+        interp_field,
         make_fused_reproject_fn,
     )
     from xcube_resampling_tpu_torch.ops.srw import SRWFn, make_srw_reproject_fn
@@ -201,28 +208,84 @@ def main() -> int:
             raise AssertionError(f"only {share:.3f} of the output is finite")
         return share
 
-    def median_ms(fn, iters=10):
+    def device_ms(fn, iters=10):
+        """Device ms of one warm call of *fn*: CUDA events around *iters*
+        calls queued behind a sleep on the card that outlasts their
+        enqueueing, so the card runs them back to back and the host's
+        enqueue time (tens of us a call) is not counted."""
         fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-        times = []
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        # at most 2e9 cycles a second: the sleep lasts at least this long
+        torch.cuda._sleep(int(2e9 * min(2 * iters * host_s, 1.0)))
+        a.record()
         for _ in range(iters):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
             fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
 
     def time_pair(kernel, plain):
-        """Median ms of 10 warm calls each, in the order plain, kernel,
-        kernel, plain."""
-        p1, k1, k2, p2 = (median_ms(f) for f in (plain, kernel, kernel, plain))
+        """Device ms of 10 warm calls each (device_ms), in the order
+        plain, kernel, kernel, plain; the median of each pair."""
+        p1, k1, k2, p2 = (device_ms(f) for f in (plain, kernel, kernel, plain))
         return statistics.median([k1, k2]), statistics.median([p1, p2])
+
+    def time_k3(fn, src, interp):
+        """K3 and its plain version (time_pair) on *fn*'s fields, and the
+        library yardstick: one F.grid_sample (border padding, corners
+        aligned) at the same full-resolution positions, built outside the
+        timed window.  It leaves out the field interpolation, the fill
+        select and the triangular method."""
+        x = src[None]
+        args = (x, fn.ix_c, fn.iy_c, fn.step, fn.out_h, fn.out_w, interp, nan)
+        pair = time_pair(lambda: fused_reproject(*args), lambda: fused_reproject_plain(*args))
+        rows = torch.arange(fn.out_h, dtype=torch.float32, device=dev)[:, None]
+        cols = torch.arange(fn.out_w, dtype=torch.float32, device=dev)[None, :]
+        ix = interp_field(fn.ix_c, rows, cols, fn.step)
+        iy = interp_field(fn.iy_c, rows, cols, fn.step)
+        grid = torch.stack(
+            (ix / (fn.src_w - 1) * 2 - 1, iy / (fn.src_h - 1) * 2 - 1), dim=-1
+        )[None]
+        del ix, iy
+
+        def library_call():
+            return F.grid_sample(
+                x[None], grid, mode=interp, padding_mode="border", align_corners=True
+            )
+
+        # the same gather up to grid_sample's own rounding of the positions
+        k3_out = fused_reproject(*args)[0]
+        valid = torch.isfinite(k3_out)
+        diff = (library_call()[0, 0] - k3_out)[valid].abs()
+        print(
+            f"{tag} F.grid_sample vs K3 ({interp}, {fn.out_h}x{fn.out_w}) on valid "
+            f"pixels: max abs diff {diff.max().item():.3g}, share above 1e-6 "
+            f"{(diff > 1e-6).float().mean().item():.3g}"
+        )
+        del k3_out, valid, diff
+        return pair, device_ms(library_call)
+
+    def k3_bound(fn, src):
+        """K3 must write the output; of the source it needs only the window
+        its taps reach (from the coarse fields); 4 taps and ~30 operations
+        per pixel."""
+        ix_c, iy_c = fn.ix_c, fn.iy_c
+        tapped = (
+            (ix_c.max() - ix_c.min() + 2).clamp(1, src.shape[-1])
+            * (iy_c.max() - iy_c.min() + 2).clamp(1, src.shape[-2])
+        ).item()
+        n_out = fn.out_h * fn.out_w
+        return bound(4 * (n_out + tapped), n_out * 30)
 
     timings = {}
     bounds = {}
+    library = {"srw_vertical": None, "srw_horizontal": None}
 
     # -- 1. the headline: 20480^2 UTM32N -> EPSG:3035 bilinear ----------------
     n = 20480
@@ -348,25 +411,51 @@ def main() -> int:
     d = compare(out["v"].data, fn.plain(geo), "bilinear", "exact tier vs plain K3")
     err["fused_reproject"] = max(err["fused_reproject"], d)
     print(f"{tag} XRTPU_EXACT=1 4326->UTM32N 4096^2 bilinear: first call {dt:.3f} s; vs plain max abs diff {d}")
-    x3 = geo[None]
-    timings["fused_reproject"] = time_pair(
-        lambda: fused_reproject(x3, fn.ix_c, fn.iy_c, fn.step, 4096, 4096, "bilinear", nan),
-        lambda: fused_reproject_plain(x3, fn.ix_c, fn.iy_c, fn.step, 4096, 4096, "bilinear", nan),
-    )
-    # K3 must write the output; of the source it needs only the window its
-    # taps reach (from the coarse fields), 4 taps and ~30 operations per pixel
-    ix_c, iy_c = fn.ix_c, fn.iy_c
-    tapped = (
-        (ix_c.max() - ix_c.min() + 2).clamp(1, geo.shape[1])
-        * (iy_c.max() - iy_c.min() + 2).clamp(1, geo.shape[0])
-    ).item()
-    bounds["fused_reproject"] = bound(4 * (4096 * 4096 + tapped), 4096 * 4096 * 30)
+    timings["fused_reproject"], library["fused_reproject"] = time_k3(fn, geo, "bilinear")
+    bounds["fused_reproject"] = k3_bound(fn, geo)
     k, p = timings["fused_reproject"]
     b, by = bounds["fused_reproject"]
     print(
-        f"{tag} fused_reproject at 4096^2 from 3600x7200: kernel {k:.3f} ms, plain "
-        f"{p:.3f} ms, bound {b:.4f} ms ({by})"
+        f"{tag} fused_reproject at 4096^2 UTM32N from 3600x7200, bilinear: kernel "
+        f"{k:.4f} ms, plain {p:.3f} ms, bound {b:.4f} ms ({by}), F.grid_sample "
+        f"{library['fused_reproject']:.4f} ms"
     )
+
+    # -- 3b. BASELINE #3: global 0.05 deg EPSG:4326 -> EPSG:3035 4096^2 -------
+    # a singular warp (the target reaches 87.6 N): the default dispatch
+    # refuses the tiled SRW plan and runs K3, with no XRTPU_EXACT
+    laea4k_gm = GridMapping.regular(
+        size=(4096, 4096), xy_min=(2000000.0, 1000000.0), xy_res=1500.0,
+        crs="epsg:3035",
+    )
+    for interp in ("nearest", "bilinear"):
+        out, first = run_main(ds1, laea4k_gm, interp, ("fused_reproject",))
+        share = check_output(out["v"].data, (4096, 4096))
+        warm = []
+        for _ in range(5):
+            out, dt = run_main(ds1, laea4k_gm, interp, ("fused_reproject",))
+            warm.append(dt)
+        w = statistics.median(warm)
+        fn = device_reproject_fn(geo_gm_ds, laea4k_gm, interp, nan, dev)
+        if not isinstance(fn, FusedReprojectFn):
+            raise AssertionError(f"BASELINE #3 ran {type(fn).__name__}, not K3")
+        d = compare(out["v"].data, fn.plain(geo), interp, f"BASELINE #3 {interp} vs plain K3")
+        err["fused_reproject"] = max(err["fused_reproject"], d)
+        mpix = 4096 * 4096 / 1e6
+        print(
+            f"{tag} resample_in_space BASELINE #3 4326 0.05 deg->EPSG:3035 4096^2 "
+            f"{interp} (K3, no XRTPU_EXACT): first call {first:.3f} s = "
+            f"{mpix / first:.1f} Mpix/s (planning included); warm median of 5 "
+            f"{w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s; finite share {share:.4f}; "
+            f"vs plain max abs diff {d}"
+        )
+        (k, p), lib_ms = time_k3(fn, geo, interp)
+        b, by = k3_bound(fn, geo)
+        print(
+            f"{tag} fused_reproject at BASELINE #3 ({interp}): kernel {k:.4f} ms, "
+            f"plain {p:.3f} ms, bound {b:.4f} ms ({by}), F.grid_sample {lib_ms:.4f} ms"
+        )
+    del out
 
     # -- 4. a small case: numpy and tensor variables, against K3 -------------
     small_src = GridMapping.regular(
@@ -437,6 +526,12 @@ def main() -> int:
         np.random.default_rng(1).random((2, edge_src.height, edge_src.width), dtype=np.float32)
     ).to(dev)
     edge_data[1, edge_src.height // 2] = nan
+    # BASELINE #3's target cut to a width that is no multiple of 4 and
+    # partial tiles down and across: K3's scalar stores and ragged tiles
+    ragged_gm = GridMapping.regular(
+        size=(4093, 4099), xy_min=(2000000.0, 1000000.0), xy_res=1500.0,
+        crs="epsg:3035",
+    )
     for interp in METHODS:
         cases = (
             ("4326->UTM 2-band with NaN rows",
@@ -481,10 +576,12 @@ def main() -> int:
                     f"{st.src_h}x{st.src_w} -> 4096^2): srw_vertical kernel {k1:.3f} ms, "
                     f"plain {p1:.3f} ms; srw_horizontal kernel {k2:.3f} ms, plain {p2:.3f} ms"
                 )
-        k3 = make_fused_reproject_fn(geo_gm, utm4k_gm, interp, nan, dev)
-        d3 = compare(k3(nan_stack), k3.plain(nan_stack), interp, f"K3 {interp}")
-        err["fused_reproject"] = max(err["fused_reproject"], d3)
-        print(f"{tag} K3 vs plain, 4326->UTM 2-band with NaN rows, {interp}: {d3}")
+        for what, tgt in (("4326->UTM", utm4k_gm), ("4326->EPSG:3035 ragged", ragged_gm)):
+            k3 = make_fused_reproject_fn(geo_gm, tgt, interp, nan, dev)
+            d3 = compare(k3(nan_stack), k3.plain(nan_stack), interp, f"K3 {interp} {what}")
+            err["fused_reproject"] = max(err["fused_reproject"], d3)
+            print(f"{tag} K3 vs plain, {what} {tgt.width}x{tgt.height} 2-band with "
+                  f"NaN rows, {interp}: {d3}")
     torch.cuda.synchronize()
 
     missing = [name for name in err if main_launches[name] < 1]
@@ -516,7 +613,9 @@ def main() -> int:
             "plain_ms": timings[name][1],
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
-            "library_ms": None,  # no single PyTorch call computes it
+            # K1, K2: no single PyTorch call computes a tap pass; K3: the
+            # F.grid_sample yardstick at the 4326 -> UTM shape
+            "library_ms": library[name],
         }
         for name in err
     ]

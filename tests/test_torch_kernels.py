@@ -28,7 +28,9 @@ from xcube_resampling_tpu.ops.srw import (  # noqa: E402
     make_srw_fn as jax_make_srw_fn,
     plan_srw as jax_plan_srw,
 )
+from xcube_resampling_tpu_torch import _build  # noqa: E402
 from xcube_resampling_tpu_torch._device import LAUNCHES, on_cpu  # noqa: E402
+from xcube_resampling_tpu_torch.ops import reproject_ops  # noqa: E402
 from xcube_resampling_tpu_torch.ops.reproject_ops import (  # noqa: E402
     fused_reproject,
     make_fused_reproject_fn,
@@ -304,6 +306,61 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
     make_srw_fn(plan, "triangular", np.nan, device="cpu")(data)
     make_fused_reproject_fn(*_gms(pt), "bilinear", np.nan, device="cpu")(data)
     assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("interp", METHODS)
+def test_fused_reproject_cpu_ragged_batch_takes_the_plain_version(monkeypatch, interp):
+    """CPU tensors take fused_reproject_plain and launch nothing, at a
+    target width that is no multiple of 4 (the kernel's scalar tail) and a
+    batch of 2; equal to JAX make_fused_reproject_fn, NaN masks included."""
+    source, _ = GEOMETRIES["utm_laea"]
+    target = dict(size=(77, 83), xy_min=(4320500, 3379500), xy_res=100, crs="epsg:3035")
+    plain_calls = []
+    orig = reproject_ops.fused_reproject_plain
+
+    def spy(*args, **kwargs):
+        plain_calls.append(args[0].shape)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(reproject_ops, "fused_reproject_plain", spy)
+    data = _stack((96, 96), seed=5)
+    before = dict(LAUNCHES)
+    got = make_fused_reproject_fn(
+        pt.GridMapping.regular(**source), pt.GridMapping.regular(**target), interp,
+        np.nan, device="cpu",
+    )(torch.from_numpy(data))
+    assert dict(LAUNCHES) == before
+    assert plain_calls == [(2, 96, 96)]
+    assert tuple(got.shape) == (2, 83, 77)
+    ref = jax_make_fused_reproject_fn(
+        jx.GridMapping.regular(**source), jx.GridMapping.regular(**target), interp, np.nan
+    )(jnp.asarray(data))
+    _assert_match(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize(
+    "src_hw, out_hw",
+    [((2**16, 2**15), (8, 8)), ((8, 8), (2**15, 2**16)), ((8, 8), (46341, 46341))],
+)
+def test_fused_reproject_refuses_planes_of_2_31_elements(monkeypatch, src_hw, out_hw):
+    """K3 indexes inside a plane in 32 bits: a source or target plane of
+    2^31 elements or more raises ValueError before any build or launch.
+    The wrapper is steered onto its CUDA branch with CPU tensors (a
+    broadcast source holds no memory)."""
+    monkeypatch.setattr(reproject_ops, "on_cpu", lambda *tensors: False)
+
+    def no_launch():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(_build, "load", no_launch)
+    src = torch.zeros((1, 1, 1)).expand((1,) + src_hw)
+    field = torch.zeros((2, 2))
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="fewer than 2\\^31 elements"):
+        fused_reproject(src, field, field, 2**20, *out_hw, "bilinear", np.nan)
+    assert dict(LAUNCHES) == before
+    # one element fewer passes the guard
+    reproject_ops.require_int32_planes(2**16, 2**15 - 1, 46340, 46340)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

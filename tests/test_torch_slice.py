@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 import xcube_resampling_tpu as xrt  # noqa: E402
 import xcube_resampling_tpu_torch as port  # noqa: E402
 from xcube_resampling_tpu.ops import esw as jax_esw  # noqa: E402
+from xcube_resampling_tpu.ops import reproject_ops as jax_reproject_ops  # noqa: E402
 from xcube_resampling_tpu.ops import srw as jax_srw  # noqa: E402
 from xcube_resampling_tpu_torch import reproject as port_reproject  # noqa: E402
 from xcube_resampling_tpu_torch import utils as port_utils  # noqa: E402
@@ -50,6 +51,14 @@ GEOMETRIES = {
     "geo_utm": (
         dict(size=(800, 600), xy_min=(-10.0, 35.0), xy_res=0.05, crs="epsg:4326"),
         dict(size=(256, 256), xy_min=(250000.0, 5200000.0), xy_res=2400.0, crs="epsg:32632"),
+    ),
+    # BASELINE #3 (global 0.05 deg EPSG:4326 7200x3600 -> EPSG:3035 4096^2
+    # at 1500 m) cut to 720x360 at 0.5 deg and 384^2 at 16 km over the same
+    # extents, keeping its scale (a smaller target would ask for the
+    # pre-downscale): the target reaches 87.6 N, a singular warp
+    "global_laea": (
+        dict(size=(720, 360), xy_min=(-180.0, -90.0), xy_res=0.5, crs="epsg:4326"),
+        dict(size=(384, 384), xy_min=(2000000.0, 1000000.0), xy_res=16000.0, crs="epsg:3035"),
     ),
 }
 
@@ -157,6 +166,67 @@ def test_resample_in_space_exact_matches_jax_esw(monkeypatch, interp):
     srw_calls = _spy(monkeypatch, port_srw, "make_srw_fn")
     ref, got = _run_both("utm_laea", interp)
     assert esw_calls and k3_calls and not srw_calls
+    atol = 0.0 if interp == "nearest" else 2 * 2.0**-24
+    for name in ("a", "b"):
+        _assert_match(got[name].data.numpy(), ref[name].data, atol)
+
+
+@pytest.mark.parametrize("interp", METHODS)
+def test_singular_warp_default_dispatch_runs_k3(monkeypatch, interp):
+    """The reduced BASELINE #3: with no XRTPU_EXACT the port's planner
+    refuses the tiled SRW plan (``make_srw_reproject_fn`` returns None)
+    and its default dispatch runs K3, equal to JAX
+    ``make_fused_reproject_fn`` on ``jnp`` arrays, NaN masks included.
+
+    JAX's own dispatch runs its exact region mosaic here, which reproduces
+    the direct gather within 2 float32 ulp (``ops/esw.py:1-3``; on this
+    geometry with x64 off: nearest equal, bilinear within 1.19e-7, held by
+    the next test).  Under the suite's x64 that mosaic raises
+    ``TypeError`` in ``ops/esw.py:1745`` (mixed int64/int32
+    ``dynamic_slice`` indices), a fault of the reference's, so this test
+    holds the port to the direct gather."""
+    monkeypatch.delenv("XRTPU_EXACT", raising=False)
+    srw_plans = []
+    orig = port_reproject.make_srw_reproject_fn
+
+    def spy_srw(*args, **kwargs):
+        fn = orig(*args, **kwargs)
+        srw_plans.append(fn)
+        return fn
+
+    monkeypatch.setattr(port_reproject, "make_srw_reproject_fn", spy_srw)
+    k3_calls = _spy(monkeypatch, port_reproject, "make_fused_reproject_fn")
+    jax_source, jax_target = _geometry("global_laea", xrt)
+    source_gm, target_gm = _geometry("global_laea")
+    a, b = _inputs(source_gm)
+    got = port.resample_in_space(
+        _dataset(source_gm, a=torch.from_numpy(a), b=torch.from_numpy(b)),
+        target_gm=target_gm, interp_methods=interp,
+    )
+    assert srw_plans == [None] and k3_calls
+    (fn,) = port_reproject._DEVICE_FN_CACHE.values()
+    assert isinstance(fn, port_reproject_ops.FusedReprojectFn)
+    k3 = jax_reproject_ops.make_fused_reproject_fn(
+        jax_source, jax_target, interp, np.nan
+    )
+    for name, data in (("a", a), ("b", b)):
+        ref = np.asarray(k3(jnp.asarray(data)))
+        _assert_match(got[name].data.numpy(), ref)
+    assert np.isfinite(got["a"].data.numpy()).mean() > 0.5
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "nearest"])
+def test_singular_warp_matches_jax_exact_mosaic_without_x64(monkeypatch, interp):
+    """The reduced BASELINE #3 through both packages' default dispatch,
+    JAX with x64 off: JAX runs its exact region mosaic, the port K3; equal
+    for nearest, within 2 float32 ulp at unit scale for bilinear
+    (``ops/esw.py:1-3``; the data lies in [0, 1)), NaN masks equal."""
+    monkeypatch.delenv("XRTPU_EXACT", raising=False)
+    mosaic_calls = _spy(monkeypatch, jax_srw, "make_region_reproject_fn")
+    k3_calls = _spy(monkeypatch, port_reproject, "make_fused_reproject_fn")
+    with jax.enable_x64(False):
+        ref, got = _run_both("global_laea", interp)
+    assert mosaic_calls and k3_calls
     atol = 0.0 if interp == "nearest" else 2 * 2.0**-24
     for name in ("a", "b"):
         _assert_match(got[name].data.numpy(), ref[name].data, atol)

@@ -33,6 +33,17 @@ METHODS = {"bilinear": 0, "nearest": 1, "triangular": 2}
 # and make_srw_reproject_fn (srw.py:1555).
 STEP = 16
 
+# K3's launch shape (csrc/fused_reproject.cu): a block covers K3_TILE_ROWS
+# target rows by 128 columns with 32 x K3_LANES threads, stores 4 outputs
+# of a thread as one float4 where K3_VEC4 and the rows allow it, and stages
+# up to K3_STAGE_BUDGET floats of source in shared memory (0: none).
+K3_TILE_ROWS = 16
+K3_LANES = 4
+K3_VEC4 = True
+K3_STAGE_BUDGET = 4096
+# K3 indexes inside a plane with 32-bit offsets
+MAX_PLANE = 2**31
+
 
 def coarse_coord_field(
     source_gm: GridMapping,
@@ -155,6 +166,17 @@ def fused_reproject_plain(
     return gather_interp(src, ix, iy, interp_method, fill_value)
 
 
+def require_int32_planes(src_h, src_w, out_h, out_w) -> None:
+    """Raise ``ValueError`` where a source or target plane holds 2^31
+    elements or more: K3 indexes inside a plane with 32-bit offsets."""
+    for what, h, w in (("source", src_h, src_w), ("target", out_h, out_w)):
+        if h * w >= MAX_PLANE:
+            raise ValueError(
+                f"K3 takes planes of fewer than 2^31 elements: the {what} "
+                f"plane is {h} x {w}"
+            )
+
+
 def fused_reproject(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value):
     """K3: the fused direct gather, (B, out_h, out_w) from (B, H, W)."""
     if on_cpu(src, ix_c, iy_c):
@@ -166,18 +188,21 @@ def fused_reproject(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_val
     ncj, nci = ix_c.shape
     if ncj < 2 or nci < 2 or step < 1:
         raise ValueError(f"coarse fields need 2x2 samples and step >= 1: {ix_c.shape}, {step}")
+    require_int32_planes(src_h, src_w, out_h, out_w)
     require_cuda(src, "src", _F32, (batch, src_h, src_w))
     require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
     require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
     out = torch.empty((batch, out_h, out_w), dtype=_F32, device=src.device)
     if out.numel() == 0:
         return out
+    vec4 = K3_VEC4 and out_w % 4 == 0 and out.data_ptr() % 16 == 0
     lib = _build.load()
     with torch.cuda.device(src.device):
         rc = lib.xrt_fused_reproject_f32(
             src.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(),
             batch, src_h, src_w, ncj, nci, out_h, out_w, step, method,
-            float(fill_value), torch.cuda.current_stream().cuda_stream,
+            float(fill_value), K3_TILE_ROWS, K3_LANES, int(vec4), K3_STAGE_BUDGET,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "fused_reproject")
     count_launch("fused_reproject")
