@@ -23,10 +23,14 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    headline's shapes, at the 4326 -> UTM shapes on inputs with NaN rows,
    on a geometry whose tap windows clip at the source's top and bottom
    edges, and (K3) on a ragged EPSG:3035 target, for every method; times
-   each kernel and its plain version at the main path's shapes with CUDA
-   events, K3 also beside one ``F.grid_sample`` call at the same
-   positions, and computes each kernel's bound (bytes at 3.35 TB/s or
-   float32 operations at 67 TFLOP/s, the H100 SXM data sheet's peaks);
+   each kernel and its plain version at the main path's shapes, K3 also
+   beside one ``F.grid_sample`` call at the same positions, two ways: one
+   warm call between two CUDA events on an idle card (``ms``: device time
+   and the host's enqueue of the call) and warm calls queued behind a
+   sleep on the card (``device_ms``: device time alone); and computes each
+   kernel's bound (bytes at 3.35 TB/s or float32 operations at 67
+   TFLOP/s, the H100 SXM data sheet's peaks), K3's from the source pixels
+   its taps reach, counted on the card;
 5. prints a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -105,6 +109,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
 
+    import torch.nn.functional as F
+
     from xcube_resampling_tpu_torch import (
         DataArray,
         Dataset,
@@ -113,8 +119,6 @@ def main() -> int:
     )
     from xcube_resampling_tpu_torch import _build
     from xcube_resampling_tpu_torch._device import LAUNCHES
-    import torch.nn.functional as F
-
     from xcube_resampling_tpu_torch.ops.reproject_ops import (
         FusedReprojectFn,
         fused_reproject,
@@ -208,11 +212,28 @@ def main() -> int:
             raise AssertionError(f"only {share:.3f} of the output is finite")
         return share
 
+    def event_ms(fn, iters=10):
+        """Median ms between two CUDA events around one warm call of *fn*
+        on an idle card: its device time and the host's enqueue of the
+        call (a wrapper's checks and launch, tens of us)."""
+        fn()
+        fn()
+        times = []
+        for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
     def device_ms(fn, iters=10):
         """Device ms of one warm call of *fn*: CUDA events around *iters*
         calls queued behind a sleep on the card that outlasts their
         enqueueing, so the card runs them back to back and the host's
-        enqueue time (tens of us a call) is not counted."""
+        enqueue time is not counted."""
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -231,17 +252,42 @@ def main() -> int:
         return a.elapsed_time(b) / iters
 
     def time_pair(kernel, plain):
-        """Device ms of 10 warm calls each (device_ms), in the order
-        plain, kernel, kernel, plain; the median of each pair."""
-        p1, k1, k2, p2 = (device_ms(f) for f in (plain, kernel, kernel, plain))
-        return statistics.median([k1, k2]), statistics.median([p1, p2])
+        """The kernel's and the plain version's event_ms, in the order
+        plain, kernel, kernel, plain (the median of each pair), and the
+        kernel's device_ms."""
+        p1, k1, k2, p2 = (event_ms(f) for f in (plain, kernel, kernel, plain))
+        return statistics.median([k1, k2]), statistics.median([p1, p2]), device_ms(kernel)
+
+    def k3_bound(fn, ix, iy, interp):
+        """K3's bound on one band: it must read the coarse fields and the
+        source pixels that the taps of the valid pixels reach (positions
+        clamped as gather_interp clamps them; counted here with a mask on
+        the card), and write the output; about 30 operations a pixel.
+        Returns (ms, basis, source pixels tapped)."""
+        h, w = fn.src_h, fn.src_w
+        valid = (ix > -0.5) & (ix < w - 0.5) & (iy > -0.5) & (iy < h - 0.5)
+        x = ix[valid].clamp(0, w - 1)
+        y = iy[valid].clamp(0, h - 1)
+        tapped = torch.zeros(h * w, dtype=torch.bool, device=dev)
+        if interp == "nearest":
+            tapped[torch.round(y).long() * w + torch.round(x).long()] = True
+        else:
+            x0, y0 = x.floor().long(), y.floor().long()
+            for yy in (y0, (y0 + 1).clamp(max=h - 1)):
+                for xx in (x0, (x0 + 1).clamp(max=w - 1)):
+                    tapped[yy * w + xx] = True
+        n_tapped = tapped.sum().item()
+        n_out = fn.out_h * fn.out_w
+        n_bytes = 4 * (n_out + n_tapped + fn.ix_c.numel() + fn.iy_c.numel())
+        return bound(n_bytes, 30 * n_out) + (n_tapped,)
 
     def time_k3(fn, src, interp):
-        """K3 and its plain version (time_pair) on *fn*'s fields, and the
-        library yardstick: one F.grid_sample (border padding, corners
-        aligned) at the same full-resolution positions, built outside the
-        timed window.  It leaves out the field interpolation, the fill
-        select and the triangular method."""
+        """K3 and its plain version (time_pair) on *fn*'s fields; the
+        library yardstick, one F.grid_sample (border padding, corners
+        aligned) at the same full-resolution positions (event_ms and
+        device_ms), which leaves out the field interpolation, the fill
+        select and the triangular method; and K3's bound (k3_bound).  The
+        positions and the bound are computed outside the timed windows."""
         x = src[None]
         args = (x, fn.ix_c, fn.iy_c, fn.step, fn.out_h, fn.out_w, interp, nan)
         pair = time_pair(lambda: fused_reproject(*args), lambda: fused_reproject_plain(*args))
@@ -249,6 +295,7 @@ def main() -> int:
         cols = torch.arange(fn.out_w, dtype=torch.float32, device=dev)[None, :]
         ix = interp_field(fn.ix_c, rows, cols, fn.step)
         iy = interp_field(fn.iy_c, rows, cols, fn.step)
+        k3_b = k3_bound(fn, ix, iy, interp)
         grid = torch.stack(
             (ix / (fn.src_w - 1) * 2 - 1, iy / (fn.src_h - 1) * 2 - 1), dim=-1
         )[None]
@@ -269,23 +316,11 @@ def main() -> int:
             f"{(diff > 1e-6).float().mean().item():.3g}"
         )
         del k3_out, valid, diff
-        return pair, device_ms(library_call)
-
-    def k3_bound(fn, src):
-        """K3 must write the output; of the source it needs only the window
-        its taps reach (from the coarse fields); 4 taps and ~30 operations
-        per pixel."""
-        ix_c, iy_c = fn.ix_c, fn.iy_c
-        tapped = (
-            (ix_c.max() - ix_c.min() + 2).clamp(1, src.shape[-1])
-            * (iy_c.max() - iy_c.min() + 2).clamp(1, src.shape[-2])
-        ).item()
-        n_out = fn.out_h * fn.out_w
-        return bound(4 * (n_out + tapped), n_out * 30)
+        return pair, (event_ms(library_call), device_ms(library_call)), k3_b
 
     timings = {}
     bounds = {}
-    library = {"srw_vertical": None, "srw_horizontal": None}
+    library = {"srw_vertical": (None, None), "srw_horizontal": (None, None)}
 
     # -- 1. the headline: 20480^2 UTM32N -> EPSG:3035 bilinear ----------------
     n = 20480
@@ -354,12 +389,12 @@ def main() -> int:
     bounds["srw_vertical"] = vertical_bound(x, st, False)
     bounds["srw_horizontal"] = horizontal_bound(v, st, False)
     for name in ("srw_vertical", "srw_horizontal"):
-        k, p = timings[name]
+        k, p, kd = timings[name]
         b, by = bounds[name]
         print(
             f"{tag} {name} at 20480^2 (source {st.src_h}x{st.src_w}): kernel "
-            f"{k:.3f} ms, plain {p:.3f} ms, bound {b:.3f} ms ({by}); vs plain "
-            f"max abs diff {err[name]}"
+            f"{k:.3f} ms (device {kd:.3f} ms), plain {p:.3f} ms, bound {b:.3f} ms "
+            f"({by}); vs plain max abs diff {err[name]}"
         )
     del fn, x, v, v_args, h_args, src, ds
     torch.cuda.empty_cache()
@@ -411,14 +446,16 @@ def main() -> int:
     d = compare(out["v"].data, fn.plain(geo), "bilinear", "exact tier vs plain K3")
     err["fused_reproject"] = max(err["fused_reproject"], d)
     print(f"{tag} XRTPU_EXACT=1 4326->UTM32N 4096^2 bilinear: first call {dt:.3f} s; vs plain max abs diff {d}")
-    timings["fused_reproject"], library["fused_reproject"] = time_k3(fn, geo, "bilinear")
-    bounds["fused_reproject"] = k3_bound(fn, geo)
-    k, p = timings["fused_reproject"]
-    b, by = bounds["fused_reproject"]
+    timings["fused_reproject"], library["fused_reproject"], (b, by, n_tapped) = time_k3(
+        fn, geo, "bilinear"
+    )
+    bounds["fused_reproject"] = (b, by)
+    (k, p, kd), (lib, lib_d) = timings["fused_reproject"], library["fused_reproject"]
     print(
         f"{tag} fused_reproject at 4096^2 UTM32N from 3600x7200, bilinear: kernel "
-        f"{k:.4f} ms, plain {p:.3f} ms, bound {b:.4f} ms ({by}), F.grid_sample "
-        f"{library['fused_reproject']:.4f} ms"
+        f"{k:.4f} ms (device {kd:.4f} ms), plain {p:.3f} ms, bound {b:.4f} ms ({by}; "
+        f"{n_tapped} source pixels tapped), F.grid_sample {lib:.4f} ms (device "
+        f"{lib_d:.4f} ms)"
     )
 
     # -- 3b. BASELINE #3: global 0.05 deg EPSG:4326 -> EPSG:3035 4096^2 -------
@@ -449,11 +486,12 @@ def main() -> int:
             f"{w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s; finite share {share:.4f}; "
             f"vs plain max abs diff {d}"
         )
-        (k, p), lib_ms = time_k3(fn, geo, interp)
-        b, by = k3_bound(fn, geo)
+        (k, p, kd), (lib, lib_d), (b, by, n_tapped) = time_k3(fn, geo, interp)
         print(
-            f"{tag} fused_reproject at BASELINE #3 ({interp}): kernel {k:.4f} ms, "
-            f"plain {p:.3f} ms, bound {b:.4f} ms ({by}), F.grid_sample {lib_ms:.4f} ms"
+            f"{tag} fused_reproject at BASELINE #3 ({interp}): kernel {k:.4f} ms "
+            f"(device {kd:.4f} ms), plain {p:.3f} ms, bound {b:.4f} ms ({by}; "
+            f"{n_tapped} source pixels tapped), F.grid_sample {lib:.4f} ms (device "
+            f"{lib_d:.4f} ms)"
         )
     del out
 
@@ -565,10 +603,10 @@ def main() -> int:
             err["srw_horizontal"] = max(err["srw_horizontal"], d2)
             print(f"{tag} kernels vs plain, {what}, {interp}: K1 {d1}, K2 {d2}")
             if interp == "bilinear" and what.startswith("4326"):
-                k1, p1 = time_pair(
+                k1, p1, _ = time_pair(
                     lambda: srw_vertical(*v_args), lambda: srw_vertical_plain(*v_args)
                 )
-                k2, p2 = time_pair(
+                k2, p2, _ = time_pair(
                     lambda: srw_horizontal(*h_args), lambda: srw_horizontal_plain(*h_args)
                 )
                 print(
@@ -615,7 +653,10 @@ def main() -> int:
             "bound_by": bounds[name][1],
             # K1, K2: no single PyTorch call computes a tap pass; K3: the
             # F.grid_sample yardstick at the 4326 -> UTM shape
-            "library_ms": library[name],
+            "library_ms": library[name][0],
+            # the same calls queued behind a sleep: device time alone
+            "device_ms": timings[name][2],
+            "library_device_ms": library[name][1],
         }
         for name in err
     ]

@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Profile the port's headline reprojection on one GPU.
+"""Profile the port's headline reprojection, and BASELINE #3, on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
-the CUDA toolkit: ``python3 tools/profile_headline.py``.  On the 20480^2
-UTM32N -> EPSG:3035 bilinear reproject that ``chip_smoke.py`` drives, it
-prints
+the CUDA toolkit: ``python3 tools/profile_headline.py``.  It prints
 
-1. the first call's host planning, phase by phase (coarse geometry,
-   source window, the two gates, ``plan_srw``, and ``plan_to_device``
-   with the kernels' window tables), each timed alone with
-   ``time.perf_counter``;
-2. the wall time of 10 warm ``resample_in_space`` calls (median, min,
-   max) and their host time (the call returning before the kernels end);
+1. for the 20480^2 UTM32N -> EPSG:3035 bilinear reproject that
+   ``chip_smoke.py`` drives, the first call's host planning, phase by
+   phase (coarse geometry, source window, the two gates, ``plan_srw``,
+   and ``plan_to_device`` with the kernels' window tables), each timed
+   alone with ``time.perf_counter``;
+
+then for that reproject and for BASELINE #3 (the global 0.05 deg
+EPSG:4326 7200x3600 -> EPSG:3035 4096^2 at 1500 m, a singular warp that
+runs K3), bilinear and nearest:
+
+2. the first call's time and the wall time of 10 warm
+   ``resample_in_space`` calls (median, min, max) and their host time
+   (the call returning before the kernels end);
 3. the device time per kernel over 5 warm calls from ``torch.profiler``
    (``key_averages``), and the device idle share of a warm call:
    1 - device time / median wall time;
 4. the top host functions of 5 warm calls by ``cProfile`` cumulative time;
-5. last, one JSON object with the numbers above.
+
+and last, one JSON object with the numbers above.
 
 Every line carries the card's name and power limit.  It imports nothing
 of JAX or of the JAX package and exits nonzero when no CUDA device is
@@ -91,6 +97,15 @@ def main() -> int:
     print(card)
     _build.load()
 
+    def dataset(gm, data):
+        coords = dict(gm.to_coords(exclude_bounds=True))
+        coords["spatial_ref"] = DataArray(np.array(0), dims=(), attrs=gm.crs.to_cf())
+        x_dim, y_dim = gm.xy_dim_names
+        return Dataset(
+            {"v": DataArray(data, dims=(y_dim, x_dim), attrs=dict(grid_mapping="spatial_ref"))},
+            coords=coords,
+        )
+
     utm_gm = GridMapping.regular(
         size=(N, N), xy_min=(300000.0, 5200000.0), xy_res=30.0, crs="epsg:32632"
     )
@@ -100,13 +115,7 @@ def main() -> int:
     src = torch.from_numpy(
         np.random.default_rng(0).random((N, N), dtype=np.float32)
     ).to(dev)
-    coords = dict(utm_gm.to_coords(exclude_bounds=True))
-    coords["spatial_ref"] = DataArray(np.array(0), dims=(), attrs=utm_gm.crs.to_cf())
-    x_dim, y_dim = utm_gm.xy_dim_names
-    ds = Dataset(
-        {"v": DataArray(src, dims=(y_dim, x_dim), attrs=dict(grid_mapping="spatial_ref"))},
-        coords=coords,
-    )
+    ds = dataset(utm_gm, src)
     src_gm = GridMapping.from_dataset(ds)
 
     # -- 1. the first call's planning, phase by phase ------------------------
@@ -135,78 +144,103 @@ def main() -> int:
         f"gates {gates[0]:.4f} px, slope {gates[1]:.4f}"
     )
 
-    def call():
-        return resample_in_space(ds, target_gm=laea_gm, interp_methods="bilinear")
+    def profile_call(what, ds, target_gm, interp):
+        """Sections 2-4 for one reproject; returns their numbers."""
+        def call():
+            return resample_in_space(ds, target_gm=target_gm, interp_methods=interp)
 
-    t = time.perf_counter()
-    call()
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t
-    print(f"{tag} first call {first:.3f} s (planning included)")
-
-    # -- 2. warm wall and host time ------------------------------------------
-    wall, host = [], []
-    for _ in range(WARM):
-        torch.cuda.synchronize()
         t = time.perf_counter()
-        out = call()
-        host.append(time.perf_counter() - t)
+        call()
         torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t)
-        del out
-    wall_ms = [x * 1e3 for x in wall]
-    host_ms = [x * 1e3 for x in host]
-    med = statistics.median(wall_ms)
-    print(
-        f"{tag} warm wall ms over {WARM} calls: median {med:.3f}, min "
-        f"{min(wall_ms):.3f}, max {max(wall_ms):.3f}; host ms (call returns): "
-        f"median {statistics.median(host_ms):.3f}; {N * N / 1e3 / med:.1f} Mpix/s"
-    )
+        first = time.perf_counter() - t
+        print(f"{tag} {what}: first call {first:.3f} s (planning included)")
 
-    # -- 3. device time per kernel -------------------------------------------
-    from torch.profiler import ProfilerActivity, profile
+        # -- 2. warm wall and host time --------------------------------------
+        wall, host = [], []
+        for _ in range(WARM):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = call()
+            host.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t)
+            del out
+        wall_ms = [x * 1e3 for x in wall]
+        host_ms = [x * 1e3 for x in host]
+        med = statistics.median(wall_ms)
+        n_pix = target_gm.width * target_gm.height
+        print(
+            f"{tag} {what}: warm wall ms over {WARM} calls: median {med:.3f}, min "
+            f"{min(wall_ms):.3f}, max {max(wall_ms):.3f}; host ms (call returns): "
+            f"median {statistics.median(host_ms):.3f}; {n_pix / 1e3 / med:.1f} Mpix/s"
+        )
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # -- 3. device time per kernel ---------------------------------------
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED):
+                call()
+            torch.cuda.synchronize()
+        kernels = {}
+        for evt in prof.key_averages():
+            us = _device_us(evt)
+            if us > 0:
+                kernels[evt.key] = us / 1e3 / PROFILED
+        device_ms = sum(kernels.values())
+        idle = 1.0 - device_ms / med if device_ms else None
+        for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1]):
+            print(f"{tag} {what}: device ms per call: {ms:.4f}  {name}")
+        print(
+            f"{tag} {what}: device ms per call, all kernels: {device_ms:.4f}; idle "
+            f"share of the median warm call: "
+            + ("not measured (no device time)" if idle is None else f"{idle:.4f}")
+        )
+
+        # -- 4. host functions -----------------------------------------------
+        pr = cProfile.Profile()
+        pr.enable()
         for _ in range(PROFILED):
             call()
+        pr.disable()
         torch.cuda.synchronize()
-    kernels = {}
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0:
-            kernels[evt.key] = us / 1e3 / PROFILED
-    device_ms = sum(kernels.values())
-    idle = 1.0 - device_ms / med if device_ms else None
-    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1]):
-        print(f"{tag} device ms per call: {ms:.3f}  {name}")
-    print(
-        f"{tag} device ms per call, all kernels: {device_ms:.3f}; idle share "
-        f"of the median warm call: "
-        + ("not measured (no device time)" if idle is None else f"{idle:.3f}")
-    )
+        buf = io.StringIO()
+        pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(15)
+        print(f"{tag} {what}: cProfile of {PROFILED} warm calls, top 15 by cumulative time:")
+        print(buf.getvalue().strip())
+        return {
+            "first_call_s": first,
+            "warm_wall_ms": {"median": med, "min": min(wall_ms), "max": max(wall_ms)},
+            "warm_host_ms_median": statistics.median(host_ms),
+            "device_ms_per_call": kernels,
+            "device_idle_share": idle,
+        }
 
-    # -- 4. host functions ---------------------------------------------------
-    pr = cProfile.Profile()
-    pr.enable()
-    for _ in range(PROFILED):
-        call()
-    pr.disable()
-    torch.cuda.synchronize()
-    buf = io.StringIO()
-    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(15)
-    print(f"{tag} cProfile of {PROFILED} warm calls, top 15 by cumulative time:")
-    print(buf.getvalue().strip())
+    from torch.profiler import ProfilerActivity, profile
+
+    results = {"headline": profile_call("20480^2 UTM32N->EPSG:3035 bilinear", ds, laea_gm,
+                                        "bilinear")}
+    del ds, src
+    torch.cuda.empty_cache()
+    geo_gm = GridMapping.regular(
+        size=(7200, 3600), xy_min=(-180.0, -90.0), xy_res=0.05, crs="epsg:4326"
+    )
+    laea4k_gm = GridMapping.regular(
+        size=(4096, 4096), xy_min=(2000000.0, 1000000.0), xy_res=1500.0, crs="epsg:3035"
+    )
+    geo = torch.from_numpy(
+        np.random.default_rng(0).random((3600, 7200), dtype=np.float32)
+    ).to(dev)
+    ds3 = dataset(geo_gm, geo)
+    for interp in ("bilinear", "nearest"):
+        results[f"baseline3/{interp}"] = profile_call(
+            f"BASELINE #3 4326->EPSG:3035 4096^2 {interp}", ds3, laea4k_gm, interp
+        )
 
     print(
         json.dumps(
             {
                 "card": card,
-                "first_call_s": first,
                 "planning_s": phases,
-                "warm_wall_ms": {"median": med, "min": min(wall_ms), "max": max(wall_ms)},
-                "warm_host_ms_median": statistics.median(host_ms),
-                "device_ms_per_call": kernels,
-                "device_idle_share": idle,
+                **results,
             }
         )
     )

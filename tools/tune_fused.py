@@ -5,18 +5,18 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit: ``python3 tools/tune_fused.py``.  On the EPSG:4326 0.05
 deg global source (7200 x 3600) it times ``fused_reproject`` (K3) onto
 UTM32N 4096^2 at 150 m and onto EPSG:3035 4096^2 at 1500 m (the global
-reproject, a singular warp), nearest and bilinear, as the mean of 10 warm
-launches queued behind a sleep on the card (so that the host's enqueue
-time is not counted) and timed with CUDA events, over the launch shapes of
-``reproject_ops``: scalar or float4 stores (``K3_VEC4``), the staging
-budget (``K3_STAGE_BUDGET``), rows per block (``K3_TILE_ROWS``) and
-threads down a block (``K3_LANES``).  Every output is checked equal to the
-plain version's.  For each geometry it prints the share of 16 x 128
-tiles whose tap window fits each budget.  A package without those knobs
-(an older tree, run as ``python3 <tree>/tools/tune_fused.py``) is timed in
-its one configuration.  Every line carries the card's name and power
-limit; the last line is one JSON object with the times.  It exits nonzero
-when no CUDA device is visible.
+reproject, a singular warp), nearest and bilinear, three ways: the mean
+of 10 warm launches queued behind a sleep on the card (device time; the
+host's enqueue is not counted), the median of one launch between two
+CUDA events on an idle card (device time and the wrapper's enqueue), and
+the kernel's own device time from ``torch.profiler``.  Every output is
+checked equal to the plain version's.  Two floors close it: K3 with every
+pixel outside the source (its arithmetic and stores, every tap on one
+cached source pixel) and a 4096^2 ``Tensor.fill_``.  A copy of this file
+in another checkout (``python3 <tree>/tools/tune_fused.py``) times that
+checkout's K3, so two trees compare in one call.  Every line carries the
+card's name and power limit; the last line is one JSON object with the
+times.  It exits nonzero when no CUDA device is visible.
 """
 
 from __future__ import annotations
@@ -31,17 +31,6 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-
-KNOBS = ("K3_VEC4", "K3_STAGE_BUDGET", "K3_TILE_ROWS", "K3_LANES")
-# (vec4, budget, tile_rows, lanes): the design steps, then block shapes
-CONFIGS = (
-    (False, 0, 16, 4), (True, 0, 16, 4),
-    (True, 2048, 16, 4), (True, 4096, 16, 4), (True, 8192, 16, 4),
-    (True, 0, 16, 2), (True, 0, 16, 8), (True, 0, 32, 2), (True, 0, 32, 4),
-    (True, 0, 32, 8),
-    (True, 4096, 32, 8),
-)
-
 
 def card_line() -> str:
     out = subprocess.run(
@@ -109,31 +98,6 @@ def profiled_ms(torch, fn, iters=10):
     return us / 1e3 / iters if us else None
 
 
-def staged_share(ix_c, iy_c, src_h, src_w, out_h, out_w, budgets, rows=16, cols=128):
-    """Share of rows x cols tiles whose tap window (the min/max of the
-    coarse samples they interpolate, 2 pixels of margin, clamped) fits
-    each budget, as the kernel decides it."""
-    step = 16
-    counts = dict.fromkeys(budgets, 0)
-    n = 0
-    for j0 in range(0, out_h, rows):
-        jl, jh = j0 // step, min((min(j0 + rows, out_h) - 1) // step, ix_c.shape[0] - 2) + 1
-        for c0 in range(0, out_w, cols):
-            il = c0 // step
-            ih = min((min(c0 + cols, out_w) - 1) // step, ix_c.shape[1] - 2) + 1
-            n += 1
-            fx, fy = ix_c[jl:jh + 1, il:ih + 1], iy_c[jl:jh + 1, il:ih + 1]
-            if not (np.isfinite(fx).all() and np.isfinite(fy).all()):
-                continue
-            w = np.clip(np.floor(fx.max()) + 2, 0, src_w - 1) - np.clip(
-                np.floor(fx.min()) - 1, 0, src_w - 1) + 1
-            h = np.clip(np.floor(fy.max()) + 2, 0, src_h - 1) - np.clip(
-                np.floor(fy.min()) - 1, 0, src_h - 1) + 1
-            for b in budgets:
-                counts[b] += w * h <= b
-    return {b: round(float(counts[b] / n), 4) for b in budgets}
-
-
 def main() -> int:
     import torch
 
@@ -146,7 +110,6 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     tag = f"[{card_line()}]"
-    tunable = all(hasattr(ro, k) for k in KNOBS)
     geo_gm = GridMapping.regular(
         size=(7200, 3600), xy_min=(-180.0, -90.0), xy_res=0.05, crs="epsg:4326"
     )
@@ -163,46 +126,38 @@ def main() -> int:
     src = torch.from_numpy(
         np.random.default_rng(0).random((1, 3600, 7200), dtype=np.float32)
     ).to(dev)
-    defaults = tuple(getattr(ro, k) for k in KNOBS) if tunable else None
     results = {}
     for name, tgt in targets.items():
         for interp in ("nearest", "bilinear"):
             fn = ro.make_fused_reproject_fn(geo_gm, tgt, interp, np.nan, dev)
-            if interp == "nearest" and tunable:
-                share = staged_share(
-                    fn.ix_c.cpu().numpy(), fn.iy_c.cpu().numpy(), 3600, 7200,
-                    4096, 4096, (2048, 4096, 8192),
-                )
-                print(f"{tag} {name}: share of 16x128 tiles whose window fits "
-                      f"2048/4096/8192 floats: {share}")
             ref = fn.plain(src)
-            ref_nan = torch.isnan(ref)
-            for config in CONFIGS if tunable else (None,):
-                if config is not None:
-                    for k, v in zip(KNOBS, config):
-                        setattr(ro, k, v)
-                got = fn(src)
-                if not torch.equal(torch.isnan(got), ref_nan) or not torch.equal(
-                    torch.nan_to_num(got), torch.nan_to_num(ref)
-                ):
-                    raise AssertionError(f"K3 {name} {interp} {config} differs from plain")
-                ms = device_ms(torch, lambda: fn(src))
-                key = (
-                    "default" if config is None else
-                    "vec4{}_budget{}_rows{}_lanes{}".format(*(int(c) for c in config))
-                )
-                results[f"{name}/{interp}/{key}"] = ms
-                print(f"{tag} K3 {name} {interp} {key}: {ms:.4f} ms")
-                if config is None or config == defaults:
-                    one = single_ms(torch, lambda: fn(src))
-                    prof = profiled_ms(torch, lambda: fn(src))
-                    results[f"{name}/{interp}/{key}/single_launch"] = one
-                    results[f"{name}/{interp}/{key}/profiler"] = prof
-                    print(f"{tag} K3 {name} {interp} {key}: one launch between "
-                          f"events {one:.4f} ms; profiler device time {prof} ms")
-            if defaults is not None:
-                for k, v in zip(KNOBS, defaults):
-                    setattr(ro, k, v)
+            got = fn(src)
+            if not torch.equal(torch.isnan(got), torch.isnan(ref)) or not torch.equal(
+                torch.nan_to_num(got), torch.nan_to_num(ref)
+            ):
+                raise AssertionError(f"K3 {name} {interp} differs from plain")
+            key = f"{name}/{interp}"
+            results[key] = device_ms(torch, lambda: fn(src))
+            results[f"{key}/single_launch"] = single_ms(torch, lambda: fn(src))
+            results[f"{key}/profiler"] = profiled_ms(torch, lambda: fn(src))
+            print(
+                f"{tag} K3 {name} {interp}: queued {results[key]:.4f} ms; one launch "
+                f"between events {results[f'{key}/single_launch']:.4f} ms; profiler "
+                f"device time {results[f'{key}/profiler']} ms"
+            )
+    # floors at 4096^2: K3 with every pixel outside the source (its
+    # arithmetic and stores; every tap clamps onto one cached source pixel),
+    # and a 4096^2 float32 fill
+    fn = ro.make_fused_reproject_fn(geo_gm, targets["utm32n_4096"], "bilinear", np.nan, dev)
+    fn.ix_c = torch.full_like(fn.ix_c, -10.0)
+    if not torch.isnan(fn(src)).all():
+        raise AssertionError("K3 with every pixel outside the source wrote a value")
+    results["floor/k3_all_outside"] = device_ms(torch, lambda: fn(src))
+    out = torch.empty((4096, 4096), device=dev)
+    results["floor/torch_fill"] = device_ms(torch, lambda: out.fill_(1.0))
+    print(f"{tag} floors at 4096^2: K3 with every pixel outside the source "
+          f"{results['floor/k3_all_outside']:.4f} ms; Tensor.fill_ "
+          f"{results['floor/torch_fill']:.4f} ms")
     print(json.dumps({"card": tag[1:-1], "ms": results}))
     return 0
 

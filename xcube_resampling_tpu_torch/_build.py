@@ -57,10 +57,9 @@ _SIGNATURES = {
         _I, _I64, _I, _I, _F, _I, _I, _I, _I64, _I64, _I, _P,
     ],
     # src, ix_c, iy_c, out, batch, src_h, src_w, ncj, nci, out_h, out_w,
-    # step, method, fill, tile_rows, lanes, vec4, budget, stream
+    # step, method, fill, stream
     "xrt_fused_reproject_f32": [
-        _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F,
-        _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _P,
     ],
 }
 

@@ -18,63 +18,70 @@
 // and read the source window its taps reach once; the coarse fields are
 // small and stay in L1/L2.  Where the target is finer than the source, the
 // four taps of neighbouring pixels fall on the same few source pixels, so
-// most reads hit L1.
+// most reads hit L1.  What holds it above that bound is the arithmetic of a
+// pixel (field lerps, mask, clamp, floors, tap addresses: about 40
+// instructions), not its bytes (PERF.md; tools/tune_fused.py).
 //
-// Design: a block covers a tile of `tile_rows` target rows by kTileCols
+// Design: a block covers a tile of kTileRows target rows by kTileCols
 // columns, kWarpCols threads across (each owning kVec consecutive columns)
-// by `lanes` threads down; a thread walks the tile's rows lanes apart.  The
-// field interpolation keeps its column part per thread and its row lerps
-// per coarse cell (srw_common.h's FieldColumn: the same operations on the
-// same values as interp_field), so a tile aligned to the coarse grid loads
-// its coarse corners once.  Per row a thread computes the tap offsets,
-// weights and mask of its kVec pixels once for every band and stores the
-// kVec outputs of a band as one float4 where the row allows it.  The method
-// is a template parameter; offsets inside a plane are 32-bit (the wrapper
-// refuses planes of 2^31 elements or more), band offsets 64-bit.
-//
-// With a staging budget, a block first reduces the tile's coarse corners
-// to the source window its taps can reach (two pixels of margin, clamped)
-// and, where every corner is finite and the window of every band fits the
-// budget, copies it to shared memory with cp.async and gathers from there.
-// Other tiles read through the read-only cache.  Both read the same values,
-// so the output does not depend on the choice.  Always 4 taps per pixel
-// (1 for nearest), zero weights included, so NaN reach follows
-// gather_interp.
+// by kLanes threads down; a thread walks the tile's rows kLanes apart.  The
+// field interpolation (srw_common.h's FieldCols) takes each column's cell
+// and fraction once and keeps the row lerps of both fields at all of a
+// thread's columns while its rows stay in one coarse cell: one test a row,
+// and a tile aligned to the coarse grid loads its coarse corners once.
+// Per row a thread computes the tap offsets, weights and mask of its kVec
+// pixels once for every band and stores the kVec outputs of a band as one
+// float4 where out_w % 4 == 0 and the output is 16-byte aligned.  This
+// launch shape was the fastest of those tools/tune_fused.py timed on an
+// H100 (rows 16 or 32, lanes 1, 2 or 4, scalar or float4 stores).
+// The method is a template parameter; offsets inside a plane are 32-bit
+// and unsigned (the wrapper refuses planes of 2^31 elements or more), band
+// offsets 64-bit.  Always 4 taps per pixel (1 for nearest), zero weights
+// included, so NaN reach follows gather_interp.  Staging a tile's tap
+// window in shared memory with cp.async was measured 20-25% slower in
+// every case, so the taps read through L1.
 #include "srw_common.h"
 
 namespace {
 
 constexpr int kVec = 4;                   // output columns of a thread
 constexpr int kWarpCols = 32;             // threads across a tile
+constexpr int kLanes = 2;                 // threads down a tile
 constexpr int kTileCols = kVec * kWarpCols;
+constexpr int kTileRows = 16;             // target rows of a tile
 
-// The taps of one pixel: the top-left tap's offset in a plane (or staged
-// window) of row stride `stride`, the steps to the right and down (0 where
-// the clamp folds them onto the edge), the fractional parts, the mask.
+// The taps of one pixel: the top-left tap's offset in its plane, the steps
+// to the right and down (0 where the clamp folds them onto the edge), the
+// fractional parts, the mask.
 struct Taps {
-  int off, dx, dy;
+  unsigned off, dx, dy;
   float fx, fy;
   bool ok;
 };
 
-// The source geometry as the taps need it: bounds in float32 as the JAX
-// package compares them, the clamp limits, and the origin and row stride
-// of the plane or window the offsets index.
-struct Geometry {
+struct Args {
+  const float* src;
+  float* out;
+  xrt::CoarseFields<2> field;  // ix_c, iy_c
+  int64_t batch;
+  int src_h, src_w, out_h, out_w;
+  float fill;
+  // the bounds in float32, as the JAX package compares them, and the
+  // clamp limits
   float x_hi, y_hi, x_max, y_max;
-  int x_last, y_last, x0, y0, stride;
+  int n_row_tiles;
+  bool vec4;  // out_w % 4 == 0 and out 16-byte aligned
 };
 
 template <int M>
-__device__ __forceinline__ Taps taps(float ix, float iy, const Geometry& g) {
+__device__ __forceinline__ Taps taps(float ix, float iy, const Args& a) {
   Taps t;
-  t.ok = ix > -0.5f && ix < g.x_hi && iy > -0.5f && iy < g.y_hi;
-  ix = fminf(fmaxf(ix, 0.0f), g.x_max);
-  iy = fminf(fmaxf(iy, 0.0f), g.y_max);
+  t.ok = ix > -0.5f && ix < a.x_hi && iy > -0.5f && iy < a.y_hi;
+  ix = fminf(fmaxf(ix, 0.0f), a.x_max);
+  iy = fminf(fmaxf(iy, 0.0f), a.y_max);
   if (M == xrt::kNearest) {
-    t.off = (static_cast<int>(rintf(iy)) - g.y0) * g.stride +
-            static_cast<int>(rintf(ix)) - g.x0;
-    t.dx = t.dy = 0;
+    t.off = static_cast<unsigned>(rintf(iy)) * a.src_w + static_cast<unsigned>(rintf(ix));
+    t.dx = t.dy = 0u;
     t.fx = t.fy = 0.0f;
     return t;
   }
@@ -82,22 +89,25 @@ __device__ __forceinline__ Taps taps(float ix, float iy, const Geometry& g) {
   const float y0f = floorf(iy);
   t.fx = ix - x0f;
   t.fy = iy - y0f;
-  const int x0 = static_cast<int>(x0f);
-  const int y0 = static_cast<int>(y0f);
-  t.off = (y0 - g.y0) * g.stride + x0 - g.x0;
-  t.dx = x0 < g.x_last ? 1 : 0;
-  t.dy = y0 < g.y_last ? g.stride : 0;
+  const unsigned x0 = static_cast<unsigned>(x0f);
+  const unsigned y0 = static_cast<unsigned>(y0f);
+  t.off = y0 * a.src_w + x0;
+  t.dx = x0 + 1 < static_cast<unsigned>(a.src_w) ? 1u : 0u;
+  t.dy = y0 + 1 < static_cast<unsigned>(a.src_h) ? static_cast<unsigned>(a.src_w) : 0u;
   return t;
 }
 
+// The taps' value.  Every offset is inside the plane (the position was
+// clamped), so the taps are read whether the pixel is valid or not.
 template <int M>
 __device__ __forceinline__ float gather(const float* __restrict__ p,
                                         const Taps& t) {
-  if (M == xrt::kNearest) return p[t.off];
-  const float v00 = p[t.off];
-  const float v01 = p[t.off + t.dx];
-  const float v10 = p[t.off + t.dy];
-  const float v11 = p[t.off + t.dy + t.dx];
+  const float* q = p + t.off;
+  if (M == xrt::kNearest) return __ldg(q);
+  const float v00 = __ldg(q);
+  const float v01 = __ldg(q + t.dx);
+  const float v10 = __ldg(q + t.dy);
+  const float v11 = __ldg(q + t.dy + t.dx);
   if (M == xrt::kTriangular) {
     const float v_near = fmaf(t.fy, v10 - v00, xrt::lerp(v00, v01, t.fx));
     const float v_far =
@@ -107,229 +117,79 @@ __device__ __forceinline__ float gather(const float* __restrict__ p,
   return xrt::lerp(xrt::lerp(v00, v01, t.fx), xrt::lerp(v10, v11, t.fx), t.fy);
 }
 
-struct Args {
-  const float* src;
-  const float* ix_c;
-  const float* iy_c;
-  float* out;
-  int64_t batch;
-  int src_h, src_w, ncj, nci, out_h, out_w;
-  float inv, fill;
-  int tile_rows, n_row_tiles, budget;
-  bool vec4;
-};
-
-// The kVec pixels of one row of a thread: interpolate the fields, then for
-// every band gather and store.  `planes` is the source (or the staged
-// window) of band 0, `plane` the floats from one band to the next.
+// One thread: kVec consecutive columns from i, rows kLanes apart.  At
+// least 12 blocks an SM hold ptxas to 80 registers a thread; left free it
+// took 96, and K3 was 10% slower at the UTM shape on an H100
+// (tools/tune_fused.py).
 template <int M>
-__device__ __forceinline__ void row_pixels(const Args& a, xrt::FieldColumn* fx,
-                                           xrt::FieldColumn* fy, int j, int i,
-                                           const Geometry& g,
-                                           const float* __restrict__ planes,
-                                           int64_t plane) {
-  const float row = static_cast<float>(j);
-  Taps t[kVec];
-#pragma unroll
-  for (int c = 0; c < kVec; ++c) t[c] = taps<M>(fx[c].at(row), fy[c].at(row), g);
+__global__ void __launch_bounds__(kWarpCols * kLanes, 12) fused_reproject_kernel(const Args a) {
+  const int i = (blockIdx.x * kWarpCols + threadIdx.x) * kVec;
+  if (i >= a.out_w) return;
+  const int64_t src_plane = static_cast<int64_t>(a.src_h) * a.src_w;
   const int64_t out_plane = static_cast<int64_t>(a.out_h) * a.out_w;
   const int n = a.out_w - i < kVec ? a.out_w - i : kVec;
-  for (int64_t b = 0; b < a.batch; ++b) {
-    const float* p = planes + b * plane;
-    float v[kVec];
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) v[c] = t[c].ok ? gather<M>(p, t[c]) : a.fill;
-    float* o = a.out + b * out_plane + j * a.out_w + i;
-    if (a.vec4 && n == kVec) {
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        if (c < n) o[c] = v[c];
-      }
-    }
-  }
-}
-
-// min and max of the coarse samples of one field that the tile's pixels
-// interpolate (rows jlo..jhi, columns ilo..ihi); false where one is not
-// finite.  Reduced over warp 0; every lane of warp 0 gets the result.
-__device__ __forceinline__ bool field_range(const float* __restrict__ f, int nci,
-                                            int jlo, int jhi, int ilo, int ihi,
-                                            float& lo, float& hi) {
-  const int w = ihi - ilo + 1;
-  const int n = (jhi - jlo + 1) * w;
-  lo = INFINITY;
-  hi = -INFINITY;
-  int bad = 0;
-  for (int e = threadIdx.x; e < n; e += kWarpCols) {
-    const int r = e / w;
-    const float s = f[(jlo + r) * nci + ilo + e - r * w];
-    bad |= !isfinite(s);
-    lo = fminf(lo, s);
-    hi = fmaxf(hi, s);
-  }
-#pragma unroll
-  for (int m = kWarpCols / 2; m > 0; m >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, m));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, m));
-  }
-  return __any_sync(0xffffffffu, bad) == 0;
-}
-
-// The coarse cell of pixel row (or column) k: interp_field's clamped j0.
-__device__ __forceinline__ int cell(int k, float inv, int n) {
-  const int c = static_cast<int>(floorf(static_cast<float>(k) * inv));
-  return c < 0 ? 0 : (c > n - 2 ? n - 2 : c);
-}
-
-// The tap index range [lo, hi] that pixels whose field values lie in
-// [mn, mx] (up to a rounding) can reach after the clamp to [0, last].
-__device__ __forceinline__ void tap_range(float mn, float mx, int last,
-                                          int& lo, int& hi) {
-  const float l = fminf(fmaxf(floorf(mn) - 1.0f, 0.0f), static_cast<float>(last));
-  const float h = fminf(fmaxf(floorf(mx) + 2.0f, 0.0f), static_cast<float>(last));
-  lo = static_cast<int>(l);
-  hi = static_cast<int>(h);
-}
-
-template <int M, bool kStage>
-__global__ void fused_reproject_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  __shared__ int win[5];  // staged?, x0, y0, width, height
-
-  const int i = (blockIdx.x * kWarpCols + threadIdx.x) * kVec;
-  const Geometry global{
-      static_cast<float>(static_cast<double>(a.src_w) - 0.5),
-      static_cast<float>(static_cast<double>(a.src_h) - 0.5),
-      static_cast<float>(a.src_w - 1), static_cast<float>(a.src_h - 1),
-      a.src_w - 1, a.src_h - 1, 0, 0, a.src_w};
-  const int64_t src_plane = static_cast<int64_t>(a.src_h) * a.src_w;
-
-  xrt::FieldColumn fx[kVec] = {
-      {a.ix_c, a.ncj, a.nci, static_cast<float>(i), a.inv},
-      {a.ix_c, a.ncj, a.nci, static_cast<float>(i + 1), a.inv},
-      {a.ix_c, a.ncj, a.nci, static_cast<float>(i + 2), a.inv},
-      {a.ix_c, a.ncj, a.nci, static_cast<float>(i + 3), a.inv}};
-  xrt::FieldColumn fy[kVec] = {
-      {a.iy_c, a.ncj, a.nci, static_cast<float>(i), a.inv},
-      {a.iy_c, a.ncj, a.nci, static_cast<float>(i + 1), a.inv},
-      {a.iy_c, a.ncj, a.nci, static_cast<float>(i + 2), a.inv},
-      {a.iy_c, a.ncj, a.nci, static_cast<float>(i + 3), a.inv}};
-
+  xrt::FieldCols<2, kVec> field(a.field, static_cast<float>(i));
   for (int tr = blockIdx.y; tr < a.n_row_tiles; tr += gridDim.y) {
-    const int j0 = tr * a.tile_rows;
-    const int j1 = min(j0 + a.tile_rows, a.out_h);
-    bool staged = false;
-    Geometry g = global;
-    if (kStage) {
-      if (threadIdx.y == 0) {
-        const int c0 = blockIdx.x * kTileCols;
-        const int c1 = min(c0 + kTileCols, a.out_w);
-        const int jlo = cell(j0, a.inv, a.ncj), jhi = cell(j1 - 1, a.inv, a.ncj) + 1;
-        const int ilo = cell(c0, a.inv, a.nci), ihi = cell(c1 - 1, a.inv, a.nci) + 1;
-        float xmn, xmx, ymn, ymx;
-        bool ok = field_range(a.ix_c, a.nci, jlo, jhi, ilo, ihi, xmn, xmx);
-        ok = field_range(a.iy_c, a.nci, jlo, jhi, ilo, ihi, ymn, ymx) && ok;
-        if (threadIdx.x == 0) {
-          int x0, x1, y0, y1;
-          tap_range(xmn, xmx, a.src_w - 1, x0, x1);
-          tap_range(ymn, ymx, a.src_h - 1, y0, y1);
-          const int w = x1 - x0 + 1, h = y1 - y0 + 1;
-          win[0] = ok && a.batch * w * h <= a.budget;
-          win[1] = x0;
-          win[2] = y0;
-          win[3] = w;
-          win[4] = h;
-        }
-      }
-      __syncthreads();
-      staged = win[0] != 0;
-      if (staged) {
-        const int w = win[3], h = win[4], n = w * h;
-        const int tid = threadIdx.y * kWarpCols + threadIdx.x;
-        const int nt = kWarpCols * blockDim.y;
-        for (int64_t b = 0; b < a.batch; ++b) {
-          const float* s = a.src + b * src_plane +
-                           static_cast<int64_t>(win[2]) * a.src_w + win[1];
-          for (int e = tid; e < n; e += nt) {
-            const int r = e / w;
-            xrt::cp_async4(smem + b * n + e, s + r * a.src_w + (e - r * w));
+    const int j1 = min((tr + 1) * kTileRows, a.out_h);
+    for (int j = tr * kTileRows + threadIdx.y; j < j1; j += kLanes) {
+      // the kVec pixels of this row: taps once, then every band
+      float f[2][kVec];  // ix, iy
+      field.at(a.field, static_cast<float>(j), f);
+      Taps t[kVec];
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) t[c] = taps<M>(f[0][c], f[1][c], a);
+      for (int64_t b = 0; b < a.batch; ++b) {
+        const float* p = a.src + b * src_plane;
+        float v[kVec];
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) v[c] = gather<M>(p, t[c]);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) v[c] = t[c].ok ? v[c] : a.fill;
+        float* o = a.out + b * out_plane + j * a.out_w + i;
+        if (a.vec4 && n == kVec) {
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < kVec; ++c) {
+            if (c < n) o[c] = v[c];
           }
         }
-        xrt::cp_async_commit();
-        xrt::cp_async_wait<0>();
-        g.x0 = win[1];
-        g.y0 = win[2];
-        g.stride = win[3];
-      }
-      __syncthreads();
-    }
-    if (i < a.out_w) {
-      for (int j = j0 + threadIdx.y; j < j1; j += blockDim.y) {
-        if (staged) {
-          row_pixels<M>(a, fx, fy, j, i, g, smem,
-                        static_cast<int64_t>(win[3]) * win[4]);
-        } else {
-          row_pixels<M>(a, fx, fy, j, i, g, a.src, src_plane);
-        }
       }
     }
-    if (kStage) __syncthreads();  // the window is rewritten next
   }
-}
-
-template <int M, bool kStage>
-cudaError_t launch(const Args& a, dim3 grid, dim3 block, size_t smem,
-                   cudaStream_t stream) {
-  if (kStage) {
-    const cudaError_t err = xrt::allow_smem(fused_reproject_kernel<M, kStage>, smem);
-    if (err != cudaSuccess) return err;
-  }
-  fused_reproject_kernel<M, kStage><<<grid, block, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// tile_rows: target rows of a block; lanes: threads down a block (a
-// thread walks rows lanes apart); vec4: the output rows allow float4
-// stores (out_w % 4 == 0, 16-byte aligned); budget: floats of source a
-// block may stage in shared memory, 0 for none.
 extern "C" int xrt_fused_reproject_f32(
     const float* src, const float* ix_c, const float* iy_c, float* out,
     int64_t batch, int64_t src_h, int64_t src_w, int64_t ncj, int64_t nci,
     int64_t out_h, int64_t out_w, int step, int method, float fill,
-    int tile_rows, int lanes, int vec4, int budget, void* stream) {
+    void* stream) {
   constexpr int64_t kMaxPlane = (int64_t{1} << 31) - 1;
   if (src_h * src_w > kMaxPlane || out_h * out_w > kMaxPlane ||
-      ncj * nci > kMaxPlane || step < 1 || tile_rows < 1 || lanes < 1 ||
-      lanes * kWarpCols > 1024 || budget < 0 || batch < 1) {
+      ncj * nci > kMaxPlane || step < 1 || batch < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a{src, ix_c, iy_c, out, batch,
-         static_cast<int>(src_h), static_cast<int>(src_w),
-         static_cast<int>(ncj), static_cast<int>(nci),
-         static_cast<int>(out_h), static_cast<int>(out_w),
-         static_cast<float>(1.0 / step), fill, tile_rows,
-         static_cast<int>((out_h + tile_rows - 1) / tile_rows), budget,
-         vec4 != 0};
-  const dim3 block(kWarpCols, lanes);
+  const bool vec4 = out_w % kVec == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const Args a{src, out,
+               {{ix_c, iy_c}, static_cast<int>(ncj), static_cast<int>(nci),
+                static_cast<float>(1.0 / step)},
+               batch, static_cast<int>(src_h), static_cast<int>(src_w),
+               static_cast<int>(out_h), static_cast<int>(out_w), fill,
+               static_cast<float>(static_cast<double>(src_w) - 0.5),
+               static_cast<float>(static_cast<double>(src_h) - 0.5),
+               static_cast<float>(src_w - 1), static_cast<float>(src_h - 1),
+               static_cast<int>((out_h + kTileRows - 1) / kTileRows), vec4};
+  const dim3 block(kWarpCols, kLanes);
   const dim3 grid(static_cast<unsigned>((out_w + kTileCols - 1) / kTileCols),
                   static_cast<unsigned>(a.n_row_tiles < 65535 ? a.n_row_tiles : 65535));
-  const size_t smem = sizeof(float) * static_cast<size_t>(budget);
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define XRT_LAUNCH(M)                                                  \
-  (budget > 0 ? launch<M, true>(a, grid, block, smem, s)               \
-              : launch<M, false>(a, grid, block, 0, s))
   switch (method) {
-    case xrt::kBilinear: err = XRT_LAUNCH(xrt::kBilinear); break;
-    case xrt::kNearest: err = XRT_LAUNCH(xrt::kNearest); break;
-    case xrt::kTriangular: err = XRT_LAUNCH(xrt::kTriangular); break;
-    default: err = cudaErrorInvalidValue;
+    case xrt::kBilinear: fused_reproject_kernel<xrt::kBilinear><<<grid, block, 0, s>>>(a); break;
+    case xrt::kNearest: fused_reproject_kernel<xrt::kNearest><<<grid, block, 0, s>>>(a); break;
+    case xrt::kTriangular: fused_reproject_kernel<xrt::kTriangular><<<grid, block, 0, s>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef XRT_LAUNCH
-  return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -26,29 +26,6 @@ __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
   return i < 0 ? 0 : (i > n - 1 ? n - 1 : i);
 }
 
-// Bilinear interpolation of a coarse (ncj, nci) field f, sampled every
-// 1 / inv pixels, at pixel (row, col): reproject_ops._interp_field of the
-// JAX package with its lerps contracted as XLA does.
-__device__ __forceinline__ float interp_field(const float* __restrict__ f,
-                                              int64_t ncj, int64_t nci,
-                                              float row, float col, float inv) {
-  const float cj = row * inv;
-  const float ci = col * inv;
-  const float j0f = floorf(cj);
-  const float i0f = floorf(ci);
-  const float fj = cj - j0f;
-  const float fi = ci - i0f;
-  // 32-bit indices: a coarse field holds far fewer than 2^31 samples
-  const int n = static_cast<int>(nci);
-  const int j0 = static_cast<int>(clamp_index(static_cast<int>(j0f), ncj - 1));
-  const int i0 = static_cast<int>(clamp_index(static_cast<int>(i0f), nci - 1));
-  const float f00 = f[j0 * n + i0];
-  const float f01 = f[j0 * n + i0 + 1];
-  const float f10 = f[(j0 + 1) * n + i0];
-  const float f11 = f[(j0 + 1) * n + i0 + 1];
-  return lerp(lerp(f00, f01, fi), lerp(f10, f11, fi), fj);
-}
-
 // -- asynchronous global -> shared copies (sm_80+: cp.async) ---------------
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
@@ -130,40 +107,88 @@ __device__ __forceinline__ void tap_sums(const float* sp, int stride, float p,
   }
 }
 
-// interp_field of one column of a coarse field at rows that a thread
-// visits in increasing order: the column's cell and fraction are taken
-// once, and the two row lerps are kept while the rows stay in one coarse
-// cell.  The same operations on the same values as interp_field.
-class FieldColumn {
+// NF coarse (ncj, nci) fields of one geometry, sampled every 1 / inv
+// target pixels.
+template <int NF>
+struct CoarseFields {
+  const float* f[NF];
+  int ncj, nci;
+  float inv;
+};
+
+// Bilinear interpolation of coarse fields g at V consecutive columns from
+// col and at rows that a thread visits in increasing order: the JAX
+// package's reproject_ops._interp_field, its lerps contracted as XLA does.
+// Each column's cell and fraction are taken once, and the row lerps of
+// every field and column are kept while the rows stay in one coarse cell,
+// with one cell test a row (in K3, a test per field and column was 1.5x
+// slower).  The same operations on the same values as _interp_field: the
+// cell test only decides when the row lerps are recomputed.  g is passed
+// to every call, not kept, so that a kernel's parameters stay in its
+// constant bank.
+template <int NF, int V>
+class FieldCols {
  public:
-  __device__ FieldColumn(const float* __restrict__ f, int64_t ncj,
-                         int64_t nci, float col, float inv)
-      : f_(f), n_(static_cast<int>(nci)), jmax_(static_cast<int>(ncj) - 2),
-        inv_(inv) {
-    const float ci = col * inv;
-    const float i0f = floorf(ci);
-    fi_ = ci - i0f;
-    i0_ = static_cast<int>(clamp_index(static_cast<int>(i0f), nci - 1));
+  __device__ FieldCols(const CoarseFields<NF>& g, float col) {
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      // col + c is exact: columns stay below 2^24
+      const float ci = (c == 0 ? col : col + static_cast<float>(c)) * g.inv;
+      const float i0f = floorf(ci);
+      fi_[c] = ci - i0f;
+      i0_[c] = static_cast<int>(clamp_index(static_cast<int>(i0f), g.nci - 1));
+    }
   }
 
-  __device__ float at(float row) {
-    const float cj = row * inv_;
+  // v[k][c]: field k at *row* and column col + c
+  __device__ __forceinline__ void at(const CoarseFields<NF>& g, float row,
+                                     float (&v)[NF][V]) {
+    const float cj = row * g.inv;
     const float j0f = floorf(cj);
     const float fj = cj - j0f;
-    const int j0 = static_cast<int>(clamp_index(static_cast<int>(j0f), jmax_ + 1));
+    const int j0 = static_cast<int>(clamp_index(static_cast<int>(j0f), g.ncj - 1));
     if (j0 != j_) {
       j_ = j0;
-      const float* r0 = f_ + j0 * n_ + i0_;
-      a0_ = lerp(r0[0], r0[1], fi_);
-      a1_ = lerp(r0[n_], r0[n_ + 1], fi_);
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        // one 32-bit offset for every field
+        const int e = j0 * g.nci + i0_[c];
+#pragma unroll
+        for (int k = 0; k < NF; ++k) {
+          const float* r0 = g.f[k] + e;
+          a0_[k][c] = lerp(r0[0], r0[1], fi_[c]);
+          a1_[k][c] = lerp(r0[g.nci], r0[g.nci + 1], fi_[c]);
+        }
+      }
     }
-    return lerp(a0_, a1_, fj);
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) v[k][c] = lerp(a0_[k][c], a1_[k][c], fj);
+    }
   }
 
  private:
-  const float* f_;
-  int n_, jmax_, i0_, j_ = -1;
-  float inv_, fi_, a0_ = 0.0f, a1_ = 0.0f;
+  int i0_[V], j_ = -1;
+  float fi_[V], a0_[NF][V], a1_[NF][V];
+};
+
+// One field at one column (K1, K2).
+class FieldColumn {
+ public:
+  __device__ FieldColumn(const float* f, int64_t ncj, int64_t nci, float col,
+                         float inv)
+      : g_{{f}, static_cast<int>(ncj), static_cast<int>(nci), inv}, c_(g_, col) {}
+
+  __device__ float at(float row) {
+    float v[1][1];
+    c_.at(g_, row, v);
+    return v[0][0];
+  }
+
+ private:
+  CoarseFields<1> g_;
+  FieldCols<1, 1> c_;
 };
 
 // True on every thread of the block when any of the rows x width values of

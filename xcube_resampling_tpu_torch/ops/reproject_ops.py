@@ -33,14 +33,6 @@ METHODS = {"bilinear": 0, "nearest": 1, "triangular": 2}
 # and make_srw_reproject_fn (srw.py:1555).
 STEP = 16
 
-# K3's launch shape (csrc/fused_reproject.cu): a block covers K3_TILE_ROWS
-# target rows by 128 columns with 32 x K3_LANES threads, stores 4 outputs
-# of a thread as one float4 where K3_VEC4 and the rows allow it, and stages
-# up to K3_STAGE_BUDGET floats of source in shared memory (0: none).
-K3_TILE_ROWS = 16
-K3_LANES = 4
-K3_VEC4 = True
-K3_STAGE_BUDGET = 4096
 # K3 indexes inside a plane with 32-bit offsets
 MAX_PLANE = 2**31
 
@@ -195,14 +187,12 @@ def fused_reproject(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_val
     out = torch.empty((batch, out_h, out_w), dtype=_F32, device=src.device)
     if out.numel() == 0:
         return out
-    vec4 = K3_VEC4 and out_w % 4 == 0 and out.data_ptr() % 16 == 0
     lib = _build.load()
     with torch.cuda.device(src.device):
         rc = lib.xrt_fused_reproject_f32(
             src.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(),
             batch, src_h, src_w, ncj, nci, out_h, out_w, step, method,
-            float(fill_value), K3_TILE_ROWS, K3_LANES, int(vec4), K3_STAGE_BUDGET,
-            torch.cuda.current_stream().cuda_stream,
+            float(fill_value), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "fused_reproject")
     count_launch("fused_reproject")
