@@ -5,33 +5,46 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit: ``python3 chip_smoke.py``.  It
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``;
+   CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
+   printing each source's registers and spills (ptxas ``-v``);
 2. drives the port's main path through ``resample_in_space``: the 20480^2
-   UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls), the
+   UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
+   same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
+   pre-downscale runs (clip, K4 at the inflated size, K5) before the
+   tiled SRW; the
    EPSG:4326 0.05 deg -> UTM32N 4096^2 reproject with nearest, triangular
    and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
    geometry, the global EPSG:4326 0.05 deg -> EPSG:3035 4096^2 reproject
    (BASELINE #3, a singular warp whose default tier is K3) with nearest
-   and bilinear, first call and warm calls, and a small UTM32N ->
+   and bilinear, first call and warm calls, a small UTM32N ->
    EPSG:3035 case with a numpy variable (placed on the card by
-   ``device``) beside a tensor; the kernel launch counts are reset before
-   and read after each call;
+   ``device``) beside a tensor, and the affine route: BASELINE #1 (a
+   16-band 1024^2 float32 2x bilinear downscale with ``mean``: K4, K5)
+   and BASELINE #2 (a 4-band 4096^2 raster coarsened 4x with ``mean``,
+   ``first`` and ``mode``, through ``ops.coarsen_ops.coarsen`` and through
+   an exact 4x affine downscale: K4, K5, K6); the kernel launch counts are
+   reset before and read after each call;
 3. holds every result against the plain PyTorch composition on the same
    device tensors, and the small case against the port's own K3 (the
    direct gather) within the two-pass bounds;
 4. holds each kernel against its plain version on CUDA tensors at the
    headline's shapes, at the 4326 -> UTM shapes on inputs with NaN rows,
    on a geometry whose tap windows clip at the source's top and bottom
-   edges, and (K3) on a ragged EPSG:3035 target, for every method; times
-   each kernel and its plain version at the main path's shapes, K3 also
-   beside one ``F.grid_sample`` call at the same positions, two ways: one
+   edges, and (K3) on a ragged EPSG:3035 target, for every method; K4 for
+   both orders on four dtypes with a NaN cell, a negative scale and a
+   numeric fill, K5 for every reducer on float32 with all-NaN windows and
+   on int32, K6 for mode and median at 16, 64 and 81 taps; times each
+   kernel and its plain version at the main path's shapes beside one
+   PyTorch call where one computes the same function (K3 and K4
+   ``F.grid_sample``, K5 ``torch.nanmean`` and a strided copy, K6
+   ``torch.mode``), two ways: one
    warm call between two CUDA events on an idle card (``ms``: device time
    and the host's enqueue of the call) and warm calls queued behind a
    sleep on the card (``device_ms``: device time alone); and computes each
-   kernel's bound (bytes at 3.35 TB/s or float32 operations at 67
-   TFLOP/s, the H100 SXM data sheet's peaks), K3's from the source pixels
-   its taps reach, counted on the card;
-5. prints a JSON line of the kernels and, last,
+   kernel's bound (bytes at 3.35 TB/s, or operations at 67 TFLOP/s
+   float32 and 34 TFLOP/s float64, the H100 SXM data sheet's peaks), K3's
+   from the source pixels its taps reach, counted on the card;
+5. prints the card line again, a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero and prints no result when no CUDA device is visible or
@@ -42,6 +55,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -55,18 +69,62 @@ import numpy as np
 # explicitly in both), so they are expected to agree bit for bit; the
 # float64 emulation of a fused multiply-add in the plain versions can
 # round twice in rare cases, one float32 ulp, hence 1e-5 for data in [0, 1).
-TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5}
+# K4 (float64 arithmetic, rounded once) and K5/K6 are expected to agree
+# with their plain versions bit for bit ("exact"), except K5's float
+# statistics, whose float64 sums run in another order in the plain
+# version: within 2.5e-7 of the value ("stat", two float32 ulp).
+TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5, "exact": 0.0, "stat": 0.0}
+REL_TOL = {"stat": 2.5e-7}
 METHODS = ("bilinear", "nearest", "triangular")
-# H100 SXM data-sheet peaks: HBM3 bytes/s and float32 (non-tensor) FLOP/s
+# H100 SXM data-sheet peaks: HBM3 bytes/s, float32 and float64 (non-tensor)
+# FLOP/s.  Integer compares are counted at the float32 rate (the data sheet
+# gives no int32 rate), which keeps the bound a lower bound.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32) -> tuple[float, str]:
     """The least time in ms the card could take: the larger of bytes over
-    the memory rate and operations over the float32 rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    the memory rate and operations over *peak_ops*."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def affine_gather_bound(x, out_h, out_w, order):
+    """K4 reads the source once and writes the output once (float32 in and
+    out at BASELINE #1); about 20 float64 operations a bilinear pixel
+    (positions, weights, four taps), 4 a nearest one."""
+    n_out = x.shape[0] * out_h * out_w
+    n_bytes = x.numel() * x.element_size() + n_out * x.element_size()
+    return bound(n_bytes, n_out * (20 if order else 4), PEAK_F64)
+
+
+def reduce_bound(x, j_div, i_div, agg, out_itemsize):
+    """K5 reads every input once (a pick only the 32-byte sectors that hold
+    its taps) and writes every output once; one float64 operation a tap
+    (two for std and var)."""
+    batch, h, w = x.shape
+    n_out = batch * (h // j_div) * (w // i_div)
+    if agg in ("first", "last", "center"):
+        cols = np.arange(w // i_div) * i_div + {"first": 0, "last": i_div - 1,
+                                                 "center": i_div // 2}[agg]
+        sectors = len(np.unique(cols * x.element_size() // 32))
+        n_in = batch * (h // j_div) * sectors * 32
+        n_ops = 0
+    else:
+        n_in = x.numel() * x.element_size()
+        n_ops = x.numel() * (2 if agg in ("std", "var") else 1)
+    return bound(n_in + n_out * out_itemsize, n_ops, PEAK_F64)
+
+
+def rank_bound(x, j_div, i_div):
+    """K6 reads every input once and writes every output once; per output
+    w^2 compares and w^2 adds (w taps)."""
+    taps = j_div * i_div
+    n_out = x.numel() // taps
+    n_bytes = x.numel() * x.element_size() + n_out * x.element_size()
+    return bound(n_bytes, 2 * taps * taps * n_out)
 
 
 def vertical_bound(src, st, tri):
@@ -94,6 +152,20 @@ def horizontal_bound(v, st, tri):
     return bound(n_bytes, n_ops)
 
 
+def ptxas_summary(log: str) -> list[tuple[str, list[int], list[int]]]:
+    """Per source file of the build log (``== name`` sections), the
+    registers of each kernel and the bytes of its spill stores, from
+    ptxas's ``-v`` report."""
+    out = []
+    for section in log.split("== ")[1:]:
+        name = section.split("\n", 1)[0].strip()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", section)]
+        if regs:
+            spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", section)]
+            out.append((name, regs, spills))
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -118,7 +190,18 @@ def main() -> int:
         resample_in_space,
     )
     from xcube_resampling_tpu_torch import _build
+    from xcube_resampling_tpu_torch import reproject as port_reproject
     from xcube_resampling_tpu_torch._device import LAUNCHES
+    from xcube_resampling_tpu_torch.affine import _scale_split
+    from xcube_resampling_tpu_torch.ops.coarsen_ops import (
+        REDUCERS,
+        coarsen,
+        coarsen_plain,
+        coarsen_rank,
+        coarsen_reduce,
+        window_reshape,
+    )
+    from xcube_resampling_tpu_torch.ops.gather import affine_gather, affine_gather_plain
     from xcube_resampling_tpu_torch.ops.reproject_ops import (
         FusedReprojectFn,
         fused_reproject,
@@ -147,33 +230,48 @@ def main() -> int:
     # -- build ---------------------------------------------------------------
     build = _build.build()
     print(f"{tag} nvcc build {build.seconds:.2f} s -> {build.path.name}")
-    for line in build.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    for source, regs, spills in ptxas_summary(build.log):
+        print(f"  {source}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+              f"at most {max(spills, default=0)} bytes spilled")
     _build.load()
 
     nan = float("nan")
-    err = {"srw_vertical": 0.0, "srw_horizontal": 0.0, "fused_reproject": 0.0}
+    err = {
+        "srw_vertical": 0.0, "srw_horizontal": 0.0, "fused_reproject": 0.0,
+        "affine_gather": 0.0, "coarsen_reduce": 0.0, "coarsen_rank": 0.0,
+    }
     main_launches: Counter = Counter()
 
     def compare(got, ref, interp, what):
-        """Max abs difference; raises on unequal NaN masks or above TOL."""
-        if got.shape != ref.shape:
-            raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+        """Max abs difference; raises on unequal dtypes or NaN masks, or
+        above TOL (plus REL_TOL of the reference's magnitude)."""
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(
+                f"{what}: {tuple(got.shape)} {got.dtype} != {tuple(ref.shape)} {ref.dtype}"
+            )
+        if got.numel() == 0:
+            return 0.0
+        if not got.dtype.is_floating_point:
+            d = (got.double() - ref.double()).abs()
+            if d.max().item() > 0:
+                raise AssertionError(f"{what}: {int((d > 0).sum())} integers differ")
+            return 0.0
         nan_got, nan_ref = torch.isnan(got), torch.isnan(ref)
         if not torch.equal(nan_got, nan_ref):
             raise AssertionError(f"{what}: NaN masks differ")
-        d = torch.where(nan_got, 0.0, got - ref).abs().max().item()
-        if d > TOL[interp]:
-            raise AssertionError(f"{what}: max abs diff {d} > {TOL[interp]}")
-        return d
+        d = torch.where(nan_got, 0.0, got.double() - ref.double()).abs()
+        lim = TOL[interp] + REL_TOL.get(interp, 0.0) * torch.where(nan_ref, 0.0, ref.double()).abs()
+        if (d > lim).any():
+            raise AssertionError(f"{what}: max abs diff {d.max().item()} above the tolerance")
+        return d.max().item()
 
-    def run_main(ds, target_gm, interp, expect):
+    def run_main(ds, target_gm, interp, expect, exact=None, **kwargs):
         """One main-path call; the launch counts are reset just before it
-        and read just after.  *expect* names the kernels it must launch."""
+        and read just after.  *expect* names the kernels it must launch,
+        *exact* how often where it gives them; others must not launch."""
         LAUNCHES.clear()
         t0 = time.perf_counter()
-        out = resample_in_space(ds, target_gm=target_gm, interp_methods=interp)
+        out = resample_in_space(ds, target_gm=target_gm, interp_methods=interp, **kwargs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = Counter(LAUNCHES)
@@ -181,6 +279,9 @@ def main() -> int:
         for name in expect:
             if got[name] < 1:
                 raise AssertionError(f"{name} was not launched: {dict(got)}")
+        for name, n in (exact or {}).items():
+            if got[name] != n:
+                raise AssertionError(f"{name} launched {got[name]} times, not {n}: {dict(got)}")
         for name in set(err) - set(expect):
             if got[name]:
                 raise AssertionError(f"{name} launched off its tier: {dict(got)}")
@@ -202,11 +303,13 @@ def main() -> int:
             coords=coords,
         )
 
-    def check_output(arr, shape):
+    def check_output(arr, shape, dtype=torch.float32):
         if not (isinstance(arr, torch.Tensor) and arr.device == dev):
             raise AssertionError(f"output is not a tensor on {dev}: {type(arr)}")
-        if tuple(arr.shape) != shape or arr.dtype != torch.float32:
-            raise AssertionError(f"output {tuple(arr.shape)} {arr.dtype}, expected {shape}")
+        if tuple(arr.shape) != shape or arr.dtype != dtype:
+            raise AssertionError(f"output {tuple(arr.shape)} {arr.dtype}, expected {shape} {dtype}")
+        if not dtype.is_floating_point:
+            return 1.0
         share = torch.isfinite(arr).float().mean().item()
         if share < 0.5:
             raise AssertionError(f"only {share:.3f} of the output is finite")
@@ -318,6 +421,27 @@ def main() -> int:
         del k3_out, valid, diff
         return pair, (event_ms(library_call), device_ms(library_call)), k3_b
 
+    def affine_plain(data, source_gm, target_gm, order, agg, fill):
+        """The affine engine's downscale of *data* through the plain
+        versions of K4 and K5/K6: the residual gather at the inflated size,
+        then the window reduction (``affine._resample_array``)."""
+        (j_div, i_div), residual = _scale_split(target_gm.ij_transform_to(source_gm))
+        (i_s, _, i_o), (_, j_s, j_o) = residual
+        up = affine_gather_plain(
+            data, j_s, i_s, j_o, i_o, target_gm.height * j_div, target_gm.width * i_div,
+            order, fill,
+        )
+        return coarsen_plain(up, j_div, i_div, agg)
+
+    def warm_calls(ds, target_gm, interp, expect, n, **kwargs):
+        """The median wall time of *n* more main-path calls, and the last
+        output."""
+        times = []
+        for _ in range(n):
+            out, dt = run_main(ds, target_gm, interp, expect, **kwargs)
+            times.append(dt)
+        return out, statistics.median(times)
+
     timings = {}
     bounds = {}
     library = {"srw_vertical": (None, None), "srw_horizontal": (None, None)}
@@ -396,7 +520,83 @@ def main() -> int:
             f"{k:.3f} ms (device {kd:.3f} ms), plain {p:.3f} ms, bound {b:.3f} ms "
             f"({by}); vs plain max abs diff {err[name]}"
         )
-    del fn, x, v, v_args, h_args, src, ds
+    del fn, x, v, v_args, h_args
+    torch.cuda.empty_cache()
+
+    # -- 1b. the headline's source onto a coarser grid: the pre-downscale ----
+    # 5120^2 EPSG:3035 at 120 m: the target's span in the source gives a
+    # scale of 0.247, so reproject_dataset clips the source (a view; here
+    # the span covers all of it), K4 gathers it at the inflated size (5x5
+    # windows), K5 takes the means and the tiled SRW (K1 + K2) reprojects
+    # the coarse image.  A spy on the
+    # engine's affine call keeps its input and output for the plain check.
+    laea120_gm = GridMapping.regular(
+        size=(5120, 5120), xy_min=(4050000.0, 2650000.0), xy_res=120.0, crs="epsg:3035"
+    )
+    down = ("affine_gather", "coarsen_reduce", "srw_vertical", "srw_horizontal")
+    seen = []
+    engine_affine = port_reproject.affine_transform_dataset
+
+    def spy(source_ds, coarse_gm, **kwargs):
+        out = engine_affine(source_ds, coarse_gm, **kwargs)
+        seen[:] = [(source_ds, coarse_gm, kwargs["source_gm"], out)]
+        return out
+
+    port_reproject.affine_transform_dataset = spy
+    try:
+        out, first = run_main(ds, laea120_gm, "bilinear", down, agg_methods="mean")
+        first_counts = {k: LAUNCHES[k] for k in down}
+        out, w = warm_calls(ds, laea120_gm, "bilinear", down, 3, agg_methods="mean")
+    finally:
+        port_reproject.affine_transform_dataset = engine_affine
+    share = check_output(out["v"].data, (5120, 5120))
+    clip_ds, coarse_gm, clip_gm, coarse_ds = seen[0]
+    clipped, coarse = clip_ds["v"].data, coarse_ds["v"].data
+    if clipped.untyped_storage().data_ptr() != src.untyped_storage().data_ptr():
+        raise AssertionError("the clipped source is a copy, not a view of the source")
+    (j_div, i_div), residual = _scale_split(coarse_gm.ij_transform_to(clip_gm))
+    coarse_ref = affine_plain(clipped, clip_gm, coarse_gm, 1, "mean", nan)
+    d_down = compare(coarse, coarse_ref, "stat", "pre-downscale K4 -> K5 vs plain")
+    err["coarsen_reduce"] = max(err["coarsen_reduce"], d_down)
+    coarse_fn = device_reproject_fn(
+        GridMapping.from_dataset(coarse_ds), laea120_gm, "bilinear", nan, dev
+    )
+    if not isinstance(coarse_fn, SRWFn):
+        raise AssertionError(f"the coarse image ran {type(coarse_fn).__name__}, not the tiled SRW")
+    d = compare(out["v"].data, coarse_fn.plain(coarse_ref), "bilinear",
+                "pre-downscaled reproject vs plain K4 -> K5 -> K1 -> K2")
+    mpix = 5120 * 5120 / 1e6
+    inflated = (coarse_gm.height * j_div, coarse_gm.width * i_div)
+    print(
+        f"{tag} resample_in_space 20480^2 UTM32N->EPSG:3035 5120^2 at 120 m, bilinear, "
+        f"mean: clipped source {tuple(clipped.shape)} (strides {clipped.stride()}), "
+        f"{j_div}x{i_div} windows, residual scales {residual[1][1]:.4f}, "
+        f"{residual[0][0]:.4f}, K4 output {inflated[0]}x{inflated[1]}, coarse "
+        f"{coarse_gm.height}x{coarse_gm.width}; first call {first:.3f} s "
+        f"(launches {first_counts}); warm median of 3 {w * 1e3:.2f} ms = "
+        f"{mpix / w:.1f} Mpix/s; finite share {share:.4f}; coarse vs plain "
+        f"{d_down}, output vs plain {d}"
+    )
+    (i_s, _, i_o), (_, j_s, j_o) = residual
+    down_args = (clipped, j_s, i_s, j_o, i_o, *inflated, 1, nan)
+    up = affine_gather(*down_args)
+    err["affine_gather"] = max(err["affine_gather"], compare(
+        up, affine_gather_plain(*down_args), "exact", "K4 at the pre-downscale shape vs plain"
+    ))
+    k4_down = (event_ms(lambda: affine_gather(*down_args), 3),
+               device_ms(lambda: affine_gather(*down_args), 3))
+    k5_down = (event_ms(lambda: coarsen_reduce(up, j_div, i_div, "mean"), 3),
+               device_ms(lambda: coarsen_reduce(up, j_div, i_div, "mean"), 3))
+    b4, by4 = affine_gather_bound(clipped[None], *inflated, 1)
+    b5, by5 = reduce_bound(up[None], j_div, i_div, "mean", 4)
+    print(
+        f"{tag} pre-downscale kernels: affine_gather {k4_down[0]:.3f} ms (device "
+        f"{k4_down[1]:.3f} ms), bound {b4:.3f} ms ({by4}); coarsen_reduce mean "
+        f"{j_div}x{i_div} {k5_down[0]:.3f} ms (device {k5_down[1]:.3f} ms), bound "
+        f"{b5:.3f} ms ({by5})"
+    )
+    del out, seen, clip_ds, coarse_ds, clipped, coarse, coarse_ref, up, down_args
+    del coarse_fn, src, ds
     torch.cuda.empty_cache()
 
     # -- 2. EPSG:4326 0.05 deg -> UTM32N 4096^2 --------------------------------
@@ -544,6 +744,91 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"small case {interp} disagrees with K3")
 
+    # -- 4b. BASELINE #1: affine 2x bilinear downscale, 16 x 1024^2 float32 --
+    # UTM32N 30 m -> UTM32N 60 m over the same corner, aggregated with mean:
+    # the affine route, one K4 launch (the residual gather, here the
+    # identity) and one K5 launch (2x2 means) per call
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b1_gm = GridMapping.regular(
+        size=(1024, 1024), xy_min=(300000.0, 5200000.0), xy_res=30.0, crs="epsg:32632"
+    )
+    b1_tgt = GridMapping.regular(
+        size=(512, 512), xy_min=(300000.0, 5200000.0), xy_res=60.0, crs="epsg:32632"
+    )
+    b1 = torch.rand((16, 1024, 1024), generator=gen, device=dev)
+    ds_b1 = dataset(b1_gm, v=b1)
+    once = {"affine_gather": 1, "coarsen_reduce": 1}
+    out, first = run_main(ds_b1, b1_tgt, "bilinear", tuple(once), once, agg_methods="mean")
+    out, w = warm_calls(ds_b1, b1_tgt, "bilinear", tuple(once), 5, exact=once,
+                        agg_methods="mean")
+    check_output(out["v"].data, (16, 512, 512))
+    b1_gm_ds = GridMapping.from_dataset(ds_b1)
+    d = compare(out["v"].data, affine_plain(b1, b1_gm_ds, b1_tgt, 1, "mean", nan), "stat",
+                "BASELINE #1 vs plain K4 -> K5")
+    err["coarsen_reduce"] = max(err["coarsen_reduce"], d)
+    mpix = 16 * 1024 * 1024 / 1e6
+    print(
+        f"{tag} resample_in_space BASELINE #1 (affine route, 16x1024^2 float32 -> "
+        f"16x512^2, bilinear, mean): first call {first * 1e3:.2f} ms; warm median of 5 "
+        f"{w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s of source; vs plain max abs diff {d}"
+    )
+
+    # -- 4c. BASELINE #2: a 4-band 4096^2 raster coarsened 4x -----------------
+    # a and b float32 with NaN rows and all-NaN windows, c int32 in [0, 16);
+    # mean of a, first of b, mode of c, through ops.coarsen_ops.coarsen and
+    # through an exact 4x affine downscale (c interpolated bilinearly: a
+    # nearest variable never aggregates)
+    b2_gm = GridMapping.regular(
+        size=(4096, 4096), xy_min=(300000.0, 5200000.0), xy_res=30.0, crs="epsg:32632"
+    )
+    b2_tgt = GridMapping.regular(
+        size=(1024, 1024), xy_min=(300000.0, 5200000.0), xy_res=120.0, crs="epsg:32632"
+    )
+    b2a = torch.rand((4, 4096, 4096), generator=gen, device=dev)
+    b2a[0, 1000:1003] = nan
+    b2a[1, 64:72, 128:160] = nan
+    b2b = torch.rand((4, 4096, 4096), generator=gen, device=dev)
+    b2b[2, 2000] = nan
+    b2b[3, 0:4, 0:64] = nan
+    b2c = torch.randint(0, 16, (4, 4096, 4096), generator=gen, device=dev, dtype=torch.int32)
+    b2_cases = (("mean", b2a, "stat"), ("first", b2b, "exact"), ("mode", b2c, "exact"))
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    direct = {agg: coarsen(x, 4, 4, agg) for agg, x, _ in b2_cases}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    main_launches.update(LAUNCHES)
+    if LAUNCHES["coarsen_reduce"] != 2 or LAUNCHES["coarsen_rank"] != 1:
+        raise AssertionError(f"coarsen launched {dict(LAUNCHES)}")
+    for agg, x, kind in b2_cases:
+        name = "coarsen_rank" if agg == "mode" else "coarsen_reduce"
+        err[name] = max(err[name], compare(
+            direct[agg], coarsen_plain(x, 4, 4, agg), kind, f"BASELINE #2 coarsen {agg}"
+        ))
+    print(f"{tag} ops.coarsen_ops.coarsen BASELINE #2 4x mean, first, mode: "
+          f"{dt * 1e3:.2f} ms for the three calls")
+    ds_b2 = dataset(b2_gm, a=b2a, b=b2b, c=b2c)
+    aggs = {"a": "mean", "b": "first", "c": "mode"}
+    counts = {"affine_gather": 3, "coarsen_reduce": 2, "coarsen_rank": 1}
+    out, first = run_main(ds_b2, b2_tgt, {"c": 1}, tuple(counts), counts, agg_methods=aggs)
+    out, w = warm_calls(ds_b2, b2_tgt, {"c": 1}, tuple(counts), 5, exact=counts,
+                        agg_methods=aggs)
+    b2_gm_ds = GridMapping.from_dataset(ds_b2)
+    for name, x, fill in (("a", b2a, nan), ("b", b2b, nan), ("c", b2c, -1)):
+        check_output(out[name].data, (4, 1024, 1024), x.dtype)
+        agg = aggs[name]
+        d = compare(out[name].data, affine_plain(x, b2_gm_ds, b2_tgt, 1, agg, fill),
+                    "stat" if agg == "mean" else "exact", f"BASELINE #2 {name} vs plain")
+        kernel = "coarsen_rank" if agg == "mode" else "coarsen_reduce"
+        err[kernel] = max(err[kernel], d)
+    mpix = 3 * 4 * 4096 * 4096 / 1e6
+    print(
+        f"{tag} resample_in_space BASELINE #2 (affine route, exact 4x, a mean, b first, "
+        f"c mode, 3 x 4x4096^2): first call {first * 1e3:.2f} ms; warm median of 5 "
+        f"{w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s of source"
+    )
+    del out, ds_b2
+
     # -- 5. each kernel against its plain version, every method ---------------
     # NaN rows in the middle of the source window the target taps, and a
     # geometry whose target reaches past the source's top and bottom, so
@@ -622,6 +907,137 @@ def main() -> int:
                   f"NaN rows, {interp}: {d3}")
     torch.cuda.synchronize()
 
+    # -- 6. K4, K5 and K6 against their plain versions; their timings --------
+    rng = np.random.default_rng(2)
+    for dtype in (torch.float32, torch.float64, torch.uint8, torch.int32):
+        if dtype.is_floating_point:
+            x = torch.from_numpy(rng.random((2, 300, 333))).to(dtype).to(dev)
+            x[0, 7, 9] = nan
+            fills = (nan, -9.5)
+        else:
+            x = torch.from_numpy(rng.integers(0, 250, (2, 300, 333))).to(dtype).to(dev)
+            fills = (-1, 300.7)
+        for order in (0, 1):
+            for scales in ((0.7, 1.3, -0.4, 0.2), (-0.81, 0.77, 299.3, -3.0), (2.5, 2.0, 0.25, -0.5)):
+                for fill in fills:
+                    args = (x, *scales, 310, 257, order, fill)
+                    d = compare(affine_gather(*args), affine_gather_plain(*args), "exact",
+                                f"K4 {dtype} order {order} {scales} fill {fill}")
+                    err["affine_gather"] = max(err["affine_gather"], d)
+        print(f"{tag} K4 vs plain, {dtype}, both orders, negative scale, fills {fills}: equal")
+    f32 = torch.rand((2, 480, 480), generator=gen, device=dev)
+    f32[0, 100] = nan
+    f32[1, 0:8, 0:12] = nan  # all-NaN windows of (4, 4) and (4, 3)
+    i32 = torch.randint(-50, 50, (2, 480, 480), generator=gen, device=dev, dtype=torch.int32)
+    for x in (f32, i32):
+        for window in ((4, 4), (4, 3)):
+            for agg in REDUCERS:
+                kind = "stat" if x.dtype.is_floating_point and agg in (
+                    "mean", "sum", "std", "var", "prod") else "exact"
+                d = compare(coarsen_reduce(x, *window, agg), coarsen_plain(x, *window, agg),
+                            kind, f"K5 {x.dtype} {window} {agg}")
+                err["coarsen_reduce"] = max(err["coarsen_reduce"], d)
+    ties = torch.randint(0, 6, (2, 648, 648), generator=gen, device=dev, dtype=torch.int32)
+    ftie = (ties.float() * 0.25).masked_fill(torch.rand(ties.shape, generator=gen, device=dev) < 0.2, nan)
+    ftie[0, :9, :9] = nan
+    for x in (ties, ftie):
+        for window in ((4, 4), (8, 8), (9, 9)):
+            for agg in ("mode", "median"):
+                d = compare(coarsen_rank(x, *window, agg), coarsen_plain(x, *window, agg),
+                            "exact", f"K6 {x.dtype} {window} {agg}")
+                err["coarsen_rank"] = max(err["coarsen_rank"], d)
+    # 32 x 32 = 1024 taps: too large to stage, K6 reads its taps from memory
+    for agg in ("mode", "median"):
+        x = ties[:1, :64, :64].contiguous()
+        d = compare(coarsen_rank(x, 32, 32, agg), coarsen_plain(x, 32, 32, agg), "exact",
+                    f"K6 int32 (32, 32) {agg}")
+        err["coarsen_rank"] = max(err["coarsen_rank"], d)
+    print(f"{tag} K5 vs plain, every reducer, float32 with all-NaN windows and int32: "
+          f"max abs diff {err['coarsen_reduce']}; K6 vs plain, mode and median at 16, 64, "
+          f"81 and (unstaged) 1024 taps, int32 and float32 with ties and NaN: equal")
+
+    # K4 and K5 at BASELINE #1's shapes, K6 at BASELINE #2's
+    b1_args = (b1, 1.0, 1.0, 0.0, 0.0, 1024, 1024, 1, nan)
+    b1_up = affine_gather(*b1_args)
+    timings["affine_gather"] = time_pair(
+        lambda: affine_gather(*b1_args), lambda: affine_gather_plain(*b1_args)
+    )
+    bounds["affine_gather"] = affine_gather_bound(b1, 1024, 1024, 1)
+    lin = torch.arange(1024, dtype=torch.float32, device=dev) / 1023 * 2 - 1
+    grid = torch.stack(torch.meshgrid(lin, lin, indexing="xy"), dim=-1)[None]
+
+    def k4_library():
+        return F.grid_sample(b1[None], grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    diff = (k4_library()[0] - b1_up).abs().max().item()
+    library["affine_gather"] = (event_ms(k4_library), device_ms(k4_library))
+    timings["coarsen_reduce"] = time_pair(
+        lambda: coarsen_reduce(b1_up, 2, 2, "mean"), lambda: coarsen_plain(b1_up, 2, 2, "mean")
+    )
+    bounds["coarsen_reduce"] = reduce_bound(b1_up, 2, 2, "mean", 4)
+    b1_windows = window_reshape(b1_up, 2, 2)
+    library["coarsen_reduce"] = (
+        event_ms(lambda: torch.nanmean(b1_windows, dim=(-3, -1))),
+        device_ms(lambda: torch.nanmean(b1_windows, dim=(-3, -1))),
+    )
+    print(
+        f"{tag} BASELINE #1 shapes (16x1024^2 float32): affine_gather bilinear "
+        f"{timings['affine_gather'][0]:.4f} ms (device {timings['affine_gather'][2]:.4f}), "
+        f"plain {timings['affine_gather'][1]:.3f}, bound {bounds['affine_gather'][0]:.4f} "
+        f"({bounds['affine_gather'][1]}), F.grid_sample {library['affine_gather'][0]:.4f} "
+        f"(device {library['affine_gather'][1]:.4f}; max abs diff to K4 {diff:.3g}); "
+        f"coarsen_reduce mean 2x2 {timings['coarsen_reduce'][0]:.4f} ms (device "
+        f"{timings['coarsen_reduce'][2]:.4f}), plain {timings['coarsen_reduce'][1]:.3f}, "
+        f"bound {bounds['coarsen_reduce'][0]:.4f} ({bounds['coarsen_reduce'][1]}), "
+        f"torch.nanmean {library['coarsen_reduce'][0]:.4f} (device "
+        f"{library['coarsen_reduce'][1]:.4f})"
+    )
+    del b1_up, b1_windows, grid
+    for agg, x in (("mean", b2a), ("first", b2b)):
+        k, p, kd = time_pair(lambda: coarsen_reduce(x, 4, 4, agg),
+                             lambda: coarsen_plain(x, 4, 4, agg))
+        b, by = reduce_bound(x, 4, 4, agg, 4)
+        if agg == "mean":
+            win = window_reshape(x, 4, 4)
+            lib_call = lambda: torch.nanmean(win, dim=(-3, -1))  # noqa: E731
+            lib_name = "torch.nanmean"
+        else:
+            lib_call = lambda: x[..., ::4, ::4].contiguous()  # noqa: E731
+            lib_name = "x[..., ::4, ::4].contiguous()"
+        print(
+            f"{tag} coarsen_reduce {agg} 4x4 at BASELINE #2 (4x4096^2 float32): {k:.4f} ms "
+            f"(device {kd:.4f}), plain {p:.3f}, bound {b:.4f} ({by}), {lib_name} "
+            f"{event_ms(lib_call):.4f} (device {device_ms(lib_call):.4f})"
+        )
+    c_args = (b2c, 4, 4, "mode")
+    timings["coarsen_rank"] = time_pair(lambda: coarsen_rank(*c_args), lambda: coarsen_plain(*c_args))
+    bounds["coarsen_rank"] = rank_bound(b2c, 4, 4)
+    flat = window_reshape(b2c, 4, 4).movedim(-3, -2).reshape(-1, 16).contiguous()
+    lib_mode = torch.mode(flat, dim=-1).values.reshape(4, 1024, 1024)
+    tie_share = (lib_mode != direct["mode"]).float().mean().item()
+    library["coarsen_rank"] = (event_ms(lambda: torch.mode(flat, dim=-1)),
+                               device_ms(lambda: torch.mode(flat, dim=-1)))
+    print(
+        f"{tag} coarsen_rank mode 4x4 at BASELINE #2 (4x4096^2 int32): "
+        f"{timings['coarsen_rank'][0]:.4f} ms (device {timings['coarsen_rank'][2]:.4f}), "
+        f"plain {timings['coarsen_rank'][1]:.3f}, bound {bounds['coarsen_rank'][0]:.4f} "
+        f"({bounds['coarsen_rank'][1]}), torch.mode over the flattened windows "
+        f"{library['coarsen_rank'][0]:.4f} (device {library['coarsen_rank'][1]:.4f}; it "
+        f"breaks ties its own way: differs from K6 on {tie_share:.4f} of the outputs)"
+    )
+    del flat, lib_mode
+    for agg, x, window in (("median", b2a, (4, 4)), ("mode", b2c, (8, 8)),
+                           ("median", b2a, (8, 8))):
+        b, by = rank_bound(x, *window)
+        print(
+            f"{tag} coarsen_rank {agg} {window[0]}x{window[1]} at BASELINE #2's source: "
+            f"{event_ms(lambda: coarsen_rank(x, *window, agg)):.4f} ms (device "
+            f"{device_ms(lambda: coarsen_rank(x, *window, agg)):.4f}), bound {b:.4f} ({by})"
+        )
+    del b1, b2a, b2b, b2c, direct
+    torch.cuda.synchronize()
+
     missing = [name for name in err if main_launches[name] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -638,6 +1054,18 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/fused_reproject.cu",
             "xcube_resampling_tpu/ops/reproject_ops.py:170",
         ),
+        "affine_gather": (
+            "xcube_resampling_tpu_torch/csrc/affine_gather.cu",
+            "xcube_resampling_tpu/ops/gather.py:29",
+        ),
+        "coarsen_reduce": (
+            "xcube_resampling_tpu_torch/csrc/coarsen_reduce.cu",
+            "xcube_resampling_tpu/ops/coarsen_ops.py:36",
+        ),
+        "coarsen_rank": (
+            "xcube_resampling_tpu_torch/csrc/coarsen_rank.cu",
+            "xcube_resampling_tpu/ops/coarsen_ops.py:95",
+        ),
     }
     kernels = [
         {
@@ -652,7 +1080,9 @@ def main() -> int:
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
             # K1, K2: no single PyTorch call computes a tap pass; K3: the
-            # F.grid_sample yardstick at the 4326 -> UTM shape
+            # F.grid_sample yardstick at the 4326 -> UTM shape; K4
+            # F.grid_sample, K5 torch.nanmean (BASELINE #1), K6 torch.mode
+            # (BASELINE #2)
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],
@@ -660,6 +1090,7 @@ def main() -> int:
         }
         for name in err
     ]
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

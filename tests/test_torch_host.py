@@ -275,3 +275,94 @@ def test_ij_bboxes_numpy_scan_matches():
         ref = jx_compute_ij_bboxes(x, y, boxes, border, ij_border, np.full((3, 4), -1))
         got = pt_compute_ij_bboxes(x, y, boxes, border, ij_border, np.full((3, 4), -1))
         np.testing.assert_array_equal(got, ref)
+
+
+def test_spatial_dims_and_bbox_clip_match():
+    """``get_spatial_dims`` and ``clip_dataset_by_bbox`` on each package's
+    own dataset: the same dims, sizes and coordinates, for y stored
+    descending (j down) and ascending (j up)."""
+    src, _ = GEOMETRIES["utm_laea"]
+    data = np.random.default_rng(3).random((96, 96), dtype=np.float32)
+    bbox = (570000.0, 5935000.0, 572550.0, 5938000.0)
+    for j_axis_up in (False, True):
+        clipped = []
+        for pkg, utils in ((jx, jx_utils), (pt, pt_utils)):
+            ds = _dataset(pkg, pkg.GridMapping.regular(**src, is_j_axis_up=j_axis_up), data)
+            assert utils.get_spatial_dims(ds) == ("x", "y")
+            clipped.append(utils.clip_dataset_by_bbox(ds, bbox))
+        ref, got = clipped
+        assert got.sizes == ref.sizes and got.sizes["x"] > 0 and got.sizes["y"] > 0
+        for name in ("x", "y", "v"):
+            np.testing.assert_array_equal(np.asarray(got[name].data), np.asarray(ref[name].data))
+    with pytest.raises(KeyError, match="No standard spatial dimensions"):
+        pt_utils.get_spatial_dims(pt.Dataset({"v": pt.DataArray(data, dims=("a", "b"))}))
+
+
+def test_clip_keeps_tensors_as_views():
+    src, _ = GEOMETRIES["utm_laea"]
+    tensor = torch.rand(96, 96)
+    ds = _dataset(pt, pt.GridMapping.regular(**src), tensor)
+    out = pt_utils.clip_dataset_by_bbox(ds, (570000.0, 5935000.0, 572550.0, 5938000.0))
+    assert out["v"].data.shape[0] < 96 and out["v"].data.shape[1] < 96
+    assert out["v"].data.untyped_storage().data_ptr() == tensor.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("torch_dtype, np_dtype", DTYPES)
+@pytest.mark.parametrize(
+    "options",
+    [
+        None,
+        0,
+        "bilinear",
+        "triangular",
+        {"v": "nearest"},
+        {"w": 1},
+        {"v": "triangular", "w": 0},
+    ],
+)
+def test_interp_resolvers_match(torch_dtype, np_dtype, options):
+    """``_get_interp_method``, ``_get_interp_method_int`` and
+    ``_prep_interp_methods_downscale`` as the JAX package's, per dtype."""
+    pt_var = pt.DataArray(torch.zeros((2, 2), dtype=torch_dtype), dims=("y", "x"))
+    jx_var = jx.DataArray(np.zeros((2, 2), dtype=np_dtype), dims=("y", "x"))
+    assert pt_utils._prep_interp_methods_downscale(options) == (
+        jx_utils._prep_interp_methods_downscale(options)
+    )
+    prepped = pt_utils._prep_interp_methods_downscale(options)
+    assert pt_utils._get_interp_method(prepped, "v", pt_var) == (
+        jx_utils._get_interp_method(prepped, "v", jx_var)
+    )
+    if options not in ("triangular",) and not (
+        isinstance(options, dict) and "triangular" in options.values()
+    ):
+        assert pt_utils._get_interp_method_int(options, "v", pt_var) == (
+            jx_utils._get_interp_method_int(options, "v", jx_var)
+        )
+
+
+@pytest.mark.parametrize("torch_dtype, np_dtype", DTYPES)
+@pytest.mark.parametrize(
+    "agg, recover", [(None, None), ("mode", True), ({"v": "max"}, {"v": True}), ({"w": "sum"}, {})]
+)
+def test_agg_and_recover_resolvers_match(torch_dtype, np_dtype, agg, recover):
+    """``_get_agg_method`` returns the name of the reducer the JAX
+    package's returns; ``_get_recover_nan`` as the JAX package's."""
+    from xcube_resampling_tpu.constants import AGG_METHODS as JX_AGG_METHODS
+
+    pt_var = pt.DataArray(torch.zeros((2, 2), dtype=torch_dtype), dims=("y", "x"))
+    jx_var = jx.DataArray(np.zeros((2, 2), dtype=np_dtype), dims=("y", "x"))
+    name = pt_utils._get_agg_method(agg, "v", pt_var)
+    assert JX_AGG_METHODS[name] is jx_utils._get_agg_method(agg, "v", jx_var)
+    assert pt_utils._get_recover_nan(recover, "v", pt_var) == (
+        jx_utils._get_recover_nan(recover, "v", jx_var)
+    )
+    with pytest.raises(KeyError):
+        pt_utils._get_agg_method("mean_of_means", "v", pt_var)
+
+
+def test_scale_split_matches():
+    from xcube_resampling_tpu.affine import _scale_split as jx_split
+    from xcube_resampling_tpu_torch.affine import _scale_split as pt_split
+
+    for matrix in (((2.0, 0.0, 0.5), (0.0, 2.0, 0.5)), ((-4.05, 0.0, 9.0), (0.0, 3.2, -1.0))):
+        assert pt_split(matrix) == jx_split(matrix)

@@ -30,7 +30,7 @@ from xcube_resampling_tpu.ops.srw import (  # noqa: E402
 )
 from xcube_resampling_tpu_torch import _build  # noqa: E402
 from xcube_resampling_tpu_torch._device import LAUNCHES, on_cpu  # noqa: E402
-from xcube_resampling_tpu_torch.ops import reproject_ops  # noqa: E402
+from xcube_resampling_tpu_torch.ops import coarsen_ops, gather, reproject_ops  # noqa: E402
 from xcube_resampling_tpu_torch.ops.reproject_ops import (  # noqa: E402
     fused_reproject,
     make_fused_reproject_fn,
@@ -300,12 +300,64 @@ def test_fused_reproject_plain_matches_jax(interp):
 
 
 def test_cpu_tensors_take_the_plain_versions_without_launches():
+    """K1-K3 through their tier functions, K4 (both orders, float64 out),
+    K5 and K6 (every reducer) on CPU tensors: no launch."""
     data = torch.from_numpy(_stack((96, 96)))
     before = dict(LAUNCHES)
     _, plan = _plans()
     make_srw_fn(plan, "triangular", np.nan, device="cpu")(data)
     make_fused_reproject_fn(*_gms(pt), "bilinear", np.nan, device="cpu")(data)
+    for order in (0, 1):
+        gather.affine_gather(data, 0.7, 1.3, -0.4, 0.2, 50, 40, order, np.nan)
+    gather.affine_gather(data, 2.0, 2.0, 0.0, 0.0, 48, 48, 1, np.nan, torch.float64)
+    for agg in list(coarsen_ops.REDUCERS) + list(coarsen_ops.RANKS):
+        coarsen_ops.coarsen(data, 4, 3, agg)
     assert dict(LAUNCHES) == before
+
+
+def test_affine_and_coarsen_wrappers_check_before_launch(monkeypatch):
+    """K4-K6's CUDA branches refuse what their kernels do not take before
+    any build or launch (steered there with CPU tensors)."""
+    for module in (gather, coarsen_ops):
+        monkeypatch.setattr(module, "on_cpu", lambda *tensors: False)
+
+    def no_launch():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(_build, "load", no_launch)
+    data = torch.zeros((2, 12, 16))
+    before = dict(LAUNCHES)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        gather.affine_gather(data.long(), 1.0, 1.0, 0.0, 0.0, 4, 4, 1, 0)
+    with pytest.raises(ValueError, match="order must be"):
+        gather.affine_gather(data, 1.0, 1.0, 0.0, 0.0, 4, 4, 3, 0)
+    with pytest.raises(ValueError, match="keeps the source dtype"):
+        gather.affine_gather(data, 1.0, 1.0, 0.0, 0.0, 4, 4, 0, 0, torch.float64)
+    with pytest.raises(ValueError, match="empty source"):
+        gather.affine_gather(data[:, :0], 1.0, 1.0, 0.0, 0.0, 4, 4, 1, 0)
+    with pytest.raises(ValueError, match="exact multiples"):
+        coarsen_ops.coarsen_reduce(data, 5, 4, "mean")
+    with pytest.raises(ValueError, match="exact multiples"):
+        coarsen_ops.coarsen_rank(data, 3, 5, "mode")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        coarsen_ops.coarsen_rank(data.bool(), 2, 2, "mode")
+    with pytest.raises(ValueError, match="K5 reduces"):
+        coarsen_ops.coarsen_reduce(data, 2, 2, "mode")
+    with pytest.raises(ValueError, match="K6 computes"):
+        coarsen_ops.coarsen_rank(data, 2, 2, "mean")
+    assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize(
+    "taps, itemsize, threads",
+    [(16, 4, 128), (81, 8, 128), (192, 8, 64), (256, 4, 64), (512, 4, 32), (1024, 4, 0)],
+)
+def test_rank_staging_fits_the_budget(taps, itemsize, threads):
+    """K6 stages a block's windows in shared memory within RANK_SMEM; a
+    window too large even for 32 threads reads from device memory (0)."""
+    assert coarsen_ops.rank_block_threads(taps, itemsize) == threads
+    if threads:
+        assert taps * threads * itemsize <= coarsen_ops.RANK_SMEM
 
 
 @pytest.mark.parametrize("interp", METHODS)

@@ -265,18 +265,26 @@ def test_entry_points_default_to_the_card():
     no CPU fallback: without a card a numpy variable raises."""
     for fn in (
         port.resample_in_space, port_reproject.reproject_dataset,
+        port.affine_transform_dataset, port.resample_dataset,
         port_srw.make_srw_fn, port_srw.make_srw_reproject_fn,
         port_reproject_ops.make_fused_reproject_fn,
     ):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     source_gm, target_gm = _geometry("utm_laea")
     ds = _dataset(source_gm, a=_inputs(source_gm)[0])
-    if torch.cuda.is_available():
-        got = port.resample_in_space(ds, target_gm=target_gm)
-        assert got["a"].data.device.type == "cuda"
-    else:
+    affine_gm = port.GridMapping.regular(
+        size=(40, 40), xy_min=(565000.0, 5930000.0), xy_res=200.0, crs="epsg:32632"
+    )
+    for target in (target_gm, affine_gm):
+        if torch.cuda.is_available():
+            got = port.resample_in_space(ds, target_gm=target)
+            assert got["a"].data.device.type == "cuda"
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                port.resample_in_space(ds, target_gm=target)
+    if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
-            port.resample_in_space(ds, target_gm=target_gm)
+            port.affine_transform_dataset(ds, affine_gm)
 
 
 def test_grid_variables_on_several_devices_raise():
@@ -326,12 +334,14 @@ def _to_port(ds):
     )
 
 
-def _not_ported(monkeypatch, case):
-    source_gm, target_gm = _geometry("utm_laea")
-    data = torch.from_numpy(_inputs(source_gm)[0])
+def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy):
+    """``resample_in_space`` on the utm_laea source with *case*'s target or
+    option, run with *pkg*'s classes on the data made by *tensor*."""
+    source_gm, target_gm = _geometry("utm_laea", pkg)
+    data = tensor(_inputs(source_gm)[0])
     kwargs = {}
     if case == "affine":
-        target_gm = port.GridMapping.regular(
+        target_gm = pkg.GridMapping.regular(
             size=(40, 40), xy_min=(565000.0, 5930000.0), xy_res=200.0,
             crs="epsg:32632",
         )
@@ -341,7 +351,7 @@ def _not_ported(monkeypatch, case):
         swath = create_olci_like_swath(width=16, height=16, tile_size=16)
         return port.resample_in_space(_to_port(swath), target_gm=target_gm)
     elif case == "downscale":
-        target_gm = port.GridMapping.regular(
+        target_gm = pkg.GridMapping.regular(
             size=(20, 20), xy_min=(4320500, 3379500), xy_res=400,
             crs="epsg:3035",
         )
@@ -353,16 +363,14 @@ def _not_ported(monkeypatch, case):
         kwargs["interp_methods"] = "cubic"
     elif case == "int_numpy":
         data = np.zeros((96, 96), dtype=np.uint8)
-    ds = _dataset(source_gm, a=data)
-    return port.resample_in_space(ds, target_gm=target_gm, **kwargs)
+    ds = _dataset(source_gm, pkg, a=data)
+    return pkg.resample_in_space(ds, target_gm=target_gm, **kwargs)
 
 
 @pytest.mark.parametrize(
     "case, match",
     [
-        ("affine", "affine route"),
         ("rectify", "rectify route"),
-        ("downscale", "pre-downscale"),
         ("extreme_warp", "XRTPU_FAST_EXTREME_WARP"),
         ("float64", "float32 tensors only"),
         ("cubic", "interp_methods must be one of"),
@@ -371,13 +379,30 @@ def _not_ported(monkeypatch, case):
 )
 def test_routes_outside_the_slice_raise(monkeypatch, case, match):
     with pytest.raises(NotImplementedError, match=match):
-        _not_ported(monkeypatch, case)
+        _route_case(monkeypatch, case)
+
+
+@pytest.mark.parametrize("case", ["affine", "downscale"])
+def test_affine_and_downscale_routes_match_jax(monkeypatch, case):
+    """The affine route (a 2x downscale within UTM32N: K4, then K5's mean)
+    and a reproject to a 4x coarser EPSG:3035 grid (the pre-downscale,
+    then the tiled SRW), each against JAX on jnp arrays: float32 means
+    within rtol 1e-6, NaN masks equal."""
+    ref = _route_case(monkeypatch, case, xrt, jnp.asarray)
+    got = _route_case(monkeypatch, case)
+    data = got["a"].data
+    assert isinstance(data, torch.Tensor) and data.dtype == torch.float32
+    assert data.shape == ((40, 40) if case == "affine" else (20, 20))
+    ref = np.asarray(ref["a"].data)
+    np.testing.assert_array_equal(np.isnan(data.numpy()), np.isnan(ref))
+    np.testing.assert_allclose(data.numpy(), ref, rtol=1e-6, equal_nan=True)
+    assert np.isfinite(ref).mean() > 0.5
 
 
 def test_port_never_imports_jax():
     """In a fresh process, importing the port and driving resample_in_space
-    on CPU tensors (tiled SRW and K3) loads no module of JAX or of the JAX
-    package."""
+    on CPU tensors (tiled SRW, K3, the affine route and the reproject
+    pre-downscale) loads no module of JAX or of the JAX package."""
     code = (
         "import os, sys\n"
         "import numpy as np, torch\n"
@@ -396,6 +421,14 @@ def test_port_never_imports_jax():
         "    os.environ['XRTPU_EXACT'] = exact\n"
         "    out = port.resample_in_space(ds, target_gm=t, device='cpu')\n"
         "    assert out['v'].data.shape == (80, 80)\n"
+        "a = port.GridMapping.regular(size=(40, 40), xy_min=(565000.0, 5930000.0),"
+        " xy_res=200.0, crs='epsg:32632')\n"
+        "d = port.GridMapping.regular(size=(20, 20), xy_min=(4320500, 3379500),"
+        " xy_res=400, crs='epsg:3035')\n"
+        "for tgt, shape in ((a, (40, 40)), (d, (20, 20))):\n"
+        "    out = port.resample_in_space(ds, target_gm=tgt, agg_methods='mode',"
+        " device='cpu')\n"
+        "    assert out['v'].data.shape == shape\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'xcube_resampling_tpu')]\n"
         "assert not bad, bad\n"

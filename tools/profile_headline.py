@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the port's headline reprojection, and BASELINE #3, on one GPU.
+"""Profile the port's headline reprojection and the BASELINE cells on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit: ``python3 tools/profile_headline.py``.  It prints
@@ -10,9 +10,14 @@ the CUDA toolkit: ``python3 tools/profile_headline.py``.  It prints
    and ``plan_to_device`` with the kernels' window tables), each timed
    alone with ``time.perf_counter``;
 
-then for that reproject and for BASELINE #3 (the global 0.05 deg
-EPSG:4326 7200x3600 -> EPSG:3035 4096^2 at 1500 m, a singular warp that
-runs K3), bilinear and nearest:
+then for that reproject, for the same source onto a 5120^2 EPSG:3035
+grid at 120 m (the pre-downscale: K4 and K5, then K1 and K2), for
+BASELINE #3 (the global 0.05 deg EPSG:4326 7200x3600 -> EPSG:3035 4096^2
+at 1500 m, a singular warp that runs K3; bilinear and nearest), and for
+the affine route's BASELINE #1 (a 16-band 1024^2 float32 2x bilinear
+downscale with mean: K4, K5) and BASELINE #2 (a 4-band 4096^2 raster
+coarsened 4x through an exact affine downscale, mean, first and mode:
+K4, K5, K6), as ``chip_smoke.py`` drives them:
 
 2. the first call's time and the wall time of 10 warm
    ``resample_in_space`` calls (median, min, max) and their host time
@@ -97,12 +102,20 @@ def main() -> int:
     print(card)
     _build.load()
 
-    def dataset(gm, data):
+    def dataset(gm, data=None, band=False, **variables):
+        """A dataset on *gm* holding *data* as ``v``, or *variables*;
+        (band, y, x) variables where *band*."""
         coords = dict(gm.to_coords(exclude_bounds=True))
         coords["spatial_ref"] = DataArray(np.array(0), dims=(), attrs=gm.crs.to_cf())
         x_dim, y_dim = gm.xy_dim_names
+        dims = ("band", y_dim, x_dim) if band else (y_dim, x_dim)
+        if data is not None:
+            variables = {"v": data}
         return Dataset(
-            {"v": DataArray(data, dims=(y_dim, x_dim), attrs=dict(grid_mapping="spatial_ref"))},
+            {
+                name: DataArray(x, dims=dims, attrs=dict(grid_mapping="spatial_ref"))
+                for name, x in variables.items()
+            },
             coords=coords,
         )
 
@@ -144,10 +157,11 @@ def main() -> int:
         f"gates {gates[0]:.4f} px, slope {gates[1]:.4f}"
     )
 
-    def profile_call(what, ds, target_gm, interp):
-        """Sections 2-4 for one reproject; returns their numbers."""
+    def profile_call(what, ds, target_gm, interp, **kwargs):
+        """Sections 2-4 for one ``resample_in_space`` call; returns their
+        numbers."""
         def call():
-            return resample_in_space(ds, target_gm=target_gm, interp_methods=interp)
+            return resample_in_space(ds, target_gm=target_gm, interp_methods=interp, **kwargs)
 
         t = time.perf_counter()
         call()
@@ -218,6 +232,13 @@ def main() -> int:
 
     results = {"headline": profile_call("20480^2 UTM32N->EPSG:3035 bilinear", ds, laea_gm,
                                         "bilinear")}
+    laea120_gm = GridMapping.regular(
+        size=(5120, 5120), xy_min=(4050000.0, 2650000.0), xy_res=120.0, crs="epsg:3035"
+    )
+    results["predownscale"] = profile_call(
+        "20480^2 UTM32N->EPSG:3035 5120^2 at 120 m (pre-downscale) bilinear mean",
+        ds, laea120_gm, "bilinear", agg_methods="mean",
+    )
     del ds, src
     torch.cuda.empty_cache()
     geo_gm = GridMapping.regular(
@@ -234,6 +255,32 @@ def main() -> int:
         results[f"baseline3/{interp}"] = profile_call(
             f"BASELINE #3 4326->EPSG:3035 4096^2 {interp}", ds3, laea4k_gm, interp
         )
+    del ds3, geo
+
+    def utm(size, res):
+        return GridMapping.regular(
+            size=(size, size), xy_min=(300000.0, 5200000.0), xy_res=res, crs="epsg:32632"
+        )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b1 = torch.rand((16, 1024, 1024), generator=gen, device=dev)
+    results["baseline1"] = profile_call(
+        "BASELINE #1 affine 16x1024^2 -> 16x512^2 bilinear mean",
+        dataset(utm(1024, 30.0), b1, band=True), utm(512, 60.0), "bilinear",
+        agg_methods="mean",
+    )
+    del b1
+    b2 = {
+        "a": torch.rand((4, 4096, 4096), generator=gen, device=dev),
+        "b": torch.rand((4, 4096, 4096), generator=gen, device=dev),
+        "c": torch.randint(0, 16, (4, 4096, 4096), generator=gen, device=dev,
+                           dtype=torch.int32),
+    }
+    results["baseline2"] = profile_call(
+        "BASELINE #2 affine exact 4x of 3 x 4x4096^2: a mean, b first, c mode",
+        dataset(utm(4096, 30.0), band=True, **b2), utm(1024, 120.0), {"c": 1},
+        agg_methods={"a": "mean", "b": "first", "c": "mode"},
+    )
 
     print(
         json.dumps(

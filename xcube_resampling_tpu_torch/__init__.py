@@ -8,9 +8,18 @@ of the JAX package's, under the same module names; this package imports
 neither JAX nor the JAX package.
 """
 
+from .affine import affine_transform_dataset, resample_dataset
 from .crs import CRS
 from .gridmapping import GridMapping
 from .spatial import resample_in_space
 from .xrlite import DataArray, Dataset
 
-__all__ = ["CRS", "DataArray", "Dataset", "GridMapping", "resample_in_space"]
+__all__ = [
+    "CRS",
+    "DataArray",
+    "Dataset",
+    "GridMapping",
+    "affine_transform_dataset",
+    "resample_dataset",
+    "resample_in_space",
+]

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into one shared
-library with a plain C interface, at first use, into
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``), one ``nvcc``
+process per source, all started together, and the objects are linked into
+one shared library with a plain C interface, at first use, into
 ``build/xcube_resampling_tpu_torch/`` beside the package.  The library's
 name carries a hash of the sources and flags, so an edited source builds a
 new library.  Nothing here includes PyTorch's headers: a build takes
@@ -32,7 +33,7 @@ BUILD_DIR = _PKG.parent / "build" / "xcube_resampling_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -40,6 +41,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signature of every kernel entry point (all return cudaGetLastError())
 _SIGNATURES = {
     # src, iystar_c, base_v, win, v, vd, batch, src_h, src_w, out_h, ncj,
@@ -60,6 +62,20 @@ _SIGNATURES = {
     # step, method, fill, stream
     "xrt_fused_reproject_f32": [
         _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _P,
+    ],
+    # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w,
+    # j_scale, i_scale, j_off, i_off, order, fill, in_code, out_code, stream
+    "xrt_affine_gather": [
+        _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _D, _D, _D, _D, _I,
+        _D, _I, _I, _P,
+    ],
+    # src, out, batch, h, w, j_div, i_div, agg, pa, pb, code, stream
+    "xrt_coarsen_reduce": [
+        _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I64, _I, _P,
+    ],
+    # src, out, batch, h, w, j_div, i_div, median, code, threads, stream
+    "xrt_coarsen_rank": [
+        _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
 }
 
@@ -105,23 +121,57 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libxrt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
+    """Wait for every process; their output, or ``RuntimeError`` naming
+    the ones that failed (the others are waited for first)."""
+    log, failed = [], []
+    for name, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        log.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode})")
+    text = "".join(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{text}")
+    return text
+
+
 def build() -> Build:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source in parallel, then one link."""
     path = _library_path()
     if path.is_file():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
+    try:
+        compiles = [
+            (src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+            for src, obj in zip(_sources(), objects)
+        ]
+        log = _run(compiles)
+        link = subprocess.Popen(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log += _run([("link", link)])
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, path)
-    return Build(path, seconds, log)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return Build(path, time.perf_counter() - t0, log)
 
 
 def load() -> ctypes.CDLL:

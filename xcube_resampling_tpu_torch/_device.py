@@ -8,6 +8,12 @@
 * :data:`LAUNCHES` counts kernel launches by kernel name.  A wrapper adds
   one right after its kernel launched, and nowhere else, so a run can show
   that its path went through the kernels.
+* :data:`DTYPE_CODES` are the kernels' codes of the tensor dtypes
+  (``csrc/kernel_types.h``); :data:`DATA_DTYPES` are the data dtypes that
+  the affine gather and the coarsen reducers take, and
+  :func:`require_data_dtype` refuses the others.
+* :func:`round_to` rounds float64 values once to a data dtype, as the
+  kernels store them.
 """
 
 from __future__ import annotations
@@ -17,6 +23,36 @@ from collections import Counter
 import torch
 
 LAUNCHES: Counter = Counter()
+
+DTYPE_CODES = {
+    torch.float32: 0, torch.float64: 1, torch.int8: 2, torch.int16: 3,
+    torch.int32: 4, torch.uint8: 5, torch.uint16: 6,
+}
+DATA_DTYPES = (
+    torch.float32, torch.float64, torch.int8, torch.int16, torch.int32,
+    torch.uint8, torch.uint16,
+)
+
+
+def require_data_dtype(dtype: torch.dtype, what: str) -> None:
+    """Raise ``NotImplementedError`` unless *dtype* is one of
+    :data:`DATA_DTYPES`."""
+    if dtype not in DATA_DTYPES:
+        names = ", ".join(str(d).removeprefix("torch.") for d in DATA_DTYPES)
+        raise NotImplementedError(
+            f"{what} is {dtype}: the port's affine gather and coarsen reducers "
+            f"take {names} so far (ROADMAP queue 1 item 12)"
+        )
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Float64 *x* rounded once to *dtype*: a cast for floats; for integer
+    dtypes ``rint`` (half to even), then NaN to 0 and the dtype's range
+    clamped, as XLA's and CUDA's float-to-integer conversions saturate."""
+    if dtype.is_floating_point:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.nan_to_num(torch.round(x), nan=0.0).clamp(info.min, info.max).to(dtype)
 
 
 def count_launch(name: str) -> None:

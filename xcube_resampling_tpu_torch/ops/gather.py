@@ -1,0 +1,175 @@
+"""K4: the separable affine gather.
+
+``affine_gather`` (``csrc/affine_gather.cu``) replaces the XLA device path
+of ``xcube_resampling_tpu/ops/gather.py:affine_gather`` and its separable
+branches of ``grid_gather_separable`` (:29-143): every output pixel
+``(j, i)`` samples the source at ``y = j * j_scale + j_off``,
+``x = i * i_scale + i_off``, nearest or bilinear, with scipy's constant
+mode validity.  The wrapper runs the plain PyTorch version
+(:func:`affine_gather_plain`) for CPU tensors and launches the kernel for
+CUDA tensors, or raises; it never falls back.
+
+Semantics, as the JAX package computes them under x64 (``tests/conftest.py``):
+
+* positions in float64 (``j`` times the scale, plus the offset, two
+  roundings);
+* nearest: ``floor(y + 0.5)`` clipped to the source, valid on
+  ``[-0.5, n - 0.5]`` inclusive; the values keep their dtype;
+* bilinear: ``floor`` and fraction, two taps per axis clipped to the
+  source and always summed (a NaN neighbour reaches the output, zero
+  weight or not), valid on ``[0, n - 1]`` inclusive; rows first,
+  ``r0 * (1 - fy) + r1 * fy``, then columns, every operation rounded in
+  float64 (JAX's eager ``jnp`` operations are not fused);
+* outside: the fill, cast to the source dtype (nearest) or to its float
+  dtype (bilinear: float32 for float32, float64 otherwise) before the
+  select (``_where_fill``);
+* the bilinear result is rounded once to the output dtype (``rint`` and
+  saturation for integers), as ``affine._gather_resample`` rounds JAX's
+  float64 result; ``out_dtype=torch.float64`` keeps it in float64, which
+  the two-pass NaN recovery divides.
+
+``uint16`` is widened to int32 in the plain version (torch has few
+``uint16`` operations) and narrowed back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from .._device import (
+    DTYPE_CODES,
+    count_launch,
+    on_cpu,
+    require_data_dtype,
+    round_to,
+)
+
+_F64 = torch.float64
+
+
+def float_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a bilinear gather computes its fill in: floats keep
+    theirs, integers take float64 (``gather._float_dtype``)."""
+    return dtype if dtype.is_floating_point else _F64
+
+
+def fill_as(fill_value, dtype: torch.dtype) -> float:
+    """*fill_value* cast to *dtype*, as ``np.asarray(fill).astype(dtype)``
+    does on the JAX device path: integer fills wrap, float fills of an
+    integer dtype truncate and saturate (NaN to 0)."""
+    if dtype.is_floating_point:
+        return float(np.asarray(fill_value, dtype=np.float64).astype(
+            np.float32 if dtype == torch.float32 else np.float64
+        ))
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    if isinstance(fill_value, (int, np.integer)):
+        return float(np.asarray(int(fill_value), dtype=np.int64).astype(np_dtype))
+    f = float(fill_value)
+    if np.isnan(f):
+        return 0.0
+    info = torch.iinfo(dtype)
+    return float(min(max(np.trunc(f), info.min), info.max))
+
+
+def _check(array, order, out_dtype):
+    require_data_dtype(array.dtype, "the source")
+    if order not in (0, 1):
+        raise ValueError(f"order must be 0 (nearest) or 1 (bilinear), got {order!r}")
+    if out_dtype not in (None, array.dtype) and (order == 0 or out_dtype != _F64):
+        raise ValueError(
+            f"out_dtype {out_dtype}: a nearest gather keeps the source dtype, "
+            "a bilinear one takes it or float64"
+        )
+    if array.shape[-2] < 1 or array.shape[-1] < 1:
+        raise ValueError(f"empty source of shape {tuple(array.shape)}")
+
+
+def _positions(n: int, scale: float, off: float, device) -> torch.Tensor:
+    return torch.arange(n, dtype=_F64, device=device) * scale + off
+
+
+def affine_gather_plain(
+    array, j_scale, i_scale, j_off, i_off, out_h, out_w, order, fill_value,
+    out_dtype=None,
+):
+    """Plain PyTorch version of K4: (..., out_h, out_w) from (..., H, W)."""
+    _check(array, order, out_dtype)
+    dtype = array.dtype
+    src_h, src_w = array.shape[-2], array.shape[-1]
+    a = array.to(torch.int32) if dtype == torch.uint16 else array
+    yy = _positions(out_h, j_scale, j_off, array.device)
+    xx = _positions(out_w, i_scale, i_off, array.device)
+
+    if order == 0:
+        valid = (
+            ((yy >= -0.5) & (yy <= src_h - 0.5))[:, None]
+            & ((xx >= -0.5) & (xx <= src_w - 0.5))[None, :]
+        )
+        iy = torch.floor(yy + 0.5).clamp(0, src_h - 1).long()
+        ix = torch.floor(xx + 0.5).clamp(0, src_w - 1).long()
+        vals = a.index_select(-2, iy).index_select(-1, ix)
+        fill = torch.tensor(
+            fill_as(fill_value, dtype), dtype=_F64, device=array.device
+        ).to(a.dtype)
+        return torch.where(valid, vals, fill).to(dtype)
+
+    valid = (
+        ((yy >= 0) & (yy <= src_h - 1))[:, None]
+        & ((xx >= 0) & (xx <= src_w - 1))[None, :]
+    )
+    y0f, x0f = torch.floor(yy), torch.floor(xx)
+    fy, fx = (yy - y0f)[:, None], xx - x0f
+    y0 = y0f.clamp(0, src_h - 1).long()
+    x0 = x0f.clamp(0, src_w - 1).long()
+    y1 = (y0 + 1).clamp(max=src_h - 1)
+    x1 = (x0 + 1).clamp(max=src_w - 1)
+    r0 = a.index_select(-2, y0).to(_F64)
+    r1 = a.index_select(-2, y1).to(_F64)
+    ry0 = r0 * (1 - fy) + r1 * fy
+    c0 = ry0.index_select(-1, x0)
+    c1 = ry0.index_select(-1, x1)
+    result = c0 * (1 - fx) + c1 * fx
+    fill = fill_as(fill_value, float_dtype(dtype))
+    result = torch.where(valid, result, torch.tensor(fill, dtype=_F64, device=array.device))
+    return result if out_dtype == _F64 else round_to(result, dtype)
+
+
+def affine_gather(
+    array, j_scale, i_scale, j_off, i_off, out_h, out_w, order, fill_value,
+    out_dtype=None,
+):
+    """K4: the separable affine gather of the trailing (H, W) dims of
+    *array*, (..., out_h, out_w) in *out_dtype* (default: the source's;
+    float64 only for bilinear).  The source may be strided; its last
+    dimension is made contiguous if it is not."""
+    if on_cpu(array):
+        return affine_gather_plain(
+            array, j_scale, i_scale, j_off, i_off, out_h, out_w, order,
+            fill_value, out_dtype,
+        )
+    _check(array, order, out_dtype)
+    dtype = array.dtype
+    out_dtype = out_dtype or dtype
+    lead = tuple(array.shape[:-2])
+    src_h, src_w = array.shape[-2], array.shape[-1]
+    x = array.reshape((-1, src_h, src_w))
+    if x.stride(2) != 1:
+        x = x.contiguous()
+    out = torch.empty((x.shape[0], out_h, out_w), dtype=out_dtype, device=array.device)
+    if out.numel() == 0:
+        return out.reshape(lead + (out_h, out_w))
+    fill = fill_as(fill_value, dtype if order == 0 else float_dtype(dtype))
+    lib = _build.load()
+    with torch.cuda.device(array.device):
+        rc = lib.xrt_affine_gather(
+            x.data_ptr(), out.data_ptr(), x.shape[0], src_h, src_w,
+            x.stride(0), x.stride(1), out_h, out_w, float(j_scale),
+            float(i_scale), float(j_off), float(i_off), int(order), fill,
+            DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "affine_gather")
+    count_launch("affine_gather")
+    return out.reshape(lead + (out_h, out_w))

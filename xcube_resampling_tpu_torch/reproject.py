@@ -11,11 +11,13 @@ through the device tiers:
    tiers (ESW, exact region mosaic) reproduce: bit-exact for nearest,
    within 2 ulp for bilinear.
 
-Grid variables on more than one device raise ``ValueError``.  A
-reproject that would need the pre-downscale (scale below ``SCALE_LIMIT``)
-raises ``NotImplementedError``, as do ``XRTPU_FAST_EXTREME_WARP=1``, torch
-dtypes other than float32 and numpy dtypes other than floats.
-``_gm_fingerprint``, ``_as_target_array`` and
+Where the target is coarser than the source (scale below
+``SCALE_LIMIT``), :func:`_maybe_downscale` first clips the source to the
+target's span and downscales it through the affine engine (K4, then K5 or
+K6), on the device tensors.  Grid variables on more than one device raise
+``ValueError``; ``XRTPU_FAST_EXTREME_WARP=1``, torch dtypes other than
+float32 and numpy dtypes other than floats raise ``NotImplementedError``.
+``_gm_fingerprint``, ``_as_target_array``, ``_maybe_downscale`` and
 ``_assert_target_overlaps_source`` are copies of the JAX package's.
 """
 
@@ -29,16 +31,26 @@ from collections.abc import Iterable
 import numpy as np
 import torch
 
-from .constants import SCALE_LIMIT, FillValues, InterpMethods, RecoverNans
+from .affine import affine_transform_dataset
+from .constants import (
+    SCALE_LIMIT,
+    AggMethods,
+    FillValues,
+    InterpMethods,
+    RecoverNans,
+)
 from .crs import Transformer
 from .gridmapping import GridMapping
 from .ops.reproject_ops import METHODS, make_fused_reproject_fn
 from .ops.srw import make_srw_reproject_fn
 from .utils import (
+    _flip_rows,
     _get_fill_value,
     _get_interp_method_str,
+    _prep_interp_methods_downscale,
     _select_variables,
     assemble_target_shell,
+    clip_dataset_by_bbox,
     normalize_grid_mapping,
 )
 from .xrlite import DataArray, Dataset
@@ -50,16 +62,15 @@ def reproject_dataset(
     source_gm: GridMapping | None = None,
     variables: str | Iterable[str] | None = None,
     interp_methods: InterpMethods | None = None,
-    agg_methods=None,
+    agg_methods: AggMethods | None = None,
     recover_nans: RecoverNans = False,
     fill_values: FillValues | None = None,
     device="cuda",
 ) -> Dataset:
     """Reproject a dataset's 2D spatial variables into the CRS and grid of
     *target_gm* (``xcube_resampling_tpu.reproject.reproject_dataset``).
-    Numpy-backed variables are placed on *device* as float32 tensors.
-    *agg_methods* and *recover_nans* only act in the pre-downscale, which
-    is not ported yet."""
+    Numpy-backed variables are placed on *device* as float32 tensors before
+    the pre-downscale, which *agg_methods* and *recover_nans* steer."""
     if source_gm is None:
         source_gm = GridMapping.from_dataset(source_ds)
     if source_gm.is_j_axis_up:
@@ -69,7 +80,24 @@ def reproject_dataset(
     source_ds = normalize_grid_mapping(source_ds, source_gm)
     source_ds = _select_variables(source_ds, variables)
     inv = Transformer.from_crs(target_gm.crs, source_gm.crs, always_xy=True)
-    _require_no_downscale(inv, source_gm, target_gm)
+
+    grid_dims = (source_gm.xy_dim_names[1], source_gm.xy_dim_names[0])
+    grid_names = []
+    for name, var in list(source_ds.items()):
+        if var.dims[-2:] == grid_dims:
+            if len(var.dims) not in (2, 3):
+                raise ValueError(f"Data variable {name} has {len(var.dims)} dimensions.")
+            source_ds[name] = _as_tensor_variable(var, name, device)
+            grid_names.append(name)
+    devices = {source_ds[name].data.device for name in grid_names}
+    if len(devices) > 1:
+        raise ValueError(
+            f"grid variables lie on several devices: {sorted(map(str, devices))}"
+        )
+    source_ds, source_gm = _maybe_downscale(
+        source_ds, source_gm, target_gm, inv,
+        interp_methods, agg_methods, recover_nans, device,
+    )
 
     target_ds = assemble_target_shell(
         source_ds,
@@ -77,75 +105,114 @@ def reproject_dataset(
         target_gm,
         dict(zip(target_gm.xy_var_names, (target_gm.x_coords, target_gm.y_coords))),
     )
-    grid_dims = (source_gm.xy_dim_names[1], source_gm.xy_dim_names[0])
-    grid_vars = {}
     for name, var in source_ds.items():
         if var.dims[-2:] == grid_dims:
-            if len(var.dims) not in (2, 3):
-                raise ValueError(f"Data variable {name} has {len(var.dims)} dimensions.")
-            grid_vars[name] = _as_tensor_variable(var, name, device)
+            target_ds[name] = _reproject_variable(
+                var, name, source_gm, target_gm, interp_methods, fill_values
+            )
         elif not set(grid_dims) & set(var.dims):
             target_ds[name] = var
-    devices = {var.data.device for var in grid_vars.values()}
-    if len(devices) > 1:
-        raise ValueError(
-            f"grid variables lie on several devices: {sorted(map(str, devices))}"
-        )
-    for name, var in grid_vars.items():
-        target_ds[name] = _reproject_variable(
-            var, name, source_gm, target_gm, interp_methods, fill_values
-        )
     return target_ds
 
 
 def _as_tensor_variable(var: DataArray, name, device) -> DataArray:
-    """*var* itself when it holds a tensor, else its float data as a
-    float32 tensor on *device*."""
+    """*var* itself when it holds a float32 tensor, else its float data as
+    a float32 tensor on *device*; other tensors raise."""
     if isinstance(var.data, torch.Tensor):
+        if var.data.dtype != torch.float32:
+            raise NotImplementedError(
+                f"variable {name!r} is {var.data.dtype}: the port reprojects "
+                "float32 tensors only so far (ROADMAP queue 1 item 12)"
+            )
         return var
     data = np.asarray(var.data)
     if data.dtype.kind != "f":
         raise NotImplementedError(
             f"variable {name!r} is {data.dtype}: the port reprojects float "
-            "variables only so far (ROADMAP queue 1 item 5)"
+            "variables only so far (ROADMAP queue 1 item 12)"
         )
-    tensor = torch.as_tensor(data, dtype=torch.float32, device=device)
+    tensor = torch.as_tensor(
+        np.ascontiguousarray(data), dtype=torch.float32, device=device
+    )
     return DataArray(tensor, dims=var.dims, attrs=dict(var.attrs), chunks=var.chunks)
 
 
-def _flip_rows(ds: Dataset, row_dim: str) -> Dataset:
-    """*ds* with its rows reversed along *row_dim*: ``torch.flip`` for
-    tensors (torch has no negative slice steps), ``isel`` otherwise."""
-    flip = {row_dim: slice(None, None, -1)}
-    out = ds.assign_coords(
-        {n: c.isel(flip) for n, c in ds.coords.items() if row_dim in c.dims}
-    )
-    for name, var in ds.data_vars.items():
-        if row_dim not in var.dims:
-            continue
-        if isinstance(var.data, torch.Tensor):
-            out[name] = DataArray(
-                torch.flip(var.data, (var.dims.index(row_dim),)),
-                dims=var.dims, attrs=dict(var.attrs), chunks=var.chunks,
-            )
-        else:
-            out[name] = var.isel(flip)
-    return out
-
-
-def _require_no_downscale(inv, source_gm: GridMapping, target_gm: GridMapping):
-    """Raise where the JAX engine would pre-downscale the source
-    (``reproject._maybe_downscale``: scale below ``SCALE_LIMIT``)."""
+def _maybe_downscale(
+    source_ds: Dataset,
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    inv: Transformer,
+    interp_methods: InterpMethods | None,
+    agg_methods: AggMethods | None,
+    recover_nans: RecoverNans,
+    device,
+) -> tuple[Dataset, GridMapping]:
+    """Clip + affine-downscale the source when its resolution is finer than
+    the target's (``reproject._maybe_downscale``; SCALE_LIMIT gate).  The
+    clip is a view of the source tensors, which K4 reads in place."""
     span = inv.transform_bounds(*target_gm.xy_bbox)
     _assert_target_overlaps_source(span, source_gm, target_gm)
-    x_scale = source_gm.x_res / ((span[2] - span[0]) / target_gm.width)
-    y_scale = source_gm.y_res / ((span[3] - span[1]) / target_gm.height)
-    if x_scale < SCALE_LIMIT or y_scale < SCALE_LIMIT:
-        raise NotImplementedError(
-            f"the target is coarser than the source (scale {x_scale:.3g}, "
-            f"{y_scale:.3g} < {SCALE_LIMIT}): the pre-downscale (affine and "
-            "coarsen) is not ported yet: ROADMAP queue 1 item 5"
+    res_in_source = (
+        (span[2] - span[0]) / target_gm.width,
+        (span[3] - span[1]) / target_gm.height,
+    )
+    x_scale = source_gm.x_res / res_in_source[0]
+    y_scale = source_gm.y_res / res_in_source[1]
+    if x_scale >= SCALE_LIMIT and y_scale >= SCALE_LIMIT:
+        return source_ds, source_gm
+
+    margin_x, margin_y = 2 * source_gm.x_res, 2 * source_gm.y_res
+    clip_bbox = (
+        span[0] - margin_x,
+        span[1] - margin_y,
+        span[2] + margin_x,
+        span[3] + margin_y,
+    )
+    source_ds = clip_dataset_by_bbox(source_ds, clip_bbox, source_gm.xy_dim_names)
+    source_gm = GridMapping.from_dataset(source_ds)
+
+    new_size = tuple(
+        max(2, round(scale * extent))
+        for scale, extent in (
+            (x_scale, source_gm.width),
+            (y_scale, source_gm.height),
         )
+    )
+    coarse_gm = GridMapping.regular(
+        size=new_size,
+        xy_min=(source_gm.xy_bbox[0], source_gm.xy_bbox[1]),
+        xy_res=res_in_source,
+        crs=source_gm.crs,
+        tile_size=source_gm.tile_size,
+    )
+    old_names = source_gm.xy_var_names
+    old_dims = source_gm.xy_dim_names
+    source_ds = affine_transform_dataset(
+        source_ds,
+        coarse_gm,
+        source_gm=source_gm,
+        interp_methods=_prep_interp_methods_downscale(interp_methods),
+        agg_methods=agg_methods,
+        recover_nans=recover_nans,
+        device=device,
+    )
+    # the affine engine assigns coords under the downscale grid mapping's
+    # default names: re-assign them under the source's
+    if coarse_gm.xy_var_names != old_names:
+        stale = [
+            n for n in coarse_gm.xy_var_names if n in source_ds.variables
+        ]
+        source_ds = source_ds.drop_vars(stale).assign_coords(
+            {
+                old_names[0]: DataArray(
+                    np.asarray(coarse_gm.x_coords.data), dims=(old_dims[0],)
+                ),
+                old_names[1]: DataArray(
+                    np.asarray(coarse_gm.y_coords.data), dims=(old_dims[1],)
+                ),
+            }
+        )
+    return source_ds, GridMapping.from_dataset(source_ds)
 
 
 def _reproject_variable(
@@ -154,11 +221,6 @@ def _reproject_variable(
     had_band_axis = len(var.dims) == 3
     if not had_band_axis:
         var = var.expand_dims({"dummy": 1})
-    if var.data.dtype != torch.float32:
-        raise NotImplementedError(
-            f"variable {name!r} is {var.data.dtype}: the port reprojects "
-            "float32 tensors only so far (ROADMAP queue 1 item 5)"
-        )
     fill_value = _get_fill_value(fill_values, name, var)
     interp = _get_interp_method_str(interp_methods, name, var)
     if interp not in METHODS:

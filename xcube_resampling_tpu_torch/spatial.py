@@ -1,15 +1,15 @@
 """Gateway: route a dataset to the port's engines.
 
 Port of ``xcube_resampling_tpu/spatial.py``; :func:`choose_route` is a
-copy of its route decision.  Only the reproject route is ported so far:
-the affine and rectify routes raise ``NotImplementedError`` naming their
-ROADMAP item.
+copy of its route decision.  The affine and reproject routes are ported;
+the rectify route raises ``NotImplementedError`` naming its ROADMAP items.
 """
 
 from __future__ import annotations
 
 from collections.abc import Iterable
 
+from .affine import affine_transform_dataset
 from .constants import (
     LOG,
     AggMethods,
@@ -21,11 +21,6 @@ from .gridmapping import GridMapping
 from .reproject import reproject_dataset
 from .utils import _can_apply_affine_transform
 from .xrlite import Dataset
-
-_NOT_PORTED = {
-    "affine": "ROADMAP queue 1 item 5",
-    "rectify": "ROADMAP queue 1 items 7-8",
-}
 
 
 def choose_route(source_gm: GridMapping, target_gm: GridMapping | None) -> str:
@@ -61,8 +56,9 @@ def resample_in_space(
 ) -> Dataset:
     """Resample the spatial dimensions of a dataset to a target grid
     mapping; arguments as ``xcube_resampling_tpu.resample_in_space``, plus
-    *device*: where numpy-backed variables are placed (as float32
-    tensors).  Tensor variables stay on their own device."""
+    *device*: where numpy-backed variables are placed (as float32 tensors
+    for the reproject route, in their own dtype for the affine route).
+    Tensor variables stay on their own device."""
     if source_gm is None:
         source_gm = GridMapping.from_dataset(source_ds)
     route = choose_route(source_gm, target_gm)
@@ -74,11 +70,12 @@ def resample_in_space(
         return source_ds
     if route == "identity":
         return source_ds
-    if route in _NOT_PORTED:
+    if route == "rectify":
         raise NotImplementedError(
-            f"the {route} route is not ported yet: {_NOT_PORTED[route]}"
+            "the rectify route is not ported yet: ROADMAP queue 1 items 7-8"
         )
-    return reproject_dataset(
+    engine = affine_transform_dataset if route == "affine" else reproject_dataset
+    return engine(
         source_ds,
         target_gm,
         source_gm=source_gm,

@@ -1,35 +1,104 @@
 """Dataset helpers and per-variable option resolution.
 
-Copies of ``xcube_resampling_tpu/utils.py``: grid-mapping normalization to
-a ``spatial_ref`` coordinate, the output-dataset shell, variable selection,
-the affine-route test of :func:`.spatial.choose_route`, and the
-interpolation-method and fill-value resolvers.  The resolvers key on
+Copies of ``xcube_resampling_tpu/utils.py``: spatial-dim detection, bbox
+clipping, grid-mapping normalization to a ``spatial_ref`` coordinate, the
+output-dataset shell, variable selection, the affine-route test of
+:func:`.spatial.choose_route`, and the interpolation, aggregation,
+NaN-recovery and fill-value resolvers.  The resolvers key on
 ``torch.dtype`` (the ``DataArray.dtype`` of a tensor) where the JAX
 package keys on numpy dtypes; the defaults are the same per dtype.
+:func:`_get_agg_method` returns the aggregation's name, which the device
+reducers of :mod:`.ops.coarsen_ops` take, where the JAX package returns
+the numpy reducer.  :func:`_flip_rows` is the port's own: torch has no
+negative slice steps.
 """
 
 from __future__ import annotations
 
-from collections.abc import Callable, Hashable, Iterable, Mapping
+from collections.abc import Callable, Hashable, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from .constants import (
+    AGG_METHODS,
     FILLVALUE_FLOAT,
     FILLVALUE_INT,
     FILLVALUE_UINT8,
     FILLVALUE_UINT16,
     INTERP_METHOD_MAPPING,
     LOG,
+    AggMethod,
+    AggMethods,
     FloatInt,
     InterpMethod,
     InterpMethodInt,
     InterpMethods,
     InterpMethodStr,
+    RecoverNans,
 )
 from .gridmapping import GridMapping
 from .xrlite import DataArray, Dataset
+
+
+def get_spatial_dims(ds: Dataset) -> tuple[str, str]:
+    """The horizontal dimension names of *ds* as ``(x_dim, y_dim)`` —
+    either ``("lon", "lat")`` or ``("x", "y")``."""
+    for x_dim, y_dim in (("lon", "lat"), ("x", "y")):
+        if x_dim in ds and y_dim in ds:
+            return x_dim, y_dim
+    raise KeyError(
+        f"No standard spatial dimensions found in dataset. "
+        f"Expected pairs ('lon', 'lat') or ('x', 'y'), "
+        f"but found: {list(ds.dims)}."
+    )
+
+
+def clip_dataset_by_bbox(
+    ds: Dataset,
+    bbox: Sequence[FloatInt],
+    spatial_dims: tuple[str, str] | None = None,
+) -> Dataset:
+    """Clip *ds* to ``(min_x, min_y, max_x, max_y)``.  The y slice follows
+    the coordinate's storage direction, so both axis orientations work.
+    Tensor variables become views of their source."""
+    if len(bbox) != 4:
+        raise ValueError(f"Expected bbox of length 4, got: {bbox}")
+    x_min, y_min, x_max, y_max = bbox
+
+    x_dim, y_dim = spatial_dims or get_spatial_dims(ds)
+    y_vals = np.asarray(ds[y_dim].data)
+    y_descending = y_vals[-1] < y_vals[0]
+    y_slice = slice(y_max, y_min) if y_descending else slice(y_min, y_max)
+    ds = ds.sel({x_dim: slice(x_min, x_max), y_dim: y_slice})
+
+    if any(size == 0 for size in ds.sizes.values()):
+        LOG.warning(
+            "Clipped dataset contains at least one zero-sized dimension. "
+            f"Check if the bounding box {bbox} overlaps with the dataset "
+            "extent."
+        )
+    return ds
+
+
+def _flip_rows(ds: Dataset, row_dim: str) -> Dataset:
+    """*ds* with its rows reversed along *row_dim*: ``torch.flip`` for
+    tensors (torch has no negative slice steps), ``isel`` otherwise."""
+    def flipped(var: DataArray) -> DataArray:
+        if isinstance(var.data, torch.Tensor):
+            return DataArray(
+                torch.flip(var.data, (var.dims.index(row_dim),)),
+                dims=var.dims, attrs=dict(var.attrs), chunks=var.chunks,
+            )
+        return var.isel({row_dim: slice(None, None, -1)})
+
+    out = ds.assign_coords(
+        {n: flipped(c) for n, c in ds.coords.items() if row_dim in c.dims}
+    )
+    for name, var in ds.data_vars.items():
+        if row_dim in var.dims:
+            out[name] = flipped(var)
+    return out
 
 
 def normalize_grid_mapping(ds: Dataset, gm: GridMapping) -> Dataset:
@@ -155,12 +224,12 @@ def _default_interp(dtype: torch.dtype) -> InterpMethodInt:
     return 0 if _is_integer(dtype) else 1
 
 
-def _get_interp_method_str(
+def _get_interp_method(
     interp_methods: InterpMethods | None,
     key: Hashable,
     var: DataArray,
-) -> InterpMethodStr:
-    method: InterpMethod = _resolve_per_var_option(
+) -> InterpMethod:
+    return _resolve_per_var_option(
         interp_methods,
         key,
         var,
@@ -169,7 +238,74 @@ def _get_interp_method_str(
         what="Interpolation method",
         option_name="interp_methods",
     )
+
+
+def _get_interp_method_int(
+    interp_methods: InterpMethods | None,
+    key: Hashable,
+    var: DataArray,
+) -> InterpMethodInt:
+    method = _get_interp_method(interp_methods, key, var)
+    return INTERP_METHOD_MAPPING[method] if isinstance(method, str) else method
+
+
+def _get_interp_method_str(
+    interp_methods: InterpMethods | None,
+    key: Hashable,
+    var: DataArray,
+) -> InterpMethodStr:
+    method = _get_interp_method(interp_methods, key, var)
     return INTERP_METHOD_MAPPING[method] if isinstance(method, int) else method
+
+
+def _prep_interp_methods_downscale(
+    interp_methods: InterpMethods | None,
+) -> InterpMethods | None:
+    """Triangular interpolation degrades to bilinear for the pre-downscale
+    pass (the reference does the same: utils.py:239)."""
+    downgrade = lambda m: "bilinear" if m == "triangular" else m  # noqa: E731
+    if isinstance(interp_methods, Mapping):
+        if "triangular" in interp_methods.values():
+            return {k: downgrade(v) for k, v in interp_methods.items()}
+        return interp_methods
+    return downgrade(interp_methods)
+
+
+def _get_agg_method(
+    agg_methods: AggMethods | None,
+    key: Hashable,
+    var: DataArray,
+) -> AggMethod:
+    """The aggregation's name (a key of ``AGG_METHODS``; others raise
+    ``KeyError``, as the JAX package's lookup does)."""
+    name = _resolve_per_var_option(
+        agg_methods,
+        key,
+        var,
+        scalar_types=str,
+        default_of=lambda dt: "center" if _is_integer(dt) else "mean",
+        what="Aggregation method",
+        option_name="agg_methods",
+    )
+    if name not in AGG_METHODS:
+        raise KeyError(name)
+    return name
+
+
+def _get_recover_nan(
+    recover_nans: RecoverNans | None,
+    key: Hashable,
+    var: DataArray,
+) -> bool:
+    return _resolve_per_var_option(
+        recover_nans,
+        key,
+        var,
+        scalar_types=bool,
+        default_of=lambda dt: False,
+        what="The method to recover nan",
+        option_name="recover_nans",
+    )
 
 
 def _default_fill_value(dtype: torch.dtype) -> FloatInt:
