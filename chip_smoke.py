@@ -6,12 +6,14 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
-   printing each source's registers and spills (ptxas ``-v``);
+   printing each source's registers and spills (ptxas ``-v``), and fails
+   if K6's register kernels spill or use local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
    same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
-   pre-downscale runs (clip, K4 at the inflated size, K5) before the
-   tiled SRW; the
+   pre-downscale runs (clip, K4's downscale form: the gather reduced in
+   5 x 5 windows without the inflated image) before the tiled SRW, with
+   the device memory a call takes at its peak; the
    EPSG:4326 0.05 deg -> UTM32N 4096^2 reproject with nearest, triangular
    and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
    geometry, the global EPSG:4326 0.05 deg -> EPSG:3035 4096^2 reproject
@@ -19,11 +21,13 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    and bilinear, first call and warm calls, a small UTM32N ->
    EPSG:3035 case with a numpy variable (placed on the card by
    ``device``) beside a tensor, and the affine route: BASELINE #1 (a
-   16-band 1024^2 float32 2x bilinear downscale with ``mean``: K4, K5)
-   and BASELINE #2 (a 4-band 4096^2 raster coarsened 4x with ``mean``,
-   ``first`` and ``mode``, through ``ops.coarsen_ops.coarsen`` and through
-   an exact 4x affine downscale: K4, K5, K6); the kernel launch counts are
-   reset before and read after each call;
+   16-band 1024^2 float32 2x bilinear downscale with ``mean``: K4's
+   downscale form) and BASELINE #2 (a 4-band 4096^2 raster coarsened 4x
+   with ``mean``, ``first`` and ``mode``, through
+   ``ops.coarsen_ops.coarsen``: K5, K6, and through an exact 4x affine
+   downscale: the downscale form for ``mean`` and ``first``, K4 then K6
+   for ``mode``); the kernel launch counts are reset before and read
+   after each call;
 3. holds every result against the plain PyTorch composition on the same
    device tensors, and the small case against the port's own K3 (the
    direct gather) within the two-pass bounds;
@@ -33,17 +37,22 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    edges, and (K3) on a ragged EPSG:3035 target, for every method; K4 for
    both orders on four dtypes with a NaN cell, a negative scale and a
    numeric fill, K5 for every reducer on float32 with all-NaN windows and
-   on int32, K6 for mode and median at 16, 64 and 81 taps; times each
-   kernel and its plain version at the main path's shapes beside one
+   on int32, K4's downscale form against its plain version and against
+   K4 -> K5 on the card for every dtype and K5 reducer (all-NaN windows,
+   a fill edge, a flipped axis, a strided view), K6 for mode and median
+   at 4, 9, 16, 25, 64, 81 and 1024 taps with ties, NaN and +-0.0; times
+   each kernel and its plain version at the main path's shapes beside one
    PyTorch call where one computes the same function (K3 and K4
    ``F.grid_sample``, K5 ``torch.nanmean`` and a strided copy, K6
-   ``torch.mode``), two ways: one
+   ``torch.mode``; none for the downscale form), and the downscale form
+   beside the chain K4 -> K5 it replaces, two ways: one
    warm call between two CUDA events on an idle card (``ms``: device time
    and the host's enqueue of the call) and warm calls queued behind a
    sleep on the card (``device_ms``: device time alone); and computes each
    kernel's bound (bytes at 3.35 TB/s, or operations at 67 TFLOP/s
    float32 and 34 TFLOP/s float64, the H100 SXM data sheet's peaks), K3's
-   from the source pixels its taps reach, counted on the card;
+   from the source pixels its taps reach, counted on the card, the
+   downscale form's from the source sectors its taps reach;
 5. prints the card line again, a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -120,11 +129,43 @@ def reduce_bound(x, j_div, i_div, agg, out_itemsize):
 
 def rank_bound(x, j_div, i_div):
     """K6 reads every input once and writes every output once; per output
-    w^2 compares and w^2 adds (w taps)."""
+    w (w - 1) / 2 compares of tap pairs, each counted for both taps (two
+    adds): 3 w (w - 1) / 2 operations (w taps)."""
     taps = j_div * i_div
     n_out = x.numel() // taps
     n_bytes = x.numel() * x.element_size() + n_out * x.element_size()
-    return bound(n_bytes, 2 * taps * taps * n_out)
+    return bound(n_bytes, 3 * taps * (taps - 1) // 2 * n_out)
+
+
+def gather_reduce_bound(x, residual, out_h, out_w, j_div, i_div, agg, out_itemsize):
+    """K4's downscale form: it must read the 32-byte source sectors that
+    the bilinear taps of its gathered inflated pixels reach (every window
+    pixel, or a pick's one) once and write the coarse image once.  Per
+    gathered pixel a column lerp (3 float64 operations) and the reducer's
+    operations (1 a tap, 4 for std and var, 0 for a pick); per gathered
+    inflated row a row lerp (3) at each source column its taps reach.
+    Positions as K4 takes them (float64, clipped taps, valid rows and
+    columns only)."""
+    batch, h, w = x.shape
+    (i_s, _, i_o), (_, j_s, j_o) = residual
+    pick = {"first": (0, 0), "last": (j_div - 1, i_div - 1),
+            "center": (j_div // 2, i_div // 2)}.get(agg)
+    rows = np.arange(out_h * j_div)
+    cols = np.arange(out_w * i_div)
+    if pick:
+        rows = rows[rows % j_div == pick[0]]
+        cols = cols[cols % i_div == pick[1]]
+    y, xx = rows * j_s + j_o, cols * i_s + i_o
+    y, xx = y[(y >= 0) & (y <= h - 1)], xx[(xx >= 0) & (xx <= w - 1)]
+    y0, x0 = np.floor(y).astype(np.int64), np.floor(xx).astype(np.int64)
+    src_rows = np.unique(np.concatenate([y0, np.minimum(y0 + 1, h - 1)]))
+    src_cols = np.unique(np.concatenate([x0, np.minimum(x0 + 1, w - 1)]))
+    sectors = len(np.unique(src_cols * x.element_size() // 32))
+    n_in = batch * len(src_rows) * sectors * 32
+    n_out = batch * out_h * out_w
+    per_tap = 0 if pick else (4 if agg in ("std", "var") else 1)
+    n_ops = batch * (len(y) * len(xx) * (3 + per_tap) + 3 * len(y) * len(src_cols))
+    return bound(n_in + n_out * out_itemsize, n_ops, PEAK_F64)
 
 
 def vertical_bound(src, st, tri):
@@ -152,17 +193,34 @@ def horizontal_bound(v, st, tri):
     return bound(n_bytes, n_ops)
 
 
-def ptxas_summary(log: str) -> list[tuple[str, list[int], list[int]]]:
+def ptxas_summary(log: str) -> list[tuple[str, list[int], list[int], list[int]]]:
     """Per source file of the build log (``== name`` sections), the
-    registers of each kernel and the bytes of its spill stores, from
-    ptxas's ``-v`` report."""
+    registers of each kernel, the bytes of its spill stores and of its
+    stack frame (local memory), from ptxas's ``-v`` report."""
     out = []
     for section in log.split("== ")[1:]:
         name = section.split("\n", 1)[0].strip()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", section)]
         if regs:
             spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", section)]
-            out.append((name, regs, spills))
+            stack = [int(b) for b in re.findall(r"(\d+) bytes stack frame", section)]
+            out.append((name, regs, spills, stack))
+    return out
+
+
+def ptxas_kernels(log: str, pattern: str) -> list[tuple[str, int, int, int]]:
+    """The kernels of the build log whose mangled name contains *pattern*:
+    (name, registers, spill store bytes, stack frame bytes)."""
+    out = []
+    for entry in log.split("Compiling entry function '")[1:]:
+        name = entry.split("'", 1)[0]
+        if pattern not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        stack = re.search(r"(\d+) bytes stack frame", entry)
+        out.append((name, int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else 0, int(stack.group(1)) if stack else 0))
     return out
 
 
@@ -201,7 +259,12 @@ def main() -> int:
         coarsen_reduce,
         window_reshape,
     )
-    from xcube_resampling_tpu_torch.ops.gather import affine_gather, affine_gather_plain
+    from xcube_resampling_tpu_torch.ops.gather import (
+        affine_gather,
+        affine_gather_plain,
+        affine_gather_reduce,
+        affine_gather_reduce_plain,
+    )
     from xcube_resampling_tpu_torch.ops.reproject_ops import (
         FusedReprojectFn,
         fused_reproject,
@@ -230,21 +293,36 @@ def main() -> int:
     # -- build ---------------------------------------------------------------
     build = _build.build()
     print(f"{tag} nvcc build {build.seconds:.2f} s -> {build.path.name}")
-    for source, regs, spills in ptxas_summary(build.log):
+    for source, regs, spills, stack in ptxas_summary(build.log):
         print(f"  {source}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-              f"at most {max(spills, default=0)} bytes spilled")
+              f"at most {max(spills, default=0)} bytes spilled, "
+              f"{max(stack, default=0)} bytes of stack frame")
+    # K6's register kernels (windows of up to 16, 32 and 64 taps in
+    # registers): no spill, no local memory
+    for cap in (16, 32, 64):
+        regs_k = [k for k in ptxas_kernels(build.log, "coarsen_rank_regs_kernel")
+                  if f"Li{cap}E" in k[0]]
+        if regs_k:
+            print(f"  coarsen_rank register kernels, {cap} taps: {len(regs_k)} kernels, "
+                  f"{min(k[1] for k in regs_k)}-{max(k[1] for k in regs_k)} registers, "
+                  f"{max(k[2] for k in regs_k)} bytes spilled, "
+                  f"{max(k[3] for k in regs_k)} bytes of stack frame")
+        if build.log and (not regs_k or any(k[2] or k[3] for k in regs_k)):
+            raise AssertionError(f"K6's {cap}-tap register kernels spill or are missing")
     _build.load()
 
     nan = float("nan")
     err = {
         "srw_vertical": 0.0, "srw_horizontal": 0.0, "fused_reproject": 0.0,
-        "affine_gather": 0.0, "coarsen_reduce": 0.0, "coarsen_rank": 0.0,
+        "affine_gather": 0.0, "affine_gather_reduce": 0.0, "coarsen_reduce": 0.0,
+        "coarsen_rank": 0.0,
     }
     main_launches: Counter = Counter()
 
-    def compare(got, ref, interp, what):
+    def compare(got, ref, interp, what, signs=False):
         """Max abs difference; raises on unequal dtypes or NaN masks, or
-        above TOL (plus REL_TOL of the reference's magnitude)."""
+        above TOL (plus REL_TOL of the reference's magnitude); with *signs*
+        also on unequal sign bits (-0.0 against +0.0)."""
         if got.shape != ref.shape or got.dtype != ref.dtype:
             raise AssertionError(
                 f"{what}: {tuple(got.shape)} {got.dtype} != {tuple(ref.shape)} {ref.dtype}"
@@ -252,13 +330,17 @@ def main() -> int:
         if got.numel() == 0:
             return 0.0
         if not got.dtype.is_floating_point:
-            d = (got.double() - ref.double()).abs()
-            if d.max().item() > 0:
-                raise AssertionError(f"{what}: {int((d > 0).sum())} integers differ")
+            # through numpy: the card has few operations on unsigned types
+            differ = got.cpu().numpy() != ref.cpu().numpy()
+            if differ.any():
+                raise AssertionError(f"{what}: {int(differ.sum())} integers differ")
             return 0.0
         nan_got, nan_ref = torch.isnan(got), torch.isnan(ref)
         if not torch.equal(nan_got, nan_ref):
             raise AssertionError(f"{what}: NaN masks differ")
+        if signs and not torch.equal(torch.signbit(got) & ~nan_got,
+                                     torch.signbit(ref) & ~nan_ref):
+            raise AssertionError(f"{what}: sign bits differ")
         d = torch.where(nan_got, 0.0, got.double() - ref.double()).abs()
         lim = TOL[interp] + REL_TOL.get(interp, 0.0) * torch.where(nan_ref, 0.0, ref.double()).abs()
         if (d > lim).any():
@@ -444,7 +526,8 @@ def main() -> int:
 
     timings = {}
     bounds = {}
-    library = {"srw_vertical": (None, None), "srw_horizontal": (None, None)}
+    library = {"srw_vertical": (None, None), "srw_horizontal": (None, None),
+               "affine_gather_reduce": (None, None)}
 
     # -- 1. the headline: 20480^2 UTM32N -> EPSG:3035 bilinear ----------------
     n = 20480
@@ -526,14 +609,15 @@ def main() -> int:
     # -- 1b. the headline's source onto a coarser grid: the pre-downscale ----
     # 5120^2 EPSG:3035 at 120 m: the target's span in the source gives a
     # scale of 0.247, so reproject_dataset clips the source (a view; here
-    # the span covers all of it), K4 gathers it at the inflated size (5x5
-    # windows), K5 takes the means and the tiled SRW (K1 + K2) reprojects
-    # the coarse image.  A spy on the
-    # engine's affine call keeps its input and output for the plain check.
+    # the span covers all of it), K4's downscale form takes the means of
+    # 5x5 windows of the bilinear gather at the residual scales (no
+    # inflated image) and the tiled SRW (K1 + K2) reprojects the coarse
+    # image.  A spy on the engine's affine call keeps its input and output
+    # for the plain check.
     laea120_gm = GridMapping.regular(
         size=(5120, 5120), xy_min=(4050000.0, 2650000.0), xy_res=120.0, crs="epsg:3035"
     )
-    down = ("affine_gather", "coarsen_reduce", "srw_vertical", "srw_horizontal")
+    down = ("affine_gather_reduce", "srw_vertical", "srw_horizontal")
     seen = []
     engine_affine = port_reproject.affine_transform_dataset
 
@@ -547,6 +631,12 @@ def main() -> int:
         out, first = run_main(ds, laea120_gm, "bilinear", down, agg_methods="mean")
         first_counts = {k: LAUNCHES[k] for k in down}
         out, w = warm_calls(ds, laea120_gm, "bilinear", down, 3, agg_methods="mean")
+        del out
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, _ = run_main(ds, laea120_gm, "bilinear", down, agg_methods="mean")
+        peak_mem = torch.cuda.max_memory_allocated()
     finally:
         port_reproject.affine_transform_dataset = engine_affine
     share = check_output(out["v"].data, (5120, 5120))
@@ -556,8 +646,8 @@ def main() -> int:
         raise AssertionError("the clipped source is a copy, not a view of the source")
     (j_div, i_div), residual = _scale_split(coarse_gm.ij_transform_to(clip_gm))
     coarse_ref = affine_plain(clipped, clip_gm, coarse_gm, 1, "mean", nan)
-    d_down = compare(coarse, coarse_ref, "stat", "pre-downscale K4 -> K5 vs plain")
-    err["coarsen_reduce"] = max(err["coarsen_reduce"], d_down)
+    d_down = compare(coarse, coarse_ref, "stat", "pre-downscale downscale form vs plain")
+    err["affine_gather_reduce"] = max(err["affine_gather_reduce"], d_down)
     coarse_fn = device_reproject_fn(
         GridMapping.from_dataset(coarse_ds), laea120_gm, "bilinear", nan, dev
     )
@@ -571,31 +661,43 @@ def main() -> int:
         f"{tag} resample_in_space 20480^2 UTM32N->EPSG:3035 5120^2 at 120 m, bilinear, "
         f"mean: clipped source {tuple(clipped.shape)} (strides {clipped.stride()}), "
         f"{j_div}x{i_div} windows, residual scales {residual[1][1]:.4f}, "
-        f"{residual[0][0]:.4f}, K4 output {inflated[0]}x{inflated[1]}, coarse "
-        f"{coarse_gm.height}x{coarse_gm.width}; first call {first:.3f} s "
+        f"{residual[0][0]:.4f}, inflated {inflated[0]}x{inflated[1]} (not written), "
+        f"coarse {coarse_gm.height}x{coarse_gm.width}; first call {first:.3f} s "
         f"(launches {first_counts}); warm median of 3 {w * 1e3:.2f} ms = "
         f"{mpix / w:.1f} Mpix/s; finite share {share:.4f}; coarse vs plain "
-        f"{d_down}, output vs plain {d}"
+        f"{d_down}, output vs plain {d}; device memory of a call: peak "
+        f"{peak_mem / 2**30:.3f} GiB, {(peak_mem - base_mem) / 2**30:.3f} GiB above "
+        f"the {base_mem / 2**30:.3f} GiB held before it"
     )
+    # the chain the downscale form replaces: K4 at the inflated size, K5
     (i_s, _, i_o), (_, j_s, j_o) = residual
     down_args = (clipped, j_s, i_s, j_o, i_o, *inflated, 1, nan)
+    fused_args = (clipped, j_s, i_s, j_o, i_o, coarse_gm.height, coarse_gm.width,
+                  j_div, i_div, "mean", nan)
     up = affine_gather(*down_args)
     err["affine_gather"] = max(err["affine_gather"], compare(
         up, affine_gather_plain(*down_args), "exact", "K4 at the pre-downscale shape vs plain"
     ))
+    compare(affine_gather_reduce(*fused_args), coarsen_reduce(up, j_div, i_div, "mean"),
+            "exact", "pre-downscale downscale form vs K4 -> K5")
     k4_down = (event_ms(lambda: affine_gather(*down_args), 3),
                device_ms(lambda: affine_gather(*down_args), 3))
     k5_down = (event_ms(lambda: coarsen_reduce(up, j_div, i_div, "mean"), 3),
                device_ms(lambda: coarsen_reduce(up, j_div, i_div, "mean"), 3))
+    kr_down = (event_ms(lambda: affine_gather_reduce(*fused_args), 3),
+               device_ms(lambda: affine_gather_reduce(*fused_args), 3))
     b4, by4 = affine_gather_bound(clipped[None], *inflated, 1)
     b5, by5 = reduce_bound(up[None], j_div, i_div, "mean", 4)
+    br, byr = gather_reduce_bound(clipped[None], residual, coarse_gm.height,
+                                  coarse_gm.width, j_div, i_div, "mean", 4)
     print(
-        f"{tag} pre-downscale kernels: affine_gather {k4_down[0]:.3f} ms (device "
-        f"{k4_down[1]:.3f} ms), bound {b4:.3f} ms ({by4}); coarsen_reduce mean "
-        f"{j_div}x{i_div} {k5_down[0]:.3f} ms (device {k5_down[1]:.3f} ms), bound "
-        f"{b5:.3f} ms ({by5})"
+        f"{tag} pre-downscale kernels: affine_gather_reduce mean {j_div}x{i_div} "
+        f"{kr_down[0]:.3f} ms (device {kr_down[1]:.3f} ms), bound {br:.3f} ms ({byr}), "
+        f"equal to the chain it replaces: affine_gather {k4_down[0]:.3f} ms (device "
+        f"{k4_down[1]:.3f} ms), bound {b4:.3f} ms ({by4}), then coarsen_reduce mean "
+        f"{k5_down[0]:.3f} ms (device {k5_down[1]:.3f} ms), bound {b5:.3f} ms ({by5})"
     )
-    del out, seen, clip_ds, coarse_ds, clipped, coarse, coarse_ref, up, down_args
+    del out, seen, clip_ds, coarse_ds, clipped, coarse, coarse_ref, up, down_args, fused_args
     del coarse_fn, src, ds
     torch.cuda.empty_cache()
 
@@ -746,8 +848,8 @@ def main() -> int:
 
     # -- 4b. BASELINE #1: affine 2x bilinear downscale, 16 x 1024^2 float32 --
     # UTM32N 30 m -> UTM32N 60 m over the same corner, aggregated with mean:
-    # the affine route, one K4 launch (the residual gather, here the
-    # identity) and one K5 launch (2x2 means) per call
+    # the affine route, one launch of K4's downscale form (2x2 means of the
+    # residual gather, here the identity) per call
     gen = torch.Generator(device=dev).manual_seed(0)
     b1_gm = GridMapping.regular(
         size=(1024, 1024), xy_min=(300000.0, 5200000.0), xy_res=30.0, crs="epsg:32632"
@@ -757,7 +859,7 @@ def main() -> int:
     )
     b1 = torch.rand((16, 1024, 1024), generator=gen, device=dev)
     ds_b1 = dataset(b1_gm, v=b1)
-    once = {"affine_gather": 1, "coarsen_reduce": 1}
+    once = {"affine_gather_reduce": 1}
     out, first = run_main(ds_b1, b1_tgt, "bilinear", tuple(once), once, agg_methods="mean")
     out, w = warm_calls(ds_b1, b1_tgt, "bilinear", tuple(once), 5, exact=once,
                         agg_methods="mean")
@@ -765,7 +867,7 @@ def main() -> int:
     b1_gm_ds = GridMapping.from_dataset(ds_b1)
     d = compare(out["v"].data, affine_plain(b1, b1_gm_ds, b1_tgt, 1, "mean", nan), "stat",
                 "BASELINE #1 vs plain K4 -> K5")
-    err["coarsen_reduce"] = max(err["coarsen_reduce"], d)
+    err["affine_gather_reduce"] = max(err["affine_gather_reduce"], d)
     mpix = 16 * 1024 * 1024 / 1e6
     print(
         f"{tag} resample_in_space BASELINE #1 (affine route, 16x1024^2 float32 -> "
@@ -775,9 +877,10 @@ def main() -> int:
 
     # -- 4c. BASELINE #2: a 4-band 4096^2 raster coarsened 4x -----------------
     # a and b float32 with NaN rows and all-NaN windows, c int32 in [0, 16);
-    # mean of a, first of b, mode of c, through ops.coarsen_ops.coarsen and
-    # through an exact 4x affine downscale (c interpolated bilinearly: a
-    # nearest variable never aggregates)
+    # mean of a, first of b, mode of c, through ops.coarsen_ops.coarsen (K5,
+    # K6) and through an exact 4x affine downscale (c interpolated
+    # bilinearly: a nearest variable never aggregates): K4's downscale form
+    # for a and b, K4 then K6 for c
     b2_gm = GridMapping.regular(
         size=(4096, 4096), xy_min=(300000.0, 5200000.0), xy_res=30.0, crs="epsg:32632"
     )
@@ -809,7 +912,7 @@ def main() -> int:
           f"{dt * 1e3:.2f} ms for the three calls")
     ds_b2 = dataset(b2_gm, a=b2a, b=b2b, c=b2c)
     aggs = {"a": "mean", "b": "first", "c": "mode"}
-    counts = {"affine_gather": 3, "coarsen_reduce": 2, "coarsen_rank": 1}
+    counts = {"affine_gather_reduce": 2, "affine_gather": 1, "coarsen_rank": 1}
     out, first = run_main(ds_b2, b2_tgt, {"c": 1}, tuple(counts), counts, agg_methods=aggs)
     out, w = warm_calls(ds_b2, b2_tgt, {"c": 1}, tuple(counts), 5, exact=counts,
                         agg_methods=aggs)
@@ -819,7 +922,7 @@ def main() -> int:
         agg = aggs[name]
         d = compare(out[name].data, affine_plain(x, b2_gm_ds, b2_tgt, 1, agg, fill),
                     "stat" if agg == "mean" else "exact", f"BASELINE #2 {name} vs plain")
-        kernel = "coarsen_rank" if agg == "mode" else "coarsen_reduce"
+        kernel = "coarsen_rank" if agg == "mode" else "affine_gather_reduce"
         err[kernel] = max(err[kernel], d)
     mpix = 3 * 4 * 4096 * 4096 / 1e6
     print(
@@ -925,6 +1028,51 @@ def main() -> int:
                                 f"K4 {dtype} order {order} {scales} fill {fill}")
                     err["affine_gather"] = max(err["affine_gather"], d)
         print(f"{tag} K4 vs plain, {dtype}, both orders, negative scale, fills {fills}: equal")
+    # K4's downscale form against its plain version and against K4 -> K5
+    # on the card, every dtype and K5 reducer: 2x2 windows reaching past the
+    # source on three sides (fill), 3x4 windows on a flipped axis, 5x5
+    # windows on a strided view; a NaN block empties whole float windows
+    down_cases = (
+        (((1.9, 0.0, -1.5), (0.0, 2.0, 1.0)), (150, 180), (slice(None), slice(None))),
+        (((-3.7, 0.0, 330.5), (0.0, 2.6, 0.3)), (114, 89), (slice(None), slice(None))),
+        (((4.6, 0.0, 0.2), (0.0, 4.3, -0.4)), (64, 67), (slice(10, 290), slice(7, 320))),
+    )
+    int_ranges = {torch.int8: (-100, 100), torch.int16: (-30000, 30000),
+                  torch.int32: (-10**6, 10**6), torch.uint8: (0, 256),
+                  torch.uint16: (0, 65536)}
+    n_down = 0
+    for dtype in (torch.float32, torch.float64, torch.int8, torch.int16, torch.int32,
+                  torch.uint8, torch.uint16):
+        if dtype.is_floating_point:
+            x = torch.from_numpy(rng.random((2, 300, 333))).to(dtype).to(dev)
+            x[0, 40:60, 50:80] = nan
+            x[1, 150] = nan
+            fills = (nan, -9.5, nan)
+        else:
+            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+            x = torch.from_numpy(
+                rng.integers(*int_ranges[dtype], (2, 300, 333)).astype(np_dtype)
+            ).to(dev)
+            fills = (-1, 300.7, 7)
+        for (matrix, (oh, ow), (rows, cols)), fill in zip(down_cases, fills):
+            (j_div, i_div), residual = _scale_split(matrix)
+            (i_s, _, i_o), (_, j_s, j_o) = residual
+            view = x[:, rows, cols]
+            up = affine_gather(view, j_s, i_s, j_o, i_o, oh * j_div, ow * i_div, 1, fill)
+            for agg in REDUCERS:
+                args = (view, j_s, i_s, j_o, i_o, oh, ow, j_div, i_div, agg, fill)
+                got = affine_gather_reduce(*args)
+                what = f"downscale form {dtype} {j_div}x{i_div} {agg} fill {fill}"
+                compare(got, coarsen_reduce(up, j_div, i_div, agg), "exact",
+                        f"{what} vs K4 -> K5", signs=True)
+                kind = "stat" if dtype.is_floating_point and agg in (
+                    "mean", "sum", "std", "var", "prod") else "exact"
+                d = compare(got, affine_gather_reduce_plain(*args), kind, f"{what} vs plain")
+                err["affine_gather_reduce"] = max(err["affine_gather_reduce"], d)
+                n_down += 1
+    print(f"{tag} affine_gather_reduce vs K4 -> K5 (equal, sign bits included) and vs "
+          f"plain (max abs diff {err['affine_gather_reduce']}): {n_down} cases, 7 dtypes, "
+          f"every K5 reducer, fill edges, a flipped axis, a strided view, all-NaN windows")
     f32 = torch.rand((2, 480, 480), generator=gen, device=dev)
     f32[0, 100] = nan
     f32[1, 0:8, 0:12] = nan  # all-NaN windows of (4, 4) and (4, 3)
@@ -937,14 +1085,21 @@ def main() -> int:
                 d = compare(coarsen_reduce(x, *window, agg), coarsen_plain(x, *window, agg),
                             kind, f"K5 {x.dtype} {window} {agg}")
                 err["coarsen_reduce"] = max(err["coarsen_reduce"], d)
-    ties = torch.randint(0, 6, (2, 648, 648), generator=gen, device=dev, dtype=torch.int32)
+    # ties (values in [0, 6)), NaN taps and all-NaN windows, and zeros of
+    # both signs: 4, 9, 16, 25 and 64 taps from registers, 81 staged
+    ties = torch.randint(0, 6, (2, 720, 720), generator=gen, device=dev, dtype=torch.int32)
     ftie = (ties.float() * 0.25).masked_fill(torch.rand(ties.shape, generator=gen, device=dev) < 0.2, nan)
+    ftie = torch.where((ties == 0) & (torch.rand(ties.shape, generator=gen, device=dev) < 0.5),
+                       -0.0, ftie)
     ftie[0, :9, :9] = nan
-    for x in (ties, ftie):
-        for window in ((4, 4), (8, 8), (9, 9)):
+    for x in (ties, ftie, ftie.double(), ties.to(torch.int16), ties.to(torch.uint8)):
+        for window in ((2, 2), (3, 3), (4, 4), (5, 5), (8, 8), (9, 9)):
             for agg in ("mode", "median"):
+                # the mode keeps the first tap of its value, sign included;
+                # the plain median's sort may order -0.0 and +0.0 its own way
                 d = compare(coarsen_rank(x, *window, agg), coarsen_plain(x, *window, agg),
-                            "exact", f"K6 {x.dtype} {window} {agg}")
+                            "exact", f"K6 {x.dtype} {window} {agg}",
+                            signs=agg == "mode" and window[0] * window[1] <= 64)
                 err["coarsen_rank"] = max(err["coarsen_rank"], d)
     # 32 x 32 = 1024 taps: too large to stage, K6 reads its taps from memory
     for agg in ("mode", "median"):
@@ -953,8 +1108,9 @@ def main() -> int:
                     f"K6 int32 (32, 32) {agg}")
         err["coarsen_rank"] = max(err["coarsen_rank"], d)
     print(f"{tag} K5 vs plain, every reducer, float32 with all-NaN windows and int32: "
-          f"max abs diff {err['coarsen_reduce']}; K6 vs plain, mode and median at 16, 64, "
-          f"81 and (unstaged) 1024 taps, int32 and float32 with ties and NaN: equal")
+          f"max abs diff {err['coarsen_reduce']}; K6 vs plain, mode and median at 4, 9, "
+          f"16, 25, 64, 81 and (unstaged) 1024 taps, int32, int16, uint8, float32 and "
+          f"float64 with ties, NaN and zeros of both signs: equal")
 
     # K4 and K5 at BASELINE #1's shapes, K6 at BASELINE #2's
     b1_args = (b1, 1.0, 1.0, 0.0, 0.0, 1024, 1024, 1, nan)
@@ -993,8 +1149,38 @@ def main() -> int:
         f"torch.nanmean {library['coarsen_reduce'][0]:.4f} (device "
         f"{library['coarsen_reduce'][1]:.4f})"
     )
+    # K4's downscale form at BASELINE #1 (2x2 means of the identity
+    # residual gather), beside the chain K4 -> K5 it replaces there
+    b1_fused = (b1, 1.0, 1.0, 0.0, 0.0, 512, 512, 2, 2, "mean", nan)
+    compare(affine_gather_reduce(*b1_fused), coarsen_reduce(b1_up, 2, 2, "mean"), "exact",
+            "BASELINE #1 downscale form vs K4 -> K5")
+    timings["affine_gather_reduce"] = time_pair(
+        lambda: affine_gather_reduce(*b1_fused), lambda: affine_gather_reduce_plain(*b1_fused)
+    )
+    identity = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    bounds["affine_gather_reduce"] = gather_reduce_bound(b1, identity, 512, 512, 2, 2, "mean", 4)
+    k, p, kd = timings["affine_gather_reduce"]
+    print(
+        f"{tag} affine_gather_reduce mean 2x2 at BASELINE #1: {k:.4f} ms (device {kd:.4f}), "
+        f"plain {p:.3f}, bound {bounds['affine_gather_reduce'][0]:.4f} "
+        f"({bounds['affine_gather_reduce'][1]}); the chain K4 -> K5 it replaces: device "
+        f"{timings['affine_gather'][2] + timings['coarsen_reduce'][2]:.4f} ms; no single "
+        f"PyTorch call computes it"
+    )
     del b1_up, b1_windows, grid
     for agg, x in (("mean", b2a), ("first", b2b)):
+        # the affine route's downscale form beside its chain (identity K4, K5)
+        b2_fused = (x, 1.0, 1.0, 0.0, 0.0, 1024, 1024, 4, 4, agg, nan)
+        kr = (event_ms(lambda: affine_gather_reduce(*b2_fused)),
+              device_ms(lambda: affine_gather_reduce(*b2_fused)))
+        chain_d = device_ms(lambda: coarsen_reduce(
+            affine_gather(x, 1.0, 1.0, 0.0, 0.0, 4096, 4096, 1, nan), 4, 4, agg))
+        b, by = gather_reduce_bound(x, identity, 1024, 1024, 4, 4, agg, 4)
+        print(
+            f"{tag} affine_gather_reduce {agg} 4x4 at BASELINE #2 (4x4096^2 float32): "
+            f"{kr[0]:.4f} ms (device {kr[1]:.4f}), bound {b:.4f} ({by}); the chain K4 -> K5 "
+            f"it replaces: device {chain_d:.4f} ms"
+        )
         k, p, kd = time_pair(lambda: coarsen_reduce(x, 4, 4, agg),
                              lambda: coarsen_plain(x, 4, 4, agg))
         b, by = reduce_bound(x, 4, 4, agg, 4)
@@ -1058,6 +1244,10 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/affine_gather.cu",
             "xcube_resampling_tpu/ops/gather.py:29",
         ),
+        "affine_gather_reduce": (
+            "xcube_resampling_tpu_torch/csrc/affine_gather_reduce.cu",
+            "xcube_resampling_tpu/affine.py:212",
+        ),
         "coarsen_reduce": (
             "xcube_resampling_tpu_torch/csrc/coarsen_reduce.cu",
             "xcube_resampling_tpu/ops/coarsen_ops.py:36",
@@ -1079,10 +1269,10 @@ def main() -> int:
             "plain_ms": timings[name][1],
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
-            # K1, K2: no single PyTorch call computes a tap pass; K3: the
-            # F.grid_sample yardstick at the 4326 -> UTM shape; K4
-            # F.grid_sample, K5 torch.nanmean (BASELINE #1), K6 torch.mode
-            # (BASELINE #2)
+            # K1, K2: no single PyTorch call computes a tap pass, nor the
+            # downscale form; K3: the F.grid_sample yardstick at the
+            # 4326 -> UTM shape; K4 F.grid_sample, K5 torch.nanmean
+            # (BASELINE #1), K6 torch.mode (BASELINE #2)
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],

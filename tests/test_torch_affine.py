@@ -2,8 +2,9 @@
 
 K4's plain version (``ops/gather.py``) against ``gather.affine_gather``
 given ``jnp`` arrays, K5's and K6's (``ops/coarsen_ops.py``) against
-``coarsen_jax``, then ``affine_transform_dataset``, the affine route of
-``resample_in_space`` and the reproject pre-downscale end to end.  JAX is
+``coarsen_jax``, K4's downscale form (``affine_gather_reduce``) against
+``affine._resample_array``, then ``affine_transform_dataset``, the affine
+route of ``resample_in_space`` and the reproject pre-downscale end to end.  JAX is
 fed ``jnp`` arrays, so it takes its device path (under the suite's x64);
 the port is fed CPU tensors, so its kernel wrappers run their plain
 versions.  Inputs come from a numpy seed; each comparison states its
@@ -19,14 +20,20 @@ import jax.numpy as jnp  # noqa: E402
 
 import xcube_resampling_tpu as jx  # noqa: E402
 import xcube_resampling_tpu_torch as pt  # noqa: E402
+from xcube_resampling_tpu import affine as jx_affine  # noqa: E402
+from xcube_resampling_tpu.constants import AGG_METHODS as JX_AGG_METHODS  # noqa: E402
 from xcube_resampling_tpu.crs import CRS_CRS84  # noqa: E402
 from xcube_resampling_tpu.ops import coarsen_ops as jx_coarsen  # noqa: E402
 from xcube_resampling_tpu.ops import gather as jx_gather  # noqa: E402
+from xcube_resampling_tpu_torch import affine as pt_affine  # noqa: E402
 from xcube_resampling_tpu_torch import reproject as pt_reproject  # noqa: E402
 from xcube_resampling_tpu_torch._device import LAUNCHES  # noqa: E402
 from xcube_resampling_tpu_torch.constants import AGG_METHODS  # noqa: E402
 from xcube_resampling_tpu_torch.ops import coarsen_ops  # noqa: E402
-from xcube_resampling_tpu_torch.ops.gather import affine_gather_plain  # noqa: E402
+from xcube_resampling_tpu_torch.ops.gather import (  # noqa: E402
+    affine_gather_plain,
+    affine_gather_reduce,
+)
 
 from .sampledata import (  # noqa: E402
     create_2x8x6_dataset_with_regular_coords,
@@ -187,6 +194,97 @@ def test_coarsen_takes_agg_callables_and_unit_windows():
         coarsen_ops.coarsen(data, 2, 2, "mean_of_means")
     with pytest.raises(ValueError, match="exact multiples"):
         coarsen_ops.coarsen(data, 5, 2, "mean")
+
+
+def test_integer_mean_goes_through_float64_not_float32():
+    """A known difference from JAX, pinned (ROADMAP section 3): JAX's
+    ``jnp.mean`` of int32 under x64 is float32, the port accumulates in
+    float64.  The window [100000001, 100000002, 100000004, 100000007]
+    (mean 100000003.5) gives JAX 100000000 and the port 100000004, one
+    float32 ulp (8 at 1e8) apart."""
+    data = np.array([[[100000001, 100000002], [100000004, 100000007]]], np.int32)
+    ref = np.asarray(jx_coarsen.coarsen_jax(jnp.asarray(data), 2, 2, "mean"))
+    got = coarsen_ops.coarsen(torch.from_numpy(data), 2, 2, "mean").numpy()
+    assert ref.dtype == got.dtype == np.int32
+    assert int(ref[0, 0, 0]) == 100000000 and int(got[0, 0, 0]) == 100000004
+    assert abs(int(got[0, 0, 0]) - int(ref[0, 0, 0])) <= np.spacing(np.float32(1e8))
+
+
+# -- K4's downscale form -------------------------------------------------------
+
+K5_AGGS = [agg for agg in AGGS if agg not in ("mode", "median")]
+# affine matrices ((i_scale, 0, i_off), (0, j_scale, j_off)) of downscales
+# and their coarse (out_h, out_w): 2 x 2 windows whose target reaches past
+# the source (fill), 3 x 4 windows with the i axis flipped, 5 x 5 windows
+DOWNSCALES = [
+    (((1.9, 0.0, -1.5), (0.0, 2.0, 1.0)), (6, 7)),
+    (((-3.7, 0.0, 15.5), (0.0, 2.6, 0.3)), (4, 4)),
+    (((4.6, 0.0, 0.2), (0.0, 4.3, -0.4)), (3, 3)),
+]
+
+
+def _downscale_source(dtype, seed=11):
+    """(2, 14, 17): floats in [0, 1) with a NaN cell, integers in [0, 7)
+    (small, so that JAX's float32 integer statistics are exact)."""
+    rng = np.random.default_rng(seed)
+    if np.dtype(dtype).kind == "f":
+        data = rng.random((2, 14, 17)).astype(dtype)
+        data[1, 5, 6] = np.nan
+        return data
+    return rng.integers(0, 7, (2, 14, 17)).astype(dtype)
+
+
+@pytest.mark.parametrize("agg", K5_AGGS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int16, np.uint8, np.int32])
+def test_affine_gather_reduce_matches_jax(agg, dtype):
+    """The fused downscale on CPU tensors against JAX's
+    ``affine._resample_array`` (bilinear, no NaN recovery) on jnp arrays,
+    at 2 x 2 windows reaching past the source, 3 x 4 windows on a flipped
+    axis and 5 x 5 windows: picks, min, max, count and integer results
+    equal; float statistics within FLOAT_STATS's rtol; NaN masks equal (the
+    NaN fill is skipped by the NaN-aware reducers, as in the chain)."""
+    data = _downscale_source(dtype)
+    fill = np.nan if np.dtype(dtype).kind == "f" else 3
+    for matrix, (out_h, out_w) in DOWNSCALES:
+        shape = (2, out_h, out_w)
+        ref = jx_affine._resample_array(
+            jnp.asarray(data), matrix, shape, 1, JX_AGG_METHODS[agg], False, fill
+        )
+        (j_div, i_div), ((i_s, _, i_o), (_, j_s, j_o)) = pt_affine._scale_split(matrix)
+        got = affine_gather_reduce(
+            torch.from_numpy(data), j_s, i_s, j_o, i_o, out_h, out_w, j_div, i_div, agg, fill
+        )
+        _assert_coarsen_match(got.numpy(), np.asarray(ref), agg, dtype)
+
+
+@pytest.mark.parametrize("agg", AGGS + ["mean_recover_nans"])
+def test_downscale_takes_the_fused_form_for_k5_reducers(monkeypatch, agg):
+    """``_resample_array`` sends a bilinear downscale reduced by one of
+    K5's reducers, without NaN recovery, through ``affine_gather_reduce``
+    and gathers no inflated image; ``mode``, ``median`` and the two-pass
+    NaN recovery keep the chain (K4 at the inflated size, then K5 or K6).
+    Both give what JAX gives."""
+    calls = []
+    for name in ("affine_gather", "affine_gather_reduce"):
+        orig = getattr(pt_affine, name)
+        monkeypatch.setattr(
+            pt_affine, name,
+            lambda *a, _orig=orig, _name=name, **k: calls.append(_name) or _orig(*a, **k),
+        )
+    recover = agg == "mean_recover_nans"
+    agg = agg.removesuffix("_recover_nans")
+    data = _downscale_source(np.float32)
+    matrix, (out_h, out_w) = DOWNSCALES[2]
+    got = pt_affine._resample_array(
+        torch.from_numpy(data), matrix, (2, out_h, out_w), 1, agg, recover, np.nan
+    )
+    fused = agg in K5_AGGS and not recover
+    assert calls == (["affine_gather_reduce"] if fused else
+                     ["affine_gather"] * (2 if recover else 1))
+    ref = jx_affine._resample_array(
+        jnp.asarray(data), matrix, (2, out_h, out_w), 1, JX_AGG_METHODS[agg], recover, np.nan
+    )
+    _assert_coarsen_match(got.numpy(), np.asarray(ref), agg, np.float32)
 
 
 # -- the affine engine end to end -------------------------------------------
@@ -461,9 +559,10 @@ def test_reproject_pre_downscale_matches_jax(monkeypatch, interp, agg):
 
 def test_cpu_tensors_launch_no_kernel():
     """The affine route and the pre-downscale on CPU tensors run the plain
-    versions of K4-K6 and launch nothing."""
+    versions of K4-K6 and of K4's downscale form and launch nothing."""
     before = dict(LAUNCHES)
     _run_affine("downscale_x2")
+    _run_affine("j_up_source_downscale_mean")
     _run_affine("subset_recover_nans")
     data = torch.from_numpy(_coarsen_case(np.int32))
     for agg in ("mode", "median", "mean", "first"):

@@ -312,6 +312,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
     gather.affine_gather(data, 2.0, 2.0, 0.0, 0.0, 48, 48, 1, np.nan, torch.float64)
     for agg in list(coarsen_ops.REDUCERS) + list(coarsen_ops.RANKS):
         coarsen_ops.coarsen(data, 4, 3, agg)
+    for agg in coarsen_ops.REDUCERS:
+        gather.affine_gather_reduce(data, 0.8, -0.9, 0.3, 95.0, 20, 24, 4, 4, agg, np.nan)
     assert dict(LAUNCHES) == before
 
 
@@ -345,7 +347,33 @@ def test_affine_and_coarsen_wrappers_check_before_launch(monkeypatch):
         coarsen_ops.coarsen_reduce(data, 2, 2, "mode")
     with pytest.raises(ValueError, match="K6 computes"):
         coarsen_ops.coarsen_rank(data, 2, 2, "mean")
+    reduce_args = (1.0, 1.0, 0.0, 0.0, 4, 4, 2, 2)
+    with pytest.raises(ValueError, match="the downscale form reduces"):
+        gather.affine_gather_reduce(data, *reduce_args, "mode", 0)
+    with pytest.raises(ValueError, match="window divisors must be positive"):
+        gather.affine_gather_reduce(data, 1.0, 1.0, 0.0, 0.0, 4, 4, 0, 2, "mean", 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        gather.affine_gather_reduce(data.long(), *reduce_args, "mean", 0)
+    with pytest.raises(ValueError, match="empty source"):
+        gather.affine_gather_reduce(data[:, :0], *reduce_args, "mean", 0)
     assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("agg", ["mean", "std", "center"])
+def test_affine_gather_reduce_plain_reads_strided_views(agg):
+    """K4's downscale form on a clipped view of a band stack (the
+    pre-downscale hands it one) equals it on a contiguous copy, and equals
+    the chain K4 -> K5 of the plain versions, NaN masks included."""
+    full = torch.from_numpy(_stack((96, 96), seed=9))
+    view = full[:, 5:85, 7:90]
+    assert not view.is_contiguous()
+    args = (0.81, -0.83, 1.2, 81.6, 15, 16, 5, 5, agg, np.nan)
+    got = gather.affine_gather_reduce(view, *args)
+    _assert_match(got.numpy(), gather.affine_gather_reduce(view.contiguous(), *args).numpy())
+    chain = coarsen_ops.coarsen(
+        gather.affine_gather(view, 0.81, -0.83, 1.2, 81.6, 75, 80, 1, np.nan), 5, 5, agg
+    )
+    _assert_match(got.numpy(), chain.numpy())
 
 
 @pytest.mark.parametrize(

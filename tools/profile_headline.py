@@ -11,13 +11,14 @@ the CUDA toolkit: ``python3 tools/profile_headline.py``.  It prints
    alone with ``time.perf_counter``;
 
 then for that reproject, for the same source onto a 5120^2 EPSG:3035
-grid at 120 m (the pre-downscale: K4 and K5, then K1 and K2), for
+grid at 120 m (the pre-downscale: K4's downscale form, then K1 and K2), for
 BASELINE #3 (the global 0.05 deg EPSG:4326 7200x3600 -> EPSG:3035 4096^2
 at 1500 m, a singular warp that runs K3; bilinear and nearest), and for
 the affine route's BASELINE #1 (a 16-band 1024^2 float32 2x bilinear
-downscale with mean: K4, K5) and BASELINE #2 (a 4-band 4096^2 raster
-coarsened 4x through an exact affine downscale, mean, first and mode:
-K4, K5, K6), as ``chip_smoke.py`` drives them:
+downscale with mean: K4's downscale form) and BASELINE #2 (a 4-band
+4096^2 raster coarsened 4x through an exact affine downscale, mean, first
+and mode: the downscale form for mean and first, K4 and K6 for mode), as
+``chip_smoke.py`` drives them:
 
 2. the first call's time and the wall time of 10 warm
    ``resample_in_space`` calls (median, min, max) and their host time

@@ -69,6 +69,12 @@ _SIGNATURES = {
         _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _D, _D, _D, _D, _I,
         _D, _I, _I, _P,
     ],
+    # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w, j_div,
+    # i_div, j_scale, i_scale, j_off, i_off, fill, agg, pa, pb, code, stream
+    "xrt_affine_gather_reduce": [
+        _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _D, _D, _D,
+        _D, _D, _I, _I64, _I64, _I, _P,
+    ],
     # src, out, batch, h, w, j_div, i_div, agg, pa, pb, code, stream
     "xrt_coarsen_reduce": [
         _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I64, _I, _P,
@@ -121,9 +127,10 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libxrt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
-    """Wait for every process; their output, or ``RuntimeError`` naming
-    the ones that failed (the others are waited for first)."""
+def _run(procs: list[tuple[str, subprocess.Popen]], t0: float) -> str:
+    """Wait for every process; their output, each headed by its name and
+    the seconds since *t0* by which it had ended, or ``RuntimeError``
+    naming the ones that failed (the others are waited for first)."""
     log, failed = [], []
     for name, proc in procs:
         try:
@@ -131,7 +138,7 @@ def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
         except subprocess.TimeoutExpired:
             proc.kill()
             out, _ = proc.communicate()
-        log.append(f"== {name}\n{out}")
+        log.append(f"== {name} ({time.perf_counter() - t0:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(f"{name} ({proc.returncode})")
     text = "".join(log)
@@ -160,12 +167,12 @@ def build() -> Build:
             ))
             for src, obj in zip(_sources(), objects)
         ]
-        log = _run(compiles)
+        log = _run(compiles, t0)
         link = subprocess.Popen(
             [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        log += _run([("link", link)])
+        log += _run([("link", link)], t0)
         os.replace(tmp, path)
     finally:
         tmp.unlink(missing_ok=True)

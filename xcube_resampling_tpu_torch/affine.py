@@ -4,7 +4,10 @@ Port of ``xcube_resampling_tpu/affine.py:57-268``.  Each spatial variable
 flows through ``_scale_split`` (integral window + residual matrix) ->
 ``_gather_resample`` (K4, :func:`.ops.gather.affine_gather`, with the
 two-pass NaN recovery) -> :func:`.ops.coarsen_ops.coarsen` (K5 or K6) for
-the integral part of a downscale.
+the integral part of a downscale.  A bilinear downscale reduced by one of
+K5's reducers without the NaN recovery runs both in one kernel, K4's
+downscale form (:func:`.ops.gather.affine_gather_reduce`), and never
+writes the inflated image.
 
 Spatial variables backed by torch tensors stay on their device;
 numpy-backed ones are placed on the *device* argument (default
@@ -36,7 +39,7 @@ from .constants import (
 )
 from .gridmapping import GridMapping
 from .ops import coarsen_ops
-from .ops.gather import affine_gather
+from .ops.gather import affine_gather, affine_gather_reduce
 from .utils import (
     _can_apply_affine_transform,
     _flip_rows,
@@ -218,8 +221,17 @@ def _resample_array(
         )
 
     # downscale = residual gather at an inflated size, then an integral
-    # window aggregation back to the requested size
+    # window aggregation back to the requested size: in one pass (K4's
+    # downscale form) for K5's reducers without the two-pass NaN recovery,
+    # else K4, then K5 or K6
     (j_div, i_div), residual = _scale_split(affine_matrix)
+    agg_name = coarsen_ops.agg_name(agg_method)
+    if interp_method == 1 and not recover_nan and agg_name in coarsen_ops.REDUCERS:
+        (i_s, _, i_o), (_, j_s, j_o) = residual
+        return affine_gather_reduce(
+            array, j_s, i_s, j_o, i_o, output_shape[-2], output_shape[-1],
+            j_div, i_div, agg_name, fill_value,
+        )
     inflated = tuple(output_shape[:-2]) + (
         output_shape[-2] * j_div,
         output_shape[-1] * i_div,

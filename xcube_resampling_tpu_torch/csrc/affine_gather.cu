@@ -2,18 +2,11 @@
 //
 // For each output pixel (b, j, i) the source plane b is sampled at
 //   y = j * j_scale + j_off,  x = i * i_scale + i_off   (float64)
-// nearest: floor(y + 0.5) clipped, valid on [-0.5, n - 0.5] inclusive, the
-//   value copied in its own type;
-// bilinear: floor and fraction, taps y0, y0 + 1 (and x0, x0 + 1) clipped to
-//   the source, valid on [0, n - 1] inclusive; rows first,
-//   r0 * (1 - fy) + r1 * fy at both tap columns, then the columns, every
-//   operation rounded in float64 (built with -fmad=false, nothing is
-//   contracted), all four taps always summed, so a NaN neighbour reaches
-//   the output as in the JAX package;
+// by nearest or bilinear taps with the arithmetic of affine_gather.h;
 // outside: the fill (cast by the wrapper to the source type for nearest,
-//   to its float type for bilinear).  The bilinear result is rounded once
-//   on store: to the source type (rint and saturation for integers) or
-//   kept in float64 (the two-pass NaN recovery divides it).
+// to its float type for bilinear).  The bilinear result is rounded once on
+// store: to the source type (rint and saturation for integers) or kept in
+// float64 (the two-pass NaN recovery divides it).
 //
 // Replaces the XLA device path of xcube_resampling_tpu/ops/gather.py:
 // affine_gather and grid_gather_separable's separable branches (:29-143),
@@ -21,101 +14,202 @@
 // runs float64 natively (half its float32 rate), so the kernel keeps that
 // arithmetic and agrees with it bit for bit.  These are not K3's edge
 // conventions (K3 selects the fill outside the open interval
-// (-0.5, n - 0.5)), so nothing of srw_common.h is shared.
+// (-0.5, n - 0.5)), so nothing of srw_common.h is shared.  The downscale
+// runs K4's fused form (affine_gather_reduce.cu) where it can.
 //
 // Bound on the H100: device memory.  The work must read the source pixels
 // its taps reach once and write every output once; a pixel takes about 20
-// float64 operations, far below the float64 rate.  Design: a thread owns
-// one output column (its x part computed once) and walks kRows rows of a
-// row block, kLanes apart, computing each row's y part once for every
-// band; neighbouring threads take neighbouring columns, so at scales near
-// 1 a warp's tap reads and its stores are coalesced, and the second tap
-// row is read again from L1/L2.  The source may be strided: the wrapper
-// passes its plane and row pitches (a clipped view of a large raster is
-// read in place).  Offsets are 64-bit.
-#include "kernel_types.h"
+// float64 operations.  What held the first version above its bound was
+// per-pixel arithmetic (positions, floors and float64 -> int64 clips
+// recomputed for every pixel, 64-bit offsets) and a grid of one block per
+// 64 x 16 outputs.  Design: a block owns a tile of kTileCols columns,
+// whose column table (tap, fractions, validity) it computes once in shared
+// memory, and walks row tiles of kTileRows rows (one row table each) over
+// every band, on a grid sized to the SMs (one wave).  A thread owns kVec
+// adjacent columns of a row: it loads the source columns its taps reach
+// together, lerps each once (bilinear_row), and stores the kVec results as
+// one vector where out_w % kVec == 0.  Offsets inside a plane are 32-bit where every
+// source offset of the plane is below 2^31, 64-bit otherwise.
+#include "affine_gather.h"
 
 namespace {
 
-constexpr int kCols = 64;   // threads across a block: output columns
-constexpr int kLanes = 4;   // threads down a block
-constexpr int kRows = 16;   // output rows of a row block
+using namespace xrt;
+
+constexpr int kThreads = 128;                // threads of a block
+constexpr int kVec = 4;                      // adjacent output columns of a thread
+constexpr int kTileCols = kThreads * kVec;   // output columns of a block
+constexpr int kTileRows = 4;                 // output rows of a row tile
 
 struct Args {
   const void* src;
   void* out;
-  int64_t batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w, n_row_blocks;
+  int64_t batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w, n_row_tiles;
   double j_scale, i_scale, j_off, i_off, fill;
+  bool vec;  // out_w % kVec == 0: every thread's columns take one vector store
 };
 
-__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) { return a < b ? a : b; }
+template <typename O>
+struct alignas(sizeof(O) * kVec) Pack {
+  O v[kVec];
+};
 
-__device__ __forceinline__ int64_t clip(double f, int64_t n) {
-  return static_cast<int64_t>(fmin(fmax(f, 0.0), static_cast<double>(n - 1)));
-}
-
-template <typename T, typename O, int ORDER>
-__global__ void __launch_bounds__(kCols * kLanes) affine_gather_kernel(const Args a) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kCols + threadIdx.x;
-  if (i >= a.out_w) return;
-  const T* __restrict__ src = static_cast<const T*>(a.src);
-  O* __restrict__ out = static_cast<O*>(a.out);
-  const int64_t out_plane = a.out_h * a.out_w;
-  const double x = static_cast<double>(i) * a.i_scale + a.i_off;
-  for (int64_t rb = blockIdx.y; rb < a.n_row_blocks; rb += gridDim.y) {
-    const int64_t j1 = lmin((rb + 1) * kRows, a.out_h);
-    for (int64_t j = rb * kRows + threadIdx.y; j < j1; j += kLanes) {
-      const double y = static_cast<double>(j) * a.j_scale + a.j_off;
-      O* o = out + j * a.out_w + i;
-      if (ORDER == 0) {
-        const bool ok = y >= -0.5 && y <= static_cast<double>(a.src_h) - 0.5 &&
-                        x >= -0.5 && x <= static_cast<double>(a.src_w) - 0.5;
-        const int64_t off = clip(floor(y + 0.5), a.src_h) * a.pitch_h +
-                            clip(floor(x + 0.5), a.src_w);
-        const O fill = static_cast<O>(a.fill);
-        for (int64_t b = 0; b < a.batch; ++b) {
-          o[b * out_plane] = ok ? static_cast<O>(src[b * a.pitch_b + off]) : fill;
-        }
+// The kVec bilinear outputs of a thread in one row whose taps read the
+// source rows p0 and p1.  Where the outputs' tap columns span at most
+// kVec + 1 source columns (scales up to 1), the row lerps at those columns
+// are taken once, their loads issued together, and each output picks its
+// two; else each output lerps its own two columns.
+template <typename T, typename O, typename I>
+__device__ __forceinline__ void bilinear_row(O (&res)[kVec], const T* p0, const T* p1,
+                                             double fy, double gy, const I* x0s,
+                                             const double* fxs, const double* gxs,
+                                             I last_col, O fill) {
+  auto lerp = [&](I x) { return row_lerp(p0[x], p1[x], fy, gy); };
+  I x0[kVec];
+  I lo = last_col + 1, hi = -1;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    x0[v] = x0s[v];
+    if (x0[v] >= 0) {
+      lo = imin(lo, x0[v]);
+      hi = x0[v] > hi ? x0[v] : hi;
+    }
+  }
+  if (hi < 0) {
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) res[v] = fill;
+    return;
+  }
+  if (hi + 1 - lo <= kVec) {
+    double c[kVec + 1];
+#pragma unroll
+    for (int k = 0; k <= kVec; ++k) c[k] = lerp(imin(lo + static_cast<I>(k), last_col));
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (x0[v] < 0) {
+        res[v] = fill;
         continue;
       }
-      const bool ok = y >= 0.0 && y <= static_cast<double>(a.src_h - 1) &&
-                      x >= 0.0 && x <= static_cast<double>(a.src_w - 1);
-      const double y0f = floor(y);
-      const double x0f = floor(x);
-      const double fy = y - y0f;
-      const double fx = x - x0f;
-      const double gy = 1.0 - fy;
-      const double gx = 1.0 - fx;
-      const int64_t y0 = clip(y0f, a.src_h);
-      const int64_t x0 = clip(x0f, a.src_w);
-      const int64_t r0 = y0 * a.pitch_h;
-      const int64_t r1 = lmin(y0 + 1, a.src_h - 1) * a.pitch_h;
-      const int64_t x1 = lmin(x0 + 1, a.src_w - 1);
-      for (int64_t b = 0; b < a.batch; ++b) {
-        const T* p = src + b * a.pitch_b;
-        // the row lerp at both tap columns, then the column lerp
-        const double c0 = static_cast<double>(p[r0 + x0]) * gy +
-                          static_cast<double>(p[r1 + x0]) * fy;
-        const double c1 = static_cast<double>(p[r0 + x1]) * gy +
-                          static_cast<double>(p[r1 + x1]) * fy;
-        const double v = c0 * gx + c1 * fx;
-        o[b * out_plane] = xrt::round_from<O>(ok ? v : a.fill);
+      const int d0 = static_cast<int>(x0[v] - lo);
+      const int d1 = static_cast<int>(imin(x0[v] + 1, last_col) - lo);
+      double c0 = c[0], c1 = c[0];
+#pragma unroll
+      for (int k = 1; k <= kVec; ++k) {
+        c0 = d0 == k ? c[k] : c0;
+        c1 = d1 == k ? c[k] : c1;
+      }
+      res[v] = round_from<O>(c0 * gxs[v] + c1 * fxs[v]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    res[v] = x0[v] < 0 ? fill
+                       : round_from<O>(lerp(x0[v]) * gxs[v] +
+                                       lerp(imin(x0[v] + 1, last_col)) * fxs[v]);
+  }
+}
+
+template <typename T, typename O, int ORDER, typename I>
+__global__ void __launch_bounds__(kThreads) affine_gather_kernel(const Args a) {
+  __shared__ I col_x0[kTileCols];  // -1 where the column lies outside
+  __shared__ double col_f[kTileCols], col_g[kTileCols];
+  __shared__ I row_r0[kTileRows], row_r1[kTileRows];  // -1 where the row lies outside
+  __shared__ double row_f[kTileRows], row_g[kTileRows];
+
+  const int tid = threadIdx.x;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kTileCols;
+  for (int e = tid; e < kTileCols; e += kThreads) {
+    I x0 = -1;
+    double f = 0.0, g = 0.0;
+    if (col0 + e < a.out_w) {
+      const Axis<I> ax = ORDER == 0 ? nearest_axis<I>(col0 + e, a.i_scale, a.i_off, a.src_w)
+                                    : bilinear_axis<I>(col0 + e, a.i_scale, a.i_off, a.src_w);
+      if (ax.ok) x0 = ax.t0;
+      f = ax.f;
+      g = ax.g;
+    }
+    col_x0[e] = x0;
+    col_f[e] = f;
+    col_g[e] = g;
+  }
+
+  const T* __restrict__ src = static_cast<const T*>(a.src);
+  O* __restrict__ out = static_cast<O*>(a.out);
+  const O fill = ORDER == 0 ? static_cast<O>(a.fill) : round_from<O>(a.fill);
+  const I last_col = static_cast<I>(a.src_w - 1);
+  const I pitch = static_cast<I>(a.pitch_h);
+  const int c0 = tid * kVec;  // the thread's first column in the tile
+  const int64_t i0 = col0 + c0;
+  const int64_t n_items = a.batch * a.n_row_tiles;
+  for (int64_t item = blockIdx.y; item < n_items; item += gridDim.y) {
+    const int64_t b = item / a.n_row_tiles;
+    const int64_t j0 = (item - b * a.n_row_tiles) * kTileRows;
+    __syncthreads();  // the column table is built, the last row table read
+    if (tid < kTileRows) {
+      I r0 = -1, r1 = -1;
+      double f = 0.0, g = 0.0;
+      if (j0 + tid < a.out_h) {
+        const Axis<I> ax = ORDER == 0 ? nearest_axis<I>(j0 + tid, a.j_scale, a.j_off, a.src_h)
+                                      : bilinear_axis<I>(j0 + tid, a.j_scale, a.j_off, a.src_h);
+        if (ax.ok) {
+          r0 = ax.t0 * pitch;
+          r1 = imin(ax.t0 + 1, static_cast<I>(a.src_h - 1)) * pitch;
+        }
+        f = ax.f;
+        g = ax.g;
+      }
+      row_r0[tid] = r0;
+      row_r1[tid] = r1;
+      row_f[tid] = f;
+      row_g[tid] = g;
+    }
+    __syncthreads();
+    if (i0 >= a.out_w) continue;
+    const T* p = src + b * a.pitch_b;
+    O* o = out + (b * a.out_h + j0) * a.out_w + i0;
+    const int rows = static_cast<int>(a.out_h - j0 < kTileRows ? a.out_h - j0 : kTileRows);
+    for (int rr = 0; rr < rows; ++rr, o += a.out_w) {
+      const I r0 = row_r0[rr];
+      Pack<O> res;
+      if (r0 < 0) {
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) res.v[v] = fill;
+      } else if (ORDER == 0) {
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          const I x0 = col_x0[c0 + v];
+          res.v[v] = x0 < 0 ? fill : static_cast<O>(p[r0 + x0]);
+        }
+      } else {
+        bilinear_row(res.v, p + r0, p + row_r1[rr], row_f[rr], row_g[rr], col_x0 + c0,
+                     col_f + c0, col_g + c0, last_col, fill);
+      }
+      if (a.vec) {
+        *reinterpret_cast<Pack<O>*>(o) = res;
+      } else {
+#pragma unroll
+        for (int v = 0; v < kVec; ++v)
+          if (i0 + v < a.out_w) o[v] = res.v[v];
       }
     }
   }
 }
 
-template <typename T, typename O>
-cudaError_t launch(const Args& a, int order, cudaStream_t s) {
-  const dim3 block(kCols, kLanes);
-  const dim3 grid(static_cast<unsigned>((a.out_w + kCols - 1) / kCols),
-                  static_cast<unsigned>(a.n_row_blocks < 65535 ? a.n_row_blocks : 65535));
-  if (order == 0) {
-    affine_gather_kernel<T, O, 0><<<grid, block, 0, s>>>(a);
-  } else {
-    affine_gather_kernel<T, O, 1><<<grid, block, 0, s>>>(a);
-  }
+template <typename T, typename O, int ORDER, typename I>
+cudaError_t launch_as(const Args& a, cudaStream_t s) {
+  const auto kernel = affine_gather_kernel<T, O, ORDER, I>;
+  const int64_t tiles = (a.out_w + kTileCols - 1) / kTileCols;
+  unsigned rows = 1;
+  const cudaError_t e = wave_rows(kernel, kThreads, 0, tiles, a.batch * a.n_row_tiles, &rows);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(static_cast<unsigned>(tiles), rows), kThreads, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, typename O, int ORDER>
+cudaError_t launch(const Args& a, bool wide, cudaStream_t s) {
+  return wide ? launch_as<T, O, ORDER, int64_t>(a, s) : launch_as<T, O, ORDER, int32_t>(a, s);
 }
 
 }  // namespace
@@ -128,16 +222,21 @@ extern "C" int xrt_affine_gather(
     double j_scale, double i_scale, double j_off, double i_off, int order,
     double fill, int in_code, int out_code, void* stream) {
   if (batch < 1 || src_h < 1 || src_w < 1 || out_h < 1 || out_w < 1 ||
-      (order != 0 && order != 1)) {
+      pitch_b < 0 || pitch_h < 0 || (order != 0 && order != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w,
-               (out_h + kRows - 1) / kRows, j_scale, i_scale, j_off, i_off, fill};
+               (out_h + kTileRows - 1) / kTileRows, j_scale, i_scale, j_off, i_off,
+               fill, out_w % kVec == 0};
+  // 32-bit offsets where every offset into a source plane fits
+  const bool wide = (src_h - 1) * pitch_h + src_w >= (int64_t{1} << 31);
   const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(xrt::with_data_type(in_code, [&](auto tag) -> cudaError_t {
+  return static_cast<int>(with_data_type(in_code, [&](auto tag) -> cudaError_t {
     using T = typename decltype(tag)::type;
-    if (out_code == xrt::code_of<T>()) return launch<T, T>(a, order, s);
-    if (out_code == xrt::kF64 && order == 1) return launch<T, double>(a, order, s);
+    if (out_code == code_of<T>()) {
+      return order == 0 ? launch<T, T, 0>(a, wide, s) : launch<T, T, 1>(a, wide, s);
+    }
+    if (out_code == kF64 && order == 1) return launch<T, double, 1>(a, wide, s);
     return cudaErrorInvalidValue;
   }));
 }

@@ -12,6 +12,9 @@
 //     count n takes the tap of rank (n - 1) / 2, an even count
 //     (lo + hi) * 0.5 of ranks n / 2 - 1 and n / 2 in the data's float
 //     type (float64 for integers, then rint); NaN for an all-NaN window.
+//   The ranks key on the tap index, so -0.0 and +0.0 (equal, but not the
+//   same bits) and ties come out as the definitions say; a sorting network
+//   that does not carry the index would not.
 //
 // Replaces the XLA device path of xcube_resampling_tpu/ops/coarsen_ops.py:
 // _mode_jax (:95-148; pairwise counts up to 64 taps, sort and run length
@@ -20,22 +23,20 @@
 // coarsen_jax (:66-69).
 //
 // Bound on the H100: device memory for small windows (the work must read
-// every input once and write every output once), the w^2 compares of a
-// window for large ones (64 taps: 4096 compares an output).  Design: a
-// thread owns one output and stages its window in shared memory, tap k at
-// k * threads + thread (no bank conflicts, no barrier: a thread reads only
-// its own column), then counts from there.  Where even 32 windows do not
-// fit the wrapper's budget, the thread reads its taps from device memory
-// (through L1) instead.
-#include "kernel_types.h"
+// every input once and write every output once), the pairs of a window
+// for large ones (64 taps: 2016 compares, each counted for both taps).
+// Design, up to 64 taps: a thread owns one output and holds its window in
+// registers (coarsen_rank.h), each pair of taps compared once and counted
+// for both.  Above 64 taps a thread stages its window in shared
+// memory, tap k at k * threads + thread (no bank conflicts, no barrier: a
+// thread reads only its own column), and counts every pair from there;
+// where even 32 windows do not fit the wrapper's budget, it reads its taps
+// from device memory (through L1) instead.
+#include "coarsen_rank.h"
 
 namespace {
 
-struct Args {
-  const void* src;
-  void* out;
-  int64_t h, w, oh, ow, jd, id, n_rows;  // n_rows = batch * oh
-};
+using xrt::rank::Args;
 
 template <typename T, bool MEDIAN, bool STAGED>
 __global__ void coarsen_rank_kernel(const Args a) {
@@ -120,11 +121,31 @@ cudaError_t launch(const Args& a, int threads, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The register kernel of compute type C for a window of *taps* taps.
+template <typename C, bool MEDIAN>
+cudaError_t launch_regs(const Args& a, int code, int64_t itemsize, cudaStream_t s) {
+  using xrt::rank::launch_cap;
+  const int64_t taps = a.jd * a.id;
+  const bool vec = (a.id * itemsize) % 16 == 0 && (a.w * itemsize) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.src) % 16 == 0;
+  if (taps <= 16) return launch_cap<C, MEDIAN, 16>(a, code, vec, s);
+  if (taps <= 32) return launch_cap<C, MEDIAN, 32>(a, code, vec, s);
+  return launch_cap<C, MEDIAN, 64>(a, code, vec, s);
+}
+
+template <typename C>
+cudaError_t launch_regs(const Args& a, int median, int code, int64_t itemsize,
+                        cudaStream_t s) {
+  return median ? launch_regs<C, true>(a, code, itemsize, s)
+                : launch_regs<C, false>(a, code, itemsize, s);
+}
+
 }  // namespace
 
-// median: 0 for the mode, 1 for the median; threads: the block size when
-// the windows are staged in shared memory (32, 64 or 128), 0 to read the
-// taps from device memory; returns cudaGetLastError().
+// median: 0 for the mode, 1 for the median; windows of up to 64 taps are
+// held in registers; above, threads: the block size when the windows are
+// staged in shared memory (32, 64 or 128), 0 to read the taps from device
+// memory; returns cudaGetLastError().
 extern "C" int xrt_coarsen_rank(
     const void* src, void* out, int64_t batch, int64_t h, int64_t w,
     int64_t j_div, int64_t i_div, int median, int code, int threads,
@@ -138,6 +159,11 @@ extern "C" int xrt_coarsen_rank(
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(xrt::with_data_type(code, [&](auto tag) -> cudaError_t {
     using T = typename decltype(tag)::type;
+    if (a.jd * a.id <= xrt::rank::kMaxRegTaps) {
+      // integers compare as int32, floats as themselves
+      using C = typename std::conditional<std::is_floating_point<T>::value, T, int32_t>::type;
+      return launch_regs<C>(a, median, code, sizeof(T), s);
+    }
     if (threads == 0) {
       return median ? launch<T, true, false>(a, 128, s) : launch<T, false, false>(a, 128, s);
     }

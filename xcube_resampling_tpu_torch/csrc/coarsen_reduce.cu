@@ -1,17 +1,10 @@
 // K5: the window reducers (statistics and positional picks).
 //
 // Every j_div x i_div window of a (batch, h, w) array becomes one value of
-// a (batch, h / j_div, w / i_div) array:
-//   mean, std, var: NaN-aware float64 moments of the valid taps (two
-//     passes: the mean, then the centred squares), rounded once to the
-//     data type (rint and saturation for integers); NaN for an all-NaN
-//     window;
-//   sum, prod: float data NaN-aware in float64, rounded once (an all-NaN
-//     window gives 0 and 1); integers wrap in 64 bits and come back int64
-//     (uint64 for unsigned data);
-//   min, max: NaN-aware for floats (NaN only for an all-NaN window);
-//   count: the taps that are not 0 (NaN counts), int64;
-//   first, last, center: the tap at (pa, pb) of the window.
+// a (batch, h / j_div, w / i_div) array, by the reducers of
+// coarsen_reduce.h (mean, sum, std, var, min, max, prod, count, and the
+// picks first, last, center), which K4's downscale form
+// (affine_gather_reduce.cu) shares.
 //
 // Replaces the XLA device path of xcube_resampling_tpu/ops/coarsen_ops.py:
 // coarsen_jax (:36-87), whose semantics these are under x64.  JAX sums
@@ -25,28 +18,13 @@
 // row, so a warp's loads of one window position are i_div elements apart
 // and the other positions hit the same sectors in L1.  The reducer is a
 // template parameter; offsets are 64-bit.
-#include "kernel_types.h"
+#include "coarsen_reduce.h"
 
 namespace {
 
+using namespace xrt;
+
 constexpr int kThreads = 128;
-
-enum Agg : int {
-  kMean = 0, kSum = 1, kStd = 2, kVar = 3, kMin = 4, kMax = 5, kProd = 6,
-  kCount = 7, kPick = 8,
-};
-
-// The result type: int64 counts, 64-bit integer sums and products, else
-// the data type.
-template <typename T, int AGG>
-struct OutType {
-  using type = typename std::conditional<
-      AGG == kCount, int64_t,
-      typename std::conditional<
-          (AGG == kSum || AGG == kProd) && !std::is_floating_point<T>::value,
-          typename std::conditional<std::is_unsigned<T>::value, uint64_t, int64_t>::type,
-          T>::type>::type;
-};
 
 struct Args {
   const void* src;
@@ -54,72 +32,16 @@ struct Args {
   int64_t h, w, oh, ow, jd, id, pa, pb, n_rows;  // n_rows = batch * oh
 };
 
-template <typename T, int AGG>
-__device__ __forceinline__ typename OutType<T, AGG>::type reduce(const T* p, const Args& a) {
-  using O = typename OutType<T, AGG>::type;
-  if constexpr (AGG == kPick) {
-    return p[a.pa * a.w + a.pb];
-  } else if constexpr (AGG == kCount) {
-    int64_t c = 0;
-    for (int64_t r = 0; r < a.jd; ++r)
-      for (int64_t q = 0; q < a.id; ++q) c += p[r * a.w + q] != T(0);
-    return c;
-  } else if constexpr (AGG == kMin || AGG == kMax) {
-    T m = p[0];
-    bool have = !xrt::is_nan(m);
-    for (int64_t r = 0; r < a.jd; ++r) {
-      for (int64_t q = 0; q < a.id; ++q) {
-        const T v = p[r * a.w + q];
-        if (xrt::is_nan(v)) continue;
-        if (!have || (AGG == kMin ? v < m : v > m)) m = v;
-        have = true;
-      }
-    }
-    return m;  // NaN (p[0]) when every tap is NaN
-  } else if constexpr (!std::is_floating_point<T>::value && (AGG == kSum || AGG == kProd)) {
-    // two's complement wraps alike for signed and unsigned data
-    uint64_t acc = AGG == kSum ? 0u : 1u;
-    for (int64_t r = 0; r < a.jd; ++r) {
-      for (int64_t q = 0; q < a.id; ++q) {
-        const uint64_t v = static_cast<uint64_t>(static_cast<int64_t>(p[r * a.w + q]));
-        acc = AGG == kSum ? acc + v : acc * v;
-      }
-    }
-    return static_cast<O>(acc);
-  } else {
-    // float64 accumulation over the valid taps
-    double acc = AGG == kProd ? 1.0 : 0.0;
-    int64_t n = 0;
-    for (int64_t r = 0; r < a.jd; ++r) {
-      for (int64_t q = 0; q < a.id; ++q) {
-        const T v = p[r * a.w + q];
-        if (xrt::is_nan(v)) continue;
-        acc = AGG == kProd ? acc * static_cast<double>(v) : acc + static_cast<double>(v);
-        ++n;
-      }
-    }
-    if constexpr (AGG == kSum || AGG == kProd) {
-      return static_cast<O>(acc);  // float data only
-    } else {
-      const double mean = acc / static_cast<double>(n);
-      if constexpr (AGG == kMean) {
-        return xrt::round_from<O>(mean);
-      } else {
-        double sq = 0.0;
-        for (int64_t r = 0; r < a.jd; ++r) {
-          for (int64_t q = 0; q < a.id; ++q) {
-            const T v = p[r * a.w + q];
-            if (xrt::is_nan(v)) continue;
-            const double d = static_cast<double>(v) - mean;
-            sq = sq + d * d;
-          }
-        }
-        const double var = sq / static_cast<double>(n);
-        return xrt::round_from<O>(AGG == kStd ? sqrt(var) : var);
-      }
-    }
+// The taps of a window in device memory, rows w apart.
+template <typename T>
+struct Window {
+  const T* p;
+  int64_t w;
+  __device__ __forceinline__ auto row(int64_t r) const {
+    const T* rp = p + r * w;
+    return [rp](int64_t q) -> T { return rp[q]; };
   }
-}
+};
 
 template <typename T, int AGG>
 __global__ void __launch_bounds__(kThreads) coarsen_reduce_kernel(const Args a) {
@@ -131,8 +53,8 @@ __global__ void __launch_bounds__(kThreads) coarsen_reduce_kernel(const Args a) 
   for (int64_t row = blockIdx.y; row < a.n_rows; row += gridDim.y) {
     const int64_t b = row / a.oh;
     const int64_t oj = row - b * a.oh;
-    const T* p = src + (b * a.h + oj * a.jd) * a.w + oi * a.id;
-    out[row * a.ow + oi] = reduce<T, AGG>(p, a);
+    Window<T> taps{src + (b * a.h + oj * a.jd) * a.w + oi * a.id, a.w};
+    out[row * a.ow + oi] = reduce<T, AGG>(taps, a.jd, a.id, a.pa, a.pb);
   }
 }
 
@@ -158,19 +80,8 @@ extern "C" int xrt_coarsen_reduce(
   const Args a{src, out, h, w, h / j_div, w / i_div, j_div, i_div, pa, pb,
                batch * (h / j_div)};
   const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(xrt::with_data_type(code, [&](auto tag) -> cudaError_t {
+  return static_cast<int>(with_data_type(code, [&](auto tag) -> cudaError_t {
     using T = typename decltype(tag)::type;
-    switch (agg) {
-      case kMean: return launch<T, kMean>(a, s);
-      case kSum: return launch<T, kSum>(a, s);
-      case kStd: return launch<T, kStd>(a, s);
-      case kVar: return launch<T, kVar>(a, s);
-      case kMin: return launch<T, kMin>(a, s);
-      case kMax: return launch<T, kMax>(a, s);
-      case kProd: return launch<T, kProd>(a, s);
-      case kCount: return launch<T, kCount>(a, s);
-      case kPick: return launch<T, kPick>(a, s);
-      default: return cudaErrorInvalidValue;
-    }
+    return with_agg(agg, [&](auto r) { return launch<T, decltype(r)::value>(a, s); });
   }));
 }

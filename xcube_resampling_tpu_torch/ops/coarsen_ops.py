@@ -26,7 +26,8 @@ Semantics, those of ``coarsen_jax`` under x64:
 * ``mode``: the smallest value among those of the highest count, NaN
   only for an all-NaN window (NaN never equals itself), whatever the
   formulation: :func:`_mode_plain` keeps both of JAX's (pairwise for up to
-  64 taps, sort and run length above), K6 counts pairs for every size;
+  64 taps, sort and run length above), K6 counts pairs for every size
+  (each pair once, from registers up to 64 taps);
 * ``median``: the middle of the valid taps; of an even count
   ``(lo + hi) * 0.5`` in the data's float type (float64 for integers,
   then ``rint``), as ``jnp.nanmedian`` gives it.  ``torch.nanmedian`` is
@@ -60,8 +61,9 @@ RANKS = {"mode": 0, "median": 1}
 #: O(w log w) sort-based mode (the JAX package's _MODE_PAIRWISE_MAX_W)
 _MODE_PAIRWISE_MAX_W = 64
 
-# K6 stages each thread's window in shared memory up to this many bytes a
-# block (else it reads the taps from device memory)
+# K6 holds windows of up to 64 taps in registers; above, it stages each
+# thread's window in shared memory up to this many bytes a block (else it
+# reads the taps from device memory)
 RANK_SMEM = 96 * 1024
 
 
@@ -93,6 +95,12 @@ def _pick(agg: str, j_div: int, i_div: int) -> tuple[int, int]:
         "first": (0, 0), "last": (j_div - 1, i_div - 1),
         "center": (j_div // 2, i_div // 2),
     }[agg]
+
+
+def pick_tap(agg: str, j_div: int, i_div: int) -> tuple[int, int]:
+    """The kernels' (pa, pb) argument: a pick's window position, (0, 0)
+    for the other reducers."""
+    return _pick(agg, j_div, i_div) if REDUCERS[agg] == 8 else (0, 0)
 
 
 def window_reshape(array, j_div: int, i_div: int):
@@ -220,7 +228,7 @@ def coarsen_reduce(array, j_div: int, i_div: int, agg: str):
         return coarsen_plain(array, j_div, i_div, agg)
     lead, x, out = _prepare(array, j_div, i_div, agg)
     if out.numel():
-        pa, pb = _pick(agg, j_div, i_div) if REDUCERS[agg] == 8 else (0, 0)
+        pa, pb = pick_tap(agg, j_div, i_div)
         lib = _build.load()
         with torch.cuda.device(array.device):
             rc = lib.xrt_coarsen_reduce(
@@ -234,9 +242,10 @@ def coarsen_reduce(array, j_div: int, i_div: int, agg: str):
 
 
 def rank_block_threads(taps: int, itemsize: int) -> int:
-    """K6's threads a block: the most of 128, 64 or 32 whose windows fit
-    :data:`RANK_SMEM`; 0 where not even 32 fit (the kernel then reads its
-    taps from device memory, 128 threads a block)."""
+    """K6's threads a block for windows above 64 taps: the most of 128, 64
+    or 32 whose windows fit :data:`RANK_SMEM`; 0 where not even 32 fit
+    (the kernel then reads its taps from device memory, 128 threads a
+    block).  Smaller windows live in registers and ignore it."""
     for threads in (128, 64, 32):
         if taps * threads * itemsize <= RANK_SMEM:
             return threads

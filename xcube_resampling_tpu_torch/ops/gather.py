@@ -1,4 +1,4 @@
-"""K4: the separable affine gather.
+"""K4: the separable affine gather, and its downscale form.
 
 ``affine_gather`` (``csrc/affine_gather.cu``) replaces the XLA device path
 of ``xcube_resampling_tpu/ops/gather.py:affine_gather`` and its separable
@@ -30,6 +30,13 @@ Semantics, as the JAX package computes them under x64 (``tests/conftest.py``):
 
 ``uint16`` is widened to int32 in the plain version (torch has few
 ``uint16`` operations) and narrowed back.
+
+``affine_gather_reduce`` (``csrc/affine_gather_reduce.cu``) is K4's
+downscale form: the bilinear gather at the inflated size reduced in
+``j_div x i_div`` windows by one of K5's reducers, without the inflated
+image.  Its plain version (:func:`affine_gather_reduce_plain`) is the
+chain's: :func:`affine_gather_plain`, then
+:func:`.coarsen_ops.coarsen_plain`; the kernel equals it bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from .._device import (
     require_data_dtype,
     round_to,
 )
+from .coarsen_ops import REDUCERS, coarsen_plain, pick_tap
+from .coarsen_ops import out_dtype as reduce_dtype
 
 _F64 = torch.float64
 
@@ -172,4 +181,73 @@ def affine_gather(
         )
     _build.check(lib, rc, "affine_gather")
     count_launch("affine_gather")
+    return out.reshape(lead + (out_h, out_w))
+
+
+def _check_reduce(array, j_scale, i_scale, j_div, i_div, agg):
+    if agg not in REDUCERS:
+        raise ValueError(f"the downscale form reduces {sorted(REDUCERS)}, not {agg!r}")
+    if j_div < 1 or i_div < 1:
+        raise ValueError(f"window divisors must be positive: {j_div}, {i_div}")
+    if not (abs(j_scale) <= 1 and abs(i_scale) <= 1):
+        raise ValueError(
+            f"the downscale form takes residual scales of at most 1: {j_scale}, {i_scale}"
+        )
+    _check(array, 1, None)
+
+
+def affine_gather_reduce_plain(
+    array, j_scale, i_scale, j_off, i_off, out_h, out_w, j_div, i_div, agg,
+    fill_value,
+):
+    """Plain PyTorch version of K4's downscale form: the bilinear gather
+    at ``(out_h * j_div, out_w * i_div)``, then the window reduction
+    *agg*; (..., out_h, out_w)."""
+    _check_reduce(array, j_scale, i_scale, j_div, i_div, agg)
+    inflated = affine_gather_plain(
+        array, j_scale, i_scale, j_off, i_off, out_h * j_div, out_w * i_div, 1,
+        fill_value,
+    )
+    return coarsen_plain(inflated, j_div, i_div, agg)
+
+
+def affine_gather_reduce(
+    array, j_scale, i_scale, j_off, i_off, out_h, out_w, j_div, i_div, agg,
+    fill_value,
+):
+    """K4's downscale form: every output pixel is the *agg* (one of K5's
+    reducers) of its ``j_div x i_div`` window of the bilinear gather at
+    the residual scales (at most 1 in magnitude, as ``_scale_split``
+    leaves them); (..., out_h, out_w) in *agg*'s result dtype.  The
+    source may be strided; its last dimension is made contiguous if it is
+    not."""
+    if on_cpu(array):
+        return affine_gather_reduce_plain(
+            array, j_scale, i_scale, j_off, i_off, out_h, out_w, j_div, i_div,
+            agg, fill_value,
+        )
+    _check_reduce(array, j_scale, i_scale, j_div, i_div, agg)
+    dtype = array.dtype
+    lead = tuple(array.shape[:-2])
+    src_h, src_w = array.shape[-2], array.shape[-1]
+    x = array.reshape((-1, src_h, src_w))
+    if x.stride(2) != 1:
+        x = x.contiguous()
+    out = torch.empty(
+        (x.shape[0], out_h, out_w), dtype=reduce_dtype(dtype, agg), device=array.device
+    )
+    if out.numel() == 0:
+        return out.reshape(lead + (out_h, out_w))
+    pa, pb = pick_tap(agg, j_div, i_div)
+    lib = _build.load()
+    with torch.cuda.device(array.device):
+        rc = lib.xrt_affine_gather_reduce(
+            x.data_ptr(), out.data_ptr(), x.shape[0], src_h, src_w, x.stride(0),
+            x.stride(1), out_h, out_w, j_div, i_div, float(j_scale), float(i_scale),
+            float(j_off), float(i_off), fill_as(fill_value, float_dtype(dtype)),
+            REDUCERS[agg], pa, pb, DTYPE_CODES[dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "affine_gather_reduce")
+    count_launch("affine_gather_reduce")
     return out.reshape(lead + (out_h, out_w))
