@@ -34,18 +34,20 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 4. holds each kernel against its plain version on CUDA tensors at the
    headline's shapes, at the 4326 -> UTM shapes on inputs with NaN rows,
    on a geometry whose tap windows clip at the source's top and bottom
-   edges, and (K3) on a ragged EPSG:3035 target, for every method; K4 for
-   both orders on four dtypes with a NaN cell, a negative scale and a
-   numeric fill, K5 for every reducer on float32 with all-NaN windows and
-   on int32, K4's downscale form against its plain version and against
-   K4 -> K5 on the card for every dtype and K5 reducer (all-NaN windows,
-   a fill edge, a flipped axis, a strided view), K6 for mode and median
-   at 4, 9, 16, 25, 64, 81 and 1024 taps with ties, NaN and +-0.0; times
-   each kernel and its plain version at the main path's shapes beside one
-   PyTorch call where one computes the same function (K3 and K4
-   ``F.grid_sample``, K5 ``torch.nanmean`` and a strided copy, K6
-   ``torch.mode``; none for the downscale form), and the downscale form
-   beside the chain K4 -> K5 it replaces, two ways: one
+   edges, and (K3) on a ragged EPSG:3035 target, for every method; K4 at
+   BASELINE #2's ``c`` and for both orders on four dtypes with a NaN
+   cell, a negative scale and a numeric fill, K5 for every reducer on
+   float32 with all-NaN windows and on int32, K4's downscale form against
+   its plain version and against K4 -> K5 on the card for every dtype and
+   K5 reducer (all-NaN windows, a fill edge, a flipped axis, a strided
+   view), K6 for mode and median at 4, 9, 16, 25, 64, 81 and 1024 taps
+   with ties, NaN and +-0.0; times each kernel and its plain version at
+   the main path's shapes beside one PyTorch call where one computes the
+   same function (K3 ``F.grid_sample``, K4 a copy at BASELINE #2's ``c``
+   and ``F.grid_sample`` at BASELINE #1, K5 and the downscale form at
+   BASELINE #1 ``torch.nanmean``, K5 a strided copy for ``first``, K6
+   ``torch.mode``), and the downscale form beside the chain K4 -> K5 it
+   replaces, two ways: one
    warm call between two CUDA events on an idle card (``ms``: device time
    and the host's enqueue of the call) and warm calls queued behind a
    sleep on the card (``device_ms``: device time alone); and computes each
@@ -128,13 +130,14 @@ def reduce_bound(x, j_div, i_div, agg, out_itemsize):
 
 
 def rank_bound(x, j_div, i_div):
-    """K6 reads every input once and writes every output once; per output
-    w (w - 1) / 2 compares of tap pairs, each counted for both taps (two
-    adds): 3 w (w - 1) / 2 operations (w taps)."""
+    """K6 reads every input once and writes every output once; a mode or
+    median must compare each tap at least once (one operation a tap: a
+    selection takes O(w) compares, a sort O(w log w), so any count above
+    that could exceed what the function needs)."""
     taps = j_div * i_div
     n_out = x.numel() // taps
     n_bytes = x.numel() * x.element_size() + n_out * x.element_size()
-    return bound(n_bytes, 3 * taps * (taps - 1) // 2 * n_out)
+    return bound(n_bytes, x.numel())
 
 
 def gather_reduce_bound(x, residual, out_h, out_w, j_div, i_div, agg, out_itemsize):
@@ -297,9 +300,9 @@ def main() -> int:
         print(f"  {source}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"at most {max(spills, default=0)} bytes spilled, "
               f"{max(stack, default=0)} bytes of stack frame")
-    # K6's register kernels (windows of up to 16, 32 and 64 taps in
+    # K6's register kernels (windows of up to 16 and 32 taps in
     # registers): no spill, no local memory
-    for cap in (16, 32, 64):
+    for cap in (16, 32):
         regs_k = [k for k in ptxas_kernels(build.log, "coarsen_rank_regs_kernel")
                   if f"Li{cap}E" in k[0]]
         if regs_k:
@@ -526,8 +529,7 @@ def main() -> int:
 
     timings = {}
     bounds = {}
-    library = {"srw_vertical": (None, None), "srw_horizontal": (None, None),
-               "affine_gather_reduce": (None, None)}
+    library = {"srw_vertical": (None, None), "srw_horizontal": (None, None)}
 
     # -- 1. the headline: 20480^2 UTM32N -> EPSG:3035 bilinear ----------------
     n = 20480
@@ -1086,7 +1088,7 @@ def main() -> int:
                             kind, f"K5 {x.dtype} {window} {agg}")
                 err["coarsen_reduce"] = max(err["coarsen_reduce"], d)
     # ties (values in [0, 6)), NaN taps and all-NaN windows, and zeros of
-    # both signs: 4, 9, 16, 25 and 64 taps from registers, 81 staged
+    # both signs: 4, 9, 16 and 25 taps from registers, 64 and 81 staged
     ties = torch.randint(0, 6, (2, 720, 720), generator=gen, device=dev, dtype=torch.int32)
     ftie = (ties.float() * 0.25).masked_fill(torch.rand(ties.shape, generator=gen, device=dev) < 0.2, nan)
     ftie = torch.where((ties == 0) & (torch.rand(ties.shape, generator=gen, device=dev) < 0.5),
@@ -1112,13 +1114,30 @@ def main() -> int:
           f"16, 25, 64, 81 and (unstaged) 1024 taps, int32, int16, uint8, float32 and "
           f"float64 with ties, NaN and zeros of both signs: equal")
 
+    # K4 where the main path launches it: BASELINE #2's `c` (int32, the
+    # exact 4x downscale's identity residual gather before K6); there the
+    # same function is a copy (every position on a source pixel)
+    c_k4 = (b2c, 1.0, 1.0, 0.0, 0.0, 4096, 4096, 1, -1)
+    err["affine_gather"] = max(err["affine_gather"], compare(
+        affine_gather(*c_k4), affine_gather_plain(*c_k4), "exact",
+        "K4 at BASELINE #2's c vs plain"))
+    timings["affine_gather"] = time_pair(
+        lambda: affine_gather(*c_k4), lambda: affine_gather_plain(*c_k4)
+    )
+    bounds["affine_gather"] = affine_gather_bound(b2c, 4096, 4096, 1)
+    library["affine_gather"] = (event_ms(b2c.clone), device_ms(b2c.clone))
+    print(
+        f"{tag} affine_gather bilinear identity at BASELINE #2's c (4x4096^2 int32): "
+        f"{timings['affine_gather'][0]:.4f} ms (device {timings['affine_gather'][2]:.4f}), "
+        f"plain {timings['affine_gather'][1]:.3f}, bound {bounds['affine_gather'][0]:.4f} "
+        f"({bounds['affine_gather'][1]}), the same function as a copy (clone) "
+        f"{library['affine_gather'][0]:.4f} (device {library['affine_gather'][1]:.4f})"
+    )
     # K4 and K5 at BASELINE #1's shapes, K6 at BASELINE #2's
     b1_args = (b1, 1.0, 1.0, 0.0, 0.0, 1024, 1024, 1, nan)
     b1_up = affine_gather(*b1_args)
-    timings["affine_gather"] = time_pair(
-        lambda: affine_gather(*b1_args), lambda: affine_gather_plain(*b1_args)
-    )
-    bounds["affine_gather"] = affine_gather_bound(b1, 1024, 1024, 1)
+    k4_b1 = time_pair(lambda: affine_gather(*b1_args), lambda: affine_gather_plain(*b1_args))
+    k4_b1_bound = affine_gather_bound(b1, 1024, 1024, 1)
     lin = torch.arange(1024, dtype=torch.float32, device=dev) / 1023 * 2 - 1
     grid = torch.stack(torch.meshgrid(lin, lin, indexing="xy"), dim=-1)[None]
 
@@ -1127,7 +1146,7 @@ def main() -> int:
                              align_corners=True)
 
     diff = (k4_library()[0] - b1_up).abs().max().item()
-    library["affine_gather"] = (event_ms(k4_library), device_ms(k4_library))
+    k4_b1_library = (event_ms(k4_library), device_ms(k4_library))
     timings["coarsen_reduce"] = time_pair(
         lambda: coarsen_reduce(b1_up, 2, 2, "mean"), lambda: coarsen_plain(b1_up, 2, 2, "mean")
     )
@@ -1139,10 +1158,9 @@ def main() -> int:
     )
     print(
         f"{tag} BASELINE #1 shapes (16x1024^2 float32): affine_gather bilinear "
-        f"{timings['affine_gather'][0]:.4f} ms (device {timings['affine_gather'][2]:.4f}), "
-        f"plain {timings['affine_gather'][1]:.3f}, bound {bounds['affine_gather'][0]:.4f} "
-        f"({bounds['affine_gather'][1]}), F.grid_sample {library['affine_gather'][0]:.4f} "
-        f"(device {library['affine_gather'][1]:.4f}; max abs diff to K4 {diff:.3g}); "
+        f"{k4_b1[0]:.4f} ms (device {k4_b1[2]:.4f}), plain {k4_b1[1]:.3f}, bound "
+        f"{k4_b1_bound[0]:.4f} ({k4_b1_bound[1]}), F.grid_sample {k4_b1_library[0]:.4f} "
+        f"(device {k4_b1_library[1]:.4f}; max abs diff to K4 {diff:.3g}); "
         f"coarsen_reduce mean 2x2 {timings['coarsen_reduce'][0]:.4f} ms (device "
         f"{timings['coarsen_reduce'][2]:.4f}), plain {timings['coarsen_reduce'][1]:.3f}, "
         f"bound {bounds['coarsen_reduce'][0]:.4f} ({bounds['coarsen_reduce'][1]}), "
@@ -1150,7 +1168,9 @@ def main() -> int:
         f"{library['coarsen_reduce'][1]:.4f})"
     )
     # K4's downscale form at BASELINE #1 (2x2 means of the identity
-    # residual gather), beside the chain K4 -> K5 it replaces there
+    # residual gather), beside the chain K4 -> K5 it replaces there; with
+    # the identity gather and no NaN in b1 it is the 2x2 NaN-aware mean of
+    # b1, which torch.nanmean over the window view computes (in float32)
     b1_fused = (b1, 1.0, 1.0, 0.0, 0.0, 512, 512, 2, 2, "mean", nan)
     compare(affine_gather_reduce(*b1_fused), coarsen_reduce(b1_up, 2, 2, "mean"), "exact",
             "BASELINE #1 downscale form vs K4 -> K5")
@@ -1159,15 +1179,23 @@ def main() -> int:
     )
     identity = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
     bounds["affine_gather_reduce"] = gather_reduce_bound(b1, identity, 512, 512, 2, 2, "mean", 4)
+    b1_src_windows = window_reshape(b1, 2, 2)
+    library["affine_gather_reduce"] = (
+        event_ms(lambda: torch.nanmean(b1_src_windows, dim=(-3, -1))),
+        device_ms(lambda: torch.nanmean(b1_src_windows, dim=(-3, -1))),
+    )
+    lib_diff = (torch.nanmean(b1_src_windows, dim=(-3, -1))
+                - affine_gather_reduce(*b1_fused)).abs().max().item()
     k, p, kd = timings["affine_gather_reduce"]
     print(
         f"{tag} affine_gather_reduce mean 2x2 at BASELINE #1: {k:.4f} ms (device {kd:.4f}), "
         f"plain {p:.3f}, bound {bounds['affine_gather_reduce'][0]:.4f} "
         f"({bounds['affine_gather_reduce'][1]}); the chain K4 -> K5 it replaces: device "
-        f"{timings['affine_gather'][2] + timings['coarsen_reduce'][2]:.4f} ms; no single "
-        f"PyTorch call computes it"
+        f"{k4_b1[2] + timings['coarsen_reduce'][2]:.4f} ms; torch.nanmean over b1's 2x2 "
+        f"windows {library['affine_gather_reduce'][0]:.4f} (device "
+        f"{library['affine_gather_reduce'][1]:.4f}; max abs diff {lib_diff:.3g})"
     )
-    del b1_up, b1_windows, grid
+    del b1_up, b1_windows, b1_src_windows, grid
     for agg, x in (("mean", b2a), ("first", b2b)):
         # the affine route's downscale form beside its chain (identity K4, K5)
         b2_fused = (x, 1.0, 1.0, 0.0, 0.0, 1024, 1024, 4, 4, agg, nan)
@@ -1269,9 +1297,9 @@ def main() -> int:
             "plain_ms": timings[name][1],
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
-            # K1, K2: no single PyTorch call computes a tap pass, nor the
-            # downscale form; K3: the F.grid_sample yardstick at the
-            # 4326 -> UTM shape; K4 F.grid_sample, K5 torch.nanmean
+            # K1, K2: no single PyTorch call computes a tap pass; K3: the
+            # F.grid_sample yardstick at the 4326 -> UTM shape; K4 a copy
+            # (BASELINE #2's c), the downscale form and K5 torch.nanmean
             # (BASELINE #1), K6 torch.mode (BASELINE #2)
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone

@@ -27,7 +27,7 @@ Semantics, those of ``coarsen_jax`` under x64:
   only for an all-NaN window (NaN never equals itself), whatever the
   formulation: :func:`_mode_plain` keeps both of JAX's (pairwise for up to
   64 taps, sort and run length above), K6 counts pairs for every size
-  (each pair once, from registers up to 64 taps);
+  (each pair once, from registers up to 32 taps);
 * ``median``: the middle of the valid taps; of an even count
   ``(lo + hi) * 0.5`` in the data's float type (float64 for integers,
   then ``rint``), as ``jnp.nanmedian`` gives it.  ``torch.nanmedian`` is
@@ -61,7 +61,7 @@ RANKS = {"mode": 0, "median": 1}
 #: O(w log w) sort-based mode (the JAX package's _MODE_PAIRWISE_MAX_W)
 _MODE_PAIRWISE_MAX_W = 64
 
-# K6 holds windows of up to 64 taps in registers; above, it stages each
+# K6 holds windows of up to 32 taps in registers; above, it stages each
 # thread's window in shared memory up to this many bytes a block (else it
 # reads the taps from device memory)
 RANK_SMEM = 96 * 1024
@@ -242,7 +242,7 @@ def coarsen_reduce(array, j_div: int, i_div: int, agg: str):
 
 
 def rank_block_threads(taps: int, itemsize: int) -> int:
-    """K6's threads a block for windows above 64 taps: the most of 128, 64
+    """K6's threads a block for windows above 32 taps: the most of 128, 64
     or 32 whose windows fit :data:`RANK_SMEM`; 0 where not even 32 fit
     (the kernel then reads its taps from device memory, 128 threads a
     block).  Smaller windows live in registers and ignore it."""
