@@ -38,20 +38,15 @@ sys.path.insert(0, str(ROOT))
 # it stands
 VARIANTS = {
     "affine_gather.cu": (
-        ("rows4 t128", {"kTileRows": 4, "kThreads": 128}),
-        ("rows2 t128", {"kTileRows": 2}),
-        ("rows8 t128", {"kTileRows": 8}),
+        ("rows8 t128", {"kTileRows": 8, "kThreads": 128}),
+        ("rows4 t128", {"kTileRows": 4}),
         ("rows16 t128", {"kTileRows": 16}),
-        ("rows4 t64", {"kThreads": 64}),
-        ("rows4 t256", {"kThreads": 256}),
+        ("rows8 t64", {"kThreads": 64}),
+        ("rows8 t256", {"kThreads": 256}),
     ),
     "affine_gather_reduce.cu": (
-        ("as is", {}),
-        ("min blocks 4", {"kMinBlocks": 4}),
-        ("min blocks 6", {"kMinBlocks": 6}),
-        ("min blocks 8", {"kMinBlocks": 8}),
+        ("t128", {"kThreads": 128}),
         ("t64", {"kThreads": 64}),
-        ("t256", {"kThreads": 256}),
     ),
 }
 

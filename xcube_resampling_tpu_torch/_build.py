@@ -129,16 +129,28 @@ def _library_path() -> Path:
 
 def _run(procs: list[tuple[str, subprocess.Popen]], t0: float) -> str:
     """Wait for every process; their output, each headed by its name and
-    the seconds since *t0* by which it had ended, or ``RuntimeError``
-    naming the ones that failed (the others are waited for first)."""
-    log, failed = [], []
-    for name, proc in procs:
+    the seconds since *t0* at which it ended, or ``RuntimeError`` naming
+    the ones that failed (the others are waited for first).  Each process
+    is drained by a thread of its own, so none waits on a full pipe."""
+    ends: dict[str, tuple[str, float]] = {}
+
+    def drain(name: str, proc: subprocess.Popen) -> None:
         try:
             out, _ = proc.communicate(timeout=600)
         except subprocess.TimeoutExpired:
             proc.kill()
             out, _ = proc.communicate()
-        log.append(f"== {name} ({time.perf_counter() - t0:.1f} s)\n{out}")
+        ends[name] = (out, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=drain, args=p) for p in procs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    log, failed = [], []
+    for name, proc in procs:
+        out, end = ends[name]
+        log.append(f"== {name} ({end:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(f"{name} ({proc.returncode})")
     text = "".join(log)

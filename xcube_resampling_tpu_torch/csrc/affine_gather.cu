@@ -24,12 +24,14 @@
 // recomputed for every pixel, 64-bit offsets) and a grid of one block per
 // 64 x 16 outputs.  Design: a block owns a tile of kTileCols columns,
 // whose column table (tap, fractions, validity) it computes once in shared
-// memory, and walks row tiles of kTileRows rows (one row table each) over
-// every band, on a grid sized to the SMs (one wave).  A thread owns kVec
-// adjacent columns of a row: it loads the source columns its taps reach
-// together, lerps each once (bilinear_row), and stores the kVec results as
-// one vector where out_w % kVec == 0.  Offsets inside a plane are 32-bit where every
-// source offset of the plane is below 2^31, 64-bit otherwise.
+// memory, and walks row tiles of kTileRows rows (one row table each; 8 was
+// the fastest of 2 to 16 at the main path's shapes, by
+// tools/tune_affine_gather.py) over every band, on a grid sized to the SMs
+// (one wave).  A thread owns kVec adjacent columns of a row: it loads the
+// source columns its taps reach together, lerps each once (bilinear_row),
+// and stores the kVec results as one vector where out_w % kVec == 0.
+// Offsets inside a plane are 32-bit where every source offset of the plane
+// is below 2^31, 64-bit otherwise.
 #include "affine_gather.h"
 
 namespace {
@@ -39,7 +41,7 @@ using namespace xrt;
 constexpr int kThreads = 128;                // threads of a block
 constexpr int kVec = 4;                      // adjacent output columns of a thread
 constexpr int kTileCols = kThreads * kVec;   // output columns of a block
-constexpr int kTileRows = 4;                 // output rows of a row tile
+constexpr int kTileRows = 8;                 // output rows of a row tile
 
 struct Args {
   const void* src;

@@ -19,21 +19,20 @@
 // 1.78 GB, 0.53 ms).  Per inflated pixel it converts about 4.4 values
 // between float32 and float64 and takes about 9 float64 operations, which
 // at 16 conversions and 64 operations a clock on an SM is of the same
-// order.  Design (the register kernel, windows up to kMaxWidth wide,
-// templated on a width W of 2, 4 or 8): a thread owns one output column
-// and walks the output rows of every band (a grid-stride loop, the grid
-// one wave on the SMs).  Its window's inflated columns are the same in
-// every row, so it takes their taps and fractions once, into registers
-// (Columns).  Neighbouring taps share source columns (residual scales
-// below 1 in magnitude), so for each window row (the reducer's row(r)) a
-// tap loads and lerps only its one new column, together with the other
-// taps' loads, and takes its other column's lerp from the previous tap:
-// one row lerp per source column the row reaches.  The row's inflated
-// pixels stay in registers, and the reducer, unrolled in full to W,
-// reads them by constant indices.  std and var take the window twice
-// (their centred pass).  A positional pick, which needs one tap a window,
-// and windows wider than kMaxWidth take the direct kernel: the taps
-// computed as the reducer asks for them.  Offsets are 64-bit.
+// order.  Design (the cached kernel, windows up to kMaxWidth wide): a
+// thread owns one output column and walks the output rows of every band
+// (a grid-stride loop, the grid one wave on the SMs).  Its window's
+// inflated columns are the same in every row, so it takes their taps and
+// fractions once, relative to the first of the source columns they reach
+// (at most kMaxWidth + 1), into its slice of shared memory.  For each
+// window row (the reducer's row(r)) it loads the two source rows at those
+// columns together, lerps each column once and keeps the lerps in pairs (a
+// column's and its right tap's); each tap (the reducer's tap(q), four
+// unrolled at a time) is then one pair and one column lerp, rounded to T.
+// std and var take the window twice (their centred pass).  A positional
+// pick, which needs one tap a window, and windows wider than kMaxWidth
+// take the direct kernel: the taps computed as the reducer asks for them.
+// Offsets are 64-bit.
 #include <climits>
 
 #include "affine_gather.h"
@@ -44,10 +43,11 @@ namespace {
 using namespace xrt;
 
 constexpr int kThreads = 128;
-// windows up to this wide take the register kernel
+// the cached kernel takes windows up to kMaxWidth wide; their rows reach at
+// most kMaxWidth + 1 source columns (residual scales up to 1), kept for
+// kMaxCols
 constexpr int kMaxWidth = 8;
-// the blocks an SM the register kernel keeps registers for
-constexpr int kMinBlocks = 1;
+constexpr int kMaxCols = kMaxWidth + 2;
 
 struct Args {
   const void* src;
@@ -56,114 +56,113 @@ struct Args {
   double j_scale, i_scale, j_off, i_off, fill;
 };
 
-// A thread's window columns, the same in every output row: per tap q its
-// clipped tap column x0 (the right tap min(x0 + 1, src_w - 1)) and
-// fraction, and bit q of ok (inside the source), keep (the same columns as
-// tap q - 1) and step (moved by one column in the direction of the scan).
-// Moving right (i_scale >= 0) a step's left column is the previous tap's
-// right one; moving left its right column is the previous tap's left one.
-// Any other move (only tap 0, bar rounding at an integer) lerps both.
-template <int W>
-struct Columns {
-  int x0[W];
-  double f[W];
-  uint32_t ok, keep, step;
-};
-
-template <int W>
-__device__ __forceinline__ Columns<W> window_columns(const Args& a, int64_t oi, bool right) {
-  Columns<W> c;
-  c.ok = c.keep = c.step = 0u;
-#pragma unroll
-  for (int q = 0; q < W; ++q) {
-    if (q < a.id) {
-      const Axis<int> ax = bilinear_axis<int>(oi * a.id + q, a.i_scale, a.i_off, a.src_w);
-      c.x0[q] = ax.t0;
-      c.f[q] = ax.f;
-      c.ok |= static_cast<uint32_t>(ax.ok) << q;
-      if (q > 0) {
-        const int d = ax.t0 - c.x0[q - 1];
-        c.keep |= static_cast<uint32_t>(d == 0) << q;
-        c.step |= static_cast<uint32_t>(d == (right ? 1 : -1)) << q;
-      }
-    }
-  }
-  return c;
+// The cached kernel's shared memory a thread: its window columns' taps
+// (int, -1 outside) and fractions, and the row lerps of its source columns
+// in pairs (lerp at column m, lerp at its right tap column), each array
+// laid out [entry][thread] so that a warp's accesses fall on distinct banks.
+__host__ __device__ inline size_t cached_smem(int nt, int id) {
+  return static_cast<size_t>(nt) * (id * (sizeof(int) + sizeof(double)) +
+                                    kMaxCols * sizeof(double2));
 }
 
-// The inflated pixels of one window row in registers (the register
-// kernel): row(r) loads each tap's new column of the row's two source rows
-// (its right tap moving right, its left moving left) together, lerps it,
-// takes the other column's lerp from the previous tap, and rounds the
-// column lerps to T; the reducer then reads the row by constant indices.
-template <typename T, int W>
-struct RegisterTaps {
+// The inflated pixels of one window, as the reducer asks for them (the
+// cached kernel).
+template <typename T>
+struct CachedTaps {
   const Args& a;
-  const T* p;  // the band's plane
-  int64_t j0;  // the window's first inflated row
-  const Columns<W>& c;
-  bool right;
+  const T* p;          // the band's plane, at the thread's first source column
+  int64_t j0;          // the window's first inflated row
+  int ncols, nt;       // the thread's source columns; the table's stride
+  const int* d0;       // [q * nt]: the tap column, relative (-1: outside)
+  const double* fx;    // [q * nt]
+  double2* pairs;      // [m * nt]
   T fill;
 
-  __device__ __forceinline__ int x1(int q) const {
-    return c.x0[q] + 1 < a.src_w ? c.x0[q] + 1 : static_cast<int>(a.src_w - 1);
+  // The lerps of source rows p0 and p1 at the thread's first M >= ncols
+  // columns, loaded together, into the pairs.
+  template <int M>
+  __device__ __forceinline__ void lerp_row(const T* p0, const T* p1, double fy, double gy) {
+    T v0[M], v1[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      if (m < ncols) {
+        v0[m] = p0[m];
+        v1[m] = p1[m];
+      }
+    }
+    double c[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      if (m < ncols) c[m] = row_lerp(v0[m], v1[m], fy, gy);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      // the right tap of the last column is the column itself
+      if (m < ncols) pairs[m * nt] = make_double2(c[m], m + 1 < ncols ? c[m + 1] : c[m]);
+    }
   }
 
-  __device__ __forceinline__ auto row(int64_t r) const {
+  // Window row r: its two source rows lerped at the thread's columns into
+  // the pairs; then each tap is one pair and one column lerp.
+  __device__ __forceinline__ auto row(int64_t r) {
     const Axis<int64_t> ax = bilinear_axis<int64_t>(j0 + r, a.j_scale, a.j_off, a.src_h);
-    const T* p0 = p + ax.t0 * a.pitch_h;
-    const T* p1 = p + (ax.t0 + 1 < a.src_h ? ax.t0 + 1 : a.src_h - 1) * a.pitch_h;
-    T n0[W], n1[W];
-#pragma unroll
-    for (int q = 0; q < W; ++q) {
-      if (q < a.id) {
-        const int x = right ? x1(q) : c.x0[q];
-        n0[q] = p0[x];
-        n1[q] = p1[x];
+    const bool ok = ax.ok && ncols > 0;
+    if (ok) {
+      const T* p0 = p + ax.t0 * a.pitch_h;
+      const T* p1 = p + (ax.t0 + 1 < a.src_h ? ax.t0 + 1 : a.src_h - 1) * a.pitch_h;
+      // as few load slots as the window's width needs (i_div + 2)
+      if (a.id <= 2) {
+        lerp_row<4>(p0, p1, ax.f, ax.g);
+      } else if (a.id <= 4) {
+        lerp_row<6>(p0, p1, ax.f, ax.g);
+      } else {
+        lerp_row<kMaxCols>(p0, p1, ax.f, ax.g);
       }
     }
-    const int o = right ? c.x0[0] : x1(0);
-    const T o0 = p0[o], o1 = p1[o];
-    double lo = 0.0, hi = 0.0;  // the lerps at the tap's left and right columns
-    T v[W];
-#pragma unroll
-    for (int q = 0; q < W; ++q) {
-      if (q < a.id) {
-        const double fresh = row_lerp(n0[q], n1[q], ax.f, ax.g);
-        if (q == 0 || !((c.keep | c.step) >> q & 1u)) {
-          double other;
-          if (q == 0) {
-            other = row_lerp(o0, o1, ax.f, ax.g);
-          } else {
-            const int x = right ? c.x0[q] : x1(q);
-            other = row_lerp(p0[x], p1[x], ax.f, ax.g);
-          }
-          lo = right ? other : fresh;
-          hi = right ? fresh : other;
-        } else if (c.step >> q & 1u) {
-          if (right) {
-            lo = hi;
-            hi = fresh;
-          } else {
-            hi = lo;
-            lo = fresh;
-          }
-        }
-        v[q] = ax.ok && (c.ok >> q & 1u) ? round_from<T>(lo * (1.0 - c.f[q]) + hi * c.f[q])
-                                          : fill;
-      }
-    }
-    return [v](int q) -> T { return v[q]; };
+    const int* d0_ = d0;
+    const double* fx_ = fx;
+    const double2* pairs_ = pairs;
+    const int nt_ = nt;
+    const T fill_ = fill;
+    return [=](int64_t q) -> T {
+      const int d = d0_[q * nt_];
+      const double f = fx_[q * nt_];
+      const double2 c = pairs_[(d > 0 ? d : 0) * nt_];
+      const T v = round_from<T>(c.x * (1.0 - f) + c.y * f);
+      return ok && d >= 0 ? v : fill_;
+    };
   }
 };
 
-template <typename T, int AGG, int W>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) affine_gather_reduce_regs(const Args a) {
+template <typename T, int AGG>
+__global__ void __launch_bounds__(kThreads) affine_gather_reduce_cached(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   using O = typename OutType<T, AGG>::type;
-  const int64_t oi = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int id = static_cast<int>(a.id);
+  double2* pairs = reinterpret_cast<double2*>(smem) + tid;
+  double* fx = reinterpret_cast<double*>(smem + sizeof(double2) * kMaxCols * nt) + tid;
+  int* d0 = reinterpret_cast<int*>(smem + (sizeof(double2) * kMaxCols + sizeof(double) * id) * nt) + tid;
+  const int64_t oi = static_cast<int64_t>(blockIdx.x) * nt + tid;
   if (oi >= a.ow) return;
-  const bool right = a.i_scale >= 0.0;
-  const Columns<W> cols = window_columns<W>(a, oi, right);
+  // the window's columns: taps and fractions, and the source columns
+  // x_base .. x_base + ncols - 1 that they reach
+  int64_t x_base = a.src_w, x_end = -1;
+  for (int q = 0; q < id; ++q) {
+    const Axis<int64_t> ax = bilinear_axis<int64_t>(oi * a.id + q, a.i_scale, a.i_off, a.src_w);
+    if (ax.ok) {
+      x_base = ax.t0 < x_base ? ax.t0 : x_base;
+      const int64_t x1 = ax.t0 + 1 < a.src_w ? ax.t0 + 1 : a.src_w - 1;
+      x_end = x1 > x_end ? x1 : x_end;
+    }
+  }
+  const int ncols = x_end >= 0 ? static_cast<int>(x_end - x_base + 1) : 0;
+  for (int q = 0; q < id; ++q) {
+    const Axis<int64_t> ax = bilinear_axis<int64_t>(oi * a.id + q, a.i_scale, a.i_off, a.src_w);
+    d0[q * nt] = ax.ok ? static_cast<int>(ax.t0 - x_base) : -1;
+    fx[q * nt] = ax.f;
+  }
   const T* __restrict__ src = static_cast<const T*>(a.src);
   O* __restrict__ out = static_cast<O*>(a.out);
   const T fill = round_from<T>(a.fill);
@@ -181,8 +180,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) affine_gather_reduce_reg
         ++b;
       }
     }
-    RegisterTaps<T, W> taps{a, src + b * a.pitch_b, oj * a.jd, cols, right, fill};
-    out[row * a.ow + oi] = reduce<T, AGG, W>(taps, a.jd, a.id, a.pa, a.pb);
+    CachedTaps<T> taps{a, src + b * a.pitch_b + (ncols > 0 ? x_base : 0), oj * a.jd,
+                       ncols, nt, d0, fx, pairs, fill};
+    out[row * a.ow + oi] = reduce<T, AGG>(taps, a.jd, a.id, a.pa, a.pb);
   }
 }
 
@@ -228,26 +228,25 @@ __global__ void __launch_bounds__(kThreads) affine_gather_reduce_direct(const Ar
   }
 }
 
-// Blocks of kThreads across the output width, one wave of them down (a
+// Blocks of *threads* across the output width, one wave of them down (a
 // grid-stride loop over the rows).
 template <typename K>
-cudaError_t launch_grid(K kernel, const Args& a, cudaStream_t s) {
-  const int64_t cols = (a.ow + kThreads - 1) / kThreads;
+cudaError_t launch_grid(K kernel, const Args& a, int threads, size_t smem, cudaStream_t s) {
+  const int64_t cols = (a.ow + threads - 1) / threads;
   unsigned rows = 1;
-  const cudaError_t e = wave_rows(kernel, kThreads, 0, cols, a.n_rows, &rows);
+  const cudaError_t e = wave_rows(kernel, threads, smem, cols, a.n_rows, &rows);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(static_cast<unsigned>(cols), rows), kThreads, 0, s>>>(a);
+  kernel<<<dim3(static_cast<unsigned>(cols), rows), threads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int AGG>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  if constexpr (AGG != kPick) {
-    if (a.id <= 2) return launch_grid(affine_gather_reduce_regs<T, AGG, 2>, a, s);
-    if (a.id <= 4) return launch_grid(affine_gather_reduce_regs<T, AGG, 4>, a, s);
-    if (a.id <= kMaxWidth) return launch_grid(affine_gather_reduce_regs<T, AGG, kMaxWidth>, a, s);
+  if (AGG != kPick && a.id <= kMaxWidth) {
+    return launch_grid(affine_gather_reduce_cached<T, AGG>, a, kThreads,
+                       cached_smem(kThreads, static_cast<int>(a.id)), s);
   }
-  return launch_grid(affine_gather_reduce_direct<T, AGG>, a, s);
+  return launch_grid(affine_gather_reduce_direct<T, AGG>, a, kThreads, 0, s);
 }
 
 }  // namespace

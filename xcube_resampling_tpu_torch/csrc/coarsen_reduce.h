@@ -2,14 +2,14 @@
 // downscale form (affine_gather_reduce.cu), so that the two reduce a
 // window with the same code and cannot drift apart.
 //
-// reduce<T, AGG, W>(taps, jd, id, pa, pb) reduces a jd x id window through
-// an accessor: taps.row(r) prepares window row r and returns f, and f(q)
-// is the tap (r, q).  K5 reads the taps from device memory, the downscale
-// form gathers them from the source (a row's taps gathered into registers
-// in row(r)).  The rows are asked for in order (a second pass for std and
-// var starts again at row 0), and a row's taps in order (each_tap): four
-// at a time unrolled so that their loads overlap, or, for rows at most W
-// wide, unrolled in full; a pick asks for its one tap (pa, pb).
+// reduce<T, AGG>(taps, jd, id, pa, pb) reduces a jd x id window through an
+// accessor: taps.row(r) prepares window row r and returns f, and f(q) is
+// the tap (r, q).  K5 reads the taps from device memory, the downscale
+// form gathers them from the source (a row's source columns loaded and
+// lerped in row(r)).  The rows are asked for in order (a second pass for
+// std and var starts again at row 0), and a row's taps in order, four at a
+// time unrolled so that their loads overlap; a pick asks for its one tap
+// (pa, pb).
 //   mean, std, var: NaN-aware float64 moments of the valid taps (two
 //     passes: the mean, then the centred squares), rounded once to the
 //     data type (rint and saturation for integers); NaN for an all-NaN
@@ -43,23 +43,7 @@ struct OutType {
           T>::type>::type;
 };
 
-// f(q) for the taps q < id of a window row, in order: four at a time
-// unrolled (W = 0), or in full for rows at most W wide, so that an
-// accessor that holds its row in registers is indexed by constants.
-template <int W, typename F>
-__device__ __forceinline__ void each_tap(int64_t id, F&& f) {
-  if constexpr (W > 0) {
-#pragma unroll
-    for (int q = 0; q < W; ++q) {
-      if (q < id) f(q);
-    }
-  } else {
-#pragma unroll 4
-    for (int64_t q = 0; q < id; ++q) f(q);
-  }
-}
-
-template <typename T, int AGG, int W = 0, typename Taps>
+template <typename T, int AGG, typename Taps>
 __device__ __forceinline__ typename OutType<T, AGG>::type reduce(
     Taps& taps, int64_t jd, int64_t id, int64_t pa, int64_t pb) {
   using O = typename OutType<T, AGG>::type;
@@ -68,33 +52,36 @@ __device__ __forceinline__ typename OutType<T, AGG>::type reduce(
   } else if constexpr (AGG == kCount) {
     int64_t c = 0;
     for (int64_t r = 0; r < jd; ++r) {
-      const auto tap = taps.row(r);
-      each_tap<W>(id, [&](auto q) { c += tap(q) != T(0); });
+      auto tap = taps.row(r);
+#pragma unroll 4
+      for (int64_t q = 0; q < id; ++q) c += tap(q) != T(0);
     }
     return c;
   } else if constexpr (AGG == kMin || AGG == kMax) {
     T m{};
     bool have = false;
     for (int64_t r = 0; r < jd; ++r) {
-      const auto tap = taps.row(r);
-      each_tap<W>(id, [&](auto q) {
+      auto tap = taps.row(r);
+#pragma unroll 4
+      for (int64_t q = 0; q < id; ++q) {
         const T v = tap(q);
         if (r == 0 && q == 0) m = v;  // the result when every tap is NaN
-        if (is_nan(v)) return;
+        if (is_nan(v)) continue;
         if (!have || (AGG == kMin ? v < m : v > m)) m = v;
         have = true;
-      });
+      }
     }
     return m;
   } else if constexpr (!std::is_floating_point<T>::value && (AGG == kSum || AGG == kProd)) {
     // two's complement wraps alike for signed and unsigned data
     uint64_t acc = AGG == kSum ? 0u : 1u;
     for (int64_t r = 0; r < jd; ++r) {
-      const auto tap = taps.row(r);
-      each_tap<W>(id, [&](auto q) {
+      auto tap = taps.row(r);
+#pragma unroll 4
+      for (int64_t q = 0; q < id; ++q) {
         const uint64_t v = static_cast<uint64_t>(static_cast<int64_t>(tap(q)));
         acc = AGG == kSum ? acc + v : acc * v;
-      });
+      }
     }
     return static_cast<O>(acc);
   } else {
@@ -102,13 +89,14 @@ __device__ __forceinline__ typename OutType<T, AGG>::type reduce(
     double acc = AGG == kProd ? 1.0 : 0.0;
     int64_t n = 0;
     for (int64_t r = 0; r < jd; ++r) {
-      const auto tap = taps.row(r);
-      each_tap<W>(id, [&](auto q) {
+      auto tap = taps.row(r);
+#pragma unroll 4
+      for (int64_t q = 0; q < id; ++q) {
         const T v = tap(q);
-        if (is_nan(v)) return;
+        if (is_nan(v)) continue;
         acc = AGG == kProd ? acc * static_cast<double>(v) : acc + static_cast<double>(v);
         ++n;
-      });
+      }
     }
     if constexpr (AGG == kSum || AGG == kProd) {
       return static_cast<O>(acc);  // float data only
@@ -119,13 +107,14 @@ __device__ __forceinline__ typename OutType<T, AGG>::type reduce(
       } else {
         double sq = 0.0;
         for (int64_t r = 0; r < jd; ++r) {
-          const auto tap = taps.row(r);
-          each_tap<W>(id, [&](auto q) {
+          auto tap = taps.row(r);
+#pragma unroll 4
+          for (int64_t q = 0; q < id; ++q) {
             const T v = tap(q);
-            if (is_nan(v)) return;
+            if (is_nan(v)) continue;
             const double d = static_cast<double>(v) - mean;
             sq = sq + d * d;
-          });
+          }
         }
         const double var = sq / static_cast<double>(n);
         return round_from<O>(AGG == kStd ? sqrt(var) : var);
