@@ -19,15 +19,24 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    geometry, the global EPSG:4326 0.05 deg -> EPSG:3035 4096^2 reproject
    (BASELINE #3, a singular warp whose default tier is K3) with nearest
    and bilinear, first call and warm calls, a small UTM32N ->
-   EPSG:3035 case with a numpy variable (placed on the card by
-   ``device``) beside a tensor, and the affine route: BASELINE #1 (a
+   EPSG:3035 case with float32, float64 and uint16 numpy variables (placed
+   on the card by ``device``: the host path's semantics through K9's window
+   mode, dtype kept) beside a tensor, and the affine route: BASELINE #1 (a
    16-band 1024^2 float32 2x bilinear downscale with ``mean``: K4's
    downscale form) and BASELINE #2 (a 4-band 4096^2 raster coarsened 4x
    with ``mean``, ``first`` and ``mode``, through
    ``ops.coarsen_ops.coarsen``: K5, K6, and through an exact 4x affine
    downscale: the downscale form for ``mean`` and ``first``, K4 then K6
-   for ``mode``); the kernel launch counts are reset before and read
-   after each call;
+   for ``mode``); and the rectify route (section 7): R1, BASELINE #4
+   (the 1189 x 1890 OLCI-like swath onto its default 512-tiled grid,
+   nearest: K8 then K7; first call and warm calls, Phase A alone, and the
+   16-band Phase B for nearest, bilinear and triangular), R2 (the same
+   swath onto EPSG:32631 at 250 m, bilinear, through the swath's
+   coordinate transform), R3 (an OLCI EFR-sized granule, 4865 x 4091 with
+   21 float32 bands, onto a 1024-tiled grid, bilinear, with the device
+   memory of a call at its peak) and the numpy route (float64 and uint16
+   numpy variables: K8 then K9's ij_map mode); the kernel launch counts are
+   reset before and read after each call;
 3. holds every result against the plain PyTorch composition on the same
    device tensors, and the small case against the port's own K3 (the
    direct gather) within the two-pass bounds;
@@ -41,12 +50,17 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    its plain version and against K4 -> K5 on the card for every dtype and
    K5 reducer (all-NaN windows, a fill edge, a flipped axis, a strided
    view), K6 for mode and median at 4, 9, 16, 25, 64, 81 and 1024 taps
-   with ties, NaN and +-0.0; times each kernel and its plain version at
+   with ties, NaN and +-0.0, K7 for every method on the seven dtypes, NaN
+   map cells and its list form, K8 on a swath with a NaN row and on a
+   target with tiles no quad reaches, K9 in both modes on float32,
+   float64, uint16 and int16, K7-K9 at R1's and R3's shapes; times each
+   kernel and its plain version at
    the main path's shapes beside one PyTorch call where one computes the
    same function (K3 ``F.grid_sample``, K4 a copy at BASELINE #2's ``c``
    and ``F.grid_sample`` at BASELINE #1, K5 and the downscale form at
    BASELINE #1 ``torch.nanmean``, K5 a strided copy for ``first``, K6
-   ``torch.mode``), and the downscale form beside the chain K4 -> K5 it
+   ``torch.mode``, K7 ``F.grid_sample``; K8 and K9 have none), and the
+   downscale form beside the chain K4 -> K5 it
    replaces, two ways: one
    warm call between two CUDA events on an idle card (``ms``: device time
    and the host's enqueue of the call) and warm calls queued behind a
@@ -54,12 +68,15 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    kernel's bound (bytes at 3.35 TB/s, or operations at 67 TFLOP/s
    float32 and 34 TFLOP/s float64, the H100 SXM data sheet's peaks), K3's
    from the source pixels its taps reach, counted on the card, the
-   downscale form's from the source sectors its taps reach;
+   downscale form's from the source sectors its taps reach, K8's from the
+   quads of its windows and the candidate pixels of their rectangles,
+   counted on the card;
 5. prints the card line again, a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero and prints no result when no CUDA device is visible or
-any phase fails.  It imports nothing of JAX or of the JAX package.
+any phase fails, and when K7, K8 or K9 never launched on the rectify
+route.  It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -84,8 +101,14 @@ import numpy as np
 # with their plain versions bit for bit ("exact"), except K5's float
 # statistics, whose float64 sums run in another order in the plain
 # version: within 2.5e-7 of the value ("stat", two float32 ulp).
-TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5, "exact": 0.0, "stat": 0.0}
-REL_TOL = {"stat": 2.5e-7}
+# K7 agrees with its plain version as K3 does (float32 and integer
+# sources); on float64 sources its fused multiply-adds are exact where the
+# plain version emulates them in float64 (one ulp off in rare cases):
+# "f64", 2.3e-16 of the value.  K8 (float64, one rounding per operation in
+# both) and K9 (float64, then one rounding to the dtype) are "exact".
+TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5, "exact": 0.0, "stat": 0.0,
+       "f64": 0.0}
+REL_TOL = {"stat": 2.5e-7, "f64": 2.3e-16}
 METHODS = ("bilinear", "nearest", "triangular")
 # H100 SXM data-sheet peaks: HBM3 bytes/s, float32 and float64 (non-tensor)
 # FLOP/s.  Integer compares are counted at the float32 rate (the data sheet
@@ -283,6 +306,10 @@ def main() -> int:
         srw_vertical_plain,
     )
     from xcube_resampling_tpu_torch.reproject import device_reproject_fn
+    from xcube_resampling_tpu_torch import rectify as port_rectify
+    from xcube_resampling_tpu_torch.constants import UV_DELTA
+    from xcube_resampling_tpu_torch.crs import Transformer
+    from xcube_resampling_tpu_torch.ops import exact_gather, rectify_ops
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -318,9 +345,10 @@ def main() -> int:
     err = {
         "srw_vertical": 0.0, "srw_horizontal": 0.0, "fused_reproject": 0.0,
         "affine_gather": 0.0, "affine_gather_reduce": 0.0, "coarsen_reduce": 0.0,
-        "coarsen_rank": 0.0,
+        "coarsen_rank": 0.0, "ij_gather": 0.0, "rectify_phase_a": 0.0, "exact_gather": 0.0,
     }
     main_launches: Counter = Counter()
+    rectify_launches: Counter = Counter()
 
     def compare(got, ref, interp, what, signs=False):
         """Max abs difference; raises on unequal dtypes or NaN masks, or
@@ -346,14 +374,21 @@ def main() -> int:
             raise AssertionError(f"{what}: sign bits differ")
         d = torch.where(nan_got, 0.0, got.double() - ref.double()).abs()
         lim = TOL[interp] + REL_TOL.get(interp, 0.0) * torch.where(nan_ref, 0.0, ref.double()).abs()
-        if (d > lim).any():
-            raise AssertionError(f"{what}: max abs diff {d.max().item()} above the tolerance")
+        over = d > lim
+        if over.any():
+            first = tuple(int(k) for k in torch.nonzero(over)[0])
+            raise AssertionError(
+                f"{what}: max abs diff {d.max().item()} above the tolerance at "
+                f"{int(over.sum())} elements, first {first}: {got[first].item()!r} "
+                f"against {ref[first].item()!r}"
+            )
         return d.max().item()
 
-    def run_main(ds, target_gm, interp, expect, exact=None, **kwargs):
+    def run_main(ds, target_gm, interp, expect, exact=None, allow=(), **kwargs):
         """One main-path call; the launch counts are reset just before it
         and read just after.  *expect* names the kernels it must launch,
-        *exact* how often where it gives them; others must not launch."""
+        *exact* how often where it gives them, *allow* those it may launch;
+        others must not launch."""
         LAUNCHES.clear()
         t0 = time.perf_counter()
         out = resample_in_space(ds, target_gm=target_gm, interp_methods=interp, **kwargs)
@@ -367,7 +402,7 @@ def main() -> int:
         for name, n in (exact or {}).items():
             if got[name] != n:
                 raise AssertionError(f"{name} launched {got[name]} times, not {n}: {dict(got)}")
-        for name in set(err) - set(expect):
+        for name in set(err) - set(expect) - set(allow):
             if got[name]:
                 raise AssertionError(f"{name} launched off its tier: {dict(got)}")
         return out, dt
@@ -439,12 +474,12 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b) / iters
 
-    def time_pair(kernel, plain):
+    def time_pair(kernel, plain, iters=10):
         """The kernel's and the plain version's event_ms, in the order
         plain, kernel, kernel, plain (the median of each pair), and the
         kernel's device_ms."""
-        p1, k1, k2, p2 = (event_ms(f) for f in (plain, kernel, kernel, plain))
-        return statistics.median([k1, k2]), statistics.median([p1, p2]), device_ms(kernel)
+        p1, k1, k2, p2 = (event_ms(f, iters) for f in (plain, kernel, kernel, plain))
+        return statistics.median([k1, k2]), statistics.median([p1, p2]), device_ms(kernel, iters)
 
     def k3_bound(fn, ix, iy, interp):
         """K3's bound on one band: it must read the coarse fields and the
@@ -799,7 +834,11 @@ def main() -> int:
         )
     del out
 
-    # -- 4. a small case: numpy and tensor variables, against K3 -------------
+    # -- 4. a small case: numpy and tensor variables ------------------------
+    # numpy variables (float32, float64, uint16) take the host path's
+    # semantics on the card (K9's window mode, dtype kept) and equal its
+    # plain version; the tensor variable takes the tiled SRW; the float32
+    # ones are held against the port's K3 (the direct gather)
     small_src = GridMapping.regular(
         size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"
     )
@@ -808,45 +847,58 @@ def main() -> int:
     )
     ramp = np.arange(96 * 96, dtype=np.float32).reshape(96, 96) / 96
     ramp_dev = torch.from_numpy(ramp).to(dev)
+    host_vars = {"host": ramp, "host64": ramp.astype(np.float64) + 1e-9,
+                 "host16": (ramp * 600).astype(np.uint16)}
+    inv_small = Transformer.from_crs(small_tgt.crs, small_src.crs, always_xy=True)
+    plan_small = port_reproject._plan_source_windows(inv_small, small_src, small_tgt)
+    xx_small, yy_small = port_reproject._target_centers_in_source(inv_small, small_tgt)
     for interp in METHODS:
         LAUNCHES.clear()
         out = resample_in_space(
-            dataset(small_src, host=ramp, dev=ramp_dev), target_gm=small_tgt,
+            dataset(small_src, dev=ramp_dev, **host_vars), target_gm=small_tgt,
             interp_methods=interp, device=dev,
         )
         torch.cuda.synchronize()
         main_launches.update(LAUNCHES)
-        if LAUNCHES["srw_vertical"] < 2 or LAUNCHES["srw_horizontal"] < 2:
-            raise AssertionError(f"small case {interp} skipped the SRW tier: {dict(LAUNCHES)}")
-        a = out["host"].data
-        if not (isinstance(a, torch.Tensor) and a.device == dev):
-            raise AssertionError(f"numpy variable did not come back on {dev}")
-        if not torch.equal(torch.isnan(a), torch.isnan(out["dev"].data)) or not torch.equal(
-            torch.nan_to_num(a), torch.nan_to_num(out["dev"].data)
-        ):
-            raise AssertionError(f"small case {interp}: numpy and tensor variables differ")
+        if (LAUNCHES["srw_vertical"] < 1 or LAUNCHES["srw_horizontal"] < 1
+                or LAUNCHES["exact_gather"] != 3):
+            raise AssertionError(f"small case {interp} skipped a tier: {dict(LAUNCHES)}")
+        for name, data in host_vars.items():
+            a = out[name].data
+            x = torch.from_numpy(data)
+            if not (isinstance(a, torch.Tensor) and a.device == dev and a.dtype == x.dtype):
+                raise AssertionError(f"numpy variable {name} came back as {type(a)}")
+            ref = port_reproject._gather_through_windows(
+                x, small_src, small_tgt, xx_small, yy_small, plan_small, interp,
+                65535 if name == "host16" else nan,
+            )
+            err["exact_gather"] = max(err["exact_gather"], compare(
+                a, ref.to(dev), "exact", f"small case {interp} numpy {name} vs K9's plain version"))
         k3 = make_fused_reproject_fn(small_src, small_tgt, interp, nan, dev)
-        a = a.cpu().numpy()
         b = k3.plain(ramp_dev[None])[0].cpu().numpy()
-        both = np.isfinite(a) & np.isfinite(b)
-        mask_diff = float((np.isnan(a) != np.isnan(b)).mean())
-        diff = np.abs(a[both] - b[both])
-        # the two-pass path deviates from the direct gather by a fraction
-        # of a pixel (documented ~1e-2 px); the ramp rises 1 per row:
-        # bilinear and triangular within 1e-2, nearest may flip to the
-        # equally near cell on under 1% of pixels (tests/test_srw.py)
-        flips = float((diff > 1e-6).mean())
-        ok = both.mean() > 0.5 and mask_diff < 0.02 and (
-            flips < 0.01 if interp == "nearest" else diff.max() < 1e-2
-        )
-        print(
-            f"{tag} 96^2 UTM32N->EPSG:3035 {interp}, numpy variable on the card "
-            f"(equals the tensor variable) vs the port's K3: max abs diff "
-            f"{diff.max():.3g}, differing share {flips:.4f}, NaN-mask mismatch "
-            f"{mask_diff:.4f}"
-        )
-        if not ok:
-            raise AssertionError(f"small case {interp} disagrees with K3")
+        for name in ("host", "dev"):
+            a = out[name].data.cpu().numpy()
+            both = np.isfinite(a) & np.isfinite(b)
+            mask_diff = float((np.isnan(a) != np.isnan(b)).mean())
+            diff = np.abs(a[both] - b[both])
+            # the two-pass path (and the host path's float32-quantised
+            # window origins) deviate from the direct gather by a fraction
+            # of a pixel; the ramp rises 1 per row: bilinear and triangular
+            # within 1e-2, nearest may flip to the equally near cell on
+            # under 1% of pixels (tests/test_srw.py)
+            flips = float((diff > 1e-6).mean())
+            ok = both.mean() > 0.5 and mask_diff < 0.02 and (
+                flips < 0.01 if interp == "nearest" else diff.max() < 1e-2
+            )
+            print(
+                f"{tag} 96^2 UTM32N->EPSG:3035 {interp}, {name} variable vs the port's K3: "
+                f"max abs diff {diff.max():.3g}, differing share {flips:.4f}, NaN-mask "
+                f"mismatch {mask_diff:.4f}"
+            )
+            if not ok:
+                raise AssertionError(f"small case {interp} {name} disagrees with K3")
+    print(f"{tag} numpy float32, float64 and uint16 variables on the card: dtype kept, "
+          f"equal to K9's plain version (max abs diff {err['exact_gather']})")
 
     # -- 4b. BASELINE #1: affine 2x bilinear downscale, 16 x 1024^2 float32 --
     # UTM32N 30 m -> UTM32N 60 m over the same corner, aggregated with mean:
@@ -1252,6 +1304,437 @@ def main() -> int:
     del b1, b2a, b2b, b2c, direct
     torch.cuda.synchronize()
 
+    # -- 7. the rectify route: R1 (BASELINE #4), R2, R3, the numpy route ----
+    rectify_kernels = ("rectify_phase_a", "ij_gather", "exact_gather")
+    phase_b_srw = ("srw_vertical", "srw_horizontal")
+
+    def olci_swath(width, height, bands=(), on_card=True, tile_size=512):
+        """The synthetic OLCI-like swath of tests/sampledata.py
+        (create_olci_like_swath): 2D lon/lat with along/across-track
+        curvature at ~0.0025 deg, and float32 radiance bands of its formula
+        (band k offset by k), made on the card or, with *on_card* False,
+        on the host; chunked in *tile_size* tiles, which the default target
+        grid takes."""
+        j = np.arange(height, dtype=np.float64)[:, None]
+        i = np.arange(width, dtype=np.float64)[None, :]
+        res = 0.0025
+        lon = 4.0 + res * (i + 0.12 * j + 2e-5 * j * i)
+        lat = 62.0 - res * (j - 0.08 * i + 1.2e-5 * (i - width / 2) ** 2)
+        variables = {}
+        if on_card:
+            jj = torch.arange(height, dtype=torch.float64, device=dev)[:, None]
+            ii = torch.arange(width, dtype=torch.float64, device=dev)[None, :]
+            rad = (torch.sin(0.01 * ii) * torch.cos(0.013 * jj) * 50 + 100).float()
+        else:
+            rad = (np.sin(0.01 * i) * np.cos(0.013 * j) * 50 + 100).astype(np.float32)
+        for k, name in enumerate(bands):
+            variables[name] = DataArray(rad + k if k else rad, dims=("y", "x"))
+        return Dataset(variables, coords={
+            "lon": DataArray(lon, dims=("y", "x")), "lat": DataArray(lat, dims=("y", "x")),
+        }).chunk({"y": tile_size, "x": tile_size})
+
+    def run_rectify(ds, target_gm, interp, expect, allow=(), **kwargs):
+        """run_main on the rectify route, its launches also counted apart."""
+        out, dt = run_main(ds, target_gm, interp, expect, allow=allow, **kwargs)
+        rectify_launches.update(LAUNCHES)
+        return out, dt
+
+    def warm_rectify(ds, target_gm, interp, expect, n, allow=(), **kwargs):
+        """The median wall time of *n* more rectify calls, and the last
+        output."""
+        times = []
+        for _ in range(n):
+            out, dt = run_rectify(ds, target_gm, interp, expect, allow=allow, **kwargs)
+            times.append(dt)
+        return out, statistics.median(times)
+
+    def phase_a_work(sw, tiles):
+        """K8's work on these inputs, counted on the card: the quads of the
+        tiles' windows, and the (quad, pixel) candidates of their pixel
+        rectangles inside their tiles (NaN-cornered quads have none)."""
+        n_quads = n_cand = 0
+        for (row0, col0, th, tw, i_lo, j_lo, ww, wh), (xo, yo) in zip(
+            tiles.ints.tolist(), tiles.origins.tolist()
+        ):
+            if ww < 2 or wh < 2:
+                continue
+            n_quads += (ww - 1) * (wh - 1)
+            win = sw[:, j_lo:j_lo + wh, i_lo:i_lo + ww]
+            fi = torch.floor((win[0] - xo) / tiles.x_scale)
+            fj = torch.floor((win[1] - yo) / tiles.y_scale)
+
+            def corners(f):
+                return torch.stack([f[:-1, :-1], f[:-1, 1:], f[1:, :-1], f[1:, 1:]])
+
+            ci, cj = corners(fi), corners(fj)
+            ok = ~(torch.isnan(ci).any(0) | torch.isnan(cj).any(0))
+            i0, i1 = ci.amin(0).clamp(min=0), ci.amax(0).clamp(max=tw - 1)
+            j0, j1 = cj.amin(0).clamp(min=0), cj.amax(0).clamp(max=th - 1)
+            n = ((i1 - i0 + 1).clamp(min=0) * (j1 - j0 + 1).clamp(min=0))[ok]
+            n_cand += int(n.sum().item())
+        return n_quads, n_cand
+
+    def phase_a_bound(sw, tiles):
+        """K8 reads the swath's coordinates once and writes the map once;
+        about 24 float64 operations a window quad (corner floors, extents,
+        determinants), 30 a candidate pixel (its centre and two triangle
+        solves) and 40 a written pixel (the winner's solve again)."""
+        n_quads, n_cand = phase_a_work(sw, tiles)
+        n_px = tiles.out_h * tiles.out_w
+        n_bytes = sw.numel() * 8 + 2 * n_px * 8 + tiles.ints.nbytes + tiles.origins.nbytes
+        return bound(n_bytes, 24 * n_quads + 30 * n_cand + 40 * n_px, PEAK_F64) + (
+            n_quads, n_cand)
+
+    def gather_bound(src, out_hw, per_band_ops, peak, map_bytes):
+        """K7 and K9 read the source planes and the map (or its positions
+        and mask) once and write the output once; *per_band_ops*
+        operations a pixel and band at *peak*."""
+        b, n_out = src.shape[0], out_hw[0] * out_hw[1]
+        n_bytes = src.numel() * src.element_size() + n_out * map_bytes + b * n_out * src.element_size()
+        return bound(n_bytes, b * n_out * per_band_ops, peak)
+
+    # R1: BASELINE #4 (bench.py:478-640), the 1189 x 1890 OLCI-like swath
+    # onto its default grid with 512 tiles, nearest; the variable a float32
+    # tensor on the card: K8, then K7's map form
+    ds_r1 = olci_swath(1189, 1890, ("rad",))
+    r1_gm = GridMapping.from_dataset(ds_r1)
+    r1_tgt = r1_gm.to_regular(tile_size=512)
+    out, first = run_rectify(ds_r1, None, 0, ("rectify_phase_a", "ij_gather"))
+    out, w = warm_rectify(ds_r1, None, 0, ("rectify_phase_a", "ij_gather"), 5)
+    r1_img = out["rad"].data
+    share = check_output(r1_img, (r1_tgt.height, r1_tgt.width))
+    npix = r1_tgt.height * r1_tgt.width
+    r1_tiles = port_rectify._phase_a_tiles(r1_gm, r1_tgt)
+    r1_sw = torch.from_numpy(np.stack([np.asarray(ds_r1["lon"].data),
+                                       np.asarray(ds_r1["lat"].data)])).to(dev)
+    r1_map = rectify_ops.rectify_phase_a(r1_sw, r1_tiles, UV_DELTA)
+    r1_map_plain = rectify_ops.rectify_phase_a_plain(r1_sw, r1_tiles, UV_DELTA)
+    err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
+        r1_map, r1_map_plain, "exact", "R1 K8 vs plain"))
+    r1_src = ds_r1["rad"].data
+    fn = rectify_ops.make_device_var_image_fn(r1_map_plain, r1_src.shape, nan, "nearest",
+                                              device=dev)
+    d = compare(r1_img, fn.plain(r1_src[None])[0], "nearest", "R1 vs plain K8 -> K7")
+    print(
+        f"{tag} resample_in_space R1 (BASELINE #4: 1189x1890 OLCI-like swath -> "
+        f"{r1_tgt.width}x{r1_tgt.height} EPSG:4326, {len(r1_tiles.ints)} tiles of 512, "
+        f"nearest, a float32 tensor): first call {first:.3f} s = {npix / first / 1e6:.1f} "
+        f"Mpix/s; warm median of 5 {w * 1e3:.2f} ms = {npix / w / 1e6:.1f} Mpix/s; finite "
+        f"share {share:.4f}; vs plain K8 -> K7 max abs diff {d}"
+    )
+    # Phase A alone: the host's tile plan (bbox scan) and K8, warm
+    r1_phase_a = (lambda: port_rectify._inverse_ij_map(r1_gm, r1_tgt, UV_DELTA, dev))
+    r1_phase_a()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r1_phase_a()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_plan = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        port_rectify._phase_a_tiles(r1_gm, r1_tgt)
+        t_plan.append(time.perf_counter() - t0)
+    timings["rectify_phase_a"] = time_pair(
+        lambda: rectify_ops.rectify_phase_a(r1_sw, r1_tiles, UV_DELTA),
+        lambda: rectify_ops.rectify_phase_a_plain(r1_sw, r1_tiles, UV_DELTA), iters=3,
+    )
+    b8, by8, n_quads, n_cand = phase_a_bound(r1_sw, r1_tiles)
+    bounds["rectify_phase_a"] = (b8, by8)
+    library["rectify_phase_a"] = (None, None)
+    k, p_, kd = timings["rectify_phase_a"]
+    print(
+        f"{tag} R1 Phase A alone (tile plan + K8), warm: median of 5 "
+        f"{statistics.median(times) * 1e3:.2f} ms, of which the host's tile plan (bbox "
+        f"scan) {statistics.median(t_plan) * 1e3:.2f} ms; rectify_phase_a {k:.4f} ms "
+        f"(device {kd:.4f} ms), plain {p_:.2f} ms, bound {b8:.4f} ms ({by8}; {n_quads} "
+        f"window quads, {n_cand} candidate pixels)"
+    )
+    # the 16-band Phase B (rad x 16, float32) for each method, as bench.py
+    # measures it (one geometry, the map built once)
+    bands16 = r1_src[None].expand(16, -1, -1).contiguous()
+    for interp in METHODS:
+        LAUNCHES.clear()
+        fn = rectify_ops.make_device_var_image_fn(r1_map, r1_src.shape, nan, interp, device=dev)
+        got = fn(bands16)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        d = compare(got, fn.plain(bands16), interp, f"R1 16-band Phase B {interp} vs plain")
+        err["ij_gather"] = max(err["ij_gather"], d)
+        ev, dv = event_ms(lambda: fn(bands16), 5), device_ms(lambda: fn(bands16), 5)
+        print(
+            f"{tag} R1 16-band Phase B {interp} ({type(fn).__name__}: "
+            f"{counts}): {ev:.3f} ms (device {dv:.3f} ms) = "
+            f"{16 * npix / ev / 1e3:.1f} Mpix/s; vs plain max abs diff {d}"
+        )
+    del got, bands16
+    # K7 and K9 timed at R1's 16 bands, nearest (BASELINE #4's method) and
+    # bilinear; F.grid_sample (corners aligned, border padding) at the same
+    # positions beside K7
+    fn = rectify_ops.make_device_var_image_fn(r1_map, r1_src.shape, nan, "nearest", device=dev)
+    bands16 = r1_src[None].expand(16, -1, -1).contiguous()
+    k7_args = (bands16, fn.ix, fn.iy, fn.valid, "nearest", nan)
+    timings["ij_gather"] = time_pair(lambda: rectify_ops.ij_gather(*k7_args),
+                                     lambda: rectify_ops.ij_gather_plain(*k7_args), iters=5)
+    bounds["ij_gather"] = gather_bound(bands16, fn.ix.shape, 4, PEAK_F32, 9)
+    h_, w_ = r1_src.shape
+    grid = torch.stack((fn.ix / (w_ - 1) * 2 - 1, fn.iy / (h_ - 1) * 2 - 1), dim=-1)[None]
+    for interp in ("nearest", "bilinear"):
+        def lib_call(mode=interp):
+            return F.grid_sample(bands16[None], grid, mode=mode, padding_mode="border",
+                                 align_corners=True)
+
+        lib = (event_ms(lib_call, 5), device_ms(lib_call, 5))
+        args = (bands16, fn.ix, fn.iy, fn.valid, interp, nan)
+        kt = (event_ms(lambda: rectify_ops.ij_gather(*args), 5),
+              device_ms(lambda: rectify_ops.ij_gather(*args), 5))
+        b7, by7 = gather_bound(bands16, fn.ix.shape, 4 if interp == "nearest" else 16,
+                               PEAK_F32, 9)
+        if interp == "nearest":
+            library["ij_gather"] = lib
+        print(
+            f"{tag} ij_gather {interp} at R1 (16 x {h_}x{w_} -> {fn.ix.shape[0]}x"
+            f"{fn.ix.shape[1]}): {kt[0]:.4f} ms (device {kt[1]:.4f} ms), bound {b7:.4f} ms "
+            f"({by7}); F.grid_sample {lib[0]:.4f} ms (device {lib[1]:.4f} ms)"
+        )
+    k, p_, kd = timings["ij_gather"]
+    print(f"{tag} ij_gather nearest at R1: kernel {k:.4f} ms (device {kd:.4f} ms), plain "
+          f"{p_:.3f} ms")
+    k9_args = (bands16, r1_map, nan, "nearest")
+    d = compare(exact_gather.exact_gather_ij(*k9_args), exact_gather.exact_gather_ij_plain(*k9_args),
+                "exact", "R1 K9 ij_map 16-band vs plain")
+    err["exact_gather"] = max(err["exact_gather"], d)
+    timings["exact_gather"] = time_pair(lambda: exact_gather.exact_gather_ij(*k9_args),
+                                        lambda: exact_gather.exact_gather_ij_plain(*k9_args),
+                                        iters=5)
+    bounds["exact_gather"] = gather_bound(bands16, r1_map.shape[-2:], 6, PEAK_F64, 16)
+    library["exact_gather"] = (None, None)
+    k, p_, kd = timings["exact_gather"]
+    k9b = (bands16, r1_map, nan, "bilinear")
+    print(
+        f"{tag} exact_gather ij_map nearest at R1 (16 bands): {k:.4f} ms (device {kd:.4f} "
+        f"ms), plain {p_:.3f} ms, bound {bounds['exact_gather'][0]:.4f} ms "
+        f"({bounds['exact_gather'][1]}); bilinear {event_ms(lambda: exact_gather.exact_gather_ij(*k9b), 5):.4f} "
+        f"ms (device {device_ms(lambda: exact_gather.exact_gather_ij(*k9b), 5):.4f} ms), "
+        f"bound {gather_bound(bands16, r1_map.shape[-2:], 20, PEAK_F64, 16)[0]:.4f} ms"
+    )
+    del bands16, grid, k7_args, k9_args, k9b
+
+    # the numpy route on R1: float64 and uint16 numpy variables keep their
+    # dtype through K8 and K9's ij_map mode, equal to the plain versions
+    ds_np = olci_swath(1189, 1890, (), on_card=False)
+    rad_np = np.asarray(olci_swath(1189, 1890, ("rad",), on_card=False)["rad"].data)
+    ds_np["rad64"] = DataArray(rad_np.astype(np.float64) / 3, dims=("y", "x"))
+    ds_np["rad16"] = DataArray((rad_np * 300).astype(np.uint16), dims=("y", "x"))
+    np_gm = GridMapping.from_dataset(ds_np)
+    compare(port_rectify._inverse_ij_map(np_gm, np_gm.to_regular(), UV_DELTA, dev), r1_map,
+            "exact", "R1 numpy dataset's Phase A map vs R1's")
+    for interp in METHODS:
+        out, dt = run_rectify(ds_np, None, interp, ("rectify_phase_a", "exact_gather"),
+                              device=dev)
+        for name, fill in (("rad64", nan), ("rad16", 65535)):
+            x = torch.from_numpy(np.asarray(ds_np[name].data)).to(dev)
+            check_output(out[name].data, (r1_tgt.height, r1_tgt.width), x.dtype)
+            ref = exact_gather.exact_gather_ij_plain(x[None], r1_map_plain, fill, interp)[0]
+            err["exact_gather"] = max(err["exact_gather"], compare(
+                exact_gather.exact_gather_ij(x[None], r1_map, fill, interp)[0], ref, "exact",
+                f"R1 K9 on {name} {interp} vs plain"))
+            err["exact_gather"] = max(err["exact_gather"], compare(
+                out[name].data, ref, "exact", f"R1 numpy {name} {interp} vs plain K8 -> K9"))
+        print(f"{tag} R1 numpy float64 and uint16 variables, {interp}: {dt:.3f} s, dtype "
+              f"kept, equal to plain K8 -> K9")
+    del ds_np, rad_np
+
+    # R2: the same swath onto a regular EPSG:32631 grid at 250 m over its
+    # transformed extent, bilinear: the swath's coordinates go through the
+    # CRS engine first, then the pre-downscale where the swath is finer
+    fwd = Transformer.from_crs("EPSG:4326", "EPSG:32631", always_xy=True)
+    tx, ty = fwd.transform(np.asarray(ds_r1["lon"].data), np.asarray(ds_r1["lat"].data))
+    x0, y0 = float(np.floor(tx.min() / 250) * 250), float(np.floor(ty.min() / 250) * 250)
+    r2_tgt = GridMapping.regular(
+        size=(int(np.ceil((tx.max() - x0) / 250)) + 1, int(np.ceil((ty.max() - y0) / 250)) + 1),
+        xy_min=(x0, y0), xy_res=250.0, crs="EPSG:32631", tile_size=512,
+    )
+    r2_allow = ("affine_gather", "affine_gather_reduce", "coarsen_reduce") + phase_b_srw
+    out, first = run_rectify(ds_r1, r2_tgt, "bilinear", ("rectify_phase_a",),
+                             allow=r2_allow + ("ij_gather",))
+    r2_counts = dict(LAUNCHES)
+    if not (LAUNCHES["ij_gather"] or LAUNCHES["srw_horizontal"]):
+        raise AssertionError(f"R2's Phase B launched nothing: {r2_counts}")
+    out, w = warm_rectify(ds_r1, r2_tgt, "bilinear", ("rectify_phase_a",), 3,
+                          allow=r2_allow + ("ij_gather",))
+    share = check_output(out["rad"].data, (r2_tgt.height, r2_tgt.width))
+    npix2 = r2_tgt.width * r2_tgt.height
+    print(
+        f"{tag} resample_in_space R2 (the R1 swath -> {r2_tgt.width}x{r2_tgt.height} "
+        f"EPSG:32631 at 250 m, bilinear): first call {first:.3f} s (launches "
+        f"{r2_counts}); warm median of 3 {w * 1e3:.2f} ms = {npix2 / w / 1e6:.1f} Mpix/s; "
+        f"finite share {share:.4f}"
+    )
+    del out, ds_r1, r1_sw, r1_img, r1_src
+
+    # K8 on a swath with a NaN row, onto a target reaching two tiles past
+    # it (tiles no quad reaches keep empty windows); K7 and its list form
+    # on a swath whose Phase B takes the SRW interior (NaN map cells at the
+    # coverage edge), every method; K7 on the seven dtypes and K9 in both
+    # modes on a small map
+    ds_nan = olci_swath(1189, 1890, ("rad",))
+    lat_nan = np.array(ds_nan["lat"].data)
+    lat_nan[700] = nan
+    ds_nan = ds_nan.assign_coords({"lat": DataArray(lat_nan, dims=("y", "x"))})
+    nan_gm = GridMapping.from_dataset(ds_nan)
+    reg = nan_gm.to_regular(tile_size=512)
+    wide = GridMapping.regular(size=(reg.width + 1024, reg.height), xy_min=(reg.x_min, reg.y_min),
+                               xy_res=reg.x_res, crs=reg.crs, tile_size=512)
+    tiles = port_rectify._phase_a_tiles(nan_gm, wide)
+    if not (tiles.ints[:, 6] == 0).any():
+        raise AssertionError("the wide target has no empty tile window")
+    sw = torch.from_numpy(np.stack([np.asarray(ds_nan["lon"].data), lat_nan])).to(dev)
+    m = rectify_ops.rectify_phase_a(sw, tiles, UV_DELTA)
+    err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
+        m, rectify_ops.rectify_phase_a_plain(sw, tiles, UV_DELTA), "exact",
+        "K8 with a NaN row and empty tiles vs plain"))
+    print(f"{tag} rectify_phase_a vs plain, NaN swath row and "
+          f"{int((tiles.ints[:, 6] == 0).sum())} empty tile windows: equal")
+    del sw, m, ds_nan
+    small = olci_swath(233, 307, ("rad",))
+    small_gm = GridMapping.from_dataset(small)
+    sm_tgt = small_gm.to_regular(tile_size=128)
+    sw = torch.from_numpy(np.stack([np.asarray(small["lon"].data),
+                                    np.asarray(small["lat"].data)])).to(dev)
+    sm_map = rectify_ops.rectify_phase_a(sw, port_rectify._phase_a_tiles(small_gm, sm_tgt),
+                                         UV_DELTA)
+    x = small["rad"].data[None].expand(2, -1, -1).contiguous()
+    x[1, 100] = nan
+    for interp in METHODS:
+        fn = rectify_ops.make_device_var_image_fn(sm_map, x.shape[-2:], nan, interp, device=dev)
+        if interp != "nearest" and not isinstance(fn, rectify_ops.SRWPhaseB):
+            raise AssertionError(f"the 233x307 swath's {interp} Phase B took no SRW interior")
+        if isinstance(fn, rectify_ops.SRWPhaseB):
+            v = fn.srw(x).to(torch.float32)
+            lst = (fn.ix_e, fn.iy_e, fn.rows, fn.cols, interp, nan)
+            err["ij_gather"] = max(err["ij_gather"], compare(
+                rectify_ops.ij_gather_list(v.clone(), x, *lst),
+                rectify_ops.ij_gather_list_plain(v.clone(), x, *lst), interp,
+                f"K7 list form {interp} vs plain"))
+        d = compare(fn(x), fn.plain(x), interp, f"233x307 Phase B {interp} vs plain")
+        err["ij_gather"] = max(err["ij_gather"], d)
+    rng = np.random.default_rng(3)
+    ix = torch.from_numpy((rng.random((300, 280)) * 72 - 2).astype(np.float32)).to(dev)
+    iy = torch.from_numpy((rng.random((300, 280)) * 66 - 2).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((300, 280)) < 0.9).to(dev)
+    ij = torch.stack([ix.double() + 0.3, iy.double()]).clamp(min=0)
+    ij[:, 3, 4:9] = nan
+    for dtype in (torch.float32, torch.float64, torch.int8, torch.int16, torch.int32,
+                  torch.uint8, torch.uint16):
+        if dtype.is_floating_point:
+            xs = torch.from_numpy(rng.random((2, 64, 68)) * 100).to(dtype).to(dev)
+            xs[0, 5] = nan
+        else:
+            lo, hi = int_ranges[dtype]
+            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+            xs = torch.from_numpy(rng.integers(lo, hi, (2, 64, 68)).astype(np_dtype)).to(dev)
+        for interp in METHODS:
+            fill = 7 if interp == "nearest" and not dtype.is_floating_point else nan
+            kind = "f64" if dtype == torch.float64 and interp != "nearest" else interp
+            err["ij_gather"] = max(err["ij_gather"], compare(
+                rectify_ops.ij_gather(xs, ix, iy, valid, interp, fill),
+                rectify_ops.ij_gather_plain(xs, ix, iy, valid, interp, fill), kind,
+                f"K7 {dtype} {interp} vs plain"))
+            if dtype in (torch.float32, torch.float64, torch.uint16, torch.int16):
+                f9 = nan if dtype.is_floating_point else 9
+                err["exact_gather"] = max(err["exact_gather"], compare(
+                    exact_gather.exact_gather_ij(xs, ij, f9, interp),
+                    exact_gather.exact_gather_ij_plain(xs, ij, f9, interp), "exact",
+                    f"K9 ij_map {dtype} {interp} vs plain"))
+    win_src = GridMapping.regular(size=(96, 96), xy_min=(500000.0, 5400000.0), xy_res=100.0,
+                                  crs="epsg:32632")
+    win_tgt = GridMapping.regular(size=(100, 160), xy_min=(4247500.0, 2846000.0),
+                                  xy_res=100.0, crs="epsg:3035", tile_size=48)
+    inv = Transformer.from_crs(win_tgt.crs, win_src.crs, always_xy=True)
+    win_plan = port_reproject._plan_source_windows(inv, win_src, win_tgt)
+    wxx, wyy = port_reproject._target_centers_in_source(inv, win_tgt)
+    for dtype in (torch.float32, torch.float64, torch.uint16, torch.int16):
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        xs = torch.from_numpy(rng.integers(0, 30000, (2, 96, 96)).astype(np_dtype)).to(dev)
+        for interp in METHODS:
+            fill = nan if dtype.is_floating_point else (65535 if dtype == torch.uint16 else -1)
+            args = (win_src, win_tgt, wxx, wyy, win_plan, interp, fill)
+            err["exact_gather"] = max(err["exact_gather"], compare(
+                port_reproject._gather_through_windows(xs, *args),
+                port_reproject._gather_through_windows(xs.cpu(), *args).to(dev), "exact",
+                f"K9 windows {dtype} {interp} vs plain"))
+    print(f"{tag} K7 vs plain (seven dtypes, every method, NaN map cells, the list form): "
+          f"max abs diff {err['ij_gather']}; K9 vs plain (both modes, float32, float64, "
+          f"uint16, int16, every method, fill padding): max abs diff {err['exact_gather']}")
+    del small, sw, sm_map, x
+
+    # R3: a full OLCI EFR-sized granule, 4865 x 4091 with 21 float32 bands
+    # (made on the card), onto its default grid with 1024 tiles, bilinear
+    r3_names = tuple(f"Oa{k + 1:02d}_radiance" for k in range(21))
+    ds_r3 = olci_swath(4865, 4091, r3_names)
+    r3_gm = GridMapping.from_dataset(ds_r3)
+    r3_tgt = r3_gm.to_regular(tile_size=1024)
+    r3_allow = phase_b_srw + ("ij_gather",)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, first = run_rectify(ds_r3, r3_gm.to_regular(tile_size=1024), "bilinear",
+                             ("rectify_phase_a",), allow=r3_allow)
+    peak_mem = torch.cuda.max_memory_allocated()
+    r3_counts = dict(LAUNCHES)
+    if not (LAUNCHES["ij_gather"] or LAUNCHES["srw_horizontal"]):
+        raise AssertionError(f"R3's Phase B launched nothing: {r3_counts}")
+    del out
+    out, w = warm_rectify(ds_r3, r3_tgt, "bilinear", ("rectify_phase_a",), 2, allow=r3_allow)
+    npix3 = r3_tgt.width * r3_tgt.height
+    for name in r3_names[:1] + r3_names[-1:]:
+        check_output(out[name].data, (r3_tgt.height, r3_tgt.width))
+    print(
+        f"{tag} resample_in_space R3 (4865x4091 granule, 21 float32 bands -> "
+        f"{r3_tgt.width}x{r3_tgt.height}, 1024 tiles, bilinear): first call {first:.3f} s "
+        f"(launches {r3_counts}); warm median of 2 {w:.3f} s = {21 * npix3 / w / 1e6:.1f} "
+        f"Mpix/s over the 21 bands; device memory of the first call: peak "
+        f"{peak_mem / 2**30:.3f} GiB, {(peak_mem - base_mem) / 2**30:.3f} GiB above the "
+        f"{base_mem / 2**30:.3f} GiB held before it"
+    )
+    del out
+    # K8, K7 and K9 against their plain versions at R3's shapes (2 bands)
+    r3_tiles = port_rectify._phase_a_tiles(r3_gm, r3_tgt)
+    sw = torch.from_numpy(np.stack([np.asarray(ds_r3["lon"].data),
+                                    np.asarray(ds_r3["lat"].data)])).to(dev)
+    m = rectify_ops.rectify_phase_a(sw, r3_tiles, UV_DELTA)
+    err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
+        m, rectify_ops.rectify_phase_a_plain(sw, r3_tiles, UV_DELTA), "exact",
+        "R3 K8 vs plain"))
+    k8_r3 = (event_ms(lambda: rectify_ops.rectify_phase_a(sw, r3_tiles, UV_DELTA), 3),
+             device_ms(lambda: rectify_ops.rectify_phase_a(sw, r3_tiles, UV_DELTA), 3))
+    b8, by8, n_quads, n_cand = phase_a_bound(sw, r3_tiles)
+    x = torch.stack([ds_r3[r3_names[0]].data, ds_r3[r3_names[1]].data])
+    fn = rectify_ops.make_device_var_image_fn(m, x.shape[-2:], nan, "bilinear", device=dev)
+    err["ij_gather"] = max(err["ij_gather"], compare(
+        fn(x), fn.plain(x), "bilinear", "R3 2-band Phase B bilinear vs plain"))
+    g7 = rectify_ops.make_device_var_image_fn(m, x.shape[-2:], nan, "nearest", device=dev)
+    err["ij_gather"] = max(err["ij_gather"], compare(
+        g7(x), g7.plain(x), "nearest", "R3 2-band K7 nearest vs plain"))
+    err["exact_gather"] = max(err["exact_gather"], compare(
+        exact_gather.exact_gather_ij(x, m, nan, "bilinear"),
+        exact_gather.exact_gather_ij_plain(x, m, nan, "bilinear"), "exact",
+        "R3 2-band K9 bilinear vs plain"))
+    print(
+        f"{tag} R3 kernels vs plain (K8, K7 via {type(fn).__name__}, K9): equal within the "
+        f"tolerances; rectify_phase_a at R3 ({len(r3_tiles.ints)} tiles): {k8_r3[0]:.3f} ms "
+        f"(device {k8_r3[1]:.3f} ms), bound {b8:.4f} ms ({by8}; {n_quads} window quads, "
+        f"{n_cand} candidate pixels)"
+    )
+    del ds_r3, sw, m, x, fn, g7
+    torch.cuda.empty_cache()
+    missing = [n for n in rectify_kernels if rectify_launches[n] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the rectify route: {missing}")
+
     missing = [name for name in err if main_launches[name] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -1284,6 +1767,18 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/coarsen_rank.cu",
             "xcube_resampling_tpu/ops/coarsen_ops.py:95",
         ),
+        "ij_gather": (
+            "xcube_resampling_tpu_torch/csrc/ij_gather.cu",
+            "xcube_resampling_tpu/ops/rectify_ops.py:2752",
+        ),
+        "rectify_phase_a": (
+            "xcube_resampling_tpu_torch/csrc/rectify_phase_a.cu",
+            "xcube_resampling_tpu/ops/rectify_ops.py:44",
+        ),
+        "exact_gather": (
+            "xcube_resampling_tpu_torch/csrc/exact_gather.cu",
+            "xcube_resampling_tpu/ops/rectify_ops.py:2767",
+        ),
     }
     kernels = [
         {
@@ -1300,7 +1795,8 @@ def main() -> int:
             # K1, K2: no single PyTorch call computes a tap pass; K3: the
             # F.grid_sample yardstick at the 4326 -> UTM shape; K4 a copy
             # (BASELINE #2's c), the downscale form and K5 torch.nanmean
-            # (BASELINE #1), K6 torch.mode (BASELINE #2)
+            # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 F.grid_sample
+            # (R1, nearest); K8, K9: none
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],

@@ -366,3 +366,84 @@ def test_scale_split_matches():
 
     for matrix in (((2.0, 0.0, 0.5), (0.0, 2.0, 0.5)), ((-4.05, 0.0, 9.0), (0.0, 3.2, -1.0))):
         assert pt_split(matrix) == jx_split(matrix)
+
+
+@pytest.mark.parametrize(
+    "shape, tile_shape",
+    [((13, 13), (5, 5)), ((13, 13), (3, 13)), ((2, 272, 327), (2, 128, 128)), ((7,), (7,))],
+)
+def test_chunk_copy_matches(shape, tile_shape):
+    """The port's chunk module (a copy) cuts the same tiles in the same
+    order and assembles the same array from the same block context."""
+    from xcube_resampling_tpu import chunk as jx_chunk
+    from xcube_resampling_tpu_torch import chunk as pt_chunk
+
+    ref = list(jx_chunk.iter_tiles(shape, tile_shape))
+    got = list(pt_chunk.iter_tiles(shape, tile_shape))
+    assert [(t.index, t.slices, t.shape, t.bounds) for t in got] == [
+        (t.index, t.slices, t.shape, t.bounds) for t in ref
+    ]
+    assert list(pt_chunk.get_chunk_sizes(shape, tile_shape)) == list(
+        jx_chunk.get_chunk_sizes(shape, tile_shape)
+    )
+
+    def block(block_id, block_shape, block_slices):
+        return np.full(block_shape, block_id + 0.5 * len(block_slices))
+
+    names = ["block_id", "block_shape", "block_slices"]
+    np.testing.assert_array_equal(
+        pt_chunk.compute_array_from_func(block, shape, tile_shape, np.float64, ctx_arg_names=names),
+        jx_chunk.compute_array_from_func(block, shape, tile_shape, np.float64, ctx_arg_names=names),
+    )
+
+
+@pytest.mark.parametrize("swath", [(233, 307, 128), (300, 420, 64), (400, 500, 128)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_fields_from_ij_map_matches(swath, gated):
+    """fields_from_ij_map (a copy) on the JAX host tier's Phase A map of
+    OLCI-like swaths: the same coarse fields bit for bit, or None for both
+    (the third swath's fields miss the map by more than 0.05 px)."""
+    from scipy.ndimage import binary_erosion
+
+    from xcube_resampling_tpu import rectify as jx_rectify
+    from xcube_resampling_tpu.constants import UV_DELTA
+
+    from .sampledata import create_olci_like_swath
+
+    width, height, tile = swath
+    gm = jx.GridMapping.from_dataset(create_olci_like_swath(width, height, tile_size=tile))
+    ij_map = jx_rectify._inverse_ij_map(gm, gm.to_regular(tile_size=tile), UV_DELTA)
+    valid = ~np.isnan(ij_map[0]) & ~np.isnan(ij_map[1])
+    gate = binary_erosion(valid, iterations=18) if gated else None
+    ref = jx_srw.fields_from_ij_map(ij_map, height, width, step=16, gate_mask=gate)
+    got = pt_srw.fields_from_ij_map(ij_map, height, width, step=16, gate_mask=gate)
+    assert (got is None) == (ref is None)
+    if ref is not None:
+        for name in ("ix64", "iy64", "iystar64"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+        for name in ("step", "src_h", "src_w", "out_h", "out_w"):
+            assert getattr(got, name) == getattr(ref, name)
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_reproject_host_planners_match(geometry):
+    """The host path's planners (copies): per-tile windows, origin stacks,
+    padding and the float64 target centres in the source CRS, bit for bit."""
+    from xcube_resampling_tpu import reproject as jx_reproject
+    from xcube_resampling_tpu_torch import reproject as pt_reproject
+
+    (js, jt), (ps, pt_) = _both(geometry)
+    ref = jx_reproject._plan_source_windows(
+        JxTransformer.from_crs(jt.crs, js.crs, always_xy=True), js, jt
+    )
+    inv = PtTransformer.from_crs(pt_.crs, ps.crs, always_xy=True)
+    got = pt_reproject._plan_source_windows(inv, ps, pt_)
+    for name in ("bboxes", "x_stack", "y_stack"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    assert got.pad_width == ref.pad_width
+    ref_c = jx_reproject._target_centers_in_source(
+        JxTransformer.from_crs(jt.crs, js.crs, always_xy=True), jt
+    )
+    got_c = pt_reproject._target_centers_in_source(inv, pt_)
+    for g, r in zip(got_c, ref_c):
+        np.testing.assert_array_equal(g, r)

@@ -471,3 +471,214 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="the kernels support"):
         srw_vertical(*fn.vertical_args(torch.zeros((1, 96, 96)))[:7], "cubic")
 
+
+
+# -- K7, K8, K9: the rectify kernels and the host gathers --------------------
+
+ALL_DTYPES = ["float32", "float64", "int8", "int16", "int32", "uint8", "uint16"]
+
+
+def _data(dtype, shape, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype.startswith("float"):
+        data = (rng.random(shape) * 100).astype(dtype)
+        data[..., shape[-2] // 2, 3:9] = np.nan
+        return data
+    info = np.iinfo(dtype)
+    return rng.integers(max(info.min, -20000), min(info.max, 60000), shape).astype(dtype)
+
+
+def _positions(shape, src_hw, seed=1):
+    """Float32 positions reaching a pixel past every edge, and a mask."""
+    rng = np.random.default_rng(seed)
+    ix = (rng.random(shape) * (src_hw[1] + 1) - 1).astype(np.float32)
+    iy = (rng.random(shape) * (src_hw[0] + 1) - 1).astype(np.float32)
+    return ix, iy, rng.random(shape) < 0.9
+
+
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("interp", METHODS)
+def test_ij_gather_plain_matches_jax_gather_interp(dtype, interp):
+    """K7's map form (plain) against the JAX package's gather_interp under
+    jit with the map's mask, on the seven dtypes: equal values and dtype
+    (integer tap differences wrap as jnp's; float64 lerps fused in float64,
+    emulated exactly here on these inputs)."""
+    from xcube_resampling_tpu.ops.reproject_ops import gather_interp as jax_gather_interp
+
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+
+    src = _data(dtype, (2, 37, 41))
+    ix, iy, valid = _positions((23, 29), (37, 41))
+    fill = np.nan if dtype.startswith("float") or interp != "nearest" else 7
+    ref = jax.jit(
+        lambda s, a, b, v: jax_gather_interp(s, a, b, interp, fill, jnp, valid=v)
+    )(jnp.asarray(src), jnp.asarray(ix), jnp.asarray(iy), jnp.asarray(valid))
+    got = rectify_ops.ij_gather(
+        torch.from_numpy(src), torch.from_numpy(ix), torch.from_numpy(iy),
+        torch.from_numpy(valid), interp, fill,
+    )
+    ref = np.asarray(ref)
+    assert got.numpy().dtype == ref.dtype
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("interp", METHODS)
+def test_ij_gather_list_plain_writes_the_bounds_valid_gather(interp):
+    """K7's list form (plain) writes gather_interp with the bounds rule at
+    its pixels of the output and leaves the others untouched."""
+    from xcube_resampling_tpu.ops.reproject_ops import gather_interp as jax_gather_interp
+
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+
+    src = _data("float32", (2, 37, 41))
+    ix, iy, _ = _positions((60,), (37, 41), seed=4)
+    rng = np.random.default_rng(5)
+    flat = rng.choice(20 * 30, 60, replace=False)
+    rows, cols = (flat // 30).astype(np.int32), (flat % 30).astype(np.int32)
+    out = torch.full((2, 20, 30), -5.0)
+    rectify_ops.ij_gather_list(
+        out, torch.from_numpy(src), torch.from_numpy(ix), torch.from_numpy(iy),
+        torch.from_numpy(rows), torch.from_numpy(cols), interp, np.nan,
+    )
+    ref = np.full((2, 20, 30), -5.0, np.float32)
+    ref[:, rows, cols] = np.asarray(jax.jit(
+        lambda s, a, b: jax_gather_interp(s, a, b, interp, np.nan, jnp)
+    )(jnp.asarray(src), jnp.asarray(ix), jnp.asarray(iy)))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_phase_a_plain_first_writer_wins_on_a_fold():
+    """K8's plain version on a swath that folds back over itself (two
+    layers of quads claim the same pixels) and holds NaN corners: the
+    lower-ranked quad wins, as the JAX package's sequential order does."""
+    from xcube_resampling_tpu.ops import rectify_ops as jax_rectify_ops
+
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+
+    j, i = np.mgrid[0:30, 0:24].astype(np.float64)
+    x = i * 1.1 + 0.3 * np.sin(j / 3)
+    y = np.where(j < 15, j, 29 - j) * 0.9 + 0.02 * i  # rows 15.. fold back
+    x[7, 5] = np.nan
+    tiles = rectify_ops.PhaseATiles(
+        ints=np.array([[0, 0, 16, 16, 0, 0, 24, 30], [0, 16, 16, 16, 2, 1, 20, 28],
+                       [16, 0, 16, 16, 0, 0, 0, 0], [16, 16, 16, 16, 0, 0, 24, 30]]),
+        origins=np.array([[-0.2, -0.1], [17.4, -0.1], [-0.2, 15.9], [17.4, 15.9]]),
+        x_scale=1.0, y_scale=1.0, tile_h=16, tile_w=16, n_tiles_x=2, out_h=32, out_w=32,
+    )
+    got = rectify_ops.rectify_phase_a(
+        torch.from_numpy(np.stack([x, y])), tiles, 1e-3
+    ).numpy()
+    for (row0, col0, th, tw, i_lo, j_lo, ww, wh), (xo, yo) in zip(tiles.ints, tiles.origins):
+        block = got[:, row0:row0 + th, col0:col0 + tw]
+        if ww == 0:
+            assert np.isnan(block).all()
+            continue
+        ref = jax_rectify_ops.inverse_ij_map(
+            x[j_lo:j_lo + wh, i_lo:i_lo + ww], y[j_lo:j_lo + wh, i_lo:i_lo + ww],
+            int(i_lo), int(j_lo), (th, tw), xo, yo, 1.0, 1.0, 1e-3,
+        )
+        np.testing.assert_array_equal(block, ref)
+    assert np.isfinite(got).mean() > 0.2
+
+
+@pytest.fixture(params=["native", "numpy"])
+def jax_host_gather(request, monkeypatch):
+    """The JAX package's host gather through its C++ library and through
+    its numpy fallback (the two agree bit for bit)."""
+    from xcube_resampling_tpu import native
+
+    if request.param == "numpy":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+    return request.param
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "uint16", "int16"])
+@pytest.mark.parametrize("interp", METHODS)
+def test_exact_gather_ij_plain_matches_jax_host_gather(jax_host_gather, dtype, interp):
+    """K9's ij_map mode (plain) against var_image_from_ij_map on a map
+    with NaN cells and edge positions: equal, dtype kept."""
+    from xcube_resampling_tpu.ops import rectify_ops as jax_rectify_ops
+
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+
+    src = _data(dtype, (2, 37, 41), seed=6)
+    rng = np.random.default_rng(7)
+    ij = np.stack([rng.random((23, 29)) * 40, rng.random((23, 29)) * 36])
+    ij[:, 4, 5:9] = np.nan
+    ij[0, 0, 0], ij[1, 0, 1] = 40.0, 36.0
+    fill = np.nan if dtype.startswith("float") else 9
+    ref = jax_rectify_ops.var_image_from_ij_map(src, ij, fill, interp)
+    got = rectify_ops.var_image_from_ij_map(
+        torch.from_numpy(src), torch.from_numpy(ij), fill, interp
+    )
+    assert got.numpy().dtype == ref.dtype == src.dtype
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "uint16", "int16"])
+@pytest.mark.parametrize("interp", METHODS)
+@pytest.mark.parametrize("geometry", ["utm_laea", "edge"])
+def test_exact_gather_windows_plain_matches_jax_host_path(dtype, interp, geometry):
+    """K9's window mode (plain) against the JAX package's
+    _gather_through_windows on its own plan, windows reaching past the
+    source (fill padding) on the edge geometry: equal, dtype kept."""
+    from xcube_resampling_tpu import reproject as jax_reproject
+    from xcube_resampling_tpu.crs import Transformer as JaxTransformer
+
+    from xcube_resampling_tpu_torch import reproject as port_reproject
+    from xcube_resampling_tpu_torch.crs import Transformer as PortTransformer
+
+    src_kw, tgt_kw = {
+        "utm_laea": GEOMETRIES["utm_laea"],
+        "edge": (
+            dict(size=(96, 96), xy_min=(500000.0, 5400000.0), xy_res=100.0, crs="epsg:32632"),
+            dict(size=(100, 160), xy_min=(4247500.0, 2846000.0), xy_res=100.0,
+                 crs="epsg:3035", tile_size=48),
+        ),
+    }[geometry]
+    js, jt = jx.GridMapping.regular(**src_kw), jx.GridMapping.regular(**tgt_kw)
+    ps, pt_ = pt.GridMapping.regular(**src_kw), pt.GridMapping.regular(**tgt_kw)
+    inv = JaxTransformer.from_crs(jt.crs, js.crs, always_xy=True)
+    plan = jax_reproject._plan_source_windows(inv, js, jt)
+    xx, yy = jax_reproject._target_centers_in_source(inv, jt)
+    src = _data(dtype, (2, 96, 96), seed=8)
+    fill = np.nan if dtype.startswith("float") else 65535 if dtype == "uint16" else -1
+    ref = jax_reproject._gather_through_windows(src, js, jt, xx, yy, plan, interp, fill)
+    pinv = PortTransformer.from_crs(pt_.crs, ps.crs, always_xy=True)
+    got = port_reproject._gather_through_windows(
+        torch.from_numpy(src), ps, pt_, xx, yy,
+        port_reproject._plan_source_windows(pinv, ps, pt_), interp, fill,
+    )
+    if geometry == "edge":
+        assert any(p != (0, 0) for p in plan.pad_width)
+    assert got.numpy().dtype == ref.dtype == src.dtype
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_rectify_wrappers_take_plain_versions_on_the_cpu(monkeypatch):
+    """K7, K8 and K9 on CPU tensors: their plain versions, no launch, no
+    kernel library; a dtype outside the seven raises before any launch."""
+    from xcube_resampling_tpu_torch.ops import exact_gather, rectify_ops
+
+    def no_launch():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(_build, "load", no_launch)
+    before = dict(LAUNCHES)
+    src = torch.from_numpy(_data("float32", (1, 16, 16)))
+    ix, iy, valid = (torch.from_numpy(a) for a in _positions((8, 8), (16, 16)))
+    rectify_ops.ij_gather(src, ix, iy, valid, "bilinear", np.nan)
+    rectify_ops.var_image_from_ij_map(src, torch.stack([ix, iy]).double(), np.nan, "nearest")
+    xy = torch.from_numpy(np.stack(np.meshgrid(np.arange(16.0), np.arange(16.0))))
+    tiles = rectify_ops.PhaseATiles(
+        ints=np.array([[0, 0, 8, 8, 0, 0, 16, 16]]), origins=np.array([[0.0, 0.0]]),
+        x_scale=1.0, y_scale=1.0, tile_h=8, tile_w=8, n_tiles_x=1, out_h=8, out_w=8,
+    )
+    assert torch.isfinite(rectify_ops.rectify_phase_a(xy, tiles, 1e-3)).all()
+    assert dict(LAUNCHES) == before
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        rectify_ops.ij_gather(src.bool(), ix, iy, valid, "nearest", 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        exact_gather.exact_gather_ij(src.long(), torch.stack([ix, iy]).double(), 0, "nearest")
+    with pytest.raises(NotImplementedError, match="interp_methods must be one of"):
+        exact_gather.exact_gather_ij(src, torch.stack([ix, iy]).double(), 0, "cubic")

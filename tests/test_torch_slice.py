@@ -240,24 +240,36 @@ def test_resample_in_space_j_axis_up_source():
         _assert_match(got[name].data.numpy(), ref[name].data)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.uint16])
 def test_numpy_variables_come_back_as_tensors_on_the_device(dtype):
-    """A numpy-backed float variable becomes a float32 tensor on the
-    *device* argument's device and equals the same data passed as a
-    tensor, bit for bit; the tensor variable beside it stays a tensor."""
+    """A numpy-backed variable takes the JAX package's host path (float64
+    target centres, per-tile windows, K9's window mode) on the *device*
+    argument's device: it comes back as a tensor of its own dtype there,
+    equal to JAX's result on the same numpy data (integers rounded with
+    rint), while the tensor variable beside it takes the device tiers and
+    equals JAX on jnp data."""
     source_gm, target_gm = _geometry("utm_laea")
     a, b = _inputs(source_gm)
-    ds = _dataset(source_gm, a=a.astype(dtype), b=b, t=torch.from_numpy(a))
+    if dtype == np.uint16:
+        data = (a * 60000).astype(dtype)
+        stack = (np.nan_to_num(b) * 60000).astype(dtype)
+    else:
+        data, stack = a.astype(dtype), b.astype(dtype)
+    ds = _dataset(source_gm, a=data, b=stack, t=torch.from_numpy(a))
     got = port.resample_in_space(ds, target_gm=target_gm, device="cpu")
     for name in ("a", "b", "t"):
         assert isinstance(got[name].data, torch.Tensor)
         assert got[name].data.device.type == "cpu"
-        assert got[name].data.dtype == torch.float32
-    _assert_match(got["a"].data.numpy(), got["t"].data.numpy())
-    ref = port.resample_in_space(
-        _dataset(source_gm, b=torch.from_numpy(b)), target_gm=target_gm
+    jax_source, jax_target = _geometry("utm_laea", xrt)
+    ref = xrt.resample_in_space(
+        _dataset(jax_source, xrt, a=data, b=stack, t=jnp.asarray(a)), target_gm=jax_target
     )
-    _assert_match(got["b"].data.numpy(), ref["b"].data.numpy())
+    for name in ("a", "b"):
+        assert got[name].data.dtype == torch.from_numpy(data).dtype
+        assert np.asarray(ref[name].data).dtype == data.dtype
+        _assert_match(got[name].data.numpy(), np.asarray(ref[name].data))
+    assert got["t"].data.dtype == torch.float32
+    _assert_match(got["t"].data.numpy(), ref["t"].data)
 
 
 def test_entry_points_default_to_the_card():
@@ -348,8 +360,10 @@ def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy):
     elif case == "rectify":
         from .sampledata import create_olci_like_swath
 
-        swath = create_olci_like_swath(width=16, height=16, tile_size=16)
-        return port.resample_in_space(_to_port(swath), target_gm=target_gm)
+        swath = create_olci_like_swath(width=48, height=64, tile_size=16)
+        if pkg is port:
+            return port.resample_in_space(_to_port(swath), device="cpu")
+        return xrt.resample_in_space(swath)
     elif case == "downscale":
         target_gm = pkg.GridMapping.regular(
             size=(20, 20), xy_min=(4320500, 3379500), xy_res=400,
@@ -362,24 +376,42 @@ def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy):
     elif case == "cubic":
         kwargs["interp_methods"] = "cubic"
     elif case == "int_numpy":
-        data = np.zeros((96, 96), dtype=np.uint8)
+        data = (np.asarray(data) * 200).astype(np.uint8)
     ds = _dataset(source_gm, pkg, a=data)
+    if pkg is port:
+        kwargs["device"] = "cpu"
     return pkg.resample_in_space(ds, target_gm=target_gm, **kwargs)
 
 
 @pytest.mark.parametrize(
     "case, match",
     [
-        ("rectify", "rectify route"),
         ("extreme_warp", "XRTPU_FAST_EXTREME_WARP"),
         ("float64", "float32 tensors only"),
         ("cubic", "interp_methods must be one of"),
-        ("int_numpy", "float variables only"),
     ],
 )
 def test_routes_outside_the_slice_raise(monkeypatch, case, match):
     with pytest.raises(NotImplementedError, match=match):
         _route_case(monkeypatch, case)
+
+
+@pytest.mark.parametrize("case", ["rectify", "int_numpy"])
+def test_rectify_and_integer_numpy_routes_match_jax(monkeypatch, case):
+    """Routes that raised before the port had them: an irregular swath
+    (the rectify route, numpy variable, host Phase B) and a uint8 numpy
+    variable on the reproject route (the host path, rint), each equal to
+    JAX on the same numpy data, dtype kept."""
+    ref = _route_case(monkeypatch, case, xrt, np.asarray)
+    got = _route_case(monkeypatch, case, tensor=np.asarray)
+    name = "rad" if case == "rectify" else "a"
+    data = got[name].data
+    ref_data = np.asarray(ref[name].data)
+    assert isinstance(data, torch.Tensor) and data.device.type == "cpu"
+    assert data.numpy().dtype == ref_data.dtype
+    _assert_match(data.numpy(), ref_data)
+    if ref_data.dtype.kind == "f":
+        assert np.isfinite(ref_data).mean() > 0.5
 
 
 @pytest.mark.parametrize("case", ["affine", "downscale"])
@@ -401,8 +433,9 @@ def test_affine_and_downscale_routes_match_jax(monkeypatch, case):
 
 def test_port_never_imports_jax():
     """In a fresh process, importing the port and driving resample_in_space
-    on CPU tensors (tiled SRW, K3, the affine route and the reproject
-    pre-downscale) loads no module of JAX or of the JAX package."""
+    on CPU tensors (tiled SRW, K3, the affine route, the reproject
+    pre-downscale, and the rectify route with a tensor and a numpy
+    variable) loads no module of JAX or of the JAX package."""
     code = (
         "import os, sys\n"
         "import numpy as np, torch\n"
@@ -429,6 +462,15 @@ def test_port_never_imports_jax():
         "    out = port.resample_in_space(ds, target_gm=tgt, agg_methods='mode',"
         " device='cpu')\n"
         "    assert out['v'].data.shape == shape\n"
+        "j, i = np.mgrid[0:60, 0:48].astype(float)\n"
+        "sw = port.Dataset({'r': port.DataArray(np.random.rand(60, 48).astype('float32'),"
+        " dims=('y', 'x'))}, coords={'lon': port.DataArray(4 + 0.0025 * (i + 0.12 * j),"
+        " dims=('y', 'x')), 'lat': port.DataArray(62 - 0.0025 * (j - 0.08 * i),"
+        " dims=('y', 'x'))})\n"
+        "sw['t'] = port.DataArray(torch.from_numpy(sw['r'].data.copy()), dims=('y', 'x'))\n"
+        "for m in ('nearest', 'bilinear'):\n"
+        "    out = port.resample_in_space(sw, interp_methods=m, device='cpu')\n"
+        "    assert out['r'].data.dtype == out['t'].data.dtype == torch.float32\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'xcube_resampling_tpu')]\n"
         "assert not bad, bad\n"

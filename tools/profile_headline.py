@@ -17,8 +17,11 @@ at 1500 m, a singular warp that runs K3; bilinear and nearest), and for
 the affine route's BASELINE #1 (a 16-band 1024^2 float32 2x bilinear
 downscale with mean: K4's downscale form) and BASELINE #2 (a 4-band
 4096^2 raster coarsened 4x through an exact affine downscale, mean, first
-and mode: the downscale form for mean and first, K4 and K6 for mode), as
-``chip_smoke.py`` drives them:
+and mode: the downscale form for mean and first, K4 and K6 for mode), and
+for the rectify route's R1 (BASELINE #4: the 1189 x 1890 OLCI-like swath
+onto its default grid, nearest: K8, K7), R2 (that swath onto EPSG:32631 at
+250 m, bilinear) and R3 (a 4865 x 4091 granule with 21 float32 bands,
+bilinear; 3 warm calls and 2 profiled), as ``chip_smoke.py`` drives them:
 
 2. the first call's time and the wall time of 10 warm
    ``resample_in_space`` calls (median, min, max) and their host time
@@ -28,7 +31,11 @@ and mode: the downscale form for mean and first, K4 and K6 for mode), as
    1 - device time / median wall time;
 4. the top host functions of 5 warm calls by ``cProfile`` cumulative time;
 
-and last, one JSON object with the numbers above.
+for R1 and R3 also the warm call's phases one by one (grid-mapping
+inference, the target grid, the host's tile plan with its bbox scan, K8,
+the Phase B plan with its host-side erosion and coarse fields, Phase B on
+the card), each synchronised and timed alone; and last, one JSON object
+with the numbers above.
 
 Every line carries the card's name and power limit.  It imports nothing
 of JAX or of the JAX package and exits nonzero when no CUDA device is
@@ -65,7 +72,13 @@ def card_line() -> str:
 
 
 def _device_us(evt) -> float:
-    """An event's own device time in us, under either profiler API name."""
+    """A device activity's own time in us (a kernel, copy or memset), under
+    either profiler API name.  Host-side operators (``aten::copy_``,
+    ``aten::masked_fill_``) report the time of the activities they launch,
+    which are counted themselves, and the profiler's own buffer requests
+    are no work of the call: both count 0."""
+    if str(getattr(evt, "device_type", "")).endswith("CPU") or evt.key == "Activity Buffer Request":
+        return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         value = getattr(evt, attr, None)
         if value is not None:
@@ -158,7 +171,7 @@ def main() -> int:
         f"gates {gates[0]:.4f} px, slope {gates[1]:.4f}"
     )
 
-    def profile_call(what, ds, target_gm, interp, **kwargs):
+    def profile_call(what, ds, target_gm, interp, warm=WARM, profiled=PROFILED, **kwargs):
         """Sections 2-4 for one ``resample_in_space`` call; returns their
         numbers."""
         def call():
@@ -172,7 +185,7 @@ def main() -> int:
 
         # -- 2. warm wall and host time --------------------------------------
         wall, host = [], []
-        for _ in range(WARM):
+        for _ in range(warm):
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = call()
@@ -183,23 +196,24 @@ def main() -> int:
         wall_ms = [x * 1e3 for x in wall]
         host_ms = [x * 1e3 for x in host]
         med = statistics.median(wall_ms)
-        n_pix = target_gm.width * target_gm.height
+        n_pix = (target_gm or GridMapping.from_dataset(ds).to_regular()).size
+        n_pix = n_pix[0] * n_pix[1]
         print(
-            f"{tag} {what}: warm wall ms over {WARM} calls: median {med:.3f}, min "
+            f"{tag} {what}: warm wall ms over {warm} calls: median {med:.3f}, min "
             f"{min(wall_ms):.3f}, max {max(wall_ms):.3f}; host ms (call returns): "
             f"median {statistics.median(host_ms):.3f}; {n_pix / 1e3 / med:.1f} Mpix/s"
         )
 
         # -- 3. device time per kernel ---------------------------------------
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILED):
+            for _ in range(profiled):
                 call()
             torch.cuda.synchronize()
         kernels = {}
         for evt in prof.key_averages():
             us = _device_us(evt)
             if us > 0:
-                kernels[evt.key] = us / 1e3 / PROFILED
+                kernels[evt.key] = us / 1e3 / profiled
         device_ms = sum(kernels.values())
         idle = 1.0 - device_ms / med if device_ms else None
         for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1]):
@@ -213,13 +227,13 @@ def main() -> int:
         # -- 4. host functions -----------------------------------------------
         pr = cProfile.Profile()
         pr.enable()
-        for _ in range(PROFILED):
+        for _ in range(profiled):
             call()
         pr.disable()
         torch.cuda.synchronize()
         buf = io.StringIO()
         pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(15)
-        print(f"{tag} {what}: cProfile of {PROFILED} warm calls, top 15 by cumulative time:")
+        print(f"{tag} {what}: cProfile of {profiled} warm calls, top 15 by cumulative time:")
         print(buf.getvalue().strip())
         return {
             "first_call_s": first,
@@ -282,6 +296,84 @@ def main() -> int:
         dataset(utm(4096, 30.0), band=True, **b2), utm(1024, 120.0), {"c": 1},
         agg_methods={"a": "mean", "b": "first", "c": "mode"},
     )
+
+    del b2
+    torch.cuda.empty_cache()
+
+    # -- the rectify route ---------------------------------------------------
+    from xcube_resampling_tpu_torch import rectify as port_rectify
+    from xcube_resampling_tpu_torch.constants import UV_DELTA
+    from xcube_resampling_tpu_torch.crs import Transformer
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+    from xcube_resampling_tpu_torch.utils import normalize_grid_mapping
+
+    def olci_swath(width, height, bands, tile_size=512):
+        """chip_smoke.py's OLCI-like swath (tests/sampledata.py's formula),
+        its bands made on the card."""
+        j = np.arange(height, dtype=np.float64)[:, None]
+        i = np.arange(width, dtype=np.float64)[None, :]
+        res = 0.0025
+        lon = 4.0 + res * (i + 0.12 * j + 2e-5 * j * i)
+        lat = 62.0 - res * (j - 0.08 * i + 1.2e-5 * (i - width / 2) ** 2)
+        jj = torch.arange(height, dtype=torch.float64, device=dev)[:, None]
+        ii = torch.arange(width, dtype=torch.float64, device=dev)[None, :]
+        rad = (torch.sin(0.01 * ii) * torch.cos(0.013 * jj) * 50 + 100).float()
+        return Dataset(
+            {name: DataArray(rad + k if k else rad, dims=("y", "x"))
+             for k, name in enumerate(bands)},
+            coords={"lon": DataArray(lon, dims=("y", "x")),
+                    "lat": DataArray(lat, dims=("y", "x"))},
+        ).chunk({"y": tile_size, "x": tile_size})
+
+    def rectify_phases(what, ds, target_gm, interp):
+        """A warm call's phases one by one, each synchronised, median of 3."""
+        spans = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            spans.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+
+        for _ in range(3):
+            gm = timed("grid_mapping", lambda: GridMapping.from_dataset(ds))
+            timed("normalize", lambda: normalize_grid_mapping(ds, gm))
+            tgt = timed("target_grid", lambda: target_gm or gm.to_regular())
+            tiles = timed("tile_plan_bbox_scan", lambda: port_rectify._phase_a_tiles(gm, tgt))
+            sw = timed("swath_upload", lambda: torch.from_numpy(np.ascontiguousarray(
+                np.asarray(gm.xy_coords.data), dtype=np.float64)).to(dev))
+            m = timed("k8", lambda: rectify_ops.rectify_phase_a(sw, tiles, UV_DELTA))
+            names = [n for n in ds.data_vars]
+            x = ds[names[0]].data
+            fn = timed("phase_b_plan", lambda: rectify_ops.make_device_var_image_fn(
+                m, tuple(x.shape), float("nan"), interp, device=dev))
+            timed("phase_b_all_bands", lambda: [fn(ds[n].data[None]) for n in names])
+        med = {k: statistics.median(v) * 1e3 for k, v in spans.items()}
+        print(f"{tag} {what}: warm phases (ms, median of 3; Phase B {type(fn).__name__}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+        return med
+
+    ds_r1 = olci_swath(1189, 1890, ("rad",))
+    results["r1"] = profile_call("R1 (BASELINE #4) rectify 1189x1890 swath nearest",
+                                 ds_r1, None, 0)
+    results["r1"]["phases_ms"] = rectify_phases("R1", ds_r1, None, "nearest")
+    fwd = Transformer.from_crs("EPSG:4326", "EPSG:32631", always_xy=True)
+    tx, ty = fwd.transform(np.asarray(ds_r1["lon"].data), np.asarray(ds_r1["lat"].data))
+    x0, y0 = float(np.floor(tx.min() / 250) * 250), float(np.floor(ty.min() / 250) * 250)
+    r2_tgt = GridMapping.regular(
+        size=(int(np.ceil((tx.max() - x0) / 250)) + 1, int(np.ceil((ty.max() - y0) / 250)) + 1),
+        xy_min=(x0, y0), xy_res=250.0, crs="EPSG:32631", tile_size=512,
+    )
+    results["r2"] = profile_call("R2 rectify the R1 swath -> EPSG:32631 250 m bilinear",
+                                 ds_r1, r2_tgt, "bilinear")
+    del ds_r1
+    ds_r3 = olci_swath(4865, 4091, tuple(f"Oa{k + 1:02d}_radiance" for k in range(21)))
+    r3_tgt = GridMapping.from_dataset(ds_r3).to_regular(tile_size=1024)
+    results["r3"] = profile_call("R3 rectify 4865x4091 granule, 21 bands, bilinear",
+                                 ds_r3, r3_tgt, "bilinear", warm=3, profiled=2)
+    results["r3"]["phases_ms"] = rectify_phases("R3", ds_r3, r3_tgt, "bilinear")
 
     print(
         json.dumps(

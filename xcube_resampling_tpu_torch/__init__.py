@@ -11,6 +11,8 @@ neither JAX nor the JAX package.
 from .affine import affine_transform_dataset, resample_dataset
 from .crs import CRS
 from .gridmapping import GridMapping
+from .rectify import rectify_dataset
+from .reproject import reproject_dataset
 from .spatial import resample_in_space
 from .xrlite import DataArray, Dataset
 
@@ -20,6 +22,8 @@ __all__ = [
     "Dataset",
     "GridMapping",
     "affine_transform_dataset",
+    "rectify_dataset",
+    "reproject_dataset",
     "resample_dataset",
     "resample_in_space",
 ]

@@ -83,6 +83,30 @@ _SIGNATURES = {
     "xrt_coarsen_rank": [
         _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
+    # sx, sy, src_h, src_w, itab, dtab, n_tiles, max_quads, tile_h, tile_w,
+    # n_tiles_x, out_h, out_w, x_scale, y_scale, uv_delta, claim, out, stream
+    "xrt_rectify_phase_a": [
+        _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _D,
+        _D, _D, _P, _P, _P,
+    ],
+    # src, ix, iy, valid, rows, cols, out, n, batch, src_h, src_w, out_w,
+    # out_plane, method, fill, code, stream
+    "xrt_ij_gather": [
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _D,
+        _I, _P,
+    ],
+    # src, ij_map, out, batch, src_h, src_w, out_h, out_w, method, fill,
+    # code, stream
+    "xrt_exact_gather_ij": [
+        _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _D, _I, _P,
+    ],
+    # src, xx, yy, itab, dtab, out, batch, src_h, src_w, out_h, out_w,
+    # tile_h, tile_w, n_tiles_x, win_h, win_w, pad_top, pad_left, x_res,
+    # neg_y_res, method, fill, code, stream
+    "xrt_exact_gather_windows": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I64, _I64, _I64, _I64, _D, _D, _I, _D, _I, _P,
+    ],
 }
 
 

@@ -13,7 +13,8 @@
   the affine gather and the coarsen reducers take, and
   :func:`require_data_dtype` refuses the others.
 * :func:`round_to` rounds float64 values once to a data dtype, as the
-  kernels store them.
+  kernels store them; :func:`wrap_int` reduces integers to a dtype's bits,
+  as integer arithmetic in that dtype wraps.
 """
 
 from __future__ import annotations
@@ -53,6 +54,15 @@ def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return x.to(dtype)
     info = torch.iinfo(dtype)
     return torch.nan_to_num(torch.round(x), nan=0.0).clamp(info.min, info.max).to(dtype)
+
+
+def wrap_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Integer *x* (int64) reduced to integer *dtype*'s bits, two's
+    complement, as int64."""
+    n = torch.iinfo(dtype).bits
+    if dtype.is_signed:
+        return torch.remainder(x + 2 ** (n - 1), 2**n) - 2 ** (n - 1)
+    return torch.remainder(x, 2**n)
 
 
 def count_launch(name: str) -> None:

@@ -37,10 +37,11 @@
 // The method is a template parameter; offsets inside a plane are 32-bit
 // and unsigned (the wrapper refuses planes of 2^31 elements or more), band
 // offsets 64-bit.  Always 4 taps per pixel (1 for nearest), zero weights
-// included, so NaN reach follows gather_interp.  Staging a tile's tap
+// included, so NaN reach follows gather_interp (taps and gather in
+// gather_taps.h, shared with K7).  Staging a tile's tap
 // window in shared memory with cp.async was measured 20-25% slower in
 // every case, so the taps read through L1.
-#include "srw_common.h"
+#include "gather_taps.h"
 
 namespace {
 
@@ -50,72 +51,17 @@ constexpr int kLanes = 2;                 // threads down a tile
 constexpr int kTileCols = kVec * kWarpCols;
 constexpr int kTileRows = 16;             // target rows of a tile
 
-// The taps of one pixel: the top-left tap's offset in its plane, the steps
-// to the right and down (0 where the clamp folds them onto the edge), the
-// fractional parts, the mask.
-struct Taps {
-  unsigned off, dx, dy;
-  float fx, fy;
-  bool ok;
-};
-
 struct Args {
   const float* src;
   float* out;
   xrt::CoarseFields<2> field;  // ix_c, iy_c
   int64_t batch;
-  int src_h, src_w, out_h, out_w;
+  xrt::TapBounds tb;  // the source plane's bounds and clamp limits
+  int out_h, out_w;
   float fill;
-  // the bounds in float32, as the JAX package compares them, and the
-  // clamp limits
-  float x_hi, y_hi, x_max, y_max;
   int n_row_tiles;
   bool vec4;  // out_w % 4 == 0 and out 16-byte aligned
 };
-
-template <int M>
-__device__ __forceinline__ Taps taps(float ix, float iy, const Args& a) {
-  Taps t;
-  t.ok = ix > -0.5f && ix < a.x_hi && iy > -0.5f && iy < a.y_hi;
-  ix = fminf(fmaxf(ix, 0.0f), a.x_max);
-  iy = fminf(fmaxf(iy, 0.0f), a.y_max);
-  if (M == xrt::kNearest) {
-    t.off = static_cast<unsigned>(rintf(iy)) * a.src_w + static_cast<unsigned>(rintf(ix));
-    t.dx = t.dy = 0u;
-    t.fx = t.fy = 0.0f;
-    return t;
-  }
-  const float x0f = floorf(ix);
-  const float y0f = floorf(iy);
-  t.fx = ix - x0f;
-  t.fy = iy - y0f;
-  const unsigned x0 = static_cast<unsigned>(x0f);
-  const unsigned y0 = static_cast<unsigned>(y0f);
-  t.off = y0 * a.src_w + x0;
-  t.dx = x0 + 1 < static_cast<unsigned>(a.src_w) ? 1u : 0u;
-  t.dy = y0 + 1 < static_cast<unsigned>(a.src_h) ? static_cast<unsigned>(a.src_w) : 0u;
-  return t;
-}
-
-// The taps' value.  Every offset is inside the plane (the position was
-// clamped), so the taps are read whether the pixel is valid or not.
-template <int M>
-__device__ __forceinline__ float gather(const float* __restrict__ p,
-                                        const Taps& t) {
-  const float* q = p + t.off;
-  if (M == xrt::kNearest) return __ldg(q);
-  const float v00 = __ldg(q);
-  const float v01 = __ldg(q + t.dx);
-  const float v10 = __ldg(q + t.dy);
-  const float v11 = __ldg(q + t.dy + t.dx);
-  if (M == xrt::kTriangular) {
-    const float v_near = fmaf(t.fy, v10 - v00, xrt::lerp(v00, v01, t.fx));
-    const float v_far =
-        fmaf(1.0f - t.fy, v01 - v11, xrt::lerp(v11, v10, 1.0f - t.fx));
-    return t.fx + t.fy < 1.0f ? v_near : v_far;
-  }
-  return xrt::lerp(xrt::lerp(v00, v01, t.fx), xrt::lerp(v10, v11, t.fx), t.fy);
-}
 
 // One thread: kVec consecutive columns from i, rows kLanes apart.  At
 // least 12 blocks an SM hold ptxas to 80 registers a thread; left free it
@@ -125,7 +71,7 @@ template <int M>
 __global__ void __launch_bounds__(kWarpCols * kLanes, 12) fused_reproject_kernel(const Args a) {
   const int i = (blockIdx.x * kWarpCols + threadIdx.x) * kVec;
   if (i >= a.out_w) return;
-  const int64_t src_plane = static_cast<int64_t>(a.src_h) * a.src_w;
+  const int64_t src_plane = static_cast<int64_t>(a.tb.src_h) * a.tb.src_w;
   const int64_t out_plane = static_cast<int64_t>(a.out_h) * a.out_w;
   const int n = a.out_w - i < kVec ? a.out_w - i : kVec;
   xrt::FieldCols<2, kVec> field(a.field, static_cast<float>(i));
@@ -135,14 +81,14 @@ __global__ void __launch_bounds__(kWarpCols * kLanes, 12) fused_reproject_kernel
       // the kVec pixels of this row: taps once, then every band
       float f[2][kVec];  // ix, iy
       field.at(a.field, static_cast<float>(j), f);
-      Taps t[kVec];
+      xrt::Taps t[kVec];
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) t[c] = taps<M>(f[0][c], f[1][c], a);
+      for (int c = 0; c < kVec; ++c) t[c] = xrt::taps<M>(f[0][c], f[1][c], a.tb);
       for (int64_t b = 0; b < a.batch; ++b) {
         const float* p = a.src + b * src_plane;
         float v[kVec];
 #pragma unroll
-        for (int c = 0; c < kVec; ++c) v[c] = gather<M>(p, t[c]);
+        for (int c = 0; c < kVec; ++c) v[c] = xrt::gather<M>(p, t[c]);
 #pragma unroll
         for (int c = 0; c < kVec; ++c) v[c] = t[c].ok ? v[c] : a.fill;
         float* o = a.out + b * out_plane + j * a.out_w + i;
@@ -175,11 +121,8 @@ extern "C" int xrt_fused_reproject_f32(
   const Args a{src, out,
                {{ix_c, iy_c}, static_cast<int>(ncj), static_cast<int>(nci),
                 static_cast<float>(1.0 / step)},
-               batch, static_cast<int>(src_h), static_cast<int>(src_w),
+               batch, xrt::tap_bounds(src_h, src_w),
                static_cast<int>(out_h), static_cast<int>(out_w), fill,
-               static_cast<float>(static_cast<double>(src_w) - 0.5),
-               static_cast<float>(static_cast<double>(src_h) - 0.5),
-               static_cast<float>(src_w - 1), static_cast<float>(src_h - 1),
                static_cast<int>((out_h + kTileRows - 1) / kTileRows), vec4};
   const dim3 block(kWarpCols, kLanes);
   const dim3 grid(static_cast<unsigned>((out_w + kTileCols - 1) / kTileCols),

@@ -1,0 +1,513 @@
+"""Rectify kernels on PyTorch tensors: Phase A (K8) and Phase B (K7, K9).
+
+Port of ``xcube_resampling_tpu/ops/rectify_ops.py``:
+
+* :func:`inverse_ij_map` with :func:`_accept_quad` is a float64 torch port
+  of the JAX package's numpy Phase A (:44-300): per source quad the
+  destination pixel rectangle from its floored corners, the two
+  barycentric triangle solves with ``uv_delta``, and a scatter-min of the
+  quads' row-major ranks, so that the first writer of the reference's
+  sequential loop wins each pixel.  :func:`rectify_phase_a_plain` runs it
+  once per destination tile of a :class:`PhaseATiles` table, as the JAX
+  host tier does (``rectify._inverse_ij_map_tile``), and is the plain
+  version of K8, :func:`rectify_phase_a` (``csrc/rectify_phase_a.cu``),
+  which does every tile's work in one launch and equals it bit for bit.
+* :func:`make_device_var_image_fn` (:2648-2764) is the device Phase B of
+  tensor variables: K7 (``csrc/ij_gather.cu``, :func:`ij_gather`) through
+  the map's float32 positions with the map's mask, or, for bilinear and
+  triangular where the coarse fields of the map hold, the SRW interior on
+  K1/K2 and the edge band through K7's list form (:func:`ij_gather_list`).
+* :func:`var_image_from_ij_map` (:2767-2855) is the host Phase B of numpy
+  variables: K9's ij_map mode (:mod:`.exact_gather`).
+
+The wrappers run the plain versions for CPU tensors and launch the kernels
+for CUDA tensors, or raise; they never fall back.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import _build
+from .._device import (
+    DTYPE_CODES,
+    count_launch,
+    on_cpu,
+    require_cuda,
+    require_data_dtype,
+)
+from .exact_gather import exact_gather_ij, unsupported
+from .reproject_ops import (
+    MAX_PLANE,
+    METHODS,
+    gather_dtype,
+    gather_fill,
+    gather_interp,
+    method_code,
+)
+from .srw import fields_from_ij_map, make_srw_fn, plan_srw
+
+_F32 = torch.float32
+_F64 = torch.float64
+
+# The device Phase B's SRW coarse-field step; the coverage interior is the
+# map's valid pixels eroded PHASE_B_STEP + 2 times (rectify_ops.py:2693).
+# Where JAX picks its batched or its tiled SRW (:2707-2718), the port runs
+# the same two kernels, K1 and K2.
+PHASE_B_STEP = 16
+_NAN = float("nan")
+
+
+# ---------------------------------------------------------------------------
+# Phase A: the plain float64 version
+# ---------------------------------------------------------------------------
+
+
+def _fdet(px0, py0, px1, py1, px2, py2):
+    return (px0 - px1) * (py0 - py2) - (px0 - px2) * (py0 - py1)
+
+
+def _fu(px, py, px0, py0, px2, py2):
+    return (px0 - px) * (py0 - py2) - (py0 - py) * (px0 - px2)
+
+
+def _fv(px, py, px0, py0, px1, py1):
+    return (py0 - py) * (px0 - px1) - (px0 - px) * (py0 - py1)
+
+
+def _accept_quad(
+    q, qi, qj, pixel_i, pixel_j, dst_x_offset, dst_y_offset, dst_x_scale,
+    dst_y_scale, u_min, v_min, uv_max,
+):
+    """The reference's two-triangle containment test for candidate (quad,
+    pixel) pairs: (accept, fractional src_i, src_j) relative to the window.
+    The second triangle's result is taken only where the first rejects."""
+    # (an integer tensor plus a Python float would promote to float32)
+    dst_x = dst_x_offset + (pixel_i.to(_F64) + 0.5) * dst_x_scale
+    dst_y = dst_y_offset + (pixel_j.to(_F64) + 0.5) * dst_y_scale
+    det_a, det_b = q["det_a"], q["det_b"]
+    p0x, p0y = q["p0x"], q["p0y"]
+    p1x, p1y = q["p1x"], q["p1y"]
+    p2x, p2y = q["p2x"], q["p2y"]
+    p3x, p3y = q["p3x"], q["p3y"]
+
+    safe_a = torch.where(det_a == 0.0, 1.0, det_a)
+    ua = _fu(dst_x, dst_y, p0x, p0y, p2x, p2y) / safe_a
+    va = _fv(dst_x, dst_y, p0x, p0y, p1x, p1y) / safe_a
+    ok_a = (det_a != 0.0) & (ua >= u_min) & (va >= v_min) & (ua + va <= uv_max)
+
+    safe_b = torch.where(det_b == 0.0, 1.0, det_b)
+    ub = _fu(dst_x, dst_y, p3x, p3y, p1x, p1y) / safe_b
+    vb = _fv(dst_x, dst_y, p3x, p3y, p2x, p2y) / safe_b
+    ok_b = (det_b != 0.0) & (ub >= u_min) & (vb >= v_min) & (ub + vb <= uv_max)
+
+    use_b = ~ok_a & ok_b
+    src_if = torch.where(use_b, (qi + 1) - ub.clamp(0.0, 1.0), qi + ua.clamp(0.0, 1.0))
+    src_jf = torch.where(use_b, (qj + 1) - vb.clamp(0.0, 1.0), qj + va.clamp(0.0, 1.0))
+    return ok_a | ok_b, src_if, src_jf
+
+
+def inverse_ij_map(
+    src_x: torch.Tensor,
+    src_y: torch.Tensor,
+    src_i_min: int,
+    src_j_min: int,
+    dst_shape: tuple[int, int],
+    dst_x_offset: float,
+    dst_y_offset: float,
+    dst_x_scale: float,
+    dst_y_scale: float,
+    uv_delta: float,
+) -> torch.Tensor:
+    """The (2, dst_h, dst_w) float64 fractional source (i, j) map of one
+    destination block from (h, w) float64 source coordinate images
+    (``rectify_ops.inverse_ij_map``)."""
+    dst_h, dst_w = dst_shape
+    out = torch.full((2, dst_h, dst_w), _NAN, dtype=_F64, device=src_x.device)
+    src_h, src_w = src_x.shape
+    if src_h < 2 or src_w < 2:
+        return out
+
+    p0x, p1x = src_x[:-1, :-1], src_x[:-1, 1:]
+    p2x, p3x = src_x[1:, :-1], src_x[1:, 1:]
+    p0y, p1y = src_y[:-1, :-1], src_y[:-1, 1:]
+    p2y, p3y = src_y[1:, :-1], src_y[1:, 1:]
+
+    # destination pixel rect per quad: floor((corner - offset) / scale)
+    cx_min = torch.minimum(torch.minimum(p0x, p1x), torch.minimum(p2x, p3x))
+    cx_max = torch.maximum(torch.maximum(p0x, p1x), torch.maximum(p2x, p3x))
+    cy_min = torch.minimum(torch.minimum(p0y, p1y), torch.minimum(p2y, p3y))
+    cy_max = torch.maximum(torch.maximum(p0y, p1y), torch.maximum(p2y, p3y))
+    if dst_x_scale >= 0:
+        i_lo = torch.floor((cx_min - dst_x_offset) / dst_x_scale)
+        i_hi = torch.floor((cx_max - dst_x_offset) / dst_x_scale)
+    else:
+        i_lo = torch.floor((cx_max - dst_x_offset) / dst_x_scale)
+        i_hi = torch.floor((cx_min - dst_x_offset) / dst_x_scale)
+    if dst_y_scale >= 0:
+        j_lo = torch.floor((cy_min - dst_y_offset) / dst_y_scale)
+        j_hi = torch.floor((cy_max - dst_y_offset) / dst_y_scale)
+    else:
+        j_lo = torch.floor((cy_max - dst_y_offset) / dst_y_scale)
+        j_hi = torch.floor((cy_min - dst_y_offset) / dst_y_scale)
+    nan_rect = torch.isnan(i_lo) | torch.isnan(j_lo)
+    i_lo, i_hi, j_lo, j_hi = (torch.nan_to_num(t, nan=-1e9) for t in (i_lo, i_hi, j_lo, j_hi))
+    alive = ~nan_rect & (i_hi >= 0) & (j_hi >= 0) & (i_lo < dst_w) & (j_lo < dst_h)
+
+    # triangle determinants (NaN -> 0, both-zero quads dropped)
+    det_a = torch.nan_to_num(_fdet(p0x, p0y, p1x, p1y, p2x, p2y), nan=0.0)
+    det_b = torch.nan_to_num(_fdet(p3x, p3y, p2x, p2y, p1x, p1y), nan=0.0)
+    alive &= (det_a != 0.0) | (det_b != 0.0)
+    if not bool(alive.any()):
+        return out
+
+    nqj, nqi = src_h - 1, src_w - 1
+    alive_f = alive.reshape(-1)
+    corners = {
+        "p0x": p0x, "p0y": p0y, "p1x": p1x, "p1y": p1y, "p2x": p2x,
+        "p2y": p2y, "p3x": p3x, "p3y": p3y, "det_a": det_a, "det_b": det_b,
+    }
+    corners = {k: v.reshape(-1) for k, v in corners.items()}
+    dev = src_x.device
+    qi_f = torch.arange(nqi, dtype=torch.int64, device=dev).repeat(nqj)
+    qj_f = torch.arange(nqj, dtype=torch.int64, device=dev).repeat_interleave(nqi)
+    i_lo_q = i_lo.reshape(-1).clamp(0, dst_w - 1).long()
+    i_hi_q = i_hi.reshape(-1).clamp(0, dst_w - 1).long()
+    j_lo_q = j_lo.reshape(-1).clamp(0, dst_h - 1).long()
+    j_hi_q = j_hi.reshape(-1).clamp(0, dst_h - 1).long()
+    r_i = int((i_hi_q[alive_f] - i_lo_q[alive_f]).max()) + 1
+    r_j = int((j_hi_q[alive_f] - j_lo_q[alive_f]).max()) + 1
+
+    u_min = v_min = -uv_delta
+    uv_max = 1.0 + 2 * uv_delta
+    # winner-rank map: the quad's row-major rank is the reference's write order
+    rank = qj_f * nqi + qi_f
+    claim = torch.full((dst_h * dst_w,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+                       device=dev)
+    accepted = []
+    for dj in range(r_j):
+        for di in range(r_i):
+            pixel_j = j_lo_q + dj
+            pixel_i = i_lo_q + di
+            sel = torch.nonzero(alive_f & (pixel_j <= j_hi_q) & (pixel_i <= i_hi_q))[:, 0]
+            if sel.numel() == 0:
+                continue
+            accept, src_if, src_jf = _accept_quad(
+                {k: v[sel] for k, v in corners.items()}, qi_f[sel], qj_f[sel],
+                pixel_i[sel], pixel_j[sel], dst_x_offset, dst_y_offset,
+                dst_x_scale, dst_y_scale, u_min, v_min, uv_max,
+            )
+            acc = sel[accept]
+            flat = pixel_j[acc] * dst_w + pixel_i[acc]
+            accepted.append((acc, flat, src_if[accept], src_jf[accept]))
+            claim.scatter_reduce_(0, flat, rank[acc], reduce="amin")
+
+    # the winners' fractional source coordinates, offset by the window's
+    out_i = out[0].view(-1)
+    out_j = out[1].view(-1)
+    for acc, flat, src_if, src_jf in accepted:
+        win = claim[flat] == rank[acc]
+        out_i[flat[win]] = src_i_min + src_if[win]
+        out_j[flat[win]] = src_j_min + src_jf[win]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8: every destination tile of Phase A in one launch
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PhaseATiles:
+    """K8's tile table: per destination tile (row-major over the target's
+    tiles) ``ints`` (n, 8) int64 = row0, col0, tile rows, tile columns, the
+    window's first source column and row, its width and height (0 where no
+    source quad can land in the tile), and ``origins`` (n, 2) float64 = the
+    tile's destination x and y origin; the destination's scales (y negative
+    for a j-axis-down target) and tiling."""
+
+    ints: np.ndarray
+    origins: np.ndarray
+    x_scale: float
+    y_scale: float
+    tile_h: int
+    tile_w: int
+    n_tiles_x: int
+    out_h: int
+    out_w: int
+
+
+def rectify_phase_a_plain(swath_xy: torch.Tensor, tiles: PhaseATiles, uv_delta: float):
+    """Plain PyTorch version of K8: :func:`inverse_ij_map` once per tile of
+    *tiles* on its window of the (2, H, W) float64 *swath_xy*."""
+    out = torch.full((2, tiles.out_h, tiles.out_w), _NAN, dtype=_F64, device=swath_xy.device)
+    for (row0, col0, th, tw, i_lo, j_lo, win_w, win_h), (x_off, y_off) in zip(
+        tiles.ints.tolist(), tiles.origins.tolist()
+    ):
+        if win_w < 1 or win_h < 1:
+            continue
+        window = swath_xy[:, j_lo:j_lo + win_h, i_lo:i_lo + win_w]
+        out[:, row0:row0 + th, col0:col0 + tw] = inverse_ij_map(
+            window[0], window[1], i_lo, j_lo, (th, tw), x_off, y_off,
+            tiles.x_scale, tiles.y_scale, uv_delta,
+        )
+    return out
+
+
+# K8's claims start at 0x7F7F7F7F (a byte fill): window-local quad ranks
+# must stay below it
+_MAX_QUADS = 0x7F7F7F7F
+
+
+def rectify_phase_a(swath_xy: torch.Tensor, tiles: PhaseATiles, uv_delta: float):
+    """K8: the (2, out_h, out_w) float64 Phase A map of the (2, H, W)
+    float64 swath coordinates (in the target CRS) over the tiles of
+    *tiles*, equal to the JAX package's host tier bit for bit."""
+    if on_cpu(swath_xy):
+        return rectify_phase_a_plain(swath_xy, tiles, uv_delta)
+    _, src_h, src_w = swath_xy.shape
+    require_cuda(swath_xy, "swath_xy", _F64, (2, src_h, src_w))
+    n = len(tiles.ints)
+    quads = np.maximum(tiles.ints[:, 6] - 1, 0) * np.maximum(tiles.ints[:, 7] - 1, 0)
+    max_quads = int(quads.max()) if n else 0
+    if not 0 < n <= 65535 or max_quads >= _MAX_QUADS:
+        raise ValueError(f"K8 takes 1 to 65535 tiles of fewer than {_MAX_QUADS} quads: "
+                         f"{n} tiles, up to {max_quads} quads")
+    dev = swath_xy.device
+    itab = torch.from_numpy(np.ascontiguousarray(tiles.ints, np.int64)).to(dev)
+    dtab = torch.from_numpy(np.ascontiguousarray(tiles.origins, np.float64)).to(dev)
+    claim = torch.empty(tiles.out_h * tiles.out_w, dtype=torch.int32, device=dev)
+    out = torch.empty((2, tiles.out_h, tiles.out_w), dtype=_F64, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.xrt_rectify_phase_a(
+            swath_xy[0].data_ptr(), swath_xy[1].data_ptr(), src_h, src_w,
+            itab.data_ptr(), dtab.data_ptr(), n, max_quads, tiles.tile_h,
+            tiles.tile_w, tiles.n_tiles_x, tiles.out_h, tiles.out_w,
+            float(tiles.x_scale), float(tiles.y_scale), float(uv_delta),
+            claim.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "rectify_phase_a")
+    count_launch("rectify_phase_a")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: the device Phase B gather
+# ---------------------------------------------------------------------------
+
+
+def _check_gather(src, interp_method):
+    require_data_dtype(src.dtype, "the source")
+    method_code(interp_method)
+    if src.dim() != 3:
+        raise ValueError(f"expected a (B, H, W) source, got {tuple(src.shape)}")
+    if src.shape[-2] * src.shape[-1] >= MAX_PLANE:
+        raise ValueError(f"K7 takes source planes of fewer than 2^31 elements: {tuple(src.shape)}")
+
+
+def ij_gather_plain(src, ix, iy, valid, interp_method, fill_value):
+    """Plain PyTorch version of K7's map form: ``gather_interp`` of (B, H,
+    W) *src* at float32 positions (h, w), masked by *valid*."""
+    _check_gather(src, interp_method)
+    return gather_interp(src, ix, iy, interp_method, fill_value, valid=valid)
+
+
+def ij_gather(src, ix, iy, valid, interp_method, fill_value):
+    """K7's map form: (B, h, w) of :func:`.reproject_ops.gather_dtype`
+    from (B, H, W) *src*, float32 positions *ix*, *iy* (h, w) and the
+    map's mask *valid* (h, w, bool)."""
+    if on_cpu(src, ix, iy, valid):
+        return ij_gather_plain(src, ix, iy, valid, interp_method, fill_value)
+    _check_gather(src, interp_method)
+    batch, src_h, src_w = src.shape
+    out_h, out_w = ix.shape
+    require_cuda(src, "src", src.dtype, (batch, src_h, src_w))
+    require_cuda(ix, "ix", _F32, (out_h, out_w))
+    require_cuda(iy, "iy", _F32, (out_h, out_w))
+    require_cuda(valid, "valid", torch.bool, (out_h, out_w))
+    out_dtype = gather_dtype(src.dtype, interp_method)
+    out = torch.empty((batch, out_h, out_w), dtype=out_dtype, device=src.device)
+    if out.numel() == 0:
+        return out
+    _launch_ij_gather(src, ix, iy, valid, None, None, out, out_w, interp_method, fill_value)
+    return out
+
+
+def ij_gather_list_plain(out, src, ix, iy, rows, cols, interp_method, fill_value):
+    """Plain PyTorch version of K7's list form: writes ``gather_interp``
+    (bounds-valid) of *src* at float32 positions (n) into
+    ``out[:, rows, cols]``; returns *out*."""
+    _check_gather(src, interp_method)
+    out[:, rows.long(), cols.long()] = gather_interp(
+        src, ix, iy, interp_method, fill_value
+    ).to(out.dtype)
+    return out
+
+
+def ij_gather_list(out, src, ix, iy, rows, cols, interp_method, fill_value):
+    """K7's list form: ``gather_interp`` of (B, H, W) *src* at the float32
+    positions *ix*, *iy* (n), valid inside the source's bounds, written in
+    place at (*rows*, *cols*) (int32, n) of (B, h, w) *out*, whose dtype
+    must be :func:`.reproject_ops.gather_dtype`'s; returns *out*."""
+    if on_cpu(out, src, ix, iy, rows, cols):
+        return ij_gather_list_plain(out, src, ix, iy, rows, cols, interp_method, fill_value)
+    _check_gather(src, interp_method)
+    batch, src_h, src_w = src.shape
+    (n,) = ix.shape
+    require_cuda(src, "src", src.dtype, (batch, src_h, src_w))
+    require_cuda(out, "out", gather_dtype(src.dtype, interp_method),
+                 (batch,) + tuple(out.shape[1:]))
+    for t, name, dtype in ((ix, "ix", _F32), (iy, "iy", _F32), (rows, "rows", torch.int32),
+                           (cols, "cols", torch.int32)):
+        require_cuda(t, name, dtype, (n,))
+    if n:
+        _launch_ij_gather(src, ix, iy, None, rows, cols, out, out.shape[-1], interp_method,
+                          fill_value)
+    return out
+
+
+def _launch_ij_gather(src, ix, iy, valid, rows, cols, out, out_w, interp_method, fill_value):
+    batch, src_h, src_w = src.shape
+    fill = gather_fill(fill_value, out.dtype)
+    lib = _build.load()
+    with torch.cuda.device(src.device):
+        rc = lib.xrt_ij_gather(
+            src.data_ptr(), ix.data_ptr(), iy.data_ptr(),
+            None if valid is None else valid.data_ptr(),
+            None if rows is None else rows.data_ptr(),
+            None if cols is None else cols.data_ptr(),
+            out.data_ptr(), ix.numel(), batch, src_h, src_w, out_w,
+            out.shape[-2] * out.shape[-1], method_code(interp_method), fill,
+            DTYPE_CODES[src.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "ij_gather")
+    count_launch("ij_gather")
+
+
+# ---------------------------------------------------------------------------
+# Phase B of tensor variables: make_device_var_image_fn
+# ---------------------------------------------------------------------------
+
+
+class GatherPhaseB:
+    """``fn(src) -> (B, h, w)`` through K7's map form; ``fn.plain(src)``
+    through its plain version.  *src* is (B, H, W) on the map's device."""
+
+    def __init__(self, ix, iy, valid, interp_method, fill_value):
+        self.ix, self.iy, self.valid = ix, iy, valid
+        self.interp_method, self.fill_value = interp_method, fill_value
+
+    def _run(self, gather, src):
+        return gather(src, self.ix, self.iy, self.valid, self.interp_method, self.fill_value)
+
+    def __call__(self, src):
+        return self._run(ij_gather, src)
+
+    def plain(self, src):
+        return self._run(ij_gather_plain, src)
+
+
+class SRWPhaseB:
+    """``fn(src) -> (B, h, w)``: the coverage interior through the tiled
+    SRW (K1, K2) on the map's coarse fields, the fill outside it, and the
+    edge band through K7's list form; ``fn.plain(src)`` through their plain
+    versions.  Float32 output (float64 for float64 sources, whose interior
+    K1/K2 compute in float32)."""
+
+    def __init__(self, srw, interior, rows, cols, ix_e, iy_e, interp_method, fill_value):
+        self.srw, self.interior = srw, interior
+        self.rows, self.cols, self.ix_e, self.iy_e = rows, cols, ix_e, iy_e
+        self.interp_method, self.fill_value = interp_method, fill_value
+
+    def _run(self, src, srw, gather_list):
+        out_dtype = gather_dtype(src.dtype, self.interp_method)
+        out = srw(src if src.dtype == _F32 else src.float()).to(out_dtype)
+        out.masked_fill_(~self.interior, gather_fill(self.fill_value, out_dtype))
+        return gather_list(out, src, self.ix_e, self.iy_e, self.rows, self.cols,
+                           self.interp_method, self.fill_value)
+
+    def __call__(self, src):
+        return self._run(src, self.srw, ij_gather_list)
+
+    def plain(self, src):
+        return self._run(src, self.srw.plain, ij_gather_list_plain)
+
+
+def make_device_var_image_fn(
+    ij_map,
+    src_shape: tuple[int, int],
+    fill_value,
+    interp_method: str,
+    src_dtype: torch.dtype = _F32,
+    device="cuda",
+):
+    """The device Phase B of a fixed (2, h, w) float64 map (numpy array or
+    tensor) for (B, *src_shape*) sources of *src_dtype*, with its statics
+    on *device* (``rectify_ops.make_device_var_image_fn``).
+
+    Bilinear and triangular resolve the interior of the coverage, the
+    map's valid pixels eroded 18 times, through the tiled SRW where the
+    map's coarse fields hold within 0.05 source pixels there; the edge band
+    through K7's list form.  Else, and for nearest, every pixel through
+    K7's map form.  (The JAX package's ``XRTPU_PHASEB_SRW`` switch, which
+    forces either choice, is not ported.)"""
+    if interp_method not in METHODS:
+        raise unsupported(interp_method)
+    require_data_dtype(src_dtype, "the source")
+    src_h, src_w = src_shape
+    if interp_method in ("bilinear", "triangular"):
+        from scipy.ndimage import binary_erosion
+
+        ij_np = ij_map.cpu().numpy() if isinstance(ij_map, torch.Tensor) else np.asarray(
+            ij_map, dtype=np.float64)
+        valid_np = ~np.isnan(ij_np[0]) & ~np.isnan(ij_np[1])
+        interior = binary_erosion(valid_np, iterations=PHASE_B_STEP + 2)
+        fields = fields_from_ij_map(
+            ij_np, src_h, src_w, step=PHASE_B_STEP, gate_mask=interior
+        )
+        plan = plan_srw(None, None, fields=fields) if fields is not None else None
+        if plan is not None and interior.any():
+            edge_rows, edge_cols = np.nonzero(valid_np & ~interior)
+
+            def put(a, dtype=None):
+                return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+            return SRWPhaseB(
+                make_srw_fn(plan, interp_method, fill_value, device),
+                put(interior),
+                put(edge_rows, np.int32),
+                put(edge_cols, np.int32),
+                put(ij_np[0][edge_rows, edge_cols], np.float32),
+                put(ij_np[1][edge_rows, edge_cols], np.float32),
+                interp_method,
+                fill_value,
+            )
+    m = torch.as_tensor(ij_map, dtype=_F64).to(device)
+    valid = ~(torch.isnan(m[0]) | torch.isnan(m[1]))
+    return GatherPhaseB(
+        torch.nan_to_num(m[0], nan=0.0).float(),
+        torch.nan_to_num(m[1], nan=0.0).float(),
+        valid,
+        interp_method,
+        fill_value,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Phase B of numpy variables: the host gather (K9)
+# ---------------------------------------------------------------------------
+
+
+def var_image_from_ij_map(src_var, ij_map, fill_value, interp_method):
+    """The host Phase B of (..., H, W) *src_var* through the (2, h, w)
+    float64 map, (..., h, w) of *src_var*'s dtype
+    (``rectify_ops.var_image_from_ij_map``): K9's ij_map mode on the map's
+    device."""
+    lead = tuple(src_var.shape[:-2])
+    src = src_var.reshape((-1,) + tuple(src_var.shape[-2:])).contiguous()
+    out = exact_gather_ij(src, ij_map, fill_value, interp_method)
+    return out.reshape(lead + tuple(out.shape[-2:]))

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .._device import count_launch, on_cpu, require_cuda
+from .._device import count_launch, on_cpu, require_cuda, wrap_int
 from ..crs import Transformer
 from ..gridmapping import GridMapping
 
@@ -114,15 +114,68 @@ def interp_field(field, rows, cols, step):
     return lerp(lerp(f00, f01, fi), lerp(f10, f11, fi), fj)
 
 
-def gather_interp(src, ix, iy, interp_method, fill_value):
-    """Bounds-masked, clamp-to-edge gather of ``src`` (..., H, W) at
-    fractional source indices, as ``reproject_ops.gather_interp``."""
+def fma64(a, b, c):
+    """``a * b + c`` in float64 with one rounding, emulated (Dekker's exact
+    product, Knuth's exact sum): it may differ from a fused multiply-add
+    by one float64 ulp where the error terms round at a tie."""
+    p = a * b
+    t = 134217729.0 * a  # 2^27 + 1: split each factor into 26-bit halves
+    ah = t - (t - a)
+    al = a - ah
+    t = 134217729.0 * b
+    bh = t - (t - b)
+    bl = b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    z = s - p
+    return s + (((p - (s - z)) + (c - z)) + e)
+
+
+def gather_dtype(dtype: torch.dtype, interp_method: str) -> torch.dtype:
+    """``gather_interp``'s output dtype for a source of *dtype*, as jnp
+    promotes it: the source's for nearest, float64 for float64, float32
+    otherwise."""
+    if interp_method == "nearest":
+        return dtype
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def gather_fill(fill_value, dtype: torch.dtype) -> float:
+    """*fill_value* in *dtype*, as ``jnp.asarray(fill_value, dtype)``: a
+    float cast, or an integer that *dtype* holds (else ``ValueError``)."""
+    if dtype.is_floating_point:
+        return float(np.float32(fill_value)) if dtype == torch.float32 else float(fill_value)
+    f = float(fill_value)
+    info = torch.iinfo(dtype)
+    if not np.isfinite(f) or not info.min <= int(f) <= info.max:
+        raise ValueError(f"fill value {fill_value!r} is no {dtype} value")
+    return float(int(f))
+
+
+def _tap_diff(b, a, dtype):
+    """``b - a`` in the source *dtype* (integers wrap, as jnp's do), in
+    the lerps' arithmetic dtype."""
+    if dtype.is_floating_point:
+        return b - a
+    return wrap_int(b.long() - a.long(), dtype).float()
+
+
+def gather_interp(src, ix, iy, interp_method, fill_value, valid=None):
+    """Clamp-to-edge gather of ``src`` (..., H, W) at float32 fractional
+    source indices, as ``reproject_ops.gather_interp``: masked by *valid*,
+    or where None by the bounds (-0.5, n - 0.5).  Lerps as XLA contracts
+    them: fused multiply-adds in float32 for float32 and integer sources
+    (integer tap differences wrap in the source dtype), in float64 for
+    float64 sources; output dtype :func:`gather_dtype`."""
     src_h, src_w = src.shape[-2], src.shape[-1]
-    valid = (ix > -0.5) & (ix < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
+    if valid is None:
+        valid = (ix > -0.5) & (ix < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
     ix = ix.clamp(0, src_w - 1)
     iy = iy.clamp(0, src_h - 1)
+    dtype = src.dtype
+    taps = src.to(torch.int32) if dtype == torch.uint16 else src
     if interp_method == "nearest":
-        vals = src[..., torch.round(iy).long(), torch.round(ix).long()]
+        vals = taps[..., torch.round(iy).long(), torch.round(ix).long()]
     else:
         x0f = torch.floor(ix)
         y0f = torch.floor(iy)
@@ -132,18 +185,39 @@ def gather_interp(src, ix, iy, interp_method, fill_value):
         y0 = y0f.long()
         x1 = (x0 + 1).clamp(0, src_w - 1)
         y1 = (y0 + 1).clamp(0, src_h - 1)
-        v00 = src[..., y0, x0]
-        v01 = src[..., y0, x1]
-        v10 = src[..., y1, x0]
-        v11 = src[..., y1, x1]
-        if interp_method == "triangular":
-            near = fma(fy, v10 - v00, lerp(v00, v01, fx))
-            far = fma(1.0 - fy, v01 - v11, lerp(v11, v10, 1.0 - fx))
-            vals = torch.where(fx + fy < 1.0, near, far)
+        v00 = taps[..., y0, x0]
+        v01 = taps[..., y0, x1]
+        v10 = taps[..., y1, x0]
+        v11 = taps[..., y1, x1]
+        if dtype == _F32:
+            if interp_method == "triangular":
+                near = fma(fy, v10 - v00, lerp(v00, v01, fx))
+                far = fma(1.0 - fy, v01 - v11, lerp(v11, v10, 1.0 - fx))
+                vals = torch.where(fx + fy < 1.0, near, far)
+            else:
+                vals = lerp(lerp(v00, v01, fx), lerp(v10, v11, fx), fy)
         else:
-            vals = lerp(lerp(v00, v01, fx), lerp(v10, v11, fx), fy)
-    fill = torch.tensor(fill_value, dtype=vals.dtype, device=vals.device)
-    return torch.where(valid, vals, fill)
+            arith = gather_dtype(dtype, interp_method)
+            f = fma64 if arith == torch.float64 else fma
+
+            def d(b, a):
+                return _tap_diff(b, a, dtype)
+
+            def w(t):
+                return t.to(arith)
+
+            if interp_method == "triangular":
+                near = f(w(fy), d(v10, v00), f(w(fx), d(v01, v00), w(v00)))
+                far = f(w(1.0 - fy), d(v01, v11), f(w(1.0 - fx), d(v10, v11), w(v11)))
+                vals = torch.where(fx + fy < 1.0, near, far)
+            else:
+                a = f(w(fx), d(v01, v00), w(v00))
+                b = f(w(fx), d(v11, v10), w(v10))
+                vals = f(w(fy), b - a, a)
+    out_dtype = gather_dtype(dtype, interp_method)
+    fill = torch.tensor(gather_fill(fill_value, out_dtype), dtype=torch.float64,
+                        device=vals.device).to(vals.dtype)
+    return torch.where(valid, vals, fill).to(out_dtype)
 
 
 def fused_reproject_plain(

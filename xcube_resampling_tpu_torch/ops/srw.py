@@ -203,6 +203,105 @@ def _fields_interp_err(fields: _Fields) -> float:
     )
 
 
+def fields_from_ij_map(
+    ij_map: np.ndarray,
+    src_h: int,
+    src_w: int,
+    step: int = 16,
+    pos_tol: float = 0.05,
+    gate_mask: np.ndarray | None = None,
+) -> _Fields | None:
+    """Build SRW coarse fields from a full-resolution fractional (i, j)
+    map (rectify Phase A's output), or None where the coarse fields miss
+    the map by more than *pos_tol* source pixels over *gate_mask* (default:
+    the map's finite pixels).  NaN entries are filled per row by linear
+    interpolation/extrapolation from the valid samples.  Copy of
+    ``xcube_resampling_tpu/ops/srw.py:fields_from_ij_map``."""
+    ix_full = np.asarray(ij_map[0], dtype=np.float64)
+    iy_full = np.asarray(ij_map[1], dtype=np.float64)
+    out_h, out_w = ix_full.shape
+    if out_h < 2 * step or out_w < 2 * step:
+        return None
+
+    def _fill_rows(f):
+        filled = f.copy()
+        cols = np.arange(out_w, dtype=np.float64)
+        last_good = None
+        for r in range(out_h):
+            row = filled[r]
+            good = np.isfinite(row)
+            n_good = int(good.sum())
+            if n_good == out_w:
+                last_good = filled[r]
+                continue
+            if n_good >= 2:
+                xg = cols[good]
+                yg = row[good]
+                vals = np.interp(cols, xg, yg)
+                lo = cols < xg[0]
+                if lo.any():
+                    s = (yg[1] - yg[0]) / (xg[1] - xg[0])
+                    vals[lo] = yg[0] + (cols[lo] - xg[0]) * s
+                hi = cols > xg[-1]
+                if hi.any():
+                    s = (yg[-1] - yg[-2]) / (xg[-1] - xg[-2])
+                    vals[hi] = yg[-1] + (cols[hi] - xg[-1]) * s
+                filled[r] = vals
+                last_good = vals
+            elif last_good is not None:
+                filled[r] = last_good
+            # else: leading sparse/all-NaN rows — back-filled below
+        if not np.isfinite(filled).all():
+            finite_rows = np.where(np.isfinite(filled).all(axis=1))[0]
+            if finite_rows.size == 0:
+                return None
+            filled[: finite_rows[0]] = filled[finite_rows[0]]
+        return filled
+
+    ix_f = _fill_rows(ix_full)
+    iy_f = _fill_rows(iy_full)
+    if ix_f is None or iy_f is None:
+        return None
+
+    # coarse subsample, the last sample clamped to the final pixel
+    ncj = (out_h - 1) // step + 2
+    nci = (out_w - 1) // step + 2
+    rsel = np.minimum(np.arange(ncj) * step, out_h - 1)
+    csel = np.minimum(np.arange(nci) * step, out_w - 1)
+    ix64 = ix_f[np.ix_(rsel, csel)]
+    iy64 = iy_f[np.ix_(rsel, csel)]
+
+    # measured accuracy gate against the true per-pixel field
+    valid = gate_mask if gate_mask is not None else np.isfinite(ix_full)
+    if valid.any():
+        ix_approx = _interp_rows(_interp_cols(ix64, out_w, step), out_h, step)
+        iy_approx = _interp_rows(_interp_cols(iy64, out_w, step), out_h, step)
+        err = max(
+            float(np.max(np.abs(ix_approx[valid] - ix_full[valid]))),
+            float(np.max(np.abs(iy_approx[valid] - iy_full[valid]))),
+        )
+        if err > pos_tol:
+            return None
+
+    return _finish_fields(ix64, iy64, step, src_h, src_w, out_h, out_w)
+
+
+def _finish_fields(
+    ix64: np.ndarray,
+    iy64: np.ndarray,
+    step: int,
+    src_h: int,
+    src_w: int,
+    out_h: int,
+    out_w: int,
+) -> _Fields | None:
+    """Require monotone columns and resample iy onto the source-column
+    lattice (iy*)."""
+    iystar = _iystar_from_fields(ix64, iy64, src_w, step)
+    if iystar is None:
+        return None
+    return _Fields(ix64, iy64, iystar, step, src_h, src_w, out_h, out_w)
+
 
 # ---------------------------------------------------------------------------
 # tiled plan (mild warp)

@@ -1,24 +1,31 @@
 """Reprojection engine for datasets whose variables are torch tensors.
 
-Port of ``xcube_resampling_tpu/reproject.py:52-298``.  Variables backed by
-torch tensors stay on their device; numpy-backed float variables become
-float32 tensors on the *device* argument (default ``"cuda"``).  Both go
-through the device tiers:
+Port of ``xcube_resampling_tpu/reproject.py:52-298``, with the JAX
+package's two semantics kept apart:
 
-1. the tiled SRW plan (:func:`.ops.srw.make_srw_reproject_fn`: crop,
-   gates, K1 + K2), unless ``XRTPU_EXACT=1``;
-2. otherwise K3, the fused direct gather, which the JAX package's exact
-   tiers (ESW, exact region mosaic) reproduce: bit-exact for nearest,
-   within 2 ulp for bilinear.
+* float32 tensor variables stay on their device and go through the
+  device tiers: the tiled SRW plan (:func:`.ops.srw.make_srw_reproject_fn`:
+  crop, gates, K1 + K2), unless ``XRTPU_EXACT=1``; otherwise K3, the fused
+  direct gather, which the JAX package's exact tiers (ESW, exact region
+  mosaic) reproduce: bit-exact for nearest, within 2 ulp for bilinear;
+* numpy variables take the JAX package's host golden path on the card of
+  the *device* argument (default ``"cuda"``): per-pixel float64 target
+  centres in the source CRS (:func:`_target_centers_in_source`), the
+  per-tile source windows of :func:`_plan_source_windows`, and
+  :func:`_gather_through_windows` through K9's window mode; their dtype is
+  kept (integers take ``rint``), and they come back as tensors.
 
 Where the target is coarser than the source (scale below
 ``SCALE_LIMIT``), :func:`_maybe_downscale` first clips the source to the
-target's span and downscales it through the affine engine (K4, then K5 or
-K6), on the device tensors.  Grid variables on more than one device raise
-``ValueError``; ``XRTPU_FAST_EXTREME_WARP=1``, torch dtypes other than
-float32 and numpy dtypes other than floats raise ``NotImplementedError``.
-``_gm_fingerprint``, ``_as_target_array``, ``_maybe_downscale`` and
-``_assert_target_overlaps_source`` are copies of the JAX package's.
+target's span and downscales it through the affine engine (K4's downscale
+form ``affine_gather_reduce``, or K4 then K6 for mode and median), on the
+device tensors.  Grid variables on more than one device raise
+``ValueError``; ``XRTPU_FAST_EXTREME_WARP=1``, tensors other than float32
+and dtypes outside the affine engine's seven raise ``NotImplementedError``.
+``_gm_fingerprint``, ``_as_target_array``, ``_maybe_downscale``,
+``_assert_target_overlaps_source``, ``_WindowPlan``,
+``_plan_source_windows`` and ``_target_centers_in_source`` are copies of
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,10 +34,12 @@ import math
 import os
 from collections import OrderedDict
 from collections.abc import Iterable
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from . import affine
 from .affine import affine_transform_dataset
 from .constants import (
     SCALE_LIMIT,
@@ -41,6 +50,7 @@ from .constants import (
 )
 from .crs import Transformer
 from .gridmapping import GridMapping
+from .ops.exact_gather import WindowTiles, exact_gather_windows
 from .ops.reproject_ops import METHODS, make_fused_reproject_fn
 from .ops.srw import make_srw_reproject_fn
 from .utils import (
@@ -69,8 +79,9 @@ def reproject_dataset(
 ) -> Dataset:
     """Reproject a dataset's 2D spatial variables into the CRS and grid of
     *target_gm* (``xcube_resampling_tpu.reproject.reproject_dataset``).
-    Numpy-backed variables are placed on *device* as float32 tensors before
-    the pre-downscale, which *agg_methods* and *recover_nans* steer."""
+    Numpy-backed variables are placed on *device* in their own dtype before
+    the pre-downscale, which *agg_methods* and *recover_nans* steer, and
+    take the host path's semantics."""
     if source_gm is None:
         source_gm = GridMapping.from_dataset(source_ds)
     if source_gm.is_j_axis_up:
@@ -82,11 +93,13 @@ def reproject_dataset(
     inv = Transformer.from_crs(target_gm.crs, source_gm.crs, always_xy=True)
 
     grid_dims = (source_gm.xy_dim_names[1], source_gm.xy_dim_names[0])
-    grid_names = []
+    grid_names, host = [], set()
     for name, var in list(source_ds.items()):
         if var.dims[-2:] == grid_dims:
             if len(var.dims) not in (2, 3):
                 raise ValueError(f"Data variable {name} has {len(var.dims)} dimensions.")
+            if not isinstance(var.data, torch.Tensor):
+                host.add(name)
             source_ds[name] = _as_tensor_variable(var, name, device)
             grid_names.append(name)
     devices = {source_ds[name].data.device for name in grid_names}
@@ -105,10 +118,17 @@ def reproject_dataset(
         target_gm,
         dict(zip(target_gm.xy_var_names, (target_gm.x_coords, target_gm.y_coords))),
     )
+    windows = None
+    if host:
+        # the host path's plan: per-tile windows and float64 target centres
+        plan = _plan_source_windows(inv, source_gm, target_gm)
+        centers = _target_centers_in_source(inv, target_gm)
+        windows = (plan, centers)
     for name, var in source_ds.items():
         if var.dims[-2:] == grid_dims:
             target_ds[name] = _reproject_variable(
-                var, name, source_gm, target_gm, interp_methods, fill_values
+                var, name, source_gm, target_gm, interp_methods, fill_values,
+                windows if name in host else None,
             )
         elif not set(grid_dims) & set(var.dims):
             target_ds[name] = var
@@ -116,25 +136,14 @@ def reproject_dataset(
 
 
 def _as_tensor_variable(var: DataArray, name, device) -> DataArray:
-    """*var* itself when it holds a float32 tensor, else its float data as
-    a float32 tensor on *device*; other tensors raise."""
-    if isinstance(var.data, torch.Tensor):
-        if var.data.dtype != torch.float32:
-            raise NotImplementedError(
-                f"variable {name!r} is {var.data.dtype}: the port reprojects "
-                "float32 tensors only so far (ROADMAP queue 1 item 12)"
-            )
-        return var
-    data = np.asarray(var.data)
-    if data.dtype.kind != "f":
+    """*var* itself when it holds a float32 tensor, numpy data as a tensor
+    of its own dtype on *device*; other tensors raise."""
+    if isinstance(var.data, torch.Tensor) and var.data.dtype != torch.float32:
         raise NotImplementedError(
-            f"variable {name!r} is {data.dtype}: the port reprojects float "
-            "variables only so far (ROADMAP queue 1 item 12)"
+            f"variable {name!r} is {var.data.dtype}: the port reprojects "
+            "float32 tensors only so far (ROADMAP queue 1 item 12)"
         )
-    tensor = torch.as_tensor(
-        np.ascontiguousarray(data), dtype=torch.float32, device=device
-    )
-    return DataArray(tensor, dims=var.dims, attrs=dict(var.attrs), chunks=var.chunks)
+    return affine._as_tensor_variable(var, name, device)
 
 
 def _maybe_downscale(
@@ -216,8 +225,12 @@ def _maybe_downscale(
 
 
 def _reproject_variable(
-    var: DataArray, name, source_gm, target_gm, interp_methods, fill_values
+    var: DataArray, name, source_gm, target_gm, interp_methods, fill_values,
+    windows=None,
 ) -> DataArray:
+    """One variable through the device tiers, or, where *windows* (the
+    host path's plan and target centres) is given, through
+    :func:`_gather_through_windows`."""
     had_band_axis = len(var.dims) == 3
     if not had_band_axis:
         var = var.expand_dims({"dummy": 1})
@@ -228,7 +241,13 @@ def _reproject_variable(
             f"interp_methods must be one of 0, 1, 'nearest', 'bilinear', "
             f"'triangular', was '{interp}'."
         )
-    image = _reproject_on_device(var.data, source_gm, target_gm, interp, fill_value)
+    if windows is None:
+        image = _reproject_on_device(var.data, source_gm, target_gm, interp, fill_value)
+    else:
+        plan, (src_xx, src_yy) = windows
+        image = _gather_through_windows(
+            var.data, source_gm, target_gm, src_xx, src_yy, plan, interp, fill_value
+        )
     return _as_target_array(var, image, target_gm, had_band_axis)
 
 
@@ -333,3 +352,140 @@ def _assert_target_overlaps_source(
             f" {tuple(span)} in the source CRS, but the source bbox is"
             f" {(sx0, sy0, sx1, sy1)} ({source_gm.crs})"
         )
+
+
+@dataclass
+class _WindowPlan:
+    """Per-target-tile uniform source windows: int32 bboxes ``(4, ny, nx)``
+    in padded-source pixel space, float32 window-origin coordinate stacks,
+    and the padding that embeds out-of-extent windows."""
+
+    bboxes: np.ndarray  # (4, ny, nx): i0, j0, i1, j1
+    x_stack: np.ndarray  # (win_w, ny, nx)
+    y_stack: np.ndarray  # (win_h, ny, nx)
+    pad_width: tuple
+
+
+def _gather_through_windows(
+    array: torch.Tensor,
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    src_xx: np.ndarray,
+    src_yy: np.ndarray,
+    plan: _WindowPlan,
+    interp: str,
+    fill_value,
+) -> torch.Tensor:
+    """The host golden path (``reproject._gather_through_windows``): every
+    target tile gathered through its planned window of the fill-padded
+    source, in one launch of K9's window mode on *array*'s device."""
+    tiles = WindowTiles(
+        ij=np.stack([plan.bboxes[0].reshape(-1), plan.bboxes[1].reshape(-1)], axis=1)
+        .astype(np.int64),
+        xy=np.stack(
+            [plan.x_stack[0].reshape(-1), plan.y_stack[0].reshape(-1)], axis=1
+        ).astype(np.float64),
+        tile_h=int(target_gm.tile_height),
+        tile_w=int(target_gm.tile_width),
+        n_tiles_x=int(plan.bboxes.shape[2]),
+        win_h=int(plan.y_stack.shape[0]),
+        win_w=int(plan.x_stack.shape[0]),
+        pad_top=int(plan.pad_width[1][0]),
+        pad_left=int(plan.pad_width[2][0]),
+        x_res=float(source_gm.x_res),
+        neg_y_res=float(-source_gm.y_res),
+    )
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(array.device)
+
+    lead = tuple(array.shape[:-2])
+    src = array.reshape((-1,) + tuple(array.shape[-2:])).contiguous()
+    out = exact_gather_windows(src, put(src_xx), put(src_yy), tiles, fill_value, interp)
+    return out.reshape(lead + tuple(out.shape[-2:]))
+
+
+def _plan_source_windows(
+    inv: Transformer,
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+) -> _WindowPlan:
+    """Per-target-tile source pixel windows, uniformized to the largest
+    window, plus per-tile window-origin coordinate stacks and the source
+    padding needed where windows exceed the source extent
+    (``reproject._plan_source_windows``)."""
+    ny = math.ceil(target_gm.height / target_gm.tile_height)
+    nx = math.ceil(target_gm.width / target_gm.tile_width)
+    x_res, y_res = source_gm.x_res, source_gm.y_res
+    x0 = float(np.asarray(source_gm.x_coords.data)[0])
+    y_vals = np.asarray(source_gm.y_coords.data)
+    y0 = float(y_vals[0])
+
+    # analytic per-tile source bboxes via densified bounds transform
+    spans = np.asarray(
+        [inv.transform_bounds(*xy_bbox) for xy_bbox in target_gm.xy_bboxes]
+    )  # (ny*nx, 4): x_lo, y_lo, x_hi, y_hi in source coords
+    i_lo = np.floor((spans[:, 0] - x0) / x_res).astype(np.int64)
+    i_hi = np.ceil((spans[:, 2] - x0) / x_res).astype(np.int64)
+    j_lo = np.floor((y0 - spans[:, 3]) / y_res).astype(np.int64)
+    j_hi = np.ceil((y0 - spans[:, 1]) / y_res).astype(np.int64)
+
+    # uniformize: grow every window (centered) to the largest extent
+    win_w = int(np.max(i_hi - i_lo)) + 1
+    win_h = int(np.max(j_hi - j_lo)) + 1
+    i_start = i_lo - (win_w - (i_hi - i_lo)) // 2
+    j_start = j_lo - (win_h - (j_hi - j_lo)) // 2
+
+    i_min, i_max = int(i_start.min()), int(i_start.max()) + win_w
+    j_min, j_max = int(j_start.min()), int(j_start.max()) + win_h
+
+    # window-origin coordinate stacks, float32 like the reference: the
+    # goldens encode this quantization of the window origin
+    x_line = x0 + (i_min + np.arange(i_max - i_min)) * x_res
+    y_step = float(y_vals[1] - y_vals[0])
+    y_line = y0 + (j_min + np.arange(j_max - j_min)) * y_step
+    taps_w = np.arange(win_w)[:, None]
+    taps_h = np.arange(win_h)[:, None]
+    x_stack = (
+        x_line[(i_start - i_min)[None, :] + taps_w]
+        .astype(np.float32)
+        .reshape(win_w, ny, nx)
+    )
+    y_stack = (
+        y_line[(j_start - j_min)[None, :] + taps_h]
+        .astype(np.float32)
+        .reshape(win_h, ny, nx)
+    )
+
+    pad_width = (
+        (0, 0),
+        (-min(0, j_min), max(0, j_max - source_gm.height)),
+        (-min(0, i_min), max(0, i_max - source_gm.width)),
+    )
+    bboxes = np.stack(
+        [
+            i_start + pad_width[2][0],
+            j_start + pad_width[1][0],
+            i_start + pad_width[2][0] + win_w,
+            j_start + pad_width[1][0] + win_h,
+        ]
+    ).astype(np.int32)
+
+    return _WindowPlan(
+        bboxes=bboxes.reshape(4, ny, nx),
+        x_stack=x_stack,
+        y_stack=y_stack,
+        pad_width=pad_width,
+    )
+
+
+def _target_centers_in_source(
+    inv: Transformer, target_gm: GridMapping
+) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse-transform all target pixel centers into source CRS
+    coordinates (``reproject._target_centers_in_source``)."""
+    centers_x = np.asarray(target_gm.x_coords.data, dtype=np.float64)
+    centers_y = np.asarray(target_gm.y_coords.data, dtype=np.float64)
+    grid_xx, grid_yy = np.meshgrid(centers_x, centers_y)
+    out_xx, out_yy = inv.transform(grid_xx, grid_yy)
+    return np.asarray(out_xx), np.asarray(out_yy)

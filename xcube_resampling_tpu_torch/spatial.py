@@ -1,8 +1,8 @@
 """Gateway: route a dataset to the port's engines.
 
 Port of ``xcube_resampling_tpu/spatial.py``; :func:`choose_route` is a
-copy of its route decision.  The affine and reproject routes are ported;
-the rectify route raises ``NotImplementedError`` naming its ROADMAP items.
+copy of its route decision.  The rectify, affine and reproject routes are
+ported.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from .constants import (
     RecoverNans,
 )
 from .gridmapping import GridMapping
+from .rectify import rectify_dataset
 from .reproject import reproject_dataset
 from .utils import _can_apply_affine_transform
 from .xrlite import Dataset
@@ -56,8 +57,7 @@ def resample_in_space(
 ) -> Dataset:
     """Resample the spatial dimensions of a dataset to a target grid
     mapping; arguments as ``xcube_resampling_tpu.resample_in_space``, plus
-    *device*: where numpy-backed variables are placed (as float32 tensors
-    for the reproject route, in their own dtype for the affine route).
+    *device*: where numpy-backed variables are placed, in their own dtype.
     Tensor variables stay on their own device."""
     if source_gm is None:
         source_gm = GridMapping.from_dataset(source_ds)
@@ -70,14 +70,7 @@ def resample_in_space(
         return source_ds
     if route == "identity":
         return source_ds
-    if route == "rectify":
-        raise NotImplementedError(
-            "the rectify route is not ported yet: ROADMAP queue 1 items 7-8"
-        )
-    engine = affine_transform_dataset if route == "affine" else reproject_dataset
-    return engine(
-        source_ds,
-        target_gm,
+    engine_kwargs = dict(
         source_gm=source_gm,
         variables=variables,
         interp_methods=interp_methods,
@@ -86,3 +79,9 @@ def resample_in_space(
         fill_values=fill_values,
         device=device,
     )
+    if route == "rectify":
+        return rectify_dataset(
+            source_ds, target_gm=target_gm, tile_size=tile_size, **engine_kwargs
+        )
+    engine = affine_transform_dataset if route == "affine" else reproject_dataset
+    return engine(source_ds, target_gm, **engine_kwargs)
