@@ -27,16 +27,19 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    with ``mean``, ``first`` and ``mode``, through
    ``ops.coarsen_ops.coarsen``: K5, K6, and through an exact 4x affine
    downscale: the downscale form for ``mean`` and ``first``, K4 then K6
-   for ``mode``); and the rectify route (section 7): R1, BASELINE #4
-   (the 1189 x 1890 OLCI-like swath onto its default 512-tiled grid,
-   nearest: K8 then K7; first call and warm calls, Phase A alone, and the
-   16-band Phase B for nearest, bilinear and triangular), R2 (the same
-   swath onto EPSG:32631 at 250 m, bilinear, through the swath's
-   coordinate transform), R3 (an OLCI EFR-sized granule, 4865 x 4091 with
-   21 float32 bands, onto a 1024-tiled grid, bilinear, with the device
-   memory of a call at its peak) and the numpy route (float64 and uint16
-   numpy variables: K8 then K9's ij_map mode); the kernel launch counts are
-   reset before and read after each call;
+   for ``mode``); and the rectify route (section 7) under its default
+   (device) tier, K10's tile plan, K8 and the resident Phase B: R1,
+   BASELINE #4 (the 1189 x 1890 OLCI-like swath onto its default 512-tiled
+   grid, nearest: K10, K8 then K7; first call and warm calls, Phase A
+   alone under each tier, and the 16-band Phase B for nearest, bilinear
+   and triangular in both forms), R2 (the same swath onto EPSG:32631 at
+   250 m, bilinear, through the swath's coordinate transform), R3 (an OLCI
+   EFR-sized granule, 4865 x 4091 with 21 float32 bands, onto a 1024-tiled
+   grid, bilinear, with the device memory of a call at its peak); R1 and
+   R3 also under ``XRTPU_PHASEA=host`` (R1's map and output equal the
+   device tier's bit for bit), and the numpy route under the host tier
+   (float64 and uint16 numpy variables: K8 then K9's ij_map mode); the
+   kernel launch counts are reset before and read after each call;
 3. holds every result against the plain PyTorch composition on the same
    device tensors, and the small case against the port's own K3 (the
    direct gather) within the two-pass bounds;
@@ -53,13 +56,15 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    with ties, NaN and +-0.0, K7 for every method on the seven dtypes, NaN
    map cells and its list form, K8 on a swath with a NaN row and on a
    target with tiles no quad reaches, K9 in both modes on float32,
-   float64, uint16 and int16, K7-K9 at R1's and R3's shapes; times each
-   kernel and its plain version at
+   float64, uint16 and int16, K7-K9 at R1's and R3's shapes, K10 at R1's
+   and R3's against its plain version and the host's scan, also with a
+   NaN row, empty tiles and about 5000 small tiles, the resident Phase B at
+   R3's; times each kernel and its plain version at
    the main path's shapes beside one PyTorch call where one computes the
    same function (K3 ``F.grid_sample``, K4 a copy at BASELINE #2's ``c``
    and ``F.grid_sample`` at BASELINE #1, K5 and the downscale form at
    BASELINE #1 ``torch.nanmean``, K5 a strided copy for ``first``, K6
-   ``torch.mode``, K7 ``F.grid_sample``; K8 and K9 have none), and the
+   ``torch.mode``, K7 ``F.grid_sample``; K8, K9 and K10 have none), and the
    downscale form beside the chain K4 -> K5 it
    replaces, two ways: one
    warm call between two CUDA events on an idle card (``ms``: device time
@@ -75,7 +80,7 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero and prints no result when no CUDA device is visible or
-any phase fails, and when K7, K8 or K9 never launched on the rectify
+any phase fails, and when K7, K8, K9 or K10 never launched on the rectify
 route.  It imports nothing of JAX or of the JAX package.
 """
 
@@ -105,7 +110,8 @@ import numpy as np
 # sources); on float64 sources its fused multiply-adds are exact where the
 # plain version emulates them in float64 (one ulp off in rare cases):
 # "f64", 2.3e-16 of the value.  K8 (float64, one rounding per operation in
-# both) and K9 (float64, then one rounding to the dtype) are "exact".
+# both) and K9 (float64, then one rounding to the dtype) are "exact", as is
+# K10 (float64 comparisons, integer min and max).
 TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5, "exact": 0.0, "stat": 0.0,
        "f64": 0.0}
 REL_TOL = {"stat": 2.5e-7, "f64": 2.3e-16}
@@ -309,7 +315,7 @@ def main() -> int:
     from xcube_resampling_tpu_torch import rectify as port_rectify
     from xcube_resampling_tpu_torch.constants import UV_DELTA
     from xcube_resampling_tpu_torch.crs import Transformer
-    from xcube_resampling_tpu_torch.ops import exact_gather, rectify_ops
+    from xcube_resampling_tpu_torch.ops import bbox_ops, exact_gather, rectify_ops
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -346,6 +352,7 @@ def main() -> int:
         "srw_vertical": 0.0, "srw_horizontal": 0.0, "fused_reproject": 0.0,
         "affine_gather": 0.0, "affine_gather_reduce": 0.0, "coarsen_reduce": 0.0,
         "coarsen_rank": 0.0, "ij_gather": 0.0, "rectify_phase_a": 0.0, "exact_gather": 0.0,
+        "ij_bboxes": 0.0,
     }
     main_launches: Counter = Counter()
     rectify_launches: Counter = Counter()
@@ -1305,8 +1312,44 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- 7. the rectify route: R1 (BASELINE #4), R2, R3, the numpy route ----
-    rectify_kernels = ("rectify_phase_a", "ij_gather", "exact_gather")
+    # the default (device) tier: K10's tile plan on the card, the map kept
+    # there, the resident Phase B; R1 and R3 also once under
+    # XRTPU_PHASEA=host (the host's bbox scan, the Phase B planned from the
+    # whole map), and the numpy route under the host tier (K9)
+    rectify_kernels = ("ij_bboxes", "rectify_phase_a", "ij_gather", "exact_gather")
     phase_b_srw = ("srw_vertical", "srw_horizontal")
+    device_tier = ("ij_bboxes", "rectify_phase_a")
+
+    class phase_a_tier:
+        """XRTPU_PHASEA set to *tier* inside the block."""
+
+        def __init__(self, tier):
+            self.tier = tier
+
+        def __enter__(self):
+            os.environ["XRTPU_PHASEA"] = self.tier
+
+        def __exit__(self, *exc):
+            os.environ.pop("XRTPU_PHASEA", None)
+
+    def k10_check(sw, gm, tgt, what, host=True):
+        """K10 on the (2, H, W) swath *sw* for the tiles of *tgt* against
+        its plain version on the card and (with *host*) the host's scan:
+        equal; returns the arguments of the call."""
+        args = (sw[0], sw[1], tgt.xy_bboxes, port_rectify._tile_search_border(tgt), 1)
+        got = bbox_ops.compute_ij_bboxes(*args)
+        compare(got, bbox_ops.compute_ij_bboxes_plain(*args), "exact", f"{what} K10 vs plain")
+        if host and not np.array_equal(got.cpu().numpy(), gm.ij_bboxes_from_xy_bboxes(
+                tgt.xy_bboxes, xy_border=args[3], ij_border=1)):
+            raise AssertionError(f"{what} K10 differs from the host's bbox scan")
+        return args
+
+    def k10_bound(sw, n_tiles):
+        """K10 reads the swath's two float64 coordinate images once and the
+        tiles' bounds, writes n x 4 int64; about four float64 comparisons a
+        pixel (its column's and row's bounds)."""
+        n_bytes = sw.numel() * 8 + n_tiles * 4 * 8 * 2
+        return bound(n_bytes, 4 * sw[0].numel(), PEAK_F64)
 
     def olci_swath(width, height, bands=(), on_card=True, tile_size=512):
         """The synthetic OLCI-like swath of tests/sampledata.py
@@ -1395,19 +1438,33 @@ def main() -> int:
 
     # R1: BASELINE #4 (bench.py:478-640), the 1189 x 1890 OLCI-like swath
     # onto its default grid with 512 tiles, nearest; the variable a float32
-    # tensor on the card: K8, then K7's map form
+    # tensor on the card: K10, K8, then K7's map form
     ds_r1 = olci_swath(1189, 1890, ("rad",))
     r1_gm = GridMapping.from_dataset(ds_r1)
     r1_tgt = r1_gm.to_regular(tile_size=512)
-    out, first = run_rectify(ds_r1, None, 0, ("rectify_phase_a", "ij_gather"))
-    out, w = warm_rectify(ds_r1, None, 0, ("rectify_phase_a", "ij_gather"), 5)
+    r1_expect = device_tier + ("ij_gather",)
+    out, first = run_rectify(ds_r1, None, 0, r1_expect)
+    out, w = warm_rectify(ds_r1, None, 0, r1_expect, 5)
     r1_img = out["rad"].data
     share = check_output(r1_img, (r1_tgt.height, r1_tgt.width))
     npix = r1_tgt.height * r1_tgt.width
+    with phase_a_tier("host"):
+        out, first_h = run_rectify(ds_r1, None, 0, ("rectify_phase_a", "ij_gather"))
+        out, w_h = warm_rectify(ds_r1, None, 0, ("rectify_phase_a", "ij_gather"), 5)
+    compare(r1_img, out["rad"].data, "exact", "R1 nearest, device tier vs host tier", signs=True)
     r1_tiles = port_rectify._phase_a_tiles(r1_gm, r1_tgt)
     r1_sw = torch.from_numpy(np.stack([np.asarray(ds_r1["lon"].data),
                                        np.asarray(ds_r1["lat"].data)])).to(dev)
+    if not np.array_equal(port_rectify._phase_a_tiles(r1_gm, r1_tgt, r1_sw).ints, r1_tiles.ints):
+        raise AssertionError("R1's tile table from K10 differs from the host scan's")
     r1_map = rectify_ops.rectify_phase_a(r1_sw, r1_tiles, UV_DELTA)
+    r1_dev_map = port_rectify._inverse_ij_map(r1_gm, r1_tgt, UV_DELTA, dev)
+    if not isinstance(r1_dev_map, rectify_ops.DeviceIJMap):
+        raise AssertionError(f"R1's default tier gave a {type(r1_dev_map).__name__}")
+    compare(r1_dev_map.device_map(), port_rectify._inverse_ij_map(
+        r1_gm, r1_tgt, UV_DELTA, dev, tier="host"), "exact",
+        "R1 map, device tier vs host tier", signs=True)
+    del r1_dev_map
     r1_map_plain = rectify_ops.rectify_phase_a_plain(r1_sw, r1_tiles, UV_DELTA)
     err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
         r1_map, r1_map_plain, "exact", "R1 K8 vs plain"))
@@ -1420,23 +1477,38 @@ def main() -> int:
         f"{r1_tgt.width}x{r1_tgt.height} EPSG:4326, {len(r1_tiles.ints)} tiles of 512, "
         f"nearest, a float32 tensor): first call {first:.3f} s = {npix / first / 1e6:.1f} "
         f"Mpix/s; warm median of 5 {w * 1e3:.2f} ms = {npix / w / 1e6:.1f} Mpix/s; finite "
-        f"share {share:.4f}; vs plain K8 -> K7 max abs diff {d}"
+        f"share {share:.4f}; vs plain K8 -> K7 max abs diff {d}; under XRTPU_PHASEA=host: "
+        f"first call {first_h:.3f} s, warm median of 5 {w_h * 1e3:.2f} ms; the device tier's "
+        f"map and output equal the host tier's bit for bit"
     )
-    # Phase A alone: the host's tile plan (bbox scan) and K8, warm
-    r1_phase_a = (lambda: port_rectify._inverse_ij_map(r1_gm, r1_tgt, UV_DELTA, dev))
-    r1_phase_a()
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r1_phase_a()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    t_plan = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        port_rectify._phase_a_tiles(r1_gm, r1_tgt)
-        t_plan.append(time.perf_counter() - t0)
+    # Phase A alone under each tier (the swath's upload, the tile plan: K10
+    # or the host's bbox scan, K8), warm; the tile plan alone
+    def wall_ms(fn, n):
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    phase_a_ms = {tier: wall_ms(lambda t=tier: port_rectify._inverse_ij_map(
+        r1_gm, r1_tgt, UV_DELTA, dev, tier=t), 5) for tier in ("device", "host")}
+    plan_ms = {"device": wall_ms(lambda: port_rectify._phase_a_tiles(r1_gm, r1_tgt, r1_sw), 5),
+               "host": wall_ms(lambda: port_rectify._phase_a_tiles(r1_gm, r1_tgt), 3)}
+    k10_args = k10_check(r1_sw, r1_gm, r1_tgt, "R1")
+    timings["ij_bboxes"] = time_pair(lambda: bbox_ops.compute_ij_bboxes(*k10_args),
+                                     lambda: bbox_ops.compute_ij_bboxes_plain(*k10_args))
+    bounds["ij_bboxes"] = k10_bound(r1_sw, len(r1_tgt.xy_bboxes))
+    library["ij_bboxes"] = (None, None)
+    k, p_, kd = timings["ij_bboxes"]
+    print(
+        f"{tag} ij_bboxes (K10) at R1 ({len(r1_tgt.xy_bboxes)} tiles): equal to its plain "
+        f"version and the host's scan; {k:.4f} ms (device {kd:.4f} ms), plain {p_:.3f} ms, "
+        f"bound {bounds['ij_bboxes'][0]:.4f} ms ({bounds['ij_bboxes'][1]})"
+    )
     timings["rectify_phase_a"] = time_pair(
         lambda: rectify_ops.rectify_phase_a(r1_sw, r1_tiles, UV_DELTA),
         lambda: rectify_ops.rectify_phase_a_plain(r1_sw, r1_tiles, UV_DELTA), iters=3,
@@ -1446,29 +1518,42 @@ def main() -> int:
     library["rectify_phase_a"] = (None, None)
     k, p_, kd = timings["rectify_phase_a"]
     print(
-        f"{tag} R1 Phase A alone (tile plan + K8), warm: median of 5 "
-        f"{statistics.median(times) * 1e3:.2f} ms, of which the host's tile plan (bbox "
-        f"scan) {statistics.median(t_plan) * 1e3:.2f} ms; rectify_phase_a {k:.4f} ms "
-        f"(device {kd:.4f} ms), plain {p_:.2f} ms, bound {b8:.4f} ms ({by8}; {n_quads} "
-        f"window quads, {n_cand} candidate pixels)"
+        f"{tag} R1 Phase A alone (upload, tile plan, K8), warm median of 5: device tier "
+        f"{phase_a_ms['device']:.2f} ms (tile plan with K10 {plan_ms['device']:.2f} ms), host "
+        f"tier {phase_a_ms['host']:.2f} ms (the host's bbox scan {plan_ms['host']:.2f} ms); "
+        f"rectify_phase_a {k:.4f} ms (device {kd:.4f} ms), plain {p_:.2f} ms, bound "
+        f"{b8:.4f} ms ({by8}; {n_quads} window quads, {n_cand} candidate pixels)"
     )
     # the 16-band Phase B (rad x 16, float32) for each method, as bench.py
     # measures it (one geometry, the map built once)
     bands16 = r1_src[None].expand(16, -1, -1).contiguous()
+    r1_resident = rectify_ops.DeviceIJMap(r1_map)
     for interp in METHODS:
-        LAUNCHES.clear()
-        fn = rectify_ops.make_device_var_image_fn(r1_map, r1_src.shape, nan, interp, device=dev)
-        got = fn(bands16)
-        torch.cuda.synchronize()
-        counts = dict(LAUNCHES)
-        d = compare(got, fn.plain(bands16), interp, f"R1 16-band Phase B {interp} vs plain")
-        err["ij_gather"] = max(err["ij_gather"], d)
-        ev, dv = event_ms(lambda: fn(bands16), 5), device_ms(lambda: fn(bands16), 5)
-        print(
-            f"{tag} R1 16-band Phase B {interp} ({type(fn).__name__}: "
-            f"{counts}): {ev:.3f} ms (device {dv:.3f} ms) = "
-            f"{16 * npix / ev / 1e3:.1f} Mpix/s; vs plain max abs diff {d}"
-        )
+        for form in ("resident", "host map"):
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            if form == "resident":
+                fn = rectify_ops.make_device_var_image_fn_resident(r1_resident, nan, interp)
+                fn.impl(tuple(r1_src.shape))
+            else:
+                fn = rectify_ops.make_device_var_image_fn(r1_map, r1_src.shape, nan, interp,
+                                                          device=dev)
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            got = fn(bands16)
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            d = compare(got, fn.plain(bands16), interp,
+                        f"R1 16-band Phase B {interp} ({form}) vs plain")
+            err["ij_gather"] = max(err["ij_gather"], d)
+            ev, dv = event_ms(lambda: fn(bands16), 5), device_ms(lambda: fn(bands16), 5)
+            impl = fn.impl(tuple(r1_src.shape)) if form == "resident" else fn
+            print(
+                f"{tag} R1 16-band Phase B {interp}, {form} ({type(impl).__name__}: "
+                f"{counts}): plan {plan_s * 1e3:.1f} ms; {ev:.3f} ms (device {dv:.3f} ms) = "
+                f"{16 * npix / ev / 1e3:.1f} Mpix/s; vs plain max abs diff {d}"
+            )
+    del r1_resident
     del got, bands16
     # K7 and K9 timed at R1's 16 bands, nearest (BASELINE #4's method) and
     # bilinear; F.grid_sample (corners aligned, border padding) at the same
@@ -1529,11 +1614,12 @@ def main() -> int:
     ds_np["rad64"] = DataArray(rad_np.astype(np.float64) / 3, dims=("y", "x"))
     ds_np["rad16"] = DataArray((rad_np * 300).astype(np.uint16), dims=("y", "x"))
     np_gm = GridMapping.from_dataset(ds_np)
-    compare(port_rectify._inverse_ij_map(np_gm, np_gm.to_regular(), UV_DELTA, dev), r1_map,
-            "exact", "R1 numpy dataset's Phase A map vs R1's")
+    compare(port_rectify._inverse_ij_map(np_gm, np_gm.to_regular(), UV_DELTA, dev, tier="host"),
+            r1_map, "exact", "R1 numpy dataset's Phase A map vs R1's")
     for interp in METHODS:
-        out, dt = run_rectify(ds_np, None, interp, ("rectify_phase_a", "exact_gather"),
-                              device=dev)
+        with phase_a_tier("host"):
+            out, dt = run_rectify(ds_np, None, interp, ("rectify_phase_a", "exact_gather"),
+                                  device=dev)
         for name, fill in (("rad64", nan), ("rad16", 65535)):
             x = torch.from_numpy(np.asarray(ds_np[name].data)).to(dev)
             check_output(out[name].data, (r1_tgt.height, r1_tgt.width), x.dtype)
@@ -1543,8 +1629,8 @@ def main() -> int:
                 f"R1 K9 on {name} {interp} vs plain"))
             err["exact_gather"] = max(err["exact_gather"], compare(
                 out[name].data, ref, "exact", f"R1 numpy {name} {interp} vs plain K8 -> K9"))
-        print(f"{tag} R1 numpy float64 and uint16 variables, {interp}: {dt:.3f} s, dtype "
-              f"kept, equal to plain K8 -> K9")
+        print(f"{tag} R1 numpy float64 and uint16 variables, {interp}, XRTPU_PHASEA=host: "
+              f"{dt:.3f} s, dtype kept, equal to plain K8 -> K9")
     del ds_np, rad_np
 
     # R2: the same swath onto a regular EPSG:32631 grid at 250 m over its
@@ -1558,12 +1644,12 @@ def main() -> int:
         xy_min=(x0, y0), xy_res=250.0, crs="EPSG:32631", tile_size=512,
     )
     r2_allow = ("affine_gather", "affine_gather_reduce", "coarsen_reduce") + phase_b_srw
-    out, first = run_rectify(ds_r1, r2_tgt, "bilinear", ("rectify_phase_a",),
+    out, first = run_rectify(ds_r1, r2_tgt, "bilinear", device_tier,
                              allow=r2_allow + ("ij_gather",))
     r2_counts = dict(LAUNCHES)
     if not (LAUNCHES["ij_gather"] or LAUNCHES["srw_horizontal"]):
         raise AssertionError(f"R2's Phase B launched nothing: {r2_counts}")
-    out, w = warm_rectify(ds_r1, r2_tgt, "bilinear", ("rectify_phase_a",), 3,
+    out, w = warm_rectify(ds_r1, r2_tgt, "bilinear", device_tier, 3,
                           allow=r2_allow + ("ij_gather",))
     share = check_output(out["rad"].data, (r2_tgt.height, r2_tgt.width))
     npix2 = r2_tgt.width * r2_tgt.height
@@ -1592,12 +1678,22 @@ def main() -> int:
     if not (tiles.ints[:, 6] == 0).any():
         raise AssertionError("the wide target has no empty tile window")
     sw = torch.from_numpy(np.stack([np.asarray(ds_nan["lon"].data), lat_nan])).to(dev)
+    k10_check(sw, nan_gm, wide, "NaN row, empty tiles:")
+    # about 5000 small tiles under a search border wider than one tile:
+    # more than one launch's 3072
+    small_tile = int(np.sqrt(reg.width * reg.height / 5000)) + 1
+    many = GridMapping.regular(size=(reg.width, reg.height), xy_min=(reg.x_min, reg.y_min),
+                               xy_res=reg.x_res, crs=reg.crs, tile_size=small_tile)
+    k10_check(sw, nan_gm, many, f"{len(many.xy_bboxes)} tiles of {small_tile}:", host=False)
     m = rectify_ops.rectify_phase_a(sw, tiles, UV_DELTA)
     err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
         m, rectify_ops.rectify_phase_a_plain(sw, tiles, UV_DELTA), "exact",
         "K8 with a NaN row and empty tiles vs plain"))
-    print(f"{tag} rectify_phase_a vs plain, NaN swath row and "
-          f"{int((tiles.ints[:, 6] == 0).sum())} empty tile windows: equal")
+    print(f"{tag} rectify_phase_a and ij_bboxes vs plain (and K10 vs the host's scan), NaN "
+          f"swath row and {int((tiles.ints[:, 6] == 0).sum())} empty tile windows: equal; "
+          f"K10 also on {len(many.xy_bboxes)} tiles of {small_tile} pixels (border "
+          f"{port_rectify._tile_search_border(many) / reg.x_res:.1f} pixels; against its "
+          f"plain version)")
     del sw, m, ds_nan
     small = olci_swath(233, 307, ("rad",))
     small_gm = GridMapping.from_dataset(small)
@@ -1682,29 +1778,47 @@ def main() -> int:
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     out, first = run_rectify(ds_r3, r3_gm.to_regular(tile_size=1024), "bilinear",
-                             ("rectify_phase_a",), allow=r3_allow)
+                             device_tier, allow=r3_allow)
     peak_mem = torch.cuda.max_memory_allocated()
     r3_counts = dict(LAUNCHES)
     if not (LAUNCHES["ij_gather"] or LAUNCHES["srw_horizontal"]):
         raise AssertionError(f"R3's Phase B launched nothing: {r3_counts}")
     del out
-    out, w = warm_rectify(ds_r3, r3_tgt, "bilinear", ("rectify_phase_a",), 2, allow=r3_allow)
+    out, w = warm_rectify(ds_r3, r3_tgt, "bilinear", device_tier, 2, allow=r3_allow)
     npix3 = r3_tgt.width * r3_tgt.height
     for name in r3_names[:1] + r3_names[-1:]:
         check_output(out[name].data, (r3_tgt.height, r3_tgt.width))
+    r3_out0 = out[r3_names[0]].data
+    del out
+    with phase_a_tier("host"):
+        out, first_h = run_rectify(ds_r3, r3_tgt, "bilinear", ("rectify_phase_a",),
+                                   allow=r3_allow)
+    share_h = check_output(out[r3_names[0]].data, (r3_tgt.height, r3_tgt.width))
+    d_tiers = (out[r3_names[0]].data.double() - r3_out0.double()).abs().nan_to_num(0).max().item()
+    if not torch.equal(torch.isnan(out[r3_names[0]].data), torch.isnan(r3_out0)):
+        raise AssertionError("R3's coverage differs between the device and the host tier")
     print(
         f"{tag} resample_in_space R3 (4865x4091 granule, 21 float32 bands -> "
         f"{r3_tgt.width}x{r3_tgt.height}, 1024 tiles, bilinear): first call {first:.3f} s "
         f"(launches {r3_counts}); warm median of 2 {w:.3f} s = {21 * npix3 / w / 1e6:.1f} "
         f"Mpix/s over the 21 bands; device memory of the first call: peak "
         f"{peak_mem / 2**30:.3f} GiB, {(peak_mem - base_mem) / 2**30:.3f} GiB above the "
-        f"{base_mem / 2**30:.3f} GiB held before it"
+        f"{base_mem / 2**30:.3f} GiB held before it; under XRTPU_PHASEA=host one call "
+        f"{first_h:.3f} s (finite share {share_h:.4f}; vs the device tier: NaN masks "
+        f"equal, max abs diff {d_tiers:.3g}: the two Phase B plans' interiors differ)"
     )
-    del out
+    del out, r3_out0
     # K8, K7 and K9 against their plain versions at R3's shapes (2 bands)
     r3_tiles = port_rectify._phase_a_tiles(r3_gm, r3_tgt)
     sw = torch.from_numpy(np.stack([np.asarray(ds_r3["lon"].data),
                                     np.asarray(ds_r3["lat"].data)])).to(dev)
+    k10_args = k10_check(sw, r3_gm, r3_tgt, "R3")
+    k10_r3 = (event_ms(lambda: bbox_ops.compute_ij_bboxes(*k10_args), 5),
+              device_ms(lambda: bbox_ops.compute_ij_bboxes(*k10_args), 5))
+    b10, by10 = k10_bound(sw, len(r3_tgt.xy_bboxes))
+    print(f"{tag} ij_bboxes (K10) at R3 ({len(r3_tgt.xy_bboxes)} tiles): equal to its plain "
+          f"version and the host's scan; {k10_r3[0]:.4f} ms (device {k10_r3[1]:.4f} ms), "
+          f"bound {b10:.4f} ms ({by10})")
     m = rectify_ops.rectify_phase_a(sw, r3_tiles, UV_DELTA)
     err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
         m, rectify_ops.rectify_phase_a_plain(sw, r3_tiles, UV_DELTA), "exact",
@@ -1719,17 +1833,24 @@ def main() -> int:
     g7 = rectify_ops.make_device_var_image_fn(m, x.shape[-2:], nan, "nearest", device=dev)
     err["ij_gather"] = max(err["ij_gather"], compare(
         g7(x), g7.plain(x), "nearest", "R3 2-band K7 nearest vs plain"))
+    rfn = rectify_ops.make_device_var_image_fn_resident(rectify_ops.DeviceIJMap(m), nan,
+                                                        "bilinear")
+    if not isinstance(rfn.impl(tuple(x.shape[-2:])), rectify_ops.SRWPhaseB):
+        raise AssertionError("R3's resident Phase B took no SRW interior")
+    err["ij_gather"] = max(err["ij_gather"], compare(
+        rfn(x), rfn.plain(x), "bilinear", "R3 2-band resident Phase B bilinear vs plain"))
     err["exact_gather"] = max(err["exact_gather"], compare(
         exact_gather.exact_gather_ij(x, m, nan, "bilinear"),
         exact_gather.exact_gather_ij_plain(x, m, nan, "bilinear"), "exact",
         "R3 2-band K9 bilinear vs plain"))
     print(
-        f"{tag} R3 kernels vs plain (K8, K7 via {type(fn).__name__}, K9): equal within the "
+        f"{tag} R3 kernels vs plain (K8, K7 via {type(fn).__name__} and the resident "
+        f"SRWPhaseB, K9): equal within the "
         f"tolerances; rectify_phase_a at R3 ({len(r3_tiles.ints)} tiles): {k8_r3[0]:.3f} ms "
         f"(device {k8_r3[1]:.3f} ms), bound {b8:.4f} ms ({by8}; {n_quads} window quads, "
         f"{n_cand} candidate pixels)"
     )
-    del ds_r3, sw, m, x, fn, g7
+    del ds_r3, sw, m, x, fn, g7, rfn
     torch.cuda.empty_cache()
     missing = [n for n in rectify_kernels if rectify_launches[n] < 1]
     if missing:
@@ -1779,6 +1900,10 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/exact_gather.cu",
             "xcube_resampling_tpu/ops/rectify_ops.py:2767",
         ),
+        "ij_bboxes": (
+            "xcube_resampling_tpu_torch/csrc/ij_bboxes.cu",
+            "xcube_resampling_tpu/ops/bbox_ops.py:16",
+        ),
     }
     kernels = [
         {
@@ -1796,7 +1921,7 @@ def main() -> int:
             # F.grid_sample yardstick at the 4326 -> UTM shape; K4 a copy
             # (BASELINE #2's c), the downscale form and K5 torch.nanmean
             # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 F.grid_sample
-            # (R1, nearest); K8, K9: none
+            # (R1, nearest); K8, K9, K10: none
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],

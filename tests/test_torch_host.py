@@ -425,6 +425,44 @@ def test_fields_from_ij_map_matches(swath, gated):
             assert getattr(got, name) == getattr(ref, name)
 
 
+@pytest.mark.parametrize("swath", [(233, 307, 128), (300, 420, 64), (400, 500, 128)])
+@pytest.mark.parametrize("nan_rows", [False, True])
+def test_fields_from_lattice_matches(swath, nan_rows):
+    """fields_from_lattice (a copy) on the step lattice and half-offset
+    probes of the JAX host tier's Phase A map, as the resident Phase B
+    samples them: the same coarse fields bit for bit, or None for both;
+    with NaN map rows (the lattice's row fill) and without."""
+    from xcube_resampling_tpu import rectify as jx_rectify
+    from xcube_resampling_tpu.constants import UV_DELTA
+
+    from .sampledata import create_olci_like_swath
+
+    width, height, tile = swath
+    gm = jx.GridMapping.from_dataset(create_olci_like_swath(width, height, tile_size=tile))
+    ij_map = jx_rectify._inverse_ij_map(gm, gm.to_regular(tile_size=tile), UV_DELTA)
+    if nan_rows:
+        ij_map[:, 40:60] = np.nan
+    step = 16
+    out_h, out_w = ij_map.shape[1:]
+    rsel = np.minimum(np.arange((out_h - 1) // step + 2) * step, out_h - 1)
+    csel = np.minimum(np.arange((out_w - 1) // step + 2) * step, out_w - 1)
+    prow = np.minimum(rsel + step // 2, out_h - 1)
+    pcol = np.minimum(csel + step // 2, out_w - 1)
+    lat = ij_map[:, rsel[:, None], csel[None, :]]
+    prb = ij_map[:, prow[:, None], pcol[None, :]]
+    valid = np.isfinite(prb[0]) & np.isfinite(prb[1])
+    args = (lat[0], lat[1], prb[0], prb[1], valid, (prow, pcol), step, height, width, out_h,
+            out_w)
+    ref = jx_srw.fields_from_lattice(*args)
+    got = pt_srw.fields_from_lattice(*args)
+    assert (got is None) == (ref is None)
+    if ref is not None:
+        for name in ("ix64", "iy64", "iystar64"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+        for name in ("step", "src_h", "src_w", "out_h", "out_w"):
+            assert getattr(got, name) == getattr(ref, name)
+
+
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_reproject_host_planners_match(geometry):
     """The host path's planners (copies): per-tile windows, origin stacks,

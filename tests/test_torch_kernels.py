@@ -682,3 +682,120 @@ def test_rectify_wrappers_take_plain_versions_on_the_cpu(monkeypatch):
         exact_gather.exact_gather_ij(src.long(), torch.stack([ix, iy]).double(), 0, "nearest")
     with pytest.raises(NotImplementedError, match="interp_methods must be one of"):
         exact_gather.exact_gather_ij(src, torch.stack([ix, iy]).double(), 0, "cubic")
+
+
+# -- K10: the tile plan's bbox scan ------------------------------------------
+
+
+def _k10_case(case):
+    """Seeded (x, y) float64 swath images, the tiles of a regular grid over
+    their extent (xy bboxes, as GridMapping.xy_bboxes gives them) and the
+    xy border: *case* picks NaN rows, a target reaching past the swath
+    (empty tiles; boxes clipped at every image edge) or many small tiles
+    with a border wider than one tile."""
+    rng = np.random.default_rng({"nan_rows": 11, "clipped": 12, "many": 13}[case])
+    h, w = (37, 53) if case != "many" else (61, 70)
+    j, i = np.mgrid[0:h, 0:w].astype(np.float64)
+    x = 10.0 + 0.5 * i + 0.07 * j + 0.01 * rng.random((h, w))
+    y = 40.0 - 0.5 * j + 0.05 * i + 0.01 * rng.random((h, w))
+    if case == "nan_rows":
+        x[5] = np.nan
+        y[20, 3:30] = np.nan
+    x0, x1, y0, y1 = np.nanmin(x), np.nanmax(x), np.nanmin(y), np.nanmax(y)
+    if case == "clipped":
+        # reaching 6 units past the swath on every side
+        x0, x1, y0, y1 = x0 - 6.0, x1 + 6.0, y0 - 6.0, y1 + 6.0
+    res, tile = (0.5, 8) if case != "many" else (0.25, 4)
+    gm = pt.GridMapping.regular(
+        size=(int(np.ceil((x1 - x0) / res)), int(np.ceil((y1 - y0) / res))),
+        xy_min=(x0, y0), xy_res=res, crs="EPSG:4326", tile_size=tile,
+    )
+    border = 3.1 * tile * res if case == "many" else 0.3
+    return x, y, gm, border
+
+
+@pytest.mark.parametrize("case", ["nan_rows", "clipped", "many"])
+@pytest.mark.parametrize("ij_border", [0, 1])
+def test_ij_bboxes_plain_matches_the_host_scan(case, ij_border):
+    """K10's plain version equals the port's host scan
+    (gridmapping/bboxes.py, a copy of the JAX package's) bit for bit: NaN
+    rows, empty tiles (-1 rows), boxes clipped at every image edge, ij
+    borders 0 and 1, more than 100 small tiles under a border wider than
+    one tile."""
+    from xcube_resampling_tpu_torch.gridmapping.bboxes import compute_ij_bboxes as host_scan
+    from xcube_resampling_tpu_torch.ops.bbox_ops import compute_ij_bboxes
+
+    x, y, gm, border = _k10_case(case)
+    boxes = gm.xy_bboxes
+    ref = host_scan(x, y, boxes, border, ij_border, np.full(boxes.shape, -1, np.int64))
+    got = compute_ij_bboxes(torch.from_numpy(x), torch.from_numpy(y), boxes, border, ij_border)
+    assert got.dtype == torch.int64 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), ref)
+    empty = ref[:, 0] == -1
+    assert (~empty).any()
+    if case == "clipped":
+        assert empty.any()
+        assert (ref[~empty, 0] == 0).any() and (ref[~empty, 1] == 0).any()
+        assert (ref[~empty, 2] == x.shape[1]).any() and (ref[~empty, 3] == x.shape[0]).any()
+    if case == "many":
+        assert len(boxes) > 100 and border > gm.tile_width * gm.x_res
+
+
+@pytest.mark.parametrize("case", ["nan_rows", "clipped", "many"])
+@pytest.mark.parametrize("ij_border", [0, 1])
+def test_ij_bboxes_plain_matches_jax(case, ij_border):
+    """K10's plain version equals the JAX package's device variant
+    (``compute_ij_bboxes_jax``) on float64 images, where it compares in
+    float64 too."""
+    from xcube_resampling_tpu.ops.bbox_ops import compute_ij_bboxes_jax
+    from xcube_resampling_tpu_torch.ops.bbox_ops import compute_ij_bboxes
+
+    x, y, gm, border = _k10_case(case)
+    ref = np.asarray(compute_ij_bboxes_jax(jnp.asarray(x), jnp.asarray(y), gm.xy_bboxes,
+                                           border, ij_border))
+    got = compute_ij_bboxes(torch.from_numpy(x), torch.from_numpy(y), gm.xy_bboxes, border,
+                            ij_border)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("case", ["nan_rows", "clipped", "many"])
+@pytest.mark.parametrize("j_axis_up", [False, True])
+def test_ij_bboxes_lattice_search_finds_exactly_the_tiles(case, j_axis_up):
+    """What K10 hands its kernel: the tiles' lattice, each axis's bounds
+    sorted so that low and high bounds ascend.  The kernel's two binary
+    searches per axis (numpy's searchsorted here, the same rule) give for
+    every pixel exactly the tiles whose float64 box test it passes, on
+    both y orders of a target."""
+    from xcube_resampling_tpu_torch.ops.bbox_ops import _grown, lattice
+
+    x, y, gm, border = _k10_case(case)
+    if j_axis_up:
+        gm = pt.GridMapping.regular(size=gm.size, xy_min=(gm.x_min, gm.y_min),
+                                    xy_res=gm.x_res, crs=gm.crs, tile_size=gm.tile_size,
+                                    is_j_axis_up=True)
+    boxes = _grown(gm.xy_bboxes, border)
+    lat, order, nc, nr = lattice(boxes)
+    col_lo, col_hi = lat[:nc], lat[nc:2 * nc]
+    row_lo, row_hi = lat[2 * nc:2 * nc + nr], lat[2 * nc + nr:]
+    for px, py in zip(x.ravel()[::7], y.ravel()[::7]):
+        exact = set(np.nonzero((px >= boxes[:, 0]) & (px <= boxes[:, 2])
+                               & (py >= boxes[:, 1]) & (py <= boxes[:, 3]))[0])
+        cols = order[np.searchsorted(col_hi, px, "left"):np.searchsorted(col_lo, px, "right")]
+        rows = order[nc:][np.searchsorted(row_hi, py, "left"):np.searchsorted(row_lo, py, "right")]
+        assert {int(r) * nc + int(c) for r in rows for c in cols} == exact
+
+
+def test_ij_bboxes_lattice_refuses_other_boxes():
+    """K10 takes only the tiles of a regular grid: boxes that are no
+    row-major lattice raise before any launch."""
+    from xcube_resampling_tpu_torch.ops.bbox_ops import lattice
+
+    grid = pt.GridMapping.regular(size=(20, 12), xy_min=(0.0, 0.0), xy_res=1.0,
+                                  crs="EPSG:4326", tile_size=5).xy_bboxes
+    assert lattice(grid)[2:] == (4, 3)
+    moved = grid.copy()
+    moved[5, 0] += 0.5
+    with pytest.raises(ValueError, match="regular grid"):
+        lattice(moved)
+    with pytest.raises(ValueError, match="regular grid"):
+        lattice(grid[:-1])

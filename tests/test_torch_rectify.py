@@ -331,3 +331,211 @@ def test_plain_inverse_ij_map_matches_jax_per_window():
     )
     np.testing.assert_array_equal(got.numpy(), ref)
     assert np.isnan(ref).any() and np.isfinite(ref).any()
+
+
+# -- the device tier: K10's tile plan and the resident Phase B ---------------
+
+
+def _jax_resident(m):
+    """The JAX package's DeviceIJMap over a host map, as
+    tests/test_parallel.py builds one."""
+    plan = jax_rectify_ops.PhaseAPlan(dst_h=m.shape[1], dst_w=m.shape[2], src_i_min=0,
+                                      src_j_min=0, dtype=jnp.float64)
+    return jax_rectify_ops.DeviceIJMap(plan, jnp.asarray(m))
+
+
+def _spy_srw(monkeypatch):
+    picked = []
+    for name in ("make_srw_fn", "make_srw_fn_batched"):
+        orig = getattr(jax_srw, name)
+
+        def spy(*args, _orig=orig, _name=name, **kwargs):
+            picked.append(_name)
+            return _orig(*args, **kwargs)
+
+        monkeypatch.setattr(jax_srw, name, spy)
+    return picked
+
+
+def _assert_phase_b(got, ref, batched):
+    """NaN coverage equal; values equal, or within rtol 1e-6 where JAX ran
+    its batched SRW."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    if batched:
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0, equal_nan=True)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize(
+    "width, height, tile_size, nan_rows",
+    [
+        (233, 307, 128, ()),
+        (233, 307, 64, (40, 41, 200)),
+        (120, 160, 32, (0, 159)),
+    ],
+)
+def test_device_tier_map_equals_the_host_tier(width, height, tile_size, nan_rows):
+    """Under the device tier K10's plain version plans the tiles on the
+    swath tensor: the same tile table as the host scan, so the map (held
+    in a DeviceIJMap) equals the host tier's, and the JAX host tier's, bit
+    for bit."""
+    ds = _swath(width, height, tile_size, nan_rows)
+    jax_gm = xrt.GridMapping.from_dataset(ds)
+    port_gm = port.GridMapping.from_dataset(_to_port(ds))
+    target = port_gm.to_regular(tile_size=tile_size)
+    swath = torch.from_numpy(np.stack([np.asarray(port_gm.xy_coords.data[0]),
+                                       np.asarray(port_gm.xy_coords.data[1])]))
+    np.testing.assert_array_equal(port_rectify._phase_a_tiles(port_gm, target, swath).ints,
+                                  port_rectify._phase_a_tiles(port_gm, target).ints)
+    got = port_rectify._inverse_ij_map(port_gm, target, UV_DELTA, "cpu", tier="device")
+    assert isinstance(got, port_rectify.rectify_ops.DeviceIJMap)
+    ref = jax_rectify._inverse_ij_map(jax_gm, jax_gm.to_regular(tile_size=tile_size), UV_DELTA)
+    np.testing.assert_array_equal(got.device_map().numpy(), ref)
+    np.testing.assert_array_equal(got.as_numpy(), ref)
+
+
+@pytest.mark.parametrize("swath", sorted(SWATHS))
+@pytest.mark.parametrize("interp", METHODS)
+def test_resident_phase_b_matches_jax(monkeypatch, swath, interp):
+    """rectify_dataset under XRTPU_PHASEA=device on CPU tensors (2D and a
+    2-band stack, NaN taps) against JAX's resident Phase B
+    (make_device_var_image_fn_resident over its DeviceIJMap, built on the
+    JAX host tier's map, which the port's map equals): nearest equal;
+    bilinear and triangular equal where JAX takes make_srw_fn, within rtol
+    1e-6 where it takes make_srw_fn_batched (the port runs its tiled SRW
+    there); NaN coverage equal.  The lattice gate takes the SRW interior on
+    all three swaths; the port never plans from the whole map."""
+    width, height, tile_size = SWATHS[swath]
+    ds = _swath(width, height, tile_size)
+    rad = np.asarray(ds.rad.data)
+    rad[height // 3, : width // 2] = np.nan
+    stack = np.stack([rad, 2 * rad + 1])
+    ds["rad"] = xrt.DataArray(rad, dims=ds.rad.dims)
+    ds["stack"] = xrt.DataArray(stack, dims=("band",) + ds.rad.dims)
+    jax_gm = xrt.GridMapping.from_dataset(ds)
+    m = jax_rectify._inverse_ij_map(jax_gm, jax_gm.to_regular(tile_size=tile_size), UV_DELTA)
+    picked = _spy_srw(monkeypatch)
+    fn = jax_rectify_ops.make_device_var_image_fn_resident(_jax_resident(m), np.nan, interp)
+    refs = {"rad": np.asarray(fn(jnp.asarray(rad[None])))[0],
+            "stack": np.asarray(fn(jnp.asarray(stack)))}
+    full_map = []
+    monkeypatch.setattr(port_rectify.rectify_ops, "make_device_var_image_fn",
+                        lambda *a, **k: full_map.append(a))
+    monkeypatch.setenv("XRTPU_PHASEA", "device")
+    got = port.rectify_dataset(_to_port(ds, ("rad", "stack")), interp_methods=interp,
+                               device="cpu")
+    assert not full_map
+    expect = {"tiled": "make_srw_fn"}.get(swath, "make_srw_fn_batched")
+    assert picked[:1] == ([] if interp == "nearest" else [expect])
+    for name, ref in refs.items():
+        g = got[name].data
+        assert isinstance(g, torch.Tensor) and g.dtype == torch.float32
+        assert got[name].dims == ds[name].dims[:-2] + ("lat", "lon")
+        _assert_phase_b(g.numpy(), ref, picked[:1] == ["make_srw_fn_batched"])
+        assert np.isfinite(ref).mean() > 0.5
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("env", ["0", "1"])
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_phase_b_srw_switch_matches_jax(monkeypatch, resident, env, interp):
+    """XRTPU_PHASEB_SRW forces K7's map form (0) or the SRW try for every
+    method (1) in both Phase B forms, as in the JAX package: equal to
+    JAX's make_device_var_image_fn (host map) and
+    make_device_var_image_fn_resident (device map) on the same map."""
+    ds = _swath(233, 307, 128)
+    rad = np.asarray(ds.rad.data)[None]
+    jax_gm = xrt.GridMapping.from_dataset(ds)
+    m = jax_rectify._inverse_ij_map(jax_gm, jax_gm.to_regular(tile_size=128), UV_DELTA)
+    monkeypatch.setenv("XRTPU_PHASEB_SRW", env)
+    picked = _spy_srw(monkeypatch)
+    if resident:
+        ref = jax_rectify_ops.make_device_var_image_fn_resident(_jax_resident(m), np.nan,
+                                                                interp)(jnp.asarray(rad))
+        fn = port_rectify.rectify_ops.make_device_var_image_fn_resident(
+            port_rectify.rectify_ops.DeviceIJMap(torch.from_numpy(m.copy())), np.nan, interp)
+        form = type(fn.impl(rad.shape[-2:])).__name__
+    else:
+        ref = jax_rectify_ops.make_device_var_image_fn(m, rad.shape[-2:], np.nan,
+                                                       interp)(jnp.asarray(rad))
+        fn = port_rectify.rectify_ops.make_device_var_image_fn(m, rad.shape[-2:], np.nan,
+                                                               interp, device="cpu")
+        form = type(fn).__name__
+    assert picked[:1] == ([] if env == "0" else ["make_srw_fn"])
+    assert form == ("GatherPhaseB" if env == "0" else "SRWPhaseB")
+    got = fn(torch.from_numpy(rad.copy())).numpy()
+    assert got.dtype == np.asarray(ref).dtype
+    np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+@pytest.mark.parametrize("shape, radius, density", [
+    ((50, 61), 18, 0.999), ((40, 37), 18, 1.0), ((90, 120), 18, 0.9995), ((23, 30), 2, 0.97),
+])
+def test_square_interior_equals_minimum_filter(shape, radius, density):
+    """The resident Phase B's interior (two max-pools of the invalid mask,
+    padded with invalid) equals scipy's square minimum_filter with cval 0,
+    as JAX computes it on the host, bit for bit; also on the validity of a
+    Phase A map with NaN rows."""
+    from scipy.ndimage import minimum_filter
+
+    from xcube_resampling_tpu_torch.ops.rectify_ops import square_interior
+
+    valid = np.random.default_rng(radius + shape[0]).random(shape) < density
+    ds = _swath(120, 160, 32, (0, 80, 159))
+    gm = xrt.GridMapping.from_dataset(ds)
+    m = jax_rectify._inverse_ij_map(gm, gm.to_regular(tile_size=32), UV_DELTA)
+    for v in (valid, np.isfinite(m[0]) & np.isfinite(m[1])):
+        ref = minimum_filter(v.astype(np.uint8), size=2 * radius + 1, mode="constant", cval=0) > 0
+        got = square_interior(torch.from_numpy(v), radius).numpy()
+        np.testing.assert_array_equal(got, ref)
+    assert ref.any() and not ref.all()
+
+
+@pytest.mark.parametrize("interp", METHODS)
+def test_numpy_uint16_under_the_device_tier_matches_jax_resident(monkeypatch, interp):
+    """Under the device tier a numpy uint16 variable goes to the device and
+    through the resident Phase B, as JAX's resident branch takes it
+    (jnp's gather_interp: integer tap differences wrap in the source
+    type), not K9's float64 host gather: equal to JAX's resident gather of
+    it, dtype included."""
+    ds = _swath(233, 307, 128)
+    data = (np.asarray(ds.rad.data) * 300).astype(np.uint16)
+    ds["rad"] = xrt.DataArray(data, dims=ds.rad.dims)
+    gm = xrt.GridMapping.from_dataset(ds)
+    m = jax_rectify._inverse_ij_map(gm, gm.to_regular(tile_size=128), UV_DELTA)
+    ref = np.asarray(jax_rectify_ops.make_device_var_image_fn_resident(
+        _jax_resident(m), 65535, interp)(jnp.asarray(data[None])))[0]
+    monkeypatch.setenv("XRTPU_PHASEA", "device")
+    got = port.rectify_dataset(_to_port(ds), interp_methods=interp, device="cpu")["rad"].data
+    assert isinstance(got, torch.Tensor)
+    _assert_equal(got.numpy(), ref)
+
+
+def test_cpu_tensors_take_the_host_pipeline_by_default(monkeypatch):
+    """With XRTPU_PHASEA unset (auto), rectify_dataset on CPU tensors takes
+    the host tier: the host's bbox scan, a map tensor, the device Phase B
+    planned from the whole map; auto picks the device tier on a CUDA
+    device; XRTPU_PHASEA overrides either, any other value than device
+    meaning the host tier, as in the JAX package."""
+    rops = port_rectify.rectify_ops
+    calls = []
+    for name in ("make_device_var_image_fn", "make_device_var_image_fn_resident"):
+        orig = getattr(rops, name)
+
+        def spy(*args, _orig=orig, _name=name, **kwargs):
+            calls.append(_name)
+            return _orig(*args, **kwargs)
+
+        monkeypatch.setattr(rops, name, spy)
+    monkeypatch.setattr(port_rectify.bbox_ops, "compute_ij_bboxes",
+                        lambda *a, **k: calls.append("k10"))
+    ds = _swath(120, 160, 32)
+    got = port.rectify_dataset(_to_port(ds, ("rad",)), interp_methods="bilinear", device="cpu")
+    assert calls == ["make_device_var_image_fn"]
+    assert torch.isfinite(got["rad"].data).float().mean() > 0.5
+    assert port_rectify._phase_a_tier("cpu") == "host"
+    assert port_rectify._phase_a_tier(torch.device("cuda", 0)) == "device"
+    for env, tier in (("device", "device"), ("host", "host"), ("hybrid", "host")):
+        monkeypatch.setenv("XRTPU_PHASEA", env)
+        assert port_rectify._phase_a_tier("cpu") == port_rectify._phase_a_tier("cuda") == tier

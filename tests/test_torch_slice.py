@@ -435,7 +435,8 @@ def test_port_never_imports_jax():
     """In a fresh process, importing the port and driving resample_in_space
     on CPU tensors (tiled SRW, K3, the affine route, the reproject
     pre-downscale, and the rectify route with a tensor and a numpy
-    variable) loads no module of JAX or of the JAX package."""
+    variable under both Phase A tiers, K10's tile plan and the resident
+    Phase B among them) loads no module of JAX or of the JAX package."""
     code = (
         "import os, sys\n"
         "import numpy as np, torch\n"
@@ -468,9 +469,12 @@ def test_port_never_imports_jax():
         " dims=('y', 'x')), 'lat': port.DataArray(62 - 0.0025 * (j - 0.08 * i),"
         " dims=('y', 'x'))})\n"
         "sw['t'] = port.DataArray(torch.from_numpy(sw['r'].data.copy()), dims=('y', 'x'))\n"
-        "for m in ('nearest', 'bilinear'):\n"
-        "    out = port.resample_in_space(sw, interp_methods=m, device='cpu')\n"
-        "    assert out['r'].data.dtype == out['t'].data.dtype == torch.float32\n"
+        "for tier in ('auto', 'device'):\n"
+        "    os.environ['XRTPU_PHASEA'] = tier\n"
+        "    for m in ('nearest', 'bilinear'):\n"
+        "        out = port.resample_in_space(sw, interp_methods=m, device='cpu')\n"
+        "        assert out['r'].data.dtype == out['t'].data.dtype == torch.float32\n"
+        "assert 'xcube_resampling_tpu_torch.ops.bbox_ops' in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'xcube_resampling_tpu')]\n"
         "assert not bad, bad\n"

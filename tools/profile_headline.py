@@ -19,9 +19,11 @@ downscale with mean: K4's downscale form) and BASELINE #2 (a 4-band
 4096^2 raster coarsened 4x through an exact affine downscale, mean, first
 and mode: the downscale form for mean and first, K4 and K6 for mode), and
 for the rectify route's R1 (BASELINE #4: the 1189 x 1890 OLCI-like swath
-onto its default grid, nearest: K8, K7), R2 (that swath onto EPSG:32631 at
-250 m, bilinear) and R3 (a 4865 x 4091 granule with 21 float32 bands,
-bilinear; 3 warm calls and 2 profiled), as ``chip_smoke.py`` drives them:
+onto its default grid, nearest: K10, K8, K7), R2 (that swath onto
+EPSG:32631 at 250 m, bilinear) and R3 (a 4865 x 4091 granule with 21
+float32 bands, bilinear; 3 warm calls and 2 profiled), each under the
+default device tier and under ``XRTPU_PHASEA=host`` (at most 5 warm calls
+and 2 profiled), as ``chip_smoke.py`` drives them:
 
 2. the first call's time and the wall time of 10 warm
    ``resample_in_space`` calls (median, min, max) and their host time
@@ -31,11 +33,13 @@ bilinear; 3 warm calls and 2 profiled), as ``chip_smoke.py`` drives them:
    1 - device time / median wall time;
 4. the top host functions of 5 warm calls by ``cProfile`` cumulative time;
 
-for R1 and R3 also the warm call's phases one by one (grid-mapping
-inference, the target grid, the host's tile plan with its bbox scan, K8,
-the Phase B plan with its host-side erosion and coarse fields, Phase B on
-the card), each synchronised and timed alone; and last, one JSON object
-with the numbers above.
+for R1-R3 under each tier also the warm call's phases one by one
+(grid-mapping inference, the target grid, R2's coordinate transform and
+pre-downscale, the swath's upload, the tile plan: K10 on the card or the
+host's bbox scan, K8, the Phase B plan: from a step lattice of the map
+on the card or from the whole map on the host, Phase B on the card), each
+synchronised and timed alone; and last, one JSON object with the numbers
+above.
 
 Every line carries the card's name and power limit.  It imports nothing
 of JAX or of the JAX package and exits nonzero when no CUDA device is
@@ -47,6 +51,7 @@ from __future__ import annotations
 import cProfile
 import io
 import json
+import os
 import pstats
 import statistics
 import subprocess
@@ -305,7 +310,7 @@ def main() -> int:
     from xcube_resampling_tpu_torch.constants import UV_DELTA
     from xcube_resampling_tpu_torch.crs import Transformer
     from xcube_resampling_tpu_torch.ops import rectify_ops
-    from xcube_resampling_tpu_torch.utils import normalize_grid_mapping
+    from xcube_resampling_tpu_torch.utils import _is_equal_crs, normalize_grid_mapping
 
     def olci_swath(width, height, bands, tile_size=512):
         """chip_smoke.py's OLCI-like swath (tests/sampledata.py's formula),
@@ -325,8 +330,26 @@ def main() -> int:
                     "lat": DataArray(lat, dims=("y", "x"))},
         ).chunk({"y": tile_size, "x": tile_size})
 
-    def rectify_phases(what, ds, target_gm, interp):
-        """A warm call's phases one by one, each synchronised, median of 3."""
+    class phase_a_tier:
+        """XRTPU_PHASEA set to *tier* inside the block."""
+
+        def __init__(self, tier):
+            self.tier = tier
+
+        def __enter__(self):
+            os.environ["XRTPU_PHASEA"] = self.tier
+
+        def __exit__(self, *exc):
+            os.environ.pop("XRTPU_PHASEA", None)
+
+    def rectify_phases(what, ds, target_gm, interp, tier):
+        """A warm call's phases under *tier* one by one, each synchronised,
+        median of 3: the grid mapping, the swath's coordinates into the
+        target CRS and the pre-downscale where the call takes them, the
+        swath's upload, the tile plan (K10 on the card, or the host's bbox
+        scan), K8, the Phase B plan (the resident form's from a step
+        lattice of the map, or the host map's from the whole map) and
+        Phase B for every band."""
         spans = {}
 
         def timed(name, fn):
@@ -337,28 +360,47 @@ def main() -> int:
             spans.setdefault(name, []).append(time.perf_counter() - t)
             return out
 
+        nan = float("nan")
         for _ in range(3):
             gm = timed("grid_mapping", lambda: GridMapping.from_dataset(ds))
-            timed("normalize", lambda: normalize_grid_mapping(ds, gm))
+            src = timed("normalize", lambda: normalize_grid_mapping(ds, gm))
             tgt = timed("target_grid", lambda: target_gm or gm.to_regular())
-            tiles = timed("tile_plan_bbox_scan", lambda: port_rectify._phase_a_tiles(gm, tgt))
+            if not _is_equal_crs(gm, tgt):
+                src = timed("crs_transform", lambda: port_rectify._reproject_swath_coords(
+                    src, gm, tgt))
+                gm = timed("grid_mapping_transformed", lambda: GridMapping.from_dataset(src))
+            src, gm = timed("pre_downscale", lambda: port_rectify._maybe_downscale(
+                src, gm, tgt, interp, None, False, dev))
             sw = timed("swath_upload", lambda: torch.from_numpy(np.ascontiguousarray(
                 np.asarray(gm.xy_coords.data), dtype=np.float64)).to(dev))
+            if tier == "device":
+                tiles = timed("tile_plan_k10", lambda: port_rectify._phase_a_tiles(gm, tgt, sw))
+            else:
+                tiles = timed("tile_plan_bbox_scan", lambda: port_rectify._phase_a_tiles(gm, tgt))
             m = timed("k8", lambda: rectify_ops.rectify_phase_a(sw, tiles, UV_DELTA))
-            names = [n for n in ds.data_vars]
-            x = ds[names[0]].data
-            fn = timed("phase_b_plan", lambda: rectify_ops.make_device_var_image_fn(
-                m, tuple(x.shape), float("nan"), interp, device=dev))
-            timed("phase_b_all_bands", lambda: [fn(ds[n].data[None]) for n in names])
+            names = [n for n in src.data_vars]
+            x = src[names[0]].data
+            if tier == "device":
+                resident = rectify_ops.DeviceIJMap(m)
+
+                def lattice_plan():
+                    fn = rectify_ops.make_device_var_image_fn_resident(resident, nan, interp)
+                    fn.impl(tuple(x.shape))
+                    return fn
+
+                fn = timed("phase_b_plan_lattice", lattice_plan)
+                form = type(fn.impl(tuple(x.shape))).__name__
+            else:
+                fn = timed("phase_b_plan_full_map", lambda: rectify_ops.make_device_var_image_fn(
+                    m, tuple(x.shape), nan, interp, device=dev))
+                form = type(fn).__name__
+            timed("phase_b_all_bands", lambda: [fn(src[n].data[None]) for n in names])
         med = {k: statistics.median(v) * 1e3 for k, v in spans.items()}
-        print(f"{tag} {what}: warm phases (ms, median of 3; Phase B {type(fn).__name__}): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+        print(f"{tag} {what}, XRTPU_PHASEA={tier}: warm phases (ms, median of 3; Phase B "
+              f"{form}): " + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
         return med
 
     ds_r1 = olci_swath(1189, 1890, ("rad",))
-    results["r1"] = profile_call("R1 (BASELINE #4) rectify 1189x1890 swath nearest",
-                                 ds_r1, None, 0)
-    results["r1"]["phases_ms"] = rectify_phases("R1", ds_r1, None, "nearest")
     fwd = Transformer.from_crs("EPSG:4326", "EPSG:32631", always_xy=True)
     tx, ty = fwd.transform(np.asarray(ds_r1["lon"].data), np.asarray(ds_r1["lat"].data))
     x0, y0 = float(np.floor(tx.min() / 250) * 250), float(np.floor(ty.min() / 250) * 250)
@@ -366,14 +408,24 @@ def main() -> int:
         size=(int(np.ceil((tx.max() - x0) / 250)) + 1, int(np.ceil((ty.max() - y0) / 250)) + 1),
         xy_min=(x0, y0), xy_res=250.0, crs="EPSG:32631", tile_size=512,
     )
-    results["r2"] = profile_call("R2 rectify the R1 swath -> EPSG:32631 250 m bilinear",
-                                 ds_r1, r2_tgt, "bilinear")
-    del ds_r1
     ds_r3 = olci_swath(4865, 4091, tuple(f"Oa{k + 1:02d}_radiance" for k in range(21)))
     r3_tgt = GridMapping.from_dataset(ds_r3).to_regular(tile_size=1024)
-    results["r3"] = profile_call("R3 rectify 4865x4091 granule, 21 bands, bilinear",
-                                 ds_r3, r3_tgt, "bilinear", warm=3, profiled=2)
-    results["r3"]["phases_ms"] = rectify_phases("R3", ds_r3, r3_tgt, "bilinear")
+    cells = (
+        ("r1", "R1 (BASELINE #4) rectify 1189x1890 swath nearest", ds_r1, None, "nearest", 0,
+         WARM, PROFILED),
+        ("r2", "R2 rectify the R1 swath -> EPSG:32631 250 m bilinear", ds_r1, r2_tgt,
+         "bilinear", "bilinear", WARM, PROFILED),
+        ("r3", "R3 rectify 4865x4091 granule, 21 bands, bilinear", ds_r3, r3_tgt, "bilinear",
+         "bilinear", 3, 2),
+    )
+    for tier in ("device", "host"):
+        with phase_a_tier(tier):
+            for key, what, ds_c, tgt_c, interp, interp_arg, warm, profiled in cells:
+                if tier == "host":
+                    key, warm, profiled = f"{key}/host", min(warm, 5), min(profiled, 2)
+                results[key] = profile_call(f"{what}, XRTPU_PHASEA={tier}", ds_c, tgt_c,
+                                            interp_arg, warm=warm, profiled=profiled)
+                results[key]["phases_ms"] = rectify_phases(what, ds_c, tgt_c, interp, tier)
 
     print(
         json.dumps(

@@ -95,6 +95,11 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _D,
         _I, _P,
     ],
+    # x, y, h, w, lattice, order, n_cols, n_rows, ij_border, gmin, gmax,
+    # out, stream
+    "xrt_ij_bboxes": [
+        _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P,
+    ],
     # src, ij_map, out, batch, src_h, src_w, out_h, out_w, method, fill,
     # code, stream
     "xrt_exact_gather_ij": [

@@ -13,10 +13,17 @@ Port of ``xcube_resampling_tpu/ops/rectify_ops.py``:
   version of K8, :func:`rectify_phase_a` (``csrc/rectify_phase_a.cu``),
   which does every tile's work in one launch and equals it bit for bit.
 * :func:`make_device_var_image_fn` (:2648-2764) is the device Phase B of
-  tensor variables: K7 (``csrc/ij_gather.cu``, :func:`ij_gather`) through
-  the map's float32 positions with the map's mask, or, for bilinear and
-  triangular where the coarse fields of the map hold, the SRW interior on
-  K1/K2 and the edge band through K7's list form (:func:`ij_gather_list`).
+  tensor variables over a map the host holds: K7 (``csrc/ij_gather.cu``,
+  :func:`ij_gather`) through the map's float32 positions with the map's
+  mask, or, for bilinear and triangular where the coarse fields of the map
+  hold, the SRW interior on K1/K2 and the edge band through K7's list form
+  (:func:`ij_gather_list`).
+* :class:`DeviceIJMap` and :func:`make_device_var_image_fn_resident`
+  (:1319, :2452-2647) are the resident Phase B over a map that stays on
+  the device: the same two forms, the SRW plan from a step lattice of the
+  map and its half-offset probes (the only samples that reach the host),
+  the coverage interior a square erosion of the map's validity on the
+  device.
 * :func:`var_image_from_ij_map` (:2767-2855) is the host Phase B of numpy
   variables: K9's ij_map mode (:mod:`.exact_gather`).
 
@@ -26,10 +33,12 @@ for CUDA tensors, or raise; they never fall back.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .._device import (
@@ -48,15 +57,16 @@ from .reproject_ops import (
     gather_interp,
     method_code,
 )
-from .srw import fields_from_ij_map, make_srw_fn, plan_srw
+from .srw import fields_from_ij_map, fields_from_lattice, make_srw_fn, plan_srw
 
 _F32 = torch.float32
 _F64 = torch.float64
 
 # The device Phase B's SRW coarse-field step; the coverage interior is the
-# map's valid pixels eroded PHASE_B_STEP + 2 times (rectify_ops.py:2693).
-# Where JAX picks its batched or its tiled SRW (:2707-2718), the port runs
-# the same two kernels, K1 and K2.
+# map's valid pixels eroded PHASE_B_STEP + 2 times (rectify_ops.py:2693),
+# or, over a resident map, within a square of that radius (:2600-2607).
+# Where JAX picks its batched or its tiled SRW (:2707-2718, :2612-2618),
+# the port runs the same two kernels, K1 and K2.
 PHASE_B_STEP = 16
 _NAN = float("nan")
 
@@ -453,13 +463,13 @@ def make_device_var_image_fn(
     map's valid pixels eroded 18 times, through the tiled SRW where the
     map's coarse fields hold within 0.05 source pixels there; the edge band
     through K7's list form.  Else, and for nearest, every pixel through
-    K7's map form.  (The JAX package's ``XRTPU_PHASEB_SRW`` switch, which
-    forces either choice, is not ported.)"""
+    K7's map form.  ``XRTPU_PHASEB_SRW=1`` or ``0`` forces the SRW try (for
+    every method) or K7, as in the JAX package."""
     if interp_method not in METHODS:
         raise unsupported(interp_method)
     require_data_dtype(src_dtype, "the source")
     src_h, src_w = src_shape
-    if interp_method in ("bilinear", "triangular"):
+    if _want_srw(interp_method):
         from scipy.ndimage import binary_erosion
 
         ij_np = ij_map.cpu().numpy() if isinstance(ij_map, torch.Tensor) else np.asarray(
@@ -492,6 +502,163 @@ def make_device_var_image_fn(
         torch.nan_to_num(m[0], nan=0.0).float(),
         torch.nan_to_num(m[1], nan=0.0).float(),
         valid,
+        interp_method,
+        fill_value,
+    )
+
+
+def _want_srw(interp_method: str) -> bool:
+    """Whether Phase B tries the SRW interior: ``XRTPU_PHASEB_SRW=1`` or
+    ``0`` forces it, else bilinear and triangular (rectify_ops.py:2500,
+    :2677)."""
+    env = os.environ.get("XRTPU_PHASEB_SRW", "")
+    return interp_method in ("bilinear", "triangular") if env == "" else env == "1"
+
+
+# ---------------------------------------------------------------------------
+# the resident Phase B: over a map that stays on the device
+# ---------------------------------------------------------------------------
+
+
+class DeviceIJMap:
+    """A Phase A map that lives on the device (``rectify_ops.DeviceIJMap``):
+    the (2, h, w) float64 tensor K8 wrote.  Phase B gathers straight
+    through it (:func:`make_device_var_image_fn_resident`, memoised here
+    per method and fill); :meth:`as_numpy` fetches it once, for host
+    consumers."""
+
+    def __init__(self, m: torch.Tensor):
+        self._m = m
+        self._np = None
+        self.phase_b_fns: dict = {}
+
+    def device_map(self) -> torch.Tensor:
+        return self._m
+
+    def as_numpy(self) -> np.ndarray:
+        if self._np is None:
+            self._np = self._m.cpu().numpy()
+        return self._np
+
+
+def square_interior(valid: torch.Tensor, radius: int) -> torch.Tensor:
+    """The pixels of the (h, w) bool *valid* whose square of *radius*
+    holds only valid pixels, outside the image counting as invalid:
+    ``scipy.ndimage.minimum_filter(valid, size=2 * radius + 1,
+    mode="constant", cval=0) > 0``, as two 1D max-pools of the invalid
+    mask padded with invalid (max_pool2d's own padding is -inf)."""
+    invalid = (~valid).to(_F32)[None, None]
+    size = 2 * radius + 1
+    rows = F.max_pool2d(F.pad(invalid, (radius, radius, 0, 0), value=1.0), (1, size), stride=1)
+    both = F.max_pool2d(F.pad(rows, (0, 0, radius, radius), value=1.0), (size, 1), stride=1)
+    return both[0, 0] == 0
+
+
+class ResidentPhaseB:
+    """``fn(src) -> (B, h, w)`` over the map *m* of a :class:`DeviceIJMap`;
+    ``fn.plain(src)`` through the plain versions.  K7's map form, or where
+    *srw* asks for the SRW interior, the form
+    :func:`_build_resident_srw_phase_b` plans for the source's extent at
+    its first call (K7's map form where the geometry rejects it).  K7's
+    positions and mask are made at the first call that needs them."""
+
+    def __init__(self, m: torch.Tensor, interp_method: str, fill_value, srw: bool):
+        self.m, self.interp_method, self.fill_value, self.srw = m, interp_method, fill_value, srw
+        self.impls: dict = {}
+
+    def _gather(self) -> GatherPhaseB:
+        if "gather" not in self.impls:
+            m = self.m
+            self.impls["gather"] = GatherPhaseB(
+                torch.nan_to_num(m[0], nan=0.0).float(),
+                torch.nan_to_num(m[1], nan=0.0).float(),
+                torch.isfinite(m[0]) & torch.isfinite(m[1]),
+                self.interp_method,
+                self.fill_value,
+            )
+        return self.impls["gather"]
+
+    def impl(self, src_hw: tuple[int, int]):
+        """The form that runs (B, *src_hw*) sources."""
+        if not self.srw:
+            return self._gather()
+        if src_hw not in self.impls:
+            self.impls[src_hw] = _build_resident_srw_phase_b(
+                self.m, src_hw, self.fill_value, self.interp_method)
+        return self.impls[src_hw] or self._gather()
+
+    def __call__(self, src):
+        return self.impl(tuple(src.shape[-2:]))(src)
+
+    def plain(self, src):
+        return self.impl(tuple(src.shape[-2:])).plain(src)
+
+
+def make_device_var_image_fn_resident(ij_map: DeviceIJMap, fill_value, interp_method: str):
+    """The resident Phase B of a :class:`DeviceIJMap` for one method and
+    fill (``rectify_ops.make_device_var_image_fn_resident``), memoised on
+    the map: (B, H, W) sources of the seven data dtypes on the map's
+    device.  Nearest, and every method where ``XRTPU_PHASEB_SRW=0``, go
+    through K7's map form; bilinear and triangular (every method under
+    ``XRTPU_PHASEB_SRW=1``) try the SRW interior first."""
+    if interp_method not in METHODS:
+        raise unsupported(interp_method)
+    key = (interp_method, repr(float(fill_value)))
+    if key not in ij_map.phase_b_fns:
+        ij_map.phase_b_fns[key] = ResidentPhaseB(
+            ij_map.device_map(), interp_method, fill_value, _want_srw(interp_method))
+    return ij_map.phase_b_fns[key]
+
+
+def _build_resident_srw_phase_b(m: torch.Tensor, src_hw, fill_value, interp_method):
+    """The SRW interior and gathered edge over the (2, h, w) float64 map
+    *m* on the device (``rectify_ops._build_resident_srw_phase_b``), or
+    None where the geometry rejects the plan.  Only the step lattice, the
+    half-offset probes and the probes' validity reach the host (for
+    ``fields_from_lattice`` and ``plan_srw``); the interior (a square
+    erosion of the map's validity by 18) and the edge list are made on the
+    device."""
+    step = PHASE_B_STEP
+    out_h, out_w = int(m.shape[-2]), int(m.shape[-1])
+    if out_h < 2 * step or out_w < 2 * step:
+        return None
+    src_h, src_w = src_hw
+    ncj = (out_h - 1) // step + 2
+    nci = (out_w - 1) // step + 2
+    rsel = np.minimum(np.arange(ncj) * step, out_h - 1)
+    csel = np.minimum(np.arange(nci) * step, out_w - 1)
+    prow = np.minimum(rsel + step // 2, out_h - 1)
+    pcol = np.minimum(csel + step // 2, out_w - 1)
+
+    dev = m.device
+    valid = torch.isfinite(m[0]) & torch.isfinite(m[1])
+    if not bool(valid.any()):
+        return None
+    rs, cs, pr, pc = (torch.from_numpy(a).to(dev) for a in (rsel, csel, prow, pcol))
+    lat = m[:, rs[:, None], cs[None, :]].cpu().numpy()
+    prb = m[:, pr[:, None], pc[None, :]].cpu().numpy()
+    probe_valid = valid[pr[:, None], pc[None, :]].cpu().numpy()
+    fields = fields_from_lattice(
+        lat[0], lat[1], prb[0], prb[1], probe_valid, (prow, pcol),
+        step, src_h, src_w, out_h, out_w,
+    )
+    if fields is None:
+        return None
+    plan = plan_srw(None, None, fields=fields)
+    if plan is None:
+        return None
+    interior = square_interior(valid, step + 2)
+    if not bool(interior.any()):
+        return None
+    edge = torch.nonzero(valid & ~interior)
+    rows, cols = edge[:, 0], edge[:, 1]
+    return SRWPhaseB(
+        make_srw_fn(plan, interp_method, fill_value, dev),
+        interior,
+        rows.to(torch.int32),
+        cols.to(torch.int32),
+        m[0][rows, cols].float(),
+        m[1][rows, cols].float(),
         interp_method,
         fill_value,
     )

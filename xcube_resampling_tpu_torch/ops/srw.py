@@ -3,7 +3,8 @@
 Port of ``xcube_resampling_tpu/ops/srw.py``: ``make_srw_fn`` (:570-753) and
 the tiled branch of ``make_srw_reproject_fn`` (:1550-1685).  The numpy
 planners are copies of the JAX package's (``_Fields`` to
-``_fields_interp_err``, :48-204; ``SRWPlan`` to ``plan_srw``, :450-567;
+``_fields_interp_err``, :48-204; ``_fill_lattice_rows`` and
+``fields_from_lattice``, :338-448; ``SRWPlan`` to ``plan_srw``, :450-567;
 ``_source_window_gm``, :1693).  :func:`plan_to_device` carries an
 :class:`SRWPlan` onto the device with the staged windows of K1 and K2.
 Each call runs one launch of K1 (vertical pass, all column tiles) and one
@@ -301,6 +302,113 @@ def _finish_fields(
     if iystar is None:
         return None
     return _Fields(ix64, iy64, iystar, step, src_h, src_w, out_h, out_w)
+
+
+def _fill_lattice_rows(f: np.ndarray) -> np.ndarray | None:
+    """Row-wise linear fill/extrapolation of NaN lattice entries (the
+    lattice-resolution analogue of the full-map fill above)."""
+    filled = f.copy()
+    n_rows, n_cols = filled.shape
+    cols = np.arange(n_cols, dtype=np.float64)
+    last_good = None
+    for r in range(n_rows):
+        row = filled[r]
+        good = np.isfinite(row)
+        n_good = int(good.sum())
+        if n_good == n_cols:
+            last_good = row
+            continue
+        if n_good >= 2:
+            xg, yg = cols[good], row[good]
+            vals = np.interp(cols, xg, yg)
+            lo = cols < xg[0]
+            if lo.any():
+                s = (yg[1] - yg[0]) / (xg[1] - xg[0])
+                vals[lo] = yg[0] + (cols[lo] - xg[0]) * s
+            hi = cols > xg[-1]
+            if hi.any():
+                s = (yg[-1] - yg[-2]) / (xg[-1] - xg[-2])
+                vals[hi] = yg[-1] + (cols[hi] - xg[-1]) * s
+            filled[r] = vals
+            last_good = vals
+        elif last_good is not None:
+            filled[r] = last_good
+    if not np.isfinite(filled).all():
+        finite_rows = np.where(np.isfinite(filled).all(axis=1))[0]
+        if finite_rows.size == 0:
+            return None
+        filled[: finite_rows[0]] = filled[finite_rows[0]]
+    return filled
+
+
+def fields_from_lattice(
+    ix_lat: np.ndarray,
+    iy_lat: np.ndarray,
+    probe_ix: np.ndarray,
+    probe_iy: np.ndarray,
+    probe_valid: np.ndarray,
+    probe_rc: tuple[np.ndarray, np.ndarray],
+    step: int,
+    src_h: int,
+    src_w: int,
+    out_h: int,
+    out_w: int,
+    pos_tol: float = 0.05,
+) -> _Fields | None:
+    """SRW coarse fields from step-lattice samples of a fractional (i, j)
+    map — the device-resident analogue of :func:`fields_from_ij_map` for
+    callers that cannot afford fetching the full map to the host (rectify
+    Phase B over a :class:`~.rectify_ops.DeviceIJMap`).
+
+    The accuracy gate cannot measure against every pixel; instead it
+    checks the half-offset probe lattice (*probe_rc* positions, true map
+    values in *probe_ix*/*probe_iy*), where the piecewise-linear
+    reconstruction error of a smooth field peaks.  Probes outside the
+    coverage (*probe_valid* False) are ignored, like NaN pixels in the
+    full-map gate."""
+    ix_lat = np.asarray(ix_lat, dtype=np.float64)
+    iy_lat = np.asarray(iy_lat, dtype=np.float64)
+    lat_valid = np.isfinite(ix_lat) & np.isfinite(iy_lat)
+    ix64 = _fill_lattice_rows(ix_lat.copy())
+    iy64 = _fill_lattice_rows(iy_lat.copy())
+    if ix64 is None or iy64 is None:
+        return None
+
+    prow, pcol = probe_rc
+    ncj, nci = ix64.shape
+    rf = np.asarray(prow, dtype=np.float64) / step
+    cf = np.asarray(pcol, dtype=np.float64) / step
+    r0 = np.clip(rf.astype(np.int64), 0, ncj - 2)
+    c0 = np.clip(cf.astype(np.int64), 0, nci - 2)
+    fr = (rf - r0)[:, None]
+    fc = (cf - c0)[None, :]
+    # gate only where the reconstruction rests on measured (not filled)
+    # lattice samples: SRW output is consumed on the interior eroded by
+    # step+2 pixels, whose entire lattice support is valid by
+    # construction — boundary probes reconstruct from extrapolated
+    # samples and are resolved by the caller's exact edge gather instead
+    supported = (
+        lat_valid[r0[:, None], c0[None, :]]
+        & lat_valid[r0[:, None], c0[None, :] + 1]
+        & lat_valid[r0[:, None] + 1, c0[None, :]]
+        & lat_valid[r0[:, None] + 1, c0[None, :] + 1]
+    )
+    gate = np.asarray(probe_valid, dtype=bool) & supported
+    if gate.any():
+        err = 0.0
+        for field, true_vals in ((ix64, probe_ix), (iy64, probe_iy)):
+            approx = (
+                field[r0[:, None], c0[None, :]] * (1 - fr) * (1 - fc)
+                + field[r0[:, None], c0[None, :] + 1] * (1 - fr) * fc
+                + field[r0[:, None] + 1, c0[None, :]] * fr * (1 - fc)
+                + field[r0[:, None] + 1, c0[None, :] + 1] * fr * fc
+            )
+            diff = np.abs(approx - np.asarray(true_vals, dtype=np.float64))
+            err = max(err, float(np.max(diff[gate])))
+        if err > pos_tol:
+            return None
+
+    return _finish_fields(ix64, iy64, step, src_h, src_w, out_h, out_w)
 
 
 # ---------------------------------------------------------------------------

@@ -3,19 +3,30 @@ regular grid).
 
 Port of ``xcube_resampling_tpu/rectify.py`` (``rectify_dataset``,
 ``_reproject_swath_coords``, ``_maybe_downscale``, ``_tile_search_border``,
-``_inverse_ij_map``, ``_gather_variable``, ``_gather_host_tiled``):
+``_phase_a_tier``, ``_inverse_ij_map``, ``_gather_variable``,
+``_gather_host_tiled``):
 
-* Phase A runs on the device of the data: the JAX package's host tier
-  (per-destination-tile source windows from the bbox scan, each tile with
-  its own origin) as one launch of K8 over a tile table
-  (:func:`_phase_a_tiles`), equal to the host tier bit for bit.  The JAX
-  package's tier model, which picks among its device and host tiers for
-  the TPU's link, is not ported: the port always runs K8.
-* Phase B keeps the JAX package's two semantics apart.  Tensor variables
-  take its device Phase B (``rectify_ops.make_device_var_image_fn``: K7,
-  and for bilinear and triangular the SRW interior on K1/K2 with the edge
-  band through K7), built once per call for each source shape, dtype,
-  method and fill.  Numpy variables take its host gather (K9's ij_map
+* Phase A runs on the device of the data as one launch of K8 over a tile
+  table (:func:`_phase_a_tiles`): per destination tile the source window
+  of the JAX package's host tier and its own origin, so the map equals the
+  host tier's bit for bit.  ``XRTPU_PHASEA`` picks the tier as in the JAX
+  package (:func:`_phase_a_tier`): ``device`` (the default on a CUDA
+  device) scans the tiles' windows with K10 on the swath's coordinates
+  that K8 reads, and keeps the map on the device (a
+  :class:`~.ops.rectify_ops.DeviceIJMap`); ``host`` (the default on the
+  CPU) scans them on the host (``GridMapping.ij_bboxes_from_xy_bboxes``).
+  The JAX package's ``auto`` also models the TPU's link; that model is
+  not ported.
+* Phase B over a device map (the device tier) gathers every variable,
+  tensor or numpy, through the resident Phase B
+  (``rectify_ops.make_device_var_image_fn_resident``: K7, and for bilinear
+  and triangular the SRW interior planned from a step lattice of the map,
+  on K1/K2, with the edge band through K7), as the JAX package does.
+  Under the host tier Phase B keeps the JAX package's two semantics apart:
+  tensor variables take its device Phase B
+  (``rectify_ops.make_device_var_image_fn``, the same kernels, planned
+  from the whole map), built once per call for each source shape, dtype,
+  method and fill; numpy variables take its host gather (K9's ij_map
   mode): their dtype kept, integers rounded with ``rint``; they come back
   as tensors on the device.
 
@@ -26,6 +37,7 @@ placed on *device*.  Dtypes other than the affine engine's seven raise
 
 from __future__ import annotations
 
+import os
 from collections.abc import Hashable, Iterable
 
 import numpy as np
@@ -43,7 +55,7 @@ from .constants import (
 )
 from .crs import Transformer
 from .gridmapping import GridMapping
-from .ops import rectify_ops
+from .ops import bbox_ops, rectify_ops
 from .utils import (
     _get_fill_value,
     _get_interp_method_str,
@@ -196,20 +208,43 @@ def _tile_search_border(target_gm: GridMapping) -> float:
     return min(per_axis, min(0.5 * (x2 - x1), 0.5 * (y2 - y1)))
 
 
-def _phase_a_tiles(source_gm: GridMapping, target_gm: GridMapping) -> rectify_ops.PhaseATiles:
+def _phase_a_tier(device) -> str:
+    """``'device'`` or ``'host'`` (``rectify._phase_a_tier``): under
+    ``XRTPU_PHASEA=auto`` (the default) the device tier on a CUDA device
+    and the host tier on the CPU; else the device tier where it is
+    ``device``, the host tier for any other value, as in the JAX package."""
+    mode = os.environ.get("XRTPU_PHASEA", "auto")
+    if mode == "auto":
+        return "device" if torch.device(device).type == "cuda" else "host"
+    return "device" if mode == "device" else "host"
+
+
+def _phase_a_tiles(
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    swath: torch.Tensor | None = None,
+) -> rectify_ops.PhaseATiles:
     """K8's tile table: the JAX host tier's per-tile plan
     (``rectify._inverse_ij_map`` and ``_inverse_ij_map_tile``): each
     destination tile's source window from the bbox scan (the window slice
     ``[j_lo, j_hi + 1) x [i_lo, i_hi + 1)`` clipped to the swath, empty where
-    no quad can land) and its origin."""
+    no quad can land) and its origin.  The scan runs on the host, or with
+    K10 on *swath*, the (2, H, W) float64 coordinates on the device, of
+    which only the (n, 4) table comes back; both give the same windows."""
     x1, y1, x2, y2 = target_gm.xy_bbox
     x_res, y_res = target_gm.xy_res
     j_up = target_gm.is_j_axis_up
     shape_hw = (target_gm.height, target_gm.width)
     tile_hw = (target_gm.tile_height, target_gm.tile_width)
-    window_bboxes = source_gm.ij_bboxes_from_xy_bboxes(
-        target_gm.xy_bboxes, xy_border=_tile_search_border(target_gm), ij_border=1,
-    )
+    border = _tile_search_border(target_gm)
+    if swath is None:
+        window_bboxes = source_gm.ij_bboxes_from_xy_bboxes(
+            target_gm.xy_bboxes, xy_border=border, ij_border=1,
+        )
+    else:
+        window_bboxes = bbox_ops.compute_ij_bboxes(
+            swath[0], swath[1], target_gm.xy_bboxes, border, 1,
+        ).cpu().numpy()
     src_h, src_w = source_gm.height, source_gm.width
     ints, origins = [], []
     for block_id, tile in enumerate(iter_tiles(shape_hw, tile_hw)):
@@ -241,45 +276,60 @@ def _inverse_ij_map(
     target_gm: GridMapping,
     uv_delta: float,
     device,
-) -> torch.Tensor:
+    tier: str | None = None,
+) -> torch.Tensor | rectify_ops.DeviceIJMap:
     """PHASE A: the (2, height, width) float64 fractional source-index map
-    on *device*, K8 over the host tier's tile plan."""
+    on *device*, K8 over the host tier's tile plan.  The swath's
+    coordinates go to the device once.  Under the device tier (*tier*, by
+    default :func:`_phase_a_tier`'s) K10 scans the tile windows on them
+    and the map comes back as a :class:`~.ops.rectify_ops.DeviceIJMap`;
+    under the host tier the host scans them and the map is a tensor."""
+    tier = tier or _phase_a_tier(device)
     swath = torch.from_numpy(
         np.ascontiguousarray(np.asarray(source_gm.xy_coords.data), dtype=np.float64)
     ).to(device)
-    return rectify_ops.rectify_phase_a(swath, _phase_a_tiles(source_gm, target_gm), uv_delta)
+    if tier == "host":
+        return rectify_ops.rectify_phase_a(swath, _phase_a_tiles(source_gm, target_gm), uv_delta)
+    tiles = _phase_a_tiles(source_gm, target_gm, swath)
+    return rectify_ops.DeviceIJMap(rectify_ops.rectify_phase_a(swath, tiles, uv_delta))
 
 
 def _gather_variable(
     var: DataArray,
     name: Hashable,
     target_gm: GridMapping,
-    ij_map: torch.Tensor,
+    ij_map: torch.Tensor | rectify_ops.DeviceIJMap,
     interp_methods: InterpMethods | None,
     fill_values: FillValues | None,
     host: bool,
     phase_b: dict,
 ) -> DataArray:
     """PHASE B: gather a variable through the source-index map
-    (``rectify._gather_variable``): numpy-backed ones through the host
-    gather, tensors through the device Phase B (memoised in *phase_b*
-    for the variables of one call)."""
+    (``rectify._gather_variable``): over a device map every variable
+    through the resident Phase B (memoised on the map); else numpy-backed
+    ones (*host*) through the host gather and tensors through the device
+    Phase B (memoised in *phase_b* for the variables of one call)."""
     had_band_axis = len(var.dims) == 3
     if not had_band_axis:
         var = var.expand_dims({"dummy": 1})
     fill_value = _get_fill_value(fill_values, name, var)
     interp = _get_interp_method_str(interp_methods, name, var)
     data = var.data
-    if host:
+    resident = isinstance(ij_map, rectify_ops.DeviceIJMap)
+    if host and not resident:
         image = _gather_host_tiled(data, ij_map, fill_value, interp, target_gm)
     else:
         src_hw = tuple(data.shape[-2:])
-        key = (src_hw, data.dtype, interp, repr(fill_value))
-        if key not in phase_b:
-            phase_b[key] = rectify_ops.make_device_var_image_fn(
-                ij_map, src_hw, fill_value, interp, data.dtype, device=data.device,
-            )
-        image = phase_b[key](data.reshape((-1,) + src_hw).contiguous())
+        if resident:
+            gather = rectify_ops.make_device_var_image_fn_resident(ij_map, fill_value, interp)
+        else:
+            key = (src_hw, data.dtype, interp, repr(fill_value))
+            if key not in phase_b:
+                phase_b[key] = rectify_ops.make_device_var_image_fn(
+                    ij_map, src_hw, fill_value, interp, data.dtype, device=data.device,
+                )
+            gather = phase_b[key]
+        image = gather(data.reshape((-1,) + src_hw).contiguous())
         image = image.reshape(tuple(data.shape[:-2]) + tuple(image.shape[-2:]))
 
     tile_hw = (target_gm.tile_height, target_gm.tile_width)
