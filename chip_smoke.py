@@ -54,8 +54,13 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    K5 reducer (all-NaN windows, a fill edge, a flipped axis, a strided
    view), K6 for mode and median at 4, 9, 16, 25, 64, 81 and 1024 taps
    with ties, NaN and +-0.0, K7 for every method on the seven dtypes, NaN
-   map cells and its list form, K8 on a swath with a NaN row and on a
-   target with tiles no quad reaches, K9 in both modes on float32,
+   map cells and its list form, and on maps whose positions spread over
+   the whole source, run backwards or sit on the -0.5 / n - 0.5 bounds
+   (both forms; float32, float64, uint16), K8 on a swath with a NaN row
+   and on a target with tiles no quad reaches, and on tile tables that
+   its patches of quads cut unevenly (ragged windows, windows of one quad,
+   one quad row and none, a fold whose competing quads lie in other
+   patches, NaN corners on patch boundaries), K9 in both modes on float32,
    float64, uint16 and int16, K7-K9 at R1's and R3's shapes, K10 at R1's
    and R3's against its plain version and the host's scan, also with a
    NaN row, empty tiles and about 5000 small tiles, the resident Phase B at
@@ -1566,12 +1571,14 @@ def main() -> int:
     bounds["ij_gather"] = gather_bound(bands16, fn.ix.shape, 4, PEAK_F32, 9)
     h_, w_ = r1_src.shape
     grid = torch.stack((fn.ix / (w_ - 1) * 2 - 1, fn.iy / (h_ - 1) * 2 - 1), dim=-1)[None]
-    for interp in ("nearest", "bilinear"):
+    for interp in METHODS:
         def lib_call(mode=interp):
             return F.grid_sample(bands16[None], grid, mode=mode, padding_mode="border",
                                  align_corners=True)
 
-        lib = (event_ms(lib_call, 5), device_ms(lib_call, 5))
+        # F.grid_sample has no triangular mode
+        lib = ((event_ms(lib_call, 5), device_ms(lib_call, 5)) if interp != "triangular"
+               else (nan, nan))
         args = (bands16, fn.ix, fn.iy, fn.valid, interp, nan)
         kt = (event_ms(lambda: rectify_ops.ij_gather(*args), 5),
               device_ms(lambda: rectify_ops.ij_gather(*args), 5))
@@ -1762,6 +1769,92 @@ def main() -> int:
                 port_reproject._gather_through_windows(xs, *args),
                 port_reproject._gather_through_windows(xs.cpu(), *args).to(dev), "exact",
                 f"K9 windows {dtype} {interp} vs plain"))
+    # K7 on maps that its output tiles make hard: each tile's positions
+    # spread over the whole source, a map running backwards in both axes,
+    # positions on the -0.5 / n - 0.5 bounds and a float32 ulp inside them;
+    # the map form and the list form (every pixel, in reverse order)
+    hh, ww = 300, 420
+    mj, mi = np.mgrid[0:190, 0:670].astype(np.float64)
+    f32 = np.float32
+    edges_x = np.array([-0.5, ww - 0.5, np.nextafter(f32(-0.5), f32(1)),
+                        np.nextafter(f32(ww - 0.5), f32(0)), 0.0, ww - 1.0, 0.5, ww - 1.5], f32)
+    edges_y = np.array([-0.5, hh - 0.5, np.nextafter(f32(-0.5), f32(1)),
+                        np.nextafter(f32(hh - 0.5), f32(0)), 0.0, hh - 1.0, 0.5, hh - 1.5], f32)
+    hard_maps = {
+        "wide": (rng.random(mj.shape) * ww - 0.5, rng.random(mj.shape) * hh - 0.5),
+        "backwards": ((ww - 1.2) - mi * (ww / 670) + 0.07 * mj,
+                      (hh - 0.9) - mj * (hh / 190) - 0.05 * mi),
+        "bounds": (rng.choice(edges_x, mj.shape), rng.choice(edges_y, mj.shape)),
+    }
+    hard_valid = torch.from_numpy(rng.random(mj.shape) < 0.85).to(dev)
+    flat = torch.arange(mj.size - 1, -1, -1, device=dev)
+    rows_h, cols_h = (flat // 670).int(), (flat % 670).int()
+    for dtype in (torch.float32, torch.float64, torch.uint16):
+        if dtype.is_floating_point:
+            xs = torch.from_numpy(rng.random((3, hh, ww)) * 100).to(dtype).to(dev)
+            xs[1, 77] = nan
+        else:
+            xs = torch.from_numpy(rng.integers(0, 60000, (3, hh, ww)).astype(np.uint16)).to(dev)
+        for case, (mx, my) in hard_maps.items():
+            ix = torch.from_numpy(np.asarray(mx, np.float32)).to(dev)
+            iy = torch.from_numpy(np.asarray(my, np.float32)).to(dev)
+            for interp in METHODS:
+                fill = 9 if interp == "nearest" and not dtype.is_floating_point else nan
+                kind = "f64" if dtype == torch.float64 and interp != "nearest" else interp
+                err["ij_gather"] = max(err["ij_gather"], compare(
+                    rectify_ops.ij_gather(xs, ix, iy, hard_valid, interp, fill),
+                    rectify_ops.ij_gather_plain(xs, ix, iy, hard_valid, interp, fill), kind,
+                    f"K7 {case} map {dtype} {interp} vs plain"))
+                lst = (ix.view(-1)[flat], iy.view(-1)[flat], rows_h, cols_h, interp, fill)
+                empty = torch.zeros((3, 190, 670), dtype=rectify_ops.gather_dtype(
+                    dtype, interp), device=dev)
+                err["ij_gather"] = max(err["ij_gather"], compare(
+                    rectify_ops.ij_gather_list(empty.clone(), xs, *lst),
+                    rectify_ops.ij_gather_list_plain(empty.clone(), xs, *lst), kind,
+                    f"K7 {case} list {dtype} {interp} vs plain"))
+    # K8 on tile tables that its patches of PATCH_W x PATCH_H quads cut
+    # unevenly: ragged windows, windows of one quad, one quad row and none,
+    # a fold whose competing quads lie in other patches, NaN corners on
+    # patch boundaries (window-local quad row 8 and column 32)
+    def folded(h, w, fold_row, fold_col):
+        j, i = np.mgrid[0:h, 0:w].astype(np.float64)
+        ii = np.where(i < fold_col, i, 2 * fold_col - i) if fold_col else i
+        jj = np.where(j < fold_row, j, 2 * fold_row - j) if fold_row else j
+        return ii * 1.1 + 0.3 * np.sin(j / 3) + 0.01 * j, jj * 0.9 + 0.02 * i
+
+    nan_x, nan_y = folded(40, 76, 0, 0)
+    nan_x[9, :] = nan
+    nan_y[:, 35] = nan
+    nan_x[17, 35] = nan
+    k8_cases = {
+        "ragged windows": (folded(47, 83, 0, 0), [
+            [0, 0, 24, 40, 0, 0, 45, 13], [0, 40, 24, 40, 37, 3, 46, 44],
+            [24, 0, 24, 40, 1, 20, 33, 9], [24, 40, 24, 40, 30, 20, 53, 27]]),
+        "2x2 and one-row windows": (folded(30, 80, 0, 0), [
+            [0, 0, 24, 40, 3, 4, 2, 2], [0, 40, 24, 40, 36, 2, 44, 2],
+            [24, 0, 24, 40, 0, 20, 70, 1], [24, 40, 24, 40, 40, 15, 1, 9]]),
+        "fold across patches": (folded(40, 76, 19, 37), [
+            [0, 0, 24, 40, 0, 0, 76, 40], [0, 40, 24, 40, 0, 0, 76, 40],
+            [24, 0, 24, 40, 0, 0, 76, 40], [24, 40, 24, 40, 2, 1, 71, 37]]),
+        "NaN on patch boundaries": ((nan_x, nan_y), [
+            [0, 0, 24, 40, 3, 1, 70, 30], [0, 40, 24, 40, 3, 1, 70, 30],
+            [24, 0, 24, 40, 0, 0, 76, 40], [24, 40, 24, 40, 3, 9, 40, 17]]),
+    }
+    for case, ((cx, cy), ints) in k8_cases.items():
+        ints = np.array(ints, np.int64)
+        tiles_c = rectify_ops.PhaseATiles(
+            ints=ints, origins=np.stack([-0.3 + ints[:, 1] * 1.05, -0.2 + ints[:, 0] * 0.85], 1),
+            x_scale=1.05, y_scale=0.85, tile_h=24, tile_w=40, n_tiles_x=2, out_h=48, out_w=80)
+        sw_c = torch.from_numpy(np.stack([cx, cy])).to(dev)
+        got = rectify_ops.rectify_phase_a(sw_c, tiles_c, UV_DELTA)
+        err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
+            got, rectify_ops.rectify_phase_a_plain(sw_c, tiles_c, UV_DELTA), "exact",
+            f"K8 {case} vs plain", signs=True))
+        if not torch.isfinite(got).any():
+            raise AssertionError(f"K8 {case}: no pixel claimed")
+    print(f"{tag} K7 vs plain on hard maps (wide, backwards, on the bounds; map and list "
+          f"form; float32, float64, uint16, every method) and K8 vs plain on "
+          f"{', '.join(k8_cases)}: equal within the tolerances")
     print(f"{tag} K7 vs plain (seven dtypes, every method, NaN map cells, the list form): "
           f"max abs diff {err['ij_gather']}; K9 vs plain (both modes, float32, float64, "
           f"uint16, int16, every method, fill padding): max abs diff {err['exact_gather']}")

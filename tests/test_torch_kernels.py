@@ -581,6 +581,189 @@ def test_phase_a_plain_first_writer_wins_on_a_fold():
     assert np.isfinite(got).mean() > 0.2
 
 
+# K7's position maps that its tiling of the output makes hard: positions
+# of one output tile spread over the whole source, a map that runs
+# backwards in both axes, and positions on the -0.5 / n - 0.5 bounds and
+# one float32 ulp inside them
+def _wide_map(shape, src_hw):
+    rng = np.random.default_rng(11)
+    ix = (rng.random(shape) * src_hw[1] - 0.5).astype(np.float32)
+    iy = (rng.random(shape) * src_hw[0] - 0.5).astype(np.float32)
+    return ix, iy
+
+
+def _backward_map(shape, src_hw):
+    j, i = np.mgrid[0:shape[0], 0:shape[1]].astype(np.float64)
+    ix = (src_hw[1] - 1.2) - i * (src_hw[1] / shape[1]) + 0.07 * j
+    iy = (src_hw[0] - 0.9) - j * (src_hw[0] / shape[0]) - 0.05 * i
+    return ix.astype(np.float32), iy.astype(np.float32)
+
+
+def _bounds_map(shape, src_hw):
+    h, w = src_hw
+    edges = np.array([-0.5, w - 0.5, np.nextafter(np.float32(-0.5), np.float32(1)),
+                      np.nextafter(np.float32(w - 0.5), np.float32(0)), 0.0, w - 1.0, 0.5,
+                      w - 1.5], np.float32)
+    rows = np.array([-0.5, h - 0.5, np.nextafter(np.float32(-0.5), np.float32(1)),
+                     np.nextafter(np.float32(h - 0.5), np.float32(0)), 0.0, h - 1.0, 0.5,
+                     h - 1.5], np.float32)
+    rng = np.random.default_rng(12)
+    ix = rng.choice(edges, shape).astype(np.float32)
+    iy = rng.choice(rows, shape).astype(np.float32)
+    return ix, iy
+
+
+K7_MAPS = {"wide": _wide_map, "backwards": _backward_map, "bounds": _bounds_map}
+
+
+@pytest.mark.parametrize("case", sorted(K7_MAPS))
+@pytest.mark.parametrize("dtype", ["float32", "float64", "uint16"])
+@pytest.mark.parametrize("interp", METHODS)
+def test_ij_gather_plain_matches_jax_on_hard_maps(case, dtype, interp):
+    """K7's map form and list form (plain) against the JAX package's
+    gather_interp on maps that cross its output tiles' footprints (every
+    tile's positions spread over the whole source), run backwards, or sit
+    on the -0.5 / n - 0.5 bounds: equal values and dtype."""
+    from xcube_resampling_tpu.ops.reproject_ops import gather_interp as jax_gather_interp
+
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+
+    src = _data(dtype, (3, 45, 70))
+    ix, iy = K7_MAPS[case]((19, 67), (45, 70))
+    valid = np.random.default_rng(13).random(ix.shape) < 0.85
+    fill = np.nan if dtype.startswith("float") or interp != "nearest" else 9
+    ref = np.asarray(jax.jit(
+        lambda s, a, b, v: jax_gather_interp(s, a, b, interp, fill, jnp, valid=v)
+    )(jnp.asarray(src), jnp.asarray(ix), jnp.asarray(iy), jnp.asarray(valid)))
+    t = [torch.from_numpy(a) for a in (src, ix, iy, valid)]
+    got = rectify_ops.ij_gather(*t, interp, fill).numpy()
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+    # the list form: every map pixel in reverse order, valid by the bounds
+    ref_b = np.asarray(jax.jit(
+        lambda s, a, b: jax_gather_interp(s, a, b, interp, fill, jnp)
+    )(jnp.asarray(src), jnp.asarray(ix.ravel()), jnp.asarray(iy.ravel())))
+    flat = np.arange(ix.size)[::-1]
+    rows, cols = (flat // ix.shape[1]).astype(np.int32), (flat % ix.shape[1]).astype(np.int32)
+    out = torch.zeros((3,) + ix.shape, dtype=torch.from_numpy(ref.copy()).dtype)
+    rectify_ops.ij_gather_list(
+        out, t[0], torch.from_numpy(ix.ravel()[flat].copy()),
+        torch.from_numpy(iy.ravel()[flat].copy()), torch.from_numpy(rows),
+        torch.from_numpy(cols), interp, fill,
+    )
+    np.testing.assert_array_equal(out.numpy().reshape(3, -1), ref_b)
+
+
+def _phase_a_fold(h, w, fold_row, fold_col):
+    """A swath that folds back over itself at row *fold_row* and column
+    *fold_col*: quads on either side of a fold claim the same pixels."""
+    j, i = np.mgrid[0:h, 0:w].astype(np.float64)
+    ii = np.where(i < fold_col, i, 2 * fold_col - i) if fold_col else i
+    jj = np.where(j < fold_row, j, 2 * fold_row - j) if fold_row else j
+    x = ii * 1.1 + 0.3 * np.sin(j / 3) + 0.01 * j
+    y = jj * 0.9 + 0.02 * i
+    return x, y
+
+
+# Tile tables that K8's patches of PATCH_W x PATCH_H quads make hard, each
+# held against the JAX package's inverse_ij_map window by window
+def _phase_a_case(name):
+    if name == "ragged windows":  # quad counts no multiple of the patch
+        x, y = _phase_a_fold(47, 83, 0, 0)
+        ints = [[0, 0, 24, 40, 0, 0, 45, 13], [0, 40, 24, 40, 37, 3, 46, 44],
+                [24, 0, 24, 40, 1, 20, 33, 9], [24, 40, 24, 40, 30, 20, 53, 27]]
+        size = (48, 80)
+    elif name == "2x2 and one-row windows":  # one quad; one quad row; none
+        x, y = _phase_a_fold(30, 80, 0, 0)
+        ints = [[0, 0, 16, 40, 3, 4, 2, 2], [0, 40, 16, 40, 36, 2, 44, 2],
+                [16, 0, 16, 40, 0, 20, 70, 1], [16, 40, 16, 40, 40, 15, 1, 9]]
+        size = (32, 80)
+    elif name == "fold across patches":  # competing quads in other patches
+        x, y = _phase_a_fold(40, 76, 19, 37)
+        ints = [[0, 0, 24, 40, 0, 0, 76, 40], [0, 40, 24, 40, 0, 0, 76, 40],
+                [24, 0, 24, 40, 0, 0, 76, 40], [24, 40, 24, 40, 2, 1, 71, 37]]
+        size = (48, 80)
+    else:  # "NaN on patch boundaries": window-local quad row 8 and column 32
+        x, y = _phase_a_fold(40, 76, 0, 0)
+        x[9, :] = np.nan
+        y[:, 35] = np.nan
+        x[1 + 16, 3 + 32] = np.nan
+        ints = [[0, 0, 24, 40, 3, 1, 70, 30], [0, 40, 24, 40, 3, 1, 70, 30],
+                [24, 0, 24, 40, 0, 0, 76, 40], [24, 40, 24, 40, 3, 9, 40, 17]]
+        size = (48, 80)
+    ints = np.array(ints, np.int64)
+    origins = np.stack([-0.3 + ints[:, 1] * 1.05, -0.2 + ints[:, 0] * 0.85], 1)
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+
+    tiles = rectify_ops.PhaseATiles(
+        ints=ints, origins=origins, x_scale=1.05, y_scale=0.85, tile_h=24 if size[0] == 48
+        else 16, tile_w=40, n_tiles_x=2, out_h=size[0], out_w=size[1],
+    )
+    return x, y, tiles
+
+
+PHASE_A_CASES = ["ragged windows", "2x2 and one-row windows", "fold across patches",
+                 "NaN on patch boundaries"]
+
+
+@pytest.mark.parametrize("case", PHASE_A_CASES)
+def test_phase_a_plain_matches_jax_on_patch_edges(case):
+    """K8's plain version on tile windows that K8's work items cut
+    unevenly (quad counts no multiple of the patch, a window of one quad,
+    one quad row and none, a fold whose competing quads lie in other
+    patches, NaN corners on patch boundaries) against the JAX package's
+    inverse_ij_map of each window, as its host tier runs it: bit for bit."""
+    from xcube_resampling_tpu.ops import rectify_ops as jax_rectify_ops
+
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+
+    x, y, tiles = _phase_a_case(case)
+    got = rectify_ops.rectify_phase_a(torch.from_numpy(np.stack([x, y])), tiles, 1e-3).numpy()
+    for (row0, col0, th, tw, i_lo, j_lo, ww, wh), (xo, yo) in zip(tiles.ints, tiles.origins):
+        block = got[:, row0:row0 + th, col0:col0 + tw]
+        if ww < 2 or wh < 2:
+            assert np.isnan(block).all()
+            continue
+        ref = jax_rectify_ops.inverse_ij_map(
+            x[j_lo:j_lo + wh, i_lo:i_lo + ww], y[j_lo:j_lo + wh, i_lo:i_lo + ww],
+            int(i_lo), int(j_lo), (th, tw), xo, yo, tiles.x_scale, tiles.y_scale, 1e-3,
+        )
+        np.testing.assert_array_equal(block, ref)
+    assert np.isfinite(got).any()
+
+
+@pytest.mark.parametrize("case", PHASE_A_CASES)
+def test_phase_a_patches_cover_every_quad_once(case):
+    """K8's work table from a PhaseATiles: per tile ceil(quads across /
+    PATCH_W) x ceil(quad rows / PATCH_H) patches, numbered tile by tile
+    (each tile's first item the count before it), none for windows
+    without a quad; decoded as the kernel decodes a work item (the last
+    tile whose first item is at most it, then row-major patches), the
+    items cover each window quad exactly once."""
+    from xcube_resampling_tpu_torch.ops import rectify_ops
+
+    _, _, tiles = _phase_a_case(case)
+    table, n_items = rectify_ops.phase_a_patches(tiles)
+    assert table.dtype == np.int32 and table.shape == (len(tiles.ints), 2)
+    pw, ph = rectify_ops.PATCH_W, rectify_ops.PATCH_H
+    quads = np.maximum(tiles.ints[:, 6:8] - 1, 0)
+    counts = -(-quads[:, 0] // pw) * -(-quads[:, 1] // ph)
+    np.testing.assert_array_equal(table[:, 0], np.cumsum(counts) - counts)
+    np.testing.assert_array_equal(table[:, 1], -(-quads[:, 0] // pw))
+    assert n_items == counts.sum() and (counts == 0).any() == (case == "2x2 and one-row windows")
+    covered = [np.zeros((qh, qw), np.int64) for qw, qh in quads]
+    for item in range(n_items):
+        tile = np.searchsorted(table[:, 0], item, side="right") - 1
+        local = item - table[tile, 0]
+        qj0, qi0 = local // table[tile, 1] * ph, local % table[tile, 1] * pw
+        covered[tile][qj0:qj0 + ph, qi0:qi0 + pw] += 1
+    assert all(np.all(c == 1) for c in covered)
+    table, n_items = rectify_ops.phase_a_patches(rectify_ops.PhaseATiles(
+        ints=np.zeros((3, 8), np.int64), origins=np.zeros((3, 2)), x_scale=1.0, y_scale=1.0,
+        tile_h=4, tile_w=4, n_tiles_x=3, out_h=4, out_w=12))
+    assert n_items == 0 and not table.any()
+
+
 @pytest.fixture(params=["native", "numpy"])
 def jax_host_gather(request, monkeypatch):
     """The JAX package's host gather through its C++ library and through

@@ -147,6 +147,33 @@ def test_phase_a_tile_table_has_empty_windows():
     np.testing.assert_array_equal(got, ref)
 
 
+SMALL_WINDOWS = {
+    "2x2": (create_2x2_dataset_with_irregular_coords, None),
+    "2x2 antimeridian": (create_2x2_dataset_with_irregular_coords_antimeridian, None),
+    "4x4": (create_4x4_dataset_with_irregular_coords, None),
+    "71x45 NaN rows 8, 16, 17": (lambda: _swath(71, 45, 24, (8, 16, 17)), 24),
+    "97x11": (lambda: _swath(97, 11, 16), 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SMALL_WINDOWS))
+def test_phase_a_small_windows_equal_the_host_tier(case):
+    """K8's plain version over the host tier's tile table on swaths whose
+    tile windows hold one quad (the 2x2 sources), a few, or quad counts
+    that are no multiple of K8's patch (NaN swath rows on the patch rows'
+    boundaries; a swath of ten quad rows): equal to the JAX package's host
+    tier bit for bit."""
+    make, tile_size = SMALL_WINDOWS[case]
+    ds = make()
+    jax_gm = xrt.GridMapping.from_dataset(ds)
+    port_gm = port.GridMapping.from_dataset(_to_port(ds))
+    kw = dict(tile_size=tile_size) if tile_size else {}
+    ref = jax_rectify._inverse_ij_map(jax_gm, jax_gm.to_regular(**kw), UV_DELTA)
+    got = port_rectify._inverse_ij_map(port_gm, port_gm.to_regular(**kw), UV_DELTA, "cpu")
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert np.isfinite(ref).any()
+
+
 def _device_phase_b_case(monkeypatch, swath, interp):
     width, height, tile_size = SWATHS[swath]
     ds = _swath(width, height, tile_size)

@@ -83,11 +83,12 @@ _SIGNATURES = {
     "xrt_coarsen_rank": [
         _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
-    # sx, sy, src_h, src_w, itab, dtab, n_tiles, max_quads, tile_h, tile_w,
-    # n_tiles_x, out_h, out_w, x_scale, y_scale, uv_delta, claim, out, stream
+    # sx, sy, src_h, src_w, itab, dtab, n_tiles, items, n_items, patch_w,
+    # patch_h, tile_h, tile_w, n_tiles_x, out_h, out_w, x_scale, y_scale,
+    # uv_delta, claim, out, stream
     "xrt_rectify_phase_a": [
-        _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _D,
-        _D, _D, _P, _P, _P,
+        _P, _P, _I64, _I64, _P, _P, _I64, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I64, _I64, _D, _D, _D, _P, _P, _P,
     ],
     # src, ix, iy, valid, rows, cols, out, n, batch, src_h, src_w, out_w,
     # out_plane, method, fill, code, stream

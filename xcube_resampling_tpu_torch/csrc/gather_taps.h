@@ -113,7 +113,8 @@ __device__ __forceinline__ ArithOf<T> tap_diff(T b, T a) {
 }
 
 // The taps' value on a plane of any of the seven data types (float32
-// takes gather<M> itself, so K3's rounding carries over bit for bit).
+// takes gather<M> itself, so K3's rounding carries over bit for bit),
+// read through the read-only data path as gather<M> reads float32.
 template <int M, typename T>
 __device__ __forceinline__ GatherOut<M, T> gather_t(const T* __restrict__ p, const Taps& t) {
   if constexpr (std::is_same<T, float>::value) {
@@ -122,12 +123,12 @@ __device__ __forceinline__ GatherOut<M, T> gather_t(const T* __restrict__ p, con
     using A = ArithOf<T>;
     const T* q = p + t.off;
     if constexpr (M == kNearest) {
-      return q[0];
+      return __ldg(q);
     } else {
-      const T v00 = q[0];
-      const T v01 = q[t.dx];
-      const T v10 = q[t.dy];
-      const T v11 = q[t.dy + t.dx];
+      const T v00 = __ldg(q);
+      const T v01 = __ldg(q + t.dx);
+      const T v10 = __ldg(q + t.dy);
+      const T v11 = __ldg(q + t.dy + t.dx);
       if constexpr (M == kTriangular) {
         const A v_near = fused(A(t.fy), tap_diff(v10, v00),
                                fused(A(t.fx), tap_diff(v01, v00), A(v00)));

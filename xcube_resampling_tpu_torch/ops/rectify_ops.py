@@ -270,6 +270,40 @@ def rectify_phase_a_plain(swath_xy: torch.Tensor, tiles: PhaseATiles, uv_delta: 
 # K8's claims start at 0x7F7F7F7F (a byte fill): window-local quad ranks
 # must stay below it
 _MAX_QUADS = 0x7F7F7F7F
+# K8's work item: a patch of PATCH_W x PATCH_H quads of one tile's window
+# (csrc/rectify_phase_a.cu's kPatchW, kPatchH)
+PATCH_W = 32
+PATCH_H = 8
+_MAX_INDEX = 2**31 - 1
+
+
+def phase_a_patches(tiles: PhaseATiles) -> tuple[np.ndarray, int]:
+    """K8's work table: per tile of *tiles* (n, 2) int32 = its first work
+    item and its PATCH_W x PATCH_H patches of window quads across (the
+    items run tile by tile, row-major over each tile's patches; a window
+    without a quad has none, and its first item is the next tile's), and
+    the number of work items."""
+    quads_w = np.maximum(tiles.ints[:, 6] - 1, 0)
+    quads_h = np.maximum(tiles.ints[:, 7] - 1, 0)
+    across = -(-quads_w // PATCH_W)
+    count = across * -(-quads_h // PATCH_H)
+    first = np.cumsum(count) - count
+    return np.stack([first, across], 1).astype(np.int32), int(count.sum())
+
+
+def phase_a_table(tiles: PhaseATiles) -> tuple[np.ndarray, int]:
+    """K8's tables in one int64 array, uploaded at once: the tiles' ints
+    (n x 8), their origins (n x 2 float64) and :func:`phase_a_patches`'
+    work table (n x 2 int32), at byte offsets 0, 64 n and 80 n; and the
+    number of work items."""
+    patches, n_items = phase_a_patches(tiles)
+    if n_items > _MAX_INDEX:
+        raise ValueError(f"K8 takes fewer than 2^31 patches of quads: {n_items}")
+    return np.concatenate([
+        np.ascontiguousarray(tiles.ints, np.int64).ravel(),
+        np.ascontiguousarray(tiles.origins, np.float64).ravel().view(np.int64),
+        patches.ravel().view(np.int64),
+    ]), n_items
 
 
 def rectify_phase_a(swath_xy: torch.Tensor, tiles: PhaseATiles, uv_delta: float):
@@ -283,20 +317,27 @@ def rectify_phase_a(swath_xy: torch.Tensor, tiles: PhaseATiles, uv_delta: float)
     n = len(tiles.ints)
     quads = np.maximum(tiles.ints[:, 6] - 1, 0) * np.maximum(tiles.ints[:, 7] - 1, 0)
     max_quads = int(quads.max()) if n else 0
-    if not 0 < n <= 65535 or max_quads >= _MAX_QUADS:
-        raise ValueError(f"K8 takes 1 to 65535 tiles of fewer than {_MAX_QUADS} quads: "
+    if not 0 < n <= _MAX_INDEX or max_quads >= _MAX_QUADS:
+        raise ValueError(f"K8 takes tiles of fewer than {_MAX_QUADS} quads: "
                          f"{n} tiles, up to {max_quads} quads")
+    # (32-bit pixel indices; the last block of 256 threads runs past the map)
+    if src_h * src_w > _MAX_INDEX or tiles.out_h * tiles.out_w > _MAX_INDEX - 256:
+        raise ValueError(f"K8 takes swaths and maps of fewer than 2^31 pixels: swath "
+                         f"{src_h}x{src_w}, map {tiles.out_h}x{tiles.out_w}")
+    table, n_items = phase_a_table(tiles)
     dev = swath_xy.device
-    itab = torch.from_numpy(np.ascontiguousarray(tiles.ints, np.int64)).to(dev)
-    dtab = torch.from_numpy(np.ascontiguousarray(tiles.origins, np.float64)).to(dev)
+    # from pinned memory, queued on the stream: the host does not wait for
+    # the card (a pageable upload would)
+    table = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
     claim = torch.empty(tiles.out_h * tiles.out_w, dtype=torch.int32, device=dev)
     out = torch.empty((2, tiles.out_h, tiles.out_w), dtype=_F64, device=dev)
+    base = table.data_ptr()
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.xrt_rectify_phase_a(
             swath_xy[0].data_ptr(), swath_xy[1].data_ptr(), src_h, src_w,
-            itab.data_ptr(), dtab.data_ptr(), n, max_quads, tiles.tile_h,
-            tiles.tile_w, tiles.n_tiles_x, tiles.out_h, tiles.out_w,
+            base, base + 64 * n, n, base + 80 * n, n_items, PATCH_W, PATCH_H,
+            tiles.tile_h, tiles.tile_w, tiles.n_tiles_x, tiles.out_h, tiles.out_w,
             float(tiles.x_scale), float(tiles.y_scale), float(uv_delta),
             claim.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
@@ -352,9 +393,10 @@ def ij_gather_list_plain(out, src, ix, iy, rows, cols, interp_method, fill_value
     (bounds-valid) of *src* at float32 positions (n) into
     ``out[:, rows, cols]``; returns *out*."""
     _check_gather(src, interp_method)
-    out[:, rows.long(), cols.long()] = gather_interp(
-        src, ix, iy, interp_method, fill_value
-    ).to(out.dtype)
+    vals = gather_interp(src, ix, iy, interp_method, fill_value).to(out.dtype)
+    # (uint16 has no index_put on the CPU: written through its int16 bits)
+    view = torch.int16 if out.dtype == torch.uint16 else out.dtype
+    out.view(view)[:, rows.long(), cols.long()] = vals.view(view)
     return out
 
 
