@@ -62,9 +62,15 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    one quad row and none, a fold whose competing quads lie in other
    patches, NaN corners on patch boundaries), K9 in both modes on float32,
    float64, uint16 and int16, K7-K9 at R1's and R3's shapes, K10 at R1's
-   and R3's against its plain version and the host's scan, also with a
-   NaN row, empty tiles and about 5000 small tiles, the resident Phase B at
-   R3's; times each kernel and its plain version at
+   and R3's (R3's y image 8 bytes off a 16-byte boundary) against its
+   plain version and the host's scan, also with a NaN row, empty tiles,
+   about 5000 small tiles (the host's scan on 200 of them), a 301 x 197
+   swath in the four alignments of x and y with the j axis down and up,
+   1000 x 1 and 1 x 1001 swaths, one tile, a target off the swath, three
+   calls in a row and three geometries interleaved, and checks that a
+   warm K10 call at R1 and R3 queues one device operation (the C entry's
+   report) and does not synchronise (sync debug mode "error"), the
+   resident Phase B at R3's; times each kernel and its plain version at
    the main path's shapes beside one PyTorch call where one computes the
    same function (K3 ``F.grid_sample``, K4 a copy at BASELINE #2's ``c``
    and ``F.grid_sample`` at BASELINE #1, K5 and the downscale form at
@@ -321,6 +327,7 @@ def main() -> int:
     from xcube_resampling_tpu_torch.constants import UV_DELTA
     from xcube_resampling_tpu_torch.crs import Transformer
     from xcube_resampling_tpu_torch.ops import bbox_ops, exact_gather, rectify_ops
+    from xcube_resampling_tpu_torch.gridmapping.bboxes import compute_ij_bboxes as host_bbox_scan
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1337,17 +1344,100 @@ def main() -> int:
         def __exit__(self, *exc):
             os.environ.pop("XRTPU_PHASEA", None)
 
-    def k10_check(sw, gm, tgt, what, host=True):
+    def k10_check(sw, gm, tgt, what):
         """K10 on the (2, H, W) swath *sw* for the tiles of *tgt* against
-        its plain version on the card and (with *host*) the host's scan:
-        equal; returns the arguments of the call."""
+        its plain version on the card and the host's scan: equal; returns
+        the arguments of the call."""
         args = (sw[0], sw[1], tgt.xy_bboxes, port_rectify._tile_search_border(tgt), 1)
         got = bbox_ops.compute_ij_bboxes(*args)
         compare(got, bbox_ops.compute_ij_bboxes_plain(*args), "exact", f"{what} K10 vs plain")
-        if host and not np.array_equal(got.cpu().numpy(), gm.ij_bboxes_from_xy_bboxes(
+        if not np.array_equal(got.cpu().numpy(), gm.ij_bboxes_from_xy_bboxes(
                 tgt.xy_bboxes, xy_border=args[3], ij_border=1)):
             raise AssertionError(f"{what} K10 differs from the host's bbox scan")
         return args
+
+    def k10_equal(x, y, boxes, border, what, rows=None):
+        """K10 on the card's (h, w) float64 images *x*, *y* for the xy
+        *boxes* grown by *border* (ij border 1) against its plain version on
+        the card and the host's scan (on the tiles *rows* only, where
+        given): equal; returns K10's boxes."""
+        got = bbox_ops.compute_ij_bboxes(x, y, boxes, border, 1)
+        compare(got, bbox_ops.compute_ij_bboxes_plain(x, y, boxes, border, 1), "exact",
+                f"{what} K10 vs plain")
+        sel = np.arange(len(boxes)) if rows is None else rows
+        ref = host_bbox_scan(x.cpu().numpy(), y.cpu().numpy(), np.asarray(boxes)[sel], border,
+                             1, np.full((len(sel), 4), -1, np.int64))
+        if not np.array_equal(got.cpu().numpy()[sel], ref):
+            raise AssertionError(f"{what} K10 differs from the host's bbox scan")
+        return got
+
+    def k10_swath(h, w, x_off, y_off, seed):
+        """(h, w) float64 x and y images on the card (a sheared grid with
+        jitter, x NaN on the middle row where h > 2), views into one buffer
+        starting *x_off* and *y_off* 8-byte words past a 16-byte boundary."""
+        rng = np.random.default_rng(seed)
+        j, i = np.mgrid[0:h, 0:w].astype(np.float64)
+        x = 10.0 + 0.5 * i + 0.07 * j + 0.01 * rng.random((h, w))
+        y = 40.0 - 0.5 * j + 0.05 * i + 0.01 * rng.random((h, w))
+        if h > 2:
+            x[h // 2] = nan
+        n = h * w
+        y_start = 2 * ((n + 1) // 2 + 1) + y_off
+        buf = torch.empty(y_start + n + 1, dtype=torch.float64, device=dev)
+        xs = buf[x_off:x_off + n].view(h, w)
+        ys = buf[y_start:y_start + n].view(h, w)
+        xs.copy_(torch.from_numpy(x))
+        ys.copy_(torch.from_numpy(y))
+        if (xs.data_ptr() // 8 % 2, ys.data_ptr() // 8 % 2) != (x_off, y_off):
+            raise AssertionError("k10_swath: the views are not aligned as asked")
+        return xs, ys
+
+    def k10_target(x, y, tile, j_axis_up=False, shift=0.0):
+        """A regular grid at 0.5 over the extent of *x*, *y* (moved by
+        *shift*) in tiles of *tile* pixels."""
+        x0, x1 = np.nanmin(x.cpu().numpy()), np.nanmax(x.cpu().numpy())
+        y0, y1 = np.nanmin(y.cpu().numpy()), np.nanmax(y.cpu().numpy())
+        return GridMapping.regular(
+            size=(int(np.ceil((x1 - x0) / 0.5)) + 1, int(np.ceil((y1 - y0) / 0.5)) + 1),
+            xy_min=(x0 + shift, y0 + shift), xy_res=0.5, crs="EPSG:32631", tile_size=tile,
+            is_j_axis_up=j_axis_up)
+
+    def device_ops(fn, n):
+        """The names of the device activities (kernels, copies, memsets)
+        that *n* calls of *fn* queue, from torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")
+                and e.name != "Activity Buffer Request"]
+
+    def k10_warm(args, what):
+        """A warm K10 call queues one device operation (the launch: the C
+        entry's report and the wrapper's uploads, none; in 3 calls the
+        profiler sees nothing but K10's launches) and does not synchronise
+        (under sync debug mode "error"); a summary."""
+        bbox_ops.compute_ij_bboxes(*args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bbox_ops.compute_ij_bboxes(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if bbox_ops.last_queued != 1:
+            raise AssertionError(f"{what}: a warm K10 call queued {bbox_ops.last_queued} "
+                                 f"device operations")
+        # the profiler may drop activities; it must see no other
+        ops = device_ops(lambda: bbox_ops.compute_ij_bboxes(*args), 3)
+        if len(ops) > 3 or any("scan_kernel" not in op for op in ops):
+            raise AssertionError(f"{what}: three warm K10 calls queued {ops}")
+        seen = (f"{len(ops)} device activities in 3 calls, each K10's scan_kernel" if ops
+                else "no device activity in 3 calls")
+        return (f"a warm call queues {bbox_ops.last_queued} device operation (the profiler "
+                f"saw {seen}) and does not synchronise")
 
     def k10_bound(sw, n_tiles):
         """K10 reads the swath's two float64 coordinate images once and the
@@ -1504,6 +1594,46 @@ def main() -> int:
     plan_ms = {"device": wall_ms(lambda: port_rectify._phase_a_tiles(r1_gm, r1_tgt, r1_sw), 5),
                "host": wall_ms(lambda: port_rectify._phase_a_tiles(r1_gm, r1_tgt), 3)}
     k10_args = k10_check(r1_sw, r1_gm, r1_tgt, "R1")
+    r1_ops = k10_warm(k10_args, "R1")
+    # three calls in a row (the table restored after each), then three
+    # geometries interleaved: R1's, R1's tiles under another border (the
+    # same table), the R1 swath onto 256-pixel tiles (another table)
+    k10_runs = [bbox_ops.compute_ij_bboxes(*k10_args) for _ in range(3)]
+    if not (torch.equal(k10_runs[0], k10_runs[2]) and torch.equal(k10_runs[0], k10_runs[1])):
+        raise AssertionError("R1: three K10 calls in a row differ")
+    r1_256 = r1_gm.to_regular(tile_size=256)
+    k10_geoms = [k10_args, k10_args[:3] + (0.5 * k10_args[3], 1),
+                 (r1_sw[0], r1_sw[1], r1_256.xy_bboxes,
+                  port_rectify._tile_search_border(r1_256), 1)]
+    k10_refs = [bbox_ops.compute_ij_bboxes_plain(*a) for a in k10_geoms]
+    for rep in range(2):
+        for g, (a, ref) in enumerate(zip(k10_geoms, k10_refs)):
+            compare(bbox_ops.compute_ij_bboxes(*a), ref, "exact",
+                    f"R1 K10 interleaved, geometry {g}, round {rep}")
+    # odd widths in the four alignments of x and y, j axis down and up;
+    # one column, one row; one tile; a target off the swath
+    for x_off in (0, 1):
+        for y_off in (0, 1):
+            xs, ys = k10_swath(301, 197, x_off, y_off, 21 + 2 * x_off + y_off)
+            for up in (False, True):
+                tgt = k10_target(xs, ys, 64, up)
+                k10_equal(xs, ys, tgt.xy_bboxes, port_rectify._tile_search_border(tgt),
+                          f"301x197 swath (x {x_off}, y {y_off} words off 16 bytes, j axis "
+                          f"{'up' if up else 'down'}, {len(tgt.xy_bboxes)} tiles):")
+    for h_, w_, offs in ((1000, 1, (1, 0)), (1000, 1, (0, 1)), (1, 1001, (1, 1)),
+                         (1, 1001, (0, 1))):
+        xs, ys = k10_swath(h_, w_, *offs, 31)
+        tgt = k10_target(xs, ys, 16)
+        k10_equal(xs, ys, tgt.xy_bboxes, 2.0, f"{h_}x{w_} swath, offsets {offs}:")
+    xs, ys = k10_swath(301, 197, 0, 1, 41)
+    one = k10_target(xs, ys, 4096)
+    if len(one.xy_bboxes) != 1:
+        raise AssertionError(f"the one-tile target has {len(one.xy_bboxes)} tiles")
+    k10_equal(xs, ys, one.xy_bboxes, 0.5, "one tile:")
+    off = k10_target(xs, ys, 64, shift=1000.0)
+    if (k10_equal(xs, ys, off.xy_bboxes, 0.5, "a target off the swath:").cpu() != -1).any():
+        raise AssertionError("K10 found swath pixels in a target off the swath")
+    del xs, ys
     timings["ij_bboxes"] = time_pair(lambda: bbox_ops.compute_ij_bboxes(*k10_args),
                                      lambda: bbox_ops.compute_ij_bboxes_plain(*k10_args))
     bounds["ij_bboxes"] = k10_bound(r1_sw, len(r1_tgt.xy_bboxes))
@@ -1512,7 +1642,11 @@ def main() -> int:
     print(
         f"{tag} ij_bboxes (K10) at R1 ({len(r1_tgt.xy_bboxes)} tiles): equal to its plain "
         f"version and the host's scan; {k:.4f} ms (device {kd:.4f} ms), plain {p_:.3f} ms, "
-        f"bound {bounds['ij_bboxes'][0]:.4f} ms ({bounds['ij_bboxes'][1]})"
+        f"bound {bounds['ij_bboxes'][0]:.4f} ms ({bounds['ij_bboxes'][1]}); {r1_ops}; three "
+        f"calls in a row equal, three geometries interleaved equal to their plain versions; "
+        f"equal to its plain version and the host's scan on a 301x197 swath (NaN row) in the "
+        f"four alignments, j axis down and up, on 1000x1 and 1x1001 swaths, one tile and a "
+        f"target off the swath"
     )
     timings["rectify_phase_a"] = time_pair(
         lambda: rectify_ops.rectify_phase_a(r1_sw, r1_tiles, UV_DELTA),
@@ -1691,7 +1825,9 @@ def main() -> int:
     small_tile = int(np.sqrt(reg.width * reg.height / 5000)) + 1
     many = GridMapping.regular(size=(reg.width, reg.height), xy_min=(reg.x_min, reg.y_min),
                                xy_res=reg.x_res, crs=reg.crs, tile_size=small_tile)
-    k10_check(sw, nan_gm, many, f"{len(many.xy_bboxes)} tiles of {small_tile}:", host=False)
+    k10_equal(sw[0], sw[1], many.xy_bboxes, port_rectify._tile_search_border(many),
+              f"{len(many.xy_bboxes)} tiles of {small_tile}:",
+              rows=np.random.default_rng(5).choice(len(many.xy_bboxes), 200, replace=False))
     m = rectify_ops.rectify_phase_a(sw, tiles, UV_DELTA)
     err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
         m, rectify_ops.rectify_phase_a_plain(sw, tiles, UV_DELTA), "exact",
@@ -1700,7 +1836,7 @@ def main() -> int:
           f"swath row and {int((tiles.ints[:, 6] == 0).sum())} empty tile windows: equal; "
           f"K10 also on {len(many.xy_bboxes)} tiles of {small_tile} pixels (border "
           f"{port_rectify._tile_search_border(many) / reg.x_res:.1f} pixels; against its "
-          f"plain version)")
+          f"plain version and, on 200 of its tiles, the host's scan)")
     del sw, m, ds_nan
     small = olci_swath(233, 307, ("rad",))
     small_gm = GridMapping.from_dataset(small)
@@ -1906,12 +2042,14 @@ def main() -> int:
     sw = torch.from_numpy(np.stack([np.asarray(ds_r3["lon"].data),
                                     np.asarray(ds_r3["lat"].data)])).to(dev)
     k10_args = k10_check(sw, r3_gm, r3_tgt, "R3")
+    r3_ops = k10_warm(k10_args, "R3")
     k10_r3 = (event_ms(lambda: bbox_ops.compute_ij_bboxes(*k10_args), 5),
               device_ms(lambda: bbox_ops.compute_ij_bboxes(*k10_args), 5))
     b10, by10 = k10_bound(sw, len(r3_tgt.xy_bboxes))
-    print(f"{tag} ij_bboxes (K10) at R3 ({len(r3_tgt.xy_bboxes)} tiles): equal to its plain "
-          f"version and the host's scan; {k10_r3[0]:.4f} ms (device {k10_r3[1]:.4f} ms), "
-          f"bound {b10:.4f} ms ({by10})")
+    print(f"{tag} ij_bboxes (K10) at R3 ({len(r3_tgt.xy_bboxes)} tiles; swath[1] 8 bytes off "
+          f"16: {sw[1].data_ptr() % 16 == 8}): equal to its plain version and the host's "
+          f"scan; {k10_r3[0]:.4f} ms (device {k10_r3[1]:.4f} ms), bound {b10:.4f} ms "
+          f"({by10}); {r3_ops}")
     m = rectify_ops.rectify_phase_a(sw, r3_tiles, UV_DELTA)
     err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
         m, rectify_ops.rectify_phase_a_plain(sw, r3_tiles, UV_DELTA), "exact",
@@ -2022,6 +2160,9 @@ def main() -> int:
         }
         for name in err
     ]
+    # K10 at R3 too (its ms, device_ms and bound above are R1's)
+    k10_entry = next(k for k in kernels if k["name"] == "ij_bboxes")
+    k10_entry.update(r3_ms=k10_r3[0], r3_device_ms=k10_r3[1], r3_bound_ms=b10)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(

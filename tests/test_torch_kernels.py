@@ -949,7 +949,7 @@ def test_ij_bboxes_lattice_search_finds_exactly_the_tiles(case, j_axis_up):
     searches per axis (numpy's searchsorted here, the same rule) give for
     every pixel exactly the tiles whose float64 box test it passes, on
     both y orders of a target."""
-    from xcube_resampling_tpu_torch.ops.bbox_ops import _grown, lattice
+    from xcube_resampling_tpu_torch.ops.bbox_ops import _grown, lattice, pack_lattice
 
     x, y, gm, border = _k10_case(case)
     if j_axis_up:
@@ -958,6 +958,8 @@ def test_ij_bboxes_lattice_search_finds_exactly_the_tiles(case, j_axis_up):
                                     is_j_axis_up=True)
     boxes = _grown(gm.xy_bboxes, border)
     lat, order, nc, nr = lattice(boxes)
+    packed = np.frombuffer(pack_lattice(lat, order, nc).tobytes(), np.float64, 4 * (nc + nr))
+    col_axis, row_axis = packed[:4 * nc].reshape(4, nc), packed[4 * nc:].reshape(4, nr)
     col_lo, col_hi = lat[:nc], lat[nc:2 * nc]
     row_lo, row_hi = lat[2 * nc:2 * nc + nr], lat[2 * nc + nr:]
     for px, py in zip(x.ravel()[::7], y.ravel()[::7]):
@@ -982,3 +984,211 @@ def test_ij_bboxes_lattice_refuses_other_boxes():
         lattice(moved)
     with pytest.raises(ValueError, match="regular grid"):
         lattice(grid[:-1])
+
+
+def _k10_walk(h, w, x_off, blocks, unroll, warps_per_block=8):
+    """K10's pixel partition, emulated in numpy as the kernel walks it:
+    the pixel before the first 16-byte boundary of x (*x_off* 1) and an
+    odd last pixel on their own; the pairs after them split evenly over
+    the grid's warps, a warp 64 pixels a step, lane l on pixels 2l and
+    2l + 1, *unroll* steps loaded at once, each lane carrying its (i, j)
+    by the step.  Returns the (pixel, i, j) of every visit and the first
+    pixel of every pair loaded as one 16-byte load."""
+    n = h * w
+    p0 = min(x_off, n)
+    pairs = (n - p0) // 2
+    di, dj = 64 % w, 64 // w
+    visits = [(p, p % w, p // w) for p in ([0] if p0 else []) + ([n - 1] if (n - p0) % 2 else [])]
+    loads = []
+    lanes = np.arange(32)
+    warps = blocks * warps_per_block
+    for g in range(warps):
+        q_lo, q_hi = pairs * g // warps, pairs * (g + 1) // warps
+        p = p0 + 2 * (q_lo + lanes)
+        j, i = p // w, p % w
+        for base in range(q_lo, q_hi, 32 * unroll):
+            for u in range(unroll):
+                q = base + 32 * u + lanes
+                ok = q < q_hi
+                pp = p0 + 2 * q[ok]
+                loads.append(pp)
+                wraps = i[ok] + 1 == w
+                visits += zip(pp, i[ok], j[ok])
+                visits += zip(pp + 1, np.where(wraps, 0, i[ok] + 1), j[ok] + wraps)
+                i, j = i + di, j + dj
+                j, i = j + (i >= w), np.where(i >= w, i - w, i)
+    return np.array(visits, dtype=np.int64).reshape(-1, 3), np.concatenate(loads or [[]])
+
+
+@pytest.mark.parametrize("x_off", [0, 1])
+@pytest.mark.parametrize("blocks,unroll", [(1, 4), (5, 4), (3, 1)])
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 2), (2, 1), (1, 97), (97, 1), (7, 9), (37, 53),
+                                 (64, 1), (3, 65), (61, 70)])
+def test_ij_bboxes_partition_covers_every_pixel_once(h, w, x_off, blocks, unroll):
+    """K10's walk over the swath (emulated): every pixel is visited exactly
+    once and with its own (i, j), carried along without division, for
+    awkward shapes (one row, one column, odd widths, steps wider than a
+    row) and block counts; every 16-byte load starts on a 16-byte
+    boundary of an image that starts *x_off* 8-byte words off one."""
+    visits, loads = _k10_walk(h, w, x_off, blocks, unroll)
+    order = np.argsort(visits[:, 0], kind="stable")
+    np.testing.assert_array_equal(visits[order, 0], np.arange(h * w))
+    np.testing.assert_array_equal(visits[order, 1], np.arange(h * w) % w)
+    np.testing.assert_array_equal(visits[order, 2], np.arange(h * w) // w)
+    assert np.all((x_off + loads) % 2 == 0) and np.all(loads + 1 < h * w)
+
+
+def _k10_lattice(j_axis_up=False, tile_size=5, border=0.3):
+    from xcube_resampling_tpu_torch.ops.bbox_ops import _grown
+
+    gm = pt.GridMapping.regular(size=(23, 14), xy_min=(0.0, 0.0), xy_res=1.0,
+                                crs="EPSG:4326", tile_size=tile_size, is_j_axis_up=j_axis_up)
+    return _grown(gm.xy_bboxes, border)
+
+
+@pytest.mark.parametrize("j_axis_up", [False, True])
+def test_ij_bboxes_packed_lattice_is_what_the_kernel_reads(j_axis_up):
+    """The lattice buffer, read at the offsets the kernel reads it: for
+    the columns, then the rows, the low and high bounds (float64, each
+    ascending), each low bound's next float64 below and each high bound's
+    next above; then the sorted position -> lattice column and row
+    (int32).  A tile's grown box is its column's x bounds and its row's y
+    bounds, on both y orders of a target."""
+    from xcube_resampling_tpu_torch.ops.bbox_ops import lattice, pack_lattice
+
+    boxes = _k10_lattice(j_axis_up)
+    lat, order, nc, nr = lattice(boxes)
+    raw = pack_lattice(lat, order, nc).tobytes()
+    assert len(raw) == 8 * 4 * (nc + nr) + 4 * (nc + nr)
+    f64 = np.frombuffer(raw, np.float64, 4 * (nc + nr))
+    perm = np.frombuffer(raw, np.int32, nc + nr, offset=8 * 4 * (nc + nr))
+    cols, rows = f64[:4 * nc].reshape(4, nc), f64[4 * nc:].reshape(4, nr)
+    for lo, hi, below, above in (cols, rows):
+        assert np.all(np.diff(lo) > 0) and np.all(np.diff(hi) > 0)
+        np.testing.assert_array_equal(below, np.nextafter(lo, -np.inf))
+        np.testing.assert_array_equal(above, np.nextafter(hi, np.inf))
+        assert np.all(below < lo) and np.all(above > hi)
+    col_of, row_of = perm[:nc], perm[nc:]
+    assert sorted(col_of) == list(range(nc)) and sorted(row_of) == list(range(nr))
+    assert list(row_of) == (list(range(nr)) if j_axis_up else list(range(nr))[::-1])
+    for r in range(nr):
+        for c in range(nc):
+            k = row_of[r] * nc + col_of[c]
+            np.testing.assert_array_equal(boxes[k],
+                                          [cols[0, c], rows[0, r], cols[1, c], rows[1, r]])
+    # an infinite bound has no neighbour: NaN, which lets no value in
+    inf = pack_lattice(np.array([-np.inf, 0.0, 1.0, np.inf, -1.0, 2.0]), np.arange(3), 2)
+    np.testing.assert_array_equal(np.frombuffer(inf.tobytes(), np.float64, 12)[[4, 7]],
+                                  [np.nan, np.nan])
+
+
+def test_ij_bboxes_lattice_buffer_is_memoised():
+    """The lattice buffer is uploaded once per geometry, device and stream:
+    the same grown boxes reuse it; another border, another device or
+    another tile count makes a new one; the memo keeps a few, newest
+    last.  K10's table is one per device and tile count, laid out as the
+    kernel leaves it."""
+    from xcube_resampling_tpu_torch.ops import bbox_ops
+
+    bbox_ops._LATTICE_MEMO.clear()
+    boxes = _k10_lattice()
+    buf, nc, nr, made = bbox_ops.lattice_buffer(boxes, "cpu")
+    assert (nc, nr, made) == (5, 3, 1) and buf.dtype == torch.uint8
+    lat, order, nc, _ = bbox_ops.lattice(boxes)
+    np.testing.assert_array_equal(buf.numpy(), bbox_ops.pack_lattice(lat, order, nc))
+    again = bbox_ops.lattice_buffer(boxes.copy(), torch.device("cpu"))
+    assert again[0] is buf and again[3] == 0
+    for other, device in ((_k10_lattice(border=0.4), "cpu"), (boxes, "meta"),
+                          (_k10_lattice(tile_size=4), "cpu")):
+        new = bbox_ops.lattice_buffer(other, device)
+        assert new[0] is not buf and new[3] == 1 and new[0].device == torch.device(device)
+    assert bbox_ops.lattice_buffer(boxes, "cpu")[0] is buf
+    for border in np.arange(1.0, 1.0 + bbox_ops._MEMO_MAX):
+        bbox_ops.lattice_buffer(_k10_lattice(border=border), "cpu")
+    assert bbox_ops.lattice_buffer(boxes, "cpu")[3] == 1
+    assert len(bbox_ops._LATTICE_MEMO) == bbox_ops._MEMO_MAX
+
+    bbox_ops._SCRATCH_MEMO.clear()
+    table, made = bbox_ops.scratch_table(15, "cpu")
+    assert made == 1 and table.dtype == torch.int32 and table.shape == (16, 4)
+    np.testing.assert_array_equal(table[:15].numpy(), np.tile([2**31 - 1, 2**31 - 1, -1, -1],
+                                                              (15, 1)))
+    np.testing.assert_array_equal(table[15].numpy(), 0)
+    assert bbox_ops.scratch_table(15, "cpu") == (table, 0)
+    assert bbox_ops.scratch_table(12, "cpu")[1] == 1 and bbox_ops.scratch_table(15, "meta")[1] == 1
+
+
+def _k10_exactly(axis, k0, k1):
+    """The kernel's closed interval of the values whose columns (or rows)
+    of a sub-lattice are exactly [k0, k1), from the axis's packed low and
+    high bounds and their neighbours below and above: lo[k1 - 1] <= v <=
+    hi[k0], v >= above[k0 - 1] and v <= below[k1]; NaN neighbours let no
+    value in."""
+    lo, hi, below, above = axis
+    a, b = lo[k1 - 1], hi[k0]
+    if k0 > 0:
+        a = above[k0 - 1] if np.isnan(above[k0 - 1]) else max(a, above[k0 - 1])
+    if k1 < len(lo):
+        b = below[k1] if np.isnan(below[k1]) else min(b, below[k1])
+    return a, b
+
+
+@pytest.mark.parametrize("case", ["nan_rows", "clipped", "many"])
+@pytest.mark.parametrize("max_tiles", [1, 2, 7, 1024])
+@pytest.mark.parametrize("j_axis_up", [False, True])
+def test_ij_bboxes_sub_lattices_and_fast_path_match_the_host_scan(case, max_tiles, j_axis_up):
+    """K10's per-pixel logic, emulated in numpy over its sub-lattices
+    (kMaxTiles tiles at most, as the kernel cuts them): the boxes merged
+    from each sub-lattice's searches equal the host scan's; and its fast
+    path is exact: for every set of tiles a pixel lies in, the closed
+    float64 interval an axis of the kernel's test takes exactly the
+    pixels whose tiles are that set (within the sub-lattice)."""
+    from xcube_resampling_tpu_torch.gridmapping.bboxes import compute_ij_bboxes as host_scan
+    from xcube_resampling_tpu_torch.ops.bbox_ops import _grown, lattice, pack_lattice
+
+    x, y, gm, border = _k10_case(case)
+    if j_axis_up:
+        gm = pt.GridMapping.regular(size=gm.size, xy_min=(gm.x_min, gm.y_min),
+                                    xy_res=gm.x_res, crs=gm.crs, tile_size=gm.tile_size,
+                                    is_j_axis_up=True)
+    boxes = _grown(gm.xy_bboxes, border)
+    lat, order, nc, nr = lattice(boxes)
+    packed = np.frombuffer(pack_lattice(lat, order, nc).tobytes(), np.float64, 4 * (nc + nr))
+    col_axis, row_axis = packed[:4 * nc].reshape(4, nc), packed[4 * nc:].reshape(4, nr)
+    h, w = x.shape
+    j_px, i_px = np.divmod(np.arange(h * w), w)
+    xs, ys = x.ravel(), y.ravel()
+    lo_hi = np.full((len(boxes), 4), [2**31 - 1, 2**31 - 1, -1, -1], np.int64)
+    c_step = min(nc, max_tiles)
+    r_step = min(nr, max_tiles // c_step)
+    for rb in range(0, nr, r_step):
+        for cb in range(0, nc, c_step):
+            cols = slice(cb, min(cb + c_step, nc))
+            rows = slice(rb, min(rb + r_step, nr))
+            col_lo, col_hi = lat[:nc][cols], lat[nc:2 * nc][cols]
+            row_lo, row_hi = lat[2 * nc:2 * nc + nr][rows], lat[2 * nc + nr:][rows]
+            c0, c1 = np.searchsorted(col_hi, xs, "left"), np.searchsorted(col_lo, xs, "right")
+            r0, r1 = np.searchsorted(row_hi, ys, "left"), np.searchsorted(row_lo, ys, "right")
+            keys = np.stack([c0, c1, r0, r1], axis=1)
+            some = (c0 < c1) & (r0 < r1)
+            for key in np.unique(keys[some], axis=0):
+                xa, xb = _k10_exactly(col_axis[:, cols], key[0], key[1])
+                ya, yb = _k10_exactly(row_axis[:, rows], key[2], key[3])
+                fast = (xs >= xa) & (xs <= xb) & (ys >= ya) & (ys <= yb)
+                np.testing.assert_array_equal(fast, some & (keys == key).all(axis=1))
+            for r in range(len(row_lo)):
+                for c in range(len(col_lo)):
+                    hit = (c0 <= c) & (c < c1) & (r0 <= r) & (r < r1)
+                    if hit.any():
+                        k = order[nc + rb + r] * nc + order[cb + c]
+                        lo_hi[k] = [min(lo_hi[k, 0], i_px[hit].min()), min(lo_hi[k, 1], j_px[hit].min()),
+                                    max(lo_hi[k, 2], i_px[hit].max()), max(lo_hi[k, 3], j_px[hit].max())]
+    ij_border = 1
+    got = np.full((len(boxes), 4), -1, np.int64)
+    some = lo_hi[:, 2] >= 0
+    got[some] = np.stack([np.maximum(lo_hi[some, 0] - ij_border, 0),
+                          np.maximum(lo_hi[some, 1] - ij_border, 0),
+                          np.minimum(lo_hi[some, 2] + 1 + ij_border, w),
+                          np.minimum(lo_hi[some, 3] + 1 + ij_border, h)], axis=1)
+    ref = host_scan(x, y, gm.xy_bboxes, border, ij_border, np.full((len(boxes), 4), -1, np.int64))
+    np.testing.assert_array_equal(got, ref)

@@ -96,10 +96,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _D,
         _I, _P,
     ],
-    # x, y, h, w, lattice, order, n_cols, n_rows, ij_border, gmin, gmax,
-    # out, stream
+    # x, y, h, w, lattice, n_cols, n_rows, ij_border, table, out, queued,
+    # stream
     "xrt_ij_bboxes": [
-        _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P,
+        _P, _P, _I64, _I64, _P, _I64, _I64, _I64, _P, _P, ctypes.POINTER(_I), _P,
     ],
     # src, ij_map, out, batch, src_h, src_w, out_h, out_w, method, fill,
     # code, stream
