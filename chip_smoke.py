@@ -86,18 +86,35 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    from the source pixels its taps reach, counted on the card, the
    downscale form's from the source sectors its taps reach, K8's from the
    quads of its windows and the candidate pixels of their rectangles,
-   counted on the card;
-5. prints the card line again, a JSON line of the kernels and, last,
+   counted on the card, K1's band form's from the rows of its band its
+   taps reach in each column tile and K3's from the band's pixels its
+   valid taps reach;
+5. drives BASELINE #5 (:func:`baseline5`): ``sharded_reproject`` of the
+   headline's 20480^2 geometry with 4 float32 bands over a mesh of four
+   entries on the card (K1's and K2's band forms after the halo exchange;
+   first call, warm calls, peak device memory), held against the single-chip tiled SRW (and
+   triangular and nearest on one band); BASELINE #3's geometry past the
+   two-pass gate through the sharded regrid (K3's band form), held
+   against the single-chip K3; each band form against its plain version
+   at those shapes (the first band reading from a negative row offset),
+   on a 512^2 source over 8 bands with a halo of several bands, and with
+   NaN rows, and timed; and ``resample_to_store`` of a 4096^2 2-band
+   source in 512^2 chunks of a directory store under ``build/`` onto 512^2
+   tiles, held against one ``resample_in_space``, resumed (0 tiles, then
+   1 after deleting a chunk), and a corner target reading a fraction of
+   the chunks;
+6. prints the card line again, a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero and prints no result when no CUDA device is visible or
-any phase fails, and when K7, K8, K9 or K10 never launched on the rectify
-route.  It imports nothing of JAX or of the JAX package.
+any phase fails, when K7, K8, K9 or K10 never launched on the rectify
+route, and when a band form never launched on the sharded path.  It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -105,6 +122,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -236,6 +254,72 @@ def horizontal_bound(v, st, tri):
     return bound(n_bytes, n_ops)
 
 
+def vertical_band_bound(ext, iystar_c, base_v, col_tile, d_v, src_h, off, tri):
+    """K1's band form reads, for each column tile, the rows of ``ext`` its
+    taps reach (clamped to the source height, rebased by *off*; counted
+    on the card), the coarse field and the bases once and writes v (and
+    vd); operations as :func:`vertical_bound`."""
+    import torch
+
+    batch, ext_h, src_w = ext.shape
+    out_h, n_tiles = base_v.shape
+    taps = torch.arange(d_v, device=base_v.device)
+    rows = (base_v.long()[:, :, None] + taps).clamp(0, src_h - 1) - off
+    tiles = torch.arange(n_tiles, device=base_v.device)
+    reached = torch.zeros((n_tiles, ext_h), dtype=torch.bool, device=base_v.device)
+    reached[tiles[None, :, None].expand_as(rows), rows] = True
+    widths = (src_w - tiles * col_tile).clamp(max=col_tile)
+    n_in = int((reached.sum(1) * widths).sum())
+    outs = batch * out_h * src_w
+    n_bytes = 4 * (batch * n_in + iystar_c.numel() + base_v.numel()
+                   + outs * (2 if tri else 1))
+    n_ops = outs * d_v * (12 if tri else 6) + 12 * out_h * src_w
+    return bound(n_bytes, n_ops)
+
+
+def tapped_pixels(ix, iy, valid, h, w, interp) -> int:
+    """The pixels of an *h* x *w* source plane that a gather's taps at the
+    *valid* positions (ix, iy) reach, positions clamped as gather_interp
+    clamps them; counted with a mask on the positions' device."""
+    import torch
+
+    x = ix[valid].clamp(0, w - 1)
+    y = iy[valid].clamp(0, h - 1)
+    tapped = torch.zeros(h * w, dtype=torch.bool, device=ix.device)
+    if interp == "nearest":
+        tapped[torch.round(y).long() * w + torch.round(x).long()] = True
+    else:
+        x0, y0 = x.floor().long(), y.floor().long()
+        for yy in (y0, (y0 + 1).clamp(max=h - 1)):
+            for xx in (x0, (x0 + 1).clamp(max=w - 1)):
+                tapped[yy * w + xx] = True
+    return int(tapped.sum())
+
+
+def fused_band_bound(ext, ix_c, iy_c, step, out_h, out_w, interp, fill, row0, off, src_h):
+    """K3's band form (its wrapper's arguments) must read the coarse fields
+    and the pixels of ``ext`` that the taps of its valid pixels (in the
+    source and in the band, as the plain version masks them) reach, and
+    write the output; about 30 operations a pixel, as K3's bound counts."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops.reproject_ops import interp_field
+
+    ext_h, src_w = ext.shape[-2:]
+    batch = ext.numel() // (ext_h * src_w)
+    rows = torch.arange(row0, row0 + out_h, dtype=torch.float32, device=ext.device)[:, None]
+    cols = torch.arange(out_w, dtype=torch.float32, device=ext.device)[None, :]
+    ix = interp_field(ix_c, rows, cols, step)
+    iy = interp_field(iy_c, rows, cols, step)
+    in_src = (ix > -0.5) & (ix < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
+    iy_l = iy.clamp(0, src_h - 1) - off
+    in_band = (iy_l > -0.5) & (iy_l < ext_h - 0.5)
+    n_tapped = tapped_pixels(ix, iy_l, in_src & in_band, ext_h, src_w, interp)
+    n_out = batch * out_h * out_w
+    n_bytes = 4 * (n_out + batch * n_tapped + ix_c.numel() + iy_c.numel())
+    return bound(n_bytes, 30 * n_out)
+
+
 def ptxas_summary(log: str) -> list[tuple[str, list[int], list[int], list[int]]]:
     """Per source file of the build log (``== name`` sections), the
     registers of each kernel, the bytes of its spill stores and of its
@@ -275,12 +359,373 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+# BASELINE #5 (the sharded reproject and the tile stream): its sizes, at
+# full size the headline's 20480^2 source in 4 float32 bands over a mesh of
+# 4 entries, BASELINE #3's geometry past the two-pass gate, and a 4096^2
+# 2-band source streamed in 512^2 chunks onto 512^2 tiles (cut from 20480^2:
+# the numpy route transforms every target centre on the host)
+B5_SIZES = dict(n=20480, bands=4, mesh=4, gate=(7200, 3600, 4096), stream=4096,
+                chunk=512, halo_src=512)
+B5_KERNELS = ("srw_vertical_band", "srw_horizontal_band", "fused_reproject_band")
+
+
+def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
+    """Drive BASELINE #5 on *dev* and hold it to the single-chip path and
+    each band kernel to its plain version.  *h* carries the timing and
+    comparison helpers of :func:`main` (``compare``, ``time_pair``).
+    Returns (launches on the sharded path, max abs errors, timings, bounds)
+    of the band kernels."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from xcube_resampling_tpu_torch import DataArray, Dataset, GridMapping, zarrlite
+    from xcube_resampling_tpu_torch import resample_in_space
+    from xcube_resampling_tpu_torch._device import LAUNCHES
+    from xcube_resampling_tpu_torch.crs import Transformer
+    from xcube_resampling_tpu_torch.ops.reproject_ops import (
+        fused_reproject_band,
+        fused_reproject_band_plain,
+        make_fused_reproject_fn,
+    )
+    from xcube_resampling_tpu_torch.ops.srw import make_srw_reproject_fn
+    from xcube_resampling_tpu_torch.ops.srw_kernels import (
+        srw_horizontal_band,
+        srw_horizontal_band_plain,
+        srw_vertical_band,
+        srw_vertical_band_plain,
+    )
+    from xcube_resampling_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_regrid_step,
+        make_sharded_srw_step,
+        resample_to_store,
+        sharded_reproject,
+    )
+    from xcube_resampling_tpu_torch.parallel.halo import crop_source
+
+    nan = float("nan")
+    cuda = dev.type == "cuda"
+    launches: Counter = Counter()
+    err = dict.fromkeys(B5_KERNELS, 0.0)
+    timings, bounds = {}, {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def counted(call, n_bands, expect, what):
+        """One sharded call; the launch counts are reset just before it and
+        read just after: each kernel of *expect* launches once a band, no
+        other kernel launches (CPU tensors run the plain versions and
+        launch nothing)."""
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = call()
+        sync()
+        dt = time.perf_counter() - t0
+        got = Counter(LAUNCHES)
+        launches.update(got)
+        wrong = any(got[name] != n_bands for name in expect) or set(got) - set(expect)
+        if cuda and wrong:
+            raise AssertionError(f"{what}: launches {dict(got)}, expected {n_bands} of "
+                                 f"each of {expect}")
+        return out, dt
+
+    def sharded(x, src_gm, tgt_gm, mesh, interp, expect):
+        """One sharded_reproject call (planning included), counted."""
+        return counted(
+            lambda: sharded_reproject(x, src_gm, tgt_gm, mesh, interp_method=interp),
+            mesh.size, expect, f"sharded_reproject {interp}",
+        )
+
+    def held(got, ref, what, atol=1e-6, flips=0.0):
+        """NaN masks equal; valid pixels within *atol*, or (nearest, *flips*
+        > 0) equal but on at most that share of them.  In slices of rows,
+        so that the comparison needs little memory."""
+        if got.shape != ref.shape:
+            raise AssertionError(f"{what}: {tuple(got.shape)} != {tuple(ref.shape)}")
+        a, b = got.reshape(-1, got.shape[-1]), ref.reshape(-1, ref.shape[-1])
+        n_valid = n_differ = 0
+        d_max = 0.0
+        for r in range(0, a.shape[0], 2048):
+            x, y = a[r : r + 2048], b[r : r + 2048]
+            nan_x, nan_y = torch.isnan(x), torch.isnan(y)
+            if not torch.equal(nan_x, nan_y):
+                raise AssertionError(f"{what}: NaN masks differ at "
+                                     f"{int((nan_x != nan_y).sum())} pixels of rows {r}..")
+            d = torch.where(nan_y, 0.0, x.double() - y.double()).abs()
+            n_valid += int((~nan_y).sum())
+            n_differ += int((d > 0).sum())
+            d_max = max(d_max, d.max().item())
+        if n_valid < 0.5 * a.numel():
+            raise AssertionError(f"{what}: only {n_valid / a.numel():.3f} valid")
+        if flips:
+            if n_differ > flips * n_valid:
+                raise AssertionError(f"{what}: {n_differ / n_valid:.3g} of the pixels differ")
+            return f"{n_differ / n_valid:.3g} of the valid pixels differ"
+        if d_max > atol:
+            raise AssertionError(f"{what}: max abs diff {d_max} above {atol}")
+        return f"max abs diff {d_max:.3g}"
+
+    def exact(got, ref, name, what):
+        err[name] = max(err[name], h.compare(got, ref, "exact", f"{what}: {name} vs plain"))
+
+    # -- BASELINE #5 at full width: the headline's geometry, 4 bands --------
+    n = sizes["n"]
+    res = 30.0 * 20480 / n
+    utm = GridMapping.regular(size=(n, n), xy_min=(300000.0, 5200000.0), xy_res=res,
+                              crs="epsg:32632")
+    laea = GridMapping.regular(size=(n, n), xy_min=(4050000.0, 2650000.0), xy_res=res,
+                               crs="epsg:3035")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x4 = torch.rand((sizes["bands"], n, n), generator=gen, device=dev)
+    mesh = make_mesh(devices=[dev] * sizes["mesh"])
+    srw_kernels = B5_KERNELS[:2]
+    out, first = sharded(x4, utm, laea, mesh, "bilinear", srw_kernels)
+    del out
+    # warm calls: the planned step (sharded_reproject plans on every call,
+    # as the JAX package's does)
+    step, (pad, _) = make_sharded_srw_step(mesh, utm, laea, src_batch_dims=1)
+    plan = step.plan
+    if pad:
+        raise AssertionError(f"{n} rows do not divide into {mesh.size} bands")
+    warm = []
+    for _ in range(5):
+        out, dt = counted(lambda: step(x4), mesh.size, srw_kernels, "the SRW step")
+        warm.append(dt)
+        del out
+    peak = base = 0
+    if cuda:
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    out, _ = counted(lambda: step(x4), mesh.size, srw_kernels, "the SRW step")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+    full = out.full()
+    del out
+    ref = make_srw_reproject_fn(utm, laea, "bilinear", nan, dev)(x4)
+    agree = held(full, ref, "sharded vs single-chip SRW, bilinear")
+    w = statistics.median(warm)
+    mpix = sizes["bands"] * n * n / 1e6
+    print(
+        f"{tag} BASELINE #5 sharded_reproject {n}^2 x {sizes['bands']} float32 bands "
+        f"UTM32N->EPSG:3035 bilinear on a mesh of {mesh.size} x {dev} (band {plan.band_h} "
+        f"rows, halo {plan.halo}, d_v={plan.d_v} d_h={plan.d_h}): first call {first:.3f} s "
+        f"(planning included); the planned step warm, median of 5: {w * 1e3:.2f} ms = "
+        f"{mpix / w:.1f} Mpix/s over the bands; peak "
+        f"device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB held before it); vs the single-chip make_srw_fn: NaN "
+        f"masks equal, {agree}"
+    )
+    del ref, full
+    for interp in ("triangular", "nearest"):
+        out, dt = sharded(x4[0], utm, laea, mesh, interp, srw_kernels)
+        ref = make_srw_reproject_fn(utm, laea, interp, nan, dev)(x4[0])
+        agree = held(out.full(), ref, f"sharded vs single-chip SRW, {interp}")
+        print(f"{tag} BASELINE #5 one band {interp}: first call {dt:.3f} s; vs the "
+              f"single-chip make_srw_fn: NaN masks equal, {agree}")
+        del out, ref
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # K1's and K2's band forms against their plain versions at the 20480^2
+    # band shapes (band 0 reads from off < 0), timed on band 1
+    bands, _ = step.bands(x4)
+    halos = step.exchange(bands)
+    for k in (0, 1):
+        v_args = step.vertical_args(bands, halos, k)
+        v, _ = srw_vertical_band(*v_args)
+        exact(v, srw_vertical_band_plain(*v_args)[0], "srw_vertical_band",
+              f"{n}^2 band {k} (off {v_args[9]})")
+        h_args = step.horizontal_args(v, None, k)
+        o = srw_horizontal_band(*h_args)
+        exact(o, srw_horizontal_band_plain(*h_args), "srw_horizontal_band", f"{n}^2 band {k}")
+    timings["srw_vertical_band"] = h.time_pair(
+        lambda: srw_vertical_band(*v_args), lambda: srw_vertical_band_plain(*v_args), 5)
+    timings["srw_horizontal_band"] = h.time_pair(
+        lambda: srw_horizontal_band(*h_args), lambda: srw_horizontal_band_plain(*h_args), 5)
+    ext = v_args[0]
+    tri = v_args[7] == "triangular"
+    bounds["srw_vertical_band"] = vertical_band_bound(
+        ext, v_args[1], v_args[3], v_args[4], v_args[5], v_args[10], v_args[9], tri)
+    bounds["srw_horizontal_band"] = horizontal_bound(v, SimpleNamespace(
+        out_h=o.shape[-2], out_w=o.shape[-1], ix_c=h_args[1], base_h=h_args[4],
+        d_h=h_args[6]), tri)
+    shapes = {"srw_vertical_band": f"ext {tuple(ext.shape)} -> v {tuple(v.shape)}",
+              "srw_horizontal_band": f"v {tuple(v.shape)} -> {tuple(o.shape)}"}
+    del bands, halos, v_args, h_args, ext, v, o, step, x4
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- past the two-pass gate: BASELINE #3's geometry, the K3 band form ----
+    gw, gh, gt = sizes["gate"]
+    geo = GridMapping.regular(size=(gw, gh), xy_min=(-180.0, -90.0), xy_res=360.0 / gw,
+                              crs="epsg:4326")
+    laea_g = GridMapping.regular(size=(gt, gt), xy_min=(2000000.0, 1000000.0),
+                                 xy_res=1500.0 * 4096 / gt, crs="epsg:3035")
+    x = torch.rand((gh, gw), generator=gen, device=dev)
+    xc, geo_c = crop_source(x, geo, laea_g)
+    if make_sharded_srw_step(mesh, geo_c, laea_g) is not None:
+        raise AssertionError("the gate geometry admits the sharded SRW")
+    step, (pad, _) = make_sharded_regrid_step(mesh, geo_c, laea_g)
+    # against the single-chip K3 on the window sharded_reproject crops: the
+    # band form rebases iy by its band's offset in float32, which rounds on
+    # the first band (offset -halo): positions move by at most half a
+    # float32 ulp of the extended band's height, values in [0, 1) by that
+    # plus the lerps' rounding; nearest flips where that moves rint, on
+    # about that share of the pixels
+    ext_h = step.band_h + 2 * step.halo if step.use_halo else step.band_h
+    ulp = 2.0 ** (math.floor(math.log2(ext_h)) - 23)
+    for interp in ("bilinear", "nearest"):
+        out, dt = sharded(x, geo, laea_g, mesh, interp, B5_KERNELS[2:])
+        ref = make_fused_reproject_fn(geo_c, laea_g, interp, nan, dev)(xc)
+        agree = held(out.full(), ref, f"sharded regrid vs single-chip K3, {interp}",
+                     atol=ulp / 2 + 2.0**-22, flips=ulp if interp == "nearest" else 0.0)
+        print(f"{tag} past the gate ({gw}x{gh} EPSG:4326 -> {gt}^2 EPSG:3035, {interp}; "
+              f"window {tuple(xc.shape)}, band {step.band_h} rows, halo {step.halo}): "
+              f"sharded regrid first call {dt:.3f} s; vs the single-chip K3 on the window: "
+              f"NaN masks equal, {agree} (bound {ulp / 2 + 2.0**-22:.3g})")
+        del out, ref
+    bands, _ = step.bands(torch.nn.functional.pad(xc, (0, 0, 0, pad), value=nan))
+    halos = step.exchange(bands)
+    for k in range(mesh.size):
+        g_args = step.gather_args(bands, halos, k)
+        o = fused_reproject_band(*g_args)
+        exact(o, fused_reproject_band_plain(*g_args), "fused_reproject_band",
+              f"gate band {k} (off {g_args[9]})")
+    g_args = step.gather_args(bands, halos, 1)
+    timings["fused_reproject_band"] = h.time_pair(
+        lambda: fused_reproject_band(*g_args), lambda: fused_reproject_band_plain(*g_args))
+    bounds["fused_reproject_band"] = fused_band_bound(*g_args)
+    shapes["fused_reproject_band"] = f"ext {tuple(g_args[0].shape)} -> {tuple(o.shape)}"
+    del bands, halos, g_args, o, step, x, xc
+
+    # -- each band kernel on a halo of several bands and on NaN rows --------
+    m = sizes["halo_src"]
+    src_gm = GridMapping.regular(size=(m, m), xy_min=(565000.0, 5930000.0), xy_res=100.0,
+                                 crs="epsg:32632")
+    upper = GridMapping.regular(size=(m * 3 // 4, m * 3 // 8),
+                                xy_min=(4320500, 3379500 + m * 100 // 3), xy_res=100,
+                                crs="epsg:3035")
+    mesh8 = make_mesh(devices=[dev] * 8)
+    y = torch.rand((2, m, m), generator=gen, device=dev)
+    y_nan = y.clone()
+    y_nan[:, m // 5 : m // 5 + 3] = nan
+    y_nan[:, m // 2] = nan
+    cases = []
+    for interp in ("bilinear", "nearest", "triangular"):
+        step, (pad, _) = make_sharded_srw_step(mesh8, src_gm, upper, interp_method=interp,
+                                               src_batch_dims=1)
+        if not step.plan.halo > step.plan.band_h or pad:
+            raise AssertionError(f"halo {step.plan.halo}, band {step.plan.band_h}")
+        cases.append((step, "srw_horizontal_band", interp))
+        cases.append((make_sharded_regrid_step(mesh8, src_gm, upper, interp_method=interp,
+                                               src_batch_dims=1)[0],
+                      "fused_reproject_band", interp))
+    for step, name, interp in cases:
+        for data, what in ((y, "halo > band"), (y_nan, "halo > band, NaN rows")):
+            got, ref = step(data), step.plain(data)
+            for k, (a, b) in enumerate(zip(got.bands, ref.bands)):
+                exact(a, b, name, f"{what}, {interp}, band {k} of 8")
+    print(f"{tag} band kernels vs plain on {m}^2 over 8 bands with a halo of "
+          f"{cases[0][0].plan.halo} rows (bands of {cases[0][0].plan.band_h}), clean and "
+          f"with NaN rows, every method; at the {n}^2 band shapes (band 0 from off < 0) "
+          f"and on every band past the gate: max abs diff "
+          f"{', '.join(f'{k} {v}' for k, v in err.items())}")
+    for name in B5_KERNELS:
+        k, p, kd = timings[name]
+        b, by = bounds[name]
+        print(f"{tag} {name} ({shapes[name]}): kernel {k:.4f} ms (device {kd:.4f} ms), "
+              f"plain {p:.3f} ms, bound {b:.4f} ms ({by})")
+    del y, y_nan, cases
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- the tile stream into a zarr store ----------------------------------
+    s, chunk = sizes["stream"], sizes["chunk"]
+    work = Path(work_dir)
+    shutil.rmtree(work, ignore_errors=True)
+    stream_gm = GridMapping.regular(size=(s, s), xy_min=(300000.0, 5200000.0), xy_res=30.0,
+                                    crs="epsg:32632")
+    data = np.random.default_rng(5).random((2, s, s), dtype=np.float32)
+    coords = dict(stream_gm.to_coords(exclude_bounds=True))
+    coords["spatial_ref"] = DataArray(np.array(0), dims=(), attrs=stream_gm.crs.to_cf())
+    eager = Dataset({"v": DataArray(data, dims=("band", "y", "x"), chunks=(1, chunk, chunk),
+                                    attrs=dict(grid_mapping="spatial_ref"))}, coords=coords)
+    t0 = time.perf_counter()
+    zarrlite.write_dataset(eager, zarrlite.DirectoryStore(work / "source.zarr"))
+    t_write = time.perf_counter() - t0
+
+    class Counting(zarrlite.DirectoryStore):
+        def __init__(self, root):
+            super().__init__(root)
+            self.read = set()
+
+        def __getitem__(self, key):
+            if key.startswith("v/") and ".z" not in key:
+                self.read.add(key)
+            return super().__getitem__(key)
+
+    cx, cy = Transformer.from_crs("epsg:32632", "epsg:3035", always_xy=True).transform(
+        300000.0 + 15.0 * s, 5200000.0 + 15.0 * s)
+    target = GridMapping.regular(size=(s, s), xy_min=(float(cx) - 15.0 * s,
+                                 float(cy) - 15.0 * s), xy_res=30.0, crs="epsg:3035",
+                                 tile_size=chunk)
+    source = Counting(work / "source.zarr")
+    lazy = zarrlite.open_dataset(source, lazy=True)
+    store = zarrlite.DirectoryStore(work / "target.zarr")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    n_tiles = resample_to_store(lazy, target, store, device=dev)
+    t_stream = time.perf_counter() - t0
+    stream_launches = dict(LAUNCHES)
+    tiles = (-(-s // chunk)) ** 2
+    if n_tiles != tiles:
+        raise AssertionError(f"the stream computed {n_tiles} of {tiles} tiles")
+    t0 = time.perf_counter()
+    ref = resample_in_space(eager, target_gm=target.derive(tile_size=(s, s)), device=dev)
+    sync()
+    t_ref = time.perf_counter() - t0
+    back = torch.from_numpy(np.asarray(zarrlite.open_dataset(store)["v"].data))
+    agree = held(back, ref["v"].data.cpu(), "the store vs one resample_in_space")
+    again = resample_to_store(lazy, target, store, device=dev)
+    chunk_key = sorted(k for k in store if k.startswith("v/") and ".z" not in k)[0]
+    del store[chunk_key]
+    redo = resample_to_store(lazy, target, store, device=dev)
+    if (again, redo) != (0, 1):
+        raise AssertionError(f"resume: {again} tiles, then {redo} after deleting one chunk")
+    corner = Counting(work / "source.zarr")
+    corner_gm = GridMapping.regular(size=(s // 8, s // 8), xy_min=(300000.0 + 30.0,
+                                    5200000.0 + 30.0), xy_res=30.0, crs="epsg:32632",
+                                    tile_size=s // 16)
+    resample_to_store(zarrlite.open_dataset(corner, lazy=True), corner_gm,
+                      zarrlite.MemoryStore(), device=dev)
+    n_chunks = 2 * (-(-s // chunk)) ** 2
+    if not 0 < len(corner.read) <= n_chunks // 8:
+        raise AssertionError(f"the corner target read {len(corner.read)}/{n_chunks} chunks")
+    print(
+        f"{tag} stream: {s}^2 x 2 float32 UTM32N in {chunk}^2 chunks (a DirectoryStore, "
+        f"written in {t_write:.2f} s) -> {s}^2 EPSG:3035 in {tiles} tiles of {chunk}^2 "
+        f"through resample_to_store on {dev}: {t_stream:.2f} s ({len(source.read)} of "
+        f"{n_chunks} source chunks read; launches {stream_launches}); one resample_in_space "
+        f"of the whole target {t_ref:.2f} s; the store vs it: NaN masks equal, {agree}; "
+        f"resumed: {again} tiles, {redo} after deleting {chunk_key}; a {s // 8}^2 corner "
+        f"target read {len(corner.read)} of {n_chunks} chunks"
+    )
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, err, timings, bounds
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
 
     import torch.nn.functional as F
 
@@ -357,6 +802,11 @@ def main() -> int:
                   f"{max(k[3] for k in regs_k)} bytes of stack frame")
         if build.log and (not regs_k or any(k[2] or k[3] for k in regs_k)):
             raise AssertionError(f"K6's {cap}-tap register kernels spill or are missing")
+    # K1, K2 and K3, single-chip (Lb0E) and band form (Lb1E), per method
+    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel"):
+        for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
+            print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
+                  f"stack frame")
     _build.load()
 
     nan = float("nan")
@@ -508,17 +958,7 @@ def main() -> int:
         Returns (ms, basis, source pixels tapped)."""
         h, w = fn.src_h, fn.src_w
         valid = (ix > -0.5) & (ix < w - 0.5) & (iy > -0.5) & (iy < h - 0.5)
-        x = ix[valid].clamp(0, w - 1)
-        y = iy[valid].clamp(0, h - 1)
-        tapped = torch.zeros(h * w, dtype=torch.bool, device=dev)
-        if interp == "nearest":
-            tapped[torch.round(y).long() * w + torch.round(x).long()] = True
-        else:
-            x0, y0 = x.floor().long(), y.floor().long()
-            for yy in (y0, (y0 + 1).clamp(max=h - 1)):
-                for xx in (x0, (x0 + 1).clamp(max=w - 1)):
-                    tapped[yy * w + xx] = True
-        n_tapped = tapped.sum().item()
+        n_tapped = tapped_pixels(ix, iy, valid, h, w, interp)
         n_out = fn.out_h * fn.out_w
         n_bytes = 4 * (n_out + n_tapped + fn.ix_c.numel() + fn.iy_c.numel())
         return bound(n_bytes, 30 * n_out) + (n_tapped,)
@@ -2087,6 +2527,19 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the rectify route: {missing}")
 
+    # -- 8. BASELINE #5: the sharded reproject and the tile stream -----------
+    b5_launches, b5_err, b5_timings, b5_bounds = baseline5(
+        dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair)
+    )
+    missing = [name for name in B5_KERNELS if b5_launches[name] < 1]
+    if missing:
+        raise AssertionError(f"band kernels never launched on the sharded path: {missing}")
+    main_launches.update(b5_launches)
+    err.update(b5_err)
+    timings.update(b5_timings)
+    bounds.update(b5_bounds)
+    library.update(dict.fromkeys(B5_KERNELS, (None, None)))
+
     missing = [name for name in err if main_launches[name] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -2135,6 +2588,18 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/ij_bboxes.cu",
             "xcube_resampling_tpu/ops/bbox_ops.py:16",
         ),
+        "srw_vertical_band": (
+            "xcube_resampling_tpu_torch/csrc/srw_vertical.cu",
+            "xcube_resampling_tpu/parallel/halo.py:423",
+        ),
+        "srw_horizontal_band": (
+            "xcube_resampling_tpu_torch/csrc/srw_horizontal.cu",
+            "xcube_resampling_tpu/parallel/halo.py:450",
+        ),
+        "fused_reproject_band": (
+            "xcube_resampling_tpu_torch/csrc/fused_reproject.cu",
+            "xcube_resampling_tpu/parallel/halo.py:169",
+        ),
     }
     kernels = [
         {
@@ -2152,7 +2617,7 @@ def main() -> int:
             # F.grid_sample yardstick at the 4326 -> UTM shape; K4 a copy
             # (BASELINE #2's c), the downscale form and K5 torch.nanmean
             # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 F.grid_sample
-            # (R1, nearest); K8, K9, K10: none
+            # (R1, nearest); K8, K9, K10 and the band forms: none
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],
@@ -2163,6 +2628,8 @@ def main() -> int:
     # K10 at R3 too (its ms, device_ms and bound above are R1's)
     k10_entry = next(k for k in kernels if k["name"] == "ij_bboxes")
     k10_entry.update(r3_ms=k10_r3[0], r3_device_ms=k10_r3[1], r3_bound_ms=b10)
+    print(f"{tag} chip_smoke: {time.perf_counter() - t_start:.1f} s from its start, the "
+          f"build included")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(

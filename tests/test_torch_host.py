@@ -485,3 +485,106 @@ def test_reproject_host_planners_match(geometry):
     got_c = pt_reproject._target_centers_in_source(inv, pt_)
     for g, r in zip(got_c, ref_c):
         np.testing.assert_array_equal(g, r)
+
+
+def _zarr_case(pkg):
+    """A dataset of three dtypes, chunked, with CF coordinates."""
+    gm = pkg.GridMapping.regular(
+        size=(40, 30), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"
+    )
+    rng = np.random.default_rng(11)
+    coords = dict(gm.to_coords(exclude_bounds=True))
+    coords["spatial_ref"] = pkg.DataArray(np.array(0), dims=(), attrs=gm.crs.to_cf())
+    variables = {
+        "f": rng.random((30, 40)).astype(np.float32),
+        "i": rng.integers(-5000, 5000, (2, 30, 40)).astype(np.int16),
+        "d": rng.random((30, 40)),
+    }
+    return pkg.Dataset(
+        {
+            name: pkg.DataArray(
+                data, dims=("t", "y", "x")[3 - data.ndim:], chunks=(1, 16, 16)[3 - data.ndim:],
+                attrs=dict(grid_mapping="spatial_ref", units="1"),
+            )
+            for name, data in variables.items()
+        },
+        coords=coords,
+    )
+
+
+@pytest.mark.parametrize("compressor", [None, "zlib"])
+def test_zarrlite_copy_writes_and_reads_the_same_store(compressor, tmp_path):
+    """The port's zarrlite (a copy) writes a store byte for byte equal to
+    the original's, in memory and on disk, for each compressor, and both
+    read it back alike, eagerly and chunk-lazily (a window reads the same
+    chunks)."""
+    from xcube_resampling_tpu import zarrlite as jz
+    from xcube_resampling_tpu_torch import zarrlite as pz
+
+    ref, got = jz.MemoryStore(), pz.MemoryStore()
+    jz.write_dataset(_zarr_case(jx), ref, compressor=compressor)
+    pz.write_dataset(_zarr_case(pt), got, compressor=compressor)
+    assert sorted(got) == sorted(ref)
+    assert all(got[k] == ref[k] for k in ref)
+    jz.write_dataset(_zarr_case(jx), str(tmp_path / "jax.zarr"), compressor=compressor)
+    pz.write_dataset(_zarr_case(pt), str(tmp_path / "port.zarr"), compressor=compressor)
+    ref_disk = jz.DirectoryStore(tmp_path / "jax.zarr")
+    disk = pz.DirectoryStore(tmp_path / "port.zarr")
+    assert sorted(disk) == sorted(ref_disk)
+    assert all(disk[k] == ref_disk[k] for k in ref_disk)
+    for lazy in (False, True):
+        a, b = pz.open_dataset(got, lazy=lazy), jz.open_dataset(ref, lazy=lazy)
+        for name in ("f", "i", "d"):
+            np.testing.assert_array_equal(np.asarray(a[name].data), np.asarray(b[name].data))
+    la, lb = pz.open_dataset(got, lazy=True)["i"].data, jz.open_dataset(ref, lazy=True)["i"].data
+    assert isinstance(la, pz.LazyArray)
+    np.testing.assert_array_equal(la[1, 5:21, 7:30], lb[1, 5:21, 7:30])
+
+
+def test_zarrlite_codecs_copy_decodes_the_same():
+    """The copied codecs decode the frames of tests/test_zarrlite_codecs.py
+    (blosc around zlib, zstd and lz4, shuffled, split, multi-block, a
+    memcpy frame; raw lz4 blocks) to the original's bytes."""
+    from tests.test_zarrlite_codecs import (
+        _LZ4,
+        _ZLIB,
+        _ZSTD,
+        _payload,
+        lz4_block_compress,
+        make_blosc_frame,
+    )
+    from xcube_resampling_tpu.zarrlite import codecs as jc
+    from xcube_resampling_tpu_torch.zarrlite import codecs as pc
+
+    data = _payload()
+    frames = [make_blosc_frame(_payload(100), 0, memcpy=True)]
+    for codec in (_ZLIB, _ZSTD, _LZ4):
+        for shuffle in (False, True):
+            frames.append(make_blosc_frame(data, codec, typesize=4, shuffle=shuffle))
+    for codec in (_ZLIB, _LZ4):
+        frames.append(make_blosc_frame(_payload(5000), codec, typesize=4, blocksize=8192,
+                                       shuffle=True))
+        frames.append(make_blosc_frame(data, codec, typesize=4, shuffle=True, split=True))
+    for frame in frames:
+        assert pc.blosc_decompress(frame) == jc.blosc_decompress(frame)
+    block = lz4_block_compress(data)
+    assert pc.lz4_block_decompress(block, len(data)) == jc.lz4_block_decompress(block, len(data))
+
+
+def test_zarrlite_add_spatial_ref_copies_match():
+    """``zarrlite.add_spatial_ref`` and ``cfconv.add_spatial_ref`` (copies)
+    patch a store as the originals do."""
+    from xcube_resampling_tpu import zarrlite as jz
+    from xcube_resampling_tpu.gridmapping import cfconv as jcf
+    from xcube_resampling_tpu_torch import zarrlite as pz
+    from xcube_resampling_tpu_torch.gridmapping import cfconv as pcf
+
+    for jfn, pfn in ((jz.add_spatial_ref, pz.add_spatial_ref),
+                     (jcf.add_spatial_ref, pcf.add_spatial_ref)):
+        ref, got = jz.MemoryStore(), pz.MemoryStore()
+        jz.write_dataset(_zarr_case(jx), ref)
+        pz.write_dataset(_zarr_case(pt), got)
+        jfn(ref, jx.CRS.from_string("epsg:3035"), crs_var_name="crs")
+        pfn(got, pt.CRS.from_string("epsg:3035"), crs_var_name="crs")
+        assert sorted(got) == sorted(ref)
+        assert all(got[k] == ref[k] for k in ref)

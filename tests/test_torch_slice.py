@@ -436,7 +436,9 @@ def test_port_never_imports_jax():
     on CPU tensors (tiled SRW, K3, the affine route, the reproject
     pre-downscale, and the rectify route with a tensor and a numpy
     variable under both Phase A tiers, K10's tile plan and the resident
-    Phase B among them) loads no module of JAX or of the JAX package."""
+    Phase B among them), and driving sharded_reproject on a mesh of CPU
+    devices (the band forms of K1, K2 and K3) and resample_to_store into
+    a zarr store, loads no module of JAX or of the JAX package."""
     code = (
         "import os, sys\n"
         "import numpy as np, torch\n"
@@ -475,6 +477,18 @@ def test_port_never_imports_jax():
         "        out = port.resample_in_space(sw, interp_methods=m, device='cpu')\n"
         "        assert out['r'].data.dtype == out['t'].data.dtype == torch.float32\n"
         "assert 'xcube_resampling_tpu_torch.ops.bbox_ops' in sys.modules\n"
+        "from xcube_resampling_tpu_torch import parallel, zarrlite\n"
+        "mesh = parallel.make_mesh(devices=[torch.device('cpu')] * 3)\n"
+        "for srw in (True, False):\n"
+        "    out = parallel.sharded_reproject(torch.rand(2, 96, 96), s, t, mesh,"
+        " use_srw=srw)\n"
+        "    assert out.full().shape == (2, 80, 80) and len(out.bands) == 3\n"
+        "v = port.DataArray(np.random.rand(96, 96).astype('float32'), dims=('y', 'x'),"
+        " attrs=dict(grid_mapping='spatial_ref'))\n"
+        "store = zarrlite.MemoryStore()\n"
+        "n = parallel.resample_to_store(port.Dataset({'v': v}, coords=coords),"
+        " t.derive(tile_size=40), store, device='cpu')\n"
+        "assert n == 4 and zarrlite.open_dataset(store)['v'].shape == (80, 80)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'xcube_resampling_tpu')]\n"
         "assert not bad, bad\n"

@@ -51,6 +51,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64,
         _I64, _I, _I, _I, _I, _I, _I64, _I64, _I, _P,
     ],
+    # ext, iystar_c, base_v, win, v, vd, batch, ext_h, src_w, out_h, ncj,
+    # ncc, step, n_col_tiles, col_tile, d_v, method, rows, cols, extent,
+    # n_col_blocks, walkers, vec4, row0, off, src_h, stream
+    "xrt_srw_vertical_band_f32": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64,
+        _I64, _I, _I, _I, _I, _I, _I64, _I64, _I, _I64, _I64, _I64, _P,
+    ],
     # v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,
     # src_w, ncj, nci, step, row_tile, d_h, method, fill, rows, cols,
     # extent, n_col_blocks, walkers, vec4, stream
@@ -58,10 +65,23 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _I, _I64, _I, _I, _F, _I, _I, _I, _I64, _I64, _I, _P,
     ],
+    # v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,
+    # src_w, ncj, nci, step, row_tile, d_h, method, fill, rows, cols,
+    # extent, n_col_blocks, walkers, vec4, row0, stream
+    "xrt_srw_horizontal_band_f32": [
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I, _I64, _I, _I, _F, _I, _I, _I, _I64, _I64, _I, _I64, _P,
+    ],
     # src, ix_c, iy_c, out, batch, src_h, src_w, ncj, nci, out_h, out_w,
     # step, method, fill, stream
     "xrt_fused_reproject_f32": [
         _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _P,
+    ],
+    # ext, ix_c, iy_c, out, batch, ext_h, src_w, ncj, nci, out_h, out_w,
+    # step, method, fill, row0, off, src_h, stream
+    "xrt_fused_reproject_band_f32": [
+        _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F,
+        _I64, _I64, _I64, _P,
     ],
     # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w,
     # j_scale, i_scale, j_off, i_off, order, fill, in_code, out_code, stream

@@ -33,6 +33,15 @@
 // the tap loop 32-bit; output offsets are 64-bit.  What still holds it
 // above its bound is the per-block work between barriers, as for K1
 // (tools/tune_srw.py).
+//
+// The band form (srw_horizontal_band; B = true) is the sharded SRW's
+// horizontal pass, xcube_resampling_tpu/parallel/halo.py:450-481: v holds
+// one mesh band's rows, output row j lies at global target row row0 + j,
+// where its geometry (positions, mask, s) is interpolated, and the bases
+// are the band's tiles of base_h.  The tile of row j is j / row_tile, which
+// on the band's last, overlapping tile is min(j / row_tile, tiles - 1),
+// as halo.py:472-474 takes it.  B is a template parameter: the
+// single-chip kernels (B = false) compile as before.
 #include "srw_common.h"
 
 namespace {
@@ -69,7 +78,7 @@ __device__ __forceinline__ void load_cols_async(float* s, int sw,
   }
 }
 
-template <int M>
+template <int M, bool B>
 __global__ void __launch_bounds__(kThreads) srw_horizontal_kernel(
     const float* __restrict__ v, const float* __restrict__ vd,
     const float* __restrict__ ix_c, const float* __restrict__ iy_c,
@@ -77,8 +86,9 @@ __global__ void __launch_bounds__(kThreads) srw_horizontal_kernel(
     float* __restrict__ out, int64_t batch, int64_t out_h, int64_t out_w,
     int64_t src_h, int64_t src_w, int64_t ncj, int64_t nci, float inv,
     int64_t row_tile, int d_h, float fill, int rows, int cols, int extent,
-    int64_t n_col_blocks, bool vec4) {
+    int64_t n_col_blocks, bool vec4, int64_t band_row0) {
   constexpr bool kTri = M == xrt::kTriangular;
+  const int64_t row0 = B ? band_row0 : 0;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int plane = rows * extent;        // floats of one window
@@ -141,7 +151,7 @@ __global__ void __launch_bounds__(kThreads) srw_horizontal_kernel(
       xrt::FieldColumn fy(iy_c, ncj, nci, col, inv);
       for (int r = ry; r < nrows; r += row_groups) {
         const int e = r * cols + cx;
-        const float row = static_cast<float>(j0 + r);
+        const float row = static_cast<float>(row0 + j0 + r);
         const float p = fx.at(row);
         const float iy = fy.at(row);
         spos[e] = p;
@@ -188,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) srw_horizontal_kernel(
   }
 }
 
-template <int M>
+template <int M, bool B>
 cudaError_t launch(const float* v, const float* vd, const float* ix_c,
                    const float* iy_c, const int32_t* base_h,
                    const int32_t* win, float* out, int64_t batch,
@@ -196,25 +206,24 @@ cudaError_t launch(const float* v, const float* vd, const float* ix_c,
                    int64_t ncj, int64_t nci, float inv, int64_t row_tile,
                    int d_h, float fill, int rows, int cols, int extent,
                    int64_t n_col_blocks, dim3 grid, size_t smem, bool vec4,
-                   cudaStream_t stream) {
-  const cudaError_t err = xrt::allow_smem(srw_horizontal_kernel<M>, smem);
+                   int64_t row0, cudaStream_t stream) {
+  const cudaError_t err = xrt::allow_smem(srw_horizontal_kernel<M, B>, smem);
   if (err != cudaSuccess) return err;
-  srw_horizontal_kernel<M><<<grid, kThreads, smem, stream>>>(
+  srw_horizontal_kernel<M, B><<<grid, kThreads, smem, stream>>>(
       v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h, src_w,
       ncj, nci, inv, row_tile, d_h, fill, rows, cols, extent, n_col_blocks,
-      vec4);
+      vec4, row0);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int xrt_srw_horizontal_f32(
-    const float* v, const float* vd, const float* ix_c, const float* iy_c,
-    const int32_t* base_h, const int32_t* win, float* out, int64_t batch,
-    int64_t out_h, int64_t out_w, int64_t src_h, int64_t src_w, int64_t ncj,
-    int64_t nci, int step, int64_t row_tile, int d_h, int method, float fill,
-    int rows, int cols, int extent, int64_t n_col_blocks, int64_t walkers,
-    int vec4, void* stream) {
+template <bool B>
+int dispatch(const float* v, const float* vd, const float* ix_c,
+             const float* iy_c, const int32_t* base_h, const int32_t* win,
+             float* out, int64_t batch, int64_t out_h, int64_t out_w,
+             int64_t src_h, int64_t src_w, int64_t ncj, int64_t nci, int step,
+             int64_t row_tile, int d_h, int method, float fill, int rows,
+             int cols, int extent, int64_t n_col_blocks, int64_t walkers,
+             int vec4, int64_t row0, void* stream) {
   if (cols < 1 || cols > kThreads || kThreads % cols != 0 || extent % 4 != 0 ||
       (method == xrt::kTriangular) != (vd != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -227,9 +236,9 @@ extern "C" int xrt_srw_horizontal_f32(
   const dim3 grid(static_cast<unsigned>(n_col_blocks), static_cast<unsigned>(walkers));
   const auto s = static_cast<cudaStream_t>(stream);
 #define XRT_LAUNCH(M)                                                          \
-  launch<M>(v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,   \
-            src_w, ncj, nci, inv, row_tile, d_h, fill, rows, cols, extent,     \
-            n_col_blocks, grid, smem, vec4 != 0, s)
+  launch<M, B>(v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w,     \
+               src_h, src_w, ncj, nci, inv, row_tile, d_h, fill, rows, cols,  \
+               extent, n_col_blocks, grid, smem, vec4 != 0, row0, s)
   cudaError_t err;
   switch (method) {
     case xrt::kBilinear: err = XRT_LAUNCH(xrt::kBilinear); break;
@@ -239,4 +248,32 @@ extern "C" int xrt_srw_horizontal_f32(
   }
 #undef XRT_LAUNCH
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" int xrt_srw_horizontal_f32(
+    const float* v, const float* vd, const float* ix_c, const float* iy_c,
+    const int32_t* base_h, const int32_t* win, float* out, int64_t batch,
+    int64_t out_h, int64_t out_w, int64_t src_h, int64_t src_w, int64_t ncj,
+    int64_t nci, int step, int64_t row_tile, int d_h, int method, float fill,
+    int rows, int cols, int extent, int64_t n_col_blocks, int64_t walkers,
+    int vec4, void* stream) {
+  return dispatch<false>(v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w,
+                         src_h, src_w, ncj, nci, step, row_tile, d_h, method, fill,
+                         rows, cols, extent, n_col_blocks, walkers, vec4, 0, stream);
+}
+
+// The band form: v holds the band's out_h rows, from global row row0;
+// src_h is the source's true height (the mask's bound).
+extern "C" int xrt_srw_horizontal_band_f32(
+    const float* v, const float* vd, const float* ix_c, const float* iy_c,
+    const int32_t* base_h, const int32_t* win, float* out, int64_t batch,
+    int64_t out_h, int64_t out_w, int64_t src_h, int64_t src_w, int64_t ncj,
+    int64_t nci, int step, int64_t row_tile, int d_h, int method, float fill,
+    int rows, int cols, int extent, int64_t n_col_blocks, int64_t walkers,
+    int vec4, int64_t row0, void* stream) {
+  return dispatch<true>(v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w,
+                        src_h, src_w, ncj, nci, step, row_tile, d_h, method, fill,
+                        rows, cols, extent, n_col_blocks, walkers, vec4, row0, stream);
 }

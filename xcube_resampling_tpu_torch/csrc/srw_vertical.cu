@@ -34,23 +34,43 @@
 // shortcut, not instructions; the block-shape sweep (tools/tune_srw.py)
 // finds the fewest, largest blocks fastest, so the per-block work between
 // barriers (geometry, window check, the wait on the copy) sets the time.
+//
+// The band form (srw_vertical_band; B = true) is the sharded SRW's
+// vertical pass, xcube_resampling_tpu/parallel/halo.py:423-448: the source
+// is one row band of the mesh extended by its halo (ext, ext_h rows, its
+// row 0 at global source row `off`, negative on the first band), output
+// row j lies at global target row row0 + j (its position interpolated
+// there, its base in the band's rows of base_v), and tap k reads ext row
+// clamp(k, 0, src_h - 1) - off of the true source height src_h, its weight
+// at the true position.  Both the clamp and the offset go into the staging
+// copy, so the tap loop is the single-chip one.  B is a template
+// parameter: the single-chip kernels (B = false) compile as before.
 #include "srw_common.h"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+// The band form's offsets: output row j at global target row row0 + j;
+// the plane's row 0 at global source row off; src_h the source's true
+// height, to which taps clamp.
+struct Band {
+  int64_t row0, off, src_h;
+};
+
 // Copy window rows [0, h) of one band's column block into s (row stride
-// cols): window row r is source row clamp(lo + r); `width` columns.
+// cols): window row r is plane row clamp(lo + r, src_h) - off; `width`
+// columns.
 __device__ __forceinline__ void load_rows_async(float* s, int cols,
                                                 const float* g, int64_t ld,
                                                 int lo, int h, int64_t src_h,
-                                                int width, bool vec4) {
+                                                int64_t off, int width,
+                                                bool vec4) {
   const int per_row = vec4 ? width >> 2 : width;
   for (int e = threadIdx.x; e < h * per_row; e += kThreads) {
     const int r = e / per_row;
     const int q = e - r * per_row;
-    const float* row = g + xrt::clamp_index(lo + r, src_h) * ld;
+    const float* row = g + (xrt::clamp_index(lo + r, src_h) - off) * ld;
     if (vec4) {
       xrt::cp_async16(s + r * cols + 4 * q, row + 4 * q);
     } else {
@@ -59,15 +79,19 @@ __device__ __forceinline__ void load_rows_async(float* s, int cols,
   }
 }
 
-template <int M>
+// src_h: the rows of a plane of src (the band's ext_h for B)
+template <int M, bool B>
 __global__ void __launch_bounds__(kThreads) srw_vertical_kernel(
     const float* __restrict__ src, const float* __restrict__ iystar_c,
     const int32_t* __restrict__ base, const int32_t* __restrict__ win,
     float* __restrict__ v, float* __restrict__ vd, int64_t batch,
     int64_t src_h, int64_t src_w, int64_t out_h, int64_t ncj, int64_t ncc,
     float inv, int64_t n_col_tiles, int64_t col_tile, int d_v, int rows,
-    int cols, int extent, bool vec4) {
+    int cols, int extent, bool vec4, Band band) {
   extern __shared__ float4 smem4[];
+  const int64_t row0 = B ? band.row0 : 0;
+  const int64_t clamp_h = B ? band.src_h : src_h;
+  const int64_t off = B ? band.off : 0;
   float* smem = reinterpret_cast<float*>(smem4);
   const int stage = extent * cols;  // floats per window buffer
   float* spos = smem + 2 * stage;   // (rows, cols) positions
@@ -90,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) srw_vertical_kernel(
     const int64_t b = it % batch;
     const int32_t* w = win + (row_block(it) * n_col_tiles + tile) * 2;
     load_rows_async(smem + (it & 1) * stage, cols, src + b * src_h * src_w + c0,
-                    src_w, w[0], w[1] - w[0], src_h, width, vec4);
+                    src_w, w[0], w[1] - w[0], clamp_h, off, width, vec4);
     xrt::cp_async_commit();
   };
 
@@ -107,7 +131,7 @@ __global__ void __launch_bounds__(kThreads) srw_vertical_kernel(
       // thread computes the positions it sums
       xrt::FieldColumn field(iystar_c, ncj, ncc, static_cast<float>(c0 + cx), inv);
       for (int r = ry; r < nrows; r += row_groups) {
-        spos[r * cols + cx] = field.at(static_cast<float>(j0 + r));
+        spos[r * cols + cx] = field.at(static_cast<float>(row0 + j0 + r));
       }
       for (int r = threadIdx.x; r < nrows; r += kThreads) {
         sbase[r] = base[(j0 + r) * n_col_tiles + tile];
@@ -140,20 +164,51 @@ __global__ void __launch_bounds__(kThreads) srw_vertical_kernel(
   }
 }
 
-template <int M>
+template <int M, bool B>
 cudaError_t launch(const float* src, const float* iystar_c,
                    const int32_t* base_v, const int32_t* win, float* v,
                    float* vd, int64_t batch, int64_t src_h, int64_t src_w,
                    int64_t out_h, int64_t ncj, int64_t ncc, float inv,
                    int64_t n_col_tiles, int64_t col_tile, int d_v, int rows,
                    int cols, int extent, dim3 grid, size_t smem, bool vec4,
-                   cudaStream_t stream) {
-  const cudaError_t err = xrt::allow_smem(srw_vertical_kernel<M>, smem);
+                   Band band, cudaStream_t stream) {
+  const cudaError_t err = xrt::allow_smem(srw_vertical_kernel<M, B>, smem);
   if (err != cudaSuccess) return err;
-  srw_vertical_kernel<M><<<grid, kThreads, smem, stream>>>(
+  srw_vertical_kernel<M, B><<<grid, kThreads, smem, stream>>>(
       src, iystar_c, base_v, win, v, vd, batch, src_h, src_w, out_h, ncj, ncc,
-      inv, n_col_tiles, col_tile, d_v, rows, cols, extent, vec4);
+      inv, n_col_tiles, col_tile, d_v, rows, cols, extent, vec4, band);
   return cudaGetLastError();
+}
+
+template <bool B>
+int dispatch(const float* src, const float* iystar_c, const int32_t* base_v,
+             const int32_t* win, float* v, float* vd, int64_t batch,
+             int64_t src_h, int64_t src_w, int64_t out_h, int64_t ncj,
+             int64_t ncc, int step, int64_t n_col_tiles, int64_t col_tile,
+             int d_v, int method, int rows, int cols, int extent,
+             int64_t n_col_blocks, int64_t walkers, int vec4, Band band,
+             void* stream) {
+  if (cols < 1 || cols > kThreads || kThreads % cols != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(extent) * cols +
+                                       static_cast<size_t>(rows) * cols + rows);
+  const float inv = static_cast<float>(1.0 / step);
+  const dim3 grid(static_cast<unsigned>(n_col_blocks), static_cast<unsigned>(walkers));
+  const auto s = static_cast<cudaStream_t>(stream);
+#define XRT_LAUNCH(M)                                                          \
+  launch<M, B>(src, iystar_c, base_v, win, v, vd, batch, src_h, src_w, out_h,  \
+               ncj, ncc, inv, n_col_tiles, col_tile, d_v, rows, cols, extent,  \
+               grid, smem, vec4 != 0, band, s)
+  cudaError_t err;
+  switch (method) {
+    case xrt::kBilinear: err = XRT_LAUNCH(xrt::kBilinear); break;
+    case xrt::kNearest: err = XRT_LAUNCH(xrt::kNearest); break;
+    case xrt::kTriangular: err = XRT_LAUNCH(xrt::kTriangular); break;
+    default: err = cudaErrorInvalidValue;
+  }
+#undef XRT_LAUNCH
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -165,27 +220,26 @@ extern "C" int xrt_srw_vertical_f32(
     int64_t n_col_tiles, int64_t col_tile, int d_v, int method, int rows,
     int cols, int extent, int64_t n_col_blocks, int64_t walkers, int vec4,
     void* stream) {
-  if (cols < 1 || cols > kThreads || kThreads % cols != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(extent) * cols +
-                                       static_cast<size_t>(rows) * cols + rows);
-  const float inv = static_cast<float>(1.0 / step);
-  const dim3 grid(static_cast<unsigned>(n_col_blocks), static_cast<unsigned>(walkers));
-  const auto s = static_cast<cudaStream_t>(stream);
-#define XRT_LAUNCH(M)                                                          \
-  launch<M>(src, iystar_c, base_v, win, v, vd, batch, src_h, src_w, out_h,     \
-            ncj, ncc, inv, n_col_tiles, col_tile, d_v, rows, cols, extent,     \
-            grid, smem, vec4 != 0, s)
-  cudaError_t err;
-  switch (method) {
-    case xrt::kBilinear: err = XRT_LAUNCH(xrt::kBilinear); break;
-    case xrt::kNearest: err = XRT_LAUNCH(xrt::kNearest); break;
-    case xrt::kTriangular: err = XRT_LAUNCH(xrt::kTriangular); break;
-    default: err = cudaErrorInvalidValue;
-  }
-#undef XRT_LAUNCH
-  return static_cast<int>(err);
+  return dispatch<false>(src, iystar_c, base_v, win, v, vd, batch, src_h, src_w,
+                         out_h, ncj, ncc, step, n_col_tiles, col_tile, d_v,
+                         method, rows, cols, extent, n_col_blocks, walkers, vec4,
+                         Band{0, 0, src_h}, stream);
+}
+
+// The band form: src is the band's ext (batch, ext_h, src_w); out_h its
+// output rows, from global row row0; off the global row of ext's row 0;
+// src_h the source's true height.
+extern "C" int xrt_srw_vertical_band_f32(
+    const float* ext, const float* iystar_c, const int32_t* base_v,
+    const int32_t* win, float* v, float* vd, int64_t batch, int64_t ext_h,
+    int64_t src_w, int64_t out_h, int64_t ncj, int64_t ncc, int step,
+    int64_t n_col_tiles, int64_t col_tile, int d_v, int method, int rows,
+    int cols, int extent, int64_t n_col_blocks, int64_t walkers, int vec4,
+    int64_t row0, int64_t off, int64_t src_h, void* stream) {
+  return dispatch<true>(ext, iystar_c, base_v, win, v, vd, batch, ext_h, src_w,
+                        out_h, ncj, ncc, step, n_col_tiles, col_tile, d_v,
+                        method, rows, cols, extent, n_col_blocks, walkers, vec4,
+                        Band{row0, off, src_h}, stream);
 }
 
 extern "C" const char* xrt_cuda_error_string(int code) {

@@ -283,3 +283,18 @@ def _find_dataset_tile_size(
     if tile_width is not None and tile_height is not None:
         return tile_width, tile_height
     return None
+
+
+def add_spatial_ref(
+    dataset_store,
+    crs: CRS,
+    crs_var_name: str = "spatial_ref",
+    xy_dim_names: tuple[str, str] | None = None,
+):
+    """Add a spatial reference to an existing zarr store
+    (see :func:`xcube_resampling_tpu_torch.zarrlite.add_spatial_ref`)."""
+    from ..zarrlite import add_spatial_ref as _add_spatial_ref
+
+    return _add_spatial_ref(
+        dataset_store, crs, crs_var_name=crs_var_name, xy_dim_names=xy_dim_names
+    )

@@ -11,6 +11,14 @@ tensors, or raises.
 
 The coarse fields come from :func:`coarse_coord_field`, a copy of the
 JAX package's numpy planner, evaluated once per geometry on the host.
+
+``fused_reproject_band`` is K3's band form, the gather of the sharded
+regrid (``xcube_resampling_tpu/parallel/halo.py:169-205``) on one row band
+of a mesh: output row ``j`` lies at global target row ``row0 + j``, the
+mask is the true source's bounds and the band's, and ``iy`` is clamped to
+the true source, then rebased by the band's offset ``off`` in float32.  At
+``row0 = off = 0`` on the whole source it is K3.  It counts its launches
+under its own name.
 """
 
 from __future__ import annotations
@@ -224,12 +232,32 @@ def fused_reproject_plain(
     src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value
 ):
     """Plain PyTorch version of K3: (B, out_h, out_w) from (B, H, W)."""
+    return fused_reproject_band_plain(
+        src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value,
+        0, 0, src.shape[-2],
+    )
+
+
+def fused_reproject_band_plain(
+    ext, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value,
+    row0, off, src_h,
+):
+    """Plain PyTorch version of K3's band form: the band's (B, out_h,
+    out_w) from global target row *row0*, ``ext`` (B, ext_h, W) holding
+    global source rows from *off* of a source *src_h* rows high."""
     method_code(interp_method)
-    rows = torch.arange(out_h, dtype=_F32, device=src.device)[:, None]
-    cols = torch.arange(out_w, dtype=_F32, device=src.device)[None, :]
+    ext_h, src_w = ext.shape[-2], ext.shape[-1]
+    rows = torch.arange(row0, row0 + out_h, dtype=_F32, device=ext.device)[:, None]
+    cols = torch.arange(out_w, dtype=_F32, device=ext.device)[None, :]
     ix = interp_field(ix_c, rows, cols, step)
     iy = interp_field(iy_c, rows, cols, step)
-    return gather_interp(src, ix, iy, interp_method, fill_value)
+    in_src = (ix > -0.5) & (ix < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
+    iy_l = iy.clamp(0, src_h - 1) - torch.tensor(off, dtype=_F32, device=ext.device)
+    in_band = (iy_l > -0.5) & (iy_l < ext_h - 0.5)
+    return gather_interp(
+        ext, ix, iy_l.clamp(0, ext_h - 1), interp_method, fill_value,
+        valid=in_src & in_band,
+    )
 
 
 def require_int32_planes(src_h, src_w, out_h, out_w) -> None:
@@ -249,6 +277,33 @@ def fused_reproject(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_val
         return fused_reproject_plain(
             src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value
         )
+    return _launch_fused(
+        src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value, None
+    )
+
+
+def fused_reproject_band(
+    ext, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value,
+    row0, off, src_h,
+):
+    """K3's band form: one mesh band's (B, out_h, out_w) from global
+    target row *row0*; ``ext`` holds global source rows from *off*."""
+    if on_cpu(ext, ix_c, iy_c):
+        return fused_reproject_band_plain(
+            ext, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value,
+            row0, off, src_h,
+        )
+    if row0 < 0 or src_h < 1:
+        raise ValueError(f"K3 band: first row {row0}, source height {src_h}")
+    return _launch_fused(
+        ext, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value,
+        (row0, off, src_h),
+    )
+
+
+def _launch_fused(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value, band):
+    """K3 on CUDA tensors; *band* None, or ``(row0, off, src_h)`` for
+    the band form."""
     method = method_code(interp_method)
     batch, src_h, src_w = src.shape
     ncj, nci = ix_c.shape
@@ -262,14 +317,20 @@ def fused_reproject(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_val
     if out.numel() == 0:
         return out
     lib = _build.load()
+    args = (
+        src.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(),
+        batch, src_h, src_w, ncj, nci, out_h, out_w, step, method,
+        float(fill_value),
+    )
+    name = "fused_reproject" if band is None else "fused_reproject_band"
     with torch.cuda.device(src.device):
-        rc = lib.xrt_fused_reproject_f32(
-            src.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(),
-            batch, src_h, src_w, ncj, nci, out_h, out_w, step, method,
-            float(fill_value), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, "fused_reproject")
-    count_launch("fused_reproject")
+        stream = torch.cuda.current_stream().cuda_stream
+        if band is None:
+            rc = lib.xrt_fused_reproject_f32(*args, stream)
+        else:
+            rc = lib.xrt_fused_reproject_band_f32(*args, *band, stream)
+    _build.check(lib, rc, name)
+    count_launch(name)
     return out
 
 

@@ -27,6 +27,17 @@ base plus the tap count.  The kernel stages that window in shared memory,
 clamping each index to the source as it copies, so its tap loop needs no
 clamp.  Windows steer the kernels only; the plain versions take them and
 do not need them.
+
+The band forms ``srw_vertical_band`` and ``srw_horizontal_band`` are the
+passes of the sharded SRW (``xcube_resampling_tpu/parallel/halo.py:
+423-481``) on one row band of a mesh: output row ``j`` lies at global
+target row ``row0 + j``, where its positions and geometry are
+interpolated; K1's source is the band extended by its halo (``ext``, its
+row 0 at global source row ``off``), and tap ``k`` reads its row
+``clamp(k, 0, src_h - 1) - off`` of the true source height ``src_h``.
+At ``row0 = off = 0`` on the whole source they are K1 and K2, and the
+single-chip plain versions are the band plain versions there.  Each band
+form counts its launches under its own name.
 """
 
 from __future__ import annotations
@@ -68,9 +79,11 @@ class Windows:
     rows: int
     cols: int
     extent: int
+    # the least and the greatest tap index of every window, half-open
+    span: tuple[int, int]
 
     def to(self, device) -> "Windows":
-        return Windows(self.lohi.to(device), self.rows, self.cols, self.extent)
+        return Windows(self.lohi.to(device), self.rows, self.cols, self.extent, self.span)
 
 
 def _pow2_divisor(n: int, cap: int) -> int:
@@ -98,7 +111,7 @@ def plan_vertical_windows(base_v: np.ndarray, col_tile: int, d_v: int) -> Window
         if smem <= SMEM_BUDGET:
             break
     lohi = torch.from_numpy(np.stack([lo, hi], axis=-1).astype(np.int32))
-    return Windows(lohi, rows, cols, extent)
+    return Windows(lohi, rows, cols, extent, (int(lo.min()), int(hi.max())))
 
 
 def plan_horizontal_windows(base_h: np.ndarray, row_tile: int, d_h: int) -> Windows:
@@ -120,7 +133,7 @@ def plan_horizontal_windows(base_h: np.ndarray, row_tile: int, d_h: int) -> Wind
     while rows > 1 and 4 * (4 * rows * extent + 2 * rows * cols + cols) + rows * cols > SMEM_BUDGET:
         rows //= 2
     lohi = torch.from_numpy(np.stack([lo, hi], axis=-1).astype(np.int32))
-    return Windows(lohi, rows, cols, extent)
+    return Windows(lohi, rows, cols, extent, (int(lo.min()), int(hi.max())))
 
 
 def _weight(pos, k, interp_method):
@@ -137,8 +150,9 @@ def _dweight(pos, k):
     return (f == k).to(_F32) - (f + 1.0 == k).to(_F32)
 
 
-def _grid(n_rows, n_cols, device):
-    rows = torch.arange(n_rows, dtype=_F32, device=device)[:, None]
+def _grid(n_rows, n_cols, device, row0=0):
+    """Rows ``row0 ..`` (H, 1) and columns (1, W), float32."""
+    rows = torch.arange(row0, row0 + n_rows, dtype=_F32, device=device)[:, None]
     cols = torch.arange(n_cols, dtype=_F32, device=device)[None, :]
     return rows, cols
 
@@ -148,30 +162,46 @@ def srw_vertical_plain(
 ):
     """Plain PyTorch version of K1: ``(v, vd)``, ``vd`` None unless
     triangular."""
+    return srw_vertical_band_plain(
+        src, iystar_c, step, base_v, col_tile, d_v, windows, interp_method,
+        0, 0, src.shape[1],
+    )
+
+
+def srw_vertical_band_plain(
+    ext, iystar_c, step, base_v, col_tile, d_v, windows, interp_method,
+    row0, off, src_h,
+):
+    """Plain PyTorch version of K1's band form: ``(v, vd)`` of the band's
+    output rows from global row *row0*, ``ext`` (B, ext_h, src_w) holding
+    global source rows from *off*."""
     method_code(interp_method)
-    batch, src_h, src_w = src.shape
+    batch, _, src_w = ext.shape
     out_h = base_v.shape[0]
     tri = interp_method == "triangular"
-    pos_v = interp_field(iystar_c, *_grid(out_h, src_w, src.device), step)
+    pos_v = interp_field(iystar_c, *_grid(out_h, src_w, ext.device, row0), step)
     base = base_v.repeat_interleave(col_tile, dim=1)[:, :src_w].to(torch.int64)
-    acc = torch.zeros((batch, out_h, src_w), dtype=_F32, device=src.device)
+    acc = torch.zeros((batch, out_h, src_w), dtype=_F32, device=ext.device)
     acc_d = torch.zeros_like(acc) if tri else None
     for d in range(d_v):
         kk = base + d
         k = kk.to(_F32)
-        idx = kk.clamp(0, src_h - 1).expand(batch, out_h, src_w)
-        taken = torch.gather(src, 1, idx)
+        idx = (kk.clamp(0, src_h - 1) - off).expand(batch, out_h, src_w)
+        taken = torch.gather(ext, 1, idx)
         acc = fma(_weight(pos_v, k, interp_method), taken, acc)
         if tri:
             acc_d = fma(_dweight(pos_v, k), taken, acc_d)
     return acc, acc_d
 
 
-def _horizontal_geometry(ix_c, iy_c, step, out_h, out_w, src_h, src_w, triangular):
-    """K2's per-pixel geometry, as ``srw.py:609-632`` computes it: the
-    horizontal tap positions, the validity mask and, for triangular, the
-    correction weight ``s = min(u v, (1 - u)(1 - v))`` (else None)."""
-    rows, cols = _grid(out_h, out_w, ix_c.device)
+def _horizontal_geometry(
+    ix_c, iy_c, step, out_h, out_w, src_h, src_w, triangular, row0=0
+):
+    """K2's per-pixel geometry at rows from *row0*, as ``srw.py:609-632``
+    computes it: the horizontal tap positions, the validity mask and, for
+    triangular, the correction weight ``s = min(u v, (1 - u)(1 - v))``
+    (else None)."""
+    rows, cols = _grid(out_h, out_w, ix_c.device, row0)
     pos_h = interp_field(ix_c, rows, cols, step)
     iy = interp_field(iy_c, rows, cols, step)
     valid = (pos_h > -0.5) & (pos_h < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
@@ -187,12 +217,24 @@ def srw_horizontal_plain(
     interp_method, fill_value, vd=None,
 ):
     """Plain PyTorch version of K2: (B, out_h, out_w)."""
+    return srw_horizontal_band_plain(
+        v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+        interp_method, fill_value, vd, 0,
+    )
+
+
+def srw_horizontal_band_plain(
+    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+    interp_method, fill_value, vd=None, row0=0,
+):
+    """Plain PyTorch version of K2's band form: (B, out_h, out_w), ``v``
+    holding the band's rows from global row *row0*."""
     method_code(interp_method)
     batch, out_h, src_w = v.shape
     out_w = base_h.shape[1]
     tri = interp_method == "triangular"
     pos_h, valid, s = _horizontal_geometry(
-        ix_c, iy_c, step, out_h, out_w, src_h, src_w, tri
+        ix_c, iy_c, step, out_h, out_w, src_h, src_w, tri, row0
     )
     base = base_h.repeat_interleave(row_tile, dim=0)[:out_h].to(torch.int64)
     acc = torch.zeros((batch, out_h, out_w), dtype=_F32, device=v.device)
@@ -233,6 +275,42 @@ def srw_vertical(src, iystar_c, step, base_v, col_tile, d_v, windows, interp_met
         return srw_vertical_plain(
             src, iystar_c, step, base_v, col_tile, d_v, windows, interp_method
         )
+    return _launch_vertical(
+        src, iystar_c, step, base_v, col_tile, d_v, windows, interp_method, None
+    )
+
+
+def srw_vertical_band(
+    ext, iystar_c, step, base_v, col_tile, d_v, windows, interp_method,
+    row0, off, src_h,
+):
+    """K1's band form, ``(v, vd)`` of one mesh band; see the module
+    docstring.  Every window's taps must lie in ``ext`` once clamped to
+    the source and rebased by *off* (else ``ValueError``)."""
+    if on_cpu(ext, iystar_c, base_v, windows.lohi):
+        return srw_vertical_band_plain(
+            ext, iystar_c, step, base_v, col_tile, d_v, windows, interp_method,
+            row0, off, src_h,
+        )
+    lo, hi = windows.span
+    first = min(max(lo, 0), src_h - 1) - off
+    last = min(max(hi - 1, 0), src_h - 1) - off
+    if first < 0 or last >= ext.shape[1] or row0 < 0:
+        raise ValueError(
+            f"K1 band: taps of rows {lo}..{hi - 1} (source height {src_h}) fall "
+            f"outside the band's {ext.shape[1]} rows from {off}"
+        )
+    return _launch_vertical(
+        ext, iystar_c, step, base_v, col_tile, d_v, windows, interp_method,
+        (row0, off, src_h),
+    )
+
+
+def _launch_vertical(
+    src, iystar_c, step, base_v, col_tile, d_v, windows, interp_method, band
+):
+    """K1 on CUDA tensors; *band* None, or ``(row0, off, src_h)`` for
+    the band form."""
     method = method_code(interp_method)
     if col_tile < 1 or d_v < 1 or step < 1:
         raise ValueError(f"col_tile, d_v and step must be positive: {col_tile}, {d_v}, {step}")
@@ -257,16 +335,21 @@ def srw_vertical(src, iystar_c, step, base_v, col_tile, d_v, windows, interp_met
     vec4 = src_w % 4 == 0 and w.cols % 4 == 0 and src.data_ptr() % 16 == 0
     n_cb = -(-src_w // w.cols)
     lib = _build.load()
+    args = (
+        src.data_ptr(), iystar_c.data_ptr(), base_v.data_ptr(),
+        w.lohi.data_ptr(), v.data_ptr(), _ptr(vd), batch, src_h, src_w,
+        out_h, ncj, ncc, step, n_col_tiles, col_tile, d_v, method,
+        w.rows, w.cols, w.extent, n_cb, _walkers(n_cb, n_rb), int(vec4),
+    )
+    name = "srw_vertical" if band is None else "srw_vertical_band"
     with torch.cuda.device(src.device):
-        rc = lib.xrt_srw_vertical_f32(
-            src.data_ptr(), iystar_c.data_ptr(), base_v.data_ptr(),
-            w.lohi.data_ptr(), v.data_ptr(), _ptr(vd), batch, src_h, src_w,
-            out_h, ncj, ncc, step, n_col_tiles, col_tile, d_v, method,
-            w.rows, w.cols, w.extent, n_cb, _walkers(n_cb, n_rb), int(vec4),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, "srw_vertical")
-    count_launch("srw_vertical")
+        stream = torch.cuda.current_stream().cuda_stream
+        if band is None:
+            rc = lib.xrt_srw_vertical_f32(*args, stream)
+        else:
+            rc = lib.xrt_srw_vertical_band_f32(*args, *band, stream)
+    _build.check(lib, rc, name)
+    count_launch(name)
     return v, vd
 
 
@@ -286,6 +369,41 @@ def srw_horizontal(
             v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
             interp_method, fill_value, vd,
         )
+    return _launch_horizontal(
+        v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+        interp_method, fill_value, vd, None,
+    )
+
+
+def srw_horizontal_band(
+    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+    interp_method, fill_value, vd=None, row0=0,
+):
+    """K2's band form: the horizontal pass of one mesh band, ``v``
+    holding its rows from global target row *row0*, (B, band rows, out_w)."""
+    tri = interp_method == "triangular"
+    if tri and vd is None:
+        raise ValueError("triangular needs vd")
+    extra = (vd,) if tri else ()
+    if on_cpu(v, ix_c, iy_c, base_h, windows.lohi, *extra):
+        return srw_horizontal_band_plain(
+            v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+            interp_method, fill_value, vd, row0,
+        )
+    if row0 < 0:
+        raise ValueError(f"K2 band: negative first row {row0}")
+    return _launch_horizontal(
+        v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+        interp_method, fill_value, vd, row0,
+    )
+
+
+def _launch_horizontal(
+    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+    interp_method, fill_value, vd, row0,
+):
+    """K2 on CUDA tensors; *row0* None, or the band form's first row."""
+    tri = interp_method == "triangular"
     method = method_code(interp_method)
     if row_tile < 1 or d_h < 1 or step < 1:
         raise ValueError(f"row_tile, d_h and step must be positive: {row_tile}, {d_h}, {step}")
@@ -319,15 +437,20 @@ def srw_horizontal(
     )
     n_rb = -(-out_h // w.rows)
     lib = _build.load()
+    args = (
+        v.data_ptr(), _ptr(vd if tri else None), ix_c.data_ptr(),
+        iy_c.data_ptr(), base_h.data_ptr(), w.lohi.data_ptr(),
+        out.data_ptr(), batch, out_h, out_w, src_h, src_w, ncj, nci, step,
+        row_tile, d_h, method, float(fill_value), w.rows, w.cols,
+        w.extent, n_cb, _walkers(n_cb, n_rb), int(vec4),
+    )
+    name = "srw_horizontal" if row0 is None else "srw_horizontal_band"
     with torch.cuda.device(v.device):
-        rc = lib.xrt_srw_horizontal_f32(
-            v.data_ptr(), _ptr(vd if tri else None), ix_c.data_ptr(),
-            iy_c.data_ptr(), base_h.data_ptr(), w.lohi.data_ptr(),
-            out.data_ptr(), batch, out_h, out_w, src_h, src_w, ncj, nci, step,
-            row_tile, d_h, method, float(fill_value), w.rows, w.cols,
-            w.extent, n_cb, _walkers(n_cb, n_rb), int(vec4),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, "srw_horizontal")
-    count_launch("srw_horizontal")
+        stream = torch.cuda.current_stream().cuda_stream
+        if row0 is None:
+            rc = lib.xrt_srw_horizontal_f32(*args, stream)
+        else:
+            rc = lib.xrt_srw_horizontal_band_f32(*args, row0, stream)
+    _build.check(lib, rc, name)
+    count_launch(name)
     return out

@@ -1,0 +1,28 @@
+"""Multi-device and out-of-core execution: device meshes, tile batches,
+row bands with halo exchange, and the tile stream into a zarr store.
+
+Port of ``xcube_resampling_tpu/parallel``: :func:`sharded_reproject` runs
+the band forms of K1, K2 and K3 on the row bands of a :class:`.mesh.Mesh`
+(``make_mesh(devices=[torch.device("cpu")] * n)`` on the CPU, every CUDA
+device by default), and :func:`resample_to_store` resamples tile by tile
+into a resumable zarr store.  Still to port: the sharded ESW step, the
+sharded rectify and its Phase A.
+"""
+
+from .halo import make_sharded_regrid_step, make_sharded_srw_step, sharded_reproject
+from .mesh import Mesh, make_mesh
+from .stream import resample_to_store
+from .tiling import Sharded, TileBatch, batch_tiles, untile
+
+__all__ = [
+    "Mesh",
+    "Sharded",
+    "TileBatch",
+    "batch_tiles",
+    "make_mesh",
+    "make_sharded_regrid_step",
+    "make_sharded_srw_step",
+    "resample_to_store",
+    "sharded_reproject",
+    "untile",
+]
