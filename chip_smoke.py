@@ -87,8 +87,8 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    downscale form's from the source sectors its taps reach, K8's from the
    quads of its windows and the candidate pixels of their rectangles,
    counted on the card, K1's band form's from the rows of its band its
-   taps reach in each column tile and K3's from the band's pixels its
-   valid taps reach;
+   taps reach in each column tile and K3's and K7's from the band's pixels
+   their valid taps reach;
 5. drives BASELINE #5 (:func:`baseline5`): ``sharded_reproject`` of the
    headline's 20480^2 geometry with 4 float32 bands over a mesh of four
    entries on the card (K1's and K2's band forms after the halo exchange;
@@ -103,12 +103,31 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    tiles, held against one ``resample_in_space``, resumed (0 tiles, then
    1 after deleting a chunk), and a corner target reading a fraction of
    the chunks;
-6. prints the card line again, a JSON line of the kernels and, last,
+6. drives the sharded rectify (:func:`sharded_rectify_phase`) at R1 (16
+   bands, nearest) and R3 (21 bands, bilinear) over a mesh of four entries
+   on the card: ``sharded_rectify`` without a map runs the sharded Phase A
+   (K11 ``hybrid_seed`` and K12 ``hybrid_dense`` on every band) and then
+   K7's band form (``ij_gather_band``) after the halo exchange (first call,
+   warm calls, peak device memory); holds the sharded Phase A to the
+   single-chip ``inverse_ij_map_hybrid`` bit for bit, the hybrid map to
+   K8's (NaN coverage equal, within 1e-9), the sharded raster through K8's
+   map to K7's map form bit for bit for every method, and the default
+   raster to it (NaN masks equal, fewer than 1e-3 of the pixels
+   differing); holds K7's band form (band 0 from a negative offset, the
+   ragged last band, NaN map rows), K11 (two band origins) and K12 (R1 in
+   full; at R3 the first rows of band 1 at the window and band origin the
+   sharded Phase A launches, also against those rows of its band 1) to
+   their plain versions, times them with their bounds (K12's is K8's;
+   K7's band form's from the band's pixels its valid taps reach) beside
+   ``F.grid_sample`` for K7's band form, and prints the hybrid's Phase A
+   beside K8's;
+7. prints the card line again, a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero and prints no result when no CUDA device is visible or
 any phase fails, when K7, K8, K9 or K10 never launched on the rectify
-route, and when a band form never launched on the sharded path.  It imports nothing of JAX or of the JAX package.
+route, when a band form never launched on the sharded path, and when
+K11, K12 or K7's band form never launched on the sharded rectify.  It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -318,6 +337,36 @@ def fused_band_bound(ext, ix_c, iy_c, step, out_h, out_w, interp, fill, row0, of
     n_out = batch * out_h * out_w
     n_bytes = 4 * (n_out + batch * n_tapped + ix_c.numel() + iy_c.numel())
     return bound(n_bytes, 30 * n_out)
+
+
+def gather_band_bound(ext, m, interp, fill, off, src_h):
+    """K7's band form (its wrapper's arguments) must read the map, the
+    pixels of ``ext`` that the taps of its valid pixels (in the band, as
+    the plain version masks them) reach, and write the output; 4 (nearest)
+    or 16 float32 operations a pixel and band, as K7's map form counts."""
+    import torch
+
+    ext_h, src_w = ext.shape[-2:]
+    batch = ext.numel() // (ext_h * src_w)
+    valid = torch.isfinite(m[0]) & torch.isfinite(m[1])
+    ix = m[0][valid].clamp(0, src_w - 1)
+    iy = m[1][valid].clamp(0, src_h - 1)
+    tapped = torch.zeros(ext_h * src_w, dtype=torch.bool, device=ext.device)
+    if interp == "nearest":
+        jy, jx = torch.round(iy).long() - off, torch.round(ix).long()
+        keep = (jy >= 0) & (jy < ext_h)
+        tapped[jy[keep] * src_w + jx[keep]] = True
+    else:
+        x0, y0 = ix.floor().long(), iy.floor().long()
+        y1 = (y0 + 1).clamp(max=src_h - 1)
+        keep = (y0 >= off) & (y1 < off + ext_h)
+        x0, y0, y1 = x0[keep], y0[keep] - off, y1[keep] - off
+        for yy in (y0, y1):
+            for xx in (x0, (x0 + 1).clamp(max=src_w - 1)):
+                tapped[yy * src_w + xx] = True
+    n_out = batch * m.shape[-2] * m.shape[-1]
+    n_bytes = 4 * (batch * int(tapped.sum()) + n_out + m.numel())
+    return bound(n_bytes, n_out * (4 if interp == "nearest" else 16))
 
 
 def ptxas_summary(log: str) -> list[tuple[str, list[int], list[int], list[int]]]:
@@ -717,6 +766,293 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
     )
     shutil.rmtree(work, ignore_errors=True)
     return launches, err, timings, bounds
+
+
+# The sharded rectify: R1 (BASELINE #4's 1189 x 1890 swath onto its
+# 512-tiled grid, 16 float32 bands, nearest) and R3 (the 4865 x 4091
+# granule onto its 1024-tiled grid, 21 float32 bands, bilinear), each over a
+# mesh of 4 entries on the card; the rows of R3's band 1 that K12 is held to
+# its plain version on
+SR_CELLS = (("R1", 1189, 1890, 512, 16, "nearest"), ("R3", 4865, 4091, 1024, 21, "bilinear"))
+SR_KERNELS = ("ij_gather_band", "hybrid_seed", "hybrid_dense")
+SR_SLAB = 256
+
+
+def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
+    """Drive ``sharded_rectify`` at R1 and R3 over a mesh of *mesh_n*
+    entries on *dev* (its default path: the sharded Phase A, K11 and K12 on
+    every band, then K7's band form) and hold it: the sharded Phase A to
+    the single-chip hybrid bit for bit, the hybrid map to K8's within 1e-9
+    with equal NaN coverage, the sharded raster through K8's map to K7's
+    map form bit for bit for every method, the default raster to the one
+    through K8's map (NaN masks equal, fewer than 1e-3 of the pixels
+    differing); each kernel against its plain version.  *h* carries
+    :func:`main`'s helpers.  Returns (launches on the default path, max abs
+    errors, timings, bounds and library calls at R1, R3's kernel times)."""
+    import torch
+
+    from xcube_resampling_tpu_torch import GridMapping
+    from xcube_resampling_tpu_torch import rectify as port_rectify
+    from xcube_resampling_tpu_torch._device import LAUNCHES
+    from xcube_resampling_tpu_torch.constants import UV_DELTA
+    from xcube_resampling_tpu_torch.ops import rectify_ops as ro
+    from xcube_resampling_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_rectify_step,
+        sharded_phase_a,
+        sharded_rectify,
+    )
+
+    nan = float("nan")
+    launches: Counter = Counter()
+    err = dict.fromkeys(SR_KERNELS, 0.0)
+    timings, bounds, r3 = {}, {}, {}
+    library = dict.fromkeys(SR_KERNELS, (None, None))
+    mesh = make_mesh(devices=[dev] * mesh_n)
+    expect = dict.fromkeys(SR_KERNELS, mesh_n)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    def default_path(x, gm, tgt, interp):
+        """One sharded_rectify call on its default path; the launch counts
+        are reset just before it and read just after: K11, K12 and K7's band
+        form once a band, no other kernel."""
+        LAUNCHES.clear()
+        out, dt = timed(lambda: sharded_rectify(x, gm, tgt, mesh, interp_method=interp))
+        got = Counter(LAUNCHES)
+        if dev.type == "cuda" and dict(got) != expect:
+            raise AssertionError(f"sharded_rectify {interp}: launches {dict(got)}, expected "
+                                 f"{expect}")
+        launches.update(got)
+        return out, dt
+
+    def bitwise(a, b, what):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what}: {tuple(a.shape)} {a.dtype} != {tuple(b.shape)} "
+                                 f"{b.dtype}")
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(na, nb) or not torch.equal(a[~na], b[~nb]):
+            raise AssertionError(f"{what}: not equal bit for bit")
+
+    def exact(got, ref, name, what, cls="exact"):
+        err[name] = max(err[name], h.compare(got, ref, cls, f"{what}: {name} vs plain"))
+
+    for cell, width, height, tile_size, n_bands, interp in cells:
+        ds = h.olci_swath(width, height, ("rad",), tile_size=tile_size)
+        gm = GridMapping.from_dataset(ds)
+        tgt = gm.to_regular(tile_size=tile_size)
+        x = torch.stack([ds["rad"].data + k for k in range(n_bands)])
+        del ds
+        # -- the default path: first call, warm calls, peak memory ----------
+        out, first = default_path(x, gm, tgt, interp)
+        del out
+        warm = []
+        for _ in range(3):
+            out, dt = default_path(x, gm, tgt, interp)
+            warm.append(dt)
+            del out
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, _ = default_path(x, gm, tgt, interp)
+        peak = torch.cuda.max_memory_allocated(dev)
+        hyb_raster = out.full()
+        del out
+        # -- Phase A: sharded = single-chip hybrid; hybrid ~ K8 ----------------
+        sw = torch.from_numpy(np.ascontiguousarray(np.asarray(gm.xy_coords.data),
+                                                   dtype=np.float64)).to(dev)
+        x1, y1, x2, y2 = tgt.xy_bbox
+        x_res, y_res = tgt.xy_res
+        j_up = tgt.is_j_axis_up
+        dst = (tgt.height, tgt.width)
+        args = (0, 0, dst, x1, y1 if j_up else y2, x_res, y_res if j_up else -y_res, UV_DELTA)
+        hyb_map = ro.inverse_ij_map_hybrid(sw[0], sw[1], *args).device_map()
+        bitwise(sharded_phase_a(mesh, gm, tgt).full(), hyb_map,
+                f"{cell} sharded Phase A vs the single-chip hybrid")
+        k8 = port_rectify._inverse_ij_map(gm, tgt, UV_DELTA, dev, tier="device")
+        k8_map = k8.device_map()
+        if not torch.equal(torch.isnan(hyb_map), torch.isnan(k8_map)):
+            raise AssertionError(f"{cell}: the hybrid's NaN coverage differs from K8's")
+        d_k8 = (hyb_map - k8_map).nan_to_num(0.0).abs().max().item()
+        if d_k8 > 1e-9:
+            raise AssertionError(f"{cell}: the hybrid map is {d_k8} from K8's")
+        # -- Phase B through K8's map = K7's map form, every method -----------
+        m32 = k8_map.float()
+        valid = torch.isfinite(m32[0]) & torch.isfinite(m32[1])
+        ix, iy = torch.nan_to_num(m32[0], nan=0.0), torch.nan_to_num(m32[1], nan=0.0)
+        for method in METHODS:
+            got = sharded_rectify(x, gm, tgt, mesh, interp_method=method, ij_map=k8).full()
+            bitwise(got, ro.ij_gather(x, ix, iy, valid, method, nan),
+                    f"{cell} sharded rectify through K8's map vs K7's map form, {method}")
+            if method == interp:
+                k8_raster = got
+            del got
+        # -- end to end: the hybrid's raster against K8's ----------------------
+        na, nb = torch.isnan(hyb_raster), torch.isnan(k8_raster)
+        if not torch.equal(na, nb):
+            raise AssertionError(f"{cell}: the raster's NaN masks differ between the maps")
+        share = (hyb_raster[~na] != k8_raster[~nb]).float().mean().item()
+        if share >= 1e-3:
+            raise AssertionError(f"{cell}: {share} of the pixels differ between the maps")
+        del hyb_raster, k8_raster
+        # -- K7's band form vs plain: band 0 from off < 0, the ragged last
+        # band, NaN map rows ------------------------------------------------
+        m_nan = k8_map.clone()
+        m_nan[:, 100:103] = nan
+        m_nan[:, -(-dst[0] // mesh_n) - 1] = nan
+        # (the cell's own method last: its band 1 is timed)
+        for method in [m for m in METHODS if m != interp and cell == "R1"] + [interp]:
+            step, (pad, _) = make_sharded_rectify_step(mesh, m_nan, (gm.height, gm.width),
+                                                       interp_method=method, src_batch_dims=1)
+            xp = torch.nn.functional.pad(x, (0, 0, 0, pad), value=nan)
+            bands, _ = step.bands(xp)
+            halos = step.exchange(bands)
+            for k in range(mesh_n):
+                g_args = step.gather_args(bands, halos, k)
+                exact(ro.ij_gather_band(*g_args), ro.ij_gather_band_plain(*g_args),
+                      "ij_gather_band", f"{cell} band {k} (off {g_args[4]}), {method}")
+        g_args = step.gather_args(bands, halos, 1)
+        k7b = h.time_pair(lambda: ro.ij_gather_band(*g_args),
+                          lambda: ro.ij_gather_band_plain(*g_args), 5)
+        b7b = gather_band_bound(*g_args)
+        shape7 = f"ext {tuple(g_args[0].shape)} -> {tuple(g_args[1].shape[-2:])}"
+        # the F.grid_sample yardstick (corners aligned, border padding) at
+        # the band map's positions in the extended band
+        ext7, m7, off7 = g_args[0], g_args[1].nan_to_num(0.0), g_args[4]
+        grid7 = torch.stack((m7[0].clamp(0, gm.width - 1) / (gm.width - 1) * 2 - 1,
+                             (m7[1].clamp(0, gm.height - 1) - off7) / (ext7.shape[-2] - 1) * 2
+                             - 1), dim=-1)[None]
+
+        def lib7():
+            return torch.nn.functional.grid_sample(ext7[None], grid7, mode=interp,
+                                                   padding_mode="border", align_corners=True)
+
+        lib7_t = (h.event_ms(lib7, 5), h.device_ms(lib7, 5))
+        del step, xp, bands, halos, g_args, m_nan, ext7, m7, grid7
+        # -- K11 and K12 vs plain ------------------------------------------------
+        gx = (sw[0] - args[3]) / args[5]
+        gy = (sw[1] - args[4]) / args[6]
+        edge = float(max(dst))
+        band = -(-(-(-dst[0] // mesh_n)) // 16) * 16
+        for r0 in (0.0, float(band)):
+            got = ro.hybrid_seed(gx, gy, dst, 16, edge, 2, r0=r0)
+            ref = ro.hybrid_seed_plain(gx, gy, dst, 16, edge, 2, r0=r0)
+            for a, b, part in zip(got, ref, ("cqj", "cqi", "meta")):
+                exact(a, b, "hybrid_seed", f"{cell} r0 {r0} {part}")
+        cqj, cqi, meta = got
+        _, need_j, need_i = meta.tolist()
+        wj, wi = ro.hybrid_window(need_j, gm.height), ro.hybrid_window(need_i, gm.width)
+        cqj, cqi, _ = ro.hybrid_seed(gx, gy, dst, 16, edge, 2)
+        seed_args = (gx, gy, dst, 16, edge, 2)
+        k11 = h.time_pair(lambda: ro.hybrid_seed(*seed_args),
+                          lambda: ro.hybrid_seed_plain(*seed_args), 3)
+        b11 = bound(gx.numel() * 16 + cqj.numel() * 8 + 12, 60 * gx.numel(), PEAK_F64)
+        dense_args = (gx, gy, cqj, cqi, dst, UV_DELTA, 16, wj, wi, 2)
+        tested = torch.empty(dst, dtype=torch.int32, device=dev)
+        ro.hybrid_dense(*dense_args, tested=tested)
+        per_px = tested.double().mean().item()
+        tiles = port_rectify._phase_a_tiles(gm, tgt)
+        b12 = h.phase_a_bound(sw, tiles)[:2]
+        if cell == "R1":
+            t_ref = torch.empty_like(tested)
+            exact(ro.hybrid_dense(*dense_args), ro.hybrid_dense_plain(*dense_args, tested=t_ref),
+                  "hybrid_dense", f"{cell} in full", "f64")
+            exact(tested, t_ref, "hybrid_dense", f"{cell} quads tested a pixel")
+            # the plain version (seconds a call, warm from the comparison)
+            # once between two events
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            ro.hybrid_dense_plain(*dense_args)
+            b.record()
+            b.synchronize()
+            k12 = (h.event_ms(lambda: ro.hybrid_dense(*dense_args), 3), a.elapsed_time(b),
+                   h.device_ms(lambda: ro.hybrid_dense(*dense_args), 3))
+        else:
+            # band 1 as sharded_phase_a launches it: its origin, its seed and
+            # the one window of every band's largest needs; the plain
+            # version on its first SR_SLAB rows, against K12 on them and
+            # against those rows of the main path's band 1
+            b_dst = (band, dst[1])
+            metas = torch.stack([ro.hybrid_seed(gx, gy, b_dst, 16, edge, 2, r0=float(k * band))[2]
+                                 for k in range(mesh_n)]).cpu()
+            bwj = ro.hybrid_window(int(metas[:, 1].max()), gm.height)
+            bwi = ro.hybrid_window(int(metas[:, 2].max()), gm.width)
+            b_cqj, b_cqi, _ = ro.hybrid_seed(gx, gy, b_dst, 16, edge, 2, r0=float(band))
+            n_c = SR_SLAB // 16 + 1
+            s_args = (gx, gy, b_cqj[:n_c].contiguous(), b_cqi[:n_c].contiguous(),
+                      (SR_SLAB, dst[1]), UV_DELTA, 16, bwj, bwi, 2)
+            s_ref = ro.hybrid_dense_plain(*s_args, r0=float(band))
+            what = f"{cell} band 1's first {SR_SLAB} rows from {band}, window {bwj}x{bwi}"
+            exact(ro.hybrid_dense(*s_args, r0=float(band)), s_ref, "hybrid_dense", what, "f64")
+            exact(sharded_phase_a(mesh, gm, tgt).bands[1][:, :SR_SLAB], s_ref, "hybrid_dense",
+                  f"{what}, the sharded Phase A's", "f64")
+            del b_cqj, b_cqi, s_args, s_ref
+            # (the plain version is not timed at R3 in full: minutes a call)
+            k12 = (h.event_ms(lambda: ro.hybrid_dense(*dense_args), 3), None,
+                   h.device_ms(lambda: ro.hybrid_dense(*dense_args), 3))
+        # -- the hybrid's Phase A beside K8's, from the swath on the card ------
+        hyb_ms = statistics.median(
+            timed(lambda: ro.inverse_ij_map_hybrid(sw[0], sw[1], *args))[1] for _ in range(3))
+        k8_ms = statistics.median(
+            timed(lambda: ro.rectify_phase_a(sw, port_rectify._phase_a_tiles(gm, tgt, sw),
+                                             UV_DELTA))[1] for _ in range(3))
+        k8_dev = h.device_ms(lambda: ro.rectify_phase_a(sw, tiles, UV_DELTA), 3)
+        npix = dst[0] * dst[1]
+        w = statistics.median(warm)
+        print(
+            f"{tag} sharded_rectify {cell} ({width}x{height} swath, {n_bands} float32 bands "
+            f"-> {dst[1]}x{dst[0]}, {interp}) over a mesh of {mesh_n} x {dev}: first call "
+            f"{first:.3f} s, warm median of 3 {w * 1e3:.2f} ms = "
+            f"{n_bands * npix / w / 1e6:.1f} Mpix/s over the bands, peak device memory "
+            f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+            f"{base / 2**30:.3f} GiB held before it); launches a call {expect}; the sharded "
+            f"Phase A equals the single-chip hybrid bit for bit; the hybrid map vs K8's: NaN "
+            f"coverage equal, max abs diff {d_k8:.3g}; through K8's map the sharded raster "
+            f"equals K7's map form bit for bit (nearest, bilinear, triangular); the default "
+            f"raster vs the one through K8's map: NaN masks equal, {share:.3g} of the pixels "
+            f"differ"
+        )
+        print(
+            f"{tag} {cell} Phase A from the swath on the card, warm median of 3: "
+            f"inverse_ij_map_hybrid {hyb_ms * 1e3:.2f} ms (tile 16, window {wj}x{wi}, "
+            f"{per_px:.1f} quads tested a pixel) against K10's tile plan then K8 "
+            f"{k8_ms * 1e3:.2f} ms; device: hybrid_seed {k11[2]:.4f} + hybrid_dense "
+            f"{k12[2]:.4f} ms against rectify_phase_a {k8_dev:.4f} ms"
+        )
+        print(f"{tag} {cell} ij_gather_band's F.grid_sample yardstick ({interp}): "
+              f"{lib7_t[0]:.4f} ms (device {lib7_t[1]:.4f} ms)")
+        for name, t, b, what in (
+            ("ij_gather_band", k7b, b7b, shape7),
+            ("hybrid_seed", k11, b11, f"{gm.height}x{gm.width} swath, tile 16"),
+            ("hybrid_dense", k12, b12, f"{dst[0]}x{dst[1]}, window {wj}x{wi}"),
+        ):
+            plain = "not timed" if t[1] is None else f"{t[1]:.3f} ms"
+            print(f"{tag} {cell} {name} ({what}): kernel {t[0]:.4f} ms (device {t[2]:.4f} "
+                  f"ms), plain {plain}, bound {b[0]:.4f} ms ({b[1]})")
+            if cell == "R1":
+                timings[name], bounds[name] = t, b
+                if name == "ij_gather_band":
+                    library[name] = lib7_t
+            else:
+                r3[name] = dict(r3_ms=t[0], r3_device_ms=t[2], r3_plain_ms=t[1],
+                                r3_bound_ms=b[0])
+                if name == "ij_gather_band":
+                    r3[name].update(r3_library_ms=lib7_t[0], r3_library_device_ms=lib7_t[1])
+        del x, sw, gx, gy, k8, k8_map, hyb_map, m32, valid, ix, iy, tested, cqj, cqi
+        torch.cuda.empty_cache()
+    print(f"{tag} sharded rectify kernels vs plain: max abs diff "
+          f"{', '.join(f'{k} {v}' for k, v in err.items())}")
+    if dev.type == "cuda":
+        from xcube_resampling_tpu_torch.entry import dryrun_multichip
+
+        _, dt = timed(lambda: dryrun_multichip(mesh_n))
+        print(f"{tag} dryrun_multichip({mesh_n}) on the card ({torch.cuda.device_count()} "
+              f"visible): every sharded path once at tiny shapes in {dt:.3f} s")
+    return launches, err, timings, bounds, library, r3
 
 
 def main() -> int:
@@ -2540,6 +2876,21 @@ def main() -> int:
     bounds.update(b5_bounds)
     library.update(dict.fromkeys(B5_KERNELS, (None, None)))
 
+    # -- 9. the sharded rectify: R1 and R3 over a mesh of 4 entries ----------
+    sr_launches, sr_err, sr_timings, sr_bounds, sr_library, sr_r3 = sharded_rectify_phase(
+        dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
+                                  device_ms=device_ms, olci_swath=olci_swath,
+                                  phase_a_bound=phase_a_bound)
+    )
+    missing = [name for name in SR_KERNELS if sr_launches[name] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the sharded rectify: {missing}")
+    main_launches.update(sr_launches)
+    err.update(sr_err)
+    timings.update(sr_timings)
+    bounds.update(sr_bounds)
+    library.update(sr_library)
+
     missing = [name for name in err if main_launches[name] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -2600,6 +2951,18 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/fused_reproject.cu",
             "xcube_resampling_tpu/parallel/halo.py:169",
         ),
+        "ij_gather_band": (
+            "xcube_resampling_tpu_torch/csrc/ij_gather.cu",
+            "xcube_resampling_tpu/parallel/halo.py:923",
+        ),
+        "hybrid_seed": (
+            "xcube_resampling_tpu_torch/csrc/hybrid_phase_a.cu",
+            "xcube_resampling_tpu/ops/rectify_ops.py:1812",
+        ),
+        "hybrid_dense": (
+            "xcube_resampling_tpu_torch/csrc/hybrid_phase_a.cu",
+            "xcube_resampling_tpu/ops/rectify_ops.py:1887",
+        ),
     }
     kernels = [
         {
@@ -2616,8 +2979,9 @@ def main() -> int:
             # K1, K2: no single PyTorch call computes a tap pass; K3: the
             # F.grid_sample yardstick at the 4326 -> UTM shape; K4 a copy
             # (BASELINE #2's c), the downscale form and K5 torch.nanmean
-            # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 F.grid_sample
-            # (R1, nearest); K8, K9, K10 and the band forms: none
+            # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 and its band
+            # form F.grid_sample (R1, nearest); K8-K12 and the other band
+            # forms: none
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],
@@ -2628,6 +2992,9 @@ def main() -> int:
     # K10 at R3 too (its ms, device_ms and bound above are R1's)
     k10_entry = next(k for k in kernels if k["name"] == "ij_bboxes")
     k10_entry.update(r3_ms=k10_r3[0], r3_device_ms=k10_r3[1], r3_bound_ms=b10)
+    # the sharded rectify's kernels at R3 too (their entries above are R1's)
+    for k in kernels:
+        k.update(sr_r3.get(k["name"], {}))
     print(f"{tag} chip_smoke: {time.perf_counter() - t_start:.1f} s from its start, the "
           f"build included")
     print(card)

@@ -437,8 +437,10 @@ def test_port_never_imports_jax():
     pre-downscale, and the rectify route with a tensor and a numpy
     variable under both Phase A tiers, K10's tile plan and the resident
     Phase B among them), and driving sharded_reproject on a mesh of CPU
-    devices (the band forms of K1, K2 and K3) and resample_to_store into
-    a zarr store, loads no module of JAX or of the JAX package."""
+    devices (the band forms of K1, K2 and K3), resample_to_store into
+    a zarr store and the dry run of every sharded path (the sharded
+    rectify: K11, K12 and K7's band form) loads no module of JAX or of the
+    JAX package."""
     code = (
         "import os, sys\n"
         "import numpy as np, torch\n"
@@ -489,6 +491,8 @@ def test_port_never_imports_jax():
         "n = parallel.resample_to_store(port.Dataset({'v': v}, coords=coords),"
         " t.derive(tile_size=40), store, device='cpu')\n"
         "assert n == 4 and zarrlite.open_dataset(store)['v'].shape == (80, 80)\n"
+        "from xcube_resampling_tpu_torch import entry\n"
+        "entry.dryrun_multichip(2, devices=[torch.device('cpu')] * 2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'xcube_resampling_tpu')]\n"
         "assert not bad, bad\n"

@@ -8,8 +8,12 @@ of the JAX package's, under the same module names; this package imports
 neither JAX nor the JAX package.
 """
 
+from .version import version
+
+__version__ = version
+
 from .affine import affine_transform_dataset, resample_dataset
-from .crs import CRS
+from .crs import CRS, CRS_CRS84, CRS_WGS84, Transformer
 from .gridmapping import GridMapping
 from .rectify import rectify_dataset
 from .reproject import reproject_dataset
@@ -18,12 +22,16 @@ from .xrlite import DataArray, Dataset
 
 __all__ = [
     "CRS",
+    "CRS_CRS84",
+    "CRS_WGS84",
     "DataArray",
     "Dataset",
     "GridMapping",
+    "Transformer",
     "affine_transform_dataset",
     "rectify_dataset",
     "reproject_dataset",
     "resample_dataset",
     "resample_in_space",
+    "version",
 ]

@@ -116,6 +116,23 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _D,
         _I, _P,
     ],
+    # ext, map, out, batch, ext_h, src_w, out_h, out_w, off, src_h, method,
+    # fill, stream
+    "xrt_ij_gather_band_f32": [
+        _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _F, _P,
+    ],
+    # gx, gy, src_h, src_w, r0, dst_h, dst_w, tile, coarse_iters,
+    # refine_iters, max_edge, margin, scratch, qc, cqj, cqi, meta, stream
+    "xrt_hybrid_seed": [
+        _P, _P, _I64, _I64, _D, _I64, _I64, _I64, _I64, _I64, _D, _I64, _P, _P, _P, _P,
+        _P, _P,
+    ],
+    # gx, gy, src_h, src_w, r0, cqj, cqi, dst_h, dst_w, tile, win_j, win_i,
+    # margin, uv_delta, out, tested, stream
+    "xrt_hybrid_dense": [
+        _P, _P, _I64, _I64, _D, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _P, _P,
+        _P,
+    ],
     # x, y, h, w, lattice, n_cols, n_rows, ij_border, table, out, queued,
     # stream
     "xrt_ij_bboxes": [

@@ -1,0 +1,545 @@
+// K11 and K12: the hybrid Phase A of rectify, its seed and its dense
+// acceptance, on normalised swath coordinates (the target's pixel units).
+//
+// Replaces the XLA kernels of xcube_resampling_tpu/ops/rectify_ops.py:
+//   * K11 `hybrid_seed`, _build_hybrid_seed_kernel (:1812-1884): the gate
+//     (every coordinate finite, one orientation for each triangle of every
+//     quad, no quad edge above max_edge), the least-squares affine seed
+//     (_affine_seed :1449-1479), a coarse_iters-step quad walk
+//     (_walk_steps_flat :1421-1446) on every 8th tile corner, a
+//     refine_iters-step walk on the (n_tj + 1, n_ti + 1) tile-corner
+//     lattice, and per axis the window nodes every tile needs:
+//     meta = [gate, need_j, need_i];
+//   * K12 `hybrid_dense`, _build_hybrid_dense_kernel (:1887-2043): per tile
+//     a (win_j x win_i) node window at the corner guesses' minimum less the
+//     margin, clamped into the swath; every pixel centre takes the window
+//     quad of lowest row-major rank whose triangle A or B accepts it, its
+//     (i, j) from that triangle's solve (a product with the reciprocal of
+//     the determinant), NaN where none accepts.
+// Both shift gy by the band origin r0 as they load it (one subtraction, as
+// the sharded Phase A's `gy - r0`, parallel/halo.py:1089-1090); r0 = 0 is
+// the single-chip map.  The working type F is float64 on the H100 (its
+// native float64 keeps the map within 1e-9 of the host tier's); the
+// kernels are templates of it.  a * b - c * d is fma(a, b, -(c * d)) where
+// XLA's CPU backend contracts the JAX kernels' float64 formulas so, and
+// nowhere else (built with -fmad=false): the map equals JAX's bit for bit.
+//
+// K11's bound on the H100: device memory, one read of the two coordinate
+// images.  Its sums take two passes over them (the means, then the centred
+// moments), each a fixed grid of blocks writing partial sums that one block
+// reduces in a fixed order: no float atomics, so repeated runs give the
+// same bits.  The walks are one thread a lattice point (about 1/tile^2 of
+// the target's pixels); the window needs are integer maxima (atomicMax).
+//
+// K12's bound is K8's, which computes the same map from the same swath:
+// its bytes.  What holds it is arithmetic: a pixel tests up to (win_j - 1)
+// x (win_i - 1) quads, some 30 float64 operations each.  Design: one block
+// a tile and one thread a pixel; the block stages its window's nodes and
+// every quad's two reciprocal determinants in shared memory (NaN where a
+// determinant is 0, which rejects as the JAX kernel's `det != 0` does;
+// a 48 x 48 window takes 72 KB, dynamic shared memory above 48 KB), and
+// each thread scans the quads in rank order and stops at the first that
+// accepts: ranks are distinct, so that quad is the JAX kernel's min-by-rank
+// winner.  A warp's threads read the same quad at once (a broadcast).
+#include <cuda_runtime.h>
+
+#include <cfloat>
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+// blocks of the two reduction passes (two an SM of an H100); the scratch
+// the wrapper allocates holds kPartials * 8 + 8 values
+constexpr int kPartials = 264;
+// the coarse lattice: every kCs-th tile corner
+constexpr int kCs = 8;
+constexpr int kWalkThreads = 128;
+
+template <typename F>
+__device__ __forceinline__ F fdet(F px0, F py0, F px1, F py1, F px2, F py2) {
+  return fma(px0 - px1, py0 - py2, -((px0 - px2) * (py0 - py1)));
+}
+
+template <typename F>
+__device__ __forceinline__ F fu(F px, F py, F px0, F py0, F px2, F py2) {
+  return fma(px0 - px, py0 - py2, -((py0 - py) * (px0 - px2)));
+}
+
+template <typename F>
+__device__ __forceinline__ F fv(F px, F py, F px0, F py0, F px1, F py1) {
+  return fma(py0 - py, px0 - px1, -((px0 - px) * (py0 - py1)));
+}
+
+// jnp.max and jnp.min: NaN wins
+template <typename F>
+__device__ __forceinline__ F max_nan(F a, F b) {
+  return (a != a || a > b) ? a : b;
+}
+template <typename F>
+__device__ __forceinline__ F min_nan(F a, F b) {
+  return (a != a || a < b) ? a : b;
+}
+
+// jnp.nan_to_num(x, nan=v): infinities to the type's extremes
+template <typename F>
+__device__ __forceinline__ F nan_to_num(F x, F v) {
+  if (x != x) return v;
+  if (isinf(x)) return x > 0 ? F(DBL_MAX) : F(-DBL_MAX);
+  return x;
+}
+
+// the int32 value of a float as XLA converts it: truncated, saturating
+template <typename F>
+__device__ __forceinline__ int64_t to_int32(F x) {
+  if (x >= F(2147483647.0)) return INT_MAX;
+  if (x <= F(-2147483648.0)) return INT_MIN;
+  return static_cast<int64_t>(static_cast<int>(x));
+}
+
+__device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo, int64_t hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+template <typename F, typename Op>
+__device__ F block_reduce(F v, F* sh, Op op) {
+  sh[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) sh[threadIdx.x] = op(sh[threadIdx.x], sh[threadIdx.x + s]);
+    __syncthreads();
+  }
+  const F r = sh[0];
+  __syncthreads();
+  return r;
+}
+
+template <typename F>
+struct Sum {
+  __device__ F operator()(F a, F b) const { return a + b; }
+};
+template <typename F>
+struct Max {
+  __device__ F operator()(F a, F b) const { return max_nan(a, b); }
+};
+template <typename F>
+struct Min {
+  __device__ F operator()(F a, F b) const { return min_nan(a, b); }
+};
+
+struct Swath {
+  int64_t h, w;
+};
+
+// pass 1, a block a stride of rows: the finite flag, the sums of x and y,
+// the min and max of both triangles' determinants and the longest quad
+// edge; partials[block * 8 + k]
+template <typename F>
+__global__ void __launch_bounds__(kThreads)
+    seed_stats(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
+               F* __restrict__ partials) {
+  __shared__ F sh[kThreads];
+  F sx = 0, sy = 0, fin = 1;
+  F a_min = F(INFINITY), a_max = F(-INFINITY), b_min = F(INFINITY), b_max = F(-INFINITY);
+  F edge = F(-INFINITY);
+  for (int64_t row = blockIdx.x; row < s.h; row += gridDim.x) {
+    for (int64_t col = threadIdx.x; col < s.w; col += kThreads) {
+      const int64_t k = row * s.w + col;
+      const F x = gx[k], y = gy[k] - r0;
+      if (!(isfinite(x) && isfinite(y))) fin = 0;
+      sx += x;
+      sy += y;
+      if (row + 1 < s.h && col + 1 < s.w) {
+        const F p1x = gx[k + 1], p1y = gy[k + 1] - r0;
+        const F p2x = gx[k + s.w], p2y = gy[k + s.w] - r0;
+        const F p3x = gx[k + s.w + 1], p3y = gy[k + s.w + 1] - r0;
+        const F da = fdet(x, y, p1x, p1y, p2x, p2y);
+        const F db = fdet(p3x, p3y, p2x, p2y, p1x, p1y);
+        a_min = min_nan(a_min, da);
+        a_max = max_nan(a_max, da);
+        b_min = min_nan(b_min, db);
+        b_max = max_nan(b_max, db);
+        edge = max_nan(edge, max_nan(max_nan(fabs(p1x - x), fabs(p2x - x)),
+                                     max_nan(fabs(p1y - y), fabs(p2y - y))));
+      }
+    }
+  }
+  F* p = partials + blockIdx.x * 8;
+  const F v[8] = {
+      block_reduce(sx, sh, Sum<F>()),     block_reduce(sy, sh, Sum<F>()),
+      block_reduce(fin, sh, Min<F>()),    block_reduce(a_min, sh, Min<F>()),
+      block_reduce(a_max, sh, Max<F>()),  block_reduce(b_min, sh, Min<F>()),
+      block_reduce(b_max, sh, Max<F>()),  block_reduce(edge, sh, Max<F>())};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 8; ++i) p[i] = v[i];
+  }
+}
+
+// one block: pass 1's partials in a fixed order; stats[0..1] = the means,
+// meta = [gate, INT_MIN, INT_MIN] (the needs are maxima to come)
+template <typename F>
+__global__ void __launch_bounds__(kThreads)
+    seed_finish_stats(const F* __restrict__ partials, int n_part, Swath s, F max_edge,
+                      F* __restrict__ stats, int* __restrict__ meta) {
+  __shared__ F sh[kThreads];
+  F sx = 0, sy = 0, fin = 1;
+  F a_min = F(INFINITY), a_max = F(-INFINITY), b_min = F(INFINITY), b_max = F(-INFINITY);
+  F edge = F(-INFINITY);
+  for (int b = threadIdx.x; b < n_part; b += kThreads) {
+    const F* p = partials + b * 8;
+    sx += p[0];
+    sy += p[1];
+    fin = min_nan(fin, p[2]);
+    a_min = min_nan(a_min, p[3]);
+    a_max = max_nan(a_max, p[4]);
+    b_min = min_nan(b_min, p[5]);
+    b_max = max_nan(b_max, p[6]);
+    edge = max_nan(edge, p[7]);
+  }
+  sx = block_reduce(sx, sh, Sum<F>());
+  sy = block_reduce(sy, sh, Sum<F>());
+  fin = block_reduce(fin, sh, Min<F>());
+  a_min = block_reduce(a_min, sh, Min<F>());
+  a_max = block_reduce(a_max, sh, Max<F>());
+  b_min = block_reduce(b_min, sh, Min<F>());
+  b_max = block_reduce(b_max, sh, Max<F>());
+  edge = block_reduce(edge, sh, Max<F>());
+  if (threadIdx.x == 0) {
+    const F n = F(s.h * s.w);
+    stats[0] = sx / n;
+    stats[1] = sy / n;
+    const bool orient_a = a_max < 0 || a_min > 0;
+    const bool orient_b = b_max < 0 || b_min > 0;
+    meta[0] = fin == 1 && orient_a && orient_b && edge <= max_edge ? 1 : 0;
+    meta[1] = INT_MIN;
+    meta[2] = INT_MIN;
+  }
+}
+
+// pass 2: the centred moments of _affine_seed (sxx, sxy, syy, rix, riy,
+// rjx, rjy, unnormalised)
+template <typename F>
+__global__ void __launch_bounds__(kThreads)
+    seed_moments(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
+                 const F* __restrict__ stats, F* __restrict__ partials) {
+  __shared__ F sh[kThreads];
+  const F xm = stats[0], ym = stats[1];
+  const F im = F(s.w - 1) / F(2), jm = F(s.h - 1) / F(2);
+  F m[7] = {0, 0, 0, 0, 0, 0, 0};
+  for (int64_t row = blockIdx.x; row < s.h; row += gridDim.x) {
+    const F dj = F(row) - jm;
+    for (int64_t col = threadIdx.x; col < s.w; col += kThreads) {
+      const int64_t k = row * s.w + col;
+      const F xc = gx[k] - xm, yc = (gy[k] - r0) - ym;
+      const F di = F(col) - im;
+      m[0] += xc * xc;
+      m[1] += xc * yc;
+      m[2] += yc * yc;
+      m[3] += xc * di;
+      m[4] += yc * di;
+      m[5] += xc * dj;
+      m[6] += yc * dj;
+    }
+  }
+  for (int i = 0; i < 7; ++i) {
+    const F v = block_reduce(m[i], sh, Sum<F>());
+    if (threadIdx.x == 0) partials[blockIdx.x * 8 + i] = v;
+  }
+}
+
+// one block: the moments' partials in a fixed order, then the seed's
+// coefficients: stats[2..5] = ai, bi, aj, bj
+template <typename F>
+__global__ void __launch_bounds__(kThreads)
+    seed_finish_moments(const F* __restrict__ partials, int n_part, Swath s,
+                        F* __restrict__ stats) {
+  __shared__ F sh[kThreads];
+  F m[7] = {0, 0, 0, 0, 0, 0, 0};
+  for (int b = threadIdx.x; b < n_part; b += kThreads) {
+    for (int i = 0; i < 7; ++i) m[i] += partials[b * 8 + i];
+  }
+  for (int i = 0; i < 7; ++i) m[i] = block_reduce(m[i], sh, Sum<F>());
+  if (threadIdx.x == 0) {
+    const F n = F(s.h * s.w);
+    const F sxx = m[0] / n, sxy = m[1] / n, syy = m[2] / n;
+    const F rix = m[3] / n, riy = m[4] / n, rjx = m[5] / n, rjy = m[6] / n;
+    F det_m = fma(sxx, syy, -(sxy * sxy));
+    if (fabs(det_m) < F(1e-30)) det_m = F(1e-30);
+    stats[2] = fma(rix, syy, -(riy * sxy)) / det_m;
+    stats[3] = fma(riy, sxx, -(rix * sxy)) / det_m;
+    stats[4] = fma(rjx, syy, -(rjy * sxy)) / det_m;
+    stats[5] = fma(rjy, sxx, -(rjx * sxy)) / det_m;
+  }
+}
+
+// n_iters steps of the quad walk from (qj, qi) towards the point (px, py)
+template <typename F>
+__device__ void walk(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
+                     int64_t& qj, int64_t& qi, F px, F py, int n_iters) {
+  const int64_t nqj = s.h - 1, nqi = s.w - 1;
+  for (int it = 0; it < n_iters; ++it) {
+    const int64_t k = qj * s.w + qi;
+    const F p0x = gx[k], p1x = gx[k + 1], p2x = gx[k + s.w], p3x = gx[k + s.w + 1];
+    const F p0y = gy[k] - r0, p1y = gy[k + 1] - r0;
+    const F p2y = gy[k + s.w] - r0, p3y = gy[k + s.w + 1] - r0;
+    const F det_a = nan_to_num(fdet(p0x, p0y, p1x, p1y, p2x, p2y), F(0));
+    const F det_b = nan_to_num(fdet(p3x, p3y, p2x, p2y, p1x, p1y), F(0));
+    const F safe_a = det_a == 0 ? F(1) : det_a;
+    const F safe_b = det_b == 0 ? F(1) : det_b;
+    F di, dj;
+    if (det_a != 0) {
+      di = floor(fu(px, py, p0x, p0y, p2x, p2y) / safe_a);
+      dj = floor(fv(px, py, p0x, p0y, p1x, p1y) / safe_a);
+    } else {
+      di = floor(F(1) - fu(px, py, p3x, p3y, p1x, p1y) / safe_b);
+      dj = floor(F(1) - fv(px, py, p3x, p3y, p2x, p2y) / safe_b);
+    }
+    if (!isfinite(di)) di = 0;
+    if (!isfinite(dj)) dj = 0;
+    qi = clamp64(qi + to_int32(di), 0, nqi - 1);
+    qj = clamp64(qj + to_int32(dj), 0, nqj - 1);
+  }
+}
+
+struct Lattice {
+  int64_t n_cj, n_ci, n_tj, n_ti, tile;
+  int coarse_iters, refine_iters;
+};
+
+// the coarse lattice: the affine seed, then coarse_iters walk steps;
+// qc[0 .. n_c) the rows, qc[n_c .. 2 n_c) the columns
+template <typename F>
+__global__ void __launch_bounds__(kWalkThreads)
+    seed_coarse_walk(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
+                     Lattice l, const F* __restrict__ stats, int* __restrict__ qc) {
+  const int64_t n_c = l.n_cj * l.n_ci;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x;
+  if (p >= n_c) return;
+  const F px = F(p % l.n_ci) * F(kCs * l.tile);
+  const F py = F(p / l.n_ci) * F(kCs * l.tile);
+  const F im = F(s.w - 1) / F(2), jm = F(s.h - 1) / F(2);
+  const F dx = px - stats[0], dy = py - stats[1];
+  const int64_t nqj = s.h - 1, nqi = s.w - 1;
+  int64_t qi = to_int32(nan_to_num(fma(stats[3], dy, fma(stats[2], dx, im)), im));
+  int64_t qj = to_int32(nan_to_num(fma(stats[5], dy, fma(stats[4], dx, jm)), jm));
+  qi = clamp64(qi, 0, nqi - 1);
+  qj = clamp64(qj, 0, nqj - 1);
+  walk(gx, gy, r0, s, qj, qi, px, py, l.coarse_iters);
+  qc[p] = static_cast<int>(qj);
+  qc[n_c + p] = static_cast<int>(qi);
+}
+
+// the tile-corner lattice from its coarse corner's quad: refine_iters walk
+// steps
+template <typename F>
+__global__ void __launch_bounds__(kWalkThreads)
+    seed_fine_walk(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
+                   Lattice l, const int* __restrict__ qc, int* __restrict__ cqj,
+                   int* __restrict__ cqi) {
+  const int64_t w = l.n_ti + 1;
+  const int64_t n = (l.n_tj + 1) * w;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x;
+  if (p >= n) return;
+  const int64_t a = p / w, b = p % w;
+  const int64_t c = (a / kCs) * l.n_ci + b / kCs;
+  int64_t qj = qc[c], qi = qc[l.n_cj * l.n_ci + c];
+  walk(gx, gy, r0, s, qj, qi, F(b) * F(l.tile), F(a) * F(l.tile), l.refine_iters);
+  cqj[p] = static_cast<int>(qj);
+  cqi[p] = static_cast<int>(qi);
+}
+
+// per tile the margin-padded quad range of its corners, clamped at the
+// swath's bounds: meta[1], meta[2] = the largest, plus the closing node
+__global__ void __launch_bounds__(kWalkThreads)
+    seed_needs(const int* __restrict__ cqj, const int* __restrict__ cqi, Swath s, Lattice l,
+               int margin, int* __restrict__ meta) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x;
+  if (t >= l.n_tj * l.n_ti) return;
+  const int64_t w = l.n_ti + 1;
+  const int64_t k = (t / l.n_ti) * w + t % l.n_ti;
+  const int64_t corners[4] = {k, k + 1, k + w, k + w + 1};
+  int j_lo = INT_MAX, j_hi = INT_MIN, i_lo = INT_MAX, i_hi = INT_MIN;
+  for (int64_t c : corners) {
+    j_lo = min(j_lo, cqj[c]);
+    j_hi = max(j_hi, cqj[c]);
+    i_lo = min(i_lo, cqi[c]);
+    i_hi = max(i_hi, cqi[c]);
+  }
+  const int need_j = min(j_hi + margin, static_cast<int>(s.h) - 2) - max(j_lo - margin, 0) + 2;
+  const int need_i = min(i_hi + margin, static_cast<int>(s.w) - 2) - max(i_lo - margin, 0) + 2;
+  atomicMax(meta + 1, need_j);
+  atomicMax(meta + 2, need_i);
+}
+
+struct DenseArgs {
+  const double* gx;
+  const double* gy;
+  double r0;
+  Swath s;
+  const int* cqj;
+  const int* cqi;
+  int64_t dst_h, dst_w, n_ti;
+  int win_j, win_i, margin;
+  double u_min, uv_max;
+  double* out;   // (2, dst_h, dst_w)
+  int* tested;   // (dst_h, dst_w) quads each pixel tested, or nullptr
+};
+
+template <typename F, int T>
+__global__ void __launch_bounds__(T * T) hybrid_dense_kernel(const DenseArgs a) {
+  extern __shared__ double smem[];
+  const int wj = a.win_j, wi = a.win_i;
+  const int wqj = wj - 1, wqi = wi - 1, nq = wqj * wqi;
+  F* wx = reinterpret_cast<F*>(smem);
+  F* wy = wx + wj * wi;
+  F* inv_a = wy + wj * wi;
+  F* inv_b = inv_a + nq;
+  const F* gx = a.gx;
+  const F* gy = a.gy;
+  const F r0 = a.r0;
+  const int64_t tj = blockIdx.x / a.n_ti, ti = blockIdx.x % a.n_ti;
+  const int64_t lw = a.n_ti + 1;
+  const int64_t c = tj * lw + ti;
+  const int j_lo = min(min(a.cqj[c], a.cqj[c + 1]), min(a.cqj[c + lw], a.cqj[c + lw + 1]));
+  const int i_lo = min(min(a.cqi[c], a.cqi[c + 1]), min(a.cqi[c + lw], a.cqi[c + lw + 1]));
+  const int64_t base_j = min(max(j_lo - a.margin, 0), static_cast<int>(a.s.h) - wj);
+  const int64_t base_i = min(max(i_lo - a.margin, 0), static_cast<int>(a.s.w) - wi);
+  const int tid = threadIdx.x;
+  for (int k = tid; k < wj * wi; k += T * T) {
+    const int64_t g = (base_j + k / wi) * a.s.w + base_i + k % wi;
+    wx[k] = gx[g];
+    wy[k] = gy[g] - r0;
+  }
+  __syncthreads();
+  for (int q = tid; q < nq; q += T * T) {
+    const int n0 = (q / wqi) * wi + q % wqi;
+    const int n1 = n0 + 1, n2 = n0 + wi, n3 = n0 + wi + 1;
+    const F da = nan_to_num(fdet(wx[n0], wy[n0], wx[n1], wy[n1], wx[n2], wy[n2]), F(0));
+    const F db = nan_to_num(fdet(wx[n3], wy[n3], wx[n2], wy[n2], wx[n1], wy[n1]), F(0));
+    inv_a[q] = da != 0 ? F(1) / da : F(NAN);
+    inv_b[q] = db != 0 ? F(1) / db : F(NAN);
+  }
+  __syncthreads();
+  const int64_t row = tj * T + tid / T, col = ti * T + tid % T;
+  if (row >= a.dst_h || col >= a.dst_w) return;
+  const F px = F(col) + F(0.5), py = F(row) + F(0.5);
+  const F u_min = a.u_min, uv_max = a.uv_max;
+  F out_i = F(NAN), out_j = F(NAN);
+  int q = 0;
+  for (int qj = 0; qj < wqj; ++qj) {
+    for (int qi = 0; qi < wqi; ++qi, ++q) {
+      const int n0 = qj * wi + qi;
+      const F p0x = wx[n0], p0y = wy[n0];
+      const F p1x = wx[n0 + 1], p1y = wy[n0 + 1];
+      const F p2x = wx[n0 + wi], p2y = wy[n0 + wi];
+      const F ua = fu(px, py, p0x, p0y, p2x, p2y) * inv_a[q];
+      const F va = fv(px, py, p0x, p0y, p1x, p1y) * inv_a[q];
+      const F gi = F(base_i + qi), gj = F(base_j + qj);
+      if (ua >= u_min && va >= u_min && ua + va <= uv_max) {
+        out_i = gi + fmin(fmax(ua, F(0)), F(1));
+        out_j = gj + fmin(fmax(va, F(0)), F(1));
+        goto done;
+      }
+      const F p3x = wx[n0 + wi + 1], p3y = wy[n0 + wi + 1];
+      const F ub = fu(px, py, p3x, p3y, p1x, p1y) * inv_b[q];
+      const F vb = fv(px, py, p3x, p3y, p2x, p2y) * inv_b[q];
+      if (ub >= u_min && vb >= u_min && ub + vb <= uv_max) {
+        out_i = (gi + F(1)) - fmin(fmax(ub, F(0)), F(1));
+        out_j = (gj + F(1)) - fmin(fmax(vb, F(0)), F(1));
+        goto done;
+      }
+    }
+  }
+done:
+  const int64_t o = row * a.dst_w + col;
+  a.out[o] = out_i;
+  a.out[a.dst_h * a.dst_w + o] = out_j;
+  if (a.tested != nullptr) a.tested[o] = q < nq ? q + 1 : nq;
+}
+
+template <int T>
+cudaError_t launch_dense(const DenseArgs& a, int64_t n_tiles, size_t smem, cudaStream_t st) {
+  auto kernel = hybrid_dense_kernel<double, T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return rc;
+  }
+  kernel<<<static_cast<unsigned>(n_tiles), T * T, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K11 on float64 (h, w) gx, gy: cqj, cqi (n_tj + 1, n_ti + 1) int32 and
+// meta[3] int32; scratch (kPartials * 8 + 8 float64) and qc (2 n_cj n_ci
+// int32) are the wrapper's.
+extern "C" int xrt_hybrid_seed(const double* gx, const double* gy, int64_t src_h, int64_t src_w,
+                               double r0, int64_t dst_h, int64_t dst_w, int64_t tile,
+                               int64_t coarse_iters, int64_t refine_iters, double max_edge,
+                               int64_t margin, double* scratch, int* qc, int* cqj, int* cqi,
+                               int* meta, void* stream) {
+  if (src_h < 2 || src_w < 2 || src_h * src_w > (int64_t{1} << 31) - 1 || dst_h < 1 ||
+      dst_w < 1 || tile < 1 || coarse_iters < 0 || refine_iters < 0 || margin < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Swath s{src_h, src_w};
+  const int64_t n_tj = (dst_h + tile - 1) / tile, n_ti = (dst_w + tile - 1) / tile;
+  const Lattice l{n_tj / kCs + 2, n_ti / kCs + 2, n_tj, n_ti, tile,
+                  static_cast<int>(coarse_iters), static_cast<int>(refine_iters)};
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int n_part = static_cast<int>(src_h < kPartials ? src_h : kPartials);
+  double* partials = scratch;
+  double* stats = scratch + kPartials * 8;
+  cudaError_t rc;
+  seed_stats<double><<<n_part, kThreads, 0, st>>>(gx, gy, r0, s, partials);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  seed_finish_stats<double><<<1, kThreads, 0, st>>>(partials, n_part, s, max_edge, stats, meta);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  seed_moments<double><<<n_part, kThreads, 0, st>>>(gx, gy, r0, s, stats, partials);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  seed_finish_moments<double><<<1, kThreads, 0, st>>>(partials, n_part, s, stats);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  const int64_t n_c = l.n_cj * l.n_ci;
+  seed_coarse_walk<double><<<static_cast<unsigned>((n_c + kWalkThreads - 1) / kWalkThreads),
+                             kWalkThreads, 0, st>>>(gx, gy, r0, s, l, stats, qc);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  const int64_t n_f = (n_tj + 1) * (n_ti + 1);
+  seed_fine_walk<double><<<static_cast<unsigned>((n_f + kWalkThreads - 1) / kWalkThreads),
+                           kWalkThreads, 0, st>>>(gx, gy, r0, s, l, qc, cqj, cqi);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
+  seed_needs<<<static_cast<unsigned>((n_tj * n_ti + kWalkThreads - 1) / kWalkThreads),
+               kWalkThreads, 0, st>>>(cqj, cqi, s, l, static_cast<int>(margin), meta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12 on float64 (h, w) gx, gy and K11's cqj, cqi: out (2, dst_h, dst_w)
+// float64; tested (dst_h, dst_w) int32 or nullptr.  tile is 16, 12, 8 or 4.
+extern "C" int xrt_hybrid_dense(const double* gx, const double* gy, int64_t src_h,
+                                int64_t src_w, double r0, const int* cqj, const int* cqi,
+                                int64_t dst_h, int64_t dst_w, int64_t tile, int64_t win_j,
+                                int64_t win_i, int64_t margin, double uv_delta, double* out,
+                                int* tested, void* stream) {
+  const int64_t n_tj = (dst_h + tile - 1) / tile, n_ti = (dst_w + tile - 1) / tile;
+  const size_t smem = (2 * win_j * win_i + 2 * (win_j - 1) * (win_i - 1)) * sizeof(double);
+  if (src_h < 2 || src_w < 2 || src_h * src_w > (int64_t{1} << 31) - 1 || dst_h < 1 ||
+      dst_w < 1 || win_j < 2 || win_i < 2 || win_j > src_h || win_i > src_w || margin < 0 ||
+      n_tj * n_ti > INT_MAX || smem > 232448) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DenseArgs a{gx, gy, r0, Swath{src_h, src_w}, cqj, cqi, dst_h, dst_w, n_ti,
+                    static_cast<int>(win_j), static_cast<int>(win_i), static_cast<int>(margin),
+                    -uv_delta, 1.0 + 2 * uv_delta, out, tested};
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  switch (tile) {
+    case 16: rc = launch_dense<16>(a, n_tj * n_ti, smem, st); break;
+    case 12: rc = launch_dense<12>(a, n_tj * n_ti, smem, st); break;
+    case 8: rc = launch_dense<8>(a, n_tj * n_ti, smem, st); break;
+    case 4: rc = launch_dense<4>(a, n_tj * n_ti, smem, st); break;
+    default: rc = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(rc);
+}

@@ -33,6 +33,18 @@
 // dropped: no gain for bilinear, up to a third lost for nearest, whose
 // stores then straddle rows.  Offsets inside a plane are 32-bit (the
 // wrapper refuses planes of 2^31 elements or more), band offsets 64-bit.
+//
+// The band form (ij_gather_band; B = true, float32) is the sharded rectify
+// step's gather, make_sharded_rectify_step.band_step
+// (xcube_resampling_tpu/parallel/halo.py:923-977): the source is one mesh
+// band extended by its halo (ext_h rows, its row 0 at global source row
+// `off`, negative on band 0), the positions are the band's rows of the
+// float32 map itself, valid where both are finite.  The taps clamp to the
+// global source (src_h rows) and take their fractions from the global
+// position, exactly as the map form does; only the integer tap rows are
+// rebased by `off`, and a pixel whose tap rows leave the band (nearest:
+// off <= row < off + ext_h; bilinear and triangular: y0 >= off and y1 <
+// off + ext_h, halo.py:949 and :975) takes the fill.  Its bound is K7's.
 #include "gather_taps.h"
 #include "kernel_types.h"
 
@@ -61,20 +73,31 @@ struct Args {
   int out_w;             // list form: the output's row length
   int64_t out_plane;     // output elements a band
   int64_t src_plane;     // source elements a band
-  xrt::TapBounds tb;
+  xrt::TapBounds tb;     // the band form's: the global source's
   double fill;
+  int64_t off;           // the band form's: the global row of ext's row 0
+  int ext_h;             // the band form's: ext's rows
 };
 
-template <int M, typename T>
+template <int M, typename T, bool B>
 __global__ void __launch_bounds__(kThreads,
                                   std::is_same<T, float>::value ? kMinBlocks : (kMinBlocks + 1) / 2)
     ij_gather_kernel(const Args a) {
   using O = xrt::GatherOut<M, T>;
   const unsigned k = blockIdx.x * kThreads + threadIdx.x;  // the position's index
   if (k >= static_cast<unsigned>(a.n)) return;
-  xrt::Taps t = xrt::taps<M>(a.ix[k], a.iy[k], a.tb);
+  const float ix = a.ix[k], iy = a.iy[k];
+  xrt::Taps t = xrt::taps<M>(ix, iy, a.tb);
   int o = static_cast<int>(k);  // its output pixel in a band
-  if (a.rows != nullptr) {
+  if (B) {
+    // the tap rows at the clamped global row, rebased into ext (the
+    // unsigned offset wraps back into the band wherever t.ok holds)
+    const float iyc = fminf(fmaxf(iy, 0.0f), a.tb.y_max);
+    const int64_t y0 = static_cast<int64_t>(M == xrt::kNearest ? rintf(iyc) : floorf(iyc));
+    const int64_t y1 = y0 + (t.dy != 0u ? 1 : 0);
+    t.ok = isfinite(ix) && isfinite(iy) && y0 >= a.off && y1 < a.off + a.ext_h;
+    t.off -= static_cast<unsigned>(a.off * a.tb.src_w);
+  } else if (a.rows != nullptr) {
     o = a.rows[k] * a.out_w + a.cols[k];
   } else {
     t.ok = a.valid[k] != 0;
@@ -98,15 +121,23 @@ __global__ void __launch_bounds__(kThreads,
   }
 }
 
+unsigned blocks_of(const Args& a) {
+  return static_cast<unsigned>((static_cast<int64_t>(a.n) + kThreads - 1) / kThreads);
+}
+
 template <int M>
 cudaError_t launch(int code, const Args& a, cudaStream_t s) {
-  const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(a.n) + kThreads - 1) /
-                                                kThreads);
   return xrt::with_data_type(code, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    ij_gather_kernel<M, T><<<blocks, kThreads, 0, s>>>(a);
+    ij_gather_kernel<M, T, false><<<blocks_of(a), kThreads, 0, s>>>(a);
     return cudaGetLastError();
   });
+}
+
+template <int M>
+cudaError_t launch_band(const Args& a, cudaStream_t s) {
+  ij_gather_kernel<M, float, true><<<blocks_of(a), kThreads, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -131,13 +162,41 @@ extern "C" int xrt_ij_gather(
   }
   const Args a{src, ix, iy, valid, rows, cols, out, static_cast<int>(n),
                static_cast<int>(batch), static_cast<int>(out_w), out_plane, src_h * src_w,
-               xrt::tap_bounds(src_h, src_w), fill};
+               xrt::tap_bounds(src_h, src_w), fill, 0, 0};
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   switch (method) {
     case xrt::kBilinear: rc = launch<xrt::kBilinear>(code, a, s); break;
     case xrt::kNearest: rc = launch<xrt::kNearest>(code, a, s); break;
     case xrt::kTriangular: rc = launch<xrt::kTriangular>(code, a, s); break;
+    default: rc = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(rc);
+}
+
+// The band form: ext (batch, ext_h, src_w) float32, its row 0 at global
+// source row off of a source src_h rows high; map (2, out_h, out_w)
+// float32 (i, then j); out (batch, out_h, out_w) float32.
+extern "C" int xrt_ij_gather_band_f32(
+    const float* ext, const float* map, float* out, int64_t batch, int64_t ext_h,
+    int64_t src_w, int64_t out_h, int64_t out_w, int64_t off, int64_t src_h, int method,
+    float fill, void* stream) {
+  constexpr int64_t kMaxPlane = (int64_t{1} << 31) - 1;
+  const int64_t n = out_h * out_w;
+  if (ext_h < 1 || src_w < 1 || src_h < 1 || batch < 1 || n < 1 || n > kMaxPlane ||
+      ext_h * src_w > kMaxPlane || src_h * src_w > kMaxPlane || batch > kMaxPlane ||
+      off <= -ext_h || off >= src_h) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{ext, map, map + n, nullptr, nullptr, nullptr, out, static_cast<int>(n),
+               static_cast<int>(batch), static_cast<int>(out_w), n, ext_h * src_w,
+               xrt::tap_bounds(src_h, src_w), fill, off, static_cast<int>(ext_h)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  switch (method) {
+    case xrt::kBilinear: rc = launch_band<xrt::kBilinear>(a, s); break;
+    case xrt::kNearest: rc = launch_band<xrt::kNearest>(a, s); break;
+    case xrt::kTriangular: rc = launch_band<xrt::kTriangular>(a, s); break;
     default: rc = cudaErrorInvalidValue;
   }
   return static_cast<int>(rc);

@@ -1,4 +1,5 @@
-"""Rectify kernels on PyTorch tensors: Phase A (K8) and Phase B (K7, K9).
+"""Rectify kernels on PyTorch tensors: Phase A (K8, K11, K12) and Phase B
+(K7, K9).
 
 Port of ``xcube_resampling_tpu/ops/rectify_ops.py``:
 
@@ -12,12 +13,24 @@ Port of ``xcube_resampling_tpu/ops/rectify_ops.py``:
   host tier does (``rectify._inverse_ij_map_tile``), and is the plain
   version of K8, :func:`rectify_phase_a` (``csrc/rectify_phase_a.cu``),
   which does every tile's work in one launch and equals it bit for bit.
+* :func:`inverse_ij_map_hybrid` (:2200-2394) is the hybrid Phase A on the
+  swath's normalised coordinates: K11 (:func:`hybrid_seed`,
+  ``csrc/hybrid_phase_a.cu``) gates the swath and walks the tile-corner
+  lattice to quad guesses and per-axis window needs; K12
+  (:func:`hybrid_dense`) tests every window quad for every pixel of a tile
+  and keeps the lowest-ranked that accepts, the host kernel's winner.
+  They run in float64; their plain versions carry XLA's fused
+  multiply-adds, so the map equals the JAX package's float64 hybrid bit
+  for bit.  The sharded Phase A runs them band by band
+  (``parallel.halo.sharded_phase_a``).
 * :func:`make_device_var_image_fn` (:2648-2764) is the device Phase B of
   tensor variables over a map the host holds: K7 (``csrc/ij_gather.cu``,
   :func:`ij_gather`) through the map's float32 positions with the map's
   mask, or, for bilinear and triangular where the coarse fields of the map
   hold, the SRW interior on K1/K2 and the edge band through K7's list form
-  (:func:`ij_gather_list`).
+  (:func:`ij_gather_list`).  K7's band form (:func:`ij_gather_band`) is
+  the sharded rectify's gather on one mesh band
+  (``parallel/halo.py:923-977``).
 * :class:`DeviceIJMap` and :func:`make_device_var_image_fn_resident`
   (:1319, :2452-2647) are the resident Phase B over a map that stays on
   the device: the same two forms, the SRW plan from a step lattice of the
@@ -52,9 +65,11 @@ from .exact_gather import exact_gather_ij, unsupported
 from .reproject_ops import (
     MAX_PLANE,
     METHODS,
+    fma64,
     gather_dtype,
     gather_fill,
     gather_interp,
+    interp_taps_f32,
     method_code,
 )
 from .srw import fields_from_ij_map, fields_from_lattice, make_srw_fn, plan_srw
@@ -347,6 +362,428 @@ def rectify_phase_a(swath_xy: torch.Tensor, tiles: PhaseATiles, uv_delta: float)
 
 
 # ---------------------------------------------------------------------------
+# the hybrid Phase A: K11 (seed) and K12 (dense)
+# ---------------------------------------------------------------------------
+
+#: the dense kernel's static window-node buckets (rectify_ops.py:1730)
+_HYBRID_WINS = (8, 12, 16, 20, 24, 28, 32, 36, 40, 48)
+#: (shapes and parameters) -> (tile, win_j, win_i) of the last call with
+#: them, for the optimistic dense dispatch (rectify_ops.py:2306-2385)
+_HYBRID_LAST_WIN: dict = {}
+#: the seed's coarse lattice: every _HYBRID_CS-th tile corner
+_HYBRID_CS = 8
+# (pixel, quad) pairs a chunk of the plain dense version holds
+_DENSE_CHUNK = 1 << 21
+_INT32_MAX = 2**31 - 1
+
+
+# The hybrid's triangle formulas as XLA's CPU backend contracts them in
+# the JAX package's float64 kernels: ``a * b - c * d`` is
+# ``fma(a, b, -(c * d))`` (the JAX map equals this bit for bit, not the
+# plain formulas of _fdet, _fu and _fv above; tests/test_torch_sharded_rectify.py),
+# the single rounding emulated in float64 (reproject_ops.fma64).
+
+
+def _fdet_x(px0, py0, px1, py1, px2, py2):
+    return fma64(px0 - px1, py0 - py2, -((px0 - px2) * (py0 - py1)))
+
+
+def _fu_x(px, py, px0, py0, px2, py2):
+    return fma64(px0 - px, py0 - py2, -((py0 - py) * (px0 - px2)))
+
+
+def _fv_x(px, py, px0, py0, px1, py1):
+    return fma64(py0 - py, px0 - px1, -((px0 - px) * (py0 - py1)))
+
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """Finite float64 *x* truncated toward zero to int32 values, saturating
+    as XLA's conversion does (as int64)."""
+    return x.clamp(-(2**31), _INT32_MAX).to(torch.int64)
+
+
+def _tri_solve_flat(gxf, gyf, w_row, qj, qi, px, py):
+    """Both triangle systems of quad (qj, qi), its corners gathered from
+    the flat coordinate images (``rectify_ops._tri_solve_flat``)."""
+    idx0 = qj * w_row + qi
+    p0x, p1x, p2x, p3x = (gxf[idx0 + d] for d in (0, 1, w_row, w_row + 1))
+    p0y, p1y, p2y, p3y = (gyf[idx0 + d] for d in (0, 1, w_row, w_row + 1))
+    det_a = torch.nan_to_num(_fdet_x(p0x, p0y, p1x, p1y, p2x, p2y), nan=0.0)
+    det_b = torch.nan_to_num(_fdet_x(p3x, p3y, p2x, p2y, p1x, p1y), nan=0.0)
+    safe_a = torch.where(det_a == 0.0, 1.0, det_a)
+    safe_b = torch.where(det_b == 0.0, 1.0, det_b)
+    ua = _fu_x(px, py, p0x, p0y, p2x, p2y) / safe_a
+    va = _fv_x(px, py, p0x, p0y, p1x, p1y) / safe_a
+    ub = _fu_x(px, py, p3x, p3y, p1x, p1y) / safe_b
+    vb = _fv_x(px, py, p3x, p3y, p2x, p2y) / safe_b
+    return det_a, ua, va, det_b, ub, vb
+
+
+def _walk_steps_flat(gxf, gyf, w_row, nqj, nqi, qj, qi, px, py, n_iters):
+    """*n_iters* steps of the quad walk (``rectify_ops._walk_steps_flat``):
+    each solves the current quad's triangle A (triangle B from the far
+    corner where A is degenerate) and jumps floor(u), floor(v) quads."""
+    for _ in range(n_iters):
+        det_a, ua, va, _, ub, vb = _tri_solve_flat(gxf, gyf, w_row, qj, qi, px, py)
+        di = torch.where(det_a != 0.0, torch.floor(ua), torch.floor(1.0 - ub))
+        dj = torch.where(det_a != 0.0, torch.floor(va), torch.floor(1.0 - vb))
+        di = torch.nan_to_num(di, nan=0.0, posinf=0.0, neginf=0.0)
+        dj = torch.nan_to_num(dj, nan=0.0, posinf=0.0, neginf=0.0)
+        qi = (qi + _to_int32(di)).clamp(0, nqi - 1)
+        qj = (qj + _to_int32(dj)).clamp(0, nqj - 1)
+    return qj, qi
+
+
+def _affine_seed(gxf, gyf, src_h, src_w):
+    """The least-squares affine fit (i, j) ~ (gx, gy) over the swath's
+    nodes, centred (``rectify_ops._affine_seed``): (xm, ym, im, jm, ai,
+    bi, aj, bj) with i ~ im + ai (x - xm) + bi (y - ym) and j likewise."""
+    n = src_h * src_w
+    dev = gxf.device
+    ii = torch.arange(src_w, dtype=_F64, device=dev).repeat(src_h)
+    jj = torch.arange(src_h, dtype=_F64, device=dev).repeat_interleave(src_w)
+    xm = gxf.mean()
+    ym = gyf.mean()
+    im = (src_w - 1) / 2.0
+    jm = (src_h - 1) / 2.0
+    xc = gxf - xm
+    yc = gyf - ym
+    sxx = torch.dot(xc, xc) / n
+    sxy = torch.dot(xc, yc) / n
+    syy = torch.dot(yc, yc) / n
+    det_m = fma64(sxx, syy, -(sxy * sxy))
+    det_m = torch.where(det_m.abs() < 1e-30, 1e-30, det_m)
+    rix = torch.dot(xc, ii - im) / n
+    riy = torch.dot(yc, ii - im) / n
+    rjx = torch.dot(xc, jj - jm) / n
+    rjy = torch.dot(yc, jj - jm) / n
+    ai = fma64(rix, syy, -(riy * sxy)) / det_m
+    bi = fma64(riy, sxx, -(rix * sxy)) / det_m
+    aj = fma64(rjx, syy, -(rjy * sxy)) / det_m
+    bj = fma64(rjy, sxx, -(rjx * sxy)) / det_m
+    return xm, ym, im, jm, ai, bi, aj, bj
+
+
+def _hybrid_lattice(dst_shape, tile):
+    """The tile grid (n_tj, n_ti) of a (dst_h, dst_w) target and the
+    coarse lattice (n_cj, n_ci) of every _HYBRID_CS-th tile corner."""
+    n_tj = -(-dst_shape[0] // tile)
+    n_ti = -(-dst_shape[1] // tile)
+    return n_tj, n_ti, n_tj // _HYBRID_CS + 2, n_ti // _HYBRID_CS + 2
+
+
+def _hybrid_corner_walk(gx, gy, dst_shape, tile, coarse_iters, refine_iters):
+    """The affine seed and the two-level walk on the tile-corner lattice
+    (``rectify_ops._hybrid_corner_walk``): quad guesses (qj, qi), int64
+    (n_tj + 1, n_ti + 1), for every corner of the target's tiles."""
+    src_h, src_w = gx.shape
+    nqj, nqi = src_h - 1, src_w - 1
+    n_tj, n_ti, n_cj, n_ci = _hybrid_lattice(dst_shape, tile)
+    cs = _HYBRID_CS
+    dev = gx.device
+    gxf = gx.reshape(-1)
+    gyf = gy.reshape(-1)
+    xm, ym, im, jm, ai, bi, aj, bj = _affine_seed(gxf, gyf, src_h, src_w)
+    pxc = (torch.arange(n_ci, dtype=_F64, device=dev) * (cs * tile))[None, :].expand(n_cj, n_ci)
+    pyc = (torch.arange(n_cj, dtype=_F64, device=dev) * (cs * tile))[:, None].expand(n_cj, n_ci)
+    dx, dy = pxc - xm, pyc - ym
+    qi0 = _to_int32(torch.nan_to_num(fma64(bi, dy, fma64(ai, dx, im)), nan=im))
+    qj0 = _to_int32(torch.nan_to_num(fma64(bj, dy, fma64(aj, dx, jm)), nan=jm))
+    qj_c, qi_c = _walk_steps_flat(
+        gxf, gyf, src_w, nqj, nqi, qj0.clamp(0, nqj - 1), qi0.clamp(0, nqi - 1), pxc, pyc,
+        coarse_iters,
+    )
+    qj_f = qj_c.repeat_interleave(cs, 0).repeat_interleave(cs, 1)[: n_tj + 1, : n_ti + 1]
+    qi_f = qi_c.repeat_interleave(cs, 0).repeat_interleave(cs, 1)[: n_tj + 1, : n_ti + 1]
+    pxf = (torch.arange(n_ti + 1, dtype=_F64, device=dev) * tile)[None, :].expand(n_tj + 1, -1)
+    pyf = (torch.arange(n_tj + 1, dtype=_F64, device=dev) * tile)[:, None].expand(-1, n_ti + 1)
+    return _walk_steps_flat(gxf, gyf, src_w, nqj, nqi, qj_f, qi_f, pxf, pyf, refine_iters)
+
+
+def _hybrid_corner_minmax(c):
+    """Per-tile min and max of the four surrounding corner values."""
+    lo = torch.minimum(torch.minimum(c[:-1, :-1], c[:-1, 1:]), torch.minimum(c[1:, :-1], c[1:, 1:]))
+    hi = torch.maximum(torch.maximum(c[:-1, :-1], c[:-1, 1:]), torch.maximum(c[1:, :-1], c[1:, 1:]))
+    return lo, hi
+
+
+def hybrid_seed_plain(gx, gy, dst_shape, tile, max_edge, margin, r0=0.0, coarse_iters=24,
+                      refine_iters=6):
+    """Plain PyTorch version of K11 (``rectify_ops._build_hybrid_seed_kernel``)
+    on the (h, w) float64 normalised swath coordinates *gx*, *gy* (*gy*
+    shifted by the band origin *r0*, one subtraction): the corner-lattice
+    quad guesses *cqj*, *cqi* (int32, (n_tj + 1, n_ti + 1)) and *meta*
+    (int32, [gate, need_j, need_i]): the gate (finite coordinates, one
+    orientation for every quad's two triangles, no quad edge above
+    *max_edge*) and the window nodes each axis needs to cover every tile's
+    quad range with *margin*, clamped at the swath's bounds."""
+    if r0:
+        gy = gy - r0
+    src_h, src_w = gx.shape
+    p0x, p1x, p2x, p3x = gx[:-1, :-1], gx[:-1, 1:], gx[1:, :-1], gx[1:, 1:]
+    p0y, p1y, p2y, p3y = gy[:-1, :-1], gy[:-1, 1:], gy[1:, :-1], gy[1:, 1:]
+    det_a = _fdet_x(p0x, p0y, p1x, p1y, p2x, p2y)
+    det_b = _fdet_x(p3x, p3y, p2x, p2y, p1x, p1y)
+    finite_ok = torch.isfinite(gx).all() & torch.isfinite(gy).all()
+    orient_a = (det_a.max() < 0) | (det_a.min() > 0)
+    orient_b = (det_b.max() < 0) | (det_b.min() > 0)
+    edge = torch.stack([(p1x - p0x).abs().max(), (p2x - p0x).abs().max(),
+                        (p1y - p0y).abs().max(), (p2y - p0y).abs().max()]).max()
+    gate_ok = finite_ok & orient_a & orient_b & (edge <= max_edge)
+    cqj, cqi = _hybrid_corner_walk(gx, gy, dst_shape, tile, coarse_iters, refine_iters)
+    qj_lo, qj_hi = _hybrid_corner_minmax(cqj)
+    qi_lo, qi_hi = _hybrid_corner_minmax(cqi)
+    need_j = ((qj_hi + margin).clamp(max=src_h - 2) - (qj_lo - margin).clamp(min=0)).max() + 2
+    need_i = ((qi_hi + margin).clamp(max=src_w - 2) - (qi_lo - margin).clamp(min=0)).max() + 2
+    meta = torch.stack([gate_ok.to(torch.int64), need_j, need_i]).to(torch.int32)
+    return cqj.to(torch.int32), cqi.to(torch.int32), meta
+
+
+def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin,
+                       r0=0.0, tested=None):
+    """Plain PyTorch version of K12 (``rectify_ops._build_hybrid_dense_kernel``):
+    the (2, dst_h, dst_w) float64 map.  Per tile a (win_j x win_i) node
+    window at the corner guesses' minimum less *margin*, clamped into the
+    swath; every pixel centre takes the window's lowest-ranked quad whose
+    triangle A or B accepts it (each triangle's solve a product with the
+    reciprocal of its determinant), NaN where none does; *tested*, an int32
+    (dst_h, dst_w) tensor or None, takes the quads each pixel tested in
+    that order.  Tiles go in chunks of about _DENSE_CHUNK (pixel, quad)
+    pairs."""
+    if r0:
+        gy = gy - r0
+    src_h, src_w = gx.shape
+    dst_h, dst_w = dst_shape
+    nqi = src_w - 1
+    n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
+    u_min = -uv_delta
+    uv_max = 1.0 + 2 * uv_delta
+    dev = gx.device
+    qj_lo, _ = _hybrid_corner_minmax(cqj.to(torch.int64))
+    qi_lo, _ = _hybrid_corner_minmax(cqi.to(torch.int64))
+    base_j = (qj_lo - margin).clamp(0, src_h - win_j).reshape(-1)
+    base_i = (qi_lo - margin).clamp(0, src_w - win_i).reshape(-1)
+    n_q = (win_j - 1) * (win_i - 1)
+    n_p = tile * tile
+    out = torch.empty((3, n_tj * n_ti, n_p), dtype=_F64, device=dev)
+    iota = torch.arange(tile, device=dev)
+    wj = torch.arange(win_j, device=dev)
+    wi = torch.arange(win_i, device=dev)
+    no_rank = torch.iinfo(torch.int64).max
+    step = max(1, _DENSE_CHUNK // (n_p * n_q))
+    for t0 in range(0, n_tj * n_ti, step):
+        t = torch.arange(t0, min(t0 + step, n_tj * n_ti), device=dev)
+        bj, bi = base_j[t], base_i[t]
+        rows = (bj[:, None] + wj)[:, :, None]
+        cols = (bi[:, None] + wi)[:, None, :]
+        wx, wy = gx[rows, cols], gy[rows, cols]
+
+        def corner(w, dj, di):  # (T, 1, n_q): one quad corner of every window quad
+            return w[:, dj : dj + win_j - 1, di : di + win_i - 1].reshape(len(t), 1, n_q)
+
+        p0x, p1x, p2x, p3x = (corner(wx, dj, di) for dj, di in ((0, 0), (0, 1), (1, 0), (1, 1)))
+        p0y, p1y, p2y, p3y = (corner(wy, dj, di) for dj, di in ((0, 0), (0, 1), (1, 0), (1, 1)))
+        det_a = torch.nan_to_num(_fdet_x(p0x, p0y, p1x, p1y, p2x, p2y), nan=0.0)
+        det_b = torch.nan_to_num(_fdet_x(p3x, p3y, p2x, p2y, p1x, p1y), nan=0.0)
+        inv_a = 1.0 / torch.where(det_a == 0.0, 1.0, det_a)
+        inv_b = 1.0 / torch.where(det_b == 0.0, 1.0, det_b)
+        qj_g = (bj[:, None, None] + wj[None, :-1, None]).expand(-1, -1, win_i - 1)
+        qi_g = (bi[:, None, None] + wi[None, None, :-1]).expand(-1, win_j - 1, -1)
+        rank = (qj_g * nqi + qi_g).reshape(len(t), 1, n_q)
+        # pixel centres, (T, n_p, 1) row-major over the tile
+        px = ((t % n_ti)[:, None] * tile + iota.repeat(tile)[None, :]).to(_F64) + 0.5
+        py = ((t // n_ti)[:, None] * tile + iota.repeat_interleave(tile)[None, :]).to(_F64) + 0.5
+        px, py = px[:, :, None], py[:, :, None]
+        ua = _fu_x(px, py, p0x, p0y, p2x, p2y) * inv_a
+        va = _fv_x(px, py, p0x, p0y, p1x, p1y) * inv_a
+        ok_a = (det_a != 0.0) & (ua >= u_min) & (va >= u_min) & (ua + va <= uv_max)
+        ub = _fu_x(px, py, p3x, p3y, p1x, p1y) * inv_b
+        vb = _fv_x(px, py, p3x, p3y, p2x, p2y) * inv_b
+        ok_b = (det_b != 0.0) & (ub >= u_min) & (vb >= u_min) & (ub + vb <= uv_max)
+        best, arg = torch.where(ok_a | ok_b, rank, no_rank).min(dim=-1, keepdim=True)
+
+        def at(x):
+            return x.gather(-1, arg)[..., 0]
+
+        gi = (best % nqi)[..., 0].to(_F64)
+        gj = (best // nqi)[..., 0].to(_F64)
+        take_a = at(ok_a)
+        src_if = torch.where(take_a, gi + at(ua).clamp(0.0, 1.0), (gi + 1) - at(ub).clamp(0.0, 1.0))
+        src_jf = torch.where(take_a, gj + at(va).clamp(0.0, 1.0), (gj + 1) - at(vb).clamp(0.0, 1.0))
+        found = best[..., 0] < no_rank
+        out[0, t] = torch.where(found, src_if, _NAN)
+        out[1, t] = torch.where(found, src_jf, _NAN)
+        out[2, t] = torch.where(found, arg[..., 0] + 1, n_q).to(_F64)
+    out = out.reshape(3, n_tj, n_ti, tile, tile).permute(0, 1, 3, 2, 4)
+    out = out.reshape(3, n_tj * tile, n_ti * tile)[:, :dst_h, :dst_w]
+    if tested is not None:
+        tested.copy_(out[2])
+    return out[:2].contiguous()
+
+
+# (csrc/hybrid_phase_a.cu's kPartials * 8 + 8 float64 values)
+_SEED_SCRATCH = 264 * 8 + 8
+_DENSE_TILES = (16, 12, 8, 4)
+
+
+def hybrid_seed(gx, gy, dst_shape, tile, max_edge, margin, r0=0.0, coarse_iters=24,
+                refine_iters=6):
+    """K11: (cqj, cqi, meta) of :func:`hybrid_seed_plain` from (h, w)
+    float64 *gx*, *gy* on the card, *gy* shifted by *r0* as it is read;
+    *meta* stays on the card (the caller fetches its three values)."""
+    if on_cpu(gx, gy):
+        return hybrid_seed_plain(gx, gy, dst_shape, tile, max_edge, margin, r0, coarse_iters,
+                                 refine_iters)
+    src_h, src_w = gx.shape
+    require_cuda(gx, "gx", _F64, (src_h, src_w))
+    require_cuda(gy, "gy", _F64, (src_h, src_w))
+    if src_h < 2 or src_w < 2 or src_h * src_w > _MAX_INDEX:
+        raise ValueError(f"K11 takes swaths of 2 x 2 to 2^31 nodes: {src_h}x{src_w}")
+    n_tj, n_ti, n_cj, n_ci = _hybrid_lattice(dst_shape, tile)
+    dev = gx.device
+    scratch = torch.empty(_SEED_SCRATCH, dtype=_F64, device=dev)
+    qc = torch.empty(2 * n_cj * n_ci, dtype=torch.int32, device=dev)
+    cqj = torch.empty((n_tj + 1, n_ti + 1), dtype=torch.int32, device=dev)
+    cqi = torch.empty_like(cqj)
+    meta = torch.empty(3, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.xrt_hybrid_seed(
+            gx.data_ptr(), gy.data_ptr(), src_h, src_w, float(r0), dst_shape[0], dst_shape[1],
+            tile, coarse_iters, refine_iters, float(max_edge), margin, scratch.data_ptr(),
+            qc.data_ptr(), cqj.data_ptr(), cqi.data_ptr(), meta.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "hybrid_seed")
+    count_launch("hybrid_seed")
+    return cqj, cqi, meta
+
+
+def hybrid_dense(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin, r0=0.0,
+                 tested=None):
+    """K12: the (2, dst_h, dst_w) float64 map of :func:`hybrid_dense_plain`
+    on the card; *tested*, an int32 (dst_h, dst_w) tensor or None, takes
+    the quads each pixel tested."""
+    if on_cpu(gx, gy, cqj, cqi):
+        return hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i,
+                                  margin, r0, tested)
+    src_h, src_w = gx.shape
+    dst_h, dst_w = dst_shape
+    n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
+    require_cuda(gx, "gx", _F64, (src_h, src_w))
+    require_cuda(gy, "gy", _F64, (src_h, src_w))
+    require_cuda(cqj, "cqj", torch.int32, (n_tj + 1, n_ti + 1))
+    require_cuda(cqi, "cqi", torch.int32, (n_tj + 1, n_ti + 1))
+    if tested is not None:
+        require_cuda(tested, "tested", torch.int32, (dst_h, dst_w))
+    if tile not in _DENSE_TILES or not (2 <= win_j <= src_h and 2 <= win_i <= src_w):
+        raise ValueError(f"K12 takes tiles {_DENSE_TILES} and windows inside the swath: "
+                         f"tile {tile}, window {win_j}x{win_i} of {src_h}x{src_w}")
+    out = torch.empty((2, dst_h, dst_w), dtype=_F64, device=gx.device)
+    lib = _build.load()
+    with torch.cuda.device(gx.device):
+        rc = lib.xrt_hybrid_dense(
+            gx.data_ptr(), gy.data_ptr(), src_h, src_w, float(r0), cqj.data_ptr(),
+            cqi.data_ptr(), dst_h, dst_w, tile, win_j, win_i, margin, float(uv_delta),
+            out.data_ptr(), None if tested is None else tested.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "hybrid_dense")
+    count_launch("hybrid_dense")
+    return out
+
+
+def hybrid_window(need: int, src_dim: int) -> int | None:
+    """The smallest window bucket covering *need* nodes of a swath axis of
+    *src_dim* nodes, or None (``inverse_ij_map_hybrid.pick``)."""
+    for bucket in _HYBRID_WINS:
+        if min(bucket, src_dim) >= need:
+            return min(bucket, src_dim)
+    return None
+
+
+def inverse_ij_map_hybrid(
+    src_x,
+    src_y,
+    src_i_min: int,
+    src_j_min: int,
+    dst_shape: tuple[int, int],
+    dst_x_offset: float,
+    dst_y_offset: float,
+    dst_x_scale: float,
+    dst_y_scale: float,
+    uv_delta: float,
+    tile: int = 16,
+    margin: int = 2,
+    coarse_iters: int = 24,
+    refine_iters: int = 6,
+    device="cuda",
+):
+    """The hybrid Phase A (``rectify_ops.inverse_ij_map_hybrid``): K11 seeds
+    the tile corners and K12 resolves every pixel, on the swath's
+    coordinates *src_x*, *src_y* (numpy arrays, or tensors on their own
+    device; else on *device*) normalised as ``(x - offset) / scale`` in
+    float64.  Returns a :class:`DeviceIJMap`, or None where the geometry is
+    outside the hybrid's envelope (the gate refuses it, or no window
+    bucket covers it at any tile of the cascade 16, 12, 8, 4).  The last
+    call of the same shapes lends its window to the first dense launch,
+    which stands where the seed's needs show it covers them."""
+    dst_h, dst_w = dst_shape
+    src_h, src_w = src_x.shape
+    if src_h < 2 or src_w < 2 or dst_h < 4 or dst_w < 4 or src_h * src_w > 2**30:
+        return None
+    if isinstance(src_x, torch.Tensor):
+        device = src_x.device
+    sx = torch.as_tensor(src_x, dtype=_F64).to(device)
+    sy = torch.as_tensor(src_y, dtype=_F64).to(device)
+    gx = (sx - dst_x_offset) / dst_x_scale
+    gy = (sy - dst_y_offset) / dst_y_scale
+    del sx, sy
+    max_edge = float(max(dst_h, dst_w))
+    cap = _HYBRID_WINS[-1]
+    family = ((src_h, src_w), (dst_h, dst_w), float(uv_delta), tile, margin, coarse_iters,
+              refine_iters)
+    guess = _HYBRID_LAST_WIN.get(family)
+    tiles = list(_DENSE_TILES)
+    if guess is not None and guess[0] in tiles:
+        tiles.remove(guess[0])
+        tiles.insert(0, guess[0])
+    rate = None
+    chosen = out = None
+    for t in tiles:
+        if t > tile or dst_h < t or dst_w < t:
+            continue
+        if rate is not None and t != 4 and rate * t + 2 * margin + 4 > cap:
+            continue
+        cqj, cqi, meta = hybrid_seed(gx, gy, dst_shape, t, max_edge, margin,
+                                     coarse_iters=coarse_iters, refine_iters=refine_iters)
+        optimistic = None
+        if guess is not None and guess[0] == t:
+            optimistic = hybrid_dense(gx, gy, cqj, cqi, dst_shape, uv_delta, t, guess[1],
+                                      guess[2], margin)
+        gate_ok, need_j, need_i = meta.tolist()
+        if not gate_ok:
+            return None
+        if optimistic is not None and (guess[1] >= need_j or guess[1] >= src_h) and (
+            guess[2] >= need_i or guess[2] >= src_w
+        ):
+            chosen, out = guess, optimistic
+            break
+        win_j, win_i = hybrid_window(need_j, src_h), hybrid_window(need_i, src_w)
+        if win_j is not None and win_i is not None:
+            chosen = (t, win_j, win_i)
+            out = hybrid_dense(gx, gy, cqj, cqi, dst_shape, uv_delta, t, win_j, win_i, margin)
+            break
+        rate = max(need_j, need_i, 2 * margin + 5) / t
+    if chosen is None:
+        return None
+    _HYBRID_LAST_WIN[family] = chosen
+    if src_i_min or src_j_min:
+        out = out + torch.tensor([src_i_min, src_j_min], dtype=_F64, device=out.device)[:, None, None]
+    return DeviceIJMap(out)
+
+
+# ---------------------------------------------------------------------------
 # K7: the device Phase B gather
 # ---------------------------------------------------------------------------
 
@@ -438,6 +875,63 @@ def _launch_ij_gather(src, ix, iy, valid, rows, cols, out, out_w, interp_method,
         )
     _build.check(lib, rc, "ij_gather")
     count_launch("ij_gather")
+
+
+def ij_gather_band_plain(ext, m, interp_method, fill_value, off, src_h):
+    """Plain PyTorch version of K7's band form
+    (``make_sharded_rectify_step.band_step``): (B, h, w) float32 of the
+    band's float32 map *m* (2, h, w) from ``ext`` (B, ext_h, W), which holds
+    the global source rows from *off* of a source *src_h* rows high."""
+    method_code(interp_method)
+    ext_h, src_w = ext.shape[-2], ext.shape[-1]
+    valid = torch.isfinite(m[0]) & torch.isfinite(m[1])
+    ix = torch.nan_to_num(m[0], nan=0.0).clamp(0, src_w - 1)
+    iy = torch.nan_to_num(m[1], nan=0.0).clamp(0, src_h - 1)
+    if interp_method == "nearest":
+        jx = torch.round(ix).long()
+        jy = torch.round(iy).long()
+        vals = ext[..., (jy - off).clamp(0, ext_h - 1), jx]
+        in_band = (jy >= off) & (jy < off + ext_h)
+    else:
+        x0f = torch.floor(ix)
+        y0f = torch.floor(iy)
+        x0, y0 = x0f.long(), y0f.long()
+        x1 = (x0 + 1).clamp(0, src_w - 1)
+        y1 = (y0 + 1).clamp(0, src_h - 1)
+        y0_l = (y0 - off).clamp(0, ext_h - 1)
+        y1_l = (y1 - off).clamp(0, ext_h - 1)
+        vals = interp_taps_f32(ext[..., y0_l, x0], ext[..., y0_l, x1], ext[..., y1_l, x0],
+                               ext[..., y1_l, x1], ix - x0f, iy - y0f, interp_method)
+        in_band = (y0 >= off) & (y1 < off + ext_h)
+    fill = torch.tensor(fill_value, dtype=_F32, device=ext.device)
+    return torch.where(valid & in_band, vals, fill)
+
+
+def ij_gather_band(ext, m, interp_method, fill_value, off, src_h):
+    """K7's band form: one mesh band's (B, h, w) float32 rectified through
+    its float32 map rows *m* (2, h, w); ``ext`` (B, ext_h, W) float32 holds
+    the global source rows from *off* of a source *src_h* rows high."""
+    if on_cpu(ext, m):
+        return ij_gather_band_plain(ext, m, interp_method, fill_value, off, src_h)
+    batch, ext_h, src_w = ext.shape
+    _, out_h, out_w = m.shape
+    require_cuda(ext, "ext", _F32, (batch, ext_h, src_w))
+    require_cuda(m, "m", _F32, (2, out_h, out_w))
+    if not -ext_h < off < src_h or ext_h * src_w >= MAX_PLANE or src_h * src_w >= MAX_PLANE:
+        raise ValueError(f"K7 band: ext {tuple(ext.shape)} from row {off} of {src_h}")
+    out = torch.empty((batch, out_h, out_w), dtype=_F32, device=ext.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(ext.device):
+        rc = lib.xrt_ij_gather_band_f32(
+            ext.data_ptr(), m.data_ptr(), out.data_ptr(), batch, ext_h, src_w, out_h, out_w,
+            off, src_h, method_code(interp_method), float(fill_value),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "ij_gather_band")
+    count_launch("ij_gather_band")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -168,6 +168,16 @@ def _tap_diff(b, a, dtype):
     return wrap_int(b.long() - a.long(), dtype).float()
 
 
+def interp_taps_f32(v00, v01, v10, v11, fx, fy, interp_method):
+    """The bilinear or triangular value of four float32 taps at fractions
+    *fx*, *fy*, its lerps rounded as XLA's fused multiply-adds."""
+    if interp_method == "triangular":
+        near = fma(fy, v10 - v00, lerp(v00, v01, fx))
+        far = fma(1.0 - fy, v01 - v11, lerp(v11, v10, 1.0 - fx))
+        return torch.where(fx + fy < 1.0, near, far)
+    return lerp(lerp(v00, v01, fx), lerp(v10, v11, fx), fy)
+
+
 def gather_interp(src, ix, iy, interp_method, fill_value, valid=None):
     """Clamp-to-edge gather of ``src`` (..., H, W) at float32 fractional
     source indices, as ``reproject_ops.gather_interp``: masked by *valid*,
@@ -198,12 +208,7 @@ def gather_interp(src, ix, iy, interp_method, fill_value, valid=None):
         v10 = taps[..., y1, x0]
         v11 = taps[..., y1, x1]
         if dtype == _F32:
-            if interp_method == "triangular":
-                near = fma(fy, v10 - v00, lerp(v00, v01, fx))
-                far = fma(1.0 - fy, v01 - v11, lerp(v11, v10, 1.0 - fx))
-                vals = torch.where(fx + fy < 1.0, near, far)
-            else:
-                vals = lerp(lerp(v00, v01, fx), lerp(v10, v11, fx), fy)
+            vals = interp_taps_f32(v00, v01, v10, v11, fx, fy, interp_method)
         else:
             arith = gather_dtype(dtype, interp_method)
             f = fma64 if arith == torch.float64 else fma

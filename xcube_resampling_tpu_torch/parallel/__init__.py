@@ -4,12 +4,22 @@ row bands with halo exchange, and the tile stream into a zarr store.
 Port of ``xcube_resampling_tpu/parallel``: :func:`sharded_reproject` runs
 the band forms of K1, K2 and K3 on the row bands of a :class:`.mesh.Mesh`
 (``make_mesh(devices=[torch.device("cpu")] * n)`` on the CPU, every CUDA
-device by default), and :func:`resample_to_store` resamples tile by tile
-into a resumable zarr store.  Still to port: the sharded ESW step, the
-sharded rectify and its Phase A.
+device by default); :func:`sharded_rectify` runs rectify's Phase A banded
+over the mesh (:func:`sharded_phase_a`: the hybrid seed and dense kernels,
+K11 and K12) and its Phase B through K7's band form
+(:func:`make_sharded_rectify_step`); :func:`resample_to_store` resamples
+tile by tile into a resumable zarr store.  Still to port: the sharded ESW
+step (``make_sharded_esw_step``).
 """
 
-from .halo import make_sharded_regrid_step, make_sharded_srw_step, sharded_reproject
+from .halo import (
+    make_sharded_rectify_step,
+    make_sharded_regrid_step,
+    make_sharded_srw_step,
+    sharded_phase_a,
+    sharded_rectify,
+    sharded_reproject,
+)
 from .mesh import Mesh, make_mesh
 from .stream import resample_to_store
 from .tiling import Sharded, TileBatch, batch_tiles, untile
@@ -20,9 +30,12 @@ __all__ = [
     "TileBatch",
     "batch_tiles",
     "make_mesh",
+    "make_sharded_rectify_step",
     "make_sharded_regrid_step",
     "make_sharded_srw_step",
     "resample_to_store",
+    "sharded_phase_a",
+    "sharded_rectify",
     "sharded_reproject",
     "untile",
 ]

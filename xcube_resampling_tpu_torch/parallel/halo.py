@@ -18,7 +18,13 @@ One process drives every device of the mesh, as JAX's single-controller
 * :func:`sharded_reproject`: the source crop, the SRW where its gates
   admit the mapping and the regrid beyond them.  Where JAX runs its
   sharded ESW step (``halo.py:513``) the port runs the regrid, which that
-  step reproduces (bit-exact nearest, within 2 float32 ulp bilinear).
+  step reproduces (bit-exact nearest, within 2 float32 ulp bilinear);
+* :func:`make_sharded_rectify_step`: rectify's Phase B on bands, K7's band
+  form (``ij_gather_band``) through the rows of the Phase A map that fall
+  to the band's target rows;
+* :func:`sharded_phase_a`: rectify's Phase A banded over the mesh, the
+  hybrid seed and dense kernels (K11, K12) on each band's target rows;
+* :func:`sharded_rectify`: both phases.
 
 Each step returns a :class:`.tiling.Sharded`: one band of target rows a
 mesh entry, on that entry's device.  Float32 tensors only, as on the
@@ -34,7 +40,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..constants import UV_DELTA
 from ..gridmapping import GridMapping
+from ..ops.rectify_ops import (
+    DeviceIJMap,
+    hybrid_dense,
+    hybrid_seed,
+    hybrid_window,
+    ij_gather_band,
+    ij_gather_band_plain,
+)
 from ..ops.reproject_ops import (
     coarse_coord_field,
     fused_reproject_band,
@@ -489,21 +504,21 @@ def make_sharded_srw_step(
 # ---------------------------------------------------------------------------
 
 
-class ShardedRegridStep:
-    """``step(src) -> Sharded``: K3's band form on each band of the padded
-    global source, or of a ``Sharded`` of its bands, after the halo
-    exchange; ``step.plain(src)`` runs its plain version on the same
-    devices."""
+class _BandGatherStep:
+    """A one-pass band step: the halo exchange, then one kernel per band
+    (``_kernels``: the kernel and its plain version) on the band's
+    extension, with the arguments of :meth:`gather_args`.  ``step(src) ->
+    Sharded`` runs the kernel on each band of the padded global source
+    (…, n * band_h, W), or of a ``Sharded`` of its bands;
+    ``step.plain(src)`` runs its plain version on the same devices."""
 
-    def __init__(self, devices, ix_c, iy_c, step, halo, band_h, src_h, src_w,
-                 out_h, out_w, interp_method, fill_value, src_batch_dims):
+    _kernels: tuple
+
+    def __init__(self, devices, halo, band_h, out_h, interp_method, fill_value,
+                 src_batch_dims):
         method_code(interp_method)
         self.devices = tuple(devices)
-        self._fields = _Statics(ix_c=ix_c, iy_c=iy_c)
-        self.step, self.halo, self.band_h = step, halo, band_h
-        self.src_h, self.src_w = src_h, src_w
-        self.out_h, self.out_w = out_h, out_w
-        self.out_band_h = -(-out_h // len(self.devices))
+        self.halo, self.band_h, self.out_h = halo, band_h, out_h
         self.interp_method = interp_method
         self.fill_value = float(fill_value)
         self.src_batch_dims = src_batch_dims
@@ -524,17 +539,14 @@ class ShardedRegridStep:
             return [None] * len(bands)
         return _exchange_halo(bands, self.halo, self.band_h)
 
-    def gather_args(self, bands, halos, k):
-        """K3's band-form arguments for band *k* of *bands*: its extension
-        by its halo from :meth:`exchange` first."""
-        ext = _extend(bands[k], halos[k])
+    def extension(self, bands, halos, k):
+        """Band *k* extended by its halo, and the global source row of its
+        first row."""
         off = k * self.band_h - (self.halo if halos[k] is not None else 0)
-        f = self._fields.on(self.devices[k])
-        return (
-            ext, f["ix_c"], f["iy_c"], self.step, self.out_band_h, self.out_w,
-            self.interp_method, self.fill_value, k * self.out_band_h, off,
-            self.src_h,
-        )
+        return _extend(bands[k], halos[k]), off
+
+    def gather_args(self, bands, halos, k):
+        raise NotImplementedError
 
     def _run(self, src, gather) -> Sharded:
         bands, lead = self.bands(src)
@@ -546,10 +558,37 @@ class ShardedRegridStep:
         return Sharded(out, self.out_h)
 
     def __call__(self, src) -> Sharded:
-        return self._run(src, fused_reproject_band)
+        return self._run(src, self._kernels[0])
 
     def plain(self, src) -> Sharded:
-        return self._run(src, fused_reproject_band_plain)
+        return self._run(src, self._kernels[1])
+
+
+class ShardedRegridStep(_BandGatherStep):
+    """``step(src) -> Sharded``: K3's band form on each band after the
+    halo exchange (:class:`_BandGatherStep`)."""
+
+    _kernels = (fused_reproject_band, fused_reproject_band_plain)
+
+    def __init__(self, devices, ix_c, iy_c, step, halo, band_h, src_h, src_w,
+                 out_h, out_w, interp_method, fill_value, src_batch_dims):
+        super().__init__(devices, halo, band_h, out_h, interp_method, fill_value,
+                         src_batch_dims)
+        self._fields = _Statics(ix_c=ix_c, iy_c=iy_c)
+        self.step = step
+        self.src_h, self.src_w, self.out_w = src_h, src_w, out_w
+        self.out_band_h = -(-out_h // len(self.devices))
+
+    def gather_args(self, bands, halos, k):
+        """K3's band-form arguments for band *k* of *bands*: its extension
+        by its halo from :meth:`exchange` first."""
+        ext, off = self.extension(bands, halos, k)
+        f = self._fields.on(self.devices[k])
+        return (
+            ext, f["ix_c"], f["iy_c"], self.step, self.out_band_h, self.out_w,
+            self.interp_method, self.fill_value, k * self.out_band_h, off,
+            self.src_h,
+        )
 
 
 def make_sharded_regrid_step(
@@ -658,6 +697,219 @@ def sharded_reproject(
             src_batch_dims=src.ndim - 2,
         )
     step_fn, (src_pad_h, out_h) = built
+    if src_pad_h:
+        src = torch.nn.functional.pad(src, (0, 0, 0, src_pad_h), value=fill_value)
+    return step_fn(src)
+
+
+# ---------------------------------------------------------------------------
+# the sharded rectify: Phase A banded over the mesh, Phase B through K7's
+# band form
+# ---------------------------------------------------------------------------
+
+
+def _map_rows(ij_map):
+    """The map's row reader, height and width: ``rows(lo, hi)`` gives the
+    (2, r, W) pieces of global rows [lo, hi) where they lie (one piece of a
+    numpy array, a tensor or a :class:`~..ops.rectify_ops.DeviceIJMap`'s
+    map; one or two bands of a :class:`.tiling.Sharded` map)."""
+    if isinstance(ij_map, DeviceIJMap):
+        ij_map = ij_map.device_map()
+    if isinstance(ij_map, Sharded):
+        bands = ij_map.bands
+        band = bands[0].shape[-2]
+
+        def rows(lo, hi):
+            return [
+                bands[j][:, max(lo, j * band) - j * band : min(hi, (j + 1) * band) - j * band]
+                for j in range(lo // band, -(-hi // band))
+            ]
+
+        return rows, ij_map.out_h, bands[0].shape[-1]
+    if not isinstance(ij_map, torch.Tensor):
+        ij_map = torch.from_numpy(np.ascontiguousarray(ij_map))
+    return (lambda lo, hi: [ij_map[:, lo:hi]]), ij_map.shape[-2], ij_map.shape[-1]
+
+
+class ShardedRectifyStep(_BandGatherStep):
+    """``step(src) -> Sharded``: K7's band form on each band after the
+    halo exchange (:class:`_BandGatherStep`), through the float32 map rows
+    of the band's target rows (*maps*, (2, out_band_h, out_w) on the
+    band's device)."""
+
+    _kernels = (ij_gather_band, ij_gather_band_plain)
+
+    def __init__(self, devices, maps, halo, band_h, src_h, src_w, out_h, interp_method,
+                 fill_value, src_batch_dims):
+        super().__init__(devices, halo, band_h, out_h, interp_method, fill_value,
+                         src_batch_dims)
+        self.maps = maps
+        self.src_h, self.src_w = src_h, src_w
+
+    def gather_args(self, bands, halos, k):
+        """K7's band-form arguments for band *k* of *bands*: its extension
+        by its halo from :meth:`exchange` first."""
+        ext, off = self.extension(bands, halos, k)
+        if ext.shape[-1] != self.src_w:
+            raise ValueError(f"source of width {ext.shape[-1]}, the map's source has {self.src_w}")
+        return ext, self.maps[k], self.interp_method, self.fill_value, off, self.src_h
+
+
+def make_sharded_rectify_step(
+    mesh,
+    ij_map,
+    src_shape: tuple[int, int],
+    axis_name: str = "bands",
+    interp_method: str = "nearest",
+    fill_value: float = np.nan,
+    src_batch_dims: int = 0,
+):
+    """The sharded rectify Phase B over ``mesh[axis_name]``
+    (``halo.py:make_sharded_rectify_step``): the source in proportional row
+    bands, each extended by a halo sized from the map, then K7's band form
+    through the map's rows of the band's target rows.
+
+    *ij_map* (2, out_h, out_w), the Phase A map in global source indices:
+    a numpy array, a tensor, a :class:`~..ops.rectify_ops.DeviceIJMap` or
+    a :class:`.tiling.Sharded` (:func:`sharded_phase_a`'s).  Each band's
+    rows go to its device as float32 (peer copies of the bands they lie in,
+    never through the host); the halo is the largest distance of a band's
+    source rows (nanmin, nanmax + 1 of the map's j on the band's rows,
+    reduced where the rows lie, 2n values fetched) from its proportional
+    source band, plus one row.  Returns ``(step_fn, (src_pad_h, out_h))``;
+    ``step_fn(src)`` takes the float32 source padded by ``src_pad_h`` rows
+    and returns a :class:`.tiling.Sharded` of ``out_h`` target rows."""
+    devices = _axis_devices(mesh, axis_name)
+    n = len(devices)
+    src_h, src_w = src_shape
+    rows, out_h, out_w = _map_rows(ij_map)
+    band_h = -(-src_h // n)
+    out_band_h = -(-out_h // n)
+    src_pad_h = band_h * n - src_h
+
+    inf = float("inf")
+    maps, ends = [], []
+    for k, dev in enumerate(devices):
+        pieces = [p for p in rows(k * out_band_h, min((k + 1) * out_band_h, out_h)) if p.shape[1]]
+        for p in pieces:
+            nan = torch.isnan(p[1])
+            ends.append((k, torch.where(nan, inf, p[1]).amin().to(devices[0]),
+                         torch.where(nan, -inf, p[1]).amax().to(devices[0])))
+        m = torch.full((2, out_band_h, out_w), np.nan, dtype=_F32, device=dev)
+        r = 0
+        for p in pieces:
+            m[:, r : r + p.shape[1]].copy_(p.to(_F32), non_blocking=True)
+            r += p.shape[1]
+        maps.append(m)
+    lo_hi = torch.stack([torch.stack([lo, hi]) for _, lo, hi in ends]).cpu().tolist() if ends else []
+    band_lo: dict[int, float] = {}
+    band_hi: dict[int, float] = {}
+    for (k, _, _), (lo, hi) in zip(ends, lo_hi):
+        band_lo[k] = min(band_lo.get(k, inf), lo)
+        band_hi[k] = max(band_hi.get(k, -inf), hi)
+    need = 0.0
+    for k, lo in band_lo.items():
+        if not np.isfinite(lo):
+            continue
+        hi = band_hi[k] + 1.0
+        need = max(need, k * band_h - lo, hi - (k * band_h + band_h - 1))
+    halo = min(int(np.ceil(max(0.0, need))) + 1, (n - 1) * band_h)
+    step_fn = ShardedRectifyStep(devices, maps, halo, band_h, src_h, src_w, out_h,
+                                 interp_method, fill_value, src_batch_dims)
+    return step_fn, (src_pad_h, out_h)
+
+
+def sharded_phase_a(
+    mesh,
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    axis_name: str = "bands",
+    uv_delta: float | None = None,
+    tile: int = 16,
+    margin: int = 2,
+) -> Sharded | None:
+    """Rectify Phase A banded over ``mesh[axis_name]``
+    (``halo.py:sharded_phase_a``): band ``k`` is the target rows from
+    ``k * band`` (``band``: the rows a band takes, rounded up to *tile*),
+    whose map is the whole target's with the row origin at ``r0 = k *
+    band``: K11 and K12 on the swath's normalised coordinates with ``gy -
+    r0``.  The coordinates are normalised on the first device and copied to
+    each other distinct device once.  K11 runs on
+    every band and the (n, 3) metas come back in one fetch; one window
+    bucket (from the bands' largest needs, the single chip's) serves
+    every band's K12.  Returns the (2, dst_h, dst_w) float64 map as a
+    :class:`.tiling.Sharded` of (2, band, dst_w) bands, or None where the
+    geometry is outside the hybrid's envelope."""
+    if uv_delta is None:
+        uv_delta = UV_DELTA
+    devices = _axis_devices(mesh, axis_name)
+    n = len(devices)
+    dst_h, dst_w = target_gm.height, target_gm.width
+    src_h, src_w = source_gm.height, source_gm.width
+    if src_h < 2 or src_w < 2 or dst_h < 4 * n or dst_w < 4:
+        return None
+    band = -(-(-(-dst_h // n)) // tile) * tile
+    x1, y1, x2, y2 = target_gm.xy_bbox
+    x_res, y_res = target_gm.xy_res
+    j_up = target_gm.is_j_axis_up
+    # normalised on the first device, then copied device to device
+    sw = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(source_gm.xy_coords.data), dtype=np.float64)
+    ).to(devices[0])
+    first = ((sw[0] - x1) / x_res, (sw[1] - (y1 if j_up else y2)) / (y_res if j_up else -y_res))
+    del sw
+    coords = {dev: tuple(c.to(dev) for c in first) for dev in dict.fromkeys(devices)}
+    max_edge = float(max(dst_h, dst_w))
+    seeds = [
+        hybrid_seed(*coords[dev], (band, dst_w), tile, max_edge, margin, r0=float(k * band))
+        for k, dev in enumerate(devices)
+    ]
+    metas = torch.stack([meta.to(devices[0]) for _, _, meta in seeds]).cpu()
+    if not bool(metas[:, 0].all()):
+        return None
+    win_j = hybrid_window(int(metas[:, 1].max()), src_h)
+    win_i = hybrid_window(int(metas[:, 2].max()), src_w)
+    if win_j is None or win_i is None:
+        return None
+    return Sharded([
+        hybrid_dense(*coords[dev], cqj, cqi, (band, dst_w), uv_delta, tile, win_j, win_i,
+                     margin, r0=float(k * band))
+        for k, (dev, (cqj, cqi, _)) in enumerate(zip(devices, seeds))
+    ], dst_h)
+
+
+def sharded_rectify(
+    src,
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    mesh,
+    axis_name: str = "bands",
+    interp_method: str = "nearest",
+    fill_value: float = np.nan,
+    ij_map=None,
+) -> Sharded:
+    """Rectify the float32 band stack *src* (…, H, W) of an irregular swath
+    onto *target_gm* over ``mesh[axis_name]`` (``halo.py:sharded_rectify``):
+    Phase A by :func:`sharded_phase_a` unless *ij_map* is given, or where
+    the hybrid's envelope refuses the geometry the port's single-device
+    Phase A (``rectify._inverse_ij_map``: K8 on the mesh's first device);
+    then Phase B through :func:`make_sharded_rectify_step`.  Returns the
+    target raster as a :class:`.tiling.Sharded`."""
+    if ij_map is None:
+        ij_map = sharded_phase_a(mesh, source_gm, target_gm, axis_name)
+    if ij_map is None:
+        from ..rectify import _inverse_ij_map
+
+        ij_map = _inverse_ij_map(source_gm, target_gm, UV_DELTA, mesh.devices[0])
+    step_fn, (src_pad_h, _) = make_sharded_rectify_step(
+        mesh,
+        ij_map,
+        (source_gm.height, source_gm.width),
+        axis_name=axis_name,
+        interp_method=interp_method,
+        fill_value=fill_value,
+        src_batch_dims=src.ndim - 2,
+    )
     if src_pad_h:
         src = torch.nn.functional.pad(src, (0, 0, 0, src_pad_h), value=fill_value)
     return step_fn(src)
