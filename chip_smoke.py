@@ -6,8 +6,10 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
-   printing each source's registers and spills (ptxas ``-v``), and fails
-   if K6's register kernels spill or use local memory;
+   printing each source's registers and spills (ptxas ``-v``) and those
+   of every instantiation of K1-K3, K7 (map, list and band forms) and
+   K12, and fails if K6's register kernels, K7's band form or K12 spill
+   or use local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
    same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
@@ -113,11 +115,15 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    K8's (NaN coverage equal, within 1e-9), the sharded raster through K8's
    map to K7's map form bit for bit for every method, and the default
    raster to it (NaN masks equal, fewer than 1e-3 of the pixels
-   differing); holds K7's band form (band 0 from a negative offset, the
-   ragged last band, NaN map rows), K11 (two band origins) and K12 (R1 in
+   differing); holds K7's band form (every method at R1 and R3; band 0
+   from a negative offset, the ragged last band, NaN map rows), K11 (two band origins) and K12 (R1 in
    full; at R3 the first rows of band 1 at the window and band origin the
-   sharded Phase A launches, also against those rows of its band 1) to
-   their plain versions, times them with their bounds (K12's is K8's;
+   sharded Phase A launches, also against those rows of its band 1; the
+   hard lattices of :func:`hard_lattices` at tiles 16, 12, 8 and 4: the
+   map, the winner's position and the pairs solved a pixel) to their
+   plain versions, prints K12's pairs solved a pixel (mean, and its
+   warps' maxima) beside the winner's position, times them with their
+   bounds (K12's is K8's;
    K7's band form's from the band's pixels its valid taps reach) beside
    ``F.grid_sample`` for K7's band form, and prints the hybrid's Phase A
    beside K8's;
@@ -778,6 +784,85 @@ SR_KERNELS = ("ij_gather_band", "hybrid_seed", "hybrid_dense")
 SR_SLAB = 256
 
 
+def hard_lattices():
+    """K12's hard inputs at small size: (name, gx, gy, target shape) of
+    swath lattices in the target's pixel units, float64: rotated and
+    sheared, near-collinear slivers (column pairs 1e-12 and 1e-14 and a row
+    pair 1e-9 of an edge apart: determinants that small against the edge
+    products; 1e-14 is past the box's derived range), folded rows, and NaN nodes (an interior node, which is
+    corner p0 of one quad and p3 of another, and the lattice's first and
+    last nodes, p0 and p3 alone)."""
+    jj, ii = np.mgrid[0:44, 0:52].astype(np.float64)
+    a = 0.6
+    rotated = (30 + 0.9 * (np.cos(a) * ii - np.sin(a) * jj),
+               2 + 0.9 * (np.sin(a) * ii + np.cos(a) * jj))
+    sheared = (3 + 1.1 * ii + 0.7 * jj, 2 + 0.3 * ii + 0.95 * jj)
+    sliver_x, sliver_y = (c.copy() for c in sheared)
+    sliver_x[:, 21] = sliver_x[:, 20] + 1e-12 * 1.1
+    sliver_y[:, 21] = sliver_y[:, 20] + 1e-12 * 0.3
+    sliver_x[:, 41] = sliver_x[:, 40] + 1e-14 * 1.1
+    sliver_y[:, 41] = sliver_y[:, 40] + 1e-14 * 0.3
+    sliver_x[31] = sliver_x[30] + 1e-9 * 0.7
+    sliver_y[31] = sliver_y[30] + 1e-9 * 0.95
+    fold_y = sheared[1].copy()
+    fold_y[22:] = fold_y[21] - 0.8 * (fold_y[22:] - fold_y[21])
+    nan_x, nan_y = (c.copy() for c in rotated)
+    nan_x[17, 23] = np.nan
+    nan_y[0, 0] = np.nan
+    nan_x[-1, -1] = np.nan
+    return [("rotated", *rotated, (60, 70)), ("sheared", *sheared, (70, 84)),
+            ("slivers", sliver_x, sliver_y, (70, 84)), ("folded", sheared[0], fold_y, (70, 84)),
+            ("NaN nodes", nan_x, nan_y, (60, 70))]
+
+
+def hybrid_hard_inputs(dev, tag, exact):
+    """Hold K12 to its plain version on :func:`hard_lattices` at every
+    tile size (16, 12, 8, 4): the map, ``tested`` and ``solved`` bit for
+    bit; the seed is K11's, the window its needs' bucket (or the swath's
+    first 48 nodes where none covers them).  *exact* is
+    :func:`sharded_rectify_phase`'s comparison."""
+    import torch
+
+    from xcube_resampling_tpu_torch.constants import UV_DELTA
+    from xcube_resampling_tpu_torch.ops import rectify_ops as ro
+
+    lines = []
+    for name, x, y, dst in hard_lattices():
+        gx, gy = (torch.from_numpy(c).to(dev) for c in (x, y))
+        for tile in (16, 12, 8, 4):
+            cqj, cqi, meta = ro.hybrid_seed(gx, gy, dst, tile, float(max(dst)), 2)
+            _, need_j, need_i = meta.tolist()
+            wj = ro.hybrid_window(need_j, gx.shape[0]) or min(48, gx.shape[0])
+            wi = ro.hybrid_window(need_i, gx.shape[1]) or min(48, gx.shape[1])
+            args = (gx, gy, cqj, cqi, dst, UV_DELTA, tile, wj, wi, 2)
+            got = [torch.empty(dst, dtype=torch.int32, device=dev) for _ in range(4)]
+            what = f"K12 hard input {name}, tile {tile}, window {wj}x{wi}"
+            exact(ro.hybrid_dense(*args, tested=got[0], solved=got[1]),
+                  ro.hybrid_dense_plain(*args, tested=got[2], solved=got[3]), "hybrid_dense",
+                  what, "f64")
+            exact(got[0], got[2], "hybrid_dense", f"{what}: tested")
+            exact(got[1], got[3], "hybrid_dense", f"{what}: solved")
+            if tile == 16:
+                lines.append(f"{name} ({x.shape[0]}x{x.shape[1]} -> {dst[1]}x{dst[0]}, gate "
+                             f"{meta[0].item()}, tile 16): winner position "
+                             f"{got[0].double().mean().item():.1f}, "
+                             f"{got[1].double().mean().item():.2f} pairs solved a pixel")
+    print(f"{tag} K12 equals its plain version (map, tested, solved) on the hard inputs at "
+          f"tiles 16, 12, 8, 4: {'; '.join(lines)}")
+
+
+def warp_solved(solved, tile=16):
+    """Mean and largest of the per-warp maxima of K12's pairs solved a
+    pixel, a warp 32 pixels of a tile (its 32 // *tile* rows)."""
+    import torch
+
+    r = 32 // tile
+    h, w = solved.shape
+    pad = torch.nn.functional.pad(solved[None].float(), (0, -w % tile, 0, -h % r))[0]
+    per_warp = pad.reshape(pad.shape[0] // r, r, pad.shape[1] // tile, tile).amax(dim=(1, 3))
+    return per_warp.mean().item(), per_warp.max().item()
+
+
 def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
     """Drive ``sharded_rectify`` at R1 and R3 over a mesh of *mesh_n*
     entries on *dev* (its default path: the sharded Phase A, K11 and K12 on
@@ -841,6 +926,7 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
     def exact(got, ref, name, what, cls="exact"):
         err[name] = max(err[name], h.compare(got, ref, cls, f"{what}: {name} vs plain"))
 
+    hybrid_hard_inputs(dev, tag, exact)
     for cell, width, height, tile_size, n_bands, interp in cells:
         ds = h.olci_swath(width, height, ("rad",), tile_size=tile_size)
         gm = GridMapping.from_dataset(ds)
@@ -905,7 +991,7 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
         m_nan[:, 100:103] = nan
         m_nan[:, -(-dst[0] // mesh_n) - 1] = nan
         # (the cell's own method last: its band 1 is timed)
-        for method in [m for m in METHODS if m != interp and cell == "R1"] + [interp]:
+        for method in [m for m in METHODS if m != interp] + [interp]:
             step, (pad, _) = make_sharded_rectify_step(mesh, m_nan, (gm.height, gm.width),
                                                        interp_method=method, src_batch_dims=1)
             xp = torch.nn.functional.pad(x, (0, 0, 0, pad), value=nan)
@@ -953,15 +1039,21 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
         b11 = bound(gx.numel() * 16 + cqj.numel() * 8 + 12, 60 * gx.numel(), PEAK_F64)
         dense_args = (gx, gy, cqj, cqi, dst, UV_DELTA, 16, wj, wi, 2)
         tested = torch.empty(dst, dtype=torch.int32, device=dev)
-        ro.hybrid_dense(*dense_args, tested=tested)
+        solved = torch.empty_like(tested)
+        ro.hybrid_dense(*dense_args, tested=tested, solved=solved)
         per_px = tested.double().mean().item()
+        solved_px = solved.double().mean().item()
+        solved_warp = warp_solved(solved)
         tiles = port_rectify._phase_a_tiles(gm, tgt)
         b12 = h.phase_a_bound(sw, tiles)[:2]
         if cell == "R1":
-            t_ref = torch.empty_like(tested)
-            exact(ro.hybrid_dense(*dense_args), ro.hybrid_dense_plain(*dense_args, tested=t_ref),
+            t_ref, s_ref = torch.empty_like(tested), torch.empty_like(tested)
+            exact(ro.hybrid_dense(*dense_args),
+                  ro.hybrid_dense_plain(*dense_args, tested=t_ref, solved=s_ref),
                   "hybrid_dense", f"{cell} in full", "f64")
-            exact(tested, t_ref, "hybrid_dense", f"{cell} quads tested a pixel")
+            exact(tested, t_ref, "hybrid_dense", f"{cell} the winner's position")
+            exact(solved, s_ref, "hybrid_dense", f"{cell} pairs solved a pixel")
+            del t_ref, s_ref
             # the plain version (seconds a call, warm from the comparison)
             # once between two events
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -985,9 +1077,15 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
             n_c = SR_SLAB // 16 + 1
             s_args = (gx, gy, b_cqj[:n_c].contiguous(), b_cqi[:n_c].contiguous(),
                       (SR_SLAB, dst[1]), UV_DELTA, 16, bwj, bwi, 2)
-            s_ref = ro.hybrid_dense_plain(*s_args, r0=float(band))
+            got = [torch.empty((SR_SLAB, dst[1]), dtype=torch.int32, device=dev)
+                   for _ in range(4)]
+            s_ref = ro.hybrid_dense_plain(*s_args, r0=float(band), tested=got[2], solved=got[3])
             what = f"{cell} band 1's first {SR_SLAB} rows from {band}, window {bwj}x{bwi}"
-            exact(ro.hybrid_dense(*s_args, r0=float(band)), s_ref, "hybrid_dense", what, "f64")
+            exact(ro.hybrid_dense(*s_args, r0=float(band), tested=got[0], solved=got[1]), s_ref,
+                  "hybrid_dense", what, "f64")
+            exact(got[0], got[2], "hybrid_dense", f"{what}: the winner's position")
+            exact(got[1], got[3], "hybrid_dense", f"{what}: pairs solved a pixel")
+            del got
             exact(sharded_phase_a(mesh, gm, tgt).bands[1][:, :SR_SLAB], s_ref, "hybrid_dense",
                   f"{what}, the sharded Phase A's", "f64")
             del b_cqj, b_cqi, s_args, s_ref
@@ -1018,8 +1116,11 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
         )
         print(
             f"{tag} {cell} Phase A from the swath on the card, warm median of 3: "
-            f"inverse_ij_map_hybrid {hyb_ms * 1e3:.2f} ms (tile 16, window {wj}x{wi}, "
-            f"{per_px:.1f} quads tested a pixel) against K10's tile plan then K8 "
+            f"inverse_ij_map_hybrid {hyb_ms * 1e3:.2f} ms (tile 16, window {wj}x{wi}; "
+            f"the winner's position in the window {per_px:.1f} (the first design's quads "
+            f"tested a pixel), pairs solved a pixel {solved_px:.3f}, warp maximum "
+            f"{solved_warp[0]:.2f} on average, {solved_warp[1]:.0f} at most) against K10's "
+            f"tile plan then K8 "
             f"{k8_ms * 1e3:.2f} ms; device: hybrid_seed {k11[2]:.4f} + hybrid_dense "
             f"{k12[2]:.4f} ms against rectify_phase_a {k8_dev:.4f} ms"
         )
@@ -1042,7 +1143,7 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
                                 r3_bound_ms=b[0])
                 if name == "ij_gather_band":
                     r3[name].update(r3_library_ms=lib7_t[0], r3_library_device_ms=lib7_t[1])
-        del x, sw, gx, gy, k8, k8_map, hyb_map, m32, valid, ix, iy, tested, cqj, cqi
+        del x, sw, gx, gy, k8, k8_map, hyb_map, m32, valid, ix, iy, tested, solved, cqj, cqi
         torch.cuda.empty_cache()
     print(f"{tag} sharded rectify kernels vs plain: max abs diff "
           f"{', '.join(f'{k} {v}' for k, v in err.items())}")
@@ -1138,11 +1239,20 @@ def main() -> int:
                   f"{max(k[3] for k in regs_k)} bytes of stack frame")
         if build.log and (not regs_k or any(k[2] or k[3] for k in regs_k)):
             raise AssertionError(f"K6's {cap}-tap register kernels spill or are missing")
-    # K1, K2 and K3, single-chip (Lb0E) and band form (Lb1E), per method
-    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel"):
+    # K1, K2 and K3, single-chip (Lb0E) and band form (Lb1E), per method;
+    # K7's map and list forms per method and dtype, its band form per
+    # method, K12 per tile
+    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel",
+                    "ij_gather_kernel", "ij_gather_band_kernel", "hybrid_dense_kernel"):
         for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
             print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
                   f"stack frame")
+    # K7's band form and K12: no spill, no local memory
+    for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4)):
+        found = ptxas_kernels(build.log, pattern)
+        if build.log and (len(found) != n or any(k[2] or k[3] for k in found)):
+            raise AssertionError(f"{pattern}: {len(found)} of {n} kernels, spilling or with "
+                                 f"a stack frame: {found}")
     _build.load()
 
     nan = float("nan")

@@ -128,10 +128,10 @@ _SIGNATURES = {
         _P, _P,
     ],
     # gx, gy, src_h, src_w, r0, cqj, cqi, dst_h, dst_w, tile, win_j, win_i,
-    # margin, uv_delta, out, tested, stream
+    # margin, uv_delta, out, tested, solved, stream
     "xrt_hybrid_dense": [
         _P, _P, _I64, _I64, _D, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _P, _P,
-        _P,
+        _P, _P,
     ],
     # x, y, h, w, lattice, n_cols, n_rows, ij_border, table, out, queued,
     # stream

@@ -32,15 +32,66 @@
 // the target's pixels); the window needs are integer maxima (atomicMax).
 //
 // K12's bound is K8's, which computes the same map from the same swath:
-// its bytes.  What holds it is arithmetic: a pixel tests up to (win_j - 1)
-// x (win_i - 1) quads, some 30 float64 operations each.  Design: one block
-// a tile and one thread a pixel; the block stages its window's nodes and
-// every quad's two reciprocal determinants in shared memory (NaN where a
-// determinant is 0, which rejects as the JAX kernel's `det != 0` does;
-// a 48 x 48 window takes 72 KB, dynamic shared memory above 48 KB), and
-// each thread scans the quads in rank order and stops at the first that
-// accepts: ranks are distinct, so that quad is the JAX kernel's min-by-rank
-// winner.  A warp's threads read the same quad at once (a broadcast).
+// its bytes.  What holds it is arithmetic.  The first design (one thread a
+// pixel scanning the window's quads in rank order to the first that
+// accepts) solved 357 quads a pixel at R3 (24 x 28 nodes, 621 quads), some
+// 30 float64 operations each, 131x the bound: almost every test was of a
+// quad nowhere near the pixel.  Design: solve only the (pixel, triangle)
+// pairs that can accept.
+//   1. One block a tile (a thread a pixel) stages its window's nodes in
+//      shared memory, 16 B a node.
+//   2. Pass 1, a thread a quad (strided over the window): a quad whose
+//      nodes lie off the tile's pixels by more than its triangles' boxes
+//      can grow (and whose triangles are dropped or well conditioned) has
+//      no pair; the others, some 200 of R3's 621, are listed in shared
+//      memory, in no order.
+//   3. Pass 2, a thread a listed quad: its two reciprocal determinants
+//      (NaN where a determinant is 0 or NaN: that triangle never accepts;
+//      kept in shared memory, 16 B a quad) and each triangle's box
+//      (below), clipped to the tile's pixels.  The thread solves each pair
+//      (pixel, triangle) in the clip and, where it accepts, lowers the
+//      pixel's key (2 * rank + 0 for triangle A, 1 for B) with a shared
+//      atomicMin.  The least key is the scan's winner: the lowest-ranked
+//      quad that accepts, through A where A accepts; the order of the
+//      list and of the atomics does not matter.
+//   4. Each thread solves its pixel's winner once more, as the first
+//      design did (the same operations in the same order), for the map
+//      and `tested` (the winner's position in the window's rank order,
+//      plus one); `solved` (optional) takes the pairs solved a pixel.
+// Measured on an H100 80GB HBM3 at 700 W at R3 (1.76 pairs solved a
+// pixel): the first design 28.5 ms; a lane a pixel, each warp walking
+// the window's quads 32 at a time (a ballot skipping chunks no box met, a
+// warp scan spreading the pairs over the lanes) 3.34 ms, the walk costing
+// more than the solves it saved; one pass, a thread a quad, 2.46 ms, its
+// warps mixing culled quads with solved ones; the two passes 2.14 ms at
+// 72 registers, 1.87 at the cap of 64 (kDenseMinBlocks = 4 blocks an SM,
+// no spill).  The per-quad differences of fu and fv are not staged: each
+// pair is solved once, where four subtractions cost what four shared
+// loads would.
+// The box (tri_box): p = Q0 + u e1 + v e2 with e1 = Q1 - Q0, e2 = Q2 - Q0
+// (triangle A: Q = p0, p1, p2; B: p3, p2, p1), u = fu / det.  The kernel
+// accepts where its rounded u, v satisfy u, v >= -delta and u + v <= 1 +
+// 2 delta (delta = uv_delta).  Let P = (|e1x| + |e2x|)(|e1y| + |e2y|),
+// k = P / |det| and eps = 2^-53.  fu = fma(a, b, -(c d)), each factor one
+// rounded difference, is within 4.02 eps (|dx e2y| + |dy e2x|) of the
+// exact value, and |dx e2y| + |dy e2x| <= 2 (|u*| + |v*|) P for the exact
+// u*, v*; the determinant likewise within 4.02 eps P; the reciprocal and
+// the product round twice more.  So |u - u*| <= 24 eps k S + 3 eps |u|
+// with S = |u*| + |v*|.  A pair that accepts has |u|, |v| <= 1 + 3 delta,
+// hence, where eps k <= 1e-4, S <= 2.03 (1 + 3 delta) and |u - u*| <= E =
+// eps (1 + 3 delta)(51 k + 8) (twice the bound's constants: the plain
+// version's emulated fma rounds twice, and underflow adds at most
+// 2^-1075 an operation, negligible where 2^-500 <= P <= 2^500).  The
+// exact u*, v* then lie in u, v >= -(delta + E), u + v <= 1 + b with b =
+// (uv_max - 1) + 2 E + 4 eps, a triangle whose corners lie within (delta
+// + E + b)(|e1x| + |e2x|) of Q0, Q1, Q2 in x (y alike): the box is the
+// nodes' box grown by that, plus 2^-40 (1 + |node| + pad) for its own
+// roundings.  A triangle whose determinant is
+// 0 or NaN gets an empty box; one outside eps k <= 1e-4 or that range of
+// P (slivers, infinite nodes) gets a box covering every pixel: it is
+// tested by every pixel, never dropped.  rectify_ops.hybrid_tri_boxes is
+// the plain mirror of tri_box and of the clipping (the CPU tests hold
+// every accepting pair inside its box).
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -373,6 +424,85 @@ __global__ void __launch_bounds__(kWalkThreads)
   atomicMax(meta + 2, need_i);
 }
 
+// K12's cull constants, from the accept test's u_min = -delta and uv_max:
+// E = c1 k + c0, the pad's barycentric width m = base + 3 E (tri_box),
+// pad_max the largest m where the box is derived (eps k <= 1e-4)
+struct Cull {
+  double c1, c0, base, pad_max;
+};
+
+constexpr double kEps = 0x1p-53;
+constexpr double kCullKMax = 1e-4 / kEps;
+constexpr double kCullPMin = 0x1p-500;
+constexpr double kCullPMax = 0x1p500;
+constexpr double kCullSlack = 0x1p-40;
+// a quad's reach past its nodes' box, relative to their magnitude: more
+// than tri_box's slack and roundings
+constexpr double kCullReach = 0x1p-30;
+
+__host__ __device__ inline Cull cull_of(double u_min, double uv_max) {
+  const double d = -u_min;
+  const double c = kEps * (1 + 3 * d);
+  const double base = d + (uv_max - 1) + 4 * kEps;
+  return Cull{c * 51, c * 8, base, base + 3.0 * (c * 51 * kCullKMax + c * 8)};
+}
+
+struct Box {
+  double x_lo, x_hi, y_lo, y_hi;
+};
+
+// The box, in pixel-centre coordinates, outside which triangle (q0, q1,
+// q2) with reciprocal determinant inv cannot accept (the derivation
+// above); empty where inv is NaN, every pixel where the bound is not small.
+__device__ __forceinline__ Box tri_box(double q0x, double q0y, double q1x, double q1y,
+                                       double q2x, double q2y, double inv, const Cull& c) {
+  if (inv != inv) return Box{INFINITY, -INFINITY, INFINITY, -INFINITY};
+  const double e1x = q1x - q0x, e1y = q1y - q0y, e2x = q2x - q0x, e2y = q2y - q0y;
+  const double sx = fabs(e1x) + fabs(e2x), sy = fabs(e1y) + fabs(e2y);
+  const double p = sx * sy;
+  const double k = p * fabs(inv);
+  if (!(k <= kCullKMax && p >= kCullPMin && p <= kCullPMax)) {
+    return Box{-INFINITY, INFINITY, -INFINITY, INFINITY};
+  }
+  const double e = c.c1 * k + c.c0;
+  const double m = c.base + 3.0 * e;
+  const double mx = m * sx, my = m * sy;
+  const double xlo = fmin(q0x, fmin(q1x, q2x)), xhi = fmax(q0x, fmax(q1x, q2x));
+  const double ylo = fmin(q0y, fmin(q1y, q2y)), yhi = fmax(q0y, fmax(q1y, q2y));
+  return Box{(xlo - mx) - kCullSlack * ((1.0 + fabs(xlo)) + mx),
+             (xhi + mx) + kCullSlack * ((1.0 + fabs(xhi)) + mx),
+             (ylo - my) - kCullSlack * ((1.0 + fabs(ylo)) + my),
+             (yhi + my) + kCullSlack * ((1.0 + fabs(yhi)) + my)};
+}
+
+// Whether triangle (q0, q1, q2) is dropped (its determinant, as K12
+// computes it, 0 or NaN) or surely inside tri_box's derived range (k at
+// most half its limit, no division): its box then lies inside its nodes'
+// box grown by pad_max
+__device__ __forceinline__ bool sure(double q0x, double q0y, double q1x, double q1y,
+                                     double q2x, double q2y) {
+  const double det = nan_to_num(fdet(q0x, q0y, q1x, q1y, q2x, q2y), 0.0);
+  const double p = (fabs(q1x - q0x) + fabs(q2x - q0x)) * (fabs(q1y - q0y) + fabs(q2y - q0y));
+  return det == 0 || (p <= (kCullKMax / 2) * fabs(det) && p >= kCullPMin && p <= kCullPMax);
+}
+
+// The pixels of a tile inside box b: tile-local columns c0..c1 and rows
+// r0..r1 (of n_cols x n_rows from (x0, y0)) packed a byte each into *rect;
+// returns their count (0 where none).  Pixel (col, row) has its centre at
+// (col + 0.5, row + 0.5).
+__device__ __forceinline__ int clip_box(const Box& b, double x0, double y0, int n_cols,
+                                        int n_rows, int* rect) {
+  const double c_lo = fmax(ceil(b.x_lo - 0.5) - x0, 0.0);
+  const double c_hi = fmin(floor(b.x_hi - 0.5) - x0, n_cols - 1.0);
+  const double r_lo = fmax(ceil(b.y_lo - 0.5) - y0, 0.0);
+  const double r_hi = fmin(floor(b.y_hi - 0.5) - y0, n_rows - 1.0);
+  if (!(c_lo <= c_hi && r_lo <= r_hi)) return 0;
+  const int c0 = static_cast<int>(c_lo), c1 = static_cast<int>(c_hi);
+  const int r0 = static_cast<int>(r_lo), r1 = static_cast<int>(r_hi);
+  *rect = c0 | c1 << 8 | r0 << 16 | r1 << 24;
+  return (c1 - c0 + 1) * (r1 - r0 + 1);
+}
+
 struct DenseArgs {
   const double* gx;
   const double* gy;
@@ -383,22 +513,54 @@ struct DenseArgs {
   int64_t dst_h, dst_w, n_ti;
   int win_j, win_i, margin;
   double u_min, uv_max;
+  Cull cull;
   double* out;   // (2, dst_h, dst_w)
-  int* tested;   // (dst_h, dst_w) quads each pixel tested, or nullptr
+  int* tested;   // (dst_h, dst_w) the winner's window position + 1, or nullptr
+  int* solved;   // (dst_h, dst_w) (pixel, triangle) pairs solved, or nullptr
 };
 
+
+// triangle `side` (0: A, 1: B) of window quad q solved at (px, py), as
+// the first design solved it: (u, v) and whether it accepts
+template <typename F>
+__device__ __forceinline__ bool solve_tri(const F* wx, const F* wy, const F* inv_a,
+                                          const F* inv_b, int wi, int wqi, int q, int side,
+                                          F px, F py, F u_min, F uv_max, F& u, F& v) {
+  const int n0 = (q / wqi) * wi + q % wqi;
+  if (side == 0) {
+    const F p0x = wx[n0], p0y = wy[n0];
+    u = fu(px, py, p0x, p0y, wx[n0 + wi], wy[n0 + wi]) * inv_a[q];
+    v = fv(px, py, p0x, p0y, wx[n0 + 1], wy[n0 + 1]) * inv_a[q];
+  } else {
+    const F p3x = wx[n0 + wi + 1], p3y = wy[n0 + wi + 1];
+    u = fu(px, py, p3x, p3y, wx[n0 + 1], wy[n0 + 1]) * inv_b[q];
+    v = fv(px, py, p3x, p3y, wx[n0 + wi], wy[n0 + wi]) * inv_b[q];
+  }
+  return u >= u_min && v >= u_min && u + v <= uv_max;
+}
+
+// blocks an SM must hold at tile 16 (the register cap: 65536 / (256 *
+// kDenseMinBlocks))
+constexpr int kDenseMinBlocks = 4;
+
 template <typename F, int T>
-__global__ void __launch_bounds__(T * T) hybrid_dense_kernel(const DenseArgs a) {
-  extern __shared__ double smem[];
+__global__ void __launch_bounds__(T * T, T == 16 ? kDenseMinBlocks : 1)
+    hybrid_dense_kernel(const DenseArgs a) {
+  extern __shared__ __align__(16) double smem[];
+  __shared__ int key[T * T];
+  __shared__ int count[T * T];
+  __shared__ int n_near;
   const int wj = a.win_j, wi = a.win_i;
-  const int wqj = wj - 1, wqi = wi - 1, nq = wqj * wqi;
+  const int wqi = wi - 1, nq = (wj - 1) * wqi;
   F* wx = reinterpret_cast<F*>(smem);
   F* wy = wx + wj * wi;
   F* inv_a = wy + wj * wi;
   F* inv_b = inv_a + nq;
+  int* near = reinterpret_cast<int*>(inv_b + nq);
   const F* gx = a.gx;
   const F* gy = a.gy;
   const F r0 = a.r0;
+  const int tid = threadIdx.x;
   const int64_t tj = blockIdx.x / a.n_ti, ti = blockIdx.x % a.n_ti;
   const int64_t lw = a.n_ti + 1;
   const int64_t c = tj * lw + ti;
@@ -406,63 +568,119 @@ __global__ void __launch_bounds__(T * T) hybrid_dense_kernel(const DenseArgs a) 
   const int i_lo = min(min(a.cqi[c], a.cqi[c + 1]), min(a.cqi[c + lw], a.cqi[c + lw + 1]));
   const int64_t base_j = min(max(j_lo - a.margin, 0), static_cast<int>(a.s.h) - wj);
   const int64_t base_i = min(max(i_lo - a.margin, 0), static_cast<int>(a.s.w) - wi);
-  const int tid = threadIdx.x;
+#pragma unroll 4
   for (int k = tid; k < wj * wi; k += T * T) {
     const int64_t g = (base_j + k / wi) * a.s.w + base_i + k % wi;
-    wx[k] = gx[g];
-    wy[k] = gy[g] - r0;
+    wx[k] = __ldg(gx + g);
+    wy[k] = __ldg(gy + g) - r0;
+  }
+  key[tid] = INT_MAX;
+  count[tid] = 0;
+  if (tid == 0) n_near = 0;
+  __syncthreads();
+  // the tile's pixels (clipped to the target): columns col0 .. col0 +
+  // n_cols - 1, rows row0 .. row0 + n_rows - 1, centres at + 0.5
+  const int64_t col0 = ti * T, row0 = tj * T;
+  const int64_t cols_left = a.dst_w - col0, rows_left = a.dst_h - row0;
+  const int n_cols = cols_left < T ? static_cast<int>(cols_left) : T;
+  const int n_rows = rows_left < T ? static_cast<int>(rows_left) : T;
+  const double x0 = static_cast<double>(col0), y0 = static_cast<double>(row0);
+  // pass 1, a thread a quad: a quad whose nodes' box, grown by the most
+  // its triangles' boxes grow where derived (pad_max), lies off the tile's
+  // pixel centres, and whose triangles are dropped or surely inside the
+  // derived range, has no pair (fmin and fmax skip a NaN node, whose
+  // triangle is dropped); the others are listed, in no order
+  {
+    const double t_x0 = x0 + 0.5, t_x1 = x0 + (n_cols - 0.5);
+    const double t_y0 = y0 + 0.5, t_y1 = y0 + (n_rows - 0.5);
+    for (int q = tid; q < nq; q += T * T) {
+      const int n0 = (q / wqi) * wi + q % wqi;
+      const int n1 = n0 + 1, n2 = n0 + wi, n3 = n0 + wi + 1;
+      const F xl = fmin(fmin(wx[n0], wx[n1]), fmin(wx[n2], wx[n3]));
+      const F xh = fmax(fmax(wx[n0], wx[n1]), fmax(wx[n2], wx[n3]));
+      const F yl = fmin(fmin(wy[n0], wy[n1]), fmin(wy[n2], wy[n3]));
+      const F yh = fmax(fmax(wy[n0], wy[n1]), fmax(wy[n2], wy[n3]));
+      const F rx = (2 * a.cull.pad_max) * (xh - xl) + kCullReach * ((1 + fabs(xl)) + fabs(xh));
+      const F ry = (2 * a.cull.pad_max) * (yh - yl) + kCullReach * ((1 + fabs(yl)) + fabs(yh));
+      if ((xl - rx > t_x1 || xh + rx < t_x0 || yl - ry > t_y1 || yh + ry < t_y0) &&
+          sure(wx[n0], wy[n0], wx[n1], wy[n1], wx[n2], wy[n2]) &&
+          sure(wx[n3], wy[n3], wx[n2], wy[n2], wx[n1], wy[n1])) {
+        continue;
+      }
+      near[atomicAdd(&n_near, 1)] = q;
+    }
   }
   __syncthreads();
-  for (int q = tid; q < nq; q += T * T) {
+  // pass 2, a thread a listed quad: its reciprocals (NaN where a
+  // determinant is 0 or NaN), each triangle's box clipped to the tile's
+  // pixels, and the pairs in the clip solved; an accepting pair lowers its
+  // pixel's key.  (The reciprocals are read back from shared memory for
+  // the boxes: kept in registers they spill at the cap of 64.)
+  const F u_min = a.u_min, uv_max = a.uv_max;
+  for (int i = tid; i < n_near; i += T * T) {
+    const int q = near[i];
     const int n0 = (q / wqi) * wi + q % wqi;
     const int n1 = n0 + 1, n2 = n0 + wi, n3 = n0 + wi + 1;
     const F da = nan_to_num(fdet(wx[n0], wy[n0], wx[n1], wy[n1], wx[n2], wy[n2]), F(0));
     const F db = nan_to_num(fdet(wx[n3], wy[n3], wx[n2], wy[n2], wx[n1], wy[n1]), F(0));
     inv_a[q] = da != 0 ? F(1) / da : F(NAN);
     inv_b[q] = db != 0 ? F(1) / db : F(NAN);
-  }
-  __syncthreads();
-  const int64_t row = tj * T + tid / T, col = ti * T + tid % T;
-  if (row >= a.dst_h || col >= a.dst_w) return;
-  const F px = F(col) + F(0.5), py = F(row) + F(0.5);
-  const F u_min = a.u_min, uv_max = a.uv_max;
-  F out_i = F(NAN), out_j = F(NAN);
-  int q = 0;
-  for (int qj = 0; qj < wqj; ++qj) {
-    for (int qi = 0; qi < wqi; ++qi, ++q) {
-      const int n0 = qj * wi + qi;
-      const F p0x = wx[n0], p0y = wy[n0];
-      const F p1x = wx[n0 + 1], p1y = wy[n0 + 1];
-      const F p2x = wx[n0 + wi], p2y = wy[n0 + wi];
-      const F ua = fu(px, py, p0x, p0y, p2x, p2y) * inv_a[q];
-      const F va = fv(px, py, p0x, p0y, p1x, p1y) * inv_a[q];
-      const F gi = F(base_i + qi), gj = F(base_j + qj);
-      if (ua >= u_min && va >= u_min && ua + va <= uv_max) {
-        out_i = gi + fmin(fmax(ua, F(0)), F(1));
-        out_j = gj + fmin(fmax(va, F(0)), F(1));
-        goto done;
-      }
-      const F p3x = wx[n0 + wi + 1], p3y = wy[n0 + wi + 1];
-      const F ub = fu(px, py, p3x, p3y, p1x, p1y) * inv_b[q];
-      const F vb = fv(px, py, p3x, p3y, p2x, p2y) * inv_b[q];
-      if (ub >= u_min && vb >= u_min && ub + vb <= uv_max) {
-        out_i = (gi + F(1)) - fmin(fmax(ub, F(0)), F(1));
-        out_j = (gj + F(1)) - fmin(fmax(vb, F(0)), F(1));
-        goto done;
+#pragma unroll 1
+    for (int side = 0; side < 2; ++side) {
+      const Box b =
+          side == 0 ? tri_box(wx[n0], wy[n0], wx[n1], wy[n1], wx[n2], wy[n2], inv_a[q], a.cull)
+                    : tri_box(wx[n3], wy[n3], wx[n2], wy[n2], wx[n1], wy[n1], inv_b[q], a.cull);
+      int rect = 0;
+      if (clip_box(b, x0, y0, n_cols, n_rows, &rect) == 0) continue;
+      const int c_lo = rect & 0xff, c_hi = (rect >> 8) & 0xff;
+      const int r_lo = (rect >> 16) & 0xff, r_hi = (rect >> 24) & 0xff;
+      for (int r = r_lo; r <= r_hi; ++r) {
+        for (int cc = c_lo; cc <= c_hi; ++cc) {
+          // (x0 + cc is exact: the pixel's column, as F(col) below)
+          F u, v;
+          if (solve_tri(wx, wy, inv_a, inv_b, wi, wqi, q, side, (x0 + cc) + F(0.5),
+                        (y0 + r) + F(0.5), u_min, uv_max, u, v)) {
+            atomicMin(&key[r * T + cc], 2 * q + side);
+          }
+          if (a.solved != nullptr) atomicAdd(&count[r * T + cc], 1);
+        }
       }
     }
   }
-done:
+  __syncthreads();
+  const int lr = tid / T, lc = tid % T;
+  if (lr >= n_rows || lc >= n_cols) return;
+  const int64_t row = row0 + lr, col = col0 + lc;
+  const int win = key[tid];
+  F out_i = F(NAN), out_j = F(NAN);
+  int pos = nq;
+  if (win != INT_MAX) {
+    const int q = win >> 1, side = win & 1;
+    F u, v;
+    solve_tri(wx, wy, inv_a, inv_b, wi, wqi, q, side, F(col) + F(0.5), F(row) + F(0.5), u_min,
+              uv_max, u, v);
+    const F gi = F(base_i + q % wqi), gj = F(base_j + q / wqi);
+    if (side == 0) {
+      out_i = gi + fmin(fmax(u, F(0)), F(1));
+      out_j = gj + fmin(fmax(v, F(0)), F(1));
+    } else {
+      out_i = (gi + F(1)) - fmin(fmax(u, F(0)), F(1));
+      out_j = (gj + F(1)) - fmin(fmax(v, F(0)), F(1));
+    }
+    pos = q + 1;
+  }
   const int64_t o = row * a.dst_w + col;
   a.out[o] = out_i;
   a.out[a.dst_h * a.dst_w + o] = out_j;
-  if (a.tested != nullptr) a.tested[o] = q < nq ? q + 1 : nq;
+  if (a.tested != nullptr) a.tested[o] = pos;
+  if (a.solved != nullptr) a.solved[o] = count[tid];
 }
 
 template <int T>
 cudaError_t launch_dense(const DenseArgs& a, int64_t n_tiles, size_t smem, cudaStream_t st) {
   auto kernel = hybrid_dense_kernel<double, T>;
-  if (smem > 48 * 1024) {
+  // (the static key and count tables, 2 KB, count against the default 48 KB)
+  if (smem > 46 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (rc != cudaSuccess) return rc;
@@ -516,22 +734,25 @@ extern "C" int xrt_hybrid_seed(const double* gx, const double* gy, int64_t src_h
 }
 
 // K12 on float64 (h, w) gx, gy and K11's cqj, cqi: out (2, dst_h, dst_w)
-// float64; tested (dst_h, dst_w) int32 or nullptr.  tile is 16, 12, 8 or 4.
+// float64; tested and solved (dst_h, dst_w) int32 or nullptr.  tile is 16,
+// 12, 8 or 4.
 extern "C" int xrt_hybrid_dense(const double* gx, const double* gy, int64_t src_h,
                                 int64_t src_w, double r0, const int* cqj, const int* cqi,
                                 int64_t dst_h, int64_t dst_w, int64_t tile, int64_t win_j,
                                 int64_t win_i, int64_t margin, double uv_delta, double* out,
-                                int* tested, void* stream) {
+                                int* tested, int* solved, void* stream) {
   const int64_t n_tj = (dst_h + tile - 1) / tile, n_ti = (dst_w + tile - 1) / tile;
-  const size_t smem = (2 * win_j * win_i + 2 * (win_j - 1) * (win_i - 1)) * sizeof(double);
+  // nodes (x, y), reciprocals (A, B) and the list of quads near the tile
+  const size_t smem = 16 * win_j * win_i + 20 * (win_j - 1) * (win_i - 1);
   if (src_h < 2 || src_w < 2 || src_h * src_w > (int64_t{1} << 31) - 1 || dst_h < 1 ||
       dst_w < 1 || win_j < 2 || win_i < 2 || win_j > src_h || win_i > src_w || margin < 0 ||
-      n_tj * n_ti > INT_MAX || smem > 232448) {
+      n_tj * n_ti > INT_MAX || smem > 232448 - 2048) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const double u_min = -uv_delta, uv_max = 1.0 + 2 * uv_delta;
   const DenseArgs a{gx, gy, r0, Swath{src_h, src_w}, cqj, cqi, dst_h, dst_w, n_ti,
                     static_cast<int>(win_j), static_cast<int>(win_i), static_cast<int>(margin),
-                    -uv_delta, 1.0 + 2 * uv_delta, out, tested};
+                    u_min, uv_max, cull_of(u_min, uv_max), out, tested, solved};
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   switch (tile) {

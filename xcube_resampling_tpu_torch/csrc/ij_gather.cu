@@ -34,8 +34,8 @@
 // stores then straddle rows.  Offsets inside a plane are 32-bit (the
 // wrapper refuses planes of 2^31 elements or more), band offsets 64-bit.
 //
-// The band form (ij_gather_band; B = true, float32) is the sharded rectify
-// step's gather, make_sharded_rectify_step.band_step
+// The band form (ij_gather_band, float32, a kernel of its own) is
+// the sharded rectify step's gather, make_sharded_rectify_step.band_step
 // (xcube_resampling_tpu/parallel/halo.py:923-977): the source is one mesh
 // band extended by its halo (ext_h rows, its row 0 at global source row
 // `off`, negative on band 0), the positions are the band's rows of the
@@ -45,6 +45,21 @@
 // rebased by `off`, and a pixel whose tap rows leave the band (nearest:
 // off <= row < off + ext_h; bilinear and triangular: y0 >= off and y1 <
 // off + ext_h, halo.py:949 and :975) takes the fill.  Its bound is K7's.
+// It first shared the map form's kernel (a `B` branch, its row
+// arithmetic in int64 under the float32 cap of 32 registers): 0.8485 ms
+// at R3's band 1 (21 bands, ext 1615 x 4865 -> 1121 x 5755, bilinear),
+// 2.7x its bound, where F.grid_sample took 0.6042.  Its own kernel,
+// timed over its launch constants with tools/tune_ij_gather.py --band on
+// an H100 80GB HBM3 at 700 W: 0.5686 at the same 32-register cap (the cap
+// was not the cause); 0.567-0.618 at 40 to 64 registers; 0.488 with two
+// consecutive output pixels a thread (their bilinear taps share sectors,
+// and the position work is amortised; four: 0.529).  float2 position
+// loads and stores lost 7%, bands a thread at a time (1, 2, 4) moved it
+// under 8%, and band-major grids (blocks of 1 to 7 bands on blockIdx.y,
+// so that the blocks in flight read a few planes) gained at most 0.3% and
+// lost up to 150%: the cache footprint of 21 planes was not what held it.
+// Nearest keeps one pixel a thread (two: 0.0412 against 0.0417 ms at R1's
+// band, within the noise).
 #include "gather_taps.h"
 #include "kernel_types.h"
 
@@ -73,13 +88,11 @@ struct Args {
   int out_w;             // list form: the output's row length
   int64_t out_plane;     // output elements a band
   int64_t src_plane;     // source elements a band
-  xrt::TapBounds tb;     // the band form's: the global source's
+  xrt::TapBounds tb;
   double fill;
-  int64_t off;           // the band form's: the global row of ext's row 0
-  int ext_h;             // the band form's: ext's rows
 };
 
-template <int M, typename T, bool B>
+template <int M, typename T>
 __global__ void __launch_bounds__(kThreads,
                                   std::is_same<T, float>::value ? kMinBlocks : (kMinBlocks + 1) / 2)
     ij_gather_kernel(const Args a) {
@@ -89,15 +102,7 @@ __global__ void __launch_bounds__(kThreads,
   const float ix = a.ix[k], iy = a.iy[k];
   xrt::Taps t = xrt::taps<M>(ix, iy, a.tb);
   int o = static_cast<int>(k);  // its output pixel in a band
-  if (B) {
-    // the tap rows at the clamped global row, rebased into ext (the
-    // unsigned offset wraps back into the band wherever t.ok holds)
-    const float iyc = fminf(fmaxf(iy, 0.0f), a.tb.y_max);
-    const int64_t y0 = static_cast<int64_t>(M == xrt::kNearest ? rintf(iyc) : floorf(iyc));
-    const int64_t y1 = y0 + (t.dy != 0u ? 1 : 0);
-    t.ok = isfinite(ix) && isfinite(iy) && y0 >= a.off && y1 < a.off + a.ext_h;
-    t.off -= static_cast<unsigned>(a.off * a.tb.src_w);
-  } else if (a.rows != nullptr) {
+  if (a.rows != nullptr) {
     o = a.rows[k] * a.out_w + a.cols[k];
   } else {
     t.ok = a.valid[k] != 0;
@@ -129,14 +134,99 @@ template <int M>
 cudaError_t launch(int code, const Args& a, cudaStream_t s) {
   return xrt::with_data_type(code, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    ij_gather_kernel<M, T, false><<<blocks_of(a), kThreads, 0, s>>>(a);
+    ij_gather_kernel<M, T><<<blocks_of(a), kThreads, 0, s>>>(a);
     return cudaGetLastError();
   });
 }
 
+// The band form's launch constants (tools/tune_ij_gather.py --band):
+// threads a block; consecutive output pixels a thread (nearest:
+// kBandPixelsNearest); bands a thread gathers with their tap loads issued
+// together; blocks an SM must hold (the register cap, 65536 / (threads *
+// blocks))
+constexpr int kBandThreads = 256;
+constexpr int kBandPixels = 2;
+constexpr int kBandPixelsNearest = 1;
+constexpr int kBandStep = 2;
+constexpr int kBandMinBlocks = 4;
+
 template <int M>
-cudaError_t launch_band(const Args& a, cudaStream_t s) {
-  ij_gather_kernel<M, float, true><<<blocks_of(a), kThreads, 0, s>>>(a);
+constexpr int kBandPx = M == xrt::kNearest ? kBandPixelsNearest : kBandPixels;
+
+struct BandArgs {
+  const float* ext;   // (batch, ext_h, src_w)
+  const float* ix;    // (n) the map's rows, i then j
+  const float* iy;
+  float* out;         // (batch, n)
+  int n, batch;
+  int64_t off, end;   // the global rows ext holds: off .. end - 1
+  unsigned off_elems; // off * src_w, wrapping
+  int64_t ext_plane;  // ext_h * src_w
+  xrt::TapBounds tb;  // the global source's
+  float fill;
+};
+
+template <int M>
+__global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
+    ij_gather_band_kernel(const BandArgs a) {
+  constexpr int PX = kBandPx<M>;
+  const int64_t k0 = (int64_t{blockIdx.x} * kBandThreads + threadIdx.x) * PX;
+  if (k0 >= a.n) return;
+  float ixs[PX], iys[PX];
+#pragma unroll
+  for (int p = 0; p < PX; ++p) {
+    const int k = static_cast<int>(k0 + p < a.n ? k0 + p : a.n - 1);
+    ixs[p] = a.ix[k];
+    iys[p] = a.iy[k];
+  }
+  xrt::Taps t[PX];
+#pragma unroll
+  for (int p = 0; p < PX; ++p) {
+    const float ix = ixs[p], iy = iys[p];
+    t[p] = xrt::taps<M>(ix, iy, a.tb);
+    // the tap rows at the clamped global row, rebased into ext (the
+    // unsigned offset wraps back into the band wherever t.ok holds)
+    const float iyc = fminf(fmaxf(iy, 0.0f), a.tb.y_max);
+    const int64_t y0 = static_cast<int64_t>(M == xrt::kNearest ? rintf(iyc) : floorf(iyc));
+    const int64_t y1 = y0 + (t[p].dy != 0u ? 1 : 0);
+    t[p].ok = k0 + p < a.n && isfinite(ix) && isfinite(iy) && y0 >= a.off && y1 < a.end;
+    t[p].off -= a.off_elems;
+  }
+  const float* __restrict__ ext = a.ext;
+  float* __restrict__ out = a.out + k0;
+  // The band loop starts at blockIdx.y * batch, 0 (the grid has one
+  // row): from a constant start ptxas schedules it into 64 registers
+  // (bilinear) and it runs 15% slower at R3's band (0.570 against 0.497 ms
+  // on an H100); kBandStep is the unrolling
+  const int b_lo = blockIdx.y * a.batch;
+#pragma unroll 1
+  for (int b0 = b_lo; b0 < a.batch; b0 += kBandStep) {
+    float v[kBandStep][PX];
+#pragma unroll
+    for (int g = 0; g < kBandStep; ++g) {
+#pragma unroll
+      for (int p = 0; p < PX; ++p) {
+        v[g][p] = a.fill;
+        if (t[p].ok && b0 + g < a.batch) {
+          v[g][p] = xrt::gather<M>(ext + (b0 + g) * a.ext_plane, t[p]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kBandStep; ++g) {
+#pragma unroll
+      for (int p = 0; p < PX; ++p) {
+        if (b0 + g < a.batch && k0 + p < a.n) out[static_cast<int64_t>(b0 + g) * a.n + p] = v[g][p];
+      }
+    }
+  }
+}
+
+template <int M>
+cudaError_t launch_band(const BandArgs& a, cudaStream_t s) {
+  const int64_t per_block = int64_t{kBandThreads} * kBandPx<M>;
+  ij_gather_band_kernel<M><<<static_cast<unsigned>((a.n + per_block - 1) / per_block),
+                             kBandThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -162,7 +252,7 @@ extern "C" int xrt_ij_gather(
   }
   const Args a{src, ix, iy, valid, rows, cols, out, static_cast<int>(n),
                static_cast<int>(batch), static_cast<int>(out_w), out_plane, src_h * src_w,
-               xrt::tap_bounds(src_h, src_w), fill, 0, 0};
+               xrt::tap_bounds(src_h, src_w), fill};
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   switch (method) {
@@ -188,9 +278,9 @@ extern "C" int xrt_ij_gather_band_f32(
       off <= -ext_h || off >= src_h) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{ext, map, map + n, nullptr, nullptr, nullptr, out, static_cast<int>(n),
-               static_cast<int>(batch), static_cast<int>(out_w), n, ext_h * src_w,
-               xrt::tap_bounds(src_h, src_w), fill, off, static_cast<int>(ext_h)};
+  const BandArgs a{ext, map, map + n, out, static_cast<int>(n), static_cast<int>(batch),
+                   off, off + ext_h, static_cast<unsigned>(off * src_w), ext_h * src_w,
+                   xrt::tap_bounds(src_h, src_w), fill};
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   switch (method) {

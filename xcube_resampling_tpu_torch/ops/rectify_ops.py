@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -375,6 +376,13 @@ _HYBRID_CS = 8
 # (pixel, quad) pairs a chunk of the plain dense version holds
 _DENSE_CHUNK = 1 << 21
 _INT32_MAX = 2**31 - 1
+# K12's cull bound (csrc/hybrid_phase_a.cu, tri_box): the unit roundoff,
+# the conditioning and size range where the box is derived, its own slack
+_EPS = 2.0**-53
+_CULL_KMAX = 1e-4 / _EPS
+_CULL_PMIN = 2.0**-500
+_CULL_PMAX = 2.0**500
+_CULL_SLACK = 2.0**-40
 
 
 # The hybrid's triangle formulas as XLA's CPU backend contracts them in
@@ -539,21 +547,69 @@ def hybrid_seed_plain(gx, gy, dst_shape, tile, max_edge, margin, r0=0.0, coarse_
     return cqj.to(torch.int32), cqi.to(torch.int32), meta
 
 
-def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin,
-                       r0=0.0, tested=None):
-    """Plain PyTorch version of K12 (``rectify_ops._build_hybrid_dense_kernel``):
-    the (2, dst_h, dst_w) float64 map.  Per tile a (win_j x win_i) node
-    window at the corner guesses' minimum less *margin*, clamped into the
-    swath; every pixel centre takes the window's lowest-ranked quad whose
-    triangle A or B accepts it (each triangle's solve a product with the
-    reciprocal of its determinant), NaN where none does; *tested*, an int32
-    (dst_h, dst_w) tensor or None, takes the quads each pixel tested in
-    that order.  Tiles go in chunks of about _DENSE_CHUNK (pixel, quad)
-    pairs."""
+def hybrid_tri_boxes(q0x, q0y, q1x, q1y, q2x, q2y, det, uv_delta):
+    """Plain mirror of K12's triangle box (``csrc/hybrid_phase_a.cu``,
+    ``tri_box``, where the bound is derived): for triangle (q0, q1, q2) with
+    determinant *det* (after ``nan_to_num``), the box in pixel-centre
+    coordinates outside which K12's rounded barycentric test (and this
+    module's emulation of it) cannot accept: (x_lo, x_hi, y_lo, y_hi),
+    float64, in K12's operations and order.  Empty where *det* is 0;
+    every pixel where the triangle is too ill-conditioned (or too large or
+    small) for the bound.  Only the tests and ``hybrid_dense_plain``'s
+    ``cull`` and ``solved`` use it."""
+    u_min = -uv_delta
+    uv_max = 1.0 + 2 * uv_delta
+    d = -u_min
+    c = _EPS * (1 + 3 * d)
+    c1, c0, base = c * 51, c * 8, d + (uv_max - 1) + 4 * _EPS
+    inv = 1.0 / torch.where(det == 0.0, 1.0, det)
+    e1x, e1y, e2x, e2y = q1x - q0x, q1y - q0y, q2x - q0x, q2y - q0y
+    sx = e1x.abs() + e2x.abs()
+    sy = e1y.abs() + e2y.abs()
+    p = sx * sy
+    k = p * inv.abs()
+    good = (k <= _CULL_KMAX) & (p >= _CULL_PMIN) & (p <= _CULL_PMAX)
+    m = base + 3.0 * (c1 * k + c0)
+    mx, my = m * sx, m * sy
+    xlo = torch.minimum(q0x, torch.minimum(q1x, q2x))
+    xhi = torch.maximum(q0x, torch.maximum(q1x, q2x))
+    ylo = torch.minimum(q0y, torch.minimum(q1y, q2y))
+    yhi = torch.maximum(q0y, torch.maximum(q1y, q2y))
+    box = (
+        (xlo - mx) - _CULL_SLACK * ((1.0 + xlo.abs()) + mx),
+        (xhi + mx) + _CULL_SLACK * ((1.0 + xhi.abs()) + mx),
+        (ylo - my) - _CULL_SLACK * ((1.0 + ylo.abs()) + my),
+        (yhi + my) + _CULL_SLACK * ((1.0 + yhi.abs()) + my),
+    )
+    # (lower bounds at even positions: +inf where empty, -inf where every pixel)
+    inf = float("inf")
+    return tuple(
+        torch.where(det == 0.0, inf * sign, torch.where(good, b, -inf * sign))
+        for b, sign in zip(box, (1, -1, 1, -1))
+    )
+
+
+def _in_box(box, col, row):
+    """Pixels (*col*, *row*, float64 integers) whose centre lies in *box*,
+    as K12 clips a box to its tile's pixels (``clip_box``)."""
+    x_lo, x_hi, y_lo, y_hi = box
+    return ((torch.ceil(x_lo - 0.5) <= col) & (col <= torch.floor(x_hi - 0.5))
+            & (torch.ceil(y_lo - 0.5) <= row) & (row <= torch.floor(y_hi - 0.5)))
+
+
+def hybrid_dense_pairs(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin,
+                       r0=0.0, boxes=False):
+    """K12's (pixel, window quad) pairs, chunk by chunk of tiles (about
+    _DENSE_CHUNK pairs a chunk), each a namespace of (tiles, n_p, n_q)
+    tensors: ``t`` (the chunk's tiles), ``rank`` (every quad's row-major
+    rank in the swath), ``ok_a``, ``ok_b`` (whether triangle A, B accepts
+    the pixel centre ``px``, ``py``; K12's own rounding), ``ua``, ``va``,
+    ``ub``, ``vb``; with *boxes*, also ``cand_a``, ``cand_b``: whether the
+    pixel lies in the triangle's :func:`hybrid_tri_boxes` box (the pairs
+    K12 solves)."""
     if r0:
         gy = gy - r0
     src_h, src_w = gx.shape
-    dst_h, dst_w = dst_shape
     nqi = src_w - 1
     n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
     u_min = -uv_delta
@@ -565,11 +621,9 @@ def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i
     base_i = (qi_lo - margin).clamp(0, src_w - win_i).reshape(-1)
     n_q = (win_j - 1) * (win_i - 1)
     n_p = tile * tile
-    out = torch.empty((3, n_tj * n_ti, n_p), dtype=_F64, device=dev)
     iota = torch.arange(tile, device=dev)
     wj = torch.arange(win_j, device=dev)
     wi = torch.arange(win_i, device=dev)
-    no_rank = torch.iinfo(torch.int64).max
     step = max(1, _DENSE_CHUNK // (n_p * n_q))
     for t0 in range(0, n_tj * n_ti, step):
         t = torch.arange(t0, min(t0 + step, n_tj * n_ti), device=dev)
@@ -600,7 +654,43 @@ def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i
         ub = _fu_x(px, py, p3x, p3y, p1x, p1y) * inv_b
         vb = _fv_x(px, py, p3x, p3y, p2x, p2y) * inv_b
         ok_b = (det_b != 0.0) & (ub >= u_min) & (vb >= u_min) & (ub + vb <= uv_max)
-        best, arg = torch.where(ok_a | ok_b, rank, no_rank).min(dim=-1, keepdim=True)
+        pairs = SimpleNamespace(t=t, rank=rank, px=px, py=py, ok_a=ok_a, ok_b=ok_b, ua=ua,
+                                va=va, ub=ub, vb=vb)
+        if boxes:
+            col, row = px - 0.5, py - 0.5
+            pairs.cand_a = _in_box(
+                hybrid_tri_boxes(p0x, p0y, p1x, p1y, p2x, p2y, det_a, uv_delta), col, row)
+            pairs.cand_b = _in_box(
+                hybrid_tri_boxes(p3x, p3y, p2x, p2y, p1x, p1y, det_b, uv_delta), col, row)
+        yield pairs
+
+
+def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin,
+                       r0=0.0, tested=None, solved=None, cull=False):
+    """Plain PyTorch version of K12 (``rectify_ops._build_hybrid_dense_kernel``):
+    the (2, dst_h, dst_w) float64 map.  Per tile a (win_j x win_i) node
+    window at the corner guesses' minimum less *margin*, clamped into the
+    swath; every pixel centre takes the window's lowest-ranked quad whose
+    triangle A or B accepts it (each triangle's solve a product with the
+    reciprocal of its determinant), NaN where none does; *tested*, an int32
+    (dst_h, dst_w) tensor or None, takes the winner's position in the
+    window's rank order plus one (the window's quads where none wins).
+    *solved*, likewise, takes the (pixel, triangle) pairs K12 solves: the
+    window's triangles whose box (:func:`hybrid_tri_boxes`) holds the
+    pixel centre.  With *cull*, only those pairs are tested, as K12 tests
+    them."""
+    dst_h, dst_w = dst_shape
+    n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
+    nqi = gx.shape[1] - 1
+    n_q = (win_j - 1) * (win_i - 1)
+    n_p = tile * tile
+    dev = gx.device
+    out = torch.empty((4, n_tj * n_ti, n_p), dtype=_F64, device=dev)
+    no_rank = torch.iinfo(torch.int64).max
+    for c in hybrid_dense_pairs(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i,
+                                margin, r0, boxes=cull or solved is not None):
+        ok_a, ok_b = (c.ok_a & c.cand_a, c.ok_b & c.cand_b) if cull else (c.ok_a, c.ok_b)
+        best, arg = torch.where(ok_a | ok_b, c.rank, no_rank).min(dim=-1, keepdim=True)
 
         def at(x):
             return x.gather(-1, arg)[..., 0]
@@ -608,16 +698,22 @@ def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i
         gi = (best % nqi)[..., 0].to(_F64)
         gj = (best // nqi)[..., 0].to(_F64)
         take_a = at(ok_a)
-        src_if = torch.where(take_a, gi + at(ua).clamp(0.0, 1.0), (gi + 1) - at(ub).clamp(0.0, 1.0))
-        src_jf = torch.where(take_a, gj + at(va).clamp(0.0, 1.0), (gj + 1) - at(vb).clamp(0.0, 1.0))
+        src_if = torch.where(take_a, gi + at(c.ua).clamp(0.0, 1.0),
+                             (gi + 1) - at(c.ub).clamp(0.0, 1.0))
+        src_jf = torch.where(take_a, gj + at(c.va).clamp(0.0, 1.0),
+                             (gj + 1) - at(c.vb).clamp(0.0, 1.0))
         found = best[..., 0] < no_rank
-        out[0, t] = torch.where(found, src_if, _NAN)
-        out[1, t] = torch.where(found, src_jf, _NAN)
-        out[2, t] = torch.where(found, arg[..., 0] + 1, n_q).to(_F64)
-    out = out.reshape(3, n_tj, n_ti, tile, tile).permute(0, 1, 3, 2, 4)
-    out = out.reshape(3, n_tj * tile, n_ti * tile)[:, :dst_h, :dst_w]
+        out[0, c.t] = torch.where(found, src_if, _NAN)
+        out[1, c.t] = torch.where(found, src_jf, _NAN)
+        out[2, c.t] = torch.where(found, arg[..., 0] + 1, n_q).to(_F64)
+        if solved is not None:
+            out[3, c.t] = (c.cand_a.sum(-1) + c.cand_b.sum(-1)).to(_F64)
+    out = out.reshape(4, n_tj, n_ti, tile, tile).permute(0, 1, 3, 2, 4)
+    out = out.reshape(4, n_tj * tile, n_ti * tile)[:, :dst_h, :dst_w]
     if tested is not None:
         tested.copy_(out[2])
+    if solved is not None:
+        solved.copy_(out[3])
     return out[:2].contiguous()
 
 
@@ -660,13 +756,14 @@ def hybrid_seed(gx, gy, dst_shape, tile, max_edge, margin, r0=0.0, coarse_iters=
 
 
 def hybrid_dense(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin, r0=0.0,
-                 tested=None):
+                 tested=None, solved=None):
     """K12: the (2, dst_h, dst_w) float64 map of :func:`hybrid_dense_plain`
-    on the card; *tested*, an int32 (dst_h, dst_w) tensor or None, takes
-    the quads each pixel tested."""
+    on the card; *tested* and *solved*, int32 (dst_h, dst_w) tensors or
+    None, take the winner's position in the window's rank order plus one
+    and the (pixel, triangle) pairs solved a pixel."""
     if on_cpu(gx, gy, cqj, cqi):
         return hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i,
-                                  margin, r0, tested)
+                                  margin, r0, tested, solved)
     src_h, src_w = gx.shape
     dst_h, dst_w = dst_shape
     n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
@@ -674,8 +771,9 @@ def hybrid_dense(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, marg
     require_cuda(gy, "gy", _F64, (src_h, src_w))
     require_cuda(cqj, "cqj", torch.int32, (n_tj + 1, n_ti + 1))
     require_cuda(cqi, "cqi", torch.int32, (n_tj + 1, n_ti + 1))
-    if tested is not None:
-        require_cuda(tested, "tested", torch.int32, (dst_h, dst_w))
+    for t, name in ((tested, "tested"), (solved, "solved")):
+        if t is not None:
+            require_cuda(t, name, torch.int32, (dst_h, dst_w))
     if tile not in _DENSE_TILES or not (2 <= win_j <= src_h and 2 <= win_i <= src_w):
         raise ValueError(f"K12 takes tiles {_DENSE_TILES} and windows inside the swath: "
                          f"tile {tile}, window {win_j}x{win_i} of {src_h}x{src_w}")
@@ -686,7 +784,7 @@ def hybrid_dense(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, marg
             gx.data_ptr(), gy.data_ptr(), src_h, src_w, float(r0), cqj.data_ptr(),
             cqi.data_ptr(), dst_h, dst_w, tile, win_j, win_i, margin, float(uv_delta),
             out.data_ptr(), None if tested is None else tested.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            None if solved is None else solved.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "hybrid_dense")
     count_launch("hybrid_dense")
