@@ -7,9 +7,9 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
    printing each source's registers and spills (ptxas ``-v``) and those
-   of every instantiation of K1-K3, K7 (map, list and band forms) and
-   K12, and fails if K6's register kernels, K7's band form or K12 spill
-   or use local memory;
+   of every instantiation of K1-K3, K2's and K7's band forms, K7's map
+   and list forms, K11's two kernels and K12, and fails if K6's register
+   kernels, K2's or K7's band form, K11 or K12 spill or use local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
    same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
@@ -98,9 +98,15 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    triangular and nearest on one band); BASELINE #3's geometry past the
    two-pass gate through the sharded regrid (K3's band form), held
    against the single-chip K3; each band form against its plain version
-   at those shapes (the first band reading from a negative row offset),
-   on a 512^2 source over 8 bands with a halo of several bands, and with
-   NaN rows, and timed; and ``resample_to_store`` of a 4096^2 2-band
+   at those shapes (the first band reading from a negative row offset;
+   K2's band form also for nearest and triangular and on NaN rows of
+   ``v``), on a 512^2 source over 8 bands with a halo of several bands,
+   and with NaN rows, and timed; K2's band form on every band of a
+   4094 x 4096 source onto 4000^2 over 4 bands in row tiles of 64 (each
+   band's last tile overlapping, a target width no 64 divides, a source
+   width no 4 divides), every method, clean and with NaN rows; the SRW
+   step's kernels seen on the card by ``torch.profiler``; and
+   ``resample_to_store`` of a 4096^2 2-band
    source in 512^2 chunks of a directory store under ``build/`` onto 512^2
    tiles, held against one ``resample_in_space``, resumed (0 tiles, then
    1 after deleting a chunk), and a corner target reading a fraction of
@@ -116,7 +122,11 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    map to K7's map form bit for bit for every method, and the default
    raster to it (NaN masks equal, fewer than 1e-3 of the pixels
    differing); holds K7's band form (every method at R1 and R3; band 0
-   from a negative offset, the ragged last band, NaN map rows), K11 (two band origins) and K12 (R1 in
+   from a negative offset, the ragged last band, NaN map rows), K11
+   (every band's origin as ``sharded_phase_a`` launches it and the whole
+   target at two origins; the hard lattices, folded and NaN ones among
+   them, at tiles 16, 12, 8 and 4; swaths of odd width and height, 2 x
+   N, N x 2 and 3 x 3) and K12 (R1 in
    full; at R3 the first rows of band 1 at the window and band origin the
    sharded Phase A launches, also against those rows of its band 1; the
    hard lattices of :func:`hard_lattices` at tiles 16, 12, 8 and 4: the
@@ -125,8 +135,9 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    warps' maxima) beside the winner's position, times them with their
    bounds (K12's is K8's;
    K7's band form's from the band's pixels its valid taps reach) beside
-   ``F.grid_sample`` for K7's band form, and prints the hybrid's Phase A
-   beside K8's;
+   ``F.grid_sample`` for K7's band form, prints the hybrid's Phase A
+   beside K8's, and counts ``sharded_phase_a``'s launches (K11 and K12
+   once a band) and sees K11's two kernels and K12's on the card;
 7. prints the card line again, a JSON line of the kernels and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -406,6 +417,28 @@ def ptxas_kernels(log: str, pattern: str) -> list[tuple[str, int, int, int]]:
     return out
 
 
+def device_kernels(fn, calls=3) -> Counter:
+    """The kernels *calls* calls of *fn* run on the card, by name (the
+    identifier before a kernel's template or argument list), as
+    ``torch.profiler`` records them: it may drop some (it dropped K10's at
+    R3, and some of K11's), so a kernel it counts ran, and the wrappers'
+    launch counts give the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: Counter = Counter()
+    for e in prof.key_averages():
+        name = re.search(r"(\w+)(?:<[^>]*>)?\(", e.key)
+        if name:
+            out[name.group(1)] += e.count
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -420,7 +453,7 @@ def card_line() -> str:
 # 2-band source streamed in 512^2 chunks onto 512^2 tiles (cut from 20480^2:
 # the numpy route transforms every target centre on the host)
 B5_SIZES = dict(n=20480, bands=4, mesh=4, gate=(7200, 3600, 4096), stream=4096,
-                chunk=512, halo_src=512)
+                chunk=512, halo_src=512, hard=((4094, 4096), 4000), down=(8192, 8))
 B5_KERNELS = ("srw_vertical_band", "srw_horizontal_band", "fused_reproject_band")
 
 
@@ -445,7 +478,13 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
         make_fused_reproject_fn,
     )
     from xcube_resampling_tpu_torch.ops.srw import make_srw_reproject_fn
+    from xcube_resampling_tpu_torch import _build
     from xcube_resampling_tpu_torch.ops.srw_kernels import (
+        BAND_ITEMS,
+        SMEM_BLOCK_MAX,
+        BandLaunch,
+        horizontal_c_args,
+        plan_band_launch,
         srw_horizontal_band,
         srw_horizontal_band_plain,
         srw_vertical_band,
@@ -458,7 +497,7 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
         resample_to_store,
         sharded_reproject,
     )
-    from xcube_resampling_tpu_torch.parallel.halo import crop_source
+    from xcube_resampling_tpu_torch.parallel.halo import ShardedSRWStep, crop_source
 
     nan = float("nan")
     cuda = dev.type == "cuda"
@@ -598,6 +637,32 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
         h_args = step.horizontal_args(v, None, k)
         o = srw_horizontal_band(*h_args)
         exact(o, srw_horizontal_band_plain(*h_args), "srw_horizontal_band", f"{n}^2 band {k}")
+    # K2's band form at band 1 on the other methods (their vertical passes
+    # from the same plan; triangular with vd) and on NaN rows of v
+    for interp in ("nearest", "triangular"):
+        step_m = ShardedSRWStep(step.devices, plan, interp, nan, 1)
+        v_m, vd_m = srw_vertical_band(*step_m.vertical_args(bands, halos, 1))
+        m_args = step_m.horizontal_args(v_m, vd_m, 1)
+        exact(srw_horizontal_band(*m_args), srw_horizontal_band_plain(*m_args),
+              "srw_horizontal_band", f"{n}^2 band 1, {interp}")
+        del step_m, v_m, vd_m, m_args
+    v_nan = v.clone()
+    v_nan[:, 100:103] = nan
+    v_nan[:, -7] = nan
+    m_args = step.horizontal_args(v_nan, None, 1)
+    exact(srw_horizontal_band(*m_args), srw_horizontal_band_plain(*m_args),
+          "srw_horizontal_band", f"{n}^2 band 1, NaN rows of v")
+    # and on the band's first 1, 2 and 3 variables (fewer bands an item)
+    for b in (1, 2, 3):
+        m_args = (v_nan[:b],) + m_args[1:]
+        exact(srw_horizontal_band(*m_args), srw_horizontal_band_plain(*m_args),
+              "srw_horizontal_band", f"{n}^2 band 1, its first {b} variables, NaN rows of v")
+    del v_nan, m_args
+    # the step's kernels on the card (the launches a call are counted above)
+    on_card = device_kernels(lambda: step(x4)) if cuda else Counter()
+    want = ("srw_vertical_kernel", "srw_horizontal_kernel")
+    if cuda and not all(on_card[k] for k in want):
+        raise AssertionError(f"the SRW step ran {dict(on_card)} on the card, not {want}")
     timings["srw_vertical_band"] = h.time_pair(
         lambda: srw_vertical_band(*v_args), lambda: srw_vertical_band_plain(*v_args), 5)
     timings["srw_horizontal_band"] = h.time_pair(
@@ -614,6 +679,102 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
     del bands, halos, v_args, h_args, ext, v, o, step, x4
     if cuda:
         torch.cuda.empty_cache()
+    print(f"{tag} the SRW step's launches a call: {dict.fromkeys(srw_kernels, mesh.size)}; "
+          f"the profiler saw on the card over 3 calls "
+          f"{', '.join(f'{k} {on_card[k]}' for k in want)}")
+
+    # -- K2's band form on hard bands: each band's last row tile overlapping
+    # its predecessor (row tiles of 64: tap_budget=1), a target width no 64
+    # divides and a source width no 4 divides (no 16-byte copies); every
+    # method, clean and with NaN rows; every band against its plain version
+    (hw, hh), ht = sizes["hard"]
+    hard_src = GridMapping.regular(size=(hw, hh), xy_min=(300000.0, 5200000.0), xy_res=res,
+                                   crs="epsg:32632")
+    hard_tgt = GridMapping.regular(size=(ht, ht), xy_min=(4055000.0, 2655000.0), xy_res=res,
+                                   crs="epsg:3035")
+    z = torch.rand((2, hh, hw), generator=gen, device=dev)
+    z_nan = z.clone()
+    z_nan[:, hh // 3 : hh // 3 + 3] = nan
+    z_nan[:, 2 * hh // 3] = nan
+    for interp in METHODS:
+        hstep, (pad, _) = make_sharded_srw_step(mesh, hard_src, hard_tgt, interp_method=interp,
+                                                src_batch_dims=1, tap_budget=1)
+        p = hstep.plan
+        if not (p.tiles_per_band * p.row_tile > p.out_band_h and p.out_w % 64 and p.src_w % 4):
+            raise AssertionError(f"hard bands: row tile {p.row_tile} of {p.out_band_h} rows, "
+                                 f"out_w {p.out_w}, src_w {p.src_w}")
+        for data, what in ((z, "clean"), (z_nan, "NaN rows")):
+            zb, _ = hstep.bands(torch.nn.functional.pad(data, (0, 0, 0, pad), value=nan))
+            zh = hstep.exchange(zb)
+            for k in range(mesh.size):
+                v_k, vd_k = srw_vertical_band(*hstep.vertical_args(zb, zh, k))
+                k_args = hstep.horizontal_args(v_k, vd_k, k)
+                exact(srw_horizontal_band(*k_args), srw_horizontal_band_plain(*k_args),
+                      "srw_horizontal_band", f"hard band {k}, {interp}, {what}")
+            del zb, zh, v_k, vd_k, k_args
+    print(f"{tag} K2's band form equals its plain version on {hw}x{hh} -> {ht}^2 over "
+          f"{mesh.size} bands (row tiles of {p.row_tile} in bands of {p.out_band_h} rows, the "
+          f"last overlapping by {p.tiles_per_band * p.row_tile - p.out_band_h}; out_w "
+          f"{p.out_w}, src_w {p.src_w}), every method, clean and with NaN rows; at the "
+          f"{n}^2 band, every method and NaN rows of v")
+    del z, z_nan, hstep
+
+    # -- K2's band form on a downscale: windows of some 1000 columns a
+    # segment, whose launch stages fewer bands an item and stages than the
+    # ring's default; every method, each band against its plain version and
+    # the step against its plain step
+    s, scale = sizes["down"]
+    down_src = GridMapping.regular(size=(s, s), xy_min=(300000.0, 5200000.0), xy_res=30.0,
+                                   crs="epsg:32632")
+    down_tgt = GridMapping.regular(size=(s // scale, s // scale),
+                                   xy_min=(4050000.0, 2650000.0), xy_res=30.0 * scale,
+                                   crs="epsg:3035")
+    z = torch.rand((2, s, s), generator=gen, device=dev)
+    for interp in METHODS:
+        dstep, (pad, _) = make_sharded_srw_step(mesh, down_src, down_tgt, interp_method=interp,
+                                                src_batch_dims=1)
+        extent = max(w.extent for w in dstep.plan.win_h)
+        dl = plan_band_launch(2, extent, interp == "triangular")
+        if cuda and not dl.group < 2:
+            raise AssertionError(f"downscale: windows of {extent} columns launch as {dl}")
+        zp = torch.nn.functional.pad(z, (0, 0, 0, pad), value=nan)
+        LAUNCHES.clear()
+        got = dstep(zp)
+        if cuda and Counter(LAUNCHES) != Counter(dict.fromkeys(srw_kernels, mesh.size)):
+            raise AssertionError(f"the {scale}x downscale step, {interp}: launches "
+                                 f"{dict(LAUNCHES)}")
+        for k, (a, b) in enumerate(zip(got.bands, dstep.plain(zp).bands)):
+            exact(a, b, "srw_horizontal_band", f"{scale}x downscale, {interp}, band {k}")
+        del got
+        if cuda:
+            # every (bands an item, stages) the kernel instantiates, at 4, 2
+            # and 1 warps a block where it fits, on band 0 through the C entry
+            zb, _ = dstep.bands(zp)
+            v0, vd0 = srw_vertical_band(*dstep.vertical_args(zb, dstep.exchange(zb), 0))
+            k_args = dstep.horizontal_args(v0, vd0, 0)
+            ref = srw_horizontal_band_plain(*k_args)
+            row_bytes = 4 * extent * (2 if interp == "triangular" else 1)
+            lib = _build.load()
+            for g, st in BAND_ITEMS:
+                for w in (4, 2, 1):
+                    plan_k = BandLaunch(g, st, w, w * st * g * row_bytes)
+                    if plan_k.smem > SMEM_BLOCK_MAX:
+                        continue
+                    got = torch.full_like(ref, -7.0)
+                    rc = lib.xrt_srw_horizontal_f32(
+                        *horizontal_c_args(*k_args, got, plan_k),
+                        torch.cuda.current_stream().cuda_stream)
+                    _build.check(lib, rc, f"K2 as {plan_k}")
+                    exact(got, ref, "srw_horizontal_band",
+                          f"{scale}x downscale, {interp}, band 0, launched as {plan_k}")
+            del zb, v0, vd0, k_args, ref, got
+        del zp
+    print(f"{tag} K2's band form equals its plain version on a {scale}x downscale ({s}^2 "
+          f"UTM32N -> {s // scale}^2 EPSG:3035 over {mesh.size} bands, 2 variables, every "
+          f"method, on band 0 also launched as each (bands an item, stages) of {BAND_ITEMS} at "
+          f"4, 2 and 1 warps where it fits; windows of {extent} columns a segment, the "
+          f"triangular launch {dl})")
+    del z, dstep
 
     # -- past the two-pass gate: BASELINE #3's geometry, the K3 band form ----
     gw, gh, gt = sizes["gate"]
@@ -826,11 +987,38 @@ def hybrid_hard_inputs(dev, tag, exact):
     from xcube_resampling_tpu_torch.constants import UV_DELTA
     from xcube_resampling_tpu_torch.ops import rectify_ops as ro
 
+    def seed(gx, gy, dst, tile, what, r0=0.0):
+        """K11 on the card, held to its plain version bit for bit."""
+        got = ro.hybrid_seed(gx, gy, dst, tile, float(max(dst)), 2, r0=r0)
+        ref = ro.hybrid_seed_plain(gx, gy, dst, tile, float(max(dst)), 2, r0=r0)
+        for a, b, part in zip(got, ref, ("cqj", "cqi", "meta")):
+            exact(a, b, "hybrid_seed", f"K11 {what}, tile {tile}, r0 {r0}: {part}")
+        return got
+
+    # K11 on swaths of odd width and height, one quad row or column, 3 x 3
+    for h, w in ((37, 53), (2, 41), (41, 2), (3, 3), (1001, 777)):
+        jj, ii = np.mgrid[0:h, 0:w].astype(np.float64)
+        gx = torch.from_numpy(3.0 + 1.1 * ii * np.cos(0.3) - 0.9 * jj * np.sin(0.3)).to(dev)
+        gy = torch.from_numpy(2.0 + 1.1 * ii * np.sin(0.3) + 0.9 * jj * np.cos(0.3)
+                              + 0.02 * ii * jj).to(dev)
+        for tile in (16, 8, 4):
+            for r0 in (0.0, 24.0):
+                seed(gx, gy, (max(2 * h, 24), max(2 * w, 20)), tile, f"{h}x{w} swath", r0)
+    # exactly affine, axis-aligned lattices: the seeds fall on integer quads
+    # and the target's far corners lie beyond the swath's edge
+    for (h, w), sp, off in (((40, 48), 1.0, 0.0), ((40, 48), 2.0, -3.0), ((33, 29), 0.5, 7.0),
+                            ((64, 64), 4.0, 0.0)):
+        jj, ii = np.mgrid[0:h, 0:w].astype(np.float64)
+        gx, gy = (torch.from_numpy(off + sp * c).to(dev) for c in (ii, jj))
+        for tile in (16, 8, 4):
+            for r0 in (0.0, 24.0):
+                seed(gx, gy, (int(sp * h) + 40, int(sp * w) + 40), tile,
+                     f"affine {h}x{w} lattice, spacing {sp}, origin {off}", r0)
     lines = []
     for name, x, y, dst in hard_lattices():
         gx, gy = (torch.from_numpy(c).to(dev) for c in (x, y))
         for tile in (16, 12, 8, 4):
-            cqj, cqi, meta = ro.hybrid_seed(gx, gy, dst, tile, float(max(dst)), 2)
+            cqj, cqi, meta = seed(gx, gy, dst, tile, f"hard input {name}")
             _, need_j, need_i = meta.tolist()
             wj = ro.hybrid_window(need_j, gx.shape[0]) or min(48, gx.shape[0])
             wi = ro.hybrid_window(need_i, gx.shape[1]) or min(48, gx.shape[1])
@@ -847,8 +1035,11 @@ def hybrid_hard_inputs(dev, tag, exact):
                              f"{meta[0].item()}, tile 16): winner position "
                              f"{got[0].double().mean().item():.1f}, "
                              f"{got[1].double().mean().item():.2f} pairs solved a pixel")
-    print(f"{tag} K12 equals its plain version (map, tested, solved) on the hard inputs at "
-          f"tiles 16, 12, 8, 4: {'; '.join(lines)}")
+    print(f"{tag} K11 (cqj, cqi, meta) and K12 (map, tested, solved) equal their plain "
+          f"versions on the hard inputs at tiles 16, 12, 8, 4, K11 also on 37x53, 2x41, 41x2, "
+          f"3x3 and 1001x777 swaths and on four exactly affine lattices (seeds on integer "
+          f"quads, corners beyond the swath) at tiles 16, 8, 4 and r0 0, 24: "
+          f"{'; '.join(lines)}")
 
 
 def warp_solved(solved, tile=16):
@@ -959,6 +1150,17 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
         hyb_map = ro.inverse_ij_map_hybrid(sw[0], sw[1], *args).device_map()
         bitwise(sharded_phase_a(mesh, gm, tgt).full(), hyb_map,
                 f"{cell} sharded Phase A vs the single-chip hybrid")
+        # its launches: K11 and K12 once a band; on the card K11's two
+        # kernels and K12's
+        LAUNCHES.clear()
+        sharded_phase_a(mesh, gm, tgt)
+        if dict(LAUNCHES) != {"hybrid_seed": mesh_n, "hybrid_dense": mesh_n}:
+            raise AssertionError(f"{cell}: sharded_phase_a launched {dict(LAUNCHES)}")
+        on_card = device_kernels(lambda: sharded_phase_a(mesh, gm, tgt))
+        want = ("seed_pass", "seed_walk", "hybrid_dense_kernel")
+        if not all(on_card[k] for k in want):
+            raise AssertionError(f"{cell}: sharded_phase_a ran {dict(on_card)} on the card, "
+                                 f"not {want}")
         k8 = port_rectify._inverse_ij_map(gm, tgt, UV_DELTA, dev, tier="device")
         k8_map = k8.device_map()
         if not torch.equal(torch.isnan(hyb_map), torch.isnan(k8_map)):
@@ -1024,6 +1226,14 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
         gy = (sw[1] - args[4]) / args[6]
         edge = float(max(dst))
         band = -(-(-(-dst[0] // mesh_n)) // 16) * 16
+        # every band's seed as sharded_phase_a launches it, then the whole
+        # target's at two origins
+        for k in range(mesh_n):
+            r0 = float(k * band)
+            got = ro.hybrid_seed(gx, gy, (band, dst[1]), 16, edge, 2, r0=r0)
+            ref = ro.hybrid_seed_plain(gx, gy, (band, dst[1]), 16, edge, 2, r0=r0)
+            for a, b, part in zip(got, ref, ("cqj", "cqi", "meta")):
+                exact(a, b, "hybrid_seed", f"{cell} band {k} (r0 {r0}) {part}")
         for r0 in (0.0, float(band)):
             got = ro.hybrid_seed(gx, gy, dst, 16, edge, 2, r0=r0)
             ref = ro.hybrid_seed_plain(gx, gy, dst, 16, edge, 2, r0=r0)
@@ -1108,7 +1318,9 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
             f"{n_bands * npix / w / 1e6:.1f} Mpix/s over the bands, peak device memory "
             f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
             f"{base / 2**30:.3f} GiB held before it); launches a call {expect}; the sharded "
-            f"Phase A equals the single-chip hybrid bit for bit; the hybrid map vs K8's: NaN "
+            f"Phase A launches K11 and K12 {mesh_n} times each, its kernels on the card over "
+            f"3 calls (the profiler's count) {', '.join(f'{k} {on_card[k]}' for k in want)}; "
+            f"it equals the single-chip hybrid bit for bit; the hybrid map vs K8's: NaN "
             f"coverage equal, max abs diff {d_k8:.3g}; through K8's map the sharded raster "
             f"equals K7's map form bit for bit (nearest, bilinear, triangular); the default "
             f"raster vs the one through K8's map: NaN masks equal, {share:.3g} of the pixels "
@@ -1199,6 +1411,7 @@ def main() -> int:
     )
     from xcube_resampling_tpu_torch.ops.srw import SRWFn, make_srw_reproject_fn
     from xcube_resampling_tpu_torch.ops.srw_kernels import (
+        plan_band_launch,
         srw_horizontal,
         srw_horizontal_plain,
         srw_vertical,
@@ -1239,16 +1452,17 @@ def main() -> int:
                   f"{max(k[3] for k in regs_k)} bytes of stack frame")
         if build.log and (not regs_k or any(k[2] or k[3] for k in regs_k)):
             raise AssertionError(f"K6's {cap}-tap register kernels spill or are missing")
-    # K1, K2 and K3, single-chip (Lb0E) and band form (Lb1E), per method;
-    # K7's map and list forms per method and dtype, its band form per
-    # method, K12 per tile
-    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel",
-                    "ij_gather_kernel", "ij_gather_band_kernel", "hybrid_dense_kernel"):
+    # K1 and K3, single-chip (Lb0E) and band form (Lb1E), per method; K2
+    # per method and (bands an item, stages); K7's map and list forms per method and
+    # dtype, its band form per method; K11's two kernels; K12 per tile
+    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
+                    "seed_pass", "seed_walk", "hybrid_dense_kernel"):
         for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
             print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
                   f"stack frame")
-    # K7's band form and K12: no spill, no local memory
-    for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4)):
+    # K7's band form, K2, K11 and K12: no spill, no local memory
+    for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
+                       ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1)):
         found = ptxas_kernels(build.log, pattern)
         if build.log and (len(found) != n or any(k[2] or k[3] for k in found)):
             raise AssertionError(f"{pattern}: {len(found)} of {n} kernels, spilling or with "
@@ -1514,8 +1728,9 @@ def main() -> int:
 
     print(
         f"{tag} headline windows: K1 blocks {st.win_v.rows}x{st.win_v.cols}, "
-        f"{st.win_v.extent} source rows staged; K2 blocks "
-        f"{st.win_h.rows}x{st.win_h.cols}, {st.win_h.extent} v columns staged"
+        f"{st.win_v.extent} source rows staged; K2 windows of {st.win_h.cols} columns "
+        f"a row tile of {st.win_h.rows}, {st.win_h.extent} v columns staged, launch "
+        f"{plan_band_launch(1, st.win_h.extent, False)}"
     )
 
     # K1 and K2 held against their plain versions and timed at the

@@ -50,6 +50,15 @@ CASES = {
     # a target over the source's upper half: every band's rows map into the
     # upper bands, a halo of several bands at n = 8
     "upper": (UTM, dict(LAEA, size=(80, 40), xy_min=(4320500, 3383500))),
+    # a source width no 4 divides (no 16-byte copies) onto a target whose
+    # width no 64 divides; planned with tap_budget=1 (row tiles of 64), the
+    # last row tile of each band overlaps its predecessor
+    "tiles": (dict(UTM, size=(95, 96)), dict(LAEA, size=(150, 290), xy_res=30)),
+    # an 8x downscale in one CRS: K2's windows some 1000 source columns a
+    # 128-column segment, wider than its ring holds at 4 bands an item
+    "down8": (dict(UTM, size=(2048, 128)), dict(UTM, size=(256, 16), xy_min=(565000.0,
+                                                                             5930000.0 + 3200.0),
+                                                xy_res=800.0)),
     # a global grid onto EPSG:3035, past the two-pass gate
     # (tests/test_parallel.py:_severe_sharded_case)
     "severe": (
@@ -282,6 +291,186 @@ def test_band_plain_versions_on_a_band_equal_the_single_chip_rows():
         torch.testing.assert_close(part[:, inside], ref[:, inside], rtol=0, atol=0,
                                    equal_nan=True)
         assert torch.isnan(part[:, (iy <= 7.5) & (iy > -0.5)]).all()
+
+
+def _band_taps(window, pos, t0, b0, d_h, finite, method):
+    """K2's tap sums (``srw_common.h:tap_sums``) of one row's outputs at
+    positions *pos* from their staged window row, each output's taps from
+    window column *t0* on (tap index *b0*): the two-tap shortcut where the
+    row is *finite*, every tap otherwise; (acc, acc_d)."""
+    fma = reproject_ops.fma
+    zero = torch.zeros_like(pos)
+    fp = torch.floor(pos)
+    if finite:
+        if method == "nearest":
+            t = torch.round(pos).long() - b0
+            inside = (t >= 0) & (t < d_h)
+            s = window[(t0 + t.clamp(0, d_h - 1))]
+            return torch.where(inside, fma(torch.ones_like(s), s, zero), zero), zero
+        t = fp.long() - b0
+        acc, acc_d = zero, zero
+        for d, sign in ((0, 1.0), (1, -1.0)):
+            inside = (t + d >= 0) & (t + d < d_h)
+            s = window[t0 + (t + d).clamp(0, d_h - 1)]
+            w = torch.clamp_min(1.0 - torch.abs(pos - (fp + d)), 0.0)
+            acc = torch.where(inside, fma(w, s, acc), acc)
+            acc_d = torch.where(inside, fma(torch.full_like(s, sign), s, acc_d), acc_d)
+        return acc, acc_d
+    acc, acc_d = zero, zero
+    for d in range(d_h):
+        k = (b0 + d).to(torch.float32)
+        s = window[t0 + d]
+        if method == "nearest":
+            w = (torch.round(pos) == k).to(torch.float32)
+        else:
+            w = torch.clamp_min(1.0 - torch.abs(pos - k), 0.0)
+        acc = fma(w, s, acc)
+        dw = (fp == k).to(torch.float32) - (fp + 1.0 == k).to(torch.float32)
+        acc_d = fma(dw, s, acc_d)
+    return acc, acc_d
+
+
+def _band_form_emulated(v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, win, method, fill,
+                        vd, row0):
+    """K2's band form as its kernel takes it apart (``csrc/srw_horizontal.cu``,
+    ``srw_horizontal_band_kernel``): a warp a task of 16 rows by one
+    ``BAND_COLS``-column segment; for each (row, band) the window of the
+    row's tile and the segment (the host's ``lohi``) staged with every
+    column clamped into the row, the row's finiteness deciding the two-tap
+    shortcut; asserts that every output's taps lie in its window."""
+    batch, out_h, src_w = v.shape
+    out_w = base_h.shape[1]
+    seg = srw_kernels.BAND_COLS
+    tri = method == "triangular"
+    assert win.cols == seg
+    pos, valid, corr = srw_kernels._horizontal_geometry(
+        ix_c, iy_c, step, out_h, out_w, src_h, src_w, tri, row0)
+    out = torch.full((batch, out_h, out_w), -7.0)
+    for cb in range(-(-out_w // seg)):
+        cols = torch.arange(cb * seg, min(cb * seg + seg, out_w))
+        for j in range(out_h):
+            t = j // row_tile
+            lo, hi = (int(x) for x in win.lohi[t, cb])
+            assert lo % 4 == 0 and hi % 4 == 0 and hi - lo <= win.extent
+            b0 = base_h[t, cols].long()
+            assert (b0 >= lo).all() and (b0 + d_h <= hi).all()
+            idx = torch.arange(lo, hi).clamp(0, src_w - 1)
+            for b in range(batch):
+                rows = [v[b, j, idx]] + ([vd[b, j, idx]] if tri else [])
+                finite = all(bool(torch.isfinite(r).all()) for r in rows)
+                acc, _ = _band_taps(rows[0], pos[j, cols], b0 - lo, b0, d_h, finite, method)
+                if tri:
+                    _, acc_dd = _band_taps(rows[1], pos[j, cols], b0 - lo, b0, d_h, finite,
+                                           method)
+                    acc = reproject_ops.fma(-corr[j, cols], acc_dd, acc)
+                out[b, j, cols] = torch.where(valid[j, cols], acc, torch.tensor(fill))
+    return out
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_band_form_plan_covers_its_taps_and_equals_jax(method):
+    """K2's band form's windows and launch plan, emulated task by task as
+    its kernel runs them, on bands whose last row tile overlaps its
+    predecessor, a target width no 64 divides and a source width no 4
+    divides, clean and with NaN rows: every output's taps lie in its
+    staged window, and the emulation equals the band form's plain version
+    bit for bit; the sharded step equals JAX's."""
+    (jsrc, jtgt), (psrc, ptgt) = _gms("tiles")
+    n = 2
+    data = _data("tiles", 2)
+    nan_rows = data.copy()
+    nan_rows[:, 40:42] = np.nan
+    nan_rows[:, 70] = np.nan
+    jb = jpar.make_sharded_srw_step(_jax_mesh(n), jsrc, jtgt, interp_method=method,
+                                    src_batch_dims=1, tap_budget=1)
+    pb = ppar.make_sharded_srw_step(_port_mesh(n), psrc, ptgt, interp_method=method,
+                                    src_batch_dims=1, tap_budget=1)
+    step = pb[0]
+    p = step.plan
+    assert p.tiles_per_band * p.row_tile > p.out_band_h  # the overlapping last tile
+    assert p.out_w % srw_kernels.BAND_COLS and p.src_w % 4
+    for x in (data, nan_rows):
+        _equal(_run_port(pb, x), _run_jax(jb, x))
+        bands, _ = step.bands(torch.from_numpy(x))
+        halos = step.exchange(bands)
+        for k in range(n):
+            v, vd = srw_kernels.srw_vertical_band_plain(*step.vertical_args(bands, halos, k))
+            h_args = step.horizontal_args(v, vd, k)
+            ref = srw_kernels.srw_horizontal_band_plain(*h_args)
+            torch.testing.assert_close(_band_form_emulated(*h_args), ref, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_band_form_downscale_plan_covers_its_taps_and_equals_jax(method):
+    """An 8x downscale through the sharded SRW, whose windows (some 1000
+    columns a segment) do not fit K2's ring at 4 bands an item: the launch
+    plan fits them at every batch, the emulated kernel equals the band
+    form's plain version bit for bit on every band, and the step equals
+    JAX's."""
+    (jsrc, jtgt), (psrc, ptgt) = _gms("down8")
+    n = 2
+    data = _data("down8", 4)
+    jb = jpar.make_sharded_srw_step(_jax_mesh(n), jsrc, jtgt, interp_method=method,
+                                    src_batch_dims=1)
+    pb = ppar.make_sharded_srw_step(_port_mesh(n), psrc, ptgt, interp_method=method,
+                                    src_batch_dims=1)
+    _equal(_run_port(pb, data), _run_jax(jb, data))
+    step = pb[0]
+    tri = method == "triangular"
+    extent = max(w.extent for w in step.plan.win_h)
+    assert extent > 7 * srw_kernels.BAND_COLS
+    wide = srw_kernels.plan_band_launch(4, extent, tri, group=4)
+    assert wide.group < 4  # the default ring would not fit
+    for batch in (1, 2, 3, 4):
+        launch = srw_kernels.plan_band_launch(batch, extent, tri)
+        assert launch.smem <= srw_kernels.SMEM_BLOCK_MAX
+    bands, _ = step.bands(torch.from_numpy(data))
+    halos = step.exchange(bands)
+    for k in range(n):
+        v, vd = srw_kernels.srw_vertical_band_plain(*step.vertical_args(bands, halos, k))
+        h_args = step.horizontal_args(v, vd, k)
+        torch.testing.assert_close(_band_form_emulated(*h_args),
+                                   srw_kernels.srw_horizontal_band_plain(*h_args),
+                                   rtol=0, atol=0, equal_nan=True)
+
+
+# (batch, extent, triangular) -> (bands an item, stages, warps a block)
+_LAUNCHES = [
+    ((4, 84, False), (4, 3, 4)),  # BASELINE #5's band: 3 stages of 4 bands
+    ((3, 84, False), (2, 3, 4)),  # items of 2 bands and 1
+    ((1, 84, False), (1, 3, 4)),  # the ring sized for one band
+    ((2, 84, True), (2, 3, 4)),
+    ((4, 1040, False), (1, 3, 4)),  # 8x downscale: fewer bands an item
+    ((4, 1040, True), (1, 3, 4)),
+    ((1, 20000, False), (1, 1, 2)),  # past the block's most: 1 stage, fewer warps
+    ((1, 40000, False), (1, 1, 1)),
+    ((1, 60000, False), None),  # one window row does not fit
+    ((1, 30000, True), None),
+]
+
+
+@pytest.mark.parametrize("case, want", _LAUNCHES)
+def test_band_launch_sizes_the_ring_to_the_batch_and_the_window(case, want):
+    """K2's launch plan: the most of 4, 2 and 1 bands an item up to the
+    batch, 3 stages, 4 warps; fewer bands an item while the block's shared
+    memory leaves the SM too little for the blocks its registers allow (5,
+    triangular 2); one stage, then fewer warps while it does not fit a
+    block; ValueError where one window row does not fit; always a pair the
+    kernel instantiates."""
+    batch, extent, tri = case
+    if want is None:
+        with pytest.raises(ValueError, match="does not fit"):
+            srw_kernels.plan_band_launch(batch, extent, tri)
+        return
+    launch = srw_kernels.plan_band_launch(batch, extent, tri)
+    assert (launch.group, launch.stages, launch.warps) == want
+    row_bytes = 4 * extent * (2 if tri else 1)
+    assert launch.smem == launch.warps * launch.stages * launch.group * row_bytes
+    assert launch.smem <= srw_kernels.SMEM_BLOCK_MAX
+    per_sm = srw_kernels.SMEM_SM // srw_kernels.BAND_MIN_BLOCKS[tri] - srw_kernels.SMEM_RESERVED
+    assert launch.smem <= per_sm or launch.group == 1
+    assert (launch.group, launch.stages) in srw_kernels.BAND_ITEMS
 
 
 def test_exchange_halo_rows_and_zeros_past_the_edge():

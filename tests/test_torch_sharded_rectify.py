@@ -263,6 +263,26 @@ def test_seed_matches_jax(r0):
                 np.testing.assert_array_equal(g.numpy(), r)
 
 
+@pytest.mark.parametrize("shape", [(37, 53), (2, 41), (41, 2), (3, 3)])
+@pytest.mark.parametrize("r0", [0.0, 24.0])
+def test_seed_matches_jax_on_odd_and_thin_swaths(shape, r0):
+    """K11 (plain) gives JAX's seed kernel's meta and corner quads on a
+    swath of odd width and height, on 2 x N and N x 2 swaths (one quad row
+    or column) and on a 3 x 3 one, rotated and sheared, at tiles 16, 8 and
+    4 onto a target that reaches past the swath."""
+    h, w = shape
+    jj, ii = np.mgrid[0:h, 0:w].astype(np.float64)
+    gx = 3.0 + 1.1 * ii * np.cos(0.3) - 0.9 * jj * np.sin(0.3)
+    gy = 2.0 + 1.1 * ii * np.sin(0.3) + 0.9 * jj * np.cos(0.3) + 0.02 * ii * jj
+    dst = (max(2 * h, 24), max(2 * w, 20))
+    for tile in (16, 8, 4):
+        ref = _jax_seed(gx, gy, dst, tile, r0)
+        got = pro.hybrid_seed(torch.from_numpy(gx), torch.from_numpy(gy), dst, tile,
+                              float(max(dst)), 2, r0=r0)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), r)
+
+
 def test_gate_refuses_folded_and_nan_swaths():
     """Both packages' hybrids refuse a folded and a NaN swath, and serve
     the clean one (``tests/test_ops_parity.py:154-168``)."""

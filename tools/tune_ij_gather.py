@@ -91,16 +91,19 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def build_variants(out_dir: Path, source: str, variants, against: Path | None):
-    """[(name, library, ptxas report)] of *source* (a ``csrc`` file) built
-    once per variant of its ``constexpr int`` constants (a variant's
-    ``"replace"`` entry, pairs of texts, each of which must occur once,
-    edits the source besides); TREE's *source* as it stands last."""
+def build_variants(out_dir: Path, source: str, variants, against: Path | None,
+                   csrc: Path | None = None):
+    """[(name, library, ptxas report)] of *source* (a file of *csrc*, by
+    default this tree's ``csrc``) built once per variant of its
+    ``constexpr int`` constants (a variant's ``"replace"`` entry, pairs of
+    texts, each of which must occur once, edits the source besides); TREE's
+    *source* as it stands last."""
     from xcube_resampling_tpu_torch import _build
 
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
-    text0 = (_build.CSRC / source).read_text()
+    csrc = csrc or _build.CSRC
+    text0 = (csrc / source).read_text()
     stem0 = Path(source).stem
     sources = []
     for name, constants in variants:
@@ -118,7 +121,7 @@ def build_variants(out_dir: Path, source: str, variants, against: Path | None):
                 raise ValueError(f"{source} defines no {const}")
         stem = f"{stem0}.{name.replace(' ', '_')}"
         (out_dir / f"{stem}.cu").write_text(text)
-        sources.append((name, out_dir / f"{stem}.cu", _build.CSRC, out_dir / f"{stem}.so"))
+        sources.append((name, out_dir / f"{stem}.cu", csrc, out_dir / f"{stem}.so"))
     if against is not None:
         csrc = against / "xcube_resampling_tpu_torch" / "csrc"
         sources.append((f"{against.name}", csrc / source, csrc,

@@ -59,18 +59,11 @@ _SIGNATURES = {
         _I64, _I, _I, _I, _I, _I, _I64, _I64, _I, _I64, _I64, _I64, _P,
     ],
     # v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,
-    # src_w, ncj, nci, step, row_tile, d_h, method, fill, rows, cols,
-    # extent, n_col_blocks, walkers, vec4, stream
+    # src_w, ncj, nci, step, row_tile, d_h, method, fill, cols, extent,
+    # n_col_blocks, group, stages, warps, vec4, row0, stream
     "xrt_srw_horizontal_f32": [
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-        _I, _I64, _I, _I, _F, _I, _I, _I, _I64, _I64, _I, _P,
-    ],
-    # v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,
-    # src_w, ncj, nci, step, row_tile, d_h, method, fill, rows, cols,
-    # extent, n_col_blocks, walkers, vec4, row0, stream
-    "xrt_srw_horizontal_band_f32": [
-        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-        _I, _I64, _I, _I, _F, _I, _I, _I, _I64, _I64, _I, _I64, _P,
+        _I, _I64, _I, _I, _F, _I, _I, _I64, _I, _I, _I, _I, _I64, _P,
     ],
     # src, ix_c, iy_c, out, batch, src_h, src_w, ncj, nci, out_h, out_w,
     # step, method, fill, stream
@@ -122,10 +115,9 @@ _SIGNATURES = {
         _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _F, _P,
     ],
     # gx, gy, src_h, src_w, r0, dst_h, dst_w, tile, coarse_iters,
-    # refine_iters, max_edge, margin, scratch, qc, cqj, cqi, meta, stream
+    # refine_iters, max_edge, margin, scratch, cqj, cqi, meta, stream
     "xrt_hybrid_seed": [
-        _P, _P, _I64, _I64, _D, _I64, _I64, _I64, _I64, _I64, _D, _I64, _P, _P, _P, _P,
-        _P, _P,
+        _P, _P, _I64, _I64, _D, _I64, _I64, _I64, _I64, _I64, _D, _I64, _P, _P, _P, _P, _P,
     ],
     # gx, gy, src_h, src_w, r0, cqj, cqi, dst_h, dst_w, tile, win_j, win_i,
     # margin, uv_delta, out, tested, solved, stream

@@ -25,11 +25,28 @@
 // nowhere else (built with -fmad=false): the map equals JAX's bit for bit.
 //
 // K11's bound on the H100: device memory, one read of the two coordinate
-// images.  Its sums take two passes over them (the means, then the centred
-// moments), each a fixed grid of blocks writing partial sums that one block
-// reduces in a fixed order: no float atomics, so repeated runs give the
-// same bits.  The walks are one thread a lattice point (about 1/tile^2 of
-// the target's pixels); the window needs are integer maxima (atomicMax).
+// images.  The first design read them twice in seven launches (the means,
+// their one-block finish, the centred moments, theirs, the coarse walk, the
+// fine walk, the needs), each pass on 264 blocks of one 8-byte load a
+// thread at a time, and walked every corner its full 24 and 6 steps.
+// Design, two launches:
+//   1. seed_pass reads both images once for every sum: the gate's and the
+//      moments about the centre node (kx, ky) (sxx = sum (x - kx)^2 / n -
+//      (xm - kx)^2, ...; sum (x - xm) di = sum (x - kx) di, as sum di = 0),
+//      a fixed grid of kPassBlocks blocks (three an SM), each a column of a
+//      kPassRows-row tile a thread with kPassAhead rows in flight, the
+//      quads' right-hand nodes from the next lane.  Each block writes its
+//      partial sums.
+//   2. seed_walk, a block a patch of kPatch x kPatch tiles: each reduces
+//      every partial in the same fixed order (no float atomics: repeated
+//      runs give the same bits, and every block the same seed), walks the
+//      coarse corners its patch starts from, then its corners, then takes
+//      its tiles' needs (integer maxima, one atomicMax a block).  A walk
+//      stops at its fixed point: a step depends on the quad alone, so the
+//      steps it skips would leave it where it is.
+// The regrouped sums round otherwise than the plain version's; the seed
+// only starts the walks, and (cqj, cqi, meta) are held equal to the plain
+// version's (chip_smoke.py) and to JAX's (tests/test_torch_sharded_rectify.py).
 //
 // K12's bound is K8's, which computes the same map from the same swath:
 // its bytes.  What holds it is arithmetic.  The first design (one thread a
@@ -101,13 +118,20 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-// blocks of the two reduction passes (two an SM of an H100); the scratch
-// the wrapper allocates holds kPartials * 8 + 8 values
-constexpr int kPartials = 264;
-// the coarse lattice: every kCs-th tile corner
+// K11's pass: blocks of kPassThreads threads, three an SM of an H100 (a
+// fixed count, so that its sums run in a fixed order); a tile is
+// kPassThreads columns by kPassRows rows, read kPassAhead rows ahead;
+// kStats sums a block (the wrapper's scratch holds kPassBlocks * kStats)
+constexpr int kPassThreads = 256;
+constexpr int kPassBlocks = 396;
+constexpr int kPassRows = 32;
+constexpr int kPassAhead = 2;
+constexpr int kStats = 10;
+// the coarse lattice: every kCs-th tile corner; a walk block a patch of
+// kPatch x kPatch tiles, a thread each of its (kPatch + 1)^2 corners
 constexpr int kCs = 8;
-constexpr int kWalkThreads = 128;
+constexpr int kPatch = 15;
+constexpr int kWalkThreads = (kPatch + 1) * (kPatch + 1);
 
 template <typename F>
 __device__ __forceinline__ F fdet(F px0, F py0, F px1, F py1, F px2, F py2) {
@@ -122,16 +146,6 @@ __device__ __forceinline__ F fu(F px, F py, F px0, F py0, F px2, F py2) {
 template <typename F>
 __device__ __forceinline__ F fv(F px, F py, F px0, F py0, F px1, F py1) {
   return fma(py0 - py, px0 - px1, -((px0 - px) * (py0 - py1)));
-}
-
-// jnp.max and jnp.min: NaN wins
-template <typename F>
-__device__ __forceinline__ F max_nan(F a, F b) {
-  return (a != a || a > b) ? a : b;
-}
-template <typename F>
-__device__ __forceinline__ F min_nan(F a, F b) {
-  return (a != a || a < b) ? a : b;
 }
 
 // jnp.nan_to_num(x, nan=v): infinities to the type's extremes
@@ -154,182 +168,164 @@ __device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo, int64_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-template <typename F, typename Op>
-__device__ F block_reduce(F v, F* sh, Op op) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] = op(sh[threadIdx.x], sh[threadIdx.x + s]);
-    __syncthreads();
-  }
-  const F r = sh[0];
-  __syncthreads();
-  return r;
-}
-
-template <typename F>
-struct Sum {
-  __device__ F operator()(F a, F b) const { return a + b; }
-};
-template <typename F>
-struct Max {
-  __device__ F operator()(F a, F b) const { return max_nan(a, b); }
-};
-template <typename F>
-struct Min {
-  __device__ F operator()(F a, F b) const { return min_nan(a, b); }
-};
-
 struct Swath {
   int64_t h, w;
 };
 
-// pass 1, a block a stride of rows: the finite flag, the sums of x and y,
-// the min and max of both triangles' determinants and the longest quad
-// edge; partials[block * 8 + k]
+// The pass's sums a block, in partials[block * kStats + k]: kGate the
+// gate's flags (bits kFinite ... kEdge of an integer-valued float: every
+// node finite, every determinant of triangle A negative, every one
+// positive, the same for B, every quad edge at most max_edge; a NaN fails
+// each as it fails jnp's max and min); kSx, kSy the sums of xs = x - kx and
+// ys = y - ky, shifted by the centre node (kx, ky); kXX, kXY, kYY the sums
+// of xs xs, xs ys, ys ys; kXI ... kYJ of xs di, ys di, xs dj, ys dj with
+// di = i - im, dj = j - jm.
+enum Stat { kGate, kSx, kSy, kXX, kXY, kYY, kXI, kYI, kXJ, kYJ, kNStats };
+static_assert(kNStats == kStats, "the partials' layout");
+enum GateBit { kFinite = 1, kANeg = 2, kAPos = 4, kBNeg = 8, kBPos = 16, kEdge = 32 };
+constexpr int kGateAll = 63;
+
 template <typename F>
-__global__ void __launch_bounds__(kThreads)
-    seed_stats(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
-               F* __restrict__ partials) {
-  __shared__ F sh[kThreads];
-  F sx = 0, sy = 0, fin = 1;
-  F a_min = F(INFINITY), a_max = F(-INFINITY), b_min = F(INFINITY), b_max = F(-INFINITY);
-  F edge = F(-INFINITY);
-  for (int64_t row = blockIdx.x; row < s.h; row += gridDim.x) {
-    for (int64_t col = threadIdx.x; col < s.w; col += kThreads) {
-      const int64_t k = row * s.w + col;
-      const F x = gx[k], y = gy[k] - r0;
-      if (!(isfinite(x) && isfinite(y))) fin = 0;
-      sx += x;
-      sy += y;
-      if (row + 1 < s.h && col + 1 < s.w) {
-        const F p1x = gx[k + 1], p1y = gy[k + 1] - r0;
-        const F p2x = gx[k + s.w], p2y = gy[k + s.w] - r0;
-        const F p3x = gx[k + s.w + 1], p3y = gy[k + s.w + 1] - r0;
-        const F da = fdet(x, y, p1x, p1y, p2x, p2y);
-        const F db = fdet(p3x, p3y, p2x, p2y, p1x, p1y);
-        a_min = min_nan(a_min, da);
-        a_max = max_nan(a_max, da);
-        b_min = min_nan(b_min, db);
-        b_max = max_nan(b_max, db);
-        edge = max_nan(edge, max_nan(max_nan(fabs(p1x - x), fabs(p2x - x)),
-                                     max_nan(fabs(p1y - y), fabs(p2y - y))));
-      }
-    }
-  }
-  F* p = partials + blockIdx.x * 8;
-  const F v[8] = {
-      block_reduce(sx, sh, Sum<F>()),     block_reduce(sy, sh, Sum<F>()),
-      block_reduce(fin, sh, Min<F>()),    block_reduce(a_min, sh, Min<F>()),
-      block_reduce(a_max, sh, Max<F>()),  block_reduce(b_min, sh, Min<F>()),
-      block_reduce(b_max, sh, Max<F>()),  block_reduce(edge, sh, Max<F>())};
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 8; ++i) p[i] = v[i];
-  }
+__device__ __forceinline__ F combine(int k, F a, F b) {
+  if (k == kGate) return F(static_cast<int>(a) & static_cast<int>(b));
+  return a + b;
 }
 
-// one block: pass 1's partials in a fixed order; stats[0..1] = the means,
-// meta = [gate, INT_MIN, INT_MIN] (the needs are maxima to come)
+// v[k] reduced over the block (of *threads*, a multiple of 32) in a fixed
+// order; the result in sh[k] on return (sh holds (threads / 32) * kNStats)
 template <typename F>
-__global__ void __launch_bounds__(kThreads)
-    seed_finish_stats(const F* __restrict__ partials, int n_part, Swath s, F max_edge,
-                      F* __restrict__ stats, int* __restrict__ meta) {
-  __shared__ F sh[kThreads];
-  F sx = 0, sy = 0, fin = 1;
-  F a_min = F(INFINITY), a_max = F(-INFINITY), b_min = F(INFINITY), b_max = F(-INFINITY);
-  F edge = F(-INFINITY);
-  for (int b = threadIdx.x; b < n_part; b += kThreads) {
-    const F* p = partials + b * 8;
-    sx += p[0];
-    sy += p[1];
-    fin = min_nan(fin, p[2]);
-    a_min = min_nan(a_min, p[3]);
-    a_max = max_nan(a_max, p[4]);
-    b_min = min_nan(b_min, p[5]);
-    b_max = max_nan(b_max, p[6]);
-    edge = max_nan(edge, p[7]);
+__device__ void block_stats(F (&v)[kNStats], F* sh, int threads) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kNStats; ++k) {
+    F x = v[k];
+    for (int d = 16; d > 0; d >>= 1) x = combine(k, x, __shfl_down_sync(0xffffffffu, x, d));
+    if (lane == 0) sh[warp * kNStats + k] = x;
   }
-  sx = block_reduce(sx, sh, Sum<F>());
-  sy = block_reduce(sy, sh, Sum<F>());
-  fin = block_reduce(fin, sh, Min<F>());
-  a_min = block_reduce(a_min, sh, Min<F>());
-  a_max = block_reduce(a_max, sh, Max<F>());
-  b_min = block_reduce(b_min, sh, Min<F>());
-  b_max = block_reduce(b_max, sh, Max<F>());
-  edge = block_reduce(edge, sh, Max<F>());
-  if (threadIdx.x == 0) {
-    const F n = F(s.h * s.w);
-    stats[0] = sx / n;
-    stats[1] = sy / n;
-    const bool orient_a = a_max < 0 || a_min > 0;
-    const bool orient_b = b_max < 0 || b_min > 0;
-    meta[0] = fin == 1 && orient_a && orient_b && edge <= max_edge ? 1 : 0;
+  __syncthreads();
+  if (threadIdx.x < kNStats) {
+    const int k = threadIdx.x;
+    F x = sh[k];
+    for (int w = 1; w < threads / 32; ++w) x = combine(k, x, sh[w * kNStats + k]);
+    sh[k] = x;
+  }
+  __syncthreads();
+}
+
+// K11's pass: one read of both coordinate images for every sum of the
+// gate and of the affine seed.  A block walks its tiles (t = block, block
+// + kPassBlocks, ...); a thread a column of the tile, down its rows, with
+// the previous row in registers for the quads above (their right-hand
+// nodes from the next lane, lane 31 reading its own) and kPassAhead rows
+// loaded ahead; the tile's last quad row reads one row below it.  The sums
+// are fused multiply-adds, and a column's xs di, ys di are taken once a
+// tile (di times the tile's sums of xs, ys).  Block 0 also opens meta's
+// two needs (INT_MIN: maxima to come).
+template <typename F>
+__global__ void __launch_bounds__(kPassThreads, 3)
+    seed_pass(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s, F max_edge,
+              F* __restrict__ partials, int* __restrict__ meta) {
+  __shared__ F sh[(kPassThreads / 32) * kNStats];
+  const int lane = threadIdx.x & 31;
+  const int64_t kc = (s.h / 2) * s.w + s.w / 2;
+  const F kx = gx[kc], ky = gy[kc] - r0;
+  const F im = F(s.w - 1) / F(2), jm = F(s.h - 1) / F(2);
+  F v[kNStats];
+#pragma unroll
+  for (int k = 0; k < kNStats; ++k) v[k] = F(0);
+  int gate = kGateAll;
+  const int64_t n_strips = (s.w + kPassThreads - 1) / kPassThreads;
+  const int64_t n_tiles = n_strips * ((s.h + kPassRows - 1) / kPassRows);
+  for (int64_t t = blockIdx.x; t < n_tiles; t += kPassBlocks) {
+    const int64_t col = (t % n_strips) * kPassThreads + threadIdx.x;
+    const int64_t r_begin = (t / n_strips) * kPassRows;
+    const int64_t r_end = r_begin + kPassRows < s.h ? r_begin + kPassRows : s.h;
+    const int64_t r_last = r_end < s.h ? r_end : s.h - 1;  // the last row read
+    const bool in = col < s.w;
+    const bool quad_col = col + 1 < s.w;
+    F px = 0, py = 0, px1 = 0, py1 = 0;  // the row above, at col and col + 1
+    F tx = 0, ty = 0;                    // the tile's sums of xs, ys
+    for (int64_t r = r_begin; r <= r_last; r += kPassAhead) {
+      F x[kPassAhead], y[kPassAhead];
+#pragma unroll
+      for (int u = 0; u < kPassAhead; ++u) {
+        const int64_t k = (r + u) * s.w + col;
+        const bool ok = in && r + u <= r_last;
+        x[u] = ok ? gx[k] : F(0);
+        y[u] = ok ? gy[k] - r0 : F(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kPassAhead; ++u) {
+        const int64_t row = r + u;
+        if (row > r_last) break;  // (the whole warp)
+        F x1 = __shfl_down_sync(0xffffffffu, x[u], 1);
+        F y1 = __shfl_down_sync(0xffffffffu, y[u], 1);
+        if (lane == 31 && quad_col) {
+          x1 = gx[row * s.w + col + 1];
+          y1 = gy[row * s.w + col + 1] - r0;
+        }
+        if (in && row < r_end) {
+          if (!(isfinite(x[u]) && isfinite(y[u]))) gate &= ~kFinite;
+          const F xs = x[u] - kx, ys = y[u] - ky;
+          const F dj = F(row) - jm;
+          tx += xs;
+          ty += ys;
+          v[kXX] = fma(xs, xs, v[kXX]);
+          v[kXY] = fma(xs, ys, v[kXY]);
+          v[kYY] = fma(ys, ys, v[kYY]);
+          v[kXJ] = fma(xs, dj, v[kXJ]);
+          v[kYJ] = fma(ys, dj, v[kYJ]);
+        }
+        if (row > r_begin && quad_col) {
+          // the quad of (row - 1, col): p0 above, p1 above right, p2, p3;
+          // fdet's differences, which are the edges' too
+          const F e1x = px - px1, e2y = py - y[u], e2x = px - x[u], e1y = py - py1;
+          const F da = fma(e1x, e2y, -(e2x * e1y));
+          const F db = fma(x1 - x[u], y1 - py1, -((x1 - px1) * (y1 - y[u])));
+          if (!(da < 0)) gate &= ~kANeg;
+          if (!(da > 0)) gate &= ~kAPos;
+          if (!(db < 0)) gate &= ~kBNeg;
+          if (!(db > 0)) gate &= ~kBPos;
+          if (!(fabs(e1x) <= max_edge && fabs(e2x) <= max_edge && fabs(e1y) <= max_edge &&
+                fabs(e2y) <= max_edge)) {
+            gate &= ~kEdge;
+          }
+        }
+        px = x[u];
+        py = y[u];
+        px1 = x1;
+        py1 = y1;
+      }
+    }
+    if (in) {
+      const F di = F(col) - im;
+      v[kSx] += tx;
+      v[kSy] += ty;
+      v[kXI] = fma(tx, di, v[kXI]);
+      v[kYI] = fma(ty, di, v[kYI]);
+    }
+  }
+  v[kGate] = F(gate);
+  block_stats(v, sh, kPassThreads);
+  if (threadIdx.x < kStats) {
+    partials[blockIdx.x * kStats + threadIdx.x] = sh[threadIdx.x];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
     meta[1] = INT_MIN;
     meta[2] = INT_MIN;
   }
 }
 
-// pass 2: the centred moments of _affine_seed (sxx, sxy, syy, rix, riy,
-// rjx, rjy, unnormalised)
-template <typename F>
-__global__ void __launch_bounds__(kThreads)
-    seed_moments(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
-                 const F* __restrict__ stats, F* __restrict__ partials) {
-  __shared__ F sh[kThreads];
-  const F xm = stats[0], ym = stats[1];
-  const F im = F(s.w - 1) / F(2), jm = F(s.h - 1) / F(2);
-  F m[7] = {0, 0, 0, 0, 0, 0, 0};
-  for (int64_t row = blockIdx.x; row < s.h; row += gridDim.x) {
-    const F dj = F(row) - jm;
-    for (int64_t col = threadIdx.x; col < s.w; col += kThreads) {
-      const int64_t k = row * s.w + col;
-      const F xc = gx[k] - xm, yc = (gy[k] - r0) - ym;
-      const F di = F(col) - im;
-      m[0] += xc * xc;
-      m[1] += xc * yc;
-      m[2] += yc * yc;
-      m[3] += xc * di;
-      m[4] += yc * di;
-      m[5] += xc * dj;
-      m[6] += yc * dj;
-    }
-  }
-  for (int i = 0; i < 7; ++i) {
-    const F v = block_reduce(m[i], sh, Sum<F>());
-    if (threadIdx.x == 0) partials[blockIdx.x * 8 + i] = v;
-  }
-}
-
-// one block: the moments' partials in a fixed order, then the seed's
-// coefficients: stats[2..5] = ai, bi, aj, bj
-template <typename F>
-__global__ void __launch_bounds__(kThreads)
-    seed_finish_moments(const F* __restrict__ partials, int n_part, Swath s,
-                        F* __restrict__ stats) {
-  __shared__ F sh[kThreads];
-  F m[7] = {0, 0, 0, 0, 0, 0, 0};
-  for (int b = threadIdx.x; b < n_part; b += kThreads) {
-    for (int i = 0; i < 7; ++i) m[i] += partials[b * 8 + i];
-  }
-  for (int i = 0; i < 7; ++i) m[i] = block_reduce(m[i], sh, Sum<F>());
-  if (threadIdx.x == 0) {
-    const F n = F(s.h * s.w);
-    const F sxx = m[0] / n, sxy = m[1] / n, syy = m[2] / n;
-    const F rix = m[3] / n, riy = m[4] / n, rjx = m[5] / n, rjy = m[6] / n;
-    F det_m = fma(sxx, syy, -(sxy * sxy));
-    if (fabs(det_m) < F(1e-30)) det_m = F(1e-30);
-    stats[2] = fma(rix, syy, -(riy * sxy)) / det_m;
-    stats[3] = fma(riy, sxx, -(rix * sxy)) / det_m;
-    stats[4] = fma(rjx, syy, -(rjy * sxy)) / det_m;
-    stats[5] = fma(rjy, sxx, -(rjx * sxy)) / det_m;
-  }
-}
-
-// n_iters steps of the quad walk from (qj, qi) towards the point (px, py)
+// n_iters steps of the quad walk from (qj, qi) towards the point (px, py).
+// A step depends on (qj, qi) alone, so the walk ends early, exactly: at a
+// fixed point, and in a cycle of two quads (the walk bouncing off the
+// swath's edge towards a point beyond it), where the parity of the steps
+// left picks the quad it would end on.
 template <typename F>
 __device__ void walk(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
                      int64_t& qj, int64_t& qi, F px, F py, int n_iters) {
   const int64_t nqj = s.h - 1, nqi = s.w - 1;
+  int64_t pj = -1, pi = -1;  // the quad before (qj, qi)
   for (int it = 0; it < n_iters; ++it) {
     const int64_t k = qj * s.w + qi;
     const F p0x = gx[k], p1x = gx[k + 1], p2x = gx[k + s.w], p3x = gx[k + s.w + 1];
@@ -349,8 +345,23 @@ __device__ void walk(const F* __restrict__ gx, const F* __restrict__ gy, F r0, S
     }
     if (!isfinite(di)) di = 0;
     if (!isfinite(dj)) dj = 0;
-    qi = clamp64(qi + to_int32(di), 0, nqi - 1);
-    qj = clamp64(qj + to_int32(dj), 0, nqj - 1);
+    const int64_t ni = clamp64(qi + to_int32(di), 0, nqi - 1);
+    const int64_t nj = clamp64(qj + to_int32(dj), 0, nqj - 1);
+    if (ni == qi && nj == qj) return;  // step it + 1 stays: so does every later one
+    if (ni == pi && nj == pj) {
+      // step it + 1 returns to the quad of step it - 1: the walk alternates
+      // between it and (qj, qi) from there, and ends on the former when the
+      // steps from it + 1 to n_iters are even in number
+      if ((n_iters - it - 1) % 2 == 0) {
+        qi = pi;
+        qj = pj;
+      }
+      return;
+    }
+    pi = qi;
+    pj = qj;
+    qi = ni;
+    qj = nj;
   }
 }
 
@@ -359,69 +370,126 @@ struct Lattice {
   int coarse_iters, refine_iters;
 };
 
-// the coarse lattice: the affine seed, then coarse_iters walk steps;
-// qc[0 .. n_c) the rows, qc[n_c .. 2 n_c) the columns
+// K11's walks, a block a patch of kPatch x kPatch tiles: every block first
+// finishes the pass's sums (all kPassBlocks partials, in the same fixed
+// order: every block gets the same seed) into the affine seed's
+// coefficients (block 0 writes the gate); then the coarse lattice's
+// corners the patch's corners start from, coarse_iters walk steps each
+// from the seed; then refine_iters steps for each of the patch's (kPatch
+// + 1)^2 corners (the patch's own written to cqj, cqi); then each tile's
+// window needs from its four corners, one atomicMax a block.
 template <typename F>
 __global__ void __launch_bounds__(kWalkThreads)
-    seed_coarse_walk(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
-                     Lattice l, const F* __restrict__ stats, int* __restrict__ qc) {
-  const int64_t n_c = l.n_cj * l.n_ci;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x;
-  if (p >= n_c) return;
-  const F px = F(p % l.n_ci) * F(kCs * l.tile);
-  const F py = F(p / l.n_ci) * F(kCs * l.tile);
-  const F im = F(s.w - 1) / F(2), jm = F(s.h - 1) / F(2);
-  const F dx = px - stats[0], dy = py - stats[1];
-  const int64_t nqj = s.h - 1, nqi = s.w - 1;
-  int64_t qi = to_int32(nan_to_num(fma(stats[3], dy, fma(stats[2], dx, im)), im));
-  int64_t qj = to_int32(nan_to_num(fma(stats[5], dy, fma(stats[4], dx, jm)), jm));
-  qi = clamp64(qi, 0, nqi - 1);
-  qj = clamp64(qj, 0, nqj - 1);
-  walk(gx, gy, r0, s, qj, qi, px, py, l.coarse_iters);
-  qc[p] = static_cast<int>(qj);
-  qc[n_c + p] = static_cast<int>(qi);
-}
-
-// the tile-corner lattice from its coarse corner's quad: refine_iters walk
-// steps
-template <typename F>
-__global__ void __launch_bounds__(kWalkThreads)
-    seed_fine_walk(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s,
-                   Lattice l, const int* __restrict__ qc, int* __restrict__ cqj,
-                   int* __restrict__ cqi) {
-  const int64_t w = l.n_ti + 1;
-  const int64_t n = (l.n_tj + 1) * w;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x;
-  if (p >= n) return;
-  const int64_t a = p / w, b = p % w;
-  const int64_t c = (a / kCs) * l.n_ci + b / kCs;
-  int64_t qj = qc[c], qi = qc[l.n_cj * l.n_ci + c];
-  walk(gx, gy, r0, s, qj, qi, F(b) * F(l.tile), F(a) * F(l.tile), l.refine_iters);
-  cqj[p] = static_cast<int>(qj);
-  cqi[p] = static_cast<int>(qi);
-}
-
-// per tile the margin-padded quad range of its corners, clamped at the
-// swath's bounds: meta[1], meta[2] = the largest, plus the closing node
-__global__ void __launch_bounds__(kWalkThreads)
-    seed_needs(const int* __restrict__ cqj, const int* __restrict__ cqi, Swath s, Lattice l,
-               int margin, int* __restrict__ meta) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kWalkThreads + threadIdx.x;
-  if (t >= l.n_tj * l.n_ti) return;
-  const int64_t w = l.n_ti + 1;
-  const int64_t k = (t / l.n_ti) * w + t % l.n_ti;
-  const int64_t corners[4] = {k, k + 1, k + w, k + w + 1};
-  int j_lo = INT_MAX, j_hi = INT_MIN, i_lo = INT_MAX, i_hi = INT_MIN;
-  for (int64_t c : corners) {
-    j_lo = min(j_lo, cqj[c]);
-    j_hi = max(j_hi, cqj[c]);
-    i_lo = min(i_lo, cqi[c]);
-    i_hi = max(i_hi, cqi[c]);
+    seed_walk(const F* __restrict__ gx, const F* __restrict__ gy, F r0, Swath s, Lattice l,
+              const F* __restrict__ partials, int margin, int64_t n_pi,
+              int* __restrict__ cqj, int* __restrict__ cqi, int* __restrict__ meta) {
+  __shared__ F sh[(kWalkThreads / 32) * kNStats];
+  __shared__ F seed[6];  // xm, ym, ai, bi, aj, bj
+  __shared__ int cq[2][3][3];  // the coarse corners' quads (j, i)
+  __shared__ int fq[2][kPatch + 1][kPatch + 1];  // the patch's corners' quads
+  __shared__ int nj_max[kWalkThreads / 32], ni_max[kWalkThreads / 32];
+  // -- the sums
+  F v[kNStats];
+#pragma unroll
+  for (int k = 0; k < kNStats; ++k) v[k] = k == kGate ? F(kGateAll) : F(0);
+  for (int b = threadIdx.x; b < kPassBlocks; b += kWalkThreads) {
+#pragma unroll
+    for (int k = 0; k < kNStats; ++k) v[k] = combine(k, v[k], partials[b * kStats + k]);
   }
-  const int need_j = min(j_hi + margin, static_cast<int>(s.h) - 2) - max(j_lo - margin, 0) + 2;
-  const int need_i = min(i_hi + margin, static_cast<int>(s.w) - 2) - max(i_lo - margin, 0) + 2;
-  atomicMax(meta + 1, need_j);
-  atomicMax(meta + 2, need_i);
+  block_stats(v, sh, kWalkThreads);
+  if (threadIdx.x == 0) {
+    const F n = F(s.h * s.w);
+    const int64_t kc = (s.h / 2) * s.w + s.w / 2;
+    const F dx = sh[kSx] / n, dy = sh[kSy] / n;  // the means less (kx, ky)
+    const F sxx = sh[kXX] / n - dx * dx, sxy = sh[kXY] / n - dx * dy;
+    const F syy = sh[kYY] / n - dy * dy;
+    const F rix = sh[kXI] / n, riy = sh[kYI] / n, rjx = sh[kXJ] / n, rjy = sh[kYJ] / n;
+    F det_m = fma(sxx, syy, -(sxy * sxy));
+    if (fabs(det_m) < F(1e-30)) det_m = F(1e-30);
+    seed[0] = gx[kc] + dx;
+    seed[1] = (gy[kc] - r0) + dy;
+    seed[2] = fma(rix, syy, -(riy * sxy)) / det_m;
+    seed[3] = fma(riy, sxx, -(rix * sxy)) / det_m;
+    seed[4] = fma(rjx, syy, -(rjy * sxy)) / det_m;
+    seed[5] = fma(rjy, sxx, -(rjx * sxy)) / det_m;
+    if (blockIdx.x == 0) {
+      const int g = static_cast<int>(sh[kGate]);
+      meta[0] = (g & kFinite) && (g & (kANeg | kAPos)) && (g & (kBNeg | kBPos)) && (g & kEdge);
+    }
+  }
+  __syncthreads();
+  // -- the coarse corners
+  const int64_t pj = blockIdx.x / n_pi, pi = blockIdx.x % n_pi;
+  const int64_t a0 = pj * kPatch, b0 = pi * kPatch;  // the patch's first corner
+  const int64_t cj0 = a0 / kCs, ci0 = b0 / kCs;
+  const int64_t nqj = s.h - 1, nqi = s.w - 1;
+  if (threadIdx.x < 9) {
+    const int64_t cj = cj0 + threadIdx.x / 3, ci = ci0 + threadIdx.x % 3;
+    const int64_t a_hi = a0 + kPatch < l.n_tj ? a0 + kPatch : l.n_tj;
+    const int64_t b_hi = b0 + kPatch < l.n_ti ? b0 + kPatch : l.n_ti;
+    if (cj <= a_hi / kCs && ci <= b_hi / kCs) {
+      const F px = F(ci) * F(kCs * l.tile);
+      const F py = F(cj) * F(kCs * l.tile);
+      const F im = F(s.w - 1) / F(2), jm = F(s.h - 1) / F(2);
+      const F dx = px - seed[0], dy = py - seed[1];
+      int64_t qi = to_int32(nan_to_num(fma(seed[3], dy, fma(seed[2], dx, im)), im));
+      int64_t qj = to_int32(nan_to_num(fma(seed[5], dy, fma(seed[4], dx, jm)), jm));
+      qi = clamp64(qi, 0, nqi - 1);
+      qj = clamp64(qj, 0, nqj - 1);
+      walk(gx, gy, r0, s, qj, qi, px, py, l.coarse_iters);
+      cq[0][threadIdx.x / 3][threadIdx.x % 3] = static_cast<int>(qj);
+      cq[1][threadIdx.x / 3][threadIdx.x % 3] = static_cast<int>(qi);
+    }
+  }
+  __syncthreads();
+  // -- the patch's corners
+  const int ty = threadIdx.x / (kPatch + 1), tx = threadIdx.x % (kPatch + 1);
+  const int64_t a = a0 + ty, b = b0 + tx;
+  if (a <= l.n_tj && b <= l.n_ti) {
+    int64_t qj = cq[0][a / kCs - cj0][b / kCs - ci0];
+    int64_t qi = cq[1][a / kCs - cj0][b / kCs - ci0];
+    walk(gx, gy, r0, s, qj, qi, F(b) * F(l.tile), F(a) * F(l.tile), l.refine_iters);
+    fq[0][ty][tx] = static_cast<int>(qj);
+    fq[1][ty][tx] = static_cast<int>(qi);
+    if ((ty < kPatch || a == l.n_tj) && (tx < kPatch || b == l.n_ti)) {
+      const int64_t p = a * (l.n_ti + 1) + b;
+      cqj[p] = static_cast<int>(qj);
+      cqi[p] = static_cast<int>(qi);
+    }
+  }
+  __syncthreads();
+  // -- the tiles' needs: the margin-padded quad range of their corners,
+  // clamped at the swath's bounds, plus the closing node
+  int need_j = INT_MIN, need_i = INT_MIN;
+  if (ty < kPatch && tx < kPatch && a < l.n_tj && b < l.n_ti) {
+    int j_lo = INT_MAX, j_hi = INT_MIN, i_lo = INT_MAX, i_hi = INT_MIN;
+    for (int c = 0; c < 4; ++c) {
+      const int qj = fq[0][ty + c / 2][tx + c % 2], qi = fq[1][ty + c / 2][tx + c % 2];
+      j_lo = min(j_lo, qj);
+      j_hi = max(j_hi, qj);
+      i_lo = min(i_lo, qi);
+      i_hi = max(i_hi, qi);
+    }
+    need_j = min(j_hi + margin, static_cast<int>(s.h) - 2) - max(j_lo - margin, 0) + 2;
+    need_i = min(i_hi + margin, static_cast<int>(s.w) - 2) - max(i_lo - margin, 0) + 2;
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    need_j = max(need_j, __shfl_down_sync(0xffffffffu, need_j, d));
+    need_i = max(need_i, __shfl_down_sync(0xffffffffu, need_i, d));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    nj_max[threadIdx.x >> 5] = need_j;
+    ni_max[threadIdx.x >> 5] = need_i;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWalkThreads / 32; ++w) {
+      need_j = max(need_j, nj_max[w]);
+      need_i = max(need_i, ni_max[w]);
+    }
+    if (need_j != INT_MIN) atomicMax(meta + 1, need_j);
+    if (need_i != INT_MIN) atomicMax(meta + 2, need_i);
+  }
 }
 
 // K12's cull constants, from the accept test's u_min = -delta and uv_max:
@@ -692,13 +760,13 @@ cudaError_t launch_dense(const DenseArgs& a, int64_t n_tiles, size_t smem, cudaS
 }  // namespace
 
 // K11 on float64 (h, w) gx, gy: cqj, cqi (n_tj + 1, n_ti + 1) int32 and
-// meta[3] int32; scratch (kPartials * 8 + 8 float64) and qc (2 n_cj n_ci
-// int32) are the wrapper's.
+// meta[3] int32; scratch (kPassBlocks * kStats float64) is the wrapper's.
+// Two launches: the pass, then the walks.
 extern "C" int xrt_hybrid_seed(const double* gx, const double* gy, int64_t src_h, int64_t src_w,
                                double r0, int64_t dst_h, int64_t dst_w, int64_t tile,
                                int64_t coarse_iters, int64_t refine_iters, double max_edge,
-                               int64_t margin, double* scratch, int* qc, int* cqj, int* cqi,
-                               int* meta, void* stream) {
+                               int64_t margin, double* scratch, int* cqj, int* cqi, int* meta,
+                               void* stream) {
   if (src_h < 2 || src_w < 2 || src_h * src_w > (int64_t{1} << 31) - 1 || dst_h < 1 ||
       dst_w < 1 || tile < 1 || coarse_iters < 0 || refine_iters < 0 || margin < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -707,29 +775,15 @@ extern "C" int xrt_hybrid_seed(const double* gx, const double* gy, int64_t src_h
   const int64_t n_tj = (dst_h + tile - 1) / tile, n_ti = (dst_w + tile - 1) / tile;
   const Lattice l{n_tj / kCs + 2, n_ti / kCs + 2, n_tj, n_ti, tile,
                   static_cast<int>(coarse_iters), static_cast<int>(refine_iters)};
+  const int64_t n_pj = (n_tj + kPatch - 1) / kPatch, n_pi = (n_ti + kPatch - 1) / kPatch;
+  if (n_pj * n_pi > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const int n_part = static_cast<int>(src_h < kPartials ? src_h : kPartials);
-  double* partials = scratch;
-  double* stats = scratch + kPartials * 8;
-  cudaError_t rc;
-  seed_stats<double><<<n_part, kThreads, 0, st>>>(gx, gy, r0, s, partials);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  seed_finish_stats<double><<<1, kThreads, 0, st>>>(partials, n_part, s, max_edge, stats, meta);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  seed_moments<double><<<n_part, kThreads, 0, st>>>(gx, gy, r0, s, stats, partials);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  seed_finish_moments<double><<<1, kThreads, 0, st>>>(partials, n_part, s, stats);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  const int64_t n_c = l.n_cj * l.n_ci;
-  seed_coarse_walk<double><<<static_cast<unsigned>((n_c + kWalkThreads - 1) / kWalkThreads),
-                             kWalkThreads, 0, st>>>(gx, gy, r0, s, l, stats, qc);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  const int64_t n_f = (n_tj + 1) * (n_ti + 1);
-  seed_fine_walk<double><<<static_cast<unsigned>((n_f + kWalkThreads - 1) / kWalkThreads),
-                           kWalkThreads, 0, st>>>(gx, gy, r0, s, l, qc, cqj, cqi);
-  if ((rc = cudaGetLastError()) != cudaSuccess) return static_cast<int>(rc);
-  seed_needs<<<static_cast<unsigned>((n_tj * n_ti + kWalkThreads - 1) / kWalkThreads),
-               kWalkThreads, 0, st>>>(cqj, cqi, s, l, static_cast<int>(margin), meta);
+  seed_pass<double><<<kPassBlocks, kPassThreads, 0, st>>>(gx, gy, r0, s, max_edge, scratch,
+                                                          meta);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  seed_walk<double><<<static_cast<unsigned>(n_pj * n_pi), kWalkThreads, 0, st>>>(
+      gx, gy, r0, s, l, scratch, static_cast<int>(margin), n_pi, cqj, cqi, meta);
   return static_cast<int>(cudaGetLastError());
 }
 

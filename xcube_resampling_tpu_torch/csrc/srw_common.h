@@ -116,8 +116,9 @@ struct CoarseFields {
   float inv;
 };
 
-// Bilinear interpolation of coarse fields g at V consecutive columns from
-// col and at rows that a thread visits in increasing order: the JAX
+// Bilinear interpolation of coarse fields g at V columns col + S c (c < V;
+// consecutive by default) and at rows that a thread visits in increasing
+// order: the JAX
 // package's reproject_ops._interp_field, its lerps contracted as XLA does.
 // Each column's cell and fraction are taken once, and the row lerps of
 // every field and column are kept while the rows stay in one coarse cell,
@@ -126,21 +127,21 @@ struct CoarseFields {
 // cell test only decides when the row lerps are recomputed.  g is passed
 // to every call, not kept, so that a kernel's parameters stay in its
 // constant bank.
-template <int NF, int V>
+template <int NF, int V, int S = 1>
 class FieldCols {
  public:
   __device__ FieldCols(const CoarseFields<NF>& g, float col) {
 #pragma unroll
     for (int c = 0; c < V; ++c) {
-      // col + c is exact: columns stay below 2^24
-      const float ci = (c == 0 ? col : col + static_cast<float>(c)) * g.inv;
+      // col + S c is exact: columns stay below 2^24
+      const float ci = (c == 0 ? col : col + static_cast<float>(c * S)) * g.inv;
       const float i0f = floorf(ci);
       fi_[c] = ci - i0f;
       i0_[c] = static_cast<int>(clamp_index(static_cast<int>(i0f), g.nci - 1));
     }
   }
 
-  // v[k][c]: field k at *row* and column col + c
+  // v[k][c]: field k at *row* and column col + S c
   __device__ __forceinline__ void at(const CoarseFields<NF>& g, float row,
                                      float (&v)[NF][V]) {
     const float cj = row * g.inv;

@@ -717,8 +717,8 @@ def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i
     return out[:2].contiguous()
 
 
-# (csrc/hybrid_phase_a.cu's kPartials * 8 + 8 float64 values)
-_SEED_SCRATCH = 264 * 8 + 8
+# (csrc/hybrid_phase_a.cu's kPassBlocks * kStats float64 partial sums)
+_SEED_SCRATCH = 396 * 10
 _DENSE_TILES = (16, 12, 8, 4)
 
 
@@ -735,10 +735,9 @@ def hybrid_seed(gx, gy, dst_shape, tile, max_edge, margin, r0=0.0, coarse_iters=
     require_cuda(gy, "gy", _F64, (src_h, src_w))
     if src_h < 2 or src_w < 2 or src_h * src_w > _MAX_INDEX:
         raise ValueError(f"K11 takes swaths of 2 x 2 to 2^31 nodes: {src_h}x{src_w}")
-    n_tj, n_ti, n_cj, n_ci = _hybrid_lattice(dst_shape, tile)
+    n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
     dev = gx.device
     scratch = torch.empty(_SEED_SCRATCH, dtype=_F64, device=dev)
-    qc = torch.empty(2 * n_cj * n_ci, dtype=torch.int32, device=dev)
     cqj = torch.empty((n_tj + 1, n_ti + 1), dtype=torch.int32, device=dev)
     cqi = torch.empty_like(cqj)
     meta = torch.empty(3, dtype=torch.int32, device=dev)
@@ -747,7 +746,7 @@ def hybrid_seed(gx, gy, dst_shape, tile, max_edge, margin, r0=0.0, coarse_iters=
         rc = lib.xrt_hybrid_seed(
             gx.data_ptr(), gy.data_ptr(), src_h, src_w, float(r0), dst_shape[0], dst_shape[1],
             tile, coarse_iters, refine_iters, float(max_edge), margin, scratch.data_ptr(),
-            qc.data_ptr(), cqj.data_ptr(), cqi.data_ptr(), meta.data_ptr(),
+            cqj.data_ptr(), cqi.data_ptr(), meta.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "hybrid_seed")

@@ -21,9 +21,10 @@ Layouts: ``src`` (B, src_h, src_w); ``iystar_c`` (ncj, ncc) and ``ix_c``,
 
 :class:`Windows` are planned once per geometry on the host
 (:func:`plan_vertical_windows`, :func:`plan_horizontal_windows`): the
-block shape of a kernel and, per block, the range of tap indices (source
-rows for K1, ``v`` columns for K2) from its least base to its greatest
-base plus the tap count.  The kernel stages that window in shared memory,
+blocks of outputs (K1's kernel blocks; K2's row tiles by its warps'
+column segments) and, per block, the range of tap indices (source rows
+for K1, ``v`` columns for K2) from its least base to its greatest base
+plus the tap count.  The kernel stages that window in shared memory,
 clamping each index to the source as it copies, so its tap loop needs no
 clamp.  Windows steer the kernels only; the plain versions take them and
 do not need them.
@@ -37,7 +38,10 @@ row 0 at global source row ``off``), and tap ``k`` reads its row
 ``clamp(k, 0, src_h - 1) - off`` of the true source height ``src_h``.
 At ``row0 = off = 0`` on the whole source they are K1 and K2, and the
 single-chip plain versions are the band plain versions there.  Each band
-form counts its launches under its own name.
+form counts its launches under its own name.  K2 and its band form run
+one kernel (``srw_horizontal_kernel``, K2 at ``row0 = 0``): a warp a
+:data:`BAND_COLS`-column segment, its windows planned in column blocks of
+that width, its launch sized by :func:`plan_band_launch`.
 """
 
 from __future__ import annotations
@@ -53,27 +57,42 @@ from .reproject_ops import fma, interp_field, method_code
 
 _F32 = torch.float32
 
-# Shared memory a kernel block may stage (bytes): two window buffers and
-# the block's geometry.  Under half the H100's 227 KB per block, so that
-# two or more blocks share an SM.
+# Shared memory a K1 block may stage (bytes): two window buffers and the
+# block's positions.  Under half the H100's 227 KB per block, so that two
+# or more blocks share an SM.
 SMEM_BUDGET = 96 * 1024
-# Output columns of a block, at most: 64 columns x 4 row groups = 256
+# Output columns of a K1 block, at most: 64 columns x 4 row groups = 256
 # threads, and a warp reads 32 neighbouring columns of shared memory.
 MAX_BLOCK_COLS = 64
-# Output rows of a K1 and a K2 block, at most: the fastest at the 20480^2
-# headline among the shapes tools/tune_srw.py times
+# Output rows of a K1 block, at most: the fastest at the 20480^2 headline
+# among the shapes tools/tune_srw.py times
 K1_MAX_ROWS = 64
-K2_MAX_ROWS = 32
+# K2's kernel (csrc/srw_horizontal.cu, its limits mirrored here): the
+# output columns of a warp's segment (kBandCols), in whose column blocks
+# its windows are planned; warps a block (kBandWarps), at most; its
+# instantiations' (bands of a row an item stages, stages of a warp's ring);
+# the blocks an SM its registers are capped for (bilinear and nearest,
+# triangular)
+BAND_COLS = 128
+BAND_WARPS = 4
+BAND_ITEMS = ((4, 3), (2, 3), (1, 3), (1, 1))
+BAND_MIN_BLOCKS = (5, 2)
+# the H100's shared memory an SM and a block's most (bytes), and what the
+# runtime keeps of an SM's for each block
+SMEM_SM = 228 * 1024
+SMEM_BLOCK_MAX = 227 * 1024
+SMEM_RESERVED = 1024
 
 
 @dataclass(frozen=True)
 class Windows:
-    """The staged windows of one pass.  A kernel block covers ``rows`` x
-    ``cols`` outputs; ``lohi[rb, cb]`` (int32) is the half-open range of
-    tap indices ``base + d`` of row block ``rb`` and column block ``cb``,
-    not clipped to the source (the kernel clamps as it copies);
-    ``extent`` is the widest range (the shared memory a window buffer
-    holds per row or column)."""
+    """The staged windows of one pass over blocks of ``rows`` x ``cols``
+    outputs (K1's kernel blocks; K2's row tiles by its warps' segments);
+    ``lohi[rb, cb]`` (int32) is the half-open range of tap indices
+    ``base + d`` of row block ``rb`` and column block ``cb``, not clipped
+    to the source (the kernel clamps as it copies); ``extent`` is the
+    widest range (the shared memory a window buffer holds per row or
+    column)."""
 
     lohi: torch.Tensor  # (n_row_blocks, n_col_blocks, 2)
     rows: int
@@ -115,25 +134,73 @@ def plan_vertical_windows(base_v: np.ndarray, col_tile: int, d_v: int) -> Window
 
 
 def plan_horizontal_windows(base_h: np.ndarray, row_tile: int, d_h: int) -> Windows:
-    """K2's blocks: ``rows`` output rows inside one row tile by ``cols``
-    output columns, the most rows (a power of two up to
-    :data:`K2_MAX_ROWS`) whose two ``v`` (and ``vd``) windows and geometry
-    fit :data:`SMEM_BUDGET`.  Window ends are rounded
-    out to multiples of 4 columns, for 16-byte copies."""
+    """K2's windows: one a row tile (``rows`` = *row_tile*) and
+    :data:`BAND_COLS`-column segment (its kernel's warps' segments), from
+    the segment's least base to its greatest base plus *d_h*, the ends
+    rounded out to multiples of 4 columns, for 16-byte copies.  The kernel
+    stages them as :func:`plan_band_launch` sizes its launch; one window
+    row of ``extent`` columns must fit its block's shared memory (a
+    downscale by less than some 450x, 225x for triangular), or the launch
+    raises ``ValueError``; the plain versions take any."""
     n_rt, out_w = base_h.shape
-    cols = MAX_BLOCK_COLS
+    cols = BAND_COLS
     n_cb = -(-out_w // cols)
     padded = np.pad(base_h, ((0, 0), (0, n_cb * cols - out_w)), mode="edge")
     blocks = padded.reshape(n_rt, n_cb, cols).astype(np.int64)
     lo = blocks.min(axis=2) // 4 * 4
     hi = -(-(blocks.max(axis=2) + d_h) // 4) * 4
     extent = int((hi - lo).max())
-    rows = _pow2_divisor(row_tile, K2_MAX_ROWS)
-    # two buffers of v and vd, positions, weights s, the mask and the bases
-    while rows > 1 and 4 * (4 * rows * extent + 2 * rows * cols + cols) + rows * cols > SMEM_BUDGET:
-        rows //= 2
     lohi = torch.from_numpy(np.stack([lo, hi], axis=-1).astype(np.int32))
-    return Windows(lohi, rows, cols, extent, (int(lo.min()), int(hi.max())))
+    return Windows(lohi, row_tile, cols, extent, (int(lo.min()), int(hi.max())))
+
+
+@dataclass(frozen=True)
+class BandLaunch:
+    """K2's launch (``csrc/srw_horizontal.cu``): the bands of a row an item
+    stages, the stages of a warp's ring, warps a block, and the block's
+    shared memory in bytes."""
+
+    group: int
+    stages: int
+    warps: int
+    smem: int
+
+
+def plan_band_launch(
+    batch: int, extent: int, triangular: bool, group: int = 4, warps: int = BAND_WARPS
+) -> BandLaunch:
+    """K2's launch for *batch* bands of windows *extent* columns wide: the
+    most bands an item of 4, 2 and 1 up to *batch* and *group*, 3 stages of
+    a warp's ring, *warps* warps a block; then fewer bands an item while the
+    block's ring leaves its SM too little shared memory for the blocks its
+    registers allow (:data:`BAND_MIN_BLOCKS`), and one stage, then fewer
+    warps, while it does not fit a block at all (the pairs of
+    :data:`BAND_ITEMS`).  ``ValueError`` where one band, one stage and one
+    warp do not fit."""
+    if batch < 1 or extent < 1 or group not in (4, 2, 1) or not 1 <= warps <= BAND_WARPS:
+        raise ValueError(f"K2: batch {batch}, extent {extent}, group {group}, warps {warps}")
+    row_bytes = 4 * extent * (2 if triangular else 1)  # one band's window row (and vd's)
+    target = SMEM_SM // BAND_MIN_BLOCKS[triangular] - SMEM_RESERVED
+    g = group
+    while g > batch:
+        g //= 2
+    s = 3
+
+    def smem():
+        return warps * s * g * row_bytes
+
+    while smem() > target and g > 1:
+        g //= 2
+    if smem() > SMEM_BLOCK_MAX:
+        s = 1
+    while smem() > SMEM_BLOCK_MAX and warps > 1:
+        warps //= 2
+    if smem() > SMEM_BLOCK_MAX:
+        raise ValueError(
+            f"K2: a window row of {extent} columns{' (and vd)' if triangular else ''} does not "
+            f"fit the kernel's {SMEM_BLOCK_MAX} bytes of shared memory"
+        )
+    return BandLaunch(g, s, warps, smem())
 
 
 def _weight(pos, k, interp_method):
@@ -371,7 +438,7 @@ def srw_horizontal(
         )
     return _launch_horizontal(
         v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
-        interp_method, fill_value, vd, None,
+        interp_method, fill_value, vd, 0, "srw_horizontal",
     )
 
 
@@ -394,63 +461,67 @@ def srw_horizontal_band(
         raise ValueError(f"K2 band: negative first row {row0}")
     return _launch_horizontal(
         v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
-        interp_method, fill_value, vd, row0,
+        interp_method, fill_value, vd, row0, "srw_horizontal_band",
+    )
+
+
+def horizontal_c_args(
+    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+    interp_method, fill_value, vd, row0, out, launch=None,
+):
+    """K2's C arguments (``xrt_srw_horizontal_f32`` but the stream) into
+    *out*, checked against its plan: a warp for each :data:`BAND_COLS`-
+    column segment of 16 rows, staged as *launch* (a :class:`BandLaunch`;
+    default :func:`plan_band_launch`'s) says."""
+    tri = interp_method == "triangular"
+    vd = vd if tri else None
+    batch, out_h, src_w = v.shape
+    n_row_tiles, out_w = base_h.shape
+    w = windows
+    ncj, nci = ix_c.shape
+    if (row_tile < 1 or n_row_tiles != -(-out_h // row_tile) or w.extent % 4
+            or w.cols != BAND_COLS or d_h < 1 or step < 1 or ncj < 2 or nci < 2):
+        raise ValueError(
+            f"inconsistent K2 plan: base_h {tuple(base_h.shape)}, out_h {out_h}, row_tile "
+            f"{row_tile}, windows of {w.cols} columns (the kernel's segments are {BAND_COLS}), "
+            f"extent {w.extent}, d_h {d_h}, step {step}, coarse fields {tuple(ix_c.shape)}"
+        )
+    require_cuda(v, "v", _F32, (batch, out_h, src_w))
+    require_cuda(base_h, "base_h", torch.int32, (n_row_tiles, out_w))
+    require_cuda(w.lohi, "windows", torch.int32, (n_row_tiles, -(-out_w // w.cols), 2))
+    require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
+    require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
+    if tri:
+        require_cuda(vd, "vd", _F32, (batch, out_h, src_w))
+    vec4 = (
+        src_w % 4 == 0 and v.data_ptr() % 16 == 0
+        and (vd is None or vd.data_ptr() % 16 == 0)
+    )
+    launch = launch or plan_band_launch(max(batch, 1), w.extent, tri)
+    return (
+        v.data_ptr(), _ptr(vd), ix_c.data_ptr(), iy_c.data_ptr(), base_h.data_ptr(),
+        w.lohi.data_ptr(), out.data_ptr(), batch, out_h, out_w, src_h, src_w, ncj, nci,
+        step, row_tile, d_h, method_code(interp_method), float(fill_value), w.cols,
+        w.extent, -(-out_w // w.cols), launch.group, launch.stages, launch.warps,
+        int(vec4), row0,
     )
 
 
 def _launch_horizontal(
     v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
-    interp_method, fill_value, vd, row0,
+    interp_method, fill_value, vd, row0, name,
 ):
-    """K2 on CUDA tensors; *row0* None, or the band form's first row."""
-    tri = interp_method == "triangular"
-    method = method_code(interp_method)
-    if row_tile < 1 or d_h < 1 or step < 1:
-        raise ValueError(f"row_tile, d_h and step must be positive: {row_tile}, {d_h}, {step}")
-    batch, out_h, src_w = v.shape
-    n_row_tiles, out_w = base_h.shape
-    ncj, nci = ix_c.shape
-    w = windows
-    n_cb = -(-out_w // w.cols)
-    if (
-        n_row_tiles != -(-out_h // row_tile) or row_tile % w.rows
-        or w.extent % 4 or ncj < 2 or nci < 2
-    ):
-        raise ValueError(
-            f"inconsistent K2 plan: base_h {tuple(base_h.shape)}, out_h {out_h}, "
-            f"row_tile {row_tile}, block rows {w.rows}, extent {w.extent}, "
-            f"ix_c {tuple(ix_c.shape)}"
-        )
-    require_cuda(v, "v", _F32, (batch, out_h, src_w))
-    require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
-    require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
-    require_cuda(base_h, "base_h", torch.int32, (n_row_tiles, out_w))
-    require_cuda(w.lohi, "windows", torch.int32, (n_row_tiles, n_cb, 2))
-    if tri:
-        require_cuda(vd, "vd", _F32, (batch, out_h, src_w))
-    out = torch.empty((batch, out_h, out_w), dtype=_F32, device=v.device)
+    """K2's kernel on CUDA tensors, its launch counted under *name*."""
+    out = torch.empty((v.shape[0], v.shape[1], base_h.shape[1]), dtype=_F32, device=v.device)
+    args = horizontal_c_args(
+        v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
+        interp_method, fill_value, vd, row0, out,
+    )
     if out.numel() == 0:
         return out
-    vec4 = (
-        src_w % 4 == 0 and v.data_ptr() % 16 == 0
-        and (not tri or vd.data_ptr() % 16 == 0)
-    )
-    n_rb = -(-out_h // w.rows)
     lib = _build.load()
-    args = (
-        v.data_ptr(), _ptr(vd if tri else None), ix_c.data_ptr(),
-        iy_c.data_ptr(), base_h.data_ptr(), w.lohi.data_ptr(),
-        out.data_ptr(), batch, out_h, out_w, src_h, src_w, ncj, nci, step,
-        row_tile, d_h, method, float(fill_value), w.rows, w.cols,
-        w.extent, n_cb, _walkers(n_cb, n_rb), int(vec4),
-    )
-    name = "srw_horizontal" if row0 is None else "srw_horizontal_band"
     with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if row0 is None:
-            rc = lib.xrt_srw_horizontal_f32(*args, stream)
-        else:
-            rc = lib.xrt_srw_horizontal_band_f32(*args, row0, stream)
+        rc = lib.xrt_srw_horizontal_f32(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, name)
     count_launch(name)
     return out
