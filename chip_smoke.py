@@ -7,9 +7,11 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
    printing each source's registers and spills (ptxas ``-v``) and those
-   of every instantiation of K1-K3, K2's and K7's band forms, K7's map
-   and list forms, K11's two kernels and K12, and fails if K6's register
-   kernels, K2's or K7's band form, K11 or K12 spill or use local memory;
+   of every instantiation of K1-K3, K2's, K3's and K7's band forms, K7's
+   map and list forms, K11's two kernels and K12 (and a summary of the
+   downscale form's cached kernels), and fails if K6's register kernels,
+   K2's, K3's or K7's band form, K11, K12 or the downscale form's cached
+   kernels spill or use local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
    same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
@@ -54,7 +56,11 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    float32 with all-NaN windows and on int32, K4's downscale form against
    its plain version and against K4 -> K5 on the card for every dtype and
    K5 reducer (all-NaN windows, a fill edge, a flipped axis, a strided
-   view), K6 for mode and median at 4, 9, 16, 25, 64, 81 and 1024 taps
+   view), and its cached kernel at every window width it templates and
+   one past it, every reducer and pick, float32, float64, int32 and
+   uint16, either axis flipped, the last column's window at the source's
+   right edge; K3's band form for every method on every band past the
+   gate, a ragged last band and a 1-row band; K6 for mode and median at 4, 9, 16, 25, 64, 81 and 1024 taps
    with ties, NaN and +-0.0, K7 for every method on the seven dtypes, NaN
    map cells and its list form, and on maps whose positions spread over
    the whole source, run backwards or sit on the -0.5 / n - 0.5 bounds
@@ -74,7 +80,8 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    report) and does not synchronise (sync debug mode "error"), the
    resident Phase B at R3's; times each kernel and its plain version at
    the main path's shapes beside one PyTorch call where one computes the
-   same function (K3 ``F.grid_sample``, K4 a copy at BASELINE #2's ``c``
+   same function (K3 and its band form ``F.grid_sample``, K4 a copy at
+   BASELINE #2's ``c``
    and ``F.grid_sample`` at BASELINE #1, K5 and the downscale form at
    BASELINE #1 ``torch.nanmean``, K5 a strided copy for ``first``, K6
    ``torch.mode``, K7 ``F.grid_sample``; K8, K9 and K10 have none), and the
@@ -90,7 +97,8 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    quads of its windows and the candidate pixels of their rectangles,
    counted on the card, K1's band form's from the rows of its band its
    taps reach in each column tile and K3's and K7's from the band's pixels
-   their valid taps reach;
+   their valid taps reach; beside the downscale form's bound, the time its
+   float64 conversions take at 16 a clock an SM (information only);
 5. drives BASELINE #5 (:func:`baseline5`): ``sharded_reproject`` of the
    headline's 20480^2 geometry with 4 float32 bands over a mesh of four
    entries on the card (K1's and K2's band forms after the halo exchange;
@@ -263,6 +271,30 @@ def gather_reduce_bound(x, residual, out_h, out_w, j_div, i_div, agg, out_itemsi
     per_tap = 0 if pick else (4 if agg in ("std", "var") else 1)
     n_ops = batch * (len(y) * len(xx) * (3 + per_tap) + 3 * len(y) * len(src_cols))
     return bound(n_in + n_out * out_itemsize, n_ops, PEAK_F64)
+
+
+def gather_reduce_values(x, residual, out_h, out_w, j_div, i_div):
+    """The downscale form's source values that its taps reach (the valid
+    positions' clipped tap rows times tap columns, every band) and its taps
+    (inflated pixels)."""
+    batch, h, w = x.shape
+    (i_s, _, i_o), (_, j_s, j_o) = residual
+    y = np.arange(out_h * j_div) * j_s + j_o
+    xx = np.arange(out_w * i_div) * i_s + i_o
+    y, xx = y[(y >= 0) & (y <= h - 1)], xx[(xx >= 0) & (xx <= w - 1)]
+    y0, x0 = np.floor(y).astype(np.int64), np.floor(xx).astype(np.int64)
+    rows = len(np.unique(np.concatenate([y0, np.minimum(y0 + 1, h - 1)])))
+    cols = len(np.unique(np.concatenate([x0, np.minimum(x0 + 1, w - 1)])))
+    return batch * rows * cols, batch * out_h * j_div * out_w * i_div
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def vertical_bound(src, st, tri):
@@ -461,8 +493,8 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
     """Drive BASELINE #5 on *dev* and hold it to the single-chip path and
     each band kernel to its plain version.  *h* carries the timing and
     comparison helpers of :func:`main` (``compare``, ``time_pair``).
-    Returns (launches on the sharded path, max abs errors, timings, bounds)
-    of the band kernels."""
+    Returns (launches on the sharded path, max abs errors, timings, bounds,
+    library yardsticks) of the band kernels."""
     import shutil
     from pathlib import Path
 
@@ -475,6 +507,7 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
     from xcube_resampling_tpu_torch.ops.reproject_ops import (
         fused_reproject_band,
         fused_reproject_band_plain,
+        interp_field,
         make_fused_reproject_fn,
     )
     from xcube_resampling_tpu_torch.ops.srw import make_srw_reproject_fn
@@ -503,7 +536,7 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
     cuda = dev.type == "cuda"
     launches: Counter = Counter()
     err = dict.fromkeys(B5_KERNELS, 0.0)
-    timings, bounds = {}, {}
+    timings, bounds, library = {}, {}, {}
 
     def sync():
         if cuda:
@@ -807,17 +840,46 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
         del out, ref
     bands, _ = step.bands(torch.nn.functional.pad(xc, (0, 0, 0, pad), value=nan))
     halos = step.exchange(bands)
-    for k in range(mesh.size):
-        g_args = step.gather_args(bands, halos, k)
-        o = fused_reproject_band(*g_args)
-        exact(o, fused_reproject_band_plain(*g_args), "fused_reproject_band",
-              f"gate band {k} (off {g_args[9]})")
+    # every method on every band (band 0 from its negative offset), a
+    # ragged last band (rows no unit of the kernel divides) and a 1-row band
+    for interp in METHODS:
+        for k in range(mesh.size):
+            g_args = list(step.gather_args(bands, halos, k))
+            g_args[6] = interp
+            o = fused_reproject_band(*g_args)
+            exact(o, fused_reproject_band_plain(*g_args), "fused_reproject_band",
+                  f"gate band {k} (off {g_args[9]}), {interp}")
+        for k, rows, skip in ((mesh.size - 1, step.out_band_h - 5, 0), (1, 1, 17)):
+            g_args = list(step.gather_args(bands, halos, k))
+            g_args[4], g_args[6], g_args[8] = rows, interp, g_args[8] + skip
+            exact(fused_reproject_band(*g_args), fused_reproject_band_plain(*g_args),
+                  "fused_reproject_band", f"gate band {k}, {rows} rows from {g_args[8]}, {interp}")
     g_args = step.gather_args(bands, halos, 1)
+    o = fused_reproject_band(*g_args)
     timings["fused_reproject_band"] = h.time_pair(
         lambda: fused_reproject_band(*g_args), lambda: fused_reproject_band_plain(*g_args))
     bounds["fused_reproject_band"] = fused_band_bound(*g_args)
     shapes["fused_reproject_band"] = f"ext {tuple(g_args[0].shape)} -> {tuple(o.shape)}"
-    del bands, halos, g_args, o, step, x, xc
+    # the library yardstick: one F.grid_sample at band 1's positions (border
+    # padding, corners aligned): no mask, no fill
+    ext, ix_c, iy_c, st, out_h, out_w = g_args[:6]
+    row0, off, src_h = g_args[8:]
+    rows = torch.arange(row0, row0 + out_h, dtype=torch.float32, device=dev)[:, None]
+    cols = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    gx = interp_field(ix_c, rows, cols, st) / (ext.shape[-1] - 1) * 2 - 1
+    gy = (interp_field(iy_c, rows, cols, st).clamp(0, src_h - 1) - off) / (ext.shape[-2] - 1) * 2 - 1
+    grid = torch.stack((gx, gy), dim=-1)[None]
+    del gx, gy, rows, cols
+    for interp in ("bilinear", "nearest"):
+        def grid_call(interp=interp):
+            return torch.nn.functional.grid_sample(
+                ext.reshape((1, 1) + tuple(ext.shape[-2:])), grid, mode=interp,
+                padding_mode="border", align_corners=True)
+
+        library[f"fused_reproject_band/{interp}"] = (h.event_ms(grid_call),
+                                                     h.device_ms(grid_call))
+    library["fused_reproject_band"] = library["fused_reproject_band/bilinear"]
+    del bands, halos, g_args, o, step, x, xc, ext, grid
 
     # -- each band kernel on a halo of several bands and on NaN rows --------
     m = sizes["halo_src"]
@@ -854,8 +916,12 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
     for name in B5_KERNELS:
         k, p, kd = timings[name]
         b, by = bounds[name]
+        beside = "".join(
+            f", F.grid_sample {interp} {library[f'{name}/{interp}'][0]:.4f} ms (device "
+            f"{library[f'{name}/{interp}'][1]:.4f} ms)" for interp in ("bilinear", "nearest")
+            if f"{name}/{interp}" in library)
         print(f"{tag} {name} ({shapes[name]}): kernel {k:.4f} ms (device {kd:.4f} ms), "
-              f"plain {p:.3f} ms, bound {b:.4f} ms ({by})")
+              f"plain {p:.3f} ms, bound {b:.4f} ms ({by}){beside}")
     del y, y_nan, cases
     if cuda:
         torch.cuda.empty_cache()
@@ -932,7 +998,7 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
         f"target read {len(corner.read)} of {n_chunks} chunks"
     )
     shutil.rmtree(work, ignore_errors=True)
-    return launches, err, timings, bounds
+    return launches, err, timings, bounds, library
 
 
 # The sharded rectify: R1 (BASELINE #4's 1189 x 1890 swath onto its
@@ -1401,6 +1467,7 @@ def main() -> int:
         affine_gather_plain,
         affine_gather_reduce,
         affine_gather_reduce_plain,
+        plan_gather_reduce,
     )
     from xcube_resampling_tpu_torch.ops.reproject_ops import (
         FusedReprojectFn,
@@ -1452,17 +1519,29 @@ def main() -> int:
                   f"{max(k[3] for k in regs_k)} bytes of stack frame")
         if build.log and (not regs_k or any(k[2] or k[3] for k in regs_k)):
             raise AssertionError(f"K6's {cap}-tap register kernels spill or are missing")
-    # K1 and K3, single-chip (Lb0E) and band form (Lb1E), per method; K2
-    # per method and (bands an item, stages); K7's map and list forms per method and
-    # dtype, its band form per method; K11's two kernels; K12 per tile
-    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
+    # K1, single-chip (Lb0E) and band form (Lb1E), per method; K3 and its
+    # band form per method; K2 per method and (bands an item, stages); K7's
+    # map and list forms per method and dtype, its band form per method;
+    # K11's two kernels; K12 per tile
+    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel",
+                    "fused_reproject_band_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
                     "seed_pass", "seed_walk", "hybrid_dense_kernel"):
         for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
             print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
                   f"stack frame")
-    # K7's band form, K2, K11 and K12: no spill, no local memory
+    # the downscale form's cached kernels: 7 dtypes, 8 reducers, 8 widths
+    cached = ptxas_kernels(build.log, "affine_gather_reduce_cached")
+    if cached:
+        print(f"  affine_gather_reduce_cached: {len(cached)} kernels, "
+              f"{min(k[1] for k in cached)}-{max(k[1] for k in cached)} registers, "
+              f"{max(k[2] for k in cached)} bytes spilled, "
+              f"{max(k[3] for k in cached)} bytes of stack frame")
+    # K7's band form, K2, K11, K12, K3's band form and the downscale form's
+    # cached kernels: no spill, no local memory
     for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
-                       ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1)):
+                       ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
+                       ("fused_reproject_band_kernel", 3),
+                       ("affine_gather_reduce_cached", 7 * 8 * 8)):
         found = ptxas_kernels(build.log, pattern)
         if build.log and (len(found) != n or any(k[2] or k[3] for k in found)):
             raise AssertionError(f"{pattern}: {len(found)} of {n} kernels, spilling or with "
@@ -1847,6 +1926,15 @@ def main() -> int:
     b5, by5 = reduce_bound(up[None], j_div, i_div, "mean", 4)
     br, byr = gather_reduce_bound(clipped[None], residual, coarse_gm.height,
                                   coarse_gm.width, j_div, i_div, "mean", 4)
+    n_src, n_taps = gather_reduce_values(clipped[None], residual, coarse_gm.height,
+                                         coarse_gm.width, j_div, i_div)
+    conv_rate = 16 * torch.cuda.get_device_properties(0).multi_processor_count * sm_clock_hz()
+    print(
+        f"{tag} pre-downscale affine_gather_reduce: float64 conversions at 16 a clock an SM "
+        f"(information; the bound stays bytes or operations): the {n_src} source values its "
+        f"taps reach, once each, {n_src / conv_rate * 1e3:.3f} ms; two a tap for its "
+        f"{n_taps} taps, as rounding by conversions takes, {2 * n_taps / conv_rate * 1e3:.3f} ms"
+    )
     print(
         f"{tag} pre-downscale kernels: affine_gather_reduce mean {j_div}x{i_div} "
         f"{kr_down[0]:.3f} ms (device {kr_down[1]:.3f} ms), bound {br:.3f} ms ({byr}), "
@@ -2247,6 +2335,57 @@ def main() -> int:
     print(f"{tag} affine_gather_reduce vs K4 -> K5 (equal, sign bits included) and vs "
           f"plain (max abs diff {err['affine_gather_reduce']}): {n_down} cases, 7 dtypes, "
           f"every K5 reducer, fill edges, a flipped axis, a strided view, all-NaN windows")
+    # the cached kernel's instantiations: every template width (1-8) and one
+    # past it (the direct kernel), every reducer and pick, on float32, float64,
+    # int32 and uint16; i flipped, j flipped (its first row between the
+    # last two source rows), a strided view, the first rows above the
+    # source (fill); the last output column's window
+    # reaches the source's right edge (positions on multiples of 1/4, exact)
+    n_down, routes = 0, Counter()
+    for dtype in (torch.float32, torch.float64, torch.int32, torch.uint16):
+        if dtype.is_floating_point:
+            x = torch.from_numpy(rng.random((2, 48, 150))).to(dtype).to(dev)
+            x[0, 10:20, 30:60] = nan
+            x[1, 21] = nan
+            fill = nan
+        else:
+            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+            x = torch.from_numpy(
+                rng.integers(*int_ranges[dtype], (2, 48, 150)).astype(np_dtype)).to(dev)
+            fill = 5
+        for width in range(1, 10):
+            j_div = 3 if width % 2 else 2
+            for flip_i, flip_j, view in ((False, False, True), (True, False, False),
+                                         (False, True, False)):
+                v = x[:, 2:, 3:] if view else x
+                h, w = v.shape[-2:]
+                ow = int((w - 1) / (width * 0.75))
+                oh = int((h - 1) / (j_div * 0.8))
+                i_s, i_o = (-0.75, (ow * width - 1) * 0.75) if flip_i else (
+                    0.75, (w - 1) - (ow * width - 1) * 0.75)
+                j_s, j_o = (-0.8, h - 1.3) if flip_j else (0.8, -0.6)
+                up = affine_gather(v, j_s, i_s, j_o, i_o, oh * j_div, ow * width, 1, fill)
+                for agg in REDUCERS:
+                    args = (v, j_s, i_s, j_o, i_o, oh, ow, j_div, width, agg, fill)
+                    routes[plan_gather_reduce(ow, width, i_s, i_o, w, agg)] += 1
+                    got = affine_gather_reduce(*args)
+                    what = (f"downscale form {dtype} {j_div}x{width} {agg}"
+                            f"{' i flipped' if flip_i else ''}{' j flipped' if flip_j else ''}"
+                            f"{' strided' if view else ''}")
+                    compare(got, coarsen_reduce(up, j_div, width, agg), "exact",
+                            f"{what} vs K4 -> K5", signs=True)
+                    kind = "stat" if dtype.is_floating_point and agg in (
+                        "mean", "sum", "std", "var", "prod") else "exact"
+                    d = compare(got, affine_gather_reduce_plain(*args), kind, f"{what} vs plain")
+                    err["affine_gather_reduce"] = max(err["affine_gather_reduce"], d)
+                    n_down += 1
+    if routes["cached"] != n_down * 8 // 11 * 8 // 9:
+        raise AssertionError(f"the cached kernel took {routes['cached']} of {n_down} cases")
+    print(f"{tag} affine_gather_reduce's cached kernel vs K4 -> K5 (equal, sign bits "
+          f"included) and vs plain (max abs diff {err['affine_gather_reduce']}): {n_down} "
+          f"cases ({dict(routes)}), window widths 1-9, every reducer and pick, float32, "
+          f"float64, int32, uint16, flipped axes on each side, a strided view, fill edges, "
+          f"all-NaN windows, the last column's window at the right edge")
     f32 = torch.rand((2, 480, 480), generator=gen, device=dev)
     f32[0, 100] = nan
     f32[1, 0:8, 0:12] = nan  # all-NaN windows of (4, 4) and (4, 3)
@@ -3189,8 +3328,9 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the rectify route: {missing}")
 
     # -- 8. BASELINE #5: the sharded reproject and the tile stream -----------
-    b5_launches, b5_err, b5_timings, b5_bounds = baseline5(
-        dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair)
+    b5_launches, b5_err, b5_timings, b5_bounds, b5_library = baseline5(
+        dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
+                                  device_ms=device_ms)
     )
     missing = [name for name in B5_KERNELS if b5_launches[name] < 1]
     if missing:
@@ -3200,6 +3340,7 @@ def main() -> int:
     timings.update(b5_timings)
     bounds.update(b5_bounds)
     library.update(dict.fromkeys(B5_KERNELS, (None, None)))
+    library["fused_reproject_band"] = b5_library["fused_reproject_band"]
 
     # -- 9. the sharded rectify: R1 and R3 over a mesh of 4 entries ----------
     sr_launches, sr_err, sr_timings, sr_bounds, sr_library, sr_r3 = sharded_rectify_phase(
@@ -3305,7 +3446,8 @@ def main() -> int:
             # F.grid_sample yardstick at the 4326 -> UTM shape; K4 a copy
             # (BASELINE #2's c), the downscale form and K5 torch.nanmean
             # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 and its band
-            # form F.grid_sample (R1, nearest); K8-K12 and the other band
+            # form F.grid_sample (R1, nearest), K3's band form F.grid_sample
+            # (bilinear, band 1 past the gate); K8-K12 and K1's and K2's band
             # forms: none
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone

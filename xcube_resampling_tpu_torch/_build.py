@@ -83,10 +83,11 @@ _SIGNATURES = {
         _D, _I, _I, _P,
     ],
     # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w, j_div,
-    # i_div, j_scale, i_scale, j_off, i_off, fill, agg, pa, pb, code, stream
+    # i_div, j_scale, i_scale, j_off, i_off, fill, agg, pa, pb, code,
+    # route, stream
     "xrt_affine_gather_reduce": [
         _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _D, _D, _D,
-        _D, _D, _I, _I64, _I64, _I, _P,
+        _D, _D, _I, _I64, _I64, _I, _I, _P,
     ],
     # src, out, batch, h, w, j_div, i_div, agg, pa, pb, code, stream
     "xrt_coarsen_reduce": [

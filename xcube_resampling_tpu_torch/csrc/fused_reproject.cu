@@ -42,15 +42,26 @@
 // window in shared memory with cp.async was measured 20-25% slower in
 // every case, so the taps read through L1.
 //
-// The band form (fused_reproject_band; B = true) is the sharded regrid's
-// gather, xcube_resampling_tpu/parallel/halo.py:169-205: the source plane
-// is one mesh band extended by its halo (ext_h rows, its row 0 at global
-// source row `off`), and output row j lies at global target row row0 + j.
-// The fields are interpolated there; the mask is the global source's
-// bounds and the band's (iy clamped to the true source, then rebased by
-// off in float32, inside (-0.5, ext_h - 0.5)); the taps clamp to the
-// band.  B is a template parameter: the single-chip kernels (B = false)
-// compile as before.
+// The band form (fused_reproject_band) is the sharded regrid's gather,
+// xcube_resampling_tpu/parallel/halo.py:169-205: the source plane is one
+// mesh band extended by its halo (ext_h rows, its row 0 at global source
+// row `off`), and output row j lies at global target row row0 + j.  The
+// fields are interpolated there; the mask is the global source's bounds
+// and the band's (iy clamped to the true source, then rebased by off in
+// float32, inside (-0.5, ext_h - 0.5)); the taps clamp to the band.  A
+// band is a few row tiles high (1024 rows at BASELINE #5's gate), so K3's
+// grid there ran 1.3 waves of its 12 blocks an SM, each thread's 8 rows
+// one after another.  The band form has a kernel of its own
+// (fused_reproject_band_kernel): the grid is one wave of the blocks an SM
+// holds (kBandBlocks of kWarpCols x kBandLanes threads), each block a run
+// of consecutive rows of its 128 columns, the runs as even as the lanes
+// allow, so that no partial wave is left and a thread's rows stay in one
+// coarse cell of the fields for as long as K3's.  Its pixels take the same
+// operations as K3's.  (Two rows a thread at once, which keeps twice the
+// tap loads in flight, took 148 registers for bilinear and ran slower at
+// the gate's band 1 on an H100: 0.0296-0.0330 ms against 0.0210,
+// tools/tune_fused.py --band.)
+#include "affine_gather.h"
 #include "gather_taps.h"
 
 namespace {
@@ -60,6 +71,10 @@ constexpr int kWarpCols = 32;             // threads across a tile
 constexpr int kLanes = 2;                 // threads down a tile
 constexpr int kTileCols = kVec * kWarpCols;
 constexpr int kTileRows = 16;             // target rows of a tile
+// the band form's block: kBandLanes threads down; kBandBlocks blocks an SM
+// (its register cap)
+constexpr int kBandLanes = 1;
+constexpr int kBandBlocks = 16;
 
 struct Args {
   const float* src;
@@ -98,7 +113,7 @@ __device__ __forceinline__ xrt::Taps pixel_taps(float ix, float iy, const Args& 
 // least 12 blocks an SM hold ptxas to 80 registers a thread; left free it
 // took 96, and K3 was 10% slower at the UTM shape on an H100
 // (tools/tune_fused.py).
-template <int M, bool B>
+template <int M>
 __global__ void __launch_bounds__(kWarpCols * kLanes, 12) fused_reproject_kernel(const Args a) {
   const int i = (blockIdx.x * kWarpCols + threadIdx.x) * kVec;
   if (i >= a.out_w) return;
@@ -111,10 +126,10 @@ __global__ void __launch_bounds__(kWarpCols * kLanes, 12) fused_reproject_kernel
     for (int j = tr * kTileRows + threadIdx.y; j < j1; j += kLanes) {
       // the kVec pixels of this row: taps once, then every band
       float f[2][kVec];  // ix, iy
-      field.at(a.field, static_cast<float>(B ? a.row0 + j : j), f);
+      field.at(a.field, static_cast<float>(j), f);
       xrt::Taps t[kVec];
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) t[c] = pixel_taps<M, B>(f[0][c], f[1][c], a);
+      for (int c = 0; c < kVec; ++c) t[c] = pixel_taps<M, false>(f[0][c], f[1][c], a);
       for (int64_t b = 0; b < a.batch; ++b) {
         const float* p = a.src + b * src_plane;
         float v[kVec];
@@ -134,6 +149,62 @@ __global__ void __launch_bounds__(kWarpCols * kLanes, 12) fused_reproject_kernel
       }
     }
   }
+}
+
+// The band form: kVec consecutive columns from i, the rows of the block's
+// run kBandLanes apart.
+template <int M>
+__global__ void __launch_bounds__(kWarpCols * kBandLanes, kBandBlocks) fused_reproject_band_kernel(
+    const Args a, int run) {
+  const int i = (blockIdx.x * kWarpCols + threadIdx.x) * kVec;
+  if (i >= a.out_w) return;
+  const int64_t src_plane = static_cast<int64_t>(a.tb.src_h) * a.tb.src_w;
+  const int64_t out_plane = static_cast<int64_t>(a.out_h) * a.out_w;
+  const int n = a.out_w - i < kVec ? a.out_w - i : kVec;
+  xrt::FieldCols<2, kVec> field(a.field, static_cast<float>(i));
+  const int j0 = static_cast<int>(blockIdx.y) * run;
+  const int j1 = min(j0 + run, a.out_h);
+  for (int j = j0 + static_cast<int>(threadIdx.y); j < j1; j += kBandLanes) {
+    float f[2][kVec];  // ix, iy
+    field.at(a.field, static_cast<float>(a.row0 + j), f);
+    xrt::Taps t[kVec];
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) t[c] = pixel_taps<M, true>(f[0][c], f[1][c], a);
+    for (int64_t b = 0; b < a.batch; ++b) {
+      const float* p = a.src + b * src_plane;
+      float v[kVec];
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) v[c] = xrt::gather<M>(p, t[c]);
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) v[c] = t[c].ok ? v[c] : a.fill;
+      float* o = a.out + b * out_plane + static_cast<int64_t>(j) * a.out_w + i;
+      if (a.vec4 && n == kVec) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+          if (c < n) o[c] = v[c];
+        }
+      }
+    }
+  }
+}
+
+// The band form's launch: one wave of blocks down the columns, each a run
+// of rows (a multiple of the lanes) as even as they allow.
+template <int M>
+cudaError_t launch_band(const Args& a, cudaStream_t s) {
+  const int64_t cols = (a.out_w + kTileCols - 1) / kTileCols;
+  unsigned rows = 1;
+  const cudaError_t e = xrt::wave_rows(fused_reproject_band_kernel<M>, kWarpCols * kBandLanes, 0,
+                                       cols, (a.out_h + kBandLanes - 1) / kBandLanes, &rows);
+  if (e != cudaSuccess) return e;
+  const int per = (a.out_h + static_cast<int>(rows) - 1) / static_cast<int>(rows);
+  const int run = (per + kBandLanes - 1) / kBandLanes * kBandLanes;
+  const unsigned grid_y = static_cast<unsigned>((a.out_h + run - 1) / run);
+  fused_reproject_band_kernel<M><<<dim3(static_cast<unsigned>(cols), grid_y),
+                                   dim3(kWarpCols, kBandLanes), 0, s>>>(a, run);
+  return cudaGetLastError();
 }
 
 template <bool B>
@@ -156,14 +227,22 @@ int dispatch(const float* src, const float* ix_c, const float* iy_c, float* out,
                static_cast<int>((out_h + kTileRows - 1) / kTileRows), vec4,
                static_cast<int>(row0), xrt::tap_bounds(true_h, src_w),
                static_cast<float>(off)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (B) {
+    switch (method) {
+      case xrt::kBilinear: return static_cast<int>(launch_band<xrt::kBilinear>(a, s));
+      case xrt::kNearest: return static_cast<int>(launch_band<xrt::kNearest>(a, s));
+      case xrt::kTriangular: return static_cast<int>(launch_band<xrt::kTriangular>(a, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const dim3 block(kWarpCols, kLanes);
   const dim3 grid(static_cast<unsigned>((out_w + kTileCols - 1) / kTileCols),
                   static_cast<unsigned>(a.n_row_tiles < 65535 ? a.n_row_tiles : 65535));
-  const auto s = static_cast<cudaStream_t>(stream);
   switch (method) {
-    case xrt::kBilinear: fused_reproject_kernel<xrt::kBilinear, B><<<grid, block, 0, s>>>(a); break;
-    case xrt::kNearest: fused_reproject_kernel<xrt::kNearest, B><<<grid, block, 0, s>>>(a); break;
-    case xrt::kTriangular: fused_reproject_kernel<xrt::kTriangular, B><<<grid, block, 0, s>>>(a); break;
+    case xrt::kBilinear: fused_reproject_kernel<xrt::kBilinear><<<grid, block, 0, s>>>(a); break;
+    case xrt::kNearest: fused_reproject_kernel<xrt::kNearest><<<grid, block, 0, s>>>(a); break;
+    case xrt::kTriangular: fused_reproject_kernel<xrt::kTriangular><<<grid, block, 0, s>>>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

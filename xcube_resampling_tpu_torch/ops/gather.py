@@ -37,9 +37,14 @@ downscale form: the bilinear gather at the inflated size reduced in
 image.  Its plain version (:func:`affine_gather_reduce_plain`) is the
 chain's: :func:`affine_gather_plain`, then
 :func:`.coarsen_ops.coarsen_plain`; the kernel equals it bit for bit.
+:func:`plan_gather_reduce` picks its kernel on the host: the cached
+kernel (a thread a window, a template on the width) or the direct kernel
+(the positional picks, and the windows the cached kernel cannot take).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -196,6 +201,42 @@ def _check_reduce(array, j_scale, i_scale, j_div, i_div, agg):
     _check(array, 1, None)
 
 
+# The downscale form's kernels (csrc/affine_gather_reduce.cu): the cached
+# kernel takes windows of up to CACHED_MAX_WIDTH columns (a template on the
+# width), the direct kernel the rest and the positional picks.
+CACHED_MAX_WIDTH = 8
+PICKS = ("first", "last", "center")
+ROUTES = {"direct": 0, "cached": 1}
+
+
+@functools.lru_cache(maxsize=64)
+def taps_step_once(out_w: int, i_div: int, i_scale: float, i_off: float, src_w: int) -> bool:
+    """Whether each window's clipped left tap columns step by at most one
+    column from tap to tap, as the kernels take the positions (float64
+    ``k * i_scale + i_off``): the cached kernel loads the ``i_div + 1``
+    columns from a window's first.  Rounding can make a step of two only
+    where ``|i_scale|`` is within 2^-21 of 1 or above (columns stay below
+    2^31, whose spacing is at most 2^-22), so only there are the positions
+    counted."""
+    if i_div < 2 or abs(i_scale) <= 1 - 2.0**-21:
+        return True
+    p = np.arange(out_w * i_div, dtype=np.float64) * i_scale + i_off
+    t0 = np.clip(np.floor(p), 0, src_w - 1).reshape(out_w, i_div)
+    return bool(np.abs(np.diff(t0, axis=1)).max() <= 1)
+
+
+def plan_gather_reduce(out_w, i_div, i_scale, i_off, src_w, agg) -> str:
+    """The downscale form's kernel: "cached" for windows of up to
+    :data:`CACHED_MAX_WIDTH` columns whose taps step once
+    (:func:`taps_step_once`), reduced by one of K5's reducers; "direct"
+    for the positional picks (one tap a window) and the other windows."""
+    if agg in PICKS or i_div > CACHED_MAX_WIDTH:
+        return "direct"
+    if not taps_step_once(out_w, i_div, float(i_scale), float(i_off), src_w):
+        return "direct"
+    return "cached"
+
+
 def affine_gather_reduce_plain(
     array, j_scale, i_scale, j_off, i_off, out_h, out_w, j_div, i_div, agg,
     fill_value,
@@ -239,13 +280,14 @@ def affine_gather_reduce(
     if out.numel() == 0:
         return out.reshape(lead + (out_h, out_w))
     pa, pb = pick_tap(agg, j_div, i_div)
+    route = plan_gather_reduce(out_w, i_div, i_scale, i_off, src_w, agg)
     lib = _build.load()
     with torch.cuda.device(array.device):
         rc = lib.xrt_affine_gather_reduce(
             x.data_ptr(), out.data_ptr(), x.shape[0], src_h, src_w, x.stride(0),
             x.stride(1), out_h, out_w, j_div, i_div, float(j_scale), float(i_scale),
             float(j_off), float(i_off), fill_as(fill_value, float_dtype(dtype)),
-            REDUCERS[agg], pa, pb, DTYPE_CODES[dtype],
+            REDUCERS[agg], pa, pb, DTYPE_CODES[dtype], ROUTES[route],
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "affine_gather_reduce")
