@@ -7,11 +7,11 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
    printing each source's registers and spills (ptxas ``-v``) and those
-   of every instantiation of K1-K3, K2's, K3's and K7's band forms, K7's
-   map and list forms, K11's two kernels and K12 (and a summary of the
-   downscale form's cached kernels), and fails if K6's register kernels,
-   K2's, K3's or K7's band form, K11, K12 or the downscale form's cached
-   kernels spill or use local memory;
+   of every instantiation of K1-K3, K13, K2's, K3's, K7's and K13's band
+   forms, K7's map and list forms, K11's two kernels and K12 (and a summary
+   of the downscale form's cached kernels), and fails if K6's register
+   kernels, K2's, K3's or K7's band form, K11, K12, K13 or its band form or
+   the downscale form's cached kernels spill or use local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
    same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
@@ -20,9 +20,19 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    the device memory a call takes at its peak; the
    EPSG:4326 0.05 deg -> UTM32N 4096^2 reproject with nearest, triangular
    and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
-   geometry, the global EPSG:4326 0.05 deg -> EPSG:3035 4096^2 reproject
-   (BASELINE #3, a singular warp whose default tier is K3) with nearest
-   and bilinear, first call and warm calls, a small UTM32N ->
+   geometry (the exact separable warp, K13), the global EPSG:4326 0.05 deg
+   -> EPSG:3035 4096^2 reproject (BASELINE #3, a singular warp whose
+   default tier is K3) with nearest and bilinear, first call (and the
+   ESW planner's refusal in it) and warm calls, the ESW cell (:func:`esw_phase`: the same source onto EPSG:3035
+   4096^2 at 937.5 m from (2.5e6, 1.4e6), past the two-pass gate, whose
+   default tier is the ESW: 1 band for every method and 4 bands, first
+   call, warm calls, peak device memory, ``plan_esw``'s host time; and
+   ``sharded_reproject`` of it over a mesh of 4 entries on the card, K13's
+   band form after the halo exchange, held to the single-chip ESW on the
+   window it crops bit for bit and to the whole source's within the JAX
+   package's NaN-mask contract and ``ESW_WHOLE_ATOL``; K13 and its band
+   form timed for every method beside K3 and its band form), a small
+   UTM32N ->
    EPSG:3035 case with float32, float64 and uint16 numpy variables (placed
    on the card by ``device``: the host path's semantics through K9's window
    mode, dtype kept) beside a tensor, and the affine route: BASELINE #1 (a
@@ -60,7 +70,12 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    one past it, every reducer and pick, float32, float64, int32 and
    uint16, either axis flipped, the last column's window at the source's
    right edge; K3's band form for every method on every band past the
-   gate, a ragged last band and a 1-row band; K6 for mode and median at 4, 9, 16, 25, 64, 81 and 1024 taps
+   gate, a ragged last band and a 1-row band; K13 bit for bit for every
+   method on the ESW cell (a shift-aligned plan) with NaN and +-inf rows
+   and columns and a numeric fill, and on a target over the source's last
+   row and column, and its band form on every band of the cell (band 0
+   from its negative offset), a ragged last band, clean and with NaN and
+   +-inf rows and columns; K6 for mode and median at 4, 9, 16, 25, 64, 81 and 1024 taps
    with ties, NaN and +-0.0, K7 for every method on the seven dtypes, NaN
    map cells and its list form, and on maps whose positions spread over
    the whole source, run backwards or sit on the -0.5 / n - 0.5 bounds
@@ -80,7 +95,9 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    report) and does not synchronise (sync debug mode "error"), the
    resident Phase B at R3's; times each kernel and its plain version at
    the main path's shapes beside one PyTorch call where one computes the
-   same function (K3 and its band form ``F.grid_sample``, K4 a copy at
+   same function (K3, K13 and their band forms ``F.grid_sample``, K13 and
+   its band form also beside K3 and K3's band form on the ESW cell, K4 a
+   copy at
    BASELINE #2's ``c``
    and ``F.grid_sample`` at BASELINE #1, K5 and the downscale form at
    BASELINE #1 ``torch.nanmean``, K5 a strided copy for ``first``, K6
@@ -92,7 +109,7 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    sleep on the card (``device_ms``: device time alone); and computes each
    kernel's bound (bytes at 3.35 TB/s, or operations at 67 TFLOP/s
    float32 and 34 TFLOP/s float64, the H100 SXM data sheet's peaks), K3's
-   from the source pixels its taps reach, counted on the card, the
+   and K13's from the source pixels their taps reach, counted on the card, the
    downscale form's from the source sectors its taps reach, K8's from the
    quads of its windows and the candidate pixels of their rectangles,
    counted on the card, K1's band form's from the rows of its band its
@@ -151,7 +168,8 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 
 It exits nonzero and prints no result when no CUDA device is visible or
 any phase fails, when K7, K8, K9 or K10 never launched on the rectify
-route, when a band form never launched on the sharded path, and when
+route, when a band form never launched on the sharded path (K13's on the
+ESW cell's), when any kernel never launched on the main path, and when
 K11, K12 or K7's band form never launched on the sharded rectify.  It imports nothing of JAX or of the JAX package.
 """
 
@@ -386,6 +404,43 @@ def fused_band_bound(ext, ix_c, iy_c, step, out_h, out_w, interp, fill, row0, of
     n_out = batch * out_h * out_w
     n_bytes = 4 * (n_out + batch * n_tapped + ix_c.numel() + iy_c.numel())
     return bound(n_bytes, 30 * n_out)
+
+
+def esw_tap_args(args, band: bool) -> tuple:
+    """``ops.esw.esw_taps``'s arguments from K13's wrapper's arguments, or
+    (*band*) from its band form's."""
+    if band:
+        ext, iystar_c, ix_c, iy_c, step, s, out_h, out_w, interp, _, row0, off, src_h = args
+        return (tuple(ext.shape[-2:]), iystar_c, ix_c, iy_c, step, s, interp, row0, out_h,
+                out_w, src_h, ext.shape[-1], 0, 0, src_h, off)
+    src, iystar_c, ix_c, iy_c, step, s, out_h, out_w, h_g, w_g, j_off, i_off, interp, _ = args
+    return (tuple(src.shape[-2:]), iystar_c, ix_c, iy_c, step, s, interp, 0, out_h, out_w,
+            h_g, w_g, j_off, i_off, src.shape[-2], 0)
+
+
+def esw_bound(args, band: bool = False):
+    """K13 or its band form (*band*; the wrapper's arguments) must read the
+    coarse fields and the pixels of its plane that the taps of its valid
+    pixels reach (as its plain version selects them, counted on the card)
+    and write the output; about 50 operations a pixel (K3's 30 and the
+    anchor's interpolation at its two tap columns)."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops.esw import esw_taps
+
+    src = args[0]
+    h, w = src.shape[-2:]
+    batch = src.numel() // (h * w)
+    tap_args = esw_tap_args(args, band)
+    valid, _, _, columns = esw_taps(*tap_args)
+    tapped = torch.zeros(h * w, dtype=torch.bool, device=src.device)
+    for ra, rb, c in columns:
+        tapped[(ra * w + c)[valid]] = True
+        if tap_args[6] != "nearest":
+            tapped[(rb * w + c)[valid]] = True
+    n_out = batch * valid.numel()
+    fields = sum(t.numel() for t in args[1:4])
+    return bound(4 * (n_out + batch * int(tapped.sum()) + fields), 50 * n_out)
 
 
 def gather_band_bound(ext, m, interp, fill, off, src_h):
@@ -1001,6 +1056,390 @@ def baseline5(dev, tag, h, sizes=B5_SIZES, work_dir="build/chip_smoke_b5"):
     return launches, err, timings, bounds, library
 
 
+# The ESW cell: the global 0.05 deg grid onto EPSG:3035 4096^2 at 937.5 m
+# from (2.5e6, 1.4e6), past the two-pass gate; plan_esw admits it (S = 4,
+# vertical shift alignment), as make_sharded_esw_step does over 4 bands.
+# Its 1- and 4-band stacks go through resample_in_space, one band through
+# sharded_reproject over a mesh of 4 entries on the card.
+ESW_CELL = dict(target=dict(size=(4096, 4096), xy_min=(2500000.0, 1400000.0), xy_res=937.5,
+                            crs="epsg:3035"), bands=4, mesh=4)
+ESW_KERNELS = ("esw_gather", "esw_gather_band")
+# the sharded ESW against the single-chip ESW of the whole source on data in
+# [0, 1): bilinear and triangular values within ESW_WHOLE_ATOL, nearest
+# differing on under ESW_WHOLE_FLIPS of the pixels (see esw_phase)
+ESW_WHOLE_ATOL = 4e-3
+ESW_WHOLE_FLIPS = 2e-3
+# a geometry whose target hangs over the source's last row and column: a
+# 96^2 UTM32N source onto an 80^2 EPSG:3035 grid 4 km right of and below
+# tests/test_srw.py's
+ESW_EDGES = (dict(size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"),
+             dict(size=(80, 80), xy_min=(4324500, 3375500), xy_res=100, crs="epsg:3035"))
+
+
+def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
+    """Drive the exact separable warp's cell on *dev*: ``resample_in_space``
+    of the global source *geo* (its dataset *ds*) onto the cell's target
+    (K13; 1 band, every method, and 4 bands: first call, warm calls, peak
+    device memory, the host's planning), and ``sharded_reproject`` of it
+    over a mesh of 4 entries (K13's band form after the halo exchange;
+    first call, the planned step warm, held to the single-chip ESW on the
+    window it crops bit for bit and to the one of the whole source within
+    ``ESW_WHOLE_ATOL``, nearest differing on under ``ESW_WHOLE_FLIPS``);
+    hold K13 and its band form to their plain
+    versions bit for bit (every method, NaN and +-inf rows and columns, a
+    numeric fill, a target over the source's last row and column, every
+    band, band 0 from its negative offset, a ragged last band) and time
+    them, every method, beside K3 and its band form on the same geometry
+    and ``F.grid_sample``.  *h* carries :func:`main`'s helpers.  Returns (the
+    band form's launches on the sharded path, max abs errors, timings,
+    bounds, library yardsticks, K3's times beside them)."""
+    import torch
+
+    from xcube_resampling_tpu_torch import GridMapping
+    from xcube_resampling_tpu_torch._device import LAUNCHES
+    from xcube_resampling_tpu_torch.ops.esw import (
+        ESWReprojectFn,
+        _offset_fields,
+        esw_gather,
+        esw_gather_band,
+        esw_gather_band_plain,
+        esw_gather_plain,
+        make_esw_reproject_fn,
+        plan_esw,
+    )
+    from xcube_resampling_tpu_torch.ops.reproject_ops import (
+        fused_reproject,
+        fused_reproject_band,
+        interp_field,
+        make_fused_reproject_fn,
+    )
+    from xcube_resampling_tpu_torch.ops.srw import _coarse_geometry, _source_window_gm
+    from xcube_resampling_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_esw_step,
+        make_sharded_regrid_step,
+        make_sharded_srw_step,
+        sharded_reproject,
+    )
+    from xcube_resampling_tpu_torch.parallel.halo import crop_source
+    from xcube_resampling_tpu_torch.reproject import device_reproject_fn
+
+    nan = float("nan")
+    err = dict.fromkeys(ESW_KERNELS, 0.0)
+    timings, bounds, library, k3 = {}, {}, {}, {}
+    band_launches: Counter = Counter()
+    geo_gm = GridMapping.from_dataset(ds)
+    tgt = GridMapping.regular(**cell["target"])
+    mpix = tgt.height * tgt.width / 1e6
+    where = (f"4326 {360 / geo.shape[-1]:g} deg -> EPSG:3035 {tgt.height}x{tgt.width} at "
+             f"{tgt.xy_res[0]:g} m")
+
+    def exact(got, ref, name, what):
+        err[name] = max(err[name], h.compare(got, ref, "exact", f"{what}: {name} vs plain"))
+
+    def peak_of(call):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base, base
+
+    # the host's planning alone: the coarse fields and the window, plan_esw
+    t0 = time.perf_counter()
+    fields = _coarse_geometry(geo_gm, tgt, 16)
+    _, win = _source_window_gm(geo_gm, fields, 8 + 48)
+    t1 = time.perf_counter()
+    plan = plan_esw(geo_gm, tgt, fields=_offset_fields(fields, *win), fields_global=fields,
+                    win=win)
+    t_plan = time.perf_counter() - t1
+    if plan is None or plan.bits_v < 1:
+        raise AssertionError("plan_esw refused the ESW cell or planned no shift alignment")
+    print(f"{tag} ESW cell plan on the host: coarse fields and window {t1 - t0:.3f} s, "
+          f"plan_esw {t_plan:.3f} s (S={plan.n_samples}, bits_v={plan.bits_v}, "
+          f"bits_h={plan.bits_h}, window {win})")
+
+    # -- resample_in_space, 1 band and 4 bands ------------------------------
+    k13 = ("esw_gather",)
+    for interp in METHODS:
+        out, first = h.run_main(ds, tgt, interp, k13, exact={"esw_gather": 1})
+        share = h.check_output(out["v"].data, (tgt.height, tgt.width))
+        fn = device_reproject_fn(geo_gm, tgt, interp, nan, dev)
+        if not isinstance(fn, ESWReprojectFn):
+            raise AssertionError(f"the ESW cell ran {type(fn).__name__}, not the ESW")
+        exact(out["v"].data, fn.plain(geo), "esw_gather", f"the ESW cell, {interp}")
+        line = (f"{tag} resample_in_space ESW cell {where} {interp} (K13, no flag): first "
+                f"call {first:.3f} s (planning included); finite share {share:.4f}; vs plain "
+                f"equal")
+        if interp == "bilinear":
+            _, warm = h.warm_calls(ds, tgt, interp, k13, 5, exact={"esw_gather": 1})
+            _, peak, base = peak_of(lambda: h.run_main(ds, tgt, interp, k13)[0])
+            line += (f"; warm median of 5 {warm * 1e3:.3f} ms = {mpix / warm:.1f} Mpix/s; "
+                     f"peak device memory {peak / 2**30:.3f} GiB above the "
+                     f"{base / 2**30:.3f} GiB held before it")
+        print(line)
+        del out
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x4 = torch.rand((cell["bands"],) + tuple(geo.shape), generator=gen, device=dev)
+    ds4 = h.dataset(geo_gm, v=x4)
+    out, first = h.run_main(ds4, tgt, "bilinear", k13, exact={"esw_gather": 1})
+    h.check_output(out["v"].data, (cell["bands"], tgt.height, tgt.width))
+    fn = device_reproject_fn(geo_gm, tgt, "bilinear", nan, dev)
+    exact(out["v"].data, fn.plain(x4), "esw_gather", f"the ESW cell, {cell['bands']} bands")
+    del out
+    _, warm4 = h.warm_calls(ds4, tgt, "bilinear", k13, 5, exact={"esw_gather": 1})
+    _, peak4, base4 = peak_of(lambda: h.run_main(ds4, tgt, "bilinear", k13)[0])
+    print(f"{tag} resample_in_space ESW cell {cell['bands']} bands bilinear: first call "
+          f"{first:.3f} s (plan memoised); warm median of 5 {warm4 * 1e3:.3f} ms = "
+          f"{cell['bands'] * mpix / warm4:.1f} Mpix/s over the bands; peak device memory "
+          f"{peak4 / 2**30:.3f} GiB above the {base4 / 2**30:.3f} GiB held before it; vs "
+          f"plain equal")
+
+    # -- K13 against its plain version on hard inputs -----------------------
+    j0, j1, i0, i1 = win
+    xe = geo.clone()
+    xe[j0] = nan
+    xe[j1 - 1] = float("inf")
+    xe[:, i0] = -float("inf")
+    xe[:, i1 - 1] = nan
+    xe[(j0 + j1) // 2] = float("inf")
+    xe[:, (i0 + i1) // 2] = nan
+    xe[j0 + (j1 - j0) // 3, i0 + (i1 - i0) // 3 : i0 + (i1 - i0) // 2] = -float("inf")
+    for interp in METHODS:
+        for fill in (nan, -9999.0):
+            fn_m = make_esw_reproject_fn(geo_gm, tgt, interp, fill, device=dev)
+            a = fn_m.args(fn_m.crop(xe))
+            exact(esw_gather(*a), esw_gather_plain(*a), "esw_gather",
+                  f"the ESW cell, NaN and +-inf rows and columns, fill {fill}, {interp}")
+    src_e, tgt_e = (GridMapping.regular(**g) for g in ESW_EDGES)
+    xs = torch.rand((3, 96, 96), generator=gen, device=dev)
+    xs[1, -1], xs[1, :, -1], xs[2, 0], xs[2, :, 0] = float("inf"), nan, -float("inf"), nan
+    for interp in METHODS:
+        fn_e = make_esw_reproject_fn(src_e, tgt_e, interp, nan, device=dev)
+        got, ref = fn_e(xs), fn_e.plain(xs)
+        exact(got, ref, "esw_gather", f"a target over the source's last row and column, {interp}")
+    share_e = torch.isfinite(ref[0]).float().mean().item()
+    print(f"{tag} esw_gather vs plain on the ESW cell with NaN and +-inf rows and columns "
+          f"(fills NaN and -9999, every method) and on a 96^2 UTM32N -> 80^2 EPSG:3035 target "
+          f"over the source's last row and column (3 bands, +-inf and NaN edge rows and "
+          f"columns, finite share {share_e:.3f}): equal")
+
+    # -- sharded_reproject over a mesh of 4 entries -------------------------
+    mesh = make_mesh(devices=[dev] * cell["mesh"])
+    xc, geo_c = crop_source(geo, geo_gm, tgt)
+    if make_sharded_srw_step(mesh, geo_c, tgt) is not None:
+        raise AssertionError("the ESW cell admits the sharded SRW")
+
+    def sharded(call, what):
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = Counter(LAUNCHES)
+        band_launches.update(got)
+        if got != Counter({"esw_gather_band": mesh.size}):
+            raise AssertionError(f"{what}: launches {dict(got)}, expected {mesh.size} of "
+                                 f"esw_gather_band")
+        return out, dt
+
+    for interp in METHODS:
+        out, dt = sharded(lambda: sharded_reproject(geo, geo_gm, tgt, mesh, interp_method=interp),
+                          f"sharded_reproject {interp}")
+        got = out.full()
+        # the sharded path plans on the window it crops, in that window's
+        # float32 fields: it computes K13 there, so it equals the
+        # single-chip ESW of the cropped source bit for bit
+        on_win = make_esw_reproject_fn(geo_c, tgt, interp, nan, device=dev)
+        if on_win is None or on_win.window is not None:
+            raise AssertionError("the ESW does not plan the cropped window as a whole")
+        h.compare(got, on_win(xc), "exact", f"sharded ESW {interp} vs the single-chip ESW "
+                                            f"on its window")
+        # against the single-chip ESW of the whole source (global float32
+        # fields): NaN masks differ on under 1% of the pixels
+        # (tests/test_parallel.py:346-373); where both are valid the
+        # positions differ by the fields' float32 rounding, a few ulp of
+        # the largest source index.  On data in [0, 1) that moves bilinear
+        # and triangular values by at most the position's difference (6.85e-4
+        # and 6.96e-4 on an NVIDIA H100): ESW_WHOLE_ATOL holds them, and a
+        # one-pixel shift (about 0.5) fails it; nearest flips a pick where a
+        # position lies that close to a pixel's edge (1.57e-4 of the pixels
+        # there): ESW_WHOLE_FLIPS holds that share.
+        ref = make_esw_reproject_fn(geo_gm, tgt, interp, nan, device=dev)(geo)
+        mask = (torch.isnan(got) != torch.isnan(ref)).float().mean().item()
+        both = ~torch.isnan(got) & ~torch.isnan(ref)
+        if mask >= 0.01 or both.float().mean().item() < 0.5:
+            raise AssertionError(f"sharded ESW {interp}: NaN masks differ on {mask:.3g}")
+        d = (got - ref)[both].abs()
+        ulp = 2.0 ** (math.floor(math.log2(max(geo.shape))) - 23)
+        d_max, flips = d.max().item(), (d > 0).float().mean().item()
+        if interp == "nearest" and flips >= ESW_WHOLE_FLIPS:
+            raise AssertionError(f"sharded ESW nearest: {flips:.3g} of the pixels differ from "
+                                 f"the single-chip ESW of the whole source")
+        if interp != "nearest" and d_max > ESW_WHOLE_ATOL:
+            raise AssertionError(f"sharded ESW {interp}: max abs diff {d_max:.3g} from the "
+                                 f"single-chip ESW of the whole source, above {ESW_WHOLE_ATOL}")
+        print(f"{tag} sharded_reproject ESW cell {interp} over {mesh.size} x {dev} (window "
+              f"{tuple(xc.shape)}): first call {dt:.3f} s (planning included); vs the "
+              f"single-chip ESW on the window: equal; vs the single-chip ESW on the whole "
+              f"source: NaN masks differ on {mask:.3g}, max abs diff {d_max:.3g} "
+              f"(float32 ulp at {max(geo.shape)}: {ulp:.3g}; limit "
+              f"{'none' if interp == 'nearest' else ESW_WHOLE_ATOL}), differing share "
+              f"{flips:.3g} (limit {ESW_WHOLE_FLIPS if interp == 'nearest' else 'none'})")
+        del out, got, ref, both, d, on_win
+    step, (pad, _) = make_sharded_esw_step(mesh, geo_c, tgt)
+    xp = torch.nn.functional.pad(xc, (0, 0, 0, pad), value=nan)
+    warm = [sharded(lambda: step(xp), "the ESW step")[1] for _ in range(5)]
+    (_, _), peak_s, base_s = peak_of(lambda: sharded(lambda: step(xp), "the ESW step"))
+    w = statistics.median(warm)
+    print(f"{tag} the sharded ESW step (band {step.band_h} rows, halo {step.halo}, "
+          f"S={step.plan.n_samples}, d_v={step.plan.d_v}, d_h={step.plan.d_h}) warm, median "
+          f"of 5: {w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s; peak device memory "
+          f"{peak_s / 2**30:.3f} GiB above the {base_s / 2**30:.3f} GiB held before it")
+
+    # -- the band form against its plain version ----------------------------
+    xce, _ = crop_source(xe, geo_gm, tgt)
+    for data, what in ((xp, "clean"), (torch.nn.functional.pad(xce, (0, 0, 0, pad), value=nan),
+                                       "NaN and +-inf rows and columns")):
+        for interp in METHODS:
+            step_m = make_sharded_esw_step(mesh, geo_c, tgt, interp_method=interp)[0]
+            bands, _ = step_m.bands(data)
+            halos = step_m.exchange(bands)
+            for k in range(mesh.size):
+                a = step_m.gather_args(bands, halos, k)
+                exact(esw_gather_band(*a), esw_gather_band_plain(*a), "esw_gather_band",
+                      f"ESW band {k} (off {a[11]}), {what}, {interp}")
+            a = list(step_m.gather_args(bands, halos, mesh.size - 1))
+            a[6] -= 5
+            exact(esw_gather_band(*a), esw_gather_band_plain(*a), "esw_gather_band",
+                  f"ESW last band, {a[6]} rows, {what}, {interp}")
+            del bands, halos, a, step_m
+    print(f"{tag} esw_gather_band vs plain on every band of the ESW cell (band 0 from off "
+          f"{-step.halo}), a ragged last band, clean and with NaN and +-inf rows and columns, "
+          f"every method: equal")
+
+    # -- timings, bounds and yardsticks -------------------------------------
+    fn = make_esw_reproject_fn(geo_gm, tgt, "bilinear", nan, device=dev)
+    a1 = fn.args(fn.crop(geo[None]))
+    timings["esw_gather"] = h.time_pair(lambda: esw_gather(*a1), lambda: esw_gather_plain(*a1))
+    bounds["esw_gather"] = esw_bound(a1)
+    a4 = fn.args(fn.crop(x4))
+    k4_dev = h.device_ms(lambda: esw_gather(*a4))
+    b4, _ = esw_bound(a4)
+    rows = torch.arange(fn.out_h, dtype=torch.float32, device=dev)[:, None]
+    cols = torch.arange(fn.out_w, dtype=torch.float32, device=dev)[None, :]
+    plane = a1[0]
+    gx = (interp_field(fn.ix_c, rows, cols, fn.step) - i0) / (plane.shape[-1] - 1) * 2 - 1
+    gy = (interp_field(fn.iy_c, rows, cols, fn.step) - j0) / (plane.shape[-2] - 1) * 2 - 1
+    grid = torch.stack((gx, gy), dim=-1)[None]
+    del gx, gy
+
+    def grid_call():
+        return torch.nn.functional.grid_sample(plane[None], grid, mode="bilinear",
+                                               padding_mode="border", align_corners=True)
+
+    library["esw_gather"] = (h.event_ms(grid_call), h.device_ms(grid_call))
+    k3_fn = make_fused_reproject_fn(geo_gm, tgt, "bilinear", nan, dev)
+    k3_args = (geo[None], k3_fn.ix_c, k3_fn.iy_c, k3_fn.step, k3_fn.out_h, k3_fn.out_w,
+               "bilinear", nan)
+    k3_out = fused_reproject(*k3_args)
+    d_k3 = (esw_gather(*a1) - k3_out).abs().nan_to_num().max().item()
+    k3["esw_gather"] = dict(k3_ms=h.event_ms(lambda: fused_reproject(*k3_args)),
+                            k3_device_ms=h.device_ms(lambda: fused_reproject(*k3_args)),
+                            device_ms_4=k4_dev, bound_ms_4=b4)
+    del k3_out
+    (k, p, kd), (b, by) = timings["esw_gather"], bounds["esw_gather"]
+    print(f"{tag} esw_gather at the ESW cell (window {tuple(plane.shape)} -> {where}), bilinear: "
+          f"kernel {k:.4f} ms (device {kd:.4f} ms), plain {p:.3f} ms, bound {b:.4f} ms ({by}); "
+          f"{cell['bands']} bands device {k4_dev:.4f} ms, bound {b4:.4f} ms; K3 on the same "
+          f"geometry {k3['esw_gather']['k3_ms']:.4f} ms (device "
+          f"{k3['esw_gather']['k3_device_ms']:.4f} ms), max |K13 - K3| {d_k3:.3g}; "
+          f"F.grid_sample {library['esw_gather'][0]:.4f} ms (device "
+          f"{library['esw_gather'][1]:.4f} ms)")
+    bands, _ = step.bands(xp)
+    halos = step.exchange(bands)
+    ab = step.gather_args(bands, halos, 1)
+    timings["esw_gather_band"] = h.time_pair(lambda: esw_gather_band(*ab),
+                                             lambda: esw_gather_band_plain(*ab))
+    bounds["esw_gather_band"] = esw_bound(ab, band=True)
+    ext, row0, off = ab[0], ab[10], ab[11]
+    rows = torch.arange(row0, row0 + ab[6], dtype=torch.float32, device=dev)[:, None]
+    cols = torch.arange(ab[7], dtype=torch.float32, device=dev)[None, :]
+    gx = interp_field(ab[2], rows, cols, ab[4]) / (ext.shape[-1] - 1) * 2 - 1
+    gy = (interp_field(ab[3], rows, cols, ab[4]) - off) / (ext.shape[-2] - 1) * 2 - 1
+    grid_b = torch.stack((gx, gy), dim=-1)[None]
+    del gx, gy
+
+    def grid_band():
+        return torch.nn.functional.grid_sample(ext[None], grid_b, mode="bilinear",
+                                               padding_mode="border", align_corners=True)
+
+    library["esw_gather_band"] = (h.event_ms(grid_band), h.device_ms(grid_band))
+    regrid, (pad_r, _) = make_sharded_regrid_step(mesh, geo_c, tgt)
+    rb, _ = regrid.bands(torch.nn.functional.pad(xc, (0, 0, 0, pad_r), value=nan))
+    ga = regrid.gather_args(rb, regrid.exchange(rb), 1)
+    k3["esw_gather_band"] = dict(k3_ms=h.event_ms(lambda: fused_reproject_band(*ga)),
+                                 k3_device_ms=h.device_ms(lambda: fused_reproject_band(*ga)))
+    (k, p, kd), (b, by) = timings["esw_gather_band"], bounds["esw_gather_band"]
+    print(f"{tag} esw_gather_band at the ESW cell's band 1 (ext {tuple(ext.shape)} -> "
+          f"{ab[6]} x {ab[7]}, off {off}), bilinear: kernel {k:.4f} ms (device {kd:.4f} ms), "
+          f"plain {p:.3f} ms, bound {b:.4f} ms ({by}); K3's band form on the regrid's band 1 "
+          f"(ext {tuple(ga[0].shape)}) {k3['esw_gather_band']['k3_ms']:.4f} ms (device "
+          f"{k3['esw_gather_band']['k3_device_ms']:.4f} ms); F.grid_sample "
+          f"{library['esw_gather_band'][0]:.4f} ms (device {library['esw_gather_band'][1]:.4f} "
+          f"ms)")
+
+    # -- nearest and triangular: K13 and its band form beside K3's, at the
+    # same shapes (F.grid_sample has no triangular mode)
+    xr = torch.nn.functional.pad(xc, (0, 0, 0, pad_r), value=nan)
+    for interp in ("nearest", "triangular"):
+        fn_m = make_esw_reproject_fn(geo_gm, tgt, interp, nan, device=dev)
+        am = fn_m.args(fn_m.crop(geo[None]))
+        k3_m = make_fused_reproject_fn(geo_gm, tgt, interp, nan, dev)
+        k3m = (geo[None], k3_m.ix_c, k3_m.iy_c, k3_m.step, k3_m.out_h, k3_m.out_w, interp, nan)
+        step_m = make_sharded_esw_step(mesh, geo_c, tgt, interp_method=interp)[0]
+        bm, _ = step_m.bands(xp)
+        abm = step_m.gather_args(bm, step_m.exchange(bm), 1)
+        regrid_m = make_sharded_regrid_step(mesh, geo_c, tgt, interp_method=interp)[0]
+        rbm, _ = regrid_m.bands(xr)
+        gam = regrid_m.gather_args(rbm, regrid_m.exchange(rbm), 1)
+        one = {f"{interp}_ms": h.event_ms(lambda: esw_gather(*am)),
+               f"{interp}_device_ms": h.device_ms(lambda: esw_gather(*am)),
+               f"{interp}_bound_ms": esw_bound(am)[0],
+               f"k3_{interp}_device_ms": h.device_ms(lambda: fused_reproject(*k3m))}
+        band = {f"{interp}_ms": h.event_ms(lambda: esw_gather_band(*abm)),
+                f"{interp}_device_ms": h.device_ms(lambda: esw_gather_band(*abm)),
+                f"{interp}_bound_ms": esw_bound(abm, band=True)[0],
+                f"k3_{interp}_device_ms": h.device_ms(lambda: fused_reproject_band(*gam))}
+        lib = ""
+        if interp == "nearest":
+            def grid_nearest(src=plane, g=grid):
+                return torch.nn.functional.grid_sample(src[None], g, mode="nearest",
+                                                       padding_mode="border", align_corners=True)
+
+            def grid_band_nearest(src=ext, g=grid_b):
+                return torch.nn.functional.grid_sample(src[None], g, mode="nearest",
+                                                       padding_mode="border", align_corners=True)
+
+            one["library_nearest_device_ms"] = h.device_ms(grid_nearest)
+            band["library_nearest_device_ms"] = h.device_ms(grid_band_nearest)
+            lib = (f"; F.grid_sample device {one['library_nearest_device_ms']:.4f} ms, on the "
+                   f"band {band['library_nearest_device_ms']:.4f} ms")
+        k3["esw_gather"].update(one)
+        k3["esw_gather_band"].update(band)
+        print(f"{tag} esw_gather at the ESW cell, {interp}: kernel {one[f'{interp}_ms']:.4f} ms "
+              f"(device {one[f'{interp}_device_ms']:.4f} ms), bound "
+              f"{one[f'{interp}_bound_ms']:.4f} ms; K3 there device "
+              f"{one[f'k3_{interp}_device_ms']:.4f} ms; esw_gather_band at band 1: kernel "
+              f"{band[f'{interp}_ms']:.4f} ms (device {band[f'{interp}_device_ms']:.4f} ms), "
+              f"bound {band[f'{interp}_bound_ms']:.4f} ms; K3's band form on the regrid's band "
+              f"1 device {band[f'k3_{interp}_device_ms']:.4f} ms{lib}")
+        del fn_m, am, k3_m, k3m, step_m, bm, abm, regrid_m, rbm, gam
+    del bands, halos, ab, ext, grid, grid_b, rb, ga, regrid, step, xp, xr, x4, ds4, xe, xce
+    torch.cuda.empty_cache()
+    return band_launches, err, timings, bounds, library, k3
+
+
 # The sharded rectify: R1 (BASELINE #4's 1189 x 1890 swath onto its
 # 512-tiled grid, 16 float32 bands, nearest) and R3 (the 4865 x 4091
 # granule onto its 1024-tiled grid, 21 float32 bands, bilinear), each over a
@@ -1454,6 +1893,7 @@ def main() -> int:
     from xcube_resampling_tpu_torch import reproject as port_reproject
     from xcube_resampling_tpu_torch._device import LAUNCHES
     from xcube_resampling_tpu_torch.affine import _scale_split
+    from xcube_resampling_tpu_torch.ops.esw import ESWReprojectFn, make_esw_reproject_fn
     from xcube_resampling_tpu_torch.ops.coarsen_ops import (
         REDUCERS,
         coarsen,
@@ -1525,7 +1965,8 @@ def main() -> int:
     # K11's two kernels; K12 per tile
     for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel",
                     "fused_reproject_band_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
-                    "seed_pass", "seed_walk", "hybrid_dense_kernel"):
+                    "seed_pass", "seed_walk", "hybrid_dense_kernel", "esw_gather_kernel",
+                    "esw_gather_band_kernel"):
         for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
             print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
                   f"stack frame")
@@ -1536,11 +1977,12 @@ def main() -> int:
               f"{min(k[1] for k in cached)}-{max(k[1] for k in cached)} registers, "
               f"{max(k[2] for k in cached)} bytes spilled, "
               f"{max(k[3] for k in cached)} bytes of stack frame")
-    # K7's band form, K2, K11, K12, K3's band form and the downscale form's
-    # cached kernels: no spill, no local memory
+    # K7's band form, K2, K11, K12, K3's band form, K13 and its band form
+    # and the downscale form's cached kernels: no spill, no local memory
     for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
                        ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
-                       ("fused_reproject_band_kernel", 3),
+                       ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
+                       ("esw_gather_band_kernel", 3),
                        ("affine_gather_reduce_cached", 7 * 8 * 8)):
         found = ptxas_kernels(build.log, pattern)
         if build.log and (len(found) != n or any(k[2] or k[3] for k in found)):
@@ -1553,7 +1995,7 @@ def main() -> int:
         "srw_vertical": 0.0, "srw_horizontal": 0.0, "fused_reproject": 0.0,
         "affine_gather": 0.0, "affine_gather_reduce": 0.0, "coarsen_reduce": 0.0,
         "coarsen_rank": 0.0, "ij_gather": 0.0, "rectify_phase_a": 0.0, "exact_gather": 0.0,
-        "ij_bboxes": 0.0,
+        "ij_bboxes": 0.0, "esw_gather": 0.0, "esw_gather_band": 0.0,
     }
     main_launches: Counter = Counter()
     rectify_launches: Counter = Counter()
@@ -1980,19 +2422,30 @@ def main() -> int:
         f"d_h={fn.state.d_h} window={fn.window}"
     )
 
-    # -- 3. the exact tier: XRTPU_EXACT=1 runs K3 ------------------------------
+    # -- 3. the exact tier: XRTPU_EXACT=1 runs the ESW (K13) -------------------
     os.environ["XRTPU_EXACT"] = "1"
     try:
-        out, dt = run_main(ds1, utm4k_gm, "bilinear", ("fused_reproject",))
+        out, dt = run_main(ds1, utm4k_gm, "bilinear", ("esw_gather",), exact={"esw_gather": 1})
         check_output(out["v"].data, (4096, 4096))
         fn = device_reproject_fn(geo_gm_ds, utm4k_gm, "bilinear", nan, dev)
     finally:
         del os.environ["XRTPU_EXACT"]
-    if not isinstance(fn, FusedReprojectFn):
-        raise AssertionError(f"exact tier ran {type(fn).__name__}, not K3")
-    d = compare(out["v"].data, fn.plain(geo), "bilinear", "exact tier vs plain K3")
-    err["fused_reproject"] = max(err["fused_reproject"], d)
-    print(f"{tag} XRTPU_EXACT=1 4326->UTM32N 4096^2 bilinear: first call {dt:.3f} s; vs plain max abs diff {d}")
+    if not isinstance(fn, ESWReprojectFn):
+        raise AssertionError(f"exact tier ran {type(fn).__name__}, not the ESW")
+    d = compare(out["v"].data, fn.plain(geo), "exact", "exact tier vs plain K13")
+    err["esw_gather"] = max(err["esw_gather"], d)
+    esw_s = fn.n_samples
+    # K3 on the same geometry (the direct gather, which the ESW reproduces
+    # within 2 float32 ulp), held to its plain version and timed
+    fn = make_fused_reproject_fn(geo_gm_ds, utm4k_gm, "bilinear", nan, dev)
+    k3_out = fn(geo)
+    d3 = compare(k3_out, fn.plain(geo), "bilinear", "K3 at 4326->UTM32N vs plain")
+    err["fused_reproject"] = max(err["fused_reproject"], d3)
+    d_esw = (out["v"].data - k3_out).abs().nan_to_num().max().item()
+    print(f"{tag} XRTPU_EXACT=1 4326->UTM32N 4096^2 bilinear (K13, S={esw_s}): "
+          f"first call {dt:.3f} s; vs plain equal; K3 on the geometry vs plain max abs diff "
+          f"{d3}, max |K13 - K3| {d_esw:.3g}")
+    del k3_out
     timings["fused_reproject"], library["fused_reproject"], (b, by, n_tapped) = time_k3(
         fn, geo, "bilinear"
     )
@@ -2025,11 +2478,17 @@ def main() -> int:
             raise AssertionError(f"BASELINE #3 ran {type(fn).__name__}, not K3")
         d = compare(out["v"].data, fn.plain(geo), interp, f"BASELINE #3 {interp} vs plain K3")
         err["fused_reproject"] = max(err["fused_reproject"], d)
+        # the first call tried the ESW tier before K3: its planner's refusal
+        t0 = time.perf_counter()
+        if make_esw_reproject_fn(geo_gm_ds, laea4k_gm, interp, nan, device=dev) is not None:
+            raise AssertionError("plan_esw admits BASELINE #3")
+        refusal = time.perf_counter() - t0
         mpix = 4096 * 4096 / 1e6
         print(
             f"{tag} resample_in_space BASELINE #3 4326 0.05 deg->EPSG:3035 4096^2 "
             f"{interp} (K3, no XRTPU_EXACT): first call {first:.3f} s = "
-            f"{mpix / first:.1f} Mpix/s (planning included); warm median of 5 "
+            f"{mpix / first:.1f} Mpix/s (planning included; the ESW planner's refusal alone "
+            f"{refusal:.3f} s); warm median of 5 "
             f"{w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s; finite share {share:.4f}; "
             f"vs plain max abs diff {d}"
         )
@@ -2041,6 +2500,24 @@ def main() -> int:
             f"{lib_d:.4f} ms)"
         )
     del out
+
+    # -- 3c. the ESW cell: past the gate, K13 and its band form -------------
+    esw_launches, esw_err, esw_timings, esw_bounds, esw_library, esw_k3 = esw_phase(
+        dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
+                                  device_ms=device_ms, run_main=run_main,
+                                  warm_calls=warm_calls, dataset=dataset,
+                                  check_output=check_output),
+        geo, ds1,
+    )
+    if esw_launches["esw_gather_band"] < 1:
+        raise AssertionError("esw_gather_band never launched on the sharded path")
+    main_launches.update(esw_launches)
+    for name, e in esw_err.items():
+        err[name] = max(err[name], e)
+    timings.update(esw_timings)
+    bounds.update(esw_bounds)
+    library.update(esw_library)
+    torch.cuda.empty_cache()
 
     # -- 4. a small case: numpy and tensor variables ------------------------
     # numpy variables (float32, float64, uint16) take the host path's
@@ -3405,6 +3882,14 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/ij_bboxes.cu",
             "xcube_resampling_tpu/ops/bbox_ops.py:16",
         ),
+        "esw_gather": (
+            "xcube_resampling_tpu_torch/csrc/esw_gather.cu",
+            "xcube_resampling_tpu/ops/esw.py:616",
+        ),
+        "esw_gather_band": (
+            "xcube_resampling_tpu_torch/csrc/esw_gather.cu",
+            "xcube_resampling_tpu/parallel/halo.py:650",
+        ),
         "srw_vertical_band": (
             "xcube_resampling_tpu_torch/csrc/srw_vertical.cu",
             "xcube_resampling_tpu/parallel/halo.py:423",
@@ -3456,6 +3941,9 @@ def main() -> int:
         }
         for name in err
     ]
+    # K3 (and its band form) beside K13 (and its band form) on the ESW cell
+    for k in kernels:
+        k.update(esw_k3.get(k["name"], {}))
     # K10 at R3 too (its ms, device_ms and bound above are R1's)
     k10_entry = next(k for k in kernels if k["name"] == "ij_bboxes")
     k10_entry.update(r3_ms=k10_r3[0], r3_device_ms=k10_r3[1], r3_bound_ms=b10)

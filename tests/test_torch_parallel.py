@@ -4,10 +4,10 @@ JAX shards over its virtual 8-device CPU mesh (``tests/conftest.py``), the
 port over a mesh of CPU devices (``make_mesh(devices=[cpu] * n)``), on the
 same numpy inputs from a seed, float32.  The port's band kernels run their
 plain versions on CPU tensors.  Expected: the sharded SRW and the sharded
-regrid equal JAX's steps bit for bit.  Beyond the two-pass gate the port
-runs the sharded regrid where JAX runs its sharded ESW; it is held to the
-single-chip gather there at the bounds of ``tests/test_parallel.py``'s
-cropped case (ROADMAP queue 3).
+regrid equal JAX's steps bit for bit.  Beyond the two-pass gate both
+packages run the sharded ESW (``tests/test_torch_esw_sharded.py`` holds the
+two equal); here the port's is held to the single-chip gather at the
+bounds of ``tests/test_parallel.py``'s cropped case.
 """
 
 import logging
@@ -171,19 +171,33 @@ def test_required_halo_matches_jax(case, n):
 
 
 @pytest.mark.parametrize("method", METHODS)
-def test_sharded_reproject_beyond_the_gate(method):
+def test_sharded_reproject_beyond_the_gate(monkeypatch, method):
     """Past the two-pass gate, sharded_reproject crops the source and runs
-    the sharded regrid, where JAX runs its sharded ESW.  Against the
-    single-chip gather on the whole source (JAX make_fused_reproject_fn):
-    NaN masks equal; bilinear and triangular within 2e-4 (the crop's
-    window-relative float32 fields, tests/test_parallel.py:367); nearest
-    equal but where the band's float32 rebase of iy moves rint, at most
-    1e-4 of the pixels."""
+    the sharded ESW (K13's band form), as JAX does; no regrid.  Against
+    the single-chip gather on the whole source (JAX
+    make_fused_reproject_fn): NaN masks equal; bilinear and triangular
+    within 2e-4 (the crop's window-relative float32 fields,
+    tests/test_parallel.py:367); nearest equal but where the window's
+    float32 fields move rint, at most 1e-4 of the pixels."""
+    from xcube_resampling_tpu_torch.parallel import halo as phalo
+
     (jsrc, jtgt), (psrc, ptgt) = _gms("severe")
     data = _data("severe")
     assert ppar.make_sharded_srw_step(_port_mesh(8), psrc, ptgt) is None
+    steps = []
+    orig = phalo.make_sharded_esw_step
+
+    def spy(*args, **kwargs):
+        built = orig(*args, **kwargs)
+        steps.append(built)
+        return built
+
+    monkeypatch.setattr(phalo, "make_sharded_esw_step", spy)
+    regrid = []
+    monkeypatch.setattr(phalo, "make_sharded_regrid_step", lambda *a, **k: regrid.append(1))
     got = ppar.sharded_reproject(torch.from_numpy(data), psrc, ptgt, _port_mesh(8),
                                  interp_method=method).full().numpy()
+    assert len(steps) == 1 and isinstance(steps[0][0], phalo.ShardedESWStep) and not regrid
     ref = np.asarray(jax_fused(jsrc, jtgt, method, np.nan)(jnp.asarray(data)))
     assert got.shape == ref.shape == (256, 256)
     np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))

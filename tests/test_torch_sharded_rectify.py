@@ -150,8 +150,9 @@ def test_top_level_names_cover_jax():
     assert Transformer is pt.crs.Transformer
 
 
-def test_parallel_names_cover_jax_but_the_sharded_esw():
-    assert set(jpar.__all__) - set(ppar.__all__) == {"make_sharded_esw_step"}
+def test_parallel_names_cover_jax():
+    assert set(jpar.__all__) <= set(ppar.__all__)
+    assert ppar.make_sharded_esw_step is ppar.halo.make_sharded_esw_step
 
 
 # ---------------------------------------------------------------------------

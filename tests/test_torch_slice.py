@@ -27,6 +27,7 @@ from xcube_resampling_tpu.ops import reproject_ops as jax_reproject_ops  # noqa:
 from xcube_resampling_tpu.ops import srw as jax_srw  # noqa: E402
 from xcube_resampling_tpu_torch import reproject as port_reproject  # noqa: E402
 from xcube_resampling_tpu_torch import utils as port_utils  # noqa: E402
+from xcube_resampling_tpu_torch.ops import esw as port_esw  # noqa: E402
 from xcube_resampling_tpu_torch.ops import reproject_ops as port_reproject_ops  # noqa: E402
 from xcube_resampling_tpu_torch.ops import srw as port_srw  # noqa: E402
 
@@ -156,19 +157,19 @@ def test_resample_in_space_matches_jax_tiled(monkeypatch, geometry, interp):
 
 @pytest.mark.parametrize("interp", ["bilinear", "nearest"])
 def test_resample_in_space_exact_matches_jax_esw(monkeypatch, interp):
-    """XRTPU_EXACT=1: JAX runs its exact separable warp (ESW), the port
-    K3; ESW reproduces the direct gather bit-exactly for nearest and
-    within 2 float32 ulp at unit scale for bilinear (ops/esw.py:1-3; the
-    data lies in [0, 1))."""
+    """XRTPU_EXACT=1: both packages run their exact separable warp (ESW),
+    with no SRW and no K3, and agree bit for bit (NaN masks included)."""
     monkeypatch.setenv("XRTPU_EXACT", "1")
     esw_calls = _spy(monkeypatch, jax_esw, "make_esw_reproject_fn")
+    port_esw_calls = _spy(monkeypatch, port_reproject, "make_esw_reproject_fn")
     k3_calls = _spy(monkeypatch, port_reproject, "make_fused_reproject_fn")
     srw_calls = _spy(monkeypatch, port_srw, "make_srw_fn")
     ref, got = _run_both("utm_laea", interp)
-    assert esw_calls and k3_calls and not srw_calls
-    atol = 0.0 if interp == "nearest" else 2 * 2.0**-24
+    assert esw_calls and port_esw_calls and not k3_calls and not srw_calls
+    (fn,) = port_reproject._DEVICE_FN_CACHE.values()
+    assert isinstance(fn, port_esw.ESWReprojectFn)
     for name in ("a", "b"):
-        _assert_match(got[name].data.numpy(), ref[name].data, atol)
+        _assert_match(got[name].data.numpy(), ref[name].data, 0.0)
 
 
 @pytest.mark.parametrize("interp", METHODS)

@@ -76,6 +76,19 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F,
         _I64, _I64, _I64, _P,
     ],
+    # src, iystar_c, ix_c, iy_c, out, batch, src_h, src_w, ncj, ncc, nci,
+    # out_h, out_w, step, n_samples, method, fill, src_h_g, src_w_g, j_off,
+    # i_off, stream
+    "xrt_esw_gather_f32": [
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I,
+        _I, _F, _I64, _I64, _I64, _I64, _P,
+    ],
+    # ext, iystar_c, ix_c, iy_c, out, batch, ext_h, src_w, ncj, ncc, nci,
+    # out_h, out_w, step, n_samples, method, fill, row0, off, src_h, stream
+    "xrt_esw_gather_band_f32": [
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I,
+        _I, _F, _I64, _I64, _I64, _P,
+    ],
     # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w,
     # j_scale, i_scale, j_off, i_off, order, fill, in_code, out_code, stream
     "xrt_affine_gather": [

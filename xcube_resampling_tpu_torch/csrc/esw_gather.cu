@@ -1,0 +1,377 @@
+// K13: the exact separable warp (ESW), and its band form.
+//
+// Replaces the XLA kernels of xcube_resampling_tpu/ops/esw.py (precompute
+// :616-651 and kernel :653-876 of _get_impls) and of the sharded ESW step,
+// xcube_resampling_tpu/parallel/halo.py:650-791 (_precompute, band_step).
+// The JAX kernel is gather-free because the TPU serialises dynamic
+// gathers: it selects S consecutive source rows per (output row, source
+// column) into S full-size fields and routes the taps by exact index
+// match over tiled tap bases.  On Hopper each output pixel reads its taps
+// directly, as K3 does, and computes the same function from the coarse
+// fields, with no per-pixel statics.  For each target pixel (r, x):
+//   1. ix, iy: the coarse fields ix_c, iy_c interpolated as K3 does (global
+//      source indices), the validity mask, the clamp to the global source;
+//   2. y0 = floor(iy) and i0 = floor(ix) (rint for nearest), fy, fx; the
+//      window offsets subtracted only after rounding (j_off in float32,
+//      i_off in int32, esw.py:782-799);
+//   3. at each tap column c = i0 and min(i0 + 1, W - 1) (window space,
+//      both clamped to the plane): the anchor m = floor(iy*(r, c) - (S -
+//      2) / 2) from the coarse field iystar_c, the selection s0 = clip(y0 -
+//      m, 0, S - 2) (S - 1 for nearest, esw.py:838), and the rows m + s0
+//      and m + s0 + 1 clipped to the window;
+//   4. the vertical lerp a + fy (b - a) per column first, then cv0 + fx
+//      (cv1 - cv0); for triangular the four taps and the two-triangle split
+//      of gather.grid_sample (esw.py:856-867); nearest takes a;
+//   5. out = valid ? value : fill.
+// Every lerp is a fused multiply-add where XLA's CPU backend contracts it
+// (the library is built with -fmad=false, so nothing else is contracted),
+// so the kernel equals its plain version and the JAX package bit for bit.
+// The JAX layout's shift alignment moves values, not positions (the
+// shifted source and anchors are value-equal to the unshifted ones), and
+// its tap bases cover every selected row with a margin, so reading the
+// selected rows directly gives the same values.
+//
+// The band form (esw_gather_band_kernel) is the sharded step's: the plane
+// is one mesh band extended by its halo (its row 0 at global source row
+// off), output row j lies at global target row row0 + j, there is no
+// window (j_off = i_off = 0), the rows clip to the true source's height
+// and are then read off rows up (halo.py:684, 700-701).
+//
+// Bound on the H100: device memory, as K3's.  A pixel reads 4 taps (1 for
+// nearest) and the 4 coarse samples of iystar_c around its tap columns'
+// cell (8 where they straddle two cells; L1-resident, as are ix_c and
+// iy_c), and writes one float per band.
+// Design: K3's.  A thread owns kVec consecutive columns and walks rows; the
+// ix, iy interpolation keeps its row lerps while the rows stay in one
+// coarse cell (srw_common.h's FieldCols); the row cell of iystar_c is
+// taken once a row; each pixel's tap offsets, fractions and mask are taken
+// once for every band.  K13's grid runs row tiles as K3's; the band form
+// is a kernel of its own with K3's band launch (one wave of blocks, each a
+// run of consecutive rows), so that no flag reaches K13's hot loop.
+// Offsets inside a plane are 32-bit and unsigned (the wrapper refuses
+// planes of 2^31 elements or more), band offsets 64-bit.
+#include "affine_gather.h"
+#include "gather_taps.h"
+
+namespace {
+
+constexpr int kVec = 4;        // output columns of a thread
+constexpr int kWarpCols = 32;  // threads across a tile
+constexpr int kLanes = 2;      // threads down a tile (K13)
+constexpr int kTileCols = kVec * kWarpCols;
+constexpr int kTileRows = 16;  // target rows of a tile (K13)
+constexpr int kBandLanes = 1;  // threads down a block (the band form)
+constexpr int kBandBlocks = 16;
+
+struct Args {
+  const float* src;
+  const float* iystar;  // (ncj, ncc), window columns
+  float* out;
+  xrt::CoarseFields<2> field;  // ix_c, iy_c (ncj, nci), global indices
+  int ncc;
+  int64_t batch;
+  int src_h, src_w;  // the plane read: the window, or the band's extension
+  // the global source's bounds and clamp limits (validity, positions)
+  float x_hi, y_hi, x_max, y_max;
+  float half;   // (S - 2) / 2
+  float s_max;  // S - 2, or S - 1 for nearest
+  float j_off;  // the window's origin (0 for the band form)
+  int i_off;
+  int clip_h;   // rows clip to [0, clip_h): the window's or the source's height
+  int row_off;  // then read row_off rows up (the band's offset)
+  int out_h, out_w;
+  float fill;
+  int n_row_tiles;
+  bool vec4;  // out_w % 4 == 0 and out 16-byte aligned
+  int row0;   // the global target row of output row 0
+};
+
+// The taps of one pixel: the offsets of its two tap columns' upper rows,
+// the steps down to their lower rows (0 where the clip folds them), the
+// fractions and the mask.
+struct Taps {
+  unsigned o0, o1, d0, d1;
+  float fx, fy;
+  bool ok;
+};
+
+// The row cell of a target row in the coarse fields, as _interp_field
+// takes it: the clamped cell and the unclamped fraction.
+struct RowCell {
+  int j;
+  float fj;
+};
+
+__device__ __forceinline__ RowCell row_cell(const Args& a, float row) {
+  const float cj = row * a.field.inv;
+  const float j0f = floorf(cj);
+  return {static_cast<int>(xrt::clamp_index(static_cast<int>(j0f), a.field.ncj - 1)), cj - j0f};
+}
+
+// The coarse cell of window column c in iystar_c (clamped) and its
+// fraction, as _interp_field takes them.
+struct ColCell {
+  int i;
+  float fi;
+};
+
+__device__ __forceinline__ ColCell col_cell(const Args& a, int c) {
+  const float ci = static_cast<float>(c) * a.field.inv;
+  const float i0f = floorf(ci);
+  return {static_cast<int>(xrt::clamp_index(static_cast<int>(i0f), a.ncc - 1)), ci - i0f};
+}
+
+// The four samples of iystar_c around a cell, in the row cell rc.
+struct Corners {
+  float f00, f01, f10, f11;
+};
+
+__device__ __forceinline__ Corners corners(const Args& a, RowCell rc, int i) {
+  const float* q = a.iystar + rc.j * a.ncc + i;
+  return {__ldg(q), __ldg(q + 1), __ldg(q + a.ncc), __ldg(q + a.ncc + 1)};
+}
+
+// One tap column (its cell's corners k, fraction fi): the anchor, the
+// selection, and the offsets of rows m + s0 and m + s0 + 1 at column c.
+__device__ __forceinline__ void tap_column(const Args& a, int c, const Corners& k, float fi,
+                                           float y0w, RowCell rc, unsigned& off,
+                                           unsigned& down) {
+  const float pos = xrt::lerp(xrt::lerp(k.f00, k.f01, fi), xrt::lerp(k.f10, k.f11, fi), rc.fj);
+  const float m = floorf(pos - a.half);
+  const float s0 = fminf(fmaxf(y0w - m, 0.0f), a.s_max);
+  const int r = static_cast<int>(m) + static_cast<int>(s0);
+  const int ra = static_cast<int>(
+      xrt::clamp_index(xrt::clamp_index(r, a.clip_h) - a.row_off, a.src_h));
+  const int rb = static_cast<int>(
+      xrt::clamp_index(xrt::clamp_index(r + 1, a.clip_h) - a.row_off, a.src_h));
+  off = static_cast<unsigned>(ra) * static_cast<unsigned>(a.src_w) + static_cast<unsigned>(c);
+  down = static_cast<unsigned>(rb - ra) * static_cast<unsigned>(a.src_w);
+}
+
+template <int M>
+__device__ __forceinline__ Taps pixel_taps(const Args& a, float ix, float iy, RowCell rc) {
+  Taps t;
+  t.ok = ix > -0.5f && ix < a.x_hi && iy > -0.5f && iy < a.y_hi;
+  ix = fminf(fmaxf(ix, 0.0f), a.x_max);
+  iy = fminf(fmaxf(iy, 0.0f), a.y_max);
+  float y0;
+  int i0;
+  if (M == xrt::kNearest) {
+    y0 = rintf(iy);
+    i0 = static_cast<int>(rintf(ix)) - a.i_off;
+    t.fx = t.fy = 0.0f;
+  } else {
+    y0 = floorf(iy);
+    t.fy = iy - y0;
+    const float x0 = floorf(ix);
+    t.fx = ix - x0;
+    i0 = static_cast<int>(x0) - a.i_off;
+  }
+  const float y0w = y0 - a.j_off;
+  const int last = a.src_w - 1;
+  const int c0 = min(max(i0, 0), last);
+  const ColCell e0 = col_cell(a, c0);
+  const Corners k0 = corners(a, rc, e0.i);
+  tap_column(a, c0, k0, e0.fi, y0w, rc, t.o0, t.d0);
+  if (M == xrt::kNearest) {
+    t.o1 = t.d1 = 0u;
+  } else {
+    // the second column mostly lies in the first's cell: its corners are
+    // the same values then
+    const int c1 = min(max(i0 + 1, 0), last);
+    const ColCell e1 = col_cell(a, c1);
+    const Corners k1 = e1.i == e0.i ? k0 : corners(a, rc, e1.i);
+    tap_column(a, c1, k1, e1.fi, y0w, rc, t.o1, t.d1);
+  }
+  return t;
+}
+
+// The taps' value on a plane: the vertical lerps first.
+template <int M>
+__device__ __forceinline__ float value(const float* __restrict__ p, const Taps& t) {
+  const float v00 = __ldg(p + t.o0);
+  if (M == xrt::kNearest) return v00;
+  const float v10 = __ldg(p + t.o0 + t.d0);
+  const float v01 = __ldg(p + t.o1);
+  const float v11 = __ldg(p + t.o1 + t.d1);
+  if (M == xrt::kTriangular) {
+    const float v_near = fmaf(t.fy, v10 - v00, xrt::lerp(v00, v01, t.fx));
+    const float v_far = fmaf(1.0f - t.fy, v01 - v11, xrt::lerp(v11, v10, 1.0f - t.fx));
+    return t.fx + t.fy < 1.0f ? v_near : v_far;
+  }
+  return xrt::lerp(xrt::lerp(v00, v10, t.fy), xrt::lerp(v01, v11, t.fy), t.fx);
+}
+
+// Output row j (global target row a.row0 + j) at kVec columns from i:
+// the taps once, then every band.
+template <int M>
+__device__ __forceinline__ void one_row(const Args& a, xrt::FieldCols<2, kVec>& field, int j,
+                                        int i, int n) {
+  const float row = static_cast<float>(a.row0 + j);
+  float f[2][kVec];  // ix, iy
+  field.at(a.field, row, f);
+  const RowCell rc = row_cell(a, row);
+  Taps t[kVec];
+#pragma unroll
+  for (int c = 0; c < kVec; ++c) t[c] = pixel_taps<M>(a, f[0][c], f[1][c], rc);
+  const int64_t src_plane = static_cast<int64_t>(a.src_h) * a.src_w;
+  const int64_t out_plane = static_cast<int64_t>(a.out_h) * a.out_w;
+  for (int64_t b = 0; b < a.batch; ++b) {
+    const float* p = a.src + b * src_plane;
+    float v[kVec];
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) v[c] = t[c].ok ? value<M>(p, t[c]) : a.fill;
+    float* o = a.out + b * out_plane + static_cast<int64_t>(j) * a.out_w + i;
+    if (a.vec4 && n == kVec) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        if (c < n) o[c] = v[c];
+      }
+    }
+  }
+}
+
+// K13: kVec consecutive columns from i, the rows of a tile kLanes apart.
+template <int M>
+__global__ void __launch_bounds__(kWarpCols * kLanes, 12) esw_gather_kernel(const Args a) {
+  const int i = (blockIdx.x * kWarpCols + threadIdx.x) * kVec;
+  if (i >= a.out_w) return;
+  const int n = a.out_w - i < kVec ? a.out_w - i : kVec;
+  xrt::FieldCols<2, kVec> field(a.field, static_cast<float>(i));
+  for (int tr = blockIdx.y; tr < a.n_row_tiles; tr += gridDim.y) {
+    const int j1 = min((tr + 1) * kTileRows, a.out_h);
+    for (int j = tr * kTileRows + threadIdx.y; j < j1; j += kLanes) one_row<M>(a, field, j, i, n);
+  }
+}
+
+// The band form: kVec consecutive columns from i, the rows of the block's
+// run kBandLanes apart.
+template <int M>
+__global__ void __launch_bounds__(kWarpCols * kBandLanes, kBandBlocks) esw_gather_band_kernel(
+    const Args a, int run) {
+  const int i = (blockIdx.x * kWarpCols + threadIdx.x) * kVec;
+  if (i >= a.out_w) return;
+  const int n = a.out_w - i < kVec ? a.out_w - i : kVec;
+  xrt::FieldCols<2, kVec> field(a.field, static_cast<float>(i));
+  const int j0 = static_cast<int>(blockIdx.y) * run;
+  const int j1 = min(j0 + run, a.out_h);
+  for (int j = j0 + static_cast<int>(threadIdx.y); j < j1; j += kBandLanes) {
+    one_row<M>(a, field, j, i, n);
+  }
+}
+
+template <int M>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  const dim3 block(kWarpCols, kLanes);
+  const dim3 grid(static_cast<unsigned>((a.out_w + kTileCols - 1) / kTileCols),
+                  static_cast<unsigned>(a.n_row_tiles < 65535 ? a.n_row_tiles : 65535));
+  esw_gather_kernel<M><<<grid, block, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// The band form's launch: one wave of blocks down the columns, each a run
+// of rows as even as the lanes allow (fused_reproject.cu's launch_band).
+template <int M>
+cudaError_t launch_band(const Args& a, cudaStream_t s) {
+  const int64_t cols = (a.out_w + kTileCols - 1) / kTileCols;
+  unsigned rows = 1;
+  const cudaError_t e = xrt::wave_rows(esw_gather_band_kernel<M>, kWarpCols * kBandLanes, 0, cols,
+                                       (a.out_h + kBandLanes - 1) / kBandLanes, &rows);
+  if (e != cudaSuccess) return e;
+  const int per = (a.out_h + static_cast<int>(rows) - 1) / static_cast<int>(rows);
+  const int run = (per + kBandLanes - 1) / kBandLanes * kBandLanes;
+  const unsigned grid_y = static_cast<unsigned>((a.out_h + run - 1) / run);
+  esw_gather_band_kernel<M><<<dim3(static_cast<unsigned>(cols), grid_y),
+                              dim3(kWarpCols, kBandLanes), 0, s>>>(a, run);
+  return cudaGetLastError();
+}
+
+template <bool B>
+int dispatch(const float* src, const float* iystar, const float* ix_c, const float* iy_c,
+             float* out, int64_t batch, int64_t src_h, int64_t src_w, int64_t ncj, int64_t ncc,
+             int64_t nci, int64_t out_h, int64_t out_w, int step, int n_samples, int method,
+             float fill, int64_t bound_h, int64_t bound_w, int64_t j_off, int64_t i_off,
+             int64_t clip_h, int64_t row_off, int64_t row0, void* stream) {
+  constexpr int64_t kMaxPlane = (int64_t{1} << 31) - 1;
+  if (src_h * src_w > kMaxPlane || out_h * out_w > kMaxPlane || ncj * nci > kMaxPlane ||
+      ncj * ncc > kMaxPlane || step < 1 || batch < 1 || n_samples < 3 || n_samples > 64 ||
+      row0 < 0 || row0 + out_h > (int64_t{1} << 24) || clip_h < 1 || bound_h < 1 ||
+      bound_w < 1 || i_off < 0 || i_off > kMaxPlane || j_off < 0 || j_off > kMaxPlane ||
+      row_off < -kMaxPlane || row_off > kMaxPlane || clip_h > kMaxPlane) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const xrt::TapBounds g = xrt::tap_bounds(bound_h, bound_w);
+  Args a{};
+  a.src = src;
+  a.iystar = iystar;
+  a.out = out;
+  a.field = {{ix_c, iy_c}, static_cast<int>(ncj), static_cast<int>(nci),
+             static_cast<float>(1.0 / step)};
+  a.ncc = static_cast<int>(ncc);
+  a.batch = batch;
+  a.src_h = static_cast<int>(src_h);
+  a.src_w = static_cast<int>(src_w);
+  a.x_hi = g.x_hi;
+  a.y_hi = g.y_hi;
+  a.x_max = g.x_max;
+  a.y_max = g.y_max;
+  a.half = static_cast<float>((n_samples - 2) / 2.0);
+  a.s_max = static_cast<float>(method == xrt::kNearest ? n_samples - 1 : n_samples - 2);
+  a.j_off = static_cast<float>(j_off);
+  a.i_off = static_cast<int>(i_off);
+  a.clip_h = static_cast<int>(clip_h);
+  a.row_off = static_cast<int>(row_off);
+  a.out_h = static_cast<int>(out_h);
+  a.out_w = static_cast<int>(out_w);
+  a.fill = fill;
+  a.n_row_tiles = static_cast<int>((out_h + kTileRows - 1) / kTileRows);
+  a.vec4 = out_w % kVec == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  a.row0 = static_cast<int>(row0);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (method) {
+    case xrt::kBilinear:
+      e = B ? launch_band<xrt::kBilinear>(a, s) : launch<xrt::kBilinear>(a, s);
+      break;
+    case xrt::kNearest:
+      e = B ? launch_band<xrt::kNearest>(a, s) : launch<xrt::kNearest>(a, s);
+      break;
+    case xrt::kTriangular:
+      e = B ? launch_band<xrt::kTriangular>(a, s) : launch<xrt::kTriangular>(a, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(e);
+}
+
+}  // namespace
+
+// K13: src is the source window (batch, src_h, src_w), its origin at
+// global source row j_off and column i_off of a source src_h_g x src_w_g.
+extern "C" int xrt_esw_gather_f32(const float* src, const float* iystar_c, const float* ix_c,
+                                  const float* iy_c, float* out, int64_t batch, int64_t src_h,
+                                  int64_t src_w, int64_t ncj, int64_t ncc, int64_t nci,
+                                  int64_t out_h, int64_t out_w, int step, int n_samples,
+                                  int method, float fill, int64_t src_h_g, int64_t src_w_g,
+                                  int64_t j_off, int64_t i_off, void* stream) {
+  return dispatch<false>(src, iystar_c, ix_c, iy_c, out, batch, src_h, src_w, ncj, ncc, nci,
+                         out_h, out_w, step, n_samples, method, fill, src_h_g, src_w_g, j_off,
+                         i_off, src_h, 0, 0, stream);
+}
+
+// The band form: ext is the band's extension (batch, ext_h, src_w), its
+// row 0 at global source row off; out_h output rows from global target
+// row row0; src_h the source's true height.
+extern "C" int xrt_esw_gather_band_f32(const float* ext, const float* iystar_c,
+                                       const float* ix_c, const float* iy_c, float* out,
+                                       int64_t batch, int64_t ext_h, int64_t src_w, int64_t ncj,
+                                       int64_t ncc, int64_t nci, int64_t out_h, int64_t out_w,
+                                       int step, int n_samples, int method, float fill,
+                                       int64_t row0, int64_t off, int64_t src_h, void* stream) {
+  return dispatch<true>(ext, iystar_c, ix_c, iy_c, out, batch, ext_h, src_w, ncj, ncc, nci, out_h,
+                        out_w, step, n_samples, method, fill, src_h, src_w, 0, 0, src_h, off,
+                        row0, stream);
+}

@@ -2,8 +2,9 @@
 shapes, over a mesh of n entries.
 
 Counterpart of ``__graft_entry__.dryrun_multichip``: the sharded SRW
-(bilinear and triangular), the sharded regrid (where the JAX package runs
-its sharded ESW step), then rectify with both phases on the mesh
+(bilinear and triangular), the sharded exact separable warp
+(``make_sharded_esw_step``) past the two-pass gate, the sharded regrid,
+then rectify with both phases on the mesh
 (:func:`.parallel.sharded_phase_a`, then :func:`.parallel.sharded_rectify`
 through its map) on a small OLCI-like swath.  It runs on the card by
 default: ``python -c "from xcube_resampling_tpu_torch.entry import
@@ -77,6 +78,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     gives no finite output."""
     from .parallel import (
         make_mesh,
+        make_sharded_esw_step,
         make_sharded_regrid_step,
         sharded_phase_a,
         sharded_rectify,
@@ -101,6 +103,26 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     step_fn, (src_pad_h, out_h) = make_sharded_regrid_step(mesh, source_gm, target_gm)
     src1 = torch.nn.functional.pad(src[0], (0, 0, 0, src_pad_h), value=float("nan"))
     _check(step_fn(src1).full(), (out_h, target_gm.width), "the sharded regrid")
+
+    # past the two-pass gate: a geographic grid over Greenland onto a
+    # polar stereographic grid, through the sharded ESW
+    geo_gm = GridMapping.regular(
+        size=(8 * n_devices, 6 * n_devices), xy_min=(-70.0, 60.0), xy_res=4.0 / n_devices,
+        crs="epsg:4326",
+    )
+    cx, cy = Transformer.from_crs("epsg:4326", "epsg:3413").transform(-54.0, 72.0)
+    polar_gm = GridMapping.regular(
+        size=(6 * n_devices, 6 * n_devices), xy_min=(cx - 720000.0, cy - 720000.0),
+        xy_res=240000.0 / n_devices, crs="epsg:3413",
+    )
+    built = make_sharded_esw_step(mesh, geo_gm, polar_gm, src_batch_dims=1)
+    if built is None:
+        raise RuntimeError("dryrun_multichip: the sharded ESW refused its geometry")
+    esw_fn, (esw_pad, esw_h) = built
+    geo_src = torch.from_numpy(
+        rng.random((2, geo_gm.height + esw_pad, geo_gm.width), dtype=np.float32)
+    ).to(dev)
+    _check(esw_fn(geo_src).full(), (2, esw_h, polar_gm.width), "the sharded ESW")
 
     swath = create_olci_like_swath(
         width=8 * n_devices, height=8 * n_devices, tile_size=8 * n_devices

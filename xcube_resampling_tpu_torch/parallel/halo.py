@@ -13,12 +13,15 @@ One process drives every device of the mesh, as JAX's single-controller
 * :func:`make_sharded_srw_step`: the tiled SRW on bands, K1's and K2's
   band forms (``srw_vertical_band``, ``srw_horizontal_band``), planned on
   the host by :func:`plan_sharded_srw` (``halo.py:262-349``);
+* :func:`make_sharded_esw_step`: the exact separable warp on bands, K13's
+  band form (``esw_gather_band``), planned on the host by
+  :func:`plan_sharded_esw` (``halo.py:555-643``), its halo from the plan's
+  vertical taps;
 * :func:`make_sharded_regrid_step`: the direct gather on bands, K3's band
   form (``fused_reproject_band``);
-* :func:`sharded_reproject`: the source crop, the SRW where its gates
-  admit the mapping and the regrid beyond them.  Where JAX runs its
-  sharded ESW step (``halo.py:513``) the port runs the regrid, which that
-  step reproduces (bit-exact nearest, within 2 float32 ulp bilinear);
+* :func:`sharded_reproject`: the source crop, then JAX's ladder: the SRW
+  where its gates admit the mapping, the ESW beyond them where its plan
+  admits it, else the regrid;
 * :func:`make_sharded_rectify_step`: rectify's Phase B on bands, K7's band
   form (``ij_gather_band``) through the rows of the Phase A map that fall
   to the band's target rows;
@@ -50,7 +53,9 @@ from ..ops.rectify_ops import (
     ij_gather_band,
     ij_gather_band_plain,
 )
+from ..ops.esw import _max_row_deviation, esw_gather_band, esw_gather_band_plain
 from ..ops.reproject_ops import (
+    METHODS,
     coarse_coord_field,
     fused_reproject_band,
     fused_reproject_band_plain,
@@ -637,6 +642,217 @@ def make_sharded_regrid_step(
     return step_fn, (src_pad_h, out_h)
 
 
+# ---------------------------------------------------------------------------
+# the sharded exact separable warp (ESW)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ShardedESWPlan:
+    """The sharded ESW plan of ``halo.py:555-643`` on the host: the coarse
+    fields (float32), the sample count S, the band layout, the tap counts
+    that decide the refusals, and the halo from the clamped vertical taps.
+    K13's band form reads each pixel's taps directly, so the tap bases
+    the JAX step plans serve the refusals and the halo only."""
+
+    iystar_c: np.ndarray  # (ncj, ncc)
+    ix_c: np.ndarray  # (ncj, nci)
+    iy_c: np.ndarray  # (ncj, nci)
+    step: int
+    n_samples: int
+    d_v: int
+    d_h: int
+    halo: int
+    n: int
+    band_h: int
+    src_pad_h: int
+    out_band_h: int
+    src_h: int
+    src_w: int
+    out_h: int
+    out_w: int
+
+
+def plan_sharded_esw(
+    n: int,
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    step: int = 16,
+    max_taps: int = 48,
+    tap_budget: int = 16,
+    max_samples: int = 10,
+) -> ShardedESWPlan | None:
+    """Plan the sharded ESW over *n* bands, or None where the mapping is
+    unsuitable (non-monotone rows, or tap or sample counts out of budget).
+    Copy of ``halo.py:555-643``."""
+    fields = _coarse_geometry(source_gm, target_gm, step)
+    if fields is None:
+        return None
+    ix64, iy64, iystar = fields.ix64, fields.iy64, fields.iystar64
+    src_h, src_w = fields.src_h, fields.src_w
+    out_h, out_w = fields.out_h, fields.out_w
+
+    margin = 0.35
+    dev = _max_row_deviation(fields)
+    S = max(3, int(np.ceil(2.0 * (dev + margin))) + 2)
+    if S > max_samples:
+        return None
+    half = (S - 2) / 2.0
+
+    band_h = -(-src_h // n)
+    src_pad_h = band_h * n - src_h
+    out_band_h = -(-out_h // n)
+    out_h_pad = out_band_h * n
+
+    # ---- vertical plan: per-(padded output row, column tile) bases with
+    # the S-sample margin
+    slope_v = float(np.nanmax(np.abs(np.diff(iystar, axis=1))) / step)
+    col_tile = _pick_tile(slope_v, tap_budget)
+    ncc = iystar.shape[1]
+    n_col_tiles = -(-src_w // col_tile)
+    iystar_rows = _interp_rows(iystar, out_h, step)
+    if out_h_pad > out_h:
+        iystar_rows = np.concatenate(
+            [iystar_rows, np.repeat(iystar_rows[-1:], out_h_pad - out_h, 0)]
+        )
+    base_v = np.zeros((out_h_pad, n_col_tiles), dtype=np.int32)
+    span_max = 0.0
+    for t in range(n_col_tiles):
+        c0 = t * col_tile
+        c1 = min((t + 1) * col_tile, src_w)
+        k0 = max(0, c0 // step - 1)
+        k1 = min(ncc, -(-c1 // step) + 1)
+        seg = iystar_rows[:, k0:k1]
+        m = seg.min(axis=1)
+        base_v[:, t] = np.floor(m - half).astype(np.int32) - 2
+        span_max = max(span_max, float((seg.max(axis=1) - m).max()))
+    d_v = int(np.ceil(span_max)) + S + 4
+    if d_v > max_taps:
+        return None
+
+    # ---- horizontal plan: per-(band, row tile) base, overlapping last
+    # tile so tiles never straddle bands
+    slope_h = float(np.nanmax(np.abs(np.diff(ix64, axis=0))) / step)
+    row_tile = min(_pick_tile(slope_h, tap_budget), out_band_h)
+    tiles_per_band = -(-out_band_h // row_tile)
+    tile_starts = [t * row_tile for t in range(tiles_per_band - 1)]
+    tile_starts.append(out_band_h - row_tile)
+    ix_cols = _interp_cols(ix64, out_w, step)
+    ncj = ix64.shape[0]
+    sample_rows = np.arange(ncj) * step
+    base_h = np.zeros((n * tiles_per_band, out_w), dtype=np.int32)
+    span_max_h = 0.0
+    for k in range(n):
+        for t, s0 in enumerate(tile_starts):
+            r0 = min(k * out_band_h + s0, out_h - 1)
+            r1 = min(r0 + row_tile, out_h)
+            k0 = max(0, int(np.searchsorted(sample_rows, r0)) - 1)
+            k1 = min(ncj, int(np.searchsorted(sample_rows, r1)) + 2)
+            seg = ix_cols[k0:k1, :]
+            m = seg.min(axis=0)
+            base_h[k * tiles_per_band + t, :] = (
+                np.floor(m).astype(np.int32) - 2
+            )
+            span_max_h = max(span_max_h, float((seg.max(axis=0) - m).max()))
+    d_h = int(np.ceil(span_max_h)) + 5
+    if d_h > max_taps:
+        return None
+
+    # ---- halo: worst-case deviation of any band's (globally clamped)
+    # vertical taps from its proportional source band
+    lo_tap = np.clip(base_v.min(axis=1), 0, src_h - 1)
+    hi_tap = np.clip(base_v.max(axis=1) + d_v - 1, 0, src_h - 1)
+    halo = 0
+    for k in range(n):
+        r0, r1 = k * out_band_h, (k + 1) * out_band_h
+        off = k * band_h
+        halo = max(
+            halo,
+            int(off - lo_tap[r0:r1].min()),
+            int(hi_tap[r0:r1].max() - (off + band_h - 1)),
+        )
+    halo = max(halo, 0)
+    halo = min(halo, (n - 1) * band_h)
+
+    return ShardedESWPlan(
+        iystar_c=iystar.astype(np.float32),
+        ix_c=ix64.astype(np.float32),
+        iy_c=iy64.astype(np.float32),
+        step=step,
+        n_samples=S,
+        d_v=d_v,
+        d_h=d_h,
+        halo=halo,
+        n=n,
+        band_h=band_h,
+        src_pad_h=src_pad_h,
+        out_band_h=out_band_h,
+        src_h=src_h,
+        src_w=src_w,
+        out_h=out_h,
+        out_w=out_w,
+    )
+
+
+class ShardedESWStep(_BandGatherStep):
+    """``step(src) -> Sharded``: K13's band form (``esw_gather_band``) on
+    each band after the halo exchange (:class:`_BandGatherStep`), the
+    halo from the plan's vertical taps."""
+
+    _kernels = (esw_gather_band, esw_gather_band_plain)
+
+    def __init__(self, devices, plan: ShardedESWPlan, interp_method, fill_value,
+                 src_batch_dims):
+        super().__init__(devices, plan.halo, plan.band_h, plan.out_h, interp_method,
+                         fill_value, src_batch_dims)
+        self.plan = plan
+        self._fields = _Statics(iystar_c=plan.iystar_c, ix_c=plan.ix_c, iy_c=plan.iy_c)
+
+    def gather_args(self, bands, halos, k):
+        """K13's band-form arguments for band *k* of *bands*: its extension
+        by its halo from :meth:`exchange` first."""
+        ext, off = self.extension(bands, halos, k)
+        f = self._fields.on(self.devices[k])
+        p = self.plan
+        return (
+            ext, f["iystar_c"], f["ix_c"], f["iy_c"], p.step, p.n_samples, p.out_band_h,
+            p.out_w, self.interp_method, self.fill_value, k * p.out_band_h, off, p.src_h,
+        )
+
+
+def make_sharded_esw_step(
+    mesh,
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    axis_name: str = "bands",
+    interp_method: str = "bilinear",
+    fill_value: float = np.nan,
+    src_batch_dims: int = 0,
+    step: int = 16,
+    max_taps: int = 48,
+    tap_budget: int = 16,
+    max_samples: int = 10,
+):
+    """The sharded exact separable warp over ``mesh[axis_name]``: halo
+    exchange, then K13's band form on each band.  It reproduces the direct
+    gather built on the same grid mappings (bit-exact nearest, within 2
+    float32 ulp bilinear) with no two-pass fidelity gate.
+
+    Returns ``(step_fn, (src_pad_h, out_h))`` as
+    :func:`make_sharded_regrid_step` does, or None where the mapping is
+    unsuitable (non-monotone rows, or tap or sample counts out of budget)."""
+    if interp_method not in METHODS:
+        return None
+    devices = _axis_devices(mesh, axis_name)
+    plan = plan_sharded_esw(
+        len(devices), source_gm, target_gm, step, max_taps, tap_budget, max_samples
+    )
+    if plan is None:
+        return None
+    step_fn = ShardedESWStep(devices, plan, interp_method, fill_value, src_batch_dims)
+    return step_fn, (plan.src_pad_h, plan.out_h)
+
+
 def crop_source(src, source_gm: GridMapping, target_gm: GridMapping):
     """*src* and *source_gm* cropped to the window *target_gm* taps, as
     ``sharded_reproject`` crops them (a view of *src*)."""
@@ -669,14 +885,24 @@ def sharded_reproject(
     over ``mesh[axis_name]``; returns the target raster as a
     :class:`.tiling.Sharded` (``.full()`` gathers it on one device).
 
-    The tiers mirror the single-chip dispatch: the sharded SRW where its
-    fidelity gate admits the mapping, else the sharded regrid (K3's band
-    form), which computes what JAX's sharded ESW step computes there
-    within its contract."""
+    The tiers mirror the single-chip dispatch (``halo.py:1219-1249``): the
+    sharded SRW where its fidelity gate admits the mapping, the sharded
+    ESW (K13's band form) for rotation-heavy warps beyond the gate, and
+    the sharded regrid (K3's band form) where the ESW refuses."""
     src, source_gm = crop_source(src, source_gm, target_gm)
     built = None
     if use_srw:
         built = make_sharded_srw_step(
+            mesh,
+            source_gm,
+            target_gm,
+            axis_name=axis_name,
+            interp_method=interp_method,
+            fill_value=fill_value,
+            src_batch_dims=src.ndim - 2,
+        )
+    if built is None:
+        built = make_sharded_esw_step(
             mesh,
             source_gm,
             target_gm,

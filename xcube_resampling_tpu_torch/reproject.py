@@ -4,10 +4,14 @@ Port of ``xcube_resampling_tpu/reproject.py:52-298``, with the JAX
 package's two semantics kept apart:
 
 * float32 tensor variables stay on their device and go through the
-  device tiers: the tiled SRW plan (:func:`.ops.srw.make_srw_reproject_fn`:
-  crop, gates, K1 + K2), unless ``XRTPU_EXACT=1``; otherwise K3, the fused
-  direct gather, which the JAX package's exact tiers (ESW, exact region
-  mosaic) reproduce: bit-exact for nearest, within 2 ulp for bilinear;
+  device tiers, the JAX package's ladder: the tiled SRW plan
+  (:func:`.ops.srw.make_srw_reproject_fn`: crop, gates, K1 + K2), unless
+  ``XRTPU_EXACT=1``; then the exact separable warp
+  (:func:`.ops.esw.make_esw_reproject_fn`: crop, ``plan_esw``, K13), where
+  its plan admits the mapping; otherwise K3, the fused direct gather,
+  where the JAX package runs its exact region mosaic (not ported yet),
+  which reproduces the direct gather: bit-exact for nearest, within 2 ulp
+  for bilinear;
 * numpy variables take the JAX package's host golden path on the card of
   the *device* argument (default ``"cuda"``): per-pixel float64 target
   centres in the source CRS (:func:`_target_centers_in_source`), the
@@ -50,6 +54,7 @@ from .constants import (
 )
 from .crs import Transformer
 from .gridmapping import GridMapping
+from .ops.esw import make_esw_reproject_fn
 from .ops.exact_gather import WindowTiles, exact_gather_windows
 from .ops.reproject_ops import METHODS, make_fused_reproject_fn
 from .ops.srw import make_srw_reproject_fn
@@ -300,10 +305,17 @@ def _reproject_on_device(data, source_gm, target_gm, interp_method, fill_value):
 def _build_device_reproject_fn(
     source_gm, target_gm, interp_method, fill_value, device
 ):
+    # the JAX package's ladder (reproject.py:272-297): the tiled SRW unless
+    # XRTPU_EXACT=1, the exact separable warp, then the direct gather (K3),
+    # which stands for its exact region mosaic and its XLA gather
     fn = None
     if os.environ.get("XRTPU_EXACT", "") != "1":
         fn = make_srw_reproject_fn(
             source_gm, target_gm, interp_method, fill_value, device
+        )
+    if fn is None:
+        fn = make_esw_reproject_fn(
+            source_gm, target_gm, interp_method, fill_value, device=device
         )
     if fn is None:
         fn = make_fused_reproject_fn(
