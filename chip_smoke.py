@@ -7,17 +7,27 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
    printing each source's registers and spills (ptxas ``-v``) and those
-   of every instantiation of K1-K3, K13, K2's, K3's, K7's and K13's band
-   forms, K7's map and list forms, K11's two kernels and K12 (and a summary
-   of the downscale form's cached kernels), and fails if K6's register
-   kernels, K2's, K3's or K7's band form, K11, K12, K13 or its band form or
-   the downscale form's cached kernels spill or use local memory;
+   of every instantiation of K1-K3, K13-K15, K2's, K3's, K7's and K13's
+   band forms, K7's map and list forms, K11's two kernels and K12 (and a
+   summary of the downscale form's cached kernels), and fails if K6's
+   register kernels, K2's, K3's or K7's band form, K11, K12, K13 or its
+   band form, K14, K15 or the downscale form's cached kernels spill or use
+   local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
    same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
    pre-downscale runs (clip, K4's downscale form: the gather reduced in
-   5 x 5 windows without the inflated image) before the tiled SRW, with
-   the device memory a call takes at its peak; the
+   5 x 5 windows without the inflated image) before the SRW's batched
+   choice (K1 + K2), with the device memory a call takes at its peak; the
+   flagship cell (:func:`flagship_phase`: the 2048^2 UTM32N 100 m ->
+   EPSG:3035 110 m flagship, pre-downscaled and then reprojected through
+   the aligned SRW, K14 and K15, bilinear and nearest, 1 and 4 bands, first
+   call and warm calls; K14 and K15 held to their plain versions bit for
+   bit there, with NaN and +-inf rows and columns and a numeric fill and on
+   a plan whose taps pass all four source edges; the aligned output against
+   the tiled SRW on the same geometry within F1's bounds; K14 and K15 timed
+   beside K1 + K2 and K3; the 512^2 flagship's aligned pick seen by a spy);
+   the
    EPSG:4326 0.05 deg -> UTM32N 4096^2 reproject with nearest, triangular
    and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
    geometry (the exact separable warp, K13), the global EPSG:4326 0.05 deg
@@ -1440,6 +1450,349 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
     return band_launches, err, timings, bounds, library, k3
 
 
+# The flagship cell: __graft_entry__'s geometry (a UTM32N 100 m source of
+# size^2 onto an EPSG:3035 110 m target of size^2 centred on it) at 2048^2,
+# a 205 km scene, the largest of the family that the JAX package's cost
+# model still sends to its aligned SRW.  resample_in_space pre-downscales
+# the source (scale 0.91) and reprojects the 1836 x 1837 coarse image
+# through K14 and K15; at 512^2 once more, with a spy on make_srw_aligned_fn.
+FLAGSHIP = dict(size=2048, bands=4, small=512)
+FLAGSHIP_KERNELS = ("srw_aligned_vertical", "srw_aligned_horizontal")
+# the aligned SRW against the tiled one on the same geometry (F1): NaN
+# masks may differ where a zero-weight tap of one variant's tap range reads
+# the coarse image's NaN edge column (0.13% of the pixels at 2048^2 on the
+# CPU): under FLAGSHIP_MASK_SHARE of them
+FLAGSHIP_MASK_SHARE = 0.01
+# nearest flips only where a position lies within this of a half-pixel tie
+FLAGSHIP_TIE = 0.005
+
+
+def aligned_vertical_bound(src, st):
+    """K14 reads the source, the coarse field, the shifts and the bases
+    once and writes v; per output and tap a weight (4 operations) and a
+    fused multiply-add (2); 13 operations a position (the field's
+    interpolation and the shift)."""
+    batch, _, src_w = src.shape
+    outs = batch * st.out_h * src_w
+    n_bytes = 4 * (src.numel() + st.iystar_c.numel() + st.s_v.numel() + st.base_v.numel()
+                   + outs)
+    return bound(n_bytes, outs * st.d_v * 6 + 13 * st.out_h * src_w)
+
+
+def aligned_horizontal_bound(v, st):
+    """K15 reads v, two coarse fields, the shifts and the bases once and
+    writes the output; per output and tap 6 operations; 40 operations of
+    geometry a pixel (two fields interpolated, the shift, the validity
+    test)."""
+    batch = v.shape[0]
+    outs = batch * st.out_h * st.out_w
+    n_bytes = 4 * (v.numel() + 2 * st.ix_c.numel() + st.s_h.numel() + st.base_h.numel() + outs)
+    return bound(n_bytes, outs * st.d_h * 6 + 40 * st.out_h * st.out_w)
+
+
+def flagship_phase(dev, tag, h, cell=FLAGSHIP):
+    """Drive the flagship cell on *dev*: ``resample_in_space`` of the
+    2048^2 flagship (K4's downscale form or K4, then K14 and K15; bilinear
+    and nearest, 1 band and 4 bands: first call, warm calls, the launches
+    counted, no K1 or K2), each output held to the aligned SRW's plain
+    version on the coarse image bit for bit; K14 and K15 held to their
+    plain versions bit for bit there, with NaN and +-inf rows and columns
+    and a numeric fill, and on a plan whose taps pass all four source
+    edges; the aligned output against the tiled SRW (K1 + K2) on the same
+    geometry within F1's bounds; K14 and K15 timed with their bounds beside
+    K1 + K2 on the tiled plan and K3 on the same geometry; the 512^2
+    flagship once, its aligned pick seen by a spy on make_srw_aligned_fn.  *h*
+    carries :func:`main`'s helpers, whose ``run_main`` counts the main
+    path's launches.  Returns (max abs errors, timings, bounds, the
+    variants' times)."""
+    import torch
+
+    from xcube_resampling_tpu_torch import GridMapping
+    from xcube_resampling_tpu_torch import reproject as port_reproject
+    from xcube_resampling_tpu_torch._device import LAUNCHES
+    from xcube_resampling_tpu_torch.entry import flagship_gms
+    from xcube_resampling_tpu_torch.ops import srw as port_srw
+    from xcube_resampling_tpu_torch.ops.reproject_ops import (
+        fused_reproject,
+        interp_field,
+        make_fused_reproject_fn,
+    )
+    from xcube_resampling_tpu_torch.ops.srw_aligned import (
+        srw_aligned_horizontal,
+        srw_aligned_horizontal_plain,
+        srw_aligned_vertical,
+        srw_aligned_vertical_plain,
+    )
+    from xcube_resampling_tpu_torch.ops.srw_kernels import srw_horizontal, srw_vertical
+    from xcube_resampling_tpu_torch.reproject import device_reproject_fn
+
+    nan = float("nan")
+    err = dict.fromkeys(FLAGSHIP_KERNELS, 0.0)
+    timings, bounds, variants = {}, {}, {}
+    size, bands = cell["size"], cell["bands"]
+    src_gm, tgt = flagship_gms(size, size)
+    mpix = tgt.height * tgt.width / 1e6
+    where = f"flagship {size}^2 UTM32N 100 m -> EPSG:3035 110 m"
+    rng = np.random.default_rng(16)
+    x1 = torch.from_numpy(rng.random((size, size), dtype=np.float32)).to(dev)
+    x4 = torch.from_numpy(rng.random((bands, size, size), dtype=np.float32)).to(dev)
+    downscale = ("affine_gather_reduce", "affine_gather", "coarsen_reduce")
+    once = dict.fromkeys(FLAGSHIP_KERNELS, 1)
+
+    def exact(got, ref, name, what):
+        err[name] = max(err[name], h.compare(got, ref, "exact", f"{what}: {name} vs plain",
+                                             signs=True))
+
+    def run(ds, interp, target=tgt):
+        """One counted main-path call, the coarse image kept by a spy on the
+        engine's affine call."""
+        seen = []
+        engine_affine = port_reproject.affine_transform_dataset
+
+        def spy(*args, **kwargs):
+            out = engine_affine(*args, **kwargs)
+            seen.append(out)
+            return out
+
+        port_reproject.affine_transform_dataset = spy
+        try:
+            out, dt = h.run_main(ds, target, interp, FLAGSHIP_KERNELS, exact=once,
+                                 allow=downscale)
+        finally:
+            port_reproject.affine_transform_dataset = engine_affine
+        if LAUNCHES["srw_vertical"] or LAUNCHES["srw_horizontal"]:
+            raise AssertionError(f"the flagship launched K1 or K2: {dict(LAUNCHES)}")
+        coarse_ds = seen[0]
+        return out, dt, coarse_ds["v"].data, GridMapping.from_dataset(coarse_ds)
+
+    states = {}
+    for interp in ("bilinear", "nearest"):
+        ds1 = h.dataset(src_gm, v=x1)
+        out, first, coarse, coarse_gm = run(ds1, interp)
+        share = h.check_output(out["v"].data, (tgt.height, tgt.width))
+        fn = device_reproject_fn(coarse_gm, tgt, interp, nan, dev)
+        if not isinstance(fn, port_srw.AlignedSRWFn) or fn.kind != "aligned":
+            raise AssertionError(f"the flagship ran {type(fn).__name__}, not the aligned SRW")
+        st = fn.state
+        exact(out["v"].data, fn.plain(coarse), "srw_aligned_horizontal",
+              f"the flagship, {interp}, 1 band, end to end")
+        _, warm = h.warm_calls(ds1, tgt, interp, FLAGSHIP_KERNELS, 5, exact=once,
+                               allow=downscale)
+        ds4 = h.dataset(src_gm, v=x4)
+        out4, first4, coarse4, _ = run(ds4, interp)
+        h.check_output(out4["v"].data, (bands, tgt.height, tgt.width))
+        exact(out4["v"].data, fn.plain(coarse4), "srw_aligned_horizontal",
+              f"the flagship, {interp}, {bands} bands, end to end")
+        _, warm4 = h.warm_calls(ds4, tgt, interp, FLAGSHIP_KERNELS, 5, exact=once,
+                                allow=downscale)
+        print(f"{tag} resample_in_space {where} {interp} (pre-downscale to "
+              f"{tuple(coarse.shape)}, then K14 + K15; aligned plan d_v={st.d_v} d_h={st.d_h}, "
+              f"shifts up to {int(st.s_v.max())} rows and {int(st.s_h.max())} columns, window "
+              f"{fn.window}): first call {first:.3f} s (planning included), warm median of 5 "
+              f"{warm * 1e3:.3f} ms = {mpix / warm:.1f} Mpix/s; {bands} bands: first call "
+              f"{first4:.3f} s, warm median of 5 {warm4 * 1e3:.3f} ms = "
+              f"{bands * mpix / warm4:.1f} Mpix/s; finite share {share:.4f}; vs the plain "
+              f"versions on the coarse image: equal")
+        states[interp] = (fn, coarse, coarse4, coarse_gm)
+        del out, out4
+
+    # -- K14 and K15 against their plain versions ---------------------------
+    for interp, (fn, coarse, coarse4, coarse_gm) in states.items():
+        for data, what in ((coarse[None], "1 band"), (coarse4, f"{bands} bands")):
+            va = fn.vertical_args(fn.crop(data))
+            v = srw_aligned_vertical(*va)
+            exact(v, srw_aligned_vertical_plain(*va), "srw_aligned_vertical",
+                  f"the flagship's coarse image, {interp}, {what}")
+            ha = fn.horizontal_args(v)
+            exact(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
+                  "srw_aligned_horizontal", f"the flagship's coarse image, {interp}, {what}")
+        xe = coarse4.clone()
+        hh, ww = xe.shape[-2:]
+        xe[0, 0], xe[0, :, -1] = nan, float("inf")
+        xe[1, -1], xe[1, :, 0] = -float("inf"), nan
+        xe[2, hh // 2], xe[3, :, ww // 3] = float("inf"), nan
+        plan = port_srw.plan_srw_aligned(coarse_gm, tgt, max_taps=24)
+        for fill in (nan, -9999.0):
+            fn_f = port_srw.make_srw_aligned_fn(plan, interp, fill, dev)
+            va = fn_f.vertical_args(fn_f.crop(xe))
+            v = srw_aligned_vertical(*va)
+            exact(v, srw_aligned_vertical_plain(*va), "srw_aligned_vertical",
+                  f"NaN and +-inf rows and columns, fill {fill}, {interp}")
+            ha = fn_f.horizontal_args(v)
+            exact(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
+                  "srw_aligned_horizontal", f"NaN and +-inf rows and columns, fill {fill}, "
+                                            f"{interp}")
+    # a 96^2 UTM32N source under a 112^2 EPSG:3035 target that hangs over it
+    # on every side: the aligned plan's taps pass all four source edges
+    edge_src = GridMapping.regular(size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0,
+                                   crs="epsg:32632")
+    edge_tgt = GridMapping.regular(size=(112, 112), xy_min=(4318960, 3377708), xy_res=100,
+                                   crs="epsg:3035")
+    plan_e = port_srw.plan_srw_aligned(edge_src, edge_tgt, max_taps=24)
+    if not (plan_e.base_v.min() < 0 and plan_e.base_v.max() + plan_e.d_v > plan_e.src_h
+            and plan_e.base_h.min() < 0 and plan_e.base_h.max() + plan_e.d_h > plan_e.src_w):
+        raise AssertionError("the edge plan's taps do not pass every source edge")
+    xs = torch.from_numpy(np.random.default_rng(17).random((3, 96, 96), dtype=np.float32)).to(dev)
+    xs[0, 0], xs[0, :, -1], xs[1, -1], xs[1, :, 0] = nan, float("inf"), -float("inf"), nan
+    for interp in ("bilinear", "nearest"):
+        fn_e = port_srw.make_srw_aligned_fn(plan_e, interp, nan, dev)
+        va = fn_e.vertical_args(xs)
+        v = srw_aligned_vertical(*va)
+        exact(v, srw_aligned_vertical_plain(*va), "srw_aligned_vertical",
+              f"taps past every edge, {interp}")
+        ha = fn_e.horizontal_args(v)
+        exact(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
+              "srw_aligned_horizontal", f"taps past every edge, {interp}")
+    print(f"{tag} srw_aligned_vertical and srw_aligned_horizontal vs plain on the flagship's "
+          f"coarse image (1 and {bands} bands, bilinear and nearest), with NaN and +-inf rows "
+          f"and columns (fills NaN and -9999), and on a 96^2 UTM32N -> 112^2 EPSG:3035 plan "
+          f"whose taps pass all four source edges: equal (sign bits included)")
+
+    # -- F1: the aligned SRW against the tiled one (K1 + K2) -----------------
+    for interp, (fn, coarse, coarse4, coarse_gm) in states.items():
+        st = fn.state
+        if fn.window is not None:
+            raise AssertionError(f"the flagship's aligned SRW crops its source: {fn.window}")
+        tiled = port_srw.make_srw_fn(
+            port_srw.plan_srw(coarse_gm, tgt, fields=port_srw._coarse_geometry(coarse_gm, tgt, 16)),
+            interp, nan, dev)
+        a_out, t_out = fn(coarse), tiled(coarse)
+        mask_share = (torch.isnan(a_out) != torch.isnan(t_out)).float().mean().item()
+        if mask_share >= FLAGSHIP_MASK_SHARE:
+            raise AssertionError(f"F1 {interp}: NaN masks differ on {mask_share:.3g}")
+        # values on the coarse image without its NaN: the same masks
+        clean = torch.nan_to_num(coarse, nan=0.5)
+        a_out, t_out = fn(clean), tiled(clean)
+        if not torch.equal(torch.isnan(a_out), torch.isnan(t_out)):
+            raise AssertionError(f"F1 {interp}: NaN masks differ on a NaN-free image")
+        both = ~torch.isnan(a_out)
+        d = (a_out - t_out)[both].abs()
+        rows = torch.arange(st.out_h, dtype=torch.float32, device=dev)[:, None]
+        if interp == "bilinear":
+            # the aligned passes round p - s (the position less its integer
+            # shift) in float32; that moves a weight pair by at most the
+            # rounding, and each pass's weights sum to 1 on data in [0, 1):
+            # the bound is the two passes' largest roundings and 4 ulp of
+            # the sums' order
+            p = interp_field(st.iystar_c, rows, torch.arange(
+                st.src_w, dtype=torch.float32, device=dev)[None, :], st.step)
+            q = interp_field(st.ix_c, rows, torch.arange(
+                st.out_w, dtype=torch.float32, device=dev)[None, :], st.step)
+            rv = ((p - st.s_v[None, :].float()).double()
+                  - (p.double() - st.s_v[None, :].double())).abs().max().item()
+            rh = ((q - st.s_h[:, None].float()).double()
+                  - (q.double() - st.s_h[:, None].double())).abs().max().item()
+            limit = rv + rh + 4 * 2.0**-24
+            if d.max().item() > limit:
+                raise AssertionError(f"F1 bilinear: max abs diff {d.max().item():.3g} above "
+                                     f"{limit:.3g}")
+            line = (f"max abs diff {d.max().item():.3g} ({d.max().item() / 2**-24:.1f} ulp at "
+                    f"[0.5, 1)), {int((d > 0).sum())} pixels differ, "
+                    f"{int((d > 4 * 2**-24).sum())} by more than 4 ulp; limit {limit:.3g} (the "
+                    f"shifted positions' rounding {rv:.3g} + {rh:.3g}, and 4 ulp)")
+        else:
+            rr, cc = torch.nonzero((a_out != t_out) & both, as_tuple=True)
+            q = interp_field(st.ix_c, rows, torch.arange(
+                st.out_w, dtype=torch.float32, device=dev)[None, :], st.step)[rr, cc]
+            tie = (q - torch.floor(q) - 0.5).abs()
+            p_all = interp_field(st.iystar_c, rows, torch.arange(
+                st.src_w, dtype=torch.float32, device=dev)[None, :], st.step)
+            sh = st.s_h[rr].float()
+            for col in (torch.round(q), torch.round(q - sh) + sh):
+                p = p_all[rr, col.clamp(0, st.src_w - 1).long()]
+                tie = torch.minimum(tie, (p - torch.floor(p) - 0.5).abs())
+            worst = tie.max().item() if len(rr) else 0.0
+            if worst > FLAGSHIP_TIE:
+                raise AssertionError(f"F1 nearest: a flip {worst:.3g} px from a half-pixel tie")
+            line = (f"{len(rr)} of {int(both.sum())} pixels differ, each within {worst:.3g} px "
+                    f"of a half-pixel tie (limit {FLAGSHIP_TIE})")
+        print(f"{tag} F1 at the flagship ({interp}): aligned (K14 + K15) vs tiled (K1 + K2, "
+              f"d_v={tiled.state.d_v} d_h={tiled.state.d_h}) on the coarse image: NaN masks "
+              f"differ on {mask_share:.4g} of the pixels; on it without NaN: {line}")
+        states[interp] = states[interp] + (tiled,)
+        del a_out, t_out, clean, d
+
+    # -- timings: K14 and K15 alone, beside K1 + K2 and K3 -------------------
+    fn, coarse, coarse4, coarse_gm, tiled = states["bilinear"]
+    st = fn.state
+    x = fn.crop(coarse[None])
+    va = fn.vertical_args(x)
+    v = srw_aligned_vertical(*va)
+    ha = fn.horizontal_args(v)
+    timings["srw_aligned_vertical"] = h.time_pair(lambda: srw_aligned_vertical(*va),
+                                                  lambda: srw_aligned_vertical_plain(*va))
+    timings["srw_aligned_horizontal"] = h.time_pair(lambda: srw_aligned_horizontal(*ha),
+                                                    lambda: srw_aligned_horizontal_plain(*ha))
+    bounds["srw_aligned_vertical"] = aligned_vertical_bound(x, st)
+    bounds["srw_aligned_horizontal"] = aligned_horizontal_bound(v, st)
+    x4c = fn.crop(coarse4)
+    va4 = fn.vertical_args(x4c)
+    v4 = srw_aligned_vertical(*va4)
+    ha4 = fn.horizontal_args(v4)
+    four = {"srw_aligned_vertical": (h.device_ms(lambda: srw_aligned_vertical(*va4)),
+                                     aligned_vertical_bound(x4c, st)[0]),
+            "srw_aligned_horizontal": (h.device_ms(lambda: srw_aligned_horizontal(*ha4)),
+                                       aligned_horizontal_bound(v4, st)[0])}
+    tv = tiled.vertical_args(tiled.crop(coarse[None]))
+    vt, _ = srw_vertical(*tv)
+    th = tiled.horizontal_args(vt)
+    k3 = make_fused_reproject_fn(coarse_gm, tgt, "bilinear", nan, dev)
+    k3_args = (coarse[None], k3.ix_c, k3.iy_c, k3.step, k3.out_h, k3.out_w, "bilinear", nan)
+    variants = {
+        "aligned_device_ms": h.device_ms(lambda: fn(coarse)),
+        "tiled_device_ms": h.device_ms(lambda: tiled(coarse)),
+        "k1_device_ms": h.device_ms(lambda: srw_vertical(*tv)),
+        "k2_device_ms": h.device_ms(lambda: srw_horizontal(*th)),
+        "k3_device_ms": h.device_ms(lambda: fused_reproject(*k3_args)),
+        "aligned_device_ms_4": h.device_ms(lambda: fn(coarse4)),
+        "tiled_device_ms_4": h.device_ms(lambda: tiled(coarse4)),
+        "k3_device_ms_4": h.device_ms(lambda: fused_reproject(coarse4, *k3_args[1:])),
+    }
+    for name in FLAGSHIP_KERNELS:
+        (k, p, kd), (b, by) = timings[name], bounds[name]
+        print(f"{tag} {name} at the {where}, bilinear (coarse image {tuple(x.shape[-2:])} -> "
+              f"{tgt.height}x{tgt.width}): kernel {k:.4f} ms (device {kd:.4f} ms), plain "
+              f"{p:.3f} ms, bound {b:.4f} ms ({by}); {bands} bands device {four[name][0]:.4f} ms, "
+              f"bound {four[name][1]:.4f} ms")
+    print(f"{tag} the flagship's SRW variants, bilinear, device ms (1 band; {bands} bands): "
+          f"aligned K14 + K15 {variants['aligned_device_ms']:.4f}; "
+          f"{variants['aligned_device_ms_4']:.4f}; tiled K1 + K2 {variants['tiled_device_ms']:.4f}"
+          f" (K1 {variants['k1_device_ms']:.4f}, K2 {variants['k2_device_ms']:.4f}); "
+          f"{variants['tiled_device_ms_4']:.4f}; K3 {variants['k3_device_ms']:.4f}; "
+          f"{variants['k3_device_ms_4']:.4f}")
+    variants.update({f"{name}_device_ms_4": four[name][0] for name in FLAGSHIP_KERNELS})
+    variants.update({f"{name}_bound_ms_4": four[name][1] for name in FLAGSHIP_KERNELS})
+
+    # -- the 512^2 flagship: the aligned pick, seen by a spy ----------------
+    small = cell["small"]
+    s_src, s_tgt = flagship_gms(small, small)
+    picks = []
+    make_aligned = port_srw.make_srw_aligned_fn
+
+    def spy_make_aligned(*args, **kwargs):
+        picks.append("aligned")
+        return make_aligned(*args, **kwargs)
+
+    port_srw.make_srw_aligned_fn = spy_make_aligned
+    port_reproject._DEVICE_FN_CACHE.clear()  # plan anew, through the spy
+    try:
+        xs = torch.from_numpy(np.random.default_rng(18).random((small, small),
+                                                               dtype=np.float32)).to(dev)
+        out, first, coarse_s, cgm_s = run(h.dataset(s_src, v=xs), "bilinear", s_tgt)
+    finally:
+        port_srw.make_srw_aligned_fn = make_aligned
+    fn_s = device_reproject_fn(cgm_s, s_tgt, "bilinear", nan, dev)
+    if picks != ["aligned"] or fn_s.kind != "aligned":
+        raise AssertionError(f"the 512^2 flagship: make_srw_aligned_fn calls {picks}, kind {fn_s.kind}")
+    exact(out["v"].data, fn_s.plain(coarse_s), "srw_aligned_horizontal",
+          "the 512^2 flagship, end to end")
+    print(f"{tag} resample_in_space flagship {small}^2 bilinear: make_srw_aligned_fn built once "
+          f"(kind {fn_s.kind}), first call {first:.3f} s; vs the plain versions: equal")
+    del states, x1, x4, coarse, coarse4, x, v, v4, vt, xs, out
+    torch.cuda.empty_cache()
+    return err, timings, bounds, variants
+
+
 # The sharded rectify: R1 (BASELINE #4's 1189 x 1890 swath onto its
 # 512-tiled grid, 16 float32 bands, nearest) and R3 (the 4865 x 4091
 # granule onto its 1024-tiled grid, 21 float32 bands, bilinear), each over a
@@ -1916,7 +2269,18 @@ def main() -> int:
         interp_field,
         make_fused_reproject_fn,
     )
-    from xcube_resampling_tpu_torch.ops.srw import SRWFn, make_srw_reproject_fn
+    from xcube_resampling_tpu_torch.ops.srw import (
+        SRWFn,
+        make_srw_fn,
+        make_srw_reproject_fn,
+        plan_srw,
+    )
+    from xcube_resampling_tpu_torch.ops.srw_aligned import (
+        srw_aligned_horizontal,
+        srw_aligned_horizontal_plain,
+        srw_aligned_vertical,
+        srw_aligned_vertical_plain,
+    )
     from xcube_resampling_tpu_torch.ops.srw_kernels import (
         plan_band_launch,
         srw_horizontal,
@@ -1966,7 +2330,8 @@ def main() -> int:
     for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel",
                     "fused_reproject_band_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
                     "seed_pass", "seed_walk", "hybrid_dense_kernel", "esw_gather_kernel",
-                    "esw_gather_band_kernel"):
+                    "esw_gather_band_kernel", "srw_aligned_vertical_kernel",
+                    "srw_aligned_horizontal_kernel"):
         for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
             print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
                   f"stack frame")
@@ -1977,12 +2342,14 @@ def main() -> int:
               f"{min(k[1] for k in cached)}-{max(k[1] for k in cached)} registers, "
               f"{max(k[2] for k in cached)} bytes spilled, "
               f"{max(k[3] for k in cached)} bytes of stack frame")
-    # K7's band form, K2, K11, K12, K3's band form, K13 and its band form
-    # and the downscale form's cached kernels: no spill, no local memory
+    # K7's band form, K2, K11, K12, K3's band form, K13 and its band form,
+    # K14, K15 and the downscale form's cached kernels: no spill, no local
+    # memory
     for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
                        ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
-                       ("esw_gather_band_kernel", 3),
+                       ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 2),
+                       ("srw_aligned_horizontal_kernel", 2),
                        ("affine_gather_reduce_cached", 7 * 8 * 8)):
         found = ptxas_kernels(build.log, pattern)
         if build.log and (len(found) != n or any(k[2] or k[3] for k in found)):
@@ -1996,6 +2363,7 @@ def main() -> int:
         "affine_gather": 0.0, "affine_gather_reduce": 0.0, "coarsen_reduce": 0.0,
         "coarsen_rank": 0.0, "ij_gather": 0.0, "rectify_phase_a": 0.0, "exact_gather": 0.0,
         "ij_bboxes": 0.0, "esw_gather": 0.0, "esw_gather_band": 0.0,
+        "srw_aligned_vertical": 0.0, "srw_aligned_horizontal": 0.0,
     }
     main_launches: Counter = Counter()
     rectify_launches: Counter = Counter()
@@ -2329,8 +2697,9 @@ def main() -> int:
     coarse_fn = device_reproject_fn(
         GridMapping.from_dataset(coarse_ds), laea120_gm, "bilinear", nan, dev
     )
-    if not isinstance(coarse_fn, SRWFn):
-        raise AssertionError(f"the coarse image ran {type(coarse_fn).__name__}, not the tiled SRW")
+    if not isinstance(coarse_fn, SRWFn) or coarse_fn.kind != "batched":
+        raise AssertionError(f"the coarse image ran {type(coarse_fn).__name__} "
+                             f"({getattr(coarse_fn, 'kind', None)}), not the batched SRW choice")
     d = compare(out["v"].data, coarse_fn.plain(coarse_ref), "bilinear",
                 "pre-downscaled reproject vs plain K4 -> K5 -> K1 -> K2")
     mpix = 5120 * 5120 / 1e6
@@ -2340,7 +2709,8 @@ def main() -> int:
         f"mean: clipped source {tuple(clipped.shape)} (strides {clipped.stride()}), "
         f"{j_div}x{i_div} windows, residual scales {residual[1][1]:.4f}, "
         f"{residual[0][0]:.4f}, inflated {inflated[0]}x{inflated[1]} (not written), "
-        f"coarse {coarse_gm.height}x{coarse_gm.width}; first call {first:.3f} s "
+        f"coarse {coarse_gm.height}x{coarse_gm.width}, the SRW's kind {coarse_fn.kind} (K1 + "
+        f"K2, JAX's cost model's pick); first call {first:.3f} s "
         f"(launches {first_counts}); warm median of 3 {w * 1e3:.2f} ms = "
         f"{mpix / w:.1f} Mpix/s; finite share {share:.4f}; coarse vs plain "
         f"{d_down}, output vs plain {d}; device memory of a call: peak "
@@ -2387,6 +2757,19 @@ def main() -> int:
     del out, seen, clip_ds, coarse_ds, clipped, coarse, coarse_ref, up, down_args, fused_args
     del coarse_fn, src, ds
     torch.cuda.empty_cache()
+
+    # -- 1c. the flagship: the aligned SRW (K14, K15) -------------------------
+    fl_err, fl_timings, fl_bounds, fl_variants = flagship_phase(
+        dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
+                                  device_ms=device_ms, run_main=run_main,
+                                  warm_calls=warm_calls, dataset=dataset,
+                                  check_output=check_output),
+    )
+    for name, e in fl_err.items():
+        err[name] = max(err[name], e)
+    timings.update(fl_timings)
+    bounds.update(fl_bounds)
+    library.update(dict.fromkeys(FLAGSHIP_KERNELS, (None, None)))
 
     # -- 2. EPSG:4326 0.05 deg -> UTM32N 4096^2 --------------------------------
     geo_gm = GridMapping.regular(
@@ -2698,12 +3081,34 @@ def main() -> int:
         crs="epsg:3035",
     )
     for interp in METHODS:
+        # the edge geometry's dispatch picks the aligned SRW for bilinear
+        # and nearest (cost 23 against 24): K1 and K2 run its tiled plan
         cases = (
             ("4326->UTM 2-band with NaN rows",
              device_reproject_fn(geo_gm_ds, utm4k_gm, interp, nan, dev), nan_stack),
             ("edge-clipping UTM32N->EPSG:3035 2-band",
-             make_srw_reproject_fn(edge_src, edge_tgt, interp, nan, dev), edge_data),
+             make_srw_fn(plan_srw(edge_src, edge_tgt), interp, nan, dev), edge_data),
         )
+        if interp != "triangular":
+            fa = make_srw_reproject_fn(edge_src, edge_tgt, interp, nan, dev)
+            if fa.kind != "aligned" or fa.window is not None:
+                raise AssertionError(f"edge-clipping {interp}: the dispatch ran {fa.kind}")
+            sta = fa.state
+            if not (sta.base_v.min().item() < 0
+                    and sta.base_v.max().item() + sta.d_v > sta.src_h):
+                raise AssertionError("edge-clipping: the aligned taps do not pass both edges")
+            va = fa.vertical_args(fa.crop(edge_data))
+            v = srw_aligned_vertical(*va)
+            d14 = compare(v, srw_aligned_vertical_plain(*va), "exact",
+                          f"K14 {interp} edge-clipping", signs=True)
+            ha = fa.horizontal_args(v)
+            d15 = compare(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
+                          "exact", f"K15 {interp} edge-clipping", signs=True)
+            err["srw_aligned_vertical"] = max(err["srw_aligned_vertical"], d14)
+            err["srw_aligned_horizontal"] = max(err["srw_aligned_horizontal"], d15)
+            print(f"{tag} kernels vs plain, edge-clipping UTM32N->EPSG:3035 2-band, aligned "
+                  f"plan, {interp}: K14 {d14}, K15 {d15}")
+            del fa, va, v, ha
         for what, fn, data in cases:
             if not isinstance(fn, SRWFn):
                 raise AssertionError(f"{what}: no tiled SRW plan")
@@ -3914,6 +4319,14 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/hybrid_phase_a.cu",
             "xcube_resampling_tpu/ops/rectify_ops.py:1887",
         ),
+        "srw_aligned_vertical": (
+            "xcube_resampling_tpu_torch/csrc/srw_aligned.cu",
+            "xcube_resampling_tpu/ops/srw.py:1086",
+        ),
+        "srw_aligned_horizontal": (
+            "xcube_resampling_tpu_torch/csrc/srw_aligned.cu",
+            "xcube_resampling_tpu/ops/srw.py:1120",
+        ),
     }
     kernels = [
         {
@@ -3933,7 +4346,7 @@ def main() -> int:
             # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 and its band
             # form F.grid_sample (R1, nearest), K3's band form F.grid_sample
             # (bilinear, band 1 past the gate); K8-K12 and K1's and K2's band
-            # forms: none
+            # forms, K14, K15: none
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],
@@ -3950,6 +4363,13 @@ def main() -> int:
     # the sharded rectify's kernels at R3 too (their entries above are R1's)
     for k in kernels:
         k.update(sr_r3.get(k["name"], {}))
+    # K14 and K15 at 4 bands, and the flagship's SRW variants beside them
+    for name in FLAGSHIP_KERNELS:
+        entry = next(k for k in kernels if k["name"] == name)
+        entry.update(device_ms_4=fl_variants[f"{name}_device_ms_4"],
+                     bound_ms_4=fl_variants[f"{name}_bound_ms_4"])
+    next(k for k in kernels if k["name"] == "srw_aligned_vertical").update(
+        {k: v for k, v in fl_variants.items() if not k.startswith("srw_aligned")})
     print(f"{tag} chip_smoke: {time.perf_counter() - t_start:.1f} s from its start, the "
           f"build included")
     print(card)

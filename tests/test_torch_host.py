@@ -157,6 +157,39 @@ def test_plan_srw_matches(geometry, tiles):
         assert getattr(got, name) == getattr(ref, name), name
 
 
+def _flagship_both(size):
+    import __graft_entry__
+
+    from xcube_resampling_tpu_torch.entry import flagship_gms
+
+    return __graft_entry__._flagship_gms(size, size), flagship_gms(size, size)
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES) + ["flagship-512", "flagship-2048"])
+@pytest.mark.parametrize("max_taps", [16, 24])
+def test_plan_srw_aligned_matches(geometry, max_taps):
+    """The copy of ``plan_srw_aligned`` (``srw.py:953-1046``) field by
+    field, on the test geometries and the flagship (where JAX's dispatch
+    takes the aligned plan), at its default tap limit and the dispatch's."""
+    if geometry.startswith("flagship"):
+        (js, jt), (ps, pt_) = _flagship_both(int(geometry.split("-")[1]))
+    else:
+        (js, jt), (ps, pt_) = _both(geometry)
+    ref = jx_srw.plan_srw_aligned(js, jt, max_taps=max_taps)
+    got = pt_srw.plan_srw_aligned(ps, pt_, max_taps=max_taps)
+    assert (got is None) == (ref is None)
+    if geometry.startswith("flagship"):
+        assert ref is not None
+    if ref is None:
+        return
+    for name in ("iystar_c", "ix_c", "iy_c", "s_v", "base_v", "s_h", "base_h"):
+        r, g = getattr(ref, name), getattr(got, name)
+        assert g.dtype == r.dtype, name
+        np.testing.assert_array_equal(g, r)
+    for name in ("step", "bits_v", "d_v", "bits_h", "d_h", "src_h", "src_w", "out_h", "out_w"):
+        assert getattr(got, name) == getattr(ref, name), name
+
+
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_coarse_coord_field_matches(geometry):
     (js, jt), (ps, pt_) = _both(geometry)

@@ -7,11 +7,10 @@ versions on CPU tensors.  Tolerance classes:
 * Phase A: the port's map (K8's plain version over the host tier's tile
   table) equals the JAX package's host tier (``rectify._inverse_ij_map``
   on the CPU) bit for bit, NaN coverage included;
-* tensor variables against ``jnp`` variables (the device Phase B): equal
-  NaN masks; nearest equal; bilinear and triangular equal where JAX takes
-  its tiled SRW (``make_srw_fn``) or its gather, and within 1e-6 of the
-  value where it takes the batched SRW (``make_srw_fn_batched``, whose tap
-  sums XLA fuses its own way);
+* tensor variables against ``jnp`` variables (the device Phase B): equal,
+  NaN masks included, whether JAX takes its tiled SRW (``make_srw_fn``),
+  its batched SRW (``make_srw_fn_batched``, the same function, which the
+  port runs on K1 and K2 too) or its gather;
 * numpy variables against numpy variables (the host Phase B): dtype kept,
   equal;
 * the reference goldens of ``tests/test_rectify.py``, numpy variables:
@@ -200,9 +199,9 @@ def _device_phase_b_case(monkeypatch, swath, interp):
 @pytest.mark.parametrize("interp", METHODS)
 def test_tensor_variables_match_jax_device_phase_b(monkeypatch, swath, interp):
     """Tensor variables against jnp variables (2D and a 2-band stack, NaN
-    taps): nearest equal; bilinear and triangular equal where JAX takes its
-    tiled SRW or gather, within 1e-6 of the value where it takes its batched
-    SRW.  The spies pin which of JAX's kernels each case exercises."""
+    taps): equal for every method, whether JAX takes its tiled SRW, its
+    batched SRW (which K1 and K2 compute bit for bit) or its gather.  The
+    spies pin which of JAX's kernels each case exercises."""
     ref, got, picked = _device_phase_b_case(monkeypatch, swath, interp)
     srw = interp != "nearest" and swath != "gather"
     expect = {"tiled": ["make_srw_fn"], "batched": ["make_srw_fn_batched"]}
@@ -214,10 +213,7 @@ def test_tensor_variables_match_jax_device_phase_b(monkeypatch, swath, interp):
         assert got[name].dims == ref[name].dims
         g = g.numpy()
         np.testing.assert_array_equal(np.isnan(g), np.isnan(r))
-        if swath == "batched" and srw:
-            np.testing.assert_allclose(g, r, rtol=1e-6, atol=0, equal_nan=True)
-        else:
-            np.testing.assert_array_equal(g, r)
+        np.testing.assert_array_equal(g, r)
         assert np.isfinite(r).mean() > 0.5
 
 
@@ -384,14 +380,10 @@ def _spy_srw(monkeypatch):
     return picked
 
 
-def _assert_phase_b(got, ref, batched):
-    """NaN coverage equal; values equal, or within rtol 1e-6 where JAX ran
-    its batched SRW."""
+def _assert_phase_b(got, ref):
+    """NaN coverage equal; values equal."""
     np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
-    if batched:
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0, equal_nan=True)
-    else:
-        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize(
@@ -428,11 +420,11 @@ def test_resident_phase_b_matches_jax(monkeypatch, swath, interp):
     """rectify_dataset under XRTPU_PHASEA=device on CPU tensors (2D and a
     2-band stack, NaN taps) against JAX's resident Phase B
     (make_device_var_image_fn_resident over its DeviceIJMap, built on the
-    JAX host tier's map, which the port's map equals): nearest equal;
-    bilinear and triangular equal where JAX takes make_srw_fn, within rtol
-    1e-6 where it takes make_srw_fn_batched (the port runs its tiled SRW
-    there); NaN coverage equal.  The lattice gate takes the SRW interior on
-    all three swaths; the port never plans from the whole map."""
+    JAX host tier's map, which the port's map equals): equal for every
+    method, NaN coverage included, whether JAX takes make_srw_fn or
+    make_srw_fn_batched (the same function; the port runs K1 and K2 for
+    both).  The lattice gate takes the SRW interior on all three swaths;
+    the port never plans from the whole map."""
     width, height, tile_size = SWATHS[swath]
     ds = _swath(width, height, tile_size)
     rad = np.asarray(ds.rad.data)
@@ -459,7 +451,7 @@ def test_resident_phase_b_matches_jax(monkeypatch, swath, interp):
         g = got[name].data
         assert isinstance(g, torch.Tensor) and g.dtype == torch.float32
         assert got[name].dims == ds[name].dims[:-2] + ("lat", "lon")
-        _assert_phase_b(g.numpy(), ref, picked[:1] == ["make_srw_fn_batched"])
+        _assert_phase_b(g.numpy(), ref)
         assert np.isfinite(ref).mean() > 0.5
 
 

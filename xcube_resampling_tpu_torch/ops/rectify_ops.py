@@ -82,7 +82,9 @@ _F64 = torch.float64
 # map's valid pixels eroded PHASE_B_STEP + 2 times (rectify_ops.py:2693),
 # or, over a resident map, within a square of that radius (:2600-2607).
 # Where JAX picks its batched or its tiled SRW (:2707-2718, :2612-2618),
-# the port runs the same two kernels, K1 and K2.
+# the port runs the same two kernels, K1 and K2: the batched SRW computes
+# the tiled one's function bit for bit, its tap loops batched over the
+# tiles only to keep XLA's compile small.
 PHASE_B_STEP = 16
 _NAN = float("nan")
 

@@ -267,12 +267,13 @@ def fused_reproject_band_plain(
 
 def require_int32_planes(src_h, src_w, out_h, out_w) -> None:
     """Raise ``ValueError`` where a source or target plane holds 2^31
-    elements or more: K3 indexes inside a plane with 32-bit offsets."""
+    elements or more: K3, K13, K14 and K15 index inside a plane with 32-bit
+    offsets."""
     for what, h, w in (("source", src_h, src_w), ("target", out_h, out_w)):
         if h * w >= MAX_PLANE:
             raise ValueError(
-                f"K3 takes planes of fewer than 2^31 elements: the {what} "
-                f"plane is {h} x {w}"
+                f"the kernel takes planes of fewer than 2^31 elements: the "
+                f"{what} plane is {h} x {w}"
             )
 
 

@@ -1,22 +1,35 @@
-"""The tiled separable-residual warp (SRW) tier on PyTorch tensors.
+"""The separable-residual warp (SRW) tier on PyTorch tensors.
 
-Port of ``xcube_resampling_tpu/ops/srw.py``: ``make_srw_fn`` (:570-753) and
-the tiled branch of ``make_srw_reproject_fn`` (:1550-1685).  The numpy
-planners are copies of the JAX package's (``_Fields`` to
-``_fields_interp_err``, :48-204; ``_fill_lattice_rows`` and
-``fields_from_lattice``, :338-448; ``SRWPlan`` to ``plan_srw``, :450-567;
-``_source_window_gm``, :1693).  :func:`plan_to_device` carries an
-:class:`SRWPlan` onto the device with the staged windows of K1 and K2.
-Each call runs one launch of K1 (vertical pass, all column tiles) and one
-of K2 (horizontal pass, per-pixel geometry, triangular correction, fill
-select); both interpolate the coarse fields themselves, so no per-pixel
-tensor is kept per geometry.
+Port of ``xcube_resampling_tpu/ops/srw.py``: ``make_srw_fn`` (:570-753),
+``make_srw_aligned_fn`` (:1049-1163) and ``make_srw_reproject_fn``
+(:1550-1685) without the hybrid.  The numpy planners are copies of the JAX
+package's (``_Fields`` to ``_fields_interp_err``, :48-204;
+``_fill_lattice_rows`` and ``fields_from_lattice``, :338-448; ``SRWPlan``
+to ``plan_srw``, :450-567; ``SRWAlignedPlan`` and ``plan_srw_aligned``,
+:953-1046; ``_source_window_gm``, :1693).
 
-Where the JAX package's cost model would pick its aligned or hybrid
-strategy, this port takes the tiled plan whenever one exists: it passes
-the same gates and so holds the same two-pass contract.  The batched
-tiled formulation (``make_srw_fn_batched``) exists in JAX only to keep its
-compile small; here one kernel launch covers every tile either way.
+:func:`make_srw_reproject_fn` crops, gates and plans as the JAX package's
+does and picks its variant by the same cost model and tie-break: the tiled
+plan at ``d_v + d_h``, the aligned plan (bilinear and nearest, at most 24
+taps a pass) at ``bits_v + bits_h + d_v + d_h``, the first on a tie; a
+tiled pick becomes the batched one where its per-tile loops would emit
+more than 128 tap operations on fewer than 64 M source and target
+elements.  Every returned fn names its variant in ``kind``:
+
+* ``"tiled"`` and ``"batched"``: :class:`SRWFn`, one launch of K1
+  (vertical pass, all column tiles) and one of K2 (horizontal pass,
+  per-pixel geometry, triangular correction, fill select).
+  ``make_srw_fn_batched`` computes ``make_srw_fn``'s function bit for bit
+  (its tap loops run over a tile axis only to keep XLA's compile small),
+  so K1 and K2 serve both; :func:`plan_to_device` carries the plan onto
+  the device with their staged windows.
+* ``"aligned"``: :class:`AlignedSRWFn`, one launch of K14 and one of K15
+  (``ops/srw_aligned.py``), the aligned SRW's passes with their shifts
+  folded into the tap index (:func:`aligned_plan_to_device`).
+
+Each kernel interpolates the coarse fields itself, so no per-pixel tensor
+is kept per geometry.  The hybrid SRW runs only under
+``XRTPU_FAST_EXTREME_WARP=1``, which the reproject engine refuses.
 """
 
 from __future__ import annotations
@@ -29,6 +42,14 @@ import torch
 from ..crs import Transformer
 from ..gridmapping import GridMapping
 from .reproject_ops import METHODS, STEP, method_code
+from .srw_aligned import (
+    ALIGNED_METHODS,
+    MAX_TAPS,
+    srw_aligned_horizontal,
+    srw_aligned_horizontal_plain,
+    srw_aligned_vertical,
+    srw_aligned_vertical_plain,
+)
 from .srw_kernels import (
     Windows,
     plan_horizontal_windows,
@@ -536,6 +557,107 @@ def plan_srw(
     )
 
 
+# ---------------------------------------------------------------------------
+# aligned plan (severe warp)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SRWAlignedPlan:
+    """Aligned-strategy plan: integer shift vectors + per-row/col bases."""
+
+    iystar_c: np.ndarray
+    ix_c: np.ndarray
+    iy_c: np.ndarray
+    step: int
+    s_v: np.ndarray  # (src_w,) int32 per-source-column upward shift, >= 0
+    bits_v: int
+    base_v: np.ndarray  # (out_h,) int32 in shifted row space
+    d_v: int
+    s_h: np.ndarray  # (out_h,) int32 per-output-row left shift, >= 0
+    bits_h: int
+    base_h: np.ndarray  # (out_w,) int32 in shifted column space
+    d_h: int
+    src_h: int
+    src_w: int
+    out_h: int
+    out_w: int
+
+
+def plan_srw_aligned(
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    step: int = 16,
+    max_taps: int = 16,
+    fields: _Fields | None = None,
+) -> SRWAlignedPlan | None:
+    if fields is None:
+        fields = _coarse_geometry(source_gm, target_gm, step)
+    if fields is None:
+        return None
+    ix64, iy64, iystar = fields.ix64, fields.iy64, fields.iystar64
+    src_h, src_w = fields.src_h, fields.src_w
+    out_h, out_w = fields.out_h, fields.out_w
+    step = fields.step
+
+    # vertical alignment: shift each source column by the mid-row value of
+    # iy*; the residual then varies along columns only through curvature
+    mid = iystar.shape[0] // 2
+    cs = np.arange(iystar.shape[1], dtype=np.float64) * step
+    s_v_f = np.interp(np.arange(src_w, dtype=np.float64), cs, iystar[mid])
+    s_v0 = np.round(s_v_f).astype(np.int64)
+    s_v = s_v0 - s_v0.min()
+    bits_v = max(1, int(s_v.max()).bit_length())
+
+    # residual position field in shifted space, per output row
+    s_v0_coarse = s_v0[np.clip(cs.astype(np.int64), 0, src_w - 1)]
+    res_v = iystar - s_v0_coarse[None, :] + s_v0.min()  # == iystar - s_v(c)
+    res_rows = _interp_rows(res_v, out_h, step)
+    m = np.nanmin(res_rows, axis=1)
+    base_v = np.floor(m).astype(np.int32) - 1
+    d_v = int(np.ceil(np.nanmax(np.nanmax(res_rows, axis=1) - m))) + 4
+    if d_v > max_taps:
+        return None
+
+    # horizontal alignment: shift each output row by the mid-column ix
+    midc = ix64.shape[1] // 2
+    rows_grid = np.arange(ix64.shape[0], dtype=np.float64) * step
+    s_h_f = np.interp(np.arange(out_h, dtype=np.float64), rows_grid, ix64[:, midc])
+    s_h0 = np.round(s_h_f).astype(np.int64)
+    s_h = s_h0 - s_h0.min()
+    bits_h = max(1, int(s_h.max()).bit_length())
+
+    s_h0_coarse = s_h0[
+        np.clip((rows_grid).astype(np.int64), 0, out_h - 1)
+    ]
+    res_h = ix64 - s_h0_coarse[:, None] + s_h0.min()
+    res_cols = _interp_cols(res_h, out_w, step)
+    mh = np.nanmin(res_cols, axis=0)
+    base_h = np.floor(mh).astype(np.int32) - 1
+    d_h = int(np.ceil(np.nanmax(np.nanmax(res_cols, axis=0) - mh))) + 4
+    if d_h > max_taps:
+        return None
+
+    return SRWAlignedPlan(
+        iystar_c=iystar.astype(np.float32),
+        ix_c=ix64.astype(np.float32),
+        iy_c=iy64.astype(np.float32),
+        step=step,
+        s_v=s_v.astype(np.int32),
+        bits_v=bits_v,
+        base_v=base_v,
+        d_v=d_v,
+        s_h=s_h.astype(np.int32),
+        bits_h=bits_h,
+        base_h=base_h,
+        d_h=d_h,
+        src_h=src_h,
+        src_w=src_w,
+        out_h=out_h,
+        out_w=out_w,
+    )
+
+
 def _source_window_gm(source_gm: GridMapping, fields: _Fields, margin: int):
     """Crop the source to the rows/columns a region actually taps,
     returning (window_gm, (j0, j1, i0, i1)) or None for full coverage.
@@ -634,27 +756,22 @@ def plan_to_device(plan: SRWPlan, device) -> SRWState:
 class SRWFn:
     """``fn(src) -> target`` through K1 then K2; ``fn.plain(src)`` through
     their plain versions.  ``src`` is (..., H, W) float32 on the state's
-    device; ``window`` (j0, j1, i0, i1), when set, crops it first."""
+    device; ``window`` (j0, j1, i0, i1), when set, crops it first.
+    ``kind`` is the variant of the JAX package's dispatch it stands for:
+    ``"tiled"`` (``make_srw_fn``) or ``"batched"`` (``make_srw_fn_batched``,
+    the same function)."""
 
-    def __init__(self, state: SRWState, interp_method: str, fill_value):
+    def __init__(self, state: SRWState, interp_method: str, fill_value, kind="tiled"):
         method_code(interp_method)
         self.state = state
         self.interp_method = interp_method
         self.fill_value = float(fill_value)
         self.window = None
+        self.kind = kind
 
     def crop(self, src):
         """The (B, src_h, src_w) contiguous source the kernels read."""
-        if self.window is not None:
-            j0, j1, i0, i1 = self.window
-            src = src[..., j0:j1, i0:i1]
-        st = self.state
-        if tuple(src.shape[-2:]) != (st.src_h, st.src_w):
-            raise ValueError(
-                f"source window {tuple(src.shape[-2:])} is not the planned "
-                f"{(st.src_h, st.src_w)}"
-            )
-        return src.reshape(-1, st.src_h, st.src_w).contiguous()
+        return _crop(src, self.window, self.state)
 
     def vertical_args(self, src):
         """K1's arguments for the cropped (B, src_h, src_w) *src*."""
@@ -684,6 +801,20 @@ class SRWFn:
         return self._run(src, srw_vertical_plain, srw_horizontal_plain)
 
 
+def _crop(src, window, st):
+    """*src* cropped to *window* (None: as it is), checked against the
+    planned (st.src_h, st.src_w), as a contiguous (B, src_h, src_w)."""
+    if window is not None:
+        j0, j1, i0, i1 = window
+        src = src[..., j0:j1, i0:i1]
+    if tuple(src.shape[-2:]) != (st.src_h, st.src_w):
+        raise ValueError(
+            f"source window {tuple(src.shape[-2:])} is not the planned "
+            f"{(st.src_h, st.src_w)}"
+        )
+    return src.reshape(-1, st.src_h, st.src_w).contiguous()
+
+
 def make_srw_fn(
     plan: SRWPlan, interp_method: str = "bilinear", fill_value=np.nan,
     device="cuda",
@@ -692,10 +823,120 @@ def make_srw_fn(
     return SRWFn(plan_to_device(plan, device), interp_method, fill_value)
 
 
+@dataclass
+class AlignedSRWState:
+    """An :class:`SRWAlignedPlan` on the device: coarse fields (float32),
+    shifts and tap bases (int32), plus the plan's scalars."""
+
+    iystar_c: torch.Tensor  # (ncj, ncc)
+    ix_c: torch.Tensor  # (ncj, nci)
+    iy_c: torch.Tensor  # (ncj, nci)
+    s_v: torch.Tensor  # (src_w,)
+    base_v: torch.Tensor  # (out_h,)
+    s_h: torch.Tensor  # (out_h,)
+    base_h: torch.Tensor  # (out_w,)
+    d_v: int
+    d_h: int
+    step: int
+    src_h: int
+    src_w: int
+    out_h: int
+    out_w: int
+
+
+def aligned_plan_to_device(plan: SRWAlignedPlan, device) -> AlignedSRWState:
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return AlignedSRWState(
+        iystar_c=f32(plan.iystar_c),
+        ix_c=f32(plan.ix_c),
+        iy_c=f32(plan.iy_c),
+        s_v=i32(plan.s_v),
+        base_v=i32(plan.base_v),
+        s_h=i32(plan.s_h),
+        base_h=i32(plan.base_h),
+        d_v=int(plan.d_v),
+        d_h=int(plan.d_h),
+        step=int(plan.step),
+        src_h=int(plan.src_h),
+        src_w=int(plan.src_w),
+        out_h=int(plan.out_h),
+        out_w=int(plan.out_w),
+    )
+
+
+class AlignedSRWFn:
+    """``fn(src) -> target`` through K14 then K15; ``fn.plain(src)``
+    through their plain versions.  ``src`` is (..., H, W) float32 on the
+    state's device; ``window`` (j0, j1, i0, i1), when set, crops it
+    first.  ``kind`` is ``"aligned"`` (``make_srw_aligned_fn``)."""
+
+    kind = "aligned"
+
+    def __init__(self, state: AlignedSRWState, interp_method: str, fill_value):
+        if interp_method not in ALIGNED_METHODS:
+            raise ValueError("SRW supports 'bilinear' and 'nearest' only")
+        self.state = state
+        self.interp_method = interp_method
+        self.fill_value = float(fill_value)
+        self.window = None
+
+    def crop(self, src):
+        """The (B, src_h, src_w) contiguous source the kernels read."""
+        return _crop(src, self.window, self.state)
+
+    def vertical_args(self, src):
+        """K14's arguments for the cropped (B, src_h, src_w) *src*."""
+        st = self.state
+        return src, st.iystar_c, st.step, st.s_v, st.base_v, st.d_v, self.interp_method
+
+    def horizontal_args(self, v):
+        """K15's arguments for K14's output *v*."""
+        st = self.state
+        return (
+            v, st.ix_c, st.iy_c, st.step, st.s_h, st.base_h, st.d_h, st.src_h,
+            self.interp_method, self.fill_value,
+        )
+
+    def _run(self, src, vertical, horizontal):
+        v = vertical(*self.vertical_args(self.crop(src)))
+        out = horizontal(*self.horizontal_args(v))
+        return out.reshape(src.shape[:-2] + out.shape[-2:])
+
+    def __call__(self, src):
+        return self._run(src, srw_aligned_vertical, srw_aligned_horizontal)
+
+    def plain(self, src):
+        return self._run(src, srw_aligned_vertical_plain, srw_aligned_horizontal_plain)
+
+
+def make_srw_aligned_fn(
+    plan: SRWAlignedPlan, interp_method: str = "bilinear", fill_value=np.nan,
+    device="cuda",
+) -> AlignedSRWFn:
+    """The aligned SRW reprojection of *plan* with its statics on *device*;
+    bilinear and nearest only (``srw.py:1056-1057``)."""
+    if interp_method not in ALIGNED_METHODS:
+        raise ValueError("SRW supports 'bilinear' and 'nearest' only")
+    return AlignedSRWFn(aligned_plan_to_device(plan, device), interp_method, fill_value)
+
+
 # The curvature gate's limit on the estimated position interpolation
 # error, in source pixels: the default of the JAX package's
 # make_srw_reproject_fn (srw.py:1557).
 POS_TOL = 0.5
+
+
+# The batched formulation's thresholds (srw.py:1676-1680): JAX takes it
+# where the tiled plan's per-tile loops would emit more than BATCHED_OPS
+# operations and the source and target hold fewer than BATCHED_ELEMS
+# elements together.
+BATCHED_OPS = 128
+BATCHED_ELEMS = 64_000_000
 
 
 def make_srw_reproject_fn(
@@ -704,9 +945,12 @@ def make_srw_reproject_fn(
     interp_method: str = "bilinear",
     fill_value=np.nan,
     device="cuda",
-) -> SRWFn | None:
-    """Crop, gate and plan the tiled SRW tier, or None where the JAX
-    package's gates refuse it (callers then use K3)."""
+    **plan_kwargs,
+) -> SRWFn | AlignedSRWFn | None:
+    """Crop, gate, plan and pick the SRW variant as the JAX package's
+    ``make_srw_reproject_fn`` does (:1550-1685, without the hybrid), or
+    None where its gates refuse every plan (callers then try the ESW).
+    *plan_kwargs* go to :func:`plan_srw` only, as there."""
     if interp_method not in METHODS:
         return None
     fields = _coarse_geometry(source_gm, target_gm, STEP)
@@ -717,7 +961,7 @@ def make_srw_reproject_fn(
     if w is not None:
         win_gm, (j0, j1, i0, i1) = w
         inner = make_srw_reproject_fn(
-            win_gm, target_gm, interp_method, fill_value, device
+            win_gm, target_gm, interp_method, fill_value, device, **plan_kwargs
         )
         if inner is not None:
             if inner.window is None:
@@ -731,7 +975,28 @@ def make_srw_reproject_fn(
         return None
     if _twopass_slope(fields) > 0.2:
         return None
-    plan = plan_srw(source_gm, target_gm, step=STEP, fields=fields)
-    if plan is None:
+    tiled = plan_srw(source_gm, target_gm, step=STEP, fields=fields, **plan_kwargs)
+    aligned = (
+        plan_srw_aligned(source_gm, target_gm, step=STEP, fields=fields, max_taps=MAX_TAPS)
+        if interp_method in ALIGNED_METHODS
+        else None
+    )
+    # the cost model (srw.py:1645-1668): a full-array stream per tap and
+    # per shift pass; min keeps the first candidate on a tie, the tiled one
+    candidates = []
+    if tiled is not None:
+        candidates.append((tiled.d_v + tiled.d_h, "tiled", tiled))
+    if aligned is not None:
+        cost = aligned.bits_v + aligned.bits_h + aligned.d_v + aligned.d_h
+        candidates.append((cost, "aligned", aligned))
+    if not candidates:
         return None
-    return make_srw_fn(plan, interp_method, fill_value, device)
+    _, kind, best = min(candidates, key=lambda c: c[0])
+    if kind == "aligned":
+        return make_srw_aligned_fn(best, interp_method, fill_value, device)
+    n_ops = best.base_v.shape[1] * best.d_v + best.base_h.shape[0] * best.d_h
+    n_elems = best.src_h * best.src_w + best.out_h * best.out_w
+    fn = make_srw_fn(best, interp_method, fill_value, device)
+    if n_ops > BATCHED_OPS and n_elems < BATCHED_ELEMS:
+        fn.kind = "batched"
+    return fn
