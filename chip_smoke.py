@@ -7,12 +7,12 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
    printing each source's registers and spills (ptxas ``-v``) and those
-   of every instantiation of K1-K3, K13-K15, K2's, K3's, K7's and K13's
+   of every instantiation of K1-K3, K13-K16, K2's, K3's, K7's and K13's
    band forms, K7's map and list forms, K11's two kernels and K12 (and a
    summary of the downscale form's cached kernels), and fails if K6's
    register kernels, K2's, K3's or K7's band form, K11, K12, K13 or its
-   band form, K14, K15 or the downscale form's cached kernels spill or use
-   local memory;
+   band form, K14, K15, K16 or the downscale form's cached kernels spill
+   or use local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
    same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
@@ -32,8 +32,13 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
    geometry (the exact separable warp, K13), the global EPSG:4326 0.05 deg
    -> EPSG:3035 4096^2 reproject (BASELINE #3, a singular warp whose
-   default tier is K3) with nearest and bilinear, first call (and the
-   ESW planner's refusal in it) and warm calls, the ESW cell (:func:`esw_phase`: the same source onto EPSG:3035
+   default tier is the exact region mosaic: K16, one launch a call over
+   its ESW and gather pieces) with nearest and bilinear, first call (the
+   ESW planner's refusal and the mosaic's host planning re-run apart
+   after it), warm calls and the piece counts, K16 held to its plain
+   version bit for bit (triangular too) and to K3 (nearest equal,
+   bilinear within 2 ulp), and once more under
+   ``XRTPU_NO_EXACT_MOSAIC=1`` (K3), the ESW cell (:func:`esw_phase`: the same source onto EPSG:3035
    4096^2 at 937.5 m from (2.5e6, 1.4e6), past the two-pass gate, whose
    default tier is the ESW: 1 band for every method and 4 bands, first
    call, warm calls, peak device memory, ``plan_esw``'s host time; and
@@ -105,7 +110,8 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    report) and does not synchronise (sync debug mode "error"), the
    resident Phase B at R3's; times each kernel and its plain version at
    the main path's shapes beside one PyTorch call where one computes the
-   same function (K3, K13 and their band forms ``F.grid_sample``, K13 and
+   same function (K3, K13, K16 and the band forms of K3 and K13
+   ``F.grid_sample``, K13 and
    its band form also beside K3 and K3's band form on the ESW cell, K4 a
    copy at
    BASELINE #2's ``c``
@@ -118,8 +124,9 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    and the host's enqueue of the call) and warm calls queued behind a
    sleep on the card (``device_ms``: device time alone); and computes each
    kernel's bound (bytes at 3.35 TB/s, or operations at 67 TFLOP/s
-   float32 and 34 TFLOP/s float64, the H100 SXM data sheet's peaks), K3's
-   and K13's from the source pixels their taps reach, counted on the card, the
+   float32 and 34 TFLOP/s float64, the H100 SXM data sheet's peaks), K3's,
+   K13's and K16's (its pieces', one mask over the source) from the source
+   pixels their taps reach, counted on the card, the
    downscale form's from the source sectors its taps reach, K8's from the
    quads of its windows and the candidate pixels of their rectangles,
    counted on the card, K1's band form's from the rows of its band its
@@ -212,9 +219,11 @@ import numpy as np
 # plain version emulates them in float64 (one ulp off in rare cases):
 # "f64", 2.3e-16 of the value.  K8 (float64, one rounding per operation in
 # both) and K9 (float64, then one rounding to the dtype) are "exact", as is
-# K10 (float64 comparisons, integer min and max).
+# K10 (float64 comparisons, integer min and max).  "esw" is the ESW's and
+# the exact region mosaic's contract against the direct gather (K3): 2
+# float32 ulp at unit scale (they lerp vertically first, K3 horizontally).
 TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5, "exact": 0.0, "stat": 0.0,
-       "f64": 0.0}
+       "f64": 0.0, "esw": 2 * 2.0**-24}
 REL_TOL = {"stat": 2.5e-7, "f64": 2.3e-16}
 METHODS = ("bilinear", "nearest", "triangular")
 # H100 SXM data-sheet peaks: HBM3 bytes/s, float32 and float64 (non-tensor)
@@ -373,15 +382,16 @@ def vertical_band_bound(ext, iystar_c, base_v, col_tile, d_v, src_h, off, tri):
     return bound(n_bytes, n_ops)
 
 
-def tapped_pixels(ix, iy, valid, h, w, interp) -> int:
+def tapped_pixels(ix, iy, valid, h, w, interp, into=None) -> int:
     """The pixels of an *h* x *w* source plane that a gather's taps at the
     *valid* positions (ix, iy) reach, positions clamped as gather_interp
-    clamps them; counted with a mask on the positions' device."""
+    clamps them; counted with a mask on the positions' device (or marked
+    in the flat mask *into*, and its count returned)."""
     import torch
 
     x = ix[valid].clamp(0, w - 1)
     y = iy[valid].clamp(0, h - 1)
-    tapped = torch.zeros(h * w, dtype=torch.bool, device=ix.device)
+    tapped = torch.zeros(h * w, dtype=torch.bool, device=ix.device) if into is None else into
     if interp == "nearest":
         tapped[torch.round(y).long() * w + torch.round(x).long()] = True
     else:
@@ -451,6 +461,51 @@ def esw_bound(args, band: bool = False):
     n_out = batch * valid.numel()
     fields = sum(t.numel() for t in args[1:4])
     return bound(4 * (n_out + batch * int(tapped.sum()) + fields), 50 * n_out)
+
+
+def mosaic_bound(fn, interp):
+    """K16 (an ``ESWMosaicFn``'s launch on one band) must read the piece
+    table, the packed coarse fields and the source pixels that the taps of
+    its pieces' valid pixels reach (an ESW piece's as its plain version
+    selects them, as :func:`esw_bound` counts K13's; a gather piece's by
+    :func:`tapped_pixels`; one mask over the whole source, so a pixel two
+    pieces tap counts once), and write its pieces' pixels; about 50
+    operations an ESW pixel and 30 a gather pixel, as K13's and K3's bounds
+    count.  Returns (ms, basis, source pixels tapped)."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops import esw_mosaic as mos
+    from xcube_resampling_tpu_torch.ops.esw import esw_taps
+    from xcube_resampling_tpu_torch.ops.reproject_ops import interp_field
+
+    h, w = fn.src_h, fn.src_w
+    dev = fn.fields.device
+    tapped = torch.zeros(h * w, dtype=torch.bool, device=dev)
+    n_out = n_ops = 0
+    for row in fn.table.tolist():
+        ix_c, iy_c, ys = mos._piece_fields(fn.fields, row)
+        ph, pw, j0, i0 = row[mos.H], row[mos.W], row[mos.J_OFF], row[mos.I_OFF]
+        n_out += ph * pw
+        if row[mos.KIND] == mos.ESW:
+            n_ops += 50 * ph * pw
+            valid, _, _, columns = esw_taps(
+                (row[mos.WH], row[mos.WW]), ys, ix_c, iy_c, fn.step, row[mos.SAMPLES], interp,
+                0, ph, pw, h, w, j0, i0, row[mos.WH], 0,
+            )
+            for ra, rb, c in columns:
+                for r in (ra,) if interp == "nearest" else (ra, rb):
+                    tapped[((r + j0) * w + c + i0)[valid]] = True
+        else:
+            n_ops += 30 * ph * pw
+            rows = torch.arange(ph, dtype=torch.float32, device=dev)[:, None]
+            cols = torch.arange(pw, dtype=torch.float32, device=dev)[None, :]
+            ix = interp_field(ix_c, rows, cols, fn.step)
+            iy = interp_field(iy_c, rows, cols, fn.step)
+            valid = (ix > -0.5) & (ix < w - 0.5) & (iy > -0.5) & (iy < h - 0.5)
+            tapped_pixels(ix, iy, valid, h, w, interp, into=tapped)
+    n_tapped = int(tapped.sum())
+    n_in = fn.fields.numel() + fn.table.numel() + fn.tile_start.numel()
+    return bound(4 * (n_out + n_tapped + n_in), n_ops) + (n_tapped,)
 
 
 def gather_band_bound(ext, m, interp, fill, off, src_h):
@@ -2247,6 +2302,12 @@ def main() -> int:
     from xcube_resampling_tpu_torch._device import LAUNCHES
     from xcube_resampling_tpu_torch.affine import _scale_split
     from xcube_resampling_tpu_torch.ops.esw import ESWReprojectFn, make_esw_reproject_fn
+    from xcube_resampling_tpu_torch.ops.esw_mosaic import (
+        ESWMosaicFn,
+        esw_mosaic,
+        esw_mosaic_plain,
+        plan_esw_region,
+    )
     from xcube_resampling_tpu_torch.ops.coarsen_ops import (
         REDUCERS,
         coarsen,
@@ -2331,7 +2392,7 @@ def main() -> int:
                     "fused_reproject_band_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
                     "seed_pass", "seed_walk", "hybrid_dense_kernel", "esw_gather_kernel",
                     "esw_gather_band_kernel", "srw_aligned_vertical_kernel",
-                    "srw_aligned_horizontal_kernel"):
+                    "srw_aligned_horizontal_kernel", "esw_mosaic_kernel"):
         for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
             print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
                   f"stack frame")
@@ -2343,13 +2404,13 @@ def main() -> int:
               f"{max(k[2] for k in cached)} bytes spilled, "
               f"{max(k[3] for k in cached)} bytes of stack frame")
     # K7's band form, K2, K11, K12, K3's band form, K13 and its band form,
-    # K14, K15 and the downscale form's cached kernels: no spill, no local
-    # memory
+    # K14, K15, K16 and the downscale form's cached kernels: no spill, no
+    # local memory
     for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
                        ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
                        ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 2),
-                       ("srw_aligned_horizontal_kernel", 2),
+                       ("srw_aligned_horizontal_kernel", 2), ("esw_mosaic_kernel", 3),
                        ("affine_gather_reduce_cached", 7 * 8 * 8)):
         found = ptxas_kernels(build.log, pattern)
         if build.log and (len(found) != n or any(k[2] or k[3] for k in found)):
@@ -2363,7 +2424,7 @@ def main() -> int:
         "affine_gather": 0.0, "affine_gather_reduce": 0.0, "coarsen_reduce": 0.0,
         "coarsen_rank": 0.0, "ij_gather": 0.0, "rectify_phase_a": 0.0, "exact_gather": 0.0,
         "ij_bboxes": 0.0, "esw_gather": 0.0, "esw_gather_band": 0.0,
-        "srw_aligned_vertical": 0.0, "srw_aligned_horizontal": 0.0,
+        "srw_aligned_vertical": 0.0, "srw_aligned_horizontal": 0.0, "esw_mosaic": 0.0,
     }
     main_launches: Counter = Counter()
     rectify_launches: Counter = Counter()
@@ -2843,46 +2904,107 @@ def main() -> int:
 
     # -- 3b. BASELINE #3: global 0.05 deg EPSG:4326 -> EPSG:3035 4096^2 -------
     # a singular warp (the target reaches 87.6 N): the default dispatch
-    # refuses the tiled SRW plan and runs K3, with no XRTPU_EXACT
+    # refuses the SRW and ESW plans and runs the exact region mosaic (K16,
+    # one launch a call); under XRTPU_NO_EXACT_MOSAIC=1 it runs K3
     laea4k_gm = GridMapping.regular(
         size=(4096, 4096), xy_min=(2000000.0, 1000000.0), xy_res=1500.0,
         crs="epsg:3035",
     )
+    mpix = 4096 * 4096 / 1e6
+    once16 = {"esw_mosaic": 1}
     for interp in ("nearest", "bilinear"):
-        out, first = run_main(ds1, laea4k_gm, interp, ("fused_reproject",))
+        out, first = run_main(ds1, laea4k_gm, interp, ("esw_mosaic",), exact=once16)
         share = check_output(out["v"].data, (4096, 4096))
-        warm = []
-        for _ in range(5):
-            out, dt = run_main(ds1, laea4k_gm, interp, ("fused_reproject",))
-            warm.append(dt)
-        w = statistics.median(warm)
+        out, w = warm_calls(ds1, laea4k_gm, interp, ("esw_mosaic",), 5, exact=once16)
         fn = device_reproject_fn(geo_gm_ds, laea4k_gm, interp, nan, dev)
-        if not isinstance(fn, FusedReprojectFn):
-            raise AssertionError(f"BASELINE #3 ran {type(fn).__name__}, not K3")
-        d = compare(out["v"].data, fn.plain(geo), interp, f"BASELINE #3 {interp} vs plain K3")
-        err["fused_reproject"] = max(err["fused_reproject"], d)
-        # the first call tried the ESW tier before K3: its planner's refusal
+        if not isinstance(fn, ESWMosaicFn):
+            raise AssertionError(f"BASELINE #3 ran {type(fn).__name__}, not the mosaic")
+        d = compare(out["v"].data, fn.plain(geo), "exact", f"BASELINE #3 {interp} vs plain K16")
+        err["esw_mosaic"] = max(err["esw_mosaic"], d)
+        # the host's planning, re-run alone after the first call: the ESW
+        # planner's refusal, then the mosaic's planning (the quadtree, the
+        # groups' replans)
         t0 = time.perf_counter()
         if make_esw_reproject_fn(geo_gm_ds, laea4k_gm, interp, nan, device=dev) is not None:
             raise AssertionError("plan_esw admits BASELINE #3")
         refusal = time.perf_counter() - t0
-        mpix = 4096 * 4096 / 1e6
+        t0 = time.perf_counter()
+        plan16 = plan_esw_region(geo_gm_ds, laea4k_gm)
+        planning = time.perf_counter() - t0
+        kinds = Counter(p[0] for p in fn.pieces)
+        tags = Counter(t[0] for t in fn.groups)
         print(
             f"{tag} resample_in_space BASELINE #3 4326 0.05 deg->EPSG:3035 4096^2 "
-            f"{interp} (K3, no XRTPU_EXACT): first call {first:.3f} s = "
-            f"{mpix / first:.1f} Mpix/s (planning included; the ESW planner's refusal alone "
-            f"{refusal:.3f} s); warm median of 5 "
-            f"{w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s; finite share {share:.4f}; "
-            f"vs plain max abs diff {d}"
+            f"{interp} (the exact region mosaic, K16, no switch set): first call "
+            f"{first:.3f} s = {mpix / first:.1f} Mpix/s (planning included); warm median "
+            f"of 5 {w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s; finite share {share:.4f}; vs "
+            f"plain max abs diff {d}"
         )
-        (k, p, kd), (lib, lib_d), (b, by, n_tapped) = time_k3(fn, geo, interp)
+        print(
+            f"{tag} BASELINE #3 {interp}: the host's planning re-run alone after the first "
+            f"call: the mosaic's {planning:.3f} s, the ESW planner's refusal {refusal:.3f} s"
+        )
+        print(
+            f"{tag} BASELINE #3 mosaic: {kinds['esw']} ESW pieces and {kinds['gather']} "
+            f"gather pieces ({fn.n_tiles} tiles of 16x128 in one launch; covering the "
+            f"target: {fn.covered}); JAX's programs: {tags['esw']} ESW groups, "
+            f"{tags['gather']} gather groups, {tags['piece']} single pieces"
+        )
+        # XRTPU_NO_EXACT_MOSAIC=1: the direct gather, K3
+        os.environ["XRTPU_NO_EXACT_MOSAIC"] = "1"
+        try:
+            out3, first3 = run_main(ds1, laea4k_gm, interp, ("fused_reproject",))
+            out3, w3 = warm_calls(ds1, laea4k_gm, interp, ("fused_reproject",), 5)
+            fn3 = device_reproject_fn(geo_gm_ds, laea4k_gm, interp, nan, dev)
+        finally:
+            del os.environ["XRTPU_NO_EXACT_MOSAIC"]
+        if not isinstance(fn3, FusedReprojectFn):
+            raise AssertionError(f"BASELINE #3 under XRTPU_NO_EXACT_MOSAIC=1 ran "
+                                 f"{type(fn3).__name__}, not K3")
+        d3 = compare(out3["v"].data, fn3.plain(geo), interp, f"BASELINE #3 {interp} vs plain K3")
+        err["fused_reproject"] = max(err["fused_reproject"], d3)
+        # the mosaic reproduces the direct gather: nearest bit for bit,
+        # bilinear within 2 float32 ulp at unit scale (the data lies in [0, 1))
+        dk = compare(out["v"].data, out3["v"].data, "nearest" if interp == "nearest" else "esw",
+                     f"BASELINE #3 {interp}: the mosaic vs K3")
+        print(
+            f"{tag} resample_in_space BASELINE #3 {interp} under XRTPU_NO_EXACT_MOSAIC=1 "
+            f"(K3): first call {first3:.3f} s = {mpix / first3:.1f} Mpix/s; warm median of 5 "
+            f"{w3 * 1e3:.3f} ms = {mpix / w3:.1f} Mpix/s; vs plain max abs diff {d3}; "
+            f"max |mosaic - K3| {dk:.3g}"
+        )
+        del out, out3
+        (k, p, kd), (lib, lib_d), (b, by, n_tapped) = time_k3(fn3, geo, interp)
         print(
             f"{tag} fused_reproject at BASELINE #3 ({interp}): kernel {k:.4f} ms "
             f"(device {kd:.4f} ms), plain {p:.3f} ms, bound {b:.4f} ms ({by}; "
             f"{n_tapped} source pixels tapped), F.grid_sample {lib:.4f} ms (device "
             f"{lib_d:.4f} ms)"
         )
-    del out
+        args16 = fn.args(geo[None])
+        k16 = time_pair(lambda: esw_mosaic(*args16), lambda: esw_mosaic_plain(*args16))
+        b16, by16, n16 = mosaic_bound(fn, interp)
+        print(
+            f"{tag} esw_mosaic at BASELINE #3 ({interp}): kernel {k16[0]:.4f} ms (device "
+            f"{k16[2]:.4f} ms, the canvas included: filled first {not fn.covered}), plain "
+            f"{k16[1]:.3f} ms, bound {b16:.4f} ms ({by16}; {n16} source pixels tapped), "
+            f"F.grid_sample on the whole "
+            f"target {lib:.4f} ms (device {lib_d:.4f} ms); K3 on the same source {k:.4f} ms "
+            f"(device {kd:.4f} ms)"
+        )
+        if interp == "bilinear":
+            timings["esw_mosaic"] = k16
+            bounds["esw_mosaic"] = (b16, by16)
+            library["esw_mosaic"] = (lib, lib_d)
+        del fn, fn3, args16
+
+    # K16's triangular instantiation on the same pieces, held to its plain
+    # version bit for bit (the main path above runs nearest and bilinear)
+    fn = ESWMosaicFn(plan16, "triangular", nan, dev)
+    d = compare(fn(geo), fn.plain(geo), "exact", "BASELINE #3 triangular vs plain K16")
+    err["esw_mosaic"] = max(err["esw_mosaic"], d)
+    print(f"{tag} esw_mosaic at BASELINE #3 (triangular): vs plain max abs diff {d}")
+    del fn, plan16
 
     # -- 3c. the ESW cell: past the gate, K13 and its band form -------------
     esw_launches, esw_err, esw_timings, esw_bounds, esw_library, esw_k3 = esw_phase(
@@ -4326,6 +4448,10 @@ def main() -> int:
         "srw_aligned_horizontal": (
             "xcube_resampling_tpu_torch/csrc/srw_aligned.cu",
             "xcube_resampling_tpu/ops/srw.py:1120",
+        ),
+        "esw_mosaic": (
+            "xcube_resampling_tpu_torch/csrc/esw_mosaic.cu",
+            "xcube_resampling_tpu/ops/esw.py:1128",
         ),
     }
     kernels = [

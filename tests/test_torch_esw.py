@@ -102,7 +102,8 @@ def _planned(pkg_esw, pkg_srw, src, tgt, **kwargs):
 
 def _assert_plans_equal(got, ref):
     """Every field of the port's plan equals JAX's (the port leaves out
-    JAX's static-cover fields, which only lay out the TPU's taps)."""
+    JAX's cover sequences, which only lay out the TPU's taps, and keeps
+    their slice counts)."""
     assert (got is None) == (ref is None)
     if ref is None:
         return

@@ -28,6 +28,7 @@ from xcube_resampling_tpu.ops import srw as jax_srw  # noqa: E402
 from xcube_resampling_tpu_torch import reproject as port_reproject  # noqa: E402
 from xcube_resampling_tpu_torch import utils as port_utils  # noqa: E402
 from xcube_resampling_tpu_torch.ops import esw as port_esw  # noqa: E402
+from xcube_resampling_tpu_torch.ops import esw_mosaic as port_esw_mosaic  # noqa: E402
 from xcube_resampling_tpu_torch.ops import reproject_ops as port_reproject_ops  # noqa: E402
 from xcube_resampling_tpu_torch.ops import srw as port_srw  # noqa: E402
 
@@ -174,19 +175,16 @@ def test_resample_in_space_exact_matches_jax_esw(monkeypatch, interp):
 
 @pytest.mark.parametrize("interp", METHODS)
 def test_singular_warp_default_dispatch_runs_k3(monkeypatch, interp):
-    """The reduced BASELINE #3: with no XRTPU_EXACT the port's planner
-    refuses the tiled SRW plan (``make_srw_reproject_fn`` returns None)
-    and its default dispatch runs K3, equal to JAX
-    ``make_fused_reproject_fn`` on ``jnp`` arrays, NaN masks included.
+    """The reduced BASELINE #3 under ``XRTPU_NO_EXACT_MOSAIC=1``: the port's
+    planner refuses the tiled SRW plan (``make_srw_reproject_fn`` returns
+    None), the switch skips the exact region mosaic, and the dispatch runs
+    K3, equal to JAX ``make_fused_reproject_fn`` on ``jnp`` arrays, NaN
+    masks included; JAX's dispatch takes its XLA gather there too.
 
-    JAX's own dispatch runs its exact region mosaic here, which reproduces
-    the direct gather within 2 float32 ulp (``ops/esw.py:1-3``; on this
-    geometry with x64 off: nearest equal, bilinear within 1.19e-7, held by
-    the next test).  Under the suite's x64 that mosaic raises
-    ``TypeError`` in ``ops/esw.py:1745`` (mixed int64/int32
-    ``dynamic_slice`` indices), a fault of the reference's, so this test
-    holds the port to the direct gather."""
+    With no switch set both packages run their exact region mosaic (the
+    next test, and ``tests/test_torch_esw_mosaic.py``)."""
     monkeypatch.delenv("XRTPU_EXACT", raising=False)
+    monkeypatch.setenv("XRTPU_NO_EXACT_MOSAIC", "1")
     srw_plans = []
     orig = port_reproject.make_srw_reproject_fn
 
@@ -197,6 +195,7 @@ def test_singular_warp_default_dispatch_runs_k3(monkeypatch, interp):
 
     monkeypatch.setattr(port_reproject, "make_srw_reproject_fn", spy_srw)
     k3_calls = _spy(monkeypatch, port_reproject, "make_fused_reproject_fn")
+    mosaic_calls = _spy(monkeypatch, port_reproject, "make_region_reproject_fn")
     jax_source, jax_target = _geometry("global_laea", xrt)
     source_gm, target_gm = _geometry("global_laea")
     a, b = _inputs(source_gm)
@@ -204,7 +203,7 @@ def test_singular_warp_default_dispatch_runs_k3(monkeypatch, interp):
         _dataset(source_gm, a=torch.from_numpy(a), b=torch.from_numpy(b)),
         target_gm=target_gm, interp_methods=interp,
     )
-    assert srw_plans == [None] and k3_calls
+    assert srw_plans == [None] and k3_calls and not mosaic_calls
     (fn,) = port_reproject._DEVICE_FN_CACHE.values()
     assert isinstance(fn, port_reproject_ops.FusedReprojectFn)
     k3 = jax_reproject_ops.make_fused_reproject_fn(
@@ -219,18 +218,22 @@ def test_singular_warp_default_dispatch_runs_k3(monkeypatch, interp):
 @pytest.mark.parametrize("interp", ["bilinear", "nearest"])
 def test_singular_warp_matches_jax_exact_mosaic_without_x64(monkeypatch, interp):
     """The reduced BASELINE #3 through both packages' default dispatch,
-    JAX with x64 off: JAX runs its exact region mosaic, the port K3; equal
-    for nearest, within 2 float32 ulp at unit scale for bilinear
-    (``ops/esw.py:1-3``; the data lies in [0, 1)), NaN masks equal."""
+    JAX with x64 off (under the suite's x64 its mosaic raises ``TypeError``
+    in ``ops/esw.py:1745``, mixed int64/int32 ``dynamic_slice`` indices, a
+    fault of the reference's): both run their exact region mosaic (the
+    port's ``ESWMosaicFn``, K16's plain version here, and no K3) and agree
+    bit for bit, NaN masks included."""
     monkeypatch.delenv("XRTPU_EXACT", raising=False)
     mosaic_calls = _spy(monkeypatch, jax_srw, "make_region_reproject_fn")
+    port_mosaic_calls = _spy(monkeypatch, port_reproject, "make_region_reproject_fn")
     k3_calls = _spy(monkeypatch, port_reproject, "make_fused_reproject_fn")
     with jax.enable_x64(False):
         ref, got = _run_both("global_laea", interp)
-    assert mosaic_calls and k3_calls
-    atol = 0.0 if interp == "nearest" else 2 * 2.0**-24
+    assert mosaic_calls and port_mosaic_calls and not k3_calls
+    (fn,) = port_reproject._DEVICE_FN_CACHE.values()
+    assert isinstance(fn, port_esw_mosaic.ESWMosaicFn)
     for name in ("a", "b"):
-        _assert_match(got[name].data.numpy(), ref[name].data, atol)
+        _assert_match(got[name].data.numpy(), ref[name].data)
 
 
 def test_resample_in_space_j_axis_up_source():

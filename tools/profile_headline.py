@@ -13,7 +13,9 @@ the CUDA toolkit: ``python3 tools/profile_headline.py``.  It prints
 then for that reproject, for the same source onto a 5120^2 EPSG:3035
 grid at 120 m (the pre-downscale: K4's downscale form, then K1 and K2), for
 BASELINE #3 (the global 0.05 deg EPSG:4326 7200x3600 -> EPSG:3035 4096^2
-at 1500 m, a singular warp that runs K3; bilinear and nearest), and for
+at 1500 m, a singular warp that runs the exact region mosaic, K16;
+bilinear and nearest, and bilinear under ``XRTPU_NO_EXACT_MOSAIC=1``,
+K3), and for
 the affine route's BASELINE #1 (a 16-band 1024^2 float32 2x bilinear
 downscale with mean: K4's downscale form) and BASELINE #2 (a 4-band
 4096^2 raster coarsened 4x through an exact affine downscale, mean, first
@@ -275,6 +277,14 @@ def main() -> int:
         results[f"baseline3/{interp}"] = profile_call(
             f"BASELINE #3 4326->EPSG:3035 4096^2 {interp}", ds3, laea4k_gm, interp
         )
+    os.environ["XRTPU_NO_EXACT_MOSAIC"] = "1"
+    try:
+        results["baseline3/bilinear/k3"] = profile_call(
+            "BASELINE #3 4326->EPSG:3035 4096^2 bilinear, XRTPU_NO_EXACT_MOSAIC=1 (K3)",
+            ds3, laea4k_gm, "bilinear",
+        )
+    finally:
+        del os.environ["XRTPU_NO_EXACT_MOSAIC"]
     del ds3, geo
 
     def utm(size, res):

@@ -99,6 +99,11 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I,
         _I, _F, _I64, _I64, _I64, _P,
     ],
+    # src, table, tile_start, fields, out, n_pieces, n_tiles, batch, src_h,
+    # src_w, out_h, out_w, step, method, fill, tile_rows, tile_cols, stream
+    "xrt_esw_mosaic_f32": [
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _I, _I, _P,
+    ],
     # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w,
     # j_scale, i_scale, j_off, i_off, order, fill, in_code, out_code, stream
     "xrt_affine_gather": [

@@ -49,189 +49,24 @@
 // is a kernel of its own with K3's band launch (one wave of blocks, each a
 // run of consecutive rows), so that no flag reaches K13's hot loop.
 // Offsets inside a plane are 32-bit and unsigned (the wrapper refuses
-// planes of 2^31 elements or more), band offsets 64-bit.
+// planes of 2^31 elements or more), band offsets 64-bit.  The per-pixel
+// function (the taps, the value, a row of kVec pixels over every band) is
+// esw_pixel.h's, which K16's ESW pieces run too.
 #include "affine_gather.h"
-#include "gather_taps.h"
+#include "esw_pixel.h"
 
 namespace {
 
-constexpr int kVec = 4;        // output columns of a thread
+using xrt::esw::Args;
+using xrt::esw::kVec;
+using xrt::esw::one_row;
+
 constexpr int kWarpCols = 32;  // threads across a tile
 constexpr int kLanes = 2;      // threads down a tile (K13)
 constexpr int kTileCols = kVec * kWarpCols;
 constexpr int kTileRows = 16;  // target rows of a tile (K13)
 constexpr int kBandLanes = 1;  // threads down a block (the band form)
 constexpr int kBandBlocks = 16;
-
-struct Args {
-  const float* src;
-  const float* iystar;  // (ncj, ncc), window columns
-  float* out;
-  xrt::CoarseFields<2> field;  // ix_c, iy_c (ncj, nci), global indices
-  int ncc;
-  int64_t batch;
-  int src_h, src_w;  // the plane read: the window, or the band's extension
-  // the global source's bounds and clamp limits (validity, positions)
-  float x_hi, y_hi, x_max, y_max;
-  float half;   // (S - 2) / 2
-  float s_max;  // S - 2, or S - 1 for nearest
-  float j_off;  // the window's origin (0 for the band form)
-  int i_off;
-  int clip_h;   // rows clip to [0, clip_h): the window's or the source's height
-  int row_off;  // then read row_off rows up (the band's offset)
-  int out_h, out_w;
-  float fill;
-  int n_row_tiles;
-  bool vec4;  // out_w % 4 == 0 and out 16-byte aligned
-  int row0;   // the global target row of output row 0
-};
-
-// The taps of one pixel: the offsets of its two tap columns' upper rows,
-// the steps down to their lower rows (0 where the clip folds them), the
-// fractions and the mask.
-struct Taps {
-  unsigned o0, o1, d0, d1;
-  float fx, fy;
-  bool ok;
-};
-
-// The row cell of a target row in the coarse fields, as _interp_field
-// takes it: the clamped cell and the unclamped fraction.
-struct RowCell {
-  int j;
-  float fj;
-};
-
-__device__ __forceinline__ RowCell row_cell(const Args& a, float row) {
-  const float cj = row * a.field.inv;
-  const float j0f = floorf(cj);
-  return {static_cast<int>(xrt::clamp_index(static_cast<int>(j0f), a.field.ncj - 1)), cj - j0f};
-}
-
-// The coarse cell of window column c in iystar_c (clamped) and its
-// fraction, as _interp_field takes them.
-struct ColCell {
-  int i;
-  float fi;
-};
-
-__device__ __forceinline__ ColCell col_cell(const Args& a, int c) {
-  const float ci = static_cast<float>(c) * a.field.inv;
-  const float i0f = floorf(ci);
-  return {static_cast<int>(xrt::clamp_index(static_cast<int>(i0f), a.ncc - 1)), ci - i0f};
-}
-
-// The four samples of iystar_c around a cell, in the row cell rc.
-struct Corners {
-  float f00, f01, f10, f11;
-};
-
-__device__ __forceinline__ Corners corners(const Args& a, RowCell rc, int i) {
-  const float* q = a.iystar + rc.j * a.ncc + i;
-  return {__ldg(q), __ldg(q + 1), __ldg(q + a.ncc), __ldg(q + a.ncc + 1)};
-}
-
-// One tap column (its cell's corners k, fraction fi): the anchor, the
-// selection, and the offsets of rows m + s0 and m + s0 + 1 at column c.
-__device__ __forceinline__ void tap_column(const Args& a, int c, const Corners& k, float fi,
-                                           float y0w, RowCell rc, unsigned& off,
-                                           unsigned& down) {
-  const float pos = xrt::lerp(xrt::lerp(k.f00, k.f01, fi), xrt::lerp(k.f10, k.f11, fi), rc.fj);
-  const float m = floorf(pos - a.half);
-  const float s0 = fminf(fmaxf(y0w - m, 0.0f), a.s_max);
-  const int r = static_cast<int>(m) + static_cast<int>(s0);
-  const int ra = static_cast<int>(
-      xrt::clamp_index(xrt::clamp_index(r, a.clip_h) - a.row_off, a.src_h));
-  const int rb = static_cast<int>(
-      xrt::clamp_index(xrt::clamp_index(r + 1, a.clip_h) - a.row_off, a.src_h));
-  off = static_cast<unsigned>(ra) * static_cast<unsigned>(a.src_w) + static_cast<unsigned>(c);
-  down = static_cast<unsigned>(rb - ra) * static_cast<unsigned>(a.src_w);
-}
-
-template <int M>
-__device__ __forceinline__ Taps pixel_taps(const Args& a, float ix, float iy, RowCell rc) {
-  Taps t;
-  t.ok = ix > -0.5f && ix < a.x_hi && iy > -0.5f && iy < a.y_hi;
-  ix = fminf(fmaxf(ix, 0.0f), a.x_max);
-  iy = fminf(fmaxf(iy, 0.0f), a.y_max);
-  float y0;
-  int i0;
-  if (M == xrt::kNearest) {
-    y0 = rintf(iy);
-    i0 = static_cast<int>(rintf(ix)) - a.i_off;
-    t.fx = t.fy = 0.0f;
-  } else {
-    y0 = floorf(iy);
-    t.fy = iy - y0;
-    const float x0 = floorf(ix);
-    t.fx = ix - x0;
-    i0 = static_cast<int>(x0) - a.i_off;
-  }
-  const float y0w = y0 - a.j_off;
-  const int last = a.src_w - 1;
-  const int c0 = min(max(i0, 0), last);
-  const ColCell e0 = col_cell(a, c0);
-  const Corners k0 = corners(a, rc, e0.i);
-  tap_column(a, c0, k0, e0.fi, y0w, rc, t.o0, t.d0);
-  if (M == xrt::kNearest) {
-    t.o1 = t.d1 = 0u;
-  } else {
-    // the second column mostly lies in the first's cell: its corners are
-    // the same values then
-    const int c1 = min(max(i0 + 1, 0), last);
-    const ColCell e1 = col_cell(a, c1);
-    const Corners k1 = e1.i == e0.i ? k0 : corners(a, rc, e1.i);
-    tap_column(a, c1, k1, e1.fi, y0w, rc, t.o1, t.d1);
-  }
-  return t;
-}
-
-// The taps' value on a plane: the vertical lerps first.
-template <int M>
-__device__ __forceinline__ float value(const float* __restrict__ p, const Taps& t) {
-  const float v00 = __ldg(p + t.o0);
-  if (M == xrt::kNearest) return v00;
-  const float v10 = __ldg(p + t.o0 + t.d0);
-  const float v01 = __ldg(p + t.o1);
-  const float v11 = __ldg(p + t.o1 + t.d1);
-  if (M == xrt::kTriangular) {
-    const float v_near = fmaf(t.fy, v10 - v00, xrt::lerp(v00, v01, t.fx));
-    const float v_far = fmaf(1.0f - t.fy, v01 - v11, xrt::lerp(v11, v10, 1.0f - t.fx));
-    return t.fx + t.fy < 1.0f ? v_near : v_far;
-  }
-  return xrt::lerp(xrt::lerp(v00, v10, t.fy), xrt::lerp(v01, v11, t.fy), t.fx);
-}
-
-// Output row j (global target row a.row0 + j) at kVec columns from i:
-// the taps once, then every band.
-template <int M>
-__device__ __forceinline__ void one_row(const Args& a, xrt::FieldCols<2, kVec>& field, int j,
-                                        int i, int n) {
-  const float row = static_cast<float>(a.row0 + j);
-  float f[2][kVec];  // ix, iy
-  field.at(a.field, row, f);
-  const RowCell rc = row_cell(a, row);
-  Taps t[kVec];
-#pragma unroll
-  for (int c = 0; c < kVec; ++c) t[c] = pixel_taps<M>(a, f[0][c], f[1][c], rc);
-  const int64_t src_plane = static_cast<int64_t>(a.src_h) * a.src_w;
-  const int64_t out_plane = static_cast<int64_t>(a.out_h) * a.out_w;
-  for (int64_t b = 0; b < a.batch; ++b) {
-    const float* p = a.src + b * src_plane;
-    float v[kVec];
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) v[c] = t[c].ok ? value<M>(p, t[c]) : a.fill;
-    float* o = a.out + b * out_plane + static_cast<int64_t>(j) * a.out_w + i;
-    if (a.vec4 && n == kVec) {
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        if (c < n) o[c] = v[c];
-      }
-    }
-  }
-}
 
 // K13: kVec consecutive columns from i, the rows of a tile kLanes apart.
 template <int M>
@@ -313,6 +148,8 @@ int dispatch(const float* src, const float* iystar, const float* ix_c, const flo
   a.batch = batch;
   a.src_h = static_cast<int>(src_h);
   a.src_w = static_cast<int>(src_w);
+  a.pitch = static_cast<int>(src_w);
+  a.src_plane = src_h * src_w;
   a.x_hi = g.x_hi;
   a.y_hi = g.y_hi;
   a.x_max = g.x_max;
@@ -325,6 +162,8 @@ int dispatch(const float* src, const float* iystar, const float* ix_c, const flo
   a.row_off = static_cast<int>(row_off);
   a.out_h = static_cast<int>(out_h);
   a.out_w = static_cast<int>(out_w);
+  a.out_pitch = static_cast<int>(out_w);
+  a.out_plane = out_h * out_w;
   a.fill = fill;
   a.n_row_tiles = static_cast<int>((out_h + kTileRows - 1) / kTileRows);
   a.vec4 = out_w % kVec == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;

@@ -7,7 +7,8 @@ first) for warps past the two-pass SRW's fidelity gate, up to local
 rotation slopes of about (S - 2) / 2 source pixels a pixel.
 
 The numpy planners are copies of the JAX package's: ``ESWPlan`` (:61-109),
-``_max_row_deviation`` (:112-154), ``plan_esw`` (:231-547) and
+``_max_row_deviation`` (:112-154), ``_static_cover`` (:157-216),
+``plan_esw`` (:231-547), ``_slice_raw`` (:1095-1106) and
 ``_offset_fields`` (:1109-1125), with ``_interp_field_np``, the numpy
 branch of ``reproject_ops._interp_field``.  ``plan_esw``'s accept or
 refuse decision is what makes the port choose the JAX package's tier; the
@@ -16,16 +17,22 @@ refusal, and otherwise serves the TPU's gather-free formulation, which
 selects S rows per (output row, source column) into S full-size fields
 because the TPU serialises dynamic gathers.  Its tile layouts take each
 tile's extrema over contiguous rows (``_row_range_extrema``) where the JAX
-package reduces strided ones, and it refuses first, before the row
-deviation and any layout, where the coarse nodes' own span already bounds
-every tiling's tap count past ``max_taps`` (a singular warp such as
+package reduces strided ones, and an unforced plan refuses first, before
+the row deviation and any layout, where the coarse nodes' own span already
+bounds every tiling's tap count past ``max_taps`` (a singular warp such as
 BASELINE #3's): the same plans and refusals in a fraction of the host's
-time.  Left out, because no path of the port reads them: the static-cover
-pass (``_static_cover``, the ``cov``/``jv``/``jh`` fields, its
-gates ``XRTPU_ESW_STATIC``, ``XRTPU_ESW_STATIC_RV`` and
-``XRTPU_ESW_STATIC_RH``), which only lays out the TPU's taps once the plan
-is accepted, and the mosaic's ``force`` (pinned layouts, a row-tile
-sweep), which waits for the exact region mosaic.
+time.  ``force`` pins the layout of an exact region mosaic's group
+(``ops/esw_mosaic.py``): the sample count S (the group's), one column and
+one row tile, the shift alignment on either axis, and a limit of
+``2 * max_taps`` on the fixed tiles' counts; it takes no shortcut.  The
+static-cover pass gives the cover's slice counts ``jv``, ``jh`` (and per
+tile ``jv_t``, ``jh_t``) under the JAX package's default gates: they lay
+out the TPU's taps, and the mosaic's cost estimate reads them to decide
+which pieces it demotes to the direct gather.  Not kept: the cover
+sequences themselves, the gates' switches ``XRTPU_ESW_STATIC``,
+``XRTPU_ESW_STATIC_RV`` and ``XRTPU_ESW_STATIC_RH`` (no path of the port
+sets them), and ``force``'s row-tile sweep (``XRTPU_MOSAIC_ROW_TILE``,
+which the JAX package marks as measurement-only).
 
 On the card each output pixel reads its taps directly: K13
 (``esw_gather``, ``csrc/esw_gather.cu``) computes the function of the JAX
@@ -156,6 +163,12 @@ class ESWPlan:
     # count — mild interior tiles stop paying the worst tile's diversity
     d_v_t: tuple | None = None  # len n_col_tiles
     d_h_t: tuple | None = None  # len n_row_tiles
+    # the static-cover formulation's slice counts (0 and None where the
+    # cover does not exist or its gate refuses it; see _static_cover)
+    jv: int = 0
+    jh: int = 0
+    jv_t: tuple | None = None  # len n_col_tiles
+    jh_t: tuple | None = None  # len n_row_tiles
 
 
 def _max_row_deviation(fields: _Fields, refine: int = 2) -> float:
@@ -203,6 +216,68 @@ def _max_row_deviation(fields: _Fields, refine: int = 2) -> float:
     return float(dev[valid].max())
 
 
+def _static_cover(base: np.ndarray, d, axis: int):
+    """Monotone unit-increment cover sequences for the JAX package's
+    static-slice tap formulation (``esw.py:157-216``).
+
+    For each 1-D lane of ``base`` (per column when ``axis=0``, per row when
+    ``axis=1``) build ``cov`` of length ``n + J`` with increments in {0, 1}
+    such that for every position r the window ``cov[r : r + J]`` contains
+    every integer in ``[base[r], base[r] + d)``; ``d`` may be a scalar or a
+    per-lane array.  Returns ``(cov, J_t)`` with ``J_t`` the per-lane slice
+    counts, or ``(None, None)`` when no cover exists (the base advances
+    faster than one source index per output index somewhere)."""
+    b = base if axis == 0 else base.T  # (n, lanes)
+    n, lanes = b.shape
+    b64 = b.astype(np.int64)
+    # largest valid cover: backward running min (nondecreasing, <= base)
+    cov = np.minimum.accumulate(b64[::-1], axis=0)[::-1]
+    if n > 1 and (np.diff(cov, axis=0) > 1).any():
+        return None, None
+    d_lane = np.broadcast_to(np.asarray(d, dtype=np.int64), (lanes,))
+    targets = b64 + d_lane[None, :] - 1
+    tail = int(max(0, targets.max() - cov[-1].min()))
+    cov_ext = np.concatenate(
+        [cov, cov[-1][None, :] + 1 + np.arange(tail, dtype=np.int64)[:, None]]
+    )
+    # first k >= r with cov_ext[k] >= target[r], per lane
+    J_t = np.ones(lanes, dtype=np.int64)
+    for c in range(lanes):
+        k = np.searchsorted(cov_ext[:, c], targets[:, c], side="left")
+        J_t[c] = max(1, int((k - np.arange(n)).max()) + 1)
+    J = int(J_t.max())
+    out = cov_ext[: n + J]
+    if out.shape[0] < n + J:  # tail too short (all-flat targets edge case)
+        extra = n + J - out.shape[0]
+        out = np.concatenate(
+            [out, out[-1][None, :] + 1 + np.arange(extra, dtype=np.int64)[:, None]]
+        )
+    out = out.astype(np.int32)
+    return (out if axis == 0 else out.T), J_t
+
+
+# static-cover cost gates, per axis (J <= ratio * d engages the static
+# formulation): the JAX package's (esw.py:219-228)
+_STATIC_J_RATIO_V = 3.0
+_STATIC_J_RATIO_H = 3.5
+
+
+def _cover_counts(base_v, dv_t, base_h, dh_t):
+    """The static-cover pass of ``plan_esw`` (``esw.py:487-510``) with its
+    defaults: the slice counts ``(jv, jv_t, jh, jh_t)`` of the covers that
+    exist and pass their ratio gates, ``(0, None)`` on an axis where none
+    does."""
+    jv = jh = 0
+    jv_t = jh_t = None
+    cv_, jvt_ = _static_cover(base_v, dv_t, axis=0)
+    if cv_ is not None and float(jvt_.mean()) <= _STATIC_J_RATIO_V * float(dv_t.mean()):
+        jv, jv_t = int(jvt_.max()), tuple(int(x) for x in jvt_)
+    ch_, jht_ = _static_cover(base_h, dh_t, axis=1)
+    if ch_ is not None and float(jht_.mean()) <= _STATIC_J_RATIO_H * float(dh_t.mean()):
+        jh, jh_t = int(jht_.max()), tuple(int(x) for x in jht_)
+    return jv, jv_t, jh, jh_t
+
+
 def _row_range_extrema(a: np.ndarray, k0: np.ndarray, k1: np.ndarray):
     """Min and max of the C-contiguous 2D *a* over its rows ``[k0[t],
     k1[t])``, one (n_t, a.shape[1]) pair (ranges may overlap): contiguous
@@ -224,6 +299,7 @@ def plan_esw(
     fields: _Fields | None = None,
     fields_global: _Fields | None = None,
     win: tuple[int, int, int, int] | None = None,
+    force: dict | None = None,
 ) -> ESWPlan | None:
     """Build an exact-warp plan, or None when the mapping is unsuitable
     (non-monotone rows near a projection singularity, a row deviation that
@@ -233,7 +309,14 @@ def plan_esw(
     For a cropped source window, pass the window-relative ``fields`` (the
     tap machinery plans in window space), the uncropped ``fields_global``
     and the window ``win`` = (j0, j1, i0, i1): the plan then stores the
-    global coordinate fields for bit-exact positions."""
+    global coordinate fields for bit-exact positions.
+
+    ``force`` (the mosaic's) pins the layout decisions, keys
+    ``n_samples``, ``col_tile``, ``row_tile``, ``use_shift_v`` and
+    ``use_shift_h``, so that all pieces of a mosaic group share them; the
+    per-piece tap counts and bases still come from the piece's own
+    geometry.  A forced plan is refused where the piece needs more samples
+    than the group's or a fixed tile more than ``2 * max_taps`` taps."""
     if fields is None:
         fields = _coarse_geometry(source_gm, target_gm, step)
     if fields is None:
@@ -305,10 +388,11 @@ def plan_esw(
     # rows are output rows of the interpolated field, and the smallest
     # tile's columns lie inside every larger tile's, so their span there
     # bounds every tiling's tap count from below (S >= 3).  Where it
-    # exceeds max_taps in plain and in shifted space, no tiling fits.
+    # exceeds max_taps in plain and in shifted space, no tiling fits.  A
+    # forced plan has one tile and another limit: it takes no shortcut.
     s_v_full, res_v = _sv_full()
     n_nodes = min(iystar.shape[0] - 1, (out_h - 1) // step + 1)
-    if all(
+    if force is None and all(
         np.ceil((top - m).max()) + 3 + 4 > max_taps
         for m, top in (
             _col_tiles(np.ascontiguousarray(r[:n_nodes].T), min(tiles_v))
@@ -324,37 +408,50 @@ def plan_esw(
     dev = _max_row_deviation(fields)
     n_samples = int(np.ceil(2.0 * (dev + margin))) + 2
     n_samples = max(3, n_samples)
+    if force is not None:
+        if n_samples > force["n_samples"]:
+            return None
+        n_samples = force["n_samples"]
     if n_samples > max_samples:
         return None
     half = (n_samples - 2) / 2.0
 
-    plain_v = _best_tiling(_v_layout, _rows_t(iystar), tiles_v)
+    if force is not None:
+        use_shift_v = force["use_shift_v"]
+        col_tile = force["col_tile"]
+        base_v, dv_t = _v_layout(_rows_t(res_v if use_shift_v else iystar), col_tile)
+        s_v = s_v_full if use_shift_v else None
+        bits_v = int(s_v_full.max()).bit_length() if use_shift_v else 0
+        if int(dv_t.max()) > 2 * max_taps:
+            return None
+    else:
+        plain_v = _best_tiling(_v_layout, _rows_t(iystar), tiles_v)
 
-    # shifted-space candidate (skipped when plain span already tiny)
-    shifted_v = None
-    if s_v_full.max() > 0 and (
-        plain_v is None or int(plain_v[3].max()) > n_samples + 8
-    ):
-        shifted_v = _best_tiling(_v_layout, _rows_t(res_v), tiles_v)
+        # shifted-space candidate (skipped when plain span already tiny)
+        shifted_v = None
+        if s_v_full.max() > 0 and (
+            plain_v is None or int(plain_v[3].max()) > n_samples + 8
+        ):
+            shifted_v = _best_tiling(_v_layout, _rows_t(res_v), tiles_v)
 
-    bits_v = int(s_v_full.max()).bit_length()
-    # vertical taps touch (out_h, src_w)-sized streams (1 take + S
-    # selects each); roll passes touch the (src_h, src_w) source once
-    # per bit — weight them by the array-size ratio.  Costs compare
-    # MEAN per-tile counts (the kernel stops each tile at its own)
-    roll_w_v = src_h / max(1, out_h * (1 + n_samples))
-    use_shift_v = shifted_v is not None and (
-        plain_v is None
-        or float(shifted_v[3].mean()) + roll_w_v * bits_v
-        < float(plain_v[3].mean())
-    )
-    chosen_v = shifted_v if use_shift_v else plain_v
-    if chosen_v is None:
-        return None
-    _, col_tile, base_v, dv_t = chosen_v
-    s_v = s_v_full if use_shift_v else None
-    if not use_shift_v:
-        bits_v = 0
+        bits_v = int(s_v_full.max()).bit_length()
+        # vertical taps touch (out_h, src_w)-sized streams (1 take + S
+        # selects each); roll passes touch the (src_h, src_w) source once
+        # per bit — weight them by the array-size ratio.  Costs compare
+        # MEAN per-tile counts (the kernel stops each tile at its own)
+        roll_w_v = src_h / max(1, out_h * (1 + n_samples))
+        use_shift_v = shifted_v is not None and (
+            plain_v is None
+            or float(shifted_v[3].mean()) + roll_w_v * bits_v
+            < float(plain_v[3].mean())
+        )
+        chosen_v = shifted_v if use_shift_v else plain_v
+        if chosen_v is None:
+            return None
+        _, col_tile, base_v, dv_t = chosen_v
+        s_v = s_v_full if use_shift_v else None
+        if not use_shift_v:
+            bits_v = 0
     d_v = int(dv_t.max())
 
     # ---- horizontal tap layout: per-(row tile, output col) bases,
@@ -392,34 +489,44 @@ def plan_esw(
             ix64 - (s_h0_at_rows - s_h0.min())[:, None],
         )
 
-    tiles_h = (512, 256, 128, 64, 32, 16)
-    plain_h = _best_tiling(_h_layout, _cols(ix64), tiles_h)
-
     s_h_full, res_h = _sh_full()
-    shifted_h = None
-    if s_h_full.max() > 0 and (
-        plain_h is None or int(plain_h[3].max()) > 10
-    ):
-        shifted_h = _best_tiling(_h_layout, _cols(res_h), tiles_h)
+    if force is not None:
+        use_shift_h = force["use_shift_h"]
+        row_tile = force["row_tile"]
+        base_h, dh_t = _h_layout(_cols(res_h if use_shift_h else ix64), row_tile)
+        s_h = s_h_full if use_shift_h else None
+        bits_h = int(s_h_full.max()).bit_length() if use_shift_h else 0
+        if int(dh_t.max()) > 2 * max_taps:
+            return None
+    else:
+        tiles_h = (512, 256, 128, 64, 32, 16)
+        plain_h = _best_tiling(_h_layout, _cols(ix64), tiles_h)
 
-    bits_h = int(s_h_full.max()).bit_length()
-    # horizontal taps read S+1 (rt, out_w)-sized streams each; rolls
-    # move the S (out_h, src_w) sample fields once per bit
-    roll_w_h = (n_samples * src_w) / max(1, (1 + n_samples) * out_w)
-    use_shift_h = shifted_h is not None and (
-        plain_h is None
-        or float(shifted_h[3].mean()) + roll_w_h * bits_h
-        < float(plain_h[3].mean())
-    )
-    chosen_h = shifted_h if use_shift_h else plain_h
-    if chosen_h is None:
-        return None
-    _, row_tile, base_h, dh_t = chosen_h
-    s_h = s_h_full if use_shift_h else None
-    if not use_shift_h:
-        bits_h = 0
+        shifted_h = None
+        if s_h_full.max() > 0 and (
+            plain_h is None or int(plain_h[3].max()) > 10
+        ):
+            shifted_h = _best_tiling(_h_layout, _cols(res_h), tiles_h)
+
+        bits_h = int(s_h_full.max()).bit_length()
+        # horizontal taps read S+1 (rt, out_w)-sized streams each; rolls
+        # move the S (out_h, src_w) sample fields once per bit
+        roll_w_h = (n_samples * src_w) / max(1, (1 + n_samples) * out_w)
+        use_shift_h = shifted_h is not None and (
+            plain_h is None
+            or float(shifted_h[3].mean()) + roll_w_h * bits_h
+            < float(plain_h[3].mean())
+        )
+        chosen_h = shifted_h if use_shift_h else plain_h
+        if chosen_h is None:
+            return None
+        _, row_tile, base_h, dh_t = chosen_h
+        s_h = s_h_full if use_shift_h else None
+        if not use_shift_h:
+            bits_h = 0
     d_h = int(dh_t.max())
 
+    jv, jv_t, jh, jh_t = _cover_counts(base_v, dv_t, base_h, dh_t)
     return ESWPlan(
         iystar_c=iystar.astype(np.float32),
         ix_c=fields_global.ix64.astype(np.float32),
@@ -446,6 +553,24 @@ def plan_esw(
         i_off=i_off,
         d_v_t=tuple(int(x) for x in dv_t),
         d_h_t=tuple(int(x) for x in dh_t),
+        jv=jv,
+        jh=jh,
+        jv_t=jv_t,
+        jh_t=jh_t,
+    )
+
+
+def _slice_raw(ix64, iy64, step, r0, r1, c0, c1):
+    """Slice the whole-target raw coarse fields to the target sub-window
+    [r0:r1) x [c0:c1) (r0/c0 step-aligned by construction of the quadtree):
+    the slice keeps the parent's float64 values bit for bit, so every piece
+    sees exactly the coordinate field the whole-target gather sees."""
+    jr0, ji0 = r0 // step, c0 // step
+    njr = (r1 - r0 - 1) // step + 2
+    nji = (c1 - c0 - 1) // step + 2
+    return (
+        ix64[jr0 : jr0 + njr, ji0 : ji0 + nji],
+        iy64[jr0 : jr0 + njr, ji0 : ji0 + nji],
     )
 
 

@@ -265,6 +265,55 @@ def fused_reproject_band_plain(
     )
 
 
+def gather_piece_plain(
+    src, ix_c, iy_c, step, out_h, out_w, src_h_g, src_w_g, j_off, i_off,
+    interp_method, fill_value,
+):
+    """The gather of one exact-mosaic piece, the function of the JAX
+    package's ``make_gather_piece_fn`` and ``make_gather_piece_kernel_dyn``
+    (``reproject_ops.py:184-325``): (B, out_h, out_w) from the (B, wh, ww)
+    source window *src* whose origin lies at global source row *j_off* and
+    column *i_off* of a source *src_h_g* x *src_w_g*.  Positions, validity,
+    clamps, floors and rints in global source indices (float32 coarse
+    fields in global index space); the window offset is taken off the
+    integer taps after rounding.  The mosaic's planner asserts that its
+    windows hold every tap of a valid pixel, so the taps' clamp to the
+    window below changes only pixels that take the fill."""
+    method_code(interp_method)
+    dev = src.device
+    wh, ww = src.shape[-2:]
+    rows = torch.arange(out_h, dtype=_F32, device=dev)[:, None]
+    cols = torch.arange(out_w, dtype=_F32, device=dev)[None, :]
+    ix = interp_field(ix_c, rows, cols, step)
+    iy = interp_field(iy_c, rows, cols, step)
+    valid = (ix > -0.5) & (ix < src_w_g - 0.5) & (iy > -0.5) & (iy < src_h_g - 0.5)
+    ix = ix.clamp(0, src_w_g - 1)
+    iy = iy.clamp(0, src_h_g - 1)
+
+    def col(x):
+        return (x - i_off).clamp(0, ww - 1)
+
+    def row(y):
+        return (y - j_off).clamp(0, wh - 1)
+
+    src = src.to(_F32)
+    if interp_method == "nearest":
+        vals = src[..., row(torch.round(iy).long()), col(torch.round(ix).long())]
+    else:
+        x0f = torch.floor(ix)
+        y0f = torch.floor(iy)
+        x0g = x0f.long()
+        y0g = y0f.long()
+        x0, x1 = col(x0g), col((x0g + 1).clamp(0, src_w_g - 1))
+        y0, y1 = row(y0g), row((y0g + 1).clamp(0, src_h_g - 1))
+        vals = interp_taps_f32(
+            src[..., y0, x0], src[..., y0, x1], src[..., y1, x0], src[..., y1, x1],
+            ix - x0f, iy - y0f, interp_method,
+        )
+    fill = torch.tensor(float(np.float32(fill_value)), dtype=_F32, device=dev)
+    return torch.where(valid, vals, fill)
+
+
 def require_int32_planes(src_h, src_w, out_h, out_w) -> None:
     """Raise ``ValueError`` where a source or target plane holds 2^31
     elements or more: K3, K13, K14 and K15 index inside a plane with 32-bit

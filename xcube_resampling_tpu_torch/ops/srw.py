@@ -30,6 +30,9 @@ elements.  Every returned fn names its variant in ``kind``:
 Each kernel interpolates the coarse fields itself, so no per-pixel tensor
 is kept per geometry.  The hybrid SRW runs only under
 ``XRTPU_FAST_EXTREME_WARP=1``, which the reproject engine refuses.
+:func:`make_region_reproject_fn` (:1730-1771) gives the exact region
+mosaic (``ops/esw_mosaic.py``) with ``exact=True``; its two-pass form
+waits for the hybrid (ROADMAP queue 1 item 6.4).
 """
 
 from __future__ import annotations
@@ -1000,3 +1003,30 @@ def make_srw_reproject_fn(
     if n_ops > BATCHED_OPS and n_elems < BATCHED_ELEMS:
         fn.kind = "batched"
     return fn
+
+
+def make_region_reproject_fn(
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    interp_method: str = "bilinear",
+    fill_value=np.nan,
+    step: int = STEP,
+    exact: bool = False,
+    device="cuda",
+):
+    """The region mosaic for warps too severe for any single SRW plan:
+    with ``exact=True`` the exact region mosaic
+    (:func:`.esw_mosaic.make_esw_region_fn`: the ESW on each quadtree
+    piece, the direct gather where a piece refuses), or None where no
+    region plans.  The two-pass form (``exact=False``, the JAX package's
+    default here) raises ``NotImplementedError``."""
+    if not exact:
+        raise NotImplementedError(
+            "the two-pass region mosaic (XRTPU_FAST_EXTREME_WARP=1) is not "
+            "ported yet: ROADMAP queue 1 item 6.4"
+        )
+    from .esw_mosaic import make_esw_region_fn
+
+    return make_esw_region_fn(
+        source_gm, target_gm, interp_method, fill_value, step=step, device=device
+    )

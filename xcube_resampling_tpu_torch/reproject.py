@@ -8,10 +8,13 @@ package's two semantics kept apart:
   (:func:`.ops.srw.make_srw_reproject_fn`: crop, gates, K1 + K2), unless
   ``XRTPU_EXACT=1``; then the exact separable warp
   (:func:`.ops.esw.make_esw_reproject_fn`: crop, ``plan_esw``, K13), where
-  its plan admits the mapping; otherwise K3, the fused direct gather,
-  where the JAX package runs its exact region mosaic (not ported yet),
-  which reproduces the direct gather: bit-exact for nearest, within 2 ulp
-  for bilinear;
+  its plan admits the mapping; then the exact region mosaic
+  (:func:`.ops.srw.make_region_reproject_fn` with ``exact=True``: the ESW
+  on each quadtree piece of a domain-scale warp, the direct gather on the
+  pieces that refuse, one launch of K16 over all of them), unless
+  ``XRTPU_NO_EXACT_MOSAIC=1``; otherwise K3, the fused direct gather.  The
+  ESW and the mosaic reproduce the direct gather: bit-exact for nearest,
+  within 2 ulp for bilinear;
 * numpy variables take the JAX package's host golden path on the card of
   the *device* argument (default ``"cuda"``): per-pixel float64 target
   centres in the source CRS (:func:`_target_centers_in_source`), the
@@ -57,7 +60,7 @@ from .gridmapping import GridMapping
 from .ops.esw import make_esw_reproject_fn
 from .ops.exact_gather import WindowTiles, exact_gather_windows
 from .ops.reproject_ops import METHODS, make_fused_reproject_fn
-from .ops.srw import make_srw_reproject_fn
+from .ops.srw import make_region_reproject_fn, make_srw_reproject_fn
 from .utils import (
     _flip_rows,
     _get_fill_value,
@@ -258,7 +261,9 @@ def _reproject_variable(
 
 # Plan memo: the tier function and its device statics (coarse fields,
 # tap bases and windows: about 30 MB for a 20480^2 geometry) per geometry
-# pair, method, fill, tier flag and device; the JAX package's bound.
+# pair, method, fill, the tier switches (XRTPU_EXACT,
+# XRTPU_FAST_EXTREME_WARP, XRTPU_NO_EXACT_MOSAIC) and device; the JAX
+# package's key and bound.
 _DEVICE_FN_CACHE: OrderedDict = OrderedDict()
 _DEVICE_FN_CACHE_MAX = 4
 
@@ -276,12 +281,14 @@ def device_reproject_fn(source_gm, target_gm, interp_method, fill_value, device)
     if os.environ.get("XRTPU_FAST_EXTREME_WARP", "") == "1":
         raise NotImplementedError(
             "XRTPU_FAST_EXTREME_WARP=1 (hybrid and region SRW) is not ported "
-            "yet: ROADMAP queue 1 item 6"
+            "yet: ROADMAP queue 1 item 6.4"
         )
     key = (
         _gm_fingerprint(source_gm), _gm_fingerprint(target_gm),
         interp_method, repr(float(fill_value)),
         os.environ.get("XRTPU_EXACT", ""),
+        os.environ.get("XRTPU_FAST_EXTREME_WARP", ""),
+        os.environ.get("XRTPU_NO_EXACT_MOSAIC", ""),
         str(torch.device(device)),
     )
     fn = _DEVICE_FN_CACHE.pop(key, None)
@@ -306,8 +313,8 @@ def _build_device_reproject_fn(
     source_gm, target_gm, interp_method, fill_value, device
 ):
     # the JAX package's ladder (reproject.py:272-297): the tiled SRW unless
-    # XRTPU_EXACT=1, the exact separable warp, then the direct gather (K3),
-    # which stands for its exact region mosaic and its XLA gather
+    # XRTPU_EXACT=1, the exact separable warp, the exact region mosaic
+    # unless XRTPU_NO_EXACT_MOSAIC=1 (K16), then the direct gather (K3)
     fn = None
     if os.environ.get("XRTPU_EXACT", "") != "1":
         fn = make_srw_reproject_fn(
@@ -316,6 +323,11 @@ def _build_device_reproject_fn(
     if fn is None:
         fn = make_esw_reproject_fn(
             source_gm, target_gm, interp_method, fill_value, device=device
+        )
+    if fn is None and os.environ.get("XRTPU_NO_EXACT_MOSAIC", "") != "1":
+        fn = make_region_reproject_fn(
+            source_gm, target_gm, interp_method, fill_value, exact=True,
+            device=device,
         )
     if fn is None:
         fn = make_fused_reproject_fn(
