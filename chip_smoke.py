@@ -7,11 +7,11 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
    printing each source's registers and spills (ptxas ``-v``) and those
-   of every instantiation of K1-K3, K13-K16, K2's, K3's, K7's and K13's
+   of every instantiation of K1-K3, K13-K18, K2's, K3's, K7's and K13's
    band forms, K7's map and list forms, K11's two kernels and K12 (and a
    summary of the downscale form's cached kernels), and fails if K6's
    register kernels, K2's, K3's or K7's band form, K11, K12, K13 or its
-   band form, K14, K15, K16 or the downscale form's cached kernels spill
+   band form, K14-K18 or the downscale form's cached kernels spill
    or use local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
@@ -46,7 +46,18 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    band form after the halo exchange, held to the single-chip ESW on the
    window it crops bit for bit and to the whole source's within the JAX
    package's NaN-mask contract and ``ESW_WHOLE_ATOL``; K13 and its band
-   form timed for every method beside K3 and its band form), a small
+   form timed for every method beside K3 and its band form), the fast
+   extreme-warp mode (:func:`hybrid_phase`, ``XRTPU_FAST_EXTREME_WARP=1``:
+   the ESW cell's geometry through the whole-domain hybrid SRW, K17 + K18
+   once each a call, bilinear and nearest, 1 and 4 bands; BASELINE #3
+   through the two-pass region mosaic, its 30 hybrid, 2 batched SRW and 2
+   K3 pieces held to the JAX package's planner, bit for bit to every
+   piece's plain version and, on a smooth field, to the exact mosaic
+   within ``HYBRID_SMOOTH_ATOL``; first calls with the host's planning
+   apart, warm calls, peak memory; K17 and K18 against their plain
+   versions on NaN and +-inf rows and columns, a numeric fill and a plan
+   whose taps pass every source edge, timed beside K13, K16, K3 and
+   ``F.grid_sample``), a small
    UTM32N ->
    EPSG:3035 case with float32, float64 and uint16 numpy variables (placed
    on the card by ``device``: the host path's semantics through K9's window
@@ -1523,10 +1534,10 @@ FLAGSHIP_TIE = 0.005
 
 
 def aligned_vertical_bound(src, st):
-    """K14 reads the source, the coarse field, the shifts and the bases
-    once and writes v; per output and tap a weight (4 operations) and a
-    fused multiply-add (2); 13 operations a position (the field's
-    interpolation and the shift)."""
+    """K14 (and K17, its bases a tile) reads the source, the coarse field,
+    the shifts and the bases once and writes v; per output and tap a
+    weight (4 operations) and a fused multiply-add (2); 13 operations a
+    position (the field's interpolation and the shift)."""
     batch, _, src_w = src.shape
     outs = batch * st.out_h * src_w
     n_bytes = 4 * (src.numel() + st.iystar_c.numel() + st.s_v.numel() + st.base_v.numel()
@@ -1535,10 +1546,10 @@ def aligned_vertical_bound(src, st):
 
 
 def aligned_horizontal_bound(v, st):
-    """K15 reads v, two coarse fields, the shifts and the bases once and
-    writes the output; per output and tap 6 operations; 40 operations of
-    geometry a pixel (two fields interpolated, the shift, the validity
-    test)."""
+    """K15 (and K18) reads v, two coarse fields, the shifts and the bases
+    once and writes the output; per output and tap 6 operations; 40
+    operations of geometry a pixel (two fields interpolated, the shift, the
+    validity test)."""
     batch = v.shape[0]
     outs = batch * st.out_h * st.out_w
     n_bytes = 4 * (v.numel() + 2 * st.ix_c.numel() + st.s_h.numel() + st.base_h.numel() + outs)
@@ -1846,6 +1857,345 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
     del states, x1, x4, coarse, coarse4, x, v, v4, vt, xs, out
     torch.cuda.empty_cache()
     return err, timings, bounds, variants
+
+
+# The fast extreme-warp mode (XRTPU_FAST_EXTREME_WARP=1): the ESW cell's
+# geometry, where the whole-domain hybrid SRW plans (K17 + K18), and
+# BASELINE #3, where the two-pass region mosaic runs; the mosaic's pieces
+# by kind as the JAX package's planner makes them at full size (30 hybrid,
+# 8 of them planned at step 4, 2 batched SRW, 2 direct gather), and its
+# output's tolerance against the exact mosaic (K16) on the smooth field
+# f = sin(x/40) cos(y/30) of the source's pixel indices, whose change over
+# a pixel on each axis is at most HYBRID_SMOOTH_GRAD: |two-pass - K16| <=
+# 3e-2 (bilinear, tests/test_srw.py:326-331), or 1.5 * GRAD (nearest: a
+# pick at most one pixel plus its curvature gate's 0.5 pixel away).  Left
+# out: the pixels whose
+# horizontal position the JAX package's hybrid planner leaves outside their
+# tap window (hybrid_tap_misses; 11 at full BASELINE #3, all in the piece
+# of target rows 256-511 and columns 1024-1279, where the JAX package's
+# output misses the direct bilinear by up to 0.179 and the port's equals
+# it, tests/test_torch_srw_hybrid.py).
+HYBRID_KERNELS = ("srw_hybrid_vertical", "srw_hybrid_horizontal")
+HYBRID_B3 = dict(target=dict(size=(4096, 4096), xy_min=(2000000.0, 1000000.0), xy_res=1500.0,
+                             crs="epsg:3035"),
+                 pieces={"hybrid": 30, "batched": 2, "gather": 2}, step4=8)
+HYBRID_SMOOTH_GRAD = 1 / 40 + 1 / 30
+HYBRID_SMOOTH_ATOL = {"bilinear": 3e-2, "nearest": 1.5 * HYBRID_SMOOTH_GRAD}
+# the kernels a piece of each kind launches once a call
+PIECE_KERNELS = {"hybrid": HYBRID_KERNELS, "aligned": FLAGSHIP_KERNELS,
+                 "tiled": ("srw_vertical", "srw_horizontal"),
+                 "batched": ("srw_vertical", "srw_horizontal"), "gather": ("fused_reproject",)}
+
+
+def hybrid_tap_misses(fn):
+    """For a two-pass ``RegionSRWFn``: the target pixels of its hybrid pieces
+    whose horizontal position (K18's) lies outside the tap window that the
+    plan gives their row tile (a mask on the card), and the count of
+    vertical positions (K17's) outside theirs."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops.reproject_ops import interp_field
+
+    dev = fn.pieces[0].fn.state.ix_c.device if fn.pieces else None
+    mask = torch.zeros((fn.out_h, fn.out_w), dtype=torch.bool, device=dev)
+    n_v = 0
+    for p in fn.pieces:
+        if p.kind != "hybrid":
+            continue
+        st = p.fn.state
+        rows = torch.arange(st.out_h, dtype=torch.float32, device=dev)[:, None]
+        q = interp_field(st.ix_c, rows, torch.arange(
+            st.out_w, dtype=torch.float32, device=dev)[None, :], st.step) - st.s_h[:, None].float()
+        k0 = st.base_h[torch.arange(st.out_h, device=dev) // st.row_tile].float()
+        mask[p.r0 : p.r1, p.c0 : p.c1] |= (q < k0) | (q > k0 + st.d_h - 1)
+        pv = interp_field(st.iystar_c, rows, torch.arange(
+            st.src_w, dtype=torch.float32, device=dev)[None, :], st.step) - st.s_v[None, :].float()
+        k0 = st.base_v[:, torch.arange(st.src_w, device=dev) // st.col_tile].float()
+        n_v += int(((pv < k0) | (pv > k0 + st.d_v - 1)).sum())
+    return mask, n_v
+
+
+def hybrid_phase(dev, tag, h, geo, ds, esw_cell=ESW_CELL, b3_cell=HYBRID_B3):
+    """Drive the fast extreme-warp mode on *dev* (``XRTPU_FAST_EXTREME_WARP=1``
+    set for the phase): ``resample_in_space`` of the global source *geo*
+    (its dataset *ds*) onto (a) the ESW cell's target, where the memoised fn
+    is the whole-domain hybrid SRW and each call launches K17 and K18 once
+    (bilinear and nearest, 1 and 4 bands: first call, the host's planning
+    re-run apart, warm calls, peak device memory), and (b) BASELINE #3's,
+    where it is the two-pass region mosaic (``RegionSRWFn``, the pieces by
+    kind and step held to the JAX package's planner; bilinear and nearest:
+    first call, planning apart, warm calls, peak memory), held bit for bit
+    to the same mosaic with every piece on its plain version and, on the
+    smooth field sin(x/40) cos(y/30), to the default path's exact mosaic
+    (K16) within ``HYBRID_SMOOTH_ATOL`` where both are finite (over 0.9 of
+    the pixels), the pixels of ``hybrid_tap_misses`` left out; K17 and K18 bit for bit against their plain versions at
+    the cell with NaN and +-inf rows and columns and a numeric fill, and on
+    a plan whose taps pass all four source edges; K17, K18 and the mosaic
+    timed with their bounds beside K13, K16, K3 and ``F.grid_sample`` on the
+    same geometries.  *h* carries :func:`main`'s helpers.  Returns (max abs
+    errors, timings, bounds, yardsticks)."""
+    import torch
+    import torch.nn.functional as F
+
+    from xcube_resampling_tpu_torch import GridMapping
+    from xcube_resampling_tpu_torch.ops import srw as port_srw
+    from xcube_resampling_tpu_torch.ops.esw import make_esw_reproject_fn
+    from xcube_resampling_tpu_torch.ops.reproject_ops import interp_field, make_fused_reproject_fn
+    from xcube_resampling_tpu_torch.ops.srw_hybrid import (
+        srw_hybrid_horizontal,
+        srw_hybrid_horizontal_plain,
+        srw_hybrid_vertical,
+        srw_hybrid_vertical_plain,
+    )
+    from xcube_resampling_tpu_torch.reproject import device_reproject_fn
+
+    nan = float("nan")
+    err = dict.fromkeys(HYBRID_KERNELS, 0.0)
+    timings, bounds, yard = {}, {}, {}
+    geo_gm = GridMapping.from_dataset(ds)
+    cell = GridMapping.regular(**esw_cell["target"])
+    b3 = GridMapping.regular(**b3_cell["target"])
+    mpix = cell.height * cell.width / 1e6
+    mpix3 = b3.height * b3.width / 1e6
+    bands = esw_cell["bands"]
+    once = dict.fromkeys(HYBRID_KERNELS, 1)
+
+    def exact(got, ref, name, what):
+        err[name] = max(err[name], h.compare(got, ref, "exact", f"{what}: {name} vs plain",
+                                             signs=True))
+
+    def peak_of(call):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    def grid_sample_ms(ix_c, iy_c, step, out_h, out_w, src, interp):
+        """F.grid_sample (border, corners aligned) at the full-resolution
+        positions of the coarse fields: event ms and device ms."""
+        rows = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+        cols = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+        ix, iy = interp_field(ix_c, rows, cols, step), interp_field(iy_c, rows, cols, step)
+        hh, ww = src.shape[-2:]
+        grid = torch.stack((ix / (ww - 1) * 2 - 1, iy / (hh - 1) * 2 - 1), dim=-1)[None]
+        x = src.reshape(1, -1, hh, ww)
+
+        def call():
+            return F.grid_sample(x, grid, mode=interp, padding_mode="border",
+                                 align_corners=True)
+
+        return h.event_ms(call), h.device_ms(call)
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x4 = torch.rand((bands,) + tuple(geo.shape), generator=gen, device=dev)
+    ds4 = h.dataset(geo_gm, v=x4)
+    os.environ["XRTPU_FAST_EXTREME_WARP"] = "1"
+    try:
+        # -- (a) the ESW cell's geometry: the whole-domain hybrid -------------
+        where = (f"4326 {360 / geo.shape[-1]:g} deg -> EPSG:3035 {cell.height}x{cell.width} at "
+                 f"{cell.xy_res[0]:g} m")
+        fns = {}
+        for interp in ("bilinear", "nearest"):
+            out, first = h.run_main(ds, cell, interp, HYBRID_KERNELS, exact=once)
+            share = h.check_output(out["v"].data, (cell.height, cell.width))
+            fn = device_reproject_fn(geo_gm, cell, interp, nan, dev)
+            if not isinstance(fn, port_srw.HybridSRWFn) or fn.kind != "hybrid":
+                raise AssertionError(f"the ESW cell under the switch ran {type(fn).__name__}")
+            exact(out["v"].data, fn.plain(geo), "srw_hybrid_horizontal",
+                  f"the ESW cell under the switch, {interp}, 1 band, end to end")
+            t0 = time.perf_counter()
+            port_srw.make_srw_reproject_fn(geo_gm, cell, interp, nan, dev, allow_hybrid=True)
+            planning = time.perf_counter() - t0
+            _, warm = h.warm_calls(ds, cell, interp, HYBRID_KERNELS, 5, exact=once)
+            peak = peak_of(lambda: h.run_main(ds, cell, interp, HYBRID_KERNELS, exact=once))
+            out4, first4 = h.run_main(ds4, cell, interp, HYBRID_KERNELS, exact=once)
+            h.check_output(out4["v"].data, (bands, cell.height, cell.width))
+            exact(out4["v"].data, fn.plain(x4), "srw_hybrid_horizontal",
+                  f"the ESW cell under the switch, {interp}, {bands} bands, end to end")
+            _, warm4 = h.warm_calls(ds4, cell, interp, HYBRID_KERNELS, 5, exact=once)
+            st = fn.state
+            print(f"{tag} resample_in_space {where} {interp} under XRTPU_FAST_EXTREME_WARP=1 "
+                  f"(the hybrid SRW, K17 + K18, once each a call; d_v={st.d_v} d_h={st.d_h} "
+                  f"col_tile={st.col_tile} row_tile={st.row_tile}, shifts up to "
+                  f"{int(st.s_v.max())} rows and {int(st.s_h.max())} columns, window "
+                  f"{fn.window}): first call {first:.3f} s (the host's planning re-run alone "
+                  f"{planning:.3f} s), warm median of 5 {warm * 1e3:.3f} ms = "
+                  f"{mpix / warm:.1f} Mpix/s, peak device memory {peak / 2**30:.3f} GiB above "
+                  f"the held; {bands} bands: first call {first4:.3f} s, warm median of 5 "
+                  f"{warm4 * 1e3:.3f} ms = {bands * mpix / warm4:.1f} Mpix/s; finite share "
+                  f"{share:.4f}; vs the plain versions: equal")
+            fns[interp] = fn
+            del out, out4
+
+        # K17 and K18 against their plain versions on hard inputs
+        j0, j1, i0, i1 = fns["bilinear"].window
+        xe = x4.clone()
+        xe[0, j0], xe[0, :, i1 - 1] = nan, float("inf")
+        xe[1, j1 - 1], xe[1, :, i0] = -float("inf"), nan
+        xe[2, (j0 + j1) // 2], xe[3, :, (i0 + i1) // 2] = float("inf"), nan
+        edge_src, edge_tgt = (GridMapping.regular(**g) for g in (
+            dict(size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"),
+            dict(size=(112, 112), xy_min=(4318960, 3377708), xy_res=100, crs="epsg:3035")))
+        plan_e = port_srw.plan_srw_hybrid(edge_src, edge_tgt)
+        if not (plan_e.base_v.min() < 0 and plan_e.base_v.max() + plan_e.d_v > plan_e.src_h
+                and plan_e.base_h.min() < 0 and plan_e.base_h.max() + plan_e.d_h > plan_e.src_w):
+            raise AssertionError("the edge plan's taps do not pass every source edge")
+        xs = torch.rand((3, 96, 96), generator=gen, device=dev)
+        xs[0, 0], xs[0, :, -1], xs[1, -1], xs[1, :, 0] = nan, float("inf"), -float("inf"), nan
+        for interp in ("bilinear", "nearest"):
+            cases = [(port_srw.make_srw_reproject_fn(geo_gm, cell, interp, fill, dev,
+                                                     allow_hybrid=True), xe, fill, "the cell")
+                     for fill in (nan, -9999.0)]
+            cases.append((port_srw.make_srw_hybrid_fn(plan_e, interp, nan, dev), xs, nan,
+                          "taps past every edge"))
+            for f, data, fill, what in cases:
+                va = f.vertical_args(f.crop(data))
+                v = srw_hybrid_vertical(*va)
+                exact(v, srw_hybrid_vertical_plain(*va), "srw_hybrid_vertical",
+                      f"{what}, NaN and +-inf rows and columns, fill {fill}, {interp}")
+                ha = f.horizontal_args(v)
+                exact(srw_hybrid_horizontal(*ha), srw_hybrid_horizontal_plain(*ha),
+                      "srw_hybrid_horizontal",
+                      f"{what}, NaN and +-inf rows and columns, fill {fill}, {interp}")
+        print(f"{tag} srw_hybrid_vertical and srw_hybrid_horizontal vs plain at the ESW cell "
+              f"({bands} bands, NaN and +-inf rows and columns, fills NaN and -9999) and on a "
+              f"96^2 UTM32N -> 112^2 EPSG:3035 plan whose taps pass all four source edges, "
+              f"bilinear and nearest: equal (sign bits included)")
+
+        # K17 and K18 timed, with K13, K3 and F.grid_sample on the geometry
+        fn = fns["bilinear"]
+        st = fn.state
+        x = fn.crop(geo[None])
+        va = fn.vertical_args(x)
+        v = srw_hybrid_vertical(*va)
+        ha = fn.horizontal_args(v)
+        timings["srw_hybrid_vertical"] = h.time_pair(lambda: srw_hybrid_vertical(*va),
+                                                     lambda: srw_hybrid_vertical_plain(*va))
+        timings["srw_hybrid_horizontal"] = h.time_pair(lambda: srw_hybrid_horizontal(*ha),
+                                                       lambda: srw_hybrid_horizontal_plain(*ha))
+        bounds["srw_hybrid_vertical"] = aligned_vertical_bound(x, st)
+        bounds["srw_hybrid_horizontal"] = aligned_horizontal_bound(v, st)
+        x4c = fn.crop(x4)
+        va4 = fn.vertical_args(x4c)
+        v4 = srw_hybrid_vertical(*va4)
+        ha4 = fn.horizontal_args(v4)
+        yard["srw_hybrid_vertical"] = dict(
+            device_ms_4=h.device_ms(lambda: srw_hybrid_vertical(*va4)),
+            bound_ms_4=aligned_vertical_bound(x4c, st)[0])
+        yard["srw_hybrid_horizontal"] = dict(
+            device_ms_4=h.device_ms(lambda: srw_hybrid_horizontal(*ha4)),
+            bound_ms_4=aligned_horizontal_bound(v4, st)[0])
+        k13 = make_esw_reproject_fn(geo_gm, cell, "bilinear", nan, device=dev)
+        k3 = make_fused_reproject_fn(geo_gm, cell, "bilinear", nan, dev)
+        lib_ms, lib_d = grid_sample_ms(k3.ix_c, k3.iy_c, k3.step, k3.out_h, k3.out_w, geo,
+                                       "bilinear")
+        cell_yard = dict(hybrid_device_ms=h.device_ms(lambda: fn(geo)),
+                         hybrid_device_ms_4=h.device_ms(lambda: fn(x4)),
+                         k13_device_ms=h.device_ms(lambda: k13(geo)),
+                         k3_device_ms=h.device_ms(lambda: k3(geo)), grid_sample_ms=lib_ms,
+                         grid_sample_device_ms=lib_d)
+        yard["srw_hybrid_vertical"].update(cell_yard)
+        for name in HYBRID_KERNELS:
+            (k, p, kd), (b, by) = timings[name], bounds[name]
+            print(f"{tag} {name} at the ESW cell under the switch, bilinear (window "
+                  f"{tuple(x.shape[-2:])} -> {st.out_h}x{st.out_w}): kernel {k:.4f} ms (device "
+                  f"{kd:.4f} ms), plain {p:.3f} ms, bound {b:.4f} ms ({by}); {bands} bands "
+                  f"device {yard[name]['device_ms_4']:.4f} ms, bound "
+                  f"{yard[name]['bound_ms_4']:.4f} ms")
+        print(f"{tag} the ESW cell, bilinear, device ms: the hybrid K17 + K18 "
+              f"{cell_yard['hybrid_device_ms']:.4f} ({bands} bands "
+              f"{cell_yard['hybrid_device_ms_4']:.4f}); K13 {cell_yard['k13_device_ms']:.4f}; "
+              f"K3 {cell_yard['k3_device_ms']:.4f}; F.grid_sample {lib_ms:.4f} ms (device "
+              f"{lib_d:.4f})")
+        del x, v, v4, x4c, xe, fns
+
+        # -- (b) BASELINE #3: the two-pass region mosaic ------------------------
+        counts = Counter()
+        for kind, n in b3_cell["pieces"].items():
+            counts.update(dict.fromkeys(PIECE_KERNELS[kind], n))
+        expect = tuple(counts)
+        yy, xx = torch.meshgrid(torch.arange(geo.shape[-2], dtype=torch.float64, device=dev),
+                                torch.arange(geo.shape[-1], dtype=torch.float64, device=dev),
+                                indexing="ij")
+        smooth = (torch.sin(xx / 40) * torch.cos(yy / 30)).float()
+        del yy, xx
+        ds_s = h.dataset(geo_gm, v=smooth)
+        for interp in ("bilinear", "nearest"):
+            out, first = h.run_main(ds, b3, interp, expect, exact=counts)
+            share = h.check_output(out["v"].data, (b3.height, b3.width))
+            fn = device_reproject_fn(geo_gm, b3, interp, nan, dev)
+            if not isinstance(fn, port_srw.RegionSRWFn):
+                raise AssertionError(f"BASELINE #3 under the switch ran {type(fn).__name__}")
+            kinds = Counter(p.kind for p in fn.pieces)
+            step4 = sum(p.step == 4 for p in fn.pieces)
+            if kinds != b3_cell["pieces"] or step4 != b3_cell["step4"] or not fn.covered:
+                raise AssertionError(f"BASELINE #3's two-pass pieces {dict(kinds)}, {step4} at "
+                                     f"step 4, covered {fn.covered}")
+            exact(out["v"].data, fn.plain(geo), "srw_hybrid_horizontal",
+                  f"BASELINE #3's two-pass mosaic, {interp}, every piece")
+            t0 = time.perf_counter()
+            if port_srw.make_srw_reproject_fn(geo_gm, b3, interp, nan, dev,
+                                              allow_hybrid=True) is not None:
+                raise AssertionError("the SRW tier plans BASELINE #3 as a whole")
+            refusal = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            port_srw.make_region_reproject_fn(geo_gm, b3, interp, nan, device=dev)
+            planning = time.perf_counter() - t0
+            _, warm = h.warm_calls(ds, b3, interp, expect, 5, exact=counts)
+            peak = peak_of(lambda: h.run_main(ds, b3, interp, expect, exact=counts))
+            # the smooth field against the default path's exact mosaic (K16)
+            fast, _ = h.run_main(ds_s, b3, interp, expect, exact=counts)
+            os.environ["XRTPU_FAST_EXTREME_WARP"] = ""
+            exact_out, _ = h.run_main(ds_s, b3, interp, ("esw_mosaic",), exact={"esw_mosaic": 1})
+            k16 = device_reproject_fn(geo_gm, b3, interp, nan, dev)
+            os.environ["XRTPU_FAST_EXTREME_WARP"] = "1"
+            a, e = fast["v"].data, exact_out["v"].data
+            both = torch.isfinite(a) & torch.isfinite(e)
+            both_share = both.float().mean().item()
+            misses, n_v = hybrid_tap_misses(fn)
+            d = (a - e)[both & ~misses].abs()
+            d_miss = (a - e)[both & misses].abs()
+            d_miss = d_miss.max().item() if d_miss.numel() else 0.0
+            if both_share <= 0.9 or d.max().item() > HYBRID_SMOOTH_ATOL[interp]:
+                raise AssertionError(f"BASELINE #3 {interp}: the two-pass mosaic against the "
+                                     f"exact one on the smooth field: both finite on "
+                                     f"{both_share:.4f}, max abs diff {d.max().item():.3g} "
+                                     f"(limit {HYBRID_SMOOTH_ATOL[interp]:.4g})")
+            mos_d = h.device_ms(lambda: fn(geo[None]))
+            k16_d = h.device_ms(lambda: k16(geo))
+            k3 = make_fused_reproject_fn(geo_gm, b3, interp, nan, dev)
+            k3_d = h.device_ms(lambda: k3(geo[None]))
+            lib_ms, lib_d = grid_sample_ms(k3.ix_c, k3.iy_c, k3.step, b3.height, b3.width, geo,
+                                           interp)
+            print(f"{tag} resample_in_space BASELINE #3 {interp} under XRTPU_FAST_EXTREME_WARP=1 "
+                  f"(the two-pass region mosaic: {kinds['hybrid']} hybrid pieces, "
+                  f"{kinds['batched']} batched SRW, {kinds['gather']} K3; {step4} planned at "
+                  f"step 4; {len(fn.pieces)} pieces covering the target): first call "
+                  f"{first:.3f} s (the host's planning re-run alone: the mosaic's "
+                  f"{planning:.3f} s, the SRW tier's refusal {refusal:.3f} s), warm median of 5 "
+                  f"{warm * 1e3:.3f} ms = {mpix3 / warm:.1f} Mpix/s, peak device memory "
+                  f"{peak / 2**30:.3f} GiB above the held; finite share {share:.4f}; vs every "
+                  f"piece's plain version: equal; on sin(x/40) cos(y/30) against the exact "
+                  f"mosaic (K16): both finite on {both_share:.4f}, max abs diff "
+                  f"{d.max().item():.3g} (limit {HYBRID_SMOOTH_ATOL[interp]:.4g}), mean "
+                  f"{d.double().mean().item():.3g}; left out: {int(misses.sum())} pixels "
+                  f"whose horizontal position the hybrid plan leaves outside their taps (max abs "
+                  f"diff there {d_miss:.3g}; {n_v} vertical positions outside theirs)")
+            print(f"{tag} BASELINE #3 {interp}, device ms: the two-pass mosaic {mos_d:.4f}; "
+                  f"K16 {k16_d:.4f}; K3 {k3_d:.4f}; F.grid_sample {lib_ms:.4f} ms (device "
+                  f"{lib_d:.4f})")
+            yard["srw_hybrid_horizontal"].update({
+                f"b3_{interp}_mosaic_device_ms": mos_d, f"b3_{interp}_k16_device_ms": k16_d,
+                f"b3_{interp}_k3_device_ms": k3_d, f"b3_{interp}_warm_ms": warm * 1e3,
+                f"b3_{interp}_first_s": first, f"b3_{interp}_planning_s": planning})
+            del out, fast, exact_out, a, e, d, both, misses, fn, k16, k3
+    finally:
+        del os.environ["XRTPU_FAST_EXTREME_WARP"]
+    del x4, ds4, smooth, ds_s
+    torch.cuda.empty_cache()
+    return err, timings, bounds, yard
 
 
 # The sharded rectify: R1 (BASELINE #4's 1189 x 1890 swath onto its
@@ -2404,13 +2754,14 @@ def main() -> int:
               f"{max(k[2] for k in cached)} bytes spilled, "
               f"{max(k[3] for k in cached)} bytes of stack frame")
     # K7's band form, K2, K11, K12, K3's band form, K13 and its band form,
-    # K14, K15, K16 and the downscale form's cached kernels: no spill, no
-    # local memory
+    # K14-K18 (K17 and K18 launch K14's and K15's kernels, each per method
+    # with one tile and with many) and the downscale form's cached kernels:
+    # no spill, no local memory
     for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
                        ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
-                       ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 2),
-                       ("srw_aligned_horizontal_kernel", 2), ("esw_mosaic_kernel", 3),
+                       ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 4),
+                       ("srw_aligned_horizontal_kernel", 4), ("esw_mosaic_kernel", 3),
                        ("affine_gather_reduce_cached", 7 * 8 * 8)):
         found = ptxas_kernels(build.log, pattern)
         if build.log and (len(found) != n or any(k[2] or k[3] for k in found)):
@@ -2425,6 +2776,7 @@ def main() -> int:
         "coarsen_rank": 0.0, "ij_gather": 0.0, "rectify_phase_a": 0.0, "exact_gather": 0.0,
         "ij_bboxes": 0.0, "esw_gather": 0.0, "esw_gather_band": 0.0,
         "srw_aligned_vertical": 0.0, "srw_aligned_horizontal": 0.0, "esw_mosaic": 0.0,
+        "srw_hybrid_vertical": 0.0, "srw_hybrid_horizontal": 0.0,
     }
     main_launches: Counter = Counter()
     rectify_launches: Counter = Counter()
@@ -3023,6 +3375,20 @@ def main() -> int:
     bounds.update(esw_bounds)
     library.update(esw_library)
     torch.cuda.empty_cache()
+
+    # -- 3d. the fast extreme-warp mode: K17, K18 and the two-pass mosaic ---
+    hy_err, hy_timings, hy_bounds, hy_yard = hybrid_phase(
+        dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
+                                  device_ms=device_ms, run_main=run_main,
+                                  warm_calls=warm_calls, dataset=dataset,
+                                  check_output=check_output),
+        geo, ds1,
+    )
+    for name, e in hy_err.items():
+        err[name] = max(err[name], e)
+    timings.update(hy_timings)
+    bounds.update(hy_bounds)
+    library.update(dict.fromkeys(HYBRID_KERNELS, (None, None)))
 
     # -- 4. a small case: numpy and tensor variables ------------------------
     # numpy variables (float32, float64, uint16) take the host path's
@@ -4453,6 +4819,14 @@ def main() -> int:
             "xcube_resampling_tpu_torch/csrc/esw_mosaic.cu",
             "xcube_resampling_tpu/ops/esw.py:1128",
         ),
+        "srw_hybrid_vertical": (
+            "xcube_resampling_tpu_torch/csrc/srw_aligned.cu",
+            "xcube_resampling_tpu/ops/srw.py:1430",
+        ),
+        "srw_hybrid_horizontal": (
+            "xcube_resampling_tpu_torch/csrc/srw_aligned.cu",
+            "xcube_resampling_tpu/ops/srw.py:1480",
+        ),
     }
     kernels = [
         {
@@ -4472,7 +4846,7 @@ def main() -> int:
             # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 and its band
             # form F.grid_sample (R1, nearest), K3's band form F.grid_sample
             # (bilinear, band 1 past the gate); K8-K12 and K1's and K2's band
-            # forms, K14, K15: none
+            # forms, K14, K15, K17, K18: none
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],
@@ -4496,6 +4870,9 @@ def main() -> int:
                      bound_ms_4=fl_variants[f"{name}_bound_ms_4"])
     next(k for k in kernels if k["name"] == "srw_aligned_vertical").update(
         {k: v for k, v in fl_variants.items() if not k.startswith("srw_aligned")})
+    # K17 and K18 at 4 bands, the ESW cell's and BASELINE #3's yardsticks
+    for name in HYBRID_KERNELS:
+        next(k for k in kernels if k["name"] == name).update(hy_yard[name])
     print(f"{tag} chip_smoke: {time.perf_counter() - t_start:.1f} s from its start, the "
           f"build included")
     print(card)

@@ -448,7 +448,8 @@ def test_resample_in_space_runs_the_mosaic():
 def test_memo_key_separates_the_mosaic_switch(monkeypatch):
     """``XRTPU_NO_EXACT_MOSAIC`` is part of the plan memo's key: toggled
     between two calls on one geometry, the second builds K3's fn and does
-    not reuse the cached mosaic (and back again)."""
+    not reuse the cached mosaic (and back again).  So is
+    ``XRTPU_FAST_EXTREME_WARP``: set, it builds the two-pass mosaic."""
     _, (psrc, ptgt) = _gms("b3")
     x = torch.from_numpy(_data()[0])
     fns = []
@@ -465,19 +466,20 @@ def test_memo_key_separates_the_mosaic_switch(monkeypatch):
     k3 = port_reproject.device_reproject_fn(psrc, ptgt, "nearest", np.nan, CPU)
     _assert_equal(mos(x).numpy(), k3(x).numpy())
     monkeypatch.setenv("XRTPU_FAST_EXTREME_WARP", "1")
-    with pytest.raises(NotImplementedError, match="6.4"):
-        port_reproject.device_reproject_fn(psrc, ptgt, "bilinear", np.nan, CPU)
+    fast = port_reproject.device_reproject_fn(psrc, ptgt, "nearest", np.nan, CPU)
+    assert isinstance(fast, psrw.RegionSRWFn) and fast is not mos
 
 
 def test_region_reproject_fn_exact_only():
-    """``make_region_reproject_fn`` gives the mosaic with ``exact=True`` and
-    refuses the two-pass form, naming ROADMAP item 6.4; both entry points
-    default to the card."""
+    """``make_region_reproject_fn`` gives the mosaic with ``exact=True``,
+    and with ``exact=False`` the two-pass mosaic (``RegionSRWFn``; None for
+    triangular, as JAX's); both entry points default to the card."""
     _, (psrc, ptgt) = _gms("b3")
     fn = psrw.make_region_reproject_fn(psrc, ptgt, "nearest", exact=True, device=CPU)
     assert isinstance(fn, pmos.ESWMosaicFn) and fn.interp_method == "nearest"
-    with pytest.raises(NotImplementedError, match="6.4"):
-        psrw.make_region_reproject_fn(psrc, ptgt, "nearest", device=CPU)
+    fast = psrw.make_region_reproject_fn(psrc, ptgt, "nearest", device=CPU)
+    assert isinstance(fast, psrw.RegionSRWFn) and fast.covered
+    assert psrw.make_region_reproject_fn(psrc, ptgt, "triangular", device=CPU) is None
     assert pmos.make_esw_region_fn(psrc, ptgt, "cubic", device=CPU) is None
     for entry in (psrw.make_region_reproject_fn, pmos.make_esw_region_fn):
         assert inspect.signature(entry).parameters["device"].default == "cuda"

@@ -350,12 +350,13 @@ def _to_port(ds):
     )
 
 
-def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy):
+def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy, interp=None):
     """``resample_in_space`` on the utm_laea source with *case*'s target or
-    option, run with *pkg*'s classes on the data made by *tensor*."""
+    option, run with *pkg*'s classes on the data made by *tensor*, with
+    *interp* where given."""
     source_gm, target_gm = _geometry("utm_laea", pkg)
     data = tensor(_inputs(source_gm)[0])
-    kwargs = {}
+    kwargs = {} if interp is None else dict(interp_methods=interp)
     if case == "affine":
         target_gm = pkg.GridMapping.regular(
             size=(40, 40), xy_min=(565000.0, 5930000.0), xy_res=200.0,
@@ -390,7 +391,6 @@ def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy):
 @pytest.mark.parametrize(
     "case, match",
     [
-        ("extreme_warp", "XRTPU_FAST_EXTREME_WARP"),
         ("float64", "float32 tensors only"),
         ("cubic", "interp_methods must be one of"),
     ],
@@ -398,6 +398,20 @@ def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy):
 def test_routes_outside_the_slice_raise(monkeypatch, case, match):
     with pytest.raises(NotImplementedError, match=match):
         _route_case(monkeypatch, case)
+
+
+@pytest.mark.parametrize("interp", METHODS)
+def test_fast_extreme_warp_route_matches_jax(monkeypatch, interp):
+    """``XRTPU_FAST_EXTREME_WARP=1``, which raised before the port had the
+    hybrid SRW: on the mild utm_laea warp both packages' dispatch skip the
+    two-pass fidelity gate, admit the hybrid (not for triangular) and still
+    pick the tiled SRW; the outputs are equal bit for bit."""
+    ref = _route_case(monkeypatch, "extreme_warp", xrt, jnp.asarray, interp)
+    got = _route_case(monkeypatch, "extreme_warp", interp=interp)
+    (fn,) = port_reproject._DEVICE_FN_CACHE.values()
+    assert isinstance(fn, port_srw.SRWFn) and fn.kind == "tiled"
+    _assert_match(got["a"].data.numpy(), np.asarray(ref["a"].data))
+    assert np.isfinite(np.asarray(ref["a"].data)).mean() > 0.5
 
 
 @pytest.mark.parametrize("case", ["rectify", "int_numpy"])
@@ -437,7 +451,8 @@ def test_affine_and_downscale_routes_match_jax(monkeypatch, case):
 
 def test_port_never_imports_jax():
     """In a fresh process, importing the port and driving resample_in_space
-    on CPU tensors (tiled SRW, K3, the affine route, the reproject
+    on CPU tensors (tiled SRW, K3, each also under
+    ``XRTPU_FAST_EXTREME_WARP=1``, the affine route, the reproject
     pre-downscale, and the rectify route with a tensor and a numpy
     variable under both Phase A tiers, K10's tile plan and the resident
     Phase B among them), and driving sharded_reproject on a mesh of CPU
@@ -460,9 +475,12 @@ def test_port_never_imports_jax():
         " attrs=dict(grid_mapping='spatial_ref'))\n"
         "ds = port.Dataset({'v': v}, coords=coords)\n"
         "for exact in ('', '1'):\n"
-        "    os.environ['XRTPU_EXACT'] = exact\n"
-        "    out = port.resample_in_space(ds, target_gm=t, device='cpu')\n"
-        "    assert out['v'].data.shape == (80, 80)\n"
+        "    for fast in ('', '1'):\n"
+        "        os.environ['XRTPU_EXACT'] = exact\n"
+        "        os.environ['XRTPU_FAST_EXTREME_WARP'] = fast\n"
+        "        out = port.resample_in_space(ds, target_gm=t, device='cpu')\n"
+        "        assert out['v'].data.shape == (80, 80)\n"
+        "os.environ['XRTPU_FAST_EXTREME_WARP'] = ''\n"
         "a = port.GridMapping.regular(size=(40, 40), xy_min=(565000.0, 5930000.0),"
         " xy_res=200.0, crs='epsg:32632')\n"
         "d = port.GridMapping.regular(size=(20, 20), xy_min=(4320500, 3379500),"

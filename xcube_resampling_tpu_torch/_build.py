@@ -66,14 +66,15 @@ _SIGNATURES = {
         _I, _I64, _I, _I, _F, _I, _I, _I64, _I, _I, _I, _I, _I64, _P,
     ],
     # src, iystar_c, s_v, base_v, v, batch, src_h, src_w, out_h, ncj, ncc,
-    # step, d_v, method, stream
+    # step, n_col_tiles, col_tile, d_v, method, stream
     "xrt_srw_aligned_vertical_f32": [
-        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I64, _I, _I, _P,
     ],
     # v, ix_c, iy_c, s_h, base_h, out, batch, out_h, src_w, out_w, src_h,
-    # ncj, nci, step, d_h, method, fill, stream
+    # ncj, nci, step, row_tile, d_h, method, fill, stream
     "xrt_srw_aligned_horizontal_f32": [
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I, _I,
+        _F, _P,
     ],
     # src, ix_c, iy_c, out, batch, src_h, src_w, ncj, nci, out_h, out_w,
     # step, method, fill, stream

@@ -1,20 +1,25 @@
 """The separable-residual warp (SRW) tier on PyTorch tensors.
 
 Port of ``xcube_resampling_tpu/ops/srw.py``: ``make_srw_fn`` (:570-753),
-``make_srw_aligned_fn`` (:1049-1163) and ``make_srw_reproject_fn``
-(:1550-1685) without the hybrid.  The numpy planners are copies of the JAX
-package's (``_Fields`` to ``_fields_interp_err``, :48-204;
-``_fill_lattice_rows`` and ``fields_from_lattice``, :338-448; ``SRWPlan``
-to ``plan_srw``, :450-567; ``SRWAlignedPlan`` and ``plan_srw_aligned``,
-:953-1046; ``_source_window_gm``, :1693).
+``make_srw_aligned_fn`` (:1049-1163), ``make_srw_hybrid_fn`` (:1343-1542),
+``make_srw_reproject_fn`` (:1550-1685) and ``make_region_reproject_fn``
+(:1730-1865).  The numpy planners are copies of the JAX package's
+(``_Fields`` to ``_fields_interp_err``, :48-204; ``_fill_lattice_rows`` and
+``fields_from_lattice``, :338-448; ``SRWPlan`` to ``plan_srw``, :450-567;
+``SRWAlignedPlan`` and ``plan_srw_aligned``, :953-1046; ``SRWHybridPlan``
+and ``plan_srw_hybrid``, :1165-1340; ``_source_window_gm``, :1693).
 
 :func:`make_srw_reproject_fn` crops, gates and plans as the JAX package's
 does and picks its variant by the same cost model and tie-break: the tiled
 plan at ``d_v + d_h``, the aligned plan (bilinear and nearest, at most 24
-taps a pass) at ``bits_v + bits_h + d_v + d_h``, the first on a tie; a
-tiled pick becomes the batched one where its per-tile loops would emit
-more than 128 tap operations on fewer than 64 M source and target
-elements.  Every returned fn names its variant in ``kind``:
+taps a pass) at ``bits_v + bits_h + d_v + d_h``, and, where the hybrid is
+allowed (``allow_hybrid``, which the reproject engine sets under
+``XRTPU_FAST_EXTREME_WARP=1``; never for triangular; the two-pass
+fidelity gate is then skipped), the hybrid plan at
+``bits_v + bits_h + d_v + d_h + 4``, the first on a tie; a tiled pick
+becomes the batched one where its per-tile loops would emit more than 128
+tap operations on fewer than 64 M source and target elements.  Every
+returned fn names its variant in ``kind``:
 
 * ``"tiled"`` and ``"batched"``: :class:`SRWFn`, one launch of K1
   (vertical pass, all column tiles) and one of K2 (horizontal pass,
@@ -26,13 +31,15 @@ elements.  Every returned fn names its variant in ``kind``:
 * ``"aligned"``: :class:`AlignedSRWFn`, one launch of K14 and one of K15
   (``ops/srw_aligned.py``), the aligned SRW's passes with their shifts
   folded into the tap index (:func:`aligned_plan_to_device`).
+* ``"hybrid"``: :class:`HybridSRWFn`, one launch of K17 and one of K18
+  (``ops/srw_hybrid.py``): K14's and K15's kernels with a base a tile
+  (:func:`hybrid_plan_to_device`).
 
 Each kernel interpolates the coarse fields itself, so no per-pixel tensor
-is kept per geometry.  The hybrid SRW runs only under
-``XRTPU_FAST_EXTREME_WARP=1``, which the reproject engine refuses.
-:func:`make_region_reproject_fn` (:1730-1771) gives the exact region
-mosaic (``ops/esw_mosaic.py``) with ``exact=True``; its two-pass form
-waits for the hybrid (ROADMAP queue 1 item 6.4).
+is kept per geometry.  :func:`make_region_reproject_fn` gives the exact
+region mosaic (``ops/esw_mosaic.py``) with ``exact=True`` and otherwise the
+two-pass mosaic, :class:`RegionSRWFn`: the SRW on each quadtree piece of
+the target, planned on its own source window, K3 where a piece refuses.
 """
 
 from __future__ import annotations
@@ -44,7 +51,13 @@ import torch
 
 from ..crs import Transformer
 from ..gridmapping import GridMapping
-from .reproject_ops import METHODS, STEP, method_code
+from .reproject_ops import (
+    METHODS,
+    STEP,
+    FusedReprojectFn,
+    make_fused_reproject_fn,
+    method_code,
+)
 from .srw_aligned import (
     ALIGNED_METHODS,
     MAX_TAPS,
@@ -52,6 +65,12 @@ from .srw_aligned import (
     srw_aligned_horizontal_plain,
     srw_aligned_vertical,
     srw_aligned_vertical_plain,
+)
+from .srw_hybrid import (
+    srw_hybrid_horizontal,
+    srw_hybrid_horizontal_plain,
+    srw_hybrid_vertical,
+    srw_hybrid_vertical_plain,
 )
 from .srw_kernels import (
     Windows,
@@ -661,6 +680,193 @@ def plan_srw_aligned(
     )
 
 
+# ---------------------------------------------------------------------------
+# hybrid plan (severe, spatially varying warp)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SRWHybridPlan:
+    """Hybrid strategy: align shifts (as in the aligned plan) collapse the
+    bulk rotation, *tiled* residual bases absorb the row/column dependence
+    that sinks the pure aligned plan on domain-scale warps (where the local
+    rotation/scale varies by tens of degrees, e.g. full-plane 4326->3035).
+
+    Residual structure: with ``s_v(c)`` the per-column shift, the vertical
+    tap base may depend on (output row, column tile), so the only quantity
+    that must stay small is the *in-tile column spread at fixed row* of
+    ``iy*(j,c) - s_v(c)`` — a mixed-derivative term, orders of magnitude
+    smaller than the raw rotation slope that bounds the tiled plan.
+    """
+
+    iystar_c: np.ndarray
+    ix_c: np.ndarray
+    iy_c: np.ndarray
+    step: int
+    s_v: np.ndarray  # (src_w,) int32 >= 0 upward shift per source column
+    bits_v: int
+    base_v: np.ndarray  # (out_h, n_col_tiles) int32, residual space
+    d_v: int
+    col_tile: int
+    s_h: np.ndarray  # (out_h,) int32 >= 0 left shift per output row
+    bits_h: int
+    base_h: np.ndarray  # (n_row_tiles, out_w) int32, residual space
+    d_h: int
+    row_tile: int
+    src_h: int
+    src_w: int
+    out_h: int
+    out_w: int
+
+
+# The curvature gate's limit on the estimated position interpolation
+# error, in source pixels: the default of the JAX package's
+# make_srw_reproject_fn (srw.py:1557).
+POS_TOL = 0.5
+
+
+def plan_srw_hybrid(
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    step: int = 16,
+    max_taps: int = 32,
+    fields: _Fields | None = None,
+) -> SRWHybridPlan | None:
+    if fields is None:
+        fields = _coarse_geometry(source_gm, target_gm, step)
+    if fields is None:
+        return None
+    ix64, iy64, iystar = fields.ix64, fields.iy64, fields.iystar64
+    src_h, src_w = fields.src_h, fields.src_w
+    out_h, out_w = fields.out_h, fields.out_w
+    step = fields.step
+
+    # curvature gate: the kernel linearly interpolates the coarse iy*/ix
+    # fields; near projection singularities their curvature makes that
+    # interpolation itself wrong by ~|second difference|/8 pixels.  Reject
+    # when the estimated position error exceeds POS_TOL (callers can retry
+    # with a finer coarse step — the error scales with step^2).
+    if _fields_interp_err(fields) > POS_TOL:
+        return None
+
+    # ---- vertical: derivative-midrange shift — s_v'(c) is the midrange
+    # over output rows of d iy*/dc, which minimizes the worst-case in-tile
+    # residual slope at any row (the base absorbs all row dependence)
+    cs = np.arange(iystar.shape[1], dtype=np.float64) * step
+    dv = np.diff(iystar, axis=1)
+    mid_slope_v = 0.5 * (dv.max(axis=0) + dv.min(axis=0))
+    s_v_coarse = np.concatenate([[0.0], np.cumsum(mid_slope_v)])
+    s_v_coarse = np.round(s_v_coarse)
+    s_v0 = np.round(
+        np.interp(np.arange(src_w, dtype=np.float64), cs, s_v_coarse)
+    ).astype(np.int64)
+    s_v = s_v0 - s_v0.min()
+    bits_v = max(1, int(s_v.max()).bit_length())
+
+    # residual at the coarse grid, using the exact per-pixel shift values
+    s_v0_at_cs = s_v0[np.clip(cs.astype(np.int64), 0, src_w - 1)]
+    res_v = iystar - (s_v0_at_cs - s_v0.min())[None, :]
+    res_rows = _interp_rows(res_v, out_h, step)  # (out_h, ncc)
+    ncc = res_v.shape[1]
+
+    def _v_layout(col_tile):
+        n_col_tiles = -(-src_w // col_tile)
+        base = np.zeros((out_h, n_col_tiles), dtype=np.int32)
+        span_max = 0.0
+        for t in range(n_col_tiles):
+            c0 = t * col_tile
+            c1 = min((t + 1) * col_tile, src_w)
+            k0 = max(0, c0 // step - 1)
+            k1 = min(ncc, -(-c1 // step) + 1)
+            seg = res_rows[:, k0:k1]
+            m = seg.min(axis=1)
+            base[:, t] = np.floor(m).astype(np.int32) - 1
+            span_max = max(span_max, float((seg.max(axis=1) - m).max()))
+        return base, int(np.ceil(span_max)) + 4
+
+    # the vertical take's lane dimension is col_tile: tiles below 128
+    # waste lanes, so weight the tap count by the wasted fraction
+    best_v = None
+    for cand in (512, 256, 128, 64, 32):
+        base, d = _v_layout(cand)
+        eff = d * max(1.0, 128.0 / cand)
+        if d <= max_taps and (best_v is None or eff < best_v[0]):
+            best_v = (eff, cand, base, d)
+    if best_v is None:
+        return None
+    _, col_tile, base_v, d_v = best_v
+
+    # ---- horizontal: derivative-midrange shift over rows; residual
+    # i-dependence is absorbed by the per-column base within each row tile
+    rows_grid = np.arange(ix64.shape[0], dtype=np.float64) * step
+    dh = np.diff(ix64, axis=0)
+    mid_slope_h = 0.5 * (dh.max(axis=1) + dh.min(axis=1))
+    s_h_coarse = np.concatenate([[0.0], np.cumsum(mid_slope_h)])
+    s_h_coarse = np.round(s_h_coarse)
+    s_h0 = np.round(
+        np.interp(np.arange(out_h, dtype=np.float64), rows_grid, s_h_coarse)
+    ).astype(np.int64)
+    s_h = s_h0 - s_h0.min()
+    bits_h = max(1, int(s_h.max()).bit_length())
+
+    s_h0_at_rows = s_h0[
+        np.clip(rows_grid.astype(np.int64), 0, out_h - 1)
+    ]
+    res_h = ix64 - (s_h0_at_rows - s_h0.min())[:, None]
+    res_cols = _interp_cols(res_h, out_w, step)  # (ncj, out_w)
+    ncj = ix64.shape[0]
+    sample_rows = np.arange(ncj) * step
+
+    def _h_layout(row_tile):
+        n_row_tiles = -(-out_h // row_tile)
+        base = np.zeros((n_row_tiles, out_w), dtype=np.int32)
+        span_max_h = 0.0
+        for t in range(n_row_tiles):
+            r0 = t * row_tile
+            r1 = min((t + 1) * row_tile, out_h)
+            k0 = max(0, int(np.searchsorted(sample_rows, r0)) - 1)
+            k1 = min(ncj, int(np.searchsorted(sample_rows, r1)) + 2)
+            seg = res_cols[k0:k1, :]
+            m = seg.min(axis=0)
+            base[t, :] = np.floor(m).astype(np.int32) - 1
+            span_max_h = max(span_max_h, float((seg.max(axis=0) - m).max()))
+        return base, int(np.ceil(span_max_h)) + 4
+
+    # after the kernel's per-tile transpose, row_tile is the lane
+    # dimension of the horizontal take: weight the tap count by wasted
+    # lanes below 128
+    best_h = None
+    for cand in (512, 256, 128, 64, 32, 16):
+        base, d = _h_layout(cand)
+        eff = d * max(1.0, 128.0 / cand)
+        if d <= max_taps and (best_h is None or eff < best_h[0]):
+            best_h = (eff, d, cand, base)
+    if best_h is None:
+        return None
+    _, d_h, row_tile, base_h = best_h
+
+    return SRWHybridPlan(
+        iystar_c=iystar.astype(np.float32),
+        ix_c=ix64.astype(np.float32),
+        iy_c=iy64.astype(np.float32),
+        step=step,
+        s_v=s_v.astype(np.int32),
+        bits_v=bits_v,
+        base_v=base_v,
+        d_v=d_v,
+        col_tile=col_tile,
+        s_h=s_h.astype(np.int32),
+        bits_h=bits_h,
+        base_h=base_h,
+        d_h=d_h,
+        row_tile=row_tile,
+        src_h=src_h,
+        src_w=src_w,
+        out_h=out_h,
+        out_w=out_w,
+    )
+
+
 def _source_window_gm(source_gm: GridMapping, fields: _Fields, margin: int):
     """Crop the source to the rows/columns a region actually taps,
     returning (window_gm, (j0, j1, i0, i1)) or None for full coverage.
@@ -928,10 +1134,61 @@ def make_srw_aligned_fn(
     return AlignedSRWFn(aligned_plan_to_device(plan, device), interp_method, fill_value)
 
 
-# The curvature gate's limit on the estimated position interpolation
-# error, in source pixels: the default of the JAX package's
-# make_srw_reproject_fn (srw.py:1557).
-POS_TOL = 0.5
+@dataclass
+class HybridSRWState(AlignedSRWState):
+    """An :class:`SRWHybridPlan` on the device: the aligned state's fields,
+    with ``base_v`` (out_h, n_col_tiles) and ``base_h`` (n_row_tiles,
+    out_w) a base a tile, and the tiles' sizes."""
+
+    col_tile: int
+    row_tile: int
+
+
+def hybrid_plan_to_device(plan: SRWHybridPlan, device) -> HybridSRWState:
+    st = aligned_plan_to_device(plan, device)
+    return HybridSRWState(**vars(st), col_tile=int(plan.col_tile), row_tile=int(plan.row_tile))
+
+
+class HybridSRWFn(AlignedSRWFn):
+    """``fn(src) -> target`` through K17 then K18; ``fn.plain(src)``
+    through their plain versions.  ``src`` is (..., H, W) float32 on the
+    state's device; ``window`` (j0, j1, i0, i1), when set, crops it
+    first.  ``kind`` is ``"hybrid"`` (``make_srw_hybrid_fn``)."""
+
+    kind = "hybrid"
+
+    def vertical_args(self, src):
+        """K17's arguments for the cropped (B, src_h, src_w) *src*."""
+        st = self.state
+        return (
+            src, st.iystar_c, st.step, st.s_v, st.base_v, st.col_tile, st.d_v,
+            self.interp_method,
+        )
+
+    def horizontal_args(self, v):
+        """K18's arguments for K17's output *v*."""
+        st = self.state
+        return (
+            v, st.ix_c, st.iy_c, st.step, st.s_h, st.base_h, st.row_tile, st.d_h,
+            st.src_h, self.interp_method, self.fill_value,
+        )
+
+    def __call__(self, src):
+        return self._run(src, srw_hybrid_vertical, srw_hybrid_horizontal)
+
+    def plain(self, src):
+        return self._run(src, srw_hybrid_vertical_plain, srw_hybrid_horizontal_plain)
+
+
+def make_srw_hybrid_fn(
+    plan: SRWHybridPlan, interp_method: str = "bilinear", fill_value=np.nan,
+    device="cuda",
+) -> HybridSRWFn:
+    """The hybrid SRW reprojection of *plan* with its statics on *device*;
+    bilinear and nearest only (``srw.py:1355-1356``)."""
+    if interp_method not in ALIGNED_METHODS:
+        raise ValueError("SRW supports 'bilinear' and 'nearest' only")
+    return HybridSRWFn(hybrid_plan_to_device(plan, device), interp_method, fill_value)
 
 
 # The batched formulation's thresholds (srw.py:1676-1680): JAX takes it
@@ -948,15 +1205,22 @@ def make_srw_reproject_fn(
     interp_method: str = "bilinear",
     fill_value=np.nan,
     device="cuda",
+    step: int = STEP,
+    allow_hybrid: bool = False,
     **plan_kwargs,
-) -> SRWFn | AlignedSRWFn | None:
+) -> SRWFn | AlignedSRWFn | HybridSRWFn | None:
     """Crop, gate, plan and pick the SRW variant as the JAX package's
-    ``make_srw_reproject_fn`` does (:1550-1685, without the hybrid), or
-    None where its gates refuse every plan (callers then try the ESW).
-    *plan_kwargs* go to :func:`plan_srw` only, as there."""
+    ``make_srw_reproject_fn`` does (:1550-1685), or None where its gates
+    refuse every plan (callers then try the ESW).  ``allow_hybrid`` (the
+    JAX package's ``XRTPU_FAST_EXTREME_WARP=1``, which the reproject
+    engine's ladder reads and passes here; never for triangular) skips the
+    two-pass fidelity gate and admits the hybrid plan.  *plan_kwargs* go to
+    :func:`plan_srw` only, as there."""
     if interp_method not in METHODS:
         return None
-    fields = _coarse_geometry(source_gm, target_gm, STEP)
+    if interp_method == "triangular":
+        allow_hybrid = False
+    fields = _coarse_geometry(source_gm, target_gm, step)
     if fields is None:
         return None
     # crop the source to the window the target taps (srw.py:1585-1611)
@@ -964,7 +1228,8 @@ def make_srw_reproject_fn(
     if w is not None:
         win_gm, (j0, j1, i0, i1) = w
         inner = make_srw_reproject_fn(
-            win_gm, target_gm, interp_method, fill_value, device, **plan_kwargs
+            win_gm, target_gm, interp_method, fill_value, device, step=step,
+            allow_hybrid=allow_hybrid, **plan_kwargs,
         )
         if inner is not None:
             if inner.window is None:
@@ -973,30 +1238,42 @@ def make_srw_reproject_fn(
                 a0, a1, b0, b1 = inner.window
                 inner.window = (j0 + a0, j0 + a1, i0 + b0, i0 + b1)
         return inner
-    # the curvature gate and the two-pass fidelity gate (srw.py:1614-1629)
+    # the curvature gate and, unless the hybrid is allowed, the two-pass
+    # fidelity gate (srw.py:1614-1629)
     if _fields_interp_err(fields) > POS_TOL:
         return None
-    if _twopass_slope(fields) > 0.2:
+    if not allow_hybrid and _twopass_slope(fields) > 0.2:
         return None
-    tiled = plan_srw(source_gm, target_gm, step=STEP, fields=fields, **plan_kwargs)
+    tiled = plan_srw(source_gm, target_gm, step=step, fields=fields, **plan_kwargs)
     aligned = (
-        plan_srw_aligned(source_gm, target_gm, step=STEP, fields=fields, max_taps=MAX_TAPS)
+        plan_srw_aligned(source_gm, target_gm, step=step, fields=fields, max_taps=MAX_TAPS)
         if interp_method in ALIGNED_METHODS
         else None
     )
+    hybrid = (
+        plan_srw_hybrid(source_gm, target_gm, step=step, fields=fields)
+        if allow_hybrid
+        else None
+    )
     # the cost model (srw.py:1645-1668): a full-array stream per tap and
-    # per shift pass; min keeps the first candidate on a tie, the tiled one
+    # per shift pass, four more for the hybrid's reshuffles; min keeps the
+    # first candidate on a tie (tiled, aligned, hybrid)
     candidates = []
     if tiled is not None:
         candidates.append((tiled.d_v + tiled.d_h, "tiled", tiled))
     if aligned is not None:
         cost = aligned.bits_v + aligned.bits_h + aligned.d_v + aligned.d_h
         candidates.append((cost, "aligned", aligned))
+    if hybrid is not None:
+        cost = hybrid.bits_v + hybrid.bits_h + hybrid.d_v + hybrid.d_h + 4
+        candidates.append((cost, "hybrid", hybrid))
     if not candidates:
         return None
     _, kind, best = min(candidates, key=lambda c: c[0])
     if kind == "aligned":
         return make_srw_aligned_fn(best, interp_method, fill_value, device)
+    if kind == "hybrid":
+        return make_srw_hybrid_fn(best, interp_method, fill_value, device)
     n_ops = best.base_v.shape[1] * best.d_v + best.base_h.shape[0] * best.d_h
     n_elems = best.src_h * best.src_w + best.out_h * best.out_w
     fn = make_srw_fn(best, interp_method, fill_value, device)
@@ -1005,28 +1282,158 @@ def make_srw_reproject_fn(
     return fn
 
 
+# ---------------------------------------------------------------------------
+# the two-pass region mosaic (domain-scale warps beyond any single plan)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RegionPiece:
+    """Target rows [r0, r1) and columns [c0, c1) of the two-pass mosaic,
+    computed by *fn* from the source window ``window`` (j0, j1, i0, i1; None
+    for the whole source), planned at the coarse ``step`` (None for a
+    direct-gather piece)."""
+
+    r0: int
+    r1: int
+    c0: int
+    c1: int
+    window: tuple[int, int, int, int] | None
+    step: int | None
+    fn: SRWFn | AlignedSRWFn | HybridSRWFn | FusedReprojectFn
+
+    @property
+    def kind(self) -> str:
+        """The piece's SRW variant (``fn.kind``), or ``"gather"`` (K3)."""
+        return getattr(self.fn, "kind", "gather")
+
+
+class RegionSRWFn:
+    """``fn(src) -> target``: the two-pass region mosaic, each piece through
+    its own kernels (K17 + K18, K14 + K15, K1 + K2 or K3) into its rectangle
+    of the canvas; ``fn.plain(src)`` through their plain versions.  The
+    canvas is filled first only where the pieces do not cover the target
+    (``covered``); the quadtree always covers it."""
+
+    def __init__(self, pieces, out_h, out_w, fill_value):
+        self.pieces = pieces
+        self.out_h, self.out_w = out_h, out_w
+        self.fill_value = float(fill_value)
+        area = sum((p.r1 - p.r0) * (p.c1 - p.c0) for p in pieces)
+        self.covered = area == out_h * out_w
+
+    def _run(self, src, plain):
+        shape = src.shape[:-2] + (self.out_h, self.out_w)
+        if self.covered:
+            out = torch.empty(shape, dtype=torch.float32, device=src.device)
+        else:
+            out = torch.full(shape, self.fill_value, dtype=torch.float32, device=src.device)
+        for p in self.pieces:
+            piece_src = src
+            if p.window is not None:
+                j0, j1, i0, i1 = p.window
+                piece_src = src[..., j0:j1, i0:i1]
+            run = p.fn.plain if plain else p.fn
+            out[..., p.r0 : p.r1, p.c0 : p.c1] = run(piece_src)
+        return out
+
+    def __call__(self, src):
+        return self._run(src, plain=False)
+
+    def plain(self, src):
+        return self._run(src, plain=True)
+
+
 def make_region_reproject_fn(
     source_gm: GridMapping,
     target_gm: GridMapping,
     interp_method: str = "bilinear",
     fill_value=np.nan,
     step: int = STEP,
+    base_split: int = 4,
+    max_depth: int = 3,
     exact: bool = False,
     device="cuda",
 ):
-    """The region mosaic for warps too severe for any single SRW plan:
-    with ``exact=True`` the exact region mosaic
+    """The region mosaic for warps too severe for any single SRW plan, as
+    the JAX package's ``make_region_reproject_fn`` (:1730-1865).  With
+    ``exact=True`` the exact region mosaic
     (:func:`.esw_mosaic.make_esw_region_fn`: the ESW on each quadtree
-    piece, the direct gather where a piece refuses), or None where no
-    region plans.  The two-pass form (``exact=False``, the JAX package's
-    default here) raises ``NotImplementedError``."""
-    if not exact:
-        raise NotImplementedError(
-            "the two-pass region mosaic (XRTPU_FAST_EXTREME_WARP=1) is not "
-            "ported yet: ROADMAP queue 1 item 6.4"
-        )
-    from .esw_mosaic import make_esw_region_fn
+    piece, the direct gather where a piece refuses).  Otherwise the
+    two-pass mosaic (:class:`RegionSRWFn`; bilinear and nearest, None for
+    other methods): the target split *base_split* ways an axis and then by
+    a quadtree up to *max_depth*, each region planned by
+    :func:`make_srw_reproject_fn` on its own cropped source window at
+    *step* and then at 4, split where both refuse (while it is at least
+    128 pixels a side) and otherwise through K3.  None where no region
+    plans."""
+    if exact:
+        from .esw_mosaic import make_esw_region_fn
 
-    return make_esw_region_fn(
-        source_gm, target_gm, interp_method, fill_value, step=step, device=device
-    )
+        return make_esw_region_fn(
+            source_gm, target_gm, interp_method, fill_value, step=step, device=device
+        )
+    if interp_method not in ALIGNED_METHODS:
+        return None
+
+    out_h, out_w = target_gm.height, target_gm.width
+    x_res = float(target_gm.x_res)
+    y_res = float(target_gm.y_res)
+    j_up = bool(target_gm.is_j_axis_up)
+
+    def region_gm(r0, r1, c0, c1):
+        if j_up:
+            y_min = float(target_gm.y_min) + r0 * y_res
+        else:
+            y_min = float(target_gm.y_max) - r1 * y_res
+        return GridMapping.regular(
+            size=(c1 - c0, r1 - r0),
+            xy_min=(float(target_gm.x_min) + c0 * x_res, y_min),
+            xy_res=(x_res, y_res),
+            crs=target_gm.crs,
+            is_j_axis_up=j_up,
+        )
+
+    pieces: list[RegionPiece] = []
+
+    def build(r0, r1, c0, c1, depth):
+        gm = region_gm(r0, r1, c0, c1)
+        fields = _coarse_geometry(source_gm, gm, step)
+        win = None
+        src_gm_here = source_gm
+        if fields is not None:
+            w = _source_window_gm(source_gm, fields, margin=8 + 48)
+            if w is not None:
+                src_gm_here, win = w
+        # a finer coarse step rescues high-curvature regions (srw.py:1809)
+        for step_try in (step, 4):
+            fn = make_srw_reproject_fn(
+                src_gm_here, gm, interp_method, fill_value, device, step=step_try,
+                allow_hybrid=True,
+            )
+            if fn is not None:
+                pieces.append(RegionPiece(r0, r1, c0, c1, win, step_try, fn))
+                return
+        if depth < max_depth and (r1 - r0) >= 128 and (c1 - c0) >= 128:
+            rm = (r0 + r1) // 2
+            cm = (c0 + c1) // 2
+            build(r0, rm, c0, cm, depth + 1)
+            build(r0, rm, cm, c1, depth + 1)
+            build(rm, r1, c0, cm, depth + 1)
+            build(rm, r1, cm, c1, depth + 1)
+            return
+        gfn = make_fused_reproject_fn(src_gm_here, gm, interp_method, fill_value, device)
+        pieces.append(RegionPiece(r0, r1, c0, c1, win, None, gfn))
+
+    rb = -(-out_h // base_split)
+    cb = -(-out_w // base_split)
+    for bj in range(base_split):
+        for bi in range(base_split):
+            r0, r1 = bj * rb, min((bj + 1) * rb, out_h)
+            c0, c1 = bi * cb, min((bi + 1) * cb, out_w)
+            if r1 > r0 and c1 > c0:
+                build(r0, r1, c0, c1, 0)
+
+    if all(p.step is None for p in pieces):
+        return None  # nothing planned: the plain gather on the full grid wins
+    return RegionSRWFn(pieces, out_h, out_w, fill_value)

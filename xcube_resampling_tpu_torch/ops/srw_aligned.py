@@ -1,8 +1,10 @@
 """K14 and K15: the aligned separable-residual warp's tap passes.
 
-``srw_aligned_vertical`` (K14) and ``srw_aligned_horizontal`` (K15), both
-in ``csrc/srw_aligned.cu``, replace the XLA kernel of
-``xcube_resampling_tpu/ops/srw.py:make_srw_aligned_fn`` (:1084-1152).
+``srw_aligned_vertical`` (K14) and ``srw_aligned_horizontal`` (K15), the
+kernels of ``csrc/srw_aligned.cu`` with one tile (the hybrid SRW's K17
+and K18, ``ops/srw_hybrid.py``, launch them with a base a tile), replace
+the XLA kernel of ``xcube_resampling_tpu/ops/srw.py:make_srw_aligned_fn``
+(:1084-1152).
 That kernel shifts each source column up by ``s_v[c]`` rows and each row
 of the vertical pass's output left by ``s_h[r]`` columns, by log2 roll and
 select passes with edge repeat, and then sums taps in the shifted space
@@ -92,14 +94,15 @@ def _tap_sum(taps, interp_method):
     return acc
 
 
-def srw_aligned_vertical_plain(src, iystar_c, step, s_v, base_v, d_v, interp_method):
-    """Plain PyTorch version of K14: ``v`` (B, out_h, src_w)."""
+def vertical_plain(src, iystar_c, step, s_v, base, d_v, interp_method):
+    """The vertical pass of the aligned and hybrid SRW (K14, K17) in plain
+    PyTorch: ``v`` (B, out_h, src_w) from the int64 tap bases *base*, an
+    (out_h, 1) or (out_h, src_w) tensor in shifted row space."""
     _check_method(interp_method)
     batch, src_h, src_w = src.shape
-    out_h = base_v.shape[0]
+    out_h = base.shape[0]
     shift = s_v.to(torch.int64)[None, :]
     pos = interp_field(iystar_c, *_grid(out_h, src_w, src.device), step) - shift.to(_F32)
-    base = base_v.to(torch.int64)[:, None]
 
     def taps():
         for d in range(d_v):
@@ -109,20 +112,19 @@ def srw_aligned_vertical_plain(src, iystar_c, step, s_v, base_v, d_v, interp_met
     return _tap_sum(taps(), interp_method)
 
 
-def srw_aligned_horizontal_plain(
-    v, ix_c, iy_c, step, s_h, base_h, d_h, src_h, interp_method, fill_value
-):
-    """Plain PyTorch version of K15: (B, out_h, out_w)."""
+def horizontal_plain(v, ix_c, iy_c, step, s_h, base, d_h, src_h, interp_method, fill_value):
+    """The horizontal pass and fill select of the aligned and hybrid SRW
+    (K15, K18) in plain PyTorch: (B, out_h, out_w) from the int64 tap bases
+    *base*, a (1, out_w) or (out_h, out_w) tensor in shifted column space."""
     _check_method(interp_method)
     batch, out_h, src_w = v.shape
-    out_w = base_h.shape[0]
+    out_w = base.shape[1]
     rows, cols = _grid(out_h, out_w, v.device)
     ix = interp_field(ix_c, rows, cols, step)
     iy = interp_field(iy_c, rows, cols, step)
     valid = (ix > -0.5) & (ix < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
     shift = s_h.to(torch.int64)[:, None]
     pos = ix - shift.to(_F32)
-    base = base_h.to(torch.int64)[None, :]
 
     def taps():
         for d in range(d_h):
@@ -133,21 +135,42 @@ def srw_aligned_horizontal_plain(
     return torch.where(valid, out, torch.tensor(fill_value, dtype=_F32, device=v.device))
 
 
-def srw_aligned_vertical(src, iystar_c, step, s_v, base_v, d_v, interp_method):
-    """K14: the aligned vertical pass, ``v``; see the module docstring."""
-    if on_cpu(src, iystar_c, s_v, base_v):
-        return srw_aligned_vertical_plain(src, iystar_c, step, s_v, base_v, d_v, interp_method)
+def srw_aligned_vertical_plain(src, iystar_c, step, s_v, base_v, d_v, interp_method):
+    """Plain PyTorch version of K14: ``v`` (B, out_h, src_w)."""
+    base = base_v.to(torch.int64)[:, None]
+    return vertical_plain(src, iystar_c, step, s_v, base, d_v, interp_method)
+
+
+def srw_aligned_horizontal_plain(
+    v, ix_c, iy_c, step, s_h, base_h, d_h, src_h, interp_method, fill_value
+):
+    """Plain PyTorch version of K15: (B, out_h, out_w)."""
+    base = base_h.to(torch.int64)[None, :]
+    return horizontal_plain(
+        v, ix_c, iy_c, step, s_h, base, d_h, src_h, interp_method, fill_value
+    )
+
+
+def launch_vertical(name, src, iystar_c, step, s_v, base_v, col_tile, d_v, interp_method,
+                    max_taps):
+    """Launch the vertical pass's kernel (K14 with one column tile, K17)
+    with the (out_h, n_col_tiles) int32 bases *base_v*, a base every
+    *col_tile* source columns, and count the launch under *name*."""
     _check_method(interp_method)
     batch, src_h, src_w = src.shape
-    out_h = base_v.shape[0]
+    out_h, n_col_tiles = base_v.shape
     ncj, ncc = iystar_c.shape
-    if not 1 <= d_v <= MAX_TAPS or step < 1 or ncj < 2 or ncc < 2:
-        raise ValueError(f"K14: d_v {d_v} (1..{MAX_TAPS}), step {step}, iystar_c {(ncj, ncc)}")
+    if (not 1 <= d_v <= max_taps or step < 1 or ncj < 2 or ncc < 2 or col_tile < 1
+            or n_col_tiles != max(1, -(-src_w // col_tile))):
+        raise ValueError(
+            f"{name}: d_v {d_v} (1..{max_taps}), step {step}, iystar_c {(ncj, ncc)}, "
+            f"{n_col_tiles} column tiles of {col_tile} for width {src_w}"
+        )
     require_int32_planes(src_h, src_w, out_h, src_w)
     require_cuda(src, "src", _F32, (batch, src_h, src_w))
     require_cuda(iystar_c, "iystar_c", _F32, (ncj, ncc))
     require_cuda(s_v, "s_v", torch.int32, (src_w,))
-    require_cuda(base_v, "base_v", torch.int32, (out_h,))
+    require_cuda(base_v, "base_v", torch.int32, (out_h, n_col_tiles))
     v = torch.empty((batch, out_h, src_w), dtype=_F32, device=src.device)
     if v.numel() == 0:
         return v
@@ -155,12 +178,59 @@ def srw_aligned_vertical(src, iystar_c, step, s_v, base_v, d_v, interp_method):
     with torch.cuda.device(src.device):
         rc = lib.xrt_srw_aligned_vertical_f32(
             src.data_ptr(), iystar_c.data_ptr(), s_v.data_ptr(), base_v.data_ptr(),
-            v.data_ptr(), batch, src_h, src_w, out_h, ncj, ncc, step, d_v,
-            method_code(interp_method), torch.cuda.current_stream().cuda_stream,
+            v.data_ptr(), batch, src_h, src_w, out_h, ncj, ncc, step, n_col_tiles, col_tile,
+            d_v, method_code(interp_method), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, rc, "srw_aligned_vertical")
-    count_launch("srw_aligned_vertical")
+    _build.check(lib, rc, name)
+    count_launch(name)
     return v
+
+
+def launch_horizontal(name, v, ix_c, iy_c, step, s_h, base_h, row_tile, d_h, src_h,
+                      interp_method, fill_value, max_taps):
+    """Launch the horizontal pass's kernel (K15 with one row tile, K18)
+    with the (n_row_tiles, out_w) int32 bases *base_h*, a base every
+    *row_tile* output rows, and count the launch under *name*."""
+    _check_method(interp_method)
+    batch, out_h, src_w = v.shape
+    n_row_tiles, out_w = base_h.shape
+    ncj, nci = ix_c.shape
+    if (not 1 <= d_h <= max_taps or step < 1 or ncj < 2 or nci < 2 or row_tile < 1
+            or n_row_tiles != max(1, -(-out_h // row_tile))):
+        raise ValueError(
+            f"{name}: d_h {d_h} (1..{max_taps}), step {step}, ix_c {(ncj, nci)}, "
+            f"{n_row_tiles} row tiles of {row_tile} for height {out_h}"
+        )
+    require_int32_planes(out_h, src_w, out_h, out_w)
+    require_cuda(v, "v", _F32, (batch, out_h, src_w))
+    require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
+    require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
+    require_cuda(s_h, "s_h", torch.int32, (out_h,))
+    require_cuda(base_h, "base_h", torch.int32, (n_row_tiles, out_w))
+    out = torch.empty((batch, out_h, out_w), dtype=_F32, device=v.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(v.device):
+        rc = lib.xrt_srw_aligned_horizontal_f32(
+            v.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), s_h.data_ptr(),
+            base_h.data_ptr(), out.data_ptr(), batch, out_h, src_w, out_w, src_h, ncj,
+            nci, step, row_tile, d_h, method_code(interp_method), float(fill_value),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, name)
+    count_launch(name)
+    return out
+
+
+def srw_aligned_vertical(src, iystar_c, step, s_v, base_v, d_v, interp_method):
+    """K14: the aligned vertical pass, ``v``; see the module docstring."""
+    if on_cpu(src, iystar_c, s_v, base_v):
+        return srw_aligned_vertical_plain(src, iystar_c, step, s_v, base_v, d_v, interp_method)
+    return launch_vertical(
+        "srw_aligned_vertical", src, iystar_c, step, s_v, base_v.reshape(-1, 1),
+        max(1, src.shape[-1]), d_v, interp_method, MAX_TAPS,
+    )
 
 
 def srw_aligned_horizontal(
@@ -172,29 +242,7 @@ def srw_aligned_horizontal(
         return srw_aligned_horizontal_plain(
             v, ix_c, iy_c, step, s_h, base_h, d_h, src_h, interp_method, fill_value
         )
-    _check_method(interp_method)
-    batch, out_h, src_w = v.shape
-    out_w = base_h.shape[0]
-    ncj, nci = ix_c.shape
-    if not 1 <= d_h <= MAX_TAPS or step < 1 or ncj < 2 or nci < 2:
-        raise ValueError(f"K15: d_h {d_h} (1..{MAX_TAPS}), step {step}, ix_c {(ncj, nci)}")
-    require_int32_planes(out_h, src_w, out_h, out_w)
-    require_cuda(v, "v", _F32, (batch, out_h, src_w))
-    require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
-    require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
-    require_cuda(s_h, "s_h", torch.int32, (out_h,))
-    require_cuda(base_h, "base_h", torch.int32, (out_w,))
-    out = torch.empty((batch, out_h, out_w), dtype=_F32, device=v.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(v.device):
-        rc = lib.xrt_srw_aligned_horizontal_f32(
-            v.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), s_h.data_ptr(),
-            base_h.data_ptr(), out.data_ptr(), batch, out_h, src_w, out_w, src_h, ncj,
-            nci, step, d_h, method_code(interp_method), float(fill_value),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, "srw_aligned_horizontal")
-    count_launch("srw_aligned_horizontal")
-    return out
+    return launch_horizontal(
+        "srw_aligned_horizontal", v, ix_c, iy_c, step, s_h, base_h.reshape(1, -1),
+        max(1, v.shape[-2]), d_h, src_h, interp_method, fill_value, MAX_TAPS,
+    )

@@ -4,9 +4,13 @@ Port of ``xcube_resampling_tpu/reproject.py:52-298``, with the JAX
 package's two semantics kept apart:
 
 * float32 tensor variables stay on their device and go through the
-  device tiers, the JAX package's ladder: the tiled SRW plan
-  (:func:`.ops.srw.make_srw_reproject_fn`: crop, gates, K1 + K2), unless
-  ``XRTPU_EXACT=1``; then the exact separable warp
+  device tiers, the JAX package's ladder: the SRW
+  (:func:`.ops.srw.make_srw_reproject_fn`: crop, gates, its variant by
+  JAX's cost model), unless ``XRTPU_EXACT=1``; then, under
+  ``XRTPU_FAST_EXTREME_WARP=1`` (which also admits the hybrid SRW, K17 +
+  K18, in the tier before), the two-pass region mosaic
+  (:func:`.ops.srw.make_region_reproject_fn`: the SRW on each quadtree
+  piece, K3 where a piece refuses); then the exact separable warp
   (:func:`.ops.esw.make_esw_reproject_fn`: crop, ``plan_esw``, K13), where
   its plan admits the mapping; then the exact region mosaic
   (:func:`.ops.srw.make_region_reproject_fn` with ``exact=True``: the ESW
@@ -27,8 +31,8 @@ Where the target is coarser than the source (scale below
 target's span and downscales it through the affine engine (K4's downscale
 form ``affine_gather_reduce``, or K4 then K6 for mode and median), on the
 device tensors.  Grid variables on more than one device raise
-``ValueError``; ``XRTPU_FAST_EXTREME_WARP=1``, tensors other than float32
-and dtypes outside the affine engine's seven raise ``NotImplementedError``.
+``ValueError``; tensors other than float32 and dtypes outside the affine
+engine's seven raise ``NotImplementedError``.
 ``_gm_fingerprint``, ``_as_target_array``, ``_maybe_downscale``,
 ``_assert_target_overlaps_source``, ``_WindowPlan``,
 ``_plan_source_windows`` and ``_target_centers_in_source`` are copies of
@@ -278,11 +282,6 @@ def _gm_fingerprint(gm) -> tuple:
 def device_reproject_fn(source_gm, target_gm, interp_method, fill_value, device):
     """The memoised tier function for a geometry on *device* (built on
     first use)."""
-    if os.environ.get("XRTPU_FAST_EXTREME_WARP", "") == "1":
-        raise NotImplementedError(
-            "XRTPU_FAST_EXTREME_WARP=1 (hybrid and region SRW) is not ported "
-            "yet: ROADMAP queue 1 item 6.4"
-        )
     key = (
         _gm_fingerprint(source_gm), _gm_fingerprint(target_gm),
         interp_method, repr(float(fill_value)),
@@ -312,13 +311,21 @@ def _reproject_on_device(data, source_gm, target_gm, interp_method, fill_value):
 def _build_device_reproject_fn(
     source_gm, target_gm, interp_method, fill_value, device
 ):
-    # the JAX package's ladder (reproject.py:272-297): the tiled SRW unless
-    # XRTPU_EXACT=1, the exact separable warp, the exact region mosaic
-    # unless XRTPU_NO_EXACT_MOSAIC=1 (K16), then the direct gather (K3)
+    # the JAX package's ladder (reproject.py:272-297): the SRW unless
+    # XRTPU_EXACT=1 (the hybrid admitted under XRTPU_FAST_EXTREME_WARP=1),
+    # then under that switch the two-pass region mosaic, the exact
+    # separable warp, the exact region mosaic unless
+    # XRTPU_NO_EXACT_MOSAIC=1 (K16), then the direct gather (K3)
     fn = None
+    fast = os.environ.get("XRTPU_FAST_EXTREME_WARP", "") == "1"
     if os.environ.get("XRTPU_EXACT", "") != "1":
         fn = make_srw_reproject_fn(
-            source_gm, target_gm, interp_method, fill_value, device
+            source_gm, target_gm, interp_method, fill_value, device,
+            allow_hybrid=fast,
+        )
+    if fn is None and fast:
+        fn = make_region_reproject_fn(
+            source_gm, target_gm, interp_method, fill_value, device=device
         )
     if fn is None:
         fn = make_esw_reproject_fn(
