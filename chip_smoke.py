@@ -2,7 +2,9 @@
 """Drive the PyTorch/CUDA port of xcube_resampling_tpu once on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
-the CUDA toolkit: ``python3 chip_smoke.py``.  It
+the CUDA toolkit: ``python3 chip_smoke.py`` (``--against TREE``: also
+time K14-K18 of TREE, e.g. the parent unpacked with ``git archive``,
+beside this tree's, in turns).  It
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
@@ -26,7 +28,11 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    bit there, with NaN and +-inf rows and columns and a numeric fill and on
    a plan whose taps pass all four source edges; the aligned output against
    the tiled SRW on the same geometry within F1's bounds; K14 and K15 timed
-   beside K1 + K2 and K3; the 512^2 flagship's aligned pick seen by a spy);
+   beside K1 + K2 and K3; the 512^2 flagship's aligned pick seen by a spy;
+   K14 and K15 also on one isolated NaN and inf, on K14's own output (K15
+   reading its flags) and on the synthetic passes of
+   :func:`aligned_synthetic_checks`, bounds counted as the shortcut's work
+   beside the count of every tap);
    the
    EPSG:4326 0.05 deg -> UTM32N 4096^2 reproject with nearest, triangular
    and a 2-band stack, the exact tier (``XRTPU_EXACT=1``) on that
@@ -56,7 +62,8 @@ the CUDA toolkit: ``python3 chip_smoke.py``.  It
    within ``HYBRID_SMOOTH_ATOL``; first calls with the host's planning
    apart, warm calls, peak memory; K17 and K18 against their plain
    versions on NaN and +-inf rows and columns, a numeric fill and a plan
-   whose taps pass every source edge, timed beside K13, K16, K3 and
+   whose taps pass every source edge, as K14 and K15 on the isolated NaN
+   and inf and the synthetic passes, timed beside K13, K16, K3 and
    ``F.grid_sample``), a small
    UTM32N ->
    EPSG:3035 case with float32, float64 and uint16 numpy variables (placed
@@ -1533,27 +1540,186 @@ FLAGSHIP_MASK_SHARE = 0.01
 FLAGSHIP_TIE = 0.005
 
 
-def aligned_vertical_bound(src, st):
+def _tile_columns(n, tile):
+    """The columns (or rows) of each of the ceil(n / tile) tiles of n."""
+    counts = np.full(-(-n // tile), tile, dtype=np.int64)
+    counts[-1] = n - tile * (len(counts) - 1)
+    return counts
+
+
+def aligned_vertical_bound(src, st, all_taps=False):
     """K14 (and K17, its bases a tile) reads the source, the coarse field,
-    the shifts and the bases once and writes v; per output and tap a
-    weight (4 operations) and a fused multiply-add (2); 13 operations a
-    position (the field's interpolation and the shift)."""
+    the shifts and the bases once and writes v.  Operations: 13 a position
+    (the field's interpolation and the shift) and, per output, the two taps
+    that can weigh, a weight (4 operations) and a fused multiply-add (2)
+    each, plus one finiteness test of each staged value (its window's, once
+    a band): the work the staged kernel's shortcut leaves on finite data;
+    *all_taps*: every tap's weight and fused multiply-add, as the direct
+    kernel sums them (the earlier count)."""
     batch, _, src_w = src.shape
     outs = batch * st.out_h * src_w
     n_bytes = 4 * (src.numel() + st.iystar_c.numel() + st.s_v.numel() + st.base_v.numel()
                    + outs)
-    return bound(n_bytes, outs * st.d_v * 6 + 13 * st.out_h * src_w)
+    if all_taps:
+        return bound(n_bytes, outs * st.d_v * 6 + 13 * st.out_h * src_w)
+    col_tile = getattr(st, "col_tile", src_w)
+    spans = st.win_v.lohi.cpu().numpy().astype(np.int64)  # the state's plan
+    tested = batch * int(((spans[..., 1] - spans[..., 0]).sum(axis=0)
+                          * _tile_columns(src_w, col_tile)[:spans.shape[1]]).sum())
+    return bound(n_bytes, outs * 2 * 6 + 13 * st.out_h * src_w + tested)
 
 
-def aligned_horizontal_bound(v, st):
+def aligned_horizontal_bound(v, st, all_taps=False):
     """K15 (and K18) reads v, two coarse fields, the shifts and the bases
-    once and writes the output; per output and tap 6 operations; 40
-    operations of geometry a pixel (two fields interpolated, the shift, the
-    validity test)."""
+    once and writes the output.  Operations: 40 of geometry a pixel (two
+    fields interpolated, the shift, the validity test) and, per output, two
+    taps of 6 operations, plus one finiteness test of each value of each
+    warp's span, once a row and band (*all_taps*: every tap, the earlier count)."""
+    from xcube_resampling_tpu_torch.ops.srw_aligned import horizontal_spans
+
     batch = v.shape[0]
     outs = batch * st.out_h * st.out_w
     n_bytes = 4 * (v.numel() + 2 * st.ix_c.numel() + st.s_h.numel() + st.base_h.numel() + outs)
-    return bound(n_bytes, outs * st.d_h * 6 + 40 * st.out_h * st.out_w)
+    if all_taps:
+        return bound(n_bytes, outs * st.d_h * 6 + 40 * st.out_h * st.out_w)
+    base_h = st.base_h.reshape(-1, st.out_w).cpu().numpy()
+    row_tile = getattr(st, "row_tile", st.out_h)
+    spans = horizontal_spans(base_h, st.d_h)
+    tested = batch * int(((spans[..., 1] - spans[..., 0]).sum(axis=1)
+                          * _tile_columns(st.out_h, row_tile)[:base_h.shape[0]]).sum())
+    return bound(n_bytes, outs * 2 * 6 + 40 * st.out_h * st.out_w + tested)
+
+
+# The staged passes' synthetic cases (tests/test_torch_srw_aligned_staged.py
+# builds the same on the CPU), at step 1 (each position its coarse value):
+# each output's first weighing tap at -1, 0, 1, the middle, d - 2, d - 1
+# and past its d = 6 taps, fractions from 0 (integer positions) to 0.999
+# with nearest's half ties, signed zeros, and one NaN and one +inf at
+# isolated source values (in zero-weight taps of most outputs that read
+# them) or none; bases that climb (vertical rows, horizontal columns an
+# output): the staged kernels' 64 rows a block ("staged", "integer"), 16
+# rows (the planner's first alternative) and the direct kernel (its second)
+ALIGNED_SYNTH_D = 6
+ALIGNED_SYNTH_OFFSETS = (-1, 0, 1, 3, 4, 5, 6, -2)
+ALIGNED_SYNTH_CASES = {
+    "staged": (0.5, 2.0, (0.0, 0.25, 0.5, 0.75, 0.999)),
+    "integer": (0.5, 2.0, (0.0,)),
+    "fewer rows": (12.0, 2.0, (0.0, 0.5, 0.999)),
+    "direct": (250.0, 250.0, (0.0, 0.5, 0.999)),
+}
+
+
+def _synthetic_values(rng, shape, special):
+    x = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+    x[rng.random(shape) < 0.05] = 0.0
+    x[rng.random(shape) < 0.05] = -0.0
+    if special:
+        h, w = shape[-2:]
+        x[0, h // 2, w // 3] = np.nan
+        x[-1, h // 3, w // 2] = np.inf
+    return x
+
+
+def aligned_synthetic_checks(dev, which, exact):
+    """K14 and K15 (*which* "aligned": one tile) or K17 and K18 ("hybrid":
+    column tiles of 64, row tiles of 16) against their plain versions bit
+    for bit on :data:`ALIGNED_SYNTH_CASES`, bilinear and nearest, with and
+    without the isolated NaN and inf; raises unless the vertical plan takes
+    64 rows a block, 16 where the bases climb 12 rows an output row, and
+    the direct vertical kernel runs exactly where the plan says.  *exact(got, ref,
+    name, what)* compares.  Returns the case names."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops import srw_aligned as sa
+    from xcube_resampling_tpu_torch.ops import srw_hybrid as sh
+
+    d = ALIGNED_SYNTH_D
+    hybrid = which == "hybrid"
+    names = (("srw_hybrid_vertical", "srw_hybrid_horizontal") if hybrid
+             else ("srw_aligned_vertical", "srw_aligned_horizontal"))
+    rng = np.random.default_rng(19)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    for case, (climb_v, climb_h, fracs) in ALIGNED_SYNTH_CASES.items():
+        direct = case == "direct"
+        # the vertical pass: out_h rows, src_w columns (enough blocks for the
+        # plan's most rows a block)
+        out_h, src_w = {"direct": (32, 64), "fewer rows": (1024, 300)}.get(case, (1024, 600))
+        col_tile = 64 if hybrid else src_w
+        n_t = -(-src_w // col_tile)
+        base = (np.floor(np.arange(out_h) * climb_v)[:, None]
+                + rng.integers(-2, 3, (out_h, n_t))).astype(np.int32)
+        src_h = int(base.max()) + d + 4
+        s_v = rng.integers(0, 5, src_w).astype(np.int32)
+        tile = np.arange(src_w) // col_tile
+        field = np.zeros((out_h + 1, src_w + 1), np.float32)
+        field[:out_h, :src_w] = (base[:, tile] + rng.choice(ALIGNED_SYNTH_OFFSETS, (out_h, src_w))
+                                 + rng.choice(fracs, (out_h, src_w)) + s_v)
+        plan = sa.plan_vertical(base, col_tile, d, src_w)
+        want = {"direct": 0, "fewer rows": 16}.get(case, 64)
+        if plan.rows != want:
+            raise AssertionError(f"{names[0]} {case}: the plan takes {plan.rows} rows a block, "
+                                 f"not {want}")
+        for special in (False, True):
+            x = t(_synthetic_values(rng, (2, src_h, src_w), special))
+            for interp in ("bilinear", "nearest"):
+                args = ((x, t(field), 1, t(s_v), t(base), col_tile, d, interp) if hybrid
+                        else (x, t(field), 1, t(s_v), t(base[:, 0]), d, interp))
+                vert, plain = ((sh.srw_hybrid_vertical, sh.srw_hybrid_vertical_plain) if hybrid
+                               else (sa.srw_aligned_vertical, sa.srw_aligned_vertical_plain))
+                before = sa.DIRECT_LAUNCHES[names[0]]
+                exact(vert(*args), plain(*args), names[0],
+                      f"synthetic {case}, {interp}, {'an isolated NaN and inf' if special else 'finite'}")
+                if sa.DIRECT_LAUNCHES[names[0]] - before != int(direct):
+                    raise AssertionError(f"{names[0]} {case}: the direct kernel ran "
+                                         f"{sa.DIRECT_LAUNCHES[names[0]] - before} times")
+        # the horizontal pass: out_h rows, out_w columns
+        out_h, out_w = (16, 256) if direct else (64, 300)
+        row_tile = 16 if hybrid else out_h
+        n_t = -(-out_h // row_tile)
+        base = (np.floor(np.arange(out_w) * climb_h)[None, :]
+                + rng.integers(-2, 3, (n_t, out_w))).astype(np.int32)
+        s_h = rng.integers(0, 7, out_h).astype(np.int32)
+        src_w = int(base.max()) + d + 4 + 7
+        u = np.arange(out_h) // row_tile
+        ix = np.zeros((out_h + 1, out_w + 1), np.float32)
+        ix[:out_h, :out_w] = (base[u] + rng.choice(ALIGNED_SYNTH_OFFSETS, (out_h, out_w))
+                              + rng.choice(fracs, (out_h, out_w)) + s_h[:, None])
+        iy = np.full_like(ix, 3.0)
+        iy[:, ::17] = -1.0  # outside the source: the fill
+        for special in (False, True):
+            v = t(_synthetic_values(rng, (2, out_h, src_w), special))
+            for interp, fill in (("bilinear", float("nan")), ("nearest", -9.5)):
+                args = ((v, t(ix), t(iy), 1, t(s_h), t(base), row_tile, d, 30, interp, fill)
+                        if hybrid else
+                        (v, t(ix), t(iy), 1, t(s_h), t(base[0]), d, 30, interp, fill))
+                horiz, plain = ((sh.srw_hybrid_horizontal, sh.srw_hybrid_horizontal_plain)
+                                if hybrid else
+                                (sa.srw_aligned_horizontal, sa.srw_aligned_horizontal_plain))
+                exact(horiz(*args), plain(*args), names[1],
+                      f"synthetic {case}, {interp}, {'an isolated NaN and inf' if special else 'finite'}")
+    return tuple(ALIGNED_SYNTH_CASES)
+
+
+def isolated_specials(x, seed):
+    """A copy of the (B, H, W) *x* with one NaN and one +inf at isolated
+    places of its first band: a finite window's neighbours, read by most
+    outputs at zero-weight taps."""
+    y = x.clone()
+    rng = np.random.default_rng(seed)
+    h, w = y.shape[-2:]
+    y[0, int(rng.integers(h // 4, h // 2)), int(rng.integers(w // 4, w // 2))] = float("nan")
+    y[0, int(rng.integers(h // 2, 3 * h // 4)), int(rng.integers(w // 2, 3 * w // 4))] = float("inf")
+    return y
+
+
+def beside_parent(h, kernel, parent):
+    """Device ms of *kernel* and of the parent tree's *parent* in turns
+    (parent, kernel, kernel, parent): the median of each pair."""
+    p1, k1, k2, p2 = (h.device_ms(f) for f in (parent, kernel, kernel, parent))
+    return statistics.median([k1, k2]), statistics.median([p1, p2])
 
 
 def flagship_phase(dev, tag, h, cell=FLAGSHIP):
@@ -1584,9 +1750,9 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
         make_fused_reproject_fn,
     )
     from xcube_resampling_tpu_torch.ops.srw_aligned import (
+        DIRECT_LAUNCHES,
         srw_aligned_horizontal,
         srw_aligned_horizontal_plain,
-        srw_aligned_vertical,
         srw_aligned_vertical_plain,
     )
     from xcube_resampling_tpu_torch.ops.srw_kernels import srw_horizontal, srw_vertical
@@ -1662,16 +1828,38 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
         states[interp] = (fn, coarse, coarse4, coarse_gm)
         del out, out4
 
+    if any(DIRECT_LAUNCHES[name] for name in FLAGSHIP_KERNELS):
+        raise AssertionError(f"the flagship ran the direct kernels: {dict(DIRECT_LAUNCHES)}")
+
     # -- K14 and K15 against their plain versions ---------------------------
     for interp, (fn, coarse, coarse4, coarse_gm) in states.items():
         for data, what in ((coarse[None], "1 band"), (coarse4, f"{bands} bands")):
-            va = fn.vertical_args(fn.crop(data))
-            v = srw_aligned_vertical(*va)
+            xc = fn.crop(data)
+            va = fn.vertical_args(xc)
+            v, flags = fn.vertical(xc)  # as the main path: the state's plan, flags
             exact(v, srw_aligned_vertical_plain(*va), "srw_aligned_vertical",
                   f"the flagship's coarse image, {interp}, {what}")
             ha = fn.horizontal_args(v)
-            exact(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
-                  "srw_aligned_horizontal", f"the flagship's coarse image, {interp}, {what}")
+            ref = srw_aligned_horizontal_plain(*ha)
+            exact(fn.horizontal(v, flags), ref, "srw_aligned_horizontal",
+                  f"the flagship's coarse image, {interp}, {what}")
+            exact(srw_aligned_horizontal(*ha), ref, "srw_aligned_horizontal",
+                  f"the flagship's coarse image, {interp}, {what}, testing v's values")
+        # one NaN and one inf in otherwise finite windows
+        xc = isolated_specials(fn.crop(coarse4), 20)
+        va = fn.vertical_args(xc)
+        v, flags = fn.vertical(xc)
+        exact(v, srw_aligned_vertical_plain(*va), "srw_aligned_vertical",
+              f"the flagship's coarse image, {interp}, an isolated NaN and inf")
+        ha = fn.horizontal_args(v)  # K14's own output: K15 reads its flags
+        exact(fn.horizontal(v, flags), srw_aligned_horizontal_plain(*ha),
+              "srw_aligned_horizontal", f"the flagship's coarse image, {interp}, on K14's "
+                                        f"output of an isolated NaN and inf")
+        ha = fn.horizontal_args(isolated_specials(srw_aligned_vertical_plain(
+            *fn.vertical_args(fn.crop(coarse4))), 21))
+        exact(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
+              "srw_aligned_horizontal", f"the flagship's coarse image, {interp}, an isolated "
+                                        f"NaN and inf in v")
         xe = coarse4.clone()
         hh, ww = xe.shape[-2:]
         xe[0, 0], xe[0, :, -1] = nan, float("inf")
@@ -1681,11 +1869,11 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
         for fill in (nan, -9999.0):
             fn_f = port_srw.make_srw_aligned_fn(plan, interp, fill, dev)
             va = fn_f.vertical_args(fn_f.crop(xe))
-            v = srw_aligned_vertical(*va)
+            v, flags = fn_f.vertical(fn_f.crop(xe))
             exact(v, srw_aligned_vertical_plain(*va), "srw_aligned_vertical",
                   f"NaN and +-inf rows and columns, fill {fill}, {interp}")
             ha = fn_f.horizontal_args(v)
-            exact(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
+            exact(fn_f.horizontal(v, flags), srw_aligned_horizontal_plain(*ha),
                   "srw_aligned_horizontal", f"NaN and +-inf rows and columns, fill {fill}, "
                                             f"{interp}")
     # a 96^2 UTM32N source under a 112^2 EPSG:3035 target that hangs over it
@@ -1703,16 +1891,19 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
     for interp in ("bilinear", "nearest"):
         fn_e = port_srw.make_srw_aligned_fn(plan_e, interp, nan, dev)
         va = fn_e.vertical_args(xs)
-        v = srw_aligned_vertical(*va)
+        v, flags = fn_e.vertical(xs)
         exact(v, srw_aligned_vertical_plain(*va), "srw_aligned_vertical",
               f"taps past every edge, {interp}")
         ha = fn_e.horizontal_args(v)
-        exact(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
+        exact(fn_e.horizontal(v, flags), srw_aligned_horizontal_plain(*ha),
               "srw_aligned_horizontal", f"taps past every edge, {interp}")
+    synth = aligned_synthetic_checks(dev, "aligned", exact)
     print(f"{tag} srw_aligned_vertical and srw_aligned_horizontal vs plain on the flagship's "
           f"coarse image (1 and {bands} bands, bilinear and nearest), with NaN and +-inf rows "
-          f"and columns (fills NaN and -9999), and on a 96^2 UTM32N -> 112^2 EPSG:3035 plan "
-          f"whose taps pass all four source edges: equal (sign bits included)")
+          f"and columns (fills NaN and -9999) and with one isolated NaN and inf, on a 96^2 "
+          f"UTM32N -> 112^2 EPSG:3035 plan whose taps pass all four source edges, and on the "
+          f"synthetic passes {', '.join(synth)} (the direct vertical kernel "
+          f"{DIRECT_LAUNCHES['srw_aligned_vertical']} times): equal (sign bits included)")
 
     # -- F1: the aligned SRW against the tiled one (K1 + K2) -----------------
     for interp, (fn, coarse, coarse4, coarse_gm) in states.items():
@@ -1783,22 +1974,36 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
     st = fn.state
     x = fn.crop(coarse[None])
     va = fn.vertical_args(x)
-    v = srw_aligned_vertical(*va)
+    v, flags = fn.vertical(x)
     ha = fn.horizontal_args(v)
-    timings["srw_aligned_vertical"] = h.time_pair(lambda: srw_aligned_vertical(*va),
+    # as the main path calls them: the state's plan, K15 on K14's flags
+    timings["srw_aligned_vertical"] = h.time_pair(lambda: fn.vertical(x),
                                                   lambda: srw_aligned_vertical_plain(*va))
-    timings["srw_aligned_horizontal"] = h.time_pair(lambda: srw_aligned_horizontal(*ha),
+    timings["srw_aligned_horizontal"] = h.time_pair(lambda: fn.horizontal(v, flags),
                                                     lambda: srw_aligned_horizontal_plain(*ha))
     bounds["srw_aligned_vertical"] = aligned_vertical_bound(x, st)
     bounds["srw_aligned_horizontal"] = aligned_horizontal_bound(v, st)
     x4c = fn.crop(coarse4)
-    va4 = fn.vertical_args(x4c)
-    v4 = srw_aligned_vertical(*va4)
-    ha4 = fn.horizontal_args(v4)
-    four = {"srw_aligned_vertical": (h.device_ms(lambda: srw_aligned_vertical(*va4)),
+    v4, flags4 = fn.vertical(x4c)
+    four = {"srw_aligned_vertical": (h.device_ms(lambda: fn.vertical(x4c)),
                                      aligned_vertical_bound(x4c, st)[0]),
-            "srw_aligned_horizontal": (h.device_ms(lambda: srw_aligned_horizontal(*ha4)),
+            "srw_aligned_horizontal": (h.device_ms(lambda: fn.horizontal(v4, flags4)),
                                        aligned_horizontal_bound(v4, st)[0])}
+    old_bounds = {"srw_aligned_vertical": aligned_vertical_bound(x, st, all_taps=True),
+                  "srw_aligned_horizontal": aligned_horizontal_bound(v, st, all_taps=True)}
+    # beside the parent tree's kernels (--against), in turns
+    turns = {}
+    if h.parent is not None:
+        for what, xx, vv, ff in (("", x, v, flags), ("_4", x4c, v4, flags4)):
+            pv, ph = h.parent(fn, xx)
+            pv()
+            turns[f"srw_aligned_vertical{what}"] = beside_parent(
+                h, lambda xx=xx: fn.vertical(xx), pv)
+            turns[f"srw_aligned_horizontal{what}"] = beside_parent(
+                h, lambda vv=vv, ff=ff: fn.horizontal(vv, ff), ph)
+        for name, (k, p) in turns.items():
+            print(f"{tag} {name.replace('_4', f' ({bands} bands)')} at the {where}, bilinear, "
+                  f"beside the parent's kernel in turns: device {k:.4f} ms, parent {p:.4f} ms")
     tv = tiled.vertical_args(tiled.crop(coarse[None]))
     vt, _ = srw_vertical(*tv)
     th = tiled.horizontal_args(vt)
@@ -1818,8 +2023,9 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
         (k, p, kd), (b, by) = timings[name], bounds[name]
         print(f"{tag} {name} at the {where}, bilinear (coarse image {tuple(x.shape[-2:])} -> "
               f"{tgt.height}x{tgt.width}): kernel {k:.4f} ms (device {kd:.4f} ms), plain "
-              f"{p:.3f} ms, bound {b:.4f} ms ({by}); {bands} bands device {four[name][0]:.4f} ms, "
-              f"bound {four[name][1]:.4f} ms")
+              f"{p:.3f} ms, bound {b:.4f} ms ({by}; every tap counted: "
+              f"{old_bounds[name][0]:.4f} ms, {old_bounds[name][1]}); {bands} bands device "
+              f"{four[name][0]:.4f} ms, bound {four[name][1]:.4f} ms")
     print(f"{tag} the flagship's SRW variants, bilinear, device ms (1 band; {bands} bands): "
           f"aligned K14 + K15 {variants['aligned_device_ms']:.4f}; "
           f"{variants['aligned_device_ms_4']:.4f}; tiled K1 + K2 {variants['tiled_device_ms']:.4f}"
@@ -1828,6 +2034,11 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
           f"{variants['k3_device_ms_4']:.4f}")
     variants.update({f"{name}_device_ms_4": four[name][0] for name in FLAGSHIP_KERNELS})
     variants.update({f"{name}_bound_ms_4": four[name][1] for name in FLAGSHIP_KERNELS})
+    variants.update({f"{name}_bound_ms_all_taps": old_bounds[name][0]
+                     for name in FLAGSHIP_KERNELS})
+    for name, (k, p) in turns.items():
+        variants[f"{name}_device_ms_turns"] = k
+        variants[f"{name}_parent_device_ms"] = p
 
     # -- the 512^2 flagship: the aligned pick, seen by a spy ----------------
     small = cell["small"]
@@ -1854,7 +2065,7 @@ def flagship_phase(dev, tag, h, cell=FLAGSHIP):
           "the 512^2 flagship, end to end")
     print(f"{tag} resample_in_space flagship {small}^2 bilinear: make_srw_aligned_fn built once "
           f"(kind {fn_s.kind}), first call {first:.3f} s; vs the plain versions: equal")
-    del states, x1, x4, coarse, coarse4, x, v, v4, vt, xs, out
+    del states, x1, x4, coarse, coarse4, x, v, v4, flags, flags4, vt, xs, out
     torch.cuda.empty_cache()
     return err, timings, bounds, variants
 
@@ -1941,10 +2152,10 @@ def hybrid_phase(dev, tag, h, geo, ds, esw_cell=ESW_CELL, b3_cell=HYBRID_B3):
     from xcube_resampling_tpu_torch.ops import srw as port_srw
     from xcube_resampling_tpu_torch.ops.esw import make_esw_reproject_fn
     from xcube_resampling_tpu_torch.ops.reproject_ops import interp_field, make_fused_reproject_fn
+    from xcube_resampling_tpu_torch.ops.srw_aligned import DIRECT_LAUNCHES
     from xcube_resampling_tpu_torch.ops.srw_hybrid import (
         srw_hybrid_horizontal,
         srw_hybrid_horizontal_plain,
-        srw_hybrid_vertical,
         srw_hybrid_vertical_plain,
     )
     from xcube_resampling_tpu_torch.reproject import device_reproject_fn
@@ -2029,6 +2240,9 @@ def hybrid_phase(dev, tag, h, geo, ds, esw_cell=ESW_CELL, b3_cell=HYBRID_B3):
             fns[interp] = fn
             del out, out4
 
+        if any(DIRECT_LAUNCHES[name] for name in HYBRID_KERNELS):
+            raise AssertionError(f"the ESW cell ran the direct kernels: {dict(DIRECT_LAUNCHES)}")
+
         # K17 and K18 against their plain versions on hard inputs
         j0, j1, i0, i1 = fns["bilinear"].window
         xe = x4.clone()
@@ -2051,17 +2265,39 @@ def hybrid_phase(dev, tag, h, geo, ds, esw_cell=ESW_CELL, b3_cell=HYBRID_B3):
             cases.append((port_srw.make_srw_hybrid_fn(plan_e, interp, nan, dev), xs, nan,
                           "taps past every edge"))
             for f, data, fill, what in cases:
-                va = f.vertical_args(f.crop(data))
-                v = srw_hybrid_vertical(*va)
+                xc = f.crop(data)
+                va = f.vertical_args(xc)
+                v, flags = f.vertical(xc)  # as the main path: the state's plan, flags
                 exact(v, srw_hybrid_vertical_plain(*va), "srw_hybrid_vertical",
                       f"{what}, NaN and +-inf rows and columns, fill {fill}, {interp}")
                 ha = f.horizontal_args(v)
-                exact(srw_hybrid_horizontal(*ha), srw_hybrid_horizontal_plain(*ha),
-                      "srw_hybrid_horizontal",
+                ref = srw_hybrid_horizontal_plain(*ha)
+                exact(f.horizontal(v, flags), ref, "srw_hybrid_horizontal",
                       f"{what}, NaN and +-inf rows and columns, fill {fill}, {interp}")
+                exact(srw_hybrid_horizontal(*ha), ref, "srw_hybrid_horizontal",
+                      f"{what}, NaN and +-inf rows and columns, fill {fill}, {interp}, "
+                      f"testing v's values")
+            # one NaN and one inf in otherwise finite windows
+            f = fns[interp]
+            xc = isolated_specials(f.crop(x4), 22)
+            va = f.vertical_args(xc)
+            v, flags = f.vertical(xc)
+            exact(v, srw_hybrid_vertical_plain(*va), "srw_hybrid_vertical",
+                  f"the cell, an isolated NaN and inf, {interp}")
+            ha = f.horizontal_args(v)  # K17's own output: K18 reads its flags
+            exact(f.horizontal(v, flags), srw_hybrid_horizontal_plain(*ha),
+                  "srw_hybrid_horizontal", f"the cell, on K17's output of an isolated NaN and "
+                                           f"inf, {interp}")
+            ha = f.horizontal_args(isolated_specials(srw_hybrid_vertical_plain(
+                *f.vertical_args(f.crop(x4))), 23))
+            exact(srw_hybrid_horizontal(*ha), srw_hybrid_horizontal_plain(*ha),
+                  "srw_hybrid_horizontal", f"the cell, an isolated NaN and inf in v, {interp}")
+        synth = aligned_synthetic_checks(dev, "hybrid", exact)
         print(f"{tag} srw_hybrid_vertical and srw_hybrid_horizontal vs plain at the ESW cell "
-              f"({bands} bands, NaN and +-inf rows and columns, fills NaN and -9999) and on a "
-              f"96^2 UTM32N -> 112^2 EPSG:3035 plan whose taps pass all four source edges, "
+              f"({bands} bands, NaN and +-inf rows and columns, fills NaN and -9999; one "
+              f"isolated NaN and inf), on a 96^2 UTM32N -> 112^2 EPSG:3035 plan whose taps pass "
+              f"all four source edges and on the synthetic passes {', '.join(synth)} (the "
+              f"direct vertical kernel {DIRECT_LAUNCHES['srw_hybrid_vertical']} times), "
               f"bilinear and nearest: equal (sign bits included)")
 
         # K17 and K18 timed, with K13, K3 and F.grid_sample on the geometry
@@ -2069,24 +2305,46 @@ def hybrid_phase(dev, tag, h, geo, ds, esw_cell=ESW_CELL, b3_cell=HYBRID_B3):
         st = fn.state
         x = fn.crop(geo[None])
         va = fn.vertical_args(x)
-        v = srw_hybrid_vertical(*va)
+        v, flags = fn.vertical(x)
         ha = fn.horizontal_args(v)
-        timings["srw_hybrid_vertical"] = h.time_pair(lambda: srw_hybrid_vertical(*va),
+        # as the main path calls them: the state's plan, K18 on K17's flags
+        timings["srw_hybrid_vertical"] = h.time_pair(lambda: fn.vertical(x),
                                                      lambda: srw_hybrid_vertical_plain(*va))
-        timings["srw_hybrid_horizontal"] = h.time_pair(lambda: srw_hybrid_horizontal(*ha),
+        timings["srw_hybrid_horizontal"] = h.time_pair(lambda: fn.horizontal(v, flags),
                                                        lambda: srw_hybrid_horizontal_plain(*ha))
         bounds["srw_hybrid_vertical"] = aligned_vertical_bound(x, st)
         bounds["srw_hybrid_horizontal"] = aligned_horizontal_bound(v, st)
         x4c = fn.crop(x4)
-        va4 = fn.vertical_args(x4c)
-        v4 = srw_hybrid_vertical(*va4)
-        ha4 = fn.horizontal_args(v4)
+        v4, flags4 = fn.vertical(x4c)
         yard["srw_hybrid_vertical"] = dict(
-            device_ms_4=h.device_ms(lambda: srw_hybrid_vertical(*va4)),
-            bound_ms_4=aligned_vertical_bound(x4c, st)[0])
+            device_ms_4=h.device_ms(lambda: fn.vertical(x4c)),
+            bound_ms_4=aligned_vertical_bound(x4c, st)[0],
+            bound_ms_all_taps=aligned_vertical_bound(x, st, all_taps=True)[0])
         yard["srw_hybrid_horizontal"] = dict(
-            device_ms_4=h.device_ms(lambda: srw_hybrid_horizontal(*ha4)),
-            bound_ms_4=aligned_horizontal_bound(v4, st)[0])
+            device_ms_4=h.device_ms(lambda: fn.horizontal(v4, flags4)),
+            bound_ms_4=aligned_horizontal_bound(v4, st)[0],
+            bound_ms_all_taps=aligned_horizontal_bound(v, st, all_taps=True)[0])
+        # beside the parent tree's kernels (--against), in turns: bilinear
+        # and nearest, 1 and 4 bands
+        if h.parent is not None:
+            for interp in ("bilinear", "nearest"):
+                f = fns[interp]
+                for what, data in (("", geo[None]), ("_4", x4)):
+                    xx = f.crop(data)
+                    vv, ff = f.vertical(xx)
+                    pv, ph = h.parent(f, xx)
+                    pv()
+                    key = ("" if interp == "bilinear" else "_nearest") + what
+                    for name, kernel, parent in (
+                            ("srw_hybrid_vertical", lambda f=f, xx=xx: f.vertical(xx), pv),
+                            ("srw_hybrid_horizontal",
+                             lambda f=f, vv=vv, ff=ff: f.horizontal(vv, ff), ph)):
+                        k, p = beside_parent(h, kernel, parent)
+                        yard[name][f"device_ms_turns{key}"] = k
+                        yard[name][f"parent_device_ms{key}"] = p
+                        print(f"{tag} {name} at the ESW cell under the switch, {interp}, "
+                              f"{bands if what else 1} band(s), beside the parent's kernel in "
+                              f"turns: device {k:.4f} ms, parent {p:.4f} ms")
         k13 = make_esw_reproject_fn(geo_gm, cell, "bilinear", nan, device=dev)
         k3 = make_fused_reproject_fn(geo_gm, cell, "bilinear", nan, dev)
         lib_ms, lib_d = grid_sample_ms(k3.ix_c, k3.iy_c, k3.step, k3.out_h, k3.out_w, geo,
@@ -2101,7 +2359,8 @@ def hybrid_phase(dev, tag, h, geo, ds, esw_cell=ESW_CELL, b3_cell=HYBRID_B3):
             (k, p, kd), (b, by) = timings[name], bounds[name]
             print(f"{tag} {name} at the ESW cell under the switch, bilinear (window "
                   f"{tuple(x.shape[-2:])} -> {st.out_h}x{st.out_w}): kernel {k:.4f} ms (device "
-                  f"{kd:.4f} ms), plain {p:.3f} ms, bound {b:.4f} ms ({by}); {bands} bands "
+                  f"{kd:.4f} ms), plain {p:.3f} ms, bound {b:.4f} ms ({by}; every tap counted, "
+                  f"{yard[name]['bound_ms_all_taps']:.4f} ms); {bands} bands "
                   f"device {yard[name]['device_ms_4']:.4f} ms, bound "
                   f"{yard[name]['bound_ms_4']:.4f} ms")
         print(f"{tag} the ESW cell, bilinear, device ms: the hybrid K17 + K18 "
@@ -2109,7 +2368,7 @@ def hybrid_phase(dev, tag, h, geo, ds, esw_cell=ESW_CELL, b3_cell=HYBRID_B3):
               f"{cell_yard['hybrid_device_ms_4']:.4f}); K13 {cell_yard['k13_device_ms']:.4f}; "
               f"K3 {cell_yard['k3_device_ms']:.4f}; F.grid_sample {lib_ms:.4f} ms (device "
               f"{lib_d:.4f})")
-        del x, v, v4, x4c, xe, fns
+        del x, v, v4, flags, flags4, x4c, xe, fns
 
         # -- (b) BASELINE #3: the two-pass region mosaic ------------------------
         counts = Counter()
@@ -2163,7 +2422,10 @@ def hybrid_phase(dev, tag, h, geo, ds, esw_cell=ESW_CELL, b3_cell=HYBRID_B3):
                                      f"exact one on the smooth field: both finite on "
                                      f"{both_share:.4f}, max abs diff {d.max().item():.3g} "
                                      f"(limit {HYBRID_SMOOTH_ATOL[interp]:.4g})")
-            mos_d = h.device_ms(lambda: fn(geo[None]))
+            # 4 calls: some 140 device operations each, so the launch queue
+            # holds them all behind the sleep (tools/tune_aligned.py --walls
+            # reads 4 and 10 beside each other)
+            mos_d = h.device_ms(lambda: fn(geo[None]), iters=4)
             k16_d = h.device_ms(lambda: k16(geo))
             k3 = make_fused_reproject_fn(geo_gm, b3, interp, nan, dev)
             k3_d = h.device_ms(lambda: k3(geo[None]))
@@ -2631,13 +2893,105 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
     return launches, err, timings, bounds, library, r3
 
 
-def main() -> int:
+# TREE's C entries of K14-K18 (--against), whose signatures this tree keeps
+TREE_SIGNATURES = {
+    "xrt_srw_aligned_vertical_f32": ["p"] * 5 + ["q"] * 6 + ["i", "q", "q", "i", "i", "p"],
+    "xrt_srw_aligned_horizontal_f32": ["p"] * 6 + ["q"] * 7 + ["i", "q", "i", "i", "f", "p"],
+}
+
+
+def build_tree_library(tree, out_dir):
+    """TREE's ``csrc/srw_aligned.cu`` (TREE e.g. the parent unpacked with
+    ``git archive``) built into a library of its own with this tree's nvcc
+    flags, its C entries of :data:`TREE_SIGNATURES` typed: (library, the
+    ptxas log)."""
+    import ctypes
+    from pathlib import Path
+
+    from xcube_resampling_tpu_torch import _build
+
+    types = {"p": ctypes.c_void_p, "q": ctypes.c_int64, "i": ctypes.c_int,
+             "f": ctypes.c_float}
+    csrc = Path(tree) / "xcube_resampling_tpu_torch" / "csrc"
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "tree_srw_aligned.so"
+    proc = subprocess.run(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", f"-I{csrc}", "-o", str(lib),
+         str(csrc / "srw_aligned.cu")], capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {csrc / 'srw_aligned.cu'}:\n"
+                           f"{(proc.stdout + proc.stderr)[-20000:]}")
+    library = ctypes.CDLL(str(lib))
+    for entry, argtypes in TREE_SIGNATURES.items():
+        getattr(library, entry).argtypes = [types[a] for a in argtypes]
+    return library, proc.stdout + proc.stderr
+
+
+def tree_calls(lib, fn, x):
+    """(vertical, horizontal) closures calling TREE's library's C entries
+    with the aligned or hybrid *fn*'s plan on its cropped source *x*; the
+    horizontal pass reads the vertical pass's buffer."""
     import torch
 
+    from xcube_resampling_tpu_torch.ops.reproject_ops import method_code
+
+    st = fn.state
+    base_v = st.base_v.reshape(st.out_h, -1)
+    base_h = st.base_h.reshape(-1, st.out_w)
+    col_tile = getattr(st, "col_tile", st.src_w)
+    row_tile = getattr(st, "row_tile", st.out_h)
+    method = method_code(fn.interp_method)
+    batch = x.shape[0]
+    v = torch.empty((batch, st.out_h, st.src_w), dtype=torch.float32, device=x.device)
+    out = torch.empty((batch, st.out_h, st.out_w), dtype=torch.float32, device=x.device)
+    ncj, ncc = st.iystar_c.shape
+    nci = st.ix_c.shape[1]
+
+    def vertical():
+        rc = lib.xrt_srw_aligned_vertical_f32(
+            x.data_ptr(), st.iystar_c.data_ptr(), st.s_v.data_ptr(), base_v.data_ptr(),
+            v.data_ptr(), batch, st.src_h, st.src_w, st.out_h, ncj, ncc, st.step,
+            base_v.shape[1], col_tile, st.d_v, method, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"TREE's vertical pass: CUDA error {rc}")
+        return v
+
+    def horizontal():
+        rc = lib.xrt_srw_aligned_horizontal_f32(
+            v.data_ptr(), st.ix_c.data_ptr(), st.iy_c.data_ptr(), st.s_h.data_ptr(),
+            base_h.data_ptr(), out.data_ptr(), batch, st.out_h, st.src_w, st.out_w, st.src_h,
+            ncj, nci, st.step, row_tile, st.d_h, method, fn.fill_value,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"TREE's horizontal pass: CUDA error {rc}")
+        return out
+
+    return vertical, horizontal
+
+
+def parent_kernels(tree):
+    """For ``--against TREE`` (the parent tree): a function of (an aligned
+    or hybrid fn, its cropped source) giving :func:`tree_calls` of TREE's
+    library."""
+    lib, _ = build_tree_library(tree, os.path.join("build", "chip_smoke_tree"))
+    return lambda fn, x: tree_calls(lib, fn, x)
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", default=None,
+                        help="a parent tree whose K14-K18 kernels to time beside this one's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    parent = parent_kernels(args.against) if args.against else None
 
     import torch.nn.functional as F
 
@@ -2687,9 +3041,7 @@ def main() -> int:
         plan_srw,
     )
     from xcube_resampling_tpu_torch.ops.srw_aligned import (
-        srw_aligned_horizontal,
         srw_aligned_horizontal_plain,
-        srw_aligned_vertical,
         srw_aligned_vertical_plain,
     )
     from xcube_resampling_tpu_torch.ops.srw_kernels import (
@@ -2742,7 +3094,8 @@ def main() -> int:
                     "fused_reproject_band_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
                     "seed_pass", "seed_walk", "hybrid_dense_kernel", "esw_gather_kernel",
                     "esw_gather_band_kernel", "srw_aligned_vertical_kernel",
-                    "srw_aligned_horizontal_kernel", "esw_mosaic_kernel"):
+                    "srw_aligned_horizontal_kernel", "srw_aligned_vertical_direct",
+                    "esw_mosaic_kernel"):
         for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
             print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
                   f"stack frame")
@@ -2754,14 +3107,16 @@ def main() -> int:
               f"{max(k[2] for k in cached)} bytes spilled, "
               f"{max(k[3] for k in cached)} bytes of stack frame")
     # K7's band form, K2, K11, K12, K3's band form, K13 and its band form,
-    # K14-K18 (K17 and K18 launch K14's and K15's kernels, each per method
-    # with one tile and with many) and the downscale form's cached kernels:
-    # no spill, no local memory
+    # K14-K18 (K17 and K18 launch K14's and K15's kernels: the staged
+    # vertical kernel and the horizontal kernel per method, the direct
+    # vertical kernel per method with one tile and with many)
+    # and the downscale form's cached kernels: no spill, no local memory
     for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
                        ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
-                       ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 4),
-                       ("srw_aligned_horizontal_kernel", 4), ("esw_mosaic_kernel", 3),
+                       ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 2),
+                       ("srw_aligned_horizontal_kernel", 4), ("srw_aligned_vertical_direct", 4),
+                       ("esw_mosaic_kernel", 3),
                        ("affine_gather_reduce_cached", 7 * 8 * 8)):
         found = ptxas_kernels(build.log, pattern)
         if build.log and (len(found) != n or any(k[2] or k[3] for k in found)):
@@ -3176,7 +3531,7 @@ def main() -> int:
         dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
                                   device_ms=device_ms, run_main=run_main,
                                   warm_calls=warm_calls, dataset=dataset,
-                                  check_output=check_output),
+                                  check_output=check_output, parent=parent),
     )
     for name, e in fl_err.items():
         err[name] = max(err[name], e)
@@ -3381,7 +3736,7 @@ def main() -> int:
         dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
                                   device_ms=device_ms, run_main=run_main,
                                   warm_calls=warm_calls, dataset=dataset,
-                                  check_output=check_output),
+                                  check_output=check_output, parent=parent),
         geo, ds1,
     )
     for name, e in hy_err.items():
@@ -3586,11 +3941,11 @@ def main() -> int:
                     and sta.base_v.max().item() + sta.d_v > sta.src_h):
                 raise AssertionError("edge-clipping: the aligned taps do not pass both edges")
             va = fa.vertical_args(fa.crop(edge_data))
-            v = srw_aligned_vertical(*va)
+            v, flags = fa.vertical(fa.crop(edge_data))
             d14 = compare(v, srw_aligned_vertical_plain(*va), "exact",
                           f"K14 {interp} edge-clipping", signs=True)
             ha = fa.horizontal_args(v)
-            d15 = compare(srw_aligned_horizontal(*ha), srw_aligned_horizontal_plain(*ha),
+            d15 = compare(fa.horizontal(v, flags), srw_aligned_horizontal_plain(*ha),
                           "exact", f"K15 {interp} edge-clipping", signs=True)
             err["srw_aligned_vertical"] = max(err["srw_aligned_vertical"], d14)
             err["srw_aligned_horizontal"] = max(err["srw_aligned_horizontal"], d15)
@@ -4866,8 +5221,8 @@ def main() -> int:
     # K14 and K15 at 4 bands, and the flagship's SRW variants beside them
     for name in FLAGSHIP_KERNELS:
         entry = next(k for k in kernels if k["name"] == name)
-        entry.update(device_ms_4=fl_variants[f"{name}_device_ms_4"],
-                     bound_ms_4=fl_variants[f"{name}_bound_ms_4"])
+        entry.update({k[len(name) + 1:]: v for k, v in fl_variants.items()
+                      if k.startswith(name + "_")})
     next(k for k in kernels if k["name"] == "srw_aligned_vertical").update(
         {k: v for k, v in fl_variants.items() if not k.startswith("srw_aligned")})
     # K17 and K18 at 4 bands, the ESW cell's and BASELINE #3's yardsticks

@@ -76,6 +76,19 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I, _I,
         _F, _P,
     ],
+    # src, iystar_c, s_v, base_v, win, v, flags, batch, src_h, src_w, out_h,
+    # ncj, ncc, step, n_col_tiles, col_tile, d_v, method, rows, extent,
+    # walkers, stream
+    "xrt_srw_aligned_vertical_staged_f32": [
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I64, _I,
+        _I, _I, _I, _I64, _P,
+    ],
+    # v, flags, ix_c, iy_c, s_h, base_h, out, batch, out_h, src_w, out_w,
+    # src_h, ncj, nci, step, row_tile, d_h, method, fill, stream
+    "xrt_srw_aligned_horizontal_flagged_f32": [
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I,
+        _I, _F, _P,
+    ],
     # src, ix_c, iy_c, out, batch, src_h, src_w, ncj, nci, out_h, out_w,
     # step, method, fill, stream
     "xrt_fused_reproject_f32": [

@@ -61,6 +61,8 @@ from .reproject_ops import (
 from .srw_aligned import (
     ALIGNED_METHODS,
     MAX_TAPS,
+    VerticalPlan,
+    plan_vertical,
     srw_aligned_horizontal,
     srw_aligned_horizontal_plain,
     srw_aligned_vertical,
@@ -1035,7 +1037,8 @@ def make_srw_fn(
 @dataclass
 class AlignedSRWState:
     """An :class:`SRWAlignedPlan` on the device: coarse fields (float32),
-    shifts and tap bases (int32), plus the plan's scalars."""
+    shifts and tap bases (int32), the plan's scalars, and the vertical
+    kernel's launch for these bases (``srw_aligned.plan_vertical``)."""
 
     iystar_c: torch.Tensor  # (ncj, ncc)
     ix_c: torch.Tensor  # (ncj, nci)
@@ -1051,9 +1054,16 @@ class AlignedSRWState:
     src_w: int
     out_h: int
     out_w: int
+    win_v: VerticalPlan
 
 
-def aligned_plan_to_device(plan: SRWAlignedPlan, device) -> AlignedSRWState:
+def aligned_plan_to_device(plan: SRWAlignedPlan, device, col_tile=None) -> AlignedSRWState:
+    """*plan* on *device*; the vertical launch planned for a base every
+    *col_tile* source columns (None: one for every column)."""
+    base_v = np.asarray(plan.base_v).reshape(int(plan.out_h), -1)
+    win_v = plan_vertical(base_v, int(col_tile or max(1, plan.src_w)), int(plan.d_v),
+                          int(plan.src_w))
+
     def f32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
@@ -1075,6 +1085,7 @@ def aligned_plan_to_device(plan: SRWAlignedPlan, device) -> AlignedSRWState:
         src_w=int(plan.src_w),
         out_h=int(plan.out_h),
         out_w=int(plan.out_w),
+        win_v=win_v.to(device),
     )
 
 
@@ -1111,13 +1122,28 @@ class AlignedSRWFn:
             self.interp_method, self.fill_value,
         )
 
+    # the kernels' wrappers
+    _vertical = staticmethod(srw_aligned_vertical)
+    _horizontal = staticmethod(srw_aligned_horizontal)
+
+    def vertical(self, src):
+        """The vertical kernel on the cropped *src* as the state plans it:
+        ``(v, flags)``, its flags of v for :meth:`horizontal`."""
+        return self._vertical(*self.vertical_args(src), win_v=self.state.win_v,
+                              with_flags=True)
+
+    def horizontal(self, v, flags):
+        """The horizontal kernel on :meth:`vertical`'s output."""
+        return self._horizontal(*self.horizontal_args(v), flags=flags)
+
     def _run(self, src, vertical, horizontal):
         v = vertical(*self.vertical_args(self.crop(src)))
         out = horizontal(*self.horizontal_args(v))
         return out.reshape(src.shape[:-2] + out.shape[-2:])
 
     def __call__(self, src):
-        return self._run(src, srw_aligned_vertical, srw_aligned_horizontal)
+        out = self.horizontal(*self.vertical(self.crop(src)))
+        return out.reshape(src.shape[:-2] + out.shape[-2:])
 
     def plain(self, src):
         return self._run(src, srw_aligned_vertical_plain, srw_aligned_horizontal_plain)
@@ -1145,7 +1171,7 @@ class HybridSRWState(AlignedSRWState):
 
 
 def hybrid_plan_to_device(plan: SRWHybridPlan, device) -> HybridSRWState:
-    st = aligned_plan_to_device(plan, device)
+    st = aligned_plan_to_device(plan, device, col_tile=plan.col_tile)
     return HybridSRWState(**vars(st), col_tile=int(plan.col_tile), row_tile=int(plan.row_tile))
 
 
@@ -1173,8 +1199,8 @@ class HybridSRWFn(AlignedSRWFn):
             st.src_h, self.interp_method, self.fill_value,
         )
 
-    def __call__(self, src):
-        return self._run(src, srw_hybrid_vertical, srw_hybrid_horizontal)
+    _vertical = staticmethod(srw_hybrid_vertical)
+    _horizontal = staticmethod(srw_hybrid_horizontal)
 
     def plain(self, src):
         return self._run(src, srw_hybrid_vertical_plain, srw_hybrid_horizontal_plain)

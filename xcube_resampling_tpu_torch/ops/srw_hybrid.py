@@ -12,8 +12,14 @@ r_lo`` and ``base_v.max() + d_v <= src_h + r_hi``), the take's clip never
 bites, and the padding, the shift passes and the take compose to one
 clamped index: the aligned SRW's passes with a base a tile.  So K17 and
 K18 are K14's and K15's kernels (``csrc/srw_aligned.cu``) launched with
-the plan's tiles, counted under their own names.  With ``t = c //
-col_tile`` and ``u = r // row_tile``:
+the plan's tiles, counted under their own names: the staged vertical
+kernel (taps staged in shifted space, its launch planned on the
+host once a geometry and carried by the state, the direct kernel where a
+span does not fit) and the horizontal kernel reading its taps through
+L1, exactness from the vertical kernel's flags, each taking the exact
+two-tap shortcut where a window of taps is finite
+(``ops/srw_aligned.py``).
+With ``t = c // col_tile`` and ``u = r // row_tile``:
 
 * K17: ``pos = P(r, c) - s_v[c]`` with ``P`` the coarse field ``iystar_c``
   interpolated at (r, c), and ``v[b, r, c] = sum_d w(pos, base_v[r, t] +
@@ -66,28 +72,33 @@ def srw_hybrid_horizontal_plain(
     )
 
 
-def srw_hybrid_vertical(src, iystar_c, step, s_v, base_v, col_tile, d_v, interp_method):
-    """K17: the hybrid vertical pass, ``v``; see the module docstring."""
+def srw_hybrid_vertical(src, iystar_c, step, s_v, base_v, col_tile, d_v, interp_method,
+                        win_v=None, with_flags=False):
+    """K17: the hybrid vertical pass, ``v``, or with *with_flags* ``(v,
+    flags)`` (flags None on the CPU); *win_v* the state's plan
+    (``srw_aligned.launch_vertical``); see the module docstring."""
     if on_cpu(src, iystar_c, s_v, base_v):
-        return srw_hybrid_vertical_plain(
-            src, iystar_c, step, s_v, base_v, col_tile, d_v, interp_method
-        )
+        v = srw_hybrid_vertical_plain(src, iystar_c, step, s_v, base_v, col_tile, d_v,
+                                      interp_method)
+        return (v, None) if with_flags else v
     return launch_vertical(
         "srw_hybrid_vertical", src, iystar_c, step, s_v, base_v, col_tile, d_v,
-        interp_method, MAX_TAPS,
+        interp_method, MAX_TAPS, win_v, with_flags,
     )
 
 
 def srw_hybrid_horizontal(
-    v, ix_c, iy_c, step, s_h, base_h, row_tile, d_h, src_h, interp_method, fill_value
+    v, ix_c, iy_c, step, s_h, base_h, row_tile, d_h, src_h, interp_method, fill_value,
+    flags=None,
 ):
     """K18: the hybrid horizontal pass and the fill select, (B, out_h,
-    out_w); *src_h* is the source's height, for the validity test."""
+    out_w); *src_h* is the source's height, for the validity test;
+    *flags* K17's flags of *v*, where it wrote them."""
     if on_cpu(v, ix_c, iy_c, s_h, base_h):
         return srw_hybrid_horizontal_plain(
             v, ix_c, iy_c, step, s_h, base_h, row_tile, d_h, src_h, interp_method, fill_value
         )
     return launch_horizontal(
         "srw_hybrid_horizontal", v, ix_c, iy_c, step, s_h, base_h, row_tile, d_h, src_h,
-        interp_method, fill_value, MAX_TAPS,
+        interp_method, fill_value, MAX_TAPS, flags,
     )
