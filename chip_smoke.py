@@ -3,18 +3,18 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit: ``python3 chip_smoke.py`` (``--against TREE``: also
-time K14-K18 of TREE, e.g. the parent unpacked with ``git archive``,
+time K13-K18 of TREE, e.g. the parent unpacked with ``git archive``,
 beside this tree's, in turns).  It
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
    printing each source's registers and spills (ptxas ``-v``) and those
-   of every instantiation of K1-K3, K13-K18, K2's, K3's, K7's and K13's
-   band forms, K7's map and list forms, K11's two kernels and K12 (and a
-   summary of the downscale form's cached kernels), and fails if K6's
-   register kernels, K2's, K3's or K7's band form, K11, K12, K13 or its
-   band form, K14-K18 or the downscale form's cached kernels spill
-   or use local memory;
+   of every instantiation of K1-K3, K13 (per pixel and staged), K14-K18,
+   K2's, K3's, K7's and K13's band forms, K7's map and list forms, K11's
+   two kernels and K12 (and a summary of the downscale form's cached
+   kernels), and fails if K6's register kernels, K2's, K3's or K7's band
+   form, K11, K12, K13 or its band form, K14-K18, K16 or the downscale
+   form's cached kernels spill or use local memory;
 2. drives the port's main path through ``resample_in_space``: the 20480^2
    UTM32N -> EPSG:3035 bilinear reproject (first call and warm calls); the
    same source onto a 5120^2 EPSG:3035 grid at 120 m, where the
@@ -43,7 +43,11 @@ beside this tree's, in turns).  It
    ESW planner's refusal and the mosaic's host planning re-run apart
    after it), warm calls and the piece counts, K16 held to its plain
    version bit for bit (triangular too) and to K3 (nearest equal,
-   bilinear within 2 ulp), and once more under
+   bilinear within 2 ulp), staged and per pixel (``staged=False``) for
+   every method on 1 and 4 bands, the share of its ESW tiles staged (as
+   ``ops.esw.tile_spans`` models it from the inputs, on a line of its
+   own), timed beside its per-pixel path and TREE's K16 in turns, and once
+   more under
    ``XRTPU_NO_EXACT_MOSAIC=1`` (K3), the ESW cell (:func:`esw_phase`: the same source onto EPSG:3035
    4096^2 at 937.5 m from (2.5e6, 1.4e6), past the two-pass gate, whose
    default tier is the ESW: 1 band for every method and 4 bands, first
@@ -51,8 +55,13 @@ beside this tree's, in turns).  It
    ``sharded_reproject`` of it over a mesh of 4 entries on the card, K13's
    band form after the halo exchange, held to the single-chip ESW on the
    window it crops bit for bit and to the whole source's within the JAX
-   package's NaN-mask contract and ``ESW_WHOLE_ATOL``; K13 and its band
-   form timed for every method beside K3 and its band form), the fast
+   package's NaN-mask contract and ``ESW_WHOLE_ATOL``; K13 staged and per
+   pixel (``staged=False``) held to its plain version for every method on
+   1 and 4 bands at the cell and on a sheared target whose tiles partly
+   take the per-pixel body (``ESW_SHEARED``), with the share of tiles
+   staged as modelled; K13 and its band form timed for every method beside
+   K3 and its band form, and K13 beside its per-pixel path and TREE's K13
+   in turns, at the cell and on the sheared target), the fast
    extreme-warp mode (:func:`hybrid_phase`, ``XRTPU_FAST_EXTREME_WARP=1``:
    the ESW cell's geometry through the whole-domain hybrid SRW, K17 + K18
    once each a call, bilinear and nearest, 1 and 4 bands; BASELINE #3
@@ -479,6 +488,41 @@ def esw_bound(args, band: bool = False):
     n_out = batch * valid.numel()
     fields = sum(t.numel() for t in args[1:4])
     return bound(4 * (n_out + batch * int(tapped.sum()) + fields), 50 * n_out)
+
+
+def esw_spans(args):
+    """The span of window columns K13's staged kernel stages for each of
+    its tiles (its wrapper's arguments; ``ops.esw.tile_spans``)."""
+    from xcube_resampling_tpu_torch.ops.esw import tile_spans
+
+    src, _, ix_c, _, step, _, out_h, out_w, _, w_g, _, i_off, interp, _ = args
+    return tile_spans(ix_c, step, out_h, out_w, w_g, i_off, src.shape[-1], interp)
+
+
+def mosaic_spans(fn, interp):
+    """:func:`esw_spans` of every ESW piece of the ``ESWMosaicFn`` *fn*, in
+    one flat tensor."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops import esw_mosaic as mos
+    from xcube_resampling_tpu_torch.ops.esw import tile_spans
+
+    spans = []
+    for row in fn.table.tolist():
+        if row[mos.KIND] == mos.ESW:
+            ix_c, _, _ = mos._piece_fields(fn.fields, row)
+            spans.append(tile_spans(ix_c, fn.step, row[mos.H], row[mos.W], fn.src_w,
+                                    row[mos.I_OFF], row[mos.WW], interp).flatten())
+    return torch.cat(spans)
+
+
+def staged_share(spans, interp) -> float:
+    """The share of tiles whose *spans* fit the stage of method *interp*
+    (a tile with no valid pixel stages nothing and counts as staged):
+    modelled from the inputs, not counted by the kernels."""
+    from xcube_resampling_tpu_torch.ops.esw import stage_cols
+
+    return float((spans <= stage_cols(interp)).float().mean())
 
 
 def mosaic_bound(fn, interp):
@@ -1157,6 +1201,12 @@ ESW_WHOLE_FLIPS = 2e-3
 # tests/test_srw.py's
 ESW_EDGES = (dict(size=(96, 96), xy_min=(565000.0, 5930000.0), xy_res=100.0, crs="epsg:32632"),
              dict(size=(80, 80), xy_min=(4324500, 3375500), xy_res=100, crs="epsg:3035"))
+# a sheared case for K13's stage: the ESW cell's source onto a 512^2 target
+# at 4 km over its region, whose 16 x 128 tiles the staged kernel bounds to
+# 116-161 window columns (bilinear), so about two thirds exceed the stage
+# and take the per-pixel body
+ESW_SHEARED = dict(size=(512, 512), xy_min=(2500000.0, 1400000.0), xy_res=4000.0,
+                   crs="epsg:3035")
 
 
 def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
@@ -1181,6 +1231,7 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
     from xcube_resampling_tpu_torch import GridMapping
     from xcube_resampling_tpu_torch._device import LAUNCHES
     from xcube_resampling_tpu_torch.ops.esw import (
+        STAGE_COLS,
         ESWReprojectFn,
         _offset_fields,
         esw_gather,
@@ -1189,6 +1240,7 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
         esw_gather_plain,
         make_esw_reproject_fn,
         plan_esw,
+        stage_cols,
     )
     from xcube_resampling_tpu_torch.ops.reproject_ops import (
         fused_reproject,
@@ -1307,6 +1359,31 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
           f"over the source's last row and column (3 bands, +-inf and NaN edge rows and "
           f"columns, finite share {share_e:.3f}): equal")
 
+    # -- the staged and the per-pixel path (staged=False), every method, 1
+    # and 4 bands, and a sheared target whose tiles partly fall back
+    sheared = GridMapping.regular(**ESW_SHEARED)
+    shares = {}
+    for interp in METHODS:
+        for where_m, tgt_m in (("the ESW cell", tgt), ("the sheared target", sheared)):
+            fn_m = make_esw_reproject_fn(geo_gm, tgt_m, interp, nan, device=dev)
+            for x in (geo[None], x4):
+                a = fn_m.args(fn_m.crop(x))
+                ref = esw_gather_plain(*a)
+                exact(esw_gather(*a), ref, "esw_gather", f"{where_m}, {len(x)} bands, {interp}, "
+                                                          f"staged")
+                exact(esw_gather(*a, staged=False), ref, "esw_gather",
+                      f"{where_m}, {len(x)} bands, {interp}, per pixel")
+            shares[where_m, interp] = staged_share(esw_spans(a), interp)
+            del fn_m, a, ref
+    if not 0 < shares["the sheared target", "bilinear"] < 1:
+        raise AssertionError(f"the sheared target stages {shares} of its tiles, not some")
+    print(f"{tag} esw_gather vs plain, staged (up to {STAGE_COLS} columns, nearest "
+          f"{stage_cols('nearest')}) and per pixel, every "
+          f"method, 1 and {cell['bands']} bands, at the ESW cell and on a sheared 512^2 target "
+          f"at 4 km: equal")
+    print(f"{tag} esw_gather tiles staged, modelled from the inputs (ops.esw.tile_spans), not "
+          f"counted by the kernel: " + ", ".join(f"{w} {m} {v:.4f}" for (w, m), v in shares.items()))
+
     # -- sharded_reproject over a mesh of 4 entries -------------------------
     mesh = make_mesh(devices=[dev] * cell["mesh"])
     xc, geo_c = crop_source(geo, geo_gm, tgt)
@@ -1422,6 +1499,27 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
                                                padding_mode="border", align_corners=True)
 
     library["esw_gather"] = (h.event_ms(grid_call), h.device_ms(grid_call))
+    # the staged kernel beside the per-pixel path and the parent tree's
+    # kernel (--against), in turns, every method: 1 and 4 bands at the
+    # cell, 1 band on the sheared target (most of its tiles fall back)
+    turns = {}
+    for interp in METHODS:
+        for where_m, tgt_m, xs in (("", tgt, (geo[None], x4)), ("sheared_", sheared, (geo[None],))):
+            fn_m = make_esw_reproject_fn(geo_gm, tgt_m, interp, nan, device=dev)
+            for x in xs:
+                a = fn_m.args(fn_m.crop(x))
+                key = f"{where_m}{interp}_{len(x)}"
+                turns[f"per_pixel_{key}"] = beside_parent(
+                    h, lambda a=a: esw_gather(*a), lambda a=a: esw_gather(*a, staged=False))
+                if h.tree_esw is not None:
+                    turns[f"parent_{key}"] = beside_parent(
+                        h, lambda a=a: esw_gather(*a), h.tree_esw.k13(a))
+    for where_m, bands in (("", (1, cell["bands"])), ("sheared_", (1,))):
+        print(f"{tag} esw_gather {'on the sheared target' if where_m else 'at the ESW cell'} in "
+              f"turns, device ms (this; per pixel; parent): " + "; ".join(
+                  f"{k}: {turns[f'per_pixel_{k}'][0]:.4f}, {turns[f'per_pixel_{k}'][1]:.4f}"
+                  + (f", {turns[f'parent_{k}'][1]:.4f}" if f"parent_{k}" in turns else "")
+                  for k in (f"{where_m}{m}_{b}" for m in METHODS for b in bands)))
     k3_fn = make_fused_reproject_fn(geo_gm, tgt, "bilinear", nan, dev)
     k3_args = (geo[None], k3_fn.ix_c, k3_fn.iy_c, k3_fn.step, k3_fn.out_h, k3_fn.out_w,
                "bilinear", nan)
@@ -1430,6 +1528,9 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
     k3["esw_gather"] = dict(k3_ms=h.event_ms(lambda: fused_reproject(*k3_args)),
                             k3_device_ms=h.device_ms(lambda: fused_reproject(*k3_args)),
                             device_ms_4=k4_dev, bound_ms_4=b4)
+    for k, (this, other) in turns.items():
+        k3["esw_gather"][f"{k}_device_ms_turns"] = this
+        k3["esw_gather"][f"{k}_other_device_ms"] = other
     del k3_out
     (k, p, kd), (b, by) = timings["esw_gather"], bounds["esw_gather"]
     print(f"{tag} esw_gather at the ESW cell (window {tuple(plane.shape)} -> {where}), bilinear: "
@@ -2898,13 +2999,19 @@ TREE_SIGNATURES = {
     "xrt_srw_aligned_vertical_f32": ["p"] * 5 + ["q"] * 6 + ["i", "q", "q", "i", "i", "p"],
     "xrt_srw_aligned_horizontal_f32": ["p"] * 6 + ["q"] * 7 + ["i", "q", "i", "i", "f", "p"],
 }
+# the parent's C entries of K13 and K16 (--against): this tree's take a
+# staged flag before the stream
+TREE_ESW_SIGNATURES = {
+    "xrt_esw_gather_f32": ["p"] * 5 + ["q"] * 8 + ["i", "i", "i", "f"] + ["q"] * 4 + ["p"],
+    "xrt_esw_mosaic_f32": ["p"] * 5 + ["q"] * 7 + ["i", "i", "f", "i", "i", "p"],
+}
 
 
-def build_tree_library(tree, out_dir):
-    """TREE's ``csrc/srw_aligned.cu`` (TREE e.g. the parent unpacked with
-    ``git archive``) built into a library of its own with this tree's nvcc
-    flags, its C entries of :data:`TREE_SIGNATURES` typed: (library, the
-    ptxas log)."""
+def build_tree_library(tree, out_dir, sources=("srw_aligned.cu",), signatures=None):
+    """TREE's *sources* of ``csrc`` (TREE e.g. the parent unpacked with
+    ``git archive``) built into a library of their own with this tree's
+    nvcc flags, its C entries of *signatures* (:data:`TREE_SIGNATURES`)
+    typed: (library, the ptxas log)."""
     import ctypes
     from pathlib import Path
 
@@ -2915,17 +3022,66 @@ def build_tree_library(tree, out_dir):
     csrc = Path(tree) / "xcube_resampling_tpu_torch" / "csrc"
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "tree_srw_aligned.so"
+    lib = out_dir / f"tree_{Path(sources[0]).stem}.so"
     proc = subprocess.run(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", f"-I{csrc}", "-o", str(lib),
-         str(csrc / "srw_aligned.cu")], capture_output=True, text=True, timeout=900)
+         *(str(csrc / f) for f in sources)], capture_output=True, text=True, timeout=900)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {csrc / 'srw_aligned.cu'}:\n"
+        raise RuntimeError(f"nvcc failed for {', '.join(sources)} of {csrc}:\n"
                            f"{(proc.stdout + proc.stderr)[-20000:]}")
     library = ctypes.CDLL(str(lib))
-    for entry, argtypes in TREE_SIGNATURES.items():
+    for entry, argtypes in (signatures or TREE_SIGNATURES).items():
         getattr(library, entry).argtypes = [types[a] for a in argtypes]
     return library, proc.stdout + proc.stderr
+
+
+def esw_entry_call(lib, a, staged=None):
+    """A closure launching a library's K13 entry on K13's wrapper arguments
+    *a*, *staged* or not (None: the parent's entry, which takes no flag)."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops.reproject_ops import method_code
+
+    src, ys, ix_c, iy_c, step, s, out_h, out_w, h_g, w_g, j_off, i_off, interp, fill = a
+    batch, h, w = src.shape
+    ncj, nci = ix_c.shape
+    out = torch.empty((batch, out_h, out_w), dtype=torch.float32, device=src.device)
+    args = [src.data_ptr(), ys.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(),
+            batch, h, w, ncj, ys.shape[1], nci, out_h, out_w, step, s, method_code(interp),
+            float(fill), h_g, w_g, j_off, i_off] + ([] if staged is None else [int(staged)])
+
+    def run():
+        rc = lib.xrt_esw_gather_f32(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"K13 of a built library: CUDA error {rc}")
+        return out
+
+    return run
+
+
+def mosaic_entry_call(lib, fn, x, staged=None):
+    """A closure launching a library's K16 entry for the ``ESWMosaicFn``
+    *fn* on (B, H, W) *x*, *staged* or not (None: the parent's entry); the
+    canvas filled first."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops.reproject_ops import method_code
+
+    batch, h, w = x.shape
+    out = torch.full((batch, fn.out_h, fn.out_w), fn.fill_value, dtype=torch.float32,
+                     device=x.device)
+    args = [x.data_ptr(), fn.table.data_ptr(), fn.tile_start.data_ptr(), fn.fields.data_ptr(),
+            out.data_ptr(), fn.table.shape[0], fn.n_tiles, batch, h, w, fn.out_h, fn.out_w,
+            fn.step, method_code(fn.interp_method), fn.fill_value, 16, 128] + (
+        [] if staged is None else [int(staged)])
+
+    def run():
+        rc = lib.xrt_esw_mosaic_f32(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"K16 of a built library: CUDA error {rc}")
+        return out
+
+    return run
 
 
 def tree_calls(lib, fn, x):
@@ -2971,11 +3127,22 @@ def tree_calls(lib, fn, x):
 
 
 def parent_kernels(tree):
-    """For ``--against TREE`` (the parent tree): a function of (an aligned
-    or hybrid fn, its cropped source) giving :func:`tree_calls` of TREE's
-    library."""
-    lib, _ = build_tree_library(tree, os.path.join("build", "chip_smoke_tree"))
-    return lambda fn, x: tree_calls(lib, fn, x)
+    """For ``--against TREE`` (the parent tree), its two libraries built
+    together: a function of (an aligned or hybrid fn, its cropped source)
+    giving :func:`tree_calls` of TREE's K14-K18, and TREE's K13 and K16
+    (:func:`esw_entry_call`, :func:`mosaic_entry_call`)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = os.path.join("build", "chip_smoke_tree")
+    with ThreadPoolExecutor(2) as pool:
+        aligned = pool.submit(build_tree_library, tree, out)
+        esw = pool.submit(build_tree_library, tree, out, ("esw_gather.cu", "esw_mosaic.cu"),
+                          TREE_ESW_SIGNATURES)
+        lib, _ = aligned.result()
+        esw_lib, _ = esw.result()
+    return (lambda fn, x: tree_calls(lib, fn, x)), SimpleNamespace(
+        k13=lambda a: esw_entry_call(esw_lib, a),
+        k16=lambda fn, x: mosaic_entry_call(esw_lib, fn, x))
 
 
 def main() -> int:
@@ -2985,13 +3152,13 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", default=None,
-                        help="a parent tree whose K14-K18 kernels to time beside this one's")
+                        help="a parent tree whose K13-K18 kernels to time beside this one's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    parent = parent_kernels(args.against) if args.against else None
+    parent, tree_esw = parent_kernels(args.against) if args.against else (None, None)
 
     import torch.nn.functional as F
 
@@ -3005,7 +3172,12 @@ def main() -> int:
     from xcube_resampling_tpu_torch import reproject as port_reproject
     from xcube_resampling_tpu_torch._device import LAUNCHES
     from xcube_resampling_tpu_torch.affine import _scale_split
-    from xcube_resampling_tpu_torch.ops.esw import ESWReprojectFn, make_esw_reproject_fn
+    from xcube_resampling_tpu_torch.ops.esw import (
+        STAGE_COLS,
+        ESWReprojectFn,
+        make_esw_reproject_fn,
+        stage_cols,
+    )
     from xcube_resampling_tpu_torch.ops.esw_mosaic import (
         ESWMosaicFn,
         esw_mosaic,
@@ -3106,11 +3278,12 @@ def main() -> int:
               f"{min(k[1] for k in cached)}-{max(k[1] for k in cached)} registers, "
               f"{max(k[2] for k in cached)} bytes spilled, "
               f"{max(k[3] for k in cached)} bytes of stack frame")
-    # K7's band form, K2, K11, K12, K3's band form, K13 and its band form,
-    # K14-K18 (K17 and K18 launch K14's and K15's kernels: the staged
-    # vertical kernel and the horizontal kernel per method, the direct
-    # vertical kernel per method with one tile and with many)
-    # and the downscale form's cached kernels: no spill, no local memory
+    # K7's band form, K2, K11, K12, K3's band form, K13 (per pixel and
+    # staged) and its band form, K14-K18 (K17 and K18 launch K14's and K15's
+    # kernels: the staged vertical kernel and the horizontal kernel per
+    # method, the direct vertical kernel per method with one tile and with
+    # many), K16 per method, per pixel and staged, and the downscale form's
+    # cached kernels: no spill, no local memory
     for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
                        ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
@@ -3706,19 +3879,54 @@ def main() -> int:
         del fn, fn3, args16
 
     # K16's triangular instantiation on the same pieces, held to its plain
-    # version bit for bit (the main path above runs nearest and bilinear)
+    # version bit for bit (the main path above runs nearest and bilinear);
+    # every method staged and per pixel (staged=False) on 1 and 4 bands,
+    # the share of tiles staged as modelled, and the staged kernel beside
+    # the per-pixel path and the parent tree's kernel (--against) in turns
     fn = ESWMosaicFn(plan16, "triangular", nan, dev)
     d = compare(fn(geo), fn.plain(geo), "exact", "BASELINE #3 triangular vs plain K16")
     err["esw_mosaic"] = max(err["esw_mosaic"], d)
     print(f"{tag} esw_mosaic at BASELINE #3 (triangular): vs plain max abs diff {d}")
-    del fn, plan16
+    x4 = torch.rand((4,) + tuple(geo.shape), generator=torch.Generator(device=dev).manual_seed(20),
+                    device=dev)
+    b3_staged, b3_shares = {}, {}
+    for interp in METHODS:
+        fn = ESWMosaicFn(plan16, interp, nan, dev)
+        for x in (geo[None], x4):
+            a16 = fn.args(x)
+            ref = esw_mosaic_plain(*a16)
+            for staged in (True, False):
+                d = compare(esw_mosaic(*a16, staged=staged), ref, "exact",
+                            f"BASELINE #3 {interp}, {len(x)} bands, staged {staged}, vs plain K16")
+                err["esw_mosaic"] = max(err["esw_mosaic"], d)
+        b3_shares[interp] = staged_share(mosaic_spans(fn, interp), interp)
+        if interp != "triangular":
+            b3_staged[f"per_pixel_{interp}"] = beside_parent(
+                SimpleNamespace(device_ms=device_ms), lambda a=fn.args(geo[None]): esw_mosaic(*a),
+                lambda a=fn.args(geo[None]): esw_mosaic(*a, staged=False))
+            if tree_esw is not None:
+                b3_staged[f"parent_{interp}"] = beside_parent(
+                    SimpleNamespace(device_ms=device_ms),
+                    lambda a=fn.args(geo[None]): esw_mosaic(*a), tree_esw.k16(fn, geo[None]))
+        del fn, a16, ref
+    print(f"{tag} esw_mosaic at BASELINE #3, every method, 1 and 4 bands, staged "
+          f"(up to {STAGE_COLS} columns, nearest {stage_cols('nearest')}) and per pixel: vs "
+          f"plain equal; in turns, device ms (this; "
+          f"per pixel; parent): " + "; ".join(
+              f"{m} {b3_staged[f'per_pixel_{m}'][0]:.4f}, {b3_staged[f'per_pixel_{m}'][1]:.4f}"
+              + (f", {b3_staged[f'parent_{m}'][1]:.4f}" if f"parent_{m}" in b3_staged else "")
+              for m in ("bilinear", "nearest")))
+    print(f"{tag} esw_mosaic tiles of its ESW pieces staged, modelled from the inputs "
+          f"(ops.esw.tile_spans), not counted by the kernel: "
+          + ", ".join(f"{m} {v:.4f}" for m, v in b3_shares.items()))
+    del plan16, x4
 
     # -- 3c. the ESW cell: past the gate, K13 and its band form -------------
     esw_launches, esw_err, esw_timings, esw_bounds, esw_library, esw_k3 = esw_phase(
         dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
                                   device_ms=device_ms, run_main=run_main,
                                   warm_calls=warm_calls, dataset=dataset,
-                                  check_output=check_output),
+                                  check_output=check_output, tree_esw=tree_esw),
         geo, ds1,
     )
     if esw_launches["esw_gather_band"] < 1:
@@ -5212,6 +5420,9 @@ def main() -> int:
     # K3 (and its band form) beside K13 (and its band form) on the ESW cell
     for k in kernels:
         k.update(esw_k3.get(k["name"], {}))
+    # K16's device ms beside its per-pixel path and the parent's kernel, in
+    # turns
+    next(k for k in kernels if k["name"] == "esw_mosaic").update(b3_staged)
     # K10 at R3 too (its ms, device_ms and bound above are R1's)
     k10_entry = next(k for k in kernels if k["name"] == "ij_bboxes")
     k10_entry.update(r3_ms=k10_r3[0], r3_device_ms=k10_r3[1], r3_bound_ms=b10)

@@ -488,7 +488,7 @@ def test_region_reproject_fn_exact_only():
 def test_k16_entry_point_is_declared():
     """K16's C entry is bound with its argument types, and its source and
     the per-pixel header it shares with K13 are in the build."""
-    assert len(_build._SIGNATURES["xrt_esw_mosaic_f32"]) == 18
+    assert len(_build._SIGNATURES["xrt_esw_mosaic_f32"]) == 19
     names = {p.name for p in _build.CSRC.iterdir()}
     assert {"esw_mosaic.cu", "esw_pixel.h", "esw_gather.cu"} <= names
     for source in ("esw_mosaic.cu", "esw_gather.cu"):

@@ -102,10 +102,10 @@ _SIGNATURES = {
     ],
     # src, iystar_c, ix_c, iy_c, out, batch, src_h, src_w, ncj, ncc, nci,
     # out_h, out_w, step, n_samples, method, fill, src_h_g, src_w_g, j_off,
-    # i_off, stream
+    # i_off, staged, stream
     "xrt_esw_gather_f32": [
         _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I,
-        _I, _F, _I64, _I64, _I64, _I64, _P,
+        _I, _F, _I64, _I64, _I64, _I64, _I, _P,
     ],
     # ext, iystar_c, ix_c, iy_c, out, batch, ext_h, src_w, ncj, ncc, nci,
     # out_h, out_w, step, n_samples, method, fill, row0, off, src_h, stream
@@ -114,9 +114,11 @@ _SIGNATURES = {
         _I, _F, _I64, _I64, _I64, _P,
     ],
     # src, table, tile_start, fields, out, n_pieces, n_tiles, batch, src_h,
-    # src_w, out_h, out_w, step, method, fill, tile_rows, tile_cols, stream
+    # src_w, out_h, out_w, step, method, fill, tile_rows, tile_cols,
+    # staged, stream
     "xrt_esw_mosaic_f32": [
-        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _I, _I, _P,
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _I, _I, _I,
+        _P,
     ],
     # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w,
     # j_scale, i_scale, j_off, i_off, order, fill, in_code, out_code, stream

@@ -38,46 +38,65 @@
 // and are then read off rows up (halo.py:684, 700-701).
 //
 // Bound on the H100: device memory, as K3's.  A pixel reads 4 taps (1 for
-// nearest) and the 4 coarse samples of iystar_c around its tap columns'
-// cell (8 where they straddle two cells; L1-resident, as are ix_c and
-// iy_c), and writes one float per band.
-// Design: K3's.  A thread owns kVec consecutive columns and walks rows; the
+// nearest) and writes one float per band; the coarse fields (ix_c, iy_c,
+// iystar_c) stay in L1 and L2.  What holds it is each pixel's work; per
+// pixel, the anchor took half of it: at each of two tap columns four
+// iystar_c loads, three lerps and a floor on the chain ahead of the taps.
+// Design: K13 stages each tile's anchors (esw_pixel.h's staged_tile).  A
+// block of kWarpCols x kLanes threads owns a tile of kTileRows target rows
+// by kTileCols columns.  The anchor m(r, c) depends only on the target row
+// and the window column, and a tile's pixels tap a narrow span of window
+// columns (about 60 at the ESW cell), so each warp bounds that span from
+// the finite corners of ix_c around the tile's coarse cells, the block
+// computes the anchor of every (tile row, span column) once into shared
+// memory (each column's cell once, its column lerps once a coarse row
+// cell, the rows unrolled), and after one barrier each pixel reads its two
+// anchors and goes straight to its selection, its rows clipped to the
+// window by one 32-bit clamp, and its taps.  A tile whose span exceeds the
+// stage (esw_pixel.h's stage_limit) runs the per-pixel body, the same
+// function, as every tile does when the C entry is asked for no stage
+// (staged 0):
+// K3's design, a thread owns kVec consecutive columns and walks rows, the
 // ix, iy interpolation keeps its row lerps while the rows stay in one
-// coarse cell (srw_common.h's FieldCols); the row cell of iystar_c is
-// taken once a row; each pixel's tap offsets, fractions and mask are taken
-// once for every band.  K13's grid runs row tiles as K3's; the band form
-// is a kernel of its own with K3's band launch (one wave of blocks, each a
-// run of consecutive rows), so that no flag reaches K13's hot loop.
-// Offsets inside a plane are 32-bit and unsigned (the wrapper refuses
-// planes of 2^31 elements or more), band offsets 64-bit.  The per-pixel
-// function (the taps, the value, a row of kVec pixels over every band) is
-// esw_pixel.h's, which K16's ESW pieces run too.
+// coarse cell (srw_common.h's FieldCols), each pixel's taps are taken once
+// for every band.  The grid runs row tiles as K3's.  The band form keeps
+// the per-pixel body, a kernel of its own with K3's band launch (one wave
+// of blocks, each a run of consecutive rows), so that no flag reaches
+// K13's hot loop.  Offsets inside a plane are 32-bit and unsigned (the
+// wrapper refuses planes of 2^31 elements or more), band offsets 64-bit.
+// The per-pixel function and the staged tile are esw_pixel.h's, which
+// K16's ESW pieces run too.
 #include "affine_gather.h"
 #include "esw_pixel.h"
 
 namespace {
 
 using xrt::esw::Args;
+using xrt::esw::kStageCols;
+using xrt::esw::kTileRows;
 using xrt::esw::kVec;
 using xrt::esw::one_row;
 
 constexpr int kWarpCols = 32;  // threads across a tile
 constexpr int kLanes = 2;      // threads down a tile (K13)
 constexpr int kTileCols = kVec * kWarpCols;
-constexpr int kTileRows = 16;  // target rows of a tile (K13)
 constexpr int kBandLanes = 1;  // threads down a block (the band form)
 constexpr int kBandBlocks = 16;
 
-// K13: kVec consecutive columns from i, the rows of a tile kLanes apart.
+// K13: a block a tile of kTileRows x kTileCols at a time, its anchors
+// staged in shared memory unless *staged* is 0 (esw_pixel.h's staged_tile).
 template <int M>
-__global__ void __launch_bounds__(kWarpCols * kLanes, 12) esw_gather_kernel(const Args a) {
+__global__ void __launch_bounds__(kWarpCols * kLanes) esw_gather_kernel(const Args a,
+                                                                        int staged) {
+  __shared__ float stage[kTileRows * kStageCols];
   const int i = (blockIdx.x * kWarpCols + threadIdx.x) * kVec;
-  if (i >= a.out_w) return;
   const int n = a.out_w - i < kVec ? a.out_w - i : kVec;
   xrt::FieldCols<2, kVec> field(a.field, static_cast<float>(i));
+  const int i_last = min((static_cast<int>(blockIdx.x) + 1) * kTileCols, a.out_w) - 1;
   for (int tr = blockIdx.y; tr < a.n_row_tiles; tr += gridDim.y) {
-    const int j1 = min((tr + 1) * kTileRows, a.out_h);
-    for (int j = tr * kTileRows + threadIdx.y; j < j1; j += kLanes) one_row<M>(a, field, j, i, n);
+    const int j0 = tr * kTileRows;
+    xrt::esw::staged_tile<M, kLanes>(a, field, j0, min(j0 + kTileRows, a.out_h), i, n, i_last,
+                                     stage, staged != 0, tr != static_cast<int>(blockIdx.y));
   }
 }
 
@@ -97,12 +116,13 @@ __global__ void __launch_bounds__(kWarpCols * kBandLanes, kBandBlocks) esw_gathe
   }
 }
 
+// K13's launch; its tiles' rows clip to the window (clip_h == src_h, no
+// row offset).
 template <int M>
-cudaError_t launch(const Args& a, cudaStream_t s) {
-  const dim3 block(kWarpCols, kLanes);
+cudaError_t launch(const Args& a, int staged, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((a.out_w + kTileCols - 1) / kTileCols),
                   static_cast<unsigned>(a.n_row_tiles < 65535 ? a.n_row_tiles : 65535));
-  esw_gather_kernel<M><<<grid, block, 0, s>>>(a);
+  esw_gather_kernel<M><<<grid, dim3(kWarpCols, kLanes), 0, s>>>(a, staged);
   return cudaGetLastError();
 }
 
@@ -128,13 +148,14 @@ int dispatch(const float* src, const float* iystar, const float* ix_c, const flo
              float* out, int64_t batch, int64_t src_h, int64_t src_w, int64_t ncj, int64_t ncc,
              int64_t nci, int64_t out_h, int64_t out_w, int step, int n_samples, int method,
              float fill, int64_t bound_h, int64_t bound_w, int64_t j_off, int64_t i_off,
-             int64_t clip_h, int64_t row_off, int64_t row0, void* stream) {
+             int64_t clip_h, int64_t row_off, int64_t row0, int staged, void* stream) {
   constexpr int64_t kMaxPlane = (int64_t{1} << 31) - 1;
   if (src_h * src_w > kMaxPlane || out_h * out_w > kMaxPlane || ncj * nci > kMaxPlane ||
       ncj * ncc > kMaxPlane || step < 1 || batch < 1 || n_samples < 3 || n_samples > 64 ||
       row0 < 0 || row0 + out_h > (int64_t{1} << 24) || clip_h < 1 || bound_h < 1 ||
       bound_w < 1 || i_off < 0 || i_off > kMaxPlane || j_off < 0 || j_off > kMaxPlane ||
-      row_off < -kMaxPlane || row_off > kMaxPlane || clip_h > kMaxPlane) {
+      row_off < -kMaxPlane || row_off > kMaxPlane || clip_h > kMaxPlane || staged < 0 ||
+      staged > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const xrt::TapBounds g = xrt::tap_bounds(bound_h, bound_w);
@@ -172,13 +193,13 @@ int dispatch(const float* src, const float* iystar, const float* ix_c, const flo
   cudaError_t e;
   switch (method) {
     case xrt::kBilinear:
-      e = B ? launch_band<xrt::kBilinear>(a, s) : launch<xrt::kBilinear>(a, s);
+      e = B ? launch_band<xrt::kBilinear>(a, s) : launch<xrt::kBilinear>(a, staged, s);
       break;
     case xrt::kNearest:
-      e = B ? launch_band<xrt::kNearest>(a, s) : launch<xrt::kNearest>(a, s);
+      e = B ? launch_band<xrt::kNearest>(a, s) : launch<xrt::kNearest>(a, staged, s);
       break;
     case xrt::kTriangular:
-      e = B ? launch_band<xrt::kTriangular>(a, s) : launch<xrt::kTriangular>(a, s);
+      e = B ? launch_band<xrt::kTriangular>(a, s) : launch<xrt::kTriangular>(a, staged, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -189,16 +210,18 @@ int dispatch(const float* src, const float* iystar, const float* ix_c, const flo
 }  // namespace
 
 // K13: src is the source window (batch, src_h, src_w), its origin at
-// global source row j_off and column i_off of a source src_h_g x src_w_g.
+// global source row j_off and column i_off of a source src_h_g x src_w_g;
+// staged 1: each tile stages its anchors where its span fits the stage;
+// 0: every tile runs the per-pixel body (the same bits).
 extern "C" int xrt_esw_gather_f32(const float* src, const float* iystar_c, const float* ix_c,
                                   const float* iy_c, float* out, int64_t batch, int64_t src_h,
                                   int64_t src_w, int64_t ncj, int64_t ncc, int64_t nci,
                                   int64_t out_h, int64_t out_w, int step, int n_samples,
                                   int method, float fill, int64_t src_h_g, int64_t src_w_g,
-                                  int64_t j_off, int64_t i_off, void* stream) {
+                                  int64_t j_off, int64_t i_off, int staged, void* stream) {
   return dispatch<false>(src, iystar_c, ix_c, iy_c, out, batch, src_h, src_w, ncj, ncc, nci,
                          out_h, out_w, step, n_samples, method, fill, src_h_g, src_w_g, j_off,
-                         i_off, src_h, 0, 0, stream);
+                         i_off, src_h, 0, 0, staged, stream);
 }
 
 // The band form: ext is the band's extension (batch, ext_h, src_w), its
@@ -212,5 +235,5 @@ extern "C" int xrt_esw_gather_band_f32(const float* ext, const float* iystar_c,
                                        int64_t row0, int64_t off, int64_t src_h, void* stream) {
   return dispatch<true>(ext, iystar_c, ix_c, iy_c, out, batch, ext_h, src_w, ncj, ncc, nci, out_h,
                         out_w, step, n_samples, method, fill, src_h, src_w, 0, 0, src_h, off,
-                        row0, stream);
+                        row0, 0, stream);
 }

@@ -37,22 +37,32 @@
 // every pixel of its pieces once and read the source pixels their taps
 // reach; the coarse fields are small (0.8 MB at BASELINE #3) and stay in
 // L1 and L2.
-// Design: a simple first kernel.  A block is K13's (kWarpCols threads
-// across, kLanes down; a thread owns kVec consecutive columns and walks the
-// tile's rows kLanes apart, its taps once a row for every band); the kind
-// is the block's, so no warp diverges on it.  Offsets inside a plane are
-// 32-bit and unsigned (the wrapper refuses planes of 2^31 elements or
-// more), band offsets 64-bit.
+// Design: a block is K13's staged block (kWarpCols threads across, kLanes
+// down, a thread kVec consecutive columns of the tile's rows kLanes apart;
+// at most 80 registers so that 12 blocks fit an SM, 96 and 10 for
+// nearest); the kind is the block's, so no warp diverges on it.  An ESW
+// piece's tile stages its anchors as K13's does (esw_pixel.h's
+// staged_tile: the span bounded from the piece's ix_c, the anchors of
+// every (tile row, span column) once into shared memory, stage_limit
+// columns; a wider span runs the per-pixel body, as every ESW tile does
+// when the C entry is asked for no stage).  A gather piece's tile runs
+// K3's taps.  Offsets inside a plane are 32-bit and unsigned (the wrapper
+// refuses planes of 2^31 elements or more), band offsets 64-bit.
 #include "esw_pixel.h"
 
 namespace {
 
+using xrt::esw::kStageCols;
+using xrt::esw::kTileRows;
 using xrt::esw::kVec;
 
 constexpr int kWarpCols = 32;  // threads across a tile
 constexpr int kLanes = 2;      // threads down a tile
+// blocks an SM: at most 80 registers; nearest's staged kernel spills 4 B
+// there, so 10 (96) for nearest
+constexpr int kMinBlocks = 12;
+constexpr int kMinBlocksNearest = 10;
 constexpr int kTileCols = kVec * kWarpCols;
-constexpr int kTileRows = 16;
 
 // the piece table's columns and the kinds of piece (ops/esw_mosaic.py)
 enum Col : int {
@@ -91,11 +101,10 @@ __device__ __forceinline__ int piece_of(const MosaicArgs& m, int t) {
   return lo;
 }
 
-// An ESW piece's rows [j0, j1) at kVec columns from i (n inside it).
-template <int M>
-__device__ __forceinline__ void esw_rows(const MosaicArgs& m, const int* e,
-                                         const xrt::CoarseFields<2>& field, float* out,
-                                         bool vec4, int j0, int j1, int i, int n) {
+// An ESW piece's arguments for K13's per-pixel function, its output at out.
+__device__ __forceinline__ xrt::esw::Args esw_args(const MosaicArgs& m, const int* e, int method,
+                                                   const xrt::CoarseFields<2>& field, float* out,
+                                                   bool vec4) {
   const int j_off = __ldg(e + kJOff);
   const int i_off = __ldg(e + kIOff);
   const int wh = __ldg(e + kWh);
@@ -116,7 +125,7 @@ __device__ __forceinline__ void esw_rows(const MosaicArgs& m, const int* e,
   a.x_max = m.tb.x_max;
   a.y_max = m.tb.y_max;
   a.half = 0.5f * static_cast<float>(s - 2);
-  a.s_max = static_cast<float>(M == xrt::kNearest ? s - 1 : s - 2);
+  a.s_max = static_cast<float>(method == xrt::kNearest ? s - 1 : s - 2);
   a.j_off = static_cast<float>(j_off);
   a.i_off = i_off;
   a.clip_h = wh;
@@ -128,10 +137,7 @@ __device__ __forceinline__ void esw_rows(const MosaicArgs& m, const int* e,
   a.fill = m.fill;
   a.vec4 = vec4;
   a.row0 = 0;
-  xrt::FieldCols<2, kVec> cols(a.field, static_cast<float>(i));
-  for (int j = j0 + static_cast<int>(threadIdx.y); j < j1; j += kLanes) {
-    xrt::esw::one_row<M>(a, cols, j, i, n);
-  }
+  return a;
 }
 
 // A gather piece's rows [j0, j1) at kVec columns from i (n inside it):
@@ -167,9 +173,14 @@ __device__ __forceinline__ void gather_rows(const MosaicArgs& m,
   }
 }
 
-// One block: one tile of one piece.
+// One block: one tile of one piece.  An ESW piece's tile stages its
+// anchors in shared memory unless *staged* is 0 (esw_pixel.h's
+// staged_tile).
 template <int M>
-__global__ void __launch_bounds__(kWarpCols * kLanes) esw_mosaic_kernel(const MosaicArgs m) {
+__global__ void __launch_bounds__(kWarpCols * kLanes,
+                                  M == xrt::kNearest ? kMinBlocksNearest : kMinBlocks)
+    esw_mosaic_kernel(const MosaicArgs m, int staged) {
+  __shared__ float stage[kTileRows * kStageCols];
   const int t = static_cast<int>(blockIdx.x);
   const int p = piece_of(m, t);
   const int* e = m.table + static_cast<int64_t>(p) * kCols;
@@ -179,8 +190,7 @@ __global__ void __launch_bounds__(kWarpCols * kLanes) esw_mosaic_kernel(const Mo
   const int local = t - __ldg(m.tile_start + p);
   const int tr = local / tiles_x;
   const int i = ((local - tr * tiles_x) * kWarpCols + static_cast<int>(threadIdx.x)) * kVec;
-  if (i >= w) return;
-  const int n = w - i < kVec ? w - i : kVec;
+  const int n = w - i < kVec ? w - i : kVec;  // <= 0 past the piece's right edge
   const int j0 = tr * kTileRows;
   const int j1 = min(j0 + kTileRows, h);
   const xrt::CoarseFields<2> field{
@@ -189,29 +199,35 @@ __global__ void __launch_bounds__(kWarpCols * kLanes) esw_mosaic_kernel(const Mo
   const int c0 = __ldg(e + kC0);
   float* out = m.out + static_cast<int64_t>(__ldg(e + kR0)) * m.out_w + c0;
   const bool vec4 = m.vec4 && c0 % kVec == 0;
-  if (__ldg(e + kKind) == kEsw) {
-    esw_rows<M>(m, e, field, out, vec4, j0, j1, i, n);
-  } else {
-    gather_rows<M>(m, field, out, vec4, j0, j1, i, n);
+  if (__ldg(e + kKind) == kGather) {
+    if (i < w) gather_rows<M>(m, field, out, vec4, j0, j1, i, n);
+    return;
   }
+  const xrt::esw::Args a = esw_args(m, e, M, field, out, vec4);
+  xrt::FieldCols<2, kVec> cols(a.field, static_cast<float>(i));
+  const int i_last = min((local - tr * tiles_x + 1) * kTileCols, w) - 1;
+  xrt::esw::staged_tile<M, kLanes>(a, cols, j0, j1, i, n, i_last, stage, staged != 0, false);
 }
 
 }  // namespace
 
 // K16: src is the whole source (batch, src_h, src_w); out the canvas
 // (batch, out_h, out_w), which holds the fill where no piece lies; table
-// (n_pieces, 16) and tile_start (n_pieces + 1) int32 and fields float32 as ops/esw_mosaic.py packs them, n_tiles =
-// tile_start[n_pieces] blocks of tile_rows x tile_cols pixels (refused
-// unless they are the kernel's).
+// (n_pieces, 16) and tile_start (n_pieces + 1) int32 and fields float32 as
+// ops/esw_mosaic.py packs them, n_tiles = tile_start[n_pieces] blocks of
+// tile_rows x tile_cols pixels (refused unless they are the kernel's);
+// staged 1: each ESW tile stages its anchors where its span fits the
+// stage; 0: every ESW tile runs the per-pixel body (the same bits).
 extern "C" int xrt_esw_mosaic_f32(const float* src, const int* table, const int* tile_start,
                                   const float* fields, float* out, int64_t n_pieces,
                                   int64_t n_tiles, int64_t batch, int64_t src_h, int64_t src_w,
                                   int64_t out_h, int64_t out_w, int step, int method, float fill,
-                                  int tile_rows, int tile_cols, void* stream) {
+                                  int tile_rows, int tile_cols, int staged, void* stream) {
   constexpr int64_t kMaxPlane = (int64_t{1} << 31) - 1;
   if (src_h * src_w > kMaxPlane || out_h * out_w > kMaxPlane || n_pieces < 1 ||
       n_pieces > kMaxPlane || n_tiles < 1 || n_tiles > kMaxPlane || batch < 1 || step < 1 ||
-      src_h < 1 || src_w < 1 || tile_rows != kTileRows || tile_cols != kTileCols) {
+      src_h < 1 || src_w < 1 || tile_rows != kTileRows || tile_cols != kTileCols || staged < 0 ||
+      staged > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MosaicArgs m{};
@@ -234,10 +250,17 @@ extern "C" int xrt_esw_mosaic_f32(const float* src, const int* table, const int*
   const dim3 grid(static_cast<unsigned>(n_tiles));
   const dim3 block(kWarpCols, kLanes);
   switch (method) {
-    case xrt::kBilinear: esw_mosaic_kernel<xrt::kBilinear><<<grid, block, 0, s>>>(m); break;
-    case xrt::kNearest: esw_mosaic_kernel<xrt::kNearest><<<grid, block, 0, s>>>(m); break;
-    case xrt::kTriangular: esw_mosaic_kernel<xrt::kTriangular><<<grid, block, 0, s>>>(m); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case xrt::kBilinear:
+      esw_mosaic_kernel<xrt::kBilinear><<<grid, block, 0, s>>>(m, staged);
+      break;
+    case xrt::kNearest:
+      esw_mosaic_kernel<xrt::kNearest><<<grid, block, 0, s>>>(m, staged);
+      break;
+    case xrt::kTriangular:
+      esw_mosaic_kernel<xrt::kTriangular><<<grid, block, 0, s>>>(m, staged);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,7 +57,17 @@ coarse fields, with no per-pixel statics:
 The TPU layout's shift alignment moves values, not positions: the shifted source and anchors are value-equal to the
 unshifted ones, so the per-pixel form needs none of them.  Nor does it
 need ``XRTPU_ESW_PERTILE``, a TPU tiling knob whose outputs are bit-equal
-(``tests/test_esw.py:206``): the Hopper kernel has no tiles.
+(``tests/test_esw.py:206``).
+
+The anchor depends only on the target row and the window column, so K13
+stages it: a block of its kernel owns a tile of ``STAGE_TILE`` target
+pixels, bounds the window columns its valid pixels tap from the coarse
+field ``ix_c`` (``tile_spans``), computes the anchor of every (tile row,
+column of the span) once into shared memory (``stage_cols`` columns) and
+each pixel reads its two from there; a tile whose span exceeds the
+stage, and every tile of a launch with ``staged=False``, compute each
+pixel's anchors themselves.  Both take the same fused multiply-adds, so
+they give the same bits.
 
 ``esw_gather_band`` is K13's band form, the sharded ESW step's band
 kernel (``xcube_resampling_tpu/parallel/halo.py:650-791``): K13 at the
@@ -598,6 +608,65 @@ def _offset_fields(fields: _Fields, j0: int, j1: int, i0: int, i1: int):
 # ---------------------------------------------------------------------------
 
 
+# the staged kernels' tile (target rows, columns) and stage (window
+# columns of anchors a tile row): csrc/esw_pixel.h's kTileRows, the
+# kernels' kTileCols and kStageCols
+STAGE_TILE = (16, 128)
+STAGE_COLS = 128
+
+
+def stage_cols(interp_method):
+    """The widest span a tile stages (``csrc/esw_pixel.h``'s
+    ``stage_limit``): ``STAGE_COLS``, three quarters of it for nearest,
+    whose pixels take one anchor each, not two."""
+    return STAGE_COLS * 3 // 4 if interp_method == "nearest" else STAGE_COLS
+
+
+def tile_spans(ix_c, step, out_h, out_w, bound_w, i_off, width, interp_method):
+    """The span of window columns (0: none) that a staged kernel stages
+    for each ``STAGE_TILE`` tile of an (out_h, out_w) target: the bound
+    each warp takes from the finite corners of the coarse field *ix_c*
+    around the tile's coarse cells (``csrc/esw_pixel.h``'s
+    ``coarse_span``), for a source *bound_w* columns wide read through a
+    window of *width* columns from column *i_off*.  A (tiles down, tiles
+    across) int64 tensor; a tile whose span exceeds
+    ``stage_cols(interp_method)`` computes its anchors per pixel."""
+    th, tw = STAGE_TILE
+    dev = ix_c.device
+    ncj, nci = ix_c.shape
+    inv = torch.tensor(1.0 / step, dtype=_F32, device=dev)
+
+    def cells(first, last, n):  # the coarse cells of each tile's first and last index
+        def cell(v):
+            return torch.floor(v.to(_F32) * inv).long().clamp(0, n - 2)
+
+        return cell(first), cell(last)
+
+    r0 = torch.arange(0, out_h, th, device=dev)
+    q0 = torch.arange(0, out_w, tw, device=dev)
+    ra, rb = cells(r0, (r0 + th - 1).clamp(max=out_h - 1), ncj)
+    qa, qb = cells(q0, (q0 + tw - 1).clamp(max=out_w - 1), nci)
+    inf = torch.tensor(float("inf"), dtype=_F32, device=dev)
+    lo = inf.expand(len(r0), len(q0))
+    hi = -lo
+    for dr in range(int((rb - ra).max()) + 2):
+        r = torch.minimum(ra + dr, rb + 1)[:, None]
+        for dq in range(int((qb - qa).max()) + 2):
+            v = ix_c[r, torch.minimum(qa + dq, qb + 1)[None, :]]
+            finite = torch.isfinite(v)
+            lo = torch.where(finite, torch.minimum(lo, v), lo)
+            hi = torch.where(finite, torch.maximum(hi, v), hi)
+    none = lo > hi
+    lo, hi = torch.where(none, 0.0, lo), torch.where(none, 0.0, hi)
+    margin = 1.0 + torch.maximum(lo.abs(), hi.abs()) * 2.0**-20
+    x_max = float(np.float32(bound_w - 1))
+    c_lo = torch.floor((lo - margin).clamp(0, x_max)).long() - i_off
+    c_hi = torch.floor((hi + margin).clamp(0, x_max)).long() - i_off
+    c_hi = c_hi + (1 if interp_method == "nearest" else 2)
+    span = c_hi.clamp(0, width - 1) - c_lo.clamp(0, width - 1) + 1
+    return torch.where(none, 0, span)
+
+
 def _column_taps(iystar_c, step, half, rows, col, y0w, s_max, ext_h, width, clip_h,
                  row_off):
     """One tap column: window column ``col`` clipped to the plane, its
@@ -701,9 +770,12 @@ def esw_gather_band_plain(ext, iystar_c, ix_c, iy_c, step, n_samples, out_h,
 
 
 def esw_gather(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
-               src_h_g, src_w_g, j_off, i_off, interp_method, fill_value):
+               src_h_g, src_w_g, j_off, i_off, interp_method, fill_value,
+               staged=True):
     """K13: the exact separable warp, (B, out_h, out_w) from the (B, H, W)
-    source window (:func:`esw_gather_plain`)."""
+    source window (:func:`esw_gather_plain`), each tile's anchors staged
+    where its span fits the stage (*staged* False: computed per pixel in
+    every tile; the same bits)."""
     if on_cpu(src, iystar_c, ix_c, iy_c):
         return esw_gather_plain(
             src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w, src_h_g,
@@ -711,7 +783,7 @@ def esw_gather(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
         )
     return _launch_esw(
         src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
-        interp_method, fill_value, (src_h_g, src_w_g, j_off, i_off), None,
+        interp_method, fill_value, (src_h_g, src_w_g, j_off, i_off, int(staged)), None,
     )
 
 
@@ -735,9 +807,9 @@ def esw_gather_band(ext, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
 
 def _launch_esw(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
                 interp_method, fill_value, window, band):
-    """K13 on CUDA tensors: *window* ``(src_h_g, src_w_g, j_off, i_off)``
-    for the single-card form, or *band* ``(row0, off, src_h)`` for the band
-    form."""
+    """K13 on CUDA tensors: *window* ``(src_h_g, src_w_g, j_off, i_off,
+    staged)`` for the single-card form, or *band* ``(row0, off, src_h)``
+    for the band form."""
     method = method_code(interp_method)
     batch, src_h, src_w = src.shape
     ncj, nci = ix_c.shape

@@ -59,7 +59,7 @@ import torch
 from .. import _build
 from .._device import count_launch, on_cpu, require_cuda
 from ..gridmapping import GridMapping
-from .esw import _offset_fields, _slice_raw, esw_gather_plain, plan_esw
+from .esw import STAGE_TILE, _offset_fields, _slice_raw, esw_gather_plain, plan_esw
 from .reproject_ops import METHODS, gather_piece_plain, method_code, require_int32_planes
 from .srw import _Fields, _iystar_from_fields, _raw_coarse_fields, _source_window_gm
 
@@ -73,7 +73,7 @@ ESW, GATHER = 0, 1
 N_COLS = 16
 # a block's tile of a piece: target rows by columns (csrc/esw_mosaic.cu's
 # kTileRows, kTileCols; the C entry refuses others)
-TILE_ROWS, TILE_COLS = 16, 128
+TILE_ROWS, TILE_COLS = STAGE_TILE
 # the quadtree's base split per axis and its depth: the JAX package's
 # defaults (esw.py:1134-1135)
 _BASE_SPLIT, _MAX_DEPTH = 2, 4
@@ -420,9 +420,12 @@ def esw_mosaic_plain(src, fields, table, tile_start, n_tiles, step, out_h, out_w
 
 
 def esw_mosaic(src, fields, table, tile_start, n_tiles, step, out_h, out_w, interp_method,
-               fill_value, covered=False):
+               fill_value, covered=False, staged=True):
     """K16: the exact region mosaic of (B, H, W) *src* in one launch of
-    *n_tiles* blocks over the canvas (:func:`esw_mosaic_plain`)."""
+    *n_tiles* blocks over the canvas (:func:`esw_mosaic_plain`), each ESW
+    tile's anchors staged where its span fits the stage (*staged* False:
+    computed per pixel in every tile; the same bits; ``ops/esw.py``'s
+    ``tile_spans``)."""
     if on_cpu(src, fields, table, tile_start):
         return esw_mosaic_plain(
             src, fields, table, tile_start, n_tiles, step, out_h, out_w, interp_method,
@@ -448,7 +451,7 @@ def esw_mosaic(src, fields, table, tile_start, n_tiles, step, out_h, out_w, inte
         rc = lib.xrt_esw_mosaic_f32(
             src.data_ptr(), table.data_ptr(), tile_start.data_ptr(), fields.data_ptr(),
             out.data_ptr(), n, n_tiles, batch, src_h, src_w, out_h, out_w, step, method,
-            fill, TILE_ROWS, TILE_COLS, stream,
+            fill, TILE_ROWS, TILE_COLS, int(staged), stream,
         )
     _build.check(lib, rc, "esw_mosaic")
     count_launch("esw_mosaic")
