@@ -59,9 +59,12 @@ beside this tree's, in turns).  It
    pixel (``staged=False``) held to its plain version for every method on
    1 and 4 bands at the cell and on a sheared target whose tiles partly
    take the per-pixel body (``ESW_SHEARED``), with the share of tiles
-   staged as modelled; K13 and its band form timed for every method beside
-   K3 and its band form, and K13 beside its per-pixel path and TREE's K13
-   in turns, at the cell and on the sheared target), the fast
+   staged as modelled; its band form likewise, staged and per pixel, on
+   every band of the cell and of the sheared target, each band's share of
+   tiles staged as modelled, and ``plan_sharded_esw``'s host time alone;
+   K13 and its band form timed for every method beside K3 and its band
+   form, and beside their per-pixel paths and TREE's in turns, K13 at the
+   cell and on the sheared target, its band form at the cell's band 1), the fast
    extreme-warp mode (:func:`hybrid_phase`, ``XRTPU_FAST_EXTREME_WARP=1``:
    the ESW cell's geometry through the whole-domain hybrid SRW, K17 + K18
    once each a call, bilinear and nearest, 1 and 4 bands; BASELINE #3
@@ -1215,15 +1218,18 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
     (K13; 1 band, every method, and 4 bands: first call, warm calls, peak
     device memory, the host's planning), and ``sharded_reproject`` of it
     over a mesh of 4 entries (K13's band form after the halo exchange;
-    first call, the planned step warm, held to the single-chip ESW on the
-    window it crops bit for bit and to the one of the whole source within
-    ``ESW_WHOLE_ATOL``, nearest differing on under ``ESW_WHOLE_FLIPS``);
-    hold K13 and its band form to their plain
-    versions bit for bit (every method, NaN and +-inf rows and columns, a
-    numeric fill, a target over the source's last row and column, every
-    band, band 0 from its negative offset, a ragged last band) and time
-    them, every method, beside K3 and its band form on the same geometry
-    and ``F.grid_sample``.  *h* carries :func:`main`'s helpers.  Returns (the
+    ``plan_sharded_esw``'s host time, first call, the planned step warm,
+    held to the single-chip ESW on the window it crops bit for bit and to
+    the one of the whole source within ``ESW_WHOLE_ATOL``, nearest
+    differing on under ``ESW_WHOLE_FLIPS``); hold K13 and its band form,
+    staged and per pixel, to their plain versions bit for bit (every
+    method, NaN and +-inf rows and columns, a numeric fill, a target over
+    the source's last row and column, every band, band 0 from its negative
+    offset, a ragged last band, the bands of the sheared 512^2 target) with
+    their tiles staged as modelled, and time them, every method, beside
+    their per-pixel paths and the parent's (``--against``) in turns, K3 and
+    its band form on the same geometry and ``F.grid_sample``.  *h* carries
+    :func:`main`'s helpers.  Returns (the
     band form's launches on the sharded path, max abs errors, timings,
     bounds, library yardsticks, K3's times beside them)."""
     import torch
@@ -1231,9 +1237,11 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
     from xcube_resampling_tpu_torch import GridMapping
     from xcube_resampling_tpu_torch._device import LAUNCHES
     from xcube_resampling_tpu_torch.ops.esw import (
+        BAND_STAGE_ROWS,
         STAGE_COLS,
         ESWReprojectFn,
         _offset_fields,
+        band_tile_rows,
         esw_gather,
         esw_gather_band,
         esw_gather_band_plain,
@@ -1241,6 +1249,7 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
         make_esw_reproject_fn,
         plan_esw,
         stage_cols,
+        tile_spans,
     )
     from xcube_resampling_tpu_torch.ops.reproject_ops import (
         fused_reproject,
@@ -1256,7 +1265,7 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
         make_sharded_srw_step,
         sharded_reproject,
     )
-    from xcube_resampling_tpu_torch.parallel.halo import crop_source
+    from xcube_resampling_tpu_torch.parallel.halo import crop_source, plan_sharded_esw
     from xcube_resampling_tpu_torch.reproject import device_reproject_fn
 
     nan = float("nan")
@@ -1389,6 +1398,14 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
     xc, geo_c = crop_source(geo, geo_gm, tgt)
     if make_sharded_srw_step(mesh, geo_c, tgt) is not None:
         raise AssertionError("the ESW cell admits the sharded SRW")
+    plan_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plan_sharded_esw(mesh.size, geo_c, tgt)
+        plan_s.append(time.perf_counter() - t0)
+    print(f"{tag} plan_sharded_esw on the host alone ({mesh.size} bands of the window "
+          f"{tuple(xc.shape)} onto {tgt.height}x{tgt.width}): first {plan_s[0]:.3f} s, median "
+          f"of 3 {statistics.median(plan_s):.3f} s")
 
     def sharded(call, what):
         LAUNCHES.clear()
@@ -1457,8 +1474,27 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
           f"of 5: {w * 1e3:.3f} ms = {mpix / w:.1f} Mpix/s; peak device memory "
           f"{peak_s / 2**30:.3f} GiB above the {base_s / 2**30:.3f} GiB held before it")
 
-    # -- the band form against its plain version ----------------------------
+    # -- the band form against its plain version, staged and per pixel ------
+    def band_exact(a, what):
+        ref = esw_gather_band_plain(*a)
+        exact(esw_gather_band(*a), ref, "esw_gather_band", f"{what}, staged")
+        exact(esw_gather_band(*a, staged=False), ref, "esw_gather_band", f"{what}, per pixel")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def band_shares(a):
+        """A band's rows a tile and share of tiles staged, modelled
+        (band_tile_rows, tile_spans at the band's first row; none in tiles
+        of fewer than BAND_STAGE_ROWS rows), not counted by the kernel."""
+        ext, _, ix_c, _, st, _, out_h, out_w, interp = a[:9]
+        w, rows = ext.shape[-1], band_tile_rows(out_h, out_w, sms)
+        if rows < BAND_STAGE_ROWS:
+            return rows, 0.0
+        return rows, staged_share(tile_spans(ix_c, st, out_h, out_w, w, 0, w, interp,
+                                             row0=a[10], tile_rows=rows), interp)
+
     xce, _ = crop_source(xe, geo_gm, tgt)
+    band_staged = {}
     for data, what in ((xp, "clean"), (torch.nn.functional.pad(xce, (0, 0, 0, pad), value=nan),
                                        "NaN and +-inf rows and columns")):
         for interp in METHODS:
@@ -1467,16 +1503,41 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
             halos = step_m.exchange(bands)
             for k in range(mesh.size):
                 a = step_m.gather_args(bands, halos, k)
-                exact(esw_gather_band(*a), esw_gather_band_plain(*a), "esw_gather_band",
-                      f"ESW band {k} (off {a[11]}), {what}, {interp}")
+                band_exact(a, f"ESW band {k} (off {a[11]}), {what}, {interp}")
+                band_staged["the ESW cell", interp, k] = band_shares(a)
             a = list(step_m.gather_args(bands, halos, mesh.size - 1))
             a[6] -= 5
-            exact(esw_gather_band(*a), esw_gather_band_plain(*a), "esw_gather_band",
-                  f"ESW last band, {a[6]} rows, {what}, {interp}")
+            band_exact(a, f"ESW last band, {a[6]} rows, {what}, {interp}")
             del bands, halos, a, step_m
-    print(f"{tag} esw_gather_band vs plain on every band of the ESW cell (band 0 from off "
-          f"{-step.halo}), a ragged last band, clean and with NaN and +-inf rows and columns, "
-          f"every method: equal")
+    # the sheared 512^2 target over the same mesh (bands too small to fill
+    # the card in 16-row tiles: tiles of 2 rows, per pixel), and the ESW
+    # cell over 8 bands (tiles of 11 rows, staged)
+    xs_c, geo_s = crop_source(geo, geo_gm, sheared)
+    mesh8 = make_mesh(devices=[dev] * 8)
+    for where_b, m_b, x_b, g_b, t_b in (("the sheared target", mesh, xs_c, geo_s, sheared),
+                                        ("the ESW cell over 8 bands", mesh8, xc, geo_c, tgt)):
+        for interp in METHODS:
+            step_s, (pad_s, _) = make_sharded_esw_step(m_b, g_b, t_b, interp_method=interp)
+            bands, _ = step_s.bands(torch.nn.functional.pad(x_b, (0, 0, 0, pad_s), value=nan))
+            halos = step_s.exchange(bands)
+            for k in range(m_b.size):
+                a = step_s.gather_args(bands, halos, k)
+                band_exact(a, f"{where_b}, band {k} (off {a[11]}), {interp}")
+                band_staged[where_b, interp, k] = band_shares(a)
+            del bands, halos, a, step_s
+    if not BAND_STAGE_ROWS <= band_staged["the ESW cell over 8 bands", "bilinear", 1][0] < 16:
+        raise AssertionError(f"the ESW cell's 8 bands run no short staged tiles: {band_staged}")
+    print(f"{tag} esw_gather_band vs plain, staged and per pixel, on every band of the ESW cell "
+          f"(band 0 from off {-step.halo}), a ragged last band, clean and with NaN and +-inf "
+          f"rows and columns, on every band of the sheared 512^2 target and of the ESW cell "
+          f"over 8 bands, every method: equal")
+    for where_b in ("the ESW cell", "the sheared target", "the ESW cell over 8 bands"):
+        print(f"{tag} esw_gather_band tiles staged at {where_b}, modelled from the inputs "
+              f"(ops.esw.band_tile_rows on {sms} SMs, tile_spans at each band's first row), not "
+              f"counted by the kernel: tiles of {band_staged[where_b, 'bilinear', 0][0]} rows; "
+              + "; ".join(f"{m} " + ", ".join(f"band {k} {v[1]:.4f}"
+                                               for (w_, m_, k), v in band_staged.items()
+                                               if (w_, m_) == (where_b, m)) for m in METHODS))
 
     # -- timings, bounds and yardsticks -------------------------------------
     fn = make_esw_reproject_fn(geo_gm, tgt, "bilinear", nan, device=dev)
@@ -1619,6 +1680,28 @@ def esw_phase(dev, tag, h, geo, ds, cell=ESW_CELL):
               f"bound {band[f'{interp}_bound_ms']:.4f} ms; K3's band form on the regrid's band "
               f"1 device {band[f'k3_{interp}_device_ms']:.4f} ms{lib}")
         del fn_m, am, k3_m, k3m, step_m, bm, abm, regrid_m, rbm, gam
+    # the band form at band 1 in turns, every method: staged beside its
+    # per-pixel path (staged=False) and the parent tree's band form
+    # (--against)
+    band_turns = {}
+    for interp in METHODS:
+        step_m = make_sharded_esw_step(mesh, geo_c, tgt, interp_method=interp)[0]
+        bm, _ = step_m.bands(xp)
+        abm = step_m.gather_args(bm, step_m.exchange(bm), 1)
+        band_turns[f"per_pixel_{interp}"] = beside_parent(
+            h, lambda a=abm: esw_gather_band(*a), lambda a=abm: esw_gather_band(*a, staged=False))
+        if h.tree_esw is not None:
+            band_turns[f"parent_{interp}"] = beside_parent(
+                h, lambda a=abm: esw_gather_band(*a), h.tree_esw.k13_band(abm))
+        del step_m, bm, abm
+    print(f"{tag} esw_gather_band at the ESW cell's band 1 in turns, device ms (this; per "
+          f"pixel; parent): " + "; ".join(
+              f"{m}: {band_turns[f'per_pixel_{m}'][0]:.4f}, {band_turns[f'per_pixel_{m}'][1]:.4f}"
+              + (f", {band_turns[f'parent_{m}'][1]:.4f}" if f"parent_{m}" in band_turns else "")
+              for m in METHODS))
+    for k, (this, other) in band_turns.items():
+        k3["esw_gather_band"][f"{k}_device_ms_turns"] = this
+        k3["esw_gather_band"][f"{k}_other_device_ms"] = other
     del bands, halos, ab, ext, grid, grid_b, rb, ga, regrid, step, xp, xr, x4, ds4, xe, xce
     torch.cuda.empty_cache()
     return band_launches, err, timings, bounds, library, k3
@@ -2999,11 +3082,13 @@ TREE_SIGNATURES = {
     "xrt_srw_aligned_vertical_f32": ["p"] * 5 + ["q"] * 6 + ["i", "q", "q", "i", "i", "p"],
     "xrt_srw_aligned_horizontal_f32": ["p"] * 6 + ["q"] * 7 + ["i", "q", "i", "i", "f", "p"],
 }
-# the parent's C entries of K13 and K16 (--against): this tree's take a
-# staged flag before the stream
+# the parent's C entries of K13, its band form and K16 (--against): K13's
+# and K16's take the staged flag before the stream, as this tree's do; the
+# band form's takes none (this tree's does)
 TREE_ESW_SIGNATURES = {
-    "xrt_esw_gather_f32": ["p"] * 5 + ["q"] * 8 + ["i", "i", "i", "f"] + ["q"] * 4 + ["p"],
-    "xrt_esw_mosaic_f32": ["p"] * 5 + ["q"] * 7 + ["i", "i", "f", "i", "i", "p"],
+    "xrt_esw_gather_f32": ["p"] * 5 + ["q"] * 8 + ["i", "i", "i", "f"] + ["q"] * 4 + ["i", "p"],
+    "xrt_esw_gather_band_f32": ["p"] * 5 + ["q"] * 8 + ["i", "i", "i", "f"] + ["q"] * 3 + ["p"],
+    "xrt_esw_mosaic_f32": ["p"] * 5 + ["q"] * 7 + ["i", "i", "f", "i", "i", "i", "p"],
 }
 
 
@@ -3037,7 +3122,7 @@ def build_tree_library(tree, out_dir, sources=("srw_aligned.cu",), signatures=No
 
 def esw_entry_call(lib, a, staged=None):
     """A closure launching a library's K13 entry on K13's wrapper arguments
-    *a*, *staged* or not (None: the parent's entry, which takes no flag)."""
+    *a*, *staged* or not (None: an entry that takes no flag)."""
     import torch
 
     from xcube_resampling_tpu_torch.ops.reproject_ops import method_code
@@ -3059,10 +3144,35 @@ def esw_entry_call(lib, a, staged=None):
     return run
 
 
+def esw_band_entry_call(lib, a, staged=None):
+    """A closure launching a library's entry of K13's band form on its
+    wrapper arguments *a*, *staged* or not (None: the parent's entry,
+    which takes no flag)."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops.reproject_ops import method_code
+
+    ext, ys, ix_c, iy_c, step, s, out_h, out_w, interp, fill, row0, off, src_h = a
+    batch, h, w = ext.shape
+    ncj, nci = ix_c.shape
+    out = torch.empty((batch, out_h, out_w), dtype=torch.float32, device=ext.device)
+    args = [ext.data_ptr(), ys.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(),
+            batch, h, w, ncj, ys.shape[1], nci, out_h, out_w, step, s, method_code(interp),
+            float(fill), row0, off, src_h] + ([] if staged is None else [int(staged)])
+
+    def run():
+        rc = lib.xrt_esw_gather_band_f32(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"K13's band form of a built library: CUDA error {rc}")
+        return out
+
+    return run
+
+
 def mosaic_entry_call(lib, fn, x, staged=None):
     """A closure launching a library's K16 entry for the ``ESWMosaicFn``
-    *fn* on (B, H, W) *x*, *staged* or not (None: the parent's entry); the
-    canvas filled first."""
+    *fn* on (B, H, W) *x*, *staged* or not (None: an entry that takes no
+    flag); the canvas filled first."""
     import torch
 
     from xcube_resampling_tpu_torch.ops.reproject_ops import method_code
@@ -3129,8 +3239,9 @@ def tree_calls(lib, fn, x):
 def parent_kernels(tree):
     """For ``--against TREE`` (the parent tree), its two libraries built
     together: a function of (an aligned or hybrid fn, its cropped source)
-    giving :func:`tree_calls` of TREE's K14-K18, and TREE's K13 and K16
-    (:func:`esw_entry_call`, :func:`mosaic_entry_call`)."""
+    giving :func:`tree_calls` of TREE's K14-K18, and TREE's K13, its band
+    form and K16 (:func:`esw_entry_call`, :func:`esw_band_entry_call`,
+    :func:`mosaic_entry_call`)."""
     from concurrent.futures import ThreadPoolExecutor
 
     out = os.path.join("build", "chip_smoke_tree")
@@ -3141,8 +3252,9 @@ def parent_kernels(tree):
         lib, _ = aligned.result()
         esw_lib, _ = esw.result()
     return (lambda fn, x: tree_calls(lib, fn, x)), SimpleNamespace(
-        k13=lambda a: esw_entry_call(esw_lib, a),
-        k16=lambda fn, x: mosaic_entry_call(esw_lib, fn, x))
+        k13=lambda a: esw_entry_call(esw_lib, a, True),
+        k13_band=lambda a: esw_band_entry_call(esw_lib, a),
+        k16=lambda fn, x: mosaic_entry_call(esw_lib, fn, x, True))
 
 
 def main() -> int:
@@ -3278,12 +3390,12 @@ def main() -> int:
               f"{min(k[1] for k in cached)}-{max(k[1] for k in cached)} registers, "
               f"{max(k[2] for k in cached)} bytes spilled, "
               f"{max(k[3] for k in cached)} bytes of stack frame")
-    # K7's band form, K2, K11, K12, K3's band form, K13 (per pixel and
-    # staged) and its band form, K14-K18 (K17 and K18 launch K14's and K15's
-    # kernels: the staged vertical kernel and the horizontal kernel per
-    # method, the direct vertical kernel per method with one tile and with
-    # many), K16 per method, per pixel and staged, and the downscale form's
-    # cached kernels: no spill, no local memory
+    # K7's band form, K2, K11, K12, K3's band form, K13 and its band form
+    # (a staged kernel per method each, its fall-back inside), K14-K18 (K17
+    # and K18 launch K14's and K15's kernels: the staged vertical kernel and
+    # the horizontal kernel per method, the direct vertical kernel per
+    # method with one tile and with many), K16 per method, and the
+    # downscale form's cached kernels: no spill, no local memory
     for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
                        ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),

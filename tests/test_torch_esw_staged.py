@@ -19,12 +19,20 @@ walked in its own tiles) and to the JAX package's ESW and region mosaic
 every method, a window with offsets, tiles straddling two coarse row cells
 (step 12), ``c1`` clamped at the window's last column, nearest's selection
 reaching ``S - 1``, NaN and +-inf rows and columns, and sheared tiles that
-take the per-pixel body.  Inputs come from a numpy seed, float32.  Plans,
-inputs and walks are cached across the tests, and each test runs on one
-torch thread.
+take the per-pixel body.  K13's band form walks the same tiles at global
+target rows from its band's first row, its taps' rows clipped to the
+source and read the band's offset up: the walk is held bit for bit to
+``esw_gather_band_plain`` (itself held to JAX's sharded ESW by
+``tests/test_torch_esw_sharded.py``) on every band of
+``make_sharded_esw_step``'s bands, band 0 from its negative offset, a
+ragged last band, bands of 12, 24 and 86 rows (tiles straddling band and
+coarse-cell boundaries) and sheared tiles that fall back.  Inputs come
+from a numpy seed, float32.  Plans, inputs and walks are cached across the
+tests, and each test runs on one torch thread.
 """
 
 import functools
+import inspect
 
 import numpy as np
 import pytest
@@ -35,6 +43,8 @@ import jax.numpy as jnp  # noqa: E402
 
 import xcube_resampling_tpu as jx  # noqa: E402
 import xcube_resampling_tpu_torch as pt  # noqa: E402
+from xcube_resampling_tpu_torch import _build  # noqa: E402
+from xcube_resampling_tpu_torch import parallel as ppar  # noqa: E402
 from xcube_resampling_tpu.ops import esw as jesw  # noqa: E402
 from xcube_resampling_tpu_torch.ops import esw as pesw  # noqa: E402
 from xcube_resampling_tpu_torch.ops import esw_mosaic as pmos  # noqa: E402
@@ -44,8 +54,12 @@ from xcube_resampling_tpu_torch.ops.reproject_ops import (  # noqa: E402
     interp_taps_f32,
     lerp,
 )
+from xcube_resampling_tpu_torch.parallel.halo import crop_source  # noqa: E402
 from tests.test_torch_esw import _data  # noqa: E402
 from tests.test_torch_esw_mosaic import _data as _mosaic_data  # noqa: E402
+from tests.test_torch_esw_sharded import SOURCE as GREENLAND  # noqa: E402
+from tests.test_torch_esw_sharded import TARGET as GREENLAND_TARGET  # noqa: E402
+from tests.test_torch_esw_sharded import _data as _greenland_data  # noqa: E402
 
 F32 = torch.float32
 CPU = torch.device("cpu")
@@ -76,6 +90,24 @@ MOSAIC = (GLOBAL, dict(size=(256, 256), xy_min=(2000000.0, 1000000.0), xy_res=24
 # compiles for 1-5 s; esw_gather_plain is held to JAX's ESW on every case
 # by tests/test_torch_esw.py): every method at the edges, the cheapest
 JAX_RUNS = {("edges", "bilinear"), ("edges", "nearest"), ("edges", "triangular")}
+# K13's band form: (source, target) of make_sharded_esw_step's steps,
+# walked band by band
+BAND_CASES = {
+    # tests/test_torch_esw_sharded.py's: bands of 24 (n = 2) and 12 (n = 4)
+    # target rows, halos of 8 and 14 source rows
+    "greenland": (GREENLAND, GREENLAND_TARGET),
+    # "severe" over 3 bands of 86 target rows: tiles straddle band and
+    # coarse-cell boundaries; band 2's rows run past the target's 256
+    "severe": CASES["severe"][:2],
+    # "sheared" at 40 km and 64 rows, which the sharded ESW admits: tile
+    # spans of 34 to 147 columns, so some tiles of each band fall back
+    "sheared": (GLOBAL, dict(size=(160, 64), xy_min=(900000.0, 900000.0), xy_res=40000.0,
+                             crs="epsg:3035")),
+    # "edges" over 7 bands of 12 rows: band 4's valid pixels tap the
+    # source's last row beside the 2 NaN rows that pad it to 7 bands of 14,
+    # so its rows must clip to the source, not to the extension
+    "edges": CASES["edges"][:2],
+}
 
 
 @pytest.fixture(autouse=True)
@@ -125,13 +157,19 @@ def _coarse_span(ix_c, step, rows, cols, bound_w, i_off, w, nearest):
 
 
 def _staged_esw(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w, bound_h, bound_w,
-                j_off, i_off, interp, fill, capacity):
+                j_off, i_off, interp, fill, capacity, row0=0, clip_h=None, row_off=0,
+                tile_rows=16):
     """K13's staged kernel on the (B, H, W) window *src*, as its blocks walk
-    the tiles.  Returns the output, (span, staged) per tile and the
-    greatest selection s0 of a valid pixel's first tap column."""
+    the tiles; with *row0*, *clip_h* and *row_off* its band form's: output
+    row 0 at global target row *row0*, the taps' rows clipped to [0,
+    clip_h) (default: H), then read *row_off* rows up and clipped to the
+    plane, in tiles of *tile_rows* rows.  Returns the output, (span,
+    staged) per tile and the greatest selection s0 of a valid pixel's first
+    tap column."""
     src = src.to(F32)
     h, w = src.shape[-2:]
-    rows = torch.arange(out_h, dtype=F32)[:, None]
+    clip_h = h if clip_h is None else clip_h
+    rows = torch.arange(row0, row0 + out_h, dtype=F32)[:, None]
     cols = torch.arange(out_w, dtype=F32)[None, :]
     ix = interp_field(ix_c, rows, cols, step)
     iy = interp_field(iy_c, rows, cols, step)
@@ -154,13 +192,13 @@ def _staged_esw(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w, bound_
     anchors = [torch.zeros((out_h, out_w), dtype=F32) for _ in taps]
     inv = 1.0 / step
     ncj, ncc = iystar_c.shape
-    th, tw = pesw.STAGE_TILE
+    th, tw = tile_rows, pesw.STAGE_TILE[1]
     tiles = {}
     for r0 in range(0, out_h, th):
         for q0 in range(0, out_w, tw):
             tile = (slice(r0, r0 + th), slice(q0, q0 + tw))
             v = valid[tile]
-            lo, hi = _coarse_span(ix_c, step, (r0, min(r0 + th, out_h) - 1),
+            lo, hi = _coarse_span(ix_c, step, (row0 + r0, row0 + min(r0 + th, out_h) - 1),
                                   (q0, min(q0 + tw, out_w) - 1), bound_w, i_off, w, nearest)
             span = max(hi - lo + 1, 0)
             staged = span <= capacity and capacity > 0
@@ -193,11 +231,14 @@ def _staged_esw(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w, bound_
             stage = torch.floor(lerp(a0[at], a1[at], fj) - half)  # (tile rows, span)
             for m, t in zip(anchors, taps):
                 m[tile] = stage.gather(1, torch.where(v, t[tile] - lo, 0))
+    def clip(r):
+        return (r.clamp(0, clip_h - 1) - row_off).clamp(0, h - 1)
+
     rows_at = []
     for m in anchors:
         s0 = (y0w - m).clamp(0, s_max)
         r = (m + s0).long()
-        rows_at.append((r.clamp(0, h - 1), (r + 1).clamp(0, h - 1), s0))
+        rows_at.append((clip(r), clip(r + 1), s0))
     (ra0, rb0, s00), *rest = rows_at
     v00, v10 = src[..., ra0, taps[0]], src[..., rb0, taps[0]]
     if nearest:
@@ -372,3 +413,166 @@ def test_staged_mosaic_matches_jax():
                                       "bilinear", np.nan)
         ref = np.asarray(jfn(jnp.asarray(x)))
     _assert_equal(_mosaic_walk("bilinear", 128)[0], ref)
+
+
+# -- K13's band form -----------------------------------------------------------
+
+
+def _band_source(case):
+    """The case's source window as the sharded step takes it (``crop_source``)
+    and its grid mappings: 2 or 3 bands in [0, 1) with NaN and +-inf rows
+    and columns, also on the window's edges and its middle row."""
+    src, tgt = (pt.GridMapping.regular(**g) for g in BAND_CASES[case])
+    if case == "greenland":
+        return torch.from_numpy(_greenland_data()), src, tgt
+    x, src_c = crop_source(torch.from_numpy(_data("edges" if case == "edges" else "severe")),
+                           src, tgt)
+    x = x.clone()
+    h, w = x.shape[-2:]
+    x[2, 0], x[2, -1], x[2, :, 0], x[2, :, -1] = np.nan, np.inf, -np.inf, np.nan
+    x[2, h // 2], x[2, : h // 3, w // 3] = np.inf, np.nan
+    return x, src_c, tgt
+
+
+@functools.lru_cache(maxsize=None)
+def _bands(case, n, method, fill=np.nan):
+    """K13's band-form arguments for every band of the case's sharded step
+    over *n* CPU devices, the last band also ragged (5 rows short), each
+    with esw_gather_band_plain's output."""
+    x, src, tgt = _band_source(case)
+    step, (pad, _) = ppar.make_sharded_esw_step(ppar.make_mesh(devices=[CPU] * n), src, tgt,
+                                                interp_method=method, fill_value=fill,
+                                                src_batch_dims=1)
+    bands, _ = step.bands(torch.nn.functional.pad(x, (0, 0, 0, pad), value=np.nan))
+    halos = step.exchange(bands)
+    args = [step.gather_args(bands, halos, k) for k in range(n)]
+    ragged = list(args[-1])
+    ragged[6] -= 5
+    args.append(tuple(ragged))
+    return step, tuple((a, pesw.esw_gather_band_plain(*a)) for a in args)
+
+
+def _band_walk_args(a):
+    """``_staged_esw``'s arguments from K13's band-form arguments *a*
+    (capacity last, to be appended)."""
+    ext, iystar_c, ix_c, iy_c, step, s, out_h, out_w, interp, fill, row0, off, src_h = a
+    return ((ext, iystar_c, ix_c, iy_c, step, s, out_h, out_w, src_h, ext.shape[-1], 0, 0,
+             interp, fill), dict(row0=row0, clip_h=src_h, row_off=off))
+
+
+@functools.lru_cache(maxsize=None)
+def _band_walk(case, n, method, fill=np.nan, capacity=None, tile_rows=16):
+    """``_staged_esw`` of each band of :func:`_bands` (the kernels' stage
+    width for the method unless *capacity*) in tiles of *tile_rows* rows:
+    (output, tiles) per band."""
+    capacity = pesw.stage_cols(method) if capacity is None else capacity
+    walks = []
+    for a, _ in _bands(case, n, method, fill)[1]:
+        pos, kw = _band_walk_args(a)
+        got, tiles, _ = _staged_esw(*pos, capacity, **kw, tile_rows=tile_rows)
+        walks.append((got, tiles))
+    return walks
+
+
+BAND_RUNS = [("greenland", 2), ("greenland", 4), ("severe", 3), ("sheared", 2), ("edges", 7)]
+
+
+@pytest.mark.parametrize("case, n", BAND_RUNS)
+@pytest.mark.parametrize("method", METHODS)
+def test_band_walk_matches_plain(case, n, method):
+    """The band form's walk at the kernels' stage width equals
+    esw_gather_band_plain bit for bit, NaN masks included, on every band
+    and a ragged last band: band 0 read from its negative offset, bands
+    whose height is no multiple of the tile's 16 rows, rows clipped to the
+    source's last row (edges), and tiles that take the per-pixel body
+    (sheared); the wrapper with no stage gives the same bits."""
+    step, bands = _bands(case, n, method)
+    walks = _band_walk(case, n, method)
+    clipped = False
+    for (a, ref), (got, tiles) in zip(bands, walks):
+        _assert_equal(got, ref)
+        _assert_equal(pesw.esw_gather_band(*a, staged=False), ref)
+        # the clip to the source's height gives other values than the
+        # extension's own clip would
+        unclipped = pesw._esw_plain(a[0], *a[1:6], method, a[9], a[10], a[6], a[7], a[12],
+                                    a[0].shape[-1], 0, 0, 2**20, a[11])
+        clipped |= not torch.equal(unclipped.isnan(), ref.isnan())
+    assert np.isfinite(torch.cat([ref for _, ref in bands[:-1]], -2).numpy()).mean() > 0.2
+    assert bands[0][0][11] < 0 and step.use_halo  # band 0 from its negative offset
+    assert bands[-1][0][6] % 16  # the ragged last band
+    assert clipped == (case == "edges" and method != "nearest")
+    staged = [[s for _, s in t.values()] for _, t in walks]
+    if case == "sheared":  # band 0's tiles partly fall back, the others stage
+        assert not all(staged[0]) and all(map(any, staged))
+    else:
+        assert all(map(all, staged))
+    if case == "severe":  # tiles straddle band and coarse-cell boundaries
+        assert step.plan.out_band_h % 16 and step.plan.out_band_h % step.plan.step
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_band_capacity_splits_tiles(method):
+    """At a stage of 25 columns the 86-row bands of "severe" (spans of 21
+    to 28) split their tiles between the two bodies, and at 0 every tile
+    takes the per-pixel body; with a numeric fill both give
+    esw_gather_band_plain's bits on every band."""
+    bands = _bands("severe", 3, method, -9999.0)[1]
+    for capacity in (25, 0):
+        walks = _band_walk("severe", 3, method, -9999.0, capacity)
+        staged = [s for _, t in walks for _, s in t.values()]
+        assert any(staged) == (capacity > 0) and not all(staged)
+        for (_, ref), (got, _) in zip(bands, walks):
+            _assert_equal(got, ref)
+
+
+@pytest.mark.parametrize("case, n", BAND_RUNS)
+@pytest.mark.parametrize("method", ["bilinear", "nearest"])
+@pytest.mark.parametrize("tile_rows", [pesw.BAND_STAGE_ROWS, 11])
+def test_band_walk_in_small_tiles_matches_plain(case, n, method, tile_rows):
+    """Tiles of fewer rows that still stage, as a band too small to fill
+    the card in 16-row tiles runs them (``ops.esw.band_tile_rows``): the
+    walk still gives esw_gather_band_plain's bits on every band, its tiles
+    straddling band and coarse-cell boundaries."""
+    for (_, ref), (got, tiles) in zip(_bands(case, n, method)[1],
+                                      _band_walk(case, n, method, tile_rows=tile_rows)):
+        _assert_equal(got, ref)
+        assert len(tiles) == -(-ref.shape[-2] // tile_rows) * -(-ref.shape[-1] // 128)
+
+
+def test_band_tile_rows():
+    """The band form's rows a tile on a card of 132 SMs: 16 where the
+    band's 16-row tiles fill one wave of 12 blocks an SM, else as few as
+    spread its rows over that wave, at least 2; tiles of 8 rows or more
+    stage."""
+    assert pesw.BAND_STAGE_ROWS == 8
+    assert pesw.band_tile_rows(1024, 4096, 132) == 16  # the ESW cell's bands
+    assert pesw.band_tile_rows(792, 4096, 132) == 16  # 50 x 32 tiles: one wave
+    assert pesw.band_tile_rows(776, 4096, 132) == 16  # 49 x 32 tiles, just short: 16 all the same
+    assert pesw.band_tile_rows(512, 4096, 132) == 11  # 1024 tiles: 47 x 32 of 11 rows
+    assert pesw.band_tile_rows(128, 512, 132) == 2  # the sheared 512^2 target's bands
+    assert pesw.band_tile_rows(1, 40, 132) == 2
+
+
+@pytest.mark.parametrize("case, n", BAND_RUNS)
+@pytest.mark.parametrize("method", ["bilinear", "nearest"])
+@pytest.mark.parametrize("tile_rows", [16, 11])
+def test_tile_spans_match_the_band_walk(case, n, method, tile_rows):
+    """ops.esw.tile_spans with the band's first row and tile height gives
+    the band walk's span of every tile."""
+    for (a, _), (_, tiles) in zip(_bands(case, n, method)[1],
+                                  _band_walk(case, n, method, tile_rows=tile_rows)):
+        width = a[0].shape[-1]
+        spans = pesw.tile_spans(a[2], a[4], a[6], a[7], width, 0, width, method, row0=a[10],
+                                tile_rows=tile_rows)
+        assert {k: int(s) for k, s in np.ndenumerate(spans.numpy())} == {
+            k: span for k, (span, _) in tiles.items()}
+
+
+def test_band_entry_takes_the_staged_flag():
+    """The band form's C entry takes *staged* before the stream, as K13's
+    does; the wrapper stages by default."""
+    assert len(_build._SIGNATURES["xrt_esw_gather_band_f32"]) == 22
+    assert len(_build._SIGNATURES["xrt_esw_gather_f32"]) == 23
+    assert inspect.signature(pesw.esw_gather_band).parameters["staged"].default is True
+    source = (_build.CSRC / "esw_gather.cu").read_text()
+    assert "int64_t row0, int64_t off, int64_t src_h, int staged," in source

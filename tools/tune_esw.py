@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time the exact separable warp's kernels, K13 ``esw_gather`` and K16
-``esw_mosaic`` (``csrc/esw_gather.cu``, ``csrc/esw_mosaic.cu``, their
-per-pixel body and staged tile in ``csrc/esw_pixel.h``), at the shapes
-``chip_smoke.py`` drives.
+"""Time the exact separable warp's kernels, K13 ``esw_gather``, its band
+form ``esw_gather_band`` and K16 ``esw_mosaic`` (``csrc/esw_gather.cu``,
+``csrc/esw_mosaic.cu``, their per-pixel body and staged tile in
+``csrc/esw_pixel.h``), at the shapes ``chip_smoke.py`` drives.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
-the CUDA toolkit: ``python3 tools/tune_esw.py [--against TREE]``.  Three
+the CUDA toolkit: ``python3 tools/tune_esw.py [--against TREE]``.  The
 cells:
 
 * the ESW cell: the EPSG:4326 0.05 deg global source (7200 x 3600) onto
@@ -17,18 +17,29 @@ cells:
   every method at 1 band;
 * BASELINE #3: the same source onto EPSG:3035 4096^2 at 1500 m from (2e6,
   1e6), K16 over the exact region mosaic's 63 ESW and 7 gather pieces,
-  every method at 1 band and bilinear at 4.
+  every method at 1 band and bilinear at 4;
+* the band cells: band 1 of the ESW cell's sharded step over a mesh of 4
+  entries on the card (extension 603 x 1841 from source row 21, output
+  rows 1024-2047 of the 4096^2 target), K13's band form, every method at
+  1 band and bilinear at 4; band 1 of the same over 8 entries (512 rows:
+  tiles of 11 rows, ``ops.esw.band_tile_rows``), bilinear; and bands 1
+  and 2 of the sheared target's step over 4 entries (128 rows: tiles of
+  2 rows, every anchor per pixel), every method at 1 band.
 
 This tree's two sources are built into a library of their own (and with
 ``--against TREE``, e.g. the parent unpacked with ``git archive``, TREE's
-too, both nvcc started together) and called through their C entries:
-this tree's staged (``this``) and with no stage (``per pixel``: every
-tile through the per-pixel body), TREE's, which take no flag, in turns
-(tree, this, per pixel, this, tree).  Each kernel's device ms is the
-mean of 10 warm launches queued behind a sleep on the card
-(``chip_smoke.py``'s ruler), the median of its turns; every output is
-held to the plain version's bit for bit.  The share of tiles staged is
-printed per cell as ``ops.esw.tile_spans`` models it from the inputs.
+too), and ``esw_gather.cu`` once more for each entry of ``BAND_BUILDS``
+(the band kernel's launch bounds), every nvcc started together; all
+are called through their C entries: this tree's staged (``this``) and
+with no stage (``per pixel``: every tile through the per-pixel body),
+TREE's (its band form takes no flag), and, on the band cell, each build of
+``BAND_BUILDS`` staged, in turns (the order and then the order reversed:
+tree, this, per pixel, builds..., builds..., per pixel, this, tree).  Each
+kernel's device ms is the mean of 10 warm launches queued behind a sleep
+on the card (``chip_smoke.py``'s ruler), the median of its turns; every
+output is held to the plain version's bit for bit.  The share of tiles
+staged is printed per cell as ``ops.esw.tile_spans`` models it from the
+inputs.
 Every line carries the card's name and power limit; the last line is one
 JSON object with the times.  It exits nonzero when no CUDA device is
 visible or an output differs.
@@ -55,6 +66,15 @@ B3_TARGET = dict(size=(4096, 4096), xy_min=(2000000.0, 1000000.0), xy_res=1500.0
                  crs="epsg:3035")
 SOURCES = ("esw_gather.cu", "esw_mosaic.cu")
 METHODS = ("bilinear", "nearest", "triangular")
+# the band kernel's constants (csrc/esw_gather.cu), each built beside the
+# source as it stands: its launch bounds at 14 blocks an SM (72 registers,
+# as K13; 12 as it stands), and the fewest rows a tile stages in (8 as it
+# stands) at 16 and 2
+BAND_BUILDS = (
+    ("blocks14", {"kBandBlocks": 14}),
+    ("stage16", {"kBandStageRows": 16}),
+    ("stage2", {"kBandStageRows": 2}),
+)
 
 
 def card_line() -> str:
@@ -68,19 +88,31 @@ def card_line() -> str:
 def build_all(trees: dict[str, Path], out_dir: Path) -> dict:
     """{name: (library, ptxas report)}: the two sources of each csrc
     directory built into one library, its C entries typed (TREE's as
-    ``chip_smoke.TREE_ESW_SIGNATURES``); every nvcc started together."""
+    ``chip_smoke.TREE_ESW_SIGNATURES``), and this tree's ``esw_gather.cu``
+    once for each entry of ``BAND_BUILDS``, its constants replaced; every
+    nvcc started together."""
     from chip_smoke import TREE_ESW_SIGNATURES
     from xcube_resampling_tpu_torch import _build
 
     nvcc = _build.find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {name: (csrc, [csrc / f for f in SOURCES]) for name, csrc in trees.items()}
+    text = (_build.CSRC / "esw_gather.cu").read_text()
+    for name, constants in BAND_BUILDS:
+        t = text
+        for const, value in constants.items():
+            t, n = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};", t)
+            if n != 1:
+                raise ValueError(f"esw_gather.cu defines no {const}")
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(t)
+        jobs[name] = (_build.CSRC, [cu])
     procs = {}
-    for name, csrc in trees.items():
+    for name, (include, sources) in jobs.items():
         lib = out_dir / f"{name}.so"
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", f"-I{csrc}", "-o", str(lib),
-             *(str(csrc / f) for f in SOURCES)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [nvcc, *_build.NVCC_FLAGS, "-shared", f"-I{include}", "-o", str(lib),
+             *map(str, sources)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     types = {"p": ctypes.c_void_p, "q": ctypes.c_int64, "i": ctypes.c_int, "f": ctypes.c_float}
     built = {}
     for name, (lib, proc) in procs.items():
@@ -89,8 +121,10 @@ def build_all(trees: dict[str, Path], out_dir: Path) -> dict:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-20000:]}")
         library = ctypes.CDLL(str(lib))
         for entry, tree_types in TREE_ESW_SIGNATURES.items():
-            getattr(library, entry).argtypes = (
-                [types[t] for t in tree_types] if name == "tree" else _build._SIGNATURES[entry])
+            if hasattr(library, entry):
+                getattr(library, entry).argtypes = (
+                    [types[t] for t in tree_types] if name == "tree"
+                    else _build._SIGNATURES[entry])
         built[name] = (library, log)
     return built
 
@@ -153,6 +187,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (
         ESW_SHEARED,
+        esw_band_entry_call,
         esw_bound,
         esw_entry_call,
         esw_spans,
@@ -162,8 +197,17 @@ def main() -> int:
         staged_share,
     )
     from xcube_resampling_tpu_torch import GridMapping, _build
-    from xcube_resampling_tpu_torch.ops.esw import esw_gather_plain, make_esw_reproject_fn
+    from xcube_resampling_tpu_torch.ops.esw import (
+        BAND_STAGE_ROWS,
+        band_tile_rows,
+        esw_gather_band_plain,
+        esw_gather_plain,
+        make_esw_reproject_fn,
+        tile_spans,
+    )
     from xcube_resampling_tpu_torch.ops.esw_mosaic import esw_mosaic_plain, make_esw_region_fn
+    from xcube_resampling_tpu_torch.parallel import make_mesh, make_sharded_esw_step
+    from xcube_resampling_tpu_torch.parallel.halo import crop_source
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -186,10 +230,12 @@ def main() -> int:
     results, shares, failed = {}, {}, []
 
     def timed(what, runs, ref):
-        """Device ms of each run in turns (tree, this, per pixel, this,
-        tree), each output held to *ref* bit for bit."""
-        order = ["tree", "this", "per pixel", "this", "tree"]
-        order = [n for n in order if n in runs]
+        """Device ms of each run in turns (tree, this, per pixel, the
+        builds, then the same reversed), each output held to *ref* bit for
+        bit."""
+        order = [n for n in ("tree", "this", "per pixel") if n in runs]
+        order += [n for n in runs if n not in order]
+        order += order[::-1]
         row = {}
         for name, run in runs.items():
             got = run()
@@ -220,7 +266,7 @@ def main() -> int:
                 runs = {"this": esw_entry_call(lib["this"], a, True),
                         "per pixel": esw_entry_call(lib["this"], a, False)}
                 if "tree" in lib:
-                    runs["tree"] = esw_entry_call(lib["tree"], a)
+                    runs["tree"] = esw_entry_call(lib["tree"], a, True)
                 what = f"K13 {where} {interp} {bands}b"
                 timed(what, runs, esw_gather_plain(*a))
                 results[what]["bound_ms"] = esw_bound(a)
@@ -242,7 +288,7 @@ def main() -> int:
         runs = {"this": mosaic_entry_call(lib["this"], fn, x, True),
                 "per pixel": mosaic_entry_call(lib["this"], fn, x, False)}
         if "tree" in lib:
-            runs["tree"] = mosaic_entry_call(lib["tree"], fn, x)
+            runs["tree"] = mosaic_entry_call(lib["tree"], fn, x, True)
         what = f"K16 b3 {interp} {bands}b"
         timed(what, runs, esw_mosaic_plain(*fn.args(x)))
         if bands == 1:
@@ -252,6 +298,40 @@ def main() -> int:
             print(f"{tag} {what}: bound {b_ms:.4f} ms ({basis}); tiles staged (modelled) "
                   f"{shares[what]:.4f}")
         del runs
+        torch.cuda.empty_cache()
+    # -- the band cells: K13's band form at the ESW cell's band 1 over 4 and
+    # 8 bands, and at bands 1 and 2 of the sheared target ------------------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cells = [("band", ESW_TARGET, m, 1, 1, 4) for m in METHODS]
+    cells += [("band", ESW_TARGET, "bilinear", 4, 1, 4),
+              ("8-band", ESW_TARGET, "bilinear", 1, 1, 8)]
+    cells += [("sheared band", ESW_SHEARED, m, 1, k, 4) for m in METHODS for k in (1, 2)]
+    for where, target, interp, bands, k, n in cells:
+        target = GridMapping.regular(**target)
+        xc, geo_c = crop_source(geo[:bands], geo_gm, target)
+        step, (pad, _) = make_sharded_esw_step(make_mesh(devices=[dev] * n), geo_c, target,
+                                               interp_method=interp, src_batch_dims=1)
+        parts, _ = step.bands(torch.nn.functional.pad(xc, (0, 0, 0, pad), value=nan))
+        a = step.gather_args(parts, step.exchange(parts), k)
+        runs = {"this": esw_band_entry_call(lib["this"], a, True),
+                "per pixel": esw_band_entry_call(lib["this"], a, False)}
+        if "tree" in lib:
+            runs["tree"] = esw_band_entry_call(lib["tree"], a)
+        for name, _ in BAND_BUILDS:
+            runs[name] = esw_band_entry_call(lib[name], a, True)
+        what = f"K13 {where} {k} {interp} {bands}b"
+        timed(what, runs, esw_gather_band_plain(*a))
+        results[what]["bound_ms"] = esw_bound(a, band=True)
+        width = a[0].shape[-1]
+        rows = band_tile_rows(a[6], a[7], sms)
+        shares[what] = staged_share(tile_spans(a[2], a[4], a[6], a[7], width, 0, width, interp,
+                                               row0=a[10], tile_rows=rows), interp) if (
+            rows >= BAND_STAGE_ROWS) else 0.0
+        print(f"{tag} {what} (ext {tuple(a[0].shape)} from row {a[11]}, rows {a[10]}-"
+              f"{a[10] + a[6] - 1}, tiles of {rows} rows): bound "
+              f"{results[what]['bound_ms'][0]:.4f} ms ({results[what]['bound_ms'][1]}); tiles "
+              f"staged (modelled) {shares[what]:.4f}")
+        del runs, parts, a, step
         torch.cuda.empty_cache()
     print(f"{tag} done in {time.perf_counter() - t0:.1f} s; outputs differing: "
           f"{failed or 'none'}")

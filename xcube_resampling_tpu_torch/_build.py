@@ -108,10 +108,11 @@ _SIGNATURES = {
         _I, _F, _I64, _I64, _I64, _I64, _I, _P,
     ],
     # ext, iystar_c, ix_c, iy_c, out, batch, ext_h, src_w, ncj, ncc, nci,
-    # out_h, out_w, step, n_samples, method, fill, row0, off, src_h, stream
+    # out_h, out_w, step, n_samples, method, fill, row0, off, src_h, staged,
+    # stream
     "xrt_esw_gather_band_f32": [
         _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I,
-        _I, _F, _I64, _I64, _I64, _P,
+        _I, _F, _I64, _I64, _I64, _I, _P,
     ],
     # src, table, tile_start, fields, out, n_pieces, n_tiles, batch, src_h,
     # src_w, out_h, out_w, step, method, fill, tile_rows, tile_cols,

@@ -206,7 +206,8 @@ __global__ void __launch_bounds__(kWarpCols * kLanes,
   const xrt::esw::Args a = esw_args(m, e, M, field, out, vec4);
   xrt::FieldCols<2, kVec> cols(a.field, static_cast<float>(i));
   const int i_last = min((local - tr * tiles_x + 1) * kTileCols, w) - 1;
-  xrt::esw::staged_tile<M, kLanes>(a, cols, j0, j1, i, n, i_last, stage, staged != 0, false);
+  xrt::esw::staged_tile<M, kLanes, xrt::esw::Clip::kPlane>(a, cols, j0, j1, i, n, i_last,
+                                                           stage, staged != 0, false);
 }
 
 }  // namespace

@@ -47,6 +47,7 @@ struct Args {
   int out_pitch;      // floats between output rows
   int64_t out_plane;  // floats between output bands
   float fill;
+  int tile_rows;    // rows a tile of the band form (kTileRows; fewer in a small band)
   int n_row_tiles;
   bool vec4;  // kVec-column stores are 16-byte aligned
   int row0;   // the global target row of output row 0
@@ -138,47 +139,40 @@ __device__ __forceinline__ float anchor(const Args& a, const Corners& k, float f
   return floorf(lerp(lerp(k.f00, k.f01, fi), lerp(k.f10, k.f11, fi), rc.fj) - a.half);
 }
 
+// How a tap's rows clip: to the plane itself (K13's window, K16's pieces:
+// clip_h == src_h, no row offset), or as in the band form (to the true
+// source's clip_h rows, then row_off rows up, then to the band's
+// extension, halo.py:700-701).  A template parameter, so that no flag
+// reaches a kernel's hot loop.
+enum class Clip { kPlane, kBand };
+
+// Row r clipped as C says, in 32-bit ints.  kBand's three clamps select
+// the rows of clamp(clamp(r, clip_h) - row_off, src_h) as long as
+// clip_h - 1 - row_off and -row_off fit an int, which the C entry
+// guarantees (esw_gather.cu's dispatch refuses row_off < clip_h - 1 -
+// (2^31 - 1) and row_off > 2^31 - 1).
+template <Clip C>
+__device__ __forceinline__ int clip_row(const Args& a, int r) {
+  if constexpr (C == Clip::kBand) r = min(max(r, 0), a.clip_h - 1) - a.row_off;
+  return min(max(r, 0), a.src_h - 1);
+}
+
 // The selection at tap column c from its anchor m: the offsets of rows
-// m + s0 and m + s0 + 1.
-__device__ __forceinline__ void tap_rows(const Args& a, int c, float m, float y0w, unsigned& off,
-                                         unsigned& down) {
+// m + s0 and m + s0 + 1, clipped as C says.
+template <Clip C>
+__device__ __forceinline__ void select_rows(const Args& a, int c, float m, float y0w,
+                                            unsigned& off, unsigned& down) {
   const float s0 = fminf(fmaxf(y0w - m, 0.0f), a.s_max);
   const int r = static_cast<int>(m) + static_cast<int>(s0);
-  const int ra =
-      static_cast<int>(clamp_index(clamp_index(r, a.clip_h) - a.row_off, a.src_h));
-  const int rb =
-      static_cast<int>(clamp_index(clamp_index(r + 1, a.clip_h) - a.row_off, a.src_h));
+  const int ra = clip_row<C>(a, r);
+  const int rb = clip_row<C>(a, r + 1);
   off = static_cast<unsigned>(ra) * static_cast<unsigned>(a.pitch) + static_cast<unsigned>(c);
   down = static_cast<unsigned>(rb - ra) * static_cast<unsigned>(a.pitch);
 }
 
-// tap_rows where the rows clip to the plane itself (clip_h == src_h, no
-// row offset), as in every staged tile: one 32-bit clamp a row, the same
-// rows.
-__device__ __forceinline__ void plane_rows(const Args& a, int c, float m, float y0w,
-                                           unsigned& off, unsigned& down) {
-  const float s0 = fminf(fmaxf(y0w - m, 0.0f), a.s_max);
-  const int r = static_cast<int>(m) + static_cast<int>(s0);
-  const int ra = min(max(r, 0), a.src_h - 1);
-  const int rb = min(max(r + 1, 0), a.src_h - 1);
-  off = static_cast<unsigned>(ra) * static_cast<unsigned>(a.pitch) + static_cast<unsigned>(c);
-  down = static_cast<unsigned>(rb - ra) * static_cast<unsigned>(a.pitch);
-}
-
-// plane_rows where P, else tap_rows.
-template <bool P>
-__device__ __forceinline__ void rows(const Args& a, int c, float m, float y0w, unsigned& off,
-                                     unsigned& down) {
-  if constexpr (P) {
-    plane_rows(a, c, m, y0w, off, down);
-  } else {
-    tap_rows(a, c, m, y0w, off, down);
-  }
-}
-
-// The taps of one pixel, its anchors computed here (the per-pixel body);
-// P: its rows clip to the plane itself (plane_rows).
-template <int M, bool P>
+// The taps of one pixel, its anchors computed here (the per-pixel body),
+// its rows clipped as C says.
+template <int M, Clip C>
 __device__ __forceinline__ Taps pixel_taps(const Args& a, float ix, float iy, RowCell rc) {
   const Pos p = position<M>(a, ix, iy);
   Taps t;
@@ -189,7 +183,7 @@ __device__ __forceinline__ Taps pixel_taps(const Args& a, float ix, float iy, Ro
   const ColCell e0 = col_cell(a, c0);
   const Corners k0 = corners(a, rc, e0.i);
   const float m0 = anchor(a, k0, e0.fi, rc);
-  rows<P>(a, c0, m0, p.y0w, t.o0, t.d0);
+  select_rows<C>(a, c0, m0, p.y0w, t.o0, t.d0);
   if (M == kNearest) {
     t.o1 = t.d1 = 0u;
   } else {
@@ -199,7 +193,7 @@ __device__ __forceinline__ Taps pixel_taps(const Args& a, float ix, float iy, Ro
     const ColCell e1 = col_cell(a, c1);
     const Corners k1 = e1.i == e0.i ? k0 : corners(a, rc, e1.i);
     const float m1 = anchor(a, k1, e1.fi, rc);
-    rows<P>(a, c1, m1, p.y0w, t.o1, t.d1);
+    select_rows<C>(a, c1, m1, p.y0w, t.o1, t.d1);
   }
   return t;
 }
@@ -207,8 +201,8 @@ __device__ __forceinline__ Taps pixel_taps(const Args& a, float ix, float iy, Ro
 // The taps of one pixel from the anchors its block staged: *stage* holds
 // the pixel's row at window columns from lo.  A pixel off the source (or
 // past the output's edge: ok false) reads no anchor of its own, and its
-// taps are never read.
-template <int M>
+// taps are never read.  The rows clip as C says.
+template <int M, Clip C>
 __device__ __forceinline__ Taps staged_taps(const Args& a, const Pos& p, const float* stage,
                                             int lo) {
   Taps t;
@@ -216,12 +210,12 @@ __device__ __forceinline__ Taps staged_taps(const Args& a, const Pos& p, const f
   t.fx = p.fx;
   t.fy = p.fy;
   const int c0 = tap_col(a, p.i0);
-  plane_rows(a, c0, stage[p.ok ? c0 - lo : 0], p.y0w, t.o0, t.d0);
+  select_rows<C>(a, c0, stage[p.ok ? c0 - lo : 0], p.y0w, t.o0, t.d0);
   if (M == kNearest) {
     t.o1 = t.d1 = 0u;
   } else {
     const int c1 = tap_col(a, p.i0 + 1);
-    plane_rows(a, c1, stage[p.ok ? c1 - lo : 0], p.y0w, t.o1, t.d1);
+    select_rows<C>(a, c1, stage[p.ok ? c1 - lo : 0], p.y0w, t.o1, t.d1);
   }
   return t;
 }
@@ -266,8 +260,8 @@ __device__ __forceinline__ void write_row(const Args& a, const Taps (&t)[kVec], 
 
 // Output row j (global target row a.row0 + j) at kVec columns from i (n of
 // them inside the output), the per-pixel body: the taps once, then every
-// band.  P: the rows clip to the plane itself (a staged tile's fall-back).
-template <int M, bool P = false>
+// band, the rows clipped as C says.
+template <int M, Clip C>
 __device__ __forceinline__ void one_row(const Args& a, FieldCols<2, kVec>& field, int j, int i,
                                         int n) {
   const float row = static_cast<float>(a.row0 + j);
@@ -276,7 +270,7 @@ __device__ __forceinline__ void one_row(const Args& a, FieldCols<2, kVec>& field
   const RowCell rc = row_cell(a, row);
   Taps t[kVec];
 #pragma unroll
-  for (int c = 0; c < kVec; ++c) t[c] = pixel_taps<M, P>(a, f[0][c], f[1][c], rc);
+  for (int c = 0; c < kVec; ++c) t[c] = pixel_taps<M, C>(a, f[0][c], f[1][c], rc);
   write_row<M>(a, t, j, i, n);
 }
 
@@ -425,12 +419,12 @@ __device__ __forceinline__ void stage_anchors(const Args& a, int j0, int j1, int
 // Tile rows [j0, j1) (at most kTileRows) at kVec columns from i (n of
 // them inside the output; n <= 0 past its right edge, where the thread
 // still takes part in the barrier), the tile's output columns ending at
-// i_last; the rows clip to the plane itself (a.clip_h == a.src_h,
-// a.row_off == 0).  Every thread of the block calls it with the same tile;
+// i_last; the rows clip as C says (kPlane: a.clip_h == a.src_h, a.row_off
+// == 0).  Every thread of the block calls it with the same tile;
 // *stage* holds kTileRows * kStageCols floats; *staged* false: the tile
 // runs the per-pixel body whatever its span; *again*: a tile before this
 // one may still be reading the stage.
-template <int M, int L>
+template <int M, int L, Clip C>
 __device__ __forceinline__ void staged_tile(const Args& a, FieldCols<2, kVec>& field, int j0,
                                             int j1, int i, int n, int i_last, float* stage,
                                             bool staged, bool again) {
@@ -439,7 +433,7 @@ __device__ __forceinline__ void staged_tile(const Args& a, FieldCols<2, kVec>& f
   const int span = lo <= hi ? hi - lo + 1 : 0;
   if (!staged || span > stage_limit<M>()) {  // the block's choice: the per-pixel body
     for (int j = j0 + static_cast<int>(threadIdx.y); j < j1 && n > 0; j += L) {
-      one_row<M, true>(a, field, j, i, n);
+      one_row<M, C>(a, field, j, i, n);
     }
     return;
   }
@@ -455,7 +449,7 @@ __device__ __forceinline__ void staged_tile(const Args& a, FieldCols<2, kVec>& f
     for (int c = 0; c < kVec; ++c) {
       Pos p = position<M>(a, f[0][c], f[1][c]);
       p.ok = p.ok && c < n;
-      t[c] = staged_taps<M>(a, p, s, lo);
+      t[c] = staged_taps<M, C>(a, p, s, lo);
     }
     write_row<M>(a, t, j, i, n);
   }

@@ -613,6 +613,10 @@ def _offset_fields(fields: _Fields, j0: int, j1: int, i0: int, i1: int):
 # kernels' kTileCols and kStageCols
 STAGE_TILE = (16, 128)
 STAGE_COLS = 128
+# the band kernel's blocks an SM and the fewest rows its tiles stage in
+# (csrc/esw_gather.cu's kBandBlocks, kBandStageRows)
+BAND_BLOCKS = 12
+BAND_STAGE_ROWS = 8
 
 
 def stage_cols(interp_method):
@@ -622,16 +626,34 @@ def stage_cols(interp_method):
     return STAGE_COLS * 3 // 4 if interp_method == "nearest" else STAGE_COLS
 
 
-def tile_spans(ix_c, step, out_h, out_w, bound_w, i_off, width, interp_method):
+def band_tile_rows(out_h, out_w, sms):
+    """Rows a tile of K13's band form on a card of *sms* SMs
+    (``csrc/esw_gather.cu``'s ``band_tile_rows``): ``STAGE_TILE``'s 16, or,
+    where the band's tiles would fill less than one wave of
+    ``BAND_BLOCKS`` blocks an SM, as few as spread its rows over that
+    wave, at least 2 (a row for each of a block's two warps).  Tiles of
+    fewer than ``BAND_STAGE_ROWS`` rows compute every anchor per pixel."""
+    th, tw = STAGE_TILE
+    cols = -(-out_w // tw)
+    slots = sms * BAND_BLOCKS
+    if cols * -(-out_h // th) >= slots:
+        return th
+    return max(2, -(-out_h * cols // slots))
+
+
+def tile_spans(ix_c, step, out_h, out_w, bound_w, i_off, width, interp_method, row0=0,
+               tile_rows=STAGE_TILE[0]):
     """The span of window columns (0: none) that a staged kernel stages
-    for each ``STAGE_TILE`` tile of an (out_h, out_w) target: the bound
-    each warp takes from the finite corners of the coarse field *ix_c*
-    around the tile's coarse cells (``csrc/esw_pixel.h``'s
+    for each tile of *tile_rows* by ``STAGE_TILE``'s 128 columns of an
+    (out_h, out_w) target whose row 0 lies at global target row *row0*
+    (K13's band form, its tiles of :func:`band_tile_rows`; 0 elsewhere): the
+    bound each warp takes from the finite corners of the coarse field
+    *ix_c* around the tile's coarse cells (``csrc/esw_pixel.h``'s
     ``coarse_span``), for a source *bound_w* columns wide read through a
     window of *width* columns from column *i_off*.  A (tiles down, tiles
     across) int64 tensor; a tile whose span exceeds
     ``stage_cols(interp_method)`` computes its anchors per pixel."""
-    th, tw = STAGE_TILE
+    th, tw = tile_rows, STAGE_TILE[1]
     dev = ix_c.device
     ncj, nci = ix_c.shape
     inv = torch.tensor(1.0 / step, dtype=_F32, device=dev)
@@ -644,7 +666,7 @@ def tile_spans(ix_c, step, out_h, out_w, bound_w, i_off, width, interp_method):
 
     r0 = torch.arange(0, out_h, th, device=dev)
     q0 = torch.arange(0, out_w, tw, device=dev)
-    ra, rb = cells(r0, (r0 + th - 1).clamp(max=out_h - 1), ncj)
+    ra, rb = cells(row0 + r0, row0 + (r0 + th - 1).clamp(max=out_h - 1), ncj)
     qa, qb = cells(q0, (q0 + tw - 1).clamp(max=out_w - 1), nci)
     inf = torch.tensor(float("inf"), dtype=_F32, device=dev)
     lo = inf.expand(len(r0), len(q0))
@@ -788,10 +810,13 @@ def esw_gather(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
 
 
 def esw_gather_band(ext, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
-                    interp_method, fill_value, row0, off, src_h):
+                    interp_method, fill_value, row0, off, src_h, staged=True):
     """K13's band form: one mesh band's (B, out_h, out_w) from global
     target row *row0*; ``ext`` holds global source rows from *off*
-    (:func:`esw_gather_band_plain`)."""
+    (:func:`esw_gather_band_plain`).  Its tiles stage their anchors as
+    K13's do, in tiles of :func:`band_tile_rows` rows, from
+    ``BAND_STAGE_ROWS`` rows up (*staged* False: computed per pixel in
+    every tile; the same bits)."""
     if on_cpu(ext, iystar_c, ix_c, iy_c):
         return esw_gather_band_plain(
             ext, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
@@ -801,15 +826,15 @@ def esw_gather_band(ext, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
         raise ValueError(f"K13 band: first row {row0}, source height {src_h}")
     return _launch_esw(
         ext, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
-        interp_method, fill_value, None, (row0, off, src_h),
+        interp_method, fill_value, None, (row0, off, src_h, int(staged)),
     )
 
 
 def _launch_esw(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
                 interp_method, fill_value, window, band):
     """K13 on CUDA tensors: *window* ``(src_h_g, src_w_g, j_off, i_off,
-    staged)`` for the single-card form, or *band* ``(row0, off, src_h)``
-    for the band form."""
+    staged)`` for the single-card form, or *band* ``(row0, off, src_h,
+    staged)`` for the band form."""
     method = method_code(interp_method)
     batch, src_h, src_w = src.shape
     ncj, nci = ix_c.shape
