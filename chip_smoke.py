@@ -121,7 +121,7 @@ beside this tree's, in turns).  It
    row and column, and its band form on every band of the cell (band 0
    from its negative offset), a ragged last band, clean and with NaN and
    +-inf rows and columns; K6 for mode and median at 4, 9, 16, 25, 64, 81 and 1024 taps
-   with ties, NaN and +-0.0, K7 for every method on the seven dtypes, NaN
+   with ties, NaN and +-0.0, K7 for every method on seven dtypes, NaN
    map cells and its list form, and on maps whose positions spread over
    the whole source, run backwards or sit on the -0.5 / n - 0.5 bounds
    (both forms; float32, float64, uint16), K8 on a swath with a NaN row
@@ -210,7 +210,25 @@ beside this tree's, in turns).  It
    ``F.grid_sample`` for K7's band form, prints the hybrid's Phase A
    beside K8's, and counts ``sharded_phase_a``'s launches (K11 and K12
    once a band) and sees K11's two kernels and K12's on the card;
-7. prints the card line again, a JSON line of the kernels and, last,
+7. drives the dtypes (:func:`dtypes_phase`): every instantiation the
+   JAX package's thirteen data dtypes added, at full size on its cell,
+   held to its plain version on the card and timed with its bound: the
+   headline's 20480^2 through the tiled SRW on uint16 (K1 reading it in
+   place) and float64 (K1 and K2's float64 path); BASELINE #2's 4-band
+   4096^2 in uint16, int64, float16, bfloat16 and bool through
+   ``coarsen`` and the affine route (K4, its downscale form, K5, K6); R1
+   with a uint32 and a uint64 band (K7 on the device tier, K9 on numpy
+   flags under the host tier, K7's band form through ``sharded_rectify``
+   on the uint32 flags); BASELINE #3's exact mosaic (K16, its gather
+   pieces through K3 on int16) and the ESW cell (K13) on int16, with the
+   float32 cast's cost; K3 on the whole of BASELINE #3 under
+   ``XRTPU_NO_EXACT_MOSAIC=1`` (int16 and int64 nearest, float64 and
+   bfloat16 bilinear) and K3's band form through ``sharded_reproject`` on
+   int16; B5's sharded SRW step on uint16 (K1's band form); K1 on uint16
+   beside the float32 cast followed by the float32 K1; and fails the run
+   if any kernel of the library spills;
+8. prints the card line again, a JSON line of the kernels (the new
+   instantiations under ``kernel.dtype``) and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero and prints no result when no CUDA device is visible or
@@ -432,11 +450,14 @@ def tapped_pixels(ix, iy, valid, h, w, interp, into=None) -> int:
     return int(tapped.sum())
 
 
-def fused_band_bound(ext, ix_c, iy_c, step, out_h, out_w, interp, fill, row0, off, src_h):
+def fused_band_bound(ext, ix_c, iy_c, step, out_h, out_w, interp, fill, row0, off, src_h,
+                     out_size=4, f64=False):
     """K3's band form (its wrapper's arguments) must read the coarse fields
     and the pixels of ``ext`` that the taps of its valid pixels (in the
     source and in the band, as the plain version masks them) reach, and
-    write the output; about 30 operations a pixel, as K3's bound counts."""
+    write the output (of *out_size* bytes a pixel); about 30 operations a
+    pixel, as K3's bound counts (*f64*: the 6 of the three lerps at the
+    float64 rate)."""
     import torch
 
     from xcube_resampling_tpu_torch.ops.reproject_ops import interp_field
@@ -452,7 +473,10 @@ def fused_band_bound(ext, ix_c, iy_c, step, out_h, out_w, interp, fill, row0, of
     in_band = (iy_l > -0.5) & (iy_l < ext_h - 0.5)
     n_tapped = tapped_pixels(ix, iy_l, in_src & in_band, ext_h, src_w, interp)
     n_out = batch * out_h * out_w
-    n_bytes = 4 * (n_out + batch * n_tapped + ix_c.numel() + iy_c.numel())
+    n_bytes = (out_size * n_out + ext.element_size() * batch * n_tapped
+               + 4 * (ix_c.numel() + iy_c.numel()))
+    if f64:
+        return bound_mixed(n_bytes, 24 * n_out, 6 * n_out)
     return bound(n_bytes, 30 * n_out)
 
 
@@ -573,11 +597,12 @@ def mosaic_bound(fn, interp):
     return bound(4 * (n_out + n_tapped + n_in), n_ops) + (n_tapped,)
 
 
-def gather_band_bound(ext, m, interp, fill, off, src_h):
+def gather_band_bound(ext, m, interp, fill, off, src_h, out_size=4):
     """K7's band form (its wrapper's arguments) must read the map, the
     pixels of ``ext`` that the taps of its valid pixels (in the band, as
-    the plain version masks them) reach, and write the output; 4 (nearest)
-    or 16 float32 operations a pixel and band, as K7's map form counts."""
+    the plain version masks them) reach, and write the output (of
+    *out_size* bytes a pixel); 4 (nearest) or 16 float32 operations a pixel
+    and band, as K7's map form counts."""
     import torch
 
     ext_h, src_w = ext.shape[-2:]
@@ -599,7 +624,7 @@ def gather_band_bound(ext, m, interp, fill, off, src_h):
             for xx in (x0, (x0 + 1).clamp(max=src_w - 1)):
                 tapped[yy * src_w + xx] = True
     n_out = batch * m.shape[-2] * m.shape[-1]
-    n_bytes = 4 * (batch * int(tapped.sum()) + n_out + m.numel())
+    n_bytes = ext.element_size() * batch * int(tapped.sum()) + out_size * n_out + 4 * m.numel()
     return bound(n_bytes, n_out * (4 if interp == "nearest" else 16))
 
 
@@ -3257,6 +3282,527 @@ def parent_kernels(tree):
         k16=lambda fn, x: mosaic_entry_call(esw_lib, fn, x, True))
 
 
+# -- the dtypes phase: every new instantiation on its cells -------------------
+
+# the dtypes of BASELINE #2's cell in the dtypes phase (Sentinel-2's uint16
+# reflectances, int64, model output's float16 and bfloat16, masks as bool)
+DT_B2_DTYPES = ("uint16", "int64", "float16", "bfloat16", "bool")
+# the cells' sizes: the headline's (and B5's) side, BASELINE #2's side,
+# R1's swath (width, height) and BASELINE #3's source (width, height) and
+# target side
+DT_SIZES = dict(n=20480, b2=4096, r1=(1189, 1890), geo=(7200, 3600), b3=4096)
+# the sources of the kernels the dtypes phase adds to the kernels line, by
+# the launch name's kernel (before the dot); the typed K3 and K2's float64
+# form are sources of their own
+DT_SOURCES = {
+    "srw_vertical": ("srw_vertical.cu", "xcube_resampling_tpu/ops/pallas_kernels.py:40"),
+    "srw_horizontal": ("srw_horizontal_f64.cu", "xcube_resampling_tpu/ops/srw.py:670"),
+    "srw_vertical_band": ("srw_vertical.cu", "xcube_resampling_tpu/parallel/halo.py:423"),
+    "affine_gather": ("affine_gather.cu", "xcube_resampling_tpu/ops/gather.py:29"),
+    "affine_gather_reduce": ("affine_gather_reduce.cu", "xcube_resampling_tpu/affine.py:212"),
+    "coarsen_reduce": ("coarsen_reduce.cu", "xcube_resampling_tpu/ops/coarsen_ops.py:36"),
+    "coarsen_rank": ("coarsen_rank.cu", "xcube_resampling_tpu/ops/coarsen_ops.py:95"),
+    "ij_gather": ("ij_gather.cu", "xcube_resampling_tpu/ops/rectify_ops.py:2752"),
+    "exact_gather": ("exact_gather.cu", "xcube_resampling_tpu/ops/rectify_ops.py:2767"),
+    "fused_reproject": ("fused_reproject_typed.cu",
+                        "xcube_resampling_tpu/ops/reproject_ops.py:170"),
+    "fused_reproject_band": ("fused_reproject_typed.cu",
+                             "xcube_resampling_tpu/parallel/halo.py:169"),
+    "ij_gather_band": ("ij_gather.cu", "xcube_resampling_tpu/parallel/halo.py:923"),
+}
+# the typed K3 at BASELINE #3 under XRTPU_NO_EXACT_MOSAIC=1: nearest on a
+# 2-byte and an 8-byte word, bilinear on float64 and bfloat16
+DT_K3_CASES = (("int16", "nearest"), ("int64", "nearest"), ("float64", "bilinear"),
+               ("bfloat16", "bilinear"))
+
+
+def bound_mixed(n_bytes, f32_ops, f64_ops):
+    """:func:`bound` for work of both float widths: the operations' time is
+    the float32 ones at the float32 peak plus the float64 ones at its own."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = f32_ops / PEAK_F32 + f64_ops / PEAK_F64
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dtypes_phase(dev, tag, h, sizes=DT_SIZES):
+    """The new dtypes at full size, each instantiation held to its plain
+    version on the card (bit for bit; K5's float statistics within TOL's
+    "stat", float64 sums of K1 and K2 within one float64 ulp, the plain
+    version's emulated fused multiply-add), its launches counted on the
+    main path's calls (the counts reset just before each call and read
+    just after; a launch under ``name.dtype``, ``_device.launch_name``):
+
+    * the headline, 20480^2 UTM32N 30 m -> EPSG:3035 bilinear, the tiled
+      SRW: one uint16 band (Sentinel-2 L2A reflectance), K1 reading it in
+      place, then K2 on float32; one float64 band, K1 and K2's float64
+      path; K1 and K2 timed beside their bounds;
+    * BASELINE #2's 4-band 4096^2 in uint16, int64, float16, bfloat16 and
+      bool: ``coarsen`` 4x (mean, first: K5; mode: K6), the affine route's
+      exact 4x downscale (mean and first: the downscale form, the direct
+      kernel for the new dtypes; mode: K4 then K6) and a 2x bilinear
+      upscale (K4), each timed;
+    * R1 (the 1189 x 1890 OLCI-like swath, 16 float32 bands) with a uint32
+      quality-flags band and a uint64 band, nearest, fill 0: the device
+      tier (K10, K8, K7 on the flags) and numpy flags under the host tier
+      (K8, K9's ij_map mode);
+      and, over 4 mesh entries on the card, ``sharded_rectify`` of the
+      uint32 flags (K7's band form; every method on every band);
+    * BASELINE #3's exact region mosaic (K16 on the float32 cast, its
+      gather pieces through K3 on int16) and the ESW cell (K13 on the
+      float32 cast) on one int16 band each, with the cast's cost; the
+      typed K3 there under ``XRTPU_NO_EXACT_MOSAIC=1`` (DT_K3_CASES), and
+      ``sharded_reproject`` of the int16 band over 4 mesh entries (K3's
+      band form; every method on every band);
+    * B5's sharded SRW step on one uint16 band over 4 mesh entries on the
+      card, at B5's 20480^2 (K1's band form reading uint16 in place).
+
+    Returns the launches, errors, timings (ms, plain ms, device ms),
+    bounds, library calls and further figures (K1 on uint16 beside the
+    float32 cast followed by the float32 K1) of each new instantiation, by
+    launch name."""
+    import torch
+
+    from xcube_resampling_tpu_torch import DataArray, Dataset, GridMapping, parallel
+    from xcube_resampling_tpu_torch import rectify as port_rectify
+    from xcube_resampling_tpu_torch import resample_in_space
+    from xcube_resampling_tpu_torch._device import LAUNCHES, as_float32
+    from xcube_resampling_tpu_torch.affine import _scale_split
+    from xcube_resampling_tpu_torch.constants import UV_DELTA
+    from xcube_resampling_tpu_torch.ops import exact_gather, rectify_ops
+    from xcube_resampling_tpu_torch.ops.coarsen_ops import coarsen, coarsen_plain
+    from xcube_resampling_tpu_torch.ops.esw_mosaic import ESWMosaicFn
+    from xcube_resampling_tpu_torch.parallel.halo import crop_source
+    from xcube_resampling_tpu_torch.ops.gather import (
+        affine_gather,
+        affine_gather_plain,
+        affine_gather_reduce,
+        affine_gather_reduce_plain,
+    )
+    from xcube_resampling_tpu_torch.ops.srw import SRWFn
+    from xcube_resampling_tpu_torch.ops.reproject_ops import (
+        FusedReprojectFn,
+        fused_reproject,
+        fused_reproject_band,
+        fused_reproject_band_plain,
+        fused_reproject_plain,
+        gather_dtype,
+    )
+    from xcube_resampling_tpu_torch.ops.srw_kernels import (
+        srw_horizontal,
+        srw_horizontal_plain,
+        srw_vertical,
+        srw_vertical_band,
+        srw_vertical_band_plain,
+        srw_vertical_plain,
+    )
+    from xcube_resampling_tpu_torch.parallel.tiling import pad_rows
+    from xcube_resampling_tpu_torch.reproject import device_reproject_fn
+    from xcube_resampling_tpu_torch.utils import _default_fill_value
+
+    nan = float("nan")
+    launches: Counter = Counter()
+    err, timings, bounds, library, extra = {}, {}, {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    mesh = parallel.make_mesh(devices=[dev] * 4)
+
+    def run(call, expect):
+        """One main-path call with the launch counts reset before it and
+        read after it; each kernel of *expect* must have launched."""
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = Counter(LAUNCHES)
+        launches.update(got)
+        missing = [k for k in expect if got[k] < 1]
+        if missing:
+            raise AssertionError(f"{missing} not launched: {dict(got)}")
+        return out, dt, got
+
+    def held(name, got, ref, kind, what):
+        d = h.compare(got, ref, kind, what)
+        err[name] = max(err.get(name, 0.0), d)
+        return d
+
+    def once_ms(fn):
+        """One call of *fn* between two CUDA events (the plain versions at
+        these sizes take up to seconds: called once, after the comparison
+        that warmed them)."""
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    def timed(name, kernel, plain, bnd, lib=None):
+        """The kernel's event_ms and device_ms (10 calls each), the plain
+        version's once_ms, the bound, and a library call's ms where given."""
+        timings[name] = (h.event_ms(kernel), once_ms(plain), h.device_ms(kernel))
+        bounds[name] = bnd
+        library[name] = (None, None) if lib is None else (h.event_ms(lib), h.device_ms(lib))
+        k, p, kd = timings[name]
+        print(f"{tag} dtypes: {name}: {k:.4f} ms (device {kd:.4f} ms), plain {p:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}); vs plain max abs diff {err.get(name, 0.0)}")
+
+    def rand(dtype, shape, hi=10000):
+        if dtype == torch.bool:
+            return torch.rand(shape, generator=gen, device=dev) < 0.4
+        if dtype.is_floating_point:
+            x = torch.randint(-400, 400, shape, generator=gen, device=dev) / 4.0
+            return x.to(dtype)
+        return torch.randint(0, hi, shape, generator=gen, device=dev).to(dtype)
+
+    # -- the headline's geometry: uint16 and float64 through the tiled SRW --
+    n = sizes["n"]
+    res = 30.0 * 20480 / n
+    utm_gm = GridMapping.regular(size=(n, n), xy_min=(300000.0, 5200000.0), xy_res=res,
+                                 crs="epsg:32632")
+    laea_gm = GridMapping.regular(size=(n, n), xy_min=(4050000.0, 2650000.0), xy_res=res,
+                                  crs="epsg:3035")
+    for dtype, expect in ((torch.uint16, ("srw_vertical.uint16", "srw_horizontal")),
+                          (torch.float64, ("srw_vertical.float64", "srw_horizontal.float64"))):
+        name = str(dtype).removeprefix("torch.")
+        src = rand(dtype, (n, n))
+        if dtype == torch.float64:
+            src[n // 3] = nan  # a NaN row: the taps that read it give NaN
+        ds = h.dataset(utm_gm, v=src)
+        out, first, got = run(
+            lambda ds=ds: resample_in_space(ds, target_gm=laea_gm, interp_methods="bilinear"),
+            expect)
+        vt = torch.float64 if dtype == torch.float64 else torch.float32
+        share = h.check_output(out["v"].data, (n, n), vt)
+        warm = [run(lambda ds=ds: resample_in_space(ds, target_gm=laea_gm,
+                                                    interp_methods="bilinear"), expect)[1]
+                for _ in range(3)]
+        # the main path's plan: its fill the dtype's default (uint16 65535)
+        fn = device_reproject_fn(GridMapping.from_dataset(ds), laea_gm, "bilinear",
+                                 _default_fill_value(dtype), dev)
+        if not isinstance(fn, SRWFn) or fn.kind != "tiled":
+            raise AssertionError(f"the {name} headline ran {type(fn).__name__}, not tiled")
+        st = fn.state
+        x = fn.crop(src)
+        if x.dtype != dtype or x.data_ptr() != src.data_ptr():
+            raise AssertionError(f"the {name} source was copied before K1: {x.dtype}")
+        kind = "f64" if dtype == torch.float64 else "exact"
+        v_args = fn.vertical_args(x)
+        v, _ = srw_vertical(*v_args)
+        k1 = f"srw_vertical.{name}"
+        held(k1, v, srw_vertical_plain(*v_args)[0], kind, f"{n}^2 {k1} vs plain")
+        h_args = fn.horizontal_args(v)
+        k2 = "srw_horizontal.float64" if dtype == torch.float64 else "srw_horizontal"
+        d2 = held(k2, srw_horizontal(*h_args), srw_horizontal_plain(*h_args), kind,
+                  f"{n}^2 {k2} vs plain")
+        # the main path's output is K1 then K2 on its source, bit for bit
+        d = held(k1, out["v"].data, srw_horizontal(*h_args)[0], "exact",
+                 f"{n}^2 {name} resample_in_space vs K1->K2")
+        outs = st.out_h * st.src_w
+        taps = outs * st.d_v
+        f64 = dtype == torch.float64
+        timed(k1, lambda: srw_vertical(*v_args), lambda: srw_vertical_plain(*v_args),
+              bound_mixed(src.numel() * src.element_size() + 4 * (st.iystar_c.numel()
+                          + st.base_v.numel()) + outs * v.element_size(),
+                          taps * 4 + 12 * outs + (0 if f64 else 2 * taps), 2 * taps if f64 else 0))
+        if dtype == torch.uint16:
+            # the alternative to reading uint16 in place: the float32 cast,
+            # then the float32 K1 (timed together; the difference reported)
+            def cast_k1():
+                return srw_vertical(*fn.vertical_args(as_float32(x)))
+            d_cast = int((cast_k1()[0].view(torch.int32) != v.view(torch.int32)).sum())
+            extra[k1] = dict(cast_then_f32_ms=h.event_ms(cast_k1),
+                             cast_then_f32_device_ms=h.device_ms(cast_k1),
+                             cast_then_f32_words_differ=d_cast)
+            print(f"{tag} dtypes: {n}^2 the float32 cast then the float32 K1: "
+                  f"{extra[k1]['cast_then_f32_ms']:.4f} ms (device "
+                  f"{extra[k1]['cast_then_f32_device_ms']:.4f} ms); {d_cast} float32 words "
+                  f"differ from {k1}'s")
+        if f64:
+            n_out = st.out_h * st.out_w
+            timed(k2, lambda: srw_horizontal(*h_args), lambda: srw_horizontal_plain(*h_args),
+                  bound_mixed(8 * (v.numel() + n_out) + 4 * (2 * st.ix_c.numel()
+                              + st.base_h.numel()), n_out * (4 * st.d_h + 40), 2 * n_out * st.d_h))
+        print(f"{tag} dtypes: resample_in_space {n}^2 {name} bilinear (tiled SRW, {vt} out): "
+              f"first call {first:.3f} s, warm median of 3 {statistics.median(warm) * 1e3:.2f} ms; "
+              f"launches {dict(got)}; finite share {share:.4f}; vs plain max abs diff {d} "
+              f"(K2 {d2})")
+        del out, ds, src, x, v, v_args, h_args, fn
+        torch.cuda.empty_cache()
+
+    # -- BASELINE #2: coarsen, the affine downscale, a 2x upscale -------------
+    m = sizes["b2"]
+    b2_gm = GridMapping.regular(size=(m, m), xy_min=(300000.0, 5200000.0), xy_res=30.0,
+                                crs="epsg:32632")
+    b2_tgt = GridMapping.regular(size=(m // 4, m // 4), xy_min=(300000.0, 5200000.0),
+                                 xy_res=120.0, crs="epsg:32632")
+    b2_up = GridMapping.regular(size=(2 * m, 2 * m), xy_min=(300000.0, 5200000.0), xy_res=15.0,
+                                crs="epsg:32632")
+    (j_div, i_div), residual = _scale_split(b2_tgt.ij_transform_to(b2_gm))
+    (i_s, _, i_o), (_, j_s, j_o) = residual
+    (ui_s, _, ui_o), (_, uj_s, uj_o) = b2_up.ij_transform_to(b2_gm)
+    for name in DT_B2_DTYPES:
+        dtype = getattr(torch, name)
+        suffix = "" if dtype == torch.uint16 else f".{name}"
+        a, b, c = rand(dtype, (4, m, m)), rand(dtype, (4, m, m)), rand(dtype, (4, m, m), hi=16)
+        if dtype.is_floating_point:
+            a[0, 1000:1003] = nan
+            a[1, 64:72, 128:160] = nan
+            b[2, m // 2] = nan
+        ops = {"coarsen_reduce" + suffix, "coarsen_rank" + suffix}
+        out, dt, got = run(lambda: {agg: coarsen(x, 4, 4, agg) for agg, x in
+                                    (("mean", a), ("first", b), ("mode", c))}, ops)
+        stat = "stat" if dtype.is_floating_point else "exact"
+        for agg, x, kind in (("mean", a, stat), ("first", b, "exact"), ("mode", c, "exact")):
+            k = ("coarsen_rank" if agg == "mode" else "coarsen_reduce") + suffix
+            held(k, out[agg], coarsen_plain(x, 4, 4, agg), kind, f"B2 {name} coarsen {agg}")
+        ds = h.dataset(b2_gm, a=a, b=b, c=c)
+        aggs = {"a": "mean", "b": "first", "c": "mode"}
+        expect = ("affine_gather_reduce" + suffix, "affine_gather" + suffix,
+                  "coarsen_rank" + suffix)
+        out, first, got = run(lambda ds=ds: resample_in_space(
+            ds, target_gm=b2_tgt, interp_methods=1, agg_methods=aggs), expect)
+        for var, x in (("a", a), ("b", b), ("c", c)):
+            h.check_output(out[var].data, (4, m // 4, m // 4), dtype)
+            agg = aggs[var]
+            up = affine_gather_plain(x, j_s, i_s, j_o, i_o, m // 4 * j_div, m // 4 * i_div, 1,
+                                     _default_fill_value(dtype))
+            ref = coarsen_plain(up, j_div, i_div, agg)
+            k = ("coarsen_rank" if agg == "mode" else "affine_gather_reduce") + suffix
+            held(k, out[var].data, ref, stat if agg == "mean" else "exact",
+                 f"B2 {name} affine {var} ({agg}) vs plain")
+        up_out, up_first, up_got = run(lambda ds=ds: resample_in_space(
+            ds, target_gm=b2_up, interp_methods=1), ("affine_gather" + suffix,))
+        fill = _default_fill_value(dtype)
+        up_args = (a, uj_s, ui_s, uj_o, ui_o, 2 * m, 2 * m, 1, fill)
+        held("affine_gather" + suffix, up_out["a"].data, affine_gather_plain(*up_args),
+             "exact", f"B2 {name} 2x upscale vs plain")
+        print(f"{tag} dtypes: BASELINE #2 {name}: coarsen 4x (mean, first, mode) {dt * 1e3:.2f} "
+              f"ms; affine 4x downscale first call {first * 1e3:.2f} ms ({dict(got)}); 2x "
+              f"bilinear upscale first call {up_first * 1e3:.2f} ms ({dict(up_got)})")
+        if not suffix:  # uint16's instantiations predate the phase: held, not timed
+            continue
+        isz = a.element_size()
+        n_in = a.numel()
+        red_args = (a, j_s, i_s, j_o, i_o, m // 4, m // 4, j_div, i_div, "mean", fill)
+        timed("affine_gather_reduce" + suffix, lambda: affine_gather_reduce(*red_args),
+              lambda: affine_gather_reduce_plain(*red_args),
+              bound(n_in * isz + n_in // 16 * isz, 20 * n_in, PEAK_F64))
+        timed("affine_gather" + suffix, lambda: affine_gather(*up_args),
+              lambda: affine_gather_plain(*up_args),
+              bound(n_in * isz + 4 * n_in * isz, 20 * 4 * n_in, PEAK_F64))
+        timed("coarsen_reduce" + suffix, lambda: coarsen(a, 4, 4, "mean"),
+              lambda: coarsen_plain(a, 4, 4, "mean"), reduce_bound(a, 4, 4, "mean", isz))
+        timed("coarsen_rank" + suffix, lambda: coarsen(c, 4, 4, "mode"),
+              lambda: coarsen_plain(c, 4, 4, "mode"), rank_bound(c, 4, 4))
+        del out, up_out, ds, a, b, c, up, up_args
+        torch.cuda.empty_cache()
+
+    # -- R1 with a uint32 quality-flags band and a uint64 band, nearest -------
+    ds_r1 = h.olci_swath(*sizes["r1"], tuple(f"rad{k}" for k in range(16)))
+    r1_gm = GridMapping.from_dataset(ds_r1)
+    r1_tgt = r1_gm.to_regular(tile_size=512)
+    rad = ds_r1["rad0"].data
+    chunks = ds_r1["rad0"].chunks
+    flags_np = (rad.cpu().numpy() * 1000).astype(np.int64)
+    flags = {"flags": flags_np.astype(np.uint32), "wqsf": (flags_np << 32).astype(np.uint64)}
+    for k, v in flags.items():
+        ds_r1[k] = DataArray(torch.from_numpy(v).to(dev), dims=("y", "x"), chunks=chunks)
+    fills = dict(fill_values={"flags": 0, "wqsf": 0, torch.float32: nan})
+    expect = ("ij_gather.uint32", "ij_gather.uint64", "rectify_phase_a")
+    out, first, got = run(lambda: resample_in_space(ds_r1, target_gm=r1_tgt,
+                                                    interp_methods="nearest", **fills), expect)
+    r1_sw = torch.from_numpy(np.stack([np.asarray(ds_r1["lon"].data),
+                                       np.asarray(ds_r1["lat"].data)])).to(dev)
+    r1_map = rectify_ops.rectify_phase_a(
+        r1_sw, port_rectify._phase_a_tiles(r1_gm, r1_tgt, r1_sw), UV_DELTA)
+    fn = rectify_ops.make_device_var_image_fn(r1_map, rad.shape, 0, "nearest", device=dev)
+    for k, kern in (("flags", "ij_gather.uint32"), ("wqsf", "ij_gather.uint64")):
+        src = ds_r1[k].data[None]
+        h.check_output(out[k].data, (r1_tgt.height, r1_tgt.width), src.dtype)
+        held(kern, out[k].data[None], fn.plain(src), "exact", f"R1 {k} vs plain K7")
+        k7_args = (src, fn.ix, fn.iy, fn.valid, "nearest", 0)
+        timed(kern, lambda a=k7_args: rectify_ops.ij_gather(*a),
+              lambda a=k7_args: rectify_ops.ij_gather_plain(*a),
+              bound(src.numel() * src.element_size() + fn.ix.numel() * (9 + src.element_size()),
+                    30 * fn.ix.numel()))
+    print(f"{tag} dtypes: R1 16 float32 bands + uint32 flags + uint64 WQSF, nearest, device "
+          f"tier: first call {first:.3f} s ({dict(got)})")
+    del out
+    # the numpy flags under the host tier: K8, then K9's ij_map mode
+    ds_np = Dataset({k: DataArray(v, dims=("y", "x"), chunks=chunks) for k, v in flags.items()},
+                    coords={k: ds_r1[k] for k in ("lon", "lat")})
+    os.environ["XRTPU_PHASEA"] = "host"
+    try:
+        out, first, got = run(lambda: resample_in_space(
+            ds_np, target_gm=r1_tgt, interp_methods="nearest", device=dev, **fills),
+            ("exact_gather.uint32", "exact_gather.uint64"))
+    finally:
+        os.environ.pop("XRTPU_PHASEA", None)
+    ij = r1_map.double()
+    for k, kern in (("flags", "exact_gather.uint32"), ("wqsf", "exact_gather.uint64")):
+        src = torch.from_numpy(flags[k])[None].to(dev)
+        held(kern, out[k].data[None], exact_gather.exact_gather_ij_plain(src, ij, 0, "nearest"),
+             "exact", f"R1 numpy {k} vs plain K9")
+        timed(kern, lambda s=src: exact_gather.exact_gather_ij(s, ij, 0, "nearest"),
+              lambda s=src: exact_gather.exact_gather_ij_plain(s, ij, 0, "nearest"),
+              bound(src.numel() * src.element_size() + ij.numel() * 8
+                    + ij[0].numel() * src.element_size(), 20 * ij[0].numel(), PEAK_F64))
+    print(f"{tag} dtypes: R1 numpy uint32 and uint64 under the host tier: first call "
+          f"{first:.3f} s ({dict(got)})")
+    # the uint32 flags through sharded_rectify over 4 mesh entries on the
+    # card (K7's band form), then every method on every band of the step
+    # over the device tier's map, each held to the plain version
+    flags_t = ds_r1["flags"].data
+    kb = "ij_gather_band.uint32"
+    out_s, first, got = run(lambda: parallel.sharded_rectify(
+        flags_t, r1_gm, r1_tgt, mesh, interp_method="nearest", fill_value=0), (kb,))
+    h.check_output(out_s.full(), (r1_tgt.height, r1_tgt.width), torch.uint32)
+    for method in [m for m in METHODS if m != "nearest"] + ["nearest"]:
+        step, (pad, _) = parallel.make_sharded_rectify_step(
+            mesh, r1_map, (r1_gm.height, r1_gm.width), interp_method=method, fill_value=0)
+        bands, _ = step.bands(pad_rows(flags_t, pad, 0))
+        halos = step.exchange(bands)
+        for k in range(mesh.size):
+            g7 = step.gather_args(bands, halos, k)
+            held(kb, rectify_ops.ij_gather_band(*g7), rectify_ops.ij_gather_band_plain(*g7),
+                 "exact", f"R1 uint32 band {k} (off {g7[4]}), {method}")
+    g7 = step.gather_args(bands, halos, 1)
+    timed(kb, lambda: rectify_ops.ij_gather_band(*g7),
+          lambda: rectify_ops.ij_gather_band_plain(*g7), gather_band_bound(*g7))
+    print(f"{tag} dtypes: R1 uint32 flags through sharded_rectify over {mesh.size} mesh "
+          f"entries on one card, nearest: first call {first:.3f} s ({dict(got)}); K7's band "
+          f"form held on every band, every method")
+    del out_s, step, bands, halos, g7
+    del out, ds_r1, ds_np, fn, r1_map, r1_sw, ij
+    torch.cuda.empty_cache()
+
+    # -- int16 through the exact region mosaic (BASELINE #3) and the ESW cell -
+    gw, gh = sizes["geo"]
+    geo_gm = GridMapping.regular(size=(gw, gh), xy_min=(-180.0, -90.0), xy_res=360.0 / gw,
+                                 crs="epsg:4326")
+    geo = rand(torch.int16, (gh, gw), hi=3000)
+    t3 = sizes["b3"]
+    ds = h.dataset(geo_gm, v=geo)
+    cast_ms = (h.event_ms(lambda: as_float32(geo)), h.device_ms(lambda: as_float32(geo)))
+    b3_tgt = GridMapping.regular(size=(t3, t3), xy_min=(2000000.0, 1000000.0),
+                                 xy_res=1500.0 * 4096 / t3, crs="epsg:3035")
+    for what, tgt, expect in (
+        ("BASELINE #3", b3_tgt, ("esw_mosaic", "fused_reproject.int16")),
+        ("the ESW cell", GridMapping.regular(**dict(
+            ESW_CELL["target"], size=(t3, t3), xy_res=937.5 * 4096 / t3)), ("esw_gather",)),
+    ):
+        out, first, got = run(lambda t=tgt: resample_in_space(ds, target_gm=t,
+                                                              interp_methods="bilinear"), expect)
+        warm = statistics.median(run(lambda t=tgt: resample_in_space(
+            ds, target_gm=t, interp_methods="bilinear"), expect)[1] for _ in range(3))
+        h.check_output(out["v"].data, (t3, t3), torch.float32)
+        fn = device_reproject_fn(GridMapping.from_dataset(ds), tgt, "bilinear",
+                                 _default_fill_value(torch.int16), dev)
+        d = h.compare(out["v"].data, fn.plain(geo), "exact", f"{what} int16 vs plain")
+        for k in expect:
+            err[k] = max(err.get(k, 0.0), d)
+        pieces = ""
+        if isinstance(fn, ESWMosaicFn):
+            pieces = f"; {len(fn.gathers)} gather pieces through K3 on int16"
+            r0, c0, hh, ww, ix_c, iy_c = fn.gathers[0]
+            k3 = (geo[None], ix_c, iy_c, fn.step, hh, ww, "bilinear", fn.fill_value)
+            # the bound: the piece's output written once (its tapped pixels
+            # lie in a window of the source, not counted)
+            timed("fused_reproject.int16", lambda: fused_reproject(*k3),
+                  lambda: fused_reproject_plain(*k3), bound(4 * hh * ww, 30 * hh * ww))
+        print(f"{tag} dtypes: {what} int16 bilinear ({type(fn).__name__}, float32 out): first "
+              f"call {first:.3f} s, warm median of 3 {warm * 1e3:.3f} ms ({dict(got)}){pieces}; "
+              f"vs plain max abs diff {d}; the float32 cast of the {gh}x{gw} source "
+              f"{cast_ms[0]:.4f} ms (device {cast_ms[1]:.4f} ms)")
+        del out, fn
+    # the typed K3 on the whole of BASELINE #3 under XRTPU_NO_EXACT_MOSAIC=1
+    os.environ["XRTPU_NO_EXACT_MOSAIC"] = "1"
+    try:
+        for name, interp in DT_K3_CASES:
+            dtype = getattr(torch, name)
+            src = geo if dtype == torch.int16 else rand(dtype, (gh, gw), hi=2**62)
+            if dtype.is_floating_point:
+                src[gh // 3] = nan
+            ds_k = h.dataset(geo_gm, v=src)
+            k3 = f"fused_reproject.{name}"
+            out, first, got = run(lambda: resample_in_space(ds_k, target_gm=b3_tgt,
+                                                            interp_methods=interp), (k3,))
+            fn = device_reproject_fn(GridMapping.from_dataset(ds_k), b3_tgt, interp,
+                                     _default_fill_value(dtype), dev)
+            if not isinstance(fn, FusedReprojectFn):
+                raise AssertionError(f"BASELINE #3 {name} {interp} under "
+                                     f"XRTPU_NO_EXACT_MOSAIC=1 ran {type(fn).__name__}, not K3")
+            vt = gather_dtype(dtype, interp)
+            h.check_output(out["v"].data, (t3, t3), vt)
+            d = held(k3, out["v"].data, fn.plain(src), "exact",
+                     f"BASELINE #3 {name} {interp} (K3) vs plain")
+            a3 = (src[None], fn.ix_c, fn.iy_c, fn.step, fn.out_h, fn.out_w, interp,
+                  fn.fill_value)
+            timed(k3, lambda a=a3: fused_reproject(*a), lambda a=a3: fused_reproject_plain(*a),
+                  fused_band_bound(*a3, 0, 0, gh, out_size=vt.itemsize,
+                                   f64=vt == torch.float64))
+            print(f"{tag} dtypes: BASELINE #3 {name} {interp} under XRTPU_NO_EXACT_MOSAIC=1 "
+                  f"(K3, {vt} out): first call {first:.3f} s ({dict(got)}); vs plain max abs "
+                  f"diff {d}")
+            del out, fn, ds_k, a3
+            if dtype != torch.int16:
+                del src
+    finally:
+        os.environ.pop("XRTPU_NO_EXACT_MOSAIC", None)
+    # the int16 band through sharded_reproject over 4 mesh entries (the
+    # regrid step past the SRW's gate and the ESW's refusal: K3's band
+    # form), held to the step's plain version; then every method on every
+    # band
+    kb = "fused_reproject_band.int16"
+    out_s, first, got = run(lambda: parallel.sharded_reproject(
+        geo, geo_gm, b3_tgt, mesh, interp_method="bilinear"), (kb,))
+    xc, geo_c = crop_source(geo, geo_gm, b3_tgt)
+    step, (pad, _) = parallel.make_sharded_regrid_step(mesh, geo_c, b3_tgt)
+    padded = pad_rows(xc, pad, nan)
+    for k, (a_, b_) in enumerate(zip(out_s.bands, step.plain(padded).bands)):
+        held(kb, a_, b_, "exact", f"BASELINE #3 int16 sharded_reproject band {k} vs plain")
+    bands, _ = step.bands(padded)
+    halos = step.exchange(bands)
+    for interp in METHODS:
+        for k in range(mesh.size):
+            g3 = list(step.gather_args(bands, halos, k))
+            # nearest keeps int16: its fill an int16 (NaN raises, as in jnp)
+            g3[6], g3[7] = interp, 0 if interp == "nearest" else nan
+            held(kb, fused_reproject_band(*g3), fused_reproject_band_plain(*g3), "exact",
+                 f"BASELINE #3 int16 band {k} (off {g3[9]}), {interp}")
+    g3 = step.gather_args(bands, halos, 1)
+    timed(kb, lambda: fused_reproject_band(*g3), lambda: fused_reproject_band_plain(*g3),
+          fused_band_bound(*g3))
+    print(f"{tag} dtypes: BASELINE #3 int16 through sharded_reproject over {mesh.size} mesh "
+          f"entries on one card, bilinear: first call {first:.3f} s ({dict(got)}); K3's band "
+          f"form held on every band, every method")
+    del out_s, step, padded, bands, halos, g3, xc
+    del ds, geo
+    torch.cuda.empty_cache()
+
+    # -- B5's sharded SRW step on one uint16 band over 4 mesh entries ---------
+    src = rand(torch.uint16, (n, n))
+    step, (pad, _) = parallel.make_sharded_srw_step(mesh, utm_gm, laea_gm)
+    padded = pad_rows(src, pad, nan)
+    got_s, dt, got = run(lambda: step(padded), ("srw_vertical_band.uint16",
+                                                "srw_horizontal_band"))
+    ref_s = step.plain(padded)
+    for a_, b_ in zip(got_s.bands, ref_s.bands):
+        held("srw_vertical_band.uint16", a_, b_, "exact", "B5 uint16 sharded step vs plain")
+    bands, _ = step.bands(padded)
+    halos = step.exchange(bands)
+    v1 = step.vertical_args(bands, halos, 1)
+    timed("srw_vertical_band.uint16", lambda: srw_vertical_band(*v1),
+          lambda: srw_vertical_band_plain(*v1),
+          bound_mixed(v1[0].numel() * 2 + 4 * v1[3].numel() + 4 * v1[3].shape[0] * n,
+                      6 * v1[3].shape[0] * n * v1[5], 0))
+    print(f"{tag} dtypes: B5 sharded SRW step, uint16 {n}^2 over 4 mesh entries on one "
+          f"card: {dt * 1e3:.2f} ms the first call ({dict(got)})")
+    del got_s, ref_s, bands, halos, v1, padded, src
+    torch.cuda.empty_cache()
+    return launches, err, timings, bounds, library, extra
+
+
 def main() -> int:
     import argparse
 
@@ -3358,6 +3904,13 @@ def main() -> int:
         print(f"  {source}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"at most {max(spills, default=0)} bytes spilled, "
               f"{max(stack, default=0)} bytes of stack frame")
+    # no kernel of the library spills (the sources that took the new dtypes
+    # instantiate each: every instantiation is held to this)
+    spilling = [(source, k) for source, _, spills, _ in ptxas_summary(build.log)
+                for k in spills if k]
+    if spilling:
+        named = [k for k in ptxas_kernels(build.log, "") if k[2]]
+        raise AssertionError(f"kernels spill: {spilling}: {named}")
     # K6's register kernels (windows of up to 16 and 32 taps in
     # registers): no spill, no local memory
     for cap in (16, 32):
@@ -3374,7 +3927,8 @@ def main() -> int:
     # band form per method; K2 per method and (bands an item, stages); K7's
     # map and list forms per method and dtype, its band form per method;
     # K11's two kernels; K12 per tile
-    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel",
+    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "srw_horizontal_f64_kernel",
+                    "fused_reproject_kernel", "fused_reproject_typed_kernel",
                     "fused_reproject_band_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
                     "seed_pass", "seed_walk", "hybrid_dense_kernel", "esw_gather_kernel",
                     "esw_gather_band_kernel", "srw_aligned_vertical_kernel",
@@ -3396,7 +3950,9 @@ def main() -> int:
     # the horizontal kernel per method, the direct vertical kernel per
     # method with one tile and with many), K16 per method, and the
     # downscale form's cached kernels: no spill, no local memory
-    for pattern, n in (("ij_gather_band_kernel", 3), ("hybrid_dense_kernel", 4),
+    # (K7's band form: 3 methods for each of the 13 dtypes but bool's
+    # bilinear and triangular)
+    for pattern, n in (("ij_gather_band_kernel", 37), ("hybrid_dense_kernel", 4),
                        ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
                        ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 2),
@@ -5402,6 +5958,19 @@ def main() -> int:
     bounds.update(sr_bounds)
     library.update(sr_library)
 
+    # -- 10. the dtypes: every new instantiation at full size ---------------
+    dt_launches, dt_err, dt_timings, dt_bounds, dt_library, dt_extra = dtypes_phase(
+        dev, tag, SimpleNamespace(compare=compare, event_ms=event_ms, device_ms=device_ms,
+                                  dataset=dataset, check_output=check_output,
+                                  olci_swath=olci_swath)
+    )
+    main_launches.update(dt_launches)
+    for name, e in dt_err.items():
+        err[name] = max(err.get(name, 0.0), e)
+    timings.update(dt_timings)
+    bounds.update(dt_bounds)
+    library.update(dt_library)
+
     missing = [name for name in err if main_launches[name] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -5503,6 +6072,10 @@ def main() -> int:
             "xcube_resampling_tpu/ops/srw.py:1480",
         ),
     }
+    for name in dt_err:
+        if name not in sources:
+            file, replaces = DT_SOURCES[name.split(".")[0]]
+            sources[name] = (f"xcube_resampling_tpu_torch/csrc/{file}", replaces)
     kernels = [
         {
             "name": name,
@@ -5532,6 +6105,9 @@ def main() -> int:
     # K3 (and its band form) beside K13 (and its band form) on the ESW cell
     for k in kernels:
         k.update(esw_k3.get(k["name"], {}))
+    # K1 on uint16 beside the float32 cast then the float32 K1
+    for k in kernels:
+        k.update(dt_extra.get(k["name"], {}))
     # K16's device ms beside its per-pixel path and the parent's kernel, in
     # turns
     next(k for k in kernels if k["name"] == "esw_mosaic").update(b3_staged)

@@ -477,11 +477,24 @@ def test_recover_nans_runs_two_passes_for_tensors():
 
 
 def test_affine_engine_refuses_other_dtypes():
-    ds = _to_port(create_8x6_dataset_with_regular_coords())
-    ds["refl"] = pt.DataArray(torch.zeros((6, 8), dtype=torch.int64), dims=("lat", "lon"))
+    """An int64 variable, which the port refused before it took the JAX
+    package's thirteen dtypes, equals JAX's (bilinear, rint back to int64);
+    a dtype outside the thirteen (complex64) still raises."""
+    jds = create_8x6_dataset_with_regular_coords()
+    values = (np.nan_to_num(np.asarray(jds["refl"].data)) * 1000).astype(np.int64)
+    jds["refl"] = jx.DataArray(values, dims=("lat", "lon"))
+    crs = jx.GridMapping.from_dataset(jds).crs
+    target_args = ((3, 3), (50.05, 10.05), RES)
+    ref = jx.affine_transform_dataset(_to_jnp(jds), _target(jx, target_args, crs),
+                                      interp_methods=1)
+    ds = _to_port(jds)
     gm = pt.GridMapping.from_dataset(ds)
+    got = pt.affine_transform_dataset(ds, _target(pt, target_args, gm.crs), interp_methods=1,
+                                      device="cpu")
+    _assert_match(got["refl"].data.numpy(), np.asarray(ref["refl"].data))
+    ds["refl"] = pt.DataArray(torch.zeros((6, 8), dtype=torch.complex64), dims=("lat", "lon"))
     target = pt.GridMapping.regular((3, 3), (50.0, 10.0), RES, gm.crs)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="the port's kernels take"):
         pt.affine_transform_dataset(ds, target, device="cpu")
 
 

@@ -319,7 +319,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
 
 def test_affine_and_coarsen_wrappers_check_before_launch(monkeypatch):
     """K4-K6's CUDA branches refuse what their kernels do not take before
-    any build or launch (steered there with CPU tensors)."""
+    any build or launch (steered there with CPU tensors): among them a
+    dtype outside the JAX package's thirteen (complex64)."""
     for module in (gather, coarsen_ops):
         monkeypatch.setattr(module, "on_cpu", lambda *tensors: False)
 
@@ -329,8 +330,8 @@ def test_affine_and_coarsen_wrappers_check_before_launch(monkeypatch):
     monkeypatch.setattr(_build, "load", no_launch)
     data = torch.zeros((2, 12, 16))
     before = dict(LAUNCHES)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        gather.affine_gather(data.long(), 1.0, 1.0, 0.0, 0.0, 4, 4, 1, 0)
+    with pytest.raises(NotImplementedError, match="the port's kernels take"):
+        gather.affine_gather(data.to(torch.complex64), 1.0, 1.0, 0.0, 0.0, 4, 4, 1, 0)
     with pytest.raises(ValueError, match="order must be"):
         gather.affine_gather(data, 1.0, 1.0, 0.0, 0.0, 4, 4, 3, 0)
     with pytest.raises(ValueError, match="keeps the source dtype"):
@@ -341,8 +342,8 @@ def test_affine_and_coarsen_wrappers_check_before_launch(monkeypatch):
         coarsen_ops.coarsen_reduce(data, 5, 4, "mean")
     with pytest.raises(ValueError, match="exact multiples"):
         coarsen_ops.coarsen_rank(data, 3, 5, "mode")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        coarsen_ops.coarsen_rank(data.bool(), 2, 2, "mode")
+    with pytest.raises(NotImplementedError, match="the port's kernels take"):
+        coarsen_ops.coarsen_rank(data.to(torch.complex64), 2, 2, "mode")
     with pytest.raises(ValueError, match="K5 reduces"):
         coarsen_ops.coarsen_reduce(data, 2, 2, "mode")
     with pytest.raises(ValueError, match="K6 computes"):
@@ -352,8 +353,8 @@ def test_affine_and_coarsen_wrappers_check_before_launch(monkeypatch):
         gather.affine_gather_reduce(data, *reduce_args, "mode", 0)
     with pytest.raises(ValueError, match="window divisors must be positive"):
         gather.affine_gather_reduce(data, 1.0, 1.0, 0.0, 0.0, 4, 4, 0, 2, "mean", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        gather.affine_gather_reduce(data.long(), *reduce_args, "mean", 0)
+    with pytest.raises(NotImplementedError, match="the port's kernels take"):
+        gather.affine_gather_reduce(data.to(torch.complex64), *reduce_args, "mean", 0)
     with pytest.raises(ValueError, match="empty source"):
         gather.affine_gather_reduce(data[:, :0], *reduce_args, "mean", 0)
     assert dict(LAUNCHES) == before
@@ -840,7 +841,9 @@ def test_exact_gather_windows_plain_matches_jax_host_path(dtype, interp, geometr
 
 def test_rectify_wrappers_take_plain_versions_on_the_cpu(monkeypatch):
     """K7, K8 and K9 on CPU tensors: their plain versions, no launch, no
-    kernel library; a dtype outside the seven raises before any launch."""
+    kernel library; K7's bool bilinear gather raises ``TypeError`` as jnp's
+    boolean subtract does, K9 a dtype outside the JAX package's thirteen
+    (complex64) ``NotImplementedError``."""
     from xcube_resampling_tpu_torch.ops import exact_gather, rectify_ops
 
     def no_launch():
@@ -859,10 +862,11 @@ def test_rectify_wrappers_take_plain_versions_on_the_cpu(monkeypatch):
     )
     assert torch.isfinite(rectify_ops.rectify_phase_a(xy, tiles, 1e-3)).all()
     assert dict(LAUNCHES) == before
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        rectify_ops.ij_gather(src.bool(), ix, iy, valid, "nearest", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        exact_gather.exact_gather_ij(src.long(), torch.stack([ix, iy]).double(), 0, "nearest")
+    with pytest.raises(TypeError, match="boolean"):
+        rectify_ops.ij_gather(src.bool(), ix, iy, valid, "bilinear", 0)
+    with pytest.raises(NotImplementedError, match="the port's kernels take"):
+        exact_gather.exact_gather_ij(src.to(torch.complex64), torch.stack([ix, iy]).double(), 0,
+                                     "nearest")
     with pytest.raises(NotImplementedError, match="interp_methods must be one of"):
         exact_gather.exact_gather_ij(src, torch.stack([ix, iy]).double(), 0, "cubic")
 

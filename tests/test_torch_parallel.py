@@ -578,7 +578,18 @@ def test_tile_batch_roundtrip_matches_jax(as_tensor):
 
 
 def test_sharded_rejects_other_dtypes():
-    _, (psrc, ptgt) = _gms("utm")
-    with pytest.raises(TypeError, match="float32"):
-        ppar.sharded_reproject(torch.zeros(96, 96, dtype=torch.float64), psrc, ptgt,
+    """A float64 source, which the sharded steps refused before they took
+    the JAX package's thirteen dtypes: the sharded SRW step keeps float64
+    (the tiled SRW's promotion) and equals JAX's bit for bit; a dtype
+    outside the thirteen (complex64) raises."""
+    (jsrc, jtgt), (psrc, ptgt) = _gms("utm")
+    data = _data("utm", 2).astype(np.float64)
+    jb = jpar.make_sharded_srw_step(_jax_mesh(3), jsrc, jtgt, src_batch_dims=1)
+    pb = ppar.make_sharded_srw_step(_port_mesh(3), psrc, ptgt, src_batch_dims=1)
+    got, ref = _run_port(pb, data), _run_jax(jb, data)
+    assert got.dtype == ref.dtype == np.float64
+    np.testing.assert_array_equal(got, ref)
+    assert np.isfinite(ref).mean() > 0.3
+    with pytest.raises(NotImplementedError, match="the port's kernels take"):
+        ppar.sharded_reproject(torch.zeros(96, 96, dtype=torch.complex64), psrc, ptgt,
                                _port_mesh(2))

@@ -377,7 +377,7 @@ def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy, interp=Non
     elif case == "extreme_warp":
         monkeypatch.setenv("XRTPU_FAST_EXTREME_WARP", "1")
     elif case == "float64":
-        data = data.double()
+        data = data.double() if isinstance(data, torch.Tensor) else data.astype(np.float64)
     elif case == "cubic":
         kwargs["interp_methods"] = "cubic"
     elif case == "int_numpy":
@@ -388,16 +388,24 @@ def _route_case(monkeypatch, case, pkg=port, tensor=torch.from_numpy, interp=Non
     return pkg.resample_in_space(ds, target_gm=target_gm, **kwargs)
 
 
-@pytest.mark.parametrize(
-    "case, match",
-    [
-        ("float64", "float32 tensors only"),
-        ("cubic", "interp_methods must be one of"),
-    ],
-)
+@pytest.mark.parametrize("case, match", [("cubic", "interp_methods must be one of")])
 def test_routes_outside_the_slice_raise(monkeypatch, case, match):
     with pytest.raises(NotImplementedError, match=match):
         _route_case(monkeypatch, case)
+
+
+def test_float64_route_matches_jax(monkeypatch):
+    """A float64 tensor, which raised before the port took every dtype:
+    both packages pick the tiled SRW, which computes and returns float64
+    (jnp promotes float32 weights times float64), equal bit for bit."""
+    ref = _route_case(monkeypatch, "float64", xrt, jnp.asarray)
+    got = _route_case(monkeypatch, "float64")
+    (fn,) = port_reproject._DEVICE_FN_CACHE.values()
+    assert isinstance(fn, port_srw.SRWFn) and fn.kind == "tiled"
+    data = got["a"].data
+    assert data.dtype == torch.float64 and np.asarray(ref["a"].data).dtype == np.float64
+    _assert_match(data.numpy(), np.asarray(ref["a"].data))
+    assert np.isfinite(np.asarray(ref["a"].data)).mean() > 0.5
 
 
 @pytest.mark.parametrize("interp", METHODS)

@@ -6,9 +6,8 @@ metadata); the resume counts are 4, 0 and 1; a chunk-lazy source with a
 corner target reads a fraction of its chunks, and no more than JAX's
 stream reads.
 
-The 5x5 golden's data is int64 in ``tests/sampledata.py``; the port takes
-seven dtypes so far (ROADMAP queue 1 item 12), so both packages get it as
-int32 here.
+The 5x5 golden's data is int64 in ``tests/sampledata.py``: it streams as
+int64, and as int32 beside it.
 """
 
 import json
@@ -33,11 +32,11 @@ TARGET = dict(size=(6, 6), xy_min=(4320040, 3382440), xy_res=80, crs="epsg:3035"
               tile_size=4)
 
 
-def _golden_case():
+def _golden_case(dtype=np.int32):
     ds = create_5x5_dataset_regular_utm()
     band = ds.band_1
     ds["band_1"] = jx.DataArray(
-        np.asarray(band.data).astype(np.int32), dims=band.dims, attrs=dict(band.attrs)
+        np.asarray(band.data).astype(dtype), dims=band.dims, attrs=dict(band.attrs)
     )
     return ds
 
@@ -80,6 +79,22 @@ def test_stream_matches_jax():
     np.testing.assert_array_equal(back.band_1.values, ref.band_1.values)
     assert back["band_1"].attrs.get("grid_mapping") == "spatial_ref"
     assert "x" in back.coords and "y" in back.coords
+
+
+def test_stream_int64_golden_matches_jax():
+    """The 5x5 golden in its own dtype, int64, which the port refused
+    before it took the JAX package's thirteen dtypes: 2x2 tiles, nearest;
+    the stores equal, the chunks int64."""
+    ds = _golden_case(np.int64)
+    assert np.asarray(ds.band_1.data).dtype == np.int64
+    ref_store, store = jz.MemoryStore(), pz.MemoryStore()
+    assert jax_resample_to_store(ds, jx.GridMapping.regular(**TARGET), ref_store,
+                                 interp_methods=0) == 4
+    assert resample_to_store(_to_port(ds), pt.GridMapping.regular(**TARGET), store,
+                             interp_methods=0, device="cpu") == 4
+    _assert_same_store(store, ref_store)
+    back = pz.open_dataset(store)
+    assert np.asarray(back.band_1.values).dtype == np.int64
 
 
 def test_stream_resume_skips_done_tiles():

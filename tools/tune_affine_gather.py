@@ -248,7 +248,7 @@ def main() -> int:
             def call(lib=lib, name=name):
                 rc = lib.xrt_affine_gather(
                     ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(out.data_ptr()), batch, h, w,
-                    h * w, w, oh, ow, js, is_, jo, io, 1, -1.0, code, code, stream())
+                    h * w, w, oh, ow, js, is_, jo, io, 1, -1.0, 0, code, code, stream())
                 if rc:
                     raise RuntimeError(f"{name}: launch failed ({rc})")
 

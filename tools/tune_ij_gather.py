@@ -292,12 +292,13 @@ def tune_band(card, dev, built) -> None:
         times = {}
         for name, lib, _ in built + built[::-1]:
             def call(lib=lib, name=name):
-                rc = lib.xrt_ij_gather_band_f32(
+                rc = lib.xrt_ij_gather_band(
                     ctypes.c_void_p(ext.data_ptr()), ctypes.c_void_p(m.data_ptr()),
                     ctypes.c_void_p(out.data_ptr()), ctypes.c_int64(batch),
                     ctypes.c_int64(ext_h), ctypes.c_int64(src_w), ctypes.c_int64(out_h),
                     ctypes.c_int64(out_w), ctypes.c_int64(off), ctypes.c_int64(src_h),
-                    ctypes.c_int(METHODS[method]), ctypes.c_float(fill),
+                    ctypes.c_int(METHODS[method]), ctypes.c_double(fill), ctypes.c_int64(0),
+                    ctypes.c_int(0),
                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
                 if rc:
                     raise RuntimeError(f"K7 band {name}: launch failed ({rc})")
@@ -363,7 +364,7 @@ def main() -> int:
                     None, None, ctypes.c_void_p(out.data_ptr()), ctypes.c_int64(ix.numel()),
                     ctypes.c_int64(batch), ctypes.c_int64(src_h), ctypes.c_int64(src_w),
                     ctypes.c_int64(out_w), ctypes.c_int64(ix.numel()), ctypes.c_int(code),
-                    ctypes.c_double(float("nan")), ctypes.c_int(0),
+                    ctypes.c_double(float("nan")), ctypes.c_int64(0), ctypes.c_int(0),
                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
                 if rc:
                     raise RuntimeError(f"K7 {name}: launch failed ({rc})")

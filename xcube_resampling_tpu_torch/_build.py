@@ -46,17 +46,17 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # src, iystar_c, base_v, win, v, vd, batch, src_h, src_w, out_h, ncj,
     # ncc, step, n_col_tiles, col_tile, d_v, method, rows, cols, extent,
-    # n_col_blocks, walkers, vec4, stream
-    "xrt_srw_vertical_f32": [
+    # n_col_blocks, walkers, vec4, code, stream
+    "xrt_srw_vertical": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64,
-        _I64, _I, _I, _I, _I, _I, _I64, _I64, _I, _P,
+        _I64, _I, _I, _I, _I, _I, _I64, _I64, _I, _I, _P,
     ],
     # ext, iystar_c, base_v, win, v, vd, batch, ext_h, src_w, out_h, ncj,
     # ncc, step, n_col_tiles, col_tile, d_v, method, rows, cols, extent,
-    # n_col_blocks, walkers, vec4, row0, off, src_h, stream
-    "xrt_srw_vertical_band_f32": [
+    # n_col_blocks, walkers, vec4, row0, off, src_h, code, stream
+    "xrt_srw_vertical_band": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64,
-        _I64, _I, _I, _I, _I, _I, _I64, _I64, _I, _I64, _I64, _I64, _P,
+        _I64, _I, _I, _I, _I, _I, _I64, _I64, _I, _I64, _I64, _I64, _I, _P,
     ],
     # v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,
     # src_w, ncj, nci, step, row_tile, d_h, method, fill, cols, extent,
@@ -64,6 +64,12 @@ _SIGNATURES = {
     "xrt_srw_horizontal_f32": [
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _I, _I64, _I, _I, _F, _I, _I, _I64, _I, _I, _I, _I, _I64, _P,
+    ],
+    # v, vd, ix_c, iy_c, base_h, out, batch, out_h, out_w, src_h, src_w,
+    # ncj, nci, step, row_tile, tiles, d_h, method, fill, row0, stream
+    "xrt_srw_horizontal_f64": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I64,
+        _I, _I, _D, _I64, _P,
     ],
     # src, iystar_c, s_v, base_v, v, batch, src_h, src_w, out_h, ncj, ncc,
     # step, n_col_tiles, col_tile, d_v, method, stream
@@ -100,6 +106,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F,
         _I64, _I64, _I64, _P,
     ],
+    # src, ix_c, iy_c, out, batch, src_h, src_w, ncj, nci, out_h, out_w,
+    # step, method, fill, fill_bits, row0, off, true_h, band, code, stream
+    "xrt_fused_reproject_typed": [
+        _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _D, _I64,
+        _I64, _I64, _I64, _I, _I, _P,
+    ],
     # src, iystar_c, ix_c, iy_c, out, batch, src_h, src_w, ncj, ncc, nci,
     # out_h, out_w, step, n_samples, method, fill, src_h_g, src_w_g, j_off,
     # i_off, staged, stream
@@ -122,10 +134,11 @@ _SIGNATURES = {
         _P,
     ],
     # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w,
-    # j_scale, i_scale, j_off, i_off, order, fill, in_code, out_code, stream
+    # j_scale, i_scale, j_off, i_off, order, fill, fill_bits, in_code,
+    # out_code, stream
     "xrt_affine_gather": [
         _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _D, _D, _D, _D, _I,
-        _D, _I, _I, _P,
+        _D, _I64, _I, _I, _P,
     ],
     # src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w, j_div,
     # i_div, j_scale, i_scale, j_off, i_off, fill, agg, pa, pb, code,
@@ -150,15 +163,15 @@ _SIGNATURES = {
         _I64, _I64, _D, _D, _D, _P, _P, _P,
     ],
     # src, ix, iy, valid, rows, cols, out, n, batch, src_h, src_w, out_w,
-    # out_plane, method, fill, code, stream
+    # out_plane, method, fill, fill_bits, code, stream
     "xrt_ij_gather": [
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _D,
-        _I, _P,
+        _I64, _I, _P,
     ],
     # ext, map, out, batch, ext_h, src_w, out_h, out_w, off, src_h, method,
-    # fill, stream
-    "xrt_ij_gather_band_f32": [
-        _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _F, _P,
+    # fill, fill_bits, code, stream
+    "xrt_ij_gather_band": [
+        _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _D, _I64, _I, _P,
     ],
     # gx, gy, src_h, src_w, r0, dst_h, dst_w, tile, coarse_iters,
     # refine_iters, max_edge, margin, scratch, cqj, cqi, meta, stream
@@ -177,16 +190,16 @@ _SIGNATURES = {
         _P, _P, _I64, _I64, _P, _I64, _I64, _I64, _P, _P, ctypes.POINTER(_I), _P,
     ],
     # src, ij_map, out, batch, src_h, src_w, out_h, out_w, method, fill,
-    # code, stream
+    # fill_bits, code, stream
     "xrt_exact_gather_ij": [
-        _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _D, _I, _P,
+        _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _D, _I64, _I, _P,
     ],
     # src, xx, yy, itab, dtab, out, batch, src_h, src_w, out_h, out_w,
     # tile_h, tile_w, n_tiles_x, win_h, win_w, pad_top, pad_left, x_res,
-    # neg_y_res, method, fill, code, stream
+    # neg_y_res, method, fill, fill_bits, code, stream
     "xrt_exact_gather_windows": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-        _I64, _I64, _I64, _I64, _D, _D, _I, _D, _I, _P,
+        _I64, _I64, _I64, _I64, _D, _D, _I, _D, _I64, _I, _P,
     ],
 }
 

@@ -12,8 +12,9 @@ writes the inflated image.
 Spatial variables backed by torch tensors stay on their device;
 numpy-backed ones are placed on the *device* argument (default
 ``"cuda"``) in their own dtype.  The output keeps the input dtype.  The
-dtypes are float32, float64, int8, int16, int32, uint8 and uint16; others
-raise ``NotImplementedError``.  Where the JAX package's numpy host path
+dtypes are the JAX package's thirteen (``_device.DATA_DTYPES``): float16
+to float64, bfloat16, the integers of 8 to 64 bits and bool; others raise
+``NotImplementedError``.  Where the JAX package's numpy host path
 runs the NaN recovery only when the data holds a NaN, the port always
 runs both passes, as the JAX device path does for any non-numpy array.
 """
@@ -23,10 +24,9 @@ from __future__ import annotations
 import math
 from collections.abc import Iterable, Sequence
 
-import numpy as np
 import torch
 
-from ._device import require_data_dtype, round_to
+from ._device import from_numpy, require_data_dtype, round_to, to_f64
 from .constants import (
     AffineTransformMatrix,
     AggMethod,
@@ -174,7 +174,7 @@ def _as_tensor_variable(var: DataArray, name, device) -> DataArray:
     where they are, numpy data goes to *device* in its own dtype."""
     data = var.data
     if not isinstance(data, torch.Tensor):
-        data = torch.as_tensor(np.ascontiguousarray(data), device=device)
+        data = from_numpy(data, device)
     require_data_dtype(data.dtype, f"variable {name!r}")
     return DataArray(data, dims=var.dims, attrs=dict(var.attrs), chunks=var.chunks)
 
@@ -275,7 +275,7 @@ def _gather_resample(
         zeroed = torch.where(nan_mask, 0.0, array)
     else:
         nan_mask = torch.zeros(array.shape, dtype=torch.bool, device=array.device)
-        zeroed = array.to(torch.float64)
+        zeroed = to_f64(array)
     numerator = transform(zeroed, torch.float64)
     weight = transform(1.0 - nan_mask.to(torch.float64))
     result = torch.where(torch.isclose(weight, torch.zeros_like(weight)),

@@ -48,6 +48,7 @@ struct Args {
   void* out;
   int64_t batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w, n_row_tiles;
   double j_scale, i_scale, j_off, i_off, fill;
+  int64_t fill_bits;  // an integer fill's bits (nearest), exact past 2^53
   bool vec;  // out_w % kVec == 0: every thread's columns take one vector store
 };
 
@@ -138,7 +139,8 @@ __global__ void __launch_bounds__(kThreads) affine_gather_kernel(const Args a) {
 
   const T* __restrict__ src = static_cast<const T*>(a.src);
   O* __restrict__ out = static_cast<O*>(a.out);
-  const O fill = ORDER == 0 ? static_cast<O>(a.fill) : round_from<O>(a.fill);
+  const O fill = ORDER == 0 && std::is_integral<O>::value ? static_cast<O>(a.fill_bits)
+                                                          : round_from<O>(a.fill);
   const I last_col = static_cast<I>(a.src_w - 1);
   const I pitch = static_cast<I>(a.pitch_h);
   const int c0 = tid * kVec;  // the thread's first column in the tile
@@ -177,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) affine_gather_kernel(const Args a) {
       if (r0 < 0) {
 #pragma unroll
         for (int v = 0; v < kVec; ++v) res.v[v] = fill;
-      } else if (ORDER == 0) {
+      } else if constexpr (ORDER == 0) {
 #pragma unroll
         for (int v = 0; v < kVec; ++v) {
           const I x0 = col_x0[c0 + v];
@@ -217,19 +219,21 @@ cudaError_t launch(const Args& a, bool wide, cudaStream_t s) {
 }  // namespace
 
 // order 0 (nearest, out_code == in_code) or 1 (bilinear, out_code the
-// source's or float64); pitches in elements; returns cudaGetLastError().
+// source's or float64); pitches in elements; fill the fill in the source's
+// type (nearest) or float type (bilinear), fill_bits the bits of an integer
+// nearest fill; returns cudaGetLastError().
 extern "C" int xrt_affine_gather(
     const void* src, void* out, int64_t batch, int64_t src_h, int64_t src_w,
     int64_t pitch_b, int64_t pitch_h, int64_t out_h, int64_t out_w,
     double j_scale, double i_scale, double j_off, double i_off, int order,
-    double fill, int in_code, int out_code, void* stream) {
+    double fill, int64_t fill_bits, int in_code, int out_code, void* stream) {
   if (batch < 1 || src_h < 1 || src_w < 1 || out_h < 1 || out_w < 1 ||
       pitch_b < 0 || pitch_h < 0 || (order != 0 && order != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{src, out, batch, src_h, src_w, pitch_b, pitch_h, out_h, out_w,
                (out_h + kTileRows - 1) / kTileRows, j_scale, i_scale, j_off, i_off,
-               fill, out_w % kVec == 0};
+               fill, fill_bits, out_w % kVec == 0};
   // 32-bit offsets where every offset into a source plane fits
   const bool wide = (src_h - 1) * pitch_h + src_w >= (int64_t{1} << 31);
   const auto s = static_cast<cudaStream_t>(stream);

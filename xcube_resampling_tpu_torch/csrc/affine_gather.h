@@ -71,7 +71,7 @@ __device__ __forceinline__ Axis<I> nearest_axis(int64_t k, double scale, double 
 // the columns (the order of the JAX package's separable gather).
 template <typename T>
 __device__ __forceinline__ double row_lerp(T t0, T t1, double fy, double gy) {
-  return static_cast<double>(t0) * gy + static_cast<double>(t1) * fy;
+  return to_f64(t0) * gy + to_f64(t1) * fy;
 }
 
 // The blocks down a grid of *cols* blocks across: as many as the card's

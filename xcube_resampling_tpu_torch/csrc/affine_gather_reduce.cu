@@ -303,11 +303,21 @@ auto cached_kernel(int64_t width) -> void (*)(const Args) {
   }
 }
 
+// The data types with cached kernels: the seven the downscale form took
+// before it took every data type (a template on the width 1-8 for each of
+// 8 reducers: the build's longest source); the others take the direct
+// kernel (srw_kernels' plan_gather_reduce routes them there).
+template <typename T>
+constexpr bool kCachedType =
+    std::is_floating_point<T>::value ||
+    (std::is_integral<T>::value && sizeof(T) <= 4 && !std::is_same<T, uint32_t>::value &&
+     !std::is_same<T, bool>::value);
+
 // route 1: the cached kernel (its pairs, kThreads x (id + 1), in shared
 // memory); route 0: the direct kernel.
 template <typename T, int AGG>
 cudaError_t launch(const Args& a, int route, cudaStream_t s) {
-  if constexpr (AGG != kPick) {
+  if constexpr (AGG != kPick && kCachedType<T>) {
     if (route == 1) {
       auto kernel = cached_kernel<T, AGG>(a.id);
       if (kernel == nullptr) return cudaErrorInvalidValue;

@@ -104,10 +104,11 @@ __global__ void coarsen_rank_kernel(const Args a) {
       }
       if (n % 2 == 1 || n == 0) {
         result = lo;
-      } else if constexpr (std::is_floating_point<T>::value) {
+      } else if constexpr (xrt::is_float_v<T>) {
         result = (lo + hi) * T(0.5);
       } else {
-        result = round_from<T>((static_cast<double>(lo) + static_cast<double>(hi)) * 0.5);
+        // rint first: bool's conversion is != 0
+        result = round_from<T>(rint((xrt::to_f64(lo) + xrt::to_f64(hi)) * 0.5));
       }
     }
     out[row * a.ow + oi] = result;
@@ -388,7 +389,15 @@ extern "C" int xrt_coarsen_rank(
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(xrt::with_data_type(code, [&](auto tag) -> cudaError_t {
     using T = typename decltype(tag)::type;
-    if (a.jd * a.id <= kMaxRegTaps) {
+    // the register kernels take float32, float64 and the integers up to 32
+    // bits but uint32; the other data types stage their windows (threads)
+    constexpr bool kRegs = std::is_floating_point<T>::value ||
+                           (std::is_integral<T>::value && sizeof(T) <= 4 &&
+                            !std::is_same<T, uint32_t>::value && !std::is_same<T, bool>::value);
+    if (!kRegs && threads == 0 && a.jd * a.id <= kMaxRegTaps) {
+      return cudaErrorInvalidValue;
+    }
+    if (kRegs && a.jd * a.id <= kMaxRegTaps) {
       // integers compare as int32, floats as themselves
       using C = typename std::conditional<std::is_floating_point<T>::value, T, int32_t>::type;
       return launch_regs<C>(a, median, code, sizeof(T), s);

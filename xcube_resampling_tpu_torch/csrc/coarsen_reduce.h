@@ -16,11 +16,11 @@
 // too: the downscale form's unrounded ceiling for tools/).
 //   mean, std, var: NaN-aware float64 moments of the valid taps (two
 //     passes: the mean, then the centred squares), rounded once to the
-//     data type (rint and saturation for integers); NaN for an all-NaN
-//     window;
+//     data type (rint and saturation for integers, rint then != 0 for
+//     bool); NaN for an all-NaN window;
 //   sum, prod: float data NaN-aware in float64, rounded once (an all-NaN
-//     window gives 0 and 1); integers wrap in 64 bits and come back int64
-//     (uint64 for unsigned data);
+//     window gives 0 and 1); integers and bool wrap in 64 bits and come
+//     back int64 (uint64 for unsigned data);
 //   min, max: NaN-aware for floats (NaN only for an all-NaN window);
 //   count: the taps that are not 0 (NaN counts), int64;
 //   first, last, center: the tap at (pa, pb) of the window.
@@ -44,10 +44,21 @@ struct OutType {
   using type = typename std::conditional<
       AGG == kCount, int64_t,
       typename std::conditional<
-          (AGG == kSum || AGG == kProd) && !std::is_floating_point<T>::value,
-          typename std::conditional<std::is_unsigned<T>::value, uint64_t, int64_t>::type,
+          (AGG == kSum || AGG == kProd) && !is_float_v<T>,
+          typename std::conditional<is_unsigned_int_v<T>, uint64_t, int64_t>::type,
           T>::type>::type;
 };
+
+// A float64 statistic in the data type O, as coarsen_jax's int_roundtrip
+// takes it back: rint first for integers and bool.
+template <typename O>
+__device__ __forceinline__ O stat_round(double v) {
+  if constexpr (std::is_same<O, bool>::value) {
+    return round_from<O>(rint(v));
+  } else {
+    return round_from<O>(v);
+  }
+}
 
 // A tap index as an integer: a run-time q itself, a compile-time one's
 // value (std::integral_constant's conversion is a host function to nvcc).
@@ -128,7 +139,7 @@ struct MomentStep {
   __device__ __forceinline__ void operator()(Q q) const {
     const auto v = tap(q);
     if (is_nan(v)) return;
-    acc = AGG == kProd ? acc * static_cast<double>(v) : acc + static_cast<double>(v);
+    acc = AGG == kProd ? acc * to_f64(v) : acc + to_f64(v);
     ++n;
   }
 };
@@ -142,7 +153,7 @@ struct SquareStep {
   __device__ __forceinline__ void operator()(Q q) const {
     const auto v = tap(q);
     if (is_nan(v)) return;
-    const double d = static_cast<double>(v) - mean;
+    const double d = to_f64(v) - mean;
     sq = sq + d * d;
   }
 };
@@ -168,7 +179,7 @@ __device__ __forceinline__ typename OutType<T, AGG>::type reduce(
       each_tap(id, MinMaxStep<T, AGG, decltype(tap)>{m, have, tap, r == 0});
     }
     return m;
-  } else if constexpr (!std::is_floating_point<T>::value && (AGG == kSum || AGG == kProd)) {
+  } else if constexpr (!is_float_v<T> && (AGG == kSum || AGG == kProd)) {
     uint64_t acc = AGG == kSum ? 0u : 1u;
     for (int64_t r = 0; r < jd; ++r) {
       auto tap = taps.row(r);
@@ -184,11 +195,11 @@ __device__ __forceinline__ typename OutType<T, AGG>::type reduce(
       each_tap(id, MomentStep<AGG, decltype(tap)>{acc, n, tap});
     }
     if constexpr (AGG == kSum || AGG == kProd) {
-      return static_cast<O>(acc);  // float data only
+      return round_from<O>(acc);  // float data only
     } else {
       const double mean = acc / static_cast<double>(n);
       if constexpr (AGG == kMean) {
-        return round_from<O>(mean);
+        return stat_round<O>(mean);
       } else {
         double sq = 0.0;
         for (int64_t r = 0; r < jd; ++r) {
@@ -196,7 +207,7 @@ __device__ __forceinline__ typename OutType<T, AGG>::type reduce(
           each_tap(id, SquareStep<decltype(tap)>{sq, mean, tap});
         }
         const double var = sq / static_cast<double>(n);
-        return round_from<O>(AGG == kStd ? sqrt(var) : var);
+        return stat_round<O>(AGG == kStd ? sqrt(var) : var);
       }
     }
   }

@@ -18,9 +18,14 @@
 //     rint-and-clip nearest, floor/ceil bilinear and triangular taps with
 //     their differences taken in the source type (wrapping for integers,
 //     rounded to float32 for float32), the rest in float64.
-// Each result is rounded once to the source type: a cast for floats; for
-// integers rint, then the conversion numpy's float64 -> integer casts make
-// on x86 (through int32; INT32_MIN where out of its range or NaN).
+// Each result is rounded once to the source type: a cast for floats
+// (float16 once, bfloat16 through float32, as ml_dtypes); for integers
+// rint, then the conversion numpy's float64 -> integer casts make on x86
+// (up to 32 bits through int32, INT32_MIN where out of its range or NaN;
+// int64 INT64_MIN out of its range; uint64 modulo 2^64); bool x != 0.  The
+// window mode's bool takes nearest only (numpy's boolean subtract raises;
+// the wrapper refuses it), the ij_map mode's lerps bool's taps in float64,
+// as var_image_from_ij_map upcasts them.
 //
 // Bound on the H100: device memory for both modes (a pixel reads its float64
 // map or centres, 16 bytes, and its taps; a few tens of float64 operations,
@@ -40,24 +45,55 @@ __device__ __forceinline__ int to_i32(double x) {
   return (x >= -2147483648.0 && x < 2147483648.0) ? static_cast<int>(x) : INT32_MIN;
 }
 
+// numpy's x86 float64 -> int64 conversion (cvttsd2si): INT64_MIN out of
+// range and for NaN
+__device__ __forceinline__ int64_t to_i64(double x) {
+  return (x >= -9223372036854775808.0 && x < 9223372036854775808.0) ? __double2ll_rz(x)
+                                                                    : INT64_MIN;
+}
+
 // numpy's rounding of a float64 result to the source type (see above)
 template <typename T>
 __device__ __forceinline__ T host_round(double v) {
-  if constexpr (std::is_floating_point<T>::value) {
-    return static_cast<T>(v);
+  if constexpr (xrt::is_float_v<T> || std::is_same<T, bool>::value) {
+    return xrt::round_from<T>(v);
+  } else if constexpr (std::is_same<T, uint64_t>::value) {
+    const double r = rint(v);
+    return static_cast<T>(to_i64(r >= 9223372036854775808.0 ? r - 18446744073709551616.0 : r));
+  } else if constexpr (std::is_same<T, int64_t>::value) {
+    return to_i64(rint(v));
+  } else if constexpr (std::is_same<T, uint32_t>::value) {
+    // through int64 (saturating, NaN to 0): modulo 2^32 (rint(v) of a
+    // value of the source range lies in it)
+    return static_cast<T>(__double2ll_rn(v));
   } else {
     return static_cast<T>(to_i32(rint(v)));
   }
 }
 
-// b - a in the source type (float32 rounding, integer wraparound), as float64
+// b - a in the source type (float32, float16 and bfloat16 rounding, integer
+// wraparound), as float64
 template <typename T>
 __device__ __forceinline__ double host_diff(T b, T a) {
-  if constexpr (std::is_floating_point<T>::value) {
+  if constexpr (std::is_same<T, bool>::value) {
+    return 0.0;  // not reached: bool takes nearest only
+  } else if constexpr (xrt::is_half_v<T>) {
+    return xrt::to_f64(T(xrt::to_f32(b) - xrt::to_f32(a)));
+  } else if constexpr (std::is_floating_point<T>::value) {
     return static_cast<double>(static_cast<T>(b - a));
   } else {
     using U = std::make_unsigned_t<T>;
     return static_cast<double>(static_cast<T>(static_cast<U>(static_cast<U>(b) - static_cast<U>(a))));
+  }
+}
+
+// a fill in the source type: an integer's exact bits, else the float
+template <typename T>
+__device__ __forceinline__ T fill_of(double fill, int64_t bits) {
+  if constexpr (std::is_integral<T>::value) {
+    return static_cast<T>(bits);
+  } else {
+    return xrt::round_from<T>(fill);
   }
 }
 
@@ -71,6 +107,7 @@ struct IjArgs {
   void* out;
   int64_t batch, src_h, src_w, n_out;
   double fill;
+  int64_t fill_bits;
 };
 
 template <int M, typename T>
@@ -83,7 +120,7 @@ __global__ void __launch_bounds__(kThreads) exact_ij_kernel(const IjArgs a) {
   const double mi = a.map[p];
   const double mj = a.map[a.n_out + p];
   if (isnan(mi) || isnan(mj)) {
-    for (int64_t b = 0; b < a.batch; ++b) out[b * a.n_out + p] = static_cast<T>(a.fill);
+    for (int64_t b = 0; b < a.batch; ++b) out[b * a.n_out + p] = fill_of<T>(a.fill, a.fill_bits);
     return;
   }
   // truncation, as numpy's astype(int64) of the (non-negative) map
@@ -102,10 +139,10 @@ __global__ void __launch_bounds__(kThreads) exact_ij_kernel(const IjArgs a) {
     const int64_t j1 = j0c + 1 > a.src_h - 1 ? a.src_h - 1 : j0c + 1;
     for (int64_t b = 0; b < a.batch; ++b) {
       const T* s = src + b * src_plane;
-      const double v00 = static_cast<double>(s[j0c * a.src_w + i0c]);
-      const double v01 = static_cast<double>(s[j0c * a.src_w + i1]);
-      const double v10 = static_cast<double>(s[j1 * a.src_w + i0c]);
-      const double v11 = static_cast<double>(s[j1 * a.src_w + i1]);
+      const double v00 = xrt::to_f64(s[j0c * a.src_w + i0c]);
+      const double v01 = xrt::to_f64(s[j0c * a.src_w + i1]);
+      const double v10 = xrt::to_f64(s[j1 * a.src_w + i0c]);
+      const double v11 = xrt::to_f64(s[j1 * a.src_w + i1]);
       double value;
       if constexpr (M == xrt::kTriangular) {
         value = u + v < 1.0 ? v00 + u * (v01 - v00) + v * (v10 - v00)
@@ -130,6 +167,7 @@ struct WinArgs {
   int64_t batch, src_h, src_w, out_h, out_w;
   int64_t tile_h, tile_w, n_tiles_x, win_h, win_w, pad_top, pad_left;
   double x_res, neg_y_res, fill;
+  int64_t fill_bits;
 };
 
 // the tap at (jp, ip) of the padded source: the fill outside the source
@@ -155,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) exact_win_kernel(const WinArgs a) {
   const T* src = static_cast<const T*>(a.src);
   T* out = static_cast<T*>(a.out);
   const int64_t src_plane = a.src_h * a.src_w;
-  const T fill = static_cast<T>(a.fill);
+  const T fill = fill_of<T>(a.fill, a.fill_bits);
   if constexpr (M == xrt::kNearest) {
     const int64_t jy = wj + clampi(to_i32(rint(iy)), a.win_h);
     const int64_t jx = wi + clampi(to_i32(rint(ix)), a.win_w);
@@ -180,12 +218,12 @@ __global__ void __launch_bounds__(kThreads) exact_win_kernel(const WinArgs a) {
       double value;
       if constexpr (M == xrt::kTriangular) {
         value = dx + dy < 1.0
-                    ? static_cast<double>(v00) + dx * host_diff(v01, v00) + dy * host_diff(v10, v00)
-                    : static_cast<double>(v11) + (1.0 - dx) * host_diff(v10, v11) +
+                    ? xrt::to_f64(v00) + dx * host_diff(v01, v00) + dy * host_diff(v10, v00)
+                    : xrt::to_f64(v11) + (1.0 - dx) * host_diff(v10, v11) +
                           (1.0 - dy) * host_diff(v01, v11);
       } else {
-        const double u0 = static_cast<double>(v00) + dx * host_diff(v01, v00);
-        const double u1 = static_cast<double>(v10) + dx * host_diff(v11, v10);
+        const double u0 = xrt::to_f64(v00) + dx * host_diff(v01, v00);
+        const double u1 = xrt::to_f64(v10) + dx * host_diff(v11, v10);
         value = u0 + dy * (u1 - u0);
       }
       out[b * n_out + p] = host_round<T>(value);
@@ -208,8 +246,12 @@ cudaError_t launch_win(int code, const WinArgs& a, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((a.out_h * a.out_w + kThreads - 1) / kThreads));
   return xrt::with_data_type(code, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    exact_win_kernel<M, T><<<grid, kThreads, 0, s>>>(a);
-    return cudaGetLastError();
+    if constexpr (std::is_same<T, bool>::value && M != xrt::kNearest) {
+      return cudaErrorInvalidValue;
+    } else {
+      exact_win_kernel<M, T><<<grid, kThreads, 0, s>>>(a);
+      return cudaGetLastError();
+    }
   });
 }
 
@@ -229,12 +271,12 @@ cudaError_t by_method(int method, L&& launch) {
 // `code`; ij_map (2, out_h, out_w) float64; fill representable in the type.
 extern "C" int xrt_exact_gather_ij(
     const void* src, const double* ij_map, void* out, int64_t batch, int64_t src_h,
-    int64_t src_w, int64_t out_h, int64_t out_w, int method, double fill, int code,
-    void* stream) {
+    int64_t src_w, int64_t out_h, int64_t out_w, int method, double fill, int64_t fill_bits,
+    int code, void* stream) {
   if (batch < 1 || src_h < 1 || src_w < 1 || out_h < 1 || out_w < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const IjArgs a{src, ij_map, out, batch, src_h, src_w, out_h * out_w, fill};
+  const IjArgs a{src, ij_map, out, batch, src_h, src_w, out_h * out_w, fill, fill_bits};
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_method(method, [&](auto m) {
     return launch_ij<decltype(m)::value>(code, a, s);
@@ -250,14 +292,14 @@ extern "C" int xrt_exact_gather_windows(
     const double* dtab, void* out, int64_t batch, int64_t src_h, int64_t src_w,
     int64_t out_h, int64_t out_w, int64_t tile_h, int64_t tile_w, int64_t n_tiles_x,
     int64_t win_h, int64_t win_w, int64_t pad_top, int64_t pad_left, double x_res,
-    double neg_y_res, int method, double fill, int code, void* stream) {
+    double neg_y_res, int method, double fill, int64_t fill_bits, int code, void* stream) {
   if (batch < 1 || src_h < 1 || src_w < 1 || out_h < 1 || out_w < 1 || tile_h < 1 ||
       tile_w < 1 || win_h < 1 || win_w < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const WinArgs a{src, xx, yy, itab, dtab, out, batch, src_h, src_w, out_h, out_w,
                   tile_h, tile_w, n_tiles_x, win_h, win_w, pad_top, pad_left,
-                  x_res, neg_y_res, fill};
+                  x_res, neg_y_res, fill, fill_bits};
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_method(method, [&](auto m) {
     return launch_win<decltype(m)::value>(code, a, s);

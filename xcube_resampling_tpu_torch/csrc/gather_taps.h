@@ -3,18 +3,21 @@
 // (fused_reproject.cu) and K7 (ij_gather.cu): the bounds mask, the clamp to
 // the source extent, the tap offsets and fractions (taps<M>), and the
 // nearest, bilinear or triangular value (gather<M> on float32, gather_t<M, T>
-// on the seven data types).
+// on the thirteen data types: bool for nearest only, as jnp's boolean
+// subtract raises).
 //
 // Rounding follows the jitted XLA code: positions and fractions in float32;
 // every lerp a fused multiply-add in the arithmetic type of the taps
-// (float32 for float32 and integer sources, float64 for float64 ones); the
-// tap differences b - a taken in the source type, so integer differences
-// wrap as jnp's do.  Output types as jnp promotes them: the source type for
-// nearest, float64 for float64 sources, float32 otherwise.
+// (float32 for float32, float16, bfloat16 and integer sources, float64 for
+// float64 ones); the tap differences b - a taken in the source type, so
+// integer differences wrap as jnp's do and half differences round.  Output
+// types as jnp promotes them: the source type for nearest, float64 for
+// float64 sources, float32 otherwise.
 #pragma once
 
 #include <type_traits>
 
+#include "kernel_types.h"
 #include "srw_common.h"
 
 namespace xrt {
@@ -101,20 +104,25 @@ __device__ __forceinline__ A fused(A a, A b, A c) {
   }
 }
 
-// b - a in the source type (wrapping for integers), as the arithmetic type
+// b - a in the source type (wrapping for integers, rounded for the half
+// types: the float32 difference of two half values rounds once to theirs),
+// as the arithmetic type
 template <typename T>
 __device__ __forceinline__ ArithOf<T> tap_diff(T b, T a) {
   if constexpr (std::is_floating_point<T>::value) {
     return b - a;
+  } else if constexpr (is_half_v<T>) {
+    return to_f32(T(to_f32(b) - to_f32(a)));
   } else {
     using U = std::make_unsigned_t<T>;
-    return static_cast<float>(static_cast<T>(static_cast<U>(static_cast<U>(b) - static_cast<U>(a))));
+    return to_f32(static_cast<T>(static_cast<U>(static_cast<U>(b) - static_cast<U>(a))));
   }
 }
 
-// The taps' value on a plane of any of the seven data types (float32
-// takes gather<M> itself, so K3's rounding carries over bit for bit),
-// read through the read-only data path as gather<M> reads float32.
+// The taps' value on a plane of any of the data types (float32 takes
+// gather<M> itself, so K3's rounding carries over bit for bit; bool nearest
+// only), read through the read-only data path as gather<M> reads float32.
+// A tap widens to the arithmetic type once (64-bit integers round once).
 template <int M, typename T>
 __device__ __forceinline__ GatherOut<M, T> gather_t(const T* __restrict__ p, const Taps& t) {
   if constexpr (std::is_same<T, float>::value) {
@@ -123,21 +131,29 @@ __device__ __forceinline__ GatherOut<M, T> gather_t(const T* __restrict__ p, con
     using A = ArithOf<T>;
     const T* q = p + t.off;
     if constexpr (M == kNearest) {
-      return __ldg(q);
+      return ldg(q);
     } else {
-      const T v00 = __ldg(q);
-      const T v01 = __ldg(q + t.dx);
-      const T v10 = __ldg(q + t.dy);
-      const T v11 = __ldg(q + t.dy + t.dx);
+      static_assert(!std::is_same<T, bool>::value, "bool takes nearest only");
+      const T v00 = ldg(q);
+      const T v01 = ldg(q + t.dx);
+      const T v10 = ldg(q + t.dy);
+      const T v11 = ldg(q + t.dy + t.dx);
+      auto wide = [](T v) -> A {
+        if constexpr (std::is_same<A, double>::value) {
+          return v;
+        } else {
+          return to_f32(v);
+        }
+      };
       if constexpr (M == kTriangular) {
         const A v_near = fused(A(t.fy), tap_diff(v10, v00),
-                               fused(A(t.fx), tap_diff(v01, v00), A(v00)));
+                               fused(A(t.fx), tap_diff(v01, v00), wide(v00)));
         const A v_far = fused(A(1.0f - t.fy), tap_diff(v01, v11),
-                              fused(A(1.0f - t.fx), tap_diff(v10, v11), A(v11)));
+                              fused(A(1.0f - t.fx), tap_diff(v10, v11), wide(v11)));
         return t.fx + t.fy < 1.0f ? v_near : v_far;
       } else {
-        const A a = fused(A(t.fx), tap_diff(v01, v00), A(v00));
-        const A b = fused(A(t.fx), tap_diff(v11, v10), A(v10));
+        const A a = fused(A(t.fx), tap_diff(v01, v00), wide(v00));
+        const A b = fused(A(t.fx), tap_diff(v11, v10), wide(v10));
         return fused(A(t.fy), b - a, a);
       }
     }

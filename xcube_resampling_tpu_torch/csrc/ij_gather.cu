@@ -11,9 +11,10 @@
 //     output, valid where its position lies inside (-0.5, n - 0.5).
 // Every band of a (B, H, W) source goes through one launch.  The taps, the
 // clamp and the lerps are K3's (gather_taps.h), so the rounding is the
-// same; data types are the seven of the affine engine, with gather_interp's
-// output types (the source type for nearest, float64 for float64 sources,
-// float32 otherwise).
+// same; data types are the thirteen of kernel_types.h (bool for nearest
+// only: jnp's boolean subtract raises), with gather_interp's output types
+// (the source type for nearest, float64 for float64 sources, float32
+// otherwise).  The band form (ij_gather_band) takes them too.
 //
 // Bound on the H100: device memory.  A pixel reads its two float32
 // positions and its mask once and its taps in every band, and writes one
@@ -90,7 +91,18 @@ struct Args {
   int64_t src_plane;     // source elements a band
   xrt::TapBounds tb;
   double fill;
+  int64_t fill_bits;  // an integer fill's bits
 };
+
+// A fill in the output type: an integer's exact bits, else the float.
+template <typename O>
+__device__ __forceinline__ O fill_of(double fill, int64_t bits) {
+  if constexpr (std::is_integral<O>::value) {
+    return static_cast<O>(bits);
+  } else {
+    return xrt::round_from<O>(fill);
+  }
+}
 
 template <int M, typename T>
 __global__ void __launch_bounds__(kThreads,
@@ -109,7 +121,7 @@ __global__ void __launch_bounds__(kThreads,
   }
   const T* __restrict__ src = static_cast<const T*>(a.src);
   O* __restrict__ out = static_cast<O*>(a.out) + o;
-  const O fill = static_cast<O>(a.fill);
+  const O fill = fill_of<O>(a.fill, a.fill_bits);
   for (int b0 = 0; b0 < a.batch; b0 += kBands) {
     O v[kBands];
 #pragma unroll
@@ -134,8 +146,12 @@ template <int M>
 cudaError_t launch(int code, const Args& a, cudaStream_t s) {
   return xrt::with_data_type(code, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    ij_gather_kernel<M, T><<<blocks_of(a), kThreads, 0, s>>>(a);
-    return cudaGetLastError();
+    if constexpr (std::is_same<T, bool>::value && M != xrt::kNearest) {
+      return cudaErrorInvalidValue;  // jnp's boolean subtract raises
+    } else {
+      ij_gather_kernel<M, T><<<blocks_of(a), kThreads, 0, s>>>(a);
+      return cudaGetLastError();
+    }
   });
 }
 
@@ -154,21 +170,27 @@ template <int M>
 constexpr int kBandPx = M == xrt::kNearest ? kBandPixelsNearest : kBandPixels;
 
 struct BandArgs {
-  const float* ext;   // (batch, ext_h, src_w)
+  const void* ext;    // (batch, ext_h, src_w) of the data type
   const float* ix;    // (n) the map's rows, i then j
   const float* iy;
-  float* out;         // (batch, n)
+  void* out;          // (batch, n) of GatherOut<M, T>
   int n, batch;
   int64_t off, end;   // the global rows ext holds: off .. end - 1
   unsigned off_elems; // off * src_w, wrapping
   int64_t ext_plane;  // ext_h * src_w
   xrt::TapBounds tb;  // the global source's
-  float fill;
+  double fill;
+  int64_t fill_bits;
 };
 
-template <int M>
-__global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
+// float32 as before; the other data types half the blocks an SM (their
+// 64-bit taps and outputs take more registers)
+template <int M, typename T>
+__global__ void __launch_bounds__(kBandThreads,
+                                  std::is_same<T, float>::value ? kBandMinBlocks
+                                                                : kBandMinBlocks / 2)
     ij_gather_band_kernel(const BandArgs a) {
+  using O = xrt::GatherOut<M, T>;
   constexpr int PX = kBandPx<M>;
   const int64_t k0 = (int64_t{blockIdx.x} * kBandThreads + threadIdx.x) * PX;
   if (k0 >= a.n) return;
@@ -192,8 +214,9 @@ __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
     t[p].ok = k0 + p < a.n && isfinite(ix) && isfinite(iy) && y0 >= a.off && y1 < a.end;
     t[p].off -= a.off_elems;
   }
-  const float* __restrict__ ext = a.ext;
-  float* __restrict__ out = a.out + k0;
+  const T* __restrict__ ext = static_cast<const T*>(a.ext);
+  O* __restrict__ out = static_cast<O*>(a.out) + k0;
+  const O fill = fill_of<O>(a.fill, a.fill_bits);
   // The band loop starts at blockIdx.y * batch, 0 (the grid has one
   // row): from a constant start ptxas schedules it into 64 registers
   // (bilinear) and it runs 15% slower at R3's band (0.570 against 0.497 ms
@@ -201,14 +224,14 @@ __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
   const int b_lo = blockIdx.y * a.batch;
 #pragma unroll 1
   for (int b0 = b_lo; b0 < a.batch; b0 += kBandStep) {
-    float v[kBandStep][PX];
+    O v[kBandStep][PX];
 #pragma unroll
     for (int g = 0; g < kBandStep; ++g) {
 #pragma unroll
       for (int p = 0; p < PX; ++p) {
-        v[g][p] = a.fill;
+        v[g][p] = fill;
         if (t[p].ok && b0 + g < a.batch) {
-          v[g][p] = xrt::gather<M>(ext + (b0 + g) * a.ext_plane, t[p]);
+          v[g][p] = xrt::gather_t<M, T>(ext + (b0 + g) * a.ext_plane, t[p]);
         }
       }
     }
@@ -223,11 +246,18 @@ __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
 }
 
 template <int M>
-cudaError_t launch_band(const BandArgs& a, cudaStream_t s) {
+cudaError_t launch_band(int code, const BandArgs& a, cudaStream_t s) {
   const int64_t per_block = int64_t{kBandThreads} * kBandPx<M>;
-  ij_gather_band_kernel<M><<<static_cast<unsigned>((a.n + per_block - 1) / per_block),
-                             kBandThreads, 0, s>>>(a);
-  return cudaGetLastError();
+  return xrt::with_data_type(code, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    if constexpr (std::is_same<T, bool>::value && M != xrt::kNearest) {
+      return cudaErrorInvalidValue;  // jnp's boolean subtract raises
+    } else {
+      ij_gather_band_kernel<M, T><<<static_cast<unsigned>((a.n + per_block - 1) / per_block),
+                                    kBandThreads, 0, s>>>(a);
+      return cudaGetLastError();
+    }
+  });
 }
 
 }  // namespace
@@ -241,7 +271,7 @@ extern "C" int xrt_ij_gather(
     const void* src, const float* ix, const float* iy, const uint8_t* valid,
     const int* rows, const int* cols, void* out, int64_t n, int64_t batch,
     int64_t src_h, int64_t src_w, int64_t out_w, int64_t out_plane, int method,
-    double fill, int code, void* stream) {
+    double fill, int64_t fill_bits, int code, void* stream) {
   constexpr int64_t kMaxPlane = (int64_t{1} << 31) - 1;
   if (src_h * src_w > kMaxPlane || src_h < 1 || src_w < 1 || batch < 1 || n < 1 ||
       n > kMaxPlane || out_w < 1 || out_plane < 1 || out_plane > kMaxPlane ||
@@ -252,7 +282,7 @@ extern "C" int xrt_ij_gather(
   }
   const Args a{src, ix, iy, valid, rows, cols, out, static_cast<int>(n),
                static_cast<int>(batch), static_cast<int>(out_w), out_plane, src_h * src_w,
-               xrt::tap_bounds(src_h, src_w), fill};
+               xrt::tap_bounds(src_h, src_w), fill, fill_bits};
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   switch (method) {
@@ -264,13 +294,14 @@ extern "C" int xrt_ij_gather(
   return static_cast<int>(rc);
 }
 
-// The band form: ext (batch, ext_h, src_w) float32, its row 0 at global
-// source row off of a source src_h rows high; map (2, out_h, out_w)
-// float32 (i, then j); out (batch, out_h, out_w) float32.
-extern "C" int xrt_ij_gather_band_f32(
-    const float* ext, const float* map, float* out, int64_t batch, int64_t ext_h,
+// The band form: ext (batch, ext_h, src_w) of data type `code`, its row 0
+// at global source row off of a source src_h rows high; map (2, out_h,
+// out_w) float32 (i, then j); out (batch, out_h, out_w) of xrt_ij_gather's
+// output type.
+extern "C" int xrt_ij_gather_band(
+    const void* ext, const float* map, void* out, int64_t batch, int64_t ext_h,
     int64_t src_w, int64_t out_h, int64_t out_w, int64_t off, int64_t src_h, int method,
-    float fill, void* stream) {
+    double fill, int64_t fill_bits, int code, void* stream) {
   constexpr int64_t kMaxPlane = (int64_t{1} << 31) - 1;
   const int64_t n = out_h * out_w;
   if (ext_h < 1 || src_w < 1 || src_h < 1 || batch < 1 || n < 1 || n > kMaxPlane ||
@@ -280,13 +311,13 @@ extern "C" int xrt_ij_gather_band_f32(
   }
   const BandArgs a{ext, map, map + n, out, static_cast<int>(n), static_cast<int>(batch),
                    off, off + ext_h, static_cast<unsigned>(off * src_w), ext_h * src_w,
-                   xrt::tap_bounds(src_h, src_w), fill};
+                   xrt::tap_bounds(src_h, src_w), fill, fill_bits};
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   switch (method) {
-    case xrt::kBilinear: rc = launch_band<xrt::kBilinear>(a, s); break;
-    case xrt::kNearest: rc = launch_band<xrt::kNearest>(a, s); break;
-    case xrt::kTriangular: rc = launch_band<xrt::kTriangular>(a, s); break;
+    case xrt::kBilinear: rc = launch_band<xrt::kBilinear>(code, a, s); break;
+    case xrt::kNearest: rc = launch_band<xrt::kNearest>(code, a, s); break;
+    case xrt::kTriangular: rc = launch_band<xrt::kTriangular>(code, a, s); break;
     default: rc = cudaErrorInvalidValue;
   }
   return static_cast<int>(rc);

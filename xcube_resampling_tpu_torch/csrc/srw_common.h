@@ -48,8 +48,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// a * b + c rounded once in V (float32 or float64): the tap sums' step,
+// float32 weights widened for float64 values as jnp promotes the product
+template <typename V>
+__device__ __forceinline__ V fused_v(float a, V b, V c) {
+  if constexpr (sizeof(V) == 8) {
+    return fma(static_cast<double>(a), b, c);
+  } else {
+    return fmaf(a, b, c);
+  }
+}
+
 // The tap sums of one output at position p: d_n taps of the staged
-// window, the first at sp (tap index b0), the next `stride` floats on.
+// window, the first at sp (tap index b0), the next `stride` values on, in
+// the value type V (float32; float64 for float64 sources, whose float32
+// weights widen before the product).
 // The weight of tap k is the hat max(0, 1 - |p - k|) for bilinear and
 // triangular, and for nearest 1 where rint(p) == k (rintf rounds half to
 // even like jnp.round and torch.round, never roundf).  Triangular adds the
@@ -64,29 +77,29 @@ __device__ __forceinline__ void cp_async_wait() {
 // or two fused multiply-adds give the full sum bit for bit.  Otherwise
 // every tap is summed, so that 0 * NaN reaches the output as in the XLA
 // path.
-template <int M>
-__device__ __forceinline__ void tap_sums(const float* sp, int stride, float p,
+template <int M, typename V = float>
+__device__ __forceinline__ void tap_sums(const V* sp, int stride, float p,
                                          int b0, int d_n, bool finite,
-                                         float& acc, float& acc_d) {
+                                         V& acc, V& acc_d) {
   const float fp = floorf(p);
   if (finite) {
     if (M == kNearest) {
       const int t = static_cast<int>(rintf(p)) - b0;
-      acc = t >= 0 && t < d_n ? fmaf(1.0f, sp[t * stride], 0.0f) : 0.0f;
+      acc = t >= 0 && t < d_n ? fused_v(1.0f, sp[t * stride], V(0)) : V(0);
       return;
     }
     const int t = static_cast<int>(fp) - b0;
-    float a = 0.0f;
-    float ad = 0.0f;
+    V a = V(0);
+    V ad = V(0);
     if (t >= 0 && t < d_n) {
-      const float s = sp[t * stride];
-      a = fmaf(fmaxf(0.0f, 1.0f - fabsf(p - fp)), s, a);
-      if (M == kTriangular) ad = fmaf(1.0f, s, ad);
+      const V s = sp[t * stride];
+      a = fused_v(fmaxf(0.0f, 1.0f - fabsf(p - fp)), s, a);
+      if (M == kTriangular) ad = fused_v(1.0f, s, ad);
     }
     if (t + 1 >= 0 && t + 1 < d_n) {
-      const float s = sp[(t + 1) * stride];
-      a = fmaf(fmaxf(0.0f, 1.0f - fabsf(p - (fp + 1.0f))), s, a);
-      if (M == kTriangular) ad = fmaf(-1.0f, s, ad);
+      const V s = sp[(t + 1) * stride];
+      a = fused_v(fmaxf(0.0f, 1.0f - fabsf(p - (fp + 1.0f))), s, a);
+      if (M == kTriangular) ad = fused_v(-1.0f, s, ad);
     }
     acc = a;
     acc_d = ad;
@@ -95,13 +108,13 @@ __device__ __forceinline__ void tap_sums(const float* sp, int stride, float p,
   const float rp = rintf(p);
   float k = static_cast<float>(b0);  // k += 1.0f is exact below 2^24
   for (int d = 0; d < d_n; ++d) {
-    const float s = sp[d * stride];
+    const V s = sp[d * stride];
     const float w = M == kNearest ? (rp == k ? 1.0f : 0.0f)
                                   : fmaxf(0.0f, 1.0f - fabsf(p - k));
-    acc = fmaf(w, s, acc);
+    acc = fused_v(w, s, acc);
     if (M == kTriangular) {
       const float dw = (fp == k ? 1.0f : 0.0f) - (fp + 1.0f == k ? 1.0f : 0.0f);
-      acc_d = fmaf(dw, s, acc_d);
+      acc_d = fused_v(dw, s, acc_d);
     }
     k += 1.0f;
   }
@@ -194,7 +207,8 @@ class FieldColumn {
 
 // True on every thread of the block when any of the rows x width values of
 // the staged window s (row stride sw) is not finite.  A block barrier.
-__device__ __forceinline__ bool window_has_nonfinite(const float* s, int sw,
+template <typename V>
+__device__ __forceinline__ bool window_has_nonfinite(const V* s, int sw,
                                                     int rows, int width) {
   int bad = 0;
   for (int e = threadIdx.x; e < rows * width; e += blockDim.x) {

@@ -16,13 +16,16 @@ Semantics, those of ``coarsen_jax`` under x64:
 * float windows are NaN-aware: an all-NaN window gives NaN for ``mean``,
   ``std``, ``var``, ``min``, ``max`` and ``median``, 0 for ``sum`` and 1
   for ``prod``; ``count`` counts NaN as nonzero;
-* ``sum``, ``prod`` and ``count`` of integers come back int64 (uint64 for
-  unsigned ``sum`` and ``prod``), ``count`` of floats int64;
+* ``sum``, ``prod`` and ``count`` of integers and bool come back int64
+  (uint64 for unsigned ``sum`` and ``prod``), ``count`` of floats int64;
 * the statistics accumulate in float64 and round once: to the float
-  dtype, or with ``rint`` (and saturation) back to the integer dtype.
-  JAX's float32 sums follow XLA's order and its integer statistics go
-  through float32, so float results agree within a few float32 ulp and
-  integer ones exactly while the float32 sums are exact;
+  dtype (float16 once, bfloat16 through float32), or with ``rint`` (and
+  saturation) back to the integer dtype or bool (``rint(x) != 0``).
+  JAX's float16 and bfloat16 sums round to their dtype as they go: the
+  two agree within that rounding.  JAX's float32 sums follow XLA's order
+  and its statistics of integers up to 32 bits and of bool go through
+  float32, so float results agree within a few float32 ulp and integer
+  ones exactly while the float32 sums are exact;
 * ``mode``: the smallest value among those of the highest count, NaN
   only for an all-NaN window (NaN never equals itself), whatever the
   formulation: :func:`_mode_plain` keeps both of JAX's (pairwise for up to
@@ -42,9 +45,14 @@ from .. import _build
 from .._device import (
     DTYPE_CODES,
     count_launch,
+    launch_name,
+    narrow,
     on_cpu,
+    order_key,
     require_data_dtype,
     round_to,
+    to_f64,
+    widen,
 )
 from ..constants import AGG_METHODS
 
@@ -85,8 +93,18 @@ def out_dtype(dtype: torch.dtype, agg: str) -> torch.dtype:
     if agg == "count":
         return torch.int64
     if agg in ("sum", "prod") and not dtype.is_floating_point:
-        return torch.uint64 if dtype in (torch.uint8, torch.uint16) else torch.int64
+        unsigned = dtype in (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+        return torch.uint64 if unsigned else torch.int64
     return dtype
+
+
+def round_stat(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float64 statistic back in *dtype* as ``coarsen_jax``'s
+    ``int_roundtrip``: ``rint`` first for integers and bool, then
+    :func:`.._device.round_to`."""
+    if dtype == torch.bool:
+        return round_to(torch.round(x), dtype)
+    return round_to(x, dtype)
 
 
 def _pick(agg: str, j_div: int, i_div: int) -> tuple[int, int]:
@@ -120,7 +138,9 @@ def _windows(block):
 
 
 def _mode_plain(flat):
-    """Mode of each row of *flat* (N, w), ``_mode_jax``'s two formulations."""
+    """Mode of each row of *flat* (N, w), ``_mode_jax``'s two formulations
+    (values compared in *flat*'s own signed order: see
+    ``_device.order_key``)."""
     w = flat.shape[1]
     if 1 < w <= _MODE_PAIRWISE_MAX_W:
         counts = torch.zeros(flat.shape, dtype=torch.int32, device=flat.device)
@@ -153,8 +173,8 @@ def _median_plain(flat, dtype):
     if dtype.is_floating_point:
         mid = torch.where(n % 2 == 1, lo, (lo + hi) * 0.5)
         return torch.where(n == 0, torch.nan, mid)
-    mid = torch.where(n % 2 == 1, lo.to(_F64), (lo.to(_F64) + hi.to(_F64)) * 0.5)
-    return round_to(mid, dtype)
+    lo, hi = (to_f64(order_key(t, dtype), dtype) for t in (lo, hi))
+    return round_stat(torch.where(n % 2 == 1, lo, (lo + hi) * 0.5), dtype)
 
 
 def coarsen_plain(array, j_div: int, i_div: int, agg: str):
@@ -166,33 +186,39 @@ def coarsen_plain(array, j_div: int, i_div: int, agg: str):
     if agg in ("first", "last", "center"):
         j, i = _pick(agg, j_div, i_div)
         return block[..., j, :, i]
-    if dtype == torch.uint16:
-        block = block.to(torch.int32)  # torch has few uint16 reductions
+    # torch has few reductions of the unsigned 16- to 64-bit dtypes and
+    # bool: integers widened, compared in their own order (order_key)
+    block = widen(block)
+    if dtype == torch.bool:
+        block = block.to(torch.uint8)
     x = _windows(block)
     if agg in RANKS:
         lead = x.shape[:-1]
-        flat = x.reshape(-1, x.shape[-1])
-        out = _mode_plain(flat) if agg == "mode" else _median_plain(flat, dtype)
-        return out.reshape(lead).to(dtype)
+        flat = order_key(x.reshape(-1, x.shape[-1]), dtype)
+        if agg == "mode":
+            return narrow(order_key(_mode_plain(flat), dtype), dtype).reshape(lead)
+        return _median_plain(flat, dtype).reshape(lead)
     if agg == "count":
         return (x != 0).sum(dim=-1)
     if agg in ("min", "max"):
         if not is_float:
-            return (x.amin(dim=-1) if agg == "min" else x.amax(dim=-1)).to(dtype)
+            key = order_key(x, dtype)
+            m = key.amin(dim=-1) if agg == "min" else key.amax(dim=-1)
+            return narrow(order_key(m, dtype), dtype)
         nan = torch.isnan(x)
         big = torch.inf if agg == "min" else -torch.inf
         filled = torch.where(nan, big, x)
         m = filled.amin(dim=-1) if agg == "min" else filled.amax(dim=-1)
-        return torch.where(nan.all(dim=-1), torch.nan, m)
+        return torch.where(nan.all(dim=-1), torch.nan, m).to(dtype)
     if agg in ("sum", "prod"):
         if not is_float:
             v = x.to(torch.int64)
             r = v.sum(dim=-1) if agg == "sum" else v.prod(dim=-1)
             return r.view(out_dtype(dtype, agg))
         v = torch.where(torch.isnan(x), 0.0 if agg == "sum" else 1.0, x.to(_F64))
-        return (v.sum(dim=-1) if agg == "sum" else v.prod(dim=-1)).to(dtype)
+        return round_to(v.sum(dim=-1) if agg == "sum" else v.prod(dim=-1), dtype)
     # mean, std, var: float64 moments over the valid taps
-    v = x.to(_F64)
+    v = to_f64(x, dtype)
     valid = ~torch.isnan(v)
     n = valid.sum(dim=-1)
     mean = torch.where(valid, v, 0.0).sum(dim=-1) / n
@@ -201,7 +227,7 @@ def coarsen_plain(array, j_div: int, i_div: int, agg: str):
         mean = (centered * centered).sum(dim=-1) / n
         if agg == "std":
             mean = torch.sqrt(mean)
-    return round_to(mean, dtype)
+    return round_stat(mean, dtype)
 
 
 def _prepare(array, j_div, i_div, agg):
@@ -237,7 +263,7 @@ def coarsen_reduce(array, j_div: int, i_div: int, agg: str):
                 torch.cuda.current_stream().cuda_stream,
             )
         _build.check(lib, rc, "coarsen_reduce")
-        count_launch("coarsen_reduce")
+        count_launch(launch_name("coarsen_reduce", array.dtype))
     return out.reshape(lead + out.shape[-2:])
 
 
@@ -269,7 +295,7 @@ def coarsen_rank(array, j_div: int, i_div: int, agg: str):
                 torch.cuda.current_stream().cuda_stream,
             )
         _build.check(lib, rc, "coarsen_rank")
-        count_launch("coarsen_rank")
+        count_launch(launch_name("coarsen_rank", array.dtype))
     return out.reshape(lead + out.shape[-2:])
 
 

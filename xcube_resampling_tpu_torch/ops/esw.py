@@ -86,7 +86,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .._device import count_launch, on_cpu, require_cuda
+from .._device import as_float32, count_launch, on_cpu, require_cuda
 from ..gridmapping import GridMapping
 from .reproject_ops import (
     METHODS,
@@ -879,7 +879,8 @@ def _launch_esw(src, iystar_c, ix_c, iy_c, step, n_samples, out_h, out_w,
 
 class ESWReprojectFn:
     """``fn(src) -> target`` through K13; ``fn.plain(src)`` through its
-    plain version.  ``src`` is (..., H, W) float32: the plan's source
+    plain version.  ``src`` is (..., H, W) of a data dtype, cast to float32
+    as the JAX package's ESW casts it (``esw.py:666``): the plan's source
     window, or, where ``window`` (j0, j1, i0, i1) is set, the whole
     source, cropped to it first."""
 
@@ -899,7 +900,7 @@ class ESWReprojectFn:
         self.window = None
 
     def crop(self, src):
-        """The (B, src_h, src_w) contiguous window the kernel reads."""
+        """The (B, src_h, src_w) contiguous float32 window the kernel reads."""
         if self.window is not None:
             j0, j1, i0, i1 = self.window
             src = src[..., j0:j1, i0:i1]
@@ -908,7 +909,7 @@ class ESWReprojectFn:
                 f"source window {tuple(src.shape[-2:])} is not the planned "
                 f"{(self.src_h, self.src_w)}"
             )
-        return src.reshape(-1, self.src_h, self.src_w).contiguous()
+        return as_float32(src.reshape(-1, self.src_h, self.src_w)).contiguous()
 
     def args(self, src):
         """K13's arguments for the cropped (B, src_h, src_w) *src*."""

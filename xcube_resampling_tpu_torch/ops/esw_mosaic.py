@@ -57,10 +57,19 @@ import numpy as np
 import torch
 
 from .. import _build
-from .._device import count_launch, on_cpu, require_cuda
+from .._device import as_float32, count_launch, on_cpu, require_cuda
 from ..gridmapping import GridMapping
 from .esw import STAGE_TILE, _offset_fields, _slice_raw, esw_gather_plain, plan_esw
-from .reproject_ops import METHODS, gather_piece_plain, method_code, require_int32_planes
+from .reproject_ops import (
+    METHODS,
+    check_taps_dtype,
+    fused_reproject,
+    fused_reproject_plain,
+    gather_dtype,
+    gather_piece_plain,
+    method_code,
+    require_int32_planes,
+)
 from .srw import _Fields, _iystar_from_fields, _raw_coarse_fields, _source_window_gm
 
 _F32 = torch.float32
@@ -465,7 +474,8 @@ def esw_mosaic(src, fields, table, tile_start, n_tiles, step, out_h, out_w, inte
 
 class ESWMosaicFn:
     """``fn(src) -> target`` through K16; ``fn.plain(src)`` through its
-    plain version.  ``src`` is (..., H, W) float32, the whole source.
+    plain version.  ``src`` is (..., H, W) of a data dtype, the whole
+    source, cast to float32 as the JAX package's mosaic casts it.
     ``fn.pieces`` lists the pieces as ``(kind, r0, r1, c0, c1, window,
     n_samples)``, ``fn.groups`` the JAX package's program tags,
     ``fn.covered`` whether the pieces tile the target (then K16 writes
@@ -486,6 +496,13 @@ class ESWMosaicFn:
         self.out_h, self.out_w = plan.out_h, plan.out_w
         self.interp_method, self.fill_value = interp_method, float(fill_value)
         self.covered = covers_target(plan.pieces, plan.out_h, plan.out_w)
+        # the gather pieces' fields, for sources of the other dtypes
+        self.gathers = [
+            (p.r0, p.c0, p.r1 - p.r0, p.c1 - p.c0,
+             torch.from_numpy(np.ascontiguousarray(p.ix_c, np.float32)).to(device),
+             torch.from_numpy(np.ascontiguousarray(p.iy_c, np.float32)).to(device))
+            for p in plan.pieces if p.kind == "gather"
+        ]
 
     def args(self, src):
         """K16's arguments for the (B, H, W) *src*."""
@@ -500,7 +517,15 @@ class ESWMosaicFn:
                 f"source shape {tuple(src.shape)} does not end in {(self.src_h, self.src_w)}"
             )
         x = src.reshape(-1, self.src_h, self.src_w).contiguous()
-        out = kernel(*self.args(x))
+        typed = x.dtype != torch.float32 and self.gathers
+        if typed:
+            check_gather_dtype(x.dtype, self.interp_method)
+        out = kernel(*self.args(as_float32(x)))
+        if typed:
+            gather = fused_reproject if kernel is esw_mosaic else fused_reproject_plain
+            for r0, c0, h, w, ix_c, iy_c in self.gathers:
+                out[:, r0 : r0 + h, c0 : c0 + w] = gather(
+                    x, ix_c, iy_c, self.step, h, w, self.interp_method, self.fill_value)
         return out.reshape(src.shape[:-2] + out.shape[-2:])
 
     def __call__(self, src):
@@ -508,6 +533,20 @@ class ESWMosaicFn:
 
     def plain(self, src):
         return self._run(esw_mosaic_plain, src)
+
+
+def check_gather_dtype(dtype: torch.dtype, interp_method: str) -> None:
+    """The JAX package's refusals for a source of *dtype* (not float32) in
+    a mosaic with gather pieces: jnp's boolean subtract, and the float32
+    canvas's ``dynamic_update_slice``, which takes no other dtype than its
+    own (nearest keeps the source's, float64 lerps stay float64)."""
+    check_taps_dtype(dtype, interp_method)
+    if interp_method == "nearest" or dtype == torch.float64:
+        out = gather_dtype(dtype, interp_method)
+        raise TypeError(
+            f"the exact region mosaic's gather pieces return {out}: "
+            "dynamic_update_slice of a float32 canvas takes float32 updates only"
+        )
 
 
 def make_esw_region_fn(

@@ -36,13 +36,18 @@ from .. import _build
 from .._device import (
     DTYPE_CODES,
     count_launch,
+    launch_name,
+    narrow,
     on_cpu,
     require_cuda,
     require_data_dtype,
+    round_to,
+    to_f64,
+    widen,
     wrap_int,
 )
 from .gather import fill_as
-from .reproject_ops import method_code
+from .reproject_ops import fill_bits, fill_scalar, method_code
 
 _F64 = torch.float64
 _I32_MIN = -(2**31)
@@ -72,24 +77,37 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def host_round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Float64 *x* rounded once to *dtype* as numpy rounds it: a cast for
-    floats; ``rint`` and the x86 conversion for integers."""
-    if dtype.is_floating_point:
-        return x.to(dtype)
-    return wrap_int(to_i32(torch.round(x)), dtype).to(dtype)
+    """Float64 *x* rounded once to *dtype* as numpy rounds it, widened
+    (``_device.widen``): a cast for floats (float16 once, bfloat16 through
+    float32, as ``ml_dtypes``) and bool (``x != 0``); ``rint`` and the x86
+    conversion for
+    integers: through int32 up to 32 bits, int64 ``INT64_MIN`` outside its
+    range, uint64 modulo 2^64 (0 at 2^64)."""
+    if dtype.is_floating_point or dtype == torch.bool:
+        return round_to(x, dtype)
+    r = torch.round(x)
+    if dtype == torch.int64:
+        inside = (r >= -(2.0**63)) & (r < 2.0**63)
+        return torch.where(inside, r, torch.full_like(r, -(2.0**63))).long()
+    if dtype == torch.uint64:
+        r = torch.where(r >= 2.0**63, r - 2.0**64, r)
+        inside = (r >= -(2.0**63)) & (r < 2.0**63)
+        return torch.where(inside, r, torch.full_like(r, -(2.0**63))).long()
+    if dtype == torch.uint32:
+        # through int64 (NaN to 0), modulo 2^32
+        return wrap_int(torch.nan_to_num(r).clamp(-(2.0**62), 2.0**62).long(), dtype)
+    return wrap_int(to_i32(r), dtype)
 
 
 def host_diff(b: torch.Tensor, a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``b - a`` in *dtype* (float32 rounding, integer wraparound), as
-    float64; *b* and *a* hold *dtype*'s values (integers widened)."""
+    """``b - a`` in *dtype* (float32, float16 and bfloat16 rounding,
+    integer wraparound), as float64; *b* and *a* hold *dtype*'s values
+    (integers widened); numpy's ``TypeError`` for bool."""
+    if dtype == torch.bool:
+        raise TypeError("numpy boolean subtract, the `-` operator, is not supported")
     if dtype.is_floating_point:
         return (b - a).to(_F64)
-    return wrap_int(b.long() - a.long(), dtype).to(_F64)
-
-
-def _widen(src: torch.Tensor) -> torch.Tensor:
-    # torch has few uint16 operations: gather from int32
-    return src.to(torch.int32) if src.dtype == torch.uint16 else src
+    return to_f64(wrap_int(b.long() - a.long(), dtype), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +121,7 @@ def exact_gather_ij_plain(src, ij_map, fill_value, interp_method):
     _check(src, interp_method)
     dtype = src.dtype
     src_h, src_w = src.shape[-2], src.shape[-1]
-    a = _widen(src)
+    a = widen(src)
     mi, mj = ij_map[0], ij_map[1]
     valid = ~(torch.isnan(mi) | torch.isnan(mj))
     mi = torch.nan_to_num(mi, nan=0.0)
@@ -121,10 +139,11 @@ def exact_gather_ij_plain(src, ij_map, fill_value, interp_method):
         j0c = j0.clamp(0, src_h - 1)
         i1 = (i0c + 1).clamp(max=src_w - 1)
         j1 = (j0c + 1).clamp(max=src_h - 1)
-        v00 = a[:, j0c, i0c].to(_F64)
-        v01 = a[:, j0c, i1].to(_F64)
-        v10 = a[:, j1, i0c].to(_F64)
-        v11 = a[:, j1, i1].to(_F64)
+        # the taps in float64, as the JAX package upcasts them (bool too)
+        v00 = to_f64(a[:, j0c, i0c], dtype)
+        v01 = to_f64(a[:, j0c, i1], dtype)
+        v10 = to_f64(a[:, j1, i0c], dtype)
+        v11 = to_f64(a[:, j1, i1], dtype)
         if interp_method == "triangular":
             near = v00 + u * (v01 - v00) + v * (v10 - v00)
             far = v11 + (1.0 - u) * (v10 - v11) + (1.0 - v) * (v01 - v11)
@@ -134,9 +153,9 @@ def exact_gather_ij_plain(src, ij_map, fill_value, interp_method):
             vu1 = v10 + u * (v11 - v10)
             values = vu0 + v * (vu1 - vu0)
         values = host_round(values, dtype).to(a.dtype)
-    fill = torch.tensor(fill_as(fill_value, dtype), dtype=_F64, device=src.device).to(a.dtype)
+    fill = fill_scalar(fill_as(fill_value, dtype), dtype, src.device)
     # the select on the widened dtype: CUDA has no uint16 where
-    return torch.where(valid, values, fill).to(dtype)
+    return narrow(torch.where(valid, values, fill), dtype)
 
 
 def exact_gather_ij(src, ij_map, fill_value, interp_method):
@@ -152,15 +171,17 @@ def exact_gather_ij(src, ij_map, fill_value, interp_method):
     out = torch.empty((batch, out_h, out_w), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
+    fill = fill_as(fill_value, src.dtype)
     lib = _build.load()
     with torch.cuda.device(src.device):
         rc = lib.xrt_exact_gather_ij(
             src.data_ptr(), ij_map.data_ptr(), out.data_ptr(), batch, src_h, src_w,
-            out_h, out_w, method_code(interp_method), fill_as(fill_value, src.dtype),
-            DTYPE_CODES[src.dtype], torch.cuda.current_stream().cuda_stream,
+            out_h, out_w, method_code(interp_method), float(fill),
+            fill_bits(fill, src.dtype), DTYPE_CODES[src.dtype],
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "exact_gather")
-    count_launch("exact_gather")
+    count_launch(launch_name("exact_gather", src.dtype))
     return out
 
 
@@ -211,15 +232,16 @@ def _grid_sample(window, ix, iy, interp_method, dtype):
     v10 = window[:, y1, x0]
     v11 = window[:, y1, x1]
     if interp_method == "triangular":
-        near = v00.to(_F64) + dx * host_diff(v01, v00, dtype) + dy * host_diff(v10, v00, dtype)
+        near = to_f64(v00, dtype) + dx * host_diff(v01, v00, dtype) + dy * host_diff(
+            v10, v00, dtype)
         far = (
-            v11.to(_F64)
+            to_f64(v11, dtype)
             + (1.0 - dx) * host_diff(v10, v11, dtype)
             + (1.0 - dy) * host_diff(v01, v11, dtype)
         )
         return torch.where(dx + dy < 1.0, near, far)
-    u0 = v00.to(_F64) + dx * host_diff(v01, v00, dtype)
-    u1 = v10.to(_F64) + dx * host_diff(v11, v10, dtype)
+    u0 = to_f64(v00, dtype) + dx * host_diff(v01, v00, dtype)
+    u1 = to_f64(v10, dtype) + dx * host_diff(v11, v10, dtype)
     return u0 + dy * (u1 - u0)
 
 
@@ -231,15 +253,15 @@ def exact_gather_windows_plain(src, xx, yy, tiles: WindowTiles, fill_value, inte
     dtype = src.dtype
     batch, src_h, src_w = src.shape
     out_h, out_w = xx.shape
-    fill = torch.tensor(fill_as(fill_value, dtype), dtype=_F64, device=src.device).to(dtype)
-    a = _widen(src)
+    fill = fill_scalar(fill_as(fill_value, dtype), dtype, src.device)
+    a = widen(src)
     n_y = len(tiles.ij) // tiles.n_tiles_x
     pad_h = max(int(tiles.ij[:, 1].max()) + tiles.win_h, tiles.pad_top + src_h)
     pad_w = max(int(tiles.ij[:, 0].max()) + tiles.win_w, tiles.pad_left + src_w)
     padded = torch.full((batch, pad_h, pad_w), 0, dtype=a.dtype, device=src.device)
     padded[...] = fill.to(a.dtype)
     padded[:, tiles.pad_top:tiles.pad_top + src_h, tiles.pad_left:tiles.pad_left + src_w] = a
-    out = torch.empty((batch, out_h, out_w), dtype=dtype, device=src.device)
+    out = torch.empty((batch, out_h, out_w), dtype=a.dtype, device=src.device)
     for tj in range(n_y):
         rows = slice(tj * tiles.tile_h, min((tj + 1) * tiles.tile_h, out_h))
         for ti in range(tiles.n_tiles_x):
@@ -251,9 +273,9 @@ def exact_gather_windows_plain(src, xx, yy, tiles: WindowTiles, fill_value, inte
             iy = (yy[rows, cols] - float(tiles.xy[k, 1])) / tiles.neg_y_res
             sampled = _grid_sample(window, ix, iy, interp_method, dtype)
             out[:, rows, cols] = (
-                sampled.to(dtype) if interp_method == "nearest" else host_round(sampled, dtype)
+                sampled if interp_method == "nearest" else host_round(sampled, dtype)
             )
-    return out
+    return narrow(out, dtype)
 
 
 def exact_gather_windows(src, xx, yy, tiles: WindowTiles, fill_value, interp_method):
@@ -271,9 +293,12 @@ def exact_gather_windows(src, xx, yy, tiles: WindowTiles, fill_value, interp_met
     n_y = -(-out_h // tiles.tile_h)
     if tiles.ij.shape != (n_y * tiles.n_tiles_x, 2) or tiles.xy.shape != tiles.ij.shape:
         raise ValueError(f"tile tables {tiles.ij.shape}, {tiles.xy.shape} do not cover the target")
+    if src.dtype == torch.bool and interp_method != "nearest":
+        host_diff(src, src, src.dtype)  # numpy's TypeError
     itab = torch.from_numpy(np.ascontiguousarray(tiles.ij, np.int64)).to(src.device)
     dtab = torch.from_numpy(np.ascontiguousarray(tiles.xy, np.float64)).to(src.device)
     out = torch.empty((batch, out_h, out_w), dtype=src.dtype, device=src.device)
+    fill = fill_as(fill_value, src.dtype)
     lib = _build.load()
     with torch.cuda.device(src.device):
         rc = lib.xrt_exact_gather_windows(
@@ -281,9 +306,9 @@ def exact_gather_windows(src, xx, yy, tiles: WindowTiles, fill_value, interp_met
             out.data_ptr(), batch, src_h, src_w, out_h, out_w, tiles.tile_h,
             tiles.tile_w, tiles.n_tiles_x, tiles.win_h, tiles.win_w, tiles.pad_top,
             tiles.pad_left, float(tiles.x_res), float(tiles.neg_y_res),
-            method_code(interp_method), fill_as(fill_value, src.dtype),
+            method_code(interp_method), float(fill), fill_bits(fill, src.dtype),
             DTYPE_CODES[src.dtype], torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "exact_gather")
-    count_launch("exact_gather")
+    count_launch(launch_name("exact_gather", src.dtype))
     return out

@@ -28,8 +28,12 @@ Semantics, as the JAX package computes them under x64 (``tests/conftest.py``):
   float64 result; ``out_dtype=torch.float64`` keeps it in float64, which
   the two-pass NaN recovery divides.
 
-``uint16`` is widened to int32 in the plain version (torch has few
-``uint16`` operations) and narrowed back.
+The unsigned 16- to 64-bit dtypes are widened in the plain version
+(torch has few of their operations, ``_device.widen``) and narrowed back.
+Every dtype of ``_device.DATA_DTYPES`` is taken: float16 computes in
+float64 from a float16 fill as ``gather._float_dtype`` keeps numpy's
+``kind == "f"``; bfloat16 (numpy kind ``"V"``), integers and bool in
+float64; the result rounded as ``_device.round_to`` (bool: ``!= 0``).
 
 ``affine_gather_reduce`` (``csrc/affine_gather_reduce.cu``) is K4's
 downscale form: the bilinear gather at the inflated size reduced in
@@ -52,39 +56,49 @@ import torch
 from .. import _build
 from .._device import (
     DTYPE_CODES,
+    SEVEN_DTYPES,
     count_launch,
+    launch_name,
+    narrow,
     on_cpu,
     require_data_dtype,
     round_to,
+    to_f64,
+    widen,
 )
 from .coarsen_ops import REDUCERS, coarsen_plain, pick_tap
+from .reproject_ops import fill_bits, fill_scalar
 from .coarsen_ops import out_dtype as reduce_dtype
 
 _F64 = torch.float64
 
 
 def float_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The dtype a bilinear gather computes its fill in: floats keep
-    theirs, integers take float64 (``gather._float_dtype``)."""
-    return dtype if dtype.is_floating_point else _F64
+    """The dtype a bilinear gather computes its fill in: the dtypes of
+    numpy kind ``"f"`` keep theirs, the others (integers, bool, bfloat16)
+    take float64 (``gather._float_dtype``)."""
+    return dtype if dtype.is_floating_point and dtype != torch.bfloat16 else _F64
 
 
-def fill_as(fill_value, dtype: torch.dtype) -> float:
-    """*fill_value* cast to *dtype*, as ``np.asarray(fill).astype(dtype)``
+def fill_as(fill_value, dtype: torch.dtype):
+    """*fill_value* cast to *dtype*, as ``jnp.asarray(fill).astype(dtype)``
     does on the JAX device path: integer fills wrap, float fills of an
-    integer dtype truncate and saturate (NaN to 0)."""
+    integer dtype truncate and saturate (NaN to 0), float16 rounds once,
+    bfloat16 through float32, bool is ``fill != 0``.  A float for float
+    dtypes, an exact Python int for the others."""
     if dtype.is_floating_point:
-        return float(np.asarray(fill_value, dtype=np.float64).astype(
-            np.float32 if dtype == torch.float32 else np.float64
-        ))
-    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        f = torch.tensor(float(fill_value), dtype=_F64)
+        return float(round_to(f, dtype).to(_F64))
+    if dtype == torch.bool:
+        return int(float(fill_value) != 0)
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
     if isinstance(fill_value, (int, np.integer)):
-        return float(np.asarray(int(fill_value), dtype=np.int64).astype(np_dtype))
+        return int(np.asarray(int(fill_value), dtype=np.int64).astype(np_dtype))
     f = float(fill_value)
     if np.isnan(f):
-        return 0.0
+        return 0
     info = torch.iinfo(dtype)
-    return float(min(max(np.trunc(f), info.min), info.max))
+    return int(min(max(np.trunc(f), info.min), info.max))
 
 
 def _check(array, order, out_dtype):
@@ -112,7 +126,7 @@ def affine_gather_plain(
     _check(array, order, out_dtype)
     dtype = array.dtype
     src_h, src_w = array.shape[-2], array.shape[-1]
-    a = array.to(torch.int32) if dtype == torch.uint16 else array
+    a = widen(array)
     yy = _positions(out_h, j_scale, j_off, array.device)
     xx = _positions(out_w, i_scale, i_off, array.device)
 
@@ -124,10 +138,8 @@ def affine_gather_plain(
         iy = torch.floor(yy + 0.5).clamp(0, src_h - 1).long()
         ix = torch.floor(xx + 0.5).clamp(0, src_w - 1).long()
         vals = a.index_select(-2, iy).index_select(-1, ix)
-        fill = torch.tensor(
-            fill_as(fill_value, dtype), dtype=_F64, device=array.device
-        ).to(a.dtype)
-        return torch.where(valid, vals, fill).to(dtype)
+        fill = fill_scalar(fill_as(fill_value, dtype), dtype, array.device)
+        return narrow(torch.where(valid, vals, fill), dtype)
 
     valid = (
         ((yy >= 0) & (yy <= src_h - 1))[:, None]
@@ -139,13 +151,13 @@ def affine_gather_plain(
     x0 = x0f.clamp(0, src_w - 1).long()
     y1 = (y0 + 1).clamp(max=src_h - 1)
     x1 = (x0 + 1).clamp(max=src_w - 1)
-    r0 = a.index_select(-2, y0).to(_F64)
-    r1 = a.index_select(-2, y1).to(_F64)
+    r0 = to_f64(a.index_select(-2, y0), dtype)
+    r1 = to_f64(a.index_select(-2, y1), dtype)
     ry0 = r0 * (1 - fy) + r1 * fy
     c0 = ry0.index_select(-1, x0)
     c1 = ry0.index_select(-1, x1)
     result = c0 * (1 - fx) + c1 * fx
-    fill = fill_as(fill_value, float_dtype(dtype))
+    fill = float(fill_as(fill_value, float_dtype(dtype)))
     result = torch.where(valid, result, torch.tensor(fill, dtype=_F64, device=array.device))
     return result if out_dtype == _F64 else round_to(result, dtype)
 
@@ -174,18 +186,19 @@ def affine_gather(
     out = torch.empty((x.shape[0], out_h, out_w), dtype=out_dtype, device=array.device)
     if out.numel() == 0:
         return out.reshape(lead + (out_h, out_w))
-    fill = fill_as(fill_value, dtype if order == 0 else float_dtype(dtype))
+    fill_dtype = dtype if order == 0 else float_dtype(dtype)
+    fill = fill_as(fill_value, fill_dtype)
     lib = _build.load()
     with torch.cuda.device(array.device):
         rc = lib.xrt_affine_gather(
             x.data_ptr(), out.data_ptr(), x.shape[0], src_h, src_w,
             x.stride(0), x.stride(1), out_h, out_w, float(j_scale),
-            float(i_scale), float(j_off), float(i_off), int(order), fill,
-            DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+            float(i_scale), float(j_off), float(i_off), int(order), float(fill),
+            fill_bits(fill, fill_dtype), DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "affine_gather")
-    count_launch("affine_gather")
+    count_launch(launch_name("affine_gather", dtype))
     return out.reshape(lead + (out_h, out_w))
 
 
@@ -225,12 +238,13 @@ def taps_step_once(out_w: int, i_div: int, i_scale: float, i_off: float, src_w: 
     return bool(np.abs(np.diff(t0, axis=1)).max() <= 1)
 
 
-def plan_gather_reduce(out_w, i_div, i_scale, i_off, src_w, agg) -> str:
+def plan_gather_reduce(out_w, i_div, i_scale, i_off, src_w, agg, dtype=torch.float32) -> str:
     """The downscale form's kernel: "cached" for windows of up to
     :data:`CACHED_MAX_WIDTH` columns whose taps step once
-    (:func:`taps_step_once`), reduced by one of K5's reducers; "direct"
-    for the positional picks (one tap a window) and the other windows."""
-    if agg in PICKS or i_div > CACHED_MAX_WIDTH:
+    (:func:`taps_step_once`), reduced by one of K5's reducers, on the
+    seven dtypes the cached kernel is built for; "direct" for the
+    positional picks (one tap a window), the other windows and dtypes."""
+    if agg in PICKS or i_div > CACHED_MAX_WIDTH or dtype not in SEVEN_DTYPES:
         return "direct"
     if not taps_step_once(out_w, i_div, float(i_scale), float(i_off), src_w):
         return "direct"
@@ -280,16 +294,16 @@ def affine_gather_reduce(
     if out.numel() == 0:
         return out.reshape(lead + (out_h, out_w))
     pa, pb = pick_tap(agg, j_div, i_div)
-    route = plan_gather_reduce(out_w, i_div, i_scale, i_off, src_w, agg)
+    route = plan_gather_reduce(out_w, i_div, i_scale, i_off, src_w, agg, dtype)
     lib = _build.load()
     with torch.cuda.device(array.device):
         rc = lib.xrt_affine_gather_reduce(
             x.data_ptr(), out.data_ptr(), x.shape[0], src_h, src_w, x.stride(0),
             x.stride(1), out_h, out_w, j_div, i_div, float(j_scale), float(i_scale),
-            float(j_off), float(i_off), fill_as(fill_value, float_dtype(dtype)),
+            float(j_off), float(i_off), float(fill_as(fill_value, float_dtype(dtype))),
             REDUCERS[agg], pa, pb, DTYPE_CODES[dtype], ROUTES[route],
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "affine_gather_reduce")
-    count_launch("affine_gather_reduce")
+    count_launch(launch_name("affine_gather_reduce", dtype))
     return out.reshape(lead + (out_h, out_w))

@@ -58,22 +58,28 @@ from .. import _build
 from .._device import (
     DTYPE_CODES,
     count_launch,
+    launch_name,
+    narrow,
     on_cpu,
     require_cuda,
     require_data_dtype,
+    widen,
 )
 from .exact_gather import exact_gather_ij, unsupported
 from .reproject_ops import (
     MAX_PLANE,
     METHODS,
+    check_taps_dtype,
+    fill_bits,
+    fill_scalar,
     fma64,
     gather_dtype,
     gather_fill,
     gather_interp,
-    interp_taps_f32,
+    interp_taps,
     method_code,
 )
-from .srw import fields_from_ij_map, fields_from_lattice, make_srw_fn, plan_srw
+from .srw import fields_from_ij_map, fields_from_lattice, make_srw_fn_picked, plan_srw
 
 _F32 = torch.float32
 _F64 = torch.float64
@@ -930,8 +936,10 @@ def ij_gather_list_plain(out, src, ix, iy, rows, cols, interp_method, fill_value
     ``out[:, rows, cols]``; returns *out*."""
     _check_gather(src, interp_method)
     vals = gather_interp(src, ix, iy, interp_method, fill_value).to(out.dtype)
-    # (uint16 has no index_put on the CPU: written through its int16 bits)
-    view = torch.int16 if out.dtype == torch.uint16 else out.dtype
+    # (the unsigned 16- to 64-bit dtypes have no index_put on the CPU:
+    # written through their signed bits)
+    view = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+            torch.uint64: torch.int64}.get(out.dtype, out.dtype)
     out.view(view)[:, rows.long(), cols.long()] = vals.view(view)
     return out
 
@@ -961,6 +969,7 @@ def ij_gather_list(out, src, ix, iy, rows, cols, interp_method, fill_value):
 def _launch_ij_gather(src, ix, iy, valid, rows, cols, out, out_w, interp_method, fill_value):
     batch, src_h, src_w = src.shape
     fill = gather_fill(fill_value, out.dtype)
+    check_taps_dtype(src.dtype, interp_method)
     lib = _build.load()
     with torch.cuda.device(src.device):
         rc = lib.xrt_ij_gather(
@@ -969,20 +978,25 @@ def _launch_ij_gather(src, ix, iy, valid, rows, cols, out, out_w, interp_method,
             None if rows is None else rows.data_ptr(),
             None if cols is None else cols.data_ptr(),
             out.data_ptr(), ix.numel(), batch, src_h, src_w, out_w,
-            out.shape[-2] * out.shape[-1], method_code(interp_method), fill,
-            DTYPE_CODES[src.dtype], torch.cuda.current_stream().cuda_stream,
+            out.shape[-2] * out.shape[-1], method_code(interp_method), float(fill),
+            fill_bits(fill, out.dtype), DTYPE_CODES[src.dtype],
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "ij_gather")
-    count_launch("ij_gather")
+    count_launch(launch_name("ij_gather", src.dtype))
 
 
 def ij_gather_band_plain(ext, m, interp_method, fill_value, off, src_h):
     """Plain PyTorch version of K7's band form
-    (``make_sharded_rectify_step.band_step``): (B, h, w) float32 of the
-    band's float32 map *m* (2, h, w) from ``ext`` (B, ext_h, W), which holds
-    the global source rows from *off* of a source *src_h* rows high."""
+    (``make_sharded_rectify_step.band_step``): (B, h, w) of
+    :func:`.reproject_ops.gather_dtype` of the band's float32 map *m* (2,
+    h, w) from ``ext`` (B, ext_h, W), which holds the global source rows
+    from *off* of a source *src_h* rows high."""
     method_code(interp_method)
+    dtype = ext.dtype
+    check_taps_dtype(dtype, interp_method)
     ext_h, src_w = ext.shape[-2], ext.shape[-1]
+    ext = widen(ext)
     valid = torch.isfinite(m[0]) & torch.isfinite(m[1])
     ix = torch.nan_to_num(m[0], nan=0.0).clamp(0, src_w - 1)
     iy = torch.nan_to_num(m[1], nan=0.0).clamp(0, src_h - 1)
@@ -999,37 +1013,43 @@ def ij_gather_band_plain(ext, m, interp_method, fill_value, off, src_h):
         y1 = (y0 + 1).clamp(0, src_h - 1)
         y0_l = (y0 - off).clamp(0, ext_h - 1)
         y1_l = (y1 - off).clamp(0, ext_h - 1)
-        vals = interp_taps_f32(ext[..., y0_l, x0], ext[..., y0_l, x1], ext[..., y1_l, x0],
-                               ext[..., y1_l, x1], ix - x0f, iy - y0f, interp_method)
+        vals = interp_taps(ext[..., y0_l, x0], ext[..., y0_l, x1], ext[..., y1_l, x0],
+                           ext[..., y1_l, x1], ix - x0f, iy - y0f, interp_method, dtype)
         in_band = (y0 >= off) & (y1 < off + ext_h)
-    fill = torch.tensor(fill_value, dtype=_F32, device=ext.device)
-    return torch.where(valid & in_band, vals, fill)
+    out_dtype = gather_dtype(dtype, interp_method)
+    fill = fill_scalar(gather_fill(fill_value, out_dtype), out_dtype, ext.device)
+    return narrow(torch.where(valid & in_band, vals, fill), out_dtype)
 
 
 def ij_gather_band(ext, m, interp_method, fill_value, off, src_h):
-    """K7's band form: one mesh band's (B, h, w) float32 rectified through
-    its float32 map rows *m* (2, h, w); ``ext`` (B, ext_h, W) float32 holds
-    the global source rows from *off* of a source *src_h* rows high."""
+    """K7's band form: one mesh band's (B, h, w) of
+    :func:`.reproject_ops.gather_dtype` rectified through its float32 map
+    rows *m* (2, h, w); ``ext`` (B, ext_h, W) of a data dtype holds the
+    global source rows from *off* of a source *src_h* rows high."""
     if on_cpu(ext, m):
         return ij_gather_band_plain(ext, m, interp_method, fill_value, off, src_h)
+    require_data_dtype(ext.dtype, "the source")
+    check_taps_dtype(ext.dtype, interp_method)
     batch, ext_h, src_w = ext.shape
     _, out_h, out_w = m.shape
-    require_cuda(ext, "ext", _F32, (batch, ext_h, src_w))
+    require_cuda(ext, "ext", ext.dtype, (batch, ext_h, src_w))
     require_cuda(m, "m", _F32, (2, out_h, out_w))
     if not -ext_h < off < src_h or ext_h * src_w >= MAX_PLANE or src_h * src_w >= MAX_PLANE:
         raise ValueError(f"K7 band: ext {tuple(ext.shape)} from row {off} of {src_h}")
-    out = torch.empty((batch, out_h, out_w), dtype=_F32, device=ext.device)
+    out_dtype = gather_dtype(ext.dtype, interp_method)
+    out = torch.empty((batch, out_h, out_w), dtype=out_dtype, device=ext.device)
     if out.numel() == 0:
         return out
+    fill = gather_fill(fill_value, out_dtype)
     lib = _build.load()
     with torch.cuda.device(ext.device):
-        rc = lib.xrt_ij_gather_band_f32(
+        rc = lib.xrt_ij_gather_band(
             ext.data_ptr(), m.data_ptr(), out.data_ptr(), batch, ext_h, src_w, out_h, out_w,
-            off, src_h, method_code(interp_method), float(fill_value),
-            torch.cuda.current_stream().cuda_stream,
+            off, src_h, method_code(interp_method), float(fill), fill_bits(fill, out_dtype),
+            DTYPE_CODES[ext.dtype], torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "ij_gather_band")
-    count_launch("ij_gather_band")
+    count_launch(launch_name("ij_gather_band", ext.dtype, (_F32,)))
     return out
 
 
@@ -1057,11 +1077,13 @@ class GatherPhaseB:
 
 
 class SRWPhaseB:
-    """``fn(src) -> (B, h, w)``: the coverage interior through the tiled
-    SRW (K1, K2) on the map's coarse fields, the fill outside it, and the
-    edge band through K7's list form; ``fn.plain(src)`` through their plain
-    versions.  Float32 output (float64 for float64 sources, whose interior
-    K1/K2 compute in float32)."""
+    """``fn(src) -> (B, h, w)``: the coverage interior through the SRW (K1,
+    K2; tiled or batched as the JAX package picks it) on the map's coarse
+    fields, the float32 fill outside it, and the edge band through K7's
+    list form; ``fn.plain(src)`` through their plain versions.  The output
+    is the SRW's dtype (``rectify_ops.py:2628-2639``: float64 for float64
+    sources through the tiled SRW, else float32), the edge values cast to
+    it."""
 
     def __init__(self, srw, interior, rows, cols, ix_e, iy_e, interp_method, fill_value):
         self.srw, self.interior = srw, interior
@@ -1069,11 +1091,19 @@ class SRWPhaseB:
         self.interp_method, self.fill_value = interp_method, fill_value
 
     def _run(self, src, srw, gather_list):
-        out_dtype = gather_dtype(src.dtype, self.interp_method)
-        out = srw(src if src.dtype == _F32 else src.float()).to(out_dtype)
-        out.masked_fill_(~self.interior, gather_fill(self.fill_value, out_dtype))
-        return gather_list(out, src, self.ix_e, self.iy_e, self.rows, self.cols,
-                           self.interp_method, self.fill_value)
+        out = srw(src)
+        out.masked_fill_(~self.interior, float(np.float32(self.fill_value)))
+        edge_dtype = gather_dtype(src.dtype, self.interp_method)
+        if edge_dtype == out.dtype:
+            return gather_list(out, src, self.ix_e, self.iy_e, self.rows, self.cols,
+                               self.interp_method, self.fill_value)
+        # the edge values in their own dtype, then cast into the output's
+        edge = gather_list(torch.empty(out.shape, dtype=edge_dtype, device=out.device), src,
+                           self.ix_e, self.iy_e, self.rows, self.cols, self.interp_method,
+                           self.fill_value)
+        rows, cols = self.rows.long(), self.cols.long()
+        out[:, rows, cols] = edge[:, rows, cols].to(out.dtype)
+        return out
 
     def __call__(self, src):
         return self._run(src, self.srw, ij_gather_list)
@@ -1122,7 +1152,7 @@ def make_device_var_image_fn(
                 return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
             return SRWPhaseB(
-                make_srw_fn(plan, interp_method, fill_value, device),
+                make_srw_fn_picked(plan, interp_method, fill_value, device),
                 put(interior),
                 put(edge_rows, np.int32),
                 put(edge_cols, np.int32),
@@ -1232,7 +1262,7 @@ class ResidentPhaseB:
 def make_device_var_image_fn_resident(ij_map: DeviceIJMap, fill_value, interp_method: str):
     """The resident Phase B of a :class:`DeviceIJMap` for one method and
     fill (``rectify_ops.make_device_var_image_fn_resident``), memoised on
-    the map: (B, H, W) sources of the seven data dtypes on the map's
+    the map: (B, H, W) sources of the data dtypes on the map's
     device.  Nearest, and every method where ``XRTPU_PHASEB_SRW=0``, go
     through K7's map form; bilinear and triangular (every method under
     ``XRTPU_PHASEB_SRW=1``) try the SRW interior first."""
@@ -1288,7 +1318,7 @@ def _build_resident_srw_phase_b(m: torch.Tensor, src_hw, fill_value, interp_meth
     edge = torch.nonzero(valid & ~interior)
     rows, cols = edge[:, 0], edge[:, 1]
     return SRWPhaseB(
-        make_srw_fn(plan, interp_method, fill_value, dev),
+        make_srw_fn_picked(plan, interp_method, fill_value, dev),
         interior,
         rows.to(torch.int32),
         cols.to(torch.int32),

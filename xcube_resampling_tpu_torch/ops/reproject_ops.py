@@ -12,6 +12,10 @@ tensors, or raises.
 The coarse fields come from :func:`coarse_coord_field`, a copy of the
 JAX package's numpy planner, evaluated once per geometry on the host.
 
+On dtypes other than float32 both run ``csrc/fused_reproject_typed.cu``
+(:func:`gather_interp`'s rule per dtype) and count their launches under
+``fused_reproject.<dtype>`` and ``fused_reproject_band.<dtype>``.
+
 ``fused_reproject_band`` is K3's band form, the gather of the sharded
 regrid (``xcube_resampling_tpu/parallel/halo.py:169-205``) on one row band
 of a mesh: output row ``j`` lies at global target row ``row0 + j``, the
@@ -27,7 +31,18 @@ import numpy as np
 import torch
 
 from .. import _build
-from .._device import count_launch, on_cpu, require_cuda, wrap_int
+from .._device import (
+    DTYPE_CODES,
+    count_launch,
+    launch_name,
+    narrow,
+    on_cpu,
+    require_cuda,
+    require_data_dtype,
+    round_to,
+    widen,
+    wrap_int,
+)
 from ..crs import Transformer
 from ..gridmapping import GridMapping
 
@@ -97,6 +112,23 @@ def fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def fma_exact(a, b, c):
+    """``a * b + c`` of float32 tensors rounded once to float32, as a fused
+    multiply-add: the product is exact in float64, the sum is rounded to
+    odd there (the float64 sum corrected by its exact error, Knuth's
+    two-sum), and a value rounded to odd at 53 bits rounds to 24 bits as
+    the exact value would."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    step = (e != 0) & torch.isfinite(e) & even
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(step, torch.nextafter(s, toward), s).float()
+
+
 def lerp(a, b, t):
     """``a + t * (b - a)`` rounded as XLA's contracted lerp."""
     return fma(t, b - a, a)
@@ -148,24 +180,69 @@ def gather_dtype(dtype: torch.dtype, interp_method: str) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def gather_fill(fill_value, dtype: torch.dtype) -> float:
+def gather_fill(fill_value, dtype: torch.dtype):
     """*fill_value* in *dtype*, as ``jnp.asarray(fill_value, dtype)``: a
-    float cast, or an integer that *dtype* holds (else ``ValueError``)."""
+    float cast (float16 and bfloat16 as ``_device.round_to``), ``fill !=
+    0`` for bool, or the integer (floats truncated) that *dtype* holds,
+    as a Python int; ``ValueError`` for a NaN or infinite integer fill,
+    ``OverflowError`` out of *dtype*'s range."""
     if dtype.is_floating_point:
-        return float(np.float32(fill_value)) if dtype == torch.float32 else float(fill_value)
-    f = float(fill_value)
+        if dtype == torch.float64:
+            return float(fill_value)
+        return float(round_to(torch.tensor(float(fill_value), dtype=torch.float64), dtype))
+    if dtype == torch.bool:
+        return int(float(fill_value) != 0)
+    if not isinstance(fill_value, (int, np.integer)):
+        f = float(fill_value)
+        if not np.isfinite(f):
+            raise ValueError(f"cannot convert fill value {fill_value!r} to {dtype}")
+        fill_value = int(f)
     info = torch.iinfo(dtype)
-    if not np.isfinite(f) or not info.min <= int(f) <= info.max:
-        raise ValueError(f"fill value {fill_value!r} is no {dtype} value")
-    return float(int(f))
+    if not info.min <= int(fill_value) <= info.max:
+        raise OverflowError(f"fill value {fill_value!r} out of bounds for {dtype}")
+    return int(fill_value)
+
+
+def fill_bits(fill, dtype: torch.dtype) -> int:
+    """A fill (:func:`gather_fill`'s or ``gather.fill_as``'s) as the kernels
+    take it exactly: its bits in *dtype* as a signed int64 (integers their
+    two's complement, exact past 2^53; the word K3's typed nearest kernels
+    store)."""
+    if not dtype.is_floating_point:
+        return int(fill) - 2**64 if int(fill) >= 2**63 else int(fill)
+    t = torch.tensor(fill, dtype=torch.float64).to(dtype)
+    word = {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    return int(t.view(word))
+
+
+def fill_scalar(fill, dtype: torch.dtype, device) -> torch.Tensor:
+    """The scalar tensor of *fill* (:func:`gather_fill`'s or
+    ``gather.fill_as``'s: a float, or an exact int) in widened *dtype*
+    (``_device.widen``)."""
+    if dtype.is_floating_point:
+        return torch.tensor(fill, dtype=torch.float64, device=device).to(dtype)
+    if dtype == torch.bool:
+        return torch.tensor(bool(fill), device=device)
+    return widen(narrow(torch.tensor(fill_bits(fill, dtype), device=device), dtype))
+
+
+def _as_arith(t, dtype, arith):
+    """Widened taps of *dtype* in the arithmetic dtype *arith*, rounded
+    once (uint64 from its bits)."""
+    if dtype == torch.uint64 and t.dtype == torch.int64:
+        return t.view(torch.uint64).to(arith)
+    return t.to(arith)
 
 
 def _tap_diff(b, a, dtype):
-    """``b - a`` in the source *dtype* (integers wrap, as jnp's do), in
-    the lerps' arithmetic dtype."""
+    """``b - a`` in the source *dtype* (integers wrap, as jnp's do; float16
+    and bfloat16 round, as their arithmetic does), in the lerps' arithmetic
+    dtype."""
     if dtype.is_floating_point:
-        return b - a
-    return wrap_int(b.long() - a.long(), dtype).float()
+        d = b - a
+        return d.float() if dtype in (torch.float16, torch.bfloat16) else d
+    d = wrap_int(b.long() - a.long(), dtype)
+    return _as_arith(d, dtype, torch.float32)
 
 
 def interp_taps_f32(v00, v01, v10, v11, fx, fy, interp_method):
@@ -178,20 +255,60 @@ def interp_taps_f32(v00, v01, v10, v11, fx, fy, interp_method):
     return lerp(lerp(v00, v01, fx), lerp(v10, v11, fx), fy)
 
 
+def check_taps_dtype(dtype: torch.dtype, interp_method: str) -> None:
+    """jnp's ``TypeError`` for the tap differences of a bool source."""
+    if dtype == torch.bool and interp_method != "nearest":
+        raise TypeError(
+            "jnp.subtract is not supported for boolean inputs: the tap "
+            f"differences of {interp_method} take the source dtype"
+        )
+
+
+def interp_taps(v00, v01, v10, v11, fx, fy, interp_method, dtype):
+    """The bilinear or triangular value of four widened taps of a source of
+    *dtype* (``_device.widen``) at float32 fractions, as
+    ``gather_interp`` rounds it: float32 through :func:`interp_taps_f32`;
+    the others' tap differences in *dtype*, the lerps fused multiply-adds
+    in :func:`gather_dtype` (:func:`fma_exact`; float64 :func:`fma64`), as
+    their taps' exponents may lie far apart (64-bit integers)."""
+    if dtype == _F32:
+        return interp_taps_f32(v00, v01, v10, v11, fx, fy, interp_method)
+    check_taps_dtype(dtype, interp_method)
+    arith = gather_dtype(dtype, interp_method)
+    f = fma64 if arith == torch.float64 else fma_exact
+
+    def d(b, a):
+        return _tap_diff(b, a, dtype)
+
+    def w(t):
+        return _as_arith(t, dtype, arith)
+
+    if interp_method == "triangular":
+        near = f(w(fy), d(v10, v00), f(w(fx), d(v01, v00), w(v00)))
+        far = f(w(1.0 - fy), d(v01, v11), f(w(1.0 - fx), d(v10, v11), w(v11)))
+        return torch.where(fx + fy < 1.0, near, far)
+    a = f(w(fx), d(v01, v00), w(v00))
+    b = f(w(fx), d(v11, v10), w(v10))
+    return f(w(fy), b - a, a)
+
+
 def gather_interp(src, ix, iy, interp_method, fill_value, valid=None):
     """Clamp-to-edge gather of ``src`` (..., H, W) at float32 fractional
     source indices, as ``reproject_ops.gather_interp``: masked by *valid*,
     or where None by the bounds (-0.5, n - 0.5).  Lerps as XLA contracts
-    them: fused multiply-adds in float32 for float32 and integer sources
-    (integer tap differences wrap in the source dtype), in float64 for
-    float64 sources; output dtype :func:`gather_dtype`."""
+    them (:func:`interp_taps`): fused multiply-adds in float32 for
+    float32, half, integer and bool sources (tap differences taken in the
+    source dtype: integers wrap, half types round; bool's raise
+    ``TypeError``), in float64 for float64 sources; output dtype
+    :func:`gather_dtype`."""
     src_h, src_w = src.shape[-2], src.shape[-1]
     if valid is None:
         valid = (ix > -0.5) & (ix < src_w - 0.5) & (iy > -0.5) & (iy < src_h - 0.5)
     ix = ix.clamp(0, src_w - 1)
     iy = iy.clamp(0, src_h - 1)
     dtype = src.dtype
-    taps = src.to(torch.int32) if dtype == torch.uint16 else src
+    check_taps_dtype(dtype, interp_method)
+    taps = widen(src)
     if interp_method == "nearest":
         vals = taps[..., torch.round(iy).long(), torch.round(ix).long()]
     else:
@@ -203,34 +320,11 @@ def gather_interp(src, ix, iy, interp_method, fill_value, valid=None):
         y0 = y0f.long()
         x1 = (x0 + 1).clamp(0, src_w - 1)
         y1 = (y0 + 1).clamp(0, src_h - 1)
-        v00 = taps[..., y0, x0]
-        v01 = taps[..., y0, x1]
-        v10 = taps[..., y1, x0]
-        v11 = taps[..., y1, x1]
-        if dtype == _F32:
-            vals = interp_taps_f32(v00, v01, v10, v11, fx, fy, interp_method)
-        else:
-            arith = gather_dtype(dtype, interp_method)
-            f = fma64 if arith == torch.float64 else fma
-
-            def d(b, a):
-                return _tap_diff(b, a, dtype)
-
-            def w(t):
-                return t.to(arith)
-
-            if interp_method == "triangular":
-                near = f(w(fy), d(v10, v00), f(w(fx), d(v01, v00), w(v00)))
-                far = f(w(1.0 - fy), d(v01, v11), f(w(1.0 - fx), d(v10, v11), w(v11)))
-                vals = torch.where(fx + fy < 1.0, near, far)
-            else:
-                a = f(w(fx), d(v01, v00), w(v00))
-                b = f(w(fx), d(v11, v10), w(v10))
-                vals = f(w(fy), b - a, a)
+        vals = interp_taps(taps[..., y0, x0], taps[..., y0, x1], taps[..., y1, x0],
+                           taps[..., y1, x1], fx, fy, interp_method, dtype)
     out_dtype = gather_dtype(dtype, interp_method)
-    fill = torch.tensor(gather_fill(fill_value, out_dtype), dtype=torch.float64,
-                        device=vals.device).to(vals.dtype)
-    return torch.where(valid, vals, fill).to(out_dtype)
+    fill = fill_scalar(gather_fill(fill_value, out_dtype), out_dtype, vals.device)
+    return narrow(torch.where(valid, vals, fill), out_dtype)
 
 
 def fused_reproject_plain(
@@ -365,19 +459,35 @@ def _launch_fused(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value
     if ncj < 2 or nci < 2 or step < 1:
         raise ValueError(f"coarse fields need 2x2 samples and step >= 1: {ix_c.shape}, {step}")
     require_int32_planes(src_h, src_w, out_h, out_w)
-    require_cuda(src, "src", _F32, (batch, src_h, src_w))
+    require_data_dtype(src.dtype, "the source")
+    check_taps_dtype(src.dtype, interp_method)
+    require_cuda(src, "src", src.dtype, (batch, src_h, src_w))
     require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
     require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
-    out = torch.empty((batch, out_h, out_w), dtype=_F32, device=src.device)
+    out_dtype = gather_dtype(src.dtype, interp_method)
+    out = torch.empty((batch, out_h, out_w), dtype=out_dtype, device=src.device)
     if out.numel() == 0:
         return out
+    name = "fused_reproject" if band is None else "fused_reproject_band"
     lib = _build.load()
+    if src.dtype != _F32:
+        fill = gather_fill(fill_value, out_dtype)
+        row0, off, true_h = band if band is not None else (0, 0, src_h)
+        with torch.cuda.device(src.device):
+            rc = lib.xrt_fused_reproject_typed(
+                src.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(), batch,
+                src_h, src_w, ncj, nci, out_h, out_w, step, method, float(fill),
+                fill_bits(fill, out_dtype), row0, off, true_h, int(band is not None),
+                DTYPE_CODES[src.dtype], torch.cuda.current_stream().cuda_stream,
+            )
+        _build.check(lib, rc, name)
+        count_launch(launch_name(name, src.dtype, (_F32,)))
+        return out
     args = (
         src.data_ptr(), ix_c.data_ptr(), iy_c.data_ptr(), out.data_ptr(),
         batch, src_h, src_w, ncj, nci, out_h, out_w, step, method,
         float(fill_value),
     )
-    name = "fused_reproject" if band is None else "fused_reproject_band"
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         if band is None:
@@ -391,7 +501,8 @@ def _launch_fused(src, ix_c, iy_c, step, out_h, out_w, interp_method, fill_value
 
 class FusedReprojectFn:
     """``fn(src) -> target`` through K3; ``fn.plain(src)`` through its
-    plain version.  ``src`` is (..., src_h, src_w) float32."""
+    plain version.  ``src`` is (..., src_h, src_w) of a data dtype (the
+    output's: :func:`gather_dtype`)."""
 
     def __init__(self, ix_c, iy_c, step, src_h, src_w, out_h, out_w,
                  interp_method, fill_value):

@@ -49,6 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._device import as_float32
 from ..crs import Transformer
 from ..gridmapping import GridMapping
 from .reproject_ops import (
@@ -966,11 +967,15 @@ def plan_to_device(plan: SRWPlan, device) -> SRWState:
 
 class SRWFn:
     """``fn(src) -> target`` through K1 then K2; ``fn.plain(src)`` through
-    their plain versions.  ``src`` is (..., H, W) float32 on the state's
-    device; ``window`` (j0, j1, i0, i1), when set, crops it first.
+    their plain versions.  ``src`` is (..., H, W) of a data dtype on the
+    state's device; ``window`` (j0, j1, i0, i1), when set, crops it first.
     ``kind`` is the variant of the JAX package's dispatch it stands for:
     ``"tiled"`` (``make_srw_fn``) or ``"batched"`` (``make_srw_fn_batched``,
-    the same function)."""
+    the same function but for float64).  The tiled SRW reads the source in
+    its dtype and returns jnp's promotion of a float32 weight times it
+    (float64 for float64, else float32); the batched one casts the source
+    to float32 first (``srw.py:849``), which for the other dtypes is the
+    conversion K1 makes in registers, so only float64 is cast."""
 
     def __init__(self, state: SRWState, interp_method: str, fill_value, kind="tiled"):
         method_code(interp_method)
@@ -981,8 +986,10 @@ class SRWFn:
         self.kind = kind
 
     def crop(self, src):
-        """The (B, src_h, src_w) contiguous source the kernels read."""
-        return _crop(src, self.window, self.state)
+        """The (B, src_h, src_w) contiguous source the kernels read (float32
+        for the batched SRW on float64)."""
+        src = _crop(src, self.window, self.state)
+        return as_float32(src) if self.kind == "batched" and src.dtype == torch.float64 else src
 
     def vertical_args(self, src):
         """K1's arguments for the cropped (B, src_h, src_w) *src*."""
@@ -1091,9 +1098,10 @@ def aligned_plan_to_device(plan: SRWAlignedPlan, device, col_tile=None) -> Align
 
 class AlignedSRWFn:
     """``fn(src) -> target`` through K14 then K15; ``fn.plain(src)``
-    through their plain versions.  ``src`` is (..., H, W) float32 on the
-    state's device; ``window`` (j0, j1, i0, i1), when set, crops it
-    first.  ``kind`` is ``"aligned"`` (``make_srw_aligned_fn``)."""
+    through their plain versions.  ``src`` is (..., H, W) of a data dtype
+    on the state's device, cast to float32 as the JAX package casts it
+    (``srw.py:1087``, ``:1431``); ``window`` (j0, j1, i0, i1), when set,
+    crops it first.  ``kind`` is ``"aligned"`` (``make_srw_aligned_fn``)."""
 
     kind = "aligned"
 
@@ -1106,8 +1114,8 @@ class AlignedSRWFn:
         self.window = None
 
     def crop(self, src):
-        """The (B, src_h, src_w) contiguous source the kernels read."""
-        return _crop(src, self.window, self.state)
+        """The (B, src_h, src_w) contiguous float32 source the kernels read."""
+        return as_float32(_crop(src, self.window, self.state))
 
     def vertical_args(self, src):
         """K14's arguments for the cropped (B, src_h, src_w) *src*."""
@@ -1300,9 +1308,21 @@ def make_srw_reproject_fn(
         return make_srw_aligned_fn(best, interp_method, fill_value, device)
     if kind == "hybrid":
         return make_srw_hybrid_fn(best, interp_method, fill_value, device)
-    n_ops = best.base_v.shape[1] * best.d_v + best.base_h.shape[0] * best.d_h
-    n_elems = best.src_h * best.src_w + best.out_h * best.out_w
-    fn = make_srw_fn(best, interp_method, fill_value, device)
+    return make_srw_fn_picked(best, interp_method, fill_value, device)
+
+
+def make_srw_fn_picked(
+    plan: SRWPlan, interp_method: str = "bilinear", fill_value=np.nan, device="cuda",
+) -> SRWFn:
+    """:func:`make_srw_fn`, its ``kind`` the JAX package's pick between
+    ``make_srw_fn`` and ``make_srw_fn_batched`` (srw.py:1676-1680; the
+    rectify Phase B's, rectify_ops.py:2611-2616, the same): batched where
+    the tiled loops would emit more than :data:`BATCHED_OPS` operations
+    and the source and target hold fewer than :data:`BATCHED_ELEMS`
+    elements together."""
+    n_ops = plan.base_v.shape[1] * plan.d_v + plan.base_h.shape[0] * plan.d_h
+    n_elems = plan.src_h * plan.src_w + plan.out_h * plan.out_w
+    fn = make_srw_fn(plan, interp_method, fill_value, device)
     if n_ops > BATCHED_OPS and n_elems < BATCHED_ELEMS:
         fn.kind = "batched"
     return fn
@@ -1336,8 +1356,9 @@ class RegionPiece:
 
 class RegionSRWFn:
     """``fn(src) -> target``: the two-pass region mosaic, each piece through
-    its own kernels (K17 + K18, K14 + K15, K1 + K2 or K3) into its rectangle
-    of the canvas; ``fn.plain(src)`` through their plain versions.  The
+    its own kernels (K17 + K18, K14 + K15, K1 + K2 or K3) on the source in
+    its dtype, into its rectangle of the float32 canvas; ``fn.plain(src)``
+    through their plain versions.  The
     canvas is filled first only where the pieces do not cover the target
     (``covered``); the quadtree always covers it."""
 
@@ -1349,6 +1370,9 @@ class RegionSRWFn:
         self.covered = area == out_h * out_w
 
     def _run(self, src, plain):
+        # each piece takes the source in its dtype (its own variant's
+        # rule); the float32 canvas casts what it returns, as the JAX
+        # package's ``out.at[...].set``
         shape = src.shape[:-2] + (self.out_h, self.out_w)
         if self.covered:
             out = torch.empty(shape, dtype=torch.float32, device=src.device)

@@ -66,7 +66,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .._device import count_launch, on_cpu, require_cuda
-from .reproject_ops import interp_field, method_code, require_int32_planes
+from .reproject_ops import fma_exact, interp_field, method_code, require_int32_planes
 from .srw_kernels import SMEM_BUDGET, _grid, _walkers, _weight
 
 _F32 = torch.float32
@@ -167,23 +167,6 @@ def horizontal_spans(base_h: np.ndarray, d_h: int) -> np.ndarray:
     hi = np.pad(b, ((0, 0), (0, n * HORI_SPAN_COLS - out_w)), constant_values=b.min())
     return np.stack([lo.reshape(n_rt, n, -1).min(axis=2),
                      hi.reshape(n_rt, n, -1).max(axis=2) + d_h], axis=-1)
-
-
-def fma_exact(a, b, c):
-    """``a * b + c`` of float32 tensors rounded once to float32, as a fused
-    multiply-add: the product is exact in float64, the sum is rounded to
-    odd there (the float64 sum corrected by its exact error, Knuth's
-    two-sum), and a value rounded to odd at 53 bits rounds to 24 bits as
-    the exact value would."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    z = s - p
-    e = (p - (s - z)) + (c - z)
-    even = (s.view(torch.int64) & 1) == 0
-    step = (e != 0) & torch.isfinite(e) & even
-    toward = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
-    return torch.where(step, torch.nextafter(s, toward), s).float()
 
 
 def _check_method(interp_method: str) -> None:

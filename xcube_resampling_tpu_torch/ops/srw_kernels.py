@@ -52,10 +52,26 @@ import numpy as np
 import torch
 
 from .. import _build
-from .._device import count_launch, on_cpu, require_cuda
-from .reproject_ops import fma, interp_field, method_code
+from .._device import (
+    DTYPE_CODES,
+    count_launch,
+    launch_name,
+    on_cpu,
+    require_cuda,
+    require_data_dtype,
+    widen,
+)
+from .reproject_ops import _as_arith, fma, fma64, fma_exact, interp_field, method_code
 
 _F32 = torch.float32
+_F64 = torch.float64
+
+
+def value_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of ``v`` and of the output of the tap passes for a source
+    of *dtype*, as jnp promotes a float32 weight times it: float64 for
+    float64, float32 for every other data dtype."""
+    return _F64 if dtype == _F64 else _F32
 
 # Shared memory a K1 block may stage (bytes): two window buffers and the
 # block's positions.  Under half the H100's 227 KB per block, so that two
@@ -235,6 +251,19 @@ def srw_vertical_plain(
     )
 
 
+def _row_chunks(n_rows: int, per_row: int):
+    """Row ranges of at most ``PLAIN_CHUNK`` elements (at least one row):
+    the plain tap passes run on these in turn, so that their float64
+    temporaries stay small at the headline's 20480^2; every output is
+    computed alone, so the chunking does not change it."""
+    step = max(1, PLAIN_CHUNK // max(per_row, 1))
+    return [(r, min(r + step, n_rows)) for r in range(0, n_rows, step)]
+
+
+# elements a plain tap pass computes at once (its row chunks)
+PLAIN_CHUNK = 1 << 24
+
+
 def srw_vertical_band_plain(
     ext, iystar_c, step, base_v, col_tile, d_v, windows, interp_method,
     row0, off, src_h,
@@ -246,19 +275,33 @@ def srw_vertical_band_plain(
     batch, _, src_w = ext.shape
     out_h = base_v.shape[0]
     tri = interp_method == "triangular"
-    pos_v = interp_field(iystar_c, *_grid(out_h, src_w, ext.device, row0), step)
-    base = base_v.repeat_interleave(col_tile, dim=1)[:, :src_w].to(torch.int64)
-    acc = torch.zeros((batch, out_h, src_w), dtype=_F32, device=ext.device)
-    acc_d = torch.zeros_like(acc) if tri else None
-    for d in range(d_v):
-        kk = base + d
-        k = kk.to(_F32)
-        idx = (kk.clamp(0, src_h - 1) - off).expand(batch, out_h, src_w)
-        taken = torch.gather(ext, 1, idx)
-        acc = fma(_weight(pos_v, k, interp_method), taken, acc)
+    dtype = ext.dtype
+    vt = value_dtype(dtype)
+    # float32 sources keep K1's emulation; the others' values (64-bit
+    # integers) may lie far from the sums they join: rounded once
+    f = fma64 if vt == _F64 else fma if dtype == _F32 else fma_exact
+    wide = widen(ext)
+    v = torch.empty((batch, out_h, src_w), dtype=vt, device=ext.device)
+    vd = torch.empty_like(v) if tri else None
+    for r0, r1 in _row_chunks(out_h, batch * src_w):
+        n = r1 - r0
+        pos_v = interp_field(iystar_c, *_grid(n, src_w, ext.device, row0 + r0), step)
+        base = base_v[r0:r1].repeat_interleave(col_tile, dim=1)[:, :src_w].to(torch.int64)
+        acc = torch.zeros((batch, n, src_w), dtype=vt, device=ext.device)
+        acc_d = torch.zeros_like(acc) if tri else None
+        for d in range(d_v):
+            kk = base + d
+            k = kk.to(_F32)
+            idx = (kk.clamp(0, src_h - 1) - off).expand(batch, n, src_w)
+            # the value in the sums' dtype, rounded once (jnp's promotion)
+            taken = _as_arith(torch.gather(wide, 1, idx), dtype, vt)
+            acc = f(_weight(pos_v, k, interp_method).to(vt), taken, acc)
+            if tri:
+                acc_d = f(_dweight(pos_v, k).to(vt), taken, acc_d)
+        v[:, r0:r1] = acc
         if tri:
-            acc_d = fma(_dweight(pos_v, k), taken, acc_d)
-    return acc, acc_d
+            vd[:, r0:r1] = acc_d
+    return v, vd
 
 
 def _horizontal_geometry(
@@ -300,23 +343,32 @@ def srw_horizontal_band_plain(
     batch, out_h, src_w = v.shape
     out_w = base_h.shape[1]
     tri = interp_method == "triangular"
-    pos_h, valid, s = _horizontal_geometry(
-        ix_c, iy_c, step, out_h, out_w, src_h, src_w, tri, row0
-    )
-    base = base_h.repeat_interleave(row_tile, dim=0)[:out_h].to(torch.int64)
-    acc = torch.zeros((batch, out_h, out_w), dtype=_F32, device=v.device)
-    acc_d = torch.zeros_like(acc) if tri else None
-    for d in range(d_h):
-        kk = base + d
-        k = kk.to(_F32)
-        idx = kk.clamp(0, src_w - 1).expand(batch, out_h, out_w)
-        acc = fma(_weight(pos_h, k, interp_method), torch.gather(v, 2, idx), acc)
+    vt = v.dtype
+    f = fma64 if vt == _F64 else fma
+    base_all = base_h.repeat_interleave(row_tile, dim=0)[:out_h]
+    fill = torch.tensor(fill_value, dtype=vt, device=v.device)
+    out = torch.empty((batch, out_h, out_w), dtype=vt, device=v.device)
+    for r0, r1 in _row_chunks(out_h, batch * out_w):
+        n = r1 - r0
+        pos_h, valid, s = _horizontal_geometry(
+            ix_c, iy_c, step, n, out_w, src_h, src_w, tri, row0 + r0
+        )
+        base = base_all[r0:r1].to(torch.int64)
+        vr = v[:, r0:r1]
+        acc = torch.zeros((batch, n, out_w), dtype=vt, device=v.device)
+        acc_d = torch.zeros_like(acc) if tri else None
+        for d in range(d_h):
+            kk = base + d
+            k = kk.to(_F32)
+            idx = kk.clamp(0, src_w - 1).expand(batch, n, out_w)
+            acc = f(_weight(pos_h, k, interp_method).to(vt), torch.gather(vr, 2, idx), acc)
+            if tri:
+                acc_d = f(_dweight(pos_h, k).to(vt), torch.gather(vd[:, r0:r1], 2, idx),
+                          acc_d)
         if tri:
-            acc_d = fma(_dweight(pos_h, k), torch.gather(vd, 2, idx), acc_d)
-    if tri:
-        acc = fma(-s, acc_d, acc)
-    fill = torch.tensor(fill_value, dtype=_F32, device=v.device)
-    return torch.where(valid, acc, fill)
+            acc = f((-s).to(vt), acc_d, acc)
+        out[:, r0:r1] = torch.where(valid, acc, fill)
+    return out
 
 
 def _ptr(t):
@@ -391,11 +443,12 @@ def _launch_vertical(
             f"inconsistent K1 plan: base_v {tuple(base_v.shape)}, src_w {src_w}, "
             f"col_tile {col_tile}, block cols {w.cols}, iystar_c {tuple(iystar_c.shape)}"
         )
-    require_cuda(src, "src", _F32, (batch, src_h, src_w))
+    require_data_dtype(src.dtype, "the source")
+    require_cuda(src, "src", src.dtype, (batch, src_h, src_w))
     require_cuda(iystar_c, "iystar_c", _F32, (ncj, ncc))
     require_cuda(base_v, "base_v", torch.int32, (out_h, n_col_tiles))
     require_cuda(w.lohi, "windows", torch.int32, (n_rb, n_col_tiles, 2))
-    v = torch.empty((batch, out_h, src_w), dtype=_F32, device=src.device)
+    v = torch.empty((batch, out_h, src_w), dtype=value_dtype(src.dtype), device=src.device)
     vd = torch.empty_like(v) if interp_method == "triangular" else None
     if v.numel() == 0:
         return v, vd
@@ -411,12 +464,13 @@ def _launch_vertical(
     name = "srw_vertical" if band is None else "srw_vertical_band"
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
+        code = DTYPE_CODES[src.dtype]
         if band is None:
-            rc = lib.xrt_srw_vertical_f32(*args, stream)
+            rc = lib.xrt_srw_vertical(*args, code, stream)
         else:
-            rc = lib.xrt_srw_vertical_band_f32(*args, *band, stream)
+            rc = lib.xrt_srw_vertical_band(*args, *band, code, stream)
     _build.check(lib, rc, name)
-    count_launch(name)
+    count_launch(launch_name(name, src.dtype, (_F32,)))
     return v, vd
 
 
@@ -507,11 +561,51 @@ def horizontal_c_args(
     )
 
 
+def _launch_horizontal_f64(
+    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, interp_method, fill_value, vd, row0,
+    name,
+):
+    """K2 on float64 ``v`` (``csrc/srw_horizontal_f64.cu``), its launch
+    counted under *name* and the dtype."""
+    tri = interp_method == "triangular"
+    batch, out_h, src_w = v.shape
+    n_row_tiles, out_w = base_h.shape
+    ncj, nci = ix_c.shape
+    if row_tile < 1 or d_h < 1 or step < 1 or ncj < 2 or nci < 2:
+        raise ValueError(f"inconsistent K2 plan: row_tile {row_tile}, d_h {d_h}, step {step}")
+    require_cuda(v, "v", _F64, (batch, out_h, src_w))
+    if tri:
+        require_cuda(vd, "vd", _F64, (batch, out_h, src_w))
+    require_cuda(base_h, "base_h", torch.int32, (n_row_tiles, out_w))
+    require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
+    require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
+    out = torch.empty((batch, out_h, out_w), dtype=_F64, device=v.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(v.device):
+        rc = lib.xrt_srw_horizontal_f64(
+            v.data_ptr(), _ptr(vd if tri else None), ix_c.data_ptr(), iy_c.data_ptr(),
+            base_h.data_ptr(), out.data_ptr(), batch, out_h, out_w, src_h, src_w, ncj, nci,
+            step, row_tile, n_row_tiles, d_h, method_code(interp_method), float(fill_value),
+            row0, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, name)
+    count_launch(launch_name(name, _F64, (_F32,)))
+    return out
+
+
 def _launch_horizontal(
     v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
     interp_method, fill_value, vd, row0, name,
 ):
-    """K2's kernel on CUDA tensors, its launch counted under *name*."""
+    """K2's kernel on CUDA tensors, its launch counted under *name*
+    (float64 ``v``: :func:`_launch_horizontal_f64`)."""
+    if v.dtype == _F64:
+        return _launch_horizontal_f64(
+            v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, interp_method, fill_value,
+            vd, row0, name,
+        )
     out = torch.empty((v.shape[0], v.shape[1], base_h.shape[1]), dtype=_F32, device=v.device)
     args = horizontal_c_args(
         v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,

@@ -30,9 +30,14 @@ One process drives every device of the mesh, as JAX's single-controller
 * :func:`sharded_rectify`: both phases.
 
 Each step returns a :class:`.tiling.Sharded`: one band of target rows a
-mesh entry, on that entry's device.  Float32 tensors only, as on the
-reproject route's device tiers.  The step objects also run the plain
-versions of the band kernels (``step.plain(src)``), on the same devices.
+mesh entry, on that entry's device.  The source may be of any data dtype
+(``_device.DATA_DTYPES``), each step applying its single-chip tier's rule
+as the JAX package's steps do: the SRW step the tiled SRW's promotion
+(float64 stays float64, the rest float32), the ESW step a cast to
+float32, the regrid and rectify steps ``gather_interp``'s (nearest keeps
+the dtype; bool bilinear raises ``TypeError``).  The step objects also
+run the plain versions of the band kernels (``step.plain(src)``), on the
+same devices.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._device import as_float32, require_data_dtype
 from ..constants import UV_DELTA
 from ..gridmapping import GridMapping
 from ..ops.rectify_ops import (
@@ -78,7 +84,7 @@ from ..ops.srw_kernels import (
     srw_vertical_band,
     srw_vertical_band_plain,
 )
-from .tiling import Sharded
+from .tiling import Sharded, pad_rows
 
 LOG = logging.getLogger("xcube.resampling")
 
@@ -191,8 +197,7 @@ def _place_bands(src, devices, band_h: int, src_batch_dims: int):
         if len(src.bands) != n:
             raise ValueError(f"{len(src.bands)} source bands for {n} devices")
         for k, (band, dev) in enumerate(zip(src.bands, devices)):
-            if band.dtype != _F32:
-                raise TypeError(f"the sharded steps take float32 tensors, got {band.dtype}")
+            require_data_dtype(band.dtype, f"source band {k}")
             if band.ndim != 2 + src_batch_dims or band.shape[-2] != band_h:
                 raise ValueError(f"source band {k} of shape {tuple(band.shape)}, expected "
                                  f"{2 + src_batch_dims} dims and {band_h} rows")
@@ -200,8 +205,7 @@ def _place_bands(src, devices, band_h: int, src_batch_dims: int):
                 raise ValueError(f"source band {k} lies on {band.device}, not {dev}")
         lead = tuple(src.bands[0].shape[:-2])
         return [b.reshape((-1,) + tuple(b.shape[-2:])) for b in src.bands], lead
-    if src.dtype != _F32:
-        raise TypeError(f"the sharded steps take float32 tensors, got {src.dtype}")
+    require_data_dtype(src.dtype, "the source")
     if src.ndim != 2 + src_batch_dims:
         raise ValueError(f"source of {src.ndim} dims, expected {2 + src_batch_dims}")
     lead = tuple(src.shape[:-2])
@@ -815,7 +819,7 @@ class ShardedESWStep(_BandGatherStep):
         f = self._fields.on(self.devices[k])
         p = self.plan
         return (
-            ext, f["iystar_c"], f["ix_c"], f["iy_c"], p.step, p.n_samples, p.out_band_h,
+            as_float32(ext), f["iystar_c"], f["ix_c"], f["iy_c"], p.step, p.n_samples, p.out_band_h,
             p.out_w, self.interp_method, self.fill_value, k * p.out_band_h, off, p.src_h,
         )
 
@@ -881,8 +885,9 @@ def sharded_reproject(
     fill_value: float = np.nan,
     use_srw: bool = True,
 ) -> Sharded:
-    """Reproject the float32 tensor *src* (…, H, W) with its rows sharded
-    over ``mesh[axis_name]``; returns the target raster as a
+    """Reproject the tensor *src* (…, H, W) of any data dtype with its rows
+    sharded over ``mesh[axis_name]``; returns the target raster, in the
+    tier's output dtype (the module docstring), as a
     :class:`.tiling.Sharded` (``.full()`` gathers it on one device).
 
     The tiers mirror the single-chip dispatch (``halo.py:1219-1249``): the
@@ -924,7 +929,7 @@ def sharded_reproject(
         )
     step_fn, (src_pad_h, out_h) = built
     if src_pad_h:
-        src = torch.nn.functional.pad(src, (0, 0, 0, src_pad_h), value=fill_value)
+        src = pad_rows(src, src_pad_h, fill_value)
     return step_fn(src)
 
 
@@ -1003,7 +1008,7 @@ def make_sharded_rectify_step(
     source rows (nanmin, nanmax + 1 of the map's j on the band's rows,
     reduced where the rows lie, 2n values fetched) from its proportional
     source band, plus one row.  Returns ``(step_fn, (src_pad_h, out_h))``;
-    ``step_fn(src)`` takes the float32 source padded by ``src_pad_h`` rows
+    ``step_fn(src)`` takes the source padded by ``src_pad_h`` rows
     and returns a :class:`.tiling.Sharded` of ``out_h`` target rows."""
     devices = _axis_devices(mesh, axis_name)
     n = len(devices)
@@ -1114,8 +1119,9 @@ def sharded_rectify(
     fill_value: float = np.nan,
     ij_map=None,
 ) -> Sharded:
-    """Rectify the float32 band stack *src* (…, H, W) of an irregular swath
-    onto *target_gm* over ``mesh[axis_name]`` (``halo.py:sharded_rectify``):
+    """Rectify the band stack *src* (…, H, W) of an irregular swath, of any
+    data dtype, onto *target_gm* over ``mesh[axis_name]``
+    (``halo.py:sharded_rectify``):
     Phase A by :func:`sharded_phase_a` unless *ij_map* is given, or where
     the hybrid's envelope refuses the geometry the port's single-device
     Phase A (``rectify._inverse_ij_map``: K8 on the mesh's first device);
@@ -1137,5 +1143,5 @@ def sharded_rectify(
         src_batch_dims=src.ndim - 2,
     )
     if src_pad_h:
-        src = torch.nn.functional.pad(src, (0, 0, 0, src_pad_h), value=fill_value)
+        src = pad_rows(src, src_pad_h, fill_value)
     return step_fn(src)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import zarrlite
+from .._device import to_numpy
 from ..crs import Transformer
 from ..gridmapping import GridMapping
 from ..spatial import resample_in_space
@@ -212,12 +213,12 @@ def resample_to_store(
 def _numpy_dtype(dtype) -> np.dtype:
     """A numpy dtype, or a ``torch.dtype``'s numpy counterpart."""
     if isinstance(dtype, torch.dtype):
-        return torch.empty(0, dtype=dtype).numpy().dtype
+        return to_numpy(torch.empty(0, dtype=dtype)).dtype
     return np.dtype(dtype)
 
 
 def _to_numpy(data) -> np.ndarray:
     """A tile's data on the host."""
     if isinstance(data, torch.Tensor):
-        return data.cpu().numpy()
+        return to_numpy(data)
     return np.asarray(data)

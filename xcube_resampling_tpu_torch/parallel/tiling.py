@@ -16,6 +16,25 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._device import narrow, widen
+
+
+def pad_rows(array: torch.Tensor, rows: int, fill, cols: int = 0) -> torch.Tensor:
+    """*array* with *rows* rows (and *cols* columns) of *fill* appended, the
+    fill cast to its dtype as ``jnp.pad``'s ``constant_values`` is
+    (``ops.gather.fill_as``: saturating, NaN to 0 for integers; ``!= 0`` for
+    bool), for every data dtype."""
+    from ..ops.gather import fill_as
+    from ..ops.reproject_ops import fill_scalar
+
+    *lead, h, w = array.shape
+    out_w = w + cols
+    value = fill_scalar(fill_as(fill, array.dtype), array.dtype, array.device)
+    out = torch.empty((*lead, h + rows, out_w), dtype=value.dtype, device=array.device)
+    out.fill_(value)
+    out[..., :h, :w] = widen(array)
+    return narrow(out, array.dtype)
+
 
 @dataclass
 class TileBatch:
@@ -37,7 +56,7 @@ def batch_tiles(array, tile_h: int, tile_w: int, fill=0) -> TileBatch:
     pad_w = ntx * tile_w - w
     if pad_h or pad_w:
         if isinstance(array, torch.Tensor):
-            array = torch.nn.functional.pad(array, (0, pad_w, 0, pad_h), value=fill)
+            array = pad_rows(array, pad_h, fill, pad_w)
         else:
             pad = [(0, 0)] * len(batch) + [(0, pad_h), (0, pad_w)]
             array = np.pad(array, pad, mode="constant", constant_values=fill)

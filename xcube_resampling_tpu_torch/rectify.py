@@ -31,8 +31,8 @@ Port of ``xcube_resampling_tpu/rectify.py`` (``rectify_dataset``,
   as tensors on the device.
 
 Tensor variables stay on their device (all on one); numpy variables are
-placed on *device*.  Dtypes other than the affine engine's seven raise
-``NotImplementedError``.
+placed on *device*.  Dtypes outside ``_device.DATA_DTYPES`` (the JAX
+package's thirteen) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

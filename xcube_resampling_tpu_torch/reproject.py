@@ -3,8 +3,8 @@
 Port of ``xcube_resampling_tpu/reproject.py:52-298``, with the JAX
 package's two semantics kept apart:
 
-* float32 tensor variables stay on their device and go through the
-  device tiers, the JAX package's ladder: the SRW
+* tensor variables of the thirteen data dtypes stay on their device and
+  go through the device tiers, the JAX package's ladder: the SRW
   (:func:`.ops.srw.make_srw_reproject_fn`: crop, gates, its variant by
   JAX's cost model), unless ``XRTPU_EXACT=1``; then, under
   ``XRTPU_FAST_EXTREME_WARP=1`` (which also admits the hybrid SRW, K17 +
@@ -18,7 +18,16 @@ package's two semantics kept apart:
   pieces that refuse, one launch of K16 over all of them), unless
   ``XRTPU_NO_EXACT_MOSAIC=1``; otherwise K3, the fused direct gather.  The
   ESW and the mosaic reproduce the direct gather: bit-exact for nearest,
-  within 2 ulp for bilinear;
+  within 2 ulp for bilinear.  Each tier applies the JAX package's dtype
+  rule: the tiled SRW reads the source in its dtype and returns float64
+  for float64, float32 otherwise; the batched SRW casts float64 to
+  float32; the aligned and hybrid SRW and the ESW cast to float32; the
+  direct gather (K3) keeps the dtype for nearest and lerps the others'
+  tap differences in it (float64 stays float64, bool bilinear raises
+  ``TypeError``); the two-pass mosaic writes its pieces' results into a
+  float32 canvas; the exact mosaic casts to float32 but for its gather
+  pieces, which take K3's rule (``TypeError`` where they would return
+  another dtype than float32);
 * numpy variables take the JAX package's host golden path on the card of
   the *device* argument (default ``"cuda"``): per-pixel float64 target
   centres in the source CRS (:func:`_target_centers_in_source`), the
@@ -31,8 +40,8 @@ Where the target is coarser than the source (scale below
 target's span and downscales it through the affine engine (K4's downscale
 form ``affine_gather_reduce``, or K4 then K6 for mode and median), on the
 device tensors.  Grid variables on more than one device raise
-``ValueError``; tensors other than float32 and dtypes outside the affine
-engine's seven raise ``NotImplementedError``.
+``ValueError``; dtypes outside ``_device.DATA_DTYPES`` raise
+``NotImplementedError``.
 ``_gm_fingerprint``, ``_as_target_array``, ``_maybe_downscale``,
 ``_assert_target_overlaps_source``, ``_WindowPlan``,
 ``_plan_source_windows`` and ``_target_centers_in_source`` are copies of
@@ -112,7 +121,7 @@ def reproject_dataset(
                 raise ValueError(f"Data variable {name} has {len(var.dims)} dimensions.")
             if not isinstance(var.data, torch.Tensor):
                 host.add(name)
-            source_ds[name] = _as_tensor_variable(var, name, device)
+            source_ds[name] = affine._as_tensor_variable(var, name, device)
             grid_names.append(name)
     devices = {source_ds[name].data.device for name in grid_names}
     if len(devices) > 1:
@@ -145,17 +154,6 @@ def reproject_dataset(
         elif not set(grid_dims) & set(var.dims):
             target_ds[name] = var
     return target_ds
-
-
-def _as_tensor_variable(var: DataArray, name, device) -> DataArray:
-    """*var* itself when it holds a float32 tensor, numpy data as a tensor
-    of its own dtype on *device*; other tensors raise."""
-    if isinstance(var.data, torch.Tensor) and var.data.dtype != torch.float32:
-        raise NotImplementedError(
-            f"variable {name!r} is {var.data.dtype}: the port reprojects "
-            "float32 tensors only so far (ROADMAP queue 1 item 12)"
-        )
-    return affine._as_tensor_variable(var, name, device)
 
 
 def _maybe_downscale(
