@@ -87,18 +87,27 @@ beside this tree's, in turns).  It
    ``ops.coarsen_ops.coarsen``: K5, K6, and through an exact 4x affine
    downscale: the downscale form for ``mean`` and ``first``, K4 then K6
    for ``mode``); and the rectify route (section 7) under its default
-   (device) tier, K10's tile plan, K8 and the resident Phase B: R1,
-   BASELINE #4 (the 1189 x 1890 OLCI-like swath onto its default 512-tiled
-   grid, nearest: K10, K8 then K7; first call and warm calls, Phase A
+   (device) tier, JAX's ladder (the hybrid: K11, K12) and the resident
+   Phase B: R1, BASELINE #4 (the 1189 x 1890 OLCI-like swath onto its
+   default 512-tiled grid, nearest: K11, K12 then K7; first call and warm calls, Phase A
    alone under each tier, and the 16-band Phase B for nearest, bilinear
    and triangular in both forms), R2 (the same swath onto EPSG:32631 at
    250 m, bilinear, through the swath's coordinate transform), R3 (an OLCI
    EFR-sized granule, 4865 x 4091 with 21 float32 bands, onto a 1024-tiled
    grid, bilinear, with the device memory of a call at its peak); R1 and
-   R3 also under ``XRTPU_PHASEA=host`` (R1's map and output equal the
-   device tier's bit for bit), and the numpy route under the host tier
-   (float64 and uint16 numpy variables: K8 then K9's ij_map mode); the
-   kernel launch counts are reset before and read after each call;
+   R3 also under ``XRTPU_PHASEA=host`` (R1's map within 1e-9 of the
+   device tier's, its output's NaN mask equal), and the numpy route under
+   the host tier (float64 and uint16 numpy variables: K8 then K9's ij_map
+   mode); the rest of the device Phase A ladder
+   (:func:`phase_a_ladder_phase`: ``rectify_dataset`` at R1 and R3 under
+   each tier, the walk K19 and the tiled stencil K20 under
+   ``XRTPU_PHASEA_HYBRID=0`` and ``XRTPU_PHASEA_WALK=0``, beside K10 + K8;
+   R1's NaN-row swath reaching K20 under the default ladder, NaN edge rows
+   and a jump of 80 pixels, where every tier refuses and K10 and K8 serve;
+   a plan with host blocks; K21 through ``inverse_ij_map_jax`` and
+   ``_inverse_ij_map_device_scatter``; each map within 1e-9 of K8's, each
+   kernel bit for bit against its plain version); the kernel launch
+   counts are reset before and read after each call;
 3. holds every result against the plain PyTorch composition on the same
    device tensors, and the small case against the port's own K3 (the
    direct gather) within the two-pass bounds;
@@ -232,8 +241,8 @@ beside this tree's, in turns).  It
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero and prints no result when no CUDA device is visible or
-any phase fails, when K7, K8, K9 or K10 never launched on the rectify
-route, when a band form never launched on the sharded path (K13's on the
+any phase fails, when K7, K8, K9, K10, K19 or K20 never launched on the
+rectify route, when a band form never launched on the sharded path (K13's on the
 ESW cell's), when any kernel never launched on the main path, and when
 K11, K12 or K7's band form never launched on the sharded rectify.  It imports nothing of JAX or of the JAX package.
 """
@@ -270,8 +279,10 @@ import numpy as np
 # K10 (float64 comparisons, integer min and max).  "esw" is the ESW's and
 # the exact region mosaic's contract against the direct gather (K3): 2
 # float32 ulp at unit scale (they lerp vertically first, K3 horizontally).
+# "map" is one Phase A map against another (the device tiers against K8's):
+# JAX's bound, 1e-9 (tests/test_rectify.py), NaN coverage equal.
 TOL = {"nearest": 0.0, "bilinear": 1e-5, "triangular": 1e-5, "exact": 0.0, "stat": 0.0,
-       "f64": 0.0, "esw": 2 * 2.0**-24}
+       "f64": 0.0, "esw": 2 * 2.0**-24, "map": 1e-9}
 REL_TOL = {"stat": 2.5e-7, "f64": 2.3e-16}
 METHODS = ("bilinear", "nearest", "triangular")
 # H100 SXM data-sheet peaks: HBM3 bytes/s, float32 and float64 (non-tensor)
@@ -2895,7 +2906,7 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
         if not all(on_card[k] for k in want):
             raise AssertionError(f"{cell}: sharded_phase_a ran {dict(on_card)} on the card, "
                                  f"not {want}")
-        k8 = port_rectify._inverse_ij_map(gm, tgt, UV_DELTA, dev, tier="device")
+        k8 = port_rectify._inverse_ij_map_from_tiles(gm, tgt, UV_DELTA, sw)
         k8_map = k8.device_map()
         if not torch.equal(torch.isnan(hyb_map), torch.isnan(k8_map)):
             raise AssertionError(f"{cell}: the hybrid's NaN coverage differs from K8's")
@@ -3100,6 +3111,364 @@ def sharded_rectify_phase(dev, tag, h, cells=SR_CELLS, mesh_n=4):
         print(f"{tag} dryrun_multichip({mesh_n}) on the card ({torch.cuda.device_count()} "
               f"visible): every sharded path once at tiny shapes in {dt:.3f} s")
     return launches, err, timings, bounds, library, r3
+
+
+# K19-K21, the rest of rectify's device Phase A ladder (ops/phase_a.py)
+LADDER_KERNELS = ("phase_a_walk", "phase_a_tiled", "phase_a_scan")
+LADDER_SOURCES = {
+    "phase_a_walk": ("xcube_resampling_tpu_torch/csrc/phase_a_walk.cu",
+                     "xcube_resampling_tpu/ops/rectify_ops.py:1482"),
+    "phase_a_tiled": ("xcube_resampling_tpu_torch/csrc/phase_a_tiled.cu",
+                      "xcube_resampling_tpu/ops/rectify_ops.py:621"),
+    "phase_a_scan": ("xcube_resampling_tpu_torch/csrc/phase_a_scan.cu",
+                     "xcube_resampling_tpu/ops/rectify_ops.py:303"),
+}
+# rectify's device tiers: the switches, the kernels each launches through
+# rectify_dataset (the tiled planner's coarse solve runs on K8)
+LADDER_TIERS = (
+    ("hybrid", {}, ("hybrid_seed", "hybrid_dense")),
+    ("walk", {"XRTPU_PHASEA_HYBRID": "0"}, ("phase_a_walk",)),
+    ("tiled", {"XRTPU_PHASEA_HYBRID": "0", "XRTPU_PHASEA_WALK": "0"},
+     ("phase_a_tiled", "rectify_phase_a")),
+)
+# (cell, swath width, height, target tile, method, warm calls)
+LADDER_CELLS = (("R1", 1189, 1890, 512, "nearest", 3), ("R3", 4865, 4091, 1024, "bilinear", 2))
+# R3's crop for K20's plain version: the first tiles of each class
+LADDER_CROP = 3000
+
+
+class environ:
+    """``os.environ`` updated with *values* inside the block, restored
+    after."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class ladder_refused:
+    """The device tier with the ladder refusing every geometry inside the
+    block: rectify's Phase A takes K10 and K8, as where JAX takes its host
+    tiles (a yardstick for the tiers' walls)."""
+
+    def __enter__(self):
+        from xcube_resampling_tpu_torch.ops import phase_a
+
+        self.module, self.orig = phase_a, phase_a.inverse_ij_map_device
+        phase_a.inverse_ij_map_device = lambda *a, **k: None
+
+    def __exit__(self, *exc):
+        self.module.inverse_ij_map_device = self.orig
+
+
+def ladder_bound(g, dst):
+    """K19-K21's bound, one for the map the three compute: the (2, h, w)
+    float64 swath *g* read once and the (2, dst_h, dst_w) float64 map
+    written once; float64 operations for the triangle solves this swath
+    needs, counted on the card: 30 a candidate pixel of each live quad's
+    clipped rectangle (the quad-parallel rasterise's candidates: a quad
+    without a NaN corner whose rectangle meets the target) and 40 a pixel
+    for its winner's solve.  Returns (ms, basis, candidates)."""
+    import torch
+
+    h, w = dst
+    gx, gy = g[0], g[1]
+
+    def corners(a):
+        return torch.floor(torch.stack([a[:-1, :-1], a[:-1, 1:], a[1:, :-1], a[1:, 1:]]))
+
+    fi, fj = corners(gx), corners(gy)
+    ok = ~(torch.isnan(fi).any(0) | torch.isnan(fj).any(0))
+    i_lo, i_hi, j_lo, j_hi = fi.amin(0), fi.amax(0), fj.amin(0), fj.amax(0)
+    live = ok & (i_hi >= 0) & (j_hi >= 0) & (i_lo < w) & (j_lo < h)
+    span = ((i_hi.clamp(0, w - 1) - i_lo.clamp(0, w - 1) + 1)
+            * (j_hi.clamp(0, h - 1) - j_lo.clamp(0, h - 1) + 1))
+    n_cand = int(span[live].sum().item())
+    del fi, fj, ok, i_lo, i_hi, j_lo, j_hi, live, span
+    return bound_mixed(g.numel() * 8 + 2 * h * w * 8, 0, 30 * n_cand + 40 * h * w) + (n_cand,)
+
+
+def phase_a_ladder_phase(dev, tag, h, cells=LADDER_CELLS):
+    """Drive rectify's device Phase A ladder (``ops/phase_a.py``) through
+    ``rectify_dataset`` at R1 (nearest) and R3 (bilinear) under each tier:
+    the default (the hybrid: K11, K12), ``XRTPU_PHASEA_HYBRID=0`` (the walk:
+    K19) and both switches (the tiled stencil: K20, its coarse solve on K8),
+    and beside them the ladder made to refuse (K10 and K8); at R1 also the
+    swath with its NaN row under the default ladder (both gates refuse: K20)
+    and with a jump of 80 pixels besides (every tier refuses: K10 and K8,
+    where JAX takes its host tiles), and a swath whose plan has host blocks.
+    Each tier's map is held to K8's within 1e-9 with equal NaN coverage,
+    K19-K21 to their plain versions bit for bit (R1 in full; R3's K19 and
+    K21 in full, its K20 on the first LADDER_CROP tiles of each class), K21
+    through ``inverse_ij_map_jax`` and ``_inverse_ij_map_device_scatter``.
+    Phase A alone and the warm wall under each tier are timed.  *h* carries
+    :func:`main`'s helpers (``run_rectify`` resets and reads the launch
+    counts around each call).  Returns (max abs errors, timings, bounds and
+    library calls at R1, R3's kernel times)."""
+    import torch
+
+    from xcube_resampling_tpu_torch import DataArray, GridMapping
+    from xcube_resampling_tpu_torch import rectify as port_rectify
+    from xcube_resampling_tpu_torch._device import LAUNCHES
+    from xcube_resampling_tpu_torch.constants import UV_DELTA
+    from xcube_resampling_tpu_torch.ops import phase_a as pa
+    from xcube_resampling_tpu_torch.ops import rectify_ops as ro
+
+    nan = float("nan")
+    err = dict.fromkeys(LADDER_KERNELS, 0.0)
+    timings, bounds, r3 = {}, {}, {}
+    library = dict.fromkeys(LADDER_KERNELS, (None, None))
+    phase_b = ("srw_vertical", "srw_horizontal", "ij_gather")
+
+    def wall_ms(fn, n):
+        """Median ms of *n* warm calls of *fn*, each synchronised."""
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    def once_ms(fn):
+        """One call of *fn* between two CUDA events (a plain version)."""
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    def exact(got, ref, name, what):
+        err[name] = max(err[name], h.compare(got, ref, "exact", f"{what}: {name} vs plain"))
+
+    def map_args(xy, tgt):
+        x1, y1, x2, y2 = tgt.xy_bbox
+        x_res, y_res = tgt.xy_res
+        up = tgt.is_j_axis_up
+        return (xy[0], xy[1], 0, 0, (tgt.height, tgt.width), x1, y1 if up else y2, x_res,
+                y_res if up else -y_res, UV_DELTA)
+
+    def normalised(sw, args):
+        return torch.stack([(sw[0] - args[5]) / args[7], (sw[1] - args[6]) / args[8]])
+
+    def tiled_crop(plan, n, band):
+        """K20 and its plain version on the first *n* tiles of a class, each
+        into a NaN map."""
+        c = plan.cls_band if band else plan.cls_all
+        sel = c["sel"][:n] if band else None
+        outs = []
+        for fn in (pa.phase_a_tiled, pa.phase_a_tiled_plain):
+            out = torch.full((2, plan.dst_h, plan.dst_w), nan, dtype=torch.float64, device=dev)
+            outs.append(fn(plan.g, sel, c["bjs"][:n], c["bis"][:n], c["win"], plan.tile,
+                           plan.n_ti, UV_DELTA, out))
+        return outs
+
+    for cell, width, height, tile, interp, n_warm in cells:
+        ds = h.olci_swath(width, height, ("rad",), tile_size=tile)
+        gm = GridMapping.from_dataset(ds)
+        tgt = gm.to_regular(tile_size=tile)
+        dst = (tgt.height, tgt.width)
+        xy = np.stack([np.asarray(ds["lon"].data), np.asarray(ds["lat"].data)])
+        sw = torch.from_numpy(xy).to(dev)
+        args = map_args(xy, tgt)
+        g = normalised(sw, args)
+        k8 = port_rectify._inverse_ij_map_from_tiles(gm, tgt, UV_DELTA, sw).device_map()
+        # -- rectify_dataset under each tier: walls, Phase A alone, the map
+        walls, alone, firsts = {}, {}, {}
+        for tier, env, expect in LADDER_TIERS + (("K10 + K8", None, ("ij_bboxes",
+                                                                       "rectify_phase_a")),):
+            with environ(env or {}), (ladder_refused() if env is None else environ({})):
+                _, firsts[tier] = h.run_rectify(ds, tgt, interp, expect, allow=phase_b)
+                out, walls[tier] = h.warm_rectify(ds, tgt, interp, expect, n_warm,
+                                                  allow=phase_b)
+                h.check_output(out["rad"].data, dst)
+                del out
+                alone[tier] = wall_ms(lambda: port_rectify._inverse_ij_map(
+                    gm, tgt, UV_DELTA, dev), 3 if cell == "R1" else 1)
+                m = port_rectify._inverse_ij_map(gm, tgt, UV_DELTA, dev)
+            if not isinstance(m, ro.DeviceIJMap):
+                raise AssertionError(f"{cell} {tier}: Phase A gave a {type(m).__name__}")
+            d = h.compare(m.device_map(), k8, "map", f"{cell} {tier} map vs K8's")
+            print(f"{tag} {cell} rectify_dataset ({interp}, 1 band), {tier}: first call "
+                  f"{firsts[tier]:.3f} s, warm median of {n_warm} {walls[tier] * 1e3:.2f} ms; "
+                  f"Phase A alone (upload, plan, kernels) {alone[tier]:.2f} ms; its map vs "
+                  f"K8's: NaN coverage equal, max abs diff {d:.3g}")
+            del m
+        # -- K19 vs plain --------------------------------------------------------
+        b, by, n_cand = ladder_bound(g, dst)
+        got = pa.phase_a_walk(g, dst, UV_DELTA)
+        exact(got, pa.phase_a_walk_plain(g, dst, UV_DELTA), "phase_a_walk", f"{cell} in full")
+        h.compare(got, k8, "map", f"{cell} K19's map vs K8's")
+        del got
+        if cell == "R1":
+            k19 = h.time_pair(lambda: pa.phase_a_walk(g, dst, UV_DELTA),
+                              lambda: pa.phase_a_walk_plain(g, dst, UV_DELTA), 3)
+        else:
+            k19 = (h.event_ms(lambda: pa.phase_a_walk(g, dst, UV_DELTA), 3),
+                   once_ms(lambda: pa.phase_a_walk_plain(g, dst, UV_DELTA)),
+                   h.device_ms(lambda: pa.phase_a_walk(g, dst, UV_DELTA), 3))
+        # -- K20 vs plain: the default plan's classes ------------------------------
+        plan = pa.plan_phase_a_device(*args, device=dev)
+        if not isinstance(plan, pa.PhaseAPlan) or plan.cls_band is None:
+            raise AssertionError(f"{cell}: the tiled planner gave {plan!r}, no band class")
+        got = plan.apply()
+        h.compare(got, k8, "map", f"{cell} K20's map vs K8's")
+        c_all, c_band = plan.cls_all, plan.cls_band
+        buf = torch.empty_like(got)
+        if cell == "R1":
+            exact(got, plan.plain(), "phase_a_tiled", f"{cell} in full (both classes)")
+            a20 = (plan.g, None, c_all["bjs"], c_all["bis"], c_all["win"], plan.tile, plan.n_ti,
+                   UV_DELTA, buf)
+            k20 = (h.event_ms(lambda: pa.phase_a_tiled(*a20), 3),
+                   once_ms(lambda: pa.phase_a_tiled_plain(*a20)),
+                   h.device_ms(lambda: pa.phase_a_tiled(*a20), 3))
+        else:
+            for band in (False, True):
+                exact(*tiled_crop(plan, LADDER_CROP, band), "phase_a_tiled",
+                      f"{cell} the first {LADDER_CROP} tiles of the {'band' if band else 'interior'} class")
+            a20 = (plan.g, None, c_all["bjs"], c_all["bis"], c_all["win"], plan.tile, plan.n_ti,
+                   UV_DELTA, buf)
+            k20 = (h.event_ms(lambda: pa.phase_a_tiled(*a20), 3), None,
+                   h.device_ms(lambda: pa.phase_a_tiled(*a20), 3))
+        a20b = (plan.g, c_band["sel"], c_band["bjs"], c_band["bis"], c_band["win"], plan.tile,
+                plan.n_ti, UV_DELTA, buf)
+        k20b = (h.event_ms(lambda: pa.phase_a_tiled(*a20b), 3),
+                h.device_ms(lambda: pa.phase_a_tiled(*a20b), 3))
+        apply_dev = h.device_ms(plan.apply, 3)
+        del got, buf
+        # -- K21's path, its two entry points (their launches counted), and
+        # K21 vs plain ------------------------------------------------------------
+        LAUNCHES.clear()
+        sc = pa._inverse_ij_map_device_scatter(*args, device=dev)
+        got = pa.inverse_ij_map_jax(sw[0], sw[1], *args[2:])
+        torch.cuda.synchronize()
+        if sc is None or dict(LAUNCHES) != {"phase_a_scan": 2}:
+            raise AssertionError(f"{cell}: the scatter tier gave {type(sc).__name__}, "
+                                 f"launches {dict(LAUNCHES)}")
+        h.main_launches.update(LAUNCHES)
+        h.compare(torch.from_numpy(sc).to(dev), k8, "map", f"{cell} the scatter tier vs K8's")
+        del sc
+        exact(got, pa.phase_a_scan_plain(g, dst, 4, 4, UV_DELTA), "phase_a_scan",
+              f"{cell} inverse_ij_map_jax (4 x 4 candidates) in full")
+        h.compare(got, k8, "map", f"{cell} inverse_ij_map_jax vs K8's")
+        del got
+        if cell == "R1":
+            k21 = h.time_pair(lambda: pa.phase_a_scan(g, dst, 4, 4, UV_DELTA),
+                              lambda: pa.phase_a_scan_plain(g, dst, 4, 4, UV_DELTA), 3)
+        else:
+            k21 = (h.event_ms(lambda: pa.phase_a_scan(g, dst, 4, 4, UV_DELTA), 3),
+                   once_ms(lambda: pa.phase_a_scan_plain(g, dst, 4, 4, UV_DELTA)),
+                   h.device_ms(lambda: pa.phase_a_scan(g, dst, 4, 4, UV_DELTA), 3))
+        print(
+            f"{tag} {cell} Phase A alone, warm ({', '.join(f'{t} {v:.2f} ms' for t, v in alone.items())}); "
+            f"rectify_dataset warm ({', '.join(f'{t} {v * 1e3:.2f} ms' for t, v in walls.items())}); "
+            f"the tiled plan: interior window {c_all['win']} over {c_all['n_real']} tiles, band "
+            f"class {c_band['n_real']} tiles at {c_band['win']}, host blocks "
+            f"{0 if plan.host_blocks is None else len(plan.host_blocks[0])}; K20's band launch "
+            f"{k20b[0]:.4f} ms (device {k20b[1]:.4f} ms), apply (both launches) device "
+            f"{apply_dev:.4f} ms; {n_cand} candidate pixels"
+        )
+        for name, t in (("phase_a_walk", k19), ("phase_a_tiled", k20), ("phase_a_scan", k21)):
+            plain = "not timed (a crop held to it)" if t[1] is None else f"{t[1]:.2f} ms"
+            print(f"{tag} {cell} {name} ({height}x{width} swath -> {dst[0]}x{dst[1]}): kernel "
+                  f"{t[0]:.4f} ms (device {t[2]:.4f} ms), plain {plain}, bound {b:.4f} ms ({by})")
+            if cell == "R1":
+                timings[name], bounds[name] = t, (b, by)
+            else:
+                r3[name] = dict(r3_ms=t[0], r3_device_ms=t[2], r3_plain_ms=t[1], r3_bound_ms=b)
+        del plan, g, k8
+        if cell != "R1":
+            del ds, sw
+            torch.cuda.empty_cache()
+            continue
+        # -- R1's swath with its NaN row (section 7's), onto R1's target: the
+        # gates refuse, the default ladder takes K20 (K11 runs first and
+        # refuses); Phase A through rectify's entry, whose launches are
+        # counted (a NaN row inside the swath misleads the grid mapping's
+        # resolution, which would pre-downscale it in rectify_dataset)
+        lat = np.array(ds["lat"].data)
+        lat[700] = nan
+        ds_nan = ds.assign_coords({"lat": DataArray(lat, dims=("y", "x"))})
+        xy_nan = np.stack([xy[0], lat])
+        sw_nan = torch.from_numpy(xy_nan).to(dev)
+        k8_nan = port_rectify._inverse_ij_map_from_tiles(gm, tgt, UV_DELTA, sw_nan).device_map()
+        nan_gm = GridMapping.from_dataset(ds_nan)
+        LAUNCHES.clear()
+        m = port_rectify._inverse_ij_map(nan_gm, tgt, UV_DELTA, dev).device_map()
+        torch.cuda.synchronize()
+        got_launches = dict(LAUNCHES)
+        # (K12 may run once ahead of K11's refusal: the hybrid's optimistic
+        # dense launch on the last window of these shapes)
+        if (got_launches.get("phase_a_tiled") != 2 or got_launches.get("rectify_phase_a") != 1
+                or set(got_launches) - {"hybrid_seed", "hybrid_dense", "rectify_phase_a",
+                                        "phase_a_tiled"}):
+            raise AssertionError(f"R1 with a NaN row: the ladder launched {got_launches}")
+        h.main_launches.update(got_launches)
+        d = h.compare(m, k8_nan, "map", "R1 with a NaN row: the default ladder's map vs K8's")
+        plan = pa.plan_phase_a_device(*map_args(xy_nan, tgt), device=dev)
+        exact(plan.apply(), plan.plain(), "phase_a_tiled", "R1 with a NaN row")
+        print(f"{tag} R1 with a NaN row (row 700) under the default ladder: K11 refuses, the "
+              f"walk's gate refuses, K20 serves (launches {got_launches}): interior window "
+              f"{plan.cls_all['win']} over {plan.cls_all['n_real']} tiles, band class "
+              f"{plan.cls_band['n_real']} at {plan.cls_band['win']}, host blocks "
+              f"{0 if plan.host_blocks is None else len(plan.host_blocks[0])}; map vs K8's: NaN "
+              f"coverage equal, max abs diff {d:.3g}; K20 equal to its plain version")
+        del m, plan, ds_nan, k8_nan
+        # -- NaN edge rows (OLCI's and SLSTR's L2 swaths carry them) through
+        # rectify_dataset: the default ladder takes K20; with a jump of 80
+        # pixels besides (an edge past 8 tiles) every tier refuses: K10 and
+        # K8, where JAX takes its host tiles
+        lat = np.array(ds["lat"].data)
+        lat[:2] = nan
+        ds_edge = ds.assign_coords({"lat": DataArray(lat, dims=("y", "x"))})
+        _, first = h.run_rectify(ds_edge, tgt, interp, ("phase_a_tiled",),
+                                 allow=phase_b + ("hybrid_seed", "hybrid_dense",
+                                                  "rectify_phase_a"))
+        lon = np.array(ds["lon"].data)
+        lon[:, 600:] += 80 * tgt.x_res
+        ds_jump = ds_edge.assign_coords({"lon": DataArray(lon, dims=("y", "x"))})
+        if pa.plan_phase_a_device(*map_args(np.stack([lon, lat]), tgt), device=dev) is not None:
+            raise AssertionError("the tiled planner took the swath with a jump")
+        _, first_j = h.run_rectify(ds_jump, tgt, interp, ("ij_bboxes", "rectify_phase_a"),
+                                   allow=phase_b + ("hybrid_seed", "hybrid_dense"))
+        print(f"{tag} R1 with NaN rows 0-1 through rectify_dataset: K20 serves (first call "
+              f"{first:.3f} s); with a jump of 80 pixels besides every tier refuses, K10 and K8 "
+              f"serve (first call {first_j:.3f} s)")
+        del ds_edge, ds_jump
+        # -- host blocks: NaN columns but the last, half of it finite --------------
+        xy_host = xy.copy()
+        xy_host[:, :, 700:-1] = nan
+        xy_host[:, 600:, -1] = nan
+        sw_host = torch.from_numpy(xy_host).to(dev)
+        plan = pa.plan_phase_a_device(*map_args(xy_host, tgt), device=dev)
+        if not isinstance(plan, pa.PhaseAPlan) or plan.host_blocks is None:
+            raise AssertionError(f"the isolated column's plan has no host blocks: {plan!r}")
+        got = plan.apply()
+        exact(got, plan.plain(), "phase_a_tiled", "R1 with host blocks")
+        d = h.compare(got, port_rectify._inverse_ij_map_from_tiles(gm, tgt, UV_DELTA, sw_host)
+                      .device_map(), "map", "R1 with host blocks: K20's map vs K8's")
+        print(f"{tag} R1 with NaN columns 700-1187 and half the last: {len(plan.host_blocks[0])} "
+              f"host blocks (K8), band class {plan.cls_band['n_real']} at "
+              f"{plan.cls_band['win']}; K20 equal to its plain version, the map vs K8's: NaN "
+              f"coverage equal, max abs diff {d:.3g}")
+        del plan, got, ds, sw, sw_nan, sw_host
+        torch.cuda.empty_cache()
+    print(f"{tag} the ladder's kernels vs plain: max abs diff "
+          f"{', '.join(f'{k} {v}' for k, v in err.items())}")
+    return err, timings, bounds, library, r3
 
 
 # TREE's C entries of K14-K18 (--against), whose signatures this tree keeps
@@ -3608,14 +3977,17 @@ def dtypes_phase(dev, tag, h, sizes=DT_SIZES):
     for k, v in flags.items():
         ds_r1[k] = DataArray(torch.from_numpy(v).to(dev), dims=("y", "x"), chunks=chunks)
     fills = dict(fill_values={"flags": 0, "wqsf": 0, torch.float32: nan})
-    expect = ("ij_gather.uint32", "ij_gather.uint64", "rectify_phase_a")
+    # (the device tier: JAX's ladder takes the hybrid, K11 and K12)
+    expect = ("ij_gather.uint32", "ij_gather.uint64", "hybrid_seed", "hybrid_dense")
     out, first, got = run(lambda: resample_in_space(ds_r1, target_gm=r1_tgt,
                                                     interp_methods="nearest", **fills), expect)
     r1_sw = torch.from_numpy(np.stack([np.asarray(ds_r1["lon"].data),
                                        np.asarray(ds_r1["lat"].data)])).to(dev)
     r1_map = rectify_ops.rectify_phase_a(
         r1_sw, port_rectify._phase_a_tiles(r1_gm, r1_tgt, r1_sw), UV_DELTA)
-    fn = rectify_ops.make_device_var_image_fn(r1_map, rad.shape, 0, "nearest", device=dev)
+    fn = rectify_ops.make_device_var_image_fn(
+        port_rectify._inverse_ij_map(r1_gm, r1_tgt, UV_DELTA, dev).device_map(), rad.shape, 0,
+        "nearest", device=dev)
     for k, kern in (("flags", "ij_gather.uint32"), ("wqsf", "ij_gather.uint64")):
         src = ds_r1[k].data[None]
         h.check_output(out[k].data, (r1_tgt.height, r1_tgt.width), src.dtype)
@@ -3933,7 +4305,8 @@ def main() -> int:
                     "seed_pass", "seed_walk", "hybrid_dense_kernel", "esw_gather_kernel",
                     "esw_gather_band_kernel", "srw_aligned_vertical_kernel",
                     "srw_aligned_horizontal_kernel", "srw_aligned_vertical_direct",
-                    "esw_mosaic_kernel"):
+                    "esw_mosaic_kernel", "walk_coarse", "walk_fine", "tiled_kernel",
+                    "phase_a_scan_cu"):
         for name, regs, spill, stack in ptxas_kernels(build.log, pattern):
             print(f"  {name}: {regs} registers, {spill} bytes spilled, {stack} bytes of "
                   f"stack frame")
@@ -3949,11 +4322,15 @@ def main() -> int:
     # and K18 launch K14's and K15's kernels: the staged vertical kernel and
     # the horizontal kernel per method, the direct vertical kernel per
     # method with one tile and with many), K16 per method, and the
-    # downscale form's cached kernels: no spill, no local memory
+    # downscale form's cached kernels, K19's two kernels (K11's pass, which
+    # K19 launches too, is in both sources), K20 and K21's two passes: no
+    # spill, no local memory
     # (K7's band form: 3 methods for each of the 13 dtypes but bool's
     # bilinear and triangular)
     for pattern, n in (("ij_gather_band_kernel", 37), ("hybrid_dense_kernel", 4),
-                       ("srw_horizontal_kernel", 12), ("seed_pass", 1), ("seed_walk", 1),
+                       ("srw_horizontal_kernel", 12), ("seed_pass", 2), ("seed_walk", 1),
+                       ("walk_coarse", 1), ("walk_fine", 1), ("tiled_kernel", 1),
+                       ("phase_a_scan_cu", 2),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
                        ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 2),
                        ("srw_aligned_horizontal_kernel", 4), ("srw_aligned_vertical_direct", 4),
@@ -3973,6 +4350,7 @@ def main() -> int:
         "ij_bboxes": 0.0, "esw_gather": 0.0, "esw_gather_band": 0.0,
         "srw_aligned_vertical": 0.0, "srw_aligned_horizontal": 0.0, "esw_mosaic": 0.0,
         "srw_hybrid_vertical": 0.0, "srw_hybrid_horizontal": 0.0,
+        **dict.fromkeys(LADDER_KERNELS, 0.0),
     }
     main_launches: Counter = Counter()
     rectify_launches: Counter = Counter()
@@ -5165,13 +5543,15 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- 7. the rectify route: R1 (BASELINE #4), R2, R3, the numpy route ----
-    # the default (device) tier: K10's tile plan on the card, the map kept
-    # there, the resident Phase B; R1 and R3 also once under
+    # the default (device) tier: JAX's ladder on the card (the hybrid at
+    # R1-R3), the map kept there, the resident Phase B; R1 and R3 also once under
     # XRTPU_PHASEA=host (the host's bbox scan, the Phase B planned from the
     # whole map), and the numpy route under the host tier (K9)
     rectify_kernels = ("ij_bboxes", "rectify_phase_a", "ij_gather", "exact_gather")
     phase_b_srw = ("srw_vertical", "srw_horizontal")
-    device_tier = ("ij_bboxes", "rectify_phase_a")
+    # the default device tier's kernels at R1-R3: JAX's ladder takes the
+    # hybrid (K10 and K8 serve where every tier refuses: phase_a_ladder_phase)
+    device_tier = ("hybrid_seed", "hybrid_dense")
 
     class phase_a_tier:
         """XRTPU_PHASEA set to *tier* inside the block."""
@@ -5372,9 +5752,22 @@ def main() -> int:
         n_bytes = src.numel() * src.element_size() + n_out * map_bytes + b * n_out * src.element_size()
         return bound(n_bytes, b * n_out * per_band_ops, peak)
 
+    def raster_share(a, b, what):
+        """The share of the pixels where two rasters through two Phase A
+        maps (each within 1e-9 of the other) differ; raises unless their
+        NaN masks are equal and the share is below 1e-3."""
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(na, nb):
+            raise AssertionError(f"{what}: NaN masks differ")
+        share = (a[~na] != b[~nb]).float().mean().item()
+        if share >= 1e-3:
+            raise AssertionError(f"{what}: {share} of the pixels differ")
+        return share
+
     # R1: BASELINE #4 (bench.py:478-640), the 1189 x 1890 OLCI-like swath
     # onto its default grid with 512 tiles, nearest; the variable a float32
-    # tensor on the card: K10, K8, then K7's map form
+    # tensor on the card: the hybrid (K11, K12; JAX's ladder), then K7's
+    # map form
     ds_r1 = olci_swath(1189, 1890, ("rad",))
     r1_gm = GridMapping.from_dataset(ds_r1)
     r1_tgt = r1_gm.to_regular(tile_size=512)
@@ -5387,7 +5780,8 @@ def main() -> int:
     with phase_a_tier("host"):
         out, first_h = run_rectify(ds_r1, None, 0, ("rectify_phase_a", "ij_gather"))
         out, w_h = warm_rectify(ds_r1, None, 0, ("rectify_phase_a", "ij_gather"), 5)
-    compare(r1_img, out["rad"].data, "exact", "R1 nearest, device tier vs host tier", signs=True)
+    r1_share = raster_share(r1_img, out["rad"].data,
+                            "R1 nearest, device tier (the hybrid) vs host tier (K8)")
     r1_tiles = port_rectify._phase_a_tiles(r1_gm, r1_tgt)
     r1_sw = torch.from_numpy(np.stack([np.asarray(ds_r1["lon"].data),
                                        np.asarray(ds_r1["lat"].data)])).to(dev)
@@ -5397,28 +5791,32 @@ def main() -> int:
     r1_dev_map = port_rectify._inverse_ij_map(r1_gm, r1_tgt, UV_DELTA, dev)
     if not isinstance(r1_dev_map, rectify_ops.DeviceIJMap):
         raise AssertionError(f"R1's default tier gave a {type(r1_dev_map).__name__}")
-    compare(r1_dev_map.device_map(), port_rectify._inverse_ij_map(
-        r1_gm, r1_tgt, UV_DELTA, dev, tier="host"), "exact",
-        "R1 map, device tier vs host tier", signs=True)
-    del r1_dev_map
+    r1_d = compare(r1_dev_map.device_map(), port_rectify._inverse_ij_map(
+        r1_gm, r1_tgt, UV_DELTA, dev, tier="host"), "map",
+        "R1 map, device tier (the hybrid) vs host tier (K8)")
     r1_map_plain = rectify_ops.rectify_phase_a_plain(r1_sw, r1_tiles, UV_DELTA)
     err["rectify_phase_a"] = max(err["rectify_phase_a"], compare(
         r1_map, r1_map_plain, "exact", "R1 K8 vs plain"))
     r1_src = ds_r1["rad"].data
-    fn = rectify_ops.make_device_var_image_fn(r1_map_plain, r1_src.shape, nan, "nearest",
-                                              device=dev)
-    d = compare(r1_img, fn.plain(r1_src[None])[0], "nearest", "R1 vs plain K8 -> K7")
+    fn = rectify_ops.make_device_var_image_fn(r1_dev_map.device_map(), r1_src.shape, nan,
+                                              "nearest", device=dev)
+    d = compare(r1_img, fn.plain(r1_src[None])[0], "nearest",
+                "R1 vs the device tier's map -> plain K7")
+    del r1_dev_map
     print(
         f"{tag} resample_in_space R1 (BASELINE #4: 1189x1890 OLCI-like swath -> "
         f"{r1_tgt.width}x{r1_tgt.height} EPSG:4326, {len(r1_tiles.ints)} tiles of 512, "
         f"nearest, a float32 tensor): first call {first:.3f} s = {npix / first / 1e6:.1f} "
         f"Mpix/s; warm median of 5 {w * 1e3:.2f} ms = {npix / w / 1e6:.1f} Mpix/s; finite "
-        f"share {share:.4f}; vs plain K8 -> K7 max abs diff {d}; under XRTPU_PHASEA=host: "
-        f"first call {first_h:.3f} s, warm median of 5 {w_h * 1e3:.2f} ms; the device tier's "
-        f"map and output equal the host tier's bit for bit"
+        f"share {share:.4f}; vs the device tier's map -> plain K7 max abs diff {d}; under "
+        f"XRTPU_PHASEA=host: first call {first_h:.3f} s, warm median of 5 {w_h * 1e3:.2f} ms; "
+        f"the device tier's map (the hybrid) vs the host tier's (K8): NaN coverage equal, max "
+        f"abs diff {r1_d:.3g}; the outputs: NaN masks equal, {r1_share:.3g} of the pixels "
+        f"differ"
     )
-    # Phase A alone under each tier (the swath's upload, the tile plan: K10
-    # or the host's bbox scan, K8), warm; the tile plan alone
+    # Phase A alone under each tier (the device tier's ladder; the host
+    # tier's upload, bbox scan and K8), warm; the tile plan alone by K10 and
+    # by the host's scan
     def wall_ms(fn, n):
         fn()
         times = []
@@ -5498,8 +5896,9 @@ def main() -> int:
     library["rectify_phase_a"] = (None, None)
     k, p_, kd = timings["rectify_phase_a"]
     print(
-        f"{tag} R1 Phase A alone (upload, tile plan, K8), warm median of 5: device tier "
-        f"{phase_a_ms['device']:.2f} ms (tile plan with K10 {plan_ms['device']:.2f} ms), host "
+        f"{tag} R1 Phase A alone, warm median of 5: device tier (the swath's upload, the "
+        f"hybrid) {phase_a_ms['device']:.2f} ms (K10's tile plan alone "
+        f"{plan_ms['device']:.2f} ms), host tier (upload, tile plan, K8) "
         f"tier {phase_a_ms['host']:.2f} ms (the host's bbox scan {plan_ms['host']:.2f} ms); "
         f"rectify_phase_a {k:.4f} ms (device {kd:.4f} ms), plain {p_:.2f} ms, bound "
         f"{b8:.4f} ms ({by8}; {n_quads} window quads, {n_cand} candidate pixels)"
@@ -5924,7 +6323,21 @@ def main() -> int:
     )
     del ds_r3, sw, m, x, fn, g7, rfn
     torch.cuda.empty_cache()
-    missing = [n for n in rectify_kernels if rectify_launches[n] < 1]
+    # the rest of the device Phase A ladder: K19-K21 at R1 and R3, the
+    # NaN-row swath (K20) and the fallback (K10 and K8)
+    pa_err, pa_timings, pa_bounds, pa_library, pa_r3 = phase_a_ladder_phase(
+        dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
+                                  device_ms=device_ms, olci_swath=olci_swath,
+                                  run_rectify=run_rectify, warm_rectify=warm_rectify,
+                                  check_output=check_output, main_launches=main_launches)
+    )
+    for name, e in pa_err.items():
+        err[name] = max(err[name], e)
+    timings.update(pa_timings)
+    bounds.update(pa_bounds)
+    library.update(pa_library)
+    missing = [n for n in rectify_kernels + ("phase_a_walk", "phase_a_tiled")
+               if rectify_launches[n] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the rectify route: {missing}")
 
@@ -6072,6 +6485,7 @@ def main() -> int:
             "xcube_resampling_tpu/ops/srw.py:1480",
         ),
     }
+    sources.update(LADDER_SOURCES)
     for name in dt_err:
         if name not in sources:
             file, replaces = DT_SOURCES[name.split(".")[0]]
@@ -6093,8 +6507,8 @@ def main() -> int:
             # (BASELINE #2's c), the downscale form and K5 torch.nanmean
             # (BASELINE #1), K6 torch.mode (BASELINE #2), K7 and its band
             # form F.grid_sample (R1, nearest), K3's band form F.grid_sample
-            # (bilinear, band 1 past the gate); K8-K12 and K1's and K2's band
-            # forms, K14, K15, K17, K18: none
+            # (bilinear, band 1 past the gate); K8-K12, K19-K21 and K1's and
+            # K2's band forms, K14, K15, K17, K18: none
             "library_ms": library[name][0],
             # the same calls queued behind a sleep: device time alone
             "device_ms": timings[name][2],
@@ -6114,9 +6528,11 @@ def main() -> int:
     # K10 at R3 too (its ms, device_ms and bound above are R1's)
     k10_entry = next(k for k in kernels if k["name"] == "ij_bboxes")
     k10_entry.update(r3_ms=k10_r3[0], r3_device_ms=k10_r3[1], r3_bound_ms=b10)
-    # the sharded rectify's kernels at R3 too (their entries above are R1's)
+    # the sharded rectify's and the ladder's kernels at R3 too (their entries
+    # above are R1's)
     for k in kernels:
         k.update(sr_r3.get(k["name"], {}))
+        k.update(pa_r3.get(k["name"], {}))
     # K14 and K15 at 4 bands, and the flagship's SRW variants beside them
     for name in FLAGSHIP_KERNELS:
         entry = next(k for k in kernels if k["name"] == name)

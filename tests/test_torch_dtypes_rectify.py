@@ -84,23 +84,21 @@ def test_rectify_device_tier_matches_jax_resident(monkeypatch, interp):
     """``rectify_dataset`` under ``XRTPU_PHASEA=device`` (the resident
     Phase B over the device map) with tensors of five dtypes, against
     JAX's resident Phase B (``make_device_var_image_fn_resident``) on the
-    JAX host tier's map, which the port's map equals: each dtype's rule,
-    bit for bit; integers take the fill 0."""
+    map of JAX's device tier, which the port's ladder equals: each dtype's
+    rule, bit for bit; integers take the fill 0."""
     from xcube_resampling_tpu import rectify as jax_rectify
     from xcube_resampling_tpu.constants import UV_DELTA
     from xcube_resampling_tpu.ops import rectify_ops as jax_rectify_ops
 
-    from .test_torch_rectify import _jax_resident
-
     names = ["uint16", "int64", "float16", "float64", "uint32"]
     jds, pds, fill = swath_datasets(names, "device")
     jgm = xrt.GridMapping.from_dataset(jds)
-    m = jax_rectify._inverse_ij_map(jgm, jgm.to_regular(tile_size=16), UV_DELTA)
     monkeypatch.setenv("XRTPU_PHASEA", "device")
+    m = jax_rectify._inverse_ij_map(jgm, jgm.to_regular(tile_size=16), UV_DELTA)
+    assert isinstance(m, jax_rectify_ops.DeviceIJMap)
     got = port.rectify_dataset(pds, interp_methods=interp, device="cpu", **fill)
     for name in names:
         fill_value = fill.get("fill_values", {}).get(name, np.nan)
-        fn = jax_rectify_ops.make_device_var_image_fn_resident(_jax_resident(m), fill_value,
-                                                              interp)
+        fn = jax_rectify_ops.make_device_var_image_fn_resident(m, fill_value, interp)
         ref = np.asarray(fn(jds[name].data[None]))[0]
         match(got[name].data, ref)

@@ -310,6 +310,39 @@ def test_ij_bboxes_numpy_scan_matches():
         np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("case", ["clean", "nan", "fold", "long_edge"])
+def test_phase_a_host_helpers_match(case):
+    """The device Phase A's host helpers (``ops/phase_a.py``: the walk's
+    gate, the tiled planner's dilation and seed extrapolation, the scan's
+    power-of-two ceiling) equal their originals in ``ops/rectify_ops.py``."""
+    from xcube_resampling_tpu.ops import rectify_ops as jx_ro
+    from xcube_resampling_tpu_torch.ops import phase_a as pt_pa
+
+    rng = np.random.default_rng(11)
+    j, i = np.mgrid[0:30, 0:40].astype(np.float64)
+    gx = i * 1.1 + 0.2 * j + 0.05 * rng.random(j.shape)
+    gy = j * 0.9 - 0.1 * i + 0.05 * rng.random(j.shape)
+    if case == "nan":
+        gx[7, 9] = np.nan
+    elif case == "fold":
+        gx[10:20, 15], gx[10:20, 16] = gx[10:20, 16].copy(), gx[10:20, 15].copy()
+    elif case == "long_edge":
+        gx[:, 25:] += 30.0
+    for max_edge in (2.0, 40.0):
+        gx32, gy32 = gx.astype(np.float32), gy.astype(np.float32)
+        assert pt_pa._walk_gate(gx32, gy32, max_edge) == jx_ro._walk_gate(gx32, gy32, max_edge)
+    mask = rng.random((17, 23)) < (0.05 if case == "clean" else 0.3)
+    np.testing.assert_array_equal(pt_pa._dilate1(mask), jx_ro._dilate1(mask))
+    field = np.stack([gx, gy])[:, :25, :33].copy()
+    field[:, rng.random(field.shape[1:]) < 0.1] = np.nan
+    field[:, 12:, 20:] = np.nan  # cells farther than 8 from the valid ones
+    for iters in (2, 8):
+        np.testing.assert_array_equal(pt_pa._fill_nan_extrapolate(field, iters),
+                                      jx_ro._fill_nan_extrapolate(field, iters))
+    for n in range(0, 40):
+        assert pt_pa._ceil_pow2(n, 16) == jx_ro._ceil_pow2(n, 16)
+
+
 def test_spatial_dims_and_bbox_clip_match():
     """``get_spatial_dims`` and ``clip_dataset_by_bbox`` on each package's
     own dataset: the same dims, sizes and coordinates, for y stored

@@ -395,10 +395,11 @@ def _assert_phase_b(got, ref):
     ],
 )
 def test_device_tier_map_equals_the_host_tier(width, height, tile_size, nan_rows):
-    """Under the device tier K10's plain version plans the tiles on the
-    swath tensor: the same tile table as the host scan, so the map (held
-    in a DeviceIJMap) equals the host tier's, and the JAX host tier's, bit
-    for bit."""
+    """The device tier's fallback, where JAX's ladder refuses the geometry
+    (``_inverse_ij_map_from_tiles``): K10's plain version plans the tiles on
+    the swath tensor, the same tile table as the host scan, so K8's map
+    (held in a DeviceIJMap) equals the host tier's, and the JAX host
+    tier's, bit for bit."""
     ds = _swath(width, height, tile_size, nan_rows)
     jax_gm = xrt.GridMapping.from_dataset(ds)
     port_gm = port.GridMapping.from_dataset(_to_port(ds))
@@ -407,7 +408,7 @@ def test_device_tier_map_equals_the_host_tier(width, height, tile_size, nan_rows
                                        np.asarray(port_gm.xy_coords.data[1])]))
     np.testing.assert_array_equal(port_rectify._phase_a_tiles(port_gm, target, swath).ints,
                                   port_rectify._phase_a_tiles(port_gm, target).ints)
-    got = port_rectify._inverse_ij_map(port_gm, target, UV_DELTA, "cpu", tier="device")
+    got = port_rectify._inverse_ij_map_from_tiles(port_gm, target, UV_DELTA, swath)
     assert isinstance(got, port_rectify.rectify_ops.DeviceIJMap)
     ref = jax_rectify._inverse_ij_map(jax_gm, jax_gm.to_regular(tile_size=tile_size), UV_DELTA)
     np.testing.assert_array_equal(got.device_map().numpy(), ref)
@@ -419,9 +420,9 @@ def test_device_tier_map_equals_the_host_tier(width, height, tile_size, nan_rows
 def test_resident_phase_b_matches_jax(monkeypatch, swath, interp):
     """rectify_dataset under XRTPU_PHASEA=device on CPU tensors (2D and a
     2-band stack, NaN taps) against JAX's resident Phase B
-    (make_device_var_image_fn_resident over its DeviceIJMap, built on the
-    JAX host tier's map, which the port's map equals): equal for every
-    method, NaN coverage included, whether JAX takes make_srw_fn or
+    (make_device_var_image_fn_resident over the DeviceIJMap of JAX's
+    device tier, whose ladder the port's takes to the same map): equal for
+    every method, NaN coverage included, whether JAX takes make_srw_fn or
     make_srw_fn_batched (the same function; the port runs K1 and K2 for
     both).  The lattice gate takes the SRW interior on all three swaths;
     the port never plans from the whole map."""
@@ -433,15 +434,16 @@ def test_resident_phase_b_matches_jax(monkeypatch, swath, interp):
     ds["rad"] = xrt.DataArray(rad, dims=ds.rad.dims)
     ds["stack"] = xrt.DataArray(stack, dims=("band",) + ds.rad.dims)
     jax_gm = xrt.GridMapping.from_dataset(ds)
+    monkeypatch.setenv("XRTPU_PHASEA", "device")
     m = jax_rectify._inverse_ij_map(jax_gm, jax_gm.to_regular(tile_size=tile_size), UV_DELTA)
+    assert isinstance(m, jax_rectify_ops.DeviceIJMap)
     picked = _spy_srw(monkeypatch)
-    fn = jax_rectify_ops.make_device_var_image_fn_resident(_jax_resident(m), np.nan, interp)
+    fn = jax_rectify_ops.make_device_var_image_fn_resident(m, np.nan, interp)
     refs = {"rad": np.asarray(fn(jnp.asarray(rad[None])))[0],
             "stack": np.asarray(fn(jnp.asarray(stack)))}
     full_map = []
     monkeypatch.setattr(port_rectify.rectify_ops, "make_device_var_image_fn",
                         lambda *a, **k: full_map.append(a))
-    monkeypatch.setenv("XRTPU_PHASEA", "device")
     got = port.rectify_dataset(_to_port(ds, ("rad", "stack")), interp_methods=interp,
                                device="cpu")
     assert not full_map
@@ -517,15 +519,16 @@ def test_numpy_uint16_under_the_device_tier_matches_jax_resident(monkeypatch, in
     through the resident Phase B, as JAX's resident branch takes it
     (jnp's gather_interp: integer tap differences wrap in the source
     type), not K9's float64 host gather: equal to JAX's resident gather of
-    it, dtype included."""
+    it over its device tier's map, dtype included."""
     ds = _swath(233, 307, 128)
     data = (np.asarray(ds.rad.data) * 300).astype(np.uint16)
     ds["rad"] = xrt.DataArray(data, dims=ds.rad.dims)
     gm = xrt.GridMapping.from_dataset(ds)
-    m = jax_rectify._inverse_ij_map(gm, gm.to_regular(tile_size=128), UV_DELTA)
-    ref = np.asarray(jax_rectify_ops.make_device_var_image_fn_resident(
-        _jax_resident(m), 65535, interp)(jnp.asarray(data[None])))[0]
     monkeypatch.setenv("XRTPU_PHASEA", "device")
+    m = jax_rectify._inverse_ij_map(gm, gm.to_regular(tile_size=128), UV_DELTA)
+    assert isinstance(m, jax_rectify_ops.DeviceIJMap)
+    ref = np.asarray(jax_rectify_ops.make_device_var_image_fn_resident(
+        m, 65535, interp)(jnp.asarray(data[None])))[0]
     got = port.rectify_dataset(_to_port(ds), interp_methods=interp, device="cpu")["rad"].data
     assert isinstance(got, torch.Tensor)
     _assert_equal(got.numpy(), ref)

@@ -357,9 +357,10 @@ def main() -> int:
         median of 3: the grid mapping, the swath's coordinates into the
         target CRS and the pre-downscale where the call takes them, the
         swath's upload, the tile plan (K10 on the card, or the host's bbox
-        scan), K8, the Phase B plan (the resident form's from a step
-        lattice of the map, or the host map's from the whole map) and
-        Phase B for every band."""
+        scan), K8, under the device tier its Phase A (JAX's ladder, whose
+        map Phase B takes; K10 and K8 are its fallback), the Phase B plan
+        (the resident form's from a step lattice of the map, or the host
+        map's from the whole map) and Phase B for every band."""
         spans = {}
 
         def timed(name, fn):
@@ -391,7 +392,10 @@ def main() -> int:
             names = [n for n in src.data_vars]
             x = src[names[0]].data
             if tier == "device":
-                resident = rectify_ops.DeviceIJMap(m)
+                # the device tier's Phase A itself: JAX's ladder (its own
+                # upload; K10 and K8 above are its fallback, timed beside it)
+                resident = timed("phase_a_ladder", lambda: port_rectify._inverse_ij_map(
+                    gm, tgt, UV_DELTA, dev))
 
                 def lattice_plan():
                     fn = rectify_ops.make_device_var_image_fn_resident(resident, nan, interp)

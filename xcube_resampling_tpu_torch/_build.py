@@ -184,6 +184,21 @@ _SIGNATURES = {
         _P, _P, _I64, _I64, _D, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _P, _P,
         _P, _P,
     ],
+    # gx, gy, src_h, src_w, dst_h, dst_w, stride, coarse_iters, fine_iters,
+    # uv_delta, scratch, cq, out, stream
+    "xrt_phase_a_walk": [
+        _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _D, _P, _P, _P, _P,
+    ],
+    # gx, gy, src_h, src_w, tiles, bjs, bis, n, win, tile, n_ti, dst_h,
+    # dst_w, uv_delta, out, stream
+    "xrt_phase_a_tiled": [
+        _P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _P, _P,
+    ],
+    # gx, gy, src_h, src_w, dst_h, dst_w, r_i, r_j, uv_delta, claim, out,
+    # stream
+    "xrt_phase_a_scan": [
+        _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _D, _P, _P, _P,
+    ],
     # x, y, h, w, lattice, n_cols, n_rows, ij_border, table, out, queued,
     # stream
     "xrt_ij_bboxes": [

@@ -39,6 +39,10 @@ Port of ``xcube_resampling_tpu/ops/rectify_ops.py``:
   device.
 * :func:`var_image_from_ij_map` (:2767-2855) is the host Phase B of numpy
   variables: K9's ij_map mode (:mod:`.exact_gather`).
+* The rest of the device Phase A, the walk (K19), the tiled stencil (K20),
+  the scatter-min scan (K21) and JAX's ladder among them and the hybrid
+  (:func:`inverse_ij_map_device`, :2396), live in :mod:`.phase_a`, which
+  imports this module; their names are looked up there (``__getattr__``).
 
 The wrappers run the plain versions for CPU tensors and launch the kernels
 for CUDA tensors, or raise; they never fall back.
@@ -46,6 +50,7 @@ for CUDA tensors, or raise; they never fall back.
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from types import SimpleNamespace
@@ -605,23 +610,20 @@ def _in_box(box, col, row):
             & (torch.ceil(y_lo - 0.5) <= row) & (row <= torch.floor(y_hi - 0.5)))
 
 
-def hybrid_dense_pairs(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin,
-                       r0=0.0, boxes=False):
-    """K12's (pixel, window quad) pairs, chunk by chunk of tiles (about
-    _DENSE_CHUNK pairs a chunk), each a namespace of (tiles, n_p, n_q)
-    tensors: ``t`` (the chunk's tiles), ``rank`` (every quad's row-major
-    rank in the swath), ``ok_a``, ``ok_b`` (whether triangle A, B accepts
-    the pixel centre ``px``, ``py``; K12's own rounding), ``ua``, ``va``,
-    ``ub``, ``vb``; with *boxes*, also ``cand_a``, ``cand_b``: whether the
-    pixel lies in the triangle's :func:`hybrid_tri_boxes` box (the pairs
-    K12 solves)."""
+def _dense_chunks(gx, gy, cqj, cqi, dst_shape, tile, win_j, win_i, margin, r0, per_pixel=True):
+    """K12's tiles, chunk by chunk (about _DENSE_CHUNK (pixel, window quad)
+    pairs a chunk, or with *per_pixel* False _DENSE_CHUNK window quads),
+    each a namespace: ``t`` (the chunk's tiles), ``rank``
+    (T, 1, n_q: every window quad's row-major rank in the swath), its
+    corners ``p0x`` ... ``p3y``, its triangles' determinants ``det_a``,
+    ``det_b`` (NaN to 0) and their reciprocals ``inv_a``, ``inv_b`` (T, 1,
+    n_q), and the pixel centres ``px``, ``py`` (T, n_p, 1, row-major over
+    the tile)."""
     if r0:
         gy = gy - r0
     src_h, src_w = gx.shape
     nqi = src_w - 1
     n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
-    u_min = -uv_delta
-    uv_max = 1.0 + 2 * uv_delta
     dev = gx.device
     qj_lo, _ = _hybrid_corner_minmax(cqj.to(torch.int64))
     qi_lo, _ = _hybrid_corner_minmax(cqi.to(torch.int64))
@@ -632,7 +634,7 @@ def hybrid_dense_pairs(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i
     iota = torch.arange(tile, device=dev)
     wj = torch.arange(win_j, device=dev)
     wi = torch.arange(win_i, device=dev)
-    step = max(1, _DENSE_CHUNK // (n_p * n_q))
+    step = max(1, _DENSE_CHUNK // ((n_p if per_pixel else 1) * n_q))
     for t0 in range(0, n_tj * n_ti, step):
         t = torch.arange(t0, min(t0 + step, n_tj * n_ti), device=dev)
         bj, bi = base_j[t], base_i[t]
@@ -643,34 +645,144 @@ def hybrid_dense_pairs(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i
         def corner(w, dj, di):  # (T, 1, n_q): one quad corner of every window quad
             return w[:, dj : dj + win_j - 1, di : di + win_i - 1].reshape(len(t), 1, n_q)
 
-        p0x, p1x, p2x, p3x = (corner(wx, dj, di) for dj, di in ((0, 0), (0, 1), (1, 0), (1, 1)))
-        p0y, p1y, p2y, p3y = (corner(wy, dj, di) for dj, di in ((0, 0), (0, 1), (1, 0), (1, 1)))
-        det_a = torch.nan_to_num(_fdet_x(p0x, p0y, p1x, p1y, p2x, p2y), nan=0.0)
-        det_b = torch.nan_to_num(_fdet_x(p3x, p3y, p2x, p2y, p1x, p1y), nan=0.0)
-        inv_a = 1.0 / torch.where(det_a == 0.0, 1.0, det_a)
-        inv_b = 1.0 / torch.where(det_b == 0.0, 1.0, det_b)
+        c = SimpleNamespace(t=t)
+        c.p0x, c.p1x, c.p2x, c.p3x = (corner(wx, dj, di)
+                                      for dj, di in ((0, 0), (0, 1), (1, 0), (1, 1)))
+        c.p0y, c.p1y, c.p2y, c.p3y = (corner(wy, dj, di)
+                                      for dj, di in ((0, 0), (0, 1), (1, 0), (1, 1)))
+        c.det_a = torch.nan_to_num(_fdet_x(c.p0x, c.p0y, c.p1x, c.p1y, c.p2x, c.p2y), nan=0.0)
+        c.det_b = torch.nan_to_num(_fdet_x(c.p3x, c.p3y, c.p2x, c.p2y, c.p1x, c.p1y), nan=0.0)
+        c.inv_a = 1.0 / torch.where(c.det_a == 0.0, 1.0, c.det_a)
+        c.inv_b = 1.0 / torch.where(c.det_b == 0.0, 1.0, c.det_b)
         qj_g = (bj[:, None, None] + wj[None, :-1, None]).expand(-1, -1, win_i - 1)
         qi_g = (bi[:, None, None] + wi[None, None, :-1]).expand(-1, win_j - 1, -1)
-        rank = (qj_g * nqi + qi_g).reshape(len(t), 1, n_q)
-        # pixel centres, (T, n_p, 1) row-major over the tile
+        c.rank = (qj_g * nqi + qi_g).reshape(len(t), 1, n_q)
         px = ((t % n_ti)[:, None] * tile + iota.repeat(tile)[None, :]).to(_F64) + 0.5
         py = ((t // n_ti)[:, None] * tile + iota.repeat_interleave(tile)[None, :]).to(_F64) + 0.5
-        px, py = px[:, :, None], py[:, :, None]
-        ua = _fu_x(px, py, p0x, p0y, p2x, p2y) * inv_a
-        va = _fv_x(px, py, p0x, p0y, p1x, p1y) * inv_a
-        ok_a = (det_a != 0.0) & (ua >= u_min) & (va >= u_min) & (ua + va <= uv_max)
-        ub = _fu_x(px, py, p3x, p3y, p1x, p1y) * inv_b
-        vb = _fv_x(px, py, p3x, p3y, p2x, p2y) * inv_b
-        ok_b = (det_b != 0.0) & (ub >= u_min) & (vb >= u_min) & (ub + vb <= uv_max)
-        pairs = SimpleNamespace(t=t, rank=rank, px=px, py=py, ok_a=ok_a, ok_b=ok_b, ua=ua,
-                                va=va, ub=ub, vb=vb)
+        c.px, c.py = px[:, :, None], py[:, :, None]
+        yield c
+
+
+def _triangles(c):
+    """A chunk's two triangles of every window quad: (side, q0x, q0y, q1x,
+    q1y, q2x, q2y, det, inv), triangle A (p0, p1, p2) then B (p3, p2, p1)."""
+    return ((0, c.p0x, c.p0y, c.p1x, c.p1y, c.p2x, c.p2y, c.det_a, c.inv_a),
+            (1, c.p3x, c.p3y, c.p2x, c.p2y, c.p1x, c.p1y, c.det_b, c.inv_b))
+
+
+def _tri_test(px, py, q0x, q0y, q1x, q1y, q2x, q2y, det, inv, uv_delta):
+    """Triangle (q0, q1, q2)'s solve at (px, py) as K12 rounds it: (u, v,
+    whether it accepts)."""
+    u = _fu_x(px, py, q0x, q0y, q2x, q2y) * inv
+    v = _fv_x(px, py, q0x, q0y, q1x, q1y) * inv
+    return u, v, (det != 0.0) & (u >= -uv_delta) & (v >= -uv_delta) & (u + v <= 1.0 + 2 * uv_delta)
+
+
+def hybrid_dense_pairs(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin,
+                       r0=0.0, boxes=False):
+    """K12's (pixel, window quad) pairs, chunk by chunk of tiles (about
+    _DENSE_CHUNK pairs a chunk), each a namespace of (tiles, n_p, n_q)
+    tensors: ``t`` (the chunk's tiles), ``rank`` (every quad's row-major
+    rank in the swath), ``ok_a``, ``ok_b`` (whether triangle A, B accepts
+    the pixel centre ``px``, ``py``; K12's own rounding), ``ua``, ``va``,
+    ``ub``, ``vb``; with *boxes*, also ``cand_a``, ``cand_b``: whether the
+    pixel lies in the triangle's :func:`hybrid_tri_boxes` box (the pairs
+    K12 solves)."""
+    for c in _dense_chunks(gx, gy, cqj, cqi, dst_shape, tile, win_j, win_i, margin, r0):
+        (_, *tri_a), (_, *tri_b) = _triangles(c)
+        c.ua, c.va, c.ok_a = _tri_test(c.px, c.py, *tri_a, uv_delta)
+        c.ub, c.vb, c.ok_b = _tri_test(c.px, c.py, *tri_b, uv_delta)
         if boxes:
-            col, row = px - 0.5, py - 0.5
-            pairs.cand_a = _in_box(
-                hybrid_tri_boxes(p0x, p0y, p1x, p1y, p2x, p2y, det_a, uv_delta), col, row)
-            pairs.cand_b = _in_box(
-                hybrid_tri_boxes(p3x, p3y, p2x, p2y, p1x, p1y, det_b, uv_delta), col, row)
-        yield pairs
+            col, row = c.px - 0.5, c.py - 0.5
+            c.cand_a = _in_box(hybrid_tri_boxes(*tri_a[:7], uv_delta), col, row)
+            c.cand_b = _in_box(hybrid_tri_boxes(*tri_b[:7], uv_delta), col, row)
+        yield c
+
+
+def _dense_winners(c, n_q, uv_delta, count):
+    """Every pixel's winner in chunk *c* over all its window's pairs: (its
+    window position (n_q where none wins), whether triangle A accepts it,
+    the winning triangle's u and v), each (T, n_p); and with *count*, the
+    pairs in the triangles' boxes a pixel."""
+    (_, *tri_a), (_, *tri_b) = _triangles(c)
+    ua, va, ok_a = _tri_test(c.px, c.py, *tri_a, uv_delta)
+    ub, vb, ok_b = _tri_test(c.px, c.py, *tri_b, uv_delta)
+    local = torch.arange(n_q, device=c.px.device)
+    arg = torch.where(ok_a | ok_b, local, n_q).min(dim=-1, keepdim=True)[0]
+    at_arg = arg.clamp(max=n_q - 1)
+
+    def at(x):
+        return x.expand(-1, -1, n_q).gather(-1, at_arg)[..., 0]
+
+    take_a = at(ok_a)
+    u = torch.where(take_a, at(ua), at(ub))
+    v = torch.where(take_a, at(va), at(vb))
+    solved = None
+    if count:
+        col, row = c.px - 0.5, c.py - 0.5
+        solved = (_in_box(hybrid_tri_boxes(*tri_a[:7], uv_delta), col, row).sum(-1)
+                  + _in_box(hybrid_tri_boxes(*tri_b[:7], uv_delta), col, row).sum(-1))
+    return arg[..., 0], take_a, u, v, solved
+
+
+def _box_pairs(box, x0, y0, tile):
+    """The (tile, quad, pixel) pairs whose pixel centre lies in its quad's
+    triangle *box* (T, 1, n_q each side), as :func:`_in_box` selects them
+    and K12 clips a box to its tile's pixels (``clip_box``): per tile and
+    quad the rectangle of pixels inside, enumerated.  *x0*, *y0* (T,) are
+    each tile's first pixel column and row.  Returns index tensors (tile,
+    quad, pixel within the tile)."""
+    x_lo, x_hi, y_lo, y_hi = (b[:, 0] for b in box)
+    c_lo = (torch.ceil(x_lo - 0.5) - x0[:, None]).clamp(min=0)
+    c_hi = (torch.floor(x_hi - 0.5) - x0[:, None]).clamp(max=tile - 1)
+    r_lo = (torch.ceil(y_lo - 0.5) - y0[:, None]).clamp(min=0)
+    r_hi = (torch.floor(y_hi - 0.5) - y0[:, None]).clamp(max=tile - 1)
+    n_c = (c_hi - c_lo + 1).clamp(min=0)
+    n = (n_c * (r_hi - r_lo + 1).clamp(min=0)).reshape(-1)
+    some = n > 0
+    entry = torch.nonzero(some)[:, 0]
+    n = n[some].long()
+    c_lo, r_lo, n_c = (x.reshape(-1)[some].long() for x in (c_lo, r_lo, n_c))
+    k = torch.arange(int(n.sum()), device=n.device) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    pick = torch.repeat_interleave(torch.arange(len(n), device=n.device), n)
+    n_q = x_lo.shape[1]
+    pixel = (r_lo[pick] + k // n_c[pick]) * tile + c_lo[pick] + k % n_c[pick]
+    return entry[pick] // n_q, entry[pick] % n_q, pixel
+
+
+def _culled_winners(c, n_q, uv_delta, count):
+    """:func:`_dense_winners` over the pairs inside the triangles' boxes
+    only (:func:`hybrid_tri_boxes`, enumerated by :func:`_box_pairs`), as
+    K12 tests them: each triangle's solve taken at those pairs alone, the
+    least key 2 * position + side a pixel kept (K12's shared atomicMin)."""
+    n_t, n_p = c.px.shape[:2]
+    tile = math.isqrt(n_p)
+    x0, y0 = c.px[:, 0, 0] - 0.5, c.py[:, 0, 0] - 0.5
+    dev = c.px.device
+    pix, key, us, vs = [], [], [], []
+    solved = torch.zeros(n_t * n_p, dtype=torch.int64, device=dev)
+    for side, *tri in _triangles(c):
+        ti, qi, pi = _box_pairs(hybrid_tri_boxes(*tri[:7], uv_delta), x0, y0, tile)
+        if count:
+            solved += torch.bincount(ti * n_p + pi, minlength=n_t * n_p)
+        u, v, ok = _tri_test(c.px[ti, pi, 0], c.py[ti, pi, 0],
+                             *(x[ti, 0, qi] for x in tri), uv_delta)
+        pix.append((ti * n_p + pi)[ok])
+        key.append((2 * qi + side)[ok])
+        us.append(u[ok])
+        vs.append(v[ok])
+    pix, key, u, v = (torch.cat(x) for x in (pix, key, us, vs))
+    best = torch.full((n_t * n_p,), 2 * n_q, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, pix, key, reduce="amin")
+    win = key == best[pix]
+    u_w = torch.full((n_t * n_p,), _NAN, dtype=_F64, device=dev)
+    v_w = u_w.clone()
+    u_w[pix[win]] = u[win]
+    v_w[pix[win]] = v[win]
+    best = best.view(n_t, n_p)
+    return (best // 2, best % 2 == 0, u_w.view(n_t, n_p), v_w.view(n_t, n_p),
+            solved.view(n_t, n_p) if count else None)
 
 
 def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, margin,
@@ -686,7 +798,7 @@ def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i
     *solved*, likewise, takes the (pixel, triangle) pairs K12 solves: the
     window's triangles whose box (:func:`hybrid_tri_boxes`) holds the
     pixel centre.  With *cull*, only those pairs are tested, as K12 tests
-    them."""
+    them (and only they are solved: the fast form on the CPU)."""
     dst_h, dst_w = dst_shape
     n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
     nqi = gx.shape[1] - 1
@@ -694,28 +806,21 @@ def hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i
     n_p = tile * tile
     dev = gx.device
     out = torch.empty((4, n_tj * n_ti, n_p), dtype=_F64, device=dev)
-    no_rank = torch.iinfo(torch.int64).max
-    for c in hybrid_dense_pairs(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i,
-                                margin, r0, boxes=cull or solved is not None):
-        ok_a, ok_b = (c.ok_a & c.cand_a, c.ok_b & c.cand_b) if cull else (c.ok_a, c.ok_b)
-        best, arg = torch.where(ok_a | ok_b, c.rank, no_rank).min(dim=-1, keepdim=True)
-
-        def at(x):
-            return x.gather(-1, arg)[..., 0]
-
-        gi = (best % nqi)[..., 0].to(_F64)
-        gj = (best // nqi)[..., 0].to(_F64)
-        take_a = at(ok_a)
-        src_if = torch.where(take_a, gi + at(c.ua).clamp(0.0, 1.0),
-                             (gi + 1) - at(c.ub).clamp(0.0, 1.0))
-        src_jf = torch.where(take_a, gj + at(c.va).clamp(0.0, 1.0),
-                             (gj + 1) - at(c.vb).clamp(0.0, 1.0))
-        found = best[..., 0] < no_rank
+    winners = _culled_winners if cull else _dense_winners
+    for c in _dense_chunks(gx, gy, cqj, cqi, dst_shape, tile, win_j, win_i, margin, r0,
+                           per_pixel=not cull):
+        arg, take_a, u, v, count = winners(c, n_q, uv_delta, solved is not None)
+        found = arg < n_q
+        best = c.rank[:, 0].gather(-1, arg.clamp(max=n_q - 1))
+        gi = (best % nqi).to(_F64)
+        gj = (best // nqi).to(_F64)
+        src_if = torch.where(take_a, gi + u.clamp(0.0, 1.0), (gi + 1) - u.clamp(0.0, 1.0))
+        src_jf = torch.where(take_a, gj + v.clamp(0.0, 1.0), (gj + 1) - v.clamp(0.0, 1.0))
         out[0, c.t] = torch.where(found, src_if, _NAN)
         out[1, c.t] = torch.where(found, src_jf, _NAN)
-        out[2, c.t] = torch.where(found, arg[..., 0] + 1, n_q).to(_F64)
-        if solved is not None:
-            out[3, c.t] = (c.cand_a.sum(-1) + c.cand_b.sum(-1)).to(_F64)
+        out[2, c.t] = torch.where(found, arg + 1, n_q).to(_F64)
+        if count is not None:
+            out[3, c.t] = count.to(_F64)
     out = out.reshape(4, n_tj, n_ti, tile, tile).permute(0, 1, 3, 2, 4)
     out = out.reshape(4, n_tj * tile, n_ti * tile)[:, :dst_h, :dst_w]
     if tested is not None:
@@ -769,8 +874,9 @@ def hybrid_dense(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i, marg
     None, take the winner's position in the window's rank order plus one
     and the (pixel, triangle) pairs solved a pixel."""
     if on_cpu(gx, gy, cqj, cqi):
+        # (the culled form: the same map, the pairs no box holds left unsolved)
         return hybrid_dense_plain(gx, gy, cqj, cqi, dst_shape, uv_delta, tile, win_j, win_i,
-                                  margin, r0, tested, solved)
+                                  margin, r0, tested, solved, cull=True)
     src_h, src_w = gx.shape
     dst_h, dst_w = dst_shape
     n_tj, n_ti, _, _ = _hybrid_lattice(dst_shape, tile)
@@ -1343,3 +1449,14 @@ def var_image_from_ij_map(src_var, ij_map, fill_value, interp_method):
     src = src_var.reshape((-1,) + tuple(src_var.shape[-2:])).contiguous()
     out = exact_gather_ij(src, ij_map, fill_value, interp_method)
     return out.reshape(lead + tuple(out.shape[-2:]))
+
+
+def __getattr__(name: str):
+    """The names of :mod:`.phase_a` (``__all__``), as the JAX package's
+    ``rectify_ops`` holds them: looked up there on first use, since
+    :mod:`.phase_a` imports this module."""
+    from . import phase_a
+
+    if name in phase_a.__all__:
+        return getattr(phase_a, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1124,7 +1124,9 @@ def sharded_rectify(
     (``halo.py:sharded_rectify``):
     Phase A by :func:`sharded_phase_a` unless *ij_map* is given, or where
     the hybrid's envelope refuses the geometry the port's single-device
-    Phase A (``rectify._inverse_ij_map``: K8 on the mesh's first device);
+    Phase A on the mesh's first device (``rectify._inverse_ij_map``: on a
+    CUDA device JAX's ladder, the walk or the tiled stencil, else K10 and
+    K8; on the CPU the host tier's K8);
     then Phase B through :func:`make_sharded_rectify_step`.  Returns the
     target raster as a :class:`.tiling.Sharded`."""
     if ij_map is None:

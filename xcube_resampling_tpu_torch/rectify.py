@@ -6,17 +6,20 @@ Port of ``xcube_resampling_tpu/rectify.py`` (``rectify_dataset``,
 ``_phase_a_tier``, ``_inverse_ij_map``, ``_gather_variable``,
 ``_gather_host_tiled``):
 
-* Phase A runs on the device of the data as one launch of K8 over a tile
-  table (:func:`_phase_a_tiles`): per destination tile the source window
-  of the JAX package's host tier and its own origin, so the map equals the
-  host tier's bit for bit.  ``XRTPU_PHASEA`` picks the tier as in the JAX
-  package (:func:`_phase_a_tier`): ``device`` (the default on a CUDA
-  device) scans the tiles' windows with K10 on the swath's coordinates
-  that K8 reads, and keeps the map on the device (a
-  :class:`~.ops.rectify_ops.DeviceIJMap`); ``host`` (the default on the
-  CPU) scans them on the host (``GridMapping.ij_bboxes_from_xy_bboxes``).
-  The JAX package's ``auto`` also models the TPU's link; that model is
-  not ported.
+* Phase A: ``XRTPU_PHASEA`` picks the tier as in the JAX package
+  (:func:`_phase_a_tier`).  ``device`` (the default on a CUDA device) runs
+  JAX's ladder (``rectify_ops.inverse_ij_map_device``): the hybrid (K11,
+  K12), the walk (K19), the tiled stencil (K20), with the switches
+  ``XRTPU_PHASEA_HYBRID=0`` and ``XRTPU_PHASEA_WALK=0``, and keeps the map
+  on the device (a :class:`~.ops.rectify_ops.DeviceIJMap`); where the
+  ladder refuses the geometry, K10 scans the tiles' windows on the swath's
+  coordinates and K8 solves each tile (:func:`_inverse_ij_map_from_tiles`).
+  ``host`` (the default on the CPU) scans them on the host
+  (``GridMapping.ij_bboxes_from_xy_bboxes``) and K8 over the tile table
+  (:func:`_phase_a_tiles`: per destination tile the source window of the
+  JAX package's host tier and its own origin) gives the host tier's map
+  bit for bit.  The JAX package's ``auto`` also models the TPU's link; that
+  model is not ported.
 * Phase B over a device map (the device tier) gathers every variable,
   tensor or numpy, through the resident Phase B
   (``rectify_ops.make_device_var_image_fn_resident``: K7, and for bilinear
@@ -279,17 +282,42 @@ def _inverse_ij_map(
     tier: str | None = None,
 ) -> torch.Tensor | rectify_ops.DeviceIJMap:
     """PHASE A: the (2, height, width) float64 fractional source-index map
-    on *device*, K8 over the host tier's tile plan.  The swath's
-    coordinates go to the device once.  Under the device tier (*tier*, by
-    default :func:`_phase_a_tier`'s) K10 scans the tile windows on them
-    and the map comes back as a :class:`~.ops.rectify_ops.DeviceIJMap`;
-    under the host tier the host scans them and the map is a tensor."""
+    on *device*.  Under the device tier (*tier*, by default
+    :func:`_phase_a_tier`'s) JAX's ladder (``rectify_ops.inverse_ij_map_device``:
+    the hybrid, the walk, the tiled stencil) gives a
+    :class:`~.ops.rectify_ops.DeviceIJMap`; where it refuses the geometry
+    or solves a degenerate one on the host, :func:`_inverse_ij_map_from_tiles`
+    (K10's tile plan, then K8), where the JAX package takes its host tiles.
+    Under the host tier the host scans the tiles and K8 gives a tensor.  The
+    swath's coordinates go to the device once a tier."""
     tier = tier or _phase_a_tier(device)
-    swath = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(source_gm.xy_coords.data), dtype=np.float64)
-    ).to(device)
+    xy = np.ascontiguousarray(np.asarray(source_gm.xy_coords.data), dtype=np.float64)
+    if tier == "device":
+        x1, y1, x2, y2 = target_gm.xy_bbox
+        x_res, y_res = target_gm.xy_res
+        j_up = target_gm.is_j_axis_up
+        on_device = rectify_ops.inverse_ij_map_device(
+            xy[0], xy[1], 0, 0, (target_gm.height, target_gm.width), x1,
+            y1 if j_up else y2, x_res, y_res if j_up else -y_res, uv_delta, device=device,
+        )
+        if isinstance(on_device, rectify_ops.DeviceIJMap):
+            return on_device
+    swath = torch.from_numpy(xy).to(device)
     if tier == "host":
         return rectify_ops.rectify_phase_a(swath, _phase_a_tiles(source_gm, target_gm), uv_delta)
+    return _inverse_ij_map_from_tiles(source_gm, target_gm, uv_delta, swath)
+
+
+def _inverse_ij_map_from_tiles(
+    source_gm: GridMapping,
+    target_gm: GridMapping,
+    uv_delta: float,
+    swath: torch.Tensor,
+) -> rectify_ops.DeviceIJMap:
+    """The device tier's map where the ladder refuses the geometry: K10
+    scans the tile windows on *swath* (the (2, H, W) float64 coordinates on
+    the device) and K8 solves every tile, the host tier's map bit for bit,
+    kept on the device."""
     tiles = _phase_a_tiles(source_gm, target_gm, swath)
     return rectify_ops.DeviceIJMap(rectify_ops.rectify_phase_a(swath, tiles, uv_delta))
 
