@@ -3,8 +3,9 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit: ``python3 chip_smoke.py`` (``--against TREE``: also
-time K13-K18 of TREE, e.g. the parent unpacked with ``git archive``,
-beside this tree's, in turns).  It
+time K13-K18, K20 and, where TREE has ``srw_horizontal_f64.cu``, K2's
+float64 form of TREE, e.g. the parent unpacked with ``git archive``,
+beside this tree's, in turns, each held to this tree's).  It
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``xcube_resampling_tpu_torch/csrc`` with ``nvcc``,
@@ -106,8 +107,9 @@ beside this tree's, in turns).  It
    and a jump of 80 pixels, where every tier refuses and K10 and K8 serve;
    a plan with host blocks; K21 through ``inverse_ij_map_jax`` and
    ``_inverse_ij_map_device_scatter``; each map within 1e-9 of K8's, each
-   kernel bit for bit against its plain version); the kernel launch
-   counts are reset before and read after each call;
+   kernel bit for bit against its plain version; K20's band class timed
+   apart, and with ``--against`` both classes beside TREE's K20); the
+   kernel launch counts are reset before and read after each call;
 3. holds every result against the plain PyTorch composition on the same
    device tensors, and the small case against the port's own K3 (the
    direct gather) within the two-pass bounds;
@@ -223,7 +225,8 @@ beside this tree's, in turns).  It
    JAX package's thirteen data dtypes added, at full size on its cell,
    held to its plain version on the card and timed with its bound: the
    headline's 20480^2 through the tiled SRW on uint16 (K1 reading it in
-   place) and float64 (K1 and K2's float64 path); BASELINE #2's 4-band
+   place) and float64 (K1 and K2's float64 form, bilinear, and K2's float64
+   form on triangular besides); BASELINE #2's 4-band
    4096^2 in uint16, int64, float16, bfloat16 and bool through
    ``coarsen`` and the affine route (K4, its downscale form, K5, K6); R1
    with a uint32 and a uint64 band (K7 on the device tier, K9 on numpy
@@ -233,9 +236,12 @@ beside this tree's, in turns).  It
    float32 cast's cost; K3 on the whole of BASELINE #3 under
    ``XRTPU_NO_EXACT_MOSAIC=1`` (int16 and int64 nearest, float64 and
    bfloat16 bilinear) and K3's band form through ``sharded_reproject`` on
-   int16; B5's sharded SRW step on uint16 (K1's band form); K1 on uint16
-   beside the float32 cast followed by the float32 K1; and fails the run
-   if any kernel of the library spills;
+   int16; B5's sharded SRW step on uint16 (K1's band form) and on 4
+   float64 bands (K2's band form on float64 held and timed on band 1); K1
+   on uint16 beside the float32 cast followed by the float32 K1; with
+   ``--against``, K2's float64 form (bilinear and triangular, and on the
+   band) beside TREE's in turns; and fails the run if any kernel of the
+   library spills;
 8. prints the card line again, a JSON line of the kernels (the new
    instantiations under ``kernel.dtype``) and, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -3348,6 +3354,24 @@ def phase_a_ladder_phase(dev, tag, h, cells=LADDER_CELLS):
         k20b = (h.event_ms(lambda: pa.phase_a_tiled(*a20b), 3),
                 h.device_ms(lambda: pa.phase_a_tiled(*a20b), 3))
         apply_dev = h.device_ms(plan.apply, 3)
+        pre = "" if cell == "R1" else "r3_"
+        extra = r3.setdefault("phase_a_tiled", {})
+        extra[f"{pre}band_ms"], extra[f"{pre}band_device_ms"] = k20b
+        extra[f"{pre}apply_device_ms"] = apply_dev
+        if h.tree is not None:
+            # the parent's K20 (a thread a pixel scanning its window) on each
+            # class in turns with this tree's, held to it bit for bit
+            for key, a in (("", a20), ("band_", a20b)):
+                a = a[:-1] + (torch.full_like(buf, nan),)
+                theirs = h.tree.k20(a[:-1] + (torch.full_like(buf, nan),))
+                exact(theirs(), pa.phase_a_tiled(*a), "phase_a_tiled",
+                      f"{cell} the parent's K20, {key or 'interior_'}class")
+                k, p = beside_parent(h, lambda a=a: pa.phase_a_tiled(*a), theirs)
+                extra[f"{pre}{key}device_ms_in_turns"] = k
+                extra[f"{pre}parent_{key}device_ms"] = p
+                print(f"{tag} {cell} K20 {key or 'interior_'}class in turns (parent, this, this, "
+                      f"parent): this {k:.4f} ms, the parent's {p:.4f} ms device")
+                del a, theirs
         del got, buf
         # -- K21's path, its two entry points (their launches counted), and
         # K21 vs plain ------------------------------------------------------------
@@ -3388,7 +3412,8 @@ def phase_a_ladder_phase(dev, tag, h, cells=LADDER_CELLS):
             if cell == "R1":
                 timings[name], bounds[name] = t, (b, by)
             else:
-                r3[name] = dict(r3_ms=t[0], r3_device_ms=t[2], r3_plain_ms=t[1], r3_bound_ms=b)
+                r3.setdefault(name, {}).update(r3_ms=t[0], r3_device_ms=t[2], r3_plain_ms=t[1],
+                                               r3_bound_ms=b)
         del plan, g, k8
         if cell != "R1":
             del ds, sw
@@ -3476,13 +3501,20 @@ TREE_SIGNATURES = {
     "xrt_srw_aligned_vertical_f32": ["p"] * 5 + ["q"] * 6 + ["i", "q", "q", "i", "i", "p"],
     "xrt_srw_aligned_horizontal_f32": ["p"] * 6 + ["q"] * 7 + ["i", "q", "i", "i", "f", "p"],
 }
-# the parent's C entries of K13, its band form and K16 (--against): K13's
-# and K16's take the staged flag before the stream, as this tree's do; the
-# band form's takes none (this tree's does)
+# the parent's C entries of K13, its band form and K16 (--against): each
+# takes the staged flag before the stream, as this tree's does
 TREE_ESW_SIGNATURES = {
     "xrt_esw_gather_f32": ["p"] * 5 + ["q"] * 8 + ["i", "i", "i", "f"] + ["q"] * 4 + ["i", "p"],
-    "xrt_esw_gather_band_f32": ["p"] * 5 + ["q"] * 8 + ["i", "i", "i", "f"] + ["q"] * 3 + ["p"],
+    "xrt_esw_gather_band_f32": ["p"] * 5 + ["q"] * 8 + ["i", "i", "i", "f"] + ["q"] * 3
+    + ["i", "p"],
     "xrt_esw_mosaic_f32": ["p"] * 5 + ["q"] * 7 + ["i", "i", "f", "i", "i", "i", "p"],
+}
+# the parent's C entries of K20 (this tree's signature) and of K2's float64
+# form (the earlier design's, srw_horizontal_f64.cu: a thread an output
+# pixel, the row tiles' count and no windows) (--against)
+TREE_PHASE_A_SIGNATURES = {
+    "xrt_phase_a_tiled": ["p", "p", "q", "q", "p", "p", "p"] + ["q"] * 6 + ["d", "p", "p"],
+    "xrt_srw_horizontal_f64": ["p"] * 6 + ["q"] * 7 + ["i", "q", "q", "i", "i", "d", "q", "p"],
 }
 
 
@@ -3497,7 +3529,7 @@ def build_tree_library(tree, out_dir, sources=("srw_aligned.cu",), signatures=No
     from xcube_resampling_tpu_torch import _build
 
     types = {"p": ctypes.c_void_p, "q": ctypes.c_int64, "i": ctypes.c_int,
-             "f": ctypes.c_float}
+             "f": ctypes.c_float, "d": ctypes.c_double}
     csrc = Path(tree) / "xcube_resampling_tpu_torch" / "csrc"
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -3540,8 +3572,8 @@ def esw_entry_call(lib, a, staged=None):
 
 def esw_band_entry_call(lib, a, staged=None):
     """A closure launching a library's entry of K13's band form on its
-    wrapper arguments *a*, *staged* or not (None: the parent's entry,
-    which takes no flag)."""
+    wrapper arguments *a*, *staged* or not (None: an entry that takes no
+    flag)."""
     import torch
 
     from xcube_resampling_tpu_torch.ops.reproject_ops import method_code
@@ -3630,25 +3662,85 @@ def tree_calls(lib, fn, x):
     return vertical, horizontal
 
 
+def tiled_entry_call(lib, a):
+    """A closure launching a library's K20 entry on K20's wrapper arguments
+    *a* (g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out)."""
+    import torch
+
+    g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out = a
+    args = [g[0].data_ptr(), g[1].data_ptr(), g.shape[1], g.shape[2],
+            None if tiles is None else tiles.data_ptr(), bjs.data_ptr(), bis.data_ptr(),
+            bjs.shape[0], win, tile, n_ti, out.shape[1], out.shape[2], float(uv_delta),
+            out.data_ptr()]
+
+    def run():
+        rc = lib.xrt_phase_a_tiled(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"K20 of a built library: CUDA error {rc}")
+        return out
+
+    return run
+
+
+def horizontal_f64_entry_call(lib, h_args, vd=None, row0=0):
+    """A closure launching the parent's entry of K2's float64 form (the
+    signature of srw_horizontal_f64.cu) on K2's wrapper arguments *h_args* (v, ix_c, iy_c, step,
+    base_h, row_tile, d_h, src_h, windows, method, fill), *vd* for
+    triangular, at band origin *row0*, into an output of its own."""
+    import torch
+
+    from xcube_resampling_tpu_torch.ops.reproject_ops import method_code
+
+    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, _, interp, fill = h_args
+    batch, out_h, src_w = v.shape
+    ncj, nci = ix_c.shape
+    out = torch.empty((batch, out_h, base_h.shape[1]), dtype=torch.float64, device=v.device)
+    args = [v.data_ptr(), None if vd is None else vd.data_ptr(), ix_c.data_ptr(),
+            iy_c.data_ptr(), base_h.data_ptr(), out.data_ptr(), batch, out_h, base_h.shape[1],
+            src_h, src_w, ncj, nci, step, row_tile, base_h.shape[0], d_h, method_code(interp),
+            float(fill), row0]
+
+    def run():
+        rc = lib.xrt_srw_horizontal_f64(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"K2's float64 form of a built library: CUDA error {rc}")
+        return out
+
+    return run
+
+
 def parent_kernels(tree):
-    """For ``--against TREE`` (the parent tree), its two libraries built
+    """For ``--against TREE`` (the parent tree), its libraries built
     together: a function of (an aligned or hybrid fn, its cropped source)
-    giving :func:`tree_calls` of TREE's K14-K18, and TREE's K13, its band
-    form and K16 (:func:`esw_entry_call`, :func:`esw_band_entry_call`,
-    :func:`mosaic_entry_call`)."""
+    giving :func:`tree_calls` of TREE's K14-K18; TREE's K13, its band form
+    and K16 (:func:`esw_entry_call`, :func:`esw_band_entry_call`,
+    :func:`mosaic_entry_call`); TREE's K20 (:func:`tiled_entry_call`) and,
+    where TREE has ``srw_horizontal_f64.cu``, its K2 float64 form
+    (:func:`horizontal_f64_entry_call`; else None)."""
     from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
 
     out = os.path.join("build", "chip_smoke_tree")
-    with ThreadPoolExecutor(2) as pool:
+    csrc = Path(tree) / "xcube_resampling_tpu_torch" / "csrc"
+    pa_sources = ("phase_a_tiled.cu",) + (
+        ("srw_horizontal_f64.cu",) if (csrc / "srw_horizontal_f64.cu").is_file() else ())
+    pa_signatures = {k: v for k, v in TREE_PHASE_A_SIGNATURES.items()
+                     if k == "xrt_phase_a_tiled" or len(pa_sources) == 2}
+    with ThreadPoolExecutor(3) as pool:
         aligned = pool.submit(build_tree_library, tree, out)
         esw = pool.submit(build_tree_library, tree, out, ("esw_gather.cu", "esw_mosaic.cu"),
                           TREE_ESW_SIGNATURES)
+        pa = pool.submit(build_tree_library, tree, out, pa_sources, pa_signatures)
         lib, _ = aligned.result()
         esw_lib, _ = esw.result()
+        pa_lib, _ = pa.result()
     return (lambda fn, x: tree_calls(lib, fn, x)), SimpleNamespace(
         k13=lambda a: esw_entry_call(esw_lib, a, True),
-        k13_band=lambda a: esw_band_entry_call(esw_lib, a),
-        k16=lambda fn, x: mosaic_entry_call(esw_lib, fn, x, True))
+        k13_band=lambda a: esw_band_entry_call(esw_lib, a, True),
+        k16=lambda fn, x: mosaic_entry_call(esw_lib, fn, x, True),
+        k20=lambda a: tiled_entry_call(pa_lib, a),
+        k2_f64=(lambda h_args, vd=None, row0=0: horizontal_f64_entry_call(
+            pa_lib, h_args, vd, row0)) if len(pa_sources) == 2 else None)
 
 
 # -- the dtypes phase: every new instantiation on its cells -------------------
@@ -3661,11 +3753,13 @@ DT_B2_DTYPES = ("uint16", "int64", "float16", "bfloat16", "bool")
 # target side
 DT_SIZES = dict(n=20480, b2=4096, r1=(1189, 1890), geo=(7200, 3600), b3=4096)
 # the sources of the kernels the dtypes phase adds to the kernels line, by
-# the launch name's kernel (before the dot); the typed K3 and K2's float64
-# form are sources of their own
+# the launch name's kernel (before the dot); the typed K3 is a source of
+# its own, K2's float64 form (and its band form's) K2's kernel's float64
+# instantiation
 DT_SOURCES = {
     "srw_vertical": ("srw_vertical.cu", "xcube_resampling_tpu/ops/pallas_kernels.py:40"),
-    "srw_horizontal": ("srw_horizontal_f64.cu", "xcube_resampling_tpu/ops/srw.py:670"),
+    "srw_horizontal": ("srw_horizontal.cu", "xcube_resampling_tpu/ops/srw.py:670"),
+    "srw_horizontal_band": ("srw_horizontal.cu", "xcube_resampling_tpu/parallel/halo.py:450"),
     "srw_vertical_band": ("srw_vertical.cu", "xcube_resampling_tpu/parallel/halo.py:423"),
     "affine_gather": ("affine_gather.cu", "xcube_resampling_tpu/ops/gather.py:29"),
     "affine_gather_reduce": ("affine_gather_reduce.cu", "xcube_resampling_tpu/affine.py:212"),
@@ -3757,7 +3851,10 @@ def dtypes_phase(dev, tag, h, sizes=DT_SIZES):
         gather_dtype,
     )
     from xcube_resampling_tpu_torch.ops.srw_kernels import (
+        plan_band_launch,
         srw_horizontal,
+        srw_horizontal_band,
+        srw_horizontal_band_plain,
         srw_horizontal_plain,
         srw_vertical,
         srw_vertical_band,
@@ -3888,9 +3985,42 @@ def dtypes_phase(dev, tag, h, sizes=DT_SIZES):
                   f"differ from {k1}'s")
         if f64:
             n_out = st.out_h * st.out_w
+
+            def k2_bound(n_v):
+                return bound_mixed(8 * (n_v + n_out) + 4 * (2 * st.ix_c.numel()
+                                   + st.base_h.numel()), n_out * (4 * st.d_h + 40),
+                                   2 * n_out * st.d_h * (n_v // v.numel()))
+
             timed(k2, lambda: srw_horizontal(*h_args), lambda: srw_horizontal_plain(*h_args),
-                  bound_mixed(8 * (v.numel() + n_out) + 4 * (2 * st.ix_c.numel()
-                              + st.base_h.numel()), n_out * (4 * st.d_h + 40), 2 * n_out * st.d_h))
+                  k2_bound(v.numel()))
+            # triangular on the same source (v and vd from its vertical pass),
+            # held to its plain version; with --against, the parent's K2
+            # float64 form in turns with this one, bilinear and triangular
+            fn_t = device_reproject_fn(GridMapping.from_dataset(ds), laea_gm, "triangular",
+                                       _default_fill_value(dtype), dev)
+            v_t, vd_t = srw_vertical(*fn_t.vertical_args(fn_t.crop(src)))
+            t_args = fn_t.horizontal_args(v_t)
+            held(k2, srw_horizontal(*t_args, vd_t), srw_horizontal_plain(*t_args, vd_t), kind,
+                 f"{n}^2 {k2} triangular vs plain")
+            extra[k2] = dict(triangular_device_ms=h.device_ms(lambda: srw_horizontal(
+                *t_args, vd_t)), triangular_bound_ms=k2_bound(2 * v_t.numel())[0])
+            if h.tree is not None and h.tree.k2_f64 is not None:
+                for key, a, vd_a in (("", h_args, None), ("triangular_", t_args, vd_t)):
+                    theirs = h.tree.k2_f64(a, vd_a)
+                    held(k2, theirs(), srw_horizontal(*a, vd_a), kind,
+                         f"{n}^2 the parent's {k2} {key or 'bilinear '}vs this")
+                    k, p = beside_parent(h, lambda a=a, vd_a=vd_a: srw_horizontal(*a, vd_a),
+                                         theirs)
+                    extra[k2][f"{key}device_ms_in_turns"] = k
+                    extra[k2][f"parent_{key}device_ms"] = p
+                    del theirs
+            print(f"{tag} dtypes: {n}^2 {k2}: triangular device "
+                  f"{extra[k2]['triangular_device_ms']:.4f} ms (bound "
+                  f"{extra[k2]['triangular_bound_ms']:.4f} ms); in turns with the parent's "
+                  f"(parent, this, this, parent): " + ", ".join(
+                      f"{k} {v_:.4f} ms" for k, v_ in extra[k2].items() if "turns" in k
+                      or k.startswith("parent_")))
+            del fn_t, v_t, vd_t, t_args
         print(f"{tag} dtypes: resample_in_space {n}^2 {name} bilinear (tiled SRW, {vt} out): "
               f"first call {first:.3f} s, warm median of 3 {statistics.median(warm) * 1e3:.2f} ms; "
               f"launches {dict(got)}; finite share {share:.4f}; vs plain max abs diff {d} "
@@ -4172,6 +4302,47 @@ def dtypes_phase(dev, tag, h, sizes=DT_SIZES):
           f"card: {dt * 1e3:.2f} ms the first call ({dict(got)})")
     del got_s, ref_s, bands, halos, v1, padded, src
     torch.cuda.empty_cache()
+
+    # -- B5's sharded SRW step on 4 float64 bands (climate archives) over 4
+    # mesh entries on the card: K1's and K2's band forms on float64, K2's
+    # held to its plain version and timed on band 1 (with --against beside
+    # the parent's K2 float64 form, in turns), the step's band 1 to it
+    src = rand(torch.float64, (4, n, n))
+    src[:, n // 3] = nan
+    step, (pad, _) = parallel.make_sharded_srw_step(mesh, utm_gm, laea_gm, src_batch_dims=1)
+    padded = pad_rows(src, pad, nan)
+    del src
+    kb = "srw_horizontal_band.float64"
+    got_s, dt, got = run(lambda: step(padded), ("srw_vertical_band.float64", kb))
+    out1 = got_s.bands[1]
+    del got_s
+    bands, _ = step.bands(padded)
+    halos = step.exchange(bands)
+    v1, _ = srw_vertical_band(*step.vertical_args(bands, halos, 1))
+    del bands, halos, padded
+    torch.cuda.empty_cache()
+    h1 = step.horizontal_args(v1, None, 1)
+    o1 = srw_horizontal_band(*h1)
+    held(kb, o1, srw_horizontal_band_plain(*h1), "f64", f"B5 float64 band 1 {kb} vs plain")
+    held(kb, out1.reshape(o1.shape), o1, "exact", "B5 float64 sharded step's band 1 vs K1 -> K2")
+    n_out = o1.numel()
+    timed(kb, lambda: srw_horizontal_band(*h1), lambda: srw_horizontal_band_plain(*h1),
+          bound_mixed(8 * (v1.numel() + n_out) + 4 * (2 * h1[1].numel() + h1[4].numel()),
+                      n_out * (4 * h1[6] + 40), 2 * n_out * h1[6]))
+    if h.tree is not None and h.tree.k2_f64 is not None:
+        theirs = h.tree.k2_f64(h1[:11], None, h1[12])
+        held(kb, theirs(), o1, "f64", f"B5 float64 band 1: the parent's {kb} vs this")
+        k, p = beside_parent(h, lambda: srw_horizontal_band(*h1), theirs)
+        extra[kb] = dict(device_ms_in_turns=k, parent_device_ms=p)
+        print(f"{tag} dtypes: B5 float64 band 1 {kb} in turns (parent, this, this, parent): "
+              f"this {k:.4f} ms, the parent's {p:.4f} ms device")
+        del theirs
+    print(f"{tag} dtypes: B5 sharded SRW step, 4 float64 bands {n}^2 over 4 mesh entries on "
+          f"one card: {dt * 1e3:.2f} ms the first call ({dict(got)}); band 1 v "
+          f"{tuple(v1.shape)} -> {tuple(o1.shape)}, launch "
+          f"{plan_band_launch(4, h1[8].extent, False, word=8)}")
+    del out1, v1, o1, h1, step
+    torch.cuda.empty_cache()
     return launches, err, timings, bounds, library, extra
 
 
@@ -4182,7 +4353,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", default=None,
-                        help="a parent tree whose K13-K18 kernels to time beside this one's")
+                        help="a parent tree whose K13-K18, K20 and K2 float64 kernels to "
+                             "time beside this one's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4299,8 +4471,8 @@ def main() -> int:
     # band form per method; K2 per method and (bands an item, stages); K7's
     # map and list forms per method and dtype, its band form per method;
     # K11's two kernels; K12 per tile
-    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "srw_horizontal_f64_kernel",
-                    "fused_reproject_kernel", "fused_reproject_typed_kernel",
+    for pattern in ("srw_vertical_kernel", "srw_horizontal_kernel", "fused_reproject_kernel",
+                    "fused_reproject_typed_kernel",
                     "fused_reproject_band_kernel", "ij_gather_kernel", "ij_gather_band_kernel",
                     "seed_pass", "seed_walk", "hybrid_dense_kernel", "esw_gather_kernel",
                     "esw_gather_band_kernel", "srw_aligned_vertical_kernel",
@@ -4328,8 +4500,8 @@ def main() -> int:
     # (K7's band form: 3 methods for each of the 13 dtypes but bool's
     # bilinear and triangular)
     for pattern, n in (("ij_gather_band_kernel", 37), ("hybrid_dense_kernel", 4),
-                       ("srw_horizontal_kernel", 12), ("seed_pass", 2), ("seed_walk", 1),
-                       ("walk_coarse", 1), ("walk_fine", 1), ("tiled_kernel", 1),
+                       ("srw_horizontal_kernel", 24), ("seed_pass", 2), ("seed_walk", 1),
+                       ("walk_coarse", 1), ("walk_fine", 1), ("tiled_kernel", 2),
                        ("phase_a_scan_cu", 2),
                        ("fused_reproject_band_kernel", 3), ("esw_gather_kernel", 3),
                        ("esw_gather_band_kernel", 3), ("srw_aligned_vertical_kernel", 2),
@@ -6329,7 +6501,8 @@ def main() -> int:
         dev, tag, SimpleNamespace(compare=compare, time_pair=time_pair, event_ms=event_ms,
                                   device_ms=device_ms, olci_swath=olci_swath,
                                   run_rectify=run_rectify, warm_rectify=warm_rectify,
-                                  check_output=check_output, main_launches=main_launches)
+                                  check_output=check_output, main_launches=main_launches,
+                                  tree=tree_esw)
     )
     for name, e in pa_err.items():
         err[name] = max(err[name], e)
@@ -6375,7 +6548,7 @@ def main() -> int:
     dt_launches, dt_err, dt_timings, dt_bounds, dt_library, dt_extra = dtypes_phase(
         dev, tag, SimpleNamespace(compare=compare, event_ms=event_ms, device_ms=device_ms,
                                   dataset=dataset, check_output=check_output,
-                                  olci_swath=olci_swath)
+                                  olci_swath=olci_swath, tree=tree_esw)
     )
     main_launches.update(dt_launches)
     for name, e in dt_err.items():

@@ -316,7 +316,7 @@ def main() -> int:
         runs = {"this": esw_band_entry_call(lib["this"], a, True),
                 "per pixel": esw_band_entry_call(lib["this"], a, False)}
         if "tree" in lib:
-            runs["tree"] = esw_band_entry_call(lib["tree"], a)
+            runs["tree"] = esw_band_entry_call(lib["tree"], a, True)
         for name, _ in BAND_BUILDS:
             runs[name] = esw_band_entry_call(lib[name], a, True)
         what = f"K13 {where} {k} {interp} {bands}b"

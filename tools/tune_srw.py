@@ -104,7 +104,7 @@ SHAPES = ((64, 32), (64, 16), (64, 64), (32, 32), (32, 64), (16, 64))
 # that are not finite) out of line; "no check" the window rows taken as
 # finite (v is finite here: a ceiling on what the test costs)
 _ROW_CHECK = "      bool finite = row_finite(sv, width, lane);\n"
-_SLOW = "__device__ __forceinline__ float slow_sum("
+_SLOW = "__device__ __forceinline__ V slow_sum("
 BAND_BUILDS = (
     ("m5", {}),
     ("m4", {"kBandMinBlocks": 4}),

@@ -65,11 +65,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _I, _I64, _I, _I, _F, _I, _I, _I64, _I, _I, _I, _I, _I64, _P,
     ],
-    # v, vd, ix_c, iy_c, base_h, out, batch, out_h, out_w, src_h, src_w,
-    # ncj, nci, step, row_tile, tiles, d_h, method, fill, row0, stream
+    # the same on float64 v, vd, out and fill
     "xrt_srw_horizontal_f64": [
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I64, _I64,
-        _I, _I, _D, _I64, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I, _I64, _I, _I, _D, _I, _I, _I64, _I, _I, _I, _I, _I64, _P,
     ],
     # src, iystar_c, s_v, base_v, v, batch, src_h, src_w, out_h, ncj, ncc,
     # step, n_col_tiles, col_tile, d_v, method, stream

@@ -85,30 +85,13 @@
 // no spill).  The per-quad differences of fu and fv are not staged: each
 // pair is solved once, where four subtractions cost what four shared
 // loads would.
-// The box (tri_box): p = Q0 + u e1 + v e2 with e1 = Q1 - Q0, e2 = Q2 - Q0
-// (triangle A: Q = p0, p1, p2; B: p3, p2, p1), u = fu / det.  The kernel
-// accepts where its rounded u, v satisfy u, v >= -delta and u + v <= 1 +
-// 2 delta (delta = uv_delta).  Let P = (|e1x| + |e2x|)(|e1y| + |e2y|),
-// k = P / |det| and eps = 2^-53.  fu = fma(a, b, -(c d)), each factor one
-// rounded difference, is within 4.02 eps (|dx e2y| + |dy e2x|) of the
-// exact value, and |dx e2y| + |dy e2x| <= 2 (|u*| + |v*|) P for the exact
-// u*, v*; the determinant likewise within 4.02 eps P; the reciprocal and
-// the product round twice more.  So |u - u*| <= 24 eps k S + 3 eps |u|
-// with S = |u*| + |v*|.  A pair that accepts has |u|, |v| <= 1 + 3 delta,
-// hence, where eps k <= 1e-4, S <= 2.03 (1 + 3 delta) and |u - u*| <= E =
-// eps (1 + 3 delta)(51 k + 8) (twice the bound's constants: the plain
-// version's emulated fma rounds twice, and underflow adds at most
-// 2^-1075 an operation, negligible where 2^-500 <= P <= 2^500).  The
-// exact u*, v* then lie in u, v >= -(delta + E), u + v <= 1 + b with b =
-// (uv_max - 1) + 2 E + 4 eps, a triangle whose corners lie within (delta
-// + E + b)(|e1x| + |e2x|) of Q0, Q1, Q2 in x (y alike): the box is the
-// nodes' box grown by that, plus 2^-40 (1 + |node| + pad) for its own
-// roundings.  A triangle whose determinant is
-// 0 or NaN gets an empty box; one outside eps k <= 1e-4 or that range of
-// P (slivers, infinite nodes) gets a box covering every pixel: it is
-// tested by every pixel, never dropped.  rectify_ops.hybrid_tri_boxes is
-// the plain mirror of tri_box and of the clipping (the CPU tests hold
-// every accepting pair inside its box).
+// The box (tri_box, phase_a_common.h, where its bound is derived; K20
+// shares it): the nodes' box grown by what the rounded test can accept
+// past the triangle.  A triangle whose determinant is 0 or NaN gets an
+// empty box; a sliver or a triangle with an infinite node a box covering
+// every pixel: it is tested by every pixel, never dropped.
+// rectify_ops.hybrid_tri_boxes is the plain mirror of tri_box and of the
+// clipping (the CPU tests hold every accepting pair inside its box).
 #include "phase_a_common.h"
 
 namespace {
@@ -220,85 +203,6 @@ __global__ void __launch_bounds__(kWalkThreads)
     if (need_j != INT_MIN) atomicMax(meta + 1, need_j);
     if (need_i != INT_MIN) atomicMax(meta + 2, need_i);
   }
-}
-
-// K12's cull constants, from the accept test's u_min = -delta and uv_max:
-// E = c1 k + c0, the pad's barycentric width m = base + 3 E (tri_box),
-// pad_max the largest m where the box is derived (eps k <= 1e-4)
-struct Cull {
-  double c1, c0, base, pad_max;
-};
-
-constexpr double kEps = 0x1p-53;
-constexpr double kCullKMax = 1e-4 / kEps;
-constexpr double kCullPMin = 0x1p-500;
-constexpr double kCullPMax = 0x1p500;
-constexpr double kCullSlack = 0x1p-40;
-// a quad's reach past its nodes' box, relative to their magnitude: more
-// than tri_box's slack and roundings
-constexpr double kCullReach = 0x1p-30;
-
-__host__ __device__ inline Cull cull_of(double u_min, double uv_max) {
-  const double d = -u_min;
-  const double c = kEps * (1 + 3 * d);
-  const double base = d + (uv_max - 1) + 4 * kEps;
-  return Cull{c * 51, c * 8, base, base + 3.0 * (c * 51 * kCullKMax + c * 8)};
-}
-
-struct Box {
-  double x_lo, x_hi, y_lo, y_hi;
-};
-
-// The box, in pixel-centre coordinates, outside which triangle (q0, q1,
-// q2) with reciprocal determinant inv cannot accept (the derivation
-// above); empty where inv is NaN, every pixel where the bound is not small.
-__device__ __forceinline__ Box tri_box(double q0x, double q0y, double q1x, double q1y,
-                                       double q2x, double q2y, double inv, const Cull& c) {
-  if (inv != inv) return Box{INFINITY, -INFINITY, INFINITY, -INFINITY};
-  const double e1x = q1x - q0x, e1y = q1y - q0y, e2x = q2x - q0x, e2y = q2y - q0y;
-  const double sx = fabs(e1x) + fabs(e2x), sy = fabs(e1y) + fabs(e2y);
-  const double p = sx * sy;
-  const double k = p * fabs(inv);
-  if (!(k <= kCullKMax && p >= kCullPMin && p <= kCullPMax)) {
-    return Box{-INFINITY, INFINITY, -INFINITY, INFINITY};
-  }
-  const double e = c.c1 * k + c.c0;
-  const double m = c.base + 3.0 * e;
-  const double mx = m * sx, my = m * sy;
-  const double xlo = fmin(q0x, fmin(q1x, q2x)), xhi = fmax(q0x, fmax(q1x, q2x));
-  const double ylo = fmin(q0y, fmin(q1y, q2y)), yhi = fmax(q0y, fmax(q1y, q2y));
-  return Box{(xlo - mx) - kCullSlack * ((1.0 + fabs(xlo)) + mx),
-             (xhi + mx) + kCullSlack * ((1.0 + fabs(xhi)) + mx),
-             (ylo - my) - kCullSlack * ((1.0 + fabs(ylo)) + my),
-             (yhi + my) + kCullSlack * ((1.0 + fabs(yhi)) + my)};
-}
-
-// Whether triangle (q0, q1, q2) is dropped (its determinant, as K12
-// computes it, 0 or NaN) or surely inside tri_box's derived range (k at
-// most half its limit, no division): its box then lies inside its nodes'
-// box grown by pad_max
-__device__ __forceinline__ bool sure(double q0x, double q0y, double q1x, double q1y,
-                                     double q2x, double q2y) {
-  const double det = nan_to_num(fdet(q0x, q0y, q1x, q1y, q2x, q2y), 0.0);
-  const double p = (fabs(q1x - q0x) + fabs(q2x - q0x)) * (fabs(q1y - q0y) + fabs(q2y - q0y));
-  return det == 0 || (p <= (kCullKMax / 2) * fabs(det) && p >= kCullPMin && p <= kCullPMax);
-}
-
-// The pixels of a tile inside box b: tile-local columns c0..c1 and rows
-// r0..r1 (of n_cols x n_rows from (x0, y0)) packed a byte each into *rect;
-// returns their count (0 where none).  Pixel (col, row) has its centre at
-// (col + 0.5, row + 0.5).
-__device__ __forceinline__ int clip_box(const Box& b, double x0, double y0, int n_cols,
-                                        int n_rows, int* rect) {
-  const double c_lo = fmax(ceil(b.x_lo - 0.5) - x0, 0.0);
-  const double c_hi = fmin(floor(b.x_hi - 0.5) - x0, n_cols - 1.0);
-  const double r_lo = fmax(ceil(b.y_lo - 0.5) - y0, 0.0);
-  const double r_hi = fmin(floor(b.y_hi - 0.5) - y0, n_rows - 1.0);
-  if (!(c_lo <= c_hi && r_lo <= r_hi)) return 0;
-  const int c0 = static_cast<int>(c_lo), c1 = static_cast<int>(c_hi);
-  const int r0 = static_cast<int>(r_lo), r1 = static_cast<int>(r_hi);
-  *rect = c0 | c1 << 8 | r0 << 16 | r1 << 24;
-  return (c1 - c0 + 1) * (r1 - r0 + 1);
 }
 
 struct DenseArgs {

@@ -38,6 +38,21 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
+__device__ __forceinline__ void cp_async16(double* smem, const double* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// one float32 or float64 value
+__device__ __forceinline__ void cp_async_word(float* smem, const float* gmem) {
+  cp_async4(smem, gmem);
+}
+
+__device__ __forceinline__ void cp_async_word(double* smem, const double* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -63,6 +63,22 @@
 // 1.90 to 1.56 ms, a row's windows for 4 bands an item (more bytes in
 // flight a warp, the item's overhead shared) 1.63 to 1.49.  The method is
 // a template parameter, the tap loop 32-bit; output offsets are 64-bit.
+//
+// Float64: the kernel is a template on the value type V of
+// v, vd and the output, and its float64 instantiation is K2's float64
+// form, the pass of a float64 source (the JAX package multiplies its
+// float32 weights by the float64 vertical pass, so jnp promotes the
+// products and sums to float64): each tap one float64 fused multiply-add of
+// the widened float32 weight (srw_common.h's fused_v), the triangular
+// correction acc - s * acc_d likewise, the fill where the position lies
+// outside the source; the positions, mask and s K2's float32 geometry.
+// The two-tap shortcut stays exact in float64 (x + 0 * s == x, +0 stays
+// +0).  Its 16-byte copies carry two doubles; its ring is sized by the
+// host for 8-byte words (srw_kernels.plan_band_launch), its registers
+// capped for kBandMinBlocksF64 blocks.  The design it replaced
+// (srw_horizontal_f64.cu: a thread an output pixel summing all d_h taps
+// through L1, no staging, no shortcut) took 8.117 device ms at 20480^2
+// bilinear against a bound of 2.008 (H100 80GB HBM3, 700 W).
 #include "srw_common.h"
 
 namespace {
@@ -79,39 +95,57 @@ constexpr int kBandCols = 32 * kBandPerLane;
 // 2 also for one stage, whose windows leave room for no more than 2 blocks
 constexpr int kBandMinBlocks = 5;
 constexpr int kBandMinBlocksTri = 2;
+// float64: 4 blocks (128 registers; the doubled sums), 2 for triangular
+constexpr int kBandMinBlocksF64 = 4;
 
+template <typename V>
 struct BandArgs {
-  const float* v;
-  const float* vd;
+  const V* v;
+  const V* vd;
   const float* ix_c;
   const float* iy_c;
   const int32_t* base;  // (tiles, out_w)
   const int32_t* win;   // (tiles, n_cb, 2)
-  float* out;
+  V* out;
   int64_t batch, out_h, out_w, src_h, src_w, ncj, nci, row_tile, n_cb, row0;
-  float inv, fill;
+  float inv;
+  V fill;
   int d_h, extent;
   bool vec4;
 };
 
+template <typename V, int M, int S>
+constexpr int min_blocks() {
+  return M == xrt::kTriangular || S == 1 ? kBandMinBlocksTri
+                                         : (sizeof(V) == 8 ? kBandMinBlocksF64 : kBandMinBlocks);
+}
+
 
 // Stage window columns [lo, lo + width) of one v row into s (a warp):
 // window column q holds v column clamp(lo + q); width and lo are multiples
-// of 4, so with vec4 a 4-column group lies wholly inside v (one 16-byte
-// copy) or wholly outside (four copies of the edge column).
-__device__ __forceinline__ void stage_row(float* s, const float* row, int lo, int width,
-                                          int64_t src_w, bool vec4, int lane) {
+// of 4, so with vec4 a 4-column group lies wholly inside v (16-byte
+// copies: one of float32, two of float64) or wholly outside (four copies
+// of the edge column).
+template <typename V>
+__device__ __forceinline__ void stage_row(V* s, const V* row, int lo, int width, int64_t src_w,
+                                          bool vec4, int lane) {
+  constexpr int E = 16 / sizeof(V);  // values a 16-byte copy
   if (vec4) {
     for (int q = 4 * lane; q < width; q += 128) {
       const int c = lo + q;
       if (c >= 0 && c + 4 <= src_w) {
-        xrt::cp_async16(s + q, row + c);
+#pragma unroll
+        for (int e = 0; e < 4; e += E) xrt::cp_async16(s + q + e, row + c + e);
       } else {
-        for (int t = 0; t < 4; ++t) xrt::cp_async4(s + q + t, row + xrt::clamp_index(c + t, src_w));
+        for (int t = 0; t < 4; ++t) {
+          xrt::cp_async_word(s + q + t, row + xrt::clamp_index(c + t, src_w));
+        }
       }
     }
   } else {
-    for (int q = lane; q < width; q += 32) xrt::cp_async4(s + q, row + xrt::clamp_index(lo + q, src_w));
+    for (int q = lane; q < width; q += 32) {
+      xrt::cp_async_word(s + q, row + xrt::clamp_index(lo + q, src_w));
+    }
   }
 }
 
@@ -125,30 +159,38 @@ __device__ __forceinline__ bool row_finite(const float* s, int width, int lane) 
   return __all_sync(0xffffffffu, ok);
 }
 
+__device__ __forceinline__ bool row_finite(const double* s, int width, int lane) {
+  bool ok = true;
+  for (int q = 2 * lane; q < width; q += 64) {
+    const double2 x = *reinterpret_cast<const double2*>(s + q);
+    ok = ok && isfinite(x.x) && isfinite(x.y);
+  }
+  return __all_sync(0xffffffffu, ok);
+}
+
 // The output at (row, col) of a window row that is not finite: every tap,
 // as tap_sums sums them, at the column's position taken afresh (FieldColumn: the
 // same operations as FieldCols), so that the fast path keeps no positions.
-template <int M>
-__device__ __forceinline__ float slow_sum(const BandArgs& a, const float* sv, int tile, int lo,
-                                       float row, int col, float corr) {
+template <int M, typename V>
+__device__ __forceinline__ V slow_sum(const BandArgs<V>& a, const V* sv, int tile, int lo,
+                                      float row, int col, float corr) {
   const int b0 = col < a.out_w ? a.base[static_cast<int64_t>(tile) * a.out_w + col] : lo;
   const float p = xrt::FieldColumn(a.ix_c, a.ncj, a.nci, static_cast<float>(col), a.inv).at(row);
-  float acc = 0.0f;
-  float acc_d = 0.0f;
+  V acc = V(0);
+  V acc_d = V(0);
   xrt::tap_sums<M>(sv + (b0 - lo), 1, p, b0, a.d_h, false, acc, acc_d);
   if (M == xrt::kTriangular) {
-    float acc_dd = 0.0f;  // the (1, -1) taps of vd
-    float unused = 0.0f;
+    V acc_dd = V(0);  // the (1, -1) taps of vd
+    V unused = V(0);
     xrt::tap_sums<M>(sv + a.extent + (b0 - lo), 1, p, b0, a.d_h, false, unused, acc_dd);
-    acc = fmaf(-corr, acc_dd, acc);
+    acc = xrt::fused_v(-corr, acc_dd, acc);
   }
   return acc;
 }
 
-template <int M, int G, int S>
-__global__ void __launch_bounds__(kBandWarps * 32, M == xrt::kTriangular || S == 1
-                                                       ? kBandMinBlocksTri : kBandMinBlocks)
-    srw_horizontal_kernel(BandArgs a) {
+template <typename V, int M, int G, int S>
+__global__ void __launch_bounds__(kBandWarps * 32, min_blocks<V, M, S>())
+    srw_horizontal_kernel(BandArgs<V> a) {
   constexpr bool kTri = M == xrt::kTriangular;
   constexpr int P = kBandPerLane;
   const int lane = threadIdx.x & 31;
@@ -165,7 +207,7 @@ __global__ void __launch_bounds__(kBandWarps * 32, M == xrt::kTriangular || S ==
   const int plane = (kTri ? 2 : 1) * a.extent;  // one band's window row (and vd's)
   const int stage = G * plane;
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4) + warp * S * stage;
+  V* ring = reinterpret_cast<V*>(smem4) + warp * S * stage;
   const int32_t* win = a.win + cb * 2;
   const int win_step = static_cast<int>(a.n_cb) * 2;  // one row tile on
   const int row_tile = static_cast<int>(a.row_tile);
@@ -177,7 +219,7 @@ __global__ void __launch_bounds__(kBandWarps * 32, M == xrt::kTriangular || S ==
       const int j = j_first + is_r;
       const int32_t* w = win + j / row_tile * win_step;
       const int w_lo = w[0], w_width = w[1] - w[0];
-      float* dst = ring + slot * stage;
+      V* dst = ring + slot * stage;
       // (one band an item: that band, which the compiler then keeps in
       // fewer registers)
       const int b_end = G == 1 ? is_g + 1 : min(batch, (is_g + 1) * G);
@@ -264,25 +306,25 @@ __global__ void __launch_bounds__(kBandWarps * 32, M == xrt::kTriangular || S ==
         }
       }
     }
-    const float* slot = ring + (it % S) * stage;
+    const V* slot = ring + (it % S) * stage;
 #pragma unroll 1
     for (int q = 0; q < G; ++q) {
       const int b = grp * G + q;
       if (b >= batch) break;
-      const float* sv = slot + q * plane;
-      // the outputs as if the window row were finite (acc = fmaf(w, s, 0)
+      const V* sv = slot + q * plane;
+      // the outputs as if the window row were finite (acc = fma(w, s, 0)
       // first: tap_sums' first tap onto +0; a weight-0 tap of a finite
       // value leaves the sum as it is), while the row is tested
-      float acc[P];
+      V acc[P];
 #pragma unroll
       for (int k = 0; k < P; ++k) {
-        acc[k] = fmaf(wa[k], sv[off[k]], 0.0f);
-        if (M != xrt::kNearest) acc[k] = fmaf(wb[k], sv[off[k] + 1], acc[k]);
+        acc[k] = xrt::fused_v(wa[k], sv[off[k]], V(0));
+        if (M != xrt::kNearest) acc[k] = xrt::fused_v(wb[k], sv[off[k] + 1], acc[k]);
         if (kTri) {
-          const float* sd = sv + a.extent;
-          float acc_dd = fmaf(da[k], sd[off[k]], 0.0f);
-          acc_dd = fmaf(db[k], sd[off[k] + 1], acc_dd);
-          acc[k] = fmaf(-corr[k], acc_dd, acc[k]);
+          const V* sd = sv + a.extent;
+          V acc_dd = xrt::fused_v(da[k], sd[off[k]], V(0));
+          acc_dd = xrt::fused_v(db[k], sd[off[k] + 1], acc_dd);
+          acc[k] = xrt::fused_v(-corr[k], acc_dd, acc[k]);
         }
       }
       bool finite = row_finite(sv, width, lane);
@@ -290,10 +332,11 @@ __global__ void __launch_bounds__(kBandWarps * 32, M == xrt::kTriangular || S ==
       if (!finite) {
         // every tap, as K2 sums them, at each column's position again
 #pragma unroll
-        for (int k = 0; k < P; ++k) acc[k] = slow_sum<M>(a, sv, tile, lo, row, i0 + lane + 32 * k,
-                                                          kTri ? corr[k] : 0.0f);
+        for (int k = 0; k < P; ++k) {
+          acc[k] = slow_sum<M>(a, sv, tile, lo, row, i0 + lane + 32 * k, kTri ? corr[k] : 0.0f);
+        }
       }
-      float* ob = a.out + (b * a.out_h + j) * a.out_w + i0 + lane;
+      V* ob = a.out + (b * a.out_h + j) * a.out_w + i0 + lane;
 #pragma unroll
       for (int k = 0; k < P; ++k) {
         if (i0 + lane + 32 * k < out_w) ob[32 * k] = (ok >> k & 1) ? acc[k] : a.fill;
@@ -307,25 +350,65 @@ __global__ void __launch_bounds__(kBandWarps * 32, M == xrt::kTriangular || S ==
   }
 }
 
-template <int M, int G, int S>
-cudaError_t launch(const BandArgs& a, int64_t blocks, int warps, size_t smem,
+template <typename V, int M, int G, int S>
+cudaError_t launch(const BandArgs<V>& a, int64_t blocks, int warps, size_t smem,
                    cudaStream_t stream) {
-  const cudaError_t err = xrt::allow_smem(srw_horizontal_kernel<M, G, S>, smem);
+  const cudaError_t err = xrt::allow_smem(srw_horizontal_kernel<V, M, G, S>, smem);
   if (err != cudaSuccess) return err;
-  srw_horizontal_kernel<M, G, S><<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(a);
+  srw_horizontal_kernel<V, M, G, S><<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // the launch plans srw_kernels.plan_band_launch makes: (G, S) of 4, 2 or 1
 // bands an item in 3 stages, or 1 band in 1
-template <int M>
-cudaError_t launch(const BandArgs& a, int group, int stages, int64_t blocks, int warps,
+template <typename V, int M>
+cudaError_t launch(const BandArgs<V>& a, int group, int stages, int64_t blocks, int warps,
                    size_t smem, cudaStream_t stream) {
-  if (stages == 3 && group == 4) return launch<M, 4, 3>(a, blocks, warps, smem, stream);
-  if (stages == 3 && group == 2) return launch<M, 2, 3>(a, blocks, warps, smem, stream);
-  if (stages == 3 && group == 1) return launch<M, 1, 3>(a, blocks, warps, smem, stream);
-  if (stages == 1 && group == 1) return launch<M, 1, 1>(a, blocks, warps, smem, stream);
+  if (stages == 3 && group == 4) return launch<V, M, 4, 3>(a, blocks, warps, smem, stream);
+  if (stages == 3 && group == 2) return launch<V, M, 2, 3>(a, blocks, warps, smem, stream);
+  if (stages == 3 && group == 1) return launch<V, M, 1, 3>(a, blocks, warps, smem, stream);
+  if (stages == 1 && group == 1) return launch<V, M, 1, 1>(a, blocks, warps, smem, stream);
   return cudaErrorInvalidValue;
+}
+
+// K2 and its band form on values of type V (the two C entries below)
+template <typename V>
+int horizontal(const V* v, const V* vd, const float* ix_c, const float* iy_c,
+               const int32_t* base_h, const int32_t* win, V* out, int64_t batch, int64_t out_h,
+               int64_t out_w, int64_t src_h, int64_t src_w, int64_t ncj, int64_t nci, int step,
+               int64_t row_tile, int d_h, int method, V fill, int cols, int extent,
+               int64_t n_col_blocks, int group, int stages, int warps, int vec4, int64_t row0,
+               void* stream) {
+  const int64_t tasks = n_col_blocks * ((out_h + kBandRows - 1) / kBandRows);
+  const size_t smem = sizeof(V) * static_cast<size_t>(warps) * stages * group *
+                      (vd != nullptr ? 2 : 1) * static_cast<size_t>(extent);
+  if (cols != kBandCols || extent % 4 != 0 || extent < 4 || batch < 1 || batch > 65536 ||
+      out_h < 1 || out_h > INT32_MAX || row_tile < 1 || row_tile > INT32_MAX || step < 1 ||
+      d_h < 2 || out_w > INT32_MAX - kBandCols || out_h * batch > INT32_MAX ||
+      n_col_blocks != (out_w + kBandCols - 1) / kBandCols ||
+      (method == xrt::kTriangular) != (vd != nullptr) || warps < 1 || warps > kBandWarps ||
+      smem > 232448 || row0 < 0 || (tasks + warps - 1) / warps > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BandArgs<V> a{v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h, src_w,
+                      ncj, nci, row_tile, n_col_blocks, row0, static_cast<float>(1.0 / step),
+                      fill, d_h, extent, vec4 != 0};
+  const int64_t blocks = (tasks + warps - 1) / warps;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (method) {
+    case xrt::kBilinear:
+      err = launch<V, xrt::kBilinear>(a, group, stages, blocks, warps, smem, s);
+      break;
+    case xrt::kNearest:
+      err = launch<V, xrt::kNearest>(a, group, stages, blocks, warps, smem, s);
+      break;
+    case xrt::kTriangular:
+      err = launch<V, xrt::kTriangular>(a, group, stages, blocks, warps, smem, s);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -342,34 +425,21 @@ extern "C" int xrt_srw_horizontal_f32(
     int64_t nci, int step, int64_t row_tile, int d_h, int method, float fill,
     int cols, int extent, int64_t n_col_blocks, int group, int stages, int warps,
     int vec4, int64_t row0, void* stream) {
-  const int64_t tasks = n_col_blocks * ((out_h + kBandRows - 1) / kBandRows);
-  const size_t smem = sizeof(float) * static_cast<size_t>(warps) * stages * group *
-                      (vd != nullptr ? 2 : 1) * static_cast<size_t>(extent);
-  if (cols != kBandCols || extent % 4 != 0 || extent < 4 || batch < 1 || batch > 65536 ||
-      out_h < 1 || out_h > INT32_MAX || row_tile < 1 || row_tile > INT32_MAX || step < 1 ||
-      d_h < 2 || out_w > INT32_MAX - kBandCols || out_h * batch > INT32_MAX ||
-      n_col_blocks != (out_w + kBandCols - 1) / kBandCols ||
-      (method == xrt::kTriangular) != (vd != nullptr) || warps < 1 || warps > kBandWarps ||
-      smem > 232448 || row0 < 0 || (tasks + warps - 1) / warps > INT32_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const BandArgs a{v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h, src_w,
-                   ncj, nci, row_tile, n_col_blocks, row0, static_cast<float>(1.0 / step),
-                   fill, d_h, extent, vec4 != 0};
-  const int64_t blocks = (tasks + warps - 1) / warps;
-  const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (method) {
-    case xrt::kBilinear:
-      err = launch<xrt::kBilinear>(a, group, stages, blocks, warps, smem, s);
-      break;
-    case xrt::kNearest:
-      err = launch<xrt::kNearest>(a, group, stages, blocks, warps, smem, s);
-      break;
-    case xrt::kTriangular:
-      err = launch<xrt::kTriangular>(a, group, stages, blocks, warps, smem, s);
-      break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return horizontal<float>(v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,
+                           src_w, ncj, nci, step, row_tile, d_h, method, fill, cols, extent,
+                           n_col_blocks, group, stages, warps, vec4, row0, stream);
+}
+
+// K2's float64 form and its band form: xrt_srw_horizontal_f32's arguments
+// on float64 v, vd, out and fill (the geometry float32).
+extern "C" int xrt_srw_horizontal_f64(
+    const double* v, const double* vd, const float* ix_c, const float* iy_c,
+    const int32_t* base_h, const int32_t* win, double* out, int64_t batch,
+    int64_t out_h, int64_t out_w, int64_t src_h, int64_t src_w, int64_t ncj,
+    int64_t nci, int step, int64_t row_tile, int d_h, int method, double fill,
+    int cols, int extent, int64_t n_col_blocks, int group, int stages, int warps,
+    int vec4, int64_t row0, void* stream) {
+  return horizontal<double>(v, vd, ix_c, iy_c, base_h, win, out, batch, out_h, out_w, src_h,
+                            src_w, ncj, nci, step, row_tile, d_h, method, fill, cols, extent,
+                            n_col_blocks, group, stages, warps, vec4, row0, stream);
 }

@@ -17,7 +17,9 @@ Port of ``xcube_resampling_tpu/ops/rectify_ops.py``:
   for bit, so the plan equals JAX's).  :meth:`PhaseAPlan.apply` runs K20
   (:func:`phase_a_tiled`, ``csrc/phase_a_tiled.cu``; ``_phase_a_tiled``
   :621-767 and ``_build_phase_a_apply`` :783-838) over the interior class
-  and the band class and copies the host blocks in.  The plan keeps JAX's
+  and the band class and copies the host blocks in; K20 solves only the
+  (pixel, triangle) pairs inside each triangle's box, K12's cull
+  (:func:`phase_a_tiled_plain` with ``cull``, :func:`phase_a_tiled_pairs`).  The plan keeps JAX's
   window origins, clipped to its padded source (nodes past the swath are
   NaN in the kernel, as JAX's NaN padding makes them), but pads neither the
   source nor the tile lists: only the order of the quads' ranks matters.
@@ -47,7 +49,10 @@ launch the kernels for CUDA tensors, or raise; they never fall back.
 
 from __future__ import annotations
 
+import functools
+import math
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -56,7 +61,12 @@ from .. import _build
 from .._device import count_launch, on_cpu, require_cuda
 from .reproject_ops import fma64
 from .rectify_ops import (
+    _CULL_KMAX,
+    _CULL_PMAX,
+    _CULL_PMIN,
+    _CULL_REACH,
     _DENSE_CHUNK,
+    _EPS,
     _F64,
     _INT32_MAX,
     _MAX_QUADS,
@@ -65,12 +75,15 @@ from .rectify_ops import (
     DeviceIJMap,
     PhaseATiles,
     _affine_seed,
+    _box_pairs,
     _fdet_x,
     _fu_x,
     _fv_x,
+    _in_box,
     _to_int32,
     _tri_solve_flat,
     _walk_steps_flat,
+    hybrid_tri_boxes,
     inverse_ij_map_hybrid,
     rectify_phase_a,
 )
@@ -88,6 +101,7 @@ __all__ = [
     "phase_a_scan",
     "phase_a_scan_plain",
     "phase_a_tiled",
+    "phase_a_tiled_pairs",
     "phase_a_tiled_plain",
     "phase_a_walk",
     "phase_a_walk_plain",
@@ -339,18 +353,17 @@ def _fill_nan_extrapolate(a: np.ndarray, max_iters: int = 8) -> np.ndarray:
     return a
 
 
-def phase_a_tiled_plain(g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out):
-    """Plain PyTorch version of K20 (``rectify_ops._phase_a_tiled``'s
-    broadcast, a chunk of tiles at a time): the listed tiles (*tiles*, or
-    all n = len(*bjs*) from 0) of (2, h, w) float64 *g*, each testing the
-    quads of its *win* x *win* window at (*bjs*, *bis*) (nodes past the
-    swath NaN), written into the (2, dst_h, dst_w) *out*; returns *out*."""
+def _tiled_chunks(g, tiles, bjs, bis, win, tile, n_ti, per_pixel=True):
+    """K20's listed tiles, chunk by chunk (about _DENSE_CHUNK (pixel, window
+    quad) pairs a chunk, or with *per_pixel* False _DENSE_CHUNK window
+    quads), each a namespace: ``t``, ``bj``, ``bi`` (the chunk's tiles and
+    window origins), every window quad's corners ``p0x`` ... ``p3y`` and its
+    triangles' determinants ``det_a``, ``det_b`` (NaN to 0) (T, 1, nq; nodes
+    past the swath NaN), the pixel centres ``px``, ``py`` (T, n_p, 1,
+    row-major over the tile) and their ``rows``, ``cols`` (T, n_p)."""
     _, src_h, src_w = g.shape
-    dst_h, dst_w = out.shape[-2:]
     dev = g.device
     n = len(bjs)
-    if n == 0:
-        return out
     tiles = torch.arange(n, device=dev) if tiles is None else tiles.long()
     bjs, bis = bjs.long(), bis.long()
     pad_h = max(src_h, int(bjs.max()) + win)
@@ -362,59 +375,190 @@ def phase_a_tiled_plain(g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out):
     q_dj = torch.arange(wq, device=dev).repeat_interleave(wq)
     q_di = torch.arange(wq, device=dev).repeat(wq)
     iota = torch.arange(tile, device=dev)
-    n_p = tile * tile
-    u_min, uv_max = -uv_delta, 1.0 + 2 * uv_delta
-    # (a window quad's local row-major index orders it as its global rank)
-    rank = torch.arange(nq, device=dev)
-    step = max(1, _DENSE_CHUNK // (n_p * nq))
+    step = max(1, _DENSE_CHUNK // ((tile * tile if per_pixel else 1) * nq))
     for t0 in range(0, n, step):
-        t, bj, bi = tiles[t0:t0 + step], bjs[t0:t0 + step], bis[t0:t0 + step]
-        qj = bj[:, None] + q_dj
-        qi = bi[:, None] + q_di
-        p0x, p1x, p2x, p3x = (gp[0, qj + a, qi + b][:, None, :]
-                              for a, b in ((0, 0), (0, 1), (1, 0), (1, 1)))
-        p0y, p1y, p2y, p3y = (gp[1, qj + a, qi + b][:, None, :]
-                              for a, b in ((0, 0), (0, 1), (1, 0), (1, 1)))
-        det_a = torch.nan_to_num(_fdet_x(p0x, p0y, p1x, p1y, p2x, p2y), nan=0.0)
-        det_b = torch.nan_to_num(_fdet_x(p3x, p3y, p2x, p2y, p1x, p1y), nan=0.0)
-        safe_a = torch.where(det_a == 0.0, 1.0, det_a)
-        safe_b = torch.where(det_b == 0.0, 1.0, det_b)
-        # pixel centres (T, n_p, 1), row-major over the tile
-        rows = (t // n_ti)[:, None] * tile + iota.repeat_interleave(tile)
-        cols = (t % n_ti)[:, None] * tile + iota.repeat(tile)
-        px = (cols.to(_F64) + 0.5)[:, :, None]
-        py = (rows.to(_F64) + 0.5)[:, :, None]
-        ua = _fu_x(px, py, p0x, p0y, p2x, p2y) / safe_a
-        va = _fv_x(px, py, p0x, p0y, p1x, p1y) / safe_a
-        ub = _fu_x(px, py, p3x, p3y, p1x, p1y) / safe_b
-        vb = _fv_x(px, py, p3x, p3y, p2x, p2y) / safe_b
-        ok_a = _tri_accept(det_a, ua, va, u_min, uv_max)
-        ok_b = _tri_accept(det_b, ub, vb, u_min, uv_max)
-        best, arg = torch.where(ok_a | ok_b, rank, nq).min(dim=-1, keepdim=True)
+        c = SimpleNamespace(t=tiles[t0:t0 + step], bj=bjs[t0:t0 + step], bi=bis[t0:t0 + step])
+        qj = c.bj[:, None] + q_dj
+        qi = c.bi[:, None] + q_di
+        c.p0x, c.p1x, c.p2x, c.p3x = (gp[0, qj + a, qi + b][:, None, :]
+                                      for a, b in ((0, 0), (0, 1), (1, 0), (1, 1)))
+        c.p0y, c.p1y, c.p2y, c.p3y = (gp[1, qj + a, qi + b][:, None, :]
+                                      for a, b in ((0, 0), (0, 1), (1, 0), (1, 1)))
+        c.det_a = torch.nan_to_num(_fdet_x(c.p0x, c.p0y, c.p1x, c.p1y, c.p2x, c.p2y), nan=0.0)
+        c.det_b = torch.nan_to_num(_fdet_x(c.p3x, c.p3y, c.p2x, c.p2y, c.p1x, c.p1y), nan=0.0)
+        c.rows = (c.t // n_ti)[:, None] * tile + iota.repeat_interleave(tile)
+        c.cols = (c.t % n_ti)[:, None] * tile + iota.repeat(tile)
+        c.px = (c.cols.to(_F64) + 0.5)[:, :, None]
+        c.py = (c.rows.to(_F64) + 0.5)[:, :, None]
+        yield c
 
-        # the winner solved again: the same operations on the same operands
-        def at(x):
-            return x.gather(-1, arg)[..., 0]
 
-        w = arg[..., 0]
-        gi = (bi[:, None] + w % wq).to(_F64)
-        gj = (bj[:, None] + w // wq).to(_F64)
-        take_a = at(ok_a)
-        src_if = torch.where(take_a, gi + at(ua).clamp(0.0, 1.0), (gi + 1) - at(ub).clamp(0.0, 1.0))
-        src_jf = torch.where(take_a, gj + at(va).clamp(0.0, 1.0), (gj + 1) - at(vb).clamp(0.0, 1.0))
-        found = best[..., 0] < nq
-        keep = (rows < dst_h) & (cols < dst_w)
-        out[0, rows[keep], cols[keep]] = torch.where(found, src_if, _NAN)[keep]
-        out[1, rows[keep], cols[keep]] = torch.where(found, src_jf, _NAN)[keep]
+def _tiled_triangles(c):
+    """A chunk's two triangles of every window quad: (side, q0x, q0y, q1x,
+    q1y, q2x, q2y, det), triangle A (p0, p1, p2) then B (p3, p2, p1)."""
+    return ((0, c.p0x, c.p0y, c.p1x, c.p1y, c.p2x, c.p2y, c.det_a),
+            (1, c.p3x, c.p3y, c.p2x, c.p2y, c.p1x, c.p1y, c.det_b))
+
+
+def _tiled_solve(px, py, q0x, q0y, q1x, q1y, q2x, q2y, det, uv_delta):
+    """Triangle (q0, q1, q2)'s solve at (px, py) as K20 rounds it (true
+    divisions, ``tri_accepts``): (u, v, whether it accepts)."""
+    safe = torch.where(det == 0.0, 1.0, det)
+    u = _fu_x(px, py, q0x, q0y, q2x, q2y) / safe
+    v = _fv_x(px, py, q0x, q0y, q1x, q1y) / safe
+    return u, v, _tri_accept(det, u, v, -uv_delta, 1.0 + 2 * uv_delta)
+
+
+def _dense_tiled_winners(c, nq, uv_delta):
+    """Every pixel's winner in chunk *c* over all its window's pairs: (its
+    window position, nq where none wins; whether triangle A accepts it; the
+    winning triangle's u and v), each (T, n_p)."""
+    (_, *tri_a), (_, *tri_b) = _tiled_triangles(c)
+    ua, va, ok_a = _tiled_solve(c.px, c.py, *tri_a, uv_delta)
+    ub, vb, ok_b = _tiled_solve(c.px, c.py, *tri_b, uv_delta)
+    # (a window quad's local row-major index orders it as its global rank)
+    rank = torch.arange(nq, device=c.px.device)
+    best, arg = torch.where(ok_a | ok_b, rank, nq).min(dim=-1, keepdim=True)
+
+    # the winner solved again: the same operations on the same operands
+    def at(x):
+        return x.gather(-1, arg)[..., 0]
+
+    take_a = at(ok_a)
+    return (best[..., 0], take_a, torch.where(take_a, at(ua), at(ub)),
+            torch.where(take_a, at(va), at(vb)))
+
+
+def _culled_tiled_winners(c, nq, uv_delta):
+    """:func:`_dense_tiled_winners` over the pairs inside the triangles'
+    boxes only (``rectify_ops.hybrid_tri_boxes``, enumerated as K20 clips
+    them), as K20 tests them: each triangle's solve at those pairs alone,
+    the least key 2 * position + side a pixel kept (K20's shared
+    atomicMin)."""
+    n_t, n_p = c.px.shape[:2]
+    tile = math.isqrt(n_p)
+    x0, y0 = c.px[:, 0, 0] - 0.5, c.py[:, 0, 0] - 0.5
+    dev = c.px.device
+    pix, key, us, vs = [], [], [], []
+    for side, *tri in _tiled_triangles(c):
+        ti, qi, pi = _box_pairs(hybrid_tri_boxes(*tri, uv_delta), x0, y0, tile)
+        u, v, ok = _tiled_solve(c.px[ti, pi, 0], c.py[ti, pi, 0],
+                                *(x[ti, 0, qi] for x in tri), uv_delta)
+        pix.append((ti * n_p + pi)[ok])
+        key.append((2 * qi + side)[ok])
+        us.append(u[ok])
+        vs.append(v[ok])
+    pix, key, u, v = (torch.cat(x) for x in (pix, key, us, vs))
+    best = torch.full((n_t * n_p,), 2 * nq, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, pix, key, reduce="amin")
+    win = key == best[pix]
+    u_w = torch.full((n_t * n_p,), _NAN, dtype=_F64, device=dev)
+    v_w = u_w.clone()
+    u_w[pix[win]] = u[win]
+    v_w[pix[win]] = v[win]
+    best = best.view(n_t, n_p)
+    return best // 2, best % 2 == 0, u_w.view(n_t, n_p), v_w.view(n_t, n_p)
+
+
+def phase_a_tiled_plain(g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out, cull=False):
+    """Plain PyTorch version of K20 (``rectify_ops._phase_a_tiled``'s
+    broadcast, a chunk of tiles at a time): the listed tiles (*tiles*, or
+    all n = len(*bjs*) from 0) of (2, h, w) float64 *g*, each testing the
+    quads of its *win* x *win* window at (*bjs*, *bis*) (nodes past the
+    swath NaN), written into the (2, dst_h, dst_w) *out*; returns *out*.
+    With *cull*, only the (pixel, triangle) pairs inside the triangles'
+    boxes are solved, as K20 solves them (the same map: the fast form on
+    the CPU)."""
+    dst_h, dst_w = out.shape[-2:]
+    if len(bjs) == 0:
+        return out
+    wq = win - 1
+    nq = wq * wq
+    winners = _culled_tiled_winners if cull else _dense_tiled_winners
+    for c in _tiled_chunks(g, tiles, bjs, bis, win, tile, n_ti, per_pixel=not cull):
+        arg, take_a, u, v = winners(c, nq, uv_delta)
+        found = arg < nq
+        w = arg.clamp(max=nq - 1)
+        gi = (c.bi[:, None] + w % wq).to(_F64)
+        gj = (c.bj[:, None] + w // wq).to(_F64)
+        src_if = torch.where(take_a, gi + u.clamp(0.0, 1.0), (gi + 1) - u.clamp(0.0, 1.0))
+        src_jf = torch.where(take_a, gj + v.clamp(0.0, 1.0), (gj + 1) - v.clamp(0.0, 1.0))
+        keep = (c.rows < dst_h) & (c.cols < dst_w)
+        rows, cols = c.rows[keep], c.cols[keep]
+        out[0, rows, cols] = torch.where(found, src_if, _NAN)[keep]
+        out[1, rows, cols] = torch.where(found, src_jf, _NAN)[keep]
     return out
+
+
+def phase_a_tiled_pairs(g, tiles, bjs, bis, win, tile, n_ti, uv_delta, dst_shape):
+    """K20's (pixel, window quad) pairs, chunk by chunk of tiles, for the
+    tests: each chunk of :func:`_tiled_chunks` with ``ok_a``, ``ok_b``
+    (T, n_p, nq: whether triangle A, B accepts the pixel, K20's own
+    rounding), ``cand_a``, ``cand_b`` (the pixel lies in the triangle's
+    box, clipped to the tile's pixels inside the target: the pairs K20
+    solves) and ``listed`` (T, 1, nq: the quads K20's first pass keeps)."""
+    dst_h, dst_w = dst_shape
+    pad_max = _cull_pad_max(uv_delta)
+    for c in _tiled_chunks(g, tiles, bjs, bis, win, tile, n_ti):
+        (_, *tri_a), (_, *tri_b) = _tiled_triangles(c)
+        _, _, c.ok_a = _tiled_solve(c.px, c.py, *tri_a, uv_delta)
+        _, _, c.ok_b = _tiled_solve(c.px, c.py, *tri_b, uv_delta)
+        inside = ((c.rows < dst_h) & (c.cols < dst_w))[:, :, None]
+        col, row = c.px - 0.5, c.py - 0.5
+        c.cand_a = _in_box(hybrid_tri_boxes(*tri_a, uv_delta), col, row) & inside
+        c.cand_b = _in_box(hybrid_tri_boxes(*tri_b, uv_delta), col, row) & inside
+        # pass 1: the nodes' box grown as far as the triangles' boxes can
+        # grow, against the tile's pixel centres inside the target
+        x0, y0 = c.px[:, :1] - 0.5, c.py[:, :1] - 0.5
+        n_cols = (dst_w - x0).clamp(max=tile)
+        n_rows = (dst_h - y0).clamp(max=tile)
+        xs, ys = (c.p0x, c.p1x, c.p2x, c.p3x), (c.p0y, c.p1y, c.p2y, c.p3y)
+        xl, xh, yl, yh = (functools.reduce(f, v) for f, v in (
+            (torch.fmin, xs), (torch.fmax, xs), (torch.fmin, ys), (torch.fmax, ys)))
+        rx = (2 * pad_max) * (xh - xl) + _CULL_REACH * ((1 + xl.abs()) + xh.abs())
+        ry = (2 * pad_max) * (yh - yl) + _CULL_REACH * ((1 + yl.abs()) + yh.abs())
+        meets = ((xl - rx <= x0 + (n_cols - 0.5)) & (xh + rx >= x0 + 0.5)
+                 & (yl - ry <= y0 + (n_rows - 0.5)) & (yh + ry >= y0 + 0.5))
+        c.listed = meets | ~(_cull_sure(*tri_a) & _cull_sure(*tri_b))
+        yield c
+
+
+def _cull_pad_max(uv_delta):
+    """The cull's pad_max (``phase_a_common.h``, ``cull_of``): the largest
+    barycentric growth of a triangle's box where its bound is derived."""
+    uv_max = 1.0 + 2 * uv_delta
+    c = _EPS * (1 + 3 * uv_delta)
+    base = uv_delta + (uv_max - 1) + 4 * _EPS
+    return base + 3.0 * (c * 51 * _CULL_KMAX + c * 8)
+
+
+def _cull_sure(q0x, q0y, q1x, q1y, q2x, q2y, det):
+    """``phase_a_common.h``'s ``sure``: the triangle is dropped (*det*, NaN
+    to 0, is 0) or well inside the box's derived range."""
+    p = (((q1x - q0x).abs() + (q2x - q0x).abs())
+         * ((q1y - q0y).abs() + (q2y - q0y).abs()))
+    return (det == 0) | ((p <= (_CULL_KMAX / 2) * det.abs()) & (p >= _CULL_PMIN)
+                         & (p <= _CULL_PMAX))
+
+
+def _tiled_smem(win: int, tile: int) -> int:
+    """K20's shared memory a block (``csrc/phase_a_tiled.cu``): the window's
+    nodes, the pixels' keys and the list of quads."""
+    return 16 * win * win + 4 * tile * tile + 4 * (win - 1) ** 2
+
+
+# the shared memory a K20 block may take (227 KB, less its list's count)
+_TILED_SMEM_MAX = 232448 - 16
 
 
 def phase_a_tiled(g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out):
     """K20: :func:`phase_a_tiled_plain` on the card, one launch: *tiles*
     (int32, n) or None for tiles 0 .. n - 1, *bjs*, *bis* (int32, n), *out*
-    (2, dst_h, dst_w) float64 written in place and returned."""
+    (2, dst_h, dst_w) float64 written in place and returned.  On CPU
+    tensors the culled plain form, K20's pairs (the same map)."""
     if on_cpu(g, bjs, bis, out):
-        return phase_a_tiled_plain(g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out)
+        return phase_a_tiled_plain(g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out,
+                                   cull=True)
     _, src_h, src_w = g.shape
     (n,) = bjs.shape
     require_cuda(g, "g", _F64, (2, src_h, src_w))
@@ -423,9 +567,10 @@ def phase_a_tiled(g, tiles, bjs, bis, win, tile, n_ti, uv_delta, out):
     if tiles is not None:
         require_cuda(tiles, "tiles", torch.int32, (n,))
     require_cuda(out, "out", _F64, (2,) + tuple(out.shape[1:]))
-    if not (2 <= win <= 120 and 1 <= tile <= 32):
-        raise ValueError(f"K20 takes windows of 2 to 120 nodes and tiles of 1 to 32 pixels: "
-                         f"window {win}, tile {tile}")
+    if not (2 <= win and 1 <= tile <= 32 and _tiled_smem(win, tile) <= _TILED_SMEM_MAX):
+        raise ValueError(f"K20 takes tiles of 1 to 32 pixels and windows of 2 nodes up to "
+                         f"its block's {_TILED_SMEM_MAX} bytes of shared memory (107 at tile "
+                         f"8): window {win}, tile {tile}")
     lib = _build.load()
     with torch.cuda.device(g.device):
         rc = lib.xrt_phase_a_tiled(

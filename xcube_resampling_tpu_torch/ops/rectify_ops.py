@@ -396,6 +396,8 @@ _CULL_KMAX = 1e-4 / _EPS
 _CULL_PMIN = 2.0**-500
 _CULL_PMAX = 2.0**500
 _CULL_SLACK = 2.0**-40
+# a quad's reach past its nodes' box in the kernels' first pass (kCullReach)
+_CULL_REACH = 2.0**-30
 
 
 # The hybrid's triangle formulas as XLA's CPU backend contracts them in
@@ -561,15 +563,16 @@ def hybrid_seed_plain(gx, gy, dst_shape, tile, max_edge, margin, r0=0.0, coarse_
 
 
 def hybrid_tri_boxes(q0x, q0y, q1x, q1y, q2x, q2y, det, uv_delta):
-    """Plain mirror of K12's triangle box (``csrc/hybrid_phase_a.cu``,
+    """Plain mirror of K12's and K20's triangle box (``csrc/phase_a_common.h``,
     ``tri_box``, where the bound is derived): for triangle (q0, q1, q2) with
     determinant *det* (after ``nan_to_num``), the box in pixel-centre
     coordinates outside which K12's rounded barycentric test (and this
     module's emulation of it) cannot accept: (x_lo, x_hi, y_lo, y_hi),
     float64, in K12's operations and order.  Empty where *det* is 0;
     every pixel where the triangle is too ill-conditioned (or too large or
-    small) for the bound.  Only the tests and ``hybrid_dense_plain``'s
-    ``cull`` and ``solved`` use it."""
+    small) for the bound.  Only the tests, ``hybrid_dense_plain``'s
+    ``cull`` and ``solved`` and ``phase_a.phase_a_tiled_plain``'s ``cull``
+    use it."""
     u_min = -uv_delta
     uv_max = 1.0 + 2 * uv_delta
     d = -u_min

@@ -88,11 +88,12 @@ K1_MAX_ROWS = 64
 # its windows are planned; warps a block (kBandWarps), at most; its
 # instantiations' (bands of a row an item stages, stages of a warp's ring);
 # the blocks an SM its registers are capped for (bilinear and nearest,
-# triangular)
+# triangular), on float32 values and on float64 (K2's float64 form)
 BAND_COLS = 128
 BAND_WARPS = 4
 BAND_ITEMS = ((4, 3), (2, 3), (1, 3), (1, 1))
 BAND_MIN_BLOCKS = (5, 2)
+BAND_MIN_BLOCKS_F64 = (4, 2)
 # the H100's shared memory an SM and a block's most (bytes), and what the
 # runtime keeps of an SM's for each block
 SMEM_SM = 228 * 1024
@@ -183,20 +184,25 @@ class BandLaunch:
 
 
 def plan_band_launch(
-    batch: int, extent: int, triangular: bool, group: int = 4, warps: int = BAND_WARPS
+    batch: int, extent: int, triangular: bool, group: int = 4, warps: int = BAND_WARPS,
+    word: int = 4,
 ) -> BandLaunch:
-    """K2's launch for *batch* bands of windows *extent* columns wide: the
-    most bands an item of 4, 2 and 1 up to *batch* and *group*, 3 stages of
-    a warp's ring, *warps* warps a block; then fewer bands an item while the
-    block's ring leaves its SM too little shared memory for the blocks its
-    registers allow (:data:`BAND_MIN_BLOCKS`), and one stage, then fewer
-    warps, while it does not fit a block at all (the pairs of
-    :data:`BAND_ITEMS`).  ``ValueError`` where one band, one stage and one
-    warp do not fit."""
-    if batch < 1 or extent < 1 or group not in (4, 2, 1) or not 1 <= warps <= BAND_WARPS:
-        raise ValueError(f"K2: batch {batch}, extent {extent}, group {group}, warps {warps}")
-    row_bytes = 4 * extent * (2 if triangular else 1)  # one band's window row (and vd's)
-    target = SMEM_SM // BAND_MIN_BLOCKS[triangular] - SMEM_RESERVED
+    """K2's launch for *batch* bands of windows *extent* columns wide, of
+    *word*-byte values (4: float32; 8: K2's float64 form): the most bands
+    an item of 4, 2 and 1 up to *batch* and *group*, 3 stages of a warp's
+    ring, *warps* warps a block; then fewer bands an item while the block's
+    ring leaves its SM too little shared memory for the blocks its
+    registers allow (:data:`BAND_MIN_BLOCKS`, :data:`BAND_MIN_BLOCKS_F64`),
+    and one stage, then fewer warps, while it does not fit a block at all
+    (the pairs of :data:`BAND_ITEMS`).  ``ValueError`` where one band, one
+    stage and one warp do not fit."""
+    if (batch < 1 or extent < 1 or group not in (4, 2, 1) or not 1 <= warps <= BAND_WARPS
+            or word not in (4, 8)):
+        raise ValueError(f"K2: batch {batch}, extent {extent}, group {group}, warps {warps}, "
+                         f"{word}-byte words")
+    row_bytes = word * extent * (2 if triangular else 1)  # one band's window row (and vd's)
+    min_blocks = BAND_MIN_BLOCKS if word == 4 else BAND_MIN_BLOCKS_F64
+    target = SMEM_SM // min_blocks[triangular] - SMEM_RESERVED
     g = group
     while g > batch:
         g //= 2
@@ -213,8 +219,8 @@ def plan_band_launch(
         warps //= 2
     if smem() > SMEM_BLOCK_MAX:
         raise ValueError(
-            f"K2: a window row of {extent} columns{' (and vd)' if triangular else ''} does not "
-            f"fit the kernel's {SMEM_BLOCK_MAX} bytes of shared memory"
+            f"K2: a window row of {extent} {word}-byte columns{' (and vd)' if triangular else ''} "
+            f"does not fit the kernel's {SMEM_BLOCK_MAX} bytes of shared memory"
         )
     return BandLaunch(g, s, warps, smem())
 
@@ -523,35 +529,40 @@ def horizontal_c_args(
     v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
     interp_method, fill_value, vd, row0, out, launch=None,
 ):
-    """K2's C arguments (``xrt_srw_horizontal_f32`` but the stream) into
-    *out*, checked against its plan: a warp for each :data:`BAND_COLS`-
-    column segment of 16 rows, staged as *launch* (a :class:`BandLaunch`;
-    default :func:`plan_band_launch`'s) says."""
+    """K2's C arguments (``xrt_srw_horizontal_f32``, or ``_f64`` for float64
+    *v*, but the stream) into *out*, checked against its plan: a warp for
+    each :data:`BAND_COLS`-column segment of 16 rows, staged as *launch* (a
+    :class:`BandLaunch`; default :func:`plan_band_launch`'s for *v*'s
+    word) says."""
     tri = interp_method == "triangular"
     vd = vd if tri else None
     batch, out_h, src_w = v.shape
     n_row_tiles, out_w = base_h.shape
     w = windows
     ncj, nci = ix_c.shape
+    vt = v.dtype
     if (row_tile < 1 or n_row_tiles != -(-out_h // row_tile) or w.extent % 4
-            or w.cols != BAND_COLS or d_h < 1 or step < 1 or ncj < 2 or nci < 2):
+            or w.cols != BAND_COLS or d_h < 1 or step < 1 or ncj < 2 or nci < 2
+            or vt not in (_F32, _F64)):
         raise ValueError(
             f"inconsistent K2 plan: base_h {tuple(base_h.shape)}, out_h {out_h}, row_tile "
             f"{row_tile}, windows of {w.cols} columns (the kernel's segments are {BAND_COLS}), "
-            f"extent {w.extent}, d_h {d_h}, step {step}, coarse fields {tuple(ix_c.shape)}"
+            f"extent {w.extent}, d_h {d_h}, step {step}, coarse fields {tuple(ix_c.shape)}, "
+            f"v {vt}"
         )
-    require_cuda(v, "v", _F32, (batch, out_h, src_w))
+    require_cuda(v, "v", vt, (batch, out_h, src_w))
     require_cuda(base_h, "base_h", torch.int32, (n_row_tiles, out_w))
     require_cuda(w.lohi, "windows", torch.int32, (n_row_tiles, -(-out_w // w.cols), 2))
     require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
     require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
+    require_cuda(out, "out", vt, (batch, out_h, out_w))
     if tri:
-        require_cuda(vd, "vd", _F32, (batch, out_h, src_w))
+        require_cuda(vd, "vd", vt, (batch, out_h, src_w))
     vec4 = (
         src_w % 4 == 0 and v.data_ptr() % 16 == 0
         and (vd is None or vd.data_ptr() % 16 == 0)
     )
-    launch = launch or plan_band_launch(max(batch, 1), w.extent, tri)
+    launch = launch or plan_band_launch(max(batch, 1), w.extent, tri, word=v.element_size())
     return (
         v.data_ptr(), _ptr(vd), ix_c.data_ptr(), iy_c.data_ptr(), base_h.data_ptr(),
         w.lohi.data_ptr(), out.data_ptr(), batch, out_h, out_w, src_h, src_w, ncj, nci,
@@ -561,52 +572,14 @@ def horizontal_c_args(
     )
 
 
-def _launch_horizontal_f64(
-    v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, interp_method, fill_value, vd, row0,
-    name,
-):
-    """K2 on float64 ``v`` (``csrc/srw_horizontal_f64.cu``), its launch
-    counted under *name* and the dtype."""
-    tri = interp_method == "triangular"
-    batch, out_h, src_w = v.shape
-    n_row_tiles, out_w = base_h.shape
-    ncj, nci = ix_c.shape
-    if row_tile < 1 or d_h < 1 or step < 1 or ncj < 2 or nci < 2:
-        raise ValueError(f"inconsistent K2 plan: row_tile {row_tile}, d_h {d_h}, step {step}")
-    require_cuda(v, "v", _F64, (batch, out_h, src_w))
-    if tri:
-        require_cuda(vd, "vd", _F64, (batch, out_h, src_w))
-    require_cuda(base_h, "base_h", torch.int32, (n_row_tiles, out_w))
-    require_cuda(ix_c, "ix_c", _F32, (ncj, nci))
-    require_cuda(iy_c, "iy_c", _F32, (ncj, nci))
-    out = torch.empty((batch, out_h, out_w), dtype=_F64, device=v.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(v.device):
-        rc = lib.xrt_srw_horizontal_f64(
-            v.data_ptr(), _ptr(vd if tri else None), ix_c.data_ptr(), iy_c.data_ptr(),
-            base_h.data_ptr(), out.data_ptr(), batch, out_h, out_w, src_h, src_w, ncj, nci,
-            step, row_tile, n_row_tiles, d_h, method_code(interp_method), float(fill_value),
-            row0, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, name)
-    count_launch(launch_name(name, _F64, (_F32,)))
-    return out
-
-
 def _launch_horizontal(
     v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
     interp_method, fill_value, vd, row0, name,
 ):
-    """K2's kernel on CUDA tensors, its launch counted under *name*
-    (float64 ``v``: :func:`_launch_horizontal_f64`)."""
-    if v.dtype == _F64:
-        return _launch_horizontal_f64(
-            v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, interp_method, fill_value,
-            vd, row0, name,
-        )
-    out = torch.empty((v.shape[0], v.shape[1], base_h.shape[1]), dtype=_F32, device=v.device)
+    """K2's kernel on CUDA tensors (its float64 instantiation on float64
+    ``v``), its launch counted under *name* and, for float64, the dtype."""
+    out = torch.empty((v.shape[0], v.shape[1], base_h.shape[1]), dtype=v.dtype,
+                      device=v.device)
     args = horizontal_c_args(
         v, ix_c, iy_c, step, base_h, row_tile, d_h, src_h, windows,
         interp_method, fill_value, vd, row0, out,
@@ -614,8 +587,9 @@ def _launch_horizontal(
     if out.numel() == 0:
         return out
     lib = _build.load()
+    entry = lib.xrt_srw_horizontal_f64 if v.dtype == _F64 else lib.xrt_srw_horizontal_f32
     with torch.cuda.device(v.device):
-        rc = lib.xrt_srw_horizontal_f32(*args, torch.cuda.current_stream().cuda_stream)
+        rc = entry(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, name)
-    count_launch(name)
+    count_launch(launch_name(name, v.dtype, (_F32,)))
     return out
